@@ -1,0 +1,249 @@
+"""UNet denoiser.
+
+Counterpart of `diffusion_models_collection_tpu/models/unet.py`, with the
+PyTorch reference's module names (`down_blocks.{g}.{j}`, `middle_block.{j}`,
+`up_blocks.{g}.{j}`, `time_embed`, `label_embed`, `input_conv`, `output`), so
+reference `.pth` weights and JAX checkpoints bridged by `utils/weights.py`
+load with `strict=True`.
+
+Contract: `model(x, t, y) -> eps` with x (B, H, W, C) float32, t (B,) int,
+y (B,) int labels shifted by +1 with 0 the CFG null label. Inside, the NHWC
+input is viewed as NCHW with channels-last strides, so cuDNN runs the convs
+in NHWC and GroupNorm+SiLU reads a contiguous (B, H*W, C) block, the layout
+its kernel (`ops/fused_norm.py`) takes. Attention goes through the
+flash-attention kernel (`ops/attention.py`).
+
+Not ported yet, and raising when asked for: `remat` (training slice,
+ROADMAP queue 1 item 4), `pag_perturb`, `freeu` and `deepcache_mode`
+(ROADMAP queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multihead_attention
+from ..ops.fused_norm import group_norm_silu
+from .layers import LabelEmbedder, UNetTimeEmbed
+
+
+class FusedGroupNormSiLU(nn.Module):
+    """GroupNorm(num_groups, eps 1e-5) + SiLU in one kernel. Owns the same
+    `weight` and `bias` as `nn.GroupNorm`; takes and returns NCHW tensors,
+    channels-last in memory. Statistics always in float32."""
+
+    def __init__(self, num_channels: int, num_groups: int = 8):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a no-op copy for a channels-last x: the permute is contiguous
+        x_nhwc = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        y = group_norm_silu(x_nhwc, self.weight, self.bias, self.num_groups)
+        return y.permute(0, 3, 1, 2)
+
+
+class ResidualBlock(nn.Module):
+    """GroupNorm(8)+SiLU+Conv twice, with additive time and label terms.
+
+    The reference's Sequentials are kept for their key names; the SiLU slot
+    after each norm holds an Identity because the kernel applies SiLU.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, time_dim: int,
+                 conditional: bool, dropout: float):
+        super().__init__()
+        self.conv1 = nn.Sequential(FusedGroupNormSiLU(in_ch), nn.Identity(),
+                                   nn.Conv2d(in_ch, out_ch, 3, padding=1))
+        self.time_mlp = nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch))
+        self.label_proj = (
+            nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch, bias=False))
+            if conditional else None)
+        self.conv2 = nn.Sequential(FusedGroupNormSiLU(out_ch), nn.Identity(),
+                                   nn.Dropout(dropout),
+                                   nn.Conv2d(out_ch, out_ch, 3, padding=1))
+        self.shortcut = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+                         else nn.Identity())
+
+    def forward(self, x, t_emb, y_emb=None):
+        h = self.conv1(x)
+        h = h + self.time_mlp(t_emb)[:, :, None, None]
+        if self.label_proj is not None and y_emb is not None:
+            h = h + self.label_proj(y_emb)[:, :, None, None]
+        h = self.conv2(h)
+        return h + self.shortcut(x)
+
+
+class AttentionBlock(nn.Module):
+    """Self-attention over the H*W positions: GroupNorm(8), a 1x1 conv to
+    q, k, v (split as `reshape(b, hw, 3, c)`, as the JAX package does),
+    multi-head attention, a 1x1 projection and the residual."""
+
+    def __init__(self, channels: int, num_heads: int = 4):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm = nn.GroupNorm(8, channels, eps=1e-5)
+        self.qkv = nn.Conv2d(channels, 3 * channels, 1)
+        self.proj = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hidden = self.norm(x.to(torch.float32))
+        qkv = self.qkv(hidden).permute(0, 2, 3, 1).reshape(b, h * w, 3, c)
+        q, k, v = qkv.unbind(2)
+        out = multihead_attention(q, k, v, self.num_heads)
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return x + self.proj(out)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest x2, then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class UNet(nn.Module):
+    """UNet for diffusion; constructor parity with the JAX `UNet`.
+
+    `num_classes=None` builds the unconditional variant. The block layout
+    replays the reference constructor, including its attention placement on
+    the up path: the resolution is doubled only after a level's upsample is
+    built, so that level's attention check sees the lower resolution.
+    """
+
+    def __init__(
+        self,
+        image_size: Tuple[int, int] = (32, 32),
+        in_channels: int = 3,
+        model_channels: int = 128,
+        out_channels: int = 3,
+        num_res_blocks: int = 2,
+        attention_resolutions: Sequence[int] = (16, 8),
+        dropout: float = 0.1,
+        channel_mult: Sequence[int] = (1, 2, 2, 2),
+        num_classes: Optional[int] = None,
+        use_attention: bool = True,
+        remat: bool = False,
+        pag_perturb: bool = False,
+        freeu=None,
+        deepcache_mode: Optional[str] = None,
+        deepcache_depth: int = 1,
+    ):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "remat (gradient checkpointing) belongs to training, not "
+                "ported yet (ROADMAP queue 1 item 4)")
+        for knob, value, default in (("pag_perturb", pag_perturb, False),
+                                     ("freeu", freeu, None),
+                                     ("deepcache_mode", deepcache_mode, None)):
+            if value != default:
+                raise NotImplementedError(
+                    f"{knob} is not ported yet (ROADMAP queue 1 item 10)")
+        self.image_size = tuple(image_size)
+        self.in_channels = in_channels
+        self.num_classes = num_classes
+        conditional = num_classes is not None
+        time_dim = model_channels * 4
+        n_levels = len(channel_mult)
+
+        def attend(resolution):
+            return use_attention and (
+                resolution[0] in attention_resolutions
+                or resolution[1] in attention_resolutions)
+
+        def res(cin, cout):
+            return ResidualBlock(cin, cout, time_dim, conditional, dropout)
+
+        self.time_embed = UNetTimeEmbed(model_channels)
+        self.label_embed = (LabelEmbedder(num_classes, time_dim)
+                            if conditional else None)
+        self.input_conv = nn.Conv2d(in_channels, model_channels, 3, padding=1)
+
+        resolution = list(self.image_size)
+        ch = model_channels
+        skip_channels = [ch]
+        self.down_blocks = nn.ModuleList()
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                group = [res(ch, model_channels * mult)]
+                ch = model_channels * mult
+                if attend(resolution):
+                    group.append(AttentionBlock(ch))
+                self.down_blocks.append(nn.ModuleList(group))
+                skip_channels.append(ch)
+            if level != n_levels - 1:
+                self.down_blocks.append(nn.ModuleList([Downsample(ch)]))
+                skip_channels.append(ch)
+                resolution = [r // 2 for r in resolution]
+
+        middle = [res(ch, ch)]
+        if use_attention:
+            middle.append(AttentionBlock(ch))
+        middle.append(res(ch, ch))
+        self.middle_block = nn.ModuleList(middle)
+
+        self.up_blocks = nn.ModuleList()
+        for level, mult in enumerate(reversed(channel_mult)):
+            for i in range(num_res_blocks + 1):
+                group = [res(ch + skip_channels.pop(), model_channels * mult)]
+                ch = model_channels * mult
+                if attend(resolution):
+                    group.append(AttentionBlock(ch))
+                if level != n_levels - 1 and i == num_res_blocks:
+                    group.append(Upsample(ch))
+                    resolution = [r * 2 for r in resolution]
+                self.up_blocks.append(nn.ModuleList(group))
+
+        self.output = nn.Sequential(FusedGroupNormSiLU(ch), nn.Identity(),
+                                    nn.Conv2d(ch, out_channels, 3, padding=1))
+        # channels-last conv weights: cuDNN then runs every conv in NHWC
+        self.to(memory_format=torch.channels_last)
+
+    @staticmethod
+    def _run(group, h, t_emb, y_emb):
+        for layer in group:
+            if isinstance(layer, ResidualBlock):
+                h = layer(h, t_emb, y_emb)
+            else:
+                h = layer(h)
+        return h
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        t_emb = self.time_embed(t)
+        y_emb = (self.label_embed(y)
+                 if self.label_embed is not None and y is not None else None)
+        h = self.input_conv(x.to(torch.float32).permute(0, 3, 1, 2))
+        hs = [h]
+        for group in self.down_blocks:
+            h = self._run(group, h, t_emb, y_emb)
+            hs.append(h)
+        h = self._run(self.middle_block, h, t_emb, y_emb)
+        for group in self.up_blocks:
+            h = torch.cat([h, hs.pop()], dim=1)
+            h = self._run(group, h, t_emb, y_emb)
+        h = self.output(h)
+        return h.permute(0, 2, 3, 1).contiguous()

@@ -1,0 +1,134 @@
+"""Build and load the port's CUDA kernels.
+
+Replaces the JAX package's `ops/dispatch.py`: there is no backend choice to
+make. A wrapper runs its plain PyTorch version for a CPU tensor and launches
+its kernel for a CUDA tensor, or raises.
+
+The kernels are CUDA C++ for Hopper (`sm_90a`) under `../csrc/`, compiled
+with nvcc into one shared library with a plain C interface and loaded with
+ctypes. The build runs at the first kernel launch, never at import (this
+package imports on machines without nvcc), and goes into
+`<checkout>/build/torch_kernels/`, keyed by a hash of the sources and flags,
+so a second process reuses it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+# Filled by the build that this process ran or found: the library's path,
+# the seconds nvcc took (0.0 when an earlier build was reused) and the
+# compiler's output (registers, shared memory and spills per kernel).
+build_info: dict = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor at /usr/local/cuda/bin): the "
+        "port's CUDA kernels cannot be built on this machine"
+    )
+
+
+def build() -> Path:
+    """Compile `csrc/*.cu` into the shared library unless a build of the
+    same sources and flags exists; return its path."""
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libdmc_torch_kernels-{digest.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
+    if lib_path.exists():
+        build_info.update(path=str(lib_path), seconds=0.0,
+                          log=log_path.read_text() if log_path.exists() else "")
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+        )
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
+    build_info.update(path=str(lib_path), seconds=seconds, log=log)
+    return lib_path
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gn_silu_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+    lib.gn_silu_fwd.restype = i32
+    lib.flash_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
+                                   ptr]
+    lib.flash_attn_fwd.restype = i32
+    lib.dmc_cuda_error_string.argtypes = [i32]
+    lib.dmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel entry returned a CUDA error."""
+    if err != 0:
+        msg = library().dmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_inputs(name: str, *tensors) -> None:
+    """What every kernel takes: float32 tensors, contiguous, on one device
+    that is the CPU (plain version) or a CUDA device (kernel)."""
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,121 @@
+"""Utility functions of the sampling path.
+
+Counterpart of `diffusion_models_collection_tpu/utils/helpers.py`.
+`set_seed` returns a `torch.Generator` (the JAX package returns a PRNG key),
+and images are written as PNG by a small zlib encoder, since Pillow is not
+a dependency of the port.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import math
+import random
+import struct
+import sys
+import zlib
+from pathlib import Path
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+
+def set_seed(seed: int = 42, device: Union[str, torch.device] = "cpu"
+             ) -> torch.Generator:
+    """Seed Python's, numpy's and torch's global generators and return a
+    `torch.Generator` on `device` seeded with `seed`."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def resolve_image_size(image_size: Union[int, Sequence[int]]
+                       ) -> Tuple[int, int]:
+    """Normalize image_size to (H, W)."""
+    if isinstance(image_size, int):
+        return (image_size, image_size)
+    if isinstance(image_size, (list, tuple)) and len(image_size) == 2:
+        h, w = image_size
+        if not (isinstance(h, int) and isinstance(w, int)):
+            raise ValueError("image_size values must be integers")
+        return (h, w)
+    raise ValueError("image_size must be int or a pair (H, W)")
+
+
+def load_config(config_path: Union[str, Path]) -> dict:
+    """A config dict from a `.py` module (its `config` variable), a `.json`
+    or a `.yaml`/`.yml` file."""
+    path = Path(config_path)
+    if path.suffix == ".json":
+        with path.open("r", encoding="utf-8") as f:
+            return json.load(f)
+    if path.suffix in (".yaml", ".yml"):
+        import yaml
+
+        with path.open("r", encoding="utf-8") as f:
+            return yaml.safe_load(f)
+    spec = importlib.util.spec_from_file_location("config", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["config"] = module
+    spec.loader.exec_module(module)
+    return module.config
+
+
+def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2
+              ) -> np.ndarray:
+    """Tile (N, H, W, C) images into one (GH, GW, C) grid, `nrow` images per
+    row, zero padding between them."""
+    images = np.asarray(images)
+    n, h, w, c = images.shape
+    rows = math.ceil(n / nrow)
+    grid = np.zeros((rows * h + (rows + 1) * padding,
+                     nrow * w + (nrow + 1) * padding, c), dtype=images.dtype)
+    for idx in range(n):
+        r, col = divmod(idx, nrow)
+        y = padding + r * (h + padding)
+        x = padding + col * (w + padding)
+        grid[y:y + h, x:x + w] = images[idx]
+    return grid
+
+
+def write_png(path: Union[str, Path], image: np.ndarray) -> None:
+    """Write an (H, W) or (H, W, C) uint8 image, C in {1, 3, 4}, as an
+    8-bit PNG (no filtering, zlib level 6)."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {image.dtype}")
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[..., 0]
+    h, w = image.shape[:2]
+    channels = 1 if image.ndim == 2 else image.shape[2]
+    color_type = {1: 0, 3: 2, 4: 6}[channels]
+    rows = image.reshape(h, w * channels)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                           + chunk(b"IDAT", zlib.compress(raw, 6))
+                           + chunk(b"IEND", b""))
+
+
+def save_image_grid(images: np.ndarray, save_path: Union[str, Path],
+                    nrow: int = 8, padding: int = 2) -> None:
+    """Save (N, H, W, C) float images in [0, 1] as one PNG grid."""
+    grid = make_grid(np.asarray(images, dtype=np.float32), nrow, padding)
+    write_png(save_path,
+              (np.clip(grid, 0.0, 1.0) * 255).round().astype(np.uint8))
+
+
+def format_duration(total_seconds: float) -> str:
+    """'Xh Ym Zs' wall-time string."""
+    hours = int(total_seconds // 3600)
+    minutes = int((total_seconds % 3600) // 60)
+    return f"{hours}h {minutes}m {total_seconds % 60:.1f}s"
