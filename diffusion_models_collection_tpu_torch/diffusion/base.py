@@ -1,9 +1,11 @@
-"""Shared diffusion-process pieces of the sampling path: x0 recovery,
-parameterization views, classifier-free guidance and x0 constraints.
+"""Shared diffusion-process pieces: the forward process and training
+losses, x0 recovery, parameterization views, classifier-free guidance and
+x0 constraints.
 
-Counterpart of the sampling half of
-`diffusion_models_collection_tpu/diffusion/base.py`. Plain functions on
-tensors; the model is any callable `(x, t, y) -> output` on NHWC tensors.
+Counterpart of `diffusion_models_collection_tpu/diffusion/base.py`. Plain
+functions on tensors; the model is any callable `(x, t, y) -> output` on
+NHWC tensors, and the noise is always passed in (the callers draw it from a
+`torch.Generator`).
 """
 
 from __future__ import annotations
@@ -14,11 +16,127 @@ import torch
 
 from .schedule import NoiseSchedule, extract
 
+VALID_LOSS_TYPES = ("l1", "l2", "huber")
 VALID_PREDICTION_TYPES = ("eps", "v", "x0")
+VALID_LOSS_WEIGHTINGS = ("uniform", "snr", "min_snr")
 
 # Sentinel default for p_threshold: 0.995 in bounded (pixel) spaces, None
 # in unbounded (latent) ones.
 AUTO_THRESHOLD = "auto"
+
+
+class ScheduledProcess:
+    """A diffusion process over one `NoiseSchedule` (`self.schedule`, on
+    the CPU), whose tensors it copies to each device once."""
+
+    schedule: NoiseSchedule
+
+    def schedule_on(self, device) -> NoiseSchedule:
+        """The schedule's tensors on `device`, copied once per device."""
+        cache = self.__dict__.setdefault("_schedules", {})
+        key = str(torch.device(device))
+        if key not in cache:
+            cache[key] = self.schedule.to(device)
+        return cache[key]
+
+
+def invalid_choice(kind: str, value, valid) -> ValueError:
+    """The error for a value that is not one of `valid`."""
+    return ValueError(f"Unknown {kind}: {value!r} (expected one of {valid})")
+
+
+def q_sample(schedule: NoiseSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) = sqrt(acp_t) x_0 + sqrt(1 - acp_t)
+    noise."""
+    a = extract(schedule.sqrt_alphas_cumprod, t, x_start.ndim)
+    b = extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+    return a * x_start + b * noise
+
+
+def _elementwise_loss(diff: torch.Tensor, loss_type: str) -> torch.Tensor:
+    if loss_type == "l1":
+        return diff.abs()
+    if loss_type == "l2":
+        return diff**2
+    if loss_type == "huber":  # torch's smooth_l1_loss with beta 1
+        absd = diff.abs()
+        return torch.where(absd < 1.0, 0.5 * diff**2, absd - 0.5)
+    raise invalid_choice("loss type", loss_type, VALID_LOSS_TYPES)
+
+
+def diffusion_loss(target: torch.Tensor, predicted: torch.Tensor,
+                   loss_type: str = "l2") -> torch.Tensor:
+    """Mean l1, l2 or huber loss of the prediction against the target."""
+    return _elementwise_loss(predicted - target, loss_type).mean()
+
+
+def per_sample_loss(target: torch.Tensor, predicted: torch.Tensor,
+                    loss_type: str = "l2") -> torch.Tensor:
+    """`diffusion_loss` reduced per sample, shape (batch,)."""
+    loss = _elementwise_loss(predicted - target, loss_type)
+    return loss.mean(dim=tuple(range(1, loss.ndim)))
+
+
+def prediction_target(schedule: NoiseSchedule, x_start: torch.Tensor,
+                      noise: torch.Tensor, t: torch.Tensor,
+                      prediction_type: str = "eps") -> torch.Tensor:
+    """The regression target: the noise (eps), the clean image (x0), or
+    v = sqrt(acp_t) eps - sqrt(1 - acp_t) x0."""
+    if prediction_type == "eps":
+        return noise
+    if prediction_type == "x0":
+        return x_start
+    if prediction_type == "v":
+        a = extract(schedule.sqrt_alphas_cumprod, t, x_start.ndim)
+        b = extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+        return a * noise - b * x_start
+    raise invalid_choice("prediction type", prediction_type,
+                         VALID_PREDICTION_TYPES)
+
+
+def loss_weight(schedule: NoiseSchedule, t: torch.Tensor,
+                prediction_type: str = "eps", weighting: str = "uniform",
+                snr_gamma: float = 5.0) -> torch.Tensor:
+    """Per-sample timestep weights, shape (batch,): a weight W(t) on the
+    x0-space error (uniform: 1 in target space; snr: SNR; min_snr:
+    min(SNR, gamma)), divided by the target's conversion factor (SNR for
+    eps, SNR + 1 for v, 1 for x0)."""
+    if weighting == "uniform":
+        return torch.ones(t.shape, dtype=torch.float32, device=t.device)
+    acp = extract(schedule.alphas_cumprod, t, 1)
+    snr = acp / (1.0 - acp)
+    if weighting == "snr":
+        w_x0 = snr
+    elif weighting == "min_snr":
+        w_x0 = torch.clamp(snr, max=float(snr_gamma))
+    else:
+        raise invalid_choice("loss weighting", weighting,
+                             VALID_LOSS_WEIGHTINGS)
+    if prediction_type == "eps":
+        return w_x0 / snr
+    if prediction_type == "v":
+        return w_x0 / (snr + 1.0)
+    if prediction_type == "x0":
+        return w_x0
+    raise invalid_choice("prediction type", prediction_type,
+                         VALID_PREDICTION_TYPES)
+
+
+def p_losses(schedule: NoiseSchedule, model_fn: Callable,
+             x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+             y: Optional[torch.Tensor] = None, loss_type: str = "l2",
+             prediction_type: str = "eps", weighting: str = "uniform",
+             snr_gamma: float = 5.0) -> torch.Tensor:
+    """Training loss: noise x_start to x_t, predict the target, and take
+    the loss, weighted per sample unless the weighting is uniform."""
+    x_noisy = q_sample(schedule, x_start, t, noise)
+    predicted = model_fn(x_noisy, t, y)
+    target = prediction_target(schedule, x_start, noise, t, prediction_type)
+    if weighting == "uniform":
+        return diffusion_loss(target, predicted, loss_type)
+    w = loss_weight(schedule, t, prediction_type, weighting, snr_gamma)
+    return (w * per_sample_loss(target, predicted, loss_type)).mean()
 
 
 def predict_x0_from_eps(schedule: NoiseSchedule, x: torch.Tensor,
@@ -51,8 +169,8 @@ def wrap_model_as_eps_x0(schedule: NoiseSchedule, model_fn: Callable,
             b = extract(schedule.sqrt_one_minus_alphas_cumprod, t, x.ndim)
             return (x - a * x0) / torch.clamp(b, min=1e-12), x0
     else:
-        raise ValueError(f"Unknown prediction type: {prediction_type!r} "
-                         f"(expected one of {VALID_PREDICTION_TYPES})")
+        raise invalid_choice("prediction type", prediction_type,
+                       VALID_PREDICTION_TYPES)
     return pair
 
 

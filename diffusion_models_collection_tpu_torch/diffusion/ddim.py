@@ -40,9 +40,9 @@ def ddim_step(schedule: NoiseSchedule, x: torch.Tensor, t: torch.Tensor,
     return x_prev
 
 
-class DDIM:
-    """DDIM diffusion process: the JAX class's sampling API. The
-    training-side methods and arguments belong to the training slice."""
+class DDIM(base.ScheduledProcess):
+    """DDIM diffusion process: the JAX class's sampling API. Training runs
+    on `DDPM`, as in the JAX package."""
 
     def __init__(
         self,
@@ -81,20 +81,12 @@ class DDIM:
         self.schedule = NoiseSchedule.create(
             num_timesteps, beta_start, beta_end, beta_schedule,
             zero_terminal_snr=zero_terminal_snr)
-        self._schedules = {"cpu": self.schedule}
         self.set_inference_steps(num_inference_steps)
 
     def set_inference_steps(self, num_inference_steps: int):
         self.num_inference_steps = num_inference_steps
         self.inference_timesteps = ddim_timesteps(self.num_timesteps,
                                                   num_inference_steps)
-
-    def schedule_on(self, device) -> NoiseSchedule:
-        """The schedule's tensors on `device`, copied once per device."""
-        key = str(torch.device(device))
-        if key not in self._schedules:
-            self._schedules[key] = self.schedule.to(device)
-        return self._schedules[key]
 
     @torch.no_grad()
     def _run(self, model_fn, shape, generator, y, cfg_scale, init_noise, *,

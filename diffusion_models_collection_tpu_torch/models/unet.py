@@ -11,11 +11,11 @@ y (B,) int labels shifted by +1 with 0 the CFG null label. Inside, the NHWC
 input is viewed as NCHW with channels-last strides, so cuDNN runs the convs
 in NHWC and GroupNorm+SiLU reads a contiguous (B, H*W, C) block, the layout
 its kernel (`ops/fused_norm.py`) takes. Attention goes through the
-flash-attention kernel (`ops/attention.py`).
+flash-attention kernels (`ops/attention.py`). Both are autograd Functions,
+so a loss reaches every parameter.
 
-Not ported yet, and raising when asked for: `remat` (training slice,
-ROADMAP queue 1 item 4), `pag_perturb`, `freeu` and `deepcache_mode`
-(ROADMAP queue 1 item 10).
+Not ported yet, and raising when asked for: `remat` (ROADMAP queue 1 item
+4), `pag_perturb`, `freeu` and `deepcache_mode` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -154,8 +154,8 @@ class UNet(nn.Module):
         super().__init__()
         if remat:
             raise NotImplementedError(
-                "remat (gradient checkpointing) belongs to training, not "
-                "ported yet (ROADMAP queue 1 item 4)")
+                "remat (gradient checkpointing) is not ported yet (ROADMAP "
+                "queue 1 item 4)")
         for knob, value, default in (("pag_perturb", pag_perturb, False),
                                      ("freeu", freeu, None),
                                      ("deepcache_mode", deepcache_mode, None)):

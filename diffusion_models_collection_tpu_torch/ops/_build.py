@@ -6,10 +6,11 @@ its kernel for a CUDA tensor, or raises.
 
 The kernels are CUDA C++ for Hopper (`sm_90a`) under `../csrc/`, compiled
 with nvcc into one shared library with a plain C interface and loaded with
-ctypes. The build runs at the first kernel launch, never at import (this
-package imports on machines without nvcc), and goes into
-`<checkout>/build/torch_kernels/`, keyed by a hash of the sources and flags,
-so a second process reuses it.
+ctypes. Each source compiles in its own nvcc process, all started together,
+and one more nvcc links the objects. The build runs at the first kernel
+launch, never at import (this package imports on machines without nvcc), and
+goes into `<checkout>/build/torch_kernels/`, keyed by a hash of the sources
+and flags, so a second process reuses it.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -73,18 +74,34 @@ def build() -> Path:
                           log=log_path.read_text() if log_path.exists() else "")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    nvcc = _nvcc()
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cus = [src for src in srcs if src.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cus]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started at once; then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(cus, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *[str(o) for o in objs]]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
-        )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(out for _, out, _ in steps)
+    for cmd, out, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed (exit {rc}):\n{' '.join(cmd)}\n{out}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or none
     build_info.update(path=str(lib_path), seconds=seconds, log=log)
@@ -98,6 +115,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
                                    ptr]
     lib.flash_attn_fwd.restype = i32
+    lib.flash_attn_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
+    lib.flash_attn_bwd.restype = i32
     lib.dmc_cuda_error_string.argtypes = [i32]
     lib.dmc_cuda_error_string.restype = ctypes.c_char_p
     return lib

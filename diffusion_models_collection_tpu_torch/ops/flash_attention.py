@@ -1,11 +1,14 @@
-"""Flash-attention forward over (B*H, L, d).
+"""Flash attention over (B*H, L, d), forward and backward.
 
-Counterpart of the forward half of
-`diffusion_models_collection_tpu/ops/flash_attention.py` (`_flash_fwd_bh`):
-returns the output and the row logsumexp, which a backward recomputes the
-probabilities from. `flash_attention_fwd` launches `csrc/flash_attn.cu` on a
-CUDA tensor and runs `flash_attention_fwd_ref` on a CPU tensor. The
-backward kernel belongs to the training slice.
+Counterpart of `diffusion_models_collection_tpu/ops/flash_attention.py`:
+`flash_attention_fwd` (`_flash_fwd_bh`) returns the output and the row
+logsumexp; `flash_attention_bwd` (`_flash_bwd_bh`, `_bwd_jnp`) recomputes the
+probabilities from them and returns dq, dk and dv. Each launches its kernel
+(`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) on a CUDA tensor and runs
+its plain version (`flash_attention_fwd_ref`, `flash_attention_bwd_ref`) on a
+CPU tensor. `FlashAttention` joins the two as the JAX package's `_flash_core`
+custom_vjp does; `flash_attention` is its entry point and
+`flash_attention_ref` the plain differentiable attention it is held against.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from . import _build
 
 MAX_HEAD_DIM = 128
 
-# Kernel launches since the process started (or since a caller reset it).
+# Kernel launches since the process started (or since a caller reset them):
+# the forward's and the backward's.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def flash_attention_fwd_ref(
@@ -34,6 +39,44 @@ def flash_attention_fwd_ref(
     return o, torch.logsumexp(logits, dim=-1, keepdim=True)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch attention output, differentiable by autograd."""
+    return flash_attention_fwd_ref(q, k, v)[0]
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse,
+    dv = P^T dO, dS = P (dO v^T - rowsum(dO o)) / sqrt(d), dq = dS k,
+    dk = dS^T q."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
+
+
+def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """q and every other tensor one (BH, L, d) shape, d % 8 == 0 and at most
+    MAX_HEAD_DIM, 32-bit indexable on the card."""
+    if q.dim() != 3 or any(t.shape != q.shape for t in others):
+        raise ValueError(
+            f"{name}: the inputs must share one (BH, L, d) shape, got "
+            + ", ".join(str(tuple(t.shape)) for t in (q, *others)))
+    head_dim = q.shape[-1]
+    if head_dim % 8 or not 0 < head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {head_dim} must be a multiple of "
+                         f"8 in [8, {MAX_HEAD_DIM}]")
+    if q.device.type == "cuda" and q.numel() >= 2**31:
+        raise ValueError(f"{name}: shape {tuple(q.shape)} exceeds the "
+                         "kernel's 32-bit indexing")
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,19 +85,10 @@ def flash_attention_fwd(
     with lse of shape (BH, L, 1), the JAX kernel's layout."""
     global LAUNCHES
     _build.check_inputs("flash_attention_fwd", q, k, v)
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(
-            "flash_attention_fwd: q, k, v must share one (BH, L, d) shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    bh, seq_len, head_dim = q.shape
-    if head_dim % 8 or not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_fwd: head_dim {head_dim} must be a "
-                         f"multiple of 8 in [8, {MAX_HEAD_DIM}]")
+    _check_shapes("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v)
-    if bh * seq_len * head_dim >= 2**31:
-        raise ValueError(f"flash_attention_fwd: shape {tuple(q.shape)} "
-                         "exceeds the kernel's 32-bit indexing")
+    bh, seq_len, head_dim = q.shape
     lib = _build.library()
     o = torch.empty_like(q)
     lse = torch.empty((bh, seq_len, 1), dtype=torch.float32, device=q.device)
@@ -68,3 +102,62 @@ def flash_attention_fwd(
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
     return o, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward over (BH, L, d) float32 from the forward's o and
+    lse (BH, L, 1): the kernel for CUDA tensors, the plain version for CPU
+    tensors. Returns (dq, dk, dv)."""
+    global BWD_LAUNCHES
+    _build.check_inputs("flash_attention_bwd", q, k, v, o, do, lse)
+    _check_shapes("flash_attention_bwd", q, k, v, o, do)
+    bh, seq_len, head_dim = q.shape
+    if lse.shape != (bh, seq_len, 1):
+        raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
+                         f"1), got {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, lse)
+    lib = _build.library()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((bh, seq_len), dtype=torch.float32, device=q.device)
+    if q.numel():
+        # autograd runs a backward on its own thread: take that thread's
+        # current stream for the device here, at the launch
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attn_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, seq_len, head_dim,
+                1.0 / math.sqrt(head_dim), stream)
+        _build.check(err, "flash_attn_bwd")
+        BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is `flash_attention_fwd` and whose backward
+    is `flash_attention_bwd`, from the residuals (q, k, v, o, lse), as the
+    JAX package's `_flash_core` (`_flash_core_fwd`, `_flash_core_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # autograd hands dO over in the layout of the caller's reshapes
+        return flash_attention_bwd(q, k, v, o, do.contiguous(), lse)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention over (BH, L, d) float32 through the
+    forward and backward kernels (their plain versions on the CPU)."""
+    return FlashAttention.apply(q, k, v)

@@ -2,9 +2,12 @@
 
 Counterpart of `diffusion_models_collection_tpu/ops/fused_norm.py`. The UNet
 applies GroupNorm(8) + SiLU before both convs of every residual block and at
-the output head; `group_norm_silu` computes it in one kernel
+the output head; `group_norm_silu_fwd` computes it in one kernel
 (`csrc/gn_silu.cu`) on a CUDA tensor and through `group_norm_silu_ref` on a
-CPU tensor.
+CPU tensor. `group_norm_silu` is the differentiable op (`GroupNormSiLU`):
+as the JAX package's `_group_norm_silu_core` custom_vjp, its backward
+recomputes through the plain version and takes that one's vjp. The JAX
+package has no backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def group_norm_silu_ref(
     return F.silu(y * scale + bias)
 
 
-def group_norm_silu(
+def group_norm_silu_fwd(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
     """GroupNorm + SiLU on (B, H, W, C) float32: the kernel for a CUDA
@@ -65,3 +68,32 @@ def group_norm_silu(
         _build.check(err, "gn_silu_fwd")
         LAUNCHES += 1
     return y
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """GroupNorm + SiLU whose forward is `group_norm_silu_fwd` and whose
+    backward recomputes `group_norm_silu_ref` from the residuals
+    (x, scale, bias) and takes its vjp, as the JAX package's `_core_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups):
+        ctx.num_groups = num_groups
+        ctx.save_for_backward(x, scale, bias)
+        return group_norm_silu_fwd(x, scale, bias, num_groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        # g follows the consumer's layout; the recompute takes any layout
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = group_norm_silu_ref(*inputs, ctx.num_groups)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None)
+
+
+def group_norm_silu(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """Differentiable GroupNorm + SiLU on (B, H, W, C) float32 through the
+    forward kernel (its plain version on the CPU)."""
+    return GroupNormSiLU.apply(x, scale, bias, num_groups)

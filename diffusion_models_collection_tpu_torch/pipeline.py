@@ -1,8 +1,9 @@
 """Sampling pipeline behind `sample.py`.
 
-Counterpart of `diffusion_models_collection_tpu/pipeline.py` for the two
-branches this port serves: DDIM with classifier-free guidance (conditional
-checkpoints with --cfg_scale > 0) and plain DDIM. The JAX pipeline's other
+Counterpart of `diffusion_models_collection_tpu/pipeline.py` for the
+branches this port serves: DDIM or DDPM, each with classifier-free guidance
+(conditional checkpoints with --cfg_scale > 0) or plain. The JAX pipeline's
+other
 knobs (ToMe, FreeU, int8, PAG, DeepCache, classifier guidance,
 super-resolution, img2img, restarts, latent decode) are ROADMAP queue 1
 items 10 and 11; configs that ask for them raise in the factory.

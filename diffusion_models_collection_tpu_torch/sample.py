@@ -4,7 +4,9 @@
         --checkpoint best_model.pth --sampling_method ddim \\
         --num_inference_steps 50 --cfg_scale 3 --num_samples 80
 
-Counterpart of the repository's `sample.py` with the flags this port serves.
+Counterpart of the repository's `sample.py` with the flags this port serves:
+DDIM, or DDPM's ancestral sampling over all T steps (`--sampling_method
+ddpm`, which ignores `--num_inference_steps`).
 The checkpoint is a PyTorch reference `.pth` or a JAX `.ckpt`, config
 embedded. Labels follow the reference: per-row classes shifted by +1, 0 the
 CFG null label. Writes an image grid (PNG) and the images as a float32
@@ -27,8 +29,8 @@ import torch
 
 from .pipeline import SamplingPipeline, build_labels
 from .utils.checkpoint import load_checkpoint
-from .utils.helpers import (format_duration, load_config, save_image_grid,
-                            set_seed)
+from .utils.helpers import (format_duration, load_config, resolve_device,
+                            save_image_grid, set_seed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str, default=None,
                         help="Path to config file (if not in checkpoint)")
     parser.add_argument("--sampling_method", type=str, default="ddim",
-                        choices=["ddim"], help="Sampling method")
+                        choices=["ddim", "ddpm"], help="Sampling method")
     parser.add_argument("--num_inference_steps", type=int, default=None,
                         help="Number of inference steps (default: 50)")
     parser.add_argument("--num_samples", type=int, default=64,
@@ -63,27 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def resolve_device(name: str) -> torch.device:
-    """The requested device; CUDA must be present when asked for."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"--device {name}: CUDA is not available on this machine "
-                "(pass --device cpu to sample on the CPU)")
-        # float32 means float32: no TF32 in matrix products or convolutions
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"--device {name}: expected cuda or cpu")
-    return device
-
-
 def main(argv=None) -> dict:
     """Run the CLI; returns {"samples": (N, H, W, C) float32 in [0, 1],
     "sampling_seconds": seconds spent generating, device work included}."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "sample")
     generator = set_seed(args.seed, device)
 
     print(f"Loading checkpoint from {args.checkpoint}...")

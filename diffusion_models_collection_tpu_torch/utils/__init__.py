@@ -1,1 +1,3 @@
-"""Checkpoints, the JAX-to-PyTorch weight bridge and small helpers."""
+"""The trainer and its optimizer, EMA, learning-rate schedules, tracking
+and profiling; checkpoints, the JAX-to-PyTorch weight bridge and small
+helpers."""

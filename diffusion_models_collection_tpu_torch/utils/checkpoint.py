@@ -4,17 +4,19 @@ Counterpart of `diffusion_models_collection_tpu/utils/checkpoint.py`. Two
 formats load:
 
 * a PyTorch reference checkpoint (`.pth`/`.pt`, `torch.save` of
-  {epoch, model_state_dict, best_loss, config, [ema_model_state_dict]}),
-  read with `torch.load(weights_only=True)`;
-* a JAX checkpoint (any other suffix), a pickle of the same keys with flax
+  {epoch, model_state_dict, optimizer_state_dict, best_loss, config,
+  [ema_model_state_dict], [global_step]}), read with
+  `torch.load(weights_only=True)`;
+* a JAX checkpoint (any other suffix), a pickle of the same keys with Flax
   param trees of numpy arrays. It is read by a restricted unpickler:
-  containers and numpy arrays are rebuilt, optax/flax/jax value classes
+  containers and numpy arrays are rebuilt, Optax/Flax/JAX value classes
   (optimizer-state namedtuples, FrozenDict) become inert placeholders, so
   nothing imports jax; any other global is refused. The param trees then go
   through the weight bridge (`utils/weights.py`).
 
 Either way `load_checkpoint` returns state dicts in the port's key names.
-`save_checkpoint` writes the reference `torch.save` schema.
+`save_checkpoint` writes the reference `torch.save` schema, which the JAX
+package's loader also reads.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
-from .weights import flax_to_state_dict
+from .weights import state_dict_from_jax
 
 _SAFE_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "complex",
                   "slice", "bytearray", "range"}
@@ -39,7 +41,7 @@ _STATE_ROOTS = ("optax", "flax", "jax")
 
 
 class InertTuple(tuple):
-    """Stands in for an optax/flax/jax namedtuple (optimizer state): keeps
+    """Stands in for an Optax/Flax/JAX namedtuple (optimizer state): keeps
     the fields as a plain tuple, runs no code of the original class."""
 
     def __new__(cls, *fields, **_):
@@ -47,7 +49,7 @@ class InertTuple(tuple):
 
 
 class InertDict(dict):
-    """Stands in for flax's FrozenDict."""
+    """Stands in for Flax's FrozenDict."""
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,23 +88,33 @@ def load_checkpoint(path: Union[str, Path],
         raise ValueError(f"{path} embeds no config; pass one")
     for key in ("model_state_dict", "ema_model_state_dict"):
         if payload.get(key) is not None:
-            payload[key] = flax_to_state_dict(payload[key], config)
+            payload[key] = state_dict_from_jax(payload[key], config)
     return payload
 
 
 def save_checkpoint(path: Union[str, Path], model_state_dict: Mapping,
                     config: dict, ema_model_state_dict: Optional[Mapping] = None,
-                    epoch: int = 0, best_loss: float = float("inf")) -> None:
+                    epoch: int = 0, best_loss: float = float("inf"),
+                    optimizer_state_dict: Optional[Mapping] = None,
+                    global_step: Optional[int] = None) -> None:
     """Write the reference trainer's `torch.save` schema {epoch,
-    model_state_dict, best_loss, config, [ema_model_state_dict]}."""
+    model_state_dict, best_loss, config, [optimizer_state_dict],
+    [ema_model_state_dict], [global_step]}, all of it loadable with
+    `weights_only=True`. The file is written beside `path` and renamed over
+    it, so a crash never leaves a torn checkpoint."""
     def plain(sd):
         return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
 
     payload = {"epoch": int(epoch), "model_state_dict": plain(model_state_dict),
                "best_loss": float(best_loss), "config": config}
+    if optimizer_state_dict is not None:
+        payload["optimizer_state_dict"] = optimizer_state_dict
     if ema_model_state_dict is not None:
         payload["ema_model_state_dict"] = plain(ema_model_state_dict)
+    if global_step is not None:
+        payload["global_step"] = int(global_step)
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(payload, path)
-
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, tmp)
+    tmp.replace(path)

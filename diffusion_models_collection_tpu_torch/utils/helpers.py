@@ -1,4 +1,4 @@
-"""Utility functions of the sampling path.
+"""Utility functions of the sampling and training paths.
 
 Counterpart of `diffusion_models_collection_tpu/utils/helpers.py`.
 `set_seed` returns a `torch.Generator` (the JAX package returns a PRNG key),
@@ -24,12 +24,35 @@ import torch
 
 def set_seed(seed: int = 42, device: Union[str, torch.device] = "cpu"
              ) -> torch.Generator:
-    """Seed Python's, numpy's and torch's global generators and return a
-    `torch.Generator` on `device` seeded with `seed`."""
+    """Seed Python's, numpy's and torch's global generators (torch's draws
+    the dropout masks) and return a `torch.Generator` on `device` seeded
+    with `seed`."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def resolve_device(name: str, task: str) -> torch.device:
+    """The device a CLI asked for with `--device`: CUDA must be present when
+    asked for, and then runs float32 without TF32 in matrix products and
+    convolutions; the CPU runs only when asked for."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"--device {name}: CUDA is not available on this machine "
+                f"(pass --device cpu to {task} on the CPU)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"--device {name}: expected cuda or cpu")
+    return device
+
+
+def count_parameters(model: torch.nn.Module) -> int:
+    """Total number of parameter elements."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def resolve_image_size(image_size: Union[int, Sequence[int]]

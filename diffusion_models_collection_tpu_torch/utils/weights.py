@@ -1,13 +1,13 @@
-"""Weight bridge: a flax UNet param tree (nested dicts of numpy arrays, as a
+"""Weight bridge: a Flax UNet param tree (nested dicts of numpy arrays, as a
 JAX checkpoint stores it) to the port's `state_dict`.
 
 Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 (`_unet_torch_plan`, `_export_unet`), in numpy and torch only: that module
-imports the JAX package's helpers, which import jax. The port's UNet uses
+imports the JAX package's helpers, which need JAX. The port's UNet uses
 the PyTorch reference's key names, so the result also equals what the JAX
 exporter writes for the reference, and loads with `strict=True`.
 
-Layouts (flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
+Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
 Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); GroupNorm
 scale -> weight; embedding -> weight.
 """
@@ -40,7 +40,7 @@ def unet_torch_plan(image_size: Tuple[int, int], num_res_blocks: int,
                     use_attention: bool) -> List[Tuple[str, str]]:
     """Ordered (torch_prefix, kind) pairs, kind in {res, attn, down, up},
     replaying the reference constructor and its up-path attention timing.
-    The order equals the flax call order, so per-kind counters pair the two
+    The order equals the Flax call order, so per-kind counters pair the two
     naming schemes."""
 
     def attend(resolution):
@@ -108,10 +108,10 @@ def unet_params_to_numpy_state_dict(
         model_cfg.get("use_attention", True),
     )
     counters = {"res": 0, "attn": 0, "down": 0, "up": 0}
-    flax_name = {"res": "ResidualBlock", "attn": "AttentionBlock",
+    jax_name = {"res": "ResidualBlock", "attn": "AttentionBlock",
                  "down": "Downsample", "up": "Upsample"}
     for pref, kind in plan:
-        blk = params[f"{flax_name[kind]}_{counters[kind]}"]
+        blk = params[f"{jax_name[kind]}_{counters[kind]}"]
         counters[kind] += 1
         if kind == "res":
             sd[f"{pref}.conv1.0.weight"] = _arr(blk["FusedGroupNormSiLU_0"]["scale"])
@@ -140,13 +140,13 @@ def unet_params_to_numpy_state_dict(
             sd[f"{pref}.conv.weight"] = _conv2d(blk["Conv_0"]["kernel"])
             sd[f"{pref}.conv.bias"] = _arr(blk["Conv_0"]["bias"])
 
-    # every flax block must have been consumed: a leftover means the config
+    # every Flax block must have been consumed: a leftover means the config
     # does not describe the params
     for kind, count in counters.items():
-        extra = f"{flax_name[kind]}_{count}"
+        extra = f"{jax_name[kind]}_{count}"
         if extra in params:
             raise ValueError(
-                f"UNet plan consumed {count} {flax_name[kind]}s but the params "
+                f"UNet plan consumed {count} {jax_name[kind]}s but the params "
                 f"contain {extra}: the model config does not match the "
                 "checkpoint (attention_resolutions, channel_mult, "
                 "num_res_blocks, image_size)")
@@ -163,9 +163,9 @@ def resolved_model_cfg(config: Mapping) -> Dict:
     return cfg
 
 
-def flax_to_state_dict(params: Mapping,
+def state_dict_from_jax(params: Mapping,
                        config: Mapping) -> Dict[str, torch.Tensor]:
-    """A flax UNet param tree -> the port's (and the reference's)
+    """A Flax UNet param tree -> the port's (and the reference's)
     `state_dict`, for the model that `config` describes."""
     model_type = str(config.get("model_type", "unet")).lower()
     if model_type != "unet":

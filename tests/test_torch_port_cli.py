@@ -125,4 +125,4 @@ def test_factory_raises_on_what_is_not_ported(change):
 
 def test_factory_raises_on_samplers_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_diffusion(small_config(), "ddpm")
+        factory.get_diffusion(small_config(), "dpm++")

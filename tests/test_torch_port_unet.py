@@ -33,7 +33,7 @@ from diffusion_models_collection_tpu_torch.models import (
 )
 from diffusion_models_collection_tpu_torch.utils import checkpoint
 from diffusion_models_collection_tpu_torch.utils.weights import (
-    flax_to_state_dict,
+    state_dict_from_jax,
 )
 from torch_port_helpers import (
     MODEL_PARAMS,
@@ -69,7 +69,7 @@ def inputs(seed=0, batch=4):
 
 def test_weight_bridge_equals_jax_exporter(cond):
     _, params, config = cond
-    ours = flax_to_state_dict(params, config)
+    ours = state_dict_from_jax(params, config)
     ref = export_torch_state_dict(params, "unet", config)
     assert set(ours) == set(ref)
     for key, value in ref.items():
@@ -79,7 +79,7 @@ def test_weight_bridge_equals_jax_exporter(cond):
 def test_weight_bridge_loads_strict_with_reference_names(cond):
     _, params, config = cond
     model = UNet(**MODEL_PARAMS, num_classes=10)
-    result = model.load_state_dict(flax_to_state_dict(params, config),
+    result = model.load_state_dict(state_dict_from_jax(params, config),
                                    strict=True)
     assert not result.missing_keys and not result.unexpected_keys
 
@@ -164,7 +164,7 @@ def test_jax_checkpoint_loads_without_jax_classes(cond, tmp_path, container):
                         best_loss=0.5, config=config, ema_params=saved)
     payload = checkpoint.load_checkpoint(path)
     assert payload["epoch"] == 3
-    want = flax_to_state_dict(params, config)
+    want = state_dict_from_jax(params, config)
     for key in ("model_state_dict", "ema_model_state_dict"):
         assert set(payload[key]) == set(want)
         for name, value in want.items():

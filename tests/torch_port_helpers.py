@@ -9,7 +9,7 @@ import numpy as np
 from diffusion_models_collection_tpu.models import UNet as JaxUNet
 from diffusion_models_collection_tpu_torch.models import UNet
 from diffusion_models_collection_tpu_torch.utils.weights import (
-    flax_to_state_dict,
+    state_dict_from_jax,
 )
 
 H = W = 16
@@ -56,7 +56,7 @@ def torch_unet(params, config):
     """The port's UNet with the same weights, strict load, eval mode."""
     num_classes = 10 if config["conditional"] else None
     model = UNet(**MODEL_PARAMS, num_classes=num_classes)
-    model.load_state_dict(flax_to_state_dict(params, config), strict=True)
+    model.load_state_dict(state_dict_from_jax(params, config), strict=True)
     return model.eval()
 
 

@@ -37,6 +37,7 @@ from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.helpers import load_config  # noqa: E402
+from diffusion_models_collection_tpu_torch.utils.profiler import device_time  # noqa: E402
 
 CONFIG = ROOT / "configs" / "cifar10_unet.py"
 SAMPLES, STEPS, CFG_SCALE, PROFILED_STEPS, REPEATS = 80, 50, 3.0, 5, 3
@@ -58,24 +59,6 @@ KINDS = [
 ]
 
 
-def kind_of(name):
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(key in low for key in keys):
-            return kind
-    return "the rest (reductions, sorts for the quantile, ...)"
-
-
-def union_us(intervals):
-    total, end = 0.0, float("-inf")
-    for lo, hi in sorted(intervals):
-        if hi <= end:
-            continue
-        total += hi - max(lo, end)
-        end = hi
-    return total
-
-
 def profile_steps(model):
     ddim = DDIM(num_timesteps=1000, num_inference_steps=PROFILED_STEPS)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -95,21 +78,12 @@ def profile_steps(model):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernels")
-    busy_ms = union_us([(e.time_range.start, e.time_range.end)
-                        for e in kernels]) / 1e3
-    by_kind = {}
-    for e in kernels:
-        kind = kind_of(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms, by_kind = device_time(
+        prof, KINDS, "the rest (reductions, sorts for the quantile, ...)")
     return {"steps": PROFILED_STEPS, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
-            "device_ms_by_kind": dict(sorted(by_kind.items(),
-                                             key=lambda kv: -kv[1]))}
+            "device_ms_by_kind": by_kind}
 
 
 def end_to_end(config, model):
