@@ -6,8 +6,9 @@ timesteps and labels) and runs in PyTorch, with hand-written CUDA kernels
 where the JAX package had Pallas kernels (`ops/`, `csrc/`). It never imports
 JAX.
 
-Ported so far: class-conditional UNet sampling with DDIM or DDPM and
-classifier-free guidance (`sample.py`), and its DDPM training (`train.py`).
+Ported so far: the class-conditional UNet and DiM (diffusion Mamba),
+sampled with DDIM or DDPM and classifier-free guidance (`sample.py`) and
+trained with the DDPM objective (`train.py`).
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@ and the training data from a config, and load a checkpoint's weights for
 inference.
 
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
-port covers: the UNet, DDPM training and sampling, DDIM sampling, float32.
+port covers: the UNet and DiM, DDPM training and sampling, DDIM sampling,
+float32.
 The datasets and the loader are the JAX package's own framework-free ones
 (numpy and ctypes, no jax), read in this process. Every other model type,
 diffusion type, sampler and config extension raises, naming the ROADMAP
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Mapping, Union
 
 import torch
+from torch import nn
 
 from diffusion_models_collection_tpu.datasets import (
     CustomImageDataset,
@@ -23,18 +25,22 @@ from diffusion_models_collection_tpu.datasets import (
 )
 
 from .diffusion import DDIM, DDPM
-from .models import UNet
+from .models import DiM, UNet
 from .utils.helpers import resolve_image_size
 
 
-def get_model(config: Mapping) -> UNet:
+MODEL_CLASSES = {"unet": UNet, "dim": DiM}
+
+
+def get_model(config: Mapping) -> nn.Module:
     """Build the denoiser from config, injecting the normalized image size
-    and the conditional class count."""
+    (`image_size` for the UNet, `img_size` for DiM) and the conditional
+    class count."""
     model_type = str(config["model_type"]).lower()
-    if model_type != "unet":
+    if model_type not in MODEL_CLASSES:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "items 8, 9 and 11)")
+            "items 8 and 11)")
     for key in ("latent_diffusion", "super_resolution"):
         if config.get(key):
             raise NotImplementedError(
@@ -47,12 +53,13 @@ def get_model(config: Mapping) -> UNet:
     if mp not in ("none", "fp32", "float32", "off", "false"):
         raise ValueError(f"Unknown mixed_precision: {mp!r}")
     params = dict(config.get("model_params", {}))
-    params["image_size"] = resolve_image_size(config["image_size"])
+    size_key = "image_size" if model_type == "unet" else "img_size"
+    params[size_key] = resolve_image_size(config["image_size"])
     params["num_classes"] = (config.get("num_classes")
                              if config.get("conditional", False) else None)
     if config.get("remat", False):
         params["remat"] = True
-    return UNet(**params)
+    return MODEL_CLASSES[model_type](**params)
 
 
 def get_diffusion(config: Mapping,
@@ -142,7 +149,7 @@ def get_dataloader(config: Mapping, dataset, train: bool = True,
 
 def load_model_for_inference(checkpoint: Mapping, config: Mapping,
                              use_ema: bool,
-                             device: torch.device) -> UNet:
+                             device: torch.device) -> nn.Module:
     """The model with the checkpoint's weights (the EMA weights with
     `use_ema` when present), strict load, eval mode, on `device`."""
     model = get_model(config)

@@ -117,6 +117,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_fwd.restype = i32
     lib.flash_attn_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
     lib.flash_attn_bwd.restype = i32
+    lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.selective_scan_fwd.restype = i32
+    lib.selective_scan_bwd.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
+    lib.selective_scan_bwd.restype = i32
+    for name in ("selective_scan_bwd_tiles", "selective_scan_bwd_width"):
+        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).restype = i32
     lib.dmc_cuda_error_string.argtypes = [i32]
     lib.dmc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,7 +4,8 @@
         --config configs/cifar10_unet.py [--device cuda|cpu]
 
 Counterpart of the repository's `train.py` for the diffusion denoisers this
-port has (the UNet, DDPM objective): one process on one device. The seed
+port has (the UNet and the DiM, DDPM objective; `configs/cifar10_dim.py`
+trains the DiM): one process on one device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when

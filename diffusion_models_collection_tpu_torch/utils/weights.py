@@ -1,15 +1,18 @@
-"""Weight bridge: a Flax UNet param tree (nested dicts of numpy arrays, as a
-JAX checkpoint stores it) to the port's `state_dict`.
+"""Weight bridge: a Flax UNet or DiM param tree (nested dicts of numpy
+arrays, as a JAX checkpoint stores it) to the port's `state_dict`.
 
 Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
-(`_unet_torch_plan`, `_export_unet`), in numpy and torch only: that module
-imports the JAX package's helpers, which need JAX. The port's UNet uses
-the PyTorch reference's key names, so the result also equals what the JAX
-exporter writes for the reference, and loads with `strict=True`.
+(`_unet_torch_plan`, `_export_unet`, `_export_patch_scaffold`,
+`_export_dim`), in numpy and torch only: that module imports the JAX
+package's helpers, which need JAX. The port's models use the PyTorch
+reference's key names, so the result also equals what the JAX exporter
+writes for the reference, and loads with `strict=True`.
 
 Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
-Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); GroupNorm
-scale -> weight; embedding -> weight.
+Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); depthwise conv
+kernel (k, 1, D) -> Conv1d weight (D, 1, k); GroupNorm and LayerNorm scale
+-> weight; embedding -> weight. DiM's two input projections (x, z) become
+one fused `in_proj` with rows [x; z].
 """
 
 from __future__ import annotations
@@ -29,6 +32,11 @@ def _lin(k) -> np.ndarray:
 def _conv2d(k) -> np.ndarray:
     return np.ascontiguousarray(
         np.asarray(k, dtype=np.float32).transpose(3, 2, 0, 1))
+
+
+def _conv1d_dw(k) -> np.ndarray:
+    return np.ascontiguousarray(
+        np.asarray(k, dtype=np.float32).transpose(2, 1, 0))
 
 
 def _arr(k) -> np.ndarray:
@@ -153,6 +161,65 @@ def unet_params_to_numpy_state_dict(
     return sd
 
 
+def _dense(sd: Dict, key: str, dense: Mapping) -> None:
+    sd[f"{key}.weight"] = _lin(dense["kernel"])
+    if "bias" in dense:
+        sd[f"{key}.bias"] = _arr(dense["bias"])
+
+
+def _norm(sd: Dict, key: str, norm: Mapping) -> None:
+    sd[f"{key}.weight"] = _arr(norm["scale"])
+    sd[f"{key}.bias"] = _arr(norm["bias"])
+
+
+def dim_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax DiM params -> reference-named arrays."""
+    sd: Dict[str, np.ndarray] = {"pos_embed": _arr(params["pos_embed"])}
+    patch = params["PatchEmbed_0"]["Conv_0"]
+    sd["x_embedder.proj.weight"] = _conv2d(patch["kernel"])
+    sd["x_embedder.proj.bias"] = _arr(patch["bias"])
+    te = params["TimestepEmbedder_0"]
+    _dense(sd, "t_embedder.mlp.0", te["Dense_0"])
+    _dense(sd, "t_embedder.mlp.2", te["Dense_1"])
+    if "LabelEmbedder_0" in params:
+        sd["y_embedder.embedding_table.weight"] = _arr(
+            params["LabelEmbedder_0"]["embedding"])
+    i = 0
+    while f"DiMBlock_{i}" in params:
+        blk, ref = params[f"DiMBlock_{i}"], f"blocks.{i}"
+        mb = blk["MambaBlock_0"]
+        if "Mamba_0" not in mb:
+            raise NotImplementedError(
+                f"DiMBlock_{i} holds the attention-fallback mixer, which is "
+                "not ported yet (ROADMAP queue 1 item 8)")
+        _norm(sd, f"{ref}.mamba_block.norm", mb["LayerNorm_0"])
+        _dense(sd, f"{ref}.mamba_block.adaLN_modulation.1",
+               mb["AdaLNModulation_0"]["Dense_0"])
+        m, mm = mb["Mamba_0"], f"{ref}.mamba_block.mamba"
+        sd[f"{mm}.in_proj.weight"] = np.ascontiguousarray(np.concatenate(
+            [_lin(m["in_proj_x"]["kernel"]), _lin(m["in_proj_z"]["kernel"])]))
+        sd[f"{mm}.conv1d.weight"] = _conv1d_dw(m["conv"]["kernel"])
+        sd[f"{mm}.conv1d.bias"] = _arr(m["conv"]["bias"])
+        _dense(sd, f"{mm}.x_proj", m["x_dbl"])
+        _dense(sd, f"{mm}.dt_proj", m["dt_proj"])
+        sd[f"{mm}.A_log"] = _arr(m["A_log"])
+        sd[f"{mm}.D"] = _arr(m["D"])
+        _dense(sd, f"{mm}.out_proj", m["out_proj"])
+        ff = blk["FeedForward_0"]
+        _norm(sd, f"{ref}.ff_block.norm", ff["LayerNorm_0"])
+        _dense(sd, f"{ref}.ff_block.mlp.0", ff["Mlp_0"]["Dense_0"])
+        _dense(sd, f"{ref}.ff_block.mlp.3", ff["Mlp_0"]["Dense_1"])
+        _dense(sd, f"{ref}.ff_block.adaLN_modulation.1",
+               ff["AdaLNModulation_0"]["Dense_0"])
+        i += 1
+    fl = params["DiMFinalLayer_0"]
+    _norm(sd, "final_layer.norm_final", fl["LayerNorm_0"])
+    _dense(sd, "final_layer.linear", fl["Dense_0"])
+    _dense(sd, "final_layer.adaLN_modulation.1",
+           fl["AdaLNModulation_0"]["Dense_0"])
+    return sd
+
+
 def resolved_model_cfg(config: Mapping) -> Dict:
     """model_params with the image_size and num_classes that the factory
     injects."""
@@ -165,12 +232,16 @@ def resolved_model_cfg(config: Mapping) -> Dict:
 
 def state_dict_from_jax(params: Mapping,
                        config: Mapping) -> Dict[str, torch.Tensor]:
-    """A Flax UNet param tree -> the port's (and the reference's)
+    """A Flax UNet or DiM param tree -> the port's (and the reference's)
     `state_dict`, for the model that `config` describes."""
     model_type = str(config.get("model_type", "unet")).lower()
-    if model_type != "unet":
+    if model_type == "unet":
+        sd = unet_params_to_numpy_state_dict(params,
+                                             resolved_model_cfg(config))
+    elif model_type == "dim":
+        sd = dim_params_to_numpy_state_dict(params)
+    else:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "items 8, 9 and 11)")
-    sd = unet_params_to_numpy_state_dict(params, resolved_model_cfg(config))
+            "items 8 and 11)")
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies: jax arrays are read-only

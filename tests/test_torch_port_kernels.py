@@ -10,19 +10,24 @@ Tests marked `cuda` skip where no CUDA device is present. On the card the
 tolerance is max|kernel - plain| / max|plain| <= 2e-5 for the forwards
 (float32 on both sides, TF32 off, sums in different orders), <= 1e-5
 absolute on lse, and <= 1e-4 for the attention backward, whose dS sums a
-difference of two products over L keys.
+difference of two products over L keys, and for the scan backward, whose
+adjoint runs over L steps and whose dB, dC sum over the D channels.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from diffusion_models_collection_tpu_torch.models import UNet
+from diffusion_models_collection_tpu_torch.models import DiM, UNet
+from diffusion_models_collection_tpu_torch.models import dim as dim_mod
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod
 from diffusion_models_collection_tpu_torch.ops import (
     attention as attention_mod,
     flash_attention,
     fused_norm,
+)
+from diffusion_models_collection_tpu_torch.ops import (
+    selective_scan as scan_mod,
 )
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels
 
@@ -98,17 +103,20 @@ def test_attention_raises_on_paths_not_ported():
 
 
 def test_plain_kernels_reroutes_the_call_sites_and_restores_them():
-    wrappers = (unet_mod.group_norm_silu, attention_mod.flash_attention)
+    wrappers = (unet_mod.group_norm_silu, attention_mod.flash_attention,
+                dim_mod.selective_scan)
     with pytest.raises(RuntimeError):
         with plain_kernels():
             assert unet_mod.group_norm_silu is fused_norm.group_norm_silu_ref
             assert (attention_mod.flash_attention
                     is flash_attention.flash_attention_ref)
+            assert dim_mod.selective_scan is scan_mod.selective_scan_ref
             raise RuntimeError("leaves the context early")
-    assert (unet_mod.group_norm_silu,
-            attention_mod.flash_attention) == wrappers
+    assert (unet_mod.group_norm_silu, attention_mod.flash_attention,
+            dim_mod.selective_scan) == wrappers
     assert wrappers == (fused_norm.group_norm_silu,
-                        flash_attention.flash_attention)
+                        flash_attention.flash_attention,
+                        scan_mod.selective_scan)
 
 
 def test_kernel_ops_are_autograd_functions_that_reach_every_input():
@@ -267,6 +275,164 @@ def test_small_unet_loss_and_grads_kernels_match_plain(cuda):
                  attention_resolutions=(8,), channel_mult=(1, 2),
                  num_classes=10).to(cuda).eval()
     rng = np.random.default_rng(1)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+
+    def loss_and_grads():
+        model.zero_grad()
+        loss = model(x, t, y).square().mean()
+        loss.backward()
+        return loss.detach(), torch.cat(
+            [p.grad.flatten() for p in model.parameters()])
+
+    loss, grads = loss_and_grads()
+    with plain_kernels():
+        loss_ref, grads_ref = loss_and_grads()
+    assert max_rel(loss, loss_ref) <= 1e-5
+    assert max_rel(grads, grads_ref) <= 1e-4
+
+
+# ------------------------------------------------------ the selective scan
+def scan_inputs(batch, length, d_inner, n_state, gen, device):
+    """x, dt > 0, A < 0 (S4D-like, down to -n_state), B, C and an output
+    gradient g, on `device`."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = randn(batch, length, d_inner)
+    dt = torch.nn.functional.softplus(randn(batch, length, d_inner) - 2)
+    A = -torch.exp(randn(d_inner, n_state) * 0.5) * torch.arange(
+        1, n_state + 1, device=device)
+    return x, dt, A, randn(batch, length, n_state), randn(
+        batch, length, n_state), randn(batch, length, d_inner)
+
+
+def test_scan_ref_function_matches_the_kernel_function_on_cpu():
+    """`SelectiveScanRef`, the scan that `plain_kernels()` runs, equals
+    `SelectiveScan` on the CPU (both run the plain versions there)."""
+    gen = torch.Generator().manual_seed(0)
+    args = [t.requires_grad_() for t in scan_inputs(2, 40, 8, 4, gen,
+                                                    "cpu")[:5]]
+    got = scan_mod.selective_scan(*args)
+    want = scan_mod.selective_scan_ref(*args)
+    assert type(want.grad_fn).__name__ == "SelectiveScanRefBackward"
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for g, w in zip(torch.autograd.grad(got.sum(), args),
+                    torch.autograd.grad(want.sum(), args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,d_inner,n_state", [
+    (32, 256, 768, 16), (8, 48, 768, 16), (8, 100, 768, 16),
+    (3, 1, 100, 16), (2, 37, 200, 4), (2, 64, 130, 20), (2, 33, 64, 32),
+])
+def test_scan_fwd_kernel_matches_plain(cuda, batch, length, d_inner,
+                                       n_state):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner)
+    x, dt, A, B, C, _ = scan_inputs(batch, length, d_inner, n_state, gen,
+                                    cuda)
+    for save in (False, True):
+        before = (scan_mod.FWD_LAUNCHES, scan_mod.FWD_STATES_LAUNCHES)
+        y, bound = scan_mod.selective_scan_fwd(x, dt, A, B, C, save)
+        torch.cuda.synchronize()
+        assert (scan_mod.FWD_LAUNCHES, scan_mod.FWD_STATES_LAUNCHES) == (
+            before[0] + 1, before[1] + save)
+        y_ref, bound_ref = scan_mod.selective_scan_fwd_ref(x, dt, A, B, C,
+                                                           save)
+        assert max_rel(y, y_ref) <= TOL
+        if save:
+            assert bound.shape == bound_ref.shape
+            assert (bound - bound_ref).abs().max().item() <= TOL * max(
+                bound_ref.abs().max().item(), 1.0)
+        else:
+            assert bound is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,d_inner,n_state", [
+    (32, 256, 768, 16), (8, 48, 768, 16), (8, 100, 768, 16),
+    (3, 1, 100, 16), (2, 37, 200, 4), (2, 64, 130, 20), (2, 33, 64, 32),
+])
+def test_scan_bwd_kernel_matches_plain(cuda, batch, length, d_inner,
+                                       n_state):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner + 1)
+    x, dt, A, B, C, g = scan_inputs(batch, length, d_inner, n_state, gen,
+                                    cuda)
+    _, bound = scan_mod.selective_scan_fwd_ref(x, dt, A, B, C, True)
+    before = scan_mod.BWD_LAUNCHES
+    grads = scan_mod.selective_scan_bwd(x, dt, A, B, C, g, bound)
+    torch.cuda.synchronize()
+    assert scan_mod.BWD_LAUNCHES == before + 1
+    refs = scan_mod.selective_scan_bwd_ref(x, dt, A, B, C, g, bound)
+    for name, got, want in zip(("dx", "ddt", "dA", "dB", "dC"), grads, refs):
+        assert got.shape == want.shape, name
+        assert max_rel(got, want) <= TOL_BWD, name
+
+
+def small_dim(device):
+    torch.manual_seed(0)
+    return DiM(img_size=(16, 16), patch_size=2, hidden_size=64, depth=2,
+               state_size=16, num_classes=10).to(device)
+
+
+def perturb_(model, seed=0):
+    """Seeded noise on every parameter, so adaLN gates and the output
+    projection are not zero and every parameter sees a gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+    return model
+
+
+@pytest.mark.cuda
+def test_small_dim_forward_kernels_match_plain(cuda):
+    model = perturb_(small_dim(cuda)).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+    before = scan_mod.FWD_LAUNCHES
+    with torch.no_grad():
+        out = model(x, t, y)
+        assert scan_mod.FWD_LAUNCHES == before + 2
+        with plain_kernels():
+            ref = model(x, t, y)
+    assert scan_mod.FWD_LAUNCHES == before + 2
+    assert max_rel(out, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_every_dim_parameter_gets_a_gradient_on_the_card(cuda):
+    model = perturb_(small_dim(cuda)).train()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+    fwd, saved, bwd = (scan_mod.FWD_LAUNCHES, scan_mod.FWD_STATES_LAUNCHES,
+                       scan_mod.BWD_LAUNCHES)
+    model(x, t, y).square().mean().backward()
+    torch.cuda.synchronize()
+    assert (scan_mod.FWD_LAUNCHES - fwd, scan_mod.FWD_STATES_LAUNCHES - saved,
+            scan_mod.BWD_LAUNCHES - bwd) == (2, 2, 2)
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        if name == "y_embedder.embedding_table.weight":
+            # row 0, the null label, is masked at lookup
+            assert p.grad[0].abs().max() == 0 and p.grad[1:].abs().max() > 0
+        else:
+            assert p.grad.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+def test_small_dim_loss_and_grads_kernels_match_plain(cuda):
+    model = perturb_(small_dim(cuda), seed=1).eval()
+    rng = np.random.default_rng(2)
     x = torch.from_numpy(
         rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
     t = torch.tensor([0, 10, 500, 999], device=cuda)

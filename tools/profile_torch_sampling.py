@@ -1,12 +1,13 @@
 """Where the PyTorch port's sampling time goes on one NVIDIA GPU.
 
-    python tools/profile_torch_sampling.py [--output_dir DIR]
+    python tools/profile_torch_sampling.py [--config CONFIG] [--output_dir DIR]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
-model is the CIFAR-10 UNet of configs/cifar10_unet.py at full width with
-random weights from seed 0, float32 with TF32 off, sampled with DDIM and
-classifier-free guidance (scale 3) on 80 images, so 160 rows per UNet call.
-Two measurements:
+model is the one CONFIG describes (default configs/cifar10_unet.py, the
+CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM) at full width
+with random weights from seed 0, float32 with TF32 off, sampled with DDIM
+and classifier-free guidance (scale 3) on 80 images, so 160 rows per model
+call. Two measurements:
 
 1. `torch.profiler` over 5 DDIM CFG steps after a warm-up run: host wall
    time, the time some kernel ran on the device (the union of the kernels'
@@ -16,7 +17,7 @@ Two measurements:
    (`ops.plain.plain_kernels`), three times each, in samples/s.
 
 Prints both with the card's name and power limit from nvidia-smi, and
-writes them as JSON to DIR/profile_torch_sampling.json.
+writes them as JSON to DIR/profile_torch_sampling_<model_type>.json.
 """
 
 import argparse
@@ -36,10 +37,13 @@ from diffusion_models_collection_tpu_torch import factory, sample  # noqa: E402
 from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
-from diffusion_models_collection_tpu_torch.utils.helpers import load_config  # noqa: E402
+from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
+    load_config,
+    resolve_image_size,
+)
 from diffusion_models_collection_tpu_torch.utils.profiler import device_time  # noqa: E402
 
-CONFIG = ROOT / "configs" / "cifar10_unet.py"
+DEFAULT_CONFIG = ROOT / "configs" / "cifar10_unet.py"
 SAMPLES, STEPS, CFG_SCALE, PROFILED_STEPS, REPEATS = 80, 50, 3.0, 5, 3
 
 # Kinds of device kernel, matched in order on the kernel's name. The names
@@ -47,23 +51,26 @@ SAMPLES, STEPS, CFG_SCALE, PROFILED_STEPS, REPEATS = 80, 50, 3.0, 5, 3
 KINDS = [
     ("GN+SiLU, K1 (gn_silu_fwd)", ("gn_silu",)),
     ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd_kernel",)),
+    ("selective scan forward, K4/K5/K6 (selective_scan_fwd)",
+     ("scan_fwd_kernel",)),
     ("3x3 convs as FFT", ("fft", "pointwise_mult_and_sum_complex",
                           "flip_filter")),
     ("NHWC<->NCHW transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
-    ("convs as implicit GEMM or direct", ("implicit_gemm", "conv", "xmma",
-                                          "fprop")),
-    ("matrix products (linears)", ("gemm", "gemv", "cutlass")),
+    ("convs as implicit GEMM or direct", ("implicit_gemm", "conv", "fprop")),
+    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma")),
+    ("layer norms", ("layer_norm",)),
     ("elementwise, copies, cat, upsample", ("elementwise", "vectorized",
                                             "catarray", "upsample", "copy",
                                             "fill")),
 ]
 
 
-def profile_steps(model):
+def profile_steps(config, model):
     ddim = DDIM(num_timesteps=1000, num_inference_steps=PROFILED_STEPS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    labels = torch.arange(SAMPLES, device="cuda") % 10 + 1
-    shape = (SAMPLES, 32, 32, 3)
+    labels = torch.arange(SAMPLES, device="cuda") % config["num_classes"] + 1
+    shape = (SAMPLES, *resolve_image_size(config["image_size"]),
+             config["model_params"]["in_channels"])
 
     def run():
         return ddim.sample_with_cfg(model, shape, labels, gen,
@@ -88,7 +95,7 @@ def profile_steps(model):
 
 def end_to_end(config, model):
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "cifar10_unet_random.pth"
+        ckpt = Path(tmp) / "random.pth"
         checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
         argv = ["--checkpoint", str(ckpt), "--sampling_method", "ddim",
                 "--cfg_scale", str(CFG_SCALE), "--num_samples", str(SAMPLES),
@@ -107,6 +114,7 @@ def end_to_end(config, model):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=str(DEFAULT_CONFIG))
     parser.add_argument("--output_dir", default="profile_out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -120,11 +128,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    config = load_config(CONFIG)
+    config = load_config(args.config)
     torch.manual_seed(0)
     model = factory.get_model(config).to("cuda").eval()
     with torch.no_grad():
-        profile = profile_steps(model)
+        profile = profile_steps(config, model)
     print(f"profile, {PROFILED_STEPS} DDIM CFG steps at batch "
           f"{2 * SAMPLES}, on {smi}: wall {profile['wall_ms']:.1f} ms, "
           f"device busy {profile['device_busy_ms']:.1f} ms, idle share "
@@ -140,8 +148,9 @@ def main(argv=None):
           f"plain path {', '.join(f'{r:.3f}' for r in rates['plain'])} "
           "samples/s")
     result = {"device": smi, "torch": torch.__version__,
-              "profile": profile, "samples_per_s": rates}
-    (out_dir / "profile_torch_sampling.json").write_text(
+              "config": args.config, "profile": profile,
+              "samples_per_s": rates}
+    (out_dir / f"profile_torch_sampling_{config['model_type']}.json").write_text(
         json.dumps(result, indent=1))
 
 

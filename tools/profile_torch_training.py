@@ -1,12 +1,13 @@
 """Where the PyTorch port's training time goes on one NVIDIA GPU.
 
-    python tools/profile_torch_training.py [--output_dir DIR]
+    python tools/profile_torch_training.py [--config CONFIG] [--output_dir DIR]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
-model is the CIFAR-10 UNet of configs/cifar10_unet.py at full width with
-random weights from seed 0, trained as that config trains it (batch 128,
-AdamW, clip 1.0, EMA, CFG label dropout, dropout 0.1), float32 with TF32
-off, on one batch of the committed CIFAR-10 fixtures
+model is the one CONFIG describes (default configs/cifar10_unet.py, the
+CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM) at full width
+with random weights from seed 0, trained as that config trains it (batch
+128, AdamW, clip 1.0, EMA, CFG label dropout, dropout 0.1), float32 with
+TF32 off, on one batch of the committed CIFAR-10 fixtures
 (tests/fixtures/data). Two measurements, both through the trainer's own
 `train_step`:
 
@@ -18,7 +19,7 @@ off, on one batch of the committed CIFAR-10 fixtures
    kernels (`ops.plain.plain_kernels`), three times each.
 
 Prints both with the card's name and power limit from nvidia-smi, and
-writes them as JSON to DIR/profile_torch_training.json.
+writes them as JSON to DIR/profile_torch_training_<model_type>.json.
 """
 
 import argparse
@@ -46,7 +47,7 @@ from diffusion_models_collection_tpu_torch.utils.trainer import (  # noqa: E402
     DiffusionTrainer,
 )
 
-CONFIG = ROOT / "configs" / "cifar10_unet.py"
+DEFAULT_CONFIG = ROOT / "configs" / "cifar10_unet.py"
 FIXTURE_DATA = ROOT / "tests" / "fixtures" / "data"
 WARMUP, PROFILED_STEPS, TIMED, REPEATS = 3, 5, 10, 3
 
@@ -56,6 +57,9 @@ KINDS = [
     ("GN+SiLU forward, K1 (gn_silu_fwd)", ("gn_silu",)),
     ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd_kernel",)),
     ("attention backward, K3 (flash_attn_bwd)", ("flash_bwd",)),
+    ("selective scan forward, K4/K5/K6 (selective_scan_fwd)",
+     ("scan_fwd_kernel",)),
+    ("selective scan backward, K8 (selective_scan_bwd)", ("scan_bwd",)),
     ("conv backward (data and filter gradients)", ("dgrad", "wgrad",
                                                    "bwd_data", "bwd_filter",
                                                    "backward")),
@@ -63,8 +67,9 @@ KINDS = [
                           "flip_filter")),
     ("NHWC<->NCHW transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("conv forward (implicit GEMM or direct)", ("implicit_gemm", "conv",
-                                                "xmma", "fprop")),
-    ("matrix products (linears)", ("gemm", "gemv", "cutlass")),
+                                                "fprop")),
+    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma")),
+    ("layer norms", ("layer_norm",)),
     ("AdamW, EMA, clip (multi-tensor)", ("multi_tensor", "foreach")),
     ("reductions (GN+SiLU backward recompute, norms, loss)", ("reduce",)),
     ("elementwise, copies, cat, upsample", ("elementwise", "vectorized",
@@ -73,8 +78,8 @@ KINDS = [
 ]
 
 
-def build_trainer(tmp):
-    config = load_config(CONFIG)
+def build_trainer(config_path, tmp):
+    config = load_config(config_path)
     config.update(data_root=str(FIXTURE_DATA), save_dir=str(Path(tmp) / "ckpt"),
                   sample_dir=str(Path(tmp) / "samples"))
     generator = set_seed(0, "cuda")
@@ -121,6 +126,7 @@ def images_per_s(trainer, images, labels):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=str(DEFAULT_CONFIG))
     parser.add_argument("--output_dir", default="profile_out")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -135,7 +141,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, images, labels = build_trainer(tmp)
+        trainer, images, labels = build_trainer(args.config, tmp)
         profile = profile_steps(trainer, images, labels)
         print(f"profile, {PROFILED_STEPS} train steps at batch "
               f"{profile['batch']}, on {smi}: wall {profile['wall_ms']:.1f} "
@@ -154,9 +160,11 @@ def main(argv=None):
           f"{smi}: kernel path "
           f"{', '.join(f'{r:.2f}' for r in rates['kernels'])}; plain path "
           f"{', '.join(f'{r:.2f}' for r in rates['plain'])}")
-    result = {"device": smi, "torch": torch.__version__, "profile": profile,
+    result = {"device": smi, "torch": torch.__version__,
+              "config": args.config, "profile": profile,
               "train_images_per_s": rates}
-    (out_dir / "profile_torch_training.json").write_text(
+    model_type = trainer.config["model_type"]
+    (out_dir / f"profile_torch_training_{model_type}.json").write_text(
         json.dumps(result, indent=1))
 
 
