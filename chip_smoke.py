@@ -29,7 +29,11 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
 * the selective-scan kernels against their plain versions: the forward at
   batch 32 and 160 (the sampling batch), states off and on, and at L = 48
   and 100 (a ragged last block); the backward at batch 32 and 128 (the
-  training batch);
+  training batch); the backward with no saved states at the same batches,
+  at L = 100 and at L = 1024; the time-split forward and backward at
+  L = 1024 (batch 16 and 2) and L = 1000, also against the whole-sequence
+  kernels; and the per-call times of the whole-sequence and the time-split
+  kernels at L = 1024 for batch 2 to 128;
 * sampling: full-width forwards at batch 32 and 160 and a DDIM-10 CFG
   trajectory against the plain versions, then 80 images with DDIM-50 and
   CFG 3 through `sample` from a checkpoint of those random weights (the
@@ -38,14 +42,26 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
 * training: the full-width loss and gradients against the plain versions,
   every parameter's gradient non-zero, then three epochs of `train` on the
   fixtures at batch 128, train images/s with the kernels and with the
-  plain versions, and `sample` DDIM-10 from the checkpoint it wrote.
+  plain versions, and `sample` DDIM-10 from the checkpoint it wrote;
+* training with `remat: True` (gradient checkpointing: each block's scan
+  saves no states, runs forward twice and rebuilds the states in its
+  backward): loss and gradients at batch 128 against the plain versions
+  and against the same weights without remat, then the same `train` and
+  `sample` run, with the peak device memory beside the run without remat;
+* the same DiM on 64x64 images (L = 1024, the `synthetic` dataset, batch
+  16), where the scans under a gradient run time-split: loss and gradients
+  against the plain versions, one epoch (32 steps) of `train`, train
+  images/s, and `sample` DDIM-10 from its checkpoint.
 
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
 model's kernels did not run. Every failure raises; there is no fallback. The
 last line of standard output is one JSON object with "ok": true; the line
-before it lists each kernel with its launches, error and times.
+before it lists each kernel with its launches, error, times, the least time
+the card could take for the same calls (`bound_ms`, from the shapes) and,
+where one PyTorch call computes the same function, that call's time
+(`library_ms`; the port never calls it).
 
 Float32 throughout, TF32 off. Kernel times are medians of CUDA-event
 timings after warm-up; samples/s is the generation loop of one
@@ -64,6 +80,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -85,7 +102,10 @@ from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
 )
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
-from diffusion_models_collection_tpu_torch.utils.helpers import load_config  # noqa: E402
+from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
+    load_config,
+    resolve_image_size,
+)
 
 CONFIG = ROOT / "configs" / "cifar10_unet.py"
 GN_SHAPES = [(32, 32, 128), (32, 32, 256), (32, 32, 384), (16, 16, 128),
@@ -125,16 +145,51 @@ SCAN_PER_FORWARD = 12  # one scan in each DiM block
 DIM_FORWARD = {"scan_fwd": SCAN_PER_FORWARD}
 DIM_STEP = dict(DIM_FORWARD, scan_fwd_states=SCAN_PER_FORWARD,
                 scan_bwd=SCAN_PER_FORWARD)
+# Under `remat: True` a block's forward runs twice (the recompute in the
+# backward) and keeps no scan states; the backward rebuilds them (K7)
+DIM_REMAT_STEP = {"scan_fwd": 2 * SCAN_PER_FORWARD,
+                  "scan_bwd_nostate": SCAN_PER_FORWARD}
+# The 64x64 DiM: L = 1024 in 32 time blocks, batch 16, so the scans under a
+# gradient run time-split (K9, K10); its forwards without one are K5
+DIM64_SIZE, DIM64_BATCH = 64, 16
+DIM64_STEP = {"scan_fwd_split": SCAN_PER_FORWARD,
+              "scan_bwd_split": SCAN_PER_FORWARD}
+SYNTHETIC_IMAGES = 512  # the `synthetic` dataset's size
 SCAN_D, SCAN_N = 768, 16  # d_inner = 2 * hidden, state size
 # (batch, L): the check, sampling and training batches at the model's L, the
-# two other time blocks (L = 48: T = 16; L = 100: a ragged last block)
+# two other time blocks (L = 48: T = 16; L = 100: a ragged last block), and
+# the 64x64 DiM's sampling forward (8 images under CFG at L = 1024)
 SCAN_FWD_CASES = [(CHECK_BATCH, 256), (2 * SAMPLES, 256), (128, 256),
-                  (CHECK_BATCH, 48), (CHECK_BATCH, 100)]
+                  (CHECK_BATCH, 48), (CHECK_BATCH, 100), (DIM64_BATCH, 1024)]
 SCAN_BWD_CASES = [(CHECK_BATCH, 256), (TRAIN_BATCH, 256)]
+# K7: the same, a ragged L, and L = 1024, where the rebuilt block states do
+# not fit shared memory and go to a scratch buffer in device memory
+SCAN_NOSTATE_CASES = SCAN_BWD_CASES + [(CHECK_BATCH, 100), (16, 1024)]
+# K9, K10: the 64x64 DiM's training batch and a small one at its L, and a
+# ragged L (63 time blocks of 16 steps, the last of 8)
+SCAN_SPLIT_CASES = [(16, 1024), (2, 1024), (16, 1000)]
+SCAN_SWEEP_LENGTH, SCAN_SWEEP_BATCHES = 1024, (2, 4, 8, 16, 32, 64, 128)
+# K9, K10 at each of these chunk sizes (time blocks in a chunk) for these
+# batches: the data behind `scan.chunk_blocks_for`
+SCAN_CHUNK_SWEEP, SCAN_CHUNK_BATCHES = (1, 2, 4, 8), (2, 16, 32)
 # The scan forward keeps the recurrence in float32 like its plain version,
 # in another order of rounding: 2e-5 as the other forwards. Its backward
 # runs an adjoint over L steps and sums dB, dC over D: 1e-4 as K3.
 TOL_SCAN_FWD, TOL_SCAN_BWD = 2e-5, 1e-4
+
+
+# read_launches() key -> the scan wrappers' launch counter: K5/K6, K6, K8,
+# K7, K9, K10
+SCAN_COUNTERS = {"scan_fwd": "FWD_LAUNCHES",
+                 "scan_fwd_states": "FWD_STATES_LAUNCHES",
+                 "scan_bwd": "BWD_LAUNCHES",
+                 "scan_bwd_nostate": "BWD_NOSTATE_LAUNCHES",
+                 "scan_fwd_split": "FWD_SPLIT_LAUNCHES",
+                 "scan_bwd_split": "BWD_SPLIT_LAUNCHES"}
+# Published peaks of one H100 SXM: device memory and float32 outside the
+# tensor cores. A kernel's bound is the larger of its bytes over the one and
+# its operations over the other.
+PEAK_BYTES_PER_S, PEAK_FP32_OPS_PER_S = 3.35e12, 67e12
 
 
 def max_rel(a, b):
@@ -158,21 +213,80 @@ def median_ms(fn, reps=30, warmup=5):
     return statistics.median(times)
 
 
+class Bound:
+    """The least time an H100 could take for some calls: for each call the
+    larger of bytes / 3.35 TB/s (every input read once, every output
+    written once) and operations / 67 TFLOP/s (float32 outside the tensor
+    cores; an exponential counted as one operation), summed over the calls."""
+
+    def __init__(self):
+        self.ms = self.bytes_ms = self.ops_ms = 0.0
+
+    def add(self, n_bytes, n_ops, calls=1):
+        bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        ops_ms = 1e3 * n_ops / PEAK_FP32_OPS_PER_S
+        self.ms += calls * max(bytes_ms, ops_ms)
+        self.bytes_ms += calls * bytes_ms
+        self.ops_ms += calls * ops_ms
+        return self
+
+    def keys(self):
+        return {"bound_ms": self.ms,
+                "bound_by": ("bytes" if self.bytes_ms >= self.ops_ms
+                             else "operations")}
+
+
+def gn_work(b, h, w, c):
+    """GroupNorm+SiLU: x in, y out, scale and bias; per element the mean
+    and variance sums (3), normalise and affine (4), SiLU (4)."""
+    n = b * h * w * c
+    return 4 * (2 * n + 2 * c), 11 * n
+
+
+def attn_work(bh, seq, d, backward=False):
+    """Attention forward: q, k, v in, o and lse out; QK^T and PV (2 L^2 d
+    multiply-adds) and the softmax (5 an entry). Backward: q, k, v, o, dO,
+    lse in, dq, dk, dv out; five such products and the softmax's."""
+    n = bh * seq * d
+    if backward:
+        return 4 * (8 * n + bh * seq), bh * seq * seq * (10 * d + 8)
+    return 4 * (4 * n + bh * seq), bh * seq * seq * (4 * d + 5)
+
+
+def scan_work(kind, batch, length, d_inner=768, n_state=16):
+    """The scan's bytes and operations. Forward ("fwd", with "fwd_states"
+    also `bound` out): x, dt in, y out, B, C, A in; per state and step the
+    decay (2, the exponential as one), the update (3) and the output (2).
+    Backward from states ("bwd"; "bwd_nostate" reads no `bound` and walks
+    forward once more): x, dt, g in, dx, ddt out, B, C in, dB, dC out, A in,
+    dA out; per state and step one recompute of h (5) and the adjoint with
+    its five gradients (16)."""
+    rows = batch * length
+    states = rows * d_inner * n_state
+    small = 4 * (2 * rows * n_state + d_inner * n_state)
+    bound = 4 * batch * len(scan._blocks(length)) * n_state * d_inner
+    if kind in ("fwd", "fwd_states"):
+        return (4 * 3 * rows * d_inner + small
+                + (bound if kind == "fwd_states" else 0)), 7 * states
+    n_bytes = 4 * 5 * rows * d_inner + 2 * small
+    if kind == "bwd":
+        return n_bytes + bound, 21 * states
+    return n_bytes, 26 * states
+
+
 def reset_launches():
     fused_norm.LAUNCHES = 0
     flash_attention.LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = 0
-    scan.FWD_LAUNCHES = 0
-    scan.FWD_STATES_LAUNCHES = 0
-    scan.BWD_LAUNCHES = 0
+    for counter in SCAN_COUNTERS.values():
+        setattr(scan, counter, 0)
 
 
 def read_launches():
     return {"gn": fused_norm.LAUNCHES, "attn": flash_attention.LAUNCHES,
             "attn_bwd": flash_attention.BWD_LAUNCHES,
-            "scan_fwd": scan.FWD_LAUNCHES,
-            "scan_fwd_states": scan.FWD_STATES_LAUNCHES,
-            "scan_bwd": scan.BWD_LAUNCHES}
+            **{key: getattr(scan, counter)
+               for key, counter in SCAN_COUNTERS.items()}}
 
 
 def expect(**counts):
@@ -321,10 +435,13 @@ def phase_trajectory(model, gen):
 def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
     """Each kernel against its plain version at every shape one UNet forward
     gives it at the sampling batch (cond + uncond), with the same bars as
-    above; returns the kernel and plain time of one forward's worth of
-    calls, summed over those shapes, and the worst absolute errors."""
-    totals = {"gn": [0.0, 0.0], "attn": [0.0, 0.0]}
+    above; returns the kernel time, the plain time and (attention) the
+    time of `F.scaled_dot_product_attention`, which the port never calls,
+    of one forward's worth of calls, summed over those shapes; the worst
+    absolute errors; and the bounds of the same calls."""
+    totals = {"gn": [0.0, 0.0, None], "attn": [0.0, 0.0, 0.0]}
     worst_abs = {"gn": 0.0, "attn": 0.0}
+    bounds = {"gn": Bound(), "attn": Bound()}
     for (c, h, w), n in sorted(
             {s: gn_shapes.count(s) for s in gn_shapes}.items()):
         x = torch.randn(batch, h, w, c, generator=gen, device="cuda") * 2 + 0.5
@@ -340,6 +457,7 @@ def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
             lambda: fused_norm.group_norm_silu_ref(x, scale, bias, 8))
         totals["gn"][0] += n * ms
         totals["gn"][1] += n * plain
+        bounds["gn"].add(*gn_work(batch, h, w, c), n)
         print(f"  main path: gn_silu_fwd B={batch} {h}x{w}x{c} x{n}: max_rel "
               f"{rel:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms")
         if not rel <= TOL_OUT:
@@ -361,15 +479,20 @@ def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
         ms = median_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
         plain = median_ms(
             lambda: flash_attention.flash_attention_fwd_ref(q, k, v))
+        library = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
         totals["attn"][0] += n * ms
         totals["attn"][1] += n * plain
+        totals["attn"][2] += n * library
+        bounds["attn"].add(*attn_work(bh, seq, d), n)
         print(f"  main path: flash_attn_fwd BH={bh} L={seq} d={d} x{n}: o "
               f"max_rel {rel:.3e} lse max_abs {lse_err:.3e} kernel {ms:.4f} "
-              f"ms plain {plain:.4f} ms")
+              f"ms plain {plain:.4f} ms scaled_dot_product_attention "
+              f"{library:.4f} ms")
         if not (rel <= TOL_OUT and lse_err <= TOL_LSE):
             raise AssertionError(f"flash_attn_fwd BH={bh} L={seq}: o {rel}, "
                                  f"lse {lse_err}")
-    return totals, worst_abs
+    return totals, worst_abs, bounds
 
 
 def phase_sample_main(label, config, model, per_forward, tmp):
@@ -421,7 +544,9 @@ def attention_bwd_case(bh, seq, d, gen):
 
 def check_attention_bwd(label, args):
     """K3 against its plain version on one input; returns the worst
-    absolute error and the kernel and plain times."""
+    absolute error, the kernel and plain times, and the time of autograd's
+    backward through `F.scaled_dot_product_attention` (never called by the
+    port) for the same q, k, v and dO."""
     grads = flash_attention.flash_attention_bwd(*args)
     refs = flash_attention.flash_attention_bwd_ref(*args)
     torch.cuda.synchronize()
@@ -429,38 +554,44 @@ def check_attention_bwd(label, args):
     worst_abs = max((g - r).abs().max().item() for g, r in zip(grads, refs))
     ms = median_ms(lambda: flash_attention.flash_attention_bwd(*args))
     plain = median_ms(lambda: flash_attention.flash_attention_bwd_ref(*args))
+    qkv = [t.detach().requires_grad_() for t in args[:3]]
+    out = F.scaled_dot_product_attention(*qkv)
+    library = median_ms(
+        lambda: torch.autograd.grad(out, qkv, args[4], retain_graph=True))
     print(f"{label}: dq/dk/dv max_rel {rels[0]:.3e} {rels[1]:.3e} "
-          f"{rels[2]:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms")
+          f"{rels[2]:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
+          f"scaled_dot_product_attention's backward {library:.4f} ms")
     if not max(rels) <= TOL_BWD:
         raise AssertionError(f"{label}: max_rel {rels} > {TOL_BWD}")
-    return worst_abs, ms, plain
+    return worst_abs, ms, plain, library
 
 
 def phase_attn_bwd(attn_shapes, gen):
     """K3 against `flash_attention_bwd_ref` at BH 128 (L 256, 64, 16, 100
     at d 64; d 32 and 128 at L 256), then at every attention shape of a
-    batch-128 train step; returns the worst absolute error and the kernel
-    and plain time of one step's worth of backward calls."""
+    batch-128 train step; returns the worst absolute error, the kernel,
+    plain and library time of one step's worth of backward calls, and
+    their bound."""
     worst_abs = 0.0
     cases = [(seq, HEAD_DIM) for seq in ATTN_LENGTHS]
     cases += [(256, d) for d in ATTN_BWD_HEAD_DIMS]
     for seq, d in cases:
-        err, _, _ = check_attention_bwd(
+        err, *_ = check_attention_bwd(
             f"flash_attn_bwd BH={ATTN_BH} L={seq} d={d}",
             attention_bwd_case(ATTN_BH, seq, d, gen))
         worst_abs = max(worst_abs, err)
-    totals = [0.0, 0.0]
+    totals, bound = [0.0, 0.0, 0.0], Bound()
     for (c, h, w), n in sorted(
             {s: attn_shapes.count(s) for s in attn_shapes}.items()):
         heads = 4
         bh, seq, d = TRAIN_BATCH * heads, h * w, c // heads
-        err, ms, plain = check_attention_bwd(
+        err, *times = check_attention_bwd(
             f"  train step: flash_attn_bwd BH={bh} L={seq} d={d} x{n}",
             attention_bwd_case(bh, seq, d, gen))
         worst_abs = max(worst_abs, err)
-        totals[0] += n * ms
-        totals[1] += n * plain
-    return worst_abs, totals
+        totals = [total + n * ms for total, ms in zip(totals, times)]
+        bound.add(*attn_work(bh, seq, d, backward=True), n)
+    return worst_abs, totals, bound
 
 
 def loss_and_grads(model, ddpm, batch):
@@ -473,23 +604,29 @@ def loss_and_grads(model, ddpm, batch):
                            for n, p in model.named_parameters()}
 
 
-def phase_train_grads(label, model, config, per_step, gen):
-    """The full-width model's loss and every gradient at batch 32 through
-    the kernels against the same inside `plain_kernels()`, with exactly
-    one step's launches (`per_step`) and none inside; every parameter must
-    get a gradient. Call it with the model in eval mode (no dropout), so
-    both runs see one network."""
+def image_shape(config):
+    return (*resolve_image_size(config["image_size"]), 3)
+
+
+def phase_train_grads(label, model, config, per_step, gen,
+                      batch_size=CHECK_BATCH, batch=None):
+    """The full-width model's loss and every gradient at `batch_size`
+    (or on `batch`, an earlier call's) through the kernels against the same
+    inside `plain_kernels()`, with exactly one step's launches (`per_step`)
+    and none inside; every parameter must get a gradient. Call it with the
+    model in eval mode (no dropout), so both runs see one network. Returns
+    the batch, the loss and the flattened gradient."""
     ddpm = DDPM(num_timesteps=config["num_timesteps"])
-    batch = {
-        "x0": torch.rand(CHECK_BATCH, 32, 32, 3, generator=gen,
-                         device="cuda") * 2 - 1,
-        "t": torch.randint(0, config["num_timesteps"], (CHECK_BATCH,),
+    shape = (batch_size, *image_shape(config))
+    batch = batch or {
+        "x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
+        "t": torch.randint(0, config["num_timesteps"], (batch_size,),
                            generator=gen, device="cuda"),
-        "noise": torch.randn(CHECK_BATCH, 32, 32, 3, generator=gen,
-                             device="cuda"),
-        "y": torch.randint(0, 11, (CHECK_BATCH,), generator=gen,
+        "noise": torch.randn(*shape, generator=gen, device="cuda"),
+        "y": torch.randint(0, 11, (batch_size,), generator=gen,
                            device="cuda"),
     }
+    batch_size = batch["t"].shape[0]
     reset_launches()
     loss, grads = loss_and_grads(model, ddpm, batch)
     torch.cuda.synchronize()
@@ -504,7 +641,7 @@ def phase_train_grads(label, model, config, per_step, gen):
     loss_rel = max_rel(loss, loss_ref)
     grad_rel = max_rel(flat, flat_ref)
     worst = max(grads, key=lambda n: max_rel(grads[n], grads_ref[n]))
-    print(f"{label} loss and gradients B={CHECK_BATCH}, kernels vs plain: "
+    print(f"{label} loss and gradients B={batch_size}, kernels vs plain: "
           f"loss {loss.item():.6f} max_rel {loss_rel:.3e}, flattened "
           f"gradient max_abs_diff/max_abs {grad_rel:.3e}; worst tensor "
           f"{worst} max_rel {max_rel(grads[worst], grads_ref[worst]):.3e}; "
@@ -518,16 +655,40 @@ def phase_train_grads(label, model, config, per_step, gen):
             and torch.isfinite(flat).all() and not no_grad):
         raise AssertionError(f"{label} loss max_rel {loss_rel}, gradient "
                              f"{grad_rel}, zero gradients {no_grad}")
+    return batch, loss, flat
 
 
-def write_train_config(config, tmp):
+def phase_remat_grads(model, config, gen):
+    """The CIFAR DiM under `remat: True` with `model`'s weights at the
+    training batch: its loss and gradients against the plain versions
+    (`phase_train_grads`, with a remat step's launches), and against the
+    model without remat on the same batch, within the same bars."""
+    remat_config = dict(config, remat=True)
+    remat_model = factory.get_model(remat_config).to("cuda").eval()
+    remat_model.load_state_dict(model.state_dict())
+    batch, loss_r, flat_r = phase_train_grads(
+        "DiM remat", remat_model, remat_config, DIM_REMAT_STEP, gen,
+        batch_size=TRAIN_BATCH)
+    _, loss, flat = phase_train_grads("DiM on the remat run's batch", model,
+                                      config, DIM_STEP, gen, batch=batch)
+    loss_rel, grad_rel = max_rel(loss_r, loss), max_rel(flat_r, flat)
+    print(f"DiM remat vs no remat, B={TRAIN_BATCH}: loss max_rel "
+          f"{loss_rel:.3e}, flattened gradient max_abs_diff/max_abs "
+          f"{grad_rel:.3e}")
+    if not (loss_rel <= TOL_LOSS and grad_rel <= TOL_GRAD):
+        raise AssertionError(f"DiM remat vs no remat: loss {loss_rel}, "
+                             f"gradient {grad_rel}")
+
+
+def write_train_config(config, epochs, tmp):
     """The config at full width with only the run's length, data and output
-    places changed: the committed CIFAR-10 fixtures, three epochs, outputs
-    under `tmp`, no best-model copy, no sample grid."""
-    run = dict(config, data_root=str(FIXTURE_DATA), epochs=TRAIN_EPOCHS,
+    places changed: the committed CIFAR-10 fixtures (where the config reads
+    CIFAR-10), `epochs` epochs, outputs under `tmp`, no best-model copy, no
+    sample grid."""
+    run = dict(config, data_root=str(FIXTURE_DATA), epochs=epochs,
                save_dir=str(Path(tmp) / "checkpoints"),
                sample_dir=str(Path(tmp) / "samples"), save_best=False,
-               sample_start_epoch=TRAIN_EPOCHS + 1)
+               sample_start_epoch=epochs + 1)
     path = Path(tmp) / f"cifar10_{config['model_type']}_fixtures.py"
     path.write_text(f"config = {run!r}\n")
     return path
@@ -547,13 +708,17 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def phase_train_main(label, config, per_step, per_forward, samplers, tmp):
-    """`train.main` for three epochs on the fixtures at full width, with
-    exactly `per_step` launches a step; then train images/s with the
-    kernels and with the plain versions, in turns; then `sample.main` from
-    the checkpoint it wrote, once for each (method, model calls, flags) of
-    `samplers`, with exactly `per_forward` launches a model call."""
-    cfg_path = write_train_config(config, tmp)
+def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
+                     epochs=TRAIN_EPOCHS, steps_per_epoch=1):
+    """`train.main` for `epochs` epochs at full width (on the fixtures:
+    three epochs of one batch of 128), with exactly `per_step` launches a
+    step; then train images/s with the kernels and with the plain versions,
+    in turns, and the peak device memory of the kernel path's steps; then
+    `sample.main` from the checkpoint it wrote, once for each (method,
+    model calls, flags) of `samplers`, with exactly `per_forward` launches
+    a model call."""
+    batch_size = config["batch_size"]
+    cfg_path = write_train_config(config, epochs, tmp)
     torch.cuda.synchronize()
     reset_launches()
     start = time.perf_counter()
@@ -567,14 +732,14 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp):
     ).read_text().splitlines()]
     losses = [m["train/loss"] for m in metrics if "train/loss" in m]
     ckpt = trainer.save_dir / "current_model.pth"
-    print(f"train.main {label}: {TRAIN_EPOCHS} epochs, {steps} steps of "
-          f"batch {TRAIN_BATCH} in {wall:.3f} s; losses {losses}; launches "
+    print(f"train.main {label}: {epochs} epochs, {steps} steps of "
+          f"batch {batch_size} in {wall:.3f} s; losses {losses}; launches "
           f"{launches}")
     expected = scaled(per_step, steps)
-    if not (steps == TRAIN_EPOCHS and launches == expected):
+    if not (steps == epochs * steps_per_epoch and launches == expected):
         raise AssertionError(f"{label}: {steps} steps, launches {launches}, "
                              f"expected {expected}")
-    if not (len(losses) == TRAIN_EPOCHS and all(map(math.isfinite, losses))
+    if not (len(losses) == epochs and all(map(math.isfinite, losses))
             and ckpt.is_file()):
         raise AssertionError(f"{label}: losses {losses}, {ckpt} written: "
                              f"{ckpt.is_file()}")
@@ -583,16 +748,20 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp):
     images = torch.from_numpy(images).to("cuda")
     labels = torch.from_numpy(labels).to("cuda")
     rates = {"kernels": [], "plain": []}
+    peak = 0
     for path in ("kernels", "plain", "plain", "kernels"):
         if path == "plain":
             with plain_kernels():
                 rates[path].append(time_train_steps(trainer, images, labels))
         else:
+            torch.cuda.reset_peak_memory_stats()
             rates[path].append(time_train_steps(trainer, images, labels))
-    print(f"{label} train images/s at batch {TRAIN_BATCH} (median of "
+            peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"{label} train images/s at batch {batch_size} (median of "
           f"{TRAIN_TIMED} steps after {TRAIN_WARMUP}), kernel path "
           f"{', '.join(f'{r:.2f}' for r in rates['kernels'])}, plain path "
-          f"{', '.join(f'{r:.2f}' for r in rates['plain'])}")
+          f"{', '.join(f'{r:.2f}' for r in rates['plain'])}; peak device "
+          f"memory of the kernel path's steps {peak / 2**20:.1f} MiB")
 
     for method, calls, flags in samplers:
         out = Path(tmp) / method
@@ -606,12 +775,13 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp):
         samples = result["samples"]
         print(f"sample.main {label} {method} from the trained checkpoint: 8 "
               f"images in {result['sampling_seconds']:.3f} s; launches {got}")
-        if not (samples.shape == (8, 32, 32, 3) and np.isfinite(samples).all()
+        if not (samples.shape == (8, *image_shape(config))
+                and np.isfinite(samples).all()
                 and (out / "samples.png").is_file()
                 and got == scaled(per_forward, calls)):
             raise AssertionError(f"{label} {method}: samples "
                                  f"{samples.shape}, launches {got}")
-    return launches, rates
+    return launches, rates, peak
 
 
 # ------------------------------------------------------------------- DiM
@@ -623,19 +793,174 @@ def scan_case(batch, length, gen):
         return torch.randn(*shape, generator=gen, device="cuda")
 
     x = randn(batch, length, SCAN_D)
-    dt = torch.nn.functional.softplus(randn(batch, length, SCAN_D) - 2)
+    dt = F.softplus(randn(batch, length, SCAN_D) - 2)
     A = -torch.exp(randn(SCAN_D, SCAN_N) * 0.5) * torch.arange(
         1, SCAN_N + 1, device="cuda")
     return (x, dt, A, randn(batch, length, SCAN_N),
             randn(batch, length, SCAN_N), randn(batch, length, SCAN_D))
 
 
+def check_outputs(label, outs, refs, tol):
+    """The tensors `outs` against each reference of `refs` (name -> tensors;
+    None entries skipped), max-rel within `tol`, each error printed;
+    returns the worst absolute error."""
+    worst = 0.0
+    for name, wants in refs.items():
+        pairs = [(o, w) for o, w in zip(outs, wants) if w is not None]
+        rels = [max_rel(o, w) for o, w in pairs]
+        worst = max(worst, *((o - w).abs().max().item() for o, w in pairs))
+        print(f"{label} vs {name}: max_rel "
+              f"{' '.join(f'{r:.3e}' for r in rels)}")
+        if not max(rels) <= tol:
+            raise AssertionError(f"{label} vs {name}: max_rel {rels} > {tol}")
+    return worst
+
+
+def phase_scan_nostate(gen, worst, times):
+    """K7 against its plain version (the plain forward with states, then
+    the plain backward) and against K8 from K6's states."""
+    for batch, length in SCAN_NOSTATE_CASES:
+        *inputs, g = scan_case(batch, length, gen)
+        args = (*inputs, g)
+        label = (f"selective_scan_bwd_nostate B={batch} L={length} "
+                 f"D={SCAN_D} N={SCAN_N} dx/ddt/dA/dB/dC")
+        grads = scan.selective_scan_bwd_nostate(*args)
+        torch.cuda.synchronize()
+        _, bound = scan.selective_scan_fwd(*inputs, True)
+        worst["bwd_nostate"] = max(worst["bwd_nostate"], check_outputs(
+            label, grads,
+            {"plain": scan.selective_scan_bwd_nostate_ref(*args),
+             "K8 from K6's states": scan.selective_scan_bwd(*args, bound)},
+            TOL_SCAN_BWD))
+        ms = median_ms(lambda: scan.selective_scan_bwd_nostate(*args))
+        plain = median_ms(lambda: scan.selective_scan_bwd_nostate_ref(*args),
+                          reps=5, warmup=1)
+        times[("bwd_nostate", batch, length)] = (ms, plain)
+        print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
+
+
+def phase_scan_split(gen, worst, times):
+    """K9 and K10 against their plain versions (the same three passes in
+    plain PyTorch) and against K6 and K8 on the same inputs."""
+    for batch, length in SCAN_SPLIT_CASES:
+        *inputs, g = scan_case(batch, length, gen)
+        shape = f"B={batch} L={length} D={SCAN_D} N={SCAN_N}"
+        outs = scan.selective_scan_fwd_split(*inputs)
+        torch.cuda.synchronize()
+        y_k6, bound = scan.selective_scan_fwd(*inputs, True)
+        worst["fwd_split"] = max(worst["fwd_split"], check_outputs(
+            f"selective_scan_fwd_split {shape} y/bound", outs,
+            {"plain": scan.selective_scan_fwd_split_ref(*inputs),
+             "K6": (y_k6, bound)}, TOL_SCAN_FWD))
+        ms = median_ms(lambda: scan.selective_scan_fwd_split(*inputs))
+        plain = median_ms(lambda: scan.selective_scan_fwd_split_ref(*inputs),
+                          reps=5, warmup=1)
+        times[("fwd_split", batch, length)] = (ms, plain)
+        print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
+
+        args = (*inputs, g, bound)
+        grads = scan.selective_scan_bwd_split(*args)
+        torch.cuda.synchronize()
+        worst["bwd_split"] = max(worst["bwd_split"], check_outputs(
+            f"selective_scan_bwd_split {shape} dx/ddt/dA/dB/dC", grads,
+            {"plain": scan.selective_scan_bwd_split_ref(*args),
+             "K8": scan.selective_scan_bwd(*args)}, TOL_SCAN_BWD))
+        ms = median_ms(lambda: scan.selective_scan_bwd_split(*args))
+        plain = median_ms(lambda: scan.selective_scan_bwd_split_ref(*args),
+                          reps=5, warmup=1)
+        times[("bwd_split", batch, length)] = (ms, plain)
+        print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
+
+
+def phase_scan_sweep(gen, times):
+    """Per-call times of the whole-sequence kernels against the time-split
+    ones at L = 1024 over the batch (the data behind `scan.time_split`),
+    and of K7 against K6 + K8 at the CIFAR training shape."""
+    length = SCAN_SWEEP_LENGTH
+    for batch in SCAN_SWEEP_BATCHES:
+        *inputs, g = scan_case(batch, length, gen)
+        _, bound = scan.selective_scan_fwd(*inputs, True)
+        args = (*inputs, g, bound)
+        k6 = median_ms(lambda: scan.selective_scan_fwd(*inputs, True), reps=10)
+        k9 = median_ms(lambda: scan.selective_scan_fwd_split(*inputs), reps=10)
+        k8 = median_ms(lambda: scan.selective_scan_bwd(*args), reps=10)
+        k10 = median_ms(lambda: scan.selective_scan_bwd_split(*args), reps=10)
+        times[("sweep", batch)] = {"K6": k6, "K9": k9, "K8": k8, "K10": k10}
+        print(f"scan sweep L={length} B={batch} (time_split "
+              f"{scan.time_split(batch, length, SCAN_D)}, chunk of "
+              f"{scan.chunk_blocks_for(batch, length, SCAN_D)} time blocks): "
+              f"K6 {k6:.4f} ms K9 {k9:.4f} ms, K8 {k8:.4f} ms K10 {k10:.4f} "
+              "ms")
+    phase_scan_chunks(gen, times)
+    k7 = times[("bwd_nostate", TRAIN_BATCH, 256)][0]
+    k6 = times[("fwd", TRAIN_BATCH, 256, True)][0]
+    k5 = times[("fwd", TRAIN_BATCH, 256, False)][0]
+    k8 = times[("bwd", TRAIN_BATCH, 256)][0]
+    print(f"scan at B={TRAIN_BATCH} L=256: K7 {k7:.4f} ms against K8 "
+          f"{k8:.4f} + K6 {k6:.4f} = {k8 + k6:.4f} ms; a remat step's "
+          f"2 K5 + K7 {2 * k5 + k7:.4f} ms")
+    print_scan_bounds()
+
+
+def phase_scan_chunks(gen, times):
+    """K9 and K10 at L = 1024 with every chunk size of `SCAN_CHUNK_SWEEP`
+    in place of the wrappers' own choice: each held against K6 and K8 on
+    the same inputs, then timed."""
+    length, rule = SCAN_SWEEP_LENGTH, scan.chunk_blocks_for
+    for batch in SCAN_CHUNK_BATCHES:
+        *inputs, g = scan_case(batch, length, gen)
+        y_k6, bound = scan.selective_scan_fwd(*inputs, True)
+        args = (*inputs, g, bound)
+        grads_k8 = scan.selective_scan_bwd(*args)
+        readings = []
+        try:
+            for chunk in SCAN_CHUNK_SWEEP:
+                scan.chunk_blocks_for = lambda *shape, chunk=chunk: chunk
+                label = f"scan chunk of {chunk} B={batch} L={length}"
+                check_outputs(f"{label} y/bound",
+                              scan.selective_scan_fwd_split(*inputs),
+                              {"K6": (y_k6, bound)}, TOL_SCAN_FWD)
+                check_outputs(f"{label} dx/ddt/dA/dB/dC",
+                              scan.selective_scan_bwd_split(*args),
+                              {"K8": grads_k8}, TOL_SCAN_BWD)
+                k9 = median_ms(lambda: scan.selective_scan_fwd_split(*inputs),
+                               reps=10)
+                k10 = median_ms(lambda: scan.selective_scan_bwd_split(*args),
+                                reps=10)
+                times[("chunk", batch, chunk)] = {"K9": k9, "K10": k10}
+                readings.append(f"{chunk}: K9 {k9:.4f} K10 {k10:.4f}")
+        finally:
+            scan.chunk_blocks_for = rule
+        print(f"scan chunk sweep L={length} B={batch} (the wrappers' own "
+              f"choice: {rule(batch, length, SCAN_D)}), ms by time blocks "
+              f"in a chunk: {'; '.join(readings)}")
+
+
+def print_scan_bounds():
+    """The bound of one call of each scan kernel at its main path's shape
+    (and K4's at the ragged check shape), with what sets it."""
+    for name, kind, batch, length in (
+            ("K4", "fwd", CHECK_BATCH, 100), ("K5", "fwd", 2 * SAMPLES, 256),
+            ("K5", "fwd", TRAIN_BATCH, 256), ("K5", "fwd", DIM64_BATCH, 1024),
+            ("K6", "fwd_states", TRAIN_BATCH, 256),
+            ("K6", "fwd_states", DIM64_BATCH, 1024),
+            ("K7", "bwd_nostate", TRAIN_BATCH, 256),
+            ("K8", "bwd", TRAIN_BATCH, 256), ("K8", "bwd", DIM64_BATCH, 1024),
+            ("K9", "fwd_states", DIM64_BATCH, 1024),
+            ("K10", "bwd", DIM64_BATCH, 1024)):
+        keys = Bound().add(*scan_work(kind, batch, length)).keys()
+        print(f"scan bound per call {name} B={batch} L={length}: "
+              f"{keys['bound_ms']:.4f} ms ({keys['bound_by']})")
+
+
 def phase_scan(gen):
     """The scan kernels against their plain versions: the forward (K5 with
-    states off, K6 with states on, K4's ragged block at L = 100) and the
-    backward (K8). Returns the worst absolute errors and the kernel and
-    plain ms of one call at each shape."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    states off, K6 with states on, K4's ragged block at L = 100), the
+    backward from states (K8) and without (K7), and the time-split forward
+    and backward (K9, K10). Returns the worst absolute errors and the
+    kernel and plain ms of one call at each shape."""
+    worst = {"fwd": 0.0, "bwd": 0.0, "bwd_nostate": 0.0, "fwd_split": 0.0,
+             "bwd_split": 0.0}
     times = {}
     for batch, length in SCAN_FWD_CASES:
         x, dt, A, B, C, _ = scan_case(batch, length, gen)
@@ -684,6 +1009,9 @@ def phase_scan(gen):
         if not max(rels) <= TOL_SCAN_BWD:
             raise AssertionError(f"selective_scan_bwd B={batch}: max_rel "
                                  f"{rels}")
+    phase_scan_nostate(gen, worst, times)
+    phase_scan_split(gen, worst, times)
+    phase_scan_sweep(gen, times)
     return worst, times
 
 
@@ -749,13 +1077,13 @@ def main():
     config = load_config(CONFIG)
     model, gn_shapes, attn_shapes = phase_unet(config, gen)
     phase_trajectory(model, gen)
-    totals, main_err = phase_main_shapes(gn_shapes, attn_shapes, 2 * SAMPLES,
-                                         gen)
+    totals, main_err, bounds = phase_main_shapes(gn_shapes, attn_shapes,
+                                                 2 * SAMPLES, gen)
     with tempfile.TemporaryDirectory() as tmp:
         launches, seconds = phase_sample_main("UNet", config, model,
                                               UNET_FORWARD, tmp)
     del model
-    bwd_err, bwd_totals = phase_attn_bwd(attn_shapes, gen)
+    bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
     torch.manual_seed(0)
     phase_train_grads("UNet", factory.get_model(config).to("cuda").eval(),
                       config, UNET_STEP, gen)
@@ -763,7 +1091,7 @@ def main():
     samplers = [("ddim", 10, ["--num_inference_steps", "10"]),
                 ("ddpm", config["num_timesteps"], [])]
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, rates = phase_train_main(
+        train_launches, rates, _ = phase_train_main(
             "UNet", config, UNET_STEP, UNET_FORWARD, samplers, tmp)
 
     dim_config = load_config(DIM_CONFIG)
@@ -774,13 +1102,32 @@ def main():
         dim_launches, dim_seconds = phase_sample_main(
             "DiM", dim_config, dim_model, DIM_FORWARD, tmp)
     del dim_model
-    phase_train_grads("DiM", random_dim(dim_config, gen), dim_config,
-                      DIM_STEP, gen)
+    dim_model = random_dim(dim_config, gen)
+    phase_train_grads("DiM", dim_model, dim_config, DIM_STEP, gen)
+    phase_remat_grads(dim_model, dim_config, gen)
+    del dim_model
     samplers = [("ddim", 10, ["--num_inference_steps", "10",
                               "--cfg_scale", str(CFG_SCALE)])]
     with tempfile.TemporaryDirectory() as tmp:
-        dim_train_launches, dim_rates = phase_train_main(
+        dim_train_launches, dim_rates, dim_peak = phase_train_main(
             "DiM", dim_config, DIM_STEP, DIM_FORWARD, samplers, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        remat_launches, remat_rates, remat_peak = phase_train_main(
+            "DiM remat", dict(dim_config, remat=True), DIM_REMAT_STEP,
+            DIM_FORWARD, samplers, tmp)
+
+    # the same DiM on 64x64 images, on the `synthetic` dataset (one epoch)
+    size = (DIM64_SIZE, DIM64_SIZE)
+    dim64_config = dict(
+        dim_config, image_size=size, dataset="synthetic",
+        batch_size=DIM64_BATCH,
+        model_params=dict(dim_config["model_params"], img_size=size))
+    phase_train_grads("DiM 64x64", random_dim(dim64_config, gen),
+                      dim64_config, DIM64_STEP, gen, batch_size=DIM64_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        dim64_launches, dim64_rates, dim64_peak = phase_train_main(
+            "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers, tmp,
+            epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -792,8 +1139,25 @@ def main():
           f"{statistics.median(dim_rates['kernels']):.2f} train images/s at "
           f"batch {TRAIN_BATCH} (plain versions: "
           f"{statistics.median(dim_rates['plain']):.2f}) on {smi}")
+    print(f"DiM remat: {statistics.median(remat_rates['kernels']):.2f} train "
+          f"images/s at batch {TRAIN_BATCH} (plain versions: "
+          f"{statistics.median(remat_rates['plain']):.2f}), peak device "
+          f"memory {remat_peak / 2**20:.1f} MiB against "
+          f"{dim_peak / 2**20:.1f} MiB without remat, on {smi}")
+    print(f"DiM 64x64: {statistics.median(dim64_rates['kernels']):.2f} train "
+          f"images/s at batch {DIM64_BATCH} (plain versions: "
+          f"{statistics.median(dim64_rates['plain']):.2f}), peak device "
+          f"memory {dim64_peak / 2**20:.1f} MiB, on {smi}")
     fwd_ms, fwd_plain = scan_times[("fwd", 2 * SAMPLES, 256, False)]
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
+    k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
+    k9_ms, k9_plain = scan_times[("fwd_split", DIM64_BATCH, 1024)]
+    k10_ms, k10_plain = scan_times[("bwd_split", DIM64_BATCH, 1024)]
+
+    def per_model_call(kind, batch, length):
+        """The bound of the 12 scans of one model call."""
+        return Bound().add(*scan_work(kind, batch, length),
+                           SCAN_PER_FORWARD).keys()
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -804,7 +1168,8 @@ def main():
          "launches_by_path": {"sample": launches["gn"],
                               "train": train_launches["gn"]},
          "max_abs_err": max(gn_err, main_err["gn"]),
-         "ms": totals["gn"][0], "plain_ms": totals["gn"][1]},
+         "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
+         **bounds["gn"].keys(), "library_ms": None},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": csrc + "flash_attn.cu",
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:65",
@@ -812,14 +1177,16 @@ def main():
          "launches_by_path": {"sample": launches["attn"],
                               "train": train_launches["attn"]},
          "max_abs_err": max(attn_err, main_err["attn"]),
-         "ms": totals["attn"][0], "plain_ms": totals["attn"][1]},
+         "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
+         **bounds["attn"].keys(), "library_ms": totals["attn"][2]},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": csrc + "flash_attn_bwd.cu",
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:126",
          "launches": train_launches["attn_bwd"],
          "launches_by_path": {"train": train_launches["attn_bwd"]},
          "max_abs_err": bwd_err,
-         "ms": bwd_totals[0], "plain_ms": bwd_totals[1]},
+         "ms": bwd_totals[0], "plain_ms": bwd_totals[1],
+         **bwd_bound.keys(), "library_ms": bwd_totals[2]},
         # K5 (states off), K6 (states on) and K4 (the ragged last block);
         # ms per sampling forward: 12 calls at batch 160
         {"name": "selective_scan_fwd", "route": "cuda",
@@ -828,10 +1195,12 @@ def main():
          "also_replaces": [pallas + ":295", pallas + ":55"],
          "launches": dim_launches["scan_fwd"],
          "launches_by_path": {"sample": dim_launches["scan_fwd"],
-                              "train": dim_train_launches["scan_fwd"]},
+                              "train": dim_train_launches["scan_fwd"],
+                              "train_remat": remat_launches["scan_fwd"]},
          "max_abs_err": scan_err["fwd"],
          "ms": SCAN_PER_FORWARD * fwd_ms,
-         "plain_ms": SCAN_PER_FORWARD * fwd_plain},
+         "plain_ms": SCAN_PER_FORWARD * fwd_plain,
+         **per_model_call("fwd", 2 * SAMPLES, 256), "library_ms": None},
         # K8; ms per train step: 12 calls at batch 128
         {"name": "selective_scan_bwd", "route": "cuda",
          "source": csrc + "selective_scan_bwd.cu",
@@ -840,7 +1209,40 @@ def main():
          "launches_by_path": {"train": dim_train_launches["scan_bwd"]},
          "max_abs_err": scan_err["bwd"],
          "ms": SCAN_PER_FORWARD * bwd_ms,
-         "plain_ms": SCAN_PER_FORWARD * bwd_plain},
+         "plain_ms": SCAN_PER_FORWARD * bwd_plain,
+         **per_model_call("bwd", TRAIN_BATCH, 256), "library_ms": None},
+        # K7; ms per remat train step: 12 calls at batch 128
+        {"name": "selective_scan_bwd_nostate", "route": "cuda",
+         "source": csrc + "selective_scan_bwd.cu",
+         "replaces": pallas + ":233",
+         "launches": remat_launches["scan_bwd_nostate"],
+         "launches_by_path": {
+             "train_remat": remat_launches["scan_bwd_nostate"]},
+         "max_abs_err": scan_err["bwd_nostate"],
+         "ms": SCAN_PER_FORWARD * k7_ms,
+         "plain_ms": SCAN_PER_FORWARD * k7_plain,
+         **per_model_call("bwd_nostate", TRAIN_BATCH, 256),
+         "library_ms": None},
+        # K9 and K10; ms per 64x64 train step: 12 calls at batch 16, L 1024
+        {"name": "selective_scan_fwd_split", "route": "cuda",
+         "source": csrc + "selective_scan_split.cu",
+         "replaces": pallas + ":371",
+         "launches": dim64_launches["scan_fwd_split"],
+         "launches_by_path": {"train_64x64": dim64_launches["scan_fwd_split"]},
+         "max_abs_err": scan_err["fwd_split"],
+         "ms": SCAN_PER_FORWARD * k9_ms,
+         "plain_ms": SCAN_PER_FORWARD * k9_plain,
+         **per_model_call("fwd_states", DIM64_BATCH, 1024),
+         "library_ms": None},
+        {"name": "selective_scan_bwd_split", "route": "cuda",
+         "source": csrc + "selective_scan_split.cu",
+         "replaces": pallas + ":411",
+         "launches": dim64_launches["scan_bwd_split"],
+         "launches_by_path": {"train_64x64": dim64_launches["scan_bwd_split"]},
+         "max_abs_err": scan_err["bwd_split"],
+         "ms": SCAN_PER_FORWARD * k10_ms,
+         "plain_ms": SCAN_PER_FORWARD * k10_plain,
+         **per_model_call("bwd", DIM64_BATCH, 1024), "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

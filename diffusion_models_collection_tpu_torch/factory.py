@@ -5,8 +5,9 @@ inference.
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
 port covers: the UNet and DiM, DDPM training and sampling, DDIM sampling,
 float32.
-The datasets and the loader are the JAX package's own framework-free ones
-(numpy and ctypes, no jax), read in this process. Every other model type,
+The datasets and the loader are this package's `datasets/` (numpy and
+ctypes, a copy of the JAX package's: the port imports nothing of it). Every
+other model type,
 diffusion type, sampler and config extension raises, naming the ROADMAP
 item that ports it.
 """
@@ -18,12 +19,7 @@ from typing import Mapping, Union
 import torch
 from torch import nn
 
-from diffusion_models_collection_tpu.datasets import (
-    CustomImageDataset,
-    DataLoader,
-    DiffusionDataset,
-)
-
+from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
 from .diffusion import DDIM, DDPM
 from .models import DiM, UNet
 from .utils.helpers import resolve_image_size
@@ -100,7 +96,7 @@ def get_diffusion(config: Mapping,
 
 def get_dataset(config: Mapping, train: bool = True):
     """The training dataset, built as the JAX package's factory builds it
-    (uint8 images in host memory, decoded by numpy)."""
+    (uint8 images in host memory, decoded by numpy), from `.datasets`."""
     dataset_name = config["dataset"].lower()
     img_size = resolve_image_size(config["image_size"])
     if dataset_name == "custom":
@@ -132,7 +128,7 @@ def get_dataset(config: Mapping, train: bool = True):
 
 def get_dataloader(config: Mapping, dataset, train: bool = True,
                    seed: int = 0) -> DataLoader:
-    """The JAX package's loader in one process: numpy batches (B, H, W, C)
+    """The loader of `.datasets` in one process: numpy batches (B, H, W, C)
     in [-1, 1], reshuffled per epoch from `seed`, the last partial batch
     dropped in training."""
     return DataLoader(

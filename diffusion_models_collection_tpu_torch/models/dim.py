@@ -11,7 +11,10 @@ y (B,) int labels shifted by +1 with 0 the CFG null label; float32 NHWC out.
 The Mamba mixer's recurrence runs through `ops.selective_scan` (the forward
 kernel, and under a gradient the forward with saved states and the backward
 kernel), which `ops.plain.plain_kernels` reroutes through this module's
-`selective_scan` name.
+`selective_scan` name. `remat=True` runs each `DiMBlock` under gradient
+checkpointing, as the JAX model's `nn.remat(DiMBlock)`; checkpointing
+exists to keep no residuals, so its scans save no block states either and
+their backward rebuilds them.
 
 Init follows the JAX package, not the reference's xavier-everything: A_log
 is log(1..N) per channel, dt_proj's weight U(+-dt_rank^-0.5) and its bias
@@ -22,7 +25,7 @@ biases; adaLN and the final projection are zero; pos_embed is N(0, 0.02).
 
 Not ported, and raising when asked for: `use_attention_fallback` (it needs
 DiT's `SelfAttention` with dropout on the probabilities, ROADMAP queue 1
-item 8) and `remat` (item 4).
+item 8).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .layers import (
     PatchEmbed,
     TimestepEmbedder,
     modulate,
+    run_block,
     unpatchify,
 )
 
@@ -59,13 +63,15 @@ class Mamba(nn.Module):
     """Selective-SSM sequence mixer (mamba_ssm's Mamba with d_conv 4,
     expand 2): a fused in_proj to [x; z], a causal depthwise conv and SiLU
     on x, x_proj to (dt, B, C), dt_proj and softplus, the scan with the D
-    skip, y * SiLU(z), out_proj."""
+    skip, y * SiLU(z), out_proj. `save_scan_states=False` has the scan keep
+    no block states for its backward (for a block under `remat`)."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4,
-                 expand: int = 2):
+                 expand: int = 2, save_scan_states: bool = True):
         super().__init__()
         d_inner = expand * d_model
         self.d_state = d_state
+        self.save_scan_states = save_scan_states
         self.dt_rank = math.ceil(d_model / 16)
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
         self.conv1d = nn.Conv1d(d_inner, d_inner, d_conv, groups=d_inner,
@@ -91,18 +97,21 @@ class Mamba(nn.Module):
             [self.dt_rank, self.d_state, self.d_state], dim=-1)
         dt = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)
-        y = selective_scan(x, dt, A, B, C, self.D)
+        y = selective_scan(x, dt, A, B, C, self.D,
+                           save_states=self.save_scan_states)
         return self.out_proj(y * F.silu(z))
 
 
 class MambaBlock(nn.Module):
     """adaLN-modulated Mamba mixer: x + gate * Mamba(modulate(LN(x)))."""
 
-    def __init__(self, hidden_size: int, state_size: int = 16):
+    def __init__(self, hidden_size: int, state_size: int = 16,
+                 save_scan_states: bool = True):
         super().__init__()
         self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
         self.adaLN_modulation = AdaLNModulation(hidden_size, 3)
-        self.mamba = Mamba(hidden_size, state_size)
+        self.mamba = Mamba(hidden_size, state_size,
+                           save_scan_states=save_scan_states)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c)
@@ -131,9 +140,11 @@ class DiMBlock(nn.Module):
     """Mamba mixer, then the feed-forward."""
 
     def __init__(self, hidden_size: int, state_size: int = 16,
-                 mlp_ratio: float = 4.0, dropout: float = 0.1):
+                 mlp_ratio: float = 4.0, dropout: float = 0.1,
+                 save_scan_states: bool = True):
         super().__init__()
-        self.mamba_block = MambaBlock(hidden_size, state_size)
+        self.mamba_block = MambaBlock(hidden_size, state_size,
+                                      save_scan_states)
         self.ff_block = FeedForward(hidden_size, mlp_ratio, dropout)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -183,10 +194,7 @@ class DiM(nn.Module):
                 "use_attention_fallback is not ported yet: it needs DiT's "
                 "SelfAttention with dropout on the probabilities (ROADMAP "
                 "queue 1 item 8)")
-        if remat:
-            raise NotImplementedError(
-                "remat (gradient checkpointing) is not ported yet (ROADMAP "
-                "queue 1 item 4)")
+        self.remat = remat
         img_h, img_w = ((img_size, img_size) if isinstance(img_size, int)
                         else tuple(img_size))
         self.patch_size = patch_size
@@ -203,7 +211,8 @@ class DiM(nn.Module):
         self.y_embedder = (LabelTable(num_classes, hidden_size)
                            if num_classes is not None else None)
         self.blocks = nn.ModuleList(
-            DiMBlock(hidden_size, state_size, mlp_ratio, dropout)
+            DiMBlock(hidden_size, state_size, mlp_ratio, dropout,
+                     save_scan_states=not remat)
             for _ in range(depth))
         self.final_layer = DiMFinalLayer(hidden_size, patch_size,
                                          self.out_channels)
@@ -215,7 +224,7 @@ class DiM(nn.Module):
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
         for block in self.blocks:
-            h = block(h, c)
+            h = run_block(block, self.remat, h, c)
         h = self.final_layer(h, c)
         return unpatchify(h, *self.tokens_hw, self.patch_size,
                           self.out_channels).contiguous()

@@ -14,6 +14,18 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+
+def run_block(block: nn.Module, remat: bool, *args):
+    """`block(*args)`; with `remat` and a gradient being recorded, under
+    gradient checkpointing (the JAX package's `nn.remat(Block)`): the
+    block's activations are dropped after the forward and recomputed in the
+    backward, with the dropout draws of the first run. The block's
+    parameter names are untouched, so checkpoints load either way."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def sinusoidal_time_embedding_unet(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -14,8 +14,10 @@ its kernel (`ops/fused_norm.py`) takes. Attention goes through the
 flash-attention kernels (`ops/attention.py`). Both are autograd Functions,
 so a loss reaches every parameter.
 
-Not ported yet, and raising when asked for: `remat` (ROADMAP queue 1 item
-4), `pag_perturb`, `freeu` and `deepcache_mode` (ROADMAP queue 1 item 10).
+`remat=True` runs each `ResidualBlock` under gradient checkpointing, as the
+JAX model's `nn.remat(ResidualBlock)`. Not ported yet, and raising when
+asked for: `pag_perturb`, `freeu` and `deepcache_mode` (ROADMAP queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 
 from ..ops.attention import multihead_attention
 from ..ops.fused_norm import group_norm_silu
-from .layers import LabelEmbedder, UNetTimeEmbed
+from .layers import LabelEmbedder, UNetTimeEmbed, run_block
 
 
 class FusedGroupNormSiLU(nn.Module):
@@ -152,10 +154,6 @@ class UNet(nn.Module):
         deepcache_depth: int = 1,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (gradient checkpointing) is not ported yet (ROADMAP "
-                "queue 1 item 4)")
         for knob, value, default in (("pag_perturb", pag_perturb, False),
                                      ("freeu", freeu, None),
                                      ("deepcache_mode", deepcache_mode, None)):
@@ -163,6 +161,7 @@ class UNet(nn.Module):
                 raise NotImplementedError(
                     f"{knob} is not ported yet (ROADMAP queue 1 item 10)")
         self.image_size = tuple(image_size)
+        self.remat = remat
         self.in_channels = in_channels
         self.num_classes = num_classes
         conditional = num_classes is not None
@@ -222,11 +221,10 @@ class UNet(nn.Module):
         # channels-last conv weights: cuDNN then runs every conv in NHWC
         self.to(memory_format=torch.channels_last)
 
-    @staticmethod
-    def _run(group, h, t_emb, y_emb):
+    def _run(self, group, h, t_emb, y_emb):
         for layer in group:
             if isinstance(layer, ResidualBlock):
-                h = layer(h, t_emb, y_emb)
+                h = run_block(layer, self.remat, h, t_emb, y_emb)
             else:
                 h = layer(h)
         return h

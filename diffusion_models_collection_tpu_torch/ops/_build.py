@@ -121,6 +121,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.selective_scan_fwd.restype = i32
     lib.selective_scan_bwd.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
     lib.selective_scan_bwd.restype = i32
+    lib.selective_scan_bwd_nostate.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
+    lib.selective_scan_bwd_nostate.restype = i32
+    lib.selective_scan_bwd_nostate_needs_scratch.argtypes = [i32] * 3
+    lib.selective_scan_bwd_nostate_needs_scratch.restype = i32
+    lib.selective_scan_fwd_split.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.selective_scan_fwd_split.restype = i32
+    lib.selective_scan_bwd_split.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
+    lib.selective_scan_bwd_split.restype = i32
     for name in ("selective_scan_bwd_tiles", "selective_scan_bwd_width"):
         getattr(lib, name).argtypes = [i32]
         getattr(lib, name).restype = i32

@@ -20,12 +20,29 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   K8 `_scan_bwd_kernel_from_ckpt` with `_bwd_block_body`: it launches
   `csrc/selective_scan_bwd.cu` on a CUDA tensor and runs
   `selective_scan_bwd_ref` on a CPU tensor.
-* `SelectiveScan` joins the two as the JAX `_selective_scan_core`
-  custom_vjp does: the forward saves the block states only when an input
-  needs a gradient (K6), else it runs without them (K5); the backward is
-  `selective_scan_bwd` from the saved states. `selective_scan` is the entry
-  point and adds the D skip outside the op; `selective_scan_sequential` is
-  the O(L) reference that autograd differentiates, for tests.
+* `selective_scan_bwd_nostate` is the backward for a forward that saved
+  nothing (the JAX package's K7 `_scan_bwd_kernel`): it first rebuilds the
+  state entering each block, then runs the same reverse sweep, in one
+  launch of `csrc/selective_scan_bwd.cu`; `selective_scan_bwd_nostate_ref`
+  on a CPU tensor.
+* `selective_scan_fwd_split` and `selective_scan_bwd_split` give the outputs
+  of the forward with states and of the backward from them with the time
+  axis split across thread blocks (the JAX package's grid-over-time K9
+  `_scan_fwd_ckpt_kernel_grid` and K10 `_scan_bwd_from_ckpt_kernel_grid`),
+  for long sequences at a small batch, where one block per (row, 128
+  channels) leaves most of the card idle: chunks of `chunk_blocks_for`
+  time blocks are scanned from zero, a serial pass carries the state (the
+  adjoint) from chunk to chunk, and each chunk is then completed.
+  `csrc/selective_scan_split.cu` on a CUDA tensor, the `_ref` versions, the
+  same three passes in plain PyTorch, on a CPU tensor.
+* `SelectiveScan` joins them as the JAX `_selective_scan_core` custom_vjp
+  does. With no gradient wanted the forward saves nothing (K5). With one,
+  it saves the block states (K6, or K9 where `time_split` says so) and the
+  backward runs from them (K8 or K10); or, when the caller asks for no
+  saved states (gradient checkpointing), the forward is K5 again and the
+  backward rebuilds them (K7). `selective_scan` is the entry point and
+  adds the D skip outside the op; `selective_scan_sequential` is the O(L)
+  reference that autograd differentiates, for tests.
 
 The JAX gate `supported()` (D % 128, N <= 32, L >= 8) is a TPU lane limit
 and is not ported: the kernels take any L >= 1 and any D, and N up to 32,
@@ -46,11 +63,17 @@ from . import _build
 MAX_STATE = 32
 
 # Kernel launches since the process started (or since a caller reset them):
-# the forward's, the forward's with saved states (counted in both), and the
-# backward's.
+# the forward's (K5, K6), the forward's with saved states (K6, counted in
+# both), the backward's from saved states (K8), the backward's with none
+# (K7), and the time-split forward's and backward's (K9, K10).
 FWD_LAUNCHES = 0
 FWD_STATES_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_NOSTATE_LAUNCHES = 0
+FWD_SPLIT_LAUNCHES = 0
+BWD_SPLIT_LAUNCHES = 0
+
+TILE = 128  # channels of one row that a thread block covers
 
 
 def t_block_for(length: int) -> int:
@@ -63,6 +86,35 @@ def _blocks(length: int) -> List[Tuple[int, int]]:
     """(start, steps) of each time block; the last may be shorter."""
     tb = t_block_for(length)
     return [(t0, min(tb, length - t0)) for t0 in range(0, length, tb)]
+
+
+def time_split(batch: int, length: int, d_inner: int) -> bool:
+    """Whether a scan with saved states of this shape runs time-split (K9,
+    K10) rather than with one thread block per (row, 128 channels) walking
+    the whole sequence (K6, K8): at least 16 time blocks, and no more than
+    two such thread blocks for each of an H100's 132 SMs."""
+    return (len(_blocks(length)) >= 16
+            and batch * -(-d_inner // TILE) <= 264)
+
+
+def chunk_blocks_for(batch: int, length: int, d_inner: int) -> int:
+    """Time blocks in a chunk of the time-split scan: 8, halved while that
+    leaves fewer than four thread blocks for each of the 132 SMs. Timed
+    against fixed chunks of 1, 2, 4 and 8 by `chip_smoke.py`
+    (`phase_scan_chunks`); the readings are in PERF.md."""
+    rows = batch * -(-d_inner // TILE)
+    n_blocks = len(_blocks(length))
+    chunk = 8
+    while chunk > 1 and rows * -(-n_blocks // chunk) < 528:
+        chunk //= 2
+    return chunk
+
+
+def _chunks(length: int, chunk_blocks: int) -> List[List[Tuple[int, int]]]:
+    """The time blocks of each chunk; the last chunk may hold fewer."""
+    blocks = _blocks(length)
+    return [blocks[i:i + chunk_blocks]
+            for i in range(0, len(blocks), chunk_blocks)]
 
 
 def selective_scan_sequential(x, dt, A, B, C, D=None) -> torch.Tensor:
@@ -82,17 +134,13 @@ def selective_scan_sequential(x, dt, A, B, C, D=None) -> torch.Tensor:
     return y
 
 
-def selective_scan_fwd_ref(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, save_states: bool
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch forward in the kernels' time blocks: per block, the
-    decays and drives of all its steps at once, then the serial update.
-    Returns (y without the D skip, bound or None)."""
-    batch, _, d_inner = x.shape
-    h = x.new_zeros(batch, d_inner, A.shape[1])
+def _fwd_blocks_ref(x, dt, A, B, C, h, blocks):
+    """The blocked forward over the time blocks `blocks` from the state h:
+    per block, the decays and drives of all its steps at once, then the
+    serial update. Returns (each block's y, or nothing when C is None; the
+    state entering each block; the state after the last)."""
     ys, bounds = [], []
-    for t0, steps in _blocks(x.shape[1]):
+    for t0, steps in blocks:
         bounds.append(h)
         dt_c = dt[:, t0:t0 + steps]
         decay = torch.exp(dt_c[..., None] * A)                 # (B, T, D, N)
@@ -102,30 +150,72 @@ def selective_scan_fwd_ref(
         for s in range(steps):
             h = decay[:, s] * h + drive[:, s]
             hs.append(h)
-        ys.append((torch.stack(hs, 1) * C[:, t0:t0 + steps, None, :]).sum(-1))
+        if C is not None:
+            ys.append((torch.stack(hs, 1)
+                       * C[:, t0:t0 + steps, None, :]).sum(-1))
+    return ys, bounds, h
+
+
+def _stack_bound(bounds) -> torch.Tensor:
+    """(batch, D, N) states -> `bound` (batch, n_blocks, N, D)."""
+    return torch.stack(bounds, 1).transpose(2, 3).contiguous()
+
+
+def selective_scan_fwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, save_states: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch forward in the kernels' time blocks. Returns (y without
+    the D skip, bound or None)."""
+    batch, length, d_inner = x.shape
+    h = x.new_zeros(batch, d_inner, A.shape[1])
+    ys, bounds, _ = _fwd_blocks_ref(x, dt, A, B, C, h, _blocks(length))
     if not ys:  # L == 0
         return x.clone(), (x.new_zeros(batch, 0, A.shape[1], d_inner)
                            if save_states else None)
     y = torch.cat(ys, dim=1)
-    if not save_states:
-        return y, None
-    return y, torch.stack(bounds, 1).transpose(2, 3).contiguous()
+    return y, (_stack_bound(bounds) if save_states else None)
 
 
-def selective_scan_bwd_ref(
+def _chunk_span(chunk) -> slice:
+    return slice(chunk[0][0], chunk[-1][0] + chunk[-1][1])
+
+
+def selective_scan_fwd_split_ref(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
-) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch backward from the forward's block states (JAX
-    `_bwd_block_body` over the blocks in reverse): recompute h inside each
-    block from `bound`, run the adjoint gamma_t = C_t ybar_t + a_{t+1}
-    gamma_{t+1} backwards, carrying phi = a_{t+1} gamma_{t+1} across blocks.
-    Returns (dx, ddt, dA, dB, dC), dA (D, N) summed over the batch."""
-    phi = x.new_zeros(x.shape[0], x.shape[2], A.shape[1])
-    dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch time-split forward, the three passes of
+    `csrc/selective_scan_split.cu`: (a) each chunk's end state from a zero
+    state and its sum of dt (exp(A * sum) is the product of its decays);
+    (b) a serial walk over the chunks that gives the state entering each;
+    (c) each chunk from that state. Returns (y without the D skip, bound)."""
+    batch, length, d_inner = x.shape
+    if length == 0:
+        return selective_scan_fwd_ref(x, dt, A, B, C, True)
+    chunks = _chunks(length, chunk_blocks_for(batch, length, d_inner))
+    zero = x.new_zeros(batch, d_inner, A.shape[1])
+    ends = [_fwd_blocks_ref(x, dt, A, B, None, zero, chunk)[2]
+            for chunk in chunks]
+    sums = [dt[:, _chunk_span(chunk)].sum(1) for chunk in chunks]
+    h, ys, bounds = zero, [], []
+    for chunk, end, total in zip(chunks, ends, sums):
+        ys_c, bounds_c, _ = _fwd_blocks_ref(x, dt, A, B, C, h, chunk)
+        ys += ys_c
+        bounds += bounds_c
+        h = torch.exp(total[..., None] * A) * h + end
+    return torch.cat(ys, dim=1), _stack_bound(bounds)
+
+
+def _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, first, blocks, outs):
+    """The reverse sweep (JAX `_bwd_block_body`) over the time blocks
+    `blocks`, the first of which is block number `first`, last to first:
+    recompute h inside each block from `bound`, run the adjoint gamma_t =
+    C_t ybar_t + a_{t+1} gamma_{t+1} backwards from the carry phi = a_{t+1}
+    gamma_{t+1}. Writes dx, ddt, dB, dC of those steps into `outs`; returns
+    (the carry out of the first block, dA (D, N) summed over the batch)."""
+    dx, ddt, dB, dC = outs
     dA = torch.zeros_like(A)
-    blocks = _blocks(x.shape[1])
     for k in range(len(blocks) - 1, -1, -1):
         t0, steps = blocks[k]
         sl = slice(t0, t0 + steps)
@@ -134,7 +224,7 @@ def selective_scan_bwd_ref(
         u_c = dt_c * x_c
         drive = u_c[..., None] * b_c[:, :, None, :]
         w = c_c[:, :, None, :] * g_c[..., None]                 # C_t (x) ybar_t
-        h = bound[:, k].transpose(1, 2)
+        h = bound[:, first + k].transpose(1, 2)
         h_prevs, hs = [], []
         for s in range(steps):
             h_prevs.append(h)
@@ -152,6 +242,70 @@ def selective_scan_bwd_ref(
         dB[:, sl] = (gamma * u_c[..., None]).sum(2)
         dC[:, sl] = (torch.stack(hs, 1) * g_c[..., None]).sum(2)
         dA += (dadec * dt_c[..., None]).sum((0, 1))
+    return phi, dA
+
+
+def _empty_grads(x, B, C):
+    return (torch.empty_like(x), torch.empty_like(x), torch.empty_like(B),
+            torch.empty_like(C))
+
+
+def selective_scan_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch backward from the forward's block states: the reverse
+    sweep over all the blocks from a zero carry. Returns (dx, ddt, dA, dB,
+    dC), dA (D, N) summed over the batch."""
+    phi = x.new_zeros(x.shape[0], x.shape[2], A.shape[1])
+    outs = _empty_grads(x, B, C)
+    _, dA = _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, 0,
+                            _blocks(x.shape[1]), outs)
+    dx, ddt, dB, dC = outs
+    return dx, ddt, dA, dB, dC
+
+
+def selective_scan_bwd_nostate_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch backward with nothing saved: rebuild the block states
+    with the plain forward, then the plain backward from them."""
+    _, bound = selective_scan_fwd_ref(x, dt, A, B, C, True)
+    return selective_scan_bwd_ref(x, dt, A, B, C, g, bound)
+
+
+def selective_scan_bwd_split_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch time-split backward, the three passes of
+    `csrc/selective_scan_split.cu`. `bound` is given, so only the adjoint
+    needs a carry: (a) each chunk's outgoing carry from a zero incoming one
+    and its sum of dt; (b) a serial walk over the chunks, last to first,
+    that gives the carry entering each; (c) the reverse sweep over each
+    chunk from it, dA summed over the chunks."""
+    batch, length, d_inner = x.shape
+    chunks = _chunks(length, chunk_blocks_for(batch, length, d_inner))
+    zero = x.new_zeros(batch, d_inner, A.shape[1])
+    local = []
+    for chunk in chunks:
+        span = _chunk_span(chunk)
+        decay = torch.exp(dt[:, span, :, None] * A)
+        w = C[:, span, None, :] * g[:, span, :, None]
+        phi = zero
+        for s in range(decay.shape[1] - 1, -1, -1):
+            phi = decay[:, s] * (w[:, s] + phi)
+        local.append((phi, dt[:, span].sum(1)))
+    outs = _empty_grads(x, B, C)
+    dA = torch.zeros_like(A)
+    phi, first = zero, len(_blocks(length))
+    for chunk, (out, total) in zip(reversed(chunks), reversed(local)):
+        first -= len(chunk)
+        dA += _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, first, chunk,
+                              outs)[1]
+        phi = torch.exp(total[..., None] * A) * phi + out
+    dx, ddt, dB, dC = outs
     return dx, ddt, dA, dB, dC
 
 
@@ -217,6 +371,33 @@ def selective_scan_fwd(
     return y, bound
 
 
+def _check_bound(name: str, bound, batch, length, d_inner, n_state) -> None:
+    want = (batch, len(_blocks(length)), n_state, d_inner)
+    if bound.shape != want:
+        raise ValueError(f"{name}: bound must be {want}, got "
+                         f"{tuple(bound.shape)}")
+
+
+def _bwd_outputs(lib, x, B, C, da_shape):
+    """dx, ddt, dB, dC, the per-row dA and the per-tile dB/dC sums that
+    every backward kernel writes."""
+    batch, length, d_inner = x.shape
+    n_state = B.shape[2]
+    dx, ddt, dB, dC = _empty_grads(x, B, C)
+    da_rows = torch.zeros(da_shape, dtype=torch.float32, device=x.device)
+    partial = torch.empty(
+        (batch, lib.selective_scan_bwd_tiles(d_inner), length,
+         lib.selective_scan_bwd_width(n_state)),
+        dtype=torch.float32, device=x.device)
+    return dx, ddt, dB, dC, da_rows, partial
+
+
+def _zero_grads(x, A, B, C):
+    """The gradients of an empty x: the sums over L and D are empty."""
+    return (torch.empty_like(x), torch.empty_like(x), torch.zeros_like(A),
+            torch.zeros_like(B), torch.zeros_like(C))
+
+
 def selective_scan_bwd(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
@@ -230,66 +411,184 @@ def selective_scan_bwd(
     _build.check_inputs("selective_scan_bwd", x, dt, A, B, C, g, bound)
     batch, length, d_inner, n_state = _check_shapes(
         "selective_scan_bwd", x, dt, A, B, C, g)
-    n_blocks = len(_blocks(length))
-    if bound.shape != (batch, n_blocks, n_state, d_inner):
-        raise ValueError(
-            f"selective_scan_bwd: bound must be "
-            f"{(batch, n_blocks, n_state, d_inner)}, got {tuple(bound.shape)}")
+    _check_bound("selective_scan_bwd", bound, batch, length, d_inner, n_state)
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, A, B, C, g, bound)
+    if not x.numel():
+        return _zero_grads(x, A, B, C)
     lib = _build.library()
-    dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    dB, dC = torch.empty_like(B), torch.empty_like(C)
-    da_rows = torch.zeros((batch, d_inner, n_state), dtype=torch.float32,
-                          device=x.device)
-    if x.numel():
-        tiles = lib.selective_scan_bwd_tiles(d_inner)
-        width = lib.selective_scan_bwd_width(n_state)
-        partial = torch.empty((batch, tiles, length, width),
-                              dtype=torch.float32, device=x.device)
-        # autograd runs a backward on its own thread: take that thread's
-        # current stream for the device here, at the launch
-        with torch.cuda.device(x.device):
-            err = lib.selective_scan_bwd(
-                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), g.data_ptr(), bound.data_ptr(), dx.data_ptr(),
-                ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), partial.data_ptr(), batch, length, d_inner,
-                n_state, t_block_for(length), _stream(x.device))
-        _build.check(err, "selective_scan_bwd")
-        BWD_LAUNCHES += 1
-    else:  # an empty x: the sums over D are empty
-        dB.zero_()
-        dC.zero_()
+    dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
+        lib, x, B, C, (batch, d_inner, n_state))
+    # autograd runs a backward on its own thread: take that thread's
+    # current stream for the device here, at the launch
+    with torch.cuda.device(x.device):
+        err = lib.selective_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), g.data_ptr(), bound.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), partial.data_ptr(), batch, length, d_inner,
+            n_state, t_block_for(length), _stream(x.device))
+    _build.check(err, "selective_scan_bwd")
+    BWD_LAUNCHES += 1
     return dx, ddt, da_rows.sum(0), dB, dC
 
 
-def _scan_forward(ctx, fwd, x, dt, A, B, C, save_states):
-    y, bound = fwd(x, dt, A, B, C, save_states)
-    if save_states:
-        ctx.save_for_backward(x, dt, A, B, C, bound)
+def selective_scan_bwd_nostate(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Scan backward for a forward that saved nothing (JAX
+    `selective_scan_bwd_pallas`): one kernel launch that rebuilds the state
+    entering each time block and then sweeps in reverse, for CUDA tensors;
+    the plain version for CPU tensors. The rebuilt states stay in the
+    kernel's shared memory where they fit, else in a scratch buffer
+    allocated here. Returns (dx, ddt, dA, dB, dC)."""
+    global BWD_NOSTATE_LAUNCHES
+    name = "selective_scan_bwd_nostate"
+    _build.check_inputs(name, x, dt, A, B, C, g)
+    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C, g)
+    if x.device.type == "cpu":
+        return selective_scan_bwd_nostate_ref(x, dt, A, B, C, g)
+    if not x.numel():
+        return _zero_grads(x, A, B, C)
+    lib = _build.library()
+    dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
+        lib, x, B, C, (batch, d_inner, n_state))
+    t_block = t_block_for(length)
+    scratch = None
+    if lib.selective_scan_bwd_nostate_needs_scratch(length, n_state, t_block):
+        scratch = torch.empty(
+            (batch, len(_blocks(length)), n_state, d_inner),
+            dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):  # the stream: see selective_scan_bwd
+        err = lib.selective_scan_bwd_nostate(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), g.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            partial.data_ptr(), batch, length, d_inner, n_state, t_block,
+            _stream(x.device))
+    _build.check(err, name)
+    BWD_NOSTATE_LAUNCHES += 1
+    return dx, ddt, da_rows.sum(0), dB, dC
+
+
+def selective_scan_fwd_split(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Time-split scan forward with saved states (JAX
+    `selective_scan_fwd_ckpt_pallas_grid`): the kernels for CUDA tensors,
+    the plain version for CPU tensors. Returns (y without the D skip,
+    bound), the same function of the inputs as `selective_scan_fwd(...,
+    save_states=True)`."""
+    global FWD_SPLIT_LAUNCHES
+    name = "selective_scan_fwd_split"
+    _build.check_inputs(name, x, dt, A, B, C)
+    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return selective_scan_fwd_split_ref(x, dt, A, B, C)
+    y = torch.empty_like(x)
+    n_blocks = len(_blocks(length))
+    bound = torch.empty((batch, n_blocks, n_state, d_inner),
+                        dtype=torch.float32, device=x.device)
+    if x.numel():
+        lib = _build.library()
+        chunk = chunk_blocks_for(batch, length, d_inner)
+        sdt = torch.empty((batch, -(-n_blocks // chunk), d_inner),
+                          dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.selective_scan_fwd_split(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), y.data_ptr(), bound.data_ptr(), sdt.data_ptr(),
+                batch, length, d_inner, n_state, t_block_for(length), chunk,
+                _stream(x.device))
+        _build.check(err, name)
+        FWD_SPLIT_LAUNCHES += 1
+    return y, bound
+
+
+def selective_scan_bwd_split(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Time-split scan backward from the forward's `bound` (JAX
+    `selective_scan_bwd_from_ckpt_pallas_grid`): the kernels for CUDA
+    tensors, the plain version for CPU tensors. Returns (dx, ddt, dA, dB,
+    dC), the same function of the inputs as `selective_scan_bwd`. The
+    kernel writes dA per (row, chunk) and it is summed here."""
+    global BWD_SPLIT_LAUNCHES
+    name = "selective_scan_bwd_split"
+    _build.check_inputs(name, x, dt, A, B, C, g, bound)
+    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C, g)
+    _check_bound(name, bound, batch, length, d_inner, n_state)
+    if x.device.type == "cpu":
+        return selective_scan_bwd_split_ref(x, dt, A, B, C, g, bound)
+    if not x.numel():
+        return _zero_grads(x, A, B, C)
+    lib = _build.library()
+    chunk = chunk_blocks_for(batch, length, d_inner)
+    n_chunks = -(-len(_blocks(length)) // chunk)
+    dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
+        lib, x, B, C, (batch, n_chunks, d_inner, n_state))
+    phi = torch.empty((batch, n_chunks, n_state, d_inner),
+                      dtype=torch.float32, device=x.device)
+    sdt = torch.empty((batch, n_chunks, d_inner), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):  # the stream: see selective_scan_bwd
+        err = lib.selective_scan_bwd_split(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), g.data_ptr(), bound.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            partial.data_ptr(), phi.data_ptr(), sdt.data_ptr(), batch, length,
+            d_inner, n_state, t_block_for(length), chunk, _stream(x.device))
+    _build.check(err, name)
+    BWD_SPLIT_LAUNCHES += 1
+    return dx, ddt, da_rows.sum((0, 1)), dB, dC
+
+
+def _scan_forward(ctx, suffix, x, dt, A, B, C, save_states):
+    """Forward of the wrappers (suffix "") or the plain versions ("_ref"),
+    looked up by name at the call."""
+    fns = globals()
+    if save_states and time_split(*x.shape):
+        y, bound = fns["selective_scan_fwd_split" + suffix](x, dt, A, B, C)
+    else:
+        y, bound = fns["selective_scan_fwd" + suffix](x, dt, A, B, C,
+                                                      save_states)
+    ctx.save_for_backward(x, dt, A, B, C, *([bound] if save_states else []))
     return y
 
 
-def _scan_backward(ctx, bwd, g):
-    # autograd hands the gradient over in the consumer's layout
-    return (*bwd(*ctx.saved_tensors[:5], g.contiguous(),
-                 ctx.saved_tensors[5]), None)
+def _scan_backward(ctx, suffix, g):
+    fns = globals()
+    x, dt, A, B, C, *bound = ctx.saved_tensors
+    g = g.contiguous()  # autograd hands it over in the consumer's layout
+    if not bound:
+        name = "selective_scan_bwd_nostate"
+    elif time_split(*x.shape):
+        name = "selective_scan_bwd_split"
+    else:
+        name = "selective_scan_bwd"
+    return (*fns[name + suffix](x, dt, A, B, C, g, *bound), None)
 
 
 class SelectiveScan(torch.autograd.Function):
     """The scan without the D skip, as the JAX `_selective_scan_core`
-    custom_vjp: `selective_scan_fwd` (states saved only when a gradient is
-    wanted), backward `selective_scan_bwd` from the saved states."""
+    custom_vjp. `save_states` is set when a gradient is wanted and the
+    caller keeps residuals: the forward then saves the block states
+    (`selective_scan_fwd`, or `selective_scan_fwd_split` where `time_split`
+    says so) and the backward runs from them (`selective_scan_bwd` or
+    `selective_scan_bwd_split`). Without it the forward saves no states and
+    a backward, if one comes, rebuilds them (`selective_scan_bwd_nostate`)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, save_states):
-        return _scan_forward(ctx, selective_scan_fwd, x, dt, A, B, C,
-                             save_states)
+        return _scan_forward(ctx, "", x, dt, A, B, C, save_states)
 
     @staticmethod
     def backward(ctx, g):
-        return _scan_backward(ctx, selective_scan_bwd, g)
+        return _scan_backward(ctx, "", g)
 
 
 class SelectiveScanRef(torch.autograd.Function):
@@ -299,40 +598,44 @@ class SelectiveScanRef(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, save_states):
-        return _scan_forward(ctx, selective_scan_fwd_ref, x, dt, A, B, C,
-                             save_states)
+        return _scan_forward(ctx, "_ref", x, dt, A, B, C, save_states)
 
     @staticmethod
     def backward(ctx, g):
-        return _scan_backward(ctx, selective_scan_bwd_ref, g)
+        return _scan_backward(ctx, "_ref", g)
 
 
-def _apply(fn, x, dt, A, B, C, D, chunk_size):
+def _apply(fn, x, dt, A, B, C, D, chunk_size, save_states):
     if chunk_size is not None:
         raise NotImplementedError(
             "selective_scan: chunk_size selects the JAX package's XLA "
             "chunked scan, which is not ported (ROADMAP queue 1 item 15)")
     inputs = [t.contiguous() for t in (x, dt, A, B, C)]
-    save_states = torch.is_grad_enabled() and any(
+    wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in inputs)
-    y = fn.apply(*inputs, save_states)
+    y = fn.apply(*inputs, wants_grad and save_states)
     if D is not None:
         y = y + x * D
     return y
 
 
-def selective_scan(x, dt, A, B, C, D=None, *, chunk_size=None) -> torch.Tensor:
+def selective_scan(x, dt, A, B, C, D=None, *, chunk_size=None,
+                   save_states=True) -> torch.Tensor:
     """Differentiable selective scan (JAX `selective_scan`) through the
     forward and backward kernels, their plain versions on the CPU; A is
     (D, N) negative real (the caller takes -exp(A_log), so autograd carries
-    A's gradient on to A_log), D the optional (D,) skip."""
-    return _apply(SelectiveScan, x, dt, A, B, C, D, chunk_size)
+    A's gradient on to A_log), D the optional (D,) skip. `save_states=False`
+    keeps no block states for the backward, which then rebuilds them: for a
+    caller under gradient checkpointing, which exists to keep no
+    residuals."""
+    return _apply(SelectiveScan, x, dt, A, B, C, D, chunk_size, save_states)
 
 
-def selective_scan_ref(x, dt, A, B, C, D=None, *,
-                       chunk_size=None) -> torch.Tensor:
+def selective_scan_ref(x, dt, A, B, C, D=None, *, chunk_size=None,
+                       save_states=True) -> torch.Tensor:
     """`selective_scan` through the plain versions (`SelectiveScanRef`)."""
-    return _apply(SelectiveScanRef, x, dt, A, B, C, D, chunk_size)
+    return _apply(SelectiveScanRef, x, dt, A, B, C, D, chunk_size,
+                  save_states)
 
 
 def selective_scan_with_state(*args, **kwargs):

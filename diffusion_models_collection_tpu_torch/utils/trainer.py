@@ -47,7 +47,7 @@ def _not_ported(cfg: dict):
         if int(cfg.get(key, 1) or 1) > 1:
             yield key, "queue 1 item 15"
     for key, item in (("fsdp", 15), ("latent_diffusion", 11),
-                      ("super_resolution", 11), ("remat", 4)):
+                      ("super_resolution", 11)):
         if cfg.get(key):
             yield key, f"queue 1 item {item}"
 

@@ -380,8 +380,7 @@ def test_sample_cli_from_a_jax_dim_checkpoint(cond16, tmp_path):
 
 
 # ------------------------------------------------------------ not ported
-@pytest.mark.parametrize("knob", [dict(use_attention_fallback=True),
-                                  dict(remat=True)])
+@pytest.mark.parametrize("knob", [dict(use_attention_fallback=True)])
 def test_dim_raises_on_knobs_not_ported(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiM(img_size=(16, 16), **DIM_PARAMS, **knob)
@@ -404,5 +403,5 @@ def test_factory_builds_dim_with_injected_size_and_classes():
     assert model.y_embedder is not None
     model = factory.get_model(dict(config, conditional=False))
     assert model.y_embedder is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model(dict(config, remat=True))
+    model = factory.get_model(dict(config, remat=True))
+    assert model.remat and not model.blocks[0].mamba_block.mamba.save_scan_states

@@ -450,3 +450,166 @@ def test_small_dim_loss_and_grads_kernels_match_plain(cuda):
         loss_ref, grads_ref = loss_and_grads()
     assert max_rel(loss, loss_ref) <= 1e-5
     assert max_rel(grads, grads_ref) <= 1e-4
+
+
+# ------------------------- the scan backward with no saved states (K7), and
+# ------------------------- the time-split forward and backward (K9, K10)
+def scan_launch_counts():
+    return {name: getattr(scan_mod, name) for name in (
+        "FWD_LAUNCHES", "FWD_STATES_LAUNCHES", "BWD_LAUNCHES",
+        "BWD_NOSTATE_LAUNCHES", "FWD_SPLIT_LAUNCHES", "BWD_SPLIT_LAUNCHES")}
+
+
+def launched_since(before):
+    return {name: count - before[name]
+            for name, count in scan_launch_counts().items()
+            if count != before[name]}
+
+
+# L 256 at N 16 keeps the rebuilt states in shared memory, L 1024 and N 32
+# at L 256 in a device-memory scratch; L 100, 37 and 33 end in a ragged
+# time block; D 200, 130 and 64 are no multiple of a 128-channel tile
+NOSTATE_SHAPES = [(32, 256, 768, 16), (4, 1024, 768, 16), (8, 100, 768, 16),
+                  (3, 1, 100, 16), (2, 37, 200, 4), (2, 64, 130, 20),
+                  (2, 33, 64, 32), (2, 256, 256, 32)]
+# chunks of 4, 1, 8, 2 and 8 time blocks (`chunk_blocks_for`), then 1; a
+# ragged last block (L 1000, 100, 37) and a ragged last chunk (L 1000: 63
+# blocks of 16 steps, 8 a chunk)
+SPLIT_SHAPES = [(16, 1024, 768, 16), (2, 1024, 768, 16), (16, 1000, 768, 16),
+                (8, 1024, 768, 16), (48, 1024, 640, 16), (8, 100, 768, 16),
+                (3, 1, 100, 16), (2, 37, 200, 4), (2, 640, 130, 20),
+                (2, 528, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,d_inner,n_state", NOSTATE_SHAPES)
+def test_scan_bwd_nostate_kernel_matches_plain(cuda, batch, length, d_inner,
+                                               n_state):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner + 2)
+    args = scan_inputs(batch, length, d_inner, n_state, gen, cuda)
+    before = scan_launch_counts()
+    grads = scan_mod.selective_scan_bwd_nostate(*args)
+    torch.cuda.synchronize()
+    assert launched_since(before) == {"BWD_NOSTATE_LAUNCHES": 1}
+    refs = scan_mod.selective_scan_bwd_nostate_ref(*args)
+    for name, got, want in zip(("dx", "ddt", "dA", "dB", "dC"), grads, refs):
+        assert got.shape == want.shape, name
+        assert max_rel(got, want) <= TOL_BWD, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,d_inner,n_state", SPLIT_SHAPES)
+def test_scan_split_kernels_match_plain_and_the_unsplit_kernels(
+        cuda, batch, length, d_inner, n_state):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner + 3)
+    x, dt, A, B, C, g = scan_inputs(batch, length, d_inner, n_state, gen,
+                                    cuda)
+    before = scan_launch_counts()
+    y, bound = scan_mod.selective_scan_fwd_split(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert launched_since(before) == {"FWD_SPLIT_LAUNCHES": 1}
+    y_k6, bound_k6 = scan_mod.selective_scan_fwd(x, dt, A, B, C, True)
+    for y_ref, bound_ref in (
+            scan_mod.selective_scan_fwd_split_ref(x, dt, A, B, C),
+            (y_k6, bound_k6)):
+        assert max_rel(y, y_ref) <= TOL
+        assert bound.shape == bound_ref.shape
+        assert (bound - bound_ref).abs().max().item() <= TOL * max(
+            bound_ref.abs().max().item(), 1.0)
+
+    before = scan_launch_counts()
+    grads = scan_mod.selective_scan_bwd_split(x, dt, A, B, C, g, bound_k6)
+    torch.cuda.synchronize()
+    assert launched_since(before) == {"BWD_SPLIT_LAUNCHES": 1}
+    for refs in (
+            scan_mod.selective_scan_bwd_split_ref(x, dt, A, B, C, g, bound_k6),
+            scan_mod.selective_scan_bwd(x, dt, A, B, C, g, bound_k6)):
+        for name, got, want in zip(("dx", "ddt", "dA", "dB", "dC"), grads,
+                                   refs):
+            assert got.shape == want.shape, name
+            assert max_rel(got, want) <= TOL_BWD, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,save_states,expected", [
+    ((4, 256, 256), True, {"FWD_LAUNCHES": 1, "FWD_STATES_LAUNCHES": 1,
+                           "BWD_LAUNCHES": 1}),
+    ((4, 1024, 256), True, {"FWD_SPLIT_LAUNCHES": 1, "BWD_SPLIT_LAUNCHES": 1}),
+    ((4, 256, 256), False, {"FWD_LAUNCHES": 1, "BWD_NOSTATE_LAUNCHES": 1}),
+    ((4, 1024, 256), False, {"FWD_LAUNCHES": 1, "BWD_NOSTATE_LAUNCHES": 1}),
+])
+def test_selective_scan_branches_on_the_card(cuda, shape, save_states,
+                                             expected):
+    """Each branch of `SelectiveScan` launches its own kernels and no
+    other, takes a non-contiguous output gradient, and agrees with the
+    plain Function."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, dt, A, B, C, g = scan_inputs(*shape, 16, gen, cuda)
+    D = torch.rand(shape[2], generator=gen, device=cuda) + 0.5
+    g_strided = g.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not g_strided.is_contiguous()
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C, D)]
+        y = fn(*leaves, save_states=save_states)
+        return y.detach(), torch.autograd.grad(y, leaves, g_strided)
+
+    before = scan_launch_counts()
+    y, grads = run(scan_mod.selective_scan)
+    torch.cuda.synchronize()
+    assert launched_since(before) == expected
+    before = scan_launch_counts()
+    y_ref, grads_ref = run(scan_mod.selective_scan_ref)
+    assert launched_since(before) == {}
+    assert max_rel(y, y_ref) <= TOL
+    for name, got, want in zip(("x", "dt", "A", "B", "C", "D"), grads,
+                               grads_ref):
+        assert max_rel(got, want) <= TOL_BWD, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["bwd_split", "bwd_nostate", "fwd_split"])
+def test_scan_wrappers_raise_on_the_card_and_count_no_launch(cuda, op):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, dt, A, B, C, g = scan_inputs(2, 64, 128, 16, gen, cuda)
+    before = scan_launch_counts()
+    with pytest.raises(ValueError):
+        if op == "bwd_split":  # 2 time blocks, not 3
+            scan_mod.selective_scan_bwd_split(
+                x, dt, A, B, C, g, torch.zeros(2, 3, 16, 128, device=cuda))
+        elif op == "bwd_nostate":
+            scan_mod.selective_scan_bwd_nostate(x, dt, A, B, C, g[:, :32])
+        else:
+            scan_mod.selective_scan_fwd_split(x, dt, A, B.cpu(), C)
+    assert launched_since(before) == {}
+
+
+@pytest.mark.cuda
+def test_remat_dim_launches_and_matches_the_dim_without(cuda):
+    """A DiM under `remat` runs K5 twice a block (forward and recompute)
+    and K7 once, saves no states, and gives the loss and gradients of the
+    same model without remat (dropout on, the same draws)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+    results = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = DiM(img_size=(16, 16), patch_size=2, hidden_size=64, depth=2,
+                    state_size=16, num_classes=10, remat=remat).to(cuda)
+        perturb_(model).train()
+        before = scan_launch_counts()
+        torch.manual_seed(1)
+        loss = model(x, t, y).square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        assert launched_since(before) == (
+            {"FWD_LAUNCHES": 4, "BWD_NOSTATE_LAUNCHES": 2} if remat else
+            {"FWD_LAUNCHES": 2, "FWD_STATES_LAUNCHES": 2, "BWD_LAUNCHES": 2})
+        results.append((loss.detach(), torch.cat(
+            [p.grad.flatten() for p in model.parameters()])))
+    (loss, grads), (loss_remat, grads_remat) = results
+    assert max_rel(loss_remat, loss) <= 1e-5
+    assert max_rel(grads_remat, grads) <= 1e-4

@@ -128,7 +128,7 @@ def test_label_embedder_masks_null_row_like_jax():
     assert not ours[0].any() and not ours[3].any()
 
 
-@pytest.mark.parametrize("knob", [dict(remat=True), dict(pag_perturb=True),
+@pytest.mark.parametrize("knob", [dict(pag_perturb=True),
                                   dict(freeu=(1.2, 1.1, 0.9, 0.95)),
                                   dict(deepcache_mode="full")])
 def test_unet_raises_on_knobs_not_ported(knob):

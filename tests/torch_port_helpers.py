@@ -11,6 +11,7 @@ from diffusion_models_collection_tpu.models import DiM as JaxDiM
 from diffusion_models_collection_tpu.models import UNet as JaxUNet
 from diffusion_models_collection_tpu.ops import dispatch
 from diffusion_models_collection_tpu_torch.models import DiM, UNet
+from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
 )
@@ -116,3 +117,21 @@ def run_pallas_interpreted(fn, *args):
     while those callbacks run, can deadlock both threads."""
     with dispatch.use_pallas(True), pltpu.force_tpu_interpret_mode():
         return jax.block_until_ready(jax.jit(fn)(*args))
+
+
+SCAN_WRAPPERS = ("selective_scan_fwd", "selective_scan_fwd_split",
+                 "selective_scan_bwd", "selective_scan_bwd_split",
+                 "selective_scan_bwd_nostate")
+
+
+def record_scan_calls(monkeypatch, suffix=""):
+    """Wrap every scan wrapper `SelectiveScan` can reach (with "_ref", every
+    plain version `SelectiveScanRef` can) so that each call appends (its
+    name, its `save_states` where it takes one) to the list returned."""
+    calls = []
+    for name in SCAN_WRAPPERS:
+        def wrapper(*args, _real=getattr(ss, name + suffix), _name=name):
+            calls.append((_name, *(a for a in args if isinstance(a, bool))))
+            return _real(*args)
+        monkeypatch.setattr(ss, name + suffix, wrapper)
+    return calls

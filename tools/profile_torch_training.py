@@ -1,6 +1,7 @@
 """Where the PyTorch port's training time goes on one NVIDIA GPU.
 
     python tools/profile_torch_training.py [--config CONFIG] [--output_dir DIR]
+                                           [--remat] [--image_size N]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
 model is the one CONFIG describes (default configs/cifar10_unet.py, the
@@ -8,7 +9,10 @@ CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM) at full width
 with random weights from seed 0, trained as that config trains it (batch
 128, AdamW, clip 1.0, EMA, CFG label dropout, dropout 0.1), float32 with
 TF32 off, on one batch of the committed CIFAR-10 fixtures
-(tests/fixtures/data). Two measurements, both through the trainer's own
+(tests/fixtures/data). `--remat` sets the config's `remat: True` (gradient
+checkpointing per block); `--image_size N` trains on N x N images of the
+`synthetic` dataset at batch 16 (N = 64 is the long-sequence DiM, whose
+scans run time-split). Two measurements, both through the trainer's own
 `train_step`:
 
 1. `torch.profiler` over 5 train steps after 3 warm-up steps: host wall
@@ -19,7 +23,8 @@ TF32 off, on one batch of the committed CIFAR-10 fixtures
    kernels (`ops.plain.plain_kernels`), three times each.
 
 Prints both with the card's name and power limit from nvidia-smi, and
-writes them as JSON to DIR/profile_torch_training_<model_type>.json.
+writes them as JSON to DIR/profile_torch_training_<model_type>.json
+(`_remat` and `_N` added to the name with those flags).
 """
 
 import argparse
@@ -59,7 +64,15 @@ KINDS = [
     ("attention backward, K3 (flash_attn_bwd)", ("flash_bwd",)),
     ("selective scan forward, K4/K5/K6 (selective_scan_fwd)",
      ("scan_fwd_kernel",)),
-    ("selective scan backward, K8 (selective_scan_bwd)", ("scan_bwd",)),
+    ("selective scan backward without states, K7 "
+     "(selective_scan_bwd_nostate)", ("scan_bwd_nostate",)),
+    ("selective scan backward, K8 (selective_scan_bwd)", ("scan_bwd_kernel",)),
+    ("dB/dC tile sums of K7, K8, K10", ("scan_bwd_sum",)),
+    ("time-split scan forward, K9 (selective_scan_fwd_split)",
+     ("split_fwd",)),
+    ("time-split scan backward, K10 (selective_scan_bwd_split)",
+     ("split_bwd",)),
+    ("time-split scans' carry pass (K9, K10)", ("split_carry",)),
     ("conv backward (data and filter gradients)", ("dgrad", "wgrad",
                                                    "bwd_data", "bwd_filter",
                                                    "backward")),
@@ -78,10 +91,18 @@ KINDS = [
 ]
 
 
-def build_trainer(config_path, tmp):
+def build_trainer(config_path, tmp, remat=False, image_size=None):
     config = load_config(config_path)
     config.update(data_root=str(FIXTURE_DATA), save_dir=str(Path(tmp) / "ckpt"),
                   sample_dir=str(Path(tmp) / "samples"))
+    if remat:
+        config["remat"] = True
+    if image_size:
+        size = (image_size, image_size)
+        config.update(image_size=size, dataset="synthetic", batch_size=16)
+        if "img_size" in config["model_params"]:
+            config["model_params"] = dict(config["model_params"],
+                                          img_size=size)
     generator = set_seed(0, "cuda")
     model = factory.get_model(config)
     loader = factory.get_dataloader(
@@ -128,6 +149,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default=str(DEFAULT_CONFIG))
     parser.add_argument("--output_dir", default="profile_out")
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--image_size", type=int, default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_training.py needs a CUDA device")
@@ -141,7 +164,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, images, labels = build_trainer(args.config, tmp)
+        trainer, images, labels = build_trainer(args.config, tmp, args.remat,
+                                                args.image_size)
         profile = profile_steps(trainer, images, labels)
         print(f"profile, {PROFILED_STEPS} train steps at batch "
               f"{profile['batch']}, on {smi}: wall {profile['wall_ms']:.1f} "
@@ -163,8 +187,9 @@ def main(argv=None):
     result = {"device": smi, "torch": torch.__version__,
               "config": args.config, "profile": profile,
               "train_images_per_s": rates}
-    model_type = trainer.config["model_type"]
-    (out_dir / f"profile_torch_training_{model_type}.json").write_text(
+    name = trainer.config["model_type"] + ("_remat" if args.remat else "") + (
+        f"_{args.image_size}" if args.image_size else "")
+    (out_dir / f"profile_torch_training_{name}.json").write_text(
         json.dumps(result, indent=1))
 
 
