@@ -16,7 +16,10 @@ of both models through the port's entry points. The UNet's:
   `diffusion_models_collection_tpu_torch.sample` from a randomly
   initialised checkpoint;
 * training: the attention backward kernel at every shape of a batch-128
-  train step, the full-width UNet's loss and gradients against the plain
+  train step and in each of its forms (fused with tiles of 32 and of 64
+  rows, one key tile and several; two kernels beyond the fused form's
+  length limit and, forced, at the train step's main shape), the
+  full-width UNet's loss and gradients against the plain
   versions, then three epochs of `diffusion_models_collection_tpu_torch.
   train` on the committed CIFAR-10 fixtures (200 images, one batch of 128
   an epoch), train images/s through the trainer's own step with the
@@ -33,7 +36,10 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
   at L = 100 and at L = 1024; the time-split forward and backward at
   L = 1024 (batch 16 and 2) and L = 1000, also against the whole-sequence
   kernels; and the per-call times of the whole-sequence and the time-split
-  kernels at L = 1024 for batch 2 to 128;
+  kernels at L = 1024 for batch 2 to 128; and the reverse sweep that the
+  three backward kernels share in each of its forms (four and eight states
+  a lane, time blocks of 32 and 16 steps, a channel count that is no
+  multiple of its tile);
 * sampling: full-width forwards at batch 32 and 160 and a DDIM-10 CFG
   trajectory against the plain versions, then 80 images with DDIM-50 and
   CFG 3 through `sample` from a checkpoint of those random weights (the
@@ -132,6 +138,8 @@ TOL_TRAJ = 5e-4  # 10 DDIM steps with CFG and dynamic thresholding
 # difference of two products of similar size, so it loses more digits.
 TOL_BWD = 1e-4
 ATTN_BWD_HEAD_DIMS = (32, 128)  # at L 256, beside the UNet's d = 64
+# beyond `flash_attention.FUSED_MAX_LEN`: the two-kernel form
+ATTN_BWD_LONG = (1024, 257)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # Loss of one full-width forward, and the flattened gradient as max-abs
@@ -168,6 +176,11 @@ SCAN_NOSTATE_CASES = SCAN_BWD_CASES + [(CHECK_BATCH, 100), (16, 1024)]
 # K9, K10: the 64x64 DiM's training batch and a small one at its L, and a
 # ragged L (63 time blocks of 16 steps, the last of 8)
 SCAN_SPLIT_CASES = [(16, 1024), (2, 1024), (16, 1000)]
+# (batch, L, D, N) for the forms of the reverse sweep that the main paths do
+# not take: eight states a lane (N > 16) with K7's states filling its
+# shared-memory budget, then in device scratch; and four states a lane with
+# N 8, time blocks of 16 steps, a ragged last one, D no multiple of 64
+SCAN_SWEEP_FORMS = [(8, 256, 768, 32), (4, 1024, 768, 32), (8, 100, 200, 8)]
 SCAN_SWEEP_LENGTH, SCAN_SWEEP_BATCHES = 1024, (2, 4, 8, 16, 32, 64, 128)
 # K9, K10 at each of these chunk sizes (time blocks in a chunk) for these
 # batches: the data behind `scan.chunk_blocks_for`
@@ -542,17 +555,32 @@ def attention_bwd_case(bh, seq, d, gen):
     return q, k, v, o, do, lse
 
 
-def check_attention_bwd(label, args):
-    """K3 against its plain version on one input; returns the worst
-    absolute error, the kernel and plain times, and the time of autograd's
-    backward through `F.scaled_dot_product_attention` (never called by the
-    port) for the same q, k, v and dO."""
-    grads = flash_attention.flash_attention_bwd(*args)
+def attention_bwd_form(seq, d, fused=None):
+    """The form of K3 that the wrapper takes for this shape, in words."""
+    tile = flash_attention.bwd_tile(seq, d)
+    tiles = -(-seq // tile)
+    if fused is None:
+        fused = flash_attention.bwd_fused(seq)
+    if not fused:
+        return f"two kernels, tiles of {tile} rows"
+    return (f"fused, {tiles} key tile{'s' if tiles > 1 else ''} of {tile} "
+            f"rows{', dq shares summed' if tiles > 1 else ''}")
+
+
+def check_attention_bwd(label, args, fused=None):
+    """K3 (in the form the wrapper picks, or `fused` forces) against its
+    plain version on one input; returns the worst absolute error, the
+    kernel and plain times, and the time of autograd's backward through
+    `F.scaled_dot_product_attention` (never called by the port) for the
+    same q, k, v and dO."""
+    label += f" [{attention_bwd_form(*args[0].shape[1:], fused)}]"
+    grads = flash_attention.flash_attention_bwd(*args, fused=fused)
     refs = flash_attention.flash_attention_bwd_ref(*args)
     torch.cuda.synchronize()
     rels = [max_rel(g, r) for g, r in zip(grads, refs)]
     worst_abs = max((g - r).abs().max().item() for g, r in zip(grads, refs))
-    ms = median_ms(lambda: flash_attention.flash_attention_bwd(*args))
+    ms = median_ms(
+        lambda: flash_attention.flash_attention_bwd(*args, fused=fused))
     plain = median_ms(lambda: flash_attention.flash_attention_bwd_ref(*args))
     qkv = [t.detach().requires_grad_() for t in args[:3]]
     out = F.scaled_dot_product_attention(*qkv)
@@ -567,13 +595,15 @@ def check_attention_bwd(label, args):
 
 
 def phase_attn_bwd(attn_shapes, gen):
-    """K3 against `flash_attention_bwd_ref` at BH 128 (L 256, 64, 16, 100
-    at d 64; d 32 and 128 at L 256), then at every attention shape of a
-    batch-128 train step; returns the worst absolute error, the kernel,
+    """K3 against `flash_attention_bwd_ref` at BH 128 in every form it has
+    (L 256, 64, 16, 100 at d 64 and d 32, 128 at L 256: fused; L 1024 and
+    257: two kernels; each line names the form), then at every attention
+    shape of a batch-128 train step, the longest of them also with the
+    two-kernel form forced; returns the worst absolute error, the kernel,
     plain and library time of one step's worth of backward calls, and
     their bound."""
     worst_abs = 0.0
-    cases = [(seq, HEAD_DIM) for seq in ATTN_LENGTHS]
+    cases = [(seq, HEAD_DIM) for seq in ATTN_LENGTHS + ATTN_BWD_LONG]
     cases += [(256, d) for d in ATTN_BWD_HEAD_DIMS]
     for seq, d in cases:
         err, *_ = check_attention_bwd(
@@ -591,6 +621,13 @@ def phase_attn_bwd(attn_shapes, gen):
         worst_abs = max(worst_abs, err)
         totals = [total + n * ms for total, ms in zip(totals, times)]
         bound.add(*attn_work(bh, seq, d, backward=True), n)
+        if seq == max(h * w for _, h, w in attn_shapes):
+            # the form not taken, on the same kind of input: the reading
+            # behind `flash_attention.FUSED_MAX_LEN`
+            err, *_ = check_attention_bwd(
+                f"  train step: flash_attn_bwd BH={bh} L={seq} d={d}, forced",
+                attention_bwd_case(bh, seq, d, gen), fused=False)
+            worst_abs = max(worst_abs, err)
     return worst_abs, totals, bound
 
 
@@ -785,19 +822,19 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
 
 
 # ------------------------------------------------------------------- DiM
-def scan_case(batch, length, gen):
-    """Scan inputs at the DiM's width: x, dt > 0 (softplus, mostly below
-    1), A = -exp(N(0, 0.25)) * (1..N) like the model's S4D init, B, C, and
-    an output gradient g."""
+def scan_case(batch, length, gen, d_inner=SCAN_D, n_state=SCAN_N):
+    """Scan inputs, at the DiM's width unless told otherwise: x, dt > 0
+    (softplus, mostly below 1), A = -exp(N(0, 0.25)) * (1..N) like the
+    model's S4D init, B, C, and an output gradient g."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    x = randn(batch, length, SCAN_D)
-    dt = F.softplus(randn(batch, length, SCAN_D) - 2)
-    A = -torch.exp(randn(SCAN_D, SCAN_N) * 0.5) * torch.arange(
-        1, SCAN_N + 1, device="cuda")
-    return (x, dt, A, randn(batch, length, SCAN_N),
-            randn(batch, length, SCAN_N), randn(batch, length, SCAN_D))
+    x = randn(batch, length, d_inner)
+    dt = F.softplus(randn(batch, length, d_inner) - 2)
+    A = -torch.exp(randn(d_inner, n_state) * 0.5) * torch.arange(
+        1, n_state + 1, device="cuda")
+    return (x, dt, A, randn(batch, length, n_state),
+            randn(batch, length, n_state), randn(batch, length, d_inner))
 
 
 def check_outputs(label, outs, refs, tol):
@@ -837,6 +874,39 @@ def phase_scan_nostate(gen, worst, times):
                           reps=5, warmup=1)
         times[("bwd_nostate", batch, length)] = (ms, plain)
         print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
+
+
+def phase_scan_sweep_forms(gen, worst):
+    """The reverse sweep in the forms the main paths do not take
+    (`SCAN_SWEEP_FORMS`), through each kernel that runs it (K8, K7, K10),
+    against the plain backward; each line names the form."""
+    lib = _build.library()
+    for batch, length, d_inner, n_state in SCAN_SWEEP_FORMS:
+        *inputs, g = scan_case(batch, length, gen, d_inner, n_state)
+        _, bound = scan.selective_scan_fwd_ref(*inputs, True)
+        refs = {"plain": scan.selective_scan_bwd_ref(*inputs, g, bound)}
+        t_block = scan.t_block_for(length)
+        scratch = lib.selective_scan_bwd_nostate_needs_scratch(
+            length, n_state, t_block)
+        form = (f"{'four' if n_state <= 16 else 'eight'} states a lane, time "
+                f"blocks of {t_block} steps"
+                f"{', a ragged last one' if length % t_block else ''}, "
+                f"{-(-d_inner // 64)} tiles of 64 channels for D={d_inner}")
+        shape = f"B={batch} L={length} D={d_inner} N={n_state}"
+        for key, fn, args, note in (
+                ("bwd", scan.selective_scan_bwd, (*inputs, g, bound), ""),
+                ("bwd_nostate", scan.selective_scan_bwd_nostate,
+                 (*inputs, g), ", rebuilt states in "
+                 + ("device scratch" if scratch else "shared memory")),
+                ("bwd_split", scan.selective_scan_bwd_split,
+                 (*inputs, g, bound),
+                 f", chunks of {scan.chunk_blocks_for(batch, length, d_inner)}"
+                 " time blocks")):
+            grads = fn(*args)
+            torch.cuda.synchronize()
+            worst[key] = max(worst[key], check_outputs(
+                f"selective_scan_{key} {shape} [sweep: {form}{note}]", grads,
+                refs, TOL_SCAN_BWD))
 
 
 def phase_scan_split(gen, worst, times):
@@ -956,8 +1026,9 @@ def print_scan_bounds():
 def phase_scan(gen):
     """The scan kernels against their plain versions: the forward (K5 with
     states off, K6 with states on, K4's ragged block at L = 100), the
-    backward from states (K8) and without (K7), and the time-split forward
-    and backward (K9, K10). Returns the worst absolute errors and the
+    backward from states (K8) and without (K7), the time-split forward
+    and backward (K9, K10), and the other forms of the reverse sweep.
+    Returns the worst absolute errors and the
     kernel and plain ms of one call at each shape."""
     worst = {"fwd": 0.0, "bwd": 0.0, "bwd_nostate": 0.0, "fwd_split": 0.0,
              "bwd_split": 0.0}
@@ -1011,6 +1082,7 @@ def phase_scan(gen):
                                  f"{rels}")
     phase_scan_nostate(gen, worst, times)
     phase_scan_split(gen, worst, times)
+    phase_scan_sweep_forms(gen, worst)
     phase_scan_sweep(gen, times)
     return worst, times
 

@@ -8,24 +8,48 @@
 // Replaces diffusion_models_collection_tpu/ops/flash_attention.py:_bwd_kernel.
 //
 // What bounds it on an H100: in float32 without TF32 there are no tensor
-// cores, so the five products run on CUDA-core FMAs from shared memory, and
-// shared-memory bandwidth bounds the inner loops, as in the forward
-// (flash_attn.cu). The TPU kernel held the whole L x L block of one head in
-// VMEM; a block here has at most 227 KB of shared memory, so the backward is
-// tiled FlashAttention-2 style in three launches:
-//   1. delta[bh, i] = sum_d dO * O, one warp per row;
-//   2. dK/dV: one block of 256 threads per (bh, 64-key tile). K_j and V_j stay
-//      in shared memory; the block walks the 64-row Q/dO tiles, recomputes P
-//      and dS for the tile from lse and delta, and accumulates dK_j and dV_j
-//      in registers (each thread a 4 x DMAX/16 tile of each);
-//   3. dQ: one block per (bh, 64-query tile) that walks the key tiles.
-// No atomics: every output element is written by one thread, so the result is
-// deterministic. Shared-memory rows are padded to DMAX + 1, so the column
-// reads of the score products do not collide in a bank; the (64, 64) tile of
-// P or dS is padded to 65. Keys and query rows past L are masked (a row past
-// L gets lse = +inf, so its P is 0), so any L >= 1 runs; any d % 8 == 0 up to
-// 128 runs, zero-padded to DMAX of 32, 64 or 128. About 83 KB of shared
-// memory at DMAX = 64, two blocks per SM.
+// cores, so the five L x L x d products run on CUDA-core FMAs (67 TFLOP/s)
+// with both operands in shared memory; an SM starts four warp-FMAs for each
+// warp-wide shared load, so the shape of the inner loops decides. What the
+// design does about it:
+// * Every operand is read with 16-byte shared loads, eight FMAs to a load.
+//   All tiles are row-major with the row stride padded by four floats
+//   (DMAX + 4, BT + 4): rows stay 16-byte aligned, and the eight lanes of a
+//   quarter warp that read eight consecutive rows at one column hit
+//   disjoint banks. Q K^T and dO V^T read both operands along the reduction
+//   index (a thread owns rows ty + TX a and keys tx + TX b, so a quarter warp
+//   reads one Q row, broadcast, and eight consecutive K rows); dV, dK and dQ
+//   read P, dS along the key index and dO, Q, K along the thread's own
+//   contiguous columns.
+// * S and dP are computed once. One block per (head, key tile of BT keys)
+//   keeps K_j, V_j in shared memory and dK_j, dV_j in registers, walks the
+//   query tiles, and also forms this key tile's share of dQ_i = dS K_j. With
+//   one key tile (L <= BT) that is dQ itself; with more, the shares go to a
+//   scratch buffer (BH, tiles, L, d) that `flash_bwd_dq_sum_kernel` adds up in
+//   a fixed order. The wrapper takes this fused form while the scratch is
+//   small (L <= 256: four shares, as much traffic as one more read and
+//   write of q, k, v and dO); for longer L the two-kernel form stays, where
+//   a second kernel per (head, query tile) walks the key tiles, recomputes
+//   dS and keeps dQ_i in registers: seven products with the same inner
+//   loops, and no scratch that grows with L^2 / BT.
+// * Tiles arrive by cp.async (16 bytes, zero-filled past L and past d). The
+//   next Q and dO tiles are requested as soon as the dV/dK loop has read the
+//   current ones, so they fly during the dQ product; the dQ kernel holds two
+//   K tiles and requests the next K and V during its dQ product.
+// * BT is 64 (256 threads, two blocks an SM at d <= 64), or 32 (64 threads)
+//   when L <= 32, which wastes a quarter of the tile at L 16 where 64 wasted
+//   fifteen sixteenths.
+// delta = rowsum(dO o O) stays a launch of its own: every key tile of a head
+// needs it, and it reads o, which no other kernel here touches.
+// No atomics: every output element is written by one thread and the dQ
+// shares are summed in tile order, so results are equal bit for bit from run
+// to run. A query row past L gets lse = +inf, so its P and dS are 0; a key
+// past L has K = V = 0, so its dS meets a zero K row in dQ and its own dK,
+// dV rows are never written. Any L >= 1 runs; any d % 8 == 0 up to 128 runs,
+// zero-padded to DMAX of 32, 64 or 128.
+// Read by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.85 ms a call at
+// BH 512, L 256, d 64 (fused; 1.02 ms with the two-kernel form forced),
+// 4.9 ms for the 11 calls of a UNet train step against a bound of 1.7 ms.
 
 #include <cuda_runtime.h>
 
@@ -35,18 +59,29 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kSP = kBK + 1;   // padded row stride of the P / dS tile
 constexpr int kMaxDevices = 64;
+constexpr int kDeltaThreads = 256;
 
-// Q, dO, K and V tiles of (64, DMAX + 1), one (64, 65) tile of P or dS, and
-// lse and delta of the current query rows.
-template <int DMAX>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * (size_t)kBQ * (DMAX + 1) + (size_t)kBQ * kSP + 2 * kBQ);
-}
+// Tile geometry for a head dimension padded to DMAX and tiles of BT rows.
+template <int DMAX, int BT>
+struct Cfg {
+  static constexpr int TX = BT / 4;       // threads along keys / columns
+  static constexpr int NT = TX * TX;      // threads of a block
+  static constexpr int P = DMAX + 4;      // row stride of Q, dO, K, V tiles
+  static constexpr int SP = BT + 4;       // row stride of the P and dS tiles
+  static constexpr int DC = DMAX / TX;    // columns of d a thread owns
+  static constexpr int VW = DC >= 4 ? 4 : DC;  // floats per vector access
+  static constexpr int G = DC / VW;       // vector groups per thread
+  static constexpr int TILE = BT * P;     // floats of one Q, dO, K or V tile
+  static constexpr int STILE = BT * SP;   // floats of the P or dS tile
+  // K, V, Q, dO, P, dS and the rows' lse and delta; the dQ kernel: two K
+  // tiles, V, Q, dO, dS and the same
+  static constexpr size_t SMEM_DKDV =
+      sizeof(float) * (4 * (size_t)TILE + 2 * (size_t)STILE + 2 * BT);
+  static constexpr size_t SMEM_DQ =
+      sizeof(float) * (5 * (size_t)TILE + (size_t)STILE + 2 * BT);
+  static_assert(DC % VW == 0 && (VW == 2 || VW == 4), "column ownership");
+};
 
 __global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
                                        const float* __restrict__ dout,
@@ -63,334 +98,463 @@ __global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
   if (lane == 0) delta[row] = s;
 }
 
-// rows r0 .. r0 + 63 of one head's (L, d) matrix into a (64, DMAX + 1) tile,
-// zero past L and past d
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int r0, int L, int d, int tid) {
-  constexpr int P = DMAX + 1;
-  for (int i = tid; i < kBQ * DMAX; i += kThreads) {
-    const int r = i / DMAX;
-    const int c = i - r * DMAX;
-    const int row = r0 + r;
-    dst[r * P + c] = (row < L && c < d) ? src[(size_t)row * d + c] : 0.f;
+// dq = the sum over the key tiles, in tile order, of their shares in
+// `partial` (bh, tiles, L * d); four floats a thread.
+__global__ void flash_bwd_dq_sum_kernel(const float4* __restrict__ partial,
+                                        float4* __restrict__ dq, size_t head4,
+                                        int tiles, size_t total4) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total4) return;
+  const size_t bh = i / head4;
+  const size_t e = i - bh * head4;
+  const float4* p = partial + bh * tiles * head4 + e;
+  float4 acc = p[0];
+  for (int t = 1; t < tiles; ++t) {
+    const float4 v = p[(size_t)t * head4];
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  dq[i] = acc;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Request rows r0 .. r0 + BT - 1 of one head's (L, d) matrix into a
+// (BT, DMAX + 4) tile, zero past L and past d. d % 4 == 0.
+template <int DMAX, int BT>
+__device__ __forceinline__ void request_tile(float* dst,
+                                             const float* __restrict__ src,
+                                             int r0, int L, int d, int tid) {
+  using C = Cfg<DMAX, BT>;
+  constexpr int V = DMAX / 4;  // 16-byte pieces of a row
+  for (int i = tid; i < BT * V; i += C::NT) {
+    const int r = i / V;
+    const int c = (i - r * V) * 4;
+    const bool ok = r0 + r < L && c < d;
+    cp_async16(dst + r * C::P + c, ok ? src + (size_t)(r0 + r) * d + c : src,
+               ok);
   }
 }
 
-// s[a][b] = Q_r . K_j and dp[a][b] = dO_r . V_j for query rows r = ty + 16 a
-// and keys j = tx + 16 b of the current tiles
-template <int DMAX>
-__device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
-                                            const float* Ks, const float* Vs,
-                                            int ty, int tx, float s[4][4],
-                                            float dp[4][4]) {
-  constexpr int P = DMAX + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      s[a][b] = 0.f;
-      dp[a][b] = 0.f;
-    }
-#pragma unroll 4
-  for (int c = 0; c < DMAX; ++c) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qv[a] = Qs[(ty + 16 * a) * P + c];
-      dov[a] = dOs[(ty + 16 * a) * P + c];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kv[b] = Ks[(tx + 16 * b) * P + c];
-      vv[b] = Vs[(tx + 16 * b) * P + c];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = fmaf(qv[a], kv[b], s[a][b]);
-        dp[a][b] = fmaf(dov[a], vv[b], dp[a][b]);
-      }
-  }
-}
-
-// lse and delta of query rows q0 .. q0 + 63; rows past L get lse = +inf, so
-// their probabilities, and with them their share of dK and dV, are 0
+// lse and delta of query rows q0 .. q0 + BT - 1; rows past L get lse = +inf,
+// so their probabilities, and with them their share of dK and dV, are 0
+template <int BT>
 __device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s,
                                                const float* __restrict__ lse,
                                                const float* __restrict__ delta,
                                                size_t base, int q0, int L, int tid) {
-  if (tid < kBQ) {
+  if (tid < BT) {
     const int row = q0 + tid;
     lse_s[tid] = row < L ? lse[base + row] : INFINITY;
     dl_s[tid] = row < L ? delta[base + row] : 0.f;
   }
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int L, int d,
-                      float scale) {
-  constexpr int P = DMAX + 1;
-  constexpr int DC = DMAX / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;              // kBK x P
-  float* Vs = Ks + kBK * P;      // kBK x P
-  float* Qs = Vs + kBK * P;      // kBQ x P
-  float* dOs = Qs + kBQ * P;     // kBQ x P
-  float* Ss = dOs + kBQ * P;     // kBQ x kSP: P, then dS
-  float* lse_s = Ss + kBQ * kSP;
-  float* dl_s = lse_s + kBQ;
+template <int VW>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  }
+}
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t head = (size_t)bh * L * d;
-  const size_t base = (size_t)bh * L;
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  }
+}
 
-  load_tile<DMAX>(Ks, k + head, k0, L, d, tid);
-  load_tile<DMAX>(Vs, v + head, k0, L, d, tid);
-
-  // keys k0 + ty + 16 a, columns tx + 16 b
-  float dk_acc[4][DC], dv_acc[4][DC];
+// out[a][b] = As[row ty + TX a] . Bs[row tx + TX b] over the DMAX columns of
+// two (BT, DMAX + 4) tiles, four columns to a shared load
+template <int DMAX, int BT>
+__device__ __forceinline__ void rows_dot(const float* As, const float* Bs, int ty,
+                                         int tx, float out[4][4]) {
+  using C = Cfg<DMAX, BT>;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < DC; ++b) {
-      dk_acc[a][b] = 0.f;
-      dv_acc[a][b] = 0.f;
-    }
-
-  for (int q0 = 0; q0 < L; q0 += kBQ) {
-    __syncthreads();  // the previous tile's Qs, dOs, Ss and row stats are read
-    load_tile<DMAX>(Qs, q + head, q0, L, d, tid);
-    load_tile<DMAX>(dOs, dout + head, q0, L, d, tid);
-    load_row_stats(lse_s, dl_s, lse, delta, base, q0, L, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_tiles<DMAX>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-    float ds[4][4];
+    for (int b = 0; b < 4; ++b) out[a][b] = 0.f;
+  const float* ap = As + ty * C::P;
+  const float* bp = Bs + tx * C::P;
+#pragma unroll 2
+  for (int c = 0; c < DMAX; c += 4) {
+    float4 av[4], bv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      const float lr = lse_s[r];
-      const float dl = dl_s[r];
+    for (int a = 0; a < 4; ++a)
+      av[a] = *reinterpret_cast<const float4*>(ap + a * C::TX * C::P + c);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = expf(s[a][b] * scale - lr);
-        Ss[r * kSP + tx + 16 * b] = p;
-        ds[a][b] = p * (dp[a][b] - dl) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dV_j += sum_r P[r, j] dO[r, :]
-#pragma unroll 4
-    for (int r = 0; r < kBQ; ++r) {
-      float pv[4], dov[DC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pv[a] = Ss[r * kSP + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < DC; ++b) dov[b] = dOs[r * P + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < DC; ++b) dv_acc[a][b] = fmaf(pv[a], dov[b], dv_acc[a][b]);
-    }
-    __syncthreads();  // P is read; the tile takes dS
-
+    for (int b = 0; b < 4; ++b)
+      bv[b] = *reinterpret_cast<const float4*>(bp + b * C::TX * C::P + c);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) Ss[(ty + 16 * a) * kSP + tx + 16 * b] = ds[a][b];
-    __syncthreads();
+      for (int b = 0; b < 4; ++b) {
+        float s = out[a][b];
+        s = fmaf(av[a].x, bv[b].x, s);
+        s = fmaf(av[a].y, bv[b].y, s);
+        s = fmaf(av[a].z, bv[b].z, s);
+        s = fmaf(av[a].w, bv[b].w, s);
+        out[a][b] = s;
+      }
+  }
+}
 
-    // dK_j += sum_r dS[r, j] Q[r, :]
-#pragma unroll 4
-    for (int r = 0; r < kBQ; ++r) {
-      float dsv[4], qv[DC];
+// S = Q K^T and dP = dO V^T of the current tiles, then P (stored when Ps is
+// given) and dS into their (BT, BT + 4) tiles: rows ty + TX a, keys tx + TX b
+template <int DMAX, int BT>
+__device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
+                                           const float* Ks, const float* Vs,
+                                           const float* lse_s, const float* dl_s,
+                                           float* Ps, float* dSs, int ty, int tx,
+                                           float scale) {
+  using C = Cfg<DMAX, BT>;
+  float s[4][4], dp[4][4];
+  rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
+  rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dp);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) dsv[a] = Ss[r * kSP + ty + 16 * a];
+  for (int a = 0; a < 4; ++a) {
+    const int r = ty + C::TX * a;
+    const float lr = lse_s[r];
+    const float dl = dl_s[r];
 #pragma unroll
-      for (int b = 0; b < DC; ++b) qv[b] = Qs[r * P + tx + 16 * b];
+    for (int b = 0; b < 4; ++b) {
+      const int col = tx + C::TX * b;
+      const float p = expf(s[a][b] * scale - lr);
+      if (Ps != nullptr) Ps[r * C::SP + col] = p;
+      dSs[r * C::SP + col] = p * (dp[a][b] - dl) * scale;
+    }
+  }
+}
+
+// acc[a][.] += sum_j dS[row ty + TX a][j] K[j][the thread's columns]
+template <int DMAX, int BT>
+__device__ __forceinline__ void dq_product(const float* dSs, const float* Ks,
+                                           int ty, int tx,
+                                           float acc[4][Cfg<DMAX, BT>::DC]) {
+  using C = Cfg<DMAX, BT>;
+#pragma unroll 2
+  for (int j = 0; j < BT; j += 4) {
+    float dsv[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      load_vec<4>(dsv[a], dSs + (ty + C::TX * a) * C::SP + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float kv[C::DC];
+#pragma unroll
+      for (int g = 0; g < C::G; ++g)
+        load_vec<C::VW>(kv + g * C::VW,
+                        Ks + (j + jj) * C::P + C::VW * (tx + C::TX * g));
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < DC; ++b) dk_acc[a][b] = fmaf(dsv[a], qv[b], dk_acc[a][b]);
+        for (int b = 0; b < C::DC; ++b)
+          acc[a][b] = fmaf(dsv[a][jj], kv[b], acc[a][b]);
+    }
+  }
+}
+
+// rows r0 + ty + TX a (< L) of `acc` into a head's (L, d) matrix at the
+// thread's columns
+template <int DMAX, int BT>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float acc[4][Cfg<DMAX, BT>::DC],
+                                           int r0, int L, int d, int ty, int tx) {
+  using C = Cfg<DMAX, BT>;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = r0 + ty + C::TX * a;
+    if (row < L) {
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        const int c = C::VW * (tx + C::TX * g);
+        if (c < d) store_vec<C::VW>(dst + (size_t)row * d + c, acc[a] + g * C::VW);
+      }
+    }
+  }
+}
+
+// One block per (head, key tile): dK_j, dV_j and, when WITH_DQ, this key
+// tile's share of every dQ_i, into dq_out (the head's rows at
+// (bh * gridDim.y + tile) * L * d: dq itself when there is one key tile).
+template <int DMAX, int BT, bool WITH_DQ>
+__global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
+                                  (DMAX <= 64 && BT == 64) ? 2 : 1)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dq_out, float* __restrict__ dk,
+                      float* __restrict__ dv, int L, int d, float scale) {
+  using C = Cfg<DMAX, BT>;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + C::TILE;
+  float* Qs = Vs + C::TILE;
+  float* dOs = Qs + C::TILE;
+  float* Ps = dOs + C::TILE;
+  float* dSs = Ps + C::STILE;
+  float* lse_s = dSs + C::STILE;
+  float* dl_s = lse_s + BT;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BT;
+  const int tid = threadIdx.x;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
+  const size_t head = (size_t)bh * L * d;
+  const size_t base = (size_t)bh * L;
+
+  request_tile<DMAX, BT>(Ks, k + head, k0, L, d, tid);
+  request_tile<DMAX, BT>(Vs, v + head, k0, L, d, tid);
+  request_tile<DMAX, BT>(Qs, q + head, 0, L, d, tid);
+  request_tile<DMAX, BT>(dOs, dout + head, 0, L, d, tid);
+  load_row_stats<BT>(lse_s, dl_s, lse, delta, base, 0, L, tid);
+
+  // keys k0 + 4 ty .. + 3, columns VW (tx + TX g) .. + VW - 1
+  float dk_acc[4][C::DC], dv_acc[4][C::DC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < C::DC; ++b) {
+      dk_acc[a][b] = 0.f;
+      dv_acc[a][b] = 0.f;
+    }
+  float* dq_head = nullptr;
+  if constexpr (WITH_DQ)
+    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * L * d;
+
+  for (int q0 = 0; q0 < L; q0 += BT) {
+    cp_async_wait_all();
+    __syncthreads();  // the tiles and row stats are in; dSs is read
+
+    probs_tile<DMAX, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, ty, tx, scale);
+    __syncthreads();
+
+    // dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :]
+#pragma unroll 2
+    for (int r = 0; r < BT; ++r) {
+      float pv[4], dsv[4], dov[C::DC], qv[C::DC];
+      load_vec<4>(pv, Ps + r * C::SP + 4 * ty);
+      load_vec<4>(dsv, dSs + r * C::SP + 4 * ty);
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        const int c = C::VW * (tx + C::TX * g);
+        load_vec<C::VW>(dov + g * C::VW, dOs + r * C::P + c);
+        load_vec<C::VW>(qv + g * C::VW, Qs + r * C::P + c);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < C::DC; ++b) {
+          dv_acc[a][b] = fmaf(pv[a], dov[b], dv_acc[a][b]);
+          dk_acc[a][b] = fmaf(dsv[a], qv[b], dk_acc[a][b]);
+        }
+    }
+    __syncthreads();  // Qs, dOs and the row stats are read
+
+    if (q0 + BT < L) {  // the next tiles fly during the dQ product
+      request_tile<DMAX, BT>(Qs, q + head, q0 + BT, L, d, tid);
+      request_tile<DMAX, BT>(dOs, dout + head, q0 + BT, L, d, tid);
+      load_row_stats<BT>(lse_s, dl_s, lse, delta, base, q0 + BT, L, tid);
+    }
+    if constexpr (WITH_DQ) {
+      float acc[4][C::DC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < C::DC; ++b) acc[a][b] = 0.f;
+      dq_product<DMAX, BT>(dSs, Ks, ty, tx, acc);
+      store_rows<DMAX, BT>(dq_head, acc, q0, L, d, ty, tx);
     }
   }
 
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int row = k0 + ty + 16 * a;
+    const int row = k0 + 4 * ty + a;
     if (row < L) {
 #pragma unroll
-      for (int b = 0; b < DC; ++b) {
-        const int c = tx + 16 * b;
+      for (int g = 0; g < C::G; ++g) {
+        const int c = C::VW * (tx + C::TX * g);
         if (c < d) {
-          dk[head + (size_t)row * d + c] = dk_acc[a][b];
-          dv[head + (size_t)row * d + c] = dv_acc[a][b];
+          store_vec<C::VW>(dk + head + (size_t)row * d + c, dk_acc[a] + g * C::VW);
+          store_vec<C::VW>(dv + head + (size_t)row * d + c, dv_acc[a] + g * C::VW);
         }
       }
     }
   }
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
+// The two-kernel form's dQ: one block per (head, query tile) walks the key
+// tiles, recomputes dS and keeps dQ_i in registers.
+template <int DMAX, int BT>
+__global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
+                                  (DMAX <= 64 && BT == 64) ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, int L, int d, float scale) {
-  constexpr int P = DMAX + 1;
-  constexpr int DC = DMAX / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // kBQ x P
-  float* dOs = Qs + kBQ * P;     // kBQ x P
-  float* Ks = dOs + kBQ * P;     // kBK x P
-  float* Vs = Ks + kBK * P;      // kBK x P
-  float* Ss = Vs + kBK * P;      // kBQ x kSP: dS
-  float* lse_s = Ss + kBQ * kSP;
-  float* dl_s = lse_s + kBQ;
+  using C = Cfg<DMAX, BT>;
+  extern __shared__ __align__(16) float smem[];
+  float* Kbuf = smem;  // two K tiles
+  float* Vs = Kbuf + 2 * C::TILE;
+  float* Qs = Vs + C::TILE;
+  float* dOs = Qs + C::TILE;
+  float* dSs = dOs + C::TILE;
+  float* lse_s = dSs + C::STILE;
+  float* dl_s = lse_s + BT;
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BT;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
-  const size_t base = (size_t)bh * L;
 
-  load_tile<DMAX>(Qs, q + head, q0, L, d, tid);
-  load_tile<DMAX>(dOs, dout + head, q0, L, d, tid);
-  load_row_stats(lse_s, dl_s, lse, delta, base, q0, L, tid);
+  request_tile<DMAX, BT>(Qs, q + head, q0, L, d, tid);
+  request_tile<DMAX, BT>(dOs, dout + head, q0, L, d, tid);
+  request_tile<DMAX, BT>(Kbuf, k + head, 0, L, d, tid);
+  request_tile<DMAX, BT>(Vs, v + head, 0, L, d, tid);
+  load_row_stats<BT>(lse_s, dl_s, lse, delta, (size_t)bh * L, q0, L, tid);
 
-  // query rows q0 + ty + 16 a, columns tx + 16 b
-  float acc[4][DC];
+  // query rows q0 + ty + TX a, columns VW (tx + TX g) .. + VW - 1
+  float acc[4][C::DC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < DC; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < C::DC; ++b) acc[a][b] = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += kBK) {
-    __syncthreads();  // the previous tile's Ks and Ss are read
-    load_tile<DMAX>(Ks, k + head, k0, L, d, tid);
-    load_tile<DMAX>(Vs, v + head, k0, L, d, tid);
-    __syncthreads();
+  int cur = 0;
+  for (int k0 = 0; k0 < L; k0 += BT, cur ^= 1) {
+    const float* Ks = Kbuf + cur * C::TILE;
+    cp_async_wait_all();
+    __syncthreads();  // the tiles are in; dSs and the other K tile are read
 
-    float s[4][4], dp[4][4];
-    score_tiles<DMAX>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      const float lr = lse_s[r];
-      const float dl = dl_s[r];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int col = tx + 16 * b;
-        const float p = (k0 + col < L) ? expf(s[a][b] * scale - lr) : 0.f;
-        Ss[r * kSP + col] = p * (dp[a][b] - dl) * scale;
-      }
+    probs_tile<DMAX, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, ty, tx,
+                         scale);
+    __syncthreads();  // Vs is read
+
+    if (k0 + BT < L) {  // the next tiles fly during the dQ product
+      request_tile<DMAX, BT>(Kbuf + (cur ^ 1) * C::TILE, k + head, k0 + BT, L,
+                             d, tid);
+      request_tile<DMAX, BT>(Vs, v + head, k0 + BT, L, d, tid);
     }
-    __syncthreads();
-
-    // dQ_r += sum_j dS[r, j] K[j, :]
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float dsv[4], kv[DC];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) dsv[a] = Ss[(ty + 16 * a) * kSP + j];
-#pragma unroll
-      for (int b = 0; b < DC; ++b) kv[b] = Ks[j * P + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < DC; ++b) acc[a][b] = fmaf(dsv[a], kv[b], acc[a][b]);
-    }
+    dq_product<DMAX, BT>(dSs, Ks, ty, tx, acc);
   }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row < L) {
-#pragma unroll
-      for (int b = 0; b < DC; ++b) {
-        const int c = tx + 16 * b;
-        if (c < d) dq[head + (size_t)row * d + c] = acc[a][b];
-      }
-    }
-  }
+  store_rows<DMAX, BT>(dq + head, acc, q0, L, d, ty, tx);
 }
 
-template <int DMAX>
-int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dout, const float* lse, float* delta, float* dq, float* dk,
-           float* dv, int bh, int L, int d, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DMAX>();
-  // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
-  // and device: set it at the first launch on each device, not every launch.
-  static std::atomic<bool> opted_in[kMaxDevices];
+// The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
+// and device: set it at the first launch on each device, not every launch.
+template <typename Kernel>
+int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DMAX>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DMAX>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[dev].store(true, std::memory_order_release);
+    done[dev].store(true, std::memory_order_release);
   }
+  return 0;
+}
+
+template <int DMAX, int BT>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, const float* lse, float* delta, float* partial,
+           float* dq, float* dk, float* dv, int bh, int L, int d, float scale,
+           int fused, cudaStream_t stream) {
+  using C = Cfg<DMAX, BT>;
+  static std::atomic<bool> opted_fused[kMaxDevices], opted_dkdv[kMaxDevices],
+      opted_dq[kMaxDevices];
+  const int tiles = (L + BT - 1) / BT;
+  if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+
   const int rows = bh * L;
-  const int rows_per_block = kThreads / 32;
-  flash_bwd_delta_kernel<<<(rows + rows_per_block - 1) / rows_per_block, kThreads, 0,
-                           stream>>>(o, dout, delta, rows, d);
+  const int rows_per_block = kDeltaThreads / 32;
+  flash_bwd_delta_kernel<<<(rows + rows_per_block - 1) / rows_per_block,
+                           kDeltaThreads, 0, stream>>>(o, dout, delta, rows, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const dim3 grid(bh, tiles);
+  if (fused) {
+    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true>, opted_fused,
+                    C::SMEM_DKDV);
+    if (rc != 0) return rc;
+    flash_bwd_dkdv_kernel<DMAX, BT, true><<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+        q, k, v, dout, lse, delta, tiles > 1 ? partial : dq, dk, dv, L, d, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || tiles == 1) return (int)err;
+    const size_t head4 = (size_t)L * d / 4;
+    const size_t total4 = head4 * bh;
+    flash_bwd_dq_sum_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+        (const float4*)partial, (float4*)dq, head4, tiles, total4);
+    return (int)cudaGetLastError();
+  }
+  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false>, opted_dkdv,
+                  C::SMEM_DKDV);
+  if (rc != 0) return rc;
+  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT>, opted_dq, C::SMEM_DQ);
+  if (rc != 0) return rc;
+  flash_bwd_dkdv_kernel<DMAX, BT, false><<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+      q, k, v, dout, lse, delta, nullptr, dk, dv, L, d, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (L + kBQ - 1) / kBQ);
-  flash_bwd_dkdv_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, L, d, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<DMAX, BT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
       q, k, v, dout, lse, delta, dq, L, d, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (bh, L, d) float32, contiguous; lse and the
-// scratch delta: (bh, L) float32. d % 8 == 0 and d <= 128. Returns the CUDA
-// error of the launches.
+// q, k, v, o, dout, dq, dk, dv: (bh, L, d) float32, contiguous, 16-byte
+// aligned; lse and the scratch delta: (bh, L) float32. d % 8 == 0 and
+// d <= 128. `tile` is the tile height, 64, or 32 for d <= 64. `fused` != 0
+// takes the one-pass form, which needs the scratch `partial` (bh,
+// ceil(L / tile), L, d) when L > tile; `fused` == 0 the two-kernel form
+// (`partial` unused). Returns the CUDA error of the launches.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
-                              void* delta, void* dq, void* dk, void* dv, int bh,
-                              int L, int d, float scale, void* stream) {
-  const float* qf = (const float*)q;
-  const float* kf = (const float*)k;
-  const float* vf = (const float*)v;
-  const float* of = (const float*)o;
-  const float* df = (const float*)dout;
-  const float* lf = (const float*)lse;
-  float* delf = (float*)delta;
-  float* dqf = (float*)dq;
-  float* dkf = (float*)dk;
-  float* dvf = (float*)dv;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 32)
-    return launch<32>(qf, kf, vf, of, df, lf, delf, dqf, dkf, dvf, bh, L, d, scale, s);
-  if (d <= 64)
-    return launch<64>(qf, kf, vf, of, df, lf, delf, dqf, dkf, dvf, bh, L, d, scale, s);
-  if (d <= 128)
-    return launch<128>(qf, kf, vf, of, df, lf, delf, dqf, dkf, dvf, bh, L, d, scale, s);
-  return (int)cudaErrorInvalidValue;
+                              void* delta, void* partial, void* dq, void* dk,
+                              void* dv, int bh, int L, int d, float scale,
+                              int tile, int fused, void* stream) {
+  if (d < 8 || d % 8 || d > 128 || (tile != 64 && !(tile == 32 && d <= 64)))
+    return (int)cudaErrorInvalidValue;
+  auto f = &launch<128, 64>;
+  if (tile == 32)
+    f = d <= 32 ? &launch<32, 32> : &launch<64, 32>;
+  else if (d <= 32)
+    f = &launch<32, 64>;
+  else if (d <= 64)
+    f = &launch<64, 64>;
+  return f((const float*)q, (const float*)k, (const float*)v, (const float*)o,
+           (const float*)dout, (const float*)lse, (float*)delta, (float*)partial,
+           (float*)dq, (float*)dk, (float*)dv, bh, L, d, scale, fused,
+           (cudaStream_t)stream);
 }

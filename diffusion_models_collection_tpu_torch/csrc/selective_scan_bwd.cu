@@ -10,16 +10,23 @@
 //   saved nothing (gradient checkpointing keeps no residuals). One kernel:
 //   phase 1 walks the sequence forward and keeps the state entering each
 //   time block, phase 2 is K8's sweep from those. The TPU kernel kept the
-//   block states in VMEM scratch; here a block's 128 channels need
-//   n_blocks * N * 128 * 4 bytes (64 KB at L 256, T 32, N 16), which go to
-//   dynamic shared memory while two blocks of them still fit one SM (the
-//   sweep's registers allow no more than two blocks anyway), else to a
-//   scratch buffer in device memory that the caller allocates. Either way
-//   a thread reads back only what it wrote itself, so nothing synchronises.
+//   block states in VMEM scratch; here a block's 64 channels need
+//   n_blocks * N * 64 * 4 bytes (32 KB at L 256, T 32, N 16), which go to
+//   dynamic shared memory while two blocks of them and of the sweep's own
+//   48 KB still fit one SM (`kSharedBoundMax`), else to a scratch buffer in
+//   device memory that the caller allocates. Either way a lane reads back
+//   only what it wrote itself, so nothing synchronises.
 //
-// What bounds both on an H100: the exponentials (N per channel and step, for
-// each recomputed state and again in the reverse walk; K7 adds one more
-// forward walk of them) and the sums over the D channels of dB and dC.
+// What bounds both on an H100: instruction rate and the exponential unit
+// (N exponentials per channel and step for each recomputed state and again
+// in the reverse walk; K7 adds one more forward walk of them), and the sums
+// over the D channels of dB and dC; the bytes are a tenth of it. The sweep
+// therefore splits each channel's states over four lanes, so that a lane
+// keeps a 16-step history in registers and recomputes 2.5 exponentials per
+// state and step at 16 warps an SM, stages the time block's operands in
+// shared memory, and reduces dB/dC once per 16 steps: the whole argument is
+// in selective_scan_common.cuh. Both kernels use its layout: 256 threads, 64
+// channels, lane q of a channel with states q * NMAX / 4 onwards.
 // dA is written per row (batch, D, N) and summed over the batch by the
 // caller, as the JAX wrapper does.
 
@@ -32,48 +39,48 @@ namespace {
 using namespace dmc_scan;
 
 constexpr int kMaxDevices = 64;
-// Block states in shared memory up to half of what an SM offers a block
-// (232,448 bytes), less the sweep's own `red`.
-constexpr size_t kSharedBoundMax = 232448 / 2 - 4096;
+// Block states in dynamic shared memory while two blocks an SM fit: half of
+// what an SM offers (232,448 bytes), less the sweep's static 48 KB and the
+// 1 KB the system keeps per block.
+constexpr size_t kSharedBoundMax = 232448 / 2 - 49152 - 1024;
 
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ g,
                 const float* __restrict__ bound, float* __restrict__ dx,
                 float* __restrict__ ddt, float* __restrict__ da_rows,
                 float* __restrict__ partial, int L, int D, int N, int T) {
-  __shared__ float red[kWarps][BwdShape<NMAX>::SUB][BwdShape<NMAX>::W];
+  constexpr int SPL = BwdShape<NMAX>::SPL;
+  __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
   const int tile = blockIdx.x;
-  const int d = tile * kThreads + threadIdx.x;
+  const int d0 = tile * kBwdChannels;
+  const int d = d0 + (threadIdx.x >> 2);
+  const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
 
-  float a_coef[NMAX], phi[NMAX], da[NMAX];
-  load_a<NMAX>(a_coef, A, d, N, active);
+  float a_coef[SPL], phi[SPL], da[SPL];
+  load_a_lane<SPL>(a_coef, A, d, q, N, active);
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    phi[n] = 0.f;
-    da[n] = 0.f;
+  for (int i = 0; i < SPL; ++i) {
+    phi[i] = 0.f;
+    da[i] = 0.f;
   }
   scan_bwd_range<NMAX>(x, dt, Bm, Cm, g,
                        bound + (size_t)b * n_blocks * N * D + d, (size_t)N * D,
-                       (size_t)D, dx, ddt, partial, a_coef, phi, da, red, b,
-                       tile, gridDim.x, d, active, L, D, N, T, 0, L);
-  if (active) {
-    float* out = da_rows + ((size_t)b * D + d) * N;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) out[n] = da[n];
-  }
+                       (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
+                       tile, gridDim.x, d0, active, L, D, N, T, 0, L);
+  if (active)
+    store_lane_states<SPL>(da_rows + ((size_t)b * D + d) * N, 1, da, q, N);
 }
 
 // K7. `scratch` is (batch, n_blocks, N, D) in device memory, or null: the
-// block states then live in dynamic shared memory, (n_blocks, N, 128).
+// block states then live in dynamic shared memory, (n_blocks, N, 64).
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 scan_bwd_nostate_kernel(const float* __restrict__ x,
                         const float* __restrict__ dt,
                         const float* __restrict__ A,
@@ -84,11 +91,15 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
                         float* __restrict__ da_rows,
                         float* __restrict__ partial, int L, int D, int N,
                         int T) {
+  constexpr int SPL = BwdShape<NMAX>::SPL;
   extern __shared__ float bound_smem[];
-  __shared__ float red[kWarps][BwdShape<NMAX>::SUB][BwdShape<NMAX>::W];
+  __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
   const int tile = blockIdx.x;
-  const int d = tile * kThreads + threadIdx.x;
+  const int d0 = tile * kBwdChannels;
+  const int ch = threadIdx.x >> 2;
+  const int d = d0 + ch;
+  const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
   const size_t row = (size_t)b * L;
@@ -100,48 +111,44 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
     stride_k = (size_t)N * D;
     stride_n = (size_t)D;
   } else {
-    col = bound_smem + threadIdx.x;
-    stride_k = (size_t)N * kThreads;
-    stride_n = (size_t)kThreads;
+    col = bound_smem + ch;
+    stride_k = (size_t)N * kBwdChannels;
+    stride_n = (size_t)kBwdChannels;
   }
 
-  float a_coef[NMAX], phi[NMAX], da[NMAX];
-  load_a<NMAX>(a_coef, A, d, N, active);
+  float a_coef[SPL], phi[SPL], da[SPL];
+  load_a_lane<SPL>(a_coef, A, d, q, N, active);
   // phase 1: the state entering each time block; phi holds h meanwhile
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) phi[n] = 0.f;
+  for (int i = 0; i < SPL; ++i) phi[i] = 0.f;
   for (int k = 0; k < n_blocks; ++k) {
-    if (active) {
-      float* bk = col + (size_t)k * stride_k;
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n)
-        if (n < N) bk[(size_t)n * stride_n] = phi[n];
+    if (active)
+      store_lane_states<SPL>(col + (size_t)k * stride_k, stride_n, phi, q, N);
+    if (k + 1 < n_blocks) {
+      __syncthreads();  // the previous time block's staged steps are read
+      stage_time_block<NMAX>(sm, x, dt, nullptr, Bm, nullptr, row, k * T, T,
+                             d0, D, N);
+      __syncthreads();
+      advance_staged<NMAX>(sm, a_coef, phi, q, ch, 0, T);
     }
-    if (k + 1 < n_blocks)
-      scan_advance<NMAX>(x, dt, Bm, a_coef, phi, row, d, active, D, N, k * T,
-                         (k + 1) * T);
   }
   // phase 2: the reverse sweep from them
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    phi[n] = 0.f;
-    da[n] = 0.f;
+  for (int i = 0; i < SPL; ++i) {
+    phi[i] = 0.f;
+    da[i] = 0.f;
   }
   scan_bwd_range<NMAX>(x, dt, Bm, Cm, g, col, stride_k, stride_n, dx, ddt,
-                       partial, a_coef, phi, da, red, b, tile, gridDim.x, d,
+                       partial, a_coef, phi, da, sm, b, tile, gridDim.x, d0,
                        active, L, D, N, T, 0, L);
-  if (active) {
-    float* out = da_rows + ((size_t)b * D + d) * N;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) out[n] = da[n];
-  }
+  if (active)
+    store_lane_states<SPL>(da_rows + ((size_t)b * D + d) * N, 1, da, q, N);
 }
 
 int width_for(int N) { return N <= 16 ? 32 : 64; }
 
 size_t shared_bound_bytes(int L, int N, int T) {
-  return (size_t)((L + T - 1) / T) * N * kThreads * sizeof(float);
+  return (size_t)((L + T - 1) / T) * N * kBwdChannels * sizeof(float);
 }
 
 template <int NMAX>
@@ -149,8 +156,8 @@ int launch(const float* x, const float* dt, const float* A, const float* B,
            const float* C, const float* g, const float* bound, float* dx,
            float* ddt, float* da_rows, float* dB, float* dC, float* partial,
            int batch, int L, int D, int N, int T, cudaStream_t stream) {
-  const dim3 grid(tiles_for(D), batch);
-  scan_bwd_kernel<NMAX><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid(bwd_tiles_for(D), batch);
+  scan_bwd_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
       x, dt, A, B, C, g, bound, dx, ddt, da_rows, partial, L, D, N, T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -179,8 +186,8 @@ int launch_nostate(const float* x, const float* dt, const float* A,
     if (err != cudaSuccess) return (int)err;
     opted_in[dev].store(true, std::memory_order_release);
   }
-  const dim3 grid(tiles_for(D), batch);
-  scan_bwd_nostate_kernel<NMAX><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bwd_tiles_for(D), batch);
+  scan_bwd_nostate_kernel<NMAX><<<grid, kBwdThreads, smem, stream>>>(
       x, dt, A, B, C, g, scratch, dx, ddt, da_rows, partial, L, D, N, T);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -190,7 +197,9 @@ int launch_nostate(const float* x, const float* dt, const float* A,
 }  // namespace
 
 // The tile count and the per-step width of `partial` for D and N.
-extern "C" int selective_scan_bwd_tiles(int D) { return dmc_scan::tiles_for(D); }
+extern "C" int selective_scan_bwd_tiles(int D) {
+  return dmc_scan::bwd_tiles_for(D);
+}
 extern "C" int selective_scan_bwd_width(int N) { return width_for(N); }
 
 // 1 when `selective_scan_bwd_nostate` needs its `scratch` in device memory

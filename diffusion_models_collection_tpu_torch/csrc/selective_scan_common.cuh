@@ -10,13 +10,18 @@
 // over x, dt, y, g = ybar (batch, L, D); A (D, N); B, C (batch, L, N); bound
 // (batch, n_blocks, N, D), the state entering each time block of T steps.
 //
-// Every kernel gives one thread one (batch row, channel) with its N states
-// (padded to NMAX = 16 or 32; the states past N have A = B = C = 0 and stay
-// 0) in registers, and one block 128 channels of one row, so x, dt, y and
-// the gradients move coalesced along D and the recurrences need no
-// cross-thread traffic. What differs between the kernels is the range of
-// time steps a block walks and where its first state or adjoint comes from.
-// expf, not __expf: the bars against the plain versions are 2e-5 and 1e-4.
+// The forward kernels, and the local and carry passes of the time-split
+// ones, give one thread one (batch row, channel) with its N states (padded
+// to NMAX = 16 or 32; the states past N have A = B = C = 0 and stay 0) in
+// registers, and one block 128 channels of one row, so x, dt and y move
+// coalesced along D and the recurrence needs no cross-thread traffic. The
+// reverse sweep, which three backward kernels share, splits a channel's
+// states over four lanes instead: see "backward" below for what bounds it
+// and why. What differs between the kernels of a kind is the range of time
+// steps a block walks and where its first state or adjoint comes from.
+// The forward kernels evaluate the decays with expf, not __expf: the bars
+// against the plain versions are 2e-5 and 1e-4. The sweep uses the
+// exponential unit directly (`fast_exp2`) and holds the same bars.
 
 #pragma once
 
@@ -116,139 +121,325 @@ __device__ __forceinline__ void scan_fwd_blocks(
   }
 }
 
-// Sum over the warp of each of the 32 values v[i]: lane l returns the sum
-// of v[l]. v is clobbered.
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[32], int lane) {
-#pragma unroll
-  for (int s = 16; s >= 1; s >>= 1) {
-    const bool upper = lane & s;
-#pragma unroll
-    for (int i = 0; i < s; ++i) {
-      const float send = upper ? v[i] : v[i + s];
-      const float keep = upper ? v[i + s] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
-    }
-  }
-  return v[0];
-}
+// ---------------------------------------------------------------- backward
+// The reverse sweep (`scan_bwd_range`) and the kernels around it give one
+// channel to four neighbouring lanes, each with NMAX / 4 of its states, and
+// one block of 256 threads 64 channels of one row.
+//
+// What bounds the sweep on an H100: instruction rate and the exponential
+// unit, at whatever occupancy the registers leave; the bytes are a tenth of
+// it. A thread that owns all N states of a channel can keep only a few
+// steps of them in registers, so it has to rebuild the states of every short
+// sub-block from the start of its time block (about 5.5 exponentials per
+// state and step at 253 registers, 8 warps an SM). With a quarter of the
+// states a lane keeps the history of a 16-step stretch (17 x 4 floats) in
+// registers: a time block of 32 steps is two stretches, and only the first
+// 16 steps are walked twice, 2.5 exponentials per state and step at under
+// 128 registers (16 warps an SM). The rest of the design serves that:
+// * x, dt, g of the time block's 64 channels and its B, C rows are staged
+//   in shared memory once per time block, by coalesced loads; the lanes read
+//   them from there (four lanes one address, a broadcast). dx and ddt go
+//   back into the staged x and dt (a step's inputs are read before its
+//   outputs are written, and earlier steps are still untouched) and leave
+//   coalesced when the time block is done.
+// * dx and ddt sum over n: two shuffles across the four lanes.
+// * dB_t and dC_t sum over D: a lane's 2 NMAX / 4 values are summed over the
+//   warp's eight channels by a transposing butterfly (7 shuffles at NMAX
+//   16), over the block's warps in shared memory once per stretch (two
+//   barriers for 16 steps, where the sub-blocks paid two for 4), and each
+//   block writes its 64 channels' sums; `scan_bwd_sum_kernel` sums the
+//   tiles. No atomics: the result is deterministic.
+// Read by chip_smoke.py on an H100 80GB HBM3 at 700 W, batch 128, L 256, D
+// 768, N 16: 0.97 ms a call from saved states, 1.35 ms with the rebuild
+// first, against a bound of 0.17 ms (bytes); 128 registers, no spills from
+// saved states, 40 bytes of them with the rebuild in the same kernel.
 
-// Steps of a sub-block of the reverse sweep, and the dB then dC values of
-// one step.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdLanes = 4;                             // lanes of a channel
+constexpr int kBwdChannels = kBwdThreads / kBwdLanes;    // channels of a block
+
+inline int bwd_tiles_for(int D) { return (D + kBwdChannels - 1) / kBwdChannels; }
+
 template <int NMAX>
 struct BwdShape {
-  static constexpr int SUB = 64 / NMAX;  // states held: (SUB + 1) * NMAX
-  static constexpr int W = 2 * NMAX;
+  static constexpr int SPL = NMAX / kBwdLanes;  // states of a lane
+  static constexpr int S = 64 / SPL;            // steps of a stretch
+  static constexpr int W = 2 * NMAX;            // dB then dC values of a step
+  static constexpr int R = 2 * SPL / 8;         // sums a lane is left with
 };
 
+// Shared memory of the sweep: the staged time block and the warps' dB/dC
+// sums of one stretch.
+template <int NMAX>
+struct __align__(16) BwdShared {
+  float x[kMaxT][kBwdChannels];   // x, then dx
+  float dt[kMaxT][kBwdChannels];  // dt, then ddt
+  float g[kMaxT][kBwdChannels];
+  float B[kMaxT][NMAX];
+  float C[kMaxT][NMAX];
+  float red[kBwdWarps][BwdShape<NMAX>::S][BwdShape<NMAX>::W];
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the exponential unit alone (ex2.approx: relative error about
+// 2e-7, results below 2^-126 flush to 0). The sweep evaluates 2.5 decays per
+// state and step; expf spends about eight more instructions on each to scale
+// the argument and to keep denormals. The decays are a = 2^(dt * A log2(e)).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The A row of the lane's states, times log2(e): n = q * SPL + i, zero past
+// N.
+template <int SPL>
+__device__ __forceinline__ void load_a_lane(float (&a2)[SPL],
+                                            const float* __restrict__ A, int d,
+                                            int q, int N, bool active) {
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    const int n = q * SPL + i;
+    a2[i] = (active && n < N) ? A[(size_t)d * N + n] * kLog2e : 0.f;
+  }
+}
+
+// The lane's states out of a column of states stride_n apart: p[n *
+// stride_n] for n = q * SPL + i, zero past N.
+template <int SPL>
+__device__ __forceinline__ void load_lane_states(float (&h)[SPL], const float* p,
+                                                 size_t stride_n, int q, int N,
+                                                 bool active) {
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    const int n = q * SPL + i;
+    h[i] = (active && n < N) ? p[(size_t)n * stride_n] : 0.f;
+  }
+}
+
+template <int SPL>
+__device__ __forceinline__ void store_lane_states(float* p, size_t stride_n,
+                                                  const float (&h)[SPL], int q,
+                                                  int N) {
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    const int n = q * SPL + i;
+    if (n < N) p[(size_t)n * stride_n] = h[i];
+  }
+}
+
+// The lane's SPL entries of a staged B or C row (NMAX floats, 16-byte
+// aligned), by 16-byte loads.
+template <int SPL>
+__device__ __forceinline__ void load_lane_row(float (&out)[SPL], const float* r,
+                                              int q) {
+#pragma unroll
+  for (int j = 0; j < SPL / 4; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(r + q * SPL + 4 * j);
+    out[4 * j] = v.x;
+    out[4 * j + 1] = v.y;
+    out[4 * j + 2] = v.z;
+    out[4 * j + 3] = v.w;
+  }
+}
+
+// Stage the steps [t0, t0 + len) of the block's 64 channels from d0 on: x
+// and dt, the B rows and (g != null) g and the C rows. Every thread of the
+// block calls it, between two barriers.
+template <int NMAX>
+__device__ __forceinline__ void stage_time_block(
+    BwdShared<NMAX>& sm, const float* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ g,
+    const float* __restrict__ Bm, const float* __restrict__ Cm, size_t row,
+    int t0, int len, int d0, int D, int N) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < len * kBwdChannels; i += kBwdThreads) {
+    const int s = i / kBwdChannels;
+    const int c = i - s * kBwdChannels;
+    const bool ok = d0 + c < D;
+    const size_t off = (row + t0 + s) * D + d0 + c;
+    sm.x[s][c] = ok ? x[off] : 0.f;
+    sm.dt[s][c] = ok ? dt[off] : 0.f;
+    if (g != nullptr) sm.g[s][c] = ok ? g[off] : 0.f;
+  }
+  for (int i = tid; i < len * NMAX; i += kBwdThreads) {
+    const int s = i / NMAX;
+    const int n = i - s * NMAX;
+    const size_t off = (row + t0 + s) * N + n;
+    sm.B[s][n] = n < N ? Bm[off] : 0.f;
+    if (g != nullptr) sm.C[s][n] = n < N ? Cm[off] : 0.f;
+  }
+}
+
+// The lane's states over the staged steps [s_begin, s_end), with no output.
+template <int NMAX>
+__device__ __forceinline__ void advance_staged(
+    const BwdShared<NMAX>& sm, const float (&a2)[BwdShape<NMAX>::SPL],
+    float (&h)[BwdShape<NMAX>::SPL], int q, int ch, int s_begin, int s_end) {
+  constexpr int SPL = BwdShape<NMAX>::SPL;
+  for (int s = s_begin; s < s_end; ++s) {
+    const float dtv = sm.dt[s][ch];
+    const float u = dtv * sm.x[s][ch];
+    float bn[SPL];
+    load_lane_row<SPL>(bn, sm.B[s], q);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i)
+      h[i] = fast_exp2(dtv * a2[i]) * h[i] + u * bn[i];
+  }
+}
+
+// Sum over the warp's eight channels (lane bits 2, 3, 4) of each of the V
+// values v[i] of the lanes with the same low two bits: the lane is left
+// with the sums of the values (lane & 16 ? V/2 : 0) + (lane & 8 ? V/4 : 0) +
+// (lane & 4 ? V/8 : 0) + r in v[r], r < V / 8. v is clobbered.
+template <int V>
+__device__ __forceinline__ void channel_transpose_sum(float (&v)[V], int lane) {
+#pragma unroll
+  for (int st = 0; st < 3; ++st) {
+    const int half = V >> (st + 1);
+    const int bit = 16 >> st;
+    const bool upper = lane & bit;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+  }
+}
+
 // The reverse sweep over the steps [t_begin, t_end), t_begin a multiple of
-// T, from the adjoint carry phi (a_{t+1} gamma_{t+1} of step t_end - 1) and
-// the state entering each time block, which the thread reads at
-// bound_col[k * stride_k + n * stride_n] (device or shared memory). Writes
-// dx, ddt and the block's dB/dC sums over its 128 channels into `partial`
-// (batch, n_tiles, L, W); adds to da; leaves phi as the carry into step
-// t_begin - 1.
-// * A thread cannot hold a time block's states (T x N = 512 floats). It
-//   walks sub-blocks of SUB steps (4 at N <= 16) in reverse, recomputes each
-//   one's states from the saved state of its time block into registers
-//   (SUB + 1 states), then walks them backwards. The recompute runs forward,
-//   never h_{t-1} = (h_t - b_t) / a_t, which is unstable where a_t
-//   underflows.
-// * dB_t and dC_t sum over D: the 2N values of each step are summed over a
-//   warp with a transposing butterfly (31 shuffles, lane l ends with value
-//   l), over the block's warps in shared memory `red`, and each block writes
-//   its 128 channels' sums; `scan_bwd_sum_kernel` sums the tiles. No
-//   atomics: the result is deterministic.
-// Every thread of the block must call it (it synchronises).
+// T, for the block's 64 channels from d0 on. The thread is lane q =
+// threadIdx.x & 3 of channel d = d0 + (threadIdx.x >> 2) and holds, for its
+// states n = q * SPL + i: the A row times log2(e) (`load_a_lane`), the
+// adjoint carry phi (a_{t+1}
+// gamma_{t+1} of step t_end - 1 on entry, the carry into step t_begin - 1 on
+// return) and the dA sums da, which it adds to. The state entering time
+// block k is read at bound_col[k * stride_k + n * stride_n] (device or
+// shared memory). Writes dx, ddt and the block's dB/dC sums over its
+// channels into `partial` (batch, n_tiles, L, W).
+// The states inside a stretch are recomputed forward from the saved state
+// of the time block, never as h_{t-1} = (h_t - b_t) / a_t, which is unstable
+// where a_t underflows.
+// Every thread of the block must call it (it synchronises), active or not.
 template <int NMAX>
 __device__ __forceinline__ void scan_bwd_range(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ Bm, const float* __restrict__ Cm,
     const float* __restrict__ g, const float* bound_col, size_t stride_k,
     size_t stride_n, float* __restrict__ dx, float* __restrict__ ddt,
-    float* __restrict__ partial, const float (&a_coef)[NMAX],
-    float (&phi)[NMAX], float (&da)[NMAX],
-    float (*red)[BwdShape<NMAX>::SUB][BwdShape<NMAX>::W], int b, int tile,
-    int n_tiles, int d, bool active, int L, int D, int N, int T, int t_begin,
-    int t_end) {
-  constexpr int SUB = BwdShape<NMAX>::SUB;
+    float* __restrict__ partial,
+    const float (&a2)[BwdShape<NMAX>::SPL],
+    float (&phi)[BwdShape<NMAX>::SPL], float (&da)[BwdShape<NMAX>::SPL],
+    BwdShared<NMAX>& sm, int b, int tile, int n_tiles, int d0, bool active,
+    int L, int D, int N, int T, int t_begin, int t_end) {
+  constexpr int SPL = BwdShape<NMAX>::SPL;
+  constexpr int S = BwdShape<NMAX>::S;
   constexpr int W = BwdShape<NMAX>::W;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  constexpr int R = BwdShape<NMAX>::R;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q = tid & (kBwdLanes - 1);
+  const int ch = tid >> 2;
   const size_t row = (size_t)b * L;
+  // where the lane's R sums of a step go in a row of `red` and `partial`:
+  // value j of the lane's 2 SPL is dB of state q SPL + j, or dC of state
+  // q SPL + j - SPL
+  const int j0 = ((lane & 16) ? SPL : 0) + ((lane & 8) ? SPL / 2 : 0) +
+                 ((lane & 4) ? SPL / 4 : 0);
+  const int col0 = j0 < SPL ? q * SPL + j0 : NMAX + q * SPL + j0 - SPL;
 
-  for (int j = (t_end + SUB - 1) / SUB - 1; j >= t_begin / SUB; --j) {
-    const int t0 = j * SUB;
-    const int len = min(SUB, t_end - t0);
-    const int k = t0 / T;
-    // hist[s] is the state before step t0 + s, hist[s + 1] the one after
-    float hist[SUB + 1][NMAX];
-    const float* bk = bound_col + (size_t)k * stride_k;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      hist[0][n] = (active && n < N) ? bk[(size_t)n * stride_n] : 0.f;
-    // from the time block's start to t0
-    scan_advance<NMAX>(x, dt, Bm, a_coef, hist[0], row, d, active, D, N, k * T,
-                       t0);
-#pragma unroll
-    for (int s = 0; s < SUB; ++s) {
-      if (s < len) {
-        const size_t off = (row + t0 + s) * D + d;
-        const float dtv = active ? dt[off] : 0.f;
-        const float u = active ? dtv * x[off] : 0.f;
-        const float* Bt = Bm + (row + t0 + s) * N;
-#pragma unroll
-        for (int n = 0; n < NMAX; ++n) {
-          const float bn = n < N ? Bt[n] : 0.f;
-          hist[s + 1][n] = expf(dtv * a_coef[n]) * hist[s][n] + u * bn;
-        }
-      }
-    }
-
-#pragma unroll
-    for (int s = SUB - 1; s >= 0; --s) {
-      if (s < len) {  // the same for every thread of the block
-        const size_t off = (row + t0 + s) * D + d;
-        const float dtv = active ? dt[off] : 0.f;
-        const float xv = active ? x[off] : 0.f;
-        const float gv = active ? g[off] : 0.f;
-        const float u = dtv * xv;
-        const float* Bt = Bm + (row + t0 + s) * N;
-        const float* Ct = Cm + (row + t0 + s) * N;
-        float v[W / 32][32];
-        float g_b = 0.f, ddt_acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < NMAX; ++n) {
-          const float bn = n < N ? Bt[n] : 0.f;
-          const float cn = n < N ? Ct[n] : 0.f;
-          const float a = expf(dtv * a_coef[n]);
-          const float gam = cn * gv + phi[n];
-          const float dadec = gam * hist[s][n] * a;
-          ddt_acc = fmaf(dadec, a_coef[n], ddt_acc);
-          g_b = fmaf(gam, bn, g_b);
-          da[n] = fmaf(dadec, dtv, da[n]);
-          v[n >> 5][n & 31] = gam * u;
-          v[(NMAX + n) >> 5][(NMAX + n) & 31] = hist[s + 1][n] * gv;
-          phi[n] = a * gam;
-        }
-        if (active) {
-          dx[off] = g_b * dtv;
-          ddt[off] = fmaf(g_b, xv, ddt_acc);
-        }
-#pragma unroll
-        for (int r = 0; r < W / 32; ++r)
-          red[warp][s][r * 32 + lane] = warp_transpose_sum(v[r], lane);
-      }
-    }
+  for (int k = (t_end - 1) / T; k >= t_begin / T; --k) {
+    const int tb0 = k * T;
+    const int tlen = min(T, t_end - tb0);
+    __syncthreads();  // the previous time block's dx, ddt have left
+    stage_time_block<NMAX>(sm, x, dt, g, Bm, Cm, row, tb0, tlen, d0, D, N);
     __syncthreads();
-    for (int i = threadIdx.x; i < len * W; i += kThreads) {
-      const int s = i / W;
-      const int c = i - s * W;
-      float sum = 0.f;
+
+    for (int s0 = ((tlen - 1) / S) * S; s0 >= 0; s0 -= S) {
+      const int slen = min(S, tlen - s0);
+      // hist[s] is the state before step s0 + s, hist[s + 1] the one after
+      float hist[S + 1][SPL];
+      load_lane_states<SPL>(hist[0], bound_col + (size_t)k * stride_k, stride_n,
+                            q, N, active);
+      // from the time block's start to s0
+      advance_staged<NMAX>(sm, a2, hist[0], q, ch, 0, s0);
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red[w][s][c];
-      partial[(((size_t)b * n_tiles + tile) * L + t0 + s) * W + c] = sum;
+      for (int s = 0; s < S; ++s) {
+        if (s < slen) {  // the same for every thread of the block
+          const float dtv = sm.dt[s0 + s][ch];
+          const float u = dtv * sm.x[s0 + s][ch];
+          float bn[SPL];
+          load_lane_row<SPL>(bn, sm.B[s0 + s], q);
+#pragma unroll
+          for (int i = 0; i < SPL; ++i)
+            hist[s + 1][i] = fast_exp2(dtv * a2[i]) * hist[s][i] + u * bn[i];
+        }
+      }
+
+#pragma unroll
+      for (int s = S - 1; s >= 0; --s) {
+        if (s < slen) {
+          const float dtv = sm.dt[s0 + s][ch];
+          const float xv = sm.x[s0 + s][ch];
+          const float gv = sm.g[s0 + s][ch];
+          const float u = dtv * xv;
+          float v[2 * SPL], bn[SPL], cn[SPL];
+          load_lane_row<SPL>(bn, sm.B[s0 + s], q);
+          load_lane_row<SPL>(cn, sm.C[s0 + s], q);
+          float g_b = 0.f, ddt_acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < SPL; ++i) {
+            const float a = fast_exp2(dtv * a2[i]);
+            const float gam = cn[i] * gv + phi[i];
+            const float dadec = gam * hist[s][i] * a;
+            ddt_acc = fmaf(dadec, a2[i], ddt_acc);
+            g_b = fmaf(gam, bn[i], g_b);
+            da[i] = fmaf(dadec, dtv, da[i]);
+            v[i] = gam * u;
+            v[SPL + i] = hist[s + 1][i] * gv;
+            phi[i] = a * gam;
+          }
+          // over the channel's four lanes
+          g_b += __shfl_xor_sync(0xffffffffu, g_b, 1);
+          ddt_acc += __shfl_xor_sync(0xffffffffu, ddt_acc, 1);
+          g_b += __shfl_xor_sync(0xffffffffu, g_b, 2);
+          ddt_acc += __shfl_xor_sync(0xffffffffu, ddt_acc, 2);
+          __syncwarp();  // the four lanes have read x, dt of this step
+          if (q == 0) {
+            sm.x[s0 + s][ch] = g_b * dtv;
+            sm.dt[s0 + s][ch] = fmaf(g_b, xv, ddt_acc * kLn2);
+          }
+          channel_transpose_sum<2 * SPL>(v, lane);
+#pragma unroll
+          for (int r = 0; r < R; ++r) sm.red[warp][s][col0 + r] = v[r];
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < slen * W; i += kBwdThreads) {
+        const int s = i / W;
+        const int c = i - s * W;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kBwdWarps; ++w) sum += sm.red[w][s][c];
+        partial[(((size_t)b * n_tiles + tile) * L + tb0 + s0 + s) * W + c] = sum;
+      }
+      __syncthreads();  // red is rewritten by the next stretch
     }
-    __syncthreads();  // red is rewritten by the next sub-block
+
+    for (int i = tid; i < tlen * kBwdChannels; i += kBwdThreads) {
+      const int s = i / kBwdChannels;
+      const int c = i - s * kBwdChannels;
+      if (d0 + c < D) {
+        const size_t off = (row + tb0 + s) * D + d0 + c;
+        dx[off] = sm.x[s][c];
+        ddt[off] = sm.dt[s][c];
+      }
+    }
   }
 }
 
@@ -278,7 +469,7 @@ inline int launch_bwd_sum(const float* partial, float* dB, float* dC, int batch,
                           int L, int D, int N, int W, cudaStream_t stream) {
   const size_t total = (size_t)batch * L * N;
   scan_bwd_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, dB, dC, batch, L, N, tiles_for(D), W);
+      partial, dB, dC, batch, L, N, bwd_tiles_for(D), W);
   return (int)cudaGetLastError();
 }
 

@@ -26,8 +26,8 @@
 //
 // What bounds it on an H100: the exponentials, as in K6 and K8, here
 // evaluated once more in pass (a) (the forward twice in all; the backward's
-// pass (a) adds one to the sweep's 5.5 per step), for batch * D / 128 *
-// n_chunks blocks in flight where K6 and K8 have batch * D / 128.
+// pass (a) adds one to the sweep's 2.5 per state and step), for n_chunks
+// times the blocks in flight that K6 and K8 have.
 
 #include "selective_scan_common.cuh"
 
@@ -171,9 +171,10 @@ split_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 }
 
 // (c) of the backward: K8's sweep over the chunk from the adjoint entering
-// it; dA per (row, chunk) into da_rows (batch, chunks, D, N).
+// it, in the sweep's layout (256 threads, 64 channels, four lanes a
+// channel); dA per (row, chunk) into da_rows (batch, chunks, D, N).
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 split_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, const float* __restrict__ g,
@@ -182,34 +183,33 @@ split_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  float* __restrict__ ddt, float* __restrict__ da_rows,
                  float* __restrict__ partial, int L, int D, int N, int T,
                  int CB) {
-  __shared__ float red[kWarps][BwdShape<NMAX>::SUB][BwdShape<NMAX>::W];
+  constexpr int SPL = BwdShape<NMAX>::SPL;
+  __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
   const int c = blockIdx.z;
   const int tile = blockIdx.x;
-  const int d = tile * kThreads + threadIdx.x;
+  const int d0 = tile * kBwdChannels;
+  const int d = d0 + (threadIdx.x >> 2);
+  const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
   const int t_begin = c * CB * T;
   const int t_end = min(L, t_begin + CB * T);
 
-  float a_coef[NMAX], phi[NMAX], da[NMAX];
-  load_a<NMAX>(a_coef, A, d, N, active);
-  const float* pk = phi_buf + ((size_t)b * gridDim.z + c) * N * D + d;
+  float a_coef[SPL], phi[SPL], da[SPL];
+  load_a_lane<SPL>(a_coef, A, d, q, N, active);
+  load_lane_states<SPL>(phi,
+                        phi_buf + ((size_t)b * gridDim.z + c) * N * D + d,
+                        (size_t)D, q, N, active);
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    phi[n] = (active && n < N) ? pk[(size_t)n * D] : 0.f;
-    da[n] = 0.f;
-  }
+  for (int i = 0; i < SPL; ++i) da[i] = 0.f;
   scan_bwd_range<NMAX>(x, dt, Bm, Cm, g,
                        bound + (size_t)b * n_blocks * N * D + d, (size_t)N * D,
-                       (size_t)D, dx, ddt, partial, a_coef, phi, da, red, b,
-                       tile, gridDim.x, d, active, L, D, N, T, t_begin, t_end);
-  if (active) {
-    float* out = da_rows + (((size_t)b * gridDim.z + c) * D + d) * N;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) out[n] = da[n];
-  }
+                       (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
+                       tile, gridDim.x, d0, active, L, D, N, T, t_begin, t_end);
+  if (active)
+    store_lane_states<SPL>(
+        da_rows + (((size_t)b * gridDim.z + c) * D + d) * N, 1, da, q, N);
 }
 
 template <int NMAX>
@@ -251,7 +251,8 @@ int launch_bwd(const float* x, const float* dt, const float* A, const float* B,
       1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  split_bwd_kernel<NMAX><<<grid, kThreads, 0, stream>>>(
+  const dim3 sweep_grid(bwd_tiles_for(D), batch, n_chunks);
+  split_bwd_kernel<NMAX><<<sweep_grid, kBwdThreads, 0, stream>>>(
       x, dt, A, B, C, g, bound, phi_buf, dx, ddt, da_rows, partial, L, D, N, T,
       CB);
   err = cudaGetLastError();

@@ -115,7 +115,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
                                    ptr]
     lib.flash_attn_fwd.restype = i32
-    lib.flash_attn_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
+    lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32,
+                                                ptr])
     lib.flash_attn_bwd.restype = i32
     lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.selective_scan_fwd.restype = i32

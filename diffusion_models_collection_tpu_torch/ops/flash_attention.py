@@ -9,12 +9,20 @@ its plain version (`flash_attention_fwd_ref`, `flash_attention_bwd_ref`) on a
 CPU tensor. `FlashAttention` joins the two as the JAX package's `_flash_core`
 custom_vjp does; `flash_attention` is its entry point and
 `flash_attention_ref` the plain differentiable attention it is held against.
+
+The backward kernel has two forms (`csrc/flash_attn_bwd.cu`). The fused one
+computes the scores once: each (head, key tile) block also forms its share
+of dq, which a scratch buffer of (BH, key tiles, L, d) floats carries to a
+sum kernel when there is more than one key tile. `bwd_fused` takes it up to
+`FUSED_MAX_LEN`; beyond, the scratch would grow with L^2 and the two-kernel
+form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
+tile height both forms walk in.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +34,23 @@ MAX_HEAD_DIM = 128
 # the forward's and the backward's.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+# The longest sequence whose backward runs fused: four key tiles of 64, so
+# the dq shares cost as much traffic as one more pass over q, k, v and dO.
+# Every attention of the CIFAR-10 UNet (L 64, 256) lies below it.
+FUSED_MAX_LEN = 256
+
+
+def bwd_tile(seq_len: int, head_dim: int) -> int:
+    """Rows of a query or key tile of the backward kernel: 64, or 32 for a
+    sequence that fits 32 rows (at head_dim <= 64, where the kernel has
+    that form), so that a short sequence does not pay a mostly empty tile."""
+    return 32 if seq_len <= 32 and head_dim <= 64 else 64
+
+
+def bwd_fused(seq_len: int) -> bool:
+    """Whether the backward of this length runs the fused form."""
+    return seq_len <= FUSED_MAX_LEN
 
 
 def flash_attention_fwd_ref(
@@ -106,11 +131,12 @@ def flash_attention_fwd(
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    do: torch.Tensor, lse: torch.Tensor
+    do: torch.Tensor, lse: torch.Tensor, fused: Optional[bool] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward over (BH, L, d) float32 from the forward's o and
     lse (BH, L, 1): the kernel for CUDA tensors, the plain version for CPU
-    tensors. Returns (dq, dk, dv)."""
+    tensors. Returns (dq, dk, dv). `fused` picks the kernel's form; None
+    leaves it to `bwd_fused`."""
     global BWD_LAUNCHES
     _build.check_inputs("flash_attention_bwd", q, k, v, o, do, lse)
     _check_shapes("flash_attention_bwd", q, k, v, o, do)
@@ -120,19 +146,31 @@ def flash_attention_bwd(
                          f"1), got {tuple(lse.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention_bwd: q, k, v and dO must be "
+                         "16-byte aligned")
     lib = _build.library()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((bh, seq_len), dtype=torch.float32, device=q.device)
     if q.numel():
+        if fused is None:
+            fused = bwd_fused(seq_len)
+        tile = bwd_tile(seq_len, head_dim)
+        tiles = -(-seq_len // tile)
+        partial = None
+        if fused and tiles > 1:
+            partial = torch.empty((bh, tiles, seq_len, head_dim),
+                                  dtype=torch.float32, device=q.device)
         # autograd runs a backward on its own thread: take that thread's
         # current stream for the device here, at the launch
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attn_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), bh, seq_len, head_dim,
-                1.0 / math.sqrt(head_dim), stream)
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
+                head_dim, 1.0 / math.sqrt(head_dim), tile, int(fused), stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
     return dq, dk, dv

@@ -73,7 +73,9 @@ BWD_NOSTATE_LAUNCHES = 0
 FWD_SPLIT_LAUNCHES = 0
 BWD_SPLIT_LAUNCHES = 0
 
-TILE = 128  # channels of one row that a thread block covers
+# channels of one row that a forward thread block covers (the reverse sweep's
+# blocks cover 64, four lanes a channel)
+TILE = 128
 
 
 def t_block_for(length: int) -> int:

@@ -179,7 +179,8 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
         for name in sys.argv[1:]:
             importlib.import_module(name)
         for tool in ("tools/profile_torch_sampling.py",
-                     "tools/profile_torch_training.py"):
+                     "tools/profile_torch_training.py",
+                     "tools/profile_torch_kernels.py"):
             runpy.run_path(tool, run_name="not_main")
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded

@@ -148,6 +148,39 @@ def test_flash_attention_bwd_rejects_a_wrong_lse():
                                             torch.zeros(2, 8, 1))
 
 
+# (L, d) of every attention of a CIFAR-10 UNet train step, then the edges of
+# the two choices: L 32 | 33 (tile 32 | 64), d 64 | 72 (the 32-row form ends
+# at d 64), L 256 | 257 (fused | two kernels)
+@pytest.mark.parametrize("seq_len,head_dim,tile,fused", [
+    (256, 64, 64, True), (64, 64, 64, True), (16, 64, 32, True),
+    (1, 8, 32, True), (32, 64, 32, True), (33, 64, 64, True),
+    (32, 72, 64, True), (16, 128, 64, True), (100, 32, 64, True),
+    (257, 64, 64, False), (1024, 64, 64, False), (4096, 128, 64, False),
+])
+def test_attention_bwd_tile_and_form_over_the_main_path_and_its_edges(
+        seq_len, head_dim, tile, fused):
+    assert flash_attention.bwd_tile(seq_len, head_dim) == tile
+    assert flash_attention.bwd_fused(seq_len) is fused
+    # the fused form's dq shares: at most four, a scratch of at most 4 x dq
+    tiles = -(-seq_len // tile)
+    assert (tiles <= 4) or not fused
+    assert flash_attention.FUSED_MAX_LEN == 256
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_attention_bwd_form_is_ignored_by_the_plain_version_on_cpu(fused):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(3, 70, 16, generator=gen) for _ in range(4))
+    o, lse = flash_attention.flash_attention_fwd_ref(q, k, v)
+    before = flash_attention.BWD_LAUNCHES
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, lse,
+                                              fused=fused)
+    assert flash_attention.BWD_LAUNCHES == before
+    for g, w in zip(got, flash_attention.flash_attention_bwd_ref(
+            q, k, v, o, do, lse)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 # ------------------------------------------------------------- on the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 32, 32, 128), (4, 16, 16, 384),
@@ -224,6 +257,32 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, bh, seq_len,
     assert flash_attention.BWD_LAUNCHES == before + 1
     for got, want in zip(grads, flash_attention.flash_attention_bwd_ref(*args)):
         assert max_rel(got, want) <= TOL_BWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, True, False])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("seq_len", [1, 16, 64, 100, 256, 257, 1024])
+def test_flash_attention_bwd_forms_match_plain(cuda, seq_len, head_dim,
+                                               fused):
+    """Both forms of the backward kernel (fused, with the dq shares summed
+    by a second kernel when L spans several key tiles; two kernels) at both
+    tile heights, against the plain version, and equal bit for bit from one
+    launch to the next."""
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
+    args = attention_bwd_inputs(6, seq_len, head_dim, gen, cuda)
+    before = flash_attention.BWD_LAUNCHES
+    grads = flash_attention.flash_attention_bwd(*args, fused=fused)
+    again = flash_attention.flash_attention_bwd(*args, fused=fused)
+    torch.cuda.synchronize()
+    assert flash_attention.BWD_LAUNCHES == before + 2
+    refs = flash_attention.flash_attention_bwd_ref(*args)
+    for name, got, twice, want in zip(("dq", "dk", "dv"), grads, again, refs):
+        # with one key P = 1 and dS = 0: dq and dk are rounding noise around
+        # zero, held to dv's size
+        scale = (refs[2] if seq_len == 1 else want).abs().max()
+        assert (got - want).abs().max() <= TOL_BWD * scale, name
+        assert torch.equal(got, twice), name
 
 
 @pytest.mark.cuda
@@ -466,9 +525,9 @@ def launched_since(before):
             if count != before[name]}
 
 
-# L 256 at N 16 keeps the rebuilt states in shared memory, L 1024 and N 32
-# at L 256 in a device-memory scratch; L 100, 37 and 33 end in a ragged
-# time block; D 200, 130 and 64 are no multiple of a 128-channel tile
+# L 256 keeps the rebuilt states in shared memory (N 32: all of its budget),
+# L 1024 in a device-memory scratch; L 100, 37 and 33 end in a ragged time
+# block; D 200 and 130 are no multiple of the sweep's 64-channel tile
 NOSTATE_SHAPES = [(32, 256, 768, 16), (4, 1024, 768, 16), (8, 100, 768, 16),
                   (3, 1, 100, 16), (2, 37, 200, 4), (2, 64, 130, 20),
                   (2, 33, 64, 32), (2, 256, 256, 32)]
@@ -528,6 +587,37 @@ def test_scan_split_kernels_match_plain_and_the_unsplit_kernels(
                                    refs):
             assert got.shape == want.shape, name
             assert max_rel(got, want) <= TOL_BWD, name
+
+
+# The reverse sweep that K8, K7 and K10 share: a ragged last time block
+# (L 37, 100, 1000; T 16), whole blocks of 32 (L 256, 1024), N below, at and
+# above a lane's four states of sixteen, D a multiple of the sweep's
+# 64-channel tile and not
+SWEEP_SHAPES = [(length, d_inner, n_state)
+                for length in (37, 100, 256, 1000, 1024)
+                for d_inner, n_state in ((768, 16), (200, 8), (200, 32),
+                                         (768, 32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bwd", "bwd_nostate", "bwd_split"])
+@pytest.mark.parametrize("length,d_inner,n_state", SWEEP_SHAPES)
+def test_scan_sweep_matches_plain_through_every_kernel(cuda, kernel, length,
+                                                       d_inner, n_state):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner + n_state)
+    x, dt, A, B, C, g = scan_inputs(2, length, d_inner, n_state, gen, cuda)
+    _, bound = scan_mod.selective_scan_fwd_ref(x, dt, A, B, C, True)
+    args = (x, dt, A, B, C, g) + (() if kernel == "bwd_nostate" else (bound,))
+    fn = getattr(scan_mod, "selective_scan_" + kernel)
+    grads = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    refs = scan_mod.selective_scan_bwd_ref(x, dt, A, B, C, g, bound)
+    for name, got, twice, want in zip(("dx", "ddt", "dA", "dB", "dC"), grads,
+                                      again, refs):
+        assert got.shape == want.shape, name
+        assert max_rel(got, want) <= TOL_BWD, name
+        assert torch.equal(got, twice), name
 
 
 @pytest.mark.cuda
