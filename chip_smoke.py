@@ -15,7 +15,10 @@ of both models through the port's entry points. The UNet's:
   images with DDIM-50 and classifier-free guidance (scale 3) through
   `diffusion_models_collection_tpu_torch.sample` from a randomly
   initialised checkpoint;
-* training: the attention backward kernel at every shape of a batch-128
+* training: the GroupNorm+SiLU backward kernel at every shape of the UNet
+  at batch 160 and 128, at a ragged shape and at a group too large for
+  shared memory, against its plain version and against autograd through the
+  plain forward; the attention backward kernel at every shape of a batch-128
   train step and in each of its forms (fused with tiles of 32 and of 64
   rows, one key tile and several; two kernels beyond the fused form's
   length limit and, forced, at the train step's main shape), the
@@ -31,8 +34,8 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
 
 * the selective-scan kernels against their plain versions: the forward at
   batch 32 and 160 (the sampling batch), states off and on, and at L = 48
-  and 100 (a ragged last block); the backward at batch 32 and 128 (the
-  training batch); the backward with no saved states at the same batches,
+  and 100 (a ragged last block), also at N = 8 and 32 and D = 200; the
+  backward at batch 32 and 128 (the training batch); the backward with no saved states at the same batches,
   at L = 100 and at L = 1024; the time-split forward and backward at
   L = 1024 (batch 16 and 2) and L = 1000, also against the whole-sequence
   kernels; and the per-call times of the whole-sequence and the time-split
@@ -118,6 +121,8 @@ GN_SHAPES = [(32, 32, 128), (32, 32, 256), (32, 32, 384), (16, 16, 128),
              (16, 16, 256), (16, 16, 384), (16, 16, 512), (8, 8, 256),
              (8, 8, 512), (4, 4, 256), (4, 4, 512)]
 GN_RAGGED = (3, 5, 7, 24)  # B, H, W, C: C % 8 == 0, H*W odd
+# a group of 64 x 64 x 16 floats, 256 KB: more than a block's shared memory
+GN_LARGE = (4, 64, 64, 128)
 ATTN_LENGTHS = (256, 64, 16, 100)
 ATTN_BH, HEAD_DIM = 128, 64
 CHECK_BATCH = 32
@@ -125,7 +130,8 @@ SAMPLES, STEPS, CFG_SCALE = 80, 50, 3.0
 GN_PER_FORWARD, ATTN_PER_FORWARD = 45, 11
 # Kernel launches of one UNet forward and of one train step
 UNET_FORWARD = {"gn": GN_PER_FORWARD, "attn": ATTN_PER_FORWARD}
-UNET_STEP = dict(UNET_FORWARD, attn_bwd=ATTN_PER_FORWARD)
+UNET_STEP = dict(UNET_FORWARD, gn_bwd=GN_PER_FORWARD,
+                 attn_bwd=ATTN_PER_FORWARD)
 # Max-rel is max|kernel - plain| / max|plain|. The kernel and the plain
 # version sum in other orders; float32 rounding puts both near 1e-7
 # relative, so 2e-5 leaves room and still catches a wrong index.
@@ -169,6 +175,12 @@ SCAN_D, SCAN_N = 768, 16  # d_inner = 2 * hidden, state size
 # the 64x64 DiM's sampling forward (8 images under CFG at L = 1024)
 SCAN_FWD_CASES = [(CHECK_BATCH, 256), (2 * SAMPLES, 256), (128, 256),
                   (CHECK_BATCH, 48), (CHECK_BATCH, 100), (DIM64_BATCH, 1024)]
+# (batch, L, D, N) for the forms of the forward walk that the main paths do
+# not take: eight states a lane (N > 16), N below a lane's four, time blocks
+# of 16 steps with a ragged last one, D no multiple of 64 or of 4; each runs
+# with states off and on
+SCAN_FWD_FORMS = [(8, 256, 768, 32), (4, 1024, 768, 32), (8, 100, 200, 8),
+                  (4, 1000, 200, 16), (4, 48, 768, 16), (3, 1024, 201, 5)]
 SCAN_BWD_CASES = [(CHECK_BATCH, 256), (TRAIN_BATCH, 256)]
 # K7: the same, a ragged L, and L = 1024, where the rebuilt block states do
 # not fit shared memory and go to a scratch buffer in device memory
@@ -203,6 +215,11 @@ SCAN_COUNTERS = {"scan_fwd": "FWD_LAUNCHES",
 # tensor cores. A kernel's bound is the larger of its bytes over the one and
 # its operations over the other.
 PEAK_BYTES_PER_S, PEAK_FP32_OPS_PER_S = 3.35e12, 67e12
+# The special-function units evaluate 16 exponentials a clock and SM where
+# the FMA pipes do 128 multiply-adds (256 operations): a sixteenth of the
+# float32 peak. Not part of `bound_ms`, which counts an exponential as one
+# operation; printed beside it for the scans.
+PEAK_EXP_PER_S = PEAK_FP32_OPS_PER_S / 16
 
 
 def max_rel(a, b):
@@ -256,6 +273,14 @@ def gn_work(b, h, w, c):
     return 4 * (2 * n + 2 * c), 11 * n
 
 
+def gn_bwd_work(b, h, w, c):
+    """GroupNorm+SiLU backward: x and g in, dx out, scale, bias and the
+    per-image dscale, dbias rows; per element the pre-activation (4), the
+    SiLU's derivative (8), the four sums (7) and dx (5)."""
+    n = b * h * w * c
+    return 4 * (3 * n + 2 * c + 2 * b * c), 24 * n
+
+
 def attn_work(bh, seq, d, backward=False):
     """Attention forward: q, k, v in, o and lse out; QK^T and PV (2 L^2 d
     multiply-adds) and the softmax (5 an entry). Backward: q, k, v, o, dO,
@@ -289,6 +314,7 @@ def scan_work(kind, batch, length, d_inner=768, n_state=16):
 
 def reset_launches():
     fused_norm.LAUNCHES = 0
+    fused_norm.BWD_LAUNCHES = 0
     flash_attention.LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = 0
     for counter in SCAN_COUNTERS.values():
@@ -296,7 +322,8 @@ def reset_launches():
 
 
 def read_launches():
-    return {"gn": fused_norm.LAUNCHES, "attn": flash_attention.LAUNCHES,
+    return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
+            "attn": flash_attention.LAUNCHES,
             "attn_bwd": flash_attention.BWD_LAUNCHES,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
@@ -334,27 +361,84 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
 
 
+def gn_case(b, h, w, c, gen):
+    """x (mean 0.5, sigma 2), scale, bias and an output gradient."""
+    x = torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, scale, bias, torch.randn(b, h, w, c, generator=gen,
+                                       device="cuda")
+
+
+def check_gn(label, b, h, w, c, gen, timed=True):
+    """K1 and K1b at one shape: the forward and its statistics against the
+    plain versions, the backward against its plain version and against
+    autograd through the plain forward (the recompute it replaced). Returns
+    the worst absolute errors (forward, backward) and the ms of the kernels,
+    their plain versions and the recompute."""
+    x, scale, bias, g = gn_case(b, h, w, c, gen)
+    y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    ref = fused_norm.group_norm_silu_ref(x, scale, bias, 8)
+    stats_ref = fused_norm.group_norm_silu_stats_ref(x, 8)
+    grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    plain = fused_norm.group_norm_silu_bwd_ref(x, scale, bias, g, stats_ref, 8)
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    out = fused_norm.group_norm_silu_ref(*leaves, 8)
+
+    def recompute():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+    auto = recompute()
+    torch.cuda.synchronize()
+    rels = [max_rel(y, ref), max_rel(stats, stats_ref)]
+    rels_bwd = [max_rel(o, r) for refs in (plain, auto)
+                for o, r in zip(grads, refs)]
+    errs = (max((y - ref).abs().max().item(),
+                (stats - stats_ref).abs().max().item()),
+            max((o - r).abs().max().item() for o, r in zip(grads, plain)))
+    times = {}
+    if timed:
+        times = {
+            "fwd": median_ms(
+                lambda: fused_norm.group_norm_silu_fwd(x, scale, bias, 8)),
+            "fwd_plain": median_ms(
+                lambda: fused_norm.group_norm_silu_ref(x, scale, bias, 8)),
+            "bwd": median_ms(lambda: fused_norm.group_norm_silu_bwd(
+                x, scale, bias, g, stats, 8)),
+            "bwd_plain": median_ms(lambda: fused_norm.group_norm_silu_bwd_ref(
+                x, scale, bias, g, stats_ref, 8), reps=10),
+            "recompute": median_ms(recompute, reps=10)}
+    print(f"{label} B={b} {h}x{w}x{c} "
+          f"[{fused_norm.kernel_form(x.shape, 8)}; backward: "
+          f"{fused_norm.kernel_form(x.shape, 8, True)}]: y/stats max_rel "
+          f"{rels[0]:.3e} {rels[1]:.3e}; dx/dscale/dbias vs plain "
+          f"{' '.join(f'{r:.3e}' for r in rels_bwd[:3])}, vs autograd of the "
+          f"plain forward {' '.join(f'{r:.3e}' for r in rels_bwd[3:])}"
+          + (f"; kernel {times['fwd']:.4f} ms plain {times['fwd_plain']:.4f} "
+             f"ms; backward kernel {times['bwd']:.4f} ms plain "
+             f"{times['bwd_plain']:.4f} ms recompute {times['recompute']:.4f} "
+             "ms" if timed else ""))
+    if not max(rels + rels_bwd) <= TOL_OUT:
+        raise AssertionError(f"{label} {b}x{h}x{w}x{c}: max_rel {rels} "
+                             f"{rels_bwd} > {TOL_OUT}")
+    return errs, times
+
+
 def phase_gn(gen):
-    worst_abs = 0.0
-    cases = [(CHECK_BATCH, *s) for s in GN_SHAPES] + [GN_RAGGED]
-    for b, h, w, c in cases:
-        x = torch.randn(b, h, w, c, generator=gen, device="cuda") * 2 + 0.5
-        scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
-        y = fused_norm.group_norm_silu_fwd(x, scale, bias, 8)
-        ref = fused_norm.group_norm_silu_ref(x, scale, bias, 8)
-        torch.cuda.synchronize()
-        rel = max_rel(y, ref)
-        worst_abs = max(worst_abs, (y - ref).abs().max().item())
-        ms = median_ms(lambda: fused_norm.group_norm_silu_fwd(x, scale, bias, 8))
-        plain = median_ms(
-            lambda: fused_norm.group_norm_silu_ref(x, scale, bias, 8))
-        print(f"gn_silu_fwd B={b} {h}x{w}x{c}: max_rel {rel:.3e} "
-              f"kernel {ms:.4f} ms plain {plain:.4f} ms")
-        if not rel <= TOL_OUT:
-            raise AssertionError(f"gn_silu_fwd {b}x{h}x{w}x{c}: max_rel "
-                                 f"{rel} > {TOL_OUT}")
-    return worst_abs
+    """K1 and K1b at every GroupNorm+SiLU shape of the UNet at the check
+    batch, then untimed at the sampling and training batches, at a ragged
+    shape and at a group too large for shared memory (the generic kernels).
+    Returns the worst absolute errors (forward, backward)."""
+    worst = [0.0, 0.0]
+    cases = [("gn_silu", (CHECK_BATCH, *s), True) for s in GN_SHAPES]
+    cases += [("gn_silu", (batch, *s), False)
+              for batch in (2 * SAMPLES, TRAIN_BATCH) for s in GN_SHAPES]
+    cases += [("gn_silu ragged", GN_RAGGED, True),
+              ("gn_silu large group", GN_LARGE, True)]
+    for label, shape, timed in cases:
+        errs, _ = check_gn(label, *shape, gen, timed=timed)
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+    return worst
 
 
 def phase_attn(gen):
@@ -506,6 +590,31 @@ def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
             raise AssertionError(f"flash_attn_fwd BH={bh} L={seq}: o {rel}, "
                                  f"lse {lse_err}")
     return totals, worst_abs, bounds
+
+
+def phase_gn_train_step(gn_shapes, gen):
+    """K1 and K1b at every GroupNorm+SiLU shape of one UNet train step (batch
+    128), each times the calls a step makes of it: the worst absolute error
+    of the backward, the summed ms (forward kernel; backward kernel, its
+    plain version, and the recompute through the plain forward that the
+    backward was before), and the backward's bound."""
+    totals = {"fwd": 0.0, "bwd": 0.0, "bwd_plain": 0.0, "recompute": 0.0}
+    worst, bound = 0.0, Bound()
+    for (c, h, w), n in sorted(
+            {s: gn_shapes.count(s) for s in gn_shapes}.items()):
+        errs, times = check_gn(f"  train step x{n}: gn_silu", TRAIN_BATCH, h, w,
+                               c, gen)
+        worst = max(worst, errs[1])
+        for key in totals:
+            totals[key] += n * times[key]
+        bound.add(*gn_bwd_work(TRAIN_BATCH, h, w, c), n)
+    print(f"GroupNorm+SiLU per UNet train step at batch {TRAIN_BATCH} "
+          f"({len(gn_shapes)} calls): forward kernel {totals['fwd']:.3f} ms; "
+          f"backward kernel {totals['bwd']:.3f} ms, its plain version "
+          f"{totals['bwd_plain']:.3f} ms, the recompute through the plain "
+          f"forward {totals['recompute']:.3f} ms; the backward's bound "
+          f"{bound.ms:.3f} ms ({bound.keys()['bound_by']})")
+    return worst, totals, bound
 
 
 def phase_sample_main(label, config, model, per_forward, tmp):
@@ -853,6 +962,29 @@ def check_outputs(label, outs, refs, tol):
     return worst
 
 
+def check_scan_fwd(batch, length, d_inner, n_state, gen, worst, times=None):
+    """The scan forward with states off and on against the plain forward.
+    With `times`, each and the plain forward are timed."""
+    inputs = scan_case(batch, length, gen, d_inner, n_state)[:5]
+    y_ref, bound_ref = scan.selective_scan_fwd_ref(*inputs, True)
+    shape = f"B={batch} L={length} D={d_inner} N={n_state}"
+    for save in (False, True):
+        outs = scan.selective_scan_fwd(*inputs, save)
+        torch.cuda.synchronize()
+        label = (f"selective_scan_fwd {shape} "
+                 f"[states {'on' if save else 'off'}]")
+        worst["fwd"] = max(worst["fwd"], check_outputs(
+            label, outs, {"plain": (y_ref, bound_ref if save else None)},
+            TOL_SCAN_FWD))
+        if times is None:
+            continue
+        ms = median_ms(lambda: scan.selective_scan_fwd(*inputs, save))
+        plain = median_ms(lambda: scan.selective_scan_fwd_ref(*inputs, save),
+                          reps=10, warmup=2)
+        times[("fwd", batch, length, save)] = (ms, plain)
+        print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
+
+
 def phase_scan_nostate(gen, worst, times):
     """K7 against its plain version (the plain forward with states, then
     the plain backward) and against K8 from K6's states."""
@@ -1019,8 +1151,12 @@ def print_scan_bounds():
             ("K9", "fwd_states", DIM64_BATCH, 1024),
             ("K10", "bwd", DIM64_BATCH, 1024)):
         keys = Bound().add(*scan_work(kind, batch, length)).keys()
+        walks = {"fwd": 1, "fwd_states": 1, "bwd": 2, "bwd_nostate": 3}[kind]
+        exp_ms = 1e3 * walks * batch * length * SCAN_D * SCAN_N / PEAK_EXP_PER_S
         print(f"scan bound per call {name} B={batch} L={length}: "
-              f"{keys['bound_ms']:.4f} ms ({keys['bound_by']})")
+              f"{keys['bound_ms']:.4f} ms ({keys['bound_by']}); its "
+              f"exponentials alone, {walks} a state and step on the "
+              f"special-function units: {exp_ms:.4f} ms")
 
 
 def phase_scan(gen):
@@ -1034,31 +1170,9 @@ def phase_scan(gen):
              "bwd_split": 0.0}
     times = {}
     for batch, length in SCAN_FWD_CASES:
-        x, dt, A, B, C, _ = scan_case(batch, length, gen)
-        for save in (False, True):
-            y, bound = scan.selective_scan_fwd(x, dt, A, B, C, save)
-            y_ref, bound_ref = scan.selective_scan_fwd_ref(x, dt, A, B, C,
-                                                           save)
-            torch.cuda.synchronize()
-            rels = [max_rel(y, y_ref)]
-            errs = [(y - y_ref).abs().max().item()]
-            if save:
-                rels.append(max_rel(bound, bound_ref))
-                errs.append((bound - bound_ref).abs().max().item())
-            worst["fwd"] = max(worst["fwd"], *errs)
-            ms = median_ms(
-                lambda: scan.selective_scan_fwd(x, dt, A, B, C, save))
-            plain = median_ms(
-                lambda: scan.selective_scan_fwd_ref(x, dt, A, B, C, save),
-                reps=10, warmup=2)
-            times[("fwd", batch, length, save)] = (ms, plain)
-            print(f"selective_scan_fwd B={batch} L={length} D={SCAN_D} "
-                  f"N={SCAN_N} states {'on' if save else 'off'}: max_rel "
-                  f"{' '.join(f'{r:.3e}' for r in rels)} kernel {ms:.4f} ms "
-                  f"plain {plain:.4f} ms")
-            if not max(rels) <= TOL_SCAN_FWD:
-                raise AssertionError(f"selective_scan_fwd B={batch} "
-                                     f"L={length}: max_rel {rels}")
+        check_scan_fwd(batch, length, SCAN_D, SCAN_N, gen, worst, times)
+    for shape in SCAN_FWD_FORMS:
+        check_scan_fwd(*shape, gen, worst)
     for batch, length in SCAN_BWD_CASES:
         x, dt, A, B, C, g = scan_case(batch, length, gen)
         _, bound = scan.selective_scan_fwd_ref(x, dt, A, B, C, True)
@@ -1144,7 +1258,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase_build()
-    gn_err = phase_gn(gen)
+    gn_err, gn_bwd_err = phase_gn(gen)
     attn_err = phase_attn(gen)
     config = load_config(CONFIG)
     model, gn_shapes, attn_shapes = phase_unet(config, gen)
@@ -1155,6 +1269,7 @@ def main():
         launches, seconds = phase_sample_main("UNet", config, model,
                                               UNET_FORWARD, tmp)
     del model
+    gn_step_err, gn_step, gn_bwd_bound = phase_gn_train_step(gn_shapes, gen)
     bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
     torch.manual_seed(0)
     phase_train_grads("UNet", factory.get_model(config).to("cuda").eval(),
@@ -1242,6 +1357,18 @@ def main():
          "max_abs_err": max(gn_err, main_err["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
+        # K1b, ms per train step: 45 calls at batch 128. It has no TPU kernel
+        # before it: the JAX package's backward, named here, recomputes the
+        # plain forward under autodiff
+        {"name": "gn_silu_bwd", "route": "cuda",
+         "source": csrc + "gn_silu.cu",
+         "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:125",
+         "launches": train_launches["gn_bwd"],
+         "launches_by_path": {"train": train_launches["gn_bwd"]},
+         "max_abs_err": max(gn_bwd_err, gn_step_err),
+         "ms": gn_step["bwd"], "plain_ms": gn_step["bwd_plain"],
+         "recompute_ms": gn_step["recompute"],
+         **gn_bwd_bound.keys(), "library_ms": None},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": csrc + "flash_attn.cu",
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:65",

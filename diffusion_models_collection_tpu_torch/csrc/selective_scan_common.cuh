@@ -10,30 +10,39 @@
 // over x, dt, y, g = ybar (batch, L, D); A (D, N); B, C (batch, L, N); bound
 // (batch, n_blocks, N, D), the state entering each time block of T steps.
 //
-// The forward kernels, and the local and carry passes of the time-split
-// ones, give one thread one (batch row, channel) with its N states (padded
-// to NMAX = 16 or 32; the states past N have A = B = C = 0 and stay 0) in
-// registers, and one block 128 channels of one row, so x, dt and y move
-// coalesced along D and the recurrence needs no cross-thread traffic. The
-// reverse sweep, which three backward kernels share, splits a channel's
-// states over four lanes instead: see "backward" below for what bounds it
-// and why. What differs between the kernels of a kind is the range of time
-// steps a block walks and where its first state or adjoint comes from.
-// The forward kernels evaluate the decays with expf, not __expf: the bars
-// against the plain versions are 2e-5 and 1e-4. The sweep uses the
-// exponential unit directly (`fast_exp2`) and holds the same bars.
+// Every kernel that walks the time axis gives one channel to four neighbouring
+// lanes, each with NMAX / 4 of its N states (padded to NMAX = 16 or 32; the
+// states past N have A = B = C = 0 and stay 0) in registers, and one block
+// of 256 threads 64 channels of one row: see "forward" and "backward" below
+// for what bounds each and why. The carry passes of the time-split kernels
+// and the local pass of the time-split backward give one thread a whole
+// channel (128 channels a block); they walk chunks, not steps. What differs
+// between the kernels of a kind is the range of time steps a block walks and
+// where its first state or adjoint comes from.
+// The decays are a = 2^(dt * A log2(e)) on the exponential unit
+// (`fast_exp2`); every kernel holds its bar against the plain versions (2e-5
+// forward, 1e-4 backward) with it. The carry passes keep expf: they run once
+// a chunk.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace dmc_scan {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxT = 32;
+// Thread blocks of the forward walk an SM is asked to hold at N <= 16 (three
+// at N > 16), and groups of four steps unrolled together. On an H100 at batch
+// 160, L 256, D 768, N 16, three or four blocks with one, two or four groups
+// unrolled read within a few percent of each other, so the smallest code (64
+// registers) stays.
+constexpr int kFwdBlocks = 4;
+constexpr int kFwdUnroll = 1;
 
 inline int tiles_for(int D) { return (D + kThreads - 1) / kThreads; }
 
@@ -46,82 +55,7 @@ __device__ __forceinline__ void load_a(float (&a_coef)[NMAX],
     a_coef[n] = (active && n < N) ? A[(size_t)d * N + n] : 0.f;
 }
 
-// h over the steps [t_begin, t_end) with no output; returns the sum of dt
-// over them (exp(A * sum) is the product of the range's decays).
-template <int NMAX>
-__device__ __forceinline__ float scan_advance(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ Bm, const float (&a_coef)[NMAX],
-    float (&h)[NMAX], size_t row, int d, bool active, int D, int N,
-    int t_begin, int t_end) {
-  float sum = 0.f;
-  for (int t = t_begin; t < t_end; ++t) {
-    const size_t off = (row + t) * D + d;
-    const float dtv = active ? dt[off] : 0.f;
-    const float u = active ? dtv * x[off] : 0.f;
-    const float* Bt = Bm + (row + t) * N;
-    sum += dtv;
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n) {
-      const float bn = n < N ? Bt[n] : 0.f;
-      h[n] = expf(dtv * a_coef[n]) * h[n] + u * bn;
-    }
-  }
-  return sum;
-}
-
-// The forward over the time blocks [k_begin, k_end) from the state h: y,
-// and (bound != null) the state entering each block, except the first when
-// `skip_first_bound` (the caller read h from that very row). B_t and C_t,
-// shared by every channel of the row, are staged in the block's shared
-// memory Bs, Cs one time block at a time. Every thread of the block must
-// call it (it synchronises), active or not.
-template <int NMAX>
-__device__ __forceinline__ void scan_fwd_blocks(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ Bm, const float* __restrict__ Cm,
-    float* __restrict__ y, float* bound, const float (&a_coef)[NMAX],
-    float (&h)[NMAX], float (*Bs)[NMAX], float (*Cs)[NMAX], int b, int d,
-    bool active, int L, int D, int N, int T, int k_begin, int k_end,
-    bool skip_first_bound) {
-  const int n_blocks = (L + T - 1) / T;
-  const size_t row = (size_t)b * L;
-  for (int k = k_begin; k < k_end; ++k) {
-    const int t0 = k * T;
-    const int len = min(T, L - t0);
-    __syncthreads();  // every thread is done with the previous block's B, C
-    for (int i = threadIdx.x; i < len * NMAX; i += kThreads) {
-      const int s = i / NMAX;
-      const int n = i - s * NMAX;
-      const size_t off = (row + t0 + s) * N + n;
-      Bs[s][n] = n < N ? Bm[off] : 0.f;
-      Cs[s][n] = n < N ? Cm[off] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    if (bound != nullptr && !(skip_first_bound && k == k_begin)) {
-      float* bk = bound + ((size_t)b * n_blocks + k) * N * D + d;
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n)
-        if (n < N) bk[(size_t)n * D] = h[n];
-    }
-    for (int s = 0; s < len; ++s) {
-      const size_t off = (row + t0 + s) * D + d;
-      const float dtv = dt[off];
-      const float u = dtv * x[off];
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        const float a = expf(dtv * a_coef[n]);
-        h[n] = a * h[n] + u * Bs[s][n];
-        acc = fmaf(Cs[s][n], h[n], acc);
-      }
-      y[off] = acc;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- backward
+// ------------------------------------------- the lanes' layout; the backward
 // The reverse sweep (`scan_bwd_range`) and the kernels around it give one
 // channel to four neighbouring lanes, each with NMAX / 4 of its states, and
 // one block of 256 threads 64 channels of one row.
@@ -244,6 +178,258 @@ __device__ __forceinline__ void load_lane_row(float (&out)[SPL], const float* r,
     out[4 * j + 2] = v.z;
     out[4 * j + 3] = v.w;
   }
+}
+
+// ----------------------------------------------------------------- forward
+// The forward walk (`scan_fwd_walk`) uses the sweep's layout: four lanes a
+// channel, 64 channels and 256 threads a block, so a (row, 64 channels) tile
+// is a block and the grid has four times the threads of a thread-a-channel
+// layout at a quarter of the registers (up to four blocks an SM).
+//
+// What bounds it on an H100: the exponential unit and the instruction rate.
+// One call at batch 160, L 256, D 768, N 16 evaluates 503 M decays; the
+// special-function units do 16 a clock and SM where the FMA pipes do 128, so
+// they alone need 0.120 ms where the bytes (x, dt in, y out, once) need
+// 0.114 ms. What the design does about it:
+// * a decay is one multiply and one ex2.approx (`fast_exp2` on A log2(e));
+// * x, dt and the B, C rows of a time block arrive in shared memory by
+//   cp.async (16 bytes where D, N and the pointers allow it, else 4), the
+//   next time block requested before this one is walked, so no step waits
+//   on device memory; the lanes read them from there (four lanes one
+//   address, a broadcast);
+// * y_t is a sum over n, so over the four lanes. Each lane keeps its partial
+//   sums of four steps and the lanes exchange them in a transposing
+//   butterfly, three shuffles for four steps, which leaves lane q with y of
+//   step 4 j + q; it stores that straight to device memory (a warp writes
+//   four rows of eight channels, whole 32-byte sectors). Nothing in the walk
+//   of a time block synchronises, so the steps overlap: one barrier a time
+//   block, where the next one's copies are waited for;
+// * the `bound` rows are written from registers as each time block begins.
+// Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
+// launches in a row): 0.215-0.226 ms at batch 160, L 256, D 768, N 16, where a
+// thread a channel with expf, x, dt and y in device memory took 0.350; 0.13-
+// 0.14 ms at 16 rows, L 1024 (0.696). A first form that wrote y_t into the
+// staged x after two shuffles and a __syncwarp every step was slower at
+// both: the barrier kept the steps from overlapping.
+
+template <int NMAX>
+struct __align__(16) FwdStage {
+  float x[kMaxT][kBwdChannels];
+  float dt[kMaxT][kBwdChannels];
+  float B[kMaxT][NMAX];
+  float C[kMaxT][NMAX];
+};
+
+// Two stages: one walked, one in flight. 40 KB at NMAX 16, 48 KB at 32.
+template <int NMAX>
+struct __align__(16) FwdShared {
+  FwdStage<NMAX> stage[2];
+};
+
+// How the operands may be copied: 16 bytes at a time along D (x, dt) and
+// along the B, C rows, or 4.
+struct FwdCopy {
+  bool vec_d;  // D % 4 == 0 and x, dt 16-byte aligned
+  bool vec_n;  // N == NMAX and B, C 16-byte aligned: a time block's rows
+               // are one contiguous run that fills the staged rows
+};
+
+inline FwdCopy fwd_copy_for(const void* x, const void* dt, const void* B,
+                            const void* C, int D, int N) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  FwdCopy copy;
+  copy.vec_d = D % 4 == 0 && !misaligned(x) && !misaligned(dt);
+  copy.vec_n = (N == 16 || N == 32) && !misaligned(B) && !misaligned(C);
+  return copy;
+}
+
+// `bytes` (16 or 4) from device to shared memory, asynchronously; zeros when
+// not `valid` (src must still be an address inside the allocation).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Request the steps [t0, t0 + len) of the block's 64 channels from d0 on
+// into `st`: x, dt, the B rows and (OUT) the C rows. Channels past D arrive
+// as zeros; the columns past N of B and C are never written (the walk zeroes
+// them once).
+template <int NMAX, bool OUT>
+__device__ __forceinline__ void request_time_block(
+    FwdStage<NMAX>& st, const float* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, size_t row, int t0, int len, int d0, int D,
+    int N, FwdCopy copy) {
+  const int tid = threadIdx.x;
+  if (copy.vec_d) {
+    constexpr int V = kBwdChannels / 4;
+    for (int i = tid; i < len * V; i += kBwdThreads) {
+      const int s = i / V;
+      const int c = (i - s * V) * 4;
+      const bool ok = d0 + c < D;
+      const size_t off = ok ? (row + t0 + s) * D + d0 + c : 0;
+      cp_async16(&st.x[s][c], x + off, ok);
+      cp_async16(&st.dt[s][c], dt + off, ok);
+    }
+  } else {
+    for (int i = tid; i < len * kBwdChannels; i += kBwdThreads) {
+      const int s = i / kBwdChannels;
+      const int c = i - s * kBwdChannels;
+      const bool ok = d0 + c < D;
+      const size_t off = ok ? (row + t0 + s) * D + d0 + c : 0;
+      cp_async4(&st.x[s][c], x + off, ok);
+      cp_async4(&st.dt[s][c], dt + off, ok);
+    }
+  }
+  if (copy.vec_n) {  // N == NMAX
+    const size_t base = (row + t0) * N;
+    for (int i = tid; i < len * (NMAX / 4); i += kBwdThreads) {
+      cp_async16(&st.B[0][0] + 4 * i, Bm + base + 4 * i, true);
+      if (OUT) cp_async16(&st.C[0][0] + 4 * i, Cm + base + 4 * i, true);
+    }
+  } else {
+    for (int i = tid; i < len * N; i += kBwdThreads) {
+      const int s = i / N;
+      const int n = i - s * N;
+      const size_t off = (row + t0 + s) * N + n;
+      cp_async4(&st.B[s][n], Bm + off, true);
+      if (OUT) cp_async4(&st.C[s][n], Cm + off, true);
+    }
+  }
+  cp_async_commit();
+}
+
+// The forward over the time blocks [k_begin, k_end) of the block's 64
+// channels from d0 on. The thread is lane q = threadIdx.x & 3 of channel
+// d0 + (threadIdx.x >> 2) and holds, for its states n = q * SPL + i, the A
+// row times log2(e) (`load_a_lane`) and the state h, which it advances.
+// OUT: y is written (else neither C nor y is touched: the local pass of a
+// time-split scan). bound != null: the state entering each time block is
+// written, except the first when `skip_first_bound` (the caller read h from
+// that very row). Returns the sum of dt over the steps walked (exp(A * sum)
+// is the product of their decays).
+// Every thread of the block must call it (it synchronises), active or not.
+template <int NMAX, bool OUT>
+__device__ __forceinline__ float scan_fwd_walk(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ Bm, const float* __restrict__ Cm,
+    float* __restrict__ y, float* bound, const float (&a2)[NMAX / kBwdLanes],
+    float (&h)[NMAX / kBwdLanes], FwdShared<NMAX>& sm, int b, int d0,
+    bool active, int L, int D, int N, int T, int k_begin, int k_end,
+    bool skip_first_bound, FwdCopy copy) {
+  constexpr int SPL = NMAX / kBwdLanes;
+  const int tid = threadIdx.x;
+  const int q = tid & (kBwdLanes - 1);
+  const int ch = tid >> 2;
+  const int n_blocks = (L + T - 1) / T;
+  const size_t row = (size_t)b * L;
+  float dt_sum = 0.f;
+  if (k_begin >= k_end) return dt_sum;
+
+  // the columns past N of both stages' B and C: no copy writes them
+  const int pad = NMAX - N;
+  for (int i = tid; i < 2 * kMaxT * pad; i += kBwdThreads) {
+    const int st = i / (kMaxT * pad);
+    const int r = i - st * (kMaxT * pad);
+    const int s = r / pad;
+    const int n = N + (r - s * pad);
+    sm.stage[st].B[s][n] = 0.f;
+    sm.stage[st].C[s][n] = 0.f;
+  }
+  request_time_block<NMAX, OUT>(sm.stage[0], x, dt, Bm, Cm, row, k_begin * T,
+                                min(T, L - k_begin * T), d0, D, N, copy);
+
+  for (int k = k_begin; k < k_end; ++k) {
+    const int p = (k - k_begin) & 1;
+    const FwdStage<NMAX>& st = sm.stage[p];
+    const int t0 = k * T;
+    const int len = min(T, L - t0);
+    cp_async_wait_all();
+    __syncthreads();  // time block k is in; every thread has walked k - 1
+    if (k + 1 < k_end)
+      request_time_block<NMAX, OUT>(sm.stage[p ^ 1], x, dt, Bm, Cm, row,
+                                    t0 + T, min(T, L - t0 - T), d0, D, N,
+                                    copy);
+    if (active && bound != nullptr && !(skip_first_bound && k == k_begin))
+      store_lane_states<SPL>(
+          bound + ((size_t)b * n_blocks + k) * N * D + d0 + ch, (size_t)D, h,
+          q, N);
+    // channels past D were staged as zeros: their lanes walk a = 1, u = 0.
+    // Four steps at a time; `ragged` (a std::integral_constant) says whether
+    // the four may reach past len.
+    auto four_steps = [&](int j, auto ragged) {
+      float part[4];  // the lane's share of y at the steps j .. j + 3
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        part[r] = 0.f;
+        // the same for every thread of the block
+        if (!decltype(ragged)::value || j + r < len) {
+          const int s = j + r;
+          const float dtv = st.dt[s][ch];
+          const float u = dtv * st.x[s][ch];
+          float bn[SPL];
+          load_lane_row<SPL>(bn, st.B[s], q);
+          if (!OUT) dt_sum += dtv;
+#pragma unroll
+          for (int i = 0; i < SPL; ++i)
+            h[i] = fmaf(fast_exp2(dtv * a2[i]), h[i], u * bn[i]);
+          if (OUT) {
+            float cn[SPL];
+            load_lane_row<SPL>(cn, st.C[s], q);
+            float even = 0.f, odd = 0.f;
+#pragma unroll
+            for (int i = 0; i < SPL; i += 2) {
+              even = fmaf(cn[i], h[i], even);
+              odd = fmaf(cn[i + 1], h[i + 1], odd);
+            }
+            part[r] = even + odd;
+          }
+        }
+      }
+      if (OUT) {
+        // over the channel's four lanes, transposing: lane q is left with
+        // the sum of part[q]
+        const bool hi = q & 2;
+        const float w0 = (hi ? part[2] : part[0]) +
+                         __shfl_xor_sync(0xffffffffu, hi ? part[0] : part[2], 2);
+        const float w1 = (hi ? part[3] : part[1]) +
+                         __shfl_xor_sync(0xffffffffu, hi ? part[1] : part[3], 2);
+        const bool odd_lane = q & 1;
+        const float yv = (odd_lane ? w1 : w0) +
+                         __shfl_xor_sync(0xffffffffu, odd_lane ? w0 : w1, 1);
+        if (active && (!decltype(ragged)::value || j + q < len))
+          y[(row + t0 + j + q) * D + d0 + ch] = yv;
+      }
+    };
+    const int whole = len & ~3;
+#pragma unroll kFwdUnroll
+    for (int j = 0; j < whole; j += 4) four_steps(j, std::false_type{});
+    if (whole < len) four_steps(whole, std::true_type{});
+  }
+  return dt_sum;
 }
 
 // Stage the steps [t0, t0 + len) of the block's 64 channels from d0 on: x

@@ -1,6 +1,6 @@
 // Selective scan with the time axis split across thread blocks, float32:
 // the forward with saved block states and the backward from them, for long
-// sequences at small batch. The math, `scan_fwd_blocks` and `scan_bwd_range`
+// sequences at small batch. The math, `scan_fwd_walk` and `scan_bwd_range`
 // are in selective_scan_common.cuh.
 //
 // Replaces diffusion_models_collection_tpu/ops/selective_scan_pallas.py:
@@ -12,15 +12,17 @@
 // chunk may be shorter); both recurrences are affine in what enters a chunk,
 //   h_out = P h_in + S,   phi_out = P phi_in + R,   P = exp(A * sum_chunk dt),
 // so each is three passes:
-//   (a) per (row, 128 channels, chunk): S (or R) from a zero h_in (phi_in)
+//   (a) per (row, channel tile, chunk): S (or R) from a zero h_in (phi_in)
 //       and the chunk's sum of dt;
 //   (b) per (row, channel): walk the chunks in order (in reverse) and replace
 //       each S (R) by the state (adjoint) entering that chunk;
-//   (c) per (row, 128 channels, chunk): the whole chunk from what enters it,
-//       with K6's forward body or K8's reverse sweep.
+//   (c) per (row, channel tile, chunk): the whole chunk from what enters it,
+//       with K6's forward walk or K8's reverse sweep.
 // P is never divided by, so its underflow over a long chunk is harmless.
 // The forward's S go straight into `bound`: the state entering a chunk is
-// the `bound` row of its first time block. dB and dC are summed over D as in
+// the `bound` row of its first time block. Passes (a) and (c) of the forward
+// are both `scan_fwd_walk` (64 channels a block, four lanes a channel), (a)
+// with no output. dB and dC are summed over D as in
 // K8 (per-tile partials, no atomics); dA is written per (row, chunk) and
 // summed by the caller.
 //
@@ -38,33 +40,34 @@ using namespace dmc_scan;
 // (a) of the forward: the chunk's end state from zero into the `bound` row of
 // the chunk's first time block, and its sum of dt into sdt (batch, chunks, D).
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 split_fwd_local_kernel(const float* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ A,
                        const float* __restrict__ Bm, float* __restrict__ bound,
                        float* __restrict__ sdt, int L, int D, int N, int T,
-                       int CB) {
+                       int CB, FwdCopy copy) {
+  constexpr int SPL = NMAX / kBwdLanes;
+  __shared__ FwdShared<NMAX> sm;
   const int b = blockIdx.y;
   const int c = blockIdx.z;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+  const int d0 = blockIdx.x * kBwdChannels;
+  const int d = d0 + (threadIdx.x >> 2);
+  const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
-  const int t_begin = c * CB * T;
-  const int t_end = min(L, t_begin + CB * T);
 
-  float a_coef[NMAX], h[NMAX];
-  load_a<NMAX>(a_coef, A, d, N, active);
+  float a2[SPL], h[SPL];
+  load_a_lane<SPL>(a2, A, d, q, N, active);
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) h[n] = 0.f;
-  const float sum = scan_advance<NMAX>(x, dt, Bm, a_coef, h, (size_t)b * L, d,
-                                       active, D, N, t_begin, t_end);
+  for (int i = 0; i < SPL; ++i) h[i] = 0.f;
+  const float sum = scan_fwd_walk<NMAX, false>(
+      x, dt, Bm, nullptr, nullptr, nullptr, a2, h, sm, b, d0, active, L, D, N,
+      T, c * CB, min(n_blocks, c * CB + CB), false, copy);
   if (!active) return;
-  float* bk = bound + ((size_t)b * n_blocks + c * CB) * N * D + d;
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n)
-    if (n < N) bk[(size_t)n * D] = h[n];
-  sdt[((size_t)b * gridDim.z + c) * D + d] = sum;
+  store_lane_states<SPL>(bound + ((size_t)b * n_blocks + c * CB) * N * D + d,
+                         (size_t)D, h, q, N);
+  if (q == 0) sdt[((size_t)b * gridDim.z + c) * D + d] = sum;
 }
 
 // (a) of the backward: the chunk's outgoing adjoint carry from a zero
@@ -145,29 +148,30 @@ split_carry_kernel(float* __restrict__ buf, size_t batch_stride,
 // (c) of the forward: the chunk from the state entering it (its first
 // `bound` row): y, and the `bound` rows of its other time blocks.
 template <int NMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 split_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, float* __restrict__ y,
-                 float* bound, int L, int D, int N, int T, int CB) {
-  __shared__ float Bs[kMaxT][NMAX];
-  __shared__ float Cs[kMaxT][NMAX];
+                 float* bound, int L, int D, int N, int T, int CB,
+                 FwdCopy copy) {
+  constexpr int SPL = NMAX / kBwdLanes;
+  __shared__ FwdShared<NMAX> sm;
   const int b = blockIdx.y;
   const int c = blockIdx.z;
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+  const int d0 = blockIdx.x * kBwdChannels;
+  const int d = d0 + (threadIdx.x >> 2);
+  const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
-  const int k_begin = c * CB;
-  const int k_end = min(n_blocks, k_begin + CB);
 
-  float a_coef[NMAX], h[NMAX];
-  load_a<NMAX>(a_coef, A, d, N, active);
-  const float* bk = bound + ((size_t)b * n_blocks + k_begin) * N * D + d;
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n)
-    h[n] = (active && n < N) ? bk[(size_t)n * D] : 0.f;
-  scan_fwd_blocks<NMAX>(x, dt, Bm, Cm, y, bound, a_coef, h, Bs, Cs, b, d,
-                        active, L, D, N, T, k_begin, k_end, true);
+  float a2[SPL], h[SPL];
+  load_a_lane<SPL>(a2, A, d, q, N, active);
+  load_lane_states<SPL>(h,
+                        bound + ((size_t)b * n_blocks + c * CB) * N * D + d,
+                        (size_t)D, q, N, active);
+  scan_fwd_walk<NMAX, true>(x, dt, Bm, Cm, y, bound, a2, h, sm, b, d0, active,
+                            L, D, N, T, c * CB, min(n_blocks, c * CB + CB),
+                            true, copy);
 }
 
 // (c) of the backward: K8's sweep over the chunk from the adjoint entering
@@ -218,9 +222,10 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
                int L, int D, int N, int T, int CB, cudaStream_t stream) {
   const int n_blocks = (L + T - 1) / T;
   const int n_chunks = (n_blocks + CB - 1) / CB;
-  const dim3 grid(tiles_for(D), batch, n_chunks);
-  split_fwd_local_kernel<NMAX><<<grid, kThreads, 0, stream>>>(
-      x, dt, A, B, bound, sdt, L, D, N, T, CB);
+  const FwdCopy copy = fwd_copy_for(x, dt, B, C, D, N);
+  const dim3 grid(bwd_tiles_for(D), batch, n_chunks);
+  split_fwd_local_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
+      x, dt, A, B, bound, sdt, L, D, N, T, CB, copy);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_carry_kernel<NMAX><<<dim3(tiles_for(D), batch), kThreads, 0, stream>>>(
@@ -228,8 +233,8 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
       N, 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  split_fwd_kernel<NMAX><<<grid, kThreads, 0, stream>>>(x, dt, A, B, C, y,
-                                                        bound, L, D, N, T, CB);
+  split_fwd_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
+      x, dt, A, B, C, y, bound, L, D, N, T, CB, copy);
   return (int)cudaGetLastError();
 }
 

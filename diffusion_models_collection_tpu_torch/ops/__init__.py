@@ -15,6 +15,8 @@ from .flash_attention import (
 from .fused_norm import (
     GroupNormSiLU,
     group_norm_silu,
+    group_norm_silu_bwd,
+    group_norm_silu_bwd_ref,
     group_norm_silu_fwd,
     group_norm_silu_ref,
 )
@@ -28,6 +30,8 @@ __all__ = [
     "flash_attention_fwd_ref",
     "flash_attention_ref",
     "group_norm_silu",
+    "group_norm_silu_bwd",
+    "group_norm_silu_bwd_ref",
     "group_norm_silu_fwd",
     "group_norm_silu_ref",
     "multihead_attention",

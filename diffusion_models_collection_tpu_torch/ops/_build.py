@@ -110,8 +110,12 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gn_silu_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+    lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
     lib.gn_silu_fwd.restype = i32
+    lib.gn_silu_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+    lib.gn_silu_bwd.restype = i32
+    lib.gn_silu_form.argtypes = [i32] * 4
+    lib.gn_silu_form.restype = i32
     lib.flash_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
                                    ptr]
     lib.flash_attn_fwd.restype = i32

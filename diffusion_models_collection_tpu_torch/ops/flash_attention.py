@@ -17,6 +17,13 @@ sum kernel when there is more than one key tile. `bwd_fused` takes it up to
 `FUSED_MAX_LEN`; beyond, the scratch would grow with L^2 and the two-kernel
 form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
 tile height both forms walk in.
+
+The plain versions take any head_dim. The kernels take multiples of 8 up to
+`MAX_HEAD_DIM`: on a CUDA tensor the wrappers pad another head_dim to the
+next multiple of 8 with zero columns, which changes no score (the softmax
+scale is an argument of the kernels and stays 1 / sqrt(head_dim)) and adds
+only zero columns to o, dq, dk and dv, sliced off again; a head_dim beyond
+`MAX_HEAD_DIM` raises there.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -87,19 +95,44 @@ def flash_attention_bwd_ref(
 
 
 def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
-    """q and every other tensor one (BH, L, d) shape, d % 8 == 0 and at most
-    MAX_HEAD_DIM, 32-bit indexable on the card."""
+    """q and every other tensor one (BH, L, d) shape; on the card d at most
+    MAX_HEAD_DIM and the tensors 32-bit indexable."""
     if q.dim() != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(
             f"{name}: the inputs must share one (BH, L, d) shape, got "
             + ", ".join(str(tuple(t.shape)) for t in (q, *others)))
     head_dim = q.shape[-1]
-    if head_dim % 8 or not 0 < head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {head_dim} must be a multiple of "
-                         f"8 in [8, {MAX_HEAD_DIM}]")
-    if q.device.type == "cuda" and q.numel() >= 2**31:
+    if head_dim < 1:
+        raise ValueError(f"{name}: head_dim must be at least 1")
+    if q.device.type != "cuda":
+        return
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {head_dim} exceeds the kernel's "
+                         f"limit of {MAX_HEAD_DIM}")
+    if q.shape[0] * q.shape[1] * padded_head_dim(head_dim) >= 2**31:
         raise ValueError(f"{name}: shape {tuple(q.shape)} exceeds the "
                          "kernel's 32-bit indexing")
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The head_dim the kernels run at: the next multiple of 8."""
+    return -(-head_dim // 8) * 8
+
+
+def _pad_heads(head_dim: int, *tensors: torch.Tensor):
+    """The tensors with zero columns up to `padded_head_dim` (as they are
+    when head_dim is a multiple of 8)."""
+    extra = padded_head_dim(head_dim) - head_dim
+    if not extra:
+        return tensors
+    return tuple(F.pad(t, (0, extra)) for t in tensors)
+
+
+def _cut_heads(head_dim: int, *tensors: torch.Tensor):
+    """Undo `_pad_heads` on the kernels' outputs."""
+    if tensors[0].shape[-1] == head_dim:
+        return tensors
+    return tuple(t[..., :head_dim].contiguous() for t in tensors)
 
 
 def flash_attention_fwd(
@@ -115,6 +148,7 @@ def flash_attention_fwd(
         return flash_attention_fwd_ref(q, k, v)
     bh, seq_len, head_dim = q.shape
     lib = _build.library()
+    q, k, v = _pad_heads(head_dim, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, seq_len, 1), dtype=torch.float32, device=q.device)
     if q.numel():
@@ -122,11 +156,11 @@ def flash_attention_fwd(
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(), bh, seq_len,
-                                     head_dim, 1.0 / math.sqrt(head_dim),
+                                     q.shape[-1], 1.0 / math.sqrt(head_dim),
                                      stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
-    return o, lse
+    return (*_cut_heads(head_dim, o), lse)
 
 
 def flash_attention_bwd(
@@ -146,6 +180,7 @@ def flash_attention_bwd(
                          f"1), got {tuple(lse.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse)
+    q, k, v, o, do = _pad_heads(head_dim, q, k, v, o, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: q, k, v and dO must be "
                          "16-byte aligned")
@@ -155,11 +190,12 @@ def flash_attention_bwd(
     if q.numel():
         if fused is None:
             fused = bwd_fused(seq_len)
-        tile = bwd_tile(seq_len, head_dim)
+        width = q.shape[-1]
+        tile = bwd_tile(seq_len, width)
         tiles = -(-seq_len // tile)
         partial = None
         if fused and tiles > 1:
-            partial = torch.empty((bh, tiles, seq_len, head_dim),
+            partial = torch.empty((bh, tiles, seq_len, width),
                                   dtype=torch.float32, device=q.device)
         # autograd runs a backward on its own thread: take that thread's
         # current stream for the device here, at the launch
@@ -170,10 +206,10 @@ def flash_attention_bwd(
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 None if partial is None else partial.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
-                head_dim, 1.0 / math.sqrt(head_dim), tile, int(fused), stream)
+                width, 1.0 / math.sqrt(head_dim), tile, int(fused), stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
-    return dq, dk, dv
+    return _cut_heads(head_dim, dq, dk, dv)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -18,13 +18,14 @@ def plain_kernels():
     """Point the kernels' call sites (the UNet's GroupNorm+SiLU, the
     attention, the DiM's selective scan) at plain PyTorch versions, so
     neither the forward kernels nor the backward kernels run; restore them
-    on exit. GroupNorm+SiLU and attention become plain code that autograd
-    differentiates; the scan becomes `SelectiveScanRef`, an autograd
-    Function over the plain forward and backward, because autograd through
-    its L-step loop would hold every step's (batch, D, N) state."""
+    on exit. Attention becomes plain code that autograd differentiates;
+    GroupNorm+SiLU becomes `GroupNormSiLURef` and the scan
+    `SelectiveScanRef`, autograd Functions over the plain forward and
+    backward: they do the kernels' passes, and autograd through the scan's
+    L-step loop would hold every step's (batch, D, N) state."""
     saved = (unet.group_norm_silu, attention.flash_attention,
              dim.selective_scan)
-    unet.group_norm_silu = fused_norm.group_norm_silu_ref
+    unet.group_norm_silu = fused_norm.group_norm_silu_plain
     attention.flash_attention = flash_attention.flash_attention_ref
     dim.selective_scan = selective_scan.selective_scan_ref
     try:

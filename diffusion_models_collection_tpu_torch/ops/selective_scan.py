@@ -45,8 +45,10 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   reference that autograd differentiates, for tests.
 
 The JAX gate `supported()` (D % 128, N <= 32, L >= 8) is a TPU lane limit
-and is not ported: the kernels take any L >= 1 and any D, and N up to 32,
-the most state a thread keeps in registers. The sequence-parallel scan
+and is not ported: the kernels take any L >= 1 and any D, and N up to 32
+(`MAX_STATE`; a larger state raises on a CUDA tensor, where the JAX package
+falls back to its XLA scan, and runs the plain versions, which take any N,
+on a CPU tensor). The sequence-parallel scan
 (`selective_scan_with_state`), the tensor-parallel scope
 (`scan_tensor_parallel`) and the XLA `chunk_size` path raise (ROADMAP queue
 1 item 15).
@@ -73,8 +75,9 @@ BWD_NOSTATE_LAUNCHES = 0
 FWD_SPLIT_LAUNCHES = 0
 BWD_SPLIT_LAUNCHES = 0
 
-# channels of one row that a forward thread block covers (the reverse sweep's
-# blocks cover 64, four lanes a channel)
+# channels of one row in a tile of the rules below (`time_split`,
+# `chunk_blocks_for`); the thread blocks that walk the time axis cover 64,
+# four lanes a channel
 TILE = 128
 
 
@@ -312,8 +315,8 @@ def selective_scan_bwd_split_ref(
 
 
 def _check_shapes(name: str, x, dt, A, B, C, *others) -> Tuple[int, ...]:
-    """x, dt and `others` one (batch, L, D) shape, A (D, N) with
-    1 <= N <= MAX_STATE, B and C (batch, L, N)."""
+    """x, dt and `others` one (batch, L, D) shape, A (D, N) with N >= 1 (on
+    the card at most MAX_STATE), B and C (batch, L, N)."""
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"{name}: x must be (batch, L, D) and A (D, N), got "
                          f"{tuple(x.shape)} and {tuple(A.shape)}")
@@ -327,10 +330,13 @@ def _check_shapes(name: str, x, dt, A, B, C, *others) -> Tuple[int, ...]:
     if B.shape != (batch, length, n_state) or C.shape != B.shape:
         raise ValueError(f"{name}: B and C must be {(batch, length, n_state)}, "
                          f"got {tuple(B.shape)} and {tuple(C.shape)}")
-    if not 1 <= n_state <= MAX_STATE:
+    if n_state < 1:
+        raise ValueError(f"{name}: state size must be at least 1")
+    if x.device.type == "cuda" and n_state > MAX_STATE:
         raise ValueError(
-            f"{name}: state size {n_state} outside [1, {MAX_STATE}]: each "
-            "kernel thread keeps one channel's whole state in registers")
+            f"{name}: state size {n_state} exceeds the kernels' limit of "
+            f"{MAX_STATE}: a channel's states live in the registers of at "
+            "most four lanes")
     if x.device.type == "cuda" and (batch >= 65536 or x.numel() >= 2**31):
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the "
                          "kernel's grid or 32-bit indexing")

@@ -5,8 +5,10 @@
         --num_inference_steps 50 --cfg_scale 3 --num_samples 80
 
 Counterpart of the repository's `sample.py` with the flags this port serves:
-DDIM, or DDPM's ancestral sampling over all T steps (`--sampling_method
-ddpm`, which ignores `--num_inference_steps`).
+DDPM's ancestral sampling over all T steps (the default, which ignores
+`--num_inference_steps`) or DDIM (`--sampling_method ddim`), each with
+classifier-free guidance and its two knobs (`--guidance_rescale`,
+`--cfg_interval`).
 The checkpoint is a PyTorch reference `.pth` or a JAX `.ckpt`, config
 embedded. Labels follow the reference: per-row classes shifted by +1, 0 the
 CFG null label. Writes an image grid (PNG) and the images as a float32
@@ -40,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Path to checkpoint (.pth reference or JAX .ckpt)")
     parser.add_argument("--config", type=str, default=None,
                         help="Path to config file (if not in checkpoint)")
-    parser.add_argument("--sampling_method", type=str, default="ddim",
-                        choices=["ddim", "ddpm"], help="Sampling method")
+    parser.add_argument("--sampling_method", type=str, default="ddpm",
+                        choices=["ddpm", "ddim"], help="Sampling method")
     parser.add_argument("--num_inference_steps", type=int, default=None,
                         help="Number of inference steps (default: 50)")
     parser.add_argument("--num_samples", type=int, default=64,
@@ -56,6 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Use EMA model if available")
     parser.add_argument("--cfg_scale", type=float, default=0.0,
                         help="Classifier-free guidance scale (0 = no CFG)")
+    parser.add_argument("--guidance_rescale", type=float, default=None,
+                        help="CFG contrast rescale phi in [0, 1] (overrides "
+                             "the config's guidance_rescale key; 0 disables)")
+    parser.add_argument("--cfg_interval", type=str, default=None,
+                        help="Apply CFG only inside this 'lo,hi' timestep "
+                             "interval; overrides the config key")
     parser.add_argument("--labels", type=str, default=None,
                         help="Comma-separated labels for conditional "
                              "generation")

@@ -4,9 +4,14 @@ diffusion_models_collection_tpu_torch.sample`, on the CPU.
 The end-to-end test writes a JAX `.ckpt` with the JAX package's
 `save_checkpoint` (optax state included), samples from it in a fresh
 `python -X importtime -m ...` process, and asserts the outputs and, from
-the import log, that the process never imported jax, flax or optax.
+the import log, that the process never imported jax, flax or optax. The
+flag tests hold the port's parser to the root `sample.py`'s: the default
+sampler and the two classifier-free-guidance knobs, which must reach
+`base.cfg_eps_x0`.
 """
 
+import argparse
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +32,9 @@ from diffusion_models_collection_tpu.utils.checkpoint import (
     save_checkpoint as jax_save_checkpoint,
 )
 from diffusion_models_collection_tpu_torch import factory, sample
+from diffusion_models_collection_tpu_torch.diffusion import base
 from diffusion_models_collection_tpu_torch.pipeline import build_labels
+from diffusion_models_collection_tpu_torch.utils import checkpoint
 from diffusion_models_collection_tpu_torch.utils.helpers import (
     make_grid,
     write_png,
@@ -126,3 +133,66 @@ def test_factory_raises_on_what_is_not_ported(change):
 def test_factory_raises_on_samplers_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         factory.get_diffusion(small_config(), "dpm++")
+
+
+# -------------------------------- the flags shared with the root `sample.py`
+def root_sample_parser():
+    """The root CLI's `build_parser()`, taken from its source: importing
+    `sample.py` itself would configure the JAX platform as a side effect."""
+    tree = ast.parse((REPO / "sample.py").read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "build_parser")
+    scope = {"argparse": argparse}
+    exec(compile(ast.Module([fn], []), "sample.py", "exec"), scope)
+    return scope["build_parser"]()
+
+
+def test_sampling_method_defaults_to_ddpm_on_both_sides():
+    argv = ["--checkpoint", "x"]
+    ours = sample.build_parser().parse_args(argv)
+    root = root_sample_parser().parse_args(argv)
+    assert ours.sampling_method == root.sampling_method == "ddpm"
+
+
+@pytest.mark.parametrize("argv,rescale,interval", [
+    ([], None, None),
+    (["--guidance_rescale", "0.7", "--cfg_interval", "100,600"], 0.7,
+     "100,600"),
+    (["--guidance_rescale", "0"], 0.0, None),
+])
+def test_cfg_knobs_parse_as_the_root_cli_parses_them(argv, rescale, interval):
+    argv = ["--checkpoint", "x", *argv]
+    ours = sample.build_parser().parse_args(argv)
+    root = root_sample_parser().parse_args(argv)
+    assert (ours.guidance_rescale, ours.cfg_interval) == (rescale, interval)
+    assert (root.guidance_rescale, root.cfg_interval) == (rescale, interval)
+
+
+@pytest.mark.parametrize("method", ["ddim", "ddpm"])
+@pytest.mark.parametrize("flags,rescale,interval", [
+    ([], 0.0, None),
+    (["--guidance_rescale", "0.7", "--cfg_interval", "3,8"], 0.7, (3, 8)),
+])
+def test_cfg_knobs_reach_cfg_eps_x0(monkeypatch, tmp_path, method, flags,
+                                    rescale, interval):
+    config = dict(small_config(), num_timesteps=10)
+    torch.manual_seed(0)
+    ckpt = tmp_path / "model.pth"
+    checkpoint.save_checkpoint(ckpt, factory.get_model(config).state_dict(),
+                               config)
+    seen = []
+    real = base.cfg_eps_x0
+
+    def recording(*args, **kwargs):
+        seen.append((kwargs["guidance_rescale"], kwargs["cfg_interval"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(base, "cfg_eps_x0", recording)
+    result = sample.main([
+        "--checkpoint", str(ckpt), "--sampling_method", method,
+        "--num_inference_steps", "2", "--num_samples", "2", "--batch_size",
+        "2", "--cfg_scale", "2", *flags, "--device", "cpu", "--output_dir",
+        str(tmp_path / "out")])
+    assert np.isfinite(result["samples"]).all()
+    assert len(seen) == (2 if method == "ddim" else 10)
+    assert set(seen) == {(rescale, interval)}

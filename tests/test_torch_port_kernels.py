@@ -11,7 +11,9 @@ tolerance is max|kernel - plain| / max|plain| <= 2e-5 for the forwards
 (float32 on both sides, TF32 off, sums in different orders), <= 1e-5
 absolute on lse, and <= 1e-4 for the attention backward, whose dS sums a
 difference of two products over L keys, and for the scan backward, whose
-adjoint runs over L steps and whose dB, dC sum over the D channels.
+adjoint runs over L steps and whose dB, dC sum over the D channels. The
+GroupNorm+SiLU backward is held to 2e-5 like the forwards: its sums run
+over one group or over one channel's rows.
 """
 
 import numpy as np
@@ -85,8 +87,16 @@ def test_group_norm_silu_rejects_what_the_kernel_does_not_take(case):
 @pytest.mark.parametrize("shape", [(2, 8, 136), (2, 8, 12), (2, 8)])
 def test_flash_attention_rejects_what_the_kernel_does_not_take(shape):
     q = torch.randn(shape)
-    with pytest.raises(ValueError):
-        flash_attention.flash_attention_fwd(q, q, q)
+    if q.dim() == 3:
+        # a head_dim beyond the kernels' limit or no multiple of 8: refused
+        # or padded on the card (`cuda` tests below); the plain version on
+        # the CPU takes any head_dim
+        for got, want in zip(flash_attention.flash_attention_fwd(q, q, q),
+                             flash_attention.flash_attention_fwd_ref(q, q, q)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention_fwd(q, q, q)
     q = torch.randn(2, 8, 16)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_fwd(q, q, torch.randn(2, 9, 16))
@@ -107,7 +117,7 @@ def test_plain_kernels_reroutes_the_call_sites_and_restores_them():
                 dim_mod.selective_scan)
     with pytest.raises(RuntimeError):
         with plain_kernels():
-            assert unet_mod.group_norm_silu is fused_norm.group_norm_silu_ref
+            assert unet_mod.group_norm_silu is fused_norm.group_norm_silu_plain
             assert (attention_mod.flash_attention
                     is flash_attention.flash_attention_ref)
             assert dim_mod.selective_scan is scan_mod.selective_scan_ref
@@ -703,3 +713,225 @@ def test_remat_dim_launches_and_matches_the_dim_without(cuda):
     (loss, grads), (loss_remat, grads_remat) = results
     assert max_rel(loss_remat, loss) <= 1e-5
     assert max_rel(grads_remat, grads) <= 1e-4
+
+
+# ----------------- GroupNorm + SiLU: the forward's forms, its statistics and
+# ----------------- the backward kernel (K1b)
+# every form of `csrc/gn_silu.cu`: one warp (1 KB and 4 KB groups), 128 to
+# 1024 threads, rows of 12 vectors (C / G = 48), the backward with dxh and xh
+# in shared memory and (from 32 x 32 x 32 floats a group) with dxh alone; the
+# generic kernels for rows that are no whole vectors (C / G = 3, 1, 2) and
+# for a group beyond shared memory (64 x 64 x 16 floats)
+GN_KERNEL_SHAPES = [(3, 4, 4, 256), (3, 4, 4, 512), (3, 8, 8, 256),
+                    (3, 16, 16, 128), (3, 16, 16, 384), (3, 16, 16, 512),
+                    (3, 32, 32, 128), (3, 32, 32, 256), (3, 32, 32, 384),
+                    (2, 3, 3, 1024), (3, 5, 7, 24), (2, 2, 3, 16),
+                    (2, 64, 64, 128), (2, 7, 9, 8)]
+
+
+def gn_inputs(shape, gen, device):
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=device) * 2 + 0.5
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
+    bias = 0.1 * torch.randn(c, generator=gen, device=device)
+    return x, scale, bias, torch.randn(shape, generator=gen, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GN_KERNEL_SHAPES)
+def test_gn_silu_forward_and_statistics_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, scale, bias, _ = gn_inputs(shape, gen, cuda)
+    before = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1,
+                                                              before[1])
+    assert max_rel(y, fused_norm.group_norm_silu_ref(x, scale, bias, 8)) <= TOL
+    assert stats.shape == (2, shape[0], 8)
+    assert max_rel(stats, fused_norm.group_norm_silu_stats_ref(x, 8)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GN_KERNEL_SHAPES)
+def test_gn_silu_bwd_kernel_matches_plain_and_autograd(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    x, scale, bias, g = gn_inputs(shape, gen, cuda)
+    _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    before = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    again = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0],
+                                                              before[1] + 2)
+    plain = fused_norm.group_norm_silu_bwd_ref(
+        x, scale, bias, g, fused_norm.group_norm_silu_stats_ref(x, 8), 8)
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    auto = torch.autograd.grad(fused_norm.group_norm_silu_ref(*leaves, 8),
+                               leaves, g)
+    for name, got, twice, want, want_auto in zip(
+            ("dx", "dscale", "dbias"), grads, again, plain, auto):
+        assert got.shape == want.shape, name
+        assert max_rel(got, want) <= TOL, name
+        assert max_rel(got, want_auto) <= TOL, name
+        assert torch.equal(got, twice), name  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 2, 2048), (2, 1, 3, 4096)])
+def test_gn_silu_kernels_take_rows_wider_than_the_block_for_their_size(
+        cuda, shape):
+    """A small group in rows of 64 and 128 vectors: the block grows to a
+    row's vectors, past what the group's size alone would pick."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x, scale, bias, g = gn_inputs(shape, gen, cuda)
+    y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    torch.cuda.synchronize()
+    assert max_rel(y, fused_norm.group_norm_silu_ref(x, scale, bias, 8)) <= TOL
+    for got, want in zip(grads, fused_norm.group_norm_silu_bwd_ref(
+            x, scale, bias, g, stats, 8)):
+        assert max_rel(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 16, 16, 128), (3, 5, 7, 24)])
+def test_group_norm_silu_function_grads_on_the_card(cuda, shape):
+    """The CUDA branch of `GroupNormSiLU`: one forward and one backward
+    launch, an output gradient in a channels-first layout, the gradients of
+    autograd through the plain forward."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, scale, bias, g = gn_inputs(shape, gen, cuda)
+    g_t = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not g_t.is_contiguous()
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    before = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    y = fused_norm.group_norm_silu(*leaves, 8)
+    got = torch.autograd.grad(y, leaves, g_t)
+    torch.cuda.synchronize()
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    ref_leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    want = torch.autograd.grad(
+        fused_norm.group_norm_silu_ref(*ref_leaves, 8), ref_leaves, g_t)
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    for name, ours, ref in zip(("dx", "dscale", "dbias"), got, want):
+        assert max_rel(ours, ref) <= TOL, name
+    with plain_kernels():
+        plain_leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        plain = torch.autograd.grad(
+            unet_mod.group_norm_silu(*plain_leaves, 8), plain_leaves, g_t)
+    assert (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    for ours, ref in zip(got, plain):
+        assert max_rel(ours, ref) <= TOL
+
+
+# ------------- attention with a head_dim the kernels pad, or refuse
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq_len", [1, 16, 100, 300])
+@pytest.mark.parametrize("head_dim", [4, 12, 20, 121])
+def test_flash_attention_pads_a_head_dim_that_is_no_multiple_of_8(
+        cuda, seq_len, head_dim):
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
+    args = attention_bwd_inputs(6, seq_len, head_dim, gen, cuda)
+    q, k, v = args[:3]
+    before = (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    grads = flash_attention.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v)
+    assert o.shape == q.shape and o.is_contiguous()
+    assert max_rel(o, o_ref) <= TOL
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    refs = flash_attention.flash_attention_bwd_ref(*args)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.shape == q.shape and got.is_contiguous(), name
+        scale = (refs[2] if seq_len == 1 else want).abs().max()
+        assert (got - want).abs().max() <= TOL_BWD * scale, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_a_head_dim_beyond_its_limit_on_the_card(cuda):
+    q = torch.randn(2, 8, 136, device=cuda)
+    before = flash_attention.LAUNCHES
+    with pytest.raises(ValueError, match="limit of 128"):
+        flash_attention.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="limit of 128"):
+        flash_attention.flash_attention_bwd(q, q, q, q, q,
+                                            torch.zeros(2, 8, 1, device=cuda))
+    assert flash_attention.LAUNCHES == before
+
+
+# ------------------- the scan forward's forms: states off and states on
+# N below, at and above a lane's four states of sixteen (eight of thirty-two);
+# D a multiple of the 64-channel tile, of 4 only, and of neither (4-byte
+# copies); L with whole blocks of 32, of 16, and a ragged last block
+SCAN_FWD_SHAPES = [(8, 256, 768, 16), (3, 1024, 768, 16), (2, 1000, 200, 32),
+                   (4, 48, 768, 16), (8, 100, 200, 8), (2, 1024, 201, 5),
+                   (3, 1, 100, 16), (2, 37, 130, 20), (2, 33, 64, 32),
+                   (1, 1024, 768, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_states", [False, True])
+@pytest.mark.parametrize("batch,length,d_inner,n_state", SCAN_FWD_SHAPES)
+def test_scan_fwd_forms_match_plain(cuda, batch, length, d_inner, n_state,
+                                    save_states):
+    gen = torch.Generator(device=cuda).manual_seed(length + d_inner + 4)
+    inputs = scan_inputs(batch, length, d_inner, n_state, gen, cuda)[:5]
+    before = scan_launch_counts()
+    y, bound = scan_mod.selective_scan_fwd(*inputs, save_states)
+    again, _ = scan_mod.selective_scan_fwd(*inputs, save_states)
+    torch.cuda.synchronize()
+    expected = {"FWD_LAUNCHES": 2}
+    if save_states:
+        expected["FWD_STATES_LAUNCHES"] = 2
+    assert launched_since(before) == expected
+    y_ref, bound_ref = scan_mod.selective_scan_fwd_ref(*inputs, True)
+    assert max_rel(y, y_ref) <= TOL
+    assert torch.equal(y, again)
+    if save_states:
+        assert (bound - bound_ref).abs().max().item() <= TOL * max(
+            bound_ref.abs().max().item(), 1.0)
+    else:
+        assert bound is None
+
+
+@pytest.mark.cuda
+def test_scan_fwd_takes_views_that_are_not_16_byte_aligned(cuda):
+    """Inputs 4 bytes into their storage: the copies fall back to 4 bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    inputs = scan_inputs(2, 100, 128, 16, gen, cuda)[:5]
+    shifted = []
+    for t in inputs:
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        flat[1:] = t.flatten()
+        shifted.append(flat[1:].view(t.shape))
+        assert shifted[-1].data_ptr() % 16 == 4
+    for save_states in (False, True):
+        y, _ = scan_mod.selective_scan_fwd(*shifted, save_states)
+        y_ref, _ = scan_mod.selective_scan_fwd_ref(*inputs, False)
+        assert max_rel(y, y_ref) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fwd", "fwd_split", "bwd", "bwd_nostate",
+                                "bwd_split"])
+def test_scan_refuses_more_than_32_states_on_the_card(cuda, op):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x, dt, A, B, C, g = scan_inputs(2, 32, 64, 33, gen, cuda)
+    bound = torch.zeros(2, 1, 33, 64, device=cuda)
+    args = {"fwd": (x, dt, A, B, C), "fwd_split": (x, dt, A, B, C),
+            "bwd": (x, dt, A, B, C, g, bound),
+            "bwd_nostate": (x, dt, A, B, C, g),
+            "bwd_split": (x, dt, A, B, C, g, bound)}[op]
+    before = scan_launch_counts()
+    with pytest.raises(ValueError, match="limit of 32"):
+        getattr(scan_mod, "selective_scan_" + op)(*args)
+    assert launched_since(before) == {}
+    cpu = [t.cpu() for t in args]  # the plain versions take it
+    assert getattr(scan_mod, "selective_scan_" + op)(*cpu)[0].shape == x.shape

@@ -215,6 +215,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         bound = torch.zeros(2, 1, 33, 8)
     else:
         bound = torch.zeros(2, 2, 4, 8)
+    if case == "state":
+        # more than MAX_STATE states: the card's kernels refuse it (a `cuda`
+        # test in test_torch_port_kernels.py), the plain versions on the CPU
+        # take it, as the JAX package's XLA scan does
+        assert A.shape[1] > ss.MAX_STATE
+        y, saved = ss.selective_scan_fwd(x, dt, A, B, C, True)
+        assert y.shape == x.shape and saved.shape == bound.shape
+        grads = ss.selective_scan_bwd(x, dt, A, B, C, g, bound)
+        assert [t.shape for t in grads] == [t.shape for t in (x, dt, A, B, C)]
+        return
     with pytest.raises((ValueError, TypeError)):
         ss.selective_scan_bwd(x, dt, A, B, C, g, bound)
     if case != "bound":

@@ -109,6 +109,24 @@ def test_split_plain_versions_agree_with_the_unsplit_ones(
     assert_grads_close(ours, refs)
 
 
+# L 100 and 1000: a ragged last time block (and at 1000 a ragged last chunk);
+# 1024: whole blocks of 32 steps; the chunks are `chunk_blocks_for`'s own
+@pytest.mark.parametrize("batch,length,d_inner,n_state", [
+    (2, 100, 8, 4), (1, 1000, 8, 4), (2, 1024, 8, 4), (3, 1024, 6, 16),
+    (48, 1024, 2, 3)])
+def test_split_plain_forward_matches_sequential_and_jax_at_long_lengths(
+        batch, length, d_inner, n_state):
+    arrays = scan_inputs(batch, length, d_inner, n_state, seed=length)[:5]
+    args = torch_args(*arrays)
+    y, bound = ss.selective_scan_fwd_split_ref(*args)
+    assert bound.shape == (batch, len(ss._blocks(length)), n_state, d_inner)
+    assert max_rel(y, ss.selective_scan_sequential(*args)) <= TOL_FWD
+    assert max_rel(y, jax_sequential(*map(jnp.asarray, arrays))) <= TOL_FWD
+    y_whole, bound_whole = ss.selective_scan_fwd_ref(*args, True)
+    assert max_rel(y, y_whole) <= TOL_FWD
+    assert max_rel(bound, bound_whole) <= TOL_FWD
+
+
 @pytest.mark.parametrize("length", [64, 512, 100])
 @pytest.mark.parametrize("route", ["nostate", "split"])
 def test_grads_match_jax_grad_of_the_sequential_scan(route, length):
@@ -267,6 +285,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op, case):
     if (op == "fwd_split" and case in ("g", "bound")) or (
             op == "bwd_nostate" and case == "bound"):
         getattr(ss, "selective_scan_" + op)(*args)  # not an input of this op
+        return
+    if case == "state":
+        # more than MAX_STATE states: refused on the card only; the plain
+        # versions on the CPU take any state size
+        assert A.shape[1] > ss.MAX_STATE
+        outs = getattr(ss, "selective_scan_" + op)(*args)
+        assert outs[0].shape == x.shape
         return
     with pytest.raises((ValueError, TypeError)):
         getattr(ss, "selective_scan_" + op)(*args)

@@ -59,6 +59,7 @@ WARMUP, PROFILED_STEPS, TIMED, REPEATS = 3, 5, 10, 3
 # Kinds of device kernel, matched in order on the kernel's name. The names
 # are cuDNN's, cuBLAS's, PyTorch's and the port's own.
 KINDS = [
+    ("GN+SiLU backward, K1b (gn_silu_bwd)", ("gn_silu_bwd",)),
     ("GN+SiLU forward, K1 (gn_silu_fwd)", ("gn_silu",)),
     ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd_kernel",)),
     ("attention backward's delta and dq-share sum passes (K3)",
@@ -86,7 +87,7 @@ KINDS = [
     ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma")),
     ("layer norms", ("layer_norm",)),
     ("AdamW, EMA, clip (multi-tensor)", ("multi_tensor", "foreach")),
-    ("reductions (GN+SiLU backward recompute, norms, loss)", ("reduce",)),
+    ("reductions (norms, loss, bias gradients)", ("reduce",)),
     ("elementwise, copies, cat, upsample", ("elementwise", "vectorized",
                                             "catarray", "upsample", "copy",
                                             "fill")),
