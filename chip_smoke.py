@@ -38,8 +38,10 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
   backward at batch 32 and 128 (the training batch); the backward with no saved states at the same batches,
   at L = 100 and at L = 1024; the time-split forward and backward at
   L = 1024 (batch 16 and 2) and L = 1000, also against the whole-sequence
-  kernels; and the per-call times of the whole-sequence and the time-split
-  kernels at L = 1024 for batch 2 to 128; and the reverse sweep that the
+  kernels; the per-call times of the whole-sequence and the time-split
+  kernels on the card at L = 1024 for batch 1 to 128 (the data behind the
+  scan's routing rules), and of the time-split kernels at each chunk size;
+  and the reverse sweep that the
   three backward kernels share in each of its forms (four and eight states
   a lane, time blocks of 32 and 16 steps, a channel count that is no
   multiple of its tile);
@@ -58,9 +60,12 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
   and against the same weights without remat, then the same `train` and
   `sample` run, with the peak device memory beside the run without remat;
 * the same DiM on 64x64 images (L = 1024, the `synthetic` dataset, batch
-  16), where the scans under a gradient run time-split: loss and gradients
-  against the plain versions, one epoch (32 steps) of `train`, train
-  images/s, and `sample` DDIM-10 from its checkpoint.
+  16), whose scans under a gradient take what the routing rules pick there
+  (the time-split forward, then the whole-sequence backward from its
+  states): loss and gradients against the plain versions, one epoch (32
+  steps) of `train`, train images/s, and `sample` DDIM-10 from its
+  checkpoint; then one epoch (64 steps) of `train` at batch 8, where the
+  rules take the time-split backward too.
 
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
@@ -125,6 +130,11 @@ GN_RAGGED = (3, 5, 7, 24)  # B, H, W, C: C % 8 == 0, H*W odd
 GN_LARGE = (4, 64, 64, 128)
 ATTN_LENGTHS = (256, 64, 16, 100)
 ATTN_BH, HEAD_DIM = 128, 64
+# (L, d) of the forward kernel's forms and shapes the UNet does not give
+# it: tiles of 32 rows at d 32, whole and in two tiles, tiles of 128 at d 32,
+# tiles of 64 at d 128, many key tiles, one row
+ATTN_FWD_FORMS = [(16, 32), (32, 64), (33, 64), (256, 32), (256, 128),
+                  (1024, 64), (1, 8)]
 CHECK_BATCH = 32
 SAMPLES, STEPS, CFG_SCALE = 80, 50, 3.0
 GN_PER_FORWARD, ATTN_PER_FORWARD = 45, 11
@@ -163,11 +173,19 @@ DIM_STEP = dict(DIM_FORWARD, scan_fwd_states=SCAN_PER_FORWARD,
 # backward) and keeps no scan states; the backward rebuilds them (K7)
 DIM_REMAT_STEP = {"scan_fwd": 2 * SCAN_PER_FORWARD,
                   "scan_bwd_nostate": SCAN_PER_FORWARD}
-# The 64x64 DiM: L = 1024 in 32 time blocks, batch 16, so the scans under a
-# gradient run time-split (K9, K10); its forwards without one are K5
+# The 64x64 DiM: L = 1024 in 32 time blocks, batch 16. Under a gradient
+# its scans take what `scan.split_forward` and `scan.split_backward` pick at
+# (16, 1024, 768): the time-split forward (K9) and K8's whole reverse sweep
+# from K9's states; its forwards without one are K5
 DIM64_SIZE, DIM64_BATCH = 64, 16
+DIM64_LENGTH = (DIM64_SIZE // 2) ** 2  # patch 2
 DIM64_STEP = {"scan_fwd_split": SCAN_PER_FORWARD,
-              "scan_bwd_split": SCAN_PER_FORWARD}
+              "scan_bwd": SCAN_PER_FORWARD}
+# The same model trained at batch 8, where the rules take the time-split
+# backward (K10) too: one epoch, launches only
+DIM64_SMALL_BATCH = 8
+DIM64_SMALL_STEP = {"scan_fwd_split": SCAN_PER_FORWARD,
+                    "scan_bwd_split": SCAN_PER_FORWARD}
 SYNTHETIC_IMAGES = 512  # the `synthetic` dataset's size
 SCAN_D, SCAN_N = 768, 16  # d_inner = 2 * hidden, state size
 # (batch, L): the check, sampling and training batches at the model's L, the
@@ -185,18 +203,21 @@ SCAN_BWD_CASES = [(CHECK_BATCH, 256), (TRAIN_BATCH, 256)]
 # K7: the same, a ragged L, and L = 1024, where the rebuilt block states do
 # not fit shared memory and go to a scratch buffer in device memory
 SCAN_NOSTATE_CASES = SCAN_BWD_CASES + [(CHECK_BATCH, 100), (16, 1024)]
-# K9, K10: the 64x64 DiM's training batch and a small one at its L, and a
-# ragged L (63 time blocks of 16 steps, the last of 8)
-SCAN_SPLIT_CASES = [(16, 1024), (2, 1024), (16, 1000)]
+# K9, K10: the 64x64 DiM's training batches (16; 8, where K10 runs) and a
+# small one at its L, and a ragged L (63 time blocks of 16 steps, the last
+# of 8)
+SCAN_SPLIT_CASES = [(DIM64_BATCH, 1024), (DIM64_SMALL_BATCH, 1024), (2, 1024),
+                    (16, 1000)]
 # (batch, L, D, N) for the forms of the reverse sweep that the main paths do
 # not take: eight states a lane (N > 16) with K7's states filling its
 # shared-memory budget, then in device scratch; and four states a lane with
 # N 8, time blocks of 16 steps, a ragged last one, D no multiple of 64
 SCAN_SWEEP_FORMS = [(8, 256, 768, 32), (4, 1024, 768, 32), (8, 100, 200, 8)]
-SCAN_SWEEP_LENGTH, SCAN_SWEEP_BATCHES = 1024, (2, 4, 8, 16, 32, 64, 128)
+SCAN_SWEEP_LENGTH, SCAN_SWEEP_BATCHES = 1024, (1, 2, 4, 8, 16, 32, 64, 128)
 # K9, K10 at each of these chunk sizes (time blocks in a chunk) for these
-# batches: the data behind `scan.chunk_blocks_for`
-SCAN_CHUNK_SWEEP, SCAN_CHUNK_BATCHES = (1, 2, 4, 8), (2, 16, 32)
+# batches: the data behind `scan.fwd_chunk_blocks` and `scan.bwd_chunk_blocks`
+SCAN_CHUNK_SWEEP = (1, 2, 4, 6, 8, 11, 16)
+SCAN_CHUNK_BATCHES = (1, 2, 16, 32)
 # The scan forward keeps the recurrence in float32 like its plain version,
 # in another order of rounding: 2e-5 as the other forwards. Its backward
 # runs an adjoint over L steps and sums dB, dC over D: 1e-4 as K3.
@@ -240,6 +261,34 @@ def median_ms(fn, reps=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls=10, reps=5):
+    """Per call, the card's own time: `calls` launches captured in a CUDA
+    graph and replayed between one pair of events (the median of `reps`
+    replays), so no launch waits on the host, as in a step whose host runs
+    ahead of the card. `fn` has run before (its one-time set-up is done)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -441,10 +490,24 @@ def phase_gn(gen):
     return worst
 
 
+def attention_fwd_form(seq, d):
+    """The form of K2 that the wrapper takes for this shape, in words."""
+    tile = flash_attention.fwd_tile(seq, d)
+    width = flash_attention.padded_head_dim(d)
+    dmax = 32 if width <= 32 else 64 if width <= 64 else 128
+    return (f"tiles of {tile} rows, {-(-seq // tile)} key tile"
+            f"{'s' if seq > tile else ''}, d padded to {dmax}")
+
+
 def phase_attn(gen):
+    """K2 against its plain version at BH 128, d 64 and L 256, 64, 16, 100
+    (timed), then in the forms the UNet does not take; each line names the
+    form. Returns the worst absolute error."""
     worst_abs = 0.0
-    for seq in ATTN_LENGTHS:
-        q, k, v = (torch.randn(ATTN_BH, seq, HEAD_DIM, generator=gen,
+    cases = [(seq, HEAD_DIM, True) for seq in ATTN_LENGTHS]
+    cases += [(seq, d, False) for seq, d in ATTN_FWD_FORMS]
+    for seq, d, timed in cases:
+        q, k, v = (torch.randn(ATTN_BH, seq, d, generator=gen,
                                device="cuda") for _ in range(3))
         o, lse = flash_attention.flash_attention_fwd(q, k, v)
         o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v)
@@ -452,15 +515,18 @@ def phase_attn(gen):
         rel = max_rel(o, o_ref)
         lse_err = (lse - lse_ref).abs().max().item()
         worst_abs = max(worst_abs, (o - o_ref).abs().max().item(), lse_err)
-        ms = median_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
-        plain = median_ms(
-            lambda: flash_attention.flash_attention_fwd_ref(q, k, v))
-        print(f"flash_attn_fwd BH={ATTN_BH} L={seq} d={HEAD_DIM}: o max_rel "
-              f"{rel:.3e} lse max_abs {lse_err:.3e} kernel {ms:.4f} ms "
-              f"plain {plain:.4f} ms")
+        line = (f"flash_attn_fwd BH={ATTN_BH} L={seq} d={d} "
+                f"[{attention_fwd_form(seq, d)}]: o max_rel {rel:.3e} lse "
+                f"max_abs {lse_err:.3e}")
+        if timed:
+            ms = median_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
+            plain = median_ms(
+                lambda: flash_attention.flash_attention_fwd_ref(q, k, v))
+            line += f" kernel {ms:.4f} ms plain {plain:.4f} ms"
+        print(line)
         if not (rel <= TOL_OUT and lse_err <= TOL_LSE):
-            raise AssertionError(f"flash_attn_fwd L={seq}: o {rel}, lse "
-                                 f"{lse_err}")
+            raise AssertionError(f"flash_attn_fwd L={seq} d={d}: o {rel}, "
+                                 f"lse {lse_err}")
     return worst_abs
 
 
@@ -582,7 +648,8 @@ def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
         totals["attn"][1] += n * plain
         totals["attn"][2] += n * library
         bounds["attn"].add(*attn_work(bh, seq, d), n)
-        print(f"  main path: flash_attn_fwd BH={bh} L={seq} d={d} x{n}: o "
+        print(f"  main path: flash_attn_fwd BH={bh} L={seq} d={d} x{n} "
+              f"[{attention_fwd_form(seq, d)}]: o "
               f"max_rel {rel:.3e} lse max_abs {lse_err:.3e} kernel {ms:.4f} "
               f"ms plain {plain:.4f} ms scaled_dot_product_attention "
               f"{library:.4f} ms")
@@ -854,15 +921,10 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
-                     epochs=TRAIN_EPOCHS, steps_per_epoch=1):
-    """`train.main` for `epochs` epochs at full width (on the fixtures:
-    three epochs of one batch of 128), with exactly `per_step` launches a
-    step; then train images/s with the kernels and with the plain versions,
-    in turns, and the peak device memory of the kernel path's steps; then
-    `sample.main` from the checkpoint it wrote, once for each (method,
-    model calls, flags) of `samplers`, with exactly `per_forward` launches
-    a model call."""
+def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch):
+    """`train.main` for `epochs` epochs at full width, with exactly
+    `per_step` launches a step, finite losses and a checkpoint. Returns the
+    trainer and the launches."""
     batch_size = config["batch_size"]
     cfg_path = write_train_config(config, epochs, tmp)
     torch.cuda.synchronize()
@@ -889,7 +951,22 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
             and ckpt.is_file()):
         raise AssertionError(f"{label}: losses {losses}, {ckpt} written: "
                              f"{ckpt.is_file()}")
+    return trainer, launches
 
+
+def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
+                     epochs=TRAIN_EPOCHS, steps_per_epoch=1):
+    """`train.main` for `epochs` epochs at full width (on the fixtures:
+    three epochs of one batch of 128), with exactly `per_step` launches a
+    step; then train images/s with the kernels and with the plain versions,
+    in turns, and the peak device memory of the kernel path's steps; then
+    `sample.main` from the checkpoint it wrote, once for each (method,
+    model calls, flags) of `samplers`, with exactly `per_forward` launches
+    a model call."""
+    batch_size = config["batch_size"]
+    trainer, launches = run_train_main(label, config, per_step, tmp, epochs,
+                                       steps_per_epoch)
+    ckpt = trainer.save_dir / "current_model.pth"
     images, labels = next(iter(trainer.train_loader))
     images = torch.from_numpy(images).to("cuda")
     labels = torch.from_numpy(labels).to("cuda")
@@ -1032,7 +1109,7 @@ def phase_scan_sweep_forms(gen, worst):
                  + ("device scratch" if scratch else "shared memory")),
                 ("bwd_split", scan.selective_scan_bwd_split,
                  (*inputs, g, bound),
-                 f", chunks of {scan.chunk_blocks_for(batch, length, d_inner)}"
+                 f", chunks of {scan.bwd_chunk_blocks(batch, length, d_inner)}"
                  " time blocks")):
             grads = fn(*args)
             torch.cuda.synchronize()
@@ -1042,11 +1119,14 @@ def phase_scan_sweep_forms(gen, worst):
 
 
 def phase_scan_split(gen, worst, times):
-    """K9 and K10 against their plain versions (the same three passes in
-    plain PyTorch) and against K6 and K8 on the same inputs."""
+    """K9 and K10 against their plain versions (the same passes in plain
+    PyTorch) and against K6 and K8 on the same inputs."""
     for batch, length in SCAN_SPLIT_CASES:
         *inputs, g = scan_case(batch, length, gen)
-        shape = f"B={batch} L={length} D={SCAN_D} N={SCAN_N}"
+        shape = (f"B={batch} L={length} D={SCAN_D} N={SCAN_N} [chunks of "
+                 f"{scan.fwd_chunk_blocks(batch, length, SCAN_D)} and "
+                 f"{scan.bwd_chunk_blocks(batch, length, SCAN_D)} time "
+                 "blocks]")
         outs = scan.selective_scan_fwd_split(*inputs)
         torch.cuda.synchronize()
         y_k6, bound = scan.selective_scan_fwd(*inputs, True)
@@ -1074,25 +1154,50 @@ def phase_scan_split(gen, worst, times):
         print(f"  kernel {ms:.4f} ms plain {plain:.4f} ms")
 
 
+def routed_step(batch, length):
+    """The scan launches of one DiM train step at this shape, as
+    `scan.split_forward` and `scan.split_backward` route them."""
+    n = SCAN_PER_FORWARD
+    step = ({"scan_fwd_split": n} if scan.split_forward(batch, length, SCAN_D)
+            else {"scan_fwd": n, "scan_fwd_states": n})
+    step["scan_bwd_split" if scan.split_backward(batch, length, SCAN_D)
+         else "scan_bwd"] = n
+    return step
+
+
 def phase_scan_sweep(gen, times):
     """Per-call times of the whole-sequence kernels against the time-split
-    ones at L = 1024 over the batch (the data behind `scan.time_split`),
-    and of K7 against K6 + K8 at the CIFAR training shape."""
+    ones at L = 1024 over the batch (the data behind `scan.split_forward`
+    and `scan.split_backward`), each line with what the rules pick, and of
+    K7 against K6 + K8 at the CIFAR training shape."""
     length = SCAN_SWEEP_LENGTH
     for batch in SCAN_SWEEP_BATCHES:
         *inputs, g = scan_case(batch, length, gen)
         _, bound = scan.selective_scan_fwd(*inputs, True)
         args = (*inputs, g, bound)
-        k6 = median_ms(lambda: scan.selective_scan_fwd(*inputs, True), reps=10)
-        k9 = median_ms(lambda: scan.selective_scan_fwd_split(*inputs), reps=10)
-        k8 = median_ms(lambda: scan.selective_scan_bwd(*args), reps=10)
-        k10 = median_ms(lambda: scan.selective_scan_bwd_split(*args), reps=10)
-        times[("sweep", batch)] = {"K6": k6, "K9": k9, "K8": k8, "K10": k10}
-        print(f"scan sweep L={length} B={batch} (time_split "
-              f"{scan.time_split(batch, length, SCAN_D)}, chunk of "
-              f"{scan.chunk_blocks_for(batch, length, SCAN_D)} time blocks): "
-              f"K6 {k6:.4f} ms K9 {k9:.4f} ms, K8 {k8:.4f} ms K10 {k10:.4f} "
-              "ms")
+        fns = {"K6": lambda: scan.selective_scan_fwd(*inputs, True),
+               "K9": lambda: scan.selective_scan_fwd_split(*inputs),
+               "K8": lambda: scan.selective_scan_bwd(*args),
+               "K10": lambda: scan.selective_scan_bwd_split(*args)}
+        single = {k: median_ms(fn, reps=10) for k, fn in fns.items()}
+        device = {k: graph_ms(fn) for k, fn in fns.items()}
+        times[("sweep", batch)] = device
+        fwd = "K9" if scan.split_forward(batch, length, SCAN_D) else "K6"
+        bwd = "K10" if scan.split_backward(batch, length, SCAN_D) else "K8"
+        print(f"scan sweep L={length} B={batch} (picked: {fwd} with chunks "
+              f"of {scan.fwd_chunk_blocks(batch, length, SCAN_D)} time "
+              f"blocks, {bwd} with chunks of "
+              f"{scan.bwd_chunk_blocks(batch, length, SCAN_D)}), ms a call "
+              "on the card (from a CUDA graph; a single launch with its host "
+              "time): "
+              + ", ".join(f"{k} {device[k]:.4f} ({single[k]:.4f})"
+                          for k in fns))
+    pair = times[("sweep", DIM64_BATCH)]
+    print(f"64x64 DiM train step's scans (B={DIM64_BATCH} L={length}), ms a "
+          f"call on the card: forward K6 {pair['K6']:.4f}, K9 "
+          f"{pair['K9']:.4f}; backward K8 {pair['K8']:.4f}, K10 "
+          f"{pair['K10']:.4f}; the rules pick "
+          f"{routed_step(DIM64_BATCH, length)}")
     phase_scan_chunks(gen, times)
     k7 = times[("bwd_nostate", TRAIN_BATCH, 256)][0]
     k6 = times[("fwd", TRAIN_BATCH, 256, True)][0]
@@ -1108,7 +1213,8 @@ def phase_scan_chunks(gen, times):
     """K9 and K10 at L = 1024 with every chunk size of `SCAN_CHUNK_SWEEP`
     in place of the wrappers' own choice: each held against K6 and K8 on
     the same inputs, then timed."""
-    length, rule = SCAN_SWEEP_LENGTH, scan.chunk_blocks_for
+    length = SCAN_SWEEP_LENGTH
+    rules = scan.fwd_chunk_blocks, scan.bwd_chunk_blocks
     for batch in SCAN_CHUNK_BATCHES:
         *inputs, g = scan_case(batch, length, gen)
         y_k6, bound = scan.selective_scan_fwd(*inputs, True)
@@ -1117,7 +1223,8 @@ def phase_scan_chunks(gen, times):
         readings = []
         try:
             for chunk in SCAN_CHUNK_SWEEP:
-                scan.chunk_blocks_for = lambda *shape, chunk=chunk: chunk
+                scan.fwd_chunk_blocks = scan.bwd_chunk_blocks = (
+                    lambda *shape, chunk=chunk: chunk)
                 label = f"scan chunk of {chunk} B={batch} L={length}"
                 check_outputs(f"{label} y/bound",
                               scan.selective_scan_fwd_split(*inputs),
@@ -1125,17 +1232,17 @@ def phase_scan_chunks(gen, times):
                 check_outputs(f"{label} dx/ddt/dA/dB/dC",
                               scan.selective_scan_bwd_split(*args),
                               {"K8": grads_k8}, TOL_SCAN_BWD)
-                k9 = median_ms(lambda: scan.selective_scan_fwd_split(*inputs),
-                               reps=10)
-                k10 = median_ms(lambda: scan.selective_scan_bwd_split(*args),
-                                reps=10)
+                k9 = graph_ms(lambda: scan.selective_scan_fwd_split(*inputs))
+                k10 = graph_ms(lambda: scan.selective_scan_bwd_split(*args))
                 times[("chunk", batch, chunk)] = {"K9": k9, "K10": k10}
                 readings.append(f"{chunk}: K9 {k9:.4f} K10 {k10:.4f}")
         finally:
-            scan.chunk_blocks_for = rule
+            scan.fwd_chunk_blocks, scan.bwd_chunk_blocks = rules
         print(f"scan chunk sweep L={length} B={batch} (the wrappers' own "
-              f"choice: {rule(batch, length, SCAN_D)}), ms by time blocks "
-              f"in a chunk: {'; '.join(readings)}")
+              f"choice: K9 {rules[0](batch, length, SCAN_D)}, K10 "
+              f"{rules[1](batch, length, SCAN_D)}), ms a call on the card "
+              f"(from a CUDA graph) by time blocks in a chunk: "
+              f"{'; '.join(readings)}")
 
 
 def print_scan_bounds():
@@ -1152,10 +1259,14 @@ def print_scan_bounds():
             ("K10", "bwd", DIM64_BATCH, 1024)):
         keys = Bound().add(*scan_work(kind, batch, length)).keys()
         walks = {"fwd": 1, "fwd_states": 1, "bwd": 2, "bwd_nostate": 3}[kind]
+        if name == "K9":  # chunk 0 and the last walked once, the others twice
+            chunks = -(-len(scan._blocks(length))
+                       // scan.fwd_chunk_blocks(batch, length, SCAN_D))
+            walks = 2 - 2 / chunks
         exp_ms = 1e3 * walks * batch * length * SCAN_D * SCAN_N / PEAK_EXP_PER_S
         print(f"scan bound per call {name} B={batch} L={length}: "
               f"{keys['bound_ms']:.4f} ms ({keys['bound_by']}); its "
-              f"exponentials alone, {walks} a state and step on the "
+              f"exponentials alone, {walks:.3g} a state and step on the "
               f"special-function units: {exp_ms:.4f} ms")
 
 
@@ -1304,6 +1415,12 @@ def main():
             DIM_FORWARD, samplers, tmp)
 
     # the same DiM on 64x64 images, on the `synthetic` dataset (one epoch)
+    for batch, step in ((DIM64_BATCH, DIM64_STEP),
+                        (DIM64_SMALL_BATCH, DIM64_SMALL_STEP)):
+        if routed_step(batch, DIM64_LENGTH) != step:
+            raise AssertionError(
+                f"64x64 at batch {batch}: {step} is not what the scan's rules "
+                f"route: {routed_step(batch, DIM64_LENGTH)}")
     size = (DIM64_SIZE, DIM64_SIZE)
     dim64_config = dict(
         dim_config, image_size=size, dataset="synthetic",
@@ -1315,6 +1432,11 @@ def main():
         dim64_launches, dim64_rates, dim64_peak = phase_train_main(
             "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers, tmp,
             epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, dim64_small_launches = run_train_main(
+            "DiM 64x64 batch 8",
+            dict(dim64_config, batch_size=DIM64_SMALL_BATCH),
+            DIM64_SMALL_STEP, tmp, 1, SYNTHETIC_IMAGES // DIM64_SMALL_BATCH)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -1339,7 +1461,7 @@ def main():
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
     k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
     k9_ms, k9_plain = scan_times[("fwd_split", DIM64_BATCH, 1024)]
-    k10_ms, k10_plain = scan_times[("bwd_split", DIM64_BATCH, 1024)]
+    k10_ms, k10_plain = scan_times[("bwd_split", DIM64_SMALL_BATCH, 1024)]
 
     def per_model_call(kind, batch, length):
         """The bound of the 12 scans of one model call."""
@@ -1405,7 +1527,8 @@ def main():
          "source": csrc + "selective_scan_bwd.cu",
          "replaces": pallas + ":511",
          "launches": dim_train_launches["scan_bwd"],
-         "launches_by_path": {"train": dim_train_launches["scan_bwd"]},
+         "launches_by_path": {"train": dim_train_launches["scan_bwd"],
+                              "train_64x64": dim64_launches["scan_bwd"]},
          "max_abs_err": scan_err["bwd"],
          "ms": SCAN_PER_FORWARD * bwd_ms,
          "plain_ms": SCAN_PER_FORWARD * bwd_plain,
@@ -1422,26 +1545,32 @@ def main():
          "plain_ms": SCAN_PER_FORWARD * k7_plain,
          **per_model_call("bwd_nostate", TRAIN_BATCH, 256),
          "library_ms": None},
-        # K9 and K10; ms per 64x64 train step: 12 calls at batch 16, L 1024
+        # K9, ms per 64x64 train step: 12 calls at batch 16, L 1024
         {"name": "selective_scan_fwd_split", "route": "cuda",
          "source": csrc + "selective_scan_split.cu",
          "replaces": pallas + ":371",
          "launches": dim64_launches["scan_fwd_split"],
-         "launches_by_path": {"train_64x64": dim64_launches["scan_fwd_split"]},
+         "launches_by_path": {
+             "train_64x64": dim64_launches["scan_fwd_split"],
+             "train_64x64_batch_8": dim64_small_launches["scan_fwd_split"]},
          "max_abs_err": scan_err["fwd_split"],
          "ms": SCAN_PER_FORWARD * k9_ms,
          "plain_ms": SCAN_PER_FORWARD * k9_plain,
          **per_model_call("fwd_states", DIM64_BATCH, 1024),
          "library_ms": None},
+        # K10, ms per 64x64 train step at batch 8, the path that runs it
         {"name": "selective_scan_bwd_split", "route": "cuda",
          "source": csrc + "selective_scan_split.cu",
          "replaces": pallas + ":411",
-         "launches": dim64_launches["scan_bwd_split"],
-         "launches_by_path": {"train_64x64": dim64_launches["scan_bwd_split"]},
+         "launches": dim64_small_launches["scan_bwd_split"],
+         "launches_by_path": {
+             "train_64x64": dim64_launches["scan_bwd_split"],
+             "train_64x64_batch_8": dim64_small_launches["scan_bwd_split"]},
          "max_abs_err": scan_err["bwd_split"],
          "ms": SCAN_PER_FORWARD * k10_ms,
          "plain_ms": SCAN_PER_FORWARD * k10_plain,
-         **per_model_call("bwd", DIM64_BATCH, 1024), "library_ms": None},
+         **per_model_call("bwd", DIM64_SMALL_BATCH, 1024),
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

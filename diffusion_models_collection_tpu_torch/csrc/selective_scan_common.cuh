@@ -14,15 +14,15 @@
 // lanes, each with NMAX / 4 of its N states (padded to NMAX = 16 or 32; the
 // states past N have A = B = C = 0 and stay 0) in registers, and one block
 // of 256 threads 64 channels of one row: see "forward" and "backward" below
-// for what bounds each and why. The carry passes of the time-split kernels
-// and the local pass of the time-split backward give one thread a whole
-// channel (128 channels a block); they walk chunks, not steps. What differs
-// between the kernels of a kind is the range of time steps a block walks and
-// where its first state or adjoint comes from.
+// for what bounds each and why. The local and carry passes of the
+// time-split backward give one thread a whole channel (128 channels a
+// block). What differs between the kernels of a kind is the range of time
+// steps a block walks and where its first state or adjoint comes from (the
+// time-split forward rebuilds it from the chunks before, in `fast_exp2`).
 // The decays are a = 2^(dt * A log2(e)) on the exponential unit
 // (`fast_exp2`); every kernel holds its bar against the plain versions (2e-5
-// forward, 1e-4 backward) with it. The carry passes keep expf: they run once
-// a chunk.
+// forward, 1e-4 backward) with it. The backward's carry pass keeps expf: it
+// runs once a chunk.
 
 #pragma once
 
@@ -329,10 +329,11 @@ __device__ __forceinline__ void request_time_block(
 // OUT: y is written (else neither C nor y is touched: the local pass of a
 // time-split scan). bound != null: the state entering each time block is
 // written, except the first when `skip_first_bound` (the caller read h from
-// that very row). Returns the sum of dt over the steps walked (exp(A * sum)
-// is the product of their decays).
+// that very row). SUM (by default where there is no output): returns the
+// sum of dt over the steps walked (exp(A * sum) is the product of their
+// decays), else 0.
 // Every thread of the block must call it (it synchronises), active or not.
-template <int NMAX, bool OUT>
+template <int NMAX, bool OUT, bool SUM = !OUT>
 __device__ __forceinline__ float scan_fwd_walk(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ Bm, const float* __restrict__ Cm,
@@ -392,7 +393,7 @@ __device__ __forceinline__ float scan_fwd_walk(
           const float u = dtv * st.x[s][ch];
           float bn[SPL];
           load_lane_row<SPL>(bn, st.B[s], q);
-          if (!OUT) dt_sum += dtv;
+          if (SUM) dt_sum += dtv;
 #pragma unroll
           for (int i = 0; i < SPL; ++i)
             h[i] = fmaf(fast_exp2(dtv * a2[i]), h[i], u * bn[i]);

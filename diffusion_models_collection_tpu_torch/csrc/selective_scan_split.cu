@@ -1,35 +1,47 @@
 // Selective scan with the time axis split across thread blocks, float32:
-// the forward with saved block states and the backward from them, for long
-// sequences at small batch. The math, `scan_fwd_walk` and `scan_bwd_range`
-// are in selective_scan_common.cuh.
+// the forward with saved block states (K9) and the backward from them (K10),
+// for long sequences at small batch. The math, `scan_fwd_walk` and
+// `scan_bwd_range` are in selective_scan_common.cuh.
 //
 // Replaces diffusion_models_collection_tpu/ops/selective_scan_pallas.py:
 // _scan_fwd_ckpt_kernel_grid (K9) and _scan_bwd_from_ckpt_kernel_grid (K10),
 // the forms with one time block per program. On the TPU the grid runs in
 // order on one core, so the state (or the adjoint) is carried from program
 // to program in scratch. Thread blocks run in no order, so here the carry is
-// a pass of its own. A chunk is `CB` whole time blocks of T steps (the last
+// computed apart. A chunk is `CB` whole time blocks of T steps (the last
 // chunk may be shorter); both recurrences are affine in what enters a chunk,
-//   h_out = P h_in + S,   phi_out = P phi_in + R,   P = exp(A * sum_chunk dt),
-// so each is three passes:
-//   (a) per (row, channel tile, chunk): S (or R) from a zero h_in (phi_in)
-//       and the chunk's sum of dt;
-//   (b) per (row, channel): walk the chunks in order (in reverse) and replace
-//       each S (R) by the state (adjoint) entering that chunk;
-//   (c) per (row, channel tile, chunk): the whole chunk from what enters it,
-//       with K6's forward walk or K8's reverse sweep.
+//   h_out = P h_in + S,   phi_out = P phi_in + R,   P = exp(A * sum_chunk dt).
 // P is never divided by, so its underflow over a long chunk is harmless.
-// The forward's S go straight into `bound`: the state entering a chunk is
-// the `bound` row of its first time block. Passes (a) and (c) of the forward
-// are both `scan_fwd_walk` (64 channels a block, four lanes a channel), (a)
-// with no output. dB and dC are summed over D as in
-// K8 (per-tile partials, no atomics); dA is written per (row, chunk) and
-// summed by the caller.
 //
-// What bounds it on an H100: the exponentials, as in K6 and K8, here
-// evaluated once more in pass (a) (the forward twice in all; the backward's
-// pass (a) adds one to the sweep's 2.5 per state and step), for n_chunks
-// times the blocks in flight that K6 and K8 have.
+// The forward (K9), two launches of `scan_fwd_walk` (64 channels a block,
+// four lanes a channel):
+//   (a) per (row, channel tile, chunk) for every chunk but the last: S from
+//       a zero state and the chunk's sum of dt, into scratch. The state
+//       entering chunk 0 is zero, so its block walks it whole, y and `bound`
+//       rows included, and its S is the state that leaves it;
+//   (c) per (row, channel tile, chunk) for every chunk but the first: the
+//       state entering the chunk, rebuilt from the S and sums of the chunks
+//       before it (h = P_j h + S_j, in order; a few loads and exponentials a
+//       chunk), then the chunk with y and `bound`.
+// What bounds it on an H100: the walk's exponentials and its chain of
+// dependent steps. At the 64x64 DiM's shape (batch 16, L 1024, D 768) the
+// whole-sequence walk (K6) has 192 blocks for the card's 528 slots (four a
+// SM) and each walks 1024 steps; k chunks make each launch (k - 1) x 192
+// blocks that walk 1024 / k steps, for 2 - 2 / k walks in all (chunk 0 once,
+// the last chunk once, the others twice). `selective_scan.fwd_chunk_blocks`
+// takes the most chunks for which each launch is one wave (three here:
+// 384 blocks of 352 steps, then 384 of 352, 4/3 walks).
+//
+// The backward (K10), three passes:
+//   (a) per (row, channel, chunk): R from a zero phi_in and the chunk's sum
+//       of dt, one thread a channel;
+//   (b) per (row, channel): walk the chunks last to first and replace each
+//       R by the adjoint entering that chunk (`split_carry_kernel`);
+//   (c) per (row, channel tile, chunk): K8's reverse sweep over the chunk
+//       from what enters it.
+// dB and dC are summed over D as in K8 (per-tile partials, no atomics); dA is
+// written per (row, chunk) and summed by the caller. Its pass (a) adds an
+// exponential a state and step to the sweep's 2.5.
 
 #include "selective_scan_common.cuh"
 
@@ -37,16 +49,21 @@ namespace {
 
 using namespace dmc_scan;
 
-// (a) of the forward: the chunk's end state from zero into the `bound` row of
-// the chunk's first time block, and its sum of dt into sdt (batch, chunks, D).
+// (a) of the forward, over chunks 0 .. n_chunks - 2 (chunk 0 alone when
+// there is one chunk): chunk 0 walked whole from the zero state, y and its
+// `bound` rows written; a later chunk from a zero state with no output. Each
+// such chunk's end state goes into ends (batch, n_chunks - 1, N, D), its sum
+// of dt into sdt (batch, n_chunks - 1, D), except with one chunk.
 template <int NMAX>
 __global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 split_fwd_local_kernel(const float* __restrict__ x,
                        const float* __restrict__ dt,
                        const float* __restrict__ A,
-                       const float* __restrict__ Bm, float* __restrict__ bound,
+                       const float* __restrict__ Bm,
+                       const float* __restrict__ Cm, float* __restrict__ y,
+                       float* bound, float* __restrict__ ends,
                        float* __restrict__ sdt, int L, int D, int N, int T,
-                       int CB, FwdCopy copy) {
+                       int CB, int n_chunks, FwdCopy copy) {
   constexpr int SPL = NMAX / kBwdLanes;
   __shared__ FwdShared<NMAX> sm;
   const int b = blockIdx.y;
@@ -56,18 +73,25 @@ split_fwd_local_kernel(const float* __restrict__ x,
   const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
+  const int k_end = min(n_blocks, c * CB + CB);
 
   float a2[SPL], h[SPL];
   load_a_lane<SPL>(a2, A, d, q, N, active);
 #pragma unroll
   for (int i = 0; i < SPL; ++i) h[i] = 0.f;
-  const float sum = scan_fwd_walk<NMAX, false>(
-      x, dt, Bm, nullptr, nullptr, nullptr, a2, h, sm, b, d0, active, L, D, N,
-      T, c * CB, min(n_blocks, c * CB + CB), false, copy);
-  if (!active) return;
-  store_lane_states<SPL>(bound + ((size_t)b * n_blocks + c * CB) * N * D + d,
-                         (size_t)D, h, q, N);
-  if (q == 0) sdt[((size_t)b * gridDim.z + c) * D + d] = sum;
+  float sum;
+  if (c == 0)  // the same for the whole block
+    sum = scan_fwd_walk<NMAX, true, true>(x, dt, Bm, Cm, y, bound, a2, h, sm,
+                                          b, d0, active, L, D, N, T, 0, k_end,
+                                          false, copy);
+  else
+    sum = scan_fwd_walk<NMAX, false>(x, dt, Bm, nullptr, nullptr, nullptr, a2,
+                                     h, sm, b, d0, active, L, D, N, T, c * CB,
+                                     k_end, false, copy);
+  if (!active || c == n_chunks - 1) return;
+  const size_t r = (size_t)b * (n_chunks - 1) + c;
+  store_lane_states<SPL>(ends + r * N * D + d, (size_t)D, h, q, N);
+  if (q == 0) sdt[r * D + d] = sum;
 }
 
 // (a) of the backward: the chunk's outgoing adjoint carry from a zero
@@ -113,16 +137,13 @@ split_bwd_local_kernel(const float* __restrict__ dt,
   sdt[((size_t)b * gridDim.z + c) * D + d] = sum;
 }
 
-// (b): one thread per (row, channel) walks the chunks, first to last or
-// (`reverse`) last to first, and replaces each chunk's local result in `buf`
-// (N values, D apart, at b * batch_stride + c * chunk_stride + d) by what
-// enters that chunk.
+// (b) of the backward: one thread per (row, channel) walks the chunks last
+// to first and replaces each chunk's outgoing carry in phi (batch, chunks, N,
+// D) by the one entering it from the chunk after.
 template <int NMAX>
 __global__ void __launch_bounds__(kThreads)
-split_carry_kernel(float* __restrict__ buf, size_t batch_stride,
-                   size_t chunk_stride, const float* __restrict__ sdt,
-                   const float* __restrict__ A, int n_chunks, int D, int N,
-                   int reverse) {
+split_carry_kernel(float* __restrict__ phi_buf, const float* __restrict__ sdt,
+                   const float* __restrict__ A, int n_chunks, int D, int N) {
   const int b = blockIdx.y;
   const int d = blockIdx.x * kThreads + threadIdx.x;
   if (d >= D) return;
@@ -130,10 +151,10 @@ split_carry_kernel(float* __restrict__ buf, size_t batch_stride,
   load_a<NMAX>(a_coef, A, d, N, true);
 #pragma unroll
   for (int n = 0; n < NMAX; ++n) carry[n] = 0.f;
-  for (int i = 0; i < n_chunks; ++i) {
-    const int c = reverse ? n_chunks - 1 - i : i;
-    float* p = buf + (size_t)b * batch_stride + (size_t)c * chunk_stride + d;
-    const float s = sdt[((size_t)b * n_chunks + c) * D + d];
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const size_t r = (size_t)b * n_chunks + c;
+    float* p = phi_buf + r * N * D + d;
+    const float s = sdt[r * D + d];
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       if (n < N) {
@@ -145,19 +166,21 @@ split_carry_kernel(float* __restrict__ buf, size_t batch_stride,
   }
 }
 
-// (c) of the forward: the chunk from the state entering it (its first
-// `bound` row): y, and the `bound` rows of its other time blocks.
+// (c) of the forward, over chunks 1 .. n_chunks - 1: the state entering
+// the chunk from the end states and dt sums of the chunks before it, then
+// the chunk with y and all of its `bound` rows.
 template <int NMAX>
 __global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 split_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, float* __restrict__ y,
-                 float* bound, int L, int D, int N, int T, int CB,
-                 FwdCopy copy) {
+                 float* bound, const float* __restrict__ ends,
+                 const float* __restrict__ sdt, int L, int D, int N, int T,
+                 int CB, int n_chunks, FwdCopy copy) {
   constexpr int SPL = NMAX / kBwdLanes;
   __shared__ FwdShared<NMAX> sm;
   const int b = blockIdx.y;
-  const int c = blockIdx.z;
+  const int c = blockIdx.z + 1;
   const int d0 = blockIdx.x * kBwdChannels;
   const int d = d0 + (threadIdx.x >> 2);
   const int q = threadIdx.x & (kBwdLanes - 1);
@@ -166,12 +189,19 @@ split_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
   float a2[SPL], h[SPL];
   load_a_lane<SPL>(a2, A, d, q, N, active);
-  load_lane_states<SPL>(h,
-                        bound + ((size_t)b * n_blocks + c * CB) * N * D + d,
-                        (size_t)D, q, N, active);
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) h[i] = 0.f;
+  for (int j = 0; j < c; ++j) {  // h = exp(A sum_j) h + S_j
+    const size_t r = (size_t)b * (n_chunks - 1) + j;
+    const float s = active ? sdt[r * D + d] : 0.f;
+    float e[SPL];
+    load_lane_states<SPL>(e, ends + r * N * D + d, (size_t)D, q, N, active);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) h[i] = fmaf(fast_exp2(s * a2[i]), h[i], e[i]);
+  }
   scan_fwd_walk<NMAX, true>(x, dt, Bm, Cm, y, bound, a2, h, sm, b, d0, active,
                             L, D, N, T, c * CB, min(n_blocks, c * CB + CB),
-                            true, copy);
+                            false, copy);
 }
 
 // (c) of the backward: K8's sweep over the chunk from the adjoint entering
@@ -218,23 +248,22 @@ split_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 template <int NMAX>
 int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
-               const float* C, float* y, float* bound, float* sdt, int batch,
-               int L, int D, int N, int T, int CB, cudaStream_t stream) {
+               const float* C, float* y, float* bound, float* ends, float* sdt,
+               int batch, int L, int D, int N, int T, int CB,
+               cudaStream_t stream) {
   const int n_blocks = (L + T - 1) / T;
   const int n_chunks = (n_blocks + CB - 1) / CB;
   const FwdCopy copy = fwd_copy_for(x, dt, B, C, D, N);
-  const dim3 grid(bwd_tiles_for(D), batch, n_chunks);
-  split_fwd_local_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
-      x, dt, A, B, bound, sdt, L, D, N, T, CB, copy);
+  const int tiles = bwd_tiles_for(D);
+  split_fwd_local_kernel<NMAX>
+      <<<dim3(tiles, batch, n_chunks > 1 ? n_chunks - 1 : 1), kBwdThreads, 0,
+         stream>>>(x, dt, A, B, C, y, bound, ends, sdt, L, D, N, T, CB,
+                   n_chunks, copy);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  split_carry_kernel<NMAX><<<dim3(tiles_for(D), batch), kThreads, 0, stream>>>(
-      bound, (size_t)n_blocks * N * D, (size_t)CB * N * D, sdt, A, n_chunks, D,
-      N, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  split_fwd_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
-      x, dt, A, B, C, y, bound, L, D, N, T, CB, copy);
+  if (err != cudaSuccess || n_chunks == 1) return (int)err;
+  split_fwd_kernel<NMAX><<<dim3(tiles, batch, n_chunks - 1), kBwdThreads, 0,
+                           stream>>>(x, dt, A, B, C, y, bound, ends, sdt, L, D,
+                                     N, T, CB, n_chunks, copy);
   return (int)cudaGetLastError();
 }
 
@@ -252,8 +281,7 @@ int launch_bwd(const float* x, const float* dt, const float* A, const float* B,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_carry_kernel<NMAX><<<dim3(tiles_for(D), batch), kThreads, 0, stream>>>(
-      phi_buf, (size_t)n_chunks * N * D, (size_t)N * D, sdt, A, n_chunks, D, N,
-      1);
+      phi_buf, sdt, A, n_chunks, D, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 sweep_grid(bwd_tiles_for(D), batch, n_chunks);
@@ -274,19 +302,21 @@ bool valid(int L, int N, int T, int CB) {
 }  // namespace
 
 // x, dt, y: (batch, L, D); A: (D, N); B, C: (batch, L, N); bound: (batch,
-// ceil(L / T), N, D), written; sdt: (batch, chunks, D) scratch, chunks =
-// ceil(ceil(L / T) / CB). All float32, contiguous. 1 <= N <= 32, T <= 32,
-// CB >= 1 time blocks a chunk. Returns the CUDA error of the launches.
+// ceil(L / T), N, D), written; with chunks = ceil(ceil(L / T) / CB) > 1 the
+// scratch ends (batch, chunks - 1, N, D) and sdt (batch, chunks - 1, D),
+// else unused. All float32, contiguous. 1 <= N <= 32, T <= 32, CB >= 1 time
+// blocks a chunk. Returns the CUDA error of the launches.
 extern "C" int selective_scan_fwd_split(const void* x, const void* dt,
                                         const void* A, const void* B,
                                         const void* C, void* y, void* bound,
-                                        void* sdt, int batch, int L, int D,
-                                        int N, int T, int CB, void* stream) {
+                                        void* ends, void* sdt, int batch,
+                                        int L, int D, int N, int T, int CB,
+                                        void* stream) {
   if (!valid(L, N, T, CB)) return (int)cudaErrorInvalidValue;
   auto f = N <= 16 ? &launch_fwd<16> : &launch_fwd<32>;
   return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (float*)y, (float*)bound, (float*)sdt, batch, L, D,
-           N, T, CB, (cudaStream_t)stream);
+           (const float*)C, (float*)y, (float*)bound, (float*)ends,
+           (float*)sdt, batch, L, D, N, T, CB, (cudaStream_t)stream);
 }
 
 // As `selective_scan_bwd` of selective_scan_bwd.cu, with da_rows (batch,

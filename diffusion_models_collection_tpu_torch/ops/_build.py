@@ -116,8 +116,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gn_silu_bwd.restype = i32
     lib.gn_silu_form.argtypes = [i32] * 4
     lib.gn_silu_form.restype = i32
-    lib.flash_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
-                                   ptr]
+    lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i32, i32, i32, f32, i32, ptr]
     lib.flash_attn_fwd.restype = i32
     lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32,
                                                 ptr])
@@ -130,7 +129,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.selective_scan_bwd_nostate.restype = i32
     lib.selective_scan_bwd_nostate_needs_scratch.argtypes = [i32] * 3
     lib.selective_scan_bwd_nostate_needs_scratch.restype = i32
-    lib.selective_scan_fwd_split.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.selective_scan_fwd_split.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.selective_scan_fwd_split.restype = i32
     lib.selective_scan_bwd_split.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]
     lib.selective_scan_bwd_split.restype = i32

@@ -10,10 +10,12 @@ CPU tensor. `FlashAttention` joins the two as the JAX package's `_flash_core`
 custom_vjp does; `flash_attention` is its entry point and
 `flash_attention_ref` the plain differentiable attention it is held against.
 
-The backward kernel has two forms (`csrc/flash_attn_bwd.cu`). The fused one
-computes the scores once: each (head, key tile) block also forms its share
-of dq, which a scratch buffer of (BH, key tiles, L, d) floats carries to a
-sum kernel when there is more than one key tile. `bwd_fused` takes it up to
+The forward kernel walks query tiles of `fwd_tile` rows: 128 or, for a
+short sequence, 32 at head_dim <= 64, else 64. The backward kernel has two
+forms (`csrc/flash_attn_bwd.cu`). The fused one computes the scores once:
+each (head, key tile) block also forms its share of dq, which a scratch
+buffer of (BH, key tiles, L, d) floats carries to a sum kernel when there
+is more than one key tile. `bwd_fused` takes it up to
 `FUSED_MAX_LEN`; beyond, the scratch would grow with L^2 and the two-kernel
 form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
 tile height both forms walk in.
@@ -47,6 +49,18 @@ BWD_LAUNCHES = 0
 # the dq shares cost as much traffic as one more pass over q, k, v and dO.
 # Every attention of the CIFAR-10 UNet (L 64, 256) lies below it.
 FUSED_MAX_LEN = 256
+
+
+def fwd_tile(seq_len: int, head_dim: int) -> int:
+    """Rows of a query tile of the forward kernel. At head_dim <= 64, where
+    the kernel has these forms: 128 (key tiles of 64, eight rows and keys a
+    thread) for a sequence longer than 64, else 32 (key tiles of 32), so
+    that a short sequence does not compute mostly masked rows. Beyond 64:
+    64 (key tiles of 64). Set by `tools/profile_torch_kernels.py --only
+    attn_fwd`, which times every form at the UNet's shapes."""
+    if head_dim > 64:
+        return 64
+    return 128 if seq_len > 64 else 32
 
 
 def bwd_tile(seq_len: int, head_dim: int) -> int:
@@ -149,15 +163,19 @@ def flash_attention_fwd(
     bh, seq_len, head_dim = q.shape
     lib = _build.library()
     q, k, v = _pad_heads(head_dim, q, k, v)
+    # the kernel copies 16 bytes at a time: a view that starts elsewhere in
+    # its storage is copied to a fresh (aligned) tensor first
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, seq_len, 1), dtype=torch.float32, device=q.device)
     if q.numel():
+        width = q.shape[-1]
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(), bh, seq_len,
-                                     q.shape[-1], 1.0 / math.sqrt(head_dim),
-                                     stream)
+                                     width, 1.0 / math.sqrt(head_dim),
+                                     fwd_tile(seq_len, width), stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
     return (*_cut_heads(head_dim, o), lse)

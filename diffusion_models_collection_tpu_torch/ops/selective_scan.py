@@ -29,16 +29,20 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   of the forward with states and of the backward from them with the time
   axis split across thread blocks (the JAX package's grid-over-time K9
   `_scan_fwd_ckpt_kernel_grid` and K10 `_scan_bwd_from_ckpt_kernel_grid`),
-  for long sequences at a small batch, where one block per (row, 128
-  channels) leaves most of the card idle: chunks of `chunk_blocks_for`
-  time blocks are scanned from zero, a serial pass carries the state (the
-  adjoint) from chunk to chunk, and each chunk is then completed.
+  for long sequences at a small batch, where one block per (row, 64
+  channels) leaves most of the card idle. The forward scans chunks of
+  `fwd_chunk_blocks` time blocks from zero (chunk 0 whole, with its
+  output; the last chunk not at all), then completes every later chunk
+  from the state entering it, rebuilt from the chunks before. The backward
+  scans chunks of `bwd_chunk_blocks` time blocks from zero, carries the
+  adjoint from chunk to chunk in a serial pass and completes each chunk.
   `csrc/selective_scan_split.cu` on a CUDA tensor, the `_ref` versions, the
-  same three passes in plain PyTorch, on a CPU tensor.
+  same passes in plain PyTorch, on a CPU tensor.
 * `SelectiveScan` joins them as the JAX `_selective_scan_core` custom_vjp
   does. With no gradient wanted the forward saves nothing (K5). With one,
-  it saves the block states (K6, or K9 where `time_split` says so) and the
-  backward runs from them (K8 or K10); or, when the caller asks for no
+  it saves the block states (K6, or K9 where `split_forward` says so) and
+  the backward runs from them (K8, or K10 where `split_backward` says so:
+  both take the same `bound`); or, when the caller asks for no
   saved states (gradient checkpointing), the forward is K5 again and the
   backward rebuilds them (K7). `selective_scan` is the entry point and
   adds the D skip outside the op; `selective_scan_sequential` is the O(L)
@@ -75,10 +79,12 @@ BWD_NOSTATE_LAUNCHES = 0
 FWD_SPLIT_LAUNCHES = 0
 BWD_SPLIT_LAUNCHES = 0
 
-# channels of one row in a tile of the rules below (`time_split`,
-# `chunk_blocks_for`); the thread blocks that walk the time axis cover 64,
-# four lanes a channel
-TILE = 128
+# Channels of one row in a tile of the backward rules (`split_backward`,
+# `bwd_chunk_blocks`; the thread-a-channel passes of K10 cover 128) and in a
+# thread block of the forward walk (64, four lanes a channel), and the
+# forward walk's thread blocks that an H100 holds at once (four on each of
+# its 132 SMs).
+TILE, FWD_TILE, FWD_SLOTS = 128, 64, 528
 
 
 def t_block_for(length: int) -> int:
@@ -93,26 +99,53 @@ def _blocks(length: int) -> List[Tuple[int, int]]:
     return [(t0, min(tb, length - t0)) for t0 in range(0, length, tb)]
 
 
-def time_split(batch: int, length: int, d_inner: int) -> bool:
-    """Whether a scan with saved states of this shape runs time-split (K9,
-    K10) rather than with one thread block per (row, 128 channels) walking
-    the whole sequence (K6, K8): at least 16 time blocks, and no more than
-    two such thread blocks for each of an H100's 132 SMs."""
-    return (len(_blocks(length)) >= 16
-            and batch * -(-d_inner // TILE) <= 264)
+def fwd_chunk_blocks(batch: int, length: int, d_inner: int) -> int:
+    """Time blocks in a chunk of the time-split forward (K9). Each of its
+    two launches runs (chunks - 1) x (rows x 64-channel tiles) thread blocks
+    that walk one chunk each: take the most chunks for which that many fit
+    the card at once, so each launch is one wave and its walk the shortest
+    such a wave allows."""
+    tiles = batch * -(-d_inner // FWD_TILE)
+    n_blocks = len(_blocks(length))
+    chunks = max(1, min(n_blocks, 1 + FWD_SLOTS // tiles))
+    return -(-n_blocks // chunks)
 
 
-def chunk_blocks_for(batch: int, length: int, d_inner: int) -> int:
-    """Time blocks in a chunk of the time-split scan: 8, halved while that
-    leaves fewer than four thread blocks for each of the 132 SMs. Timed
-    against fixed chunks of 1, 2, 4 and 8 by `chip_smoke.py`
-    (`phase_scan_chunks`); the readings are in PERF.md."""
+def bwd_chunk_blocks(batch: int, length: int, d_inner: int) -> int:
+    """Time blocks in a chunk of the time-split backward (K10): 8, halved
+    while that leaves fewer than four thread blocks of its local and sweep
+    passes for each of the 132 SMs."""
     rows = batch * -(-d_inner // TILE)
     n_blocks = len(_blocks(length))
     chunk = 8
     while chunk > 1 and rows * -(-n_blocks // chunk) < 528:
         chunk //= 2
     return chunk
+
+
+def split_forward(batch: int, length: int, d_inner: int) -> bool:
+    """Whether a forward with saved states of this shape runs time-split
+    (K9) rather than with one thread block per (row, 64 channels) walking
+    the whole sequence (K6): at least 16 time blocks, and at least three
+    chunks (`fwd_chunk_blocks`), so that each of K9's two launches walks at
+    most a third of the sequence (at D 768: up to batch 22). Set by
+    `chip_smoke.py`'s `phase_scan_sweep` on an H100 at L 1024, D 768,
+    where K9 led K6 from batch 1 to 16 and fell behind at 32, with two
+    chunks; the readings are in PERF.md."""
+    n_blocks = len(_blocks(length))
+    return (n_blocks >= 16
+            and -(-n_blocks // fwd_chunk_blocks(batch, length, d_inner)) >= 3)
+
+
+def split_backward(batch: int, length: int, d_inner: int) -> bool:
+    """Whether a backward from saved states of this shape runs time-split
+    (K10) rather than K8's whole reverse sweep: at least 16 time blocks, and
+    at most 48 (row, 128-channel) tiles (at D 768: up to batch 8). Set by
+    `chip_smoke.py`'s `phase_scan_sweep` on an H100 at L 1024, D 768, where
+    K10 led K8 up to batch 8 and fell behind from 16; the readings are in
+    PERF.md."""
+    return (len(_blocks(length)) >= 16
+            and batch * -(-d_inner // TILE) <= 48)
 
 
 def _chunks(length: int, chunk_blocks: int) -> List[List[Tuple[int, int]]]:
@@ -190,25 +223,30 @@ def selective_scan_fwd_split_ref(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     C: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch time-split forward, the three passes of
-    `csrc/selective_scan_split.cu`: (a) each chunk's end state from a zero
-    state and its sum of dt (exp(A * sum) is the product of its decays);
-    (b) a serial walk over the chunks that gives the state entering each;
-    (c) each chunk from that state. Returns (y without the D skip, bound)."""
+    """Plain PyTorch time-split forward, the two passes of
+    `csrc/selective_scan_split.cu`: (a) chunk 0 whole from the zero state,
+    and every later chunk but the last from a zero state: each one's end
+    state and sum of dt (exp(A * sum) is the product of its decays); (c)
+    each later chunk from the state entering it, rebuilt from the end states
+    and sums of the chunks before it. Returns (y without the D skip,
+    bound)."""
     batch, length, d_inner = x.shape
     if length == 0:
         return selective_scan_fwd_ref(x, dt, A, B, C, True)
-    chunks = _chunks(length, chunk_blocks_for(batch, length, d_inner))
+    chunks = _chunks(length, fwd_chunk_blocks(batch, length, d_inner))
     zero = x.new_zeros(batch, d_inner, A.shape[1])
-    ends = [_fwd_blocks_ref(x, dt, A, B, None, zero, chunk)[2]
-            for chunk in chunks]
-    sums = [dt[:, _chunk_span(chunk)].sum(1) for chunk in chunks]
-    h, ys, bounds = zero, [], []
-    for chunk, end, total in zip(chunks, ends, sums):
+    ys, bounds, end = _fwd_blocks_ref(x, dt, A, B, C, zero, chunks[0])
+    ends = [end] + [_fwd_blocks_ref(x, dt, A, B, None, zero, chunk)[2]
+                    for chunk in chunks[1:-1]]
+    decays = [torch.exp(dt[:, _chunk_span(chunk)].sum(1)[..., None] * A)
+              for chunk in chunks[:-1]]
+    for c, chunk in enumerate(chunks[1:], 1):
+        h = zero
+        for decay, end in zip(decays[:c], ends[:c]):
+            h = decay * h + end
         ys_c, bounds_c, _ = _fwd_blocks_ref(x, dt, A, B, C, h, chunk)
         ys += ys_c
         bounds += bounds_c
-        h = torch.exp(total[..., None] * A) * h + end
     return torch.cat(ys, dim=1), _stack_bound(bounds)
 
 
@@ -291,7 +329,7 @@ def selective_scan_bwd_split_ref(
     that gives the carry entering each; (c) the reverse sweep over each
     chunk from it, dA summed over the chunks."""
     batch, length, d_inner = x.shape
-    chunks = _chunks(length, chunk_blocks_for(batch, length, d_inner))
+    chunks = _chunks(length, bwd_chunk_blocks(batch, length, d_inner))
     zero = x.new_zeros(batch, d_inner, A.shape[1])
     local = []
     for chunk in chunks:
@@ -502,15 +540,20 @@ def selective_scan_fwd_split(
                         dtype=torch.float32, device=x.device)
     if x.numel():
         lib = _build.library()
-        chunk = chunk_blocks_for(batch, length, d_inner)
-        sdt = torch.empty((batch, -(-n_blocks // chunk), d_inner),
-                          dtype=torch.float32, device=x.device)
+        chunk = fwd_chunk_blocks(batch, length, d_inner)
+        # the end state and sum of dt of every chunk but the last
+        carried = -(-n_blocks // chunk) - 1
+        ends = torch.empty((batch, carried, n_state, d_inner),
+                           dtype=torch.float32, device=x.device)
+        sdt = torch.empty((batch, carried, d_inner), dtype=torch.float32,
+                          device=x.device)
         with torch.cuda.device(x.device):
             err = lib.selective_scan_fwd_split(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                C.data_ptr(), y.data_ptr(), bound.data_ptr(), sdt.data_ptr(),
-                batch, length, d_inner, n_state, t_block_for(length), chunk,
-                _stream(x.device))
+                C.data_ptr(), y.data_ptr(), bound.data_ptr(),
+                ends.data_ptr() if carried else None,
+                sdt.data_ptr() if carried else None, batch, length, d_inner,
+                n_state, t_block_for(length), chunk, _stream(x.device))
         _build.check(err, name)
         FWD_SPLIT_LAUNCHES += 1
     return y, bound
@@ -535,7 +578,7 @@ def selective_scan_bwd_split(
     if not x.numel():
         return _zero_grads(x, A, B, C)
     lib = _build.library()
-    chunk = chunk_blocks_for(batch, length, d_inner)
+    chunk = bwd_chunk_blocks(batch, length, d_inner)
     n_chunks = -(-len(_blocks(length)) // chunk)
     dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
         lib, x, B, C, (batch, n_chunks, d_inner, n_state))
@@ -559,7 +602,7 @@ def _scan_forward(ctx, suffix, x, dt, A, B, C, save_states):
     """Forward of the wrappers (suffix "") or the plain versions ("_ref"),
     looked up by name at the call."""
     fns = globals()
-    if save_states and time_split(*x.shape):
+    if save_states and split_forward(*x.shape):
         y, bound = fns["selective_scan_fwd_split" + suffix](x, dt, A, B, C)
     else:
         y, bound = fns["selective_scan_fwd" + suffix](x, dt, A, B, C,
@@ -574,7 +617,7 @@ def _scan_backward(ctx, suffix, g):
     g = g.contiguous()  # autograd hands it over in the consumer's layout
     if not bound:
         name = "selective_scan_bwd_nostate"
-    elif time_split(*x.shape):
+    elif split_backward(*x.shape):
         name = "selective_scan_bwd_split"
     else:
         name = "selective_scan_bwd"
@@ -585,9 +628,10 @@ class SelectiveScan(torch.autograd.Function):
     """The scan without the D skip, as the JAX `_selective_scan_core`
     custom_vjp. `save_states` is set when a gradient is wanted and the
     caller keeps residuals: the forward then saves the block states
-    (`selective_scan_fwd`, or `selective_scan_fwd_split` where `time_split`
-    says so) and the backward runs from them (`selective_scan_bwd` or
-    `selective_scan_bwd_split`). Without it the forward saves no states and
+    (`selective_scan_fwd`, or `selective_scan_fwd_split` where
+    `split_forward` says so) and the backward runs from them
+    (`selective_scan_bwd`, or `selective_scan_bwd_split` where
+    `split_backward` says so). Without it the forward saves no states and
     a backward, if one comes, rebuilds them (`selective_scan_bwd_nostate`)."""
 
     @staticmethod

@@ -177,6 +177,19 @@ def test_attention_bwd_tile_and_form_over_the_main_path_and_its_edges(
     assert flash_attention.FUSED_MAX_LEN == 256
 
 
+# (L, d) of every attention of a CIFAR-10 UNet forward (L 256, 64 and 16 at
+# d 64), then the edges: L 64 | 65 (tile 32 | 128), d 64 | 72 (both forms end
+# at d 64, beyond it tiles of 64), one row, long sequences
+@pytest.mark.parametrize("seq_len,head_dim,tile", [
+    (256, 64, 128), (64, 64, 32), (16, 64, 32), (65, 64, 128), (33, 64, 32),
+    (1, 8, 32), (15, 32, 32), (32, 72, 64), (16, 128, 64), (1024, 64, 128),
+    (1024, 128, 64), (100, 40, 128),
+])
+def test_attention_fwd_tile_over_the_main_path_and_its_edges(seq_len, head_dim,
+                                                             tile):
+    assert flash_attention.fwd_tile(seq_len, head_dim) == tile
+
+
 @pytest.mark.parametrize("fused", [None, True, False])
 def test_attention_bwd_form_is_ignored_by_the_plain_version_on_cpu(fused):
     gen = torch.Generator().manual_seed(5)
@@ -209,18 +222,44 @@ def test_gn_silu_kernel_matches_plain(cuda, shape):
     assert max_rel(y, fused_norm.group_norm_silu_ref(x, scale, bias, 8)) <= TOL
 
 
+# K2 in every form `fwd_tile` gives it: tiles of 32 rows (L <= 64) and of 128
+# at d <= 64, of 64 beyond; d padded to 32, 64 and 128 columns (4, 12 and 20
+# padded to 8, 16 and 24 first), one key tile and many, a ragged last tile
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq_len", [256, 64, 16, 100, 1])
-@pytest.mark.parametrize("head_dim", [64, 8, 40, 128])
+@pytest.mark.parametrize("seq_len", [256, 64, 16, 100, 1, 15, 17, 33, 257,
+                                     1024])
+@pytest.mark.parametrize("head_dim", [64, 8, 40, 128, 32, 4, 12, 20])
 def test_flash_attention_kernel_matches_plain(cuda, seq_len, head_dim):
     gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
     q, k, v = (torch.randn(6, seq_len, head_dim, generator=gen, device=cuda)
                for _ in range(3))
     before = flash_attention.LAUNCHES
     o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    again, lse_again = flash_attention.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES == before + 1
+    assert flash_attention.LAUNCHES == before + 2
     o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v)
+    assert o.shape == q.shape and lse.shape == (6, seq_len, 1)
+    assert max_rel(o, o_ref) <= TOL
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    assert torch.equal(o, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fwd_takes_views_that_are_not_16_byte_aligned(cuda):
+    """q, k, v 4 bytes into their storage: the wrapper copies them to an
+    aligned tensor for the kernel's 16-byte copies."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    inputs = [torch.randn(3, 40, 16, generator=gen, device=cuda)
+              for _ in range(3)]
+    shifted = []
+    for t in inputs:
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        flat[1:] = t.flatten()
+        shifted.append(flat[1:].view(t.shape))
+        assert shifted[-1].data_ptr() % 16 == 4
+    o, lse = flash_attention.flash_attention_fwd(*shifted)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(*inputs)
     assert max_rel(o, o_ref) <= TOL
     assert (lse - lse_ref).abs().max().item() <= TOL_LSE
 
@@ -541,13 +580,18 @@ def launched_since(before):
 NOSTATE_SHAPES = [(32, 256, 768, 16), (4, 1024, 768, 16), (8, 100, 768, 16),
                   (3, 1, 100, 16), (2, 37, 200, 4), (2, 64, 130, 20),
                   (2, 33, 64, 32), (2, 256, 256, 32)]
-# chunks of 4, 1, 8, 2 and 8 time blocks (`chunk_blocks_for`), then 1; a
-# ragged last block (L 1000, 100, 37) and a ragged last chunk (L 1000: 63
-# blocks of 16 steps, 8 a chunk)
+# K9 at every chunk count `fwd_chunk_blocks` takes at L 1024, D 768 (32, 16,
+# 11, 6, 3, 2 and 1 chunks at batch 1 to 48) and K10's chunks of 4, 1, 8, 2
+# and 8 time blocks (`bwd_chunk_blocks`); a ragged last block (L 1000, 100,
+# 37) and a ragged last chunk (L 1000: 63 blocks of 16 steps, 8 a chunk for
+# K10, three chunks of 21 for K9); N 4, 5, 16, 20 and 32; D 201 and others
+# no multiple of a tile
 SPLIT_SHAPES = [(16, 1024, 768, 16), (2, 1024, 768, 16), (16, 1000, 768, 16),
                 (8, 1024, 768, 16), (48, 1024, 640, 16), (8, 100, 768, 16),
                 (3, 1, 100, 16), (2, 37, 200, 4), (2, 640, 130, 20),
-                (2, 528, 64, 32)]
+                (2, 528, 64, 32), (1, 1024, 768, 16), (4, 1024, 768, 16),
+                (32, 1024, 768, 16), (2, 1024, 201, 5), (3, 1024, 768, 32),
+                (4, 1000, 201, 16)]
 
 
 @pytest.mark.cuda
@@ -575,8 +619,10 @@ def test_scan_split_kernels_match_plain_and_the_unsplit_kernels(
                                     cuda)
     before = scan_launch_counts()
     y, bound = scan_mod.selective_scan_fwd_split(x, dt, A, B, C)
+    again, bound_again = scan_mod.selective_scan_fwd_split(x, dt, A, B, C)
     torch.cuda.synchronize()
-    assert launched_since(before) == {"FWD_SPLIT_LAUNCHES": 1}
+    assert launched_since(before) == {"FWD_SPLIT_LAUNCHES": 2}
+    assert torch.equal(y, again) and torch.equal(bound, bound_again)
     y_k6, bound_k6 = scan_mod.selective_scan_fwd(x, dt, A, B, C, True)
     for y_ref, bound_ref in (
             scan_mod.selective_scan_fwd_split_ref(x, dt, A, B, C),
@@ -635,6 +681,8 @@ def test_scan_sweep_matches_plain_through_every_kernel(cuda, kernel, length,
     ((4, 256, 256), True, {"FWD_LAUNCHES": 1, "FWD_STATES_LAUNCHES": 1,
                            "BWD_LAUNCHES": 1}),
     ((4, 1024, 256), True, {"FWD_SPLIT_LAUNCHES": 1, "BWD_SPLIT_LAUNCHES": 1}),
+    # the 64x64 DiM's train step: K9, then K8 from its states
+    ((16, 1024, 768), True, {"FWD_SPLIT_LAUNCHES": 1, "BWD_LAUNCHES": 1}),
     ((4, 256, 256), False, {"FWD_LAUNCHES": 1, "BWD_NOSTATE_LAUNCHES": 1}),
     ((4, 1024, 256), False, {"FWD_LAUNCHES": 1, "BWD_NOSTATE_LAUNCHES": 1}),
 ])

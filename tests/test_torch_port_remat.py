@@ -236,7 +236,7 @@ def test_dim_at_512_tokens_matches_jax_through_the_split_scan(monkeypatch):
     loss, ours = torch_loss_and_grads(tmodel.eval(), b)
     assert calls == ([("selective_scan_fwd_split",)] * 2
                      + [("selective_scan_bwd_split",)] * 2)
-    assert ss.time_split(2, 512, 128)
+    assert ss.split_forward(2, 512, 128) and ss.split_backward(2, 512, 128)
     assert max_rel(loss, loss_ref) <= TOL
     for name, g in grads_ref.items():
         assert max_rel(ours[name], g) <= TOL, name

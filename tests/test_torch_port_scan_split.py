@@ -33,8 +33,8 @@ from torch_port_helpers import (
 TOL_FWD = 2e-5
 TOL_BWD = 1e-4
 GRADS = ("dx", "ddt", "dA", "dB", "dC")
-# (batch, L, D, N): L 64 is two time blocks, L 512 sixteen (time_split's
-# least); the JAX kernels take L % 16 == 0 only
+# (batch, L, D, N): L 64 is two time blocks, L 512 sixteen (the least that
+# the split rules take); the JAX kernels take L % 16 == 0 only
 SHAPES = [(2, 64, 128, 16), (2, 512, 128, 16), (1, 96, 256, 16)]
 
 
@@ -98,7 +98,8 @@ def test_split_plain_versions_agree_with_the_unsplit_ones(
         length, chunk_blocks, monkeypatch):
     """Any chunking gives the function of the unsplit versions, ragged last
     block and ragged last chunk included."""
-    monkeypatch.setattr(ss, "chunk_blocks_for", lambda *shape: chunk_blocks)
+    for rule in ("fwd_chunk_blocks", "bwd_chunk_blocks"):
+        monkeypatch.setattr(ss, rule, lambda *shape: chunk_blocks)
     args = torch_args(*scan_inputs(2, length, 24, 4, seed=4))
     x, dt, A, B, C, g = args
     y_ref, bound_ref = ss.selective_scan_fwd_ref(x, dt, A, B, C, True)
@@ -110,7 +111,7 @@ def test_split_plain_versions_agree_with_the_unsplit_ones(
 
 
 # L 100 and 1000: a ragged last time block (and at 1000 a ragged last chunk);
-# 1024: whole blocks of 32 steps; the chunks are `chunk_blocks_for`'s own
+# 1024: whole blocks of 32 steps; the chunks are `fwd_chunk_blocks`'s own
 @pytest.mark.parametrize("batch,length,d_inner,n_state", [
     (2, 100, 8, 4), (1, 1000, 8, 4), (2, 1024, 8, 4), (3, 1024, 6, 16),
     (48, 1024, 2, 3)])
@@ -170,29 +171,63 @@ def test_selective_scan_grads_match_autograd_of_sequential(save_states, length):
         assert max_rel(o, r) <= TOL_BWD, (name, max_rel(o, r))
 
 
-@pytest.mark.parametrize("shape,expected", [
-    ((128, 256, 768), False),   # CIFAR training: 8 time blocks
-    ((160, 256, 768), False),
-    ((16, 1024, 768), True),    # the 64x64 DiM at batch 16: 32 blocks, 96 rows
-    ((2, 1024, 768), True),
-    ((44, 1024, 768), True),    # 264 (row, tile) pairs, the most
-    ((45, 1024, 768), False),
-    ((128, 1024, 768), False),
-    ((16, 512, 768), True),     # 16 time blocks, the least
-    ((16, 480, 768), False),    # 15
-    ((16, 250, 768), True),     # T = 16: 16 blocks
-    ((264, 512, 100), True),    # D below one tile still takes a tile
-    ((133, 512, 129), False),
+@pytest.mark.parametrize("rule,shape,expected", [
+    # the forward (K9 rather than K6): at least 16 time blocks and three
+    # chunks, so at most 264 (row, 64-channel) tiles
+    ("split_forward", (128, 256, 768), False),  # CIFAR training: 8 blocks
+    ("split_forward", (160, 256, 768), False),
+    ("split_forward", (16, 1024, 768), True),   # the 64x64 DiM at batch 16
+    ("split_forward", (1, 1024, 768), True),
+    ("split_forward", (22, 1024, 768), True),   # 264 tiles: three chunks
+    ("split_forward", (23, 1024, 768), False),  # 276: two
+    ("split_forward", (128, 1024, 768), False),
+    ("split_forward", (16, 512, 768), True),    # 16 time blocks, the least
+    ("split_forward", (16, 480, 768), False),   # 15
+    ("split_forward", (16, 250, 768), True),    # T = 16: 16 blocks
+    ("split_forward", (264, 512, 64), True),    # one tile a row
+    ("split_forward", (265, 512, 64), False),
+    ("split_forward", (2, 512, 128), True),
+    # the backward (K10 rather than K8): at least 16 time blocks and at most
+    # 48 (row, 128-channel) tiles
+    ("split_backward", (128, 256, 768), False),
+    ("split_backward", (16, 1024, 768), False),  # the 64x64 DiM: K8
+    ("split_backward", (8, 1024, 768), True),    # 48 tiles, the most
+    ("split_backward", (9, 1024, 768), False),
+    ("split_backward", (1, 1024, 768), True),
+    ("split_backward", (48, 512, 100), True),   # D below one tile takes one
+    ("split_backward", (49, 512, 100), False),
+    ("split_backward", (2, 480, 768), False),   # 15 time blocks
+    ("split_backward", (2, 250, 768), True),
 ])
-def test_time_split_is_a_function_of_the_shape(shape, expected):
-    assert ss.time_split(*shape) is expected
+def test_time_split_is_a_function_of_the_shape(rule, shape, expected):
+    assert getattr(ss, rule)(*shape) is expected
 
 
-@pytest.mark.parametrize("shape,expected", [
-    ((16, 1024, 768), 4), ((2, 1024, 768), 1), ((44, 1024, 768), 8),
-    ((4, 1024, 768), 1), ((8, 1024, 768), 2), ((16, 512, 768), 2)])
-def test_chunk_blocks_keep_four_thread_blocks_an_sm(shape, expected):
-    assert ss.chunk_blocks_for(*shape) == expected
+@pytest.mark.parametrize("rule,shape,expected", [
+    # the forward: the most chunks for which each launch's (chunks - 1) x
+    # (row, 64-channel) tiles fit four thread blocks an SM (528)
+    ("fwd_chunk_blocks", (16, 1024, 768), 11),
+    ("fwd_chunk_blocks", (1, 1024, 768), 1),
+    ("fwd_chunk_blocks", (2, 1024, 768), 2),
+    ("fwd_chunk_blocks", (4, 1024, 768), 3),
+    ("fwd_chunk_blocks", (8, 1024, 768), 6),
+    ("fwd_chunk_blocks", (32, 1024, 768), 16),
+    ("fwd_chunk_blocks", (64, 1024, 768), 32),
+    ("fwd_chunk_blocks", (16, 512, 768), 6),
+    # the backward: 8, halved while under four thread blocks an SM
+    ("bwd_chunk_blocks", (16, 1024, 768), 4),
+    ("bwd_chunk_blocks", (2, 1024, 768), 1),
+    ("bwd_chunk_blocks", (44, 1024, 768), 8),
+    ("bwd_chunk_blocks", (4, 1024, 768), 1),
+    ("bwd_chunk_blocks", (8, 1024, 768), 2),
+    ("bwd_chunk_blocks", (16, 512, 768), 2)
+])
+def test_chunk_blocks_keep_four_thread_blocks_an_sm(rule, shape, expected):
+    assert getattr(ss, rule)(*shape) == expected
+    if rule == "fwd_chunk_blocks":
+        batch, length, d_inner = shape
+        chunks = -(-len(ss._blocks(length)) // expected)
+        assert (chunks - 1) * batch * -(-d_inner // 64) <= 528
 
 
 BRANCHES = [
@@ -201,6 +236,9 @@ BRANCHES = [
                           ("selective_scan_bwd",)]),
     ((2, 512, 128), True, [("selective_scan_fwd_split",),
                            ("selective_scan_bwd_split",)]),
+    # the forward time-split and the backward not, K8 from K9's states
+    ((56, 512, 32), True, [("selective_scan_fwd_split",),
+                           ("selective_scan_bwd",)]),
     ((2, 64, 128), False, [("selective_scan_fwd", False),
                            ("selective_scan_bwd_nostate",)]),
     ((2, 512, 128), False, [("selective_scan_fwd", False),

@@ -1,9 +1,9 @@
-"""Check and time the attention backward, the scan backward, the scan
-forward and the GroupNorm+SiLU kernels of one or more trees of the PyTorch
-port, on one NVIDIA GPU.
+"""Check and time the attention forward and backward, the scan backward,
+the scan forward and the GroupNorm+SiLU kernels of one or more trees of the
+PyTorch port, on one NVIDIA GPU.
 
-    python tools/profile_torch_kernels.py [--only attention|scan|scan_fwd|gn]
-        [ROOT ...]
+    python tools/profile_torch_kernels.py
+        [--only attention|attn_fwd|scan|scan_fwd|gn] [ROOT ...]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. Each
 ROOT (default: this checkout) is a directory that holds a
@@ -12,6 +12,13 @@ process of its own, one after the other, so two versions of a kernel (an
 unpacked parent commit beside the working tree) are compared on one card in
 one call. Name a ROOT twice to see how far two runs of one tree differ.
 
+`--only attn_fwd`: K2 (`flash_attention_fwd`) against its plain version
+(2e-5 on o over the largest value, 1e-5 absolute on lse) at the CIFAR-10
+UNet's forward shapes at the sampling batch of 160 (BH 640, d 64; L 256,
+64 and 16, five, five and one call a forward) and at the lengths and head
+dimensions of the backward's cases below, and `F.scaled_dot_product_attention`
+(float32, TF32 off) timed beside it at the UNet's shapes; then the sum over
+one forward's 11 calls, single launches and launches in a row.
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -51,12 +58,15 @@ SCAN_CASES = [(128, 256, 768, 16), (16, 1024, 768, 16), (4, 37, 200, 8),
               (4, 100, 768, 16), (2, 1000, 200, 32), (3, 1024, 768, 32),
               (2, 256, 200, 5)]
 # (batch, L, D, N) of the forward: the DiM's sampling and training batches,
-# the 64x64 DiM's sampling forward, K4's ragged block, then small batches at
-# L 1024, D no multiple of 4 or of a tile, N below 16 and above
+# the 64x64 DiM's sampling and training forward, K4's ragged block, then the
+# other batches at L 1024 (K6 against K9), D no multiple of 4 or of a tile,
+# N below 16 and above
 SCAN_FWD_CASES = [(160, 256, 768, 16), (128, 256, 768, 16),
-                  (16, 1024, 768, 16), (32, 100, 768, 16), (2, 1024, 768, 16),
-                  (64, 1024, 768, 16), (4, 37, 130, 8), (2, 1000, 200, 32),
-                  (3, 1024, 768, 32), (2, 256, 201, 5)]
+                  (16, 1024, 768, 16), (32, 100, 768, 16)]
+SCAN_FWD_CASES += [(batch, 1024, 768, 16) for batch in (1, 2, 4, 8, 32, 64,
+                                                        128)]
+SCAN_FWD_CASES += [(4, 37, 130, 8), (2, 1000, 200, 32), (3, 1024, 768, 32),
+                   (2, 256, 201, 5)]
 BAR_FWD = 2e-5
 # (H, W, C) of every GroupNorm+SiLU of the CIFAR-10 UNet, 8 groups; then
 # (B, H, W, C) of a ragged shape (rows of 3 floats) and of a group too large
@@ -67,6 +77,10 @@ GN_SHAPES = [(32, 32, 128), (32, 32, 256), (32, 32, 384), (16, 16, 128),
              (8, 8, 512), (4, 4, 256), (4, 4, 512)]
 GN_ODD = [(3, 5, 7, 24), (4, 64, 64, 128), (2, 2, 3, 16), (5, 3, 3, 1024)]
 GN_FWD_BATCH, GN_BWD_BATCH, GN_GROUPS = 160, 128, 8
+# (BH, L, d, calls a forward) of the UNet's attention at the sampling batch
+# of 160 rows (80 images, cond + uncond; 4 heads)
+ATTN_FWD_UNET = [(640, 256, 64, 5), (640, 64, 64, 5), (640, 16, 64, 1)]
+BAR_LSE = 1e-5
 
 
 def median_ms(fn, reps=20, warmup=3):
@@ -104,6 +118,35 @@ def burst_ms(fn, calls=20):
     return start.elapsed_time(end) / calls
 
 
+def graph_ms(fn, calls=20, reps=5):
+    """Per call, the card's own time: `calls` launches captured in a CUDA
+    graph and replayed between one pair of events (the median of `reps`
+    replays), so no launch waits on the host. `fn` has run before (any
+    one-time set-up, such as a kernel's shared-memory opt-in, is done)."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def max_rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
@@ -119,7 +162,8 @@ def check(label, fn, refs, bar=BAR):
     same = all(torch.equal(a, b) for a, b in zip(outs, again))
     ok = max(rels) <= bar and same
     print(f"{label}: rel {' '.join(f'{r:.1e}' for r in rels)} bit-equal {same} "
-          f"{median_ms(fn):.4f} ms ({burst_ms(fn):.4f} in a row)"
+          f"{median_ms(fn):.4f} ms ({burst_ms(fn):.4f} in a row, "
+          f"{graph_ms(fn):.4f} from a CUDA graph)"
           f"{'' if ok else ' FAIL'}", flush=True)
     return ok
 
@@ -129,11 +173,63 @@ def print_ptxas(log):
     for line in log.splitlines():
         if "Compiling entry" in line:
             name = line.split("'")[1] if "'" in line else line
-            if not any(k in name for k in ("flash_bwd", "scan_bwd", "split_",
+            if not any(k in name for k in ("flash_", "scan_bwd", "split_",
                                            "scan_fwd", "gn_silu")):
                 name = None
         elif name and ("registers" in line or "spill" in line):
             print(f"  {name[-60:]} | {line.strip()}")
+
+
+def run_attn_fwd(root, attention, randn):
+    """K2 at the UNet's forward shapes, with the library call beside it,
+    then at the backward's cases; the sum over one UNet forward."""
+    import torch
+    import torch.nn.functional as F
+    ok = True
+    totals = {"single": 0.0, "row": 0.0, "graph": 0.0, "library": 0.0}
+    cases = [(bh, length, d, n) for bh, length, d, n in ATTN_FWD_UNET]
+    cases += [(bh, length, d, 0) for bh, length, d in ATTENTION_CASES]
+    for bh, length, d, calls in cases:
+        q, k, v = (randn(bh, length, d) for _ in range(3))
+        o_ref, lse_ref = attention.flash_attention_fwd_ref(q, k, v)
+        o, lse = attention.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_ref).abs().max().item()
+        tile = (f" tile {attention.fwd_tile(length, d)}"
+                if hasattr(attention, "fwd_tile") else "")
+        label = f"K2 BH={bh} L={length} d={d}{tile}"
+        fn = lambda: attention.flash_attention_fwd(q, k, v)  # noqa: E731
+        held = check(label, lambda: fn()[:1], (o_ref,), BAR_FWD)
+        print(f"   lse max_abs {lse_err:.1e}", flush=True)
+        ok &= held and lse_err <= BAR_LSE
+        if calls and hasattr(attention, "fwd_tile"):
+            # each tile height the kernel has for this d, forced: the
+            # readings behind `fwd_tile`
+            rule = attention.fwd_tile
+            try:
+                for forced in (32, 128) if d <= 64 else (64,):
+                    attention.fwd_tile = lambda *shape, t=forced: t
+                    ok &= check(f"   forced tile {forced}", lambda: fn()[:1],
+                                (o_ref,), BAR_FWD)
+            finally:
+                attention.fwd_tile = rule
+        if calls:
+            single, row = median_ms(fn), burst_ms(fn)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+            library = median_ms(sdpa)
+            print(f"   x{calls} a UNet forward; scaled_dot_product_attention "
+                  f"{library:.4f} ms ({burst_ms(sdpa):.4f} in a row)",
+                  flush=True)
+            totals["single"] += calls * single
+            totals["row"] += calls * row
+            totals["graph"] += calls * graph_ms(fn)
+            totals["library"] += calls * library
+    print(f"{root}: K2 over one UNet forward's 11 calls at batch 160: "
+          f"{totals['single']:.4f} ms single launches, {totals['row']:.4f} ms "
+          f"in a row, {totals['graph']:.4f} ms from a CUDA graph; "
+          f"scaled_dot_product_attention {totals['library']:.4f} ms",
+          flush=True)
+    return ok
 
 
 def run_scan_fwd(scan, randn):
@@ -253,6 +349,8 @@ def run_tree(root, only):
                                                        retain_graph=True))
             print(f"   scaled_dot_product_attention backward {ms:.4f} ms")
 
+    if only in (None, "attn_fwd"):
+        ok &= run_attn_fwd(root, attention, randn)
     if only in (None, "scan_fwd"):
         ok &= run_scan_fwd(scan, randn)
     if only in (None, "gn"):
@@ -281,7 +379,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="*", default=[str(HERE.parent.parent)])
     parser.add_argument("--only",
-                        choices=["attention", "scan", "scan_fwd", "gn"])
+                        choices=["attention", "attn_fwd", "scan", "scan_fwd",
+                                 "gn"])
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.tree:
