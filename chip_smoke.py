@@ -5,9 +5,10 @@
 From the root of a checkout, on a machine with one CUDA card, nvcc and
 PyTorch built for CUDA. It builds the port's kernels from
 `diffusion_models_collection_tpu_torch/csrc/`, holds each against its plain
-PyTorch version at the shapes of the CIFAR-10 UNet (configs/cifar10_unet.py)
-and of the CIFAR-10 DiM (configs/cifar10_dim.py), and drives the main paths
-of both models through the port's entry points. The UNet's:
+PyTorch version at the shapes of the CIFAR-10 UNet (configs/cifar10_unet.py),
+the CIFAR-10 DiM (configs/cifar10_dim.py) and the CIFAR-10 DiT
+(configs/cifar10_dit.py), and drives the main paths of the three models
+through the port's entry points. The UNet's:
 
 * sampling: the forward kernels at batch 32 and at the sampling run's own
   batch of 160 rows (80 images, cond + uncond), full-width UNet forwards at
@@ -66,6 +67,34 @@ runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
   steps) of `train`, train images/s, and `sample` DDIM-10 from its
   checkpoint; then one epoch (64 steps) of `train` at batch 8, where the
   rules take the time-split backward too.
+
+The DiT's, at full width (hidden 384, depth 12, 6 heads of 64, patch 2: the
+attention runs at L = 256, d = 64 in each of the 12 blocks; dropout 0.1 on
+the attention probabilities and in the MLP in training):
+
+* the attention kernels' dropout forms against their plain versions with
+  the same seed: at the training shape (BH 768, L 256, d 64, p 0.1) timed
+  beside the same call at p = 0 and `F.scaled_dot_product_attention` with
+  dropout, then at L 16, 64, 100 and 300 (a ragged tile; the two-kernel
+  backward beyond 256), at d 48 (the DiM's attention fallback) and with
+  the two-kernel backward forced; and a read-back of the mask: with v = I
+  the output is P o Z exactly, so its zeros must be the dropped keys of
+  `philox_keep_mask`, bit for bit;
+* sampling: full-width forwards at batch 32 and 160 and a DDIM-10 CFG
+  trajectory against the plain versions, then 80 images with DDIM-50 and
+  CFG 3 through `sample` (600 forward launches, none in the dropout form),
+  samples/s with the kernels and with the plain versions;
+* training, in train mode with dropout on: the loss and gradients at batch
+  128 against the plain versions (the CPU and CUDA generators reseeded
+  before each run, so both draw the same attention and MLP masks), 12
+  forward and 12 backward launches in the dropout form, then the same under
+  `remat` (24 forward launches, the recompute drawing the same masks) and
+  against the run without; three epochs of `train` on the fixtures with and
+  without `remat`, train images/s with the kernels and with the plain
+  versions, and `sample` DDIM-10 from the checkpoint;
+* the DiM with `use_attention_fallback` (8 heads of 48 in place of the
+  Mamba mixer): forwards and gradients against the plain versions, 12
+  attention launches a forward and no scan launch.
 
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
@@ -163,6 +192,26 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # recomputes through 45 norms.
 TOL_LOSS, TOL_GRAD = 1e-5, 1e-4
 FIXTURE_DATA = ROOT / "tests" / "fixtures" / "data"
+
+DIT_CONFIG = ROOT / "configs" / "cifar10_dit.py"
+ATTN_PER_DIT_FORWARD = 12  # one attention in each DiT block
+DIT_FORWARD = {"attn": ATTN_PER_DIT_FORWARD}
+# a train step in train mode: every attention in the dropout form
+DIT_STEP = {"attn": ATTN_PER_DIT_FORWARD, "attn_dropout": ATTN_PER_DIT_FORWARD,
+            "attn_bwd": ATTN_PER_DIT_FORWARD,
+            "attn_bwd_dropout": ATTN_PER_DIT_FORWARD}
+# under `remat: True` each block's forward runs twice, with the same masks
+DIT_REMAT_STEP = dict(DIT_STEP, attn=2 * ATTN_PER_DIT_FORWARD,
+                      attn_dropout=2 * ATTN_PER_DIT_FORWARD)
+DIT_HEADS, DIT_LENGTH, DIT_HEAD_DIM = 6, 256, 64
+ATTN_DROPOUT = 0.1  # the DiT's and the DiM's `dropout`
+ATTN_DROPOUT_SEED = 0x0123_4567_89AB_CDEF
+# (L, d) of the dropout forms the DiT's step does not take: ragged tiles,
+# the short-sequence forms, the two-kernel backward beyond L 256, and d 48
+# (the DiM's attention fallback: hidden 384 in 8 heads)
+ATTN_DROPOUT_FORMS = [(16, 64), (64, 64), (100, 64), (300, 64), (256, 48),
+                      (100, 48)]
+TRAIN_SEED = 1234  # reseeds the generators before each run of a train step
 
 DIM_CONFIG = ROOT / "configs" / "cifar10_dim.py"
 SCAN_PER_FORWARD = 12  # one scan in each DiM block
@@ -366,6 +415,8 @@ def reset_launches():
     fused_norm.BWD_LAUNCHES = 0
     flash_attention.LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = 0
+    flash_attention.DROPOUT_LAUNCHES = 0
+    flash_attention.BWD_DROPOUT_LAUNCHES = 0
     for counter in SCAN_COUNTERS.values():
         setattr(scan, counter, 0)
 
@@ -374,6 +425,8 @@ def read_launches():
     return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
             "attn": flash_attention.LAUNCHES,
             "attn_bwd": flash_attention.BWD_LAUNCHES,
+            "attn_dropout": flash_attention.DROPOUT_LAUNCHES,
+            "attn_bwd_dropout": flash_attention.BWD_DROPOUT_LAUNCHES,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
 
@@ -684,10 +737,14 @@ def phase_gn_train_step(gn_shapes, gen):
     return worst, totals, bound
 
 
-def phase_sample_main(label, config, model, per_forward, tmp):
+def phase_sample_main(label, config, model, per_forward, tmp,
+                      compare_plain=False):
     """80 images, DDIM-50, CFG 3 through `sample.main` from a checkpoint of
     `model`'s weights, with exactly 50 forwards' worth of kernel launches
-    (`per_forward`, a `read_launches()` subset)."""
+    (`per_forward`, a `read_launches()` subset). With `compare_plain`, the
+    same call again inside `plain_kernels()`, with no launch, for the plain
+    versions' samples/s. Returns the launches and the sampling seconds (and
+    the plain run's)."""
     ckpt = Path(tmp) / f"{config['model_type']}_random.pth"
     checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
     argv = ["--checkpoint", str(ckpt), "--sampling_method", "ddim",
@@ -720,7 +777,21 @@ def phase_sample_main(label, config, model, per_forward, tmp):
           f"{CFG_SCALE}: sampling {result['sampling_seconds']:.3f} s "
           f"({SAMPLES / result['sampling_seconds']:.2f} samples/s), whole "
           f"call {wall:.3f} s; launches {launches}")
-    return launches, result["sampling_seconds"]
+    if not compare_plain:
+        return launches, result["sampling_seconds"]
+    with plain_kernels():
+        reset_launches()
+        plain = sample.main(argv)
+        torch.cuda.synchronize()
+        plain_launched = read_launches()
+    print(f"sample.main {label} inside plain_kernels(): sampling "
+          f"{plain['sampling_seconds']:.3f} s "
+          f"({SAMPLES / plain['sampling_seconds']:.2f} samples/s); launches "
+          f"{plain_launched}")
+    if any(plain_launched.values()):
+        raise AssertionError(f"{label} plain sampling launched "
+                             f"{plain_launched}")
+    return launches, result["sampling_seconds"], plain["sampling_seconds"]
 
 
 def attention_bwd_case(bh, seq, d, gen):
@@ -807,6 +878,116 @@ def phase_attn_bwd(attn_shapes, gen):
     return worst_abs, totals, bound
 
 
+def check_attention_dropout(label, bh, seq, d, gen, timed=False, fused=None):
+    """K2 and K3 in their dropout form (p 0.1, one seed) against their plain
+    versions on one input: o and lse, then dq, dk, dv from the kernel's o
+    and lse (the backward's form as the wrapper picks it, or `fused`
+    forces). With `timed`, per call: the dropout forms, their plain
+    versions, the kernels at p = 0 on the same input, and
+    `F.scaled_dot_product_attention` with dropout 0.1 and its backward
+    (another mask: the library's own generator; never called by the port).
+    Returns the worst absolute error and the times."""
+    q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device="cuda")
+                   for _ in range(4))
+    drop = (ATTN_DROPOUT, ATTN_DROPOUT_SEED)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused)
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
+    torch.cuda.synchronize()
+    rel = max_rel(o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    rels = [max_rel(g, r) for g, r in zip(grads, refs)]
+    worst = max((o - o_ref).abs().max().item(), lse_err,
+                *((g - r).abs().max().item() for g, r in zip(grads, refs)))
+    line = (f"{label} BH={bh} L={seq} d={d} p={ATTN_DROPOUT} "
+            f"[{attention_fwd_form(seq, d)}; backward "
+            f"{attention_bwd_form(seq, d, fused)}]: o max_rel {rel:.3e} lse "
+            f"max_abs {lse_err:.3e}; dq/dk/dv max_rel "
+            f"{' '.join(f'{r:.3e}' for r in rels)}")
+    times = {}
+    if timed:
+        args = (q, k, v, o, do, lse)
+        times = {
+            "fwd": median_ms(
+                lambda: flash_attention.flash_attention_fwd(q, k, v, *drop)),
+            "fwd_p0": median_ms(
+                lambda: flash_attention.flash_attention_fwd(q, k, v)),
+            "fwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_fwd_ref(q, k, v,
+                                                                *drop),
+                reps=10),
+            "fwd_library": median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, dropout_p=ATTN_DROPOUT)),
+            "bwd": median_ms(
+                lambda: flash_attention.flash_attention_bwd(*args, *drop)),
+            "bwd_p0": median_ms(
+                lambda: flash_attention.flash_attention_bwd(*args)),
+            "bwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_bwd_ref(*args, *drop),
+                reps=10)}
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*qkv, dropout_p=ATTN_DROPOUT)
+        times["bwd_library"] = median_ms(
+            lambda: torch.autograd.grad(out, qkv, do, retain_graph=True))
+        line += ("; ms a call: forward kernel {fwd:.4f} (p = 0 {fwd_p0:.4f}) "
+                 "plain {fwd_plain:.4f} scaled_dot_product_attention "
+                 "{fwd_library:.4f}; backward kernel {bwd:.4f} (p = 0 "
+                 "{bwd_p0:.4f}) plain {bwd_plain:.4f} its backward "
+                 "{bwd_library:.4f}").format(**times)
+    print(line)
+    if not (rel <= TOL_OUT and lse_err <= TOL_LSE and max(rels) <= TOL_BWD):
+        raise AssertionError(f"{label} L={seq} d={d}: o {rel}, lse {lse_err}, "
+                             f"dq/dk/dv {rels}")
+    return worst, times
+
+
+def phase_attn_dropout(gen):
+    """K2's and K3's dropout forms against their plain versions: at the
+    DiT's training shape (timed), then in the forms that shape does not
+    take (`ATTN_DROPOUT_FORMS`) and with the two-kernel backward forced at
+    L 256; then the mask read back through v = I. Returns the worst
+    absolute error and the training shape's times a call."""
+    bh = TRAIN_BATCH * DIT_HEADS
+    worst, times = check_attention_dropout(
+        "attention dropout, DiT train step's shape", bh, DIT_LENGTH,
+        DIT_HEAD_DIM, gen, timed=True)
+    for seq, d in ATTN_DROPOUT_FORMS:
+        err, _ = check_attention_dropout("attention dropout", ATTN_BH, seq, d,
+                                         gen)
+        worst = max(worst, err)
+    err, _ = check_attention_dropout("attention dropout, forced", ATTN_BH,
+                                     DIT_LENGTH, DIT_HEAD_DIM, gen,
+                                     fused=False)
+    phase_mask_readback(gen)
+    return max(worst, err), times
+
+
+def phase_mask_readback(gen):
+    """At L = d = 64, v = I: o = P o Z exactly, so the zeros of the
+    kernel's o must be the dropped keys of `philox_keep_mask`, bit for bit,
+    and their share within 0.5 % of p."""
+    bh, seq = TRAIN_BATCH * DIT_HEADS, 64
+    q, k = (torch.randn(bh, seq, seq, generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.eye(seq, device="cuda").expand(bh, -1, -1).contiguous()
+    o, _ = flash_attention.flash_attention_fwd(q, k, v, ATTN_DROPOUT,
+                                               ATTN_DROPOUT_SEED)
+    keep = flash_attention.philox_keep_mask(ATTN_DROPOUT_SEED, bh, seq, seq,
+                                            ATTN_DROPOUT, device="cuda")
+    torch.cuda.synchronize()
+    differ = (o.ne(0) != keep).sum().item()
+    share = keep.float().mean().item()
+    print(f"attention dropout mask read back through v = I, BH={bh} L={seq} "
+          f"({keep.numel()} keys): {differ} keys differ from "
+          f"philox_keep_mask; kept share {share:.6f} against "
+          f"{1 - ATTN_DROPOUT}")
+    if differ or abs(share - (1 - ATTN_DROPOUT)) > 0.005 * (1 - ATTN_DROPOUT):
+        raise AssertionError(f"mask read-back: {differ} keys differ, kept "
+                             f"share {share}")
+
+
 def loss_and_grads(model, ddpm, batch):
     """The DDPM eps-loss of one batch and every parameter's gradient."""
     model.zero_grad(set_to_none=True)
@@ -822,13 +1003,16 @@ def image_shape(config):
 
 
 def phase_train_grads(label, model, config, per_step, gen,
-                      batch_size=CHECK_BATCH, batch=None):
+                      batch_size=CHECK_BATCH, batch=None, seed=None):
     """The full-width model's loss and every gradient at `batch_size`
     (or on `batch`, an earlier call's) through the kernels against the same
     inside `plain_kernels()`, with exactly one step's launches (`per_step`)
     and none inside; every parameter must get a gradient. Call it with the
-    model in eval mode (no dropout), so both runs see one network. Returns
-    the batch, the loss and the flattened gradient."""
+    model in eval mode (no dropout), so both runs see one network, or in
+    train mode with a `seed` that reseeds the CPU and CUDA generators before
+    each run, so both draw the same dropout masks (the attention's seeds
+    from the CPU generator, the MLP's masks from the CUDA one). Returns the
+    batch, the loss and the flattened gradient."""
     ddpm = DDPM(num_timesteps=config["num_timesteps"])
     shape = (batch_size, *image_shape(config))
     batch = batch or {
@@ -840,13 +1024,19 @@ def phase_train_grads(label, model, config, per_step, gen,
                            device="cuda"),
     }
     batch_size = batch["t"].shape[0]
+
+    def run():
+        if seed is not None:
+            torch.manual_seed(seed)
+        return loss_and_grads(model, ddpm, batch)
+
     reset_launches()
-    loss, grads = loss_and_grads(model, ddpm, batch)
+    loss, grads = run()
     torch.cuda.synchronize()
     launched = read_launches()
     with plain_kernels():
         reset_launches()
-        loss_ref, grads_ref = loss_and_grads(model, ddpm, batch)
+        loss_ref, grads_ref = run()
         torch.cuda.synchronize()
         plain_launched = read_launches()
     flat = torch.cat([g.flatten() for g in grads.values()])
@@ -871,25 +1061,29 @@ def phase_train_grads(label, model, config, per_step, gen,
     return batch, loss, flat
 
 
-def phase_remat_grads(model, config, gen):
-    """The CIFAR DiM under `remat: True` with `model`'s weights at the
-    training batch: its loss and gradients against the plain versions
-    (`phase_train_grads`, with a remat step's launches), and against the
-    model without remat on the same batch, within the same bars."""
+def phase_remat_grads(label, model, config, per_step, remat_step, gen,
+                      seed=None):
+    """The model under `remat: True` with `model`'s weights (and mode) at
+    the training batch: its loss and gradients against the plain versions
+    (`phase_train_grads`, with a remat step's launches, `remat_step`), and
+    against the model without remat (`per_step`) on the same batch, within
+    the same bars; with `seed`, in train mode with the same dropout draws."""
     remat_config = dict(config, remat=True)
-    remat_model = factory.get_model(remat_config).to("cuda").eval()
+    remat_model = factory.get_model(remat_config).to("cuda")
     remat_model.load_state_dict(model.state_dict())
+    remat_model.train(model.training)
     batch, loss_r, flat_r = phase_train_grads(
-        "DiM remat", remat_model, remat_config, DIM_REMAT_STEP, gen,
-        batch_size=TRAIN_BATCH)
-    _, loss, flat = phase_train_grads("DiM on the remat run's batch", model,
-                                      config, DIM_STEP, gen, batch=batch)
+        f"{label} remat", remat_model, remat_config, remat_step, gen,
+        batch_size=TRAIN_BATCH, seed=seed)
+    _, loss, flat = phase_train_grads(f"{label} on the remat run's batch",
+                                      model, config, per_step, gen,
+                                      batch=batch, seed=seed)
     loss_rel, grad_rel = max_rel(loss_r, loss), max_rel(flat_r, flat)
-    print(f"DiM remat vs no remat, B={TRAIN_BATCH}: loss max_rel "
+    print(f"{label} remat vs no remat, B={TRAIN_BATCH}: loss max_rel "
           f"{loss_rel:.3e}, flattened gradient max_abs_diff/max_abs "
           f"{grad_rel:.3e}")
     if not (loss_rel <= TOL_LOSS and grad_rel <= TOL_GRAD):
-        raise AssertionError(f"DiM remat vs no remat: loss {loss_rel}, "
+        raise AssertionError(f"{label} remat vs no remat: loss {loss_rel}, "
                              f"gradient {grad_rel}")
 
 
@@ -1312,13 +1506,14 @@ def phase_scan(gen):
     return worst, times
 
 
-def random_dim(config, gen):
-    """The full-width DiM with random weights, in eval mode. Its init is
-    adaLN-Zero: every adaLN modulation and the final projection start at
-    zero, so the output would be exactly 0 whatever the scans compute, and
-    a comparison with the plain versions would hold nothing. Each parameter
-    that starts all zero is drawn N(0, 0.02^2) instead, so every block's
-    scan reaches the output and every parameter gets a gradient."""
+def random_model(config, gen):
+    """The full-width DiM or DiT with random weights, in eval mode. Their
+    init is adaLN-Zero: every adaLN modulation and the final projection
+    start at zero, so the output would be exactly 0 whatever the kernels
+    compute, and a comparison with the plain versions would hold nothing.
+    Each parameter that starts all zero is drawn N(0, 0.02^2) instead, so
+    every block's scan or attention reaches the output and every parameter
+    gets a gradient."""
     torch.manual_seed(0)
     model = factory.get_model(config).to("cuda").eval()
     with torch.no_grad():
@@ -1328,11 +1523,12 @@ def random_dim(config, gen):
     return model
 
 
-def phase_dim(config, gen):
-    """Full-width DiM forwards at batch 32 and 160 through the scan kernel
-    against the same inside `plain_kernels()`, with exactly 12 forward
-    launches (states off) each."""
-    model = random_dim(config, gen)
+def phase_model_forward(label, config, per_forward, gen):
+    """A full-width DiM or DiT (`random_model`): forwards at batch 32 and
+    160 through the kernels against the same inside `plain_kernels()`,
+    with exactly `per_forward` launches each. Returns the model, its
+    parameter count and the launches of one forward."""
+    model = random_model(config, gen)
     n_params = sum(p.numel() for p in model.parameters())
     for batch in (CHECK_BATCH, 2 * SAMPLES):
         x = torch.randn(batch, 32, 32, 3, generator=gen, device="cuda")
@@ -1346,16 +1542,62 @@ def phase_dim(config, gen):
                 ref = model(x, t, y)
         torch.cuda.synchronize()
         rel = max_rel(out, ref)
-        print(f"DiM forward B={batch} ({n_params} parameters): kernels vs "
-              f"plain max_rel {rel:.3e}; launches {launched}")
-        if launched != expect(**DIM_FORWARD):
-            raise AssertionError(f"DiM forward launches {launched}")
+        print(f"{label} forward B={batch} ({n_params} parameters): kernels "
+              f"vs plain max_rel {rel:.3e}; launches {launched}")
+        if launched != expect(**per_forward):
+            raise AssertionError(f"{label} forward launches {launched}")
         if not (out.shape == (batch, 32, 32, 3) and ref.abs().max() > 0
                 and torch.isfinite(out).all() and rel <= TOL_UNET):
-            raise AssertionError(f"DiM forward B={batch}: shape "
+            raise AssertionError(f"{label} forward B={batch}: shape "
                                  f"{tuple(out.shape)}, max_rel {rel}, "
                                  f"max |plain| {ref.abs().max().item()}")
-    return model, n_params
+    return model, n_params, launched
+
+
+def phase_dit(gen):
+    """The DiT's paths (configs/cifar10_dit.py at full width) and the DiM's
+    attention fallback; see the module's docstring. Returns what the
+    `kernels` line and the summary read."""
+    dropout_err, dropout_times = phase_attn_dropout(gen)
+    config = load_config(DIT_CONFIG)
+    model, n_params, _ = phase_model_forward("DiT", config, DIT_FORWARD, gen)
+    phase_trajectory(model, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        sample_launches, seconds, plain_seconds = phase_sample_main(
+            "DiT", config, model, DIT_FORWARD, tmp, compare_plain=True)
+    model.train()  # dropout on: the attention's in the kernels, the MLP's
+    phase_train_grads("DiT", model, config, DIT_STEP, gen,
+                      batch_size=TRAIN_BATCH, seed=TRAIN_SEED)
+    phase_remat_grads("DiT", model, config, DIT_STEP, DIT_REMAT_STEP, gen,
+                      seed=TRAIN_SEED)
+    del model
+    samplers = [("ddim", 10, ["--num_inference_steps", "10",
+                              "--cfg_scale", str(CFG_SCALE)])]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, rates, peak = phase_train_main(
+            "DiT", config, DIT_STEP, DIT_FORWARD, samplers, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        remat_launches, remat_rates, remat_peak = phase_train_main(
+            "DiT remat", dict(config, remat=True), DIT_REMAT_STEP,
+            DIT_FORWARD, samplers, tmp)
+
+    # the DiM with 8-head attention in place of each Mamba mixer (d 48)
+    dim_config = load_config(DIM_CONFIG)
+    fallback = dict(dim_config, model_params=dict(
+        dim_config["model_params"], use_attention_fallback=True))
+    fallback_model, _, fallback_launches = phase_model_forward(
+        "DiM attention fallback", fallback, DIT_FORWARD, gen)
+    fallback_model.train()
+    phase_train_grads("DiM attention fallback", fallback_model, fallback,
+                      DIT_STEP, gen, batch_size=TRAIN_BATCH, seed=TRAIN_SEED)
+    del fallback_model
+    return {"params": n_params, "dropout_err": dropout_err,
+            "dropout_times": dropout_times, "sample_launches": sample_launches,
+            "seconds": seconds, "plain_seconds": plain_seconds,
+            "train_launches": train_launches, "rates": rates, "peak": peak,
+            "remat_launches": remat_launches, "remat_rates": remat_rates,
+            "remat_peak": remat_peak,
+            "fallback_launches": fallback_launches["attn"]}
 
 
 def main():
@@ -1394,15 +1636,17 @@ def main():
 
     dim_config = load_config(DIM_CONFIG)
     scan_err, scan_times = phase_scan(gen)
-    dim_model, dim_params = phase_dim(dim_config, gen)
+    dim_model, dim_params, _ = phase_model_forward("DiM", dim_config,
+                                                   DIM_FORWARD, gen)
     phase_trajectory(dim_model, gen)
     with tempfile.TemporaryDirectory() as tmp:
         dim_launches, dim_seconds = phase_sample_main(
             "DiM", dim_config, dim_model, DIM_FORWARD, tmp)
     del dim_model
-    dim_model = random_dim(dim_config, gen)
+    dim_model = random_model(dim_config, gen)
     phase_train_grads("DiM", dim_model, dim_config, DIM_STEP, gen)
-    phase_remat_grads(dim_model, dim_config, gen)
+    phase_remat_grads("DiM", dim_model, dim_config, DIM_STEP, DIM_REMAT_STEP,
+                      gen)
     del dim_model
     samplers = [("ddim", 10, ["--num_inference_steps", "10",
                               "--cfg_scale", str(CFG_SCALE)])]
@@ -1426,7 +1670,7 @@ def main():
         dim_config, image_size=size, dataset="synthetic",
         batch_size=DIM64_BATCH,
         model_params=dict(dim_config["model_params"], img_size=size))
-    phase_train_grads("DiM 64x64", random_dim(dim64_config, gen),
+    phase_train_grads("DiM 64x64", random_model(dim64_config, gen),
                       dim64_config, DIM64_STEP, gen, batch_size=DIM64_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         dim64_launches, dim64_rates, dim64_peak = phase_train_main(
@@ -1437,6 +1681,8 @@ def main():
             "DiM 64x64 batch 8",
             dict(dim64_config, batch_size=DIM64_SMALL_BATCH),
             DIM64_SMALL_STEP, tmp, 1, SYNTHETIC_IMAGES // DIM64_SMALL_BATCH)
+
+    dit = phase_dit(gen)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -1457,6 +1703,16 @@ def main():
           f"images/s at batch {DIM64_BATCH} (plain versions: "
           f"{statistics.median(dim64_rates['plain']):.2f}), peak device "
           f"memory {dim64_peak / 2**20:.1f} MiB, on {smi}")
+    print(f"DiT ({dit['params']} parameters): {SAMPLES / dit['seconds']:.2f} "
+          f"samples/s DDIM-{STEPS} CFG {CFG_SCALE} fp32 (plain versions: "
+          f"{SAMPLES / dit['plain_seconds']:.2f}); "
+          f"{statistics.median(dit['rates']['kernels']):.2f} train images/s "
+          f"at batch {TRAIN_BATCH}, dropout 0.1 (plain versions: "
+          f"{statistics.median(dit['rates']['plain']):.2f}), peak device "
+          f"memory {dit['peak'] / 2**20:.1f} MiB; remat "
+          f"{statistics.median(dit['remat_rates']['kernels']):.2f} (plain "
+          f"versions: {statistics.median(dit['remat_rates']['plain']):.2f}), "
+          f"peak {dit['remat_peak'] / 2**20:.1f} MiB; on {smi}")
     fwd_ms, fwd_plain = scan_times[("fwd", 2 * SAMPLES, 256, False)]
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
     k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
@@ -1467,6 +1723,16 @@ def main():
         """The bound of the 12 scans of one model call."""
         return Bound().add(*scan_work(kind, batch, length),
                            SCAN_PER_FORWARD).keys()
+    # the dropout forms, ms of one DiT train step's 12 calls at BH 768, L 256,
+    # d 64 against the p = 0 forms' bound (Philox's integer operations are
+    # not counted as operations)
+    drop_ms = {key: ATTN_PER_DIT_FORWARD * ms
+               for key, ms in dit["dropout_times"].items()}
+    drop_bound = {
+        backward: Bound().add(*attn_work(TRAIN_BATCH * DIT_HEADS, DIT_LENGTH,
+                                         DIT_HEAD_DIM, backward),
+                              ATTN_PER_DIT_FORWARD).ms
+        for backward in (False, True)}
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -1496,18 +1762,36 @@ def main():
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:65",
          "launches": launches["attn"],
          "launches_by_path": {"sample": launches["attn"],
-                              "train": train_launches["attn"]},
-         "max_abs_err": max(attn_err, main_err["attn"]),
+                              "train": train_launches["attn"],
+                              "dit_sample": dit["sample_launches"]["attn"],
+                              "dit_train": dit["train_launches"]["attn"],
+                              "dit_train_remat":
+                                  dit["remat_launches"]["attn"],
+                              "dim_fallback": dit["fallback_launches"]},
+         "dropout_launches": dit["train_launches"]["attn_dropout"],
+         "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
-         **bounds["attn"].keys(), "library_ms": totals["attn"][2]},
+         **bounds["attn"].keys(), "library_ms": totals["attn"][2],
+         "dropout_ms": drop_ms["fwd"], "dropout_p0_ms": drop_ms["fwd_p0"],
+         "dropout_plain_ms": drop_ms["fwd_plain"],
+         "dropout_bound_ms": drop_bound[False],
+         "dropout_library_ms": drop_ms["fwd_library"]},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": csrc + "flash_attn_bwd.cu",
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:126",
          "launches": train_launches["attn_bwd"],
-         "launches_by_path": {"train": train_launches["attn_bwd"]},
-         "max_abs_err": bwd_err,
+         "launches_by_path": {"train": train_launches["attn_bwd"],
+                              "dit_train": dit["train_launches"]["attn_bwd"],
+                              "dit_train_remat":
+                                  dit["remat_launches"]["attn_bwd"]},
+         "dropout_launches": dit["train_launches"]["attn_bwd_dropout"],
+         "max_abs_err": max(bwd_err, dit["dropout_err"]),
          "ms": bwd_totals[0], "plain_ms": bwd_totals[1],
-         **bwd_bound.keys(), "library_ms": bwd_totals[2]},
+         **bwd_bound.keys(), "library_ms": bwd_totals[2],
+         "dropout_ms": drop_ms["bwd"], "dropout_p0_ms": drop_ms["bwd_p0"],
+         "dropout_plain_ms": drop_ms["bwd_plain"],
+         "dropout_bound_ms": drop_bound[True],
+         "dropout_library_ms": drop_ms["bwd_library"]},
         # K5 (states off), K6 (states on) and K4 (the ragged last block);
         # ms per sampling forward: 12 calls at batch 160
         {"name": "selective_scan_fwd", "route": "cuda",

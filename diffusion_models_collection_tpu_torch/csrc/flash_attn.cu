@@ -43,6 +43,11 @@
 // The (L, L) score matrix never reaches device memory. Rows and keys past L
 // are masked, so any L >= 1 runs (the TPU kernel needed L % 128 == 0); any
 // d % 8 == 0 up to 128 runs, zero-padded to DMAX of 32, 64 or 128.
+// Dropout on the probabilities (the DiT's training attention; a template
+// flag, so the form without it is unchanged): the running max and sum stay
+// those of the undropped P, so lse is unchanged, and only the values that
+// enter P V, where P is written to shared memory, are multiplied by keep / (1
+// - p), keep from `philox.cuh`: o = (P o Z) V.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // from a CUDA graph): 0.29 ms a call at BH 640, L 256, d 64 against 0.36 for
 // the four-by-four form and a bound of 0.16 ms (operations).
@@ -52,6 +57,8 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -208,12 +215,13 @@ __device__ __forceinline__ void pv_product(
   }
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB>
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int L, int d, float scale_log2) {
+                 float* __restrict__ lse, int L, int d, float scale_log2,
+                 DropoutParams dp) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -274,11 +282,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < C::DC; ++b) acc[a][b] *= alpha;
       float* prow = Ps + (ty + C::TY * a) * C::SP + tx;
+      uint32_t keep = 0;
+      if constexpr (DROPOUT)
+        keep = dropout_keep_bits<C::TX, KB>(dp, bh, q0 + ty + C::TY * a, k0, tx);
 #pragma unroll
       for (int b = 0; b < KB; ++b) {
         const float p = fast_exp2(s[a][b] - m_new);
         l[a] += p;
-        prow[C::TX * b] = p;
+        if constexpr (DROPOUT)
+          prow[C::TX * b] = (keep >> b) & 1u ? p * dp.keep_scale : 0.f;
+        else
+          prow[C::TX * b] = p;
       }
     }
     cp_async_wait_all();
@@ -312,9 +326,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB>
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
 int launch(const float* q, const float* k, const float* v, float* o, float* lse,
-           int bh, int L, int d, float scale, cudaStream_t stream) {
+           int bh, int L, int d, float scale, const DropoutParams& dp,
+           cudaStream_t stream) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
   // and device: set it at the first launch on each device, not every launch.
@@ -324,36 +339,54 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DMAX, BQ, BK, RA, KB>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)C::SMEM);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev].store(true, std::memory_order_release);
   }
   const dim3 grid(bh, (L + BQ - 1) / BQ);
-  flash_fwd_kernel<DMAX, BQ, BK, RA, KB><<<grid, C::NT, C::SMEM, stream>>>(
-      q, k, v, o, lse, L, d, scale * kLog2e);
+  flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>
+      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
+                                         scale * kLog2e, dp);
   return (int)cudaGetLastError();
+}
+
+template <bool DROPOUT>
+int launch_form(const float* q, const float* k, const float* v, float* o,
+                float* lse, int bh, int L, int d, float scale, int tile,
+                const DropoutParams& dp, cudaStream_t stream) {
+  auto f = &launch<128, 64, 64, 4, 4, DROPOUT>;
+  if (tile == 32)
+    f = d <= 32 ? &launch<32, 32, 32, 4, 4, DROPOUT>
+                : &launch<64, 32, 32, 4, 4, DROPOUT>;
+  else if (tile == 128)
+    f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT>
+                : &launch<64, 128, 64, 8, 8, DROPOUT>;
+  return f(q, k, v, o, lse, bh, L, d, scale, dp, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: (bh, L, d) float32, contiguous, 16-byte aligned; lse: (bh, L)
 // float32. d % 8 == 0 and d <= 128. `tile` is the query tile height: 32 or
-// 128 for d <= 64, 64 for d > 64. Returns the CUDA error of the launch.
+// 128 for d <= 64, 64 for d > 64. `dropout` != 0 takes the dropout form: a
+// key is kept iff its Philox word (philox.cuh, from `seed`) is below
+// `threshold`, and a kept probability is multiplied by `keep_scale`. Returns
+// the CUDA error of the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int bh, int L, int d, float scale,
-                              int tile, void* stream) {
+                              int tile, int dropout, unsigned threshold,
+                              float keep_scale, unsigned long long seed,
+                              void* stream) {
   if (d < 8 || d % 8 || d > 128 ||
       !(d <= 64 ? tile == 32 || tile == 128 : tile == 64))
     return (int)cudaErrorInvalidValue;
-  auto f = &launch<128, 64, 64, 4, 4>;
-  if (tile == 32)
-    f = d <= 32 ? &launch<32, 32, 32, 4, 4> : &launch<64, 32, 32, 4, 4>;
-  else if (tile == 128)
-    f = d <= 32 ? &launch<32, 128, 64, 8, 8> : &launch<64, 128, 64, 8, 8>;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32)};
+  auto f = dropout ? &launch_form<true> : &launch_form<false>;
   return f((const float*)q, (const float*)k, (const float*)v, (float*)o,
-           (float*)lse, bh, L, d, scale, (cudaStream_t)stream);
+           (float*)lse, bh, L, d, scale, tile, dp, (cudaStream_t)stream);
 }
 
 // Message of a CUDA error code returned by the entries above.

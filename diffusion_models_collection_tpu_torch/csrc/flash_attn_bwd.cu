@@ -47,6 +47,12 @@
 // past L has K = V = 0, so its dS meets a zero K row in dQ and its own dK,
 // dV rows are never written. Any L >= 1 runs; any d % 8 == 0 up to 128 runs,
 // zero-padded to DMAX of 32, 64 or 128.
+// Dropout on the probabilities (a template flag; the form without it is
+// unchanged): with Z = keep / (1 - p) from `philox.cuh`, regenerated for each
+// tile from (seed, head, row, key) exactly as the forward drew it,
+//   dV = (P o Z)^T dO,  dP = (dO V^T) o Z,  dS = P o (dP - delta) * scale,
+// and delta = rowsum(dO o O) stays right, since rowsum(P o dP) = rowsum(dO o
+// O) when O = (P o Z) V. Both forms take it.
 // Read by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.85 ms a call at
 // BH 512, L 256, d 64 (fused; 1.02 ms with the two-kernel form forced),
 // 4.9 ms for the 11 calls of a UNet train step against a bound of 1.7 ms.
@@ -56,6 +62,8 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -223,29 +231,37 @@ __device__ __forceinline__ void rows_dot(const float* As, const float* Bs, int t
   }
 }
 
-// S = Q K^T and dP = dO V^T of the current tiles, then P (stored when Ps is
-// given) and dS into their (BT, BT + 4) tiles: rows ty + TX a, keys tx + TX b
-template <int DMAX, int BT>
+// S = Q K^T and dP = dO V^T of the current tiles (query rows from q0, keys
+// from k0 of head bh), then P (stored when Ps is given; P o Z with DROPOUT)
+// and dS into their (BT, BT + 4) tiles: rows ty + TX a, keys tx + TX b
+template <int DMAX, int BT, bool DROPOUT>
 __device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
                                            const float* Ks, const float* Vs,
                                            const float* lse_s, const float* dl_s,
                                            float* Ps, float* dSs, int ty, int tx,
-                                           float scale) {
+                                           float scale, const DropoutParams& dp,
+                                           int bh, int q0, int k0) {
   using C = Cfg<DMAX, BT>;
-  float s[4][4], dp[4][4];
+  float s[4][4], dpv[4][4];
   rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
-  rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dp);
+  rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dpv);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty + C::TX * a;
     const float lr = lse_s[r];
     const float dl = dl_s[r];
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits<C::TX, 4>(dp, bh, q0 + r, k0, tx);
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int col = tx + C::TX * b;
       const float p = expf(s[a][b] * scale - lr);
-      if (Ps != nullptr) Ps[r * C::SP + col] = p;
-      dSs[r * C::SP + col] = p * (dp[a][b] - dl) * scale;
+      float z = 1.f;
+      if constexpr (DROPOUT) z = (keep >> b) & 1u ? dp.keep_scale : 0.f;
+      if (Ps != nullptr) Ps[r * C::SP + col] = DROPOUT ? p * z : p;
+      dSs[r * C::SP + col] =
+          p * ((DROPOUT ? dpv[a][b] * z : dpv[a][b]) - dl) * scale;
     }
   }
 }
@@ -301,14 +317,15 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 // One block per (head, key tile): dK_j, dV_j and, when WITH_DQ, this key
 // tile's share of every dQ_i, into dq_out (the head's rows at
 // (bh * gridDim.y + tile) * L * d: dq itself when there is one key tile).
-template <int DMAX, int BT, bool WITH_DQ>
+template <int DMAX, int BT, bool WITH_DQ, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dq_out, float* __restrict__ dk,
-                      float* __restrict__ dv, int L, int d, float scale) {
+                      float* __restrict__ dv, int L, int d, float scale,
+                      DropoutParams dp) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -351,7 +368,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // the tiles and row stats are in; dSs is read
 
-    probs_tile<DMAX, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, ty, tx, scale);
+    probs_tile<DMAX, BT, DROPOUT>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, ty, tx,
+                                  scale, dp, bh, q0, k0);
     __syncthreads();
 
     // dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :]
@@ -410,13 +428,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The two-kernel form's dQ: one block per (head, query tile) walks the key
 // tiles, recomputes dS and keeps dQ_i in registers.
-template <int DMAX, int BT>
+template <int DMAX, int BT, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int L, int d, float scale) {
+                    float* __restrict__ dq, int L, int d, float scale,
+                    DropoutParams dp) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Kbuf = smem;  // two K tiles
@@ -453,8 +472,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // the tiles are in; dSs and the other K tile are read
 
-    probs_tile<DMAX, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, ty, tx,
-                         scale);
+    probs_tile<DMAX, BT, DROPOUT>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, ty,
+                                  tx, scale, dp, bh, q0, k0);
     __syncthreads();  // Vs is read
 
     if (k0 + BT < L) {  // the next tiles fly during the dQ product
@@ -484,11 +503,11 @@ int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
   return 0;
 }
 
-template <int DMAX, int BT>
+template <int DMAX, int BT, bool DROPOUT>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* partial,
            float* dq, float* dk, float* dv, int bh, int L, int d, float scale,
-           int fused, cudaStream_t stream) {
+           int fused, const DropoutParams& dp, cudaStream_t stream) {
   using C = Cfg<DMAX, BT>;
   static std::atomic<bool> opted_fused[kMaxDevices], opted_dkdv[kMaxDevices],
       opted_dq[kMaxDevices];
@@ -504,11 +523,13 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
   const dim3 grid(bh, tiles);
   if (fused) {
-    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true>, opted_fused,
+    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>, opted_fused,
                     C::SMEM_DKDV);
     if (rc != 0) return rc;
-    flash_bwd_dkdv_kernel<DMAX, BT, true><<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-        q, k, v, dout, lse, delta, tiles > 1 ? partial : dq, dk, dv, L, d, scale);
+    flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>
+        <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+            q, k, v, dout, lse, delta, tiles > 1 ? partial : dq, dk, dv, L, d,
+            scale, dp);
     err = cudaGetLastError();
     if (err != cudaSuccess || tiles == 1) return (int)err;
     const size_t head4 = (size_t)L * d / 4;
@@ -517,18 +538,36 @@ int launch(const float* q, const float* k, const float* v, const float* o,
         (const float4*)partial, (float4*)dq, head4, tiles, total4);
     return (int)cudaGetLastError();
   }
-  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false>, opted_dkdv,
+  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>, opted_dkdv,
                   C::SMEM_DKDV);
   if (rc != 0) return rc;
-  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT>, opted_dq, C::SMEM_DQ);
+  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT, DROPOUT>, opted_dq, C::SMEM_DQ);
   if (rc != 0) return rc;
-  flash_bwd_dkdv_kernel<DMAX, BT, false><<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-      q, k, v, dout, lse, delta, nullptr, dk, dv, L, d, scale);
+  flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>
+      <<<grid, C::NT, C::SMEM_DKDV, stream>>>(q, k, v, dout, lse, delta, nullptr,
+                                              dk, dv, L, d, scale, dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DMAX, BT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
-      q, k, v, dout, lse, delta, dq, L, d, scale);
+  flash_bwd_dq_kernel<DMAX, BT, DROPOUT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
+      q, k, v, dout, lse, delta, dq, L, d, scale, dp);
   return (int)cudaGetLastError();
+}
+
+template <bool DROPOUT>
+int launch_form(const float* q, const float* k, const float* v, const float* o,
+                const float* dout, const float* lse, float* delta,
+                float* partial, float* dq, float* dk, float* dv, int bh, int L,
+                int d, float scale, int tile, int fused,
+                const DropoutParams& dp, cudaStream_t stream) {
+  auto f = &launch<128, 64, DROPOUT>;
+  if (tile == 32)
+    f = d <= 32 ? &launch<32, 32, DROPOUT> : &launch<64, 32, DROPOUT>;
+  else if (d <= 32)
+    f = &launch<32, 64, DROPOUT>;
+  else if (d <= 64)
+    f = &launch<64, 64, DROPOUT>;
+  return f(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh, L, d, scale,
+           fused, dp, stream);
 }
 
 }  // namespace
@@ -538,23 +577,23 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 // d <= 128. `tile` is the tile height, 64, or 32 for d <= 64. `fused` != 0
 // takes the one-pass form, which needs the scratch `partial` (bh,
 // ceil(L / tile), L, d) when L > tile; `fused` == 0 the two-kernel form
-// (`partial` unused). Returns the CUDA error of the launches.
+// (`partial` unused). `dropout` != 0 takes the dropout form with the
+// forward's `threshold`, `keep_scale` and `seed` (flash_attn.cu). Returns the
+// CUDA error of the launches.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
                               void* delta, void* partial, void* dq, void* dk,
                               void* dv, int bh, int L, int d, float scale,
-                              int tile, int fused, void* stream) {
+                              int tile, int fused, int dropout,
+                              unsigned threshold, float keep_scale,
+                              unsigned long long seed, void* stream) {
   if (d < 8 || d % 8 || d > 128 || (tile != 64 && !(tile == 32 && d <= 64)))
     return (int)cudaErrorInvalidValue;
-  auto f = &launch<128, 64>;
-  if (tile == 32)
-    f = d <= 32 ? &launch<32, 32> : &launch<64, 32>;
-  else if (d <= 32)
-    f = &launch<32, 64>;
-  else if (d <= 64)
-    f = &launch<64, 64>;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32)};
+  auto f = dropout ? &launch_form<true> : &launch_form<false>;
   return f((const float*)q, (const float*)k, (const float*)v, (const float*)o,
            (const float*)dout, (const float*)lse, (float*)delta, (float*)partial,
-           (float*)dq, (float*)dk, (float*)dv, bh, L, d, scale, fused,
+           (float*)dq, (float*)dk, (float*)dv, bh, L, d, scale, tile, fused, dp,
            (cudaStream_t)stream);
 }

@@ -3,8 +3,8 @@ and the training data from a config, and load a checkpoint's weights for
 inference.
 
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
-port covers: the UNet and DiM, DDPM training and sampling, DDIM sampling,
-float32.
+port covers: the UNet, DiT and DiM, DDPM training and sampling, DDIM
+sampling, float32.
 The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it). Every
 other model type,
@@ -21,22 +21,22 @@ from torch import nn
 
 from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
 from .diffusion import DDIM, DDPM
-from .models import DiM, UNet
+from .models import DiM, DiT, UNet
 from .utils.helpers import resolve_image_size
 
 
-MODEL_CLASSES = {"unet": UNet, "dim": DiM}
+MODEL_CLASSES = {"unet": UNet, "dit": DiT, "dim": DiM}
 
 
 def get_model(config: Mapping) -> nn.Module:
     """Build the denoiser from config, injecting the normalized image size
-    (`image_size` for the UNet, `img_size` for DiM) and the conditional
-    class count."""
+    (`image_size` for the UNet, `img_size` for DiT and DiM) and the
+    conditional class count."""
     model_type = str(config["model_type"]).lower()
     if model_type not in MODEL_CLASSES:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "items 8 and 11)")
+            "item 11)")
     for key in ("latent_diffusion", "super_resolution"):
         if config.get(key):
             raise NotImplementedError(

@@ -1,8 +1,9 @@
-"""Denoiser backbones: the UNet and DiM."""
+"""Denoiser backbones: the UNet, DiT and DiM."""
 
 from .dim import DiM
+from .dit import DiT
 from .layers import LabelEmbedder, UNetTimeEmbed, sinusoidal_time_embedding_unet
 from .unet import UNet
 
-__all__ = ["DiM", "LabelEmbedder", "UNet", "UNetTimeEmbed",
+__all__ = ["DiM", "DiT", "LabelEmbedder", "UNet", "UNetTimeEmbed",
            "sinusoidal_time_embedding_unet"]

@@ -23,9 +23,12 @@ and the conv take torch's defaults (the same U(+-1/sqrt(fan_in)) as the JAX
 `torch_default_*`); the MLP and timestep linears are xavier with zero
 biases; adaLN and the final projection are zero; pos_embed is N(0, 0.02).
 
-Not ported, and raising when asked for: `use_attention_fallback` (it needs
-DiT's `SelfAttention` with dropout on the probabilities, ROADMAP queue 1
-item 8).
+`use_attention_fallback=True` puts DiT's `SelfAttention` with 8 heads and
+the model's dropout (on the probabilities, inside the flash kernels) in
+place of each block's Mamba mixer, as the JAX model's `attn` and the
+reference's `nn.MultiheadAttention` fallback; its parameters keep the
+mixer's place, `blocks.{i}.mamba_block.mamba.{in_proj_weight, ...}`, where
+`utils/torch_export.py` writes them.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.selective_scan import selective_scan
-from .dit import Mlp
+from .dit import Mlp, SelfAttention
 from .layers import (
     AdaLNModulation,
     LabelTable,
@@ -103,15 +106,20 @@ class Mamba(nn.Module):
 
 
 class MambaBlock(nn.Module):
-    """adaLN-modulated Mamba mixer: x + gate * Mamba(modulate(LN(x)))."""
+    """adaLN-modulated Mamba mixer: x + gate * Mamba(modulate(LN(x))); with
+    `use_attention_fallback`, 8-head self-attention (dropout `dropout` on
+    its probabilities) in the mixer's place."""
 
     def __init__(self, hidden_size: int, state_size: int = 16,
-                 save_scan_states: bool = True):
+                 save_scan_states: bool = True, dropout: float = 0.1,
+                 use_attention_fallback: bool = False):
         super().__init__()
         self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
         self.adaLN_modulation = AdaLNModulation(hidden_size, 3)
-        self.mamba = Mamba(hidden_size, state_size,
-                           save_scan_states=save_scan_states)
+        self.mamba = (SelfAttention(hidden_size, 8, dropout)
+                      if use_attention_fallback
+                      else Mamba(hidden_size, state_size,
+                                 save_scan_states=save_scan_states))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c)
@@ -141,10 +149,12 @@ class DiMBlock(nn.Module):
 
     def __init__(self, hidden_size: int, state_size: int = 16,
                  mlp_ratio: float = 4.0, dropout: float = 0.1,
-                 save_scan_states: bool = True):
+                 save_scan_states: bool = True,
+                 use_attention_fallback: bool = False):
         super().__init__()
         self.mamba_block = MambaBlock(hidden_size, state_size,
-                                      save_scan_states)
+                                      save_scan_states, dropout,
+                                      use_attention_fallback)
         self.ff_block = FeedForward(hidden_size, mlp_ratio, dropout)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -189,11 +199,6 @@ class DiM(nn.Module):
         out_channels: Optional[int] = None,
     ):
         super().__init__()
-        if use_attention_fallback:
-            raise NotImplementedError(
-                "use_attention_fallback is not ported yet: it needs DiT's "
-                "SelfAttention with dropout on the probabilities (ROADMAP "
-                "queue 1 item 8)")
         self.remat = remat
         img_h, img_w = ((img_size, img_size) if isinstance(img_size, int)
                         else tuple(img_size))
@@ -212,7 +217,8 @@ class DiM(nn.Module):
                            if num_classes is not None else None)
         self.blocks = nn.ModuleList(
             DiMBlock(hidden_size, state_size, mlp_ratio, dropout,
-                     save_scan_states=not remat)
+                     save_scan_states=not remat,
+                     use_attention_fallback=use_attention_fallback)
             for _ in range(depth))
         self.final_layer = DiMFinalLayer(hidden_size, patch_size,
                                          self.out_channels)

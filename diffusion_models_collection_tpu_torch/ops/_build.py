@@ -43,6 +43,8 @@ build_info: dict = {}
 
 
 def _sources():
+    """Every source the build compiles or includes (`philox.cuh`,
+    `selective_scan_common.cuh`): all of them key the build's hash."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
@@ -110,16 +112,19 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed
+    dropout = [i32, ctypes.c_uint32, f32, ctypes.c_uint64]
     lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
     lib.gn_silu_fwd.restype = i32
     lib.gn_silu_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
     lib.gn_silu_bwd.restype = i32
     lib.gn_silu_form.argtypes = [i32] * 4
     lib.gn_silu_form.restype = i32
-    lib.flash_attn_fwd.argtypes = [ptr] * 5 + [i32, i32, i32, f32, i32, ptr]
+    lib.flash_attn_fwd.argtypes = ([ptr] * 5 + [i32, i32, i32, f32, i32]
+                                   + dropout + [ptr])
     lib.flash_attn_fwd.restype = i32
-    lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32,
-                                                ptr])
+    lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32]
+                                   + dropout + [ptr])
     lib.flash_attn_bwd.restype = i32
     lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.selective_scan_fwd.restype = i32

@@ -26,11 +26,19 @@ next multiple of 8 with zero columns, which changes no score (the softmax
 scale is an argument of the kernels and stays 1 / sqrt(head_dim)) and adds
 only zero columns to o, dq, dk and dv, sliced off again; a head_dim beyond
 `MAX_HEAD_DIM` raises there.
+
+Dropout on the probabilities (`dropout_p` > 0 with a 64-bit `seed`), as the
+JAX package's `dot_product_attention` applies it in training: o = (P o Z) V
+with Z = keep / (1 - p), lse that of the undropped P. `philox_keep_mask` is
+the one definition of the mask, a pure function of (seed, head, row, key)
+through Philox4x32-10, which the kernels (`csrc/philox.cuh`) compute tile by
+tile and the backward regenerates, so nothing of size (BH, L, L) is stored.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -41,9 +49,16 @@ from . import _build
 MAX_HEAD_DIM = 128
 
 # Kernel launches since the process started (or since a caller reset them):
-# the forward's and the backward's.
+# the forward's and the backward's, and of those the ones in the dropout form.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+DROPOUT_LAUNCHES = 0
+BWD_DROPOUT_LAUNCHES = 0
+
+_MASK32 = 0xFFFFFFFF
+# Philox4x32's multipliers and key increments (Random123)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 # The longest sequence whose backward runs fused: four key tiles of 64, so
 # the dq shares cost as much traffic as one more pass over q, k, v and dO.
@@ -75,34 +90,113 @@ def bwd_fused(seq_len: int) -> bool:
     return seq_len <= FUSED_MAX_LEN
 
 
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The high and low 32 bits of a * b for a 32-bit constant a and a tensor
+    of 32-bit values held in int64, from b's 16-bit halves: no product
+    reaches 2^63."""
+    high = a * (b >> 16)
+    low = a * (b & 0xFFFF) + ((high & 0xFFFF) << 16)
+    return (high >> 16) + (low >> 32), low & _MASK32
+
+
+def philox4x32(counter, key):
+    """Philox4x32-10 (Random123) of four counter words (int64 tensors, or
+    ints, of 32-bit values; broadcast together) under two key words (ints);
+    returns the four output words as int64 tensors."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(dropout_p: float) -> int:
+    """A key is kept iff its Philox word is below floor((1 - p) 2^32)."""
+    return min(math.floor((1.0 - dropout_p) * 2.0**32), _MASK32)
+
+
+def philox_keep_mask(seed: int, bh: int, lq: int, lk: int, dropout_p: float,
+                     *, bh0: int = 0, row0: int = 0, col0: int = 0,
+                     device=None) -> torch.Tensor:
+    """The keep mask of attention dropout, bool (bh, lq, lk): heads bh0 ..,
+    query rows row0 .., keys col0 .. . Key `col` of row `row` of head `h` is
+    kept iff word col & 3 of Philox4x32-10 at counter (col >> 2, row, h, 0)
+    under key (seed & 0xFFFFFFFF, seed >> 32) is below
+    `dropout_threshold(dropout_p)`: what the kernels compute, tile by tile."""
+    g0, g1 = col0 >> 2, ((col0 + lk - 1) >> 2) + 1
+    arange = partial(torch.arange, dtype=torch.int64, device=device)
+    words = philox4x32(
+        (arange(g0, g1)[None, None, :], arange(row0, row0 + lq)[None, :, None],
+         arange(bh0, bh0 + bh)[:, None, None], 0),
+        (seed & _MASK32, (seed >> 32) & _MASK32))
+    words = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    words = words.reshape(bh, lq, 4 * (g1 - g0))[..., col0 - 4 * g0:][..., :lk]
+    return words < dropout_threshold(dropout_p)
+
+
+def dropout_factor(seed: int, dropout_p: float, shape,
+                   device=None) -> torch.Tensor:
+    """Z = keep / (1 - p) over (BH, L, L) scores, float32: 1 / (1 - p) rounded
+    to float32 where kept, as the kernels multiply."""
+    keep = philox_keep_mask(seed, *shape, dropout_p, device=device)
+    return keep.to(torch.float32) * torch.tensor(
+        1.0 / (1.0 - dropout_p), dtype=torch.float32, device=device)
+
+
+def _check_dropout(name: str, dropout_p: float, seed: Optional[int]) -> None:
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"{name}: dropout_p must lie in [0, 1), got "
+                         f"{dropout_p}")
+    if dropout_p > 0.0 and not isinstance(seed, int):
+        raise ValueError(f"{name}: dropout needs an int seed, got {seed!r}")
+
+
 def flash_attention_fwd_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_p: float = 0.0, seed: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch attention: o = softmax(q k^T / sqrt(d)) v and
-    lse = logsumexp(q k^T / sqrt(d)) of shape (BH, L, 1)."""
+    """Plain PyTorch attention: o = (softmax(q k^T / sqrt(d)) o Z) v, Z the
+    dropout factor (none at p = 0), and lse = logsumexp(q k^T / sqrt(d)) of
+    shape (BH, L, 1)."""
+    _check_dropout("flash_attention_fwd_ref", dropout_p, seed)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    o = torch.matmul(torch.softmax(logits, dim=-1), v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device)
+    o = torch.matmul(probs, v)
     return o, torch.logsumexp(logits, dim=-1, keepdim=True)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dropout_p: float = 0.0,
+                        seed: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch attention output, differentiable by autograd."""
-    return flash_attention_fwd_ref(q, k, v)[0]
+    return flash_attention_fwd_ref(q, k, v, dropout_p, seed)[0]
 
 
 def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    do: torch.Tensor, lse: torch.Tensor
+    do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
+    seed: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse,
-    dv = P^T dO, dS = P (dO v^T - rowsum(dO o)) / sqrt(d), dq = dS k,
-    dk = dS^T q."""
+    dv = (P o Z)^T dO, dS = P (dO v^T o Z - rowsum(dO o)) / sqrt(d),
+    dq = dS k, dk = dS^T q, with Z the forward's dropout factor (1 at
+    p = 0)."""
+    _check_dropout("flash_attention_bwd_ref", dropout_p, seed)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
-    dv = torch.matmul(p.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
+    p_kept = p
+    if dropout_p > 0.0:
+        z = dropout_factor(seed, dropout_p, p.shape, q.device)
+        p_kept, dp = p * z, dp * z
+    dv = torch.matmul(p_kept.transpose(-1, -2), do)
     delta = (do * o).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
     return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
@@ -149,17 +243,30 @@ def _cut_heads(head_dim: int, *tensors: torch.Tensor):
     return tuple(t[..., :head_dim].contiguous() for t in tensors)
 
 
+def _dropout_args(dropout_p: float, seed: Optional[int]):
+    """The kernels' trailing dropout arguments: (on, threshold, 1 / (1 - p),
+    seed as an unsigned 64-bit int)."""
+    if dropout_p == 0.0:
+        return 0, 0, 1.0, 0
+    return (1, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p),
+            seed & 0xFFFFFFFFFFFFFFFF)
+
+
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_p: float = 0.0, seed: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over (BH, L, d) float32, square scores: the kernel
-    for CUDA tensors, the plain version for CPU tensors. Returns (o, lse)
-    with lse of shape (BH, L, 1), the JAX kernel's layout."""
-    global LAUNCHES
+    """Attention forward over (BH, L, d) float32, square scores, with
+    dropout on the probabilities when `dropout_p` > 0 (the mask of
+    `philox_keep_mask(seed, ...)`): the kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (o, lse) with lse of shape (BH, L, 1),
+    the JAX kernel's layout."""
+    global LAUNCHES, DROPOUT_LAUNCHES
     _build.check_inputs("flash_attention_fwd", q, k, v)
     _check_shapes("flash_attention_fwd", q, k, v)
+    _check_dropout("flash_attention_fwd", dropout_p, seed)
     if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v)
+        return flash_attention_fwd_ref(q, k, v, dropout_p, seed)
     bh, seq_len, head_dim = q.shape
     lib = _build.library()
     q, k, v = _pad_heads(head_dim, q, k, v)
@@ -175,29 +282,33 @@ def flash_attention_fwd(
             err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(), bh, seq_len,
                                      width, 1.0 / math.sqrt(head_dim),
-                                     fwd_tile(seq_len, width), stream)
+                                     fwd_tile(seq_len, width),
+                                     *_dropout_args(dropout_p, seed), stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
+        DROPOUT_LAUNCHES += dropout_p > 0.0
     return (*_cut_heads(head_dim, o), lse)
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    do: torch.Tensor, lse: torch.Tensor, fused: Optional[bool] = None
+    do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
+    seed: Optional[int] = None, fused: Optional[bool] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward over (BH, L, d) float32 from the forward's o and
-    lse (BH, L, 1): the kernel for CUDA tensors, the plain version for CPU
-    tensors. Returns (dq, dk, dv). `fused` picks the kernel's form; None
-    leaves it to `bwd_fused`."""
-    global BWD_LAUNCHES
+    lse (BH, L, 1) and its `dropout_p` and `seed`: the kernel for CUDA
+    tensors, the plain version for CPU tensors. Returns (dq, dk, dv).
+    `fused` picks the kernel's form; None leaves it to `bwd_fused`."""
+    global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES
     _build.check_inputs("flash_attention_bwd", q, k, v, o, do, lse)
     _check_shapes("flash_attention_bwd", q, k, v, o, do)
+    _check_dropout("flash_attention_bwd", dropout_p, seed)
     bh, seq_len, head_dim = q.shape
     if lse.shape != (bh, seq_len, 1):
         raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
                          f"1), got {tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, lse)
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, dropout_p, seed)
     q, k, v, o, do = _pad_heads(head_dim, q, k, v, o, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: q, k, v and dO must be "
@@ -224,32 +335,40 @@ def flash_attention_bwd(
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 None if partial is None else partial.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
-                width, 1.0 / math.sqrt(head_dim), tile, int(fused), stream)
+                width, 1.0 / math.sqrt(head_dim), tile, int(fused),
+                *_dropout_args(dropout_p, seed), stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
+        BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
     return _cut_heads(head_dim, dq, dk, dv)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is `flash_attention_fwd` and whose backward
-    is `flash_attention_bwd`, from the residuals (q, k, v, o, lse), as the
-    JAX package's `_flash_core` (`_flash_core_fwd`, `_flash_core_bwd`)."""
+    is `flash_attention_bwd`, from the residuals (q, k, v, o, lse) and the
+    dropout's (p, seed), as the JAX package's `_flash_core`
+    (`_flash_core_fwd`, `_flash_core_bwd`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = flash_attention_fwd(q, k, v)
+    def forward(ctx, q, k, v, dropout_p=0.0, seed=None):
+        o, lse = flash_attention_fwd(q, k, v, dropout_p, seed)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.dropout = (dropout_p, seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # autograd hands dO over in the layout of the caller's reshapes
-        return flash_attention_bwd(q, k, v, o, do.contiguous(), lse)
+        grads = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                    *ctx.dropout)
+        return (*grads, None, None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dropout_p: float = 0.0,
+                    seed: Optional[int] = None) -> torch.Tensor:
     """Differentiable attention over (BH, L, d) float32 through the
-    forward and backward kernels (their plain versions on the CPU)."""
-    return FlashAttention.apply(q, k, v)
+    forward and backward kernels (their plain versions on the CPU), with
+    dropout on the probabilities when `dropout_p` > 0."""
+    return FlashAttention.apply(q, k, v, dropout_p, seed)

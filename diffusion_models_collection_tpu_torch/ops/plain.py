@@ -18,7 +18,9 @@ def plain_kernels():
     """Point the kernels' call sites (the UNet's GroupNorm+SiLU, the
     attention, the DiM's selective scan) at plain PyTorch versions, so
     neither the forward kernels nor the backward kernels run; restore them
-    on exit. Attention becomes plain code that autograd differentiates;
+    on exit. Attention becomes plain code that autograd differentiates,
+    called with the same dropout arguments (so the same seed gives the same
+    mask, `flash_attention.philox_keep_mask`);
     GroupNorm+SiLU becomes `GroupNormSiLURef` and the scan
     `SelectiveScanRef`, autograd Functions over the plain forward and
     backward: they do the kernels' passes, and autograd through the scan's

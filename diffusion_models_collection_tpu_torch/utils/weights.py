@@ -1,10 +1,10 @@
-"""Weight bridge: a Flax UNet or DiM param tree (nested dicts of numpy
+"""Weight bridge: a Flax UNet, DiT or DiM param tree (nested dicts of numpy
 arrays, as a JAX checkpoint stores it) to the port's `state_dict`.
 
 Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 (`_unet_torch_plan`, `_export_unet`, `_export_patch_scaffold`,
-`_export_dim`), in numpy and torch only: that module imports the JAX
-package's helpers, which need JAX. The port's models use the PyTorch
+`_export_dit`, `_export_dim`), in numpy and torch only: that module imports
+the JAX package's helpers, which need JAX. The port's models use the PyTorch
 reference's key names, so the result also equals what the JAX exporter
 writes for the reference, and loads with `strict=True`.
 
@@ -12,7 +12,9 @@ Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
 Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); depthwise conv
 kernel (k, 1, D) -> Conv1d weight (D, 1, k); GroupNorm and LayerNorm scale
 -> weight; embedding -> weight. DiM's two input projections (x, z) become
-one fused `in_proj` with rows [x; z].
+one fused `in_proj` with rows [x; z]; a self-attention's qkv Dense becomes
+`nn.MultiheadAttention`'s `in_proj_weight` and `in_proj_bias`, its output
+Dense `out_proj`.
 """
 
 from __future__ import annotations
@@ -172,8 +174,17 @@ def _norm(sd: Dict, key: str, norm: Mapping) -> None:
     sd[f"{key}.bias"] = _arr(norm["bias"])
 
 
-def dim_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
-    """Flax DiM params -> reference-named arrays."""
+def _attention(sd: Dict, key: str, attn: Mapping) -> None:
+    """A `SelfAttention`'s Dense_0 (qkv) and Dense_1 (out) under
+    `nn.MultiheadAttention`'s names."""
+    sd[f"{key}.in_proj_weight"] = _lin(attn["Dense_0"]["kernel"])
+    sd[f"{key}.in_proj_bias"] = _arr(attn["Dense_0"]["bias"])
+    _dense(sd, f"{key}.out_proj", attn["Dense_1"])
+
+
+def _patch_scaffold(params: Mapping) -> Dict[str, np.ndarray]:
+    """The patch embedding, positions, timestep and label embedders that DiT
+    and DiM share."""
     sd: Dict[str, np.ndarray] = {"pos_embed": _arr(params["pos_embed"])}
     patch = params["PatchEmbed_0"]["Conv_0"]
     sd["x_embedder.proj.weight"] = _conv2d(patch["kernel"])
@@ -184,27 +195,64 @@ def dim_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     if "LabelEmbedder_0" in params:
         sd["y_embedder.embedding_table.weight"] = _arr(
             params["LabelEmbedder_0"]["embedding"])
+    return sd
+
+
+def dit_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax DiT params -> reference-named arrays (its LayerNorms are
+    affine-free: nothing to bridge)."""
+    sd = _patch_scaffold(params)
+    i = 0
+    while f"DiTBlock_{i}" in params:
+        blk, ref = params[f"DiTBlock_{i}"], f"blocks.{i}"
+        if "MoeMlp_0" in blk:
+            raise NotImplementedError(
+                f"DiTBlock_{i} holds a MoE MLP, which is not ported yet "
+                "(ROADMAP queue 1 item 11)")
+        _attention(sd, f"{ref}.attn", blk["SelfAttention_0"])
+        _dense(sd, f"{ref}.mlp.0", blk["Mlp_0"]["Dense_0"])
+        _dense(sd, f"{ref}.mlp.3", blk["Mlp_0"]["Dense_1"])
+        _dense(sd, f"{ref}.adaLN_modulation.1",
+               blk["AdaLNModulation_0"]["Dense_0"])
+        i += 1
+    fl = params["FinalLayer_0"]
+    _dense(sd, "final_layer.linear", fl["Dense_0"])
+    _dense(sd, "final_layer.adaLN_modulation.1",
+           fl["AdaLNModulation_0"]["Dense_0"])
+    return sd
+
+
+def _mamba(sd: Dict, key: str, m: Mapping) -> None:
+    """A Mamba mixer under mamba_ssm's names: the fused in_proj with rows
+    [x; z], the depthwise conv, x_proj, dt_proj, A_log, D, out_proj."""
+    sd[f"{key}.in_proj.weight"] = np.ascontiguousarray(np.concatenate(
+        [_lin(m["in_proj_x"]["kernel"]), _lin(m["in_proj_z"]["kernel"])]))
+    sd[f"{key}.conv1d.weight"] = _conv1d_dw(m["conv"]["kernel"])
+    sd[f"{key}.conv1d.bias"] = _arr(m["conv"]["bias"])
+    _dense(sd, f"{key}.x_proj", m["x_dbl"])
+    _dense(sd, f"{key}.dt_proj", m["dt_proj"])
+    sd[f"{key}.A_log"] = _arr(m["A_log"])
+    sd[f"{key}.D"] = _arr(m["D"])
+    _dense(sd, f"{key}.out_proj", m["out_proj"])
+
+
+def dim_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax DiM params -> reference-named arrays."""
+    sd = _patch_scaffold(params)
     i = 0
     while f"DiMBlock_{i}" in params:
         blk, ref = params[f"DiMBlock_{i}"], f"blocks.{i}"
         mb = blk["MambaBlock_0"]
-        if "Mamba_0" not in mb:
-            raise NotImplementedError(
-                f"DiMBlock_{i} holds the attention-fallback mixer, which is "
-                "not ported yet (ROADMAP queue 1 item 8)")
         _norm(sd, f"{ref}.mamba_block.norm", mb["LayerNorm_0"])
         _dense(sd, f"{ref}.mamba_block.adaLN_modulation.1",
                mb["AdaLNModulation_0"]["Dense_0"])
-        m, mm = mb["Mamba_0"], f"{ref}.mamba_block.mamba"
-        sd[f"{mm}.in_proj.weight"] = np.ascontiguousarray(np.concatenate(
-            [_lin(m["in_proj_x"]["kernel"]), _lin(m["in_proj_z"]["kernel"])]))
-        sd[f"{mm}.conv1d.weight"] = _conv1d_dw(m["conv"]["kernel"])
-        sd[f"{mm}.conv1d.bias"] = _arr(m["conv"]["bias"])
-        _dense(sd, f"{mm}.x_proj", m["x_dbl"])
-        _dense(sd, f"{mm}.dt_proj", m["dt_proj"])
-        sd[f"{mm}.A_log"] = _arr(m["A_log"])
-        sd[f"{mm}.D"] = _arr(m["D"])
-        _dense(sd, f"{mm}.out_proj", m["out_proj"])
+        mm = f"{ref}.mamba_block.mamba"
+        if "attn" in mb:  # the attention-fallback mixer, in the mixer's place
+            _attention(sd, mm, mb["attn"])
+        elif "Mamba_0" not in mb:
+            raise ValueError(f"DiMBlock_{i} has neither Mamba_0 nor attn")
+        else:
+            _mamba(sd, mm, mb["Mamba_0"])
         ff = blk["FeedForward_0"]
         _norm(sd, f"{ref}.ff_block.norm", ff["LayerNorm_0"])
         _dense(sd, f"{ref}.ff_block.mlp.0", ff["Mlp_0"]["Dense_0"])
@@ -232,16 +280,18 @@ def resolved_model_cfg(config: Mapping) -> Dict:
 
 def state_dict_from_jax(params: Mapping,
                        config: Mapping) -> Dict[str, torch.Tensor]:
-    """A Flax UNet or DiM param tree -> the port's (and the reference's)
-    `state_dict`, for the model that `config` describes."""
+    """A Flax UNet, DiT or DiM param tree -> the port's (and the
+    reference's) `state_dict`, for the model that `config` describes."""
     model_type = str(config.get("model_type", "unet")).lower()
     if model_type == "unet":
         sd = unet_params_to_numpy_state_dict(params,
                                              resolved_model_cfg(config))
+    elif model_type == "dit":
+        sd = dit_params_to_numpy_state_dict(params)
     elif model_type == "dim":
         sd = dim_params_to_numpy_state_dict(params)
     else:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "items 8 and 11)")
+            "item 11)")
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies: jax arrays are read-only

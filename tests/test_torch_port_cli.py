@@ -117,7 +117,7 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"model_type": "dit"},
+    {"model_type": "vae"},
     {"mixed_precision": "bf16"},
     {"latent_diffusion": True},
     {"diffusion_type": "flow_matching"},

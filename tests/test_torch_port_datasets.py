@@ -163,6 +163,8 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.sample",
             "diffusion_models_collection_tpu_torch.datasets.loader",
             "diffusion_models_collection_tpu_torch.ops.selective_scan",
+            "diffusion_models_collection_tpu_torch.models.dit",
+            "diffusion_models_collection_tpu_torch.ops.attention",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys

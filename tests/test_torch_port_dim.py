@@ -380,19 +380,36 @@ def test_sample_cli_from_a_jax_dim_checkpoint(cond16, tmp_path):
 
 
 # ------------------------------------------------------------ not ported
-@pytest.mark.parametrize("knob", [dict(use_attention_fallback=True)])
+@pytest.mark.parametrize("knob", [dict(mixed_precision="bf16")])
 def test_dim_raises_on_knobs_not_ported(knob):
+    """What the DiM's config may ask for and the port does not run yet (its
+    attention fallback is ported: tests/test_torch_port_dit.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiM(img_size=(16, 16), **DIM_PARAMS, **knob)
+        factory.get_model(dict(small_dim_config(True, 16), **knob))
 
 
 def test_bridge_raises_on_the_attention_fallback_mixer():
+    """The bridge takes the attention-fallback mixer (`attn`) as the JAX
+    exporter does, and like it raises on a block that holds neither
+    mixer."""
     model = jax_dim_mod.DiM(img_size=(8, 8), **DIM_PARAMS, num_classes=None,
                             use_attention_fallback=True)
     params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 3)),
                         jnp.zeros((1,), jnp.int32))["params"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state_dict_from_jax(params, small_dim_config(False, 8))
+    config = small_dim_config(False, 8)
+    ours = state_dict_from_jax(params, config)
+    ref = export_torch_state_dict(params, "dim", config)
+    assert set(ours) == set(ref)
+    for key, value in ref.items():
+        np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
+    broken = dict(params)
+    broken["DiMBlock_1"] = {
+        **params["DiMBlock_1"],
+        "MambaBlock_0": {k: v for k, v in
+                         params["DiMBlock_1"]["MambaBlock_0"].items()
+                         if k != "attn"}}
+    with pytest.raises(ValueError, match="DiMBlock_1 has neither"):
+        state_dict_from_jax(broken, config)
 
 
 def test_factory_builds_dim_with_injected_size_and_classes():

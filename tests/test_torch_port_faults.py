@@ -67,9 +67,9 @@ def test_unet_with_head_dim_4_matches_jax():
     seen = []
     real = flash_attention.flash_attention_fwd
 
-    def recording(q, k, v):
+    def recording(q, k, v, *dropout):
         seen.append(q.shape[-1])
-        return real(q, k, v)
+        return real(q, k, v, *dropout)
 
     flash_attention.flash_attention_fwd = recording
     try:

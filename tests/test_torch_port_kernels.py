@@ -16,11 +16,13 @@ GroupNorm+SiLU backward is held to 2e-5 like the forwards: its sums run
 over one group or over one channel's rows.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from diffusion_models_collection_tpu_torch.models import DiM, UNet
+from diffusion_models_collection_tpu_torch.models import DiM, DiT, UNet
 from diffusion_models_collection_tpu_torch.models import dim as dim_mod
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod
 from diffusion_models_collection_tpu_torch.ops import (
@@ -105,11 +107,17 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(shape):
 def test_attention_raises_on_paths_not_ported():
     q = torch.randn(1, 4, 8)
     with pytest.raises(NotImplementedError):
-        attention_mod.multihead_attention(q, q, q, 2, dropout_rate=0.1,
-                                          deterministic=False)
-    with pytest.raises(NotImplementedError):
         attention_mod.multihead_attention(q, q, q, 2,
                                           key_sizes=torch.ones(1, 4))
+    # attention dropout is ported; what it refuses: p outside [0, 1), a
+    # seed that is no int, a generator off the host
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q, q, 1.0, 3)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_fwd(q, q, q, 0.1, None)
+    on_the_card = SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(ValueError):
+        attention_mod.draw_seed(on_the_card)
 
 
 def test_plain_kernels_reroutes_the_call_sites_and_restores_them():
@@ -334,6 +342,76 @@ def test_flash_attention_bwd_forms_match_plain(cuda, seq_len, head_dim,
         assert torch.equal(got, twice), name
 
 
+DROPOUT_P, DROPOUT_SEED = 0.1, 0x1234_5678_9ABC_DEF0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("head_dim", [48, 64])
+@pytest.mark.parametrize("seq_len", [16, 64, 100, 256, 300])
+def test_flash_attention_dropout_forms_match_plain(cuda, seq_len, head_dim,
+                                                   fused):
+    """K2's and K3's dropout forms (every tile form of the forward, the
+    fused and the two-kernel backward) against the plain versions with the
+    same seed, so the same mask, within the p = 0 forms' bars."""
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
+    q, k, v, do = (torch.randn(6, seq_len, head_dim, generator=gen,
+                               device=cuda) for _ in range(4))
+    drop = (DROPOUT_P, DROPOUT_SEED)
+    counts = (flash_attention.DROPOUT_LAUNCHES,
+              flash_attention.BWD_DROPOUT_LAUNCHES)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused)
+    torch.cuda.synchronize()
+    assert (flash_attention.DROPOUT_LAUNCHES,
+            flash_attention.BWD_DROPOUT_LAUNCHES) == (counts[0] + 1,
+                                                      counts[1] + 1)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop)
+    assert max_rel(o, o_ref) <= TOL
+    assert (lse - lse_ref).abs().max() <= TOL_LSE
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o_ref, do,
+                                                   lse_ref, *drop)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert max_rel(got, want) <= TOL_BWD, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_dropout_mask_reads_back_bit_for_bit(cuda):
+    """With v = I, o = P o Z exactly: its zeros are the dropped keys, which
+    must be those of `philox_keep_mask`, and about p of them."""
+    bh, seq_len = 64, 64
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k = (torch.randn(bh, seq_len, seq_len, generator=gen, device=cuda)
+            for _ in range(2))
+    v = torch.eye(seq_len, device=cuda).expand(bh, -1, -1).contiguous()
+    o, _ = flash_attention.flash_attention_fwd(q, k, v, DROPOUT_P,
+                                               DROPOUT_SEED)
+    keep = flash_attention.philox_keep_mask(DROPOUT_SEED, bh, seq_len,
+                                            seq_len, DROPOUT_P, device=cuda)
+    assert torch.equal(o != 0, keep)
+    assert abs(keep.float().mean().item() - (1 - DROPOUT_P)) <= 0.005 * (
+        1 - DROPOUT_P)
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_p_0_is_the_form_without_dropout(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(12, 256, 64, generator=gen, device=cuda,
+                           requires_grad=True) for _ in range(3))
+    counts = (flash_attention.DROPOUT_LAUNCHES,
+              flash_attention.BWD_DROPOUT_LAUNCHES)
+    outs = [flash_attention.flash_attention(q, k, v, *drop)
+            for drop in ((), (0.0, DROPOUT_SEED))]
+    grads = [torch.autograd.grad(o.square().sum(), (q, k, v)) for o in outs]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert (flash_attention.DROPOUT_LAUNCHES,
+            flash_attention.BWD_DROPOUT_LAUNCHES) == counts
+
+
 @pytest.mark.cuda
 def test_flash_attention_function_grads_match_autograd_on_plain(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -370,6 +448,34 @@ def test_every_unet_parameter_gets_a_gradient_on_the_card(cuda):
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         if name == "label_embed.weight":
+            # row 0, the null label, is masked at lookup
+            assert p.grad[0].abs().max() == 0 and p.grad[1:].abs().max() > 0
+        else:
+            assert p.grad.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+def test_every_dit_parameter_gets_a_gradient_on_the_card(cuda):
+    """A small DiT in training mode, dropout 0.1 on: its attentions run K2
+    and K3 in the dropout form, and every parameter gets a gradient."""
+    torch.manual_seed(0)
+    model = DiT(img_size=(16, 16), patch_size=2, hidden_size=64, depth=2,
+                num_heads=4, num_classes=10).to(cuda)
+    perturb_(model).train()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+    before = (flash_attention.DROPOUT_LAUNCHES,
+              flash_attention.BWD_DROPOUT_LAUNCHES)
+    model(x, t, y).square().mean().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.DROPOUT_LAUNCHES - before[0],
+            flash_attention.BWD_DROPOUT_LAUNCHES - before[1]) == (2, 2)
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        if name == "y_embedder.embedding_table.weight":
             # row 0, the null label, is masked at lookup
             assert p.grad[0].abs().max() == 0 and p.grad[1:].abs().max() > 0
         else:

@@ -1,6 +1,6 @@
-"""Shared set-up of the PyTorch port's parity tests: a small JAX UNet and a
-small JAX DiM with seeded, perturbed params, their configs, and the port's
-models with the same weights through the weight bridge."""
+"""Shared set-up of the PyTorch port's parity tests: a small JAX UNet, DiM
+and DiT with seeded, perturbed params, their configs, and the port's models
+with the same weights through the weight bridge."""
 
 import jax
 import jax.numpy as jnp
@@ -8,9 +8,10 @@ import numpy as np
 from jax.experimental.pallas import tpu as pltpu
 
 from diffusion_models_collection_tpu.models import DiM as JaxDiM
+from diffusion_models_collection_tpu.models import DiT as JaxDiT
 from diffusion_models_collection_tpu.models import UNet as JaxUNet
 from diffusion_models_collection_tpu.ops import dispatch
-from diffusion_models_collection_tpu_torch.models import DiM, UNet
+from diffusion_models_collection_tpu_torch.models import DiM, DiT, UNet
 from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
@@ -99,6 +100,39 @@ def torch_dim(params, config, **overrides):
     num_classes = 10 if config["conditional"] else None
     model = DiM(img_size=config["image_size"],
                 **dict(DIM_PARAMS, **overrides), num_classes=num_classes)
+    model.load_state_dict(state_dict_from_jax(params, config), strict=True)
+    return model.eval()
+
+
+# hidden 64 in 4 heads: head_dim 16
+DIT_PARAMS = dict(patch_size=2, in_channels=3, hidden_size=64, depth=2,
+                  num_heads=4, mlp_ratio=4.0, dropout=0.1)
+
+
+def small_dit_config(conditional=True, size=16):
+    return dict(small_config(conditional), model_type="dit",
+                model_params=dict(DIT_PARAMS, img_size=(size, size)),
+                image_size=(size, size))
+
+
+def jax_dit(conditional=True, seed=0, size=16):
+    """(flax DiT, perturbed params as numpy, config) at size x size, so
+    L = (size / 2)^2 tokens."""
+    num_classes = 10 if conditional else None
+    model = JaxDiT(img_size=(size, size), **DIT_PARAMS,
+                   num_classes=num_classes)
+    y = jnp.zeros((1,), jnp.int32) if conditional else None
+    params = model.init(jax.random.PRNGKey(seed),
+                        jnp.zeros((1, size, size, 3)),
+                        jnp.zeros((1,), jnp.int32), y)["params"]
+    return model, perturbed(params, seed), small_dit_config(conditional, size)
+
+
+def torch_dit(params, config, **overrides):
+    """The port's DiT with the same weights, strict load, eval mode."""
+    num_classes = 10 if config["conditional"] else None
+    model = DiT(img_size=config["image_size"],
+                **dict(DIT_PARAMS, **overrides), num_classes=num_classes)
     model.load_state_dict(state_dict_from_jax(params, config), strict=True)
     return model.eval()
 

@@ -3,7 +3,7 @@ the scan forward and the GroupNorm+SiLU kernels of one or more trees of the
 PyTorch port, on one NVIDIA GPU.
 
     python tools/profile_torch_kernels.py
-        [--only attention|attn_fwd|scan|scan_fwd|gn] [ROOT ...]
+        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn] [ROOT ...]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. Each
 ROOT (default: this checkout) is a directory that holds a
@@ -19,6 +19,14 @@ UNet's forward shapes at the sampling batch of 160 (BH 640, d 64; L 256,
 dimensions of the backward's cases below, and `F.scaled_dot_product_attention`
 (float32, TF32 off) timed beside it at the UNet's shapes; then the sum over
 one forward's 11 calls, single launches and launches in a row.
+`--only attn_dropout`: K2 and K3 in their dropout form (p 0.1, one seed)
+against their plain versions at the CIFAR-10 DiT's train step (BH 768, L
+256, d 64; 12 calls a step) and at the DiM's attention fallback (BH 1024, d
+48), each timed beside the same call at p = 0 and beside
+`F.scaled_dot_product_attention` with dropout 0.1 and its backward (float32,
+TF32 off; the library's own mask); then the sums over a DiT train step's 12
+calls. Single launches, launches in a row and from a CUDA graph. A tree
+without the dropout forms is skipped.
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -232,6 +240,70 @@ def run_attn_fwd(root, attention, randn):
     return ok
 
 
+# (BH, L, d, calls a train step): the DiT's attention at batch 128 (6 heads
+# of 64), then the DiM's attention fallback (8 heads of 48)
+ATTN_DROPOUT_CASES = [(768, 256, 64, 12), (1024, 256, 48, 0)]
+ATTN_DROPOUT, ATTN_DROPOUT_SEED = 0.1, 0x0123_4567_89AB_CDEF
+
+
+def run_attn_dropout(root, attention, randn):
+    """K2 and K3 in the dropout form against their plain versions, timed
+    beside the p = 0 forms and the library call with dropout."""
+    import torch
+    import torch.nn.functional as F
+    if not hasattr(attention, "philox_keep_mask"):
+        print(f"{root}: no dropout forms; skipped", flush=True)
+        return True
+    ok = True
+    drop = (ATTN_DROPOUT, ATTN_DROPOUT_SEED)
+    totals = {}
+    for bh, length, d, calls in ATTN_DROPOUT_CASES:
+        q, k, v, do = (randn(bh, length, d) for _ in range(4))
+        o_ref, lse_ref = attention.flash_attention_fwd_ref(q, k, v, *drop)
+        o, lse = attention.flash_attention_fwd(q, k, v, *drop)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_ref).abs().max().item()
+        args = (q, k, v, o, do, lse)
+        refs = attention.flash_attention_bwd_ref(*args, *drop)
+        shape = f"BH={bh} L={length} d={d}"
+        times = {}
+        for name, fn, want, bar in (
+                ("K2 dropout", lambda: attention.flash_attention_fwd(
+                    q, k, v, *drop)[:1], (o_ref,), BAR_FWD),
+                ("K2 p=0", lambda: attention.flash_attention_fwd(
+                    q, k, v)[:1], None, None),
+                ("K3 dropout", lambda: attention.flash_attention_bwd(
+                    *args, *drop), refs, BAR),
+                ("K3 p=0", lambda: attention.flash_attention_bwd(*args),
+                 None, None)):
+            if want is not None:
+                ok &= check(f"{name} {shape}", fn, want, bar)
+            times[name] = (median_ms(fn), burst_ms(fn), graph_ms(fn))
+        print(f"   lse max_abs {lse_err:.1e}", flush=True)
+        ok &= lse_err <= BAR_LSE
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, dropout_p=ATTN_DROPOUT)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*qkv, dropout_p=ATTN_DROPOUT)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, qkv, do, retain_graph=True)
+        times["library"] = (median_ms(sdpa), burst_ms(sdpa), None)
+        times["library backward"] = (median_ms(sdpa_bwd), burst_ms(sdpa_bwd),
+                                     None)
+        print(f"   {shape}, ms a call (single launch, in a row, from a CUDA "
+              "graph): " + "; ".join(
+                  f"{name} {' '.join(f'{t:.4f}' for t in ts if t is not None)}"
+                  for name, ts in times.items()), flush=True)
+        for name, ts in times.items():
+            totals[name] = [calls * t if t is not None else None for t in ts]
+        if calls:
+            print(f"{root}: over a DiT train step's {calls} calls, ms "
+                  "(single launches, in a row, from a CUDA graph): " + "; ".join(
+                      f"{name} {' '.join(f'{t:.4f}' for t in ts if t is not None)}"
+                      for name, ts in totals.items()), flush=True)
+    return ok
+
+
 def run_scan_fwd(scan, randn):
     """K5, K6 and K4, with K9 at the same shapes beside them."""
     import torch
@@ -351,6 +423,8 @@ def run_tree(root, only):
 
     if only in (None, "attn_fwd"):
         ok &= run_attn_fwd(root, attention, randn)
+    if only in (None, "attn_dropout"):
+        ok &= run_attn_dropout(root, attention, randn)
     if only in (None, "scan_fwd"):
         ok &= run_scan_fwd(scan, randn)
     if only in (None, "gn"):
@@ -379,8 +453,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("roots", nargs="*", default=[str(HERE.parent.parent)])
     parser.add_argument("--only",
-                        choices=["attention", "attn_fwd", "scan", "scan_fwd",
-                                 "gn"])
+                        choices=["attention", "attn_fwd", "attn_dropout",
+                                 "scan", "scan_fwd", "gn"])
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.tree:

@@ -4,7 +4,8 @@
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
 model is the one CONFIG describes (default configs/cifar10_unet.py, the
-CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM) at full width
+CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM,
+configs/cifar10_dit.py the CIFAR-10 DiT) at full width
 with random weights from seed 0, float32 with TF32 off, sampled with DDIM
 and classifier-free guidance (scale 3) on 80 images, so 160 rows per model
 call. Two measurements:

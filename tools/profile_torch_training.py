@@ -5,7 +5,9 @@
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
 model is the one CONFIG describes (default configs/cifar10_unet.py, the
-CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM) at full width
+CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM,
+configs/cifar10_dit.py the CIFAR-10 DiT, whose attention trains in the
+kernels' dropout form) at full width
 with random weights from seed 0, trained as that config trains it (batch
 128, AdamW, clip 1.0, EMA, CFG label dropout, dropout 0.1), float32 with
 TF32 off, on one batch of the committed CIFAR-10 fixtures
