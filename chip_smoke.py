@@ -96,17 +96,35 @@ the attention probabilities and in the MLP in training):
   Mamba mixer): forwards and gradients against the plain versions, 12
   attention launches a forward and no scan launch.
 
+Then mixed precision (`mixed_precision: 'bf16'`: bf16 convs, linears and
+activations on float32 parameters, float32 eps):
+
+* the bf16 forms of GroupNorm+SiLU (forward and backward) and of the
+  attention kernels (forward and backward, at p = 0 and with dropout, the
+  backward fused and in two kernels) against their plain versions at every
+  shape of the UNet's sampling forward and train step and of the DiT's, timed
+  beside `F.scaled_dot_product_attention` on the same bf16 inputs, and at
+  shapes that are no tile multiples and groups that are no whole vectors;
+* for each of the UNet, the DiM (whose scans stay float32) and the DiT:
+  full-width forwards and the loss and gradients against the plain
+  versions, 80 images DDIM-50 CFG 3 through `sample --mixed_precision bf16`
+  and three epochs of `train` from the config with `mixed_precision:
+  'bf16'`, samples/s, train images/s and peak memory beside the float32
+  figures of the same run.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
 model's kernels did not run. Every failure raises; there is no fallback. The
 last line of standard output is one JSON object with "ok": true; the line
 before it lists each kernel with its launches, error, times, the least time
-the card could take for the same calls (`bound_ms`, from the shapes) and,
-where one PyTorch call computes the same function, that call's time
-(`library_ms`; the port never calls it).
+the card could take for the same calls (`bound_ms`, from the shapes, at the
+peak rate of the inputs' type: the bf16 tensor cores' for the bf16 attention
+forms) and, where one PyTorch call computes the same function, that call's
+time (`library_ms`; the port never calls it; attention's on (1, BH, L, d),
+since on 3-D tensors PyTorch takes its unfused math path).
 
-Float32 throughout, TF32 off. Kernel times are medians of CUDA-event
+TF32 off throughout. Kernel times are medians of CUDA-event
 timings after warm-up; samples/s is the generation loop of one
 `sample.main` call; train images/s is the median of CUDA-synchronised
 steps; all on the card named in the output.
@@ -285,6 +303,11 @@ SCAN_COUNTERS = {"scan_fwd": "FWD_LAUNCHES",
 # tensor cores. A kernel's bound is the larger of its bytes over the one and
 # its operations over the other.
 PEAK_BYTES_PER_S, PEAK_FP32_OPS_PER_S = 3.35e12, 67e12
+# The dense rate of the tensor cores on bf16 products with float32
+# accumulation: the rate of the bound of the bf16 attention forms, whose
+# inputs are bf16 (`cuda_core_bound_ms` beside it is the same work at the
+# float32 CUDA-core rate their arithmetic runs at today)
+PEAK_BF16_TC_OPS_PER_S = 989e12
 # The special-function units evaluate 16 exponentials a clock and SM where
 # the FMA pipes do 128 multiply-adds (256 operations): a sixteenth of the
 # float32 peak. Not part of `bound_ms`, which counts an exponential as one
@@ -344,15 +367,17 @@ def graph_ms(fn, calls=10, reps=5):
 class Bound:
     """The least time an H100 could take for some calls: for each call the
     larger of bytes / 3.35 TB/s (every input read once, every output
-    written once) and operations / 67 TFLOP/s (float32 outside the tensor
-    cores; an exponential counted as one operation), summed over the calls."""
+    written once) and operations / `ops_per_s` (by default 67 TFLOP/s,
+    float32 outside the tensor cores; an exponential counted as one
+    operation), summed over the calls."""
 
-    def __init__(self):
+    def __init__(self, ops_per_s=PEAK_FP32_OPS_PER_S):
+        self.ops_per_s = ops_per_s
         self.ms = self.bytes_ms = self.ops_ms = 0.0
 
     def add(self, n_bytes, n_ops, calls=1):
         bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-        ops_ms = 1e3 * n_ops / PEAK_FP32_OPS_PER_S
+        ops_ms = 1e3 * n_ops / self.ops_per_s
         self.ms += calls * max(bytes_ms, ops_ms)
         self.bytes_ms += calls * bytes_ms
         self.ops_ms += calls * ops_ms
@@ -364,29 +389,32 @@ class Bound:
                              else "operations")}
 
 
-def gn_work(b, h, w, c):
-    """GroupNorm+SiLU: x in, y out, scale and bias; per element the mean
-    and variance sums (3), normalise and affine (4), SiLU (4)."""
+def gn_work(b, h, w, c, elem=4):
+    """GroupNorm+SiLU: x in, y out (`elem` bytes each: 4, or 2 in bf16),
+    float32 scale and bias; per element the mean and variance sums (3),
+    normalise and affine (4), SiLU (4)."""
     n = b * h * w * c
-    return 4 * (2 * n + 2 * c), 11 * n
+    return elem * 2 * n + 4 * 2 * c, 11 * n
 
 
-def gn_bwd_work(b, h, w, c):
-    """GroupNorm+SiLU backward: x and g in, dx out, scale, bias and the
-    per-image dscale, dbias rows; per element the pre-activation (4), the
-    SiLU's derivative (8), the four sums (7) and dx (5)."""
+def gn_bwd_work(b, h, w, c, elem=4):
+    """GroupNorm+SiLU backward: x and g in, dx out (`elem` bytes each),
+    float32 scale, bias and the per-image dscale, dbias rows; per element
+    the pre-activation (4), the SiLU's derivative (8), the four sums (7) and
+    dx (5)."""
     n = b * h * w * c
-    return 4 * (3 * n + 2 * c + 2 * b * c), 24 * n
+    return elem * 3 * n + 4 * (2 * c + 2 * b * c), 24 * n
 
 
-def attn_work(bh, seq, d, backward=False):
-    """Attention forward: q, k, v in, o and lse out; QK^T and PV (2 L^2 d
-    multiply-adds) and the softmax (5 an entry). Backward: q, k, v, o, dO,
-    lse in, dq, dk, dv out; five such products and the softmax's."""
+def attn_work(bh, seq, d, backward=False, elem=4):
+    """Attention forward: q, k, v in, o out (`elem` bytes each: 4, or 2 in
+    bf16) and float32 lse out; QK^T and PV (2 L^2 d multiply-adds) and the
+    softmax (5 an entry). Backward: q, k, v, o, dO and lse in, dq, dk, dv
+    out; five such products and the softmax's."""
     n = bh * seq * d
     if backward:
-        return 4 * (8 * n + bh * seq), bh * seq * seq * (10 * d + 8)
-    return 4 * (4 * n + bh * seq), bh * seq * seq * (4 * d + 5)
+        return elem * 8 * n + 4 * bh * seq, bh * seq * seq * (10 * d + 8)
+    return elem * 4 * n + 4 * bh * seq, bh * seq * seq * (4 * d + 5)
 
 
 def scan_work(kind, batch, length, d_inner=768, n_state=16):
@@ -413,20 +441,30 @@ def scan_work(kind, batch, length, d_inner=768, n_state=16):
 def reset_launches():
     fused_norm.LAUNCHES = 0
     fused_norm.BWD_LAUNCHES = 0
+    fused_norm.BF16_LAUNCHES = 0
+    fused_norm.BWD_BF16_LAUNCHES = 0
     flash_attention.LAUNCHES = 0
     flash_attention.BWD_LAUNCHES = 0
     flash_attention.DROPOUT_LAUNCHES = 0
     flash_attention.BWD_DROPOUT_LAUNCHES = 0
+    flash_attention.BF16_LAUNCHES = 0
+    flash_attention.BWD_BF16_LAUNCHES = 0
     for counter in SCAN_COUNTERS.values():
         setattr(scan, counter, 0)
 
 
 def read_launches():
+    """Every kernel's launches; `gn`, `attn` and their backward count every
+    form, `*_dropout` and `*_bf16` the launches in that form."""
     return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
+            "gn_bf16": fused_norm.BF16_LAUNCHES,
+            "gn_bwd_bf16": fused_norm.BWD_BF16_LAUNCHES,
             "attn": flash_attention.LAUNCHES,
             "attn_bwd": flash_attention.BWD_LAUNCHES,
             "attn_dropout": flash_attention.DROPOUT_LAUNCHES,
             "attn_bwd_dropout": flash_attention.BWD_DROPOUT_LAUNCHES,
+            "attn_bf16": flash_attention.BF16_LAUNCHES,
+            "attn_bwd_bf16": flash_attention.BWD_BF16_LAUNCHES,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
 
@@ -695,8 +733,8 @@ def phase_main_shapes(gn_shapes, attn_shapes, batch, gen):
         ms = median_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
         plain = median_ms(
             lambda: flash_attention.flash_attention_fwd_ref(q, k, v))
-        library = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v))
+        library = median_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None]))
         totals["attn"][0] += n * ms
         totals["attn"][1] += n * plain
         totals["attn"][2] += n * library
@@ -738,20 +776,20 @@ def phase_gn_train_step(gn_shapes, gen):
 
 
 def phase_sample_main(label, config, model, per_forward, tmp,
-                      compare_plain=False):
+                      compare_plain=False, flags=()):
     """80 images, DDIM-50, CFG 3 through `sample.main` from a checkpoint of
-    `model`'s weights, with exactly 50 forwards' worth of kernel launches
-    (`per_forward`, a `read_launches()` subset). With `compare_plain`, the
-    same call again inside `plain_kernels()`, with no launch, for the plain
-    versions' samples/s. Returns the launches and the sampling seconds (and
-    the plain run's)."""
+    `model`'s weights, with `flags` added to its command line and exactly 50
+    forwards' worth of kernel launches (`per_forward`, a `read_launches()`
+    subset). With `compare_plain`, the same call again inside
+    `plain_kernels()`, with no launch, for the plain versions' samples/s.
+    Returns the launches and the sampling seconds (and the plain run's)."""
     ckpt = Path(tmp) / f"{config['model_type']}_random.pth"
     checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
     argv = ["--checkpoint", str(ckpt), "--sampling_method", "ddim",
             "--cfg_scale", str(CFG_SCALE), "--num_samples", str(SAMPLES),
             "--batch_size", str(SAMPLES), "--seed", "0", "--device", "cuda",
             "--output_dir", tmp, "--output_name", "samples.png",
-            "--num_inference_steps", str(STEPS)]
+            "--num_inference_steps", str(STEPS), *flags]
     # the caller ran the model at this batch, so cuDNN, cuBLAS and the
     # kernel library are warm
     torch.cuda.synchronize()
@@ -829,10 +867,10 @@ def check_attention_bwd(label, args, fused=None):
     ms = median_ms(
         lambda: flash_attention.flash_attention_bwd(*args, fused=fused))
     plain = median_ms(lambda: flash_attention.flash_attention_bwd_ref(*args))
-    qkv = [t.detach().requires_grad_() for t in args[:3]]
+    qkv = [t.detach()[None].requires_grad_() for t in args[:3]]
     out = F.scaled_dot_product_attention(*qkv)
-    library = median_ms(
-        lambda: torch.autograd.grad(out, qkv, args[4], retain_graph=True))
+    library = median_ms(lambda: torch.autograd.grad(
+        out, qkv, args[4][None], retain_graph=True))
     print(f"{label}: dq/dk/dv max_rel {rels[0]:.3e} {rels[1]:.3e} "
           f"{rels[2]:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
           f"scaled_dot_product_attention's backward {library:.4f} ms")
@@ -919,7 +957,7 @@ def check_attention_dropout(label, bh, seq, d, gen, timed=False, fused=None):
                                                                 *drop),
                 reps=10),
             "fwd_library": median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, dropout_p=ATTN_DROPOUT)),
+                q[None], k[None], v[None], dropout_p=ATTN_DROPOUT)),
             "bwd": median_ms(
                 lambda: flash_attention.flash_attention_bwd(*args, *drop)),
             "bwd_p0": median_ms(
@@ -927,10 +965,10 @@ def check_attention_dropout(label, bh, seq, d, gen, timed=False, fused=None):
             "bwd_plain": median_ms(
                 lambda: flash_attention.flash_attention_bwd_ref(*args, *drop),
                 reps=10)}
-        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*qkv, dropout_p=ATTN_DROPOUT)
-        times["bwd_library"] = median_ms(
-            lambda: torch.autograd.grad(out, qkv, do, retain_graph=True))
+        times["bwd_library"] = median_ms(lambda: torch.autograd.grad(
+            out, qkv, do[None], retain_graph=True))
         line += ("; ms a call: forward kernel {fwd:.4f} (p = 0 {fwd_p0:.4f}) "
                  "plain {fwd_plain:.4f} scaled_dot_product_attention "
                  "{fwd_library:.4f}; backward kernel {bwd:.4f} (p = 0 "
@@ -1003,7 +1041,8 @@ def image_shape(config):
 
 
 def phase_train_grads(label, model, config, per_step, gen,
-                      batch_size=CHECK_BATCH, batch=None, seed=None):
+                      batch_size=CHECK_BATCH, batch=None, seed=None,
+                      tol=(TOL_LOSS, TOL_GRAD)):
     """The full-width model's loss and every gradient at `batch_size`
     (or on `batch`, an earlier call's) through the kernels against the same
     inside `plain_kernels()`, with exactly one step's launches (`per_step`)
@@ -1011,8 +1050,9 @@ def phase_train_grads(label, model, config, per_step, gen,
     model in eval mode (no dropout), so both runs see one network, or in
     train mode with a `seed` that reseeds the CPU and CUDA generators before
     each run, so both draw the same dropout masks (the attention's seeds
-    from the CPU generator, the MLP's masks from the CUDA one). Returns the
-    batch, the loss and the flattened gradient."""
+    from the CPU generator, the MLP's masks from the CUDA one). `tol` is
+    the (loss, gradient) bar. Returns the batch, the loss and the flattened
+    gradient."""
     ddpm = DDPM(num_timesteps=config["num_timesteps"])
     shape = (batch_size, *image_shape(config))
     batch = batch or {
@@ -1054,7 +1094,7 @@ def phase_train_grads(label, model, config, per_step, gen,
         raise AssertionError(f"{label} train-step launches {launched} "
                              f"(expected {expected}), plain {plain_launched}")
     no_grad = [n for n, g in grads.items() if not g.any()]
-    if not (loss_rel <= TOL_LOSS and grad_rel <= TOL_GRAD
+    if not (loss_rel <= tol[0] and grad_rel <= tol[1]
             and torch.isfinite(flat).all() and not no_grad):
         raise AssertionError(f"{label} loss max_rel {loss_rel}, gradient "
                              f"{grad_rel}, zero gradients {no_grad}")
@@ -1523,7 +1563,7 @@ def random_model(config, gen):
     return model
 
 
-def phase_model_forward(label, config, per_forward, gen):
+def phase_model_forward(label, config, per_forward, gen, tol=TOL_UNET):
     """A full-width DiM or DiT (`random_model`): forwards at batch 32 and
     160 through the kernels against the same inside `plain_kernels()`,
     with exactly `per_forward` launches each. Returns the model, its
@@ -1547,7 +1587,8 @@ def phase_model_forward(label, config, per_forward, gen):
         if launched != expect(**per_forward):
             raise AssertionError(f"{label} forward launches {launched}")
         if not (out.shape == (batch, 32, 32, 3) and ref.abs().max() > 0
-                and torch.isfinite(out).all() and rel <= TOL_UNET):
+                and out.dtype == torch.float32
+                and torch.isfinite(out).all() and rel <= tol):
             raise AssertionError(f"{label} forward B={batch}: shape "
                                  f"{tuple(out.shape)}, max_rel {rel}, "
                                  f"max |plain| {ref.abs().max().item()}")
@@ -1600,6 +1641,360 @@ def phase_dit(gen):
             "fallback_launches": fallback_launches["attn"]}
 
 
+# ------------------------------------------------------------------ bf16
+# Mixed precision (`mixed_precision: 'bf16'`): bf16 convs, linears and
+# activations on float32 parameters; GroupNorm+SiLU and attention in their
+# kernels' bf16 form, the scans in float32 as before.
+UNET_FORWARD_BF16 = dict(UNET_FORWARD, gn_bf16=GN_PER_FORWARD,
+                         attn_bf16=ATTN_PER_FORWARD)
+UNET_STEP_BF16 = dict(UNET_STEP, gn_bf16=GN_PER_FORWARD,
+                      gn_bwd_bf16=GN_PER_FORWARD, attn_bf16=ATTN_PER_FORWARD,
+                      attn_bwd_bf16=ATTN_PER_FORWARD)
+DIT_FORWARD_BF16 = dict(DIT_FORWARD, attn_bf16=ATTN_PER_DIT_FORWARD)
+DIT_STEP_BF16 = dict(DIT_STEP, attn_bf16=ATTN_PER_DIT_FORWARD,
+                     attn_bwd_bf16=ATTN_PER_DIT_FORWARD)
+# A bf16 form and its plain version compute in float32 from the same bf16
+# inputs and round once: equal, or one bf16 step apart where the two float32
+# values straddle a rounding boundary (two for the attention backward, whose
+# dS is a difference of two products). An element far below the largest is
+# held to the float32 bar of the largest (TOL_OUT, TOL_BWD) instead: the
+# float32 rounding it carries is many bf16 steps of its own.
+BF16_STEPS_FWD, BF16_STEPS_BWD = 1, 2
+# Full-width bf16 models, kernels against plain: a norm's or an
+# attention's output one bf16 step off (2^-8 relative) goes on through the
+# bf16 layers after it, and the plain attention's autograd takes delta from
+# the float32 o where the kernel takes it from the bf16 o, as JAX does.
+# Measured by this script (H100 80GB HBM3, 700 W): forwards 4.2e-3 to
+# 1.0e-2, losses 3.7e-6 to 1.6e-5, gradients 3.2e-3 to 4.5e-3.
+TOL_BF16_MODEL, TOL_BF16_LOSS, TOL_BF16_GRAD = 3e-2, 1e-4, 2e-2
+# K1/K1b beyond the UNet's shapes: C / G = 3 (the generic kernels in both
+# types), C / G = 4 (whole float32 vectors, no whole bf16 one), a group of
+# 64 x 64 x 16 (shared memory holds it in bf16, not in float32)
+GN_BF16_EDGES = [GN_RAGGED, (3, 8, 8, 32), GN_LARGE]
+# K2/K3 beyond the main paths' shapes: a ragged tile, many key tiles with
+# the two-kernel backward, d 48 (the DiM's attention fallback), tiles of 32
+ATTN_BF16_FORMS = [(100, 64), (1024, 64), (257, 64), (100, 48), (33, 32)]
+
+
+def bf16_steps(a, b):
+    """The number of bf16 values between a and b, elementwise."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_check(label, got, want, steps, tol):
+    """`got` within `steps` bf16 steps of `want` (both bf16) wherever it is
+    not within tol * max|want|; returns (the most steps seen there, the max
+    absolute error)."""
+    if not got.dtype == want.dtype == torch.bfloat16:
+        raise AssertionError(f"{label}: dtypes {got.dtype}, {want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    near = diff <= tol * want.float().abs().max()
+    worst = bf16_steps(got, want).masked_fill(near, 0).max().item()
+    if worst > steps:
+        raise AssertionError(f"{label}: {worst} bf16 steps from the plain "
+                             f"version (bar {steps}, or {tol} of the "
+                             "largest value)")
+    return worst, diff.max().item()
+
+
+def bf16_bar(steps, tol):
+    return f"bar {steps} bf16 step{'s' if steps > 1 else ''} or {tol:g} of max"
+
+
+def phase_bf16_gn(gn_shapes, gen):
+    """K1's and K1b's bf16 forms against their plain versions at every
+    GroupNorm+SiLU shape of a UNet forward at the sampling batch (K1) and of
+    a train step (K1b), timed and summed over one forward's or step's calls,
+    then at `GN_BF16_EDGES`; each line names the form. Returns the worst
+    absolute errors (forward, backward), the sums and the bounds."""
+    worst = [0.0, 0.0]
+    totals = {"fwd": 0.0, "fwd_plain": 0.0, "bwd": 0.0, "bwd_plain": 0.0}
+    bounds = {"fwd": Bound(), "bwd": Bound()}
+    counts = sorted({s: gn_shapes.count(s) for s in gn_shapes}.items())
+    cases = [(2 * SAMPLES, h, w, c, n, "fwd") for (c, h, w), n in counts]
+    cases += [(TRAIN_BATCH, h, w, c, n, "bwd") for (c, h, w), n in counts]
+    cases += [(*shape, 0, "both") for shape in GN_BF16_EDGES]
+    for b, h, w, c, n, which in cases:
+        x, scale, bias, g = gn_case(b, h, w, c, gen)
+        x, g = x.bfloat16(), g.bfloat16()
+        y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+        stats_ref = fused_norm.group_norm_silu_stats_ref(x, 8)
+        grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+        refs = fused_norm.group_norm_silu_bwd_ref(x, scale, bias, g,
+                                                  stats_ref, 8)
+        torch.cuda.synchronize()
+        label = f"gn_silu bf16 B={b} {h}x{w}x{c}"
+        steps, err = bf16_check(label, y,
+                                fused_norm.group_norm_silu_ref(x, scale,
+                                                               bias, 8),
+                                BF16_STEPS_FWD, TOL_OUT)
+        steps_bwd, err_bwd = bf16_check(label + " dx", grads[0], refs[0],
+                                        BF16_STEPS_FWD, TOL_OUT)
+        rels = [max_rel(stats, stats_ref),
+                *(max_rel(a, r) for a, r in zip(grads[1:], refs[1:]))]
+        if not max(rels) <= TOL_OUT:
+            raise AssertionError(f"{label}: stats, dscale, dbias max_rel "
+                                 f"{rels} > {TOL_OUT}")
+        worst = [max(worst[0], err, (stats - stats_ref).abs().max().item()),
+                 max(worst[1], err_bwd)]
+        line = (f"{label} [{fused_norm.kernel_form(x.shape, 8, False, x.dtype)}"
+                f"; backward: {fused_norm.kernel_form(x.shape, 8, True, x.dtype)}"
+                f"]: y {steps} bf16 steps, dx {steps_bwd} "
+                f"({bf16_bar(BF16_STEPS_FWD, TOL_OUT)}); stats, dscale, dbias "
+                f"max_rel {' '.join(f'{r:.3e}' for r in rels)} (bar "
+                f"{TOL_OUT:g})")
+        if which == "fwd":
+            ms = median_ms(
+                lambda: fused_norm.group_norm_silu_fwd(x, scale, bias, 8))
+            plain = median_ms(
+                lambda: fused_norm.group_norm_silu_ref(x, scale, bias, 8))
+            totals["fwd"] += n * ms
+            totals["fwd_plain"] += n * plain
+            bounds["fwd"].add(*gn_work(b, h, w, c, elem=2), n)
+            line += f"; x{n} a forward: kernel {ms:.4f} ms plain {plain:.4f} ms"
+        elif which == "bwd":
+            ms = median_ms(lambda: fused_norm.group_norm_silu_bwd(
+                x, scale, bias, g, stats, 8))
+            plain = median_ms(lambda: fused_norm.group_norm_silu_bwd_ref(
+                x, scale, bias, g, stats_ref, 8), reps=10)
+            totals["bwd"] += n * ms
+            totals["bwd_plain"] += n * plain
+            bounds["bwd"].add(*gn_bwd_work(b, h, w, c, elem=2), n)
+            line += (f"; x{n} a train step: backward kernel {ms:.4f} ms plain "
+                     f"{plain:.4f} ms")
+        print(line)
+    print(f"GroupNorm+SiLU bf16: a UNet sampling forward at batch "
+          f"{2 * SAMPLES} {totals['fwd']:.3f} ms (plain {totals['fwd_plain']:.3f}"
+          f", bound {bounds['fwd'].ms:.3f} ms, {bounds['fwd'].keys()['bound_by']}"
+          f"); its backward a train step at batch {TRAIN_BATCH} "
+          f"{totals['bwd']:.3f} ms (plain {totals['bwd_plain']:.3f}, bound "
+          f"{bounds['bwd'].ms:.3f} ms, {bounds['bwd'].keys()['bound_by']})")
+    return worst, totals, bounds
+
+
+def bf16_qkv(bh, seq, d, gen, n=4):
+    return [torch.randn(bh, seq, d, generator=gen, device="cuda").bfloat16()
+            for _ in range(n)]
+
+
+def check_attention_bf16(label, bh, seq, d, gen, drop=(0.0, None),
+                         fused=None, timed=False):
+    """K2 and K3 in their bf16 form (with dropout when `drop` has p > 0;
+    K3 in the form `fused` forces, or the wrapper's) against their plain
+    versions on one input; with `timed`, per call: each kernel, its plain
+    version and `F.scaled_dot_product_attention` on the same bf16 inputs
+    and its backward (with its own dropout mask; never called by the port).
+    The library call gets them as (1, BH, L, d): on 3-D tensors PyTorch
+    takes its unfused math path, on 4-D ones its flash kernel. Returns the
+    worst absolute error and the times."""
+    q, k, v, do = bf16_qkv(bh, seq, d, gen)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused)
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
+    torch.cuda.synchronize()
+    label = (f"{label} BH={bh} L={seq} d={d} p={drop[0]} "
+             f"[{attention_fwd_form(seq, d)}; backward "
+             f"{attention_bwd_form(seq, d, fused)}]")
+    steps, err = bf16_check(label + " o", o, o_ref, BF16_STEPS_FWD, TOL_OUT)
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not (lse.dtype == torch.float32 and lse_err <= TOL_LSE):
+        raise AssertionError(f"{label}: lse {lse.dtype} max_abs {lse_err}")
+    checked = [bf16_check(f"{label} {name}", a, r, BF16_STEPS_BWD, TOL_BWD)
+               for name, a, r in zip(("dq", "dk", "dv"), grads, refs)]
+    line = (f"{label}: o {steps} bf16 steps "
+            f"({bf16_bar(BF16_STEPS_FWD, TOL_OUT)}), lse max_abs "
+            f"{lse_err:.3e} (bar {TOL_LSE:g}); dq/dk/dv "
+            f"{' '.join(str(c[0]) for c in checked)} bf16 steps "
+            f"({bf16_bar(BF16_STEPS_BWD, TOL_BWD)})")
+    times = {}
+    if timed:
+        args = (q, k, v, o, do, lse)
+        times = {
+            "fwd": median_ms(
+                lambda: flash_attention.flash_attention_fwd(q, k, v, *drop)),
+            "fwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_fwd_ref(q, k, v,
+                                                                *drop),
+                reps=10),
+            "fwd_library": median_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], dropout_p=drop[0])),
+            "bwd": median_ms(lambda: flash_attention.flash_attention_bwd(
+                *args, *drop, fused=fused)),
+            "bwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_bwd_ref(*args, *drop),
+                reps=10)}
+        qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*qkv, dropout_p=drop[0])
+        times["bwd_library"] = median_ms(
+            lambda: torch.autograd.grad(out, qkv, do[None],
+                                        retain_graph=True))
+        line += ("; ms a call: forward kernel {fwd:.4f} plain {fwd_plain:.4f} "
+                 "scaled_dot_product_attention {fwd_library:.4f}; backward "
+                 "kernel {bwd:.4f} plain {bwd_plain:.4f} its backward "
+                 "{bwd_library:.4f}").format(**times)
+    print(line)
+    return max(err, lse_err, *(c[1] for c in checked)), times
+
+
+def phase_bf16_attn(attn_shapes, gen):
+    """K2's and K3's bf16 forms against their plain versions: at every
+    attention shape of a UNet forward at the sampling batch (K2) and of a
+    train step (K3, the longest also with the two-kernel form forced),
+    timed beside the library call on bf16 inputs and summed over a forward's
+    or step's calls; at the DiT's sampling shape (p = 0) and train-step
+    shape (p 0.1, the dropout forms; also forced), summed over its 12
+    calls; then in `ATTN_BF16_FORMS` with and without dropout. Returns the
+    worst absolute error, the sums and the bounds (each a pair: the work at
+    the float32 CUDA-core rate the forms compute at, and at the bf16 tensor
+    cores' rate, the bound of the inputs' type)."""
+    worst = 0.0
+    keys = ("fwd", "fwd_plain", "fwd_library", "bwd", "bwd_plain",
+            "bwd_library")
+    sums = {what: dict.fromkeys(keys, 0.0)
+            for what in ("unet_fwd", "unet_bwd", "dit", "dit_dropout")}
+    bounds = {what: (Bound(), Bound(PEAK_BF16_TC_OPS_PER_S))
+              for what in sums}
+    counts = sorted({s: attn_shapes.count(s) for s in attn_shapes}.items())
+    longest = max(h * w for (_, h, w), _ in counts)
+    for (c, h, w), n in counts:
+        for what, batch in (("unet_fwd", 2 * SAMPLES),
+                            ("unet_bwd", TRAIN_BATCH)):
+            bh, seq, d = batch * 4, h * w, c // 4
+            err, times = check_attention_bf16(
+                f"  {what}: attention bf16 x{n}", bh, seq, d, gen, timed=True)
+            worst = max(worst, err)
+            for key in keys:
+                sums[what][key] += n * times[key]
+            for bound in bounds[what]:
+                bound.add(*attn_work(bh, seq, d, what == "unet_bwd", elem=2),
+                          n)
+            if what == "unet_bwd" and seq == longest:
+                err, _ = check_attention_bf16(
+                    f"  {what}: attention bf16, forced", bh, seq, d, gen,
+                    fused=False)
+                worst = max(worst, err)
+    dit_shapes = (("dit", 2 * SAMPLES, (0.0, None)),
+                  ("dit_dropout", TRAIN_BATCH,
+                   (ATTN_DROPOUT, ATTN_DROPOUT_SEED)))
+    for what, batch, drop in dit_shapes:
+        bh = batch * DIT_HEADS
+        err, times = check_attention_bf16(
+            f"  {what}: attention bf16 x{ATTN_PER_DIT_FORWARD}", bh,
+            DIT_LENGTH, DIT_HEAD_DIM, gen, drop=drop, timed=True)
+        worst = max(worst, err)
+        for key in keys:
+            sums[what][key] += ATTN_PER_DIT_FORWARD * times[key]
+        for bound in bounds[what]:  # the forward's; the backward's below
+            bound.add(*attn_work(bh, DIT_LENGTH, DIT_HEAD_DIM, elem=2),
+                      ATTN_PER_DIT_FORWARD)
+    bounds["dit_dropout_bwd"] = (Bound(), Bound(PEAK_BF16_TC_OPS_PER_S))
+    for bound in bounds["dit_dropout_bwd"]:
+        bound.add(*attn_work(TRAIN_BATCH * DIT_HEADS, DIT_LENGTH,
+                             DIT_HEAD_DIM, True, elem=2),
+                  ATTN_PER_DIT_FORWARD)
+    err, _ = check_attention_bf16(
+        "  dit_dropout: attention bf16, forced", TRAIN_BATCH * DIT_HEADS,
+        DIT_LENGTH, DIT_HEAD_DIM, gen, drop=(ATTN_DROPOUT, ATTN_DROPOUT_SEED),
+        fused=False)
+    worst = max(worst, err)
+    for seq, d in ATTN_BF16_FORMS:
+        for drop in ((0.0, None), (ATTN_DROPOUT, ATTN_DROPOUT_SEED)):
+            err, _ = check_attention_bf16("attention bf16", ATTN_BH, seq, d,
+                                          gen, drop=drop)
+            worst = max(worst, err)
+    for what, label in (("unet_fwd", "a UNet sampling forward"),
+                        ("unet_bwd", "a UNet train step"),
+                        ("dit", "a DiT sampling forward"),
+                        ("dit_dropout", "a DiT train step, p 0.1")):
+        t = sums[what]
+        print(f"attention bf16, {label}: forward kernel {t['fwd']:.3f} ms "
+              f"plain {t['fwd_plain']:.3f} scaled_dot_product_attention "
+              f"{t['fwd_library']:.3f}; backward kernel {t['bwd']:.3f} plain "
+              f"{t['bwd_plain']:.3f} library {t['bwd_library']:.3f}; bound "
+              f"{bounds[what][1].ms:.3f} ms (bf16 tensor cores), "
+              f"{bounds[what][0].ms:.3f} ms at the float32 CUDA-core rate")
+    return worst, sums, bounds
+
+
+def time_train_rates(trainer, runs=2):
+    """Train images/s through the trainer's own step on its first batch,
+    `runs` times, and the peak device memory of those steps."""
+    images, labels = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).to("cuda")
+    labels = torch.from_numpy(labels).to("cuda")
+    rates, peak = [], 0
+    for _ in range(runs):
+        torch.cuda.reset_peak_memory_stats()
+        rates.append(time_train_steps(trainer, images, labels))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    return rates, peak
+
+
+def phase_bf16_model(label, config, per_forward, per_step, gen,
+                     train_seed=None):
+    """The full-width model under `mixed_precision: 'bf16'` (float32
+    parameters, the kernels' bf16 forms, float32 eps): forwards at batch 32
+    and 160 against the same inside `plain_kernels()`; 80 images DDIM-50
+    CFG 3 through `sample.main --mixed_precision bf16` from a float32
+    config's checkpoint of its weights; the loss and gradients against the
+    plain versions (in train mode with dropout when `train_seed`, at batch
+    128); three epochs of `train.main` from the config with
+    `mixed_precision: 'bf16'`, train images/s and peak memory. Exact
+    launches everywhere (`per_forward`, `per_step`)."""
+    config16 = dict(config, mixed_precision="bf16")
+    name = f"{label} bf16"
+    model, n_params, _ = phase_model_forward(name, config16, per_forward, gen,
+                                             tol=TOL_BF16_MODEL)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError(f"{name}: parameters not all float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        sample_launches, seconds = phase_sample_main(
+            name, config, model, per_forward, tmp,
+            flags=("--mixed_precision", "bf16"))
+    if train_seed is not None:
+        model.train()
+    phase_train_grads(name, model, config16, per_step, gen,
+                      batch_size=TRAIN_BATCH if train_seed else CHECK_BATCH,
+                      seed=train_seed,
+                      tol=(TOL_BF16_LOSS, TOL_BF16_GRAD))
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, train_launches = run_train_main(name, config16, per_step,
+                                                 tmp, TRAIN_EPOCHS, 1)
+        rates, peak = time_train_rates(trainer)
+    print(f"{name} train images/s at batch {config['batch_size']}: "
+          f"{', '.join(f'{r:.2f}' for r in rates)}; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    return {"params": n_params, "sample_launches": sample_launches,
+            "seconds": seconds, "train_launches": train_launches,
+            "rates": rates, "peak": peak}
+
+
+def phase_bf16(gn_shapes, attn_shapes, gen):
+    """The bf16 forms of K1, K1b, K2 and K3 against their plain versions,
+    then the UNet, the DiM and the DiT in bf16 (`phase_bf16_model`)."""
+    gn_err, gn_totals, gn_bounds = phase_bf16_gn(gn_shapes, gen)
+    attn_err, attn_sums, attn_bounds = phase_bf16_attn(attn_shapes, gen)
+    models = {
+        "UNet": phase_bf16_model("UNet", load_config(CONFIG),
+                                 UNET_FORWARD_BF16, UNET_STEP_BF16, gen),
+        "DiM": phase_bf16_model("DiM", load_config(DIM_CONFIG), DIM_FORWARD,
+                                DIM_STEP, gen),
+        "DiT": phase_bf16_model("DiT", load_config(DIT_CONFIG),
+                                DIT_FORWARD_BF16, DIT_STEP_BF16, gen,
+                                train_seed=TRAIN_SEED),
+    }
+    return {"gn_err": gn_err, "gn_totals": gn_totals,
+            "gn_bounds": gn_bounds, "attn_err": attn_err,
+            "attn_sums": attn_sums, "attn_bounds": attn_bounds,
+            "models": models}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -1631,7 +2026,7 @@ def main():
     samplers = [("ddim", 10, ["--num_inference_steps", "10"]),
                 ("ddpm", config["num_timesteps"], [])]
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, rates, _ = phase_train_main(
+        train_launches, rates, unet_peak = phase_train_main(
             "UNet", config, UNET_STEP, UNET_FORWARD, samplers, tmp)
 
     dim_config = load_config(DIM_CONFIG)
@@ -1683,6 +2078,7 @@ def main():
             DIM64_SMALL_STEP, tmp, 1, SYNTHETIC_IMAGES // DIM64_SMALL_BATCH)
 
     dit = phase_dit(gen)
+    bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -1713,6 +2109,19 @@ def main():
           f"{statistics.median(dit['remat_rates']['kernels']):.2f} (plain "
           f"versions: {statistics.median(dit['remat_rates']['plain']):.2f}), "
           f"peak {dit['remat_peak'] / 2**20:.1f} MiB; on {smi}")
+    fp32_figures = {
+        "UNet": (seconds, rates["kernels"], unet_peak),
+        "DiM": (dim_seconds, dim_rates["kernels"], dim_peak),
+        "DiT": (dit["seconds"], dit["rates"]["kernels"], dit["peak"])}
+    for label, run in bf16["models"].items():
+        seconds32, rates32, peak32 = fp32_figures[label]
+        print(f"{label} bf16 ({run['params']} float32 parameters): "
+              f"{SAMPLES / run['seconds']:.2f} samples/s DDIM-{STEPS} CFG "
+              f"{CFG_SCALE} (fp32 {SAMPLES / seconds32:.2f}); "
+              f"{statistics.median(run['rates']):.2f} train images/s at "
+              f"batch {TRAIN_BATCH} (fp32 {statistics.median(rates32):.2f}), "
+              f"peak device memory {run['peak'] / 2**20:.1f} MiB (fp32 "
+              f"{peak32 / 2**20:.1f} MiB); on {smi}")
     fwd_ms, fwd_plain = scan_times[("fwd", 2 * SAMPLES, 256, False)]
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
     k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
@@ -1855,6 +2264,75 @@ def main():
          "plain_ms": SCAN_PER_FORWARD * k10_plain,
          **per_model_call("bwd", DIM64_SMALL_BATCH, 1024),
          "library_ms": None},
+    ]
+    # the bf16 forms (one source each with the float32 form): K1 per UNet
+    # sampling forward at batch 160, K1b per train step at batch 128, K2 per
+    # UNet sampling forward and K3 per UNet train step, with the DiT's rows
+    # (12 calls: sampling at p = 0, a train step at p 0.1) beside them
+    unet16 = bf16["models"]["UNet"]
+    dit16 = bf16["models"]["DiT"]
+    gn_t, gn_b = bf16["gn_totals"], bf16["gn_bounds"]
+    at, ab = bf16["attn_sums"], bf16["attn_bounds"]
+    kernels += [
+        {"name": "gn_silu_fwd_bf16", "route": "cuda",
+         "source": csrc + "gn_silu.cu",
+         "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:46",
+         "launches": unet16["sample_launches"]["gn_bf16"],
+         "launches_by_path": {
+             "sample_bf16": unet16["sample_launches"]["gn_bf16"],
+             "train_bf16": unet16["train_launches"]["gn_bf16"]},
+         "max_abs_err": bf16["gn_err"][0],
+         "ms": gn_t["fwd"], "plain_ms": gn_t["fwd_plain"],
+         **gn_b["fwd"].keys(), "library_ms": None},
+        {"name": "gn_silu_bwd_bf16", "route": "cuda",
+         "source": csrc + "gn_silu.cu",
+         "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:125",
+         "launches": unet16["train_launches"]["gn_bwd_bf16"],
+         "launches_by_path": {
+             "train_bf16": unet16["train_launches"]["gn_bwd_bf16"]},
+         "max_abs_err": bf16["gn_err"][1],
+         "ms": gn_t["bwd"], "plain_ms": gn_t["bwd_plain"],
+         **gn_b["bwd"].keys(), "library_ms": None},
+        {"name": "flash_attn_fwd_bf16", "route": "cuda",
+         "source": csrc + "flash_attn.cu",
+         "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:65",
+         "launches": unet16["sample_launches"]["attn_bf16"],
+         "launches_by_path": {
+             "sample_bf16": unet16["sample_launches"]["attn_bf16"],
+             "train_bf16": unet16["train_launches"]["attn_bf16"],
+             "dit_sample_bf16": dit16["sample_launches"]["attn_bf16"],
+             "dit_train_bf16": dit16["train_launches"]["attn_bf16"]},
+         "max_abs_err": bf16["attn_err"],
+         "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],
+         **ab["unet_fwd"][1].keys(),
+         "cuda_core_bound_ms": ab["unet_fwd"][0].ms,
+         "library_ms": at["unet_fwd"]["fwd_library"],
+         "dit_ms": at["dit"]["fwd"], "dit_plain_ms": at["dit"]["fwd_plain"],
+         "dit_bound_ms": ab["dit"][1].ms,
+         "dit_cuda_core_bound_ms": ab["dit"][0].ms,
+         "dit_library_ms": at["dit"]["fwd_library"],
+         "dropout_ms": at["dit_dropout"]["fwd"],
+         "dropout_plain_ms": at["dit_dropout"]["fwd_plain"],
+         "dropout_bound_ms": ab["dit_dropout"][1].ms,
+         "dropout_cuda_core_bound_ms": ab["dit_dropout"][0].ms,
+         "dropout_library_ms": at["dit_dropout"]["fwd_library"]},
+        {"name": "flash_attn_bwd_bf16", "route": "cuda",
+         "source": csrc + "flash_attn_bwd.cu",
+         "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:126",
+         "launches": unet16["train_launches"]["attn_bwd_bf16"],
+         "launches_by_path": {
+             "train_bf16": unet16["train_launches"]["attn_bwd_bf16"],
+             "dit_train_bf16": dit16["train_launches"]["attn_bwd_bf16"]},
+         "max_abs_err": bf16["attn_err"],
+         "ms": at["unet_bwd"]["bwd"], "plain_ms": at["unet_bwd"]["bwd_plain"],
+         **ab["unet_bwd"][1].keys(),
+         "cuda_core_bound_ms": ab["unet_bwd"][0].ms,
+         "library_ms": at["unet_bwd"]["bwd_library"],
+         "dropout_ms": at["dit_dropout"]["bwd"],
+         "dropout_plain_ms": at["dit_dropout"]["bwd_plain"],
+         "dropout_bound_ms": ab["dit_dropout_bwd"][1].ms,
+         "dropout_cuda_core_bound_ms": ab["dit_dropout_bwd"][0].ms,
+         "dropout_library_ms": at["dit_dropout"]["bwd_library"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-// Flash-attention forward on (BH, L, d) float32 q, k, v: o = softmax(q k^T /
-// sqrt(d)) v and the row logsumexp lse = log(sum(exp(q k^T / sqrt(d)))),
-// (BH, L). The backward (flash_attn_bwd.cu) recomputes P from lse.
+// Flash-attention forward on (BH, L, d) float32 or bfloat16 q, k, v: o =
+// softmax(q k^T / sqrt(d)) v and the float32 row logsumexp lse =
+// log(sum(exp(q k^T / sqrt(d)))), (BH, L). The backward (flash_attn_bwd.cu)
+// recomputes P from lse.
 //
 // Replaces diffusion_models_collection_tpu/ops/flash_attention.py:_fwd_kernel.
 //
@@ -48,10 +49,21 @@
 // those of the undropped P, so lse is unchanged, and only the values that
 // enter P V, where P is written to shared memory, are multiplied by keep / (1
 // - p), keep from `philox.cuh`: o = (P o Z) V.
+// bfloat16 (the models' mixed precision; the JAX kernel computes in float32
+// from bf16 inputs and returns q's type): the element type T of q, k, v and o
+// is a template parameter of the same kernels, and every tile in shared
+// memory and all arithmetic stay float32. A bf16 K or V tile arrives by
+// cp.async in its own 16-byte pieces into a bf16 staging buffer (BK x DMAX,
+// half the bytes of a float32 tile; Q's, once, into the P tile, unused until
+// the first softmax), and after the wait each thread widens the pieces it
+// requested into the float32 tile (exact), before the barrier that publishes
+// the tile: the copies still fly during the products, and the inner loops
+// are those of the float32 form. o is rounded to bf16 at the store.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // from a CUDA graph): 0.29 ms a call at BH 640, L 256, d 64 against 0.36 for
 // the four-by-four form and a bound of 0.16 ms (operations).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -68,7 +80,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile geometry: a block of BQ query rows walks the key tiles of BK keys, at
 // a head dimension padded to DMAX; a thread owns RA rows and KB keys of the
-// scores, and the same RA rows at DC columns of the output.
+// scores, and the same RA rows at DC columns of the output. SMEM is the
+// float32 form's; a bf16 form adds STAGE bytes.
 template <int DMAX, int BQ, int BK, int RA, int KB>
 struct Cfg {
   static constexpr int TX = BK / KB;      // threads along the keys of a row
@@ -82,9 +95,13 @@ struct Cfg {
   // Q, K, V and P
   static constexpr size_t SMEM =
       sizeof(float) * ((size_t)(BQ + 2 * BK) * P + (size_t)BQ * SP);
+  // a bf16 K or V tile, packed (BK, DMAX)
+  static constexpr size_t STAGE = 2 * (size_t)BK * DMAX;
   // blocks an SM is asked to hold (the registers a thread may take follow)
   static constexpr int MIN_BLOCKS = NT == 128 ? 2 : 1;
   static_assert(32 % TX == 0, "the threads of a row share a warp");
+  // a bf16 Q tile fits the P tile, where it is staged
+  static_assert(2 * BQ * DMAX <= 4 * BQ * SP, "Q's staging");
   static_assert(DC % VW == 0 && (VW == 2 || VW == 4), "column ownership");
 };
 
@@ -112,19 +129,51 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) matrix into a
-// (ROWS, DMAX + 4) tile, zero past L and past d. d % 4 == 0.
-template <int DMAX, int ROWS, int NT>
-__device__ __forceinline__ void request_rows(float* dst,
-                                             const float* __restrict__ src,
+// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) matrix, zero past L
+// and past d: float32 straight into the (ROWS, DMAX + 4) tile `dst` (d % 4
+// == 0); bf16 into `stage`, packed (ROWS, DMAX), for `widen_rows` (d % 8 ==
+// 0). A thread requests pieces tid, tid + NT, ...
+template <typename T, int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void request_rows(float* dst, void* stage,
+                                             const T* __restrict__ src,
                                              int r0, int L, int d, int tid) {
-  constexpr int V = DMAX / 4;  // 16-byte pieces of a row
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte piece
+  constexpr int V = DMAX / E;        // pieces of a row
   for (int i = tid; i < ROWS * V; i += NT) {
     const int r = i / V;
-    const int c = (i - r * V) * 4;
+    const int c = (i - r * V) * E;
     const bool ok = r0 + r < L && c < d;
-    cp_async16(dst + r * (DMAX + 4) + c,
-               ok ? src + (size_t)(r0 + r) * d + c : src, ok);
+    const T* from = ok ? src + (size_t)(r0 + r) * d + c : src;
+    if constexpr (sizeof(T) == 4)
+      cp_async16(dst + r * (DMAX + 4) + c, from, ok);
+    else
+      cp_async16(reinterpret_cast<float*>(stage) + 4 * i,
+                 reinterpret_cast<const float*>(from), ok);
+  }
+}
+
+// After the wait for `request_rows`'s bf16 pieces: each thread widens the
+// pieces it requested from `stage` into the float32 tile (exact). The
+// caller's barrier then publishes the tile.
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void widen_rows(float* dst, const void* stage,
+                                           int tid) {
+  constexpr int V = DMAX / 8;
+  for (int i = tid; i < ROWS * V; i += NT) {
+    const int r = i / V;
+    const int c = (i - r * V) * 8;
+    const uint4 w = reinterpret_cast<const uint4*>(stage)[i];
+    float* out = dst + r * (DMAX + 4) + c;
+    *reinterpret_cast<float4*>(out) =
+        make_float4(__uint_as_float(w.x << 16),
+                    __uint_as_float(w.x & 0xffff0000u),
+                    __uint_as_float(w.y << 16),
+                    __uint_as_float(w.y & 0xffff0000u));
+    *reinterpret_cast<float4*>(out + 4) =
+        make_float4(__uint_as_float(w.z << 16),
+                    __uint_as_float(w.z & 0xffff0000u),
+                    __uint_as_float(w.w << 16),
+                    __uint_as_float(w.w & 0xffff0000u));
   }
 }
 
@@ -150,6 +199,21 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src) {
   } else {
     *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
   }
+}
+
+// VW floats rounded to bf16 (nearest even) in one 8- or 4-byte store
+template <int VW>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* src) {
+  unsigned w[VW / 2];
+#pragma unroll
+  for (int i = 0; i < VW / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  if constexpr (VW == 4)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<unsigned*>(dst) = w[0];
 }
 
 // out[a][b] = Qs[row ty + TY a] . Ks[row tx + TX b] over the DMAX columns,
@@ -215,19 +279,21 @@ __device__ __forceinline__ void pv_product(
   }
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+template <typename T, int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int L, int d, float scale_log2,
                  DropoutParams dp) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
+  constexpr bool kWiden = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * C::P;
   float* Vs = Ks + BK * C::P;
   float* Ps = Vs + BK * C::P;  // probabilities, (BQ, BK + 4)
+  void* stage = Ps + BQ * C::SP;  // bf16: the K or V tile in flight
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -235,11 +301,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
 
-  request_rows<DMAX, BQ, C::NT>(Qs, q + head, q0, L, d, tid);
-  request_rows<DMAX, BK, C::NT>(Ks, kh, 0, L, d, tid);
+  request_rows<T, DMAX, BQ, C::NT>(Qs, Ps, q + head, q0, L, d, tid);
+  request_rows<T, DMAX, BK, C::NT>(Ks, stage, kh, 0, L, d, tid);
   cp_async_commit();
 
   // rows q0 + ty + TY a: the output at columns VW (tx + TX g) .. + VW - 1,
@@ -256,9 +322,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     cp_async_wait_all();
+    if constexpr (kWiden) {
+      widen_rows<DMAX, BK, C::NT>(Ks, stage, tid);
+      if (k0 == 0) widen_rows<DMAX, BQ, C::NT>(Qs, Ps, tid);
+    }
     __syncthreads();  // this K tile is in; every thread is past the last P V
     // V flies during Q K^T and the softmax
-    request_rows<DMAX, BK, C::NT>(Vs, vh, k0, L, d, tid);
+    request_rows<T, DMAX, BK, C::NT>(Vs, stage, vh, k0, L, d, tid);
     cp_async_commit();
 
     float s[RA][KB];
@@ -296,9 +366,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     cp_async_wait_all();
+    if constexpr (kWiden) widen_rows<DMAX, BK, C::NT>(Vs, stage, tid);
     __syncthreads();  // P is whole and V is in; the K tile is read
     if (k0 + BK < L) {  // the next K tile flies during P V
-      request_rows<DMAX, BK, C::NT>(Ks, kh, k0 + BK, L, d, tid);
+      request_rows<T, DMAX, BK, C::NT>(Ks, stage, kh, k0 + BK, L, d, tid);
       cp_async_commit();
     }
     pv_product<DMAX, BQ, BK, RA, KB>(Ps, Vs, ty, tx, acc);
@@ -326,11 +397,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
-int launch(const float* q, const float* k, const float* v, float* o, float* lse,
-           int bh, int L, int d, float scale, const DropoutParams& dp,
-           cudaStream_t stream) {
+template <typename T, int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+int launch(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int L,
+           int d, float scale, const DropoutParams& dp, cudaStream_t stream) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
+  constexpr size_t smem = C::SMEM + (sizeof(T) == 2 ? C::STAGE : 0);
   // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
   // and device: set it at the first launch on each device, not every launch.
   static std::atomic<bool> opted_in[kMaxDevices];
@@ -339,37 +410,38 @@ int launch(const float* q, const float* k, const float* v, float* o, float* lse,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::SMEM);
+    err = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, DMAX, BQ, BK, RA, KB, DROPOUT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev].store(true, std::memory_order_release);
   }
   const dim3 grid(bh, (L + BQ - 1) / BQ);
-  flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>
-      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
-                                         scale * kLog2e, dp);
+  flash_fwd_kernel<T, DMAX, BQ, BK, RA, KB, DROPOUT>
+      <<<grid, C::NT, smem, stream>>>(q, k, v, o, lse, L, d, scale * kLog2e,
+                                      dp);
   return (int)cudaGetLastError();
 }
 
-template <bool DROPOUT>
-int launch_form(const float* q, const float* k, const float* v, float* o,
+template <typename T, bool DROPOUT>
+int launch_form(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int d, float scale, int tile,
                 const DropoutParams& dp, cudaStream_t stream) {
-  auto f = &launch<128, 64, 64, 4, 4, DROPOUT>;
+  auto f = &launch<T, 128, 64, 64, 4, 4, DROPOUT>;
   if (tile == 32)
-    f = d <= 32 ? &launch<32, 32, 32, 4, 4, DROPOUT>
-                : &launch<64, 32, 32, 4, 4, DROPOUT>;
+    f = d <= 32 ? &launch<T, 32, 32, 32, 4, 4, DROPOUT>
+                : &launch<T, 64, 32, 32, 4, 4, DROPOUT>;
   else if (tile == 128)
-    f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT>
-                : &launch<64, 128, 64, 8, 8, DROPOUT>;
-  return f(q, k, v, o, lse, bh, L, d, scale, dp, stream);
+    f = d <= 32 ? &launch<T, 32, 128, 64, 8, 8, DROPOUT>
+                : &launch<T, 64, 128, 64, 8, 8, DROPOUT>;
+  return f((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, bh, L, d, scale,
+           dp, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, L, d) float32, contiguous, 16-byte aligned; lse: (bh, L)
-// float32. d % 8 == 0 and d <= 128. `tile` is the query tile height: 32 or
+// q, k, v, o: (bh, L, d), contiguous, 16-byte aligned, float32 or (`bf16` !=
+// 0) bfloat16; lse: (bh, L) float32. d % 8 == 0 and d <= 128. `tile` is the query tile height: 32 or
 // 128 for d <= 64, 64 for d > 64. `dropout` != 0 takes the dropout form: a
 // key is kept iff its Philox word (philox.cuh, from `seed`) is below
 // `threshold`, and a kept probability is multiplied by `keep_scale`. Returns
@@ -378,15 +450,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
                               void* lse, int bh, int L, int d, float scale,
                               int tile, int dropout, unsigned threshold,
                               float keep_scale, unsigned long long seed,
-                              void* stream) {
+                              int bf16, void* stream) {
   if (d < 8 || d % 8 || d > 128 ||
       !(d <= 64 ? tile == 32 || tile == 128 : tile == 64))
     return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32)};
-  auto f = dropout ? &launch_form<true> : &launch_form<false>;
-  return f((const float*)q, (const float*)k, (const float*)v, (float*)o,
-           (float*)lse, bh, L, d, scale, tile, dp, (cudaStream_t)stream);
+  auto f = bf16 ? (dropout ? &launch_form<__nv_bfloat16, true>
+                           : &launch_form<__nv_bfloat16, false>)
+                : (dropout ? &launch_form<float, true>
+                           : &launch_form<float, false>);
+  return f(q, k, v, o, (float*)lse, bh, L, d, scale, tile, dp,
+           (cudaStream_t)stream);
 }
 
 // Message of a CUDA error code returned by the entries above.

@@ -1,5 +1,6 @@
-// Flash-attention backward on (BH, L, d) float32: from q, k, v, the forward's
-// output o and row logsumexp lse, and the output gradient dO, compute
+// Flash-attention backward on (BH, L, d) float32 or bfloat16: from q, k, v,
+// the forward's output o and float32 row logsumexp lse, and the output
+// gradient dO, compute
 //   P  = exp(q k^T * scale - lse)
 //   dV = P^T dO
 //   dS = P o (dO V^T - rowsum(dO o O)) * scale
@@ -53,10 +54,21 @@
 //   dV = (P o Z)^T dO,  dP = (dO V^T) o Z,  dS = P o (dP - delta) * scale,
 // and delta = rowsum(dO o O) stays right, since rowsum(P o dP) = rowsum(dO o
 // O) when O = (P o Z) V. Both forms take it.
+// bfloat16 (the models' mixed precision; the JAX kernel computes in float32
+// from bf16 inputs and returns dq, dk, dv in their types): the element type T
+// of q, k, v, o, dO, dq, dk and dv is a template parameter of the same
+// kernels. A bf16 tile is widened to float32 by the thread that loads it, as
+// it goes from device memory into the float32 shared tile (exact): two
+// blocks an SM leave no room for a bf16 staging buffer beside the tiles, so
+// these loads are plain loads, not cp.async. delta, lse, the dq shares and
+// all arithmetic stay float32; dq, dk and dv are rounded to bf16 at their
+// one store (the fused form's dq in the share-sum kernel when there is more
+// than one key tile).
 // Read by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.85 ms a call at
 // BH 512, L 256, d 64 (fused; 1.02 ms with the two-kernel form forced),
 // 4.9 ms for the 11 calls of a UNet train step against a bound of 1.7 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -69,6 +81,11 @@ namespace {
 
 constexpr int kMaxDevices = 64;
 constexpr int kDeltaThreads = 256;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 // Tile geometry for a head dimension padded to DMAX and tiles of BT rows.
 template <int DMAX, int BT>
@@ -91,25 +108,41 @@ struct Cfg {
   static_assert(DC % VW == 0 && (VW == 2 || VW == 4), "column ownership");
 };
 
-__global__ void flash_bwd_delta_kernel(const float* __restrict__ o,
-                                       const float* __restrict__ dout,
+template <typename T>
+__global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
+                                       const T* __restrict__ dout,
                                        float* __restrict__ delta, int rows, int d) {
   const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // the whole warp leaves together
-  const float* orow = o + (size_t)row * d;
-  const float* drow = dout + (size_t)row * d;
+  const T* orow = o + (size_t)row * d;
+  const T* drow = dout + (size_t)row * d;
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s = fmaf(orow[c], drow[c], s);
+  for (int c = lane; c < d; c += 32)
+    s = fmaf(to_float(orow[c]), to_float(drow[c]), s);
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-// dq = the sum over the key tiles, in tile order, of their shares in
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// four floats rounded to bf16 (nearest even) in one 8-byte store
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// dq = the sum over the key tiles, in tile order, of their float32 shares in
 // `partial` (bh, tiles, L * d); four floats a thread.
+template <typename T>
 __global__ void flash_bwd_dq_sum_kernel(const float4* __restrict__ partial,
-                                        float4* __restrict__ dq, size_t head4,
+                                        T* __restrict__ dq, size_t head4,
                                         int tiles, size_t total4) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
@@ -124,7 +157,7 @@ __global__ void flash_bwd_dq_sum_kernel(const float4* __restrict__ partial,
     acc.z += v.z;
     acc.w += v.w;
   }
-  dq[i] = acc;
+  store4(dq + 4 * i, acc);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -142,19 +175,44 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Request rows r0 .. r0 + BT - 1 of one head's (L, d) matrix into a
-// (BT, DMAX + 4) tile, zero past L and past d. d % 4 == 0.
-template <int DMAX, int BT>
+// (BT, DMAX + 4) tile, zero past L and past d: float32 by cp.async (d % 4 ==
+// 0); bf16 (d % 8 == 0) loaded 16 bytes at a time, widened and stored here.
+template <typename T, int DMAX, int BT>
 __device__ __forceinline__ void request_tile(float* dst,
-                                             const float* __restrict__ src,
+                                             const T* __restrict__ src,
                                              int r0, int L, int d, int tid) {
   using C = Cfg<DMAX, BT>;
-  constexpr int V = DMAX / 4;  // 16-byte pieces of a row
-  for (int i = tid; i < BT * V; i += C::NT) {
-    const int r = i / V;
-    const int c = (i - r * V) * 4;
-    const bool ok = r0 + r < L && c < d;
-    cp_async16(dst + r * C::P + c, ok ? src + (size_t)(r0 + r) * d + c : src,
-               ok);
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte piece
+  constexpr int V = DMAX / E;        // pieces of a row
+  if constexpr (sizeof(T) == 4) {
+    for (int i = tid; i < BT * V; i += C::NT) {
+      const int r = i / V;
+      const int c = (i - r * V) * E;
+      const bool ok = r0 + r < L && c < d;
+      cp_async16(dst + r * C::P + c, ok ? src + (size_t)(r0 + r) * d + c : src,
+                 ok);
+    }
+  } else {
+    // one piece in registers at a time: the accumulators are live here
+#pragma unroll 1
+    for (int i = tid; i < BT * V; i += C::NT) {
+      const int r = i / V;
+      const int c = (i - r * V) * E;
+      const bool ok = r0 + r < L && c < d;
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) w = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
+      float* out = dst + r * C::P + c;
+      *reinterpret_cast<float4*>(out) =
+          make_float4(__uint_as_float(w.x << 16),
+                      __uint_as_float(w.x & 0xffff0000u),
+                      __uint_as_float(w.y << 16),
+                      __uint_as_float(w.y & 0xffff0000u));
+      *reinterpret_cast<float4*>(out + 4) =
+          make_float4(__uint_as_float(w.z << 16),
+                      __uint_as_float(w.z & 0xffff0000u),
+                      __uint_as_float(w.w << 16),
+                      __uint_as_float(w.w & 0xffff0000u));
+    }
   }
 }
 
@@ -194,6 +252,21 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src) {
   } else {
     *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
   }
+}
+
+// VW floats rounded to bf16 (nearest even) in one 8- or 4-byte store
+template <int VW>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* src) {
+  unsigned w[VW / 2];
+#pragma unroll
+  for (int i = 0; i < VW / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    w[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  if constexpr (VW == 4)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<unsigned*>(dst) = w[0];
 }
 
 // out[a][b] = As[row ty + TX a] . Bs[row tx + TX b] over the DMAX columns of
@@ -296,8 +369,8 @@ __device__ __forceinline__ void dq_product(const float* dSs, const float* Ks,
 
 // rows r0 + ty + TX a (< L) of `acc` into a head's (L, d) matrix at the
 // thread's columns
-template <int DMAX, int BT>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+template <int DMAX, int BT, typename O>
+__device__ __forceinline__ void store_rows(O* __restrict__ dst,
                                            const float acc[4][Cfg<DMAX, BT>::DC],
                                            int r0, int L, int d, int ty, int tx) {
   using C = Cfg<DMAX, BT>;
@@ -316,15 +389,16 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 
 // One block per (head, key tile): dK_j, dV_j and, when WITH_DQ, this key
 // tile's share of every dQ_i, into dq_out (the head's rows at
-// (bh * gridDim.y + tile) * L * d: dq itself when there is one key tile).
-template <int DMAX, int BT, bool WITH_DQ, bool DROPOUT>
+// (bh * gridDim.y + tile) * L * d: float32 shares, or dq itself, of type T,
+// when there is one key tile; DQ is its element type).
+template <typename T, typename DQ, int DMAX, int BT, bool WITH_DQ, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dq_out, float* __restrict__ dk,
-                      float* __restrict__ dv, int L, int d, float scale,
+                      DQ* __restrict__ dq_out, T* __restrict__ dk,
+                      T* __restrict__ dv, int L, int d, float scale,
                       DropoutParams dp) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
@@ -345,10 +419,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t head = (size_t)bh * L * d;
   const size_t base = (size_t)bh * L;
 
-  request_tile<DMAX, BT>(Ks, k + head, k0, L, d, tid);
-  request_tile<DMAX, BT>(Vs, v + head, k0, L, d, tid);
-  request_tile<DMAX, BT>(Qs, q + head, 0, L, d, tid);
-  request_tile<DMAX, BT>(dOs, dout + head, 0, L, d, tid);
+  request_tile<T, DMAX, BT>(Ks, k + head, k0, L, d, tid);
+  request_tile<T, DMAX, BT>(Vs, v + head, k0, L, d, tid);
+  request_tile<T, DMAX, BT>(Qs, q + head, 0, L, d, tid);
+  request_tile<T, DMAX, BT>(dOs, dout + head, 0, L, d, tid);
   load_row_stats<BT>(lse_s, dl_s, lse, delta, base, 0, L, tid);
 
   // keys k0 + 4 ty .. + 3, columns VW (tx + TX g) .. + VW - 1
@@ -360,7 +434,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dk_acc[a][b] = 0.f;
       dv_acc[a][b] = 0.f;
     }
-  float* dq_head = nullptr;
+  DQ* dq_head = nullptr;
   if constexpr (WITH_DQ)
     dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * L * d;
 
@@ -395,8 +469,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // Qs, dOs and the row stats are read
 
     if (q0 + BT < L) {  // the next tiles fly during the dQ product
-      request_tile<DMAX, BT>(Qs, q + head, q0 + BT, L, d, tid);
-      request_tile<DMAX, BT>(dOs, dout + head, q0 + BT, L, d, tid);
+      request_tile<T, DMAX, BT>(Qs, q + head, q0 + BT, L, d, tid);
+      request_tile<T, DMAX, BT>(dOs, dout + head, q0 + BT, L, d, tid);
       load_row_stats<BT>(lse_s, dl_s, lse, delta, base, q0 + BT, L, tid);
     }
     if constexpr (WITH_DQ) {
@@ -428,13 +502,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The two-kernel form's dQ: one block per (head, query tile) walks the key
 // tiles, recomputes dS and keeps dQ_i in registers.
-template <int DMAX, int BT, bool DROPOUT>
+template <typename T, int DMAX, int BT, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int L, int d, float scale,
+                    T* __restrict__ dq, int L, int d, float scale,
                     DropoutParams dp) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
@@ -453,10 +527,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
 
-  request_tile<DMAX, BT>(Qs, q + head, q0, L, d, tid);
-  request_tile<DMAX, BT>(dOs, dout + head, q0, L, d, tid);
-  request_tile<DMAX, BT>(Kbuf, k + head, 0, L, d, tid);
-  request_tile<DMAX, BT>(Vs, v + head, 0, L, d, tid);
+  request_tile<T, DMAX, BT>(Qs, q + head, q0, L, d, tid);
+  request_tile<T, DMAX, BT>(dOs, dout + head, q0, L, d, tid);
+  request_tile<T, DMAX, BT>(Kbuf, k + head, 0, L, d, tid);
+  request_tile<T, DMAX, BT>(Vs, v + head, 0, L, d, tid);
   load_row_stats<BT>(lse_s, dl_s, lse, delta, (size_t)bh * L, q0, L, tid);
 
   // query rows q0 + ty + TX a, columns VW (tx + TX g) .. + VW - 1
@@ -477,9 +551,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // Vs is read
 
     if (k0 + BT < L) {  // the next tiles fly during the dQ product
-      request_tile<DMAX, BT>(Kbuf + (cur ^ 1) * C::TILE, k + head, k0 + BT, L,
-                             d, tid);
-      request_tile<DMAX, BT>(Vs, v + head, k0 + BT, L, d, tid);
+      request_tile<T, DMAX, BT>(Kbuf + (cur ^ 1) * C::TILE, k + head, k0 + BT,
+                                L, d, tid);
+      request_tile<T, DMAX, BT>(Vs, v + head, k0 + BT, L, d, tid);
     }
     dq_product<DMAX, BT>(dSs, Ks, ty, tx, acc);
   }
@@ -503,77 +577,89 @@ int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
   return 0;
 }
 
-template <int DMAX, int BT, bool DROPOUT>
-int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dout, const float* lse, float* delta, float* partial,
-           float* dq, float* dk, float* dv, int bh, int L, int d, float scale,
-           int fused, const DropoutParams& dp, cudaStream_t stream) {
+template <typename T, int DMAX, int BT, bool DROPOUT>
+int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           const float* lse, float* delta, float* partial, T* dq, T* dk, T* dv,
+           int bh, int L, int d, float scale, int fused,
+           const DropoutParams& dp, cudaStream_t stream) {
   using C = Cfg<DMAX, BT>;
-  static std::atomic<bool> opted_fused[kMaxDevices], opted_dkdv[kMaxDevices],
-      opted_dq[kMaxDevices];
+  static std::atomic<bool> opted_fused[kMaxDevices], opted_one[kMaxDevices],
+      opted_dkdv[kMaxDevices], opted_dq[kMaxDevices];
   const int tiles = (L + BT - 1) / BT;
   if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
   const int rows = bh * L;
   const int rows_per_block = kDeltaThreads / 32;
-  flash_bwd_delta_kernel<<<(rows + rows_per_block - 1) / rows_per_block,
-                           kDeltaThreads, 0, stream>>>(o, dout, delta, rows, d);
+  flash_bwd_delta_kernel<T><<<(rows + rows_per_block - 1) / rows_per_block,
+                              kDeltaThreads, 0, stream>>>(o, dout, delta, rows,
+                                                          d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const dim3 grid(bh, tiles);
-  if (fused) {
-    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>, opted_fused,
-                    C::SMEM_DKDV);
+  if (fused && tiles == 1) {  // dq itself, in T
+    int rc = opt_in(flash_bwd_dkdv_kernel<T, T, DMAX, BT, true, DROPOUT>,
+                    opted_one, C::SMEM_DKDV);
     if (rc != 0) return rc;
-    flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>
-        <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-            q, k, v, dout, lse, delta, tiles > 1 ? partial : dq, dk, dv, L, d,
-            scale, dp);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || tiles == 1) return (int)err;
-    const size_t head4 = (size_t)L * d / 4;
-    const size_t total4 = head4 * bh;
-    flash_bwd_dq_sum_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-        (const float4*)partial, (float4*)dq, head4, tiles, total4);
+    flash_bwd_dkdv_kernel<T, T, DMAX, BT, true, DROPOUT>
+        <<<grid, C::NT, C::SMEM_DKDV, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                dk, dv, L, d, scale, dp);
     return (int)cudaGetLastError();
   }
-  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>, opted_dkdv,
-                  C::SMEM_DKDV);
+  if (fused) {  // float32 shares, summed into dq
+    int rc = opt_in(flash_bwd_dkdv_kernel<T, float, DMAX, BT, true, DROPOUT>,
+                    opted_fused, C::SMEM_DKDV);
+    if (rc != 0) return rc;
+    flash_bwd_dkdv_kernel<T, float, DMAX, BT, true, DROPOUT>
+        <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+            q, k, v, dout, lse, delta, partial, dk, dv, L, d, scale, dp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const size_t head4 = (size_t)L * d / 4;
+    const size_t total4 = head4 * bh;
+    flash_bwd_dq_sum_kernel<T>
+        <<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+            (const float4*)partial, dq, head4, tiles, total4);
+    return (int)cudaGetLastError();
+  }
+  int rc = opt_in(flash_bwd_dkdv_kernel<T, T, DMAX, BT, false, DROPOUT>,
+                  opted_dkdv, C::SMEM_DKDV);
   if (rc != 0) return rc;
-  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT, DROPOUT>, opted_dq, C::SMEM_DQ);
+  rc = opt_in(flash_bwd_dq_kernel<T, DMAX, BT, DROPOUT>, opted_dq, C::SMEM_DQ);
   if (rc != 0) return rc;
-  flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>
-      <<<grid, C::NT, C::SMEM_DKDV, stream>>>(q, k, v, dout, lse, delta, nullptr,
-                                              dk, dv, L, d, scale, dp);
+  flash_bwd_dkdv_kernel<T, T, DMAX, BT, false, DROPOUT>
+      <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+          q, k, v, dout, lse, delta, (T*)nullptr, dk, dv, L, d, scale, dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DMAX, BT, DROPOUT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
+  flash_bwd_dq_kernel<T, DMAX, BT, DROPOUT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
       q, k, v, dout, lse, delta, dq, L, d, scale, dp);
   return (int)cudaGetLastError();
 }
 
-template <bool DROPOUT>
-int launch_form(const float* q, const float* k, const float* v, const float* o,
-                const float* dout, const float* lse, float* delta,
-                float* partial, float* dq, float* dk, float* dv, int bh, int L,
+template <typename T, bool DROPOUT>
+int launch_form(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta,
+                float* partial, void* dq, void* dk, void* dv, int bh, int L,
                 int d, float scale, int tile, int fused,
                 const DropoutParams& dp, cudaStream_t stream) {
-  auto f = &launch<128, 64, DROPOUT>;
+  auto f = &launch<T, 128, 64, DROPOUT>;
   if (tile == 32)
-    f = d <= 32 ? &launch<32, 32, DROPOUT> : &launch<64, 32, DROPOUT>;
+    f = d <= 32 ? &launch<T, 32, 32, DROPOUT> : &launch<T, 64, 32, DROPOUT>;
   else if (d <= 32)
-    f = &launch<32, 64, DROPOUT>;
+    f = &launch<T, 32, 64, DROPOUT>;
   else if (d <= 64)
-    f = &launch<64, 64, DROPOUT>;
-  return f(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh, L, d, scale,
-           fused, dp, stream);
+    f = &launch<T, 64, 64, DROPOUT>;
+  return f((const T*)q, (const T*)k, (const T*)v, (const T*)o,
+           (const T*)dout, lse, delta, partial, (T*)dq, (T*)dk, (T*)dv, bh, L,
+           d, scale, fused, dp, stream);
 }
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (bh, L, d) float32, contiguous, 16-byte
-// aligned; lse and the scratch delta: (bh, L) float32. d % 8 == 0 and
+// q, k, v, o, dout, dq, dk, dv: (bh, L, d), contiguous, 16-byte aligned,
+// float32 or (`bf16` != 0) bfloat16; lse and the scratch delta: (bh, L)
+// float32; `partial` float32. d % 8 == 0 and
 // d <= 128. `tile` is the tile height, 64, or 32 for d <= 64. `fused` != 0
 // takes the one-pass form, which needs the scratch `partial` (bh,
 // ceil(L / tile), L, d) when L > tile; `fused` == 0 the two-kernel form
@@ -586,14 +672,17 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               void* dv, int bh, int L, int d, float scale,
                               int tile, int fused, int dropout,
                               unsigned threshold, float keep_scale,
-                              unsigned long long seed, void* stream) {
+                              unsigned long long seed, int bf16,
+                              void* stream) {
   if (d < 8 || d % 8 || d > 128 || (tile != 64 && !(tile == 32 && d <= 64)))
     return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32)};
-  auto f = dropout ? &launch_form<true> : &launch_form<false>;
-  return f((const float*)q, (const float*)k, (const float*)v, (const float*)o,
-           (const float*)dout, (const float*)lse, (float*)delta, (float*)partial,
-           (float*)dq, (float*)dk, (float*)dv, bh, L, d, scale, tile, fused, dp,
+  auto f = bf16 ? (dropout ? &launch_form<__nv_bfloat16, true>
+                           : &launch_form<__nv_bfloat16, false>)
+                : (dropout ? &launch_form<float, true>
+                           : &launch_form<float, false>);
+  return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
+           (float*)partial, dq, dk, dv, bh, L, d, scale, tile, fused, dp,
            (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
-// GroupNorm + SiLU on (B, HW, C) float32 activations (NHWC images flattened
-// over H and W), with per-channel affine scale and bias: the forward, which
-// also writes each (image, group)'s mean and 1 / sigma, and the backward from
-// them.
+// GroupNorm + SiLU on (B, HW, C) float32 or bfloat16 activations (NHWC
+// images flattened over H and W), with per-channel float32 affine scale and
+// bias: the forward, which also writes each (image, group)'s mean and
+// 1 / sigma, and the backward from them.
 //
 // The forward replaces
 // diffusion_models_collection_tpu/ops/fused_norm.py:_gn_silu_kernel. The
@@ -39,6 +39,15 @@
 //   fast.
 // The SiLU's exponential is __expf and its division __fdividef: both within
 // 2 ulp here, against a bar of 2e-5.
+// bfloat16 (the models' mixed precision, as the JAX package's
+// `group_norm_silu(x.astype(f32)).astype(bf16)` and its autodiff): the
+// element type T of x, y, the gradient g and dx is a template parameter of
+// the same kernels. A bf16 value widens to float32 exactly on load, every
+// sum and product stays float32, and only y (dx) is rounded, to nearest even,
+// at the store; mean, 1 / sigma, scale, bias and the dscale, dbias rows stay
+// float32. A 16-byte vector then holds eight channels (the forward keeps the
+// group in shared memory as bf16, half the bytes); groups whose rows are no
+// whole number of vectors (C / G % 8 != 0) take the generic kernels.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // launches in a row, batch 160 forward / 128 backward, ms): 32 x 32 x 384
 // forward 0.213 (bytes alone 0.150; three reads from device memory 0.722),
@@ -46,6 +55,7 @@
 // 32 x 32 x 128 0.084 / 0.118. The groups of 4 x 4 and 8 x 8 images take
 // less time on the card than their launch takes on the host.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -58,6 +68,86 @@ constexpr int kMaxDevices = 64;
 // Dynamic shared memory a block may ask for, less the kernels' static few
 // hundred bytes.
 constexpr size_t kSharedMax = 232448 - 1024;
+
+// A 16-byte vector of the I/O type T: V elements, widened to float32 on load
+// and rounded (bf16: to nearest even) on store; `widen` and `round` do the
+// same for one element.
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  using Vec = float4;
+  static constexpr int V = 4;
+  static constexpr int LOG_V = 2;
+  static __device__ __forceinline__ void unpack(const Vec& v, float (&f)[V]) {
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+  static __device__ __forceinline__ Vec pack(const float (&f)[V]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  using Vec = uint4;
+  static constexpr int V = 8;
+  static constexpr int LOG_V = 3;
+  static __device__ __forceinline__ void unpack(const Vec& v, float (&f)[V]) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // element 2i is the low half of word i
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ Vec pack(const float (&f)[V]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 round(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+// The V floats of vector column `cv` of a group's float32 channels `p`, 16
+// bytes at a time.
+template <int V>
+__device__ __forceinline__ void load_channels(float (&f)[V],
+                                              const float* __restrict__ p,
+                                              int cv) {
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(p)[cv * (V / 4) + q];
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+}
+
+// Sum of the V floats pairwise: (f0 + f1) + (f2 + f3), ...
+template <int V>
+__device__ __forceinline__ float vsum(const float (&f)[V]) {
+  if constexpr (V == 4) {
+    return (f[0] + f[1]) + (f[2] + f[3]);
+  } else {
+    return ((f[0] + f[1]) + (f[2] + f[3])) + ((f[4] + f[5]) + (f[6] + f[7]));
+  }
+}
 
 // Sums of `a` and of `b` over the block of THREADS threads (0: of blockDim.x,
 // not known when compiled); every thread gets both. `red` holds at least 66
@@ -108,16 +198,17 @@ __device__ __forceinline__ float silu_grad(float z) {
 }
 
 // Where a thread of the vector kernels works: vector column `cv` of the
-// group's `vr` = gs / 4, rows r0, r0 + rows, ...; threads past rows * vr idle.
+// group's `vr` = gs / V vectors of V channels, rows r0, r0 + rows, ...;
+// threads past rows * vr idle.
 struct Column {
   int vr, rows, cv, r0;
   bool active;
 };
 
-template <int THREADS>
+template <int THREADS, int LOG_V>
 __device__ __forceinline__ Column column_of(int gs) {
   Column col;
-  col.vr = gs >> 2;
+  col.vr = gs >> LOG_V;
   col.rows = THREADS / col.vr;
   col.r0 = threadIdx.x / col.vr;
   col.cv = threadIdx.x - col.r0 * col.vr;
@@ -125,32 +216,37 @@ __device__ __forceinline__ Column column_of(int gs) {
   return col;
 }
 
-template <int THREADS>
+template <typename T, int THREADS>
 __global__ void __launch_bounds__(THREADS)
-gn_silu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, float* __restrict__ y,
+gn_silu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ y,
                    float* __restrict__ mean_out, float* __restrict__ rstd_out,
                    int hw, int c, int groups, float eps) {
-  extern __shared__ float4 group[];  // (hw, vr) vectors
+  using Vec = typename Io<T>::Vec;
+  constexpr int V = Io<T>::V, LOG_V = Io<T>::LOG_V;
+  extern __shared__ float4 smem_fwd[];
+  Vec* group = reinterpret_cast<Vec*>(smem_fwd);  // (hw, vr) vectors of x
   __shared__ float red[66];
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x - b * groups;
   const int gs = c / groups;
   const float n = (float)hw * (float)gs;
-  const Column col = column_of<THREADS>(gs);
-  const int rs = c >> 2;  // vectors from one row to the next
-  const size_t base = ((size_t)b * hw * c + (size_t)g * gs) >> 2;
-  const float4* xg = reinterpret_cast<const float4*>(x) + base + col.cv;
-  float4* yg = reinterpret_cast<float4*>(y) + base + col.cv;
-  float4* mine = group + col.cv;
+  const Column col = column_of<THREADS, LOG_V>(gs);
+  const int rs = c >> LOG_V;  // vectors from one row to the next
+  const size_t base = ((size_t)b * hw * c + (size_t)g * gs) >> LOG_V;
+  const Vec* xg = reinterpret_cast<const Vec*>(x) + base + col.cv;
+  Vec* yg = reinterpret_cast<Vec*>(y) + base + col.cv;
+  Vec* mine = group + col.cv;
 
   float s = 0.f, unused = 0.f;
   if (col.active) {
 #pragma unroll 4
     for (int r = col.r0; r < hw; r += col.rows) {
-      const float4 v = xg[(size_t)r * rs];
+      const Vec v = xg[(size_t)r * rs];
       mine[r * col.vr] = v;
-      s += (v.x + v.y) + (v.z + v.w);
+      float f[V];
+      Io<T>::unpack(v, f);
+      s += vsum<V>(f);
     }
   }
   block_sum2<THREADS>(s, unused, red);
@@ -160,13 +256,13 @@ gn_silu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   if (col.active) {
 #pragma unroll 4
     for (int r = col.r0; r < hw; r += col.rows) {
-      const float4 v = mine[r * col.vr];
-      const float dx = v.x - mean, dy = v.y - mean, dz = v.z - mean,
-                  dw = v.w - mean;
-      ss = fmaf(dx, dx, ss);
-      ss = fmaf(dy, dy, ss);
-      ss = fmaf(dz, dz, ss);
-      ss = fmaf(dw, dw, ss);
+      float f[V];
+      Io<T>::unpack(mine[r * col.vr], f);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = f[j] - mean;
+        ss = fmaf(d, d, ss);
+      }
     }
   }
   unused = 0.f;
@@ -178,84 +274,87 @@ gn_silu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   }
 
   if (col.active) {
-    float4 sc = reinterpret_cast<const float4*>(scale + (size_t)g * gs)[col.cv];
-    const float4 bi =
-        reinterpret_cast<const float4*>(bias + (size_t)g * gs)[col.cv];
-    sc.x *= inv;
-    sc.y *= inv;
-    sc.z *= inv;
-    sc.w *= inv;
+    float sc[V], bi[V];
+    load_channels<V>(sc, scale + (size_t)g * gs, col.cv);
+    load_channels<V>(bi, bias + (size_t)g * gs, col.cv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) sc[j] *= inv;
 #pragma unroll 4
     for (int r = col.r0; r < hw; r += col.rows) {
-      const float4 v = mine[r * col.vr];
-      float4 o;
-      o.x = silu(fmaf(v.x - mean, sc.x, bi.x));
-      o.y = silu(fmaf(v.y - mean, sc.y, bi.y));
-      o.z = silu(fmaf(v.z - mean, sc.z, bi.z));
-      o.w = silu(fmaf(v.w - mean, sc.w, bi.w));
-      yg[(size_t)r * rs] = o;
+      float f[V];
+      Io<T>::unpack(mine[r * col.vr], f);
+#pragma unroll
+      for (int j = 0; j < V; ++j) f[j] = silu(fmaf(f[j] - mean, sc[j], bi[j]));
+      yg[(size_t)r * rs] = Io<T>::pack(f);
     }
   }
 }
 
 // XS: xh is kept in shared memory beside dxh; else x is read again for dx.
-template <int THREADS, bool XS>
+// dxh and xh are float32 in shared memory whatever T is: V / 4 float4 a
+// vector.
+template <typename T, int THREADS, bool XS>
 __global__ void __launch_bounds__(THREADS)
-gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gout,
+gn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
                    const float* __restrict__ scale,
                    const float* __restrict__ bias,
                    const float* __restrict__ mean_in,
-                   const float* __restrict__ rstd_in, float* __restrict__ dx,
+                   const float* __restrict__ rstd_in, T* __restrict__ dx,
                    float* __restrict__ dscale_rows,
                    float* __restrict__ dbias_rows, int hw, int c, int groups) {
+  using Vec = typename Io<T>::Vec;
+  constexpr int V = Io<T>::V, LOG_V = Io<T>::LOG_V;
+  constexpr int Q = V / 4;  // float4 of one vector's float32 values
   // (hw, vr) vectors of dxh, then (XS) as many of xh; afterwards the
-  // threads' channel sums, eight floats each
+  // threads' channel sums, 2 V floats each
   extern __shared__ float4 group[];
   __shared__ float red[66];
   const int b = blockIdx.x / groups;
   const int g = blockIdx.x - b * groups;
   const int gs = c / groups;
   const float n = (float)hw * (float)gs;
-  const Column col = column_of<THREADS>(gs);
-  const int rs = c >> 2;
-  const size_t base = ((size_t)b * hw * c + (size_t)g * gs) >> 2;
-  const float4* xg = reinterpret_cast<const float4*>(x) + base + col.cv;
-  const float4* gg = reinterpret_cast<const float4*>(gout) + base + col.cv;
-  float4* dxg = reinterpret_cast<float4*>(dx) + base + col.cv;
-  float4* dxh_s = group + col.cv;
-  float4* xh_s = group + (size_t)hw * col.vr + col.cv;
+  const Column col = column_of<THREADS, LOG_V>(gs);
+  const int rs = c >> LOG_V;
+  const size_t base = ((size_t)b * hw * c + (size_t)g * gs) >> LOG_V;
+  const Vec* xg = reinterpret_cast<const Vec*>(x) + base + col.cv;
+  const Vec* gg = reinterpret_cast<const Vec*>(gout) + base + col.cv;
+  Vec* dxg = reinterpret_cast<Vec*>(dx) + base + col.cv;
+  float4* dxh_s = group + col.cv * Q;
+  float4* xh_s = group + ((size_t)hw * col.vr + col.cv) * Q;
   const float mean = mean_in[blockIdx.x];
   const float inv = rstd_in[blockIdx.x];
 
-  float4 db = make_float4(0.f, 0.f, 0.f, 0.f), dg = db;
+  float db[V], dg[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) db[j] = dg[j] = 0.f;
   float s1 = 0.f, s2 = 0.f;
   if (col.active) {
-    const float4 sc =
-        reinterpret_cast<const float4*>(scale + (size_t)g * gs)[col.cv];
-    const float4 bi =
-        reinterpret_cast<const float4*>(bias + (size_t)g * gs)[col.cv];
+    float sc[V], bi[V];
+    load_channels<V>(sc, scale + (size_t)g * gs, col.cv);
+    load_channels<V>(bi, bias + (size_t)g * gs, col.cv);
 #pragma unroll 2
     for (int r = col.r0; r < hw; r += col.rows) {
-      const float4 xv = xg[(size_t)r * rs];
-      const float4 gv = gg[(size_t)r * rs];
-      float4 xh, dxh;
-#define DMC_GN_BWD_LANE(f)                                  \
-  {                                                         \
-    xh.f = (xv.f - mean) * inv;                             \
-    const float dz = gv.f * silu_grad(fmaf(xh.f, sc.f, bi.f)); \
-    db.f += dz;                                             \
-    dg.f = fmaf(dz, xh.f, dg.f);                            \
-    dxh.f = dz * sc.f;                                      \
-    s1 += dxh.f;                                            \
-    s2 = fmaf(dxh.f, xh.f, s2);                             \
-  }
-      DMC_GN_BWD_LANE(x)
-      DMC_GN_BWD_LANE(y)
-      DMC_GN_BWD_LANE(z)
-      DMC_GN_BWD_LANE(w)
-#undef DMC_GN_BWD_LANE
-      dxh_s[r * col.vr] = dxh;
-      if (XS) xh_s[r * col.vr] = xh;
+      float xh[V], dxh[V], gv[V];
+      Io<T>::unpack(xg[(size_t)r * rs], xh);
+      Io<T>::unpack(gg[(size_t)r * rs], gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        xh[j] = (xh[j] - mean) * inv;
+        const float dz = gv[j] * silu_grad(fmaf(xh[j], sc[j], bi[j]));
+        db[j] += dz;
+        dg[j] = fmaf(dz, xh[j], dg[j]);
+        dxh[j] = dz * sc[j];
+        s1 += dxh[j];
+        s2 = fmaf(dxh[j], xh[j], s2);
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        dxh_s[r * col.vr * Q + q] = make_float4(
+            dxh[4 * q], dxh[4 * q + 1], dxh[4 * q + 2], dxh[4 * q + 3]);
+        if (XS)
+          xh_s[r * col.vr * Q + q] = make_float4(
+              xh[4 * q], xh[4 * q + 1], xh[4 * q + 2], xh[4 * q + 3]);
+      }
     }
   }
   block_sum2<THREADS>(s1, s2, red);
@@ -264,23 +363,31 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gout,
   if (col.active) {
 #pragma unroll 4
     for (int r = col.r0; r < hw; r += col.rows) {
-      const float4 dxh = dxh_s[r * col.vr];
-      float4 xh;
-      if (XS) {
-        xh = xh_s[r * col.vr];
-      } else {
-        const float4 xv = xg[(size_t)r * rs];
-        xh.x = (xv.x - mean) * inv;
-        xh.y = (xv.y - mean) * inv;
-        xh.z = (xv.z - mean) * inv;
-        xh.w = (xv.w - mean) * inv;
+      float dxh[V], xh[V];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 d4 = dxh_s[r * col.vr * Q + q];
+        dxh[4 * q] = d4.x;
+        dxh[4 * q + 1] = d4.y;
+        dxh[4 * q + 2] = d4.z;
+        dxh[4 * q + 3] = d4.w;
+        if (XS) {
+          const float4 x4 = xh_s[r * col.vr * Q + q];
+          xh[4 * q] = x4.x;
+          xh[4 * q + 1] = x4.y;
+          xh[4 * q + 2] = x4.z;
+          xh[4 * q + 3] = x4.w;
+        }
       }
-      float4 o;
-      o.x = (dxh.x - m1 - xh.x * m2) * inv;
-      o.y = (dxh.y - m1 - xh.y * m2) * inv;
-      o.z = (dxh.z - m1 - xh.z * m2) * inv;
-      o.w = (dxh.w - m1 - xh.w * m2) * inv;
-      dxg[(size_t)r * rs] = o;
+      if (!XS) {
+        Io<T>::unpack(xg[(size_t)r * rs], xh);
+#pragma unroll
+        for (int j = 0; j < V; ++j) xh[j] = (xh[j] - mean) * inv;
+      }
+      float o[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) o[j] = (dxh[j] - m1 - xh[j] * m2) * inv;
+      dxg[(size_t)r * rs] = Io<T>::pack(o);
     }
   }
 
@@ -288,28 +395,35 @@ gn_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gout,
   // column, one per row residue, summed in row order
   if (THREADS == 32) __syncwarp(); else __syncthreads();
   if (col.active) {
-    group[2 * threadIdx.x] = db;
-    group[2 * threadIdx.x + 1] = dg;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      group[2 * Q * threadIdx.x + q] =
+          make_float4(db[4 * q], db[4 * q + 1], db[4 * q + 2], db[4 * q + 3]);
+      group[2 * Q * threadIdx.x + Q + q] =
+          make_float4(dg[4 * q], dg[4 * q + 1], dg[4 * q + 2], dg[4 * q + 3]);
+    }
   }
   if (THREADS == 32) __syncwarp(); else __syncthreads();
   const float* sums = reinterpret_cast<const float*>(group);
   for (int t = threadIdx.x; t < 2 * gs; t += THREADS) {
     const int which = t / gs;  // 0: dbias, 1: dscale
     const int ch = t - which * gs;
-    const float* p = sums + (ch >> 2) * 8 + which * 4 + (ch & 3);
+    const float* p =
+        sums + (ch >> LOG_V) * 2 * V + which * V + (ch & (V - 1));
     float acc = 0.f;
-    for (int r = 0; r < col.rows; ++r) acc += p[(size_t)r * col.vr * 8];
+    for (int r = 0; r < col.rows; ++r) acc += p[(size_t)r * col.vr * 2 * V];
     (which ? dscale_rows : dbias_rows)[(size_t)b * c + (size_t)g * gs + ch] =
         acc;
   }
 }
 
 // The generic forward: any C / G, any size; the group read three times.
+template <typename T>
 __global__ void __launch_bounds__(kGenericThreads)
-gn_silu_fwd_generic_kernel(const float* __restrict__ x,
+gn_silu_fwd_generic_kernel(const T* __restrict__ x,
                            const float* __restrict__ scale,
                            const float* __restrict__ bias,
-                           float* __restrict__ y, float* __restrict__ mean_out,
+                           T* __restrict__ y, float* __restrict__ mean_out,
                            float* __restrict__ rstd_out, int hw, int c,
                            int groups, float eps) {
   __shared__ float red[66];
@@ -318,13 +432,13 @@ gn_silu_fwd_generic_kernel(const float* __restrict__ x,
   const int gs = c / groups;
   const size_t n = (size_t)hw * gs;
   const size_t base = (size_t)b * hw * c + (size_t)g * gs;
-  const float* xg = x + base;
-  float* yg = y + base;
+  const T* xg = x + base;
+  T* yg = y + base;
 
   float s = 0.f, unused = 0.f;
   for (size_t i = threadIdx.x; i < n; i += blockDim.x) {
     const size_t r = i / gs;
-    s += xg[r * c + (i - r * gs)];
+    s += Io<T>::widen(xg[r * c + (i - r * gs)]);
   }
   block_sum2<0>(s, unused, red);
   const float mean = s / (float)n;
@@ -332,7 +446,7 @@ gn_silu_fwd_generic_kernel(const float* __restrict__ x,
   float ss = 0.f;
   for (size_t i = threadIdx.x; i < n; i += blockDim.x) {
     const size_t r = i / gs;
-    const float d = xg[r * c + (i - r * gs)] - mean;
+    const float d = Io<T>::widen(xg[r * c + (i - r * gs)]) - mean;
     ss = fmaf(d, d, ss);
   }
   unused = 0.f;
@@ -348,20 +462,22 @@ gn_silu_fwd_generic_kernel(const float* __restrict__ x,
     const int col = (int)(i - r * gs);
     const int ch = g * gs + col;
     const size_t off = r * c + col;
-    yg[off] = silu(fmaf(xg[off] - mean, inv * scale[ch], bias[ch]));
+    yg[off] = Io<T>::round(
+        silu(fmaf(Io<T>::widen(xg[off]) - mean, inv * scale[ch], bias[ch])));
   }
 }
 
 // The generic backward: the group's two means, then dx, then each channel's
 // dbias and dscale by a block sum of its own.
+template <typename T>
 __global__ void __launch_bounds__(kGenericThreads)
-gn_silu_bwd_generic_kernel(const float* __restrict__ x,
-                           const float* __restrict__ gout,
+gn_silu_bwd_generic_kernel(const T* __restrict__ x,
+                           const T* __restrict__ gout,
                            const float* __restrict__ scale,
                            const float* __restrict__ bias,
                            const float* __restrict__ mean_in,
                            const float* __restrict__ rstd_in,
-                           float* __restrict__ dx,
+                           T* __restrict__ dx,
                            float* __restrict__ dscale_rows,
                            float* __restrict__ dbias_rows, int hw, int c,
                            int groups) {
@@ -371,9 +487,9 @@ gn_silu_bwd_generic_kernel(const float* __restrict__ x,
   const int gs = c / groups;
   const size_t n = (size_t)hw * gs;
   const size_t base = (size_t)b * hw * c + (size_t)g * gs;
-  const float* xg = x + base;
-  const float* gg = gout + base;
-  float* dxg = dx + base;
+  const T* xg = x + base;
+  const T* gg = gout + base;
+  T* dxg = dx + base;
   const float mean = mean_in[blockIdx.x];
   const float inv = rstd_in[blockIdx.x];
 
@@ -383,9 +499,9 @@ gn_silu_bwd_generic_kernel(const float* __restrict__ x,
     const int col = (int)(i - r * gs);
     const int ch = g * gs + col;
     const size_t off = r * c + col;
-    const float xh = (xg[off] - mean) * inv;
-    const float dxh =
-        gg[off] * silu_grad(fmaf(xh, scale[ch], bias[ch])) * scale[ch];
+    const float xh = (Io<T>::widen(xg[off]) - mean) * inv;
+    const float dxh = Io<T>::widen(gg[off]) *
+                      silu_grad(fmaf(xh, scale[ch], bias[ch])) * scale[ch];
     s1 += dxh;
     s2 = fmaf(dxh, xh, s2);
   }
@@ -397,10 +513,10 @@ gn_silu_bwd_generic_kernel(const float* __restrict__ x,
     const int col = (int)(i - r * gs);
     const int ch = g * gs + col;
     const size_t off = r * c + col;
-    const float xh = (xg[off] - mean) * inv;
-    const float dxh =
-        gg[off] * silu_grad(fmaf(xh, scale[ch], bias[ch])) * scale[ch];
-    dxg[off] = (dxh - m1 - xh * m2) * inv;
+    const float xh = (Io<T>::widen(xg[off]) - mean) * inv;
+    const float dxh = Io<T>::widen(gg[off]) *
+                      silu_grad(fmaf(xh, scale[ch], bias[ch])) * scale[ch];
+    dxg[off] = Io<T>::round((dxh - m1 - xh * m2) * inv);
   }
 
   for (int col = 0; col < gs; ++col) {
@@ -408,8 +524,9 @@ gn_silu_bwd_generic_kernel(const float* __restrict__ x,
     float db = 0.f, dg = 0.f;
     for (int r = threadIdx.x; r < hw; r += blockDim.x) {
       const size_t off = (size_t)r * c + col;
-      const float xh = (xg[off] - mean) * inv;
-      const float dz = gg[off] * silu_grad(fmaf(xh, scale[ch], bias[ch]));
+      const float xh = (Io<T>::widen(xg[off]) - mean) * inv;
+      const float dz = Io<T>::widen(gg[off]) *
+                       silu_grad(fmaf(xh, scale[ch], bias[ch]));
       db += dz;
       dg = fmaf(dz, xh, dg);
     }
@@ -435,21 +552,31 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// The vector kernels' shared memory: `copies` of the group, and no less than
-// the channel sums of the backward need (32 bytes a thread).
-size_t shared_bytes(int hw, int gs, int copies, int threads, bool backward) {
+// Channels in a 16-byte vector and bytes an element of the I/O type.
+int vec_of(bool bf16) { return bf16 ? 8 : 4; }
+size_t elem_of(bool bf16) { return bf16 ? 2 : 4; }
+
+// The vector kernels' shared memory: the forward's group of x in the I/O
+// type; the backward's `copies` of the group in float32, and no less than
+// the channel sums need (2 V floats a thread).
+size_t shared_bytes(int hw, int gs, int copies, int threads, bool backward,
+                    bool bf16) {
+  if (!backward) return (size_t)hw * gs * elem_of(bf16);
   const size_t data = (size_t)hw * gs * sizeof(float) * copies;
-  const size_t sums = backward ? (size_t)threads * 32 : 0;
+  const size_t sums = (size_t)threads * 2 * vec_of(bf16) * sizeof(float);
   return data > sums ? data : sums;
 }
 
-// 0: the generic kernels; 1: the group once in shared memory (the forward;
-// the backward's dxh); 2: twice (the backward's dxh and xh).
-int form_for(int hw, int c, int groups, bool backward) {
+// 0: the generic kernels; 1: the group once in shared memory (the forward's
+// x; the backward's dxh); 2: twice (the backward's dxh and xh).
+int form_for(int hw, int c, int groups, bool backward, bool bf16) {
   const int gs = c / groups;
-  if (gs % 4 != 0 || gs / 4 > 1024) return 0;
+  const int v = vec_of(bf16);
+  if (gs % v != 0 || gs / v > 1024) return 0;
+  if (!backward)
+    return shared_bytes(hw, gs, 1, 0, false, bf16) <= kSharedMax ? 1 : 0;
   const size_t one = (size_t)hw * gs * sizeof(float);
-  if (backward && 2 * one <= kSharedMax) return 2;
+  if (2 * one <= kSharedMax) return 2;
   return one <= kSharedMax ? 1 : 0;
 }
 
@@ -470,117 +597,147 @@ int opt_in(const void* kernel, std::atomic<bool>* done) {
   return 0;
 }
 
-template <int THREADS>
-int launch_fwd(const float* x, const float* scale, const float* bias, float* y,
+template <typename T, int THREADS>
+int launch_fwd(const T* x, const float* scale, const float* bias, T* y,
                float* mean, float* rstd, int batch, int hw, int c, int groups,
                float eps, size_t smem, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const int err = opt_in((const void*)gn_silu_fwd_kernel<THREADS>, done);
+  const int err = opt_in((const void*)gn_silu_fwd_kernel<T, THREADS>, done);
   if (err != 0) return err;
-  gn_silu_fwd_kernel<THREADS><<<batch * groups, THREADS, smem, stream>>>(
+  gn_silu_fwd_kernel<T, THREADS><<<batch * groups, THREADS, smem, stream>>>(
       x, scale, bias, y, mean, rstd, hw, c, groups, eps);
   return (int)cudaGetLastError();
 }
 
-template <int THREADS, bool XS>
-int launch_bwd(const float* x, const float* g, const float* scale,
-               const float* bias, const float* mean, const float* rstd,
-               float* dx, float* dscale_rows, float* dbias_rows, int batch,
-               int hw, int c, int groups, size_t smem, cudaStream_t stream) {
+template <typename T, int THREADS, bool XS>
+int launch_bwd(const T* x, const T* g, const float* scale, const float* bias,
+               const float* mean, const float* rstd, T* dx, float* dscale_rows,
+               float* dbias_rows, int batch, int hw, int c, int groups,
+               size_t smem, cudaStream_t stream) {
   static std::atomic<bool> done[kMaxDevices];
-  const int err = opt_in((const void*)gn_silu_bwd_kernel<THREADS, XS>, done);
+  const int err =
+      opt_in((const void*)gn_silu_bwd_kernel<T, THREADS, XS>, done);
   if (err != 0) return err;
-  gn_silu_bwd_kernel<THREADS, XS><<<batch * groups, THREADS, smem, stream>>>(
-      x, g, scale, bias, mean, rstd, dx, dscale_rows, dbias_rows, hw, c,
-      groups);
+  gn_silu_bwd_kernel<T, THREADS, XS>
+      <<<batch * groups, THREADS, smem, stream>>>(
+          x, g, scale, bias, mean, rstd, dx, dscale_rows, dbias_rows, hw, c,
+          groups);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// The form the kernels take for this shape (`form_for`) times 10000, plus
-// the block size of the vector kernels (the table's choice).
-extern "C" int gn_silu_form(int hw, int c, int groups, int backward) {
-  if (groups < 1 || c % groups != 0) return 0;
-  const int form = form_for(hw, c, groups, backward != 0);
-  if (form == 0) return kGenericThreads;
+template <typename T>
+int forward(const void* x, const void* scale, const void* bias, void* y,
+            void* mean, void* rstd, int batch, int hw, int c, int groups,
+            float eps, cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int gs = c / groups;
-  return form * 10000 + threads_for((size_t)hw * gs / 4, gs / 4);
-}
-
-// x, y: (batch, hw, c) float32, contiguous; scale, bias: (c,) float32; mean,
-// rstd: (batch, groups), written. Returns the CUDA error of the launch (0 on
-// success).
-extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias,
-                           void* y, void* mean, void* rstd, int batch, int hw,
-                           int c, int groups, float eps, void* stream) {
-  if (groups < 1 || c % groups != 0) return (int)cudaErrorInvalidValue;
-  const int gs = c / groups;
-  const bool vec = form_for(hw, c, groups, false) != 0 && aligned16(x) &&
-                   aligned16(y) && aligned16(scale) && aligned16(bias);
+  const bool vec = form_for(hw, c, groups, false, kBf16) != 0 &&
+                   aligned16(x) && aligned16(y) && aligned16(scale) &&
+                   aligned16(bias);
   if (!vec) {
-    gn_silu_fwd_generic_kernel<<<batch * groups, kGenericThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)scale, (const float*)bias, (float*)y,
+    gn_silu_fwd_generic_kernel<T><<<batch * groups, kGenericThreads, 0,
+                                    stream>>>(
+        (const T*)x, (const float*)scale, (const float*)bias, (T*)y,
         (float*)mean, (float*)rstd, hw, c, groups, eps);
     return (int)cudaGetLastError();
   }
-  const int threads = threads_for((size_t)hw * gs / 4, gs / 4);
-  const size_t smem = shared_bytes(hw, gs, 1, threads, false);
-  auto f = threads == 32    ? &launch_fwd<32>
-           : threads == 128 ? &launch_fwd<128>
-           : threads == 256 ? &launch_fwd<256>
-           : threads == 512 ? &launch_fwd<512>
-                            : &launch_fwd<1024>;
-  return f((const float*)x, (const float*)scale, (const float*)bias, (float*)y,
+  const int v = Io<T>::V;
+  const int threads = threads_for((size_t)hw * gs / v, gs / v);
+  const size_t smem = shared_bytes(hw, gs, 1, threads, false, kBf16);
+  auto f = threads == 32    ? &launch_fwd<T, 32>
+           : threads == 128 ? &launch_fwd<T, 128>
+           : threads == 256 ? &launch_fwd<T, 256>
+           : threads == 512 ? &launch_fwd<T, 512>
+                            : &launch_fwd<T, 1024>;
+  return f((const T*)x, (const float*)scale, (const float*)bias, (T*)y,
            (float*)mean, (float*)rstd, batch, hw, c, groups, eps, smem,
-           (cudaStream_t)stream);
+           stream);
 }
 
-// x, g (the gradient of y), dx: (batch, hw, c); scale, bias: (c,); mean, rstd:
-// (batch, groups) from the forward; dscale_rows, dbias_rows: (batch, c),
-// written: each image's sums, for the caller to add over the batch. All
-// float32, contiguous.
-extern "C" int gn_silu_bwd(const void* x, const void* g, const void* scale,
-                           const void* bias, const void* mean, const void* rstd,
-                           void* dx, void* dscale_rows, void* dbias_rows,
-                           int batch, int hw, int c, int groups, void* stream) {
-  if (groups < 1 || c % groups != 0) return (int)cudaErrorInvalidValue;
+template <typename T>
+int backward(const void* x, const void* g, const void* scale, const void* bias,
+             const void* mean, const void* rstd, void* dx, void* dscale_rows,
+             void* dbias_rows, int batch, int hw, int c, int groups,
+             cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int gs = c / groups;
-  int form = form_for(hw, c, groups, true);
+  int form = form_for(hw, c, groups, true, kBf16);
   if (!(aligned16(x) && aligned16(g) && aligned16(dx) && aligned16(scale) &&
         aligned16(bias)))
     form = 0;
   if (form == 0) {
-    gn_silu_bwd_generic_kernel<<<batch * groups, kGenericThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)g, (const float*)scale,
-        (const float*)bias, (const float*)mean, (const float*)rstd, (float*)dx,
-        (float*)dscale_rows, (float*)dbias_rows, hw, c, groups);
+    gn_silu_bwd_generic_kernel<T><<<batch * groups, kGenericThreads, 0,
+                                    stream>>>(
+        (const T*)x, (const T*)g, (const float*)scale, (const float*)bias,
+        (const float*)mean, (const float*)rstd, (T*)dx, (float*)dscale_rows,
+        (float*)dbias_rows, hw, c, groups);
     return (int)cudaGetLastError();
   }
-  const int threads = threads_for((size_t)hw * gs / 4, gs / 4);
-  const size_t smem = shared_bytes(hw, gs, form, threads, true);
+  const int v = Io<T>::V;
+  const int threads = threads_for((size_t)hw * gs / v, gs / v);
+  const size_t smem = shared_bytes(hw, gs, form, threads, true, kBf16);
   if (smem > kSharedMax) return (int)cudaErrorInvalidValue;
-  using Launch = int (*)(const float*, const float*, const float*, const float*,
-                         const float*, const float*, float*, float*, float*,
-                         int, int, int, int, size_t, cudaStream_t);
+  using Launch = int (*)(const T*, const T*, const float*, const float*,
+                         const float*, const float*, T*, float*, float*, int,
+                         int, int, int, size_t, cudaStream_t);
   Launch f;
   if (form == 2) {
-    f = threads == 32    ? &launch_bwd<32, true>
-        : threads == 128 ? &launch_bwd<128, true>
-        : threads == 256 ? &launch_bwd<256, true>
-        : threads == 512 ? &launch_bwd<512, true>
-                         : &launch_bwd<1024, true>;
+    f = threads == 32    ? &launch_bwd<T, 32, true>
+        : threads == 128 ? &launch_bwd<T, 128, true>
+        : threads == 256 ? &launch_bwd<T, 256, true>
+        : threads == 512 ? &launch_bwd<T, 512, true>
+                         : &launch_bwd<T, 1024, true>;
   } else {
-    f = threads == 32    ? &launch_bwd<32, false>
-        : threads == 128 ? &launch_bwd<128, false>
-        : threads == 256 ? &launch_bwd<256, false>
-        : threads == 512 ? &launch_bwd<512, false>
-                         : &launch_bwd<1024, false>;
+    f = threads == 32    ? &launch_bwd<T, 32, false>
+        : threads == 128 ? &launch_bwd<T, 128, false>
+        : threads == 256 ? &launch_bwd<T, 256, false>
+        : threads == 512 ? &launch_bwd<T, 512, false>
+                         : &launch_bwd<T, 1024, false>;
   }
-  return f((const float*)x, (const float*)g, (const float*)scale,
-           (const float*)bias, (const float*)mean, (const float*)rstd,
-           (float*)dx, (float*)dscale_rows, (float*)dbias_rows, batch, hw, c,
-           groups, smem, (cudaStream_t)stream);
+  return f((const T*)x, (const T*)g, (const float*)scale, (const float*)bias,
+           (const float*)mean, (const float*)rstd, (T*)dx,
+           (float*)dscale_rows, (float*)dbias_rows, batch, hw, c, groups,
+           smem, stream);
+}
+
+}  // namespace
+
+// The form the kernels take for this shape and I/O type (`form_for`) times
+// 10000, plus the block size of the vector kernels (the table's choice).
+extern "C" int gn_silu_form(int hw, int c, int groups, int backward,
+                            int bf16) {
+  if (groups < 1 || c % groups != 0) return 0;
+  const int form = form_for(hw, c, groups, backward != 0, bf16 != 0);
+  if (form == 0) return kGenericThreads;
+  const int gs = c / groups;
+  const int v = vec_of(bf16 != 0);
+  return form * 10000 + threads_for((size_t)hw * gs / v, gs / v);
+}
+
+// x, y: (batch, hw, c), contiguous, float32 or (`bf16` != 0) bfloat16;
+// scale, bias: (c,) float32; mean, rstd: (batch, groups) float32, written.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int gn_silu_fwd(const void* x, const void* scale, const void* bias,
+                           void* y, void* mean, void* rstd, int batch, int hw,
+                           int c, int groups, float eps, int bf16,
+                           void* stream) {
+  if (groups < 1 || c % groups != 0) return (int)cudaErrorInvalidValue;
+  auto f = bf16 ? &forward<__nv_bfloat16> : &forward<float>;
+  return f(x, scale, bias, y, mean, rstd, batch, hw, c, groups, eps,
+           (cudaStream_t)stream);
+}
+
+// x, g (the gradient of y), dx: (batch, hw, c), contiguous, float32 or
+// (`bf16` != 0) bfloat16; scale, bias: (c,); mean, rstd: (batch, groups) from
+// the forward; dscale_rows, dbias_rows: (batch, c), written: each image's
+// sums, for the caller to add over the batch. Those four float32.
+extern "C" int gn_silu_bwd(const void* x, const void* g, const void* scale,
+                           const void* bias, const void* mean, const void* rstd,
+                           void* dx, void* dscale_rows, void* dbias_rows,
+                           int batch, int hw, int c, int groups, int bf16,
+                           void* stream) {
+  if (groups < 1 || c % groups != 0) return (int)cudaErrorInvalidValue;
+  auto f = bf16 ? &backward<__nv_bfloat16> : &backward<float>;
+  return f(x, g, scale, bias, mean, rstd, dx, dscale_rows, dbias_rows, batch,
+           hw, c, groups, (cudaStream_t)stream);
 }

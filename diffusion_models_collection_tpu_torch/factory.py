@@ -4,7 +4,7 @@ inference.
 
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
 port covers: the UNet, DiT and DiM, DDPM training and sampling, DDIM
-sampling, float32.
+sampling, float32 or mixed precision (`mixed_precision: 'bf16'`).
 The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it). Every
 other model type,
@@ -41,14 +41,16 @@ def get_model(config: Mapping) -> nn.Module:
         if config.get(key):
             raise NotImplementedError(
                 f"{key} is not ported yet (ROADMAP queue 1 item 11)")
+    params = dict(config.get("model_params", {}))
+    # Mixed precision, the JAX factory's policy: 'bf16' runs the model's
+    # convs, linears and activations in bfloat16 while the parameters, the
+    # optimizer state, the EMA and the loss stay float32 (the model returns
+    # float32 eps); no loss scaling.
     mp = str(config.get("mixed_precision", "none") or "none").lower()
     if mp in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "mixed_precision 'bf16' is not ported yet (ROADMAP queue 1 "
-            "item 5); this port runs float32")
-    if mp not in ("none", "fp32", "float32", "off", "false"):
+        params["dtype"] = torch.bfloat16
+    elif mp not in ("none", "fp32", "float32", "off", "false"):
         raise ValueError(f"Unknown mixed_precision: {mp!r}")
-    params = dict(config.get("model_params", {}))
     size_key = "image_size" if model_type == "unet" else "img_size"
     params[size_key] = resolve_image_size(config["image_size"])
     params["num_classes"] = (config.get("num_classes")

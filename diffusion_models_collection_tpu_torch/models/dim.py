@@ -29,6 +29,12 @@ place of each block's Mamba mixer, as the JAX model's `attn` and the
 reference's `nn.MultiheadAttention` fallback; its parameters keep the
 mixer's place, `blocks.{i}.mamba_block.mamba.{in_proj_weight, ...}`, where
 `utils/torch_export.py` writes them.
+
+`dtype=torch.bfloat16` is the JAX model's mixed precision: linears, the
+conv and the activations in bf16 on float32 parameters, affine LayerNorms in
+float32 with a bf16 result, softplus(dt) in bf16; the scan takes x, dt, B, C
+as float32 and its y is cast back to bf16 (the recurrence stays float32, as
+the JAX model keeps it); eps float32.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ from ..ops.selective_scan import selective_scan
 from .dit import Mlp, SelfAttention
 from .layers import (
     AdaLNModulation,
+    CastConv1d,
+    CastLayerNorm,
+    CastLinear,
     LabelTable,
     PatchEmbed,
     TimestepEmbedder,
@@ -67,25 +76,29 @@ class Mamba(nn.Module):
     expand 2): a fused in_proj to [x; z], a causal depthwise conv and SiLU
     on x, x_proj to (dt, B, C), dt_proj and softplus, the scan with the D
     skip, y * SiLU(z), out_proj. `save_scan_states=False` has the scan keep
-    no block states for its backward (for a block under `remat`)."""
+    no block states for its backward (for a block under `remat`). With
+    `dtype`, everything but the scan runs in it; the scan in float32."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4,
-                 expand: int = 2, save_scan_states: bool = True):
+                 expand: int = 2, save_scan_states: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         d_inner = expand * d_model
         self.d_state = d_state
         self.save_scan_states = save_scan_states
         self.dt_rank = math.ceil(d_model / 16)
-        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
-        self.conv1d = nn.Conv1d(d_inner, d_inner, d_conv, groups=d_inner,
-                                padding=d_conv - 1)
-        self.x_proj = nn.Linear(d_inner, self.dt_rank + 2 * d_state,
-                                bias=False)
-        self.dt_proj = nn.Linear(self.dt_rank, d_inner)
+        self.in_proj = CastLinear(d_model, 2 * d_inner, bias=False,
+                                  compute_dtype=dtype)
+        self.conv1d = CastConv1d(d_inner, d_inner, d_conv, groups=d_inner,
+                                 padding=d_conv - 1, compute_dtype=dtype)
+        self.x_proj = CastLinear(d_inner, self.dt_rank + 2 * d_state,
+                                 bias=False, compute_dtype=dtype)
+        self.dt_proj = CastLinear(self.dt_rank, d_inner, compute_dtype=dtype)
         self.A_log = nn.Parameter(torch.log(torch.arange(
             1, d_state + 1, dtype=torch.float32).repeat(d_inner, 1)))
         self.D = nn.Parameter(torch.ones(d_inner))
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.out_proj = CastLinear(d_inner, d_model, bias=False,
+                                   compute_dtype=dtype)
         with torch.no_grad():
             bound = self.dt_rank ** -0.5
             self.dt_proj.weight.uniform_(-bound, bound)
@@ -100,26 +113,30 @@ class Mamba(nn.Module):
             [self.dt_rank, self.d_state, self.d_state], dim=-1)
         dt = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)
-        y = selective_scan(x, dt, A, B, C, self.D,
-                           save_states=self.save_scan_states)
-        return self.out_proj(y * F.silu(z))
+        # the recurrence in float32 whatever the compute type (the casts are
+        # no-ops in float32)
+        y = selective_scan(x.float(), dt.float(), A, B.float(), C.float(),
+                           self.D, save_states=self.save_scan_states)
+        return self.out_proj(y.to(z.dtype) * F.silu(z))
 
 
 class MambaBlock(nn.Module):
     """adaLN-modulated Mamba mixer: x + gate * Mamba(modulate(LN(x))); with
     `use_attention_fallback`, 8-head self-attention (dropout `dropout` on
-    its probabilities) in the mixer's place."""
+    its probabilities) in the mixer's place; in `dtype`."""
 
     def __init__(self, hidden_size: int, state_size: int = 16,
                  save_scan_states: bool = True, dropout: float = 0.1,
-                 use_attention_fallback: bool = False):
+                 use_attention_fallback: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
-        self.adaLN_modulation = AdaLNModulation(hidden_size, 3)
-        self.mamba = (SelfAttention(hidden_size, 8, dropout)
+        self.norm = CastLayerNorm(hidden_size, eps=1e-6, compute_dtype=dtype)
+        self.adaLN_modulation = AdaLNModulation(hidden_size, 3, dtype)
+        self.mamba = (SelfAttention(hidden_size, 8, dropout, dtype)
                       if use_attention_fallback
                       else Mamba(hidden_size, state_size,
-                                 save_scan_states=save_scan_states))
+                                 save_scan_states=save_scan_states,
+                                 dtype=dtype))
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c)
@@ -128,15 +145,15 @@ class MambaBlock(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """adaLN-modulated MLP: x + gate * Mlp(modulate(LN(x)))."""
+    """adaLN-modulated MLP: x + gate * Mlp(modulate(LN(x))), in `dtype`."""
 
     def __init__(self, hidden_size: int, mlp_ratio: float = 4.0,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
-        self.adaLN_modulation = AdaLNModulation(hidden_size, 3)
+        self.norm = CastLayerNorm(hidden_size, eps=1e-6, compute_dtype=dtype)
+        self.adaLN_modulation = AdaLNModulation(hidden_size, 3, dtype)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
-                       dropout)
+                       dropout, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c)
@@ -150,12 +167,13 @@ class DiMBlock(nn.Module):
     def __init__(self, hidden_size: int, state_size: int = 16,
                  mlp_ratio: float = 4.0, dropout: float = 0.1,
                  save_scan_states: bool = True,
-                 use_attention_fallback: bool = False):
+                 use_attention_fallback: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.mamba_block = MambaBlock(hidden_size, state_size,
                                       save_scan_states, dropout,
-                                      use_attention_fallback)
-        self.ff_block = FeedForward(hidden_size, mlp_ratio, dropout)
+                                      use_attention_fallback, dtype)
+        self.ff_block = FeedForward(hidden_size, mlp_ratio, dropout, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return self.ff_block(self.mamba_block(x, c), c)
@@ -165,12 +183,15 @@ class DiMFinalLayer(nn.Module):
     """adaLN-modulated LayerNorm and a zero-initialised projection to the
     patch pixels."""
 
-    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm_final = nn.LayerNorm(hidden_size, eps=1e-6)
-        self.linear = nn.Linear(hidden_size,
-                                patch_size * patch_size * out_channels)
-        self.adaLN_modulation = AdaLNModulation(hidden_size, 2)
+        self.norm_final = CastLayerNorm(hidden_size, eps=1e-6,
+                                        compute_dtype=dtype)
+        self.linear = CastLinear(hidden_size,
+                                 patch_size * patch_size * out_channels,
+                                 compute_dtype=dtype)
+        self.adaLN_modulation = AdaLNModulation(hidden_size, 2, dtype)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 
@@ -195,6 +216,7 @@ class DiM(nn.Module):
         num_classes: Optional[int] = None,
         dropout: float = 0.1,
         use_attention_fallback: bool = False,
+        dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         out_channels: Optional[int] = None,
     ):
@@ -209,28 +231,32 @@ class DiM(nn.Module):
         self.tokens_hw = (img_h // patch_size, img_w // patch_size)
         num_patches = self.tokens_hw[0] * self.tokens_hw[1]
 
-        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
+        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size,
+                                     dtype)
         self.pos_embed = nn.Parameter(
             torch.randn(1, num_patches, hidden_size) * 0.02)
-        self.t_embedder = TimestepEmbedder(hidden_size)
-        self.y_embedder = (LabelTable(num_classes, hidden_size)
+        self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
+        self.y_embedder = (LabelTable(num_classes, hidden_size, dtype)
                            if num_classes is not None else None)
         self.blocks = nn.ModuleList(
             DiMBlock(hidden_size, state_size, mlp_ratio, dropout,
                      save_scan_states=not remat,
-                     use_attention_fallback=use_attention_fallback)
+                     use_attention_fallback=use_attention_fallback,
+                     dtype=dtype)
             for _ in range(depth))
         self.final_layer = DiMFinalLayer(hidden_size, patch_size,
-                                         self.out_channels)
+                                         self.out_channels, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.x_embedder(x) + self.pos_embed
+        h = self.x_embedder(x)
+        h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
         for block in self.blocks:
             h = run_block(block, self.remat, h, c)
         h = self.final_layer(h, c)
+        # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,
-                          self.out_channels).contiguous()
+                          self.out_channels).to(torch.float32).contiguous()

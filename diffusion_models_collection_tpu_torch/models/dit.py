@@ -16,7 +16,11 @@ GELU MLP. Init as the JAX package: xavier-uniform linears with zero biases,
 pos_embed N(0, 0.02), zero adaLN and final projection, so the model starts
 as an identity-residual network and its output is exactly 0. `remat=True`
 runs each block under gradient checkpointing (`layers.run_block`), whose
-recompute draws the same dropout masks.
+recompute draws the same dropout masks. `dtype=torch.bfloat16` is the JAX
+model's mixed precision: linears, the patch conv and the activations in bf16
+on float32 parameters (`layers.CastLinear`, `CastConv2d`), LayerNorms in
+float32 with a bf16 result (`layers.CastLayerNorm`), attention on bf16 q, k,
+v (the kernels' bf16 form), eps float32.
 
 Not ported, and raising when asked for: MoE MLPs (`num_experts`), token
 merging (`tome_ratio`) and `quant` (ROADMAP queue 1 item 11), PAG's
@@ -28,33 +32,38 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multihead_attention
 from .layers import (
     AdaLNModulation,
+    CastLayerNorm,
+    CastLinear,
     LabelTable,
     PatchEmbed,
     TimestepEmbedder,
     modulate,
     run_block,
     unpatchify,
+    cast_linear,
     xavier_linear_,
 )
 
 
 class Mlp(nn.Sequential):
     """Linear -> GELU (exact erf) -> Dropout -> Linear -> Dropout (keys
-    `0` and `3`), xavier weights and zero biases as the JAX package."""
+    `0` and `3`), xavier weights and zero biases as the JAX package; in
+    `dtype`."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__(
-            xavier_linear_(nn.Linear(in_dim, hidden_dim)),
+            xavier_linear_(CastLinear(in_dim, hidden_dim,
+                                      compute_dtype=dtype)),
             nn.GELU(approximate="none"),
             nn.Dropout(dropout),
-            xavier_linear_(nn.Linear(hidden_dim, out_dim)),
+            xavier_linear_(CastLinear(hidden_dim, out_dim,
+                                      compute_dtype=dtype)),
             nn.Dropout(dropout),
         )
 
@@ -63,31 +72,37 @@ class SelfAttention(nn.Module):
     """QKV self-attention with `nn.MultiheadAttention`'s parameter names (a
     fused (3D, D) `in_proj_weight` with rows [q; k; v], `in_proj_bias`,
     `out_proj`), xavier weights and zero biases; dropout on the attention
-    probabilities in training mode only."""
+    probabilities in training mode only; projections and attention in
+    `dtype`."""
 
-    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"hidden size {dim} is not a multiple of "
                              f"{num_heads} heads")
         self.num_heads = num_heads
         self.dropout = dropout
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = xavier_linear_(nn.Linear(dim, dim))
+        self.out_proj = xavier_linear_(CastLinear(dim, dim,
+                                                  compute_dtype=dtype))
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = F.linear(x, self.in_proj_weight,
-                           self.in_proj_bias).chunk(3, dim=-1)
+        q, k, v = cast_linear(x, self.in_proj_weight, self.in_proj_bias,
+                              self.dtype).chunk(3, dim=-1)
         out = multihead_attention(q, k, v, self.num_heads,
                                   dropout_rate=self.dropout,
                                   deterministic=not self.training)
         return self.out_proj(out)
 
 
-def _layer_norm(hidden_size: int) -> nn.LayerNorm:
-    return nn.LayerNorm(hidden_size, eps=1e-6, elementwise_affine=False)
+def _layer_norm(hidden_size: int,
+                dtype: Optional[torch.dtype] = None) -> nn.LayerNorm:
+    return CastLayerNorm(hidden_size, eps=1e-6, elementwise_affine=False,
+                         compute_dtype=dtype)
 
 
 class DiTBlock(nn.Module):
@@ -96,14 +111,15 @@ class DiTBlock(nn.Module):
     mlp(modulate(LN(x)))."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, dropout: float = 0.1):
+                 mlp_ratio: float = 4.0, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm1 = _layer_norm(hidden_size)
-        self.attn = SelfAttention(hidden_size, num_heads, dropout)
-        self.norm2 = _layer_norm(hidden_size)
+        self.norm1 = _layer_norm(hidden_size, dtype)
+        self.attn = SelfAttention(hidden_size, num_heads, dropout, dtype)
+        self.norm2 = _layer_norm(hidden_size, dtype)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
-                       dropout)
-        self.adaLN_modulation = AdaLNModulation(hidden_size, 6)
+                       dropout, dtype)
+        self.adaLN_modulation = AdaLNModulation(hidden_size, 6, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
@@ -118,12 +134,14 @@ class FinalLayer(nn.Module):
     """Two adaLN modulations, an affine-free LayerNorm and a zero-initialised
     projection to the patch pixels."""
 
-    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.norm_final = _layer_norm(hidden_size)
-        self.linear = nn.Linear(hidden_size,
-                                patch_size * patch_size * out_channels)
-        self.adaLN_modulation = AdaLNModulation(hidden_size, 2)
+        self.norm_final = _layer_norm(hidden_size, dtype)
+        self.linear = CastLinear(hidden_size,
+                                 patch_size * patch_size * out_channels,
+                                 compute_dtype=dtype)
+        self.adaLN_modulation = AdaLNModulation(hidden_size, 2, dtype)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 
@@ -147,6 +165,7 @@ class DiT(nn.Module):
         mlp_ratio: float = 4.0,
         num_classes: Optional[int] = None,
         dropout: float = 0.1,
+        dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         out_channels: Optional[int] = None,
         num_experts: int = 0,
@@ -178,26 +197,29 @@ class DiT(nn.Module):
         self.tokens_hw = (img_h // patch_size, img_w // patch_size)
         num_patches = self.tokens_hw[0] * self.tokens_hw[1]
 
-        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
+        self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size,
+                                     dtype)
         self.pos_embed = nn.Parameter(
             torch.randn(1, num_patches, hidden_size) * 0.02)
-        self.t_embedder = TimestepEmbedder(hidden_size)
-        self.y_embedder = (LabelTable(num_classes, hidden_size)
+        self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
+        self.y_embedder = (LabelTable(num_classes, hidden_size, dtype)
                            if num_classes is not None else None)
         self.blocks = nn.ModuleList(
-            DiTBlock(hidden_size, num_heads, mlp_ratio, dropout)
+            DiTBlock(hidden_size, num_heads, mlp_ratio, dropout, dtype)
             for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, patch_size,
-                                      self.out_channels)
+                                      self.out_channels, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.x_embedder(x) + self.pos_embed
+        h = self.x_embedder(x)
+        h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
         for block in self.blocks:
             h = run_block(block, self.remat, h, c)
         h = self.final_layer(h, c)
+        # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,
-                          self.out_channels).contiguous()
+                          self.out_channels).to(torch.float32).contiguous()

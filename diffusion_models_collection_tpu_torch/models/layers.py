@@ -5,16 +5,97 @@ UNet's time embedding, and the patch-token scaffolding that DiT and DiM
 share (timestep embedder, patch embedding, `unpatchify`, adaLN modulation).
 Module and parameter names follow the PyTorch reference, so the reference's
 `state_dict` keys load with `strict=True`. Images are NHWC, tokens (B, L, D).
+
+Mixed precision, as the JAX package's `dtype` field (`models/layers.py`):
+a module built with a compute `dtype` (torch.bfloat16) runs its linears,
+convolutions and activations in that type while its parameters stay float32:
+`CastLinear`, `CastConv1d`, `CastConv2d` cast the input, weight and bias at
+each call, as flax's `Dense`/`Conv(dtype=...)` do, and `CastLayerNorm`
+normalises in float32 and casts only its output, as flax's
+`LayerNorm(dtype=...)`. `dtype=None` is float32, unchanged. Sinusoidal
+embeddings compute their trig in float32 and cast only the result.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+
+def cast_linear(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor],
+                dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`F.linear` in `dtype`: x, weight and bias cast to it (None: as they
+    are)."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
+
+
+class CastLinear(nn.Linear):
+    """`nn.Linear` (same parameters and names) that computes in
+    `compute_dtype` when one is given (flax `Dense(dtype=...)`)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return cast_linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class _CastConv:
+    """The cast of `CastConv1d` and `CastConv2d` (flax `Conv(dtype=...)`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class CastConv1d(_CastConv, nn.Conv1d):
+    """`nn.Conv1d` that computes in `compute_dtype` when one is given."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+
+class CastConv2d(_CastConv, nn.Conv2d):
+    """`nn.Conv2d` that computes in `compute_dtype` when one is given."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+
+class CastLayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` whose statistics, normalisation and affine run in
+    float32 on the (widened) input, the result cast to `compute_dtype` when
+    one is given (flax `LayerNorm(dtype=...)`)."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
 
 
 def run_block(block: nn.Module, remat: bool, *args):
@@ -54,15 +135,16 @@ class SinusoidalTimeEmbedding(nn.Module):
 class UNetTimeEmbed(nn.Sequential):
     """Sinusoidal features -> Linear -> SiLU -> Linear, to 4 * model_channels
     (the reference's `time_embed` Sequential, so its keys are
-    `time_embed.1.*` and `time_embed.3.*`)."""
+    `time_embed.1.*` and `time_embed.3.*`); the linears in `dtype`."""
 
-    def __init__(self, model_channels: int):
+    def __init__(self, model_channels: int,
+                 dtype: Optional[torch.dtype] = None):
         dim = model_channels * 4
         super().__init__(
             SinusoidalTimeEmbedding(model_channels),
-            nn.Linear(model_channels, dim),
+            CastLinear(model_channels, dim, compute_dtype=dtype),
             nn.SiLU(),
-            nn.Linear(dim, dim),
+            CastLinear(dim, dim, compute_dtype=dtype),
         )
 
 
@@ -75,16 +157,20 @@ class LabelEmbedder(nn.Module):
     the row's gradient, so it agrees only while the row stays zero.
     """
 
-    def __init__(self, num_classes: int, hidden_size: int):
+    def __init__(self, num_classes: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.randn(num_classes + 1, hidden_size))
         with torch.no_grad():
             self.weight[0].zero_()
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         y = y.clamp(0, self.num_classes)
-        emb = F.embedding(y, self.weight)
+        table = self.weight if self.dtype is None else self.weight.to(
+            self.dtype)  # cast before the lookup, as the JAX package
+        emb = F.embedding(y, table)
         return emb * (y != 0).to(emb.dtype)[:, None]
 
 
@@ -106,14 +192,16 @@ def sinusoidal_time_embedding_dit(t: torch.Tensor, dim: int,
 class TimestepEmbedder(nn.Module):
     """(B,) timesteps -> sinusoidal features (256) -> Linear -> SiLU ->
     Linear (keys `mlp.0`, `mlp.2`), xavier weights and zero biases as the
-    JAX package."""
+    JAX package; the linears in `dtype`."""
 
-    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         self.mlp = nn.Sequential(
-            nn.Linear(frequency_embedding_size, hidden_size), nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size))
+            CastLinear(frequency_embedding_size, hidden_size,
+                       compute_dtype=dtype), nn.SiLU(),
+            CastLinear(hidden_size, hidden_size, compute_dtype=dtype))
         for layer in (self.mlp[0], self.mlp[2]):
             xavier_linear_(layer)
 
@@ -126,9 +214,10 @@ class LabelTable(nn.Module):
     """Holds the `LabelEmbedder` under the reference's DiT/DiM name, so its
     key is `y_embedder.embedding_table.weight`."""
 
-    def __init__(self, num_classes: int, hidden_size: int):
+    def __init__(self, num_classes: int, hidden_size: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.embedding_table = LabelEmbedder(num_classes, hidden_size)
+        self.embedding_table = LabelEmbedder(num_classes, hidden_size, dtype)
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         return self.embedding_table(y)
@@ -136,12 +225,14 @@ class LabelTable(nn.Module):
 
 class PatchEmbed(nn.Module):
     """NHWC image -> (B, (H/p) (W/p), embed_dim) tokens in row-major patch
-    order, through a stride-p Conv2d (`proj`, torch's default init)."""
+    order, through a stride-p Conv2d (`proj`, torch's default init) in
+    `dtype`."""
 
-    def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size,
-                              stride=patch_size)
+        self.proj = CastConv2d(in_channels, embed_dim, patch_size,
+                               stride=patch_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.proj(x.to(torch.float32).permute(0, 3, 1, 2))
@@ -164,11 +255,13 @@ def modulate(x: torch.Tensor, shift: torch.Tensor,
 
 
 class AdaLNModulation(nn.Sequential):
-    """SiLU -> Linear(n_chunks * dim), zero-initialised (keys
+    """SiLU -> Linear(n_chunks * dim) in `dtype`, zero-initialised (keys
     `adaLN_modulation.1.*`), split into n_chunks (B, dim) tensors."""
 
-    def __init__(self, dim: int, n_chunks: int):
-        super().__init__(nn.SiLU(), nn.Linear(dim, n_chunks * dim))
+    def __init__(self, dim: int, n_chunks: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(nn.SiLU(),
+                         CastLinear(dim, n_chunks * dim, compute_dtype=dtype))
         self.n_chunks = n_chunks
         nn.init.zeros_(self[1].weight)
         nn.init.zeros_(self[1].bias)

@@ -14,6 +14,14 @@ its kernel (`ops/fused_norm.py`) takes. Attention goes through the
 flash-attention kernels (`ops/attention.py`). Both are autograd Functions,
 so a loss reaches every parameter.
 
+`dtype=torch.bfloat16` is the JAX model's mixed precision
+(`mixed_precision: 'bf16'`): the input is cast to bf16, every conv and
+linear runs in bf16 on float32 parameters (`layers.CastConv2d`,
+`CastLinear`), GroupNorm+SiLU takes and returns bf16 (its kernel's bf16
+form: statistics in float32), the attention block's GroupNorm runs in
+float32 on the widened input and its attention on bf16 q, k, v, the residual
+adds run in bf16, and eps comes back float32.
+
 `remat=True` runs each `ResidualBlock` under gradient checkpointing, as the
 JAX model's `nn.remat(ResidualBlock)`. Not ported yet, and raising when
 asked for: `pag_perturb`, `freeu` and `deepcache_mode` (ROADMAP queue 1
@@ -30,23 +38,32 @@ from torch import nn
 
 from ..ops.attention import multihead_attention
 from ..ops.fused_norm import group_norm_silu
-from .layers import LabelEmbedder, UNetTimeEmbed, run_block
+from .layers import (
+    CastConv2d,
+    CastLinear,
+    LabelEmbedder,
+    UNetTimeEmbed,
+    run_block,
+)
 
 
 class FusedGroupNormSiLU(nn.Module):
     """GroupNorm(num_groups, eps 1e-5) + SiLU in one kernel. Owns the same
     `weight` and `bias` as `nn.GroupNorm`; takes and returns NCHW tensors,
-    channels-last in memory. Statistics always in float32."""
+    channels-last in memory, of `dtype` (float32 when None). Statistics
+    always in float32."""
 
-    def __init__(self, num_channels: int, num_groups: int = 8):
+    def __init__(self, num_channels: int, num_groups: int = 8,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_groups = num_groups
+        self.dtype = dtype or torch.float32
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a no-op copy for a channels-last x: the permute is contiguous
-        x_nhwc = x.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        x_nhwc = x.permute(0, 2, 3, 1).to(self.dtype).contiguous()
         y = group_norm_silu(x_nhwc, self.weight, self.bias, self.num_groups)
         return y.permute(0, 3, 1, 2)
 
@@ -59,19 +76,24 @@ class ResidualBlock(nn.Module):
     """
 
     def __init__(self, in_ch: int, out_ch: int, time_dim: int,
-                 conditional: bool, dropout: float):
+                 conditional: bool, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Sequential(FusedGroupNormSiLU(in_ch), nn.Identity(),
-                                   nn.Conv2d(in_ch, out_ch, 3, padding=1))
-        self.time_mlp = nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch))
+        self.conv1 = nn.Sequential(
+            FusedGroupNormSiLU(in_ch, dtype=dtype), nn.Identity(),
+            CastConv2d(in_ch, out_ch, 3, padding=1, compute_dtype=dtype))
+        self.time_mlp = nn.Sequential(
+            nn.SiLU(), CastLinear(time_dim, out_ch, compute_dtype=dtype))
         self.label_proj = (
-            nn.Sequential(nn.SiLU(), nn.Linear(time_dim, out_ch, bias=False))
+            nn.Sequential(nn.SiLU(), CastLinear(time_dim, out_ch, bias=False,
+                                                compute_dtype=dtype))
             if conditional else None)
-        self.conv2 = nn.Sequential(FusedGroupNormSiLU(out_ch), nn.Identity(),
-                                   nn.Dropout(dropout),
-                                   nn.Conv2d(out_ch, out_ch, 3, padding=1))
-        self.shortcut = (nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
-                         else nn.Identity())
+        self.conv2 = nn.Sequential(
+            FusedGroupNormSiLU(out_ch, dtype=dtype), nn.Identity(),
+            nn.Dropout(dropout),
+            CastConv2d(out_ch, out_ch, 3, padding=1, compute_dtype=dtype))
+        self.shortcut = (CastConv2d(in_ch, out_ch, 1, compute_dtype=dtype)
+                         if in_ch != out_ch else nn.Identity())
 
     def forward(self, x, t_emb, y_emb=None):
         h = self.conv1(x)
@@ -85,14 +107,17 @@ class ResidualBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """Self-attention over the H*W positions: GroupNorm(8), a 1x1 conv to
     q, k, v (split as `reshape(b, hw, 3, c)`, as the JAX package does),
-    multi-head attention, a 1x1 projection and the residual."""
+    multi-head attention, a 1x1 projection and the residual. The norm is
+    float32 whatever `dtype` (the JAX block's plain `nn.GroupNorm` on
+    `x.astype(f32)`); the convs and the attention run in `dtype`."""
 
-    def __init__(self, channels: int, num_heads: int = 4):
+    def __init__(self, channels: int, num_heads: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
         self.norm = nn.GroupNorm(8, channels, eps=1e-5)
-        self.qkv = nn.Conv2d(channels, 3 * channels, 1)
-        self.proj = nn.Conv2d(channels, channels, 1)
+        self.qkv = CastConv2d(channels, 3 * channels, 1, compute_dtype=dtype)
+        self.proj = CastConv2d(channels, channels, 1, compute_dtype=dtype)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -107,9 +132,10 @@ class AttentionBlock(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3x3 conv."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.conv = CastConv2d(channels, channels, 3, stride=2, padding=1,
+                               compute_dtype=dtype)
 
     def forward(self, x):
         return self.conv(x)
@@ -118,9 +144,10 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     """Nearest x2, then a 3x3 conv."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = CastConv2d(channels, channels, 3, padding=1,
+                               compute_dtype=dtype)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
@@ -147,6 +174,7 @@ class UNet(nn.Module):
         channel_mult: Sequence[int] = (1, 2, 2, 2),
         num_classes: Optional[int] = None,
         use_attention: bool = True,
+        dtype: Optional[torch.dtype] = None,
         remat: bool = False,
         pag_perturb: bool = False,
         freeu=None,
@@ -174,12 +202,14 @@ class UNet(nn.Module):
                 or resolution[1] in attention_resolutions)
 
         def res(cin, cout):
-            return ResidualBlock(cin, cout, time_dim, conditional, dropout)
+            return ResidualBlock(cin, cout, time_dim, conditional, dropout,
+                                 dtype)
 
-        self.time_embed = UNetTimeEmbed(model_channels)
-        self.label_embed = (LabelEmbedder(num_classes, time_dim)
+        self.time_embed = UNetTimeEmbed(model_channels, dtype)
+        self.label_embed = (LabelEmbedder(num_classes, time_dim, dtype)
                             if conditional else None)
-        self.input_conv = nn.Conv2d(in_channels, model_channels, 3, padding=1)
+        self.input_conv = CastConv2d(in_channels, model_channels, 3,
+                                     padding=1, compute_dtype=dtype)
 
         resolution = list(self.image_size)
         ch = model_channels
@@ -190,17 +220,17 @@ class UNet(nn.Module):
                 group = [res(ch, model_channels * mult)]
                 ch = model_channels * mult
                 if attend(resolution):
-                    group.append(AttentionBlock(ch))
+                    group.append(AttentionBlock(ch, dtype=dtype))
                 self.down_blocks.append(nn.ModuleList(group))
                 skip_channels.append(ch)
             if level != n_levels - 1:
-                self.down_blocks.append(nn.ModuleList([Downsample(ch)]))
+                self.down_blocks.append(nn.ModuleList([Downsample(ch, dtype)]))
                 skip_channels.append(ch)
                 resolution = [r // 2 for r in resolution]
 
         middle = [res(ch, ch)]
         if use_attention:
-            middle.append(AttentionBlock(ch))
+            middle.append(AttentionBlock(ch, dtype=dtype))
         middle.append(res(ch, ch))
         self.middle_block = nn.ModuleList(middle)
 
@@ -210,14 +240,15 @@ class UNet(nn.Module):
                 group = [res(ch + skip_channels.pop(), model_channels * mult)]
                 ch = model_channels * mult
                 if attend(resolution):
-                    group.append(AttentionBlock(ch))
+                    group.append(AttentionBlock(ch, dtype=dtype))
                 if level != n_levels - 1 and i == num_res_blocks:
-                    group.append(Upsample(ch))
+                    group.append(Upsample(ch, dtype))
                     resolution = [r * 2 for r in resolution]
                 self.up_blocks.append(nn.ModuleList(group))
 
-        self.output = nn.Sequential(FusedGroupNormSiLU(ch), nn.Identity(),
-                                    nn.Conv2d(ch, out_channels, 3, padding=1))
+        self.output = nn.Sequential(
+            FusedGroupNormSiLU(ch, dtype=dtype), nn.Identity(),
+            CastConv2d(ch, out_channels, 3, padding=1, compute_dtype=dtype))
         # channels-last conv weights: cuDNN then runs every conv in NHWC
         self.to(memory_format=torch.channels_last)
 
@@ -244,4 +275,5 @@ class UNet(nn.Module):
             h = torch.cat([h, hs.pop()], dim=1)
             h = self._run(group, h, t_emb, y_emb)
         h = self.output(h)
-        return h.permute(0, 2, 3, 1).contiguous()
+        # eps in float32 whatever the compute type, as the JAX model
+        return h.permute(0, 2, 3, 1).to(torch.float32).contiguous()

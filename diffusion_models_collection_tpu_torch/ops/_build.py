@@ -114,17 +114,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed
     dropout = [i32, ctypes.c_uint32, f32, ctypes.c_uint64]
-    lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, ptr]
+    # the GroupNorm+SiLU and attention entries end in (bf16, stream): bf16
+    # != 0 takes the bfloat16 form
+    lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
     lib.gn_silu_fwd.restype = i32
-    lib.gn_silu_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+    lib.gn_silu_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
     lib.gn_silu_bwd.restype = i32
-    lib.gn_silu_form.argtypes = [i32] * 4
+    lib.gn_silu_form.argtypes = [i32] * 5
     lib.gn_silu_form.restype = i32
     lib.flash_attn_fwd.argtypes = ([ptr] * 5 + [i32, i32, i32, f32, i32]
-                                   + dropout + [ptr])
+                                   + dropout + [i32, ptr])
     lib.flash_attn_fwd.restype = i32
     lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32]
-                                   + dropout + [ptr])
+                                   + dropout + [i32, ptr])
     lib.flash_attn_bwd.restype = i32
     lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.selective_scan_fwd.restype = i32
@@ -162,16 +164,36 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def check_inputs(name: str, *tensors) -> None:
-    """What every kernel takes: float32 tensors, contiguous, on one device
-    that is the CPU (plain version) or a CUDA device (kernel)."""
+FLOAT32 = (torch.float32,)
+# the element types of the GroupNorm+SiLU and attention kernels' activations
+FLOAT32_OR_BF16 = (torch.float32, torch.bfloat16)
+
+
+def check_inputs(name: str, *tensors, dtypes=FLOAT32) -> None:
+    """What every kernel takes: contiguous tensors of one of `dtypes`, on one
+    device that is the CPU (plain version) or a CUDA device (kernel)."""
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {' or '.join(map(str, dtypes))} only, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_io_dtype(name: str, io, fp32=()) -> bool:
+    """`check_inputs` for a kernel whose activations `io` are float32 or
+    bfloat16, all of one type, beside float32 tensors `fp32` (parameters,
+    statistics) on the same device; returns whether `io` is bfloat16 (the
+    kernel's bf16 form)."""
+    check_inputs(name, *io, *fp32, dtypes=FLOAT32_OR_BF16)
+    if fp32:
+        check_inputs(name, *fp32)
+    if any(t.dtype != io[0].dtype for t in io):
+        raise TypeError(f"{name}: the activations must share one dtype, got "
+                        + ", ".join(str(t.dtype) for t in io))
+    return io[0].dtype == torch.bfloat16

@@ -33,6 +33,13 @@ with Z = keep / (1 - p), lse that of the undropped P. `philox_keep_mask` is
 the one definition of the mask, a pure function of (seed, head, row, key)
 through Philox4x32-10, which the kernels (`csrc/philox.cuh`) compute tile by
 tile and the backward regenerates, so nothing of size (BH, L, L) is stored.
+
+q, k, v (o, dO, dq, dk, dv) are float32 or bfloat16, lse float32. A
+bfloat16 input takes the kernels' bf16 form, as the JAX kernels run on the
+bf16 q, k, v of the models' mixed precision: every product, the softmax and
+lse in float32 from the exactly widened inputs, and o, dq, dk, dv rounded to
+bfloat16 at their store. Each plain version does the same: it upcasts, runs
+the float32 formulas and rounds its outputs to q's type.
 """
 
 from __future__ import annotations
@@ -49,11 +56,14 @@ from . import _build
 MAX_HEAD_DIM = 128
 
 # Kernel launches since the process started (or since a caller reset them):
-# the forward's and the backward's, and of those the ones in the dropout form.
+# the forward's and the backward's, and of those the ones in the dropout
+# form and the ones in the bf16 form.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 DROPOUT_LAUNCHES = 0
 BWD_DROPOUT_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BWD_BF16_LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
 # Philox4x32's multipliers and key increments (Random123)
@@ -161,21 +171,24 @@ def flash_attention_fwd_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention: o = (softmax(q k^T / sqrt(d)) o Z) v, Z the
     dropout factor (none at p = 0), and lse = logsumexp(q k^T / sqrt(d)) of
-    shape (BH, L, 1)."""
+    shape (BH, L, 1); in float32, o rounded to q's type."""
     _check_dropout("flash_attention_fwd_ref", dropout_p, seed)
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
         probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device)
     o = torch.matmul(probs, v)
-    return o, torch.logsumexp(logits, dim=-1, keepdim=True)
+    return o.to(dtype), torch.logsumexp(logits, dim=-1, keepdim=True)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_p: float = 0.0,
                         seed: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch attention output, differentiable by autograd."""
+    """Plain PyTorch attention output, differentiable by autograd (through
+    the casts of a bfloat16 input: gradients in its type)."""
     return flash_attention_fwd_ref(q, k, v, dropout_p, seed)[0]
 
 
@@ -187,8 +200,10 @@ def flash_attention_bwd_ref(
     """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse,
     dv = (P o Z)^T dO, dS = P (dO v^T o Z - rowsum(dO o)) / sqrt(d),
     dq = dS k, dk = dS^T q, with Z the forward's dropout factor (1 at
-    p = 0)."""
+    p = 0); in float32, the gradients rounded to q's type."""
     _check_dropout("flash_attention_bwd_ref", dropout_p, seed)
+    dtype = q.dtype
+    q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
     dp = torch.matmul(do, v.transpose(-1, -2))
@@ -199,7 +214,8 @@ def flash_attention_bwd_ref(
     dv = torch.matmul(p_kept.transpose(-1, -2), do)
     delta = (do * o).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta) * scale
-    return (torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv)
+    return tuple(t.to(dtype) for t in (
+        torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv))
 
 
 def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
@@ -256,13 +272,13 @@ def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout_p: float = 0.0, seed: Optional[int] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over (BH, L, d) float32, square scores, with
-    dropout on the probabilities when `dropout_p` > 0 (the mask of
+    """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
+    with dropout on the probabilities when `dropout_p` > 0 (the mask of
     `philox_keep_mask(seed, ...)`): the kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (o, lse) with lse of shape (BH, L, 1),
-    the JAX kernel's layout."""
-    global LAUNCHES, DROPOUT_LAUNCHES
-    _build.check_inputs("flash_attention_fwd", q, k, v)
+    version for CPU tensors. Returns (o, lse), o of q's type and lse float32
+    of shape (BH, L, 1), the JAX kernel's layout."""
+    global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES
+    bf16 = _build.check_io_dtype("flash_attention_fwd", (q, k, v))
     _check_shapes("flash_attention_fwd", q, k, v)
     _check_dropout("flash_attention_fwd", dropout_p, seed)
     if q.device.type == "cpu":
@@ -283,10 +299,12 @@ def flash_attention_fwd(
                                      o.data_ptr(), lse.data_ptr(), bh, seq_len,
                                      width, 1.0 / math.sqrt(head_dim),
                                      fwd_tile(seq_len, width),
-                                     *_dropout_args(dropout_p, seed), stream)
+                                     *_dropout_args(dropout_p, seed),
+                                     int(bf16), stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
         DROPOUT_LAUNCHES += dropout_p > 0.0
+        BF16_LAUNCHES += bf16
     return (*_cut_heads(head_dim, o), lse)
 
 
@@ -295,12 +313,14 @@ def flash_attention_bwd(
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
     seed: Optional[int] = None, fused: Optional[bool] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Attention backward over (BH, L, d) float32 from the forward's o and
-    lse (BH, L, 1) and its `dropout_p` and `seed`: the kernel for CUDA
-    tensors, the plain version for CPU tensors. Returns (dq, dk, dv).
-    `fused` picks the kernel's form; None leaves it to `bwd_fused`."""
-    global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES
-    _build.check_inputs("flash_attention_bwd", q, k, v, o, do, lse)
+    """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
+    and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
+    its `dropout_p` and `seed`: the kernel for CUDA tensors, the plain version
+    for CPU tensors. Returns (dq, dk, dv) of q's type. `fused` picks the
+    kernel's form; None leaves it to `bwd_fused`."""
+    global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
+    bf16 = _build.check_io_dtype("flash_attention_bwd", (q, k, v, o, do),
+                                 (lse,))
     _check_shapes("flash_attention_bwd", q, k, v, o, do)
     _check_dropout("flash_attention_bwd", dropout_p, seed)
     bh, seq_len, head_dim = q.shape
@@ -336,10 +356,11 @@ def flash_attention_bwd(
                 None if partial is None else partial.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
                 width, 1.0 / math.sqrt(head_dim), tile, int(fused),
-                *_dropout_args(dropout_p, seed), stream)
+                *_dropout_args(dropout_p, seed), int(bf16), stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
         BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
+        BWD_BF16_LAUNCHES += bf16
     return _cut_heads(head_dim, dq, dk, dv)
 
 
@@ -368,7 +389,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_p: float = 0.0,
                     seed: Optional[int] = None) -> torch.Tensor:
-    """Differentiable attention over (BH, L, d) float32 through the
-    forward and backward kernels (their plain versions on the CPU), with
-    dropout on the probabilities when `dropout_p` > 0."""
+    """Differentiable attention over (BH, L, d) float32 or bfloat16 through
+    the forward and backward kernels (their plain versions on the CPU), with
+    dropout on the probabilities when `dropout_p` > 0; o of q's type."""
     return FlashAttention.apply(q, k, v, dropout_p, seed)

@@ -18,6 +18,14 @@ the output head.
   package's `_group_norm_silu_core` custom_vjp; `group_norm_silu_plain` is
   the same over the plain versions on any device (`GroupNormSiLURef`), for
   `ops.plain.plain_kernels`.
+
+x (and the gradient g) are float32 or bfloat16; scale, bias, `stats` and
+the dscale, dbias they give are float32. A bfloat16 x takes the kernels'
+bf16 form, which is the JAX package's `group_norm_silu(x.astype(f32))
+.astype(bf16)` (the UNet's mixed precision) and its autodiff: statistics and
+arithmetic in float32, y and dx rounded to bfloat16. Each plain version does
+the same: it upcasts, runs the float32 formulas and rounds its outputs to x's
+type.
 """
 
 from __future__ import annotations
@@ -32,9 +40,11 @@ from . import _build
 EPS = 1e-5
 
 # Kernel launches since the process started (or since a caller reset them):
-# the forward's and the backward's.
+# the forward's and the backward's, and of those the ones in the bf16 form.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_LAUNCHES = 0
+BWD_BF16_LAUNCHES = 0
 
 
 def _grouped(x: torch.Tensor, num_groups: int) -> torch.Tensor:
@@ -45,8 +55,8 @@ def _grouped(x: torch.Tensor, num_groups: int) -> torch.Tensor:
 def group_norm_silu_stats_ref(x: torch.Tensor, num_groups: int
                               ) -> torch.Tensor:
     """`stats` (2, B, G) of (B, H, W, C): each (image, group)'s mean, then
-    its 1 / sqrt(biased variance + eps)."""
-    xg = _grouped(x, num_groups)
+    its 1 / sqrt(biased variance + eps), float32."""
+    xg = _grouped(x.float(), num_groups)
     mean = xg.mean(dim=(1, 3))
     var = ((xg - mean[:, None, :, None]) ** 2).mean(dim=(1, 3))
     return torch.stack([mean, torch.rsqrt(var + EPS)])
@@ -56,13 +66,13 @@ def group_norm_silu_ref(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
     """Plain PyTorch GroupNorm (eps 1e-5, biased variance) followed by SiLU,
-    on (B, H, W, C)."""
+    on (B, H, W, C), in float32 and rounded to x's type."""
     b, h, w, c = x.shape
-    xg = _grouped(x, num_groups)
+    xg = _grouped(x.float(), num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = ((xg - mean) ** 2).mean(dim=(1, 3), keepdim=True)
     y = ((xg - mean) * torch.rsqrt(var + EPS)).reshape(b, h, w, c)
-    return F.silu(y * scale + bias)
+    return F.silu(y * scale + bias).to(x.dtype)
 
 
 def group_norm_silu_bwd_ref(
@@ -73,9 +83,10 @@ def group_norm_silu_bwd_ref(
     kernel's formulas on whole tensors: with xh = (x - mean) rstd, z = xh scale +
     bias, s = sigmoid(z): dz = g s (1 + z (1 - s)); dbias = sum dz, dscale =
     sum dz xh over batch and HW; dxh = dz scale; dx = (dxh - mean_g(dxh) -
-    xh mean_g(dxh xh)) rstd, the means over the group. Returns (dx, dscale,
-    dbias)."""
-    shape = x.shape
+    xh mean_g(dxh xh)) rstd, the means over the group; in float32, dx
+    rounded to x's type. Returns (dx, dscale, dbias)."""
+    shape, dtype = x.shape, x.dtype
+    x, g = x.float(), g.float()
     mean, rstd = stats
     xh = ((_grouped(x, num_groups) - mean[:, None, :, None])
           * rstd[:, None, :, None]).reshape(shape)
@@ -89,11 +100,14 @@ def group_norm_silu_bwd_ref(
     m1 = dxh.mean(dim=(1, 3), keepdim=True)
     m2 = (dxh * xh).mean(dim=(1, 3), keepdim=True)
     dx = (dxh - m1 - xh * m2) * rstd[:, None, :, None]
-    return dx.reshape(shape), dscale, dbias
+    return dx.reshape(shape).to(dtype), dscale, dbias
 
 
-def _check(name: str, x, scale, bias, num_groups: int, *others) -> None:
-    _build.check_inputs(name, x, scale, bias, *others)
+def _check(name: str, x, scale, bias, num_groups: int, *others) -> bool:
+    """Checks the inputs (x and, in the backward, g float32 or bfloat16 of
+    one type; scale, bias, stats float32); returns whether x is bfloat16."""
+    bf16 = _build.check_io_dtype(name, (x, *others[:1]),
+                                 (scale, bias, *others[1:]))
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C), got "
                          f"{tuple(x.shape)}")
@@ -107,16 +121,17 @@ def _check(name: str, x, scale, bias, num_groups: int, *others) -> None:
                                     or h * w * c >= 2**31):
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit indexing")
+    return bf16
 
 
 def group_norm_silu_fwd_stats(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GroupNorm + SiLU on (B, H, W, C) float32: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor. Returns (y, stats), `stats`
-    (2, B, G) the groups' means and 1 / sigma."""
-    global LAUNCHES
-    _check("group_norm_silu", x, scale, bias, num_groups)
+    """GroupNorm + SiLU on (B, H, W, C) float32 or bfloat16: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor. Returns (y, stats), y of
+    x's type, `stats` (2, B, G) the groups' float32 means and 1 / sigma."""
+    global LAUNCHES, BF16_LAUNCHES
+    bf16 = _check("group_norm_silu", x, scale, bias, num_groups)
     if x.device.type == "cpu":
         return (group_norm_silu_ref(x, scale, bias, num_groups),
                 group_norm_silu_stats_ref(x, num_groups))
@@ -132,9 +147,10 @@ def group_norm_silu_fwd_stats(
             err = lib.gn_silu_fwd(x.data_ptr(), scale.data_ptr(),
                                   bias.data_ptr(), y.data_ptr(), mean,
                                   mean + 4 * b * num_groups, b, h * w, c,
-                                  num_groups, EPS, stream)
+                                  num_groups, EPS, int(bf16), stream)
         _build.check(err, "gn_silu_fwd")
         LAUNCHES += 1
+        BF16_LAUNCHES += bf16
     return y, stats
 
 
@@ -151,11 +167,13 @@ def group_norm_silu_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GroupNorm + SiLU backward from the forward's `stats`, for the
     output gradient g (B, H, W, C): the kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (dx, dscale, dbias). The kernel writes
-    dscale and dbias per image, (B, C), summed over the batch here."""
-    global BWD_LAUNCHES
+    version for CPU tensors. Returns (dx, dscale, dbias): dx of x's type
+    (float32 or bfloat16; g of the same), dscale and dbias float32. The
+    kernel writes dscale and dbias per image, (B, C), summed over the batch
+    here."""
+    global BWD_LAUNCHES, BWD_BF16_LAUNCHES
     name = "group_norm_silu_bwd"
-    _check(name, x, scale, bias, num_groups, g, stats)
+    bf16 = _check(name, x, scale, bias, num_groups, g, stats)
     want = (2, x.shape[0], num_groups)
     if g.shape != x.shape or stats.shape != want:
         raise ValueError(
@@ -178,18 +196,21 @@ def group_norm_silu_bwd(
                               bias.data_ptr(), mean,
                               mean + 4 * b * num_groups, dx.data_ptr(), sums,
                               sums + 4 * b * c, b, h * w, c, num_groups,
-                              stream)
+                              int(bf16), stream)
     _build.check(err, "gn_silu_bwd")
     BWD_LAUNCHES += 1
+    BWD_BF16_LAUNCHES += bf16
     dscale, dbias = rows.sum(1)
     return dx, dscale, dbias
 
 
-def kernel_form(x_shape, num_groups: int, backward: bool = False) -> str:
+def kernel_form(x_shape, num_groups: int, backward: bool = False,
+                dtype: torch.dtype = torch.float32) -> str:
     """In words, the form `csrc/gn_silu.cu` takes for a (B, H, W, C) shape
-    (it builds the kernels on first use)."""
+    of `dtype` (it builds the kernels on first use)."""
     _, h, w, c = x_shape
-    code = _build.library().gn_silu_form(h * w, c, num_groups, int(backward))
+    code = _build.library().gn_silu_form(h * w, c, num_groups, int(backward),
+                                         int(dtype == torch.bfloat16))
     form, threads = divmod(code, 10000)
     what = {0: "generic, the group read from device memory each pass",
             1: ("dxh in shared memory, x read twice" if backward
@@ -240,8 +261,9 @@ class GroupNormSiLURef(torch.autograd.Function):
 def group_norm_silu(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
-    """Differentiable GroupNorm + SiLU on (B, H, W, C) float32 through the
-    forward and backward kernels (their plain versions on the CPU)."""
+    """Differentiable GroupNorm + SiLU on (B, H, W, C) float32 or bfloat16
+    through the forward and backward kernels (their plain versions on the
+    CPU); y of x's type."""
     return GroupNormSiLU.apply(x, scale, bias, num_groups)
 
 

@@ -3,7 +3,8 @@
 Counterpart of `diffusion_models_collection_tpu/pipeline.py` for the
 branches this port serves: DDIM or DDPM, each with classifier-free guidance
 (conditional checkpoints with --cfg_scale > 0; --guidance_rescale and
---cfg_interval override the config's keys) or plain. The JAX pipeline's other
+--cfg_interval override the config's keys) or plain; --mixed_precision
+overrides the config's compute dtype. The JAX pipeline's other
 knobs (ToMe, FreeU, int8, PAG, DeepCache, classifier guidance,
 super-resolution, img2img, restarts, latent decode) are ROADMAP queue 1
 items 10 and 11; configs that ask for them raise in the factory.
@@ -67,6 +68,8 @@ class SamplingPipeline:
         if args.cfg_interval is not None:
             lo, hi = (int(v) for v in args.cfg_interval.split(","))
             config["cfg_interval"] = (lo, hi)
+        if args.mixed_precision is not None:
+            config["mixed_precision"] = args.mixed_precision
         config["image_size"] = resolve_image_size(config["image_size"])
         print("Creating model...")
         self.model = load_model_for_inference(checkpoint, config, args.use_ema,

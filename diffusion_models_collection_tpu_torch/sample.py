@@ -15,8 +15,11 @@ CFG null label. Writes an image grid (PNG) and the images as a float32
 (N, H, W, C) array in [0, 1] (`.npy` beside the PNG).
 
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
-only when asked for with `--device cpu`. Float32 throughout: on CUDA, TF32
-is switched off for matrix products and convolutions.
+only when asked for with `--device cpu`. The model computes in the
+checkpoint config's `mixed_precision` (float32, or 'bf16': bfloat16 convs,
+linears and activations on float32 weights), which `--mixed_precision`
+overrides; on CUDA, TF32 is switched off for matrix products and
+convolutions.
 """
 
 from __future__ import annotations
@@ -64,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cfg_interval", type=str, default=None,
                         help="Apply CFG only inside this 'lo,hi' timestep "
                              "interval; overrides the config key")
+    parser.add_argument("--mixed_precision", type=str, default=None,
+                        choices=["bf16", "none"],
+                        help="Override the checkpoint config's compute "
+                             "dtype (e.g. bf16 inference on an fp32 "
+                             "checkpoint)")
     parser.add_argument("--labels", type=str, default=None,
                         help="Comma-separated labels for conditional "
                              "generation")

@@ -9,8 +9,11 @@ trains the DiM): one process on one device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
-asked for with `--device cpu`. Float32 throughout: on CUDA, TF32 is switched
-off for matrix products and convolutions. The JAX trainer's other model
+asked for with `--device cpu`. The model computes in the config's
+`mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
+activations while the weights, the optimizer state, the EMA and the loss stay
+float32); on CUDA, TF32 is switched off for matrix products and
+convolutions. The JAX trainer's other model
 types (VAE, classifier, consistency training) and its multi-process,
 multi-device launch raise, naming their ROADMAP items.
 """

@@ -118,7 +118,7 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
 
 @pytest.mark.parametrize("change", [
     {"model_type": "vae"},
-    {"mixed_precision": "bf16"},
+    {"model_type": "classifier"},
     {"latent_diffusion": True},
     {"diffusion_type": "flow_matching"},
     {"timestep_spacing": "karras"},
@@ -166,6 +166,54 @@ def test_cfg_knobs_parse_as_the_root_cli_parses_them(argv, rescale, interval):
     root = root_sample_parser().parse_args(argv)
     assert (ours.guidance_rescale, ours.cfg_interval) == (rescale, interval)
     assert (root.guidance_rescale, root.cfg_interval) == (rescale, interval)
+
+
+@pytest.mark.parametrize("argv,value", [
+    ([], None), (["--mixed_precision", "bf16"], "bf16"),
+    (["--mixed_precision", "none"], "none"),
+])
+def test_mixed_precision_parses_as_the_root_cli_parses_it(argv, value):
+    argv = ["--checkpoint", "x", *argv]
+    ours = sample.build_parser().parse_args(argv)
+    root = root_sample_parser().parse_args(argv)
+    assert ours.mixed_precision == root.mixed_precision == value
+    for parser in (sample.build_parser(), root_sample_parser()):
+        with pytest.raises(SystemExit):
+            parser.parse_args(["--checkpoint", "x", "--mixed_precision",
+                               "fp16"])
+
+
+@pytest.mark.parametrize("flags,built", [
+    ([], "none"), (["--mixed_precision", "bf16"], "bf16"),
+])
+def test_mixed_precision_flag_overrides_the_checkpoint_config(
+        monkeypatch, tmp_path, flags, built):
+    """`--mixed_precision` reaches `factory.get_model` as the config's key
+    (the JAX pipeline's override); without it the checkpoint's own key
+    stands; the bf16 model samples on the CPU."""
+    config = dict(small_config(), num_timesteps=10)
+    torch.manual_seed(0)
+    ckpt = tmp_path / "model.pth"
+    checkpoint.save_checkpoint(ckpt, factory.get_model(config).state_dict(),
+                               config)
+    seen = []
+    real = factory.get_model
+
+    def recording(cfg):
+        model = real(cfg)
+        seen.append((cfg["mixed_precision"], model.input_conv.compute_dtype))
+        return model
+
+    monkeypatch.setattr(factory, "get_model", recording)
+    result = sample.main([
+        "--checkpoint", str(ckpt), "--sampling_method", "ddim",
+        "--num_inference_steps", "2", "--num_samples", "2", "--batch_size",
+        "2", "--cfg_scale", "3", "--device", "cpu", "--output_dir",
+        str(tmp_path / "out"), *flags])
+    dtype = torch.bfloat16 if built == "bf16" else None
+    assert seen == [(built, dtype)]
+    samples = result["samples"]
+    assert samples.shape == (2, 16, 16, 3) and np.isfinite(samples).all()
 
 
 @pytest.mark.parametrize("method", ["ddim", "ddpm"])

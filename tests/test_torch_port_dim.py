@@ -381,11 +381,37 @@ def test_sample_cli_from_a_jax_dim_checkpoint(cond16, tmp_path):
 
 # ------------------------------------------------------------ not ported
 @pytest.mark.parametrize("knob", [dict(mixed_precision="bf16")])
-def test_dim_raises_on_knobs_not_ported(knob):
-    """What the DiM's config may ask for and the port does not run yet (its
-    attention fallback is ported: tests/test_torch_port_dit.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model(dict(small_dim_config(True, 16), **knob))
+def test_dim_raises_on_knobs_not_ported(knob, monkeypatch):
+    """`mixed_precision: 'bf16'` reaches the DiM but not its scan, which has
+    no bf16 form, as the JAX model keeps its recurrence float32: the model
+    builds with float32 parameters, returns float32 eps and sends float32 x,
+    dt, B, C to the scan, while a bf16 tensor sent to the scan wrapper
+    raises. (The attention fallback is ported: tests/test_torch_port_dit.py;
+    bf16 parity with JAX: tests/test_torch_port_bf16_models.py.)"""
+    model = factory.get_model(dict(small_dim_config(True, 16), **knob)).eval()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    seen = []
+    real = ss.selective_scan_fwd
+
+    def recording(x, dt, A, B, C, *args):
+        seen.append({t.dtype for t in (x, dt, A, B, C)})
+        return real(x, dt, A, B, C, *args)
+
+    monkeypatch.setattr(ss, "selective_scan_fwd", recording)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        eps = model(x, torch.tensor([3, 700]), torch.tensor([1, 0]))
+    assert eps.dtype == torch.float32 and eps.shape == (2, 16, 16, 3)
+    assert seen and all(dtypes == {torch.float32} for dtypes in seen)
+    b, length, d, n = 1, 16, 8, 4
+    args = [torch.randn(b, length, d), torch.rand(b, length, d),
+            -torch.rand(d, n), torch.randn(b, length, n),
+            torch.randn(b, length, n)]
+    args[0] = args[0].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        real(*args)
 
 
 def test_bridge_raises_on_the_attention_fallback_mixer():

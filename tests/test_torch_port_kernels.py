@@ -1089,3 +1089,209 @@ def test_scan_refuses_more_than_32_states_on_the_card(cuda, op):
     assert launched_since(before) == {}
     cpu = [t.cpu() for t in args]  # the plain versions take it
     assert getattr(scan_mod, "selective_scan_" + op)(*cpu)[0].shape == x.shape
+
+
+# ------------------------------------------------------------ bf16 forms
+# A bf16 form and its plain version compute in float32 from the same bf16
+# inputs and round once, so their outputs are equal or one bf16 step apart
+# where the two float32 values straddle a rounding boundary (two steps for
+# the attention backward's dS, a difference of two products); an element far
+# below the largest is held to the float32 bar of the largest instead, the
+# size of the float32 rounding it carries. Float32 outputs (statistics, lse,
+# dscale, dbias) keep the float32 bars.
+def bf16_steps(a, b):
+    """The number of bf16 values between a and b, elementwise."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def assert_bf16_close(got, want, steps, tol):
+    assert got.dtype == want.dtype == torch.bfloat16
+    near = (got.float() - want.float()).abs() <= tol * want.float().abs().max()
+    assert ((bf16_steps(got, want) <= steps) | near).all(), (
+        bf16_steps(got, want).max().item())
+
+
+def bf16_launch_counts():
+    return (fused_norm.BF16_LAUNCHES, fused_norm.BWD_BF16_LAUNCHES,
+            flash_attention.BF16_LAUNCHES, flash_attention.BWD_BF16_LAUNCHES)
+
+
+def test_bf16_wrappers_on_cpu_count_no_launch():
+    before = bf16_launch_counts()
+    x = torch.randn(2, 4, 4, 16, dtype=torch.bfloat16)
+    scale, bias = torch.rand(16), torch.rand(16)
+    y = fused_norm.group_norm_silu(x, scale, bias, 8)
+    assert y.dtype == torch.bfloat16
+    q = torch.randn(3, 10, 16, dtype=torch.bfloat16)
+    assert flash_attention.flash_attention(q, q, q).dtype == torch.bfloat16
+    assert bf16_launch_counts() == before
+
+
+# the UNet's shapes, a ragged one and C / G = 3 (the generic kernels), C / G
+# = 4 (whole float32 vectors, no whole bf16 one), and a group of 64 x 64 x
+# 16 values, too large for shared memory in float32, not in bf16
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 32, 32, 128), (4, 16, 16, 384),
+                                   (4, 4, 4, 512), (3, 5, 7, 24),
+                                   (2, 8, 8, 32), (2, 64, 64, 128),
+                                   (2, 1, 1, 8)])
+def test_gn_silu_bf16_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5).bfloat16()
+    scale = 1 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    g = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    before = bf16_launch_counts()
+    y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    dx, dscale, dbias = fused_norm.group_norm_silu_bwd(x, scale, bias, g,
+                                                       stats, 8)
+    torch.cuda.synchronize()
+    assert bf16_launch_counts()[:2] == (before[0] + 1, before[1] + 1)
+    stats_ref = fused_norm.group_norm_silu_stats_ref(x, 8)
+    assert_bf16_close(y, fused_norm.group_norm_silu_ref(x, scale, bias, 8), 1,
+                      TOL)
+    assert max_rel(stats, stats_ref) <= TOL
+    dx_ref, dscale_ref, dbias_ref = fused_norm.group_norm_silu_bwd_ref(
+        x, scale, bias, g, stats_ref, 8)
+    if shape[1] * shape[2] * c > 8:
+        assert_bf16_close(dx, dx_ref, 1, TOL)
+    else:  # one value a group: dx is 0, both sides give its rounding noise
+        assert dx.float().abs().max() <= 1e-4
+    assert dscale.dtype == dbias.dtype == torch.float32
+    assert max_rel(dscale, dscale_ref) <= TOL
+    assert max_rel(dbias, dbias_ref) <= TOL
+
+
+# K2 and K3's bf16 forms in every tile form, one key tile and many, ragged
+# tiles, the two-kernel backward, a padded head_dim, with and without
+# dropout
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("seq_len,head_dim", [
+    (256, 64), (64, 64), (16, 64), (100, 64), (1, 8), (33, 32), (257, 64),
+    (1024, 64), (256, 128), (100, 48), (40, 12)])
+def test_flash_attention_bf16_kernels_match_plain(cuda, seq_len, head_dim,
+                                                  fused, dropout):
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
+    q, k, v, do = (torch.randn(6, seq_len, head_dim, generator=gen,
+                               device=cuda).bfloat16() for _ in range(4))
+    drop = (dropout, 77) if dropout else (0.0, None)
+    before = bf16_launch_counts()
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused)
+    torch.cuda.synchronize()
+    assert bf16_launch_counts()[2:] == (before[2] + 1, before[3] + 1)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop)
+    assert_bf16_close(o, o_ref, 1, TOL)
+    assert lse.dtype == torch.float32
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
+    for got, want in zip(grads, refs):
+        assert_bf16_close(got, want, 2, TOL_BWD)
+
+
+@pytest.mark.cuda
+def test_bf16_autograd_functions_run_the_bf16_backward_on_the_card(cuda):
+    """`GroupNormSiLU` and `FlashAttention` on bf16 tensors on the card:
+    GroupNorm+SiLU's gradients against autograd through the plain version,
+    in the parameters' float32 and the input's bf16; the attention's, which
+    take delta = rowsum(dO o) from the bf16 o as the JAX backward does,
+    against the wrapper's backward bit for bit and its plain version (the
+    same formulas) within the bf16 bar."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(4, 16, 16, 128, generator=gen, device=cuda) * 2
+         ).bfloat16().requires_grad_()
+    scale = (1 + 0.1 * torch.randn(128, generator=gen, device=cuda)
+             ).requires_grad_()
+    bias = (0.1 * torch.randn(128, generator=gen, device=cuda)
+            ).requires_grad_()
+    g = torch.randn(4, 16, 16, 128, generator=gen, device=cuda).bfloat16()
+    got = torch.autograd.grad(fused_norm.group_norm_silu(x, scale, bias, 8),
+                              (x, scale, bias), g)
+    want = torch.autograd.grad(
+        fused_norm.group_norm_silu_plain(x, scale, bias, 8), (x, scale, bias),
+        g)
+    assert_bf16_close(got[0], want[0], 1, TOL)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32 and max_rel(a, b) <= TOL
+    q, k, v = (torch.randn(8, 100, 64, generator=gen, device=cuda).bfloat16()
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(8, 100, 64, generator=gen, device=cuda).bfloat16()
+    before = bf16_launch_counts()
+    got = torch.autograd.grad(flash_attention.flash_attention(q, k, v),
+                              (q, k, v), do)
+    assert bf16_launch_counts()[2:] == (before[2] + 1, before[3] + 1)
+    o, lse = flash_attention.flash_attention_fwd(q.detach(), k.detach(),
+                                                 v.detach())
+    args = (q.detach(), k.detach(), v.detach(), o, do, lse)
+    for a, b, c in zip(got, flash_attention.flash_attention_bwd(*args),
+                       flash_attention.flash_attention_bwd_ref(*args)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert_bf16_close(a, c, 2, TOL_BWD)
+
+
+# A bf16 model's kernel and plain runs differ where a GroupNorm+SiLU or an
+# attention output rounds to the other bf16 neighbour (2^-8 relative), and
+# the bf16 layers after it carry that on: the bars are of bf16 size.
+# (chip_smoke.py reads up to 1.0e-2 and 4.5e-3 at full width on an H100)
+TOL_BF16_MODEL, TOL_BF16_GRAD = 2e-2, 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["unet", "dit", "dim", "dim_fallback"])
+def test_small_bf16_models_run_the_bf16_kernels_and_match_plain(cuda, kind):
+    """A small bf16 model (float32 parameters) on the card: its forward and
+    its loss's gradients through the bf16 kernels against the same inside
+    `plain_kernels()`, every GroupNorm+SiLU and attention launch in the bf16
+    form, the scans in float32, eps float32."""
+    torch.manual_seed(0)
+    common = dict(patch_size=2, hidden_size=64, depth=2, num_classes=10,
+                  dropout=0.0, dtype=torch.bfloat16)
+    model = {
+        "unet": lambda: UNet(image_size=(16, 16), model_channels=32,
+                             num_res_blocks=1, attention_resolutions=(8,),
+                             channel_mult=(1, 2), num_classes=10,
+                             dtype=torch.bfloat16),
+        "dit": lambda: DiT(img_size=(16, 16), num_heads=4, **common),
+        "dim": lambda: DiM(img_size=(16, 16), **common),
+        "dim_fallback": lambda: DiM(img_size=(16, 16),
+                                    use_attention_fallback=True, **common),
+    }[kind]().to(cuda)
+    perturb_(model).eval()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(
+        rng.standard_normal((4, 16, 16, 3)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 10, 500, 999], device=cuda)
+    y = torch.tensor([0, 1, 5, 10], device=cuda)
+
+    def run():
+        model.zero_grad()
+        out = model(x, t, y)
+        out.square().mean().backward()
+        return out.detach(), torch.cat(
+            [p.grad.flatten() for p in model.parameters()])
+
+    before = (bf16_launch_counts(), fused_norm.LAUNCHES,
+              flash_attention.LAUNCHES, scan_launch_counts())
+    out, grads = run()
+    torch.cuda.synchronize()
+    bf16 = [a - b for a, b in zip(bf16_launch_counts(), before[0])]
+    total = [fused_norm.LAUNCHES - before[1],
+             flash_attention.LAUNCHES - before[2]]
+    assert bf16[0] == bf16[1] == total[0]  # every GN+SiLU call in bf16
+    assert bf16[2] == bf16[3] == total[1]  # every attention call in bf16
+    assert (total[0] > 0) == (kind == "unet")
+    assert (total[1] > 0) == (kind != "dim")
+    assert bool(launched_since(before[3])) == (kind == "dim")
+    with plain_kernels():
+        out_ref, grads_ref = run()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert max_rel(out, out_ref) <= TOL_BF16_MODEL
+    assert max_rel(grads, grads_ref) <= TOL_BF16_GRAD

@@ -3,7 +3,8 @@ the scan forward and the GroupNorm+SiLU kernels of one or more trees of the
 PyTorch port, on one NVIDIA GPU.
 
     python tools/profile_torch_kernels.py
-        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn] [ROOT ...]
+        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn|bf16]
+        [ROOT ...]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. Each
 ROOT (default: this checkout) is a directory that holds a
@@ -27,6 +28,16 @@ against their plain versions at the CIFAR-10 DiT's train step (BH 768, L
 TF32 off; the library's own mask); then the sums over a DiT train step's 12
 calls. Single launches, launches in a row and from a CUDA graph. A tree
 without the dropout forms is skipped.
+`--only bf16`: the bf16 forms of K1, K1b, K2 and K3 (bf16 in and out,
+float32 arithmetic) against their plain versions (bar 8e-3 over the
+largest value: one bf16 step of it) at the UNet's GroupNorm+SiLU shapes
+(batch 160 forward, 128 backward), its attention shapes (the forward at
+batch 160, the backward at 128) and the DiT's (sampling, BH 960; a train
+step, BH 768 at p 0.1), each timed beside the float32 form and
+`F.scaled_dot_product_attention` on the same bf16 inputs as (1, BH, L, d),
+which takes PyTorch's flash kernel (and on the float32 ones, its
+memory-efficient kernel); then the sums over
+one forward's or step's calls. A tree without the bf16 forms is skipped.
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -223,7 +234,9 @@ def run_attn_fwd(root, attention, randn):
                 attention.fwd_tile = rule
         if calls:
             single, row = median_ms(fn), burst_ms(fn)
-            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+            # (1, BH, L, d): on 3-D tensors PyTorch takes its math path
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], k[None], v[None])
             library = median_ms(sdpa)
             print(f"   x{calls} a UNet forward; scaled_dot_product_attention "
                   f"{library:.4f} ms ({burst_ms(sdpa):.4f} in a row)",
@@ -282,11 +295,11 @@ def run_attn_dropout(root, attention, randn):
         print(f"   lse max_abs {lse_err:.1e}", flush=True)
         ok &= lse_err <= BAR_LSE
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, dropout_p=ATTN_DROPOUT)
-        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            q[None], k[None], v[None], dropout_p=ATTN_DROPOUT)
+        qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*qkv, dropout_p=ATTN_DROPOUT)
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            out, qkv, do, retain_graph=True)
+            out, qkv, do[None], retain_graph=True)
         times["library"] = (median_ms(sdpa), burst_ms(sdpa), None)
         times["library backward"] = (median_ms(sdpa_bwd), burst_ms(sdpa_bwd),
                                      None)
@@ -301,6 +314,115 @@ def run_attn_dropout(root, attention, randn):
                   "(single launches, in a row, from a CUDA graph): " + "; ".join(
                       f"{name} {' '.join(f'{t:.4f}' for t in ts if t is not None)}"
                       for name, ts in totals.items()), flush=True)
+    return ok
+
+
+BAR_BF16 = 8e-3  # one bf16 step (2^-7 at most) of the largest value
+# (BH, L, d, calls) of the UNet train step's attention at batch 128
+ATTN_BWD_UNET = [(512, 256, 64, 5), (512, 64, 64, 5), (512, 16, 64, 1)]
+# (BH, L, d, calls, dropout) of the DiT: sampling at batch 160, a train step
+ATTN_DIT = [(960, 256, 64, 12, 0.0), (768, 256, 64, 12, ATTN_DROPOUT)]
+
+
+def run_bf16(root, attention, randn):
+    """The bf16 forms of K1, K1b, K2 and K3 beside their float32 forms and
+    the library call on the same bf16 inputs, with the sums over a UNet
+    forward or train step and a DiT's 12 calls."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_models_collection_tpu_torch.ops import fused_norm as gn
+    if not hasattr(gn, "BF16_LAUNCHES"):
+        print(f"{root}: no bf16 forms; skipped", flush=True)
+        return True
+    ok = True
+    totals = {}
+
+    def add(key, calls, fn, graph=True):
+        # autograd's backward cannot be captured in a CUDA graph: 0 there
+        ts = (median_ms(fn), burst_ms(fn), graph_ms(fn) if graph else 0.0)
+        totals[key] = [a + calls * t for a, t in
+                       zip(totals.get(key, (0.0, 0.0, 0.0)), ts)]
+        return ts
+
+    for h, w, c in GN_SHAPES:
+        scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        x = randn(GN_FWD_BATCH, h, w, c) * 2 + 0.5
+        x16 = x.bfloat16()
+        ref = gn.group_norm_silu_ref(x16, scale, bias, GN_GROUPS)
+        shape = f"{h}x{w}x{c}"
+        fn = lambda: (gn.group_norm_silu_fwd(  # noqa: E731
+            x16, scale, bias, GN_GROUPS),)
+        ok &= check(f"K1 bf16 B={GN_FWD_BATCH} {shape}", fn, (ref,),
+                    BAR_BF16)
+        add("K1 bf16", 1, fn)
+        add("K1 fp32", 1, lambda: gn.group_norm_silu_fwd(x, scale, bias,
+                                                          GN_GROUPS))
+        x, x16 = x[:GN_BWD_BATCH].contiguous(), x16[:GN_BWD_BATCH].contiguous()
+        g = randn(GN_BWD_BATCH, h, w, c)
+        g16 = g.bfloat16()
+        _, stats = gn.group_norm_silu_fwd_stats(x16, scale, bias, GN_GROUPS)
+        refs = gn.group_norm_silu_bwd_ref(x16, scale, bias, g16, stats,
+                                          GN_GROUPS)
+        fn = lambda: gn.group_norm_silu_bwd(  # noqa: E731
+            x16, scale, bias, g16, stats, GN_GROUPS)
+        ok &= check(f"K1b bf16 B={GN_BWD_BATCH} {shape}", fn, refs, BAR_BF16)
+        add("K1b bf16", 1, fn)
+        _, stats32 = gn.group_norm_silu_fwd_stats(x, scale, bias, GN_GROUPS)
+        add("K1b fp32", 1, lambda: gn.group_norm_silu_bwd(
+            x, scale, bias, g, stats32, GN_GROUPS))
+    for bh, length, d, calls, p, which in (
+            [(*c, 0.0, "UNet forward") for c in ATTN_FWD_UNET]
+            + [(*c, 0.0, "UNet step") for c in ATTN_BWD_UNET]
+            + [(bh, length, d, calls, p, f"DiT p={p}")
+               for bh, length, d, calls, p in ATTN_DIT]):
+        q, k, v, do = (randn(bh, length, d) for _ in range(4))
+        q16, k16, v16, do16 = (t.bfloat16() for t in (q, k, v, do))
+        drop = (p, ATTN_DROPOUT_SEED) if p else ()
+        o_ref, lse_ref = attention.flash_attention_fwd_ref(q16, k16, v16,
+                                                           *drop)
+        o16, lse16 = attention.flash_attention_fwd(q16, k16, v16, *drop)
+        o, lse = attention.flash_attention_fwd(q, k, v, *drop)
+        shape = f"BH={bh} L={length} d={d} p={p}"
+        if which != "UNet step":
+            fn = lambda: attention.flash_attention_fwd(  # noqa: E731
+                q16, k16, v16, *drop)[:1]
+            ok &= check(f"K2 bf16 {shape}", fn, (o_ref,), BAR_BF16)
+            add(f"K2 bf16, {which}", calls, fn)
+            add(f"K2 fp32, {which}", calls,
+                lambda: attention.flash_attention_fwd(q, k, v, *drop))
+            # (1, BH, L, d): PyTorch's flash kernel (3-D takes its math
+            # path); the float32 call beside it takes its memory-efficient
+            # kernel
+            add(f"library bf16, {which}", calls,
+                lambda: F.scaled_dot_product_attention(
+                    q16[None], k16[None], v16[None], dropout_p=p))
+            add(f"library fp32 4-D, {which}", calls,
+                lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], dropout_p=p))
+        if which == "UNet step" or p:
+            args16 = (q16, k16, v16, o16, do16, lse16)
+            refs = attention.flash_attention_bwd_ref(*args16, *drop)
+            fn = lambda: attention.flash_attention_bwd(  # noqa: E731
+                *args16, *drop)
+            ok &= check(f"K3 bf16 {shape}", fn, refs, BAR_BF16)
+            add(f"K3 bf16, {which}", calls, fn)
+            add(f"K3 fp32, {which}", calls,
+                lambda: attention.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      *drop))
+            for name, leaves, grad in (("bf16", (q16, k16, v16), do16),
+                                       ("fp32 4-D", (q, k, v), do)):
+                qkv = [t.detach()[None].requires_grad_() for t in leaves]
+                out = F.scaled_dot_product_attention(*qkv, dropout_p=p)
+                add(f"library {name} backward, {which}", calls,
+                    lambda: torch.autograd.grad(out, qkv, grad[None],
+                                                retain_graph=True),
+                    graph=False)
+    print(f"{root}: sums, ms (single launches, in a row, from a CUDA graph); "
+          "K1/K1b one call at each of the UNet's 11 shapes, attention over a "
+          "UNet forward's or train step's 11 calls or the DiT's 12:",
+          flush=True)
+    for key, ts in totals.items():
+        print(f"   {key}: {' '.join(f'{t:.4f}' for t in ts)}", flush=True)
     return ok
 
 
@@ -415,9 +537,9 @@ def run_tree(root, only):
                         lambda: attention.flash_attention_bwd(*args, **kwargs),
                         refs)
         if (bh, length, d) == ATTENTION_CASES[0]:
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
             out = F.scaled_dot_product_attention(*qkv)
-            ms = median_ms(lambda: torch.autograd.grad(out, qkv, do,
+            ms = median_ms(lambda: torch.autograd.grad(out, qkv, do[None],
                                                        retain_graph=True))
             print(f"   scaled_dot_product_attention backward {ms:.4f} ms")
 
@@ -429,6 +551,8 @@ def run_tree(root, only):
         ok &= run_scan_fwd(scan, randn)
     if only in (None, "gn"):
         ok &= run_gn(root, randn)
+    if only in (None, "bf16"):
+        ok &= run_bf16(root, attention, randn)
 
     for batch, length, d_inner, n_state in (SCAN_CASES if only in (None, "scan")
                                             else []):
@@ -454,7 +578,7 @@ def main(argv=None):
     parser.add_argument("roots", nargs="*", default=[str(HERE.parent.parent)])
     parser.add_argument("--only",
                         choices=["attention", "attn_fwd", "attn_dropout",
-                                 "scan", "scan_fwd", "gn"])
+                                 "scan", "scan_fwd", "gn", "bf16"])
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.tree:

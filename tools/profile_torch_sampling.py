@@ -1,12 +1,15 @@
 """Where the PyTorch port's sampling time goes on one NVIDIA GPU.
 
     python tools/profile_torch_sampling.py [--config CONFIG] [--output_dir DIR]
+        [--mixed_precision bf16|none]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
 model is the one CONFIG describes (default configs/cifar10_unet.py, the
 CIFAR-10 UNet; configs/cifar10_dim.py is the CIFAR-10 DiM,
 configs/cifar10_dit.py the CIFAR-10 DiT) at full width
-with random weights from seed 0, float32 with TF32 off, sampled with DDIM
+with random weights from seed 0, float32 (or, with `--mixed_precision
+bf16`, the config's model in bf16 mixed precision) with TF32 off, sampled
+with DDIM
 and classifier-free guidance (scale 3) on 80 images, so 160 rows per model
 call. Two measurements:
 
@@ -18,7 +21,7 @@ call. Two measurements:
    (`ops.plain.plain_kernels`), three times each, in samples/s.
 
 Prints both with the card's name and power limit from nvidia-smi, and
-writes them as JSON to DIR/profile_torch_sampling_<model_type>.json.
+writes them as JSON to DIR/profile_torch_sampling_<model_type>[_bf16].json.
 """
 
 import argparse
@@ -58,7 +61,8 @@ KINDS = [
                           "flip_filter")),
     ("NHWC<->NCHW transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("convs as implicit GEMM or direct", ("implicit_gemm", "conv", "fprop")),
-    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma")),
+    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma",
+                                   "nvjet")),
     ("layer norms", ("layer_norm",)),
     ("elementwise, copies, cat, upsample", ("elementwise", "vectorized",
                                             "catarray", "upsample", "copy",
@@ -117,6 +121,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default=str(DEFAULT_CONFIG))
     parser.add_argument("--output_dir", default="profile_out")
+    parser.add_argument("--mixed_precision", choices=["bf16", "none"],
+                        default=None,
+                        help="override the config's compute dtype")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_sampling.py needs a CUDA device")
@@ -130,6 +137,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     config = load_config(args.config)
+    if args.mixed_precision is not None:
+        config["mixed_precision"] = args.mixed_precision
     torch.manual_seed(0)
     model = factory.get_model(config).to("cuda").eval()
     with torch.no_grad():
@@ -151,7 +160,9 @@ def main(argv=None):
     result = {"device": smi, "torch": torch.__version__,
               "config": args.config, "profile": profile,
               "samples_per_s": rates}
-    (out_dir / f"profile_torch_sampling_{config['model_type']}.json").write_text(
+    name = config["model_type"] + (
+        "_bf16" if args.mixed_precision == "bf16" else "")
+    (out_dir / f"profile_torch_sampling_{name}.json").write_text(
         json.dumps(result, indent=1))
 
 

@@ -2,6 +2,7 @@
 
     python tools/profile_torch_training.py [--config CONFIG] [--output_dir DIR]
                                            [--remat] [--image_size N]
+                                           [--mixed_precision bf16|none]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. The
 model is the one CONFIG describes (default configs/cifar10_unet.py, the
@@ -14,7 +15,8 @@ TF32 off, on one batch of the committed CIFAR-10 fixtures
 (tests/fixtures/data). `--remat` sets the config's `remat: True` (gradient
 checkpointing per block); `--image_size N` trains on N x N images of the
 `synthetic` dataset at batch 16 (N = 64 is the long-sequence DiM, whose
-scans run time-split). Two measurements, both through the trainer's own
+scans run time-split); `--mixed_precision bf16` overrides the config's
+compute dtype (bf16 convs, linears and activations on float32 weights). Two measurements, both through the trainer's own
 `train_step`:
 
 1. `torch.profiler` over 5 train steps after 3 warm-up steps: host wall
@@ -26,7 +28,7 @@ scans run time-split). Two measurements, both through the trainer's own
 
 Prints both with the card's name and power limit from nvidia-smi, and
 writes them as JSON to DIR/profile_torch_training_<model_type>.json
-(`_remat` and `_N` added to the name with those flags).
+(`_remat`, `_N` and `_bf16` added to the name with those flags).
 """
 
 import argparse
@@ -86,7 +88,8 @@ KINDS = [
     ("NHWC<->NCHW transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("conv forward (implicit GEMM or direct)", ("implicit_gemm", "conv",
                                                 "fprop")),
-    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma")),
+    ("matrix products (linears)", ("gemm", "gemv", "cutlass", "xmma",
+                                   "nvjet")),
     ("layer norms", ("layer_norm",)),
     ("AdamW, EMA, clip (multi-tensor)", ("multi_tensor", "foreach")),
     ("reductions (norms, loss, bias gradients)", ("reduce",)),
@@ -96,8 +99,11 @@ KINDS = [
 ]
 
 
-def build_trainer(config_path, tmp, remat=False, image_size=None):
+def build_trainer(config_path, tmp, remat=False, image_size=None,
+                  mixed_precision=None):
     config = load_config(config_path)
+    if mixed_precision is not None:
+        config["mixed_precision"] = mixed_precision
     config.update(data_root=str(FIXTURE_DATA), save_dir=str(Path(tmp) / "ckpt"),
                   sample_dir=str(Path(tmp) / "samples"))
     if remat:
@@ -156,6 +162,9 @@ def main(argv=None):
     parser.add_argument("--output_dir", default="profile_out")
     parser.add_argument("--remat", action="store_true")
     parser.add_argument("--image_size", type=int, default=None)
+    parser.add_argument("--mixed_precision", choices=["bf16", "none"],
+                        default=None,
+                        help="override the config's compute dtype")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_torch_training.py needs a CUDA device")
@@ -170,7 +179,8 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer, images, labels = build_trainer(args.config, tmp, args.remat,
-                                                args.image_size)
+                                                args.image_size,
+                                                args.mixed_precision)
         profile = profile_steps(trainer, images, labels)
         print(f"profile, {PROFILED_STEPS} train steps at batch "
               f"{profile['batch']}, on {smi}: wall {profile['wall_ms']:.1f} "
@@ -193,7 +203,8 @@ def main(argv=None):
               "config": args.config, "profile": profile,
               "train_images_per_s": rates}
     name = trainer.config["model_type"] + ("_remat" if args.remat else "") + (
-        f"_{args.image_size}" if args.image_size else "")
+        f"_{args.image_size}" if args.image_size else "") + (
+        "_bf16" if args.mixed_precision == "bf16" else "")
     (out_dir / f"profile_torch_training_{name}.json").write_text(
         json.dumps(result, indent=1))
 
