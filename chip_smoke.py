@@ -305,8 +305,9 @@ SCAN_COUNTERS = {"scan_fwd": "FWD_LAUNCHES",
 PEAK_BYTES_PER_S, PEAK_FP32_OPS_PER_S = 3.35e12, 67e12
 # The dense rate of the tensor cores on bf16 products with float32
 # accumulation: the rate of the bound of the bf16 attention forms, whose
-# inputs are bf16 (`cuda_core_bound_ms` beside it is the same work at the
-# float32 CUDA-core rate their arithmetic runs at today)
+# inputs are bf16 and whose products run there (`cuda_core_bound_ms` beside
+# it is the same work at the float32 CUDA-core rate, the bound of a form
+# that computed it on the CUDA cores)
 PEAK_BF16_TC_OPS_PER_S = 989e12
 # The special-function units evaluate 16 exponentials a clock and SM where
 # the FMA pipes do 128 multiply-adds (256 operations): a sixteenth of the
@@ -490,6 +491,27 @@ def device_line():
     return smi
 
 
+def phase_tensor_cores():
+    """The bf16 attention forms run on the tensor cores: every `*_bf16_*`
+    attention kernel of the built library has HMMA instructions in its SASS
+    (`cuobjdump -sass`), no float32 form, delta or dq-sum kernel has any.
+    One line a bf16 kernel with its HMMA count (`phase_build` printed the
+    registers and spills of every kernel)."""
+    products = flash_attention.tensor_core_products()
+    bf16 = {n: c for n, c in products.items() if "_bf16_" in n}
+    for kernel, count in sorted(bf16.items()):
+        print(f"  tensor cores: {count} HMMA in {kernel}")
+    missing = [n for n, c in bf16.items() if c == 0]
+    stray = [n for n, c in products.items() if c and n not in bf16]
+    if not bf16 or missing or stray:
+        raise AssertionError(f"tensor-core products: bf16 attention kernels "
+                             f"without HMMA {missing or list(bf16) or 'none'}"
+                             f", float32 ones with HMMA {stray}")
+    print(f"tensor cores: HMMA in all {len(bf16)} bf16 attention kernels, "
+          f"in none of the other {len(products) - len(bf16)} attention "
+          "kernels")
+
+
 def phase_build():
     start = time.perf_counter()
     _build.library()
@@ -581,11 +603,16 @@ def phase_gn(gen):
     return worst
 
 
-def attention_fwd_form(seq, d):
+def attention_fwd_form(seq, d, dtype=torch.float32):
     """The form of K2 that the wrapper takes for this shape, in words."""
-    tile = flash_attention.fwd_tile(seq, d)
-    width = flash_attention.padded_head_dim(d)
+    width = flash_attention.padded_head_dim(d, dtype)
+    tile = flash_attention.fwd_tile(seq, width, dtype)
     dmax = 32 if width <= 32 else 64 if width <= 64 else 128
+    if dtype == torch.bfloat16:  # key tiles of 64, or 16 in the 16-row form
+        keys = min(tile, 64)
+        return (f"tensor cores, {tile // 16} warps of 16 rows, "
+                f"{-(-seq // keys)} key tile{'s' if seq > keys else ''} of "
+                f"{keys}, d padded to {width} (tiles of {dmax})")
     return (f"tiles of {tile} rows, {-(-seq // tile)} key tile"
             f"{'s' if seq > tile else ''}, d padded to {dmax}")
 
@@ -840,9 +867,10 @@ def attention_bwd_case(bh, seq, d, gen):
     return q, k, v, o, do, lse
 
 
-def attention_bwd_form(seq, d, fused=None):
+def attention_bwd_form(seq, d, fused=None, dtype=torch.float32):
     """The form of K3 that the wrapper takes for this shape, in words."""
-    tile = flash_attention.bwd_tile(seq, d)
+    tile = flash_attention.bwd_tile(
+        seq, flash_attention.padded_head_dim(d, dtype), dtype)
     tiles = -(-seq // tile)
     if fused is None:
         fused = flash_attention.bwd_fused(seq)
@@ -1671,9 +1699,12 @@ TOL_BF16_MODEL, TOL_BF16_LOSS, TOL_BF16_GRAD = 3e-2, 1e-4, 2e-2
 # types), C / G = 4 (whole float32 vectors, no whole bf16 one), a group of
 # 64 x 64 x 16 (shared memory holds it in bf16, not in float32)
 GN_BF16_EDGES = [GN_RAGGED, (3, 8, 8, 32), GN_LARGE]
-# K2/K3 beyond the main paths' shapes: a ragged tile, many key tiles with
-# the two-kernel backward, d 48 (the DiM's attention fallback), tiles of 32
-ATTN_BF16_FORMS = [(100, 64), (1024, 64), (257, 64), (100, 48), (33, 32)]
+# K2/K3 beyond the main paths' shapes: ragged tiles (L 17, 65 and 100 past
+# tiles of 16 and 64), many key tiles with the two-kernel backward, d 48
+# (the DiM's attention fallback), d 32, d 24 (padded to the mma's depth of
+# 16, 32 columns)
+ATTN_BF16_FORMS = [(100, 64), (1024, 64), (257, 64), (100, 48), (33, 32),
+                   (17, 64), (65, 64), (100, 24)]
 
 
 def bf16_steps(a, b):
@@ -1798,8 +1829,8 @@ def check_attention_bf16(label, bh, seq, d, gen, drop=(0.0, None),
     refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
     torch.cuda.synchronize()
     label = (f"{label} BH={bh} L={seq} d={d} p={drop[0]} "
-             f"[{attention_fwd_form(seq, d)}; backward "
-             f"{attention_bwd_form(seq, d, fused)}]")
+             f"[{attention_fwd_form(seq, d, torch.bfloat16)}; backward "
+             f"{attention_bwd_form(seq, d, fused, torch.bfloat16)}]")
     steps, err = bf16_check(label + " o", o, o_ref, BF16_STEPS_FWD, TOL_OUT)
     lse_err = (lse - lse_ref).abs().max().item()
     if not (lse.dtype == torch.float32 and lse_err <= TOL_LSE):
@@ -2006,6 +2037,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     phase_build()
+    phase_tensor_cores()
     gn_err, gn_bwd_err = phase_gn(gen)
     attn_err = phase_attn(gen)
     config = load_config(CONFIG)

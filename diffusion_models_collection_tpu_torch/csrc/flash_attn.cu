@@ -49,19 +49,51 @@
 // those of the undropped P, so lse is unchanged, and only the values that
 // enter P V, where P is written to shared memory, are multiplied by keep / (1
 // - p), keep from `philox.cuh`: o = (P o Z) V.
-// bfloat16 (the models' mixed precision; the JAX kernel computes in float32
-// from bf16 inputs and returns q's type): the element type T of q, k, v and o
-// is a template parameter of the same kernels, and every tile in shared
-// memory and all arithmetic stay float32. A bf16 K or V tile arrives by
-// cp.async in its own 16-byte pieces into a bf16 staging buffer (BK x DMAX,
-// half the bytes of a float32 tile; Q's, once, into the P tile, unused until
-// the first softmax), and after the wait each thread widens the pieces it
-// requested into the float32 tile (exact), before the barrier that publishes
-// the tile: the copies still fly during the products, and the inner loops
-// are those of the float32 form. o is rounded to bf16 at the store.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // from a CUDA graph): 0.29 ms a call at BH 640, L 256, d 64 against 0.36 for
 // the four-by-four form and a bound of 0.16 ms (operations).
+//
+// bfloat16 (the models' mixed precision), a kernel of its own on the tensor
+// cores. It replaces the same _fwd_kernel (flash_attention.py:65) under the
+// casts of the bf16 policy: the JAX kernel upcasts bf16 q, k, v to float32,
+// computes every product in float32 and returns q's type.
+// What bounds it on an H100: the bytes. q, k, v and o in bf16 at 3.35 TB/s
+// take 0.025 ms a call at BH 640, L 256, d 64; the products at the tensor
+// cores' 989 TFLOP/s take 0.016 ms with the split below, which makes P V two
+// products (1.5x the work of Q K^T and P V once). What the design does
+// (bf16_mma.cuh has the fragment layouts):
+// * mma.sync m16n8k16, bf16 operands, float32 accumulators. q, k and v are
+//   bf16 already, so as operands they are exact, and S = Q K^T comes out in
+//   float32 as in the float32 form. The scale and log2(e) multiply S in
+//   float32 (never folded into Q, which would round it).
+// * P is no bf16 value. Rounded once to bf16 it would leave an error of
+//   1e-3 of o's largest value (50 times the 2e-5 the form is held to), so P
+//   is split into hi = bf16(P) and lo = bf16(P - hi) and P V is two
+//   products with one V fragment: |P - hi - lo| <= 2^-16 P, and o keeps
+//   float32 accuracy. P comes from the accumulators: the C fragments of two
+//   n8 score tiles are the A fragment of a k16 step, so P never leaves the
+//   registers.
+// * Each warp owns 16 query rows; a block of 1, 4 or 8 warps (16, 64 or 128
+//   rows, `flash_attention.fwd_tile`) walks key tiles of 64 keys (16 in the
+//   one-warp form, for L <= 16). The row max and sum are taken over a row's
+//   four lanes by two shuffles; o accumulates in float32 and is rounded to
+//   bf16 once, at its store; lse as in the float32 form.
+// * Q, K and V sit in shared memory as bf16, rows padded by 16 bytes so
+//   that ldmatrix is free of bank conflicts. Q's fragments are loaded once,
+//   K's by ldmatrix, V's by ldmatrix.trans. K and V are double-buffered:
+//   the next tile's cp.async copies fly during this tile's products, one
+//   barrier a key tile.
+// * Dropout: the accumulator layout gives a lane two neighbouring keys of
+//   two rows, so lanes t and t ^ 1 share each Philox call; each is computed
+//   once and one shuffle a key tile swaps the halves
+//   (`dropout_keep_bits_rows`, philox.cuh).
+// bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads with zero
+// columns) up to 128; warps whose rows all lie past L skip the products, and
+// key blocks of 16 past L skip P V.
+// bf16 measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py
+// --only bf16, from a CUDA graph): 0.110 ms a call at the DiT's sampling
+// shape (BH 960, L 256, d 64) against 0.055 for PyTorch's flash kernel and a
+// bound of 0.038 ms (bytes); 0.43 ms for the 11 calls of a UNet forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +102,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -80,8 +113,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile geometry: a block of BQ query rows walks the key tiles of BK keys, at
 // a head dimension padded to DMAX; a thread owns RA rows and KB keys of the
-// scores, and the same RA rows at DC columns of the output. SMEM is the
-// float32 form's; a bf16 form adds STAGE bytes.
+// scores, and the same RA rows at DC columns of the output.
 template <int DMAX, int BQ, int BK, int RA, int KB>
 struct Cfg {
   static constexpr int TX = BK / KB;      // threads along the keys of a row
@@ -95,13 +127,9 @@ struct Cfg {
   // Q, K, V and P
   static constexpr size_t SMEM =
       sizeof(float) * ((size_t)(BQ + 2 * BK) * P + (size_t)BQ * SP);
-  // a bf16 K or V tile, packed (BK, DMAX)
-  static constexpr size_t STAGE = 2 * (size_t)BK * DMAX;
   // blocks an SM is asked to hold (the registers a thread may take follow)
   static constexpr int MIN_BLOCKS = NT == 128 ? 2 : 1;
   static_assert(32 % TX == 0, "the threads of a row share a warp");
-  // a bf16 Q tile fits the P tile, where it is staged
-  static_assert(2 * BQ * DMAX <= 4 * BQ * SP, "Q's staging");
   static_assert(DC % VW == 0 && (VW == 2 || VW == 4), "column ownership");
 };
 
@@ -129,51 +157,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) matrix, zero past L
-// and past d: float32 straight into the (ROWS, DMAX + 4) tile `dst` (d % 4
-// == 0); bf16 into `stage`, packed (ROWS, DMAX), for `widen_rows` (d % 8 ==
-// 0). A thread requests pieces tid, tid + NT, ...
-template <typename T, int DMAX, int ROWS, int NT>
-__device__ __forceinline__ void request_rows(float* dst, void* stage,
-                                             const T* __restrict__ src,
-                                             int r0, int L, int d, int tid) {
-  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte piece
-  constexpr int V = DMAX / E;        // pieces of a row
-  for (int i = tid; i < ROWS * V; i += NT) {
-    const int r = i / V;
-    const int c = (i - r * V) * E;
-    const bool ok = r0 + r < L && c < d;
-    const T* from = ok ? src + (size_t)(r0 + r) * d + c : src;
-    if constexpr (sizeof(T) == 4)
-      cp_async16(dst + r * (DMAX + 4) + c, from, ok);
-    else
-      cp_async16(reinterpret_cast<float*>(stage) + 4 * i,
-                 reinterpret_cast<const float*>(from), ok);
-  }
-}
-
-// After the wait for `request_rows`'s bf16 pieces: each thread widens the
-// pieces it requested from `stage` into the float32 tile (exact). The
-// caller's barrier then publishes the tile.
+// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) matrix into the
+// (ROWS, DMAX + 4) tile `dst`, zero past L and past d (d % 4 == 0). A thread
+// requests pieces tid, tid + NT, ...
 template <int DMAX, int ROWS, int NT>
-__device__ __forceinline__ void widen_rows(float* dst, const void* stage,
-                                           int tid) {
-  constexpr int V = DMAX / 8;
+__device__ __forceinline__ void request_rows(float* dst,
+                                             const float* __restrict__ src,
+                                             int r0, int L, int d, int tid) {
+  constexpr int V = DMAX / 4;  // pieces of a row
   for (int i = tid; i < ROWS * V; i += NT) {
     const int r = i / V;
-    const int c = (i - r * V) * 8;
-    const uint4 w = reinterpret_cast<const uint4*>(stage)[i];
-    float* out = dst + r * (DMAX + 4) + c;
-    *reinterpret_cast<float4*>(out) =
-        make_float4(__uint_as_float(w.x << 16),
-                    __uint_as_float(w.x & 0xffff0000u),
-                    __uint_as_float(w.y << 16),
-                    __uint_as_float(w.y & 0xffff0000u));
-    *reinterpret_cast<float4*>(out + 4) =
-        make_float4(__uint_as_float(w.z << 16),
-                    __uint_as_float(w.z & 0xffff0000u),
-                    __uint_as_float(w.w << 16),
-                    __uint_as_float(w.w & 0xffff0000u));
+    const int c = (i - r * V) * 4;
+    const bool ok = r0 + r < L && c < d;
+    cp_async16(dst + r * (DMAX + 4) + c,
+               ok ? src + (size_t)(r0 + r) * d + c : src, ok);
   }
 }
 
@@ -199,21 +196,6 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src) {
   } else {
     *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
   }
-}
-
-// VW floats rounded to bf16 (nearest even) in one 8- or 4-byte store
-template <int VW>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* src) {
-  unsigned w[VW / 2];
-#pragma unroll
-  for (int i = 0; i < VW / 2; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-    w[i] = *reinterpret_cast<const unsigned*>(&h);
-  }
-  if constexpr (VW == 4)
-    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-  else
-    *reinterpret_cast<unsigned*>(dst) = w[0];
 }
 
 // out[a][b] = Qs[row ty + TY a] . Ks[row tx + TX b] over the DMAX columns,
@@ -279,21 +261,19 @@ __device__ __forceinline__ void pv_product(
   }
 }
 
-template <typename T, int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
 __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int L, int d, float scale_log2,
                  DropoutParams dp) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
-  constexpr bool kWiden = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * C::P;
   float* Vs = Ks + BK * C::P;
   float* Ps = Vs + BK * C::P;  // probabilities, (BQ, BK + 4)
-  void* stage = Ps + BQ * C::SP;  // bf16: the K or V tile in flight
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -301,11 +281,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
-  const T* kh = k + head;
-  const T* vh = v + head;
+  const float* kh = k + head;
+  const float* vh = v + head;
 
-  request_rows<T, DMAX, BQ, C::NT>(Qs, Ps, q + head, q0, L, d, tid);
-  request_rows<T, DMAX, BK, C::NT>(Ks, stage, kh, 0, L, d, tid);
+  request_rows<DMAX, BQ, C::NT>(Qs, q + head, q0, L, d, tid);
+  request_rows<DMAX, BK, C::NT>(Ks, kh, 0, L, d, tid);
   cp_async_commit();
 
   // rows q0 + ty + TY a: the output at columns VW (tx + TX g) .. + VW - 1,
@@ -322,13 +302,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     cp_async_wait_all();
-    if constexpr (kWiden) {
-      widen_rows<DMAX, BK, C::NT>(Ks, stage, tid);
-      if (k0 == 0) widen_rows<DMAX, BQ, C::NT>(Qs, Ps, tid);
-    }
     __syncthreads();  // this K tile is in; every thread is past the last P V
     // V flies during Q K^T and the softmax
-    request_rows<T, DMAX, BK, C::NT>(Vs, stage, vh, k0, L, d, tid);
+    request_rows<DMAX, BK, C::NT>(Vs, vh, k0, L, d, tid);
     cp_async_commit();
 
     float s[RA][KB];
@@ -366,10 +342,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     cp_async_wait_all();
-    if constexpr (kWiden) widen_rows<DMAX, BK, C::NT>(Vs, stage, tid);
     __syncthreads();  // P is whole and V is in; the K tile is read
     if (k0 + BK < L) {  // the next K tile flies during P V
-      request_rows<T, DMAX, BK, C::NT>(Ks, stage, kh, k0 + BK, L, d, tid);
+      request_rows<DMAX, BK, C::NT>(Ks, kh, k0 + BK, L, d, tid);
       cp_async_commit();
     }
     pv_product<DMAX, BQ, BK, RA, KB>(Ps, Vs, ty, tx, acc);
@@ -397,69 +372,299 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
-int launch(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int L,
-           int d, float scale, const DropoutParams& dp, cudaStream_t stream) {
-  using C = Cfg<DMAX, BQ, BK, RA, KB>;
-  constexpr size_t smem = C::SMEM + (sizeof(T) == 2 ? C::STAGE : 0);
-  // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
-  // and device: set it at the first launch on each device, not every launch.
-  static std::atomic<bool> opted_in[kMaxDevices];
+// The bf16 form's geometry: NW warps of 16 query rows each (BQ rows a
+// block) walk the key tiles of BK keys at a head dimension padded to DMAX.
+template <int DMAX, int NW, int BK>
+struct Bf16Cfg {
+  static constexpr int BQ = 16 * NW;
+  static constexpr int NT = 32 * NW;
+  static constexpr int S = DMAX + 8;    // row stride of the bf16 tiles
+  static constexpr int KD = DMAX / 16;  // k16 steps of Q K^T
+  static constexpr int NB = BK / 8;     // n8 tiles of the scores
+  static constexpr int ND = DMAX / 8;   // n8 tiles of the output
+  // Q, two K tiles and two V tiles
+  static constexpr size_t SMEM = sizeof(bf16) * (size_t)(BQ + 4 * BK) * S;
+  static_assert(BK % 16 == 0 && DMAX % 16 == 0 && NB <= 8, "tile shape");
+};
+
+template <int DMAX, int NW, int BK, bool DROPOUT>
+__global__ void __launch_bounds__(32 * NW)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int L, int d, float scale_log2,
+                      DropoutParams dp) {
+  using C = Bf16Cfg<DMAX, NW, BK>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* Kb = Qs + C::BQ * C::S;  // K tiles: buffer (tile index & 1)
+  bf16* Vb = Kb + 2 * BK * C::S;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * C::BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, row0 + g + 8
+  const int steps = d >> 4;         // k16 steps (and 16-column blocks) of d
+  const size_t head = (size_t)bh * L * d;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+
+  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, L, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, L, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, L, d, tid);
+  cp_async_commit_group();
+
+  // rows g and g + 8: Q's A fragments, the output's accumulators, the
+  // running max (base 2, the same in the row's four lanes) and this lane's
+  // share of the running sum
+  uint32_t qf[C::KD][4];
+  float acc[C::ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int k0 = 0, it = 0; k0 < L; k0 += BK, ++it) {
+    const bf16* Ks = Kb + (it & 1) * BK * C::S;
+    const bf16* Vs = Vb + (it & 1) * BK * C::S;
+    cp_async_wait_groups();
+    __syncthreads();  // this tile is in; every warp is past the last one
+    if (k0 + BK < L) {  // the next tile flies during this one's products
+      request_bf16_rows<DMAX, BK, C::NT>(Kb + ((it + 1) & 1) * BK * C::S, kh,
+                                         k0 + BK, L, d, tid);
+      request_bf16_rows<DMAX, BK, C::NT>(Vb + ((it + 1) & 1) * BK * C::S, vh,
+                                         k0 + BK, L, d, tid);
+      cp_async_commit_group();
+    }
+    if (row0 >= L) continue;  // no real row: only the barriers
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < C::KD; ++kk)
+        ldmatrix_x4(qf[kk], Qs + 16 * warp * C::S + 16 * kk + off_a);
+    }
+
+    // the dropout's keep bits first: Philox's integer work does not wait on
+    // the products
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits_rows<C::NB>(dp, bh, row0, k0, lane);
+
+    // S = Q K^T from exact bf16 operands, float32 sums
+    float s[C::NB][4];
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      if (kk < steps) {
+#pragma unroll
+        for (int jj = 0; jj < C::NB / 2; ++jj) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Ks + 16 * jj * C::S + 16 * kk + off_b);
+          mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
+          mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
+        }
+      }
+    }
+
+    // online softmax in base 2, the scale applied to S in float32; a row's
+    // four lanes reduce its max by two shuffles
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    if (k0 + BK > L) {  // keys past L (only in the last tile) weigh nothing
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + (e & 1) >= L) s[j][e] = -INFINITY;
+    }
+    // key k0 (t 0, j 0, e 0) is always real, so a row's max is finite
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float alpha = ex2_approx(m[r] - m_new);  // 0 on the first tile
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2_approx(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        if constexpr (DROPOUT)
+          s[j][e] = (keep >> (4 * j + e)) & 1u ? p * dp.keep_scale : 0.f;
+        else
+          s[j][e] = p;
+      }
+
+    // O += (P o Z) V: P from the accumulators, split in hi + lo, against
+    // V's fragments by ldmatrix.trans
+#pragma unroll
+    for (int c = 0; c < C::NB / 2; ++c) {
+      if (k0 + 16 * c >= L) break;  // keys past L: P is 0
+      uint32_t hi[4], lo[4];
+      split_a(s[2 * c], s[2 * c + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < C::KD; ++np) {
+        if (np < steps) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Vs + 16 * c * C::S + 16 * np + off_a);
+          mma_bf16_split(acc[2 * np], hi, lo, b[0], b[1]);
+          mma_bf16_split(acc[2 * np + 1], hi, lo, b[2], b[3]);
+        }
+      }
+    }
+  }
+  if (row0 >= L) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + (lane >> 2) + 8 * r;
+    if (row < L) {
+      const float inv = 1.f / sum;
+      bf16* orow = o + head + (size_t)row * d;
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c < d)  // o is rounded to bf16 here, once
+          *reinterpret_cast<uint32_t*>(orow + c) =
+              pack_bf16x2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      }
+      if (t == 0) lse[(size_t)bh * L + row] = m[r] * kLn2 + logf(sum);
+    }
+  }
+}
+
+// The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
+// and device: set it at the first launch on each device, not every launch.
+template <typename Kernel>
+int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev].load(std::memory_order_acquire)) {
+  if (!done[dev].load(std::memory_order_acquire)) {
     err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DMAX, BQ, BK, RA, KB, DROPOUT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in[dev].store(true, std::memory_order_release);
+    done[dev].store(true, std::memory_order_release);
   }
+  return 0;
+}
+
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int bh, int L, int d, float scale,
+           const DropoutParams& dp, cudaStream_t stream) {
+  using C = Cfg<DMAX, BQ, BK, RA, KB>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const int rc = opt_in(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>,
+                        opted_in, C::SMEM);
+  if (rc != 0) return rc;
   const dim3 grid(bh, (L + BQ - 1) / BQ);
-  flash_fwd_kernel<T, DMAX, BQ, BK, RA, KB, DROPOUT>
-      <<<grid, C::NT, smem, stream>>>(q, k, v, o, lse, L, d, scale * kLog2e,
-                                      dp);
+  flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>
+      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
+                                         scale * kLog2e, dp);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool DROPOUT>
+template <bool DROPOUT>
 int launch_form(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int d, float scale, int tile,
                 const DropoutParams& dp, cudaStream_t stream) {
-  auto f = &launch<T, 128, 64, 64, 4, 4, DROPOUT>;
+  auto f = &launch<128, 64, 64, 4, 4, DROPOUT>;
   if (tile == 32)
-    f = d <= 32 ? &launch<T, 32, 32, 32, 4, 4, DROPOUT>
-                : &launch<T, 64, 32, 32, 4, 4, DROPOUT>;
+    f = d <= 32 ? &launch<32, 32, 32, 4, 4, DROPOUT>
+                : &launch<64, 32, 32, 4, 4, DROPOUT>;
   else if (tile == 128)
-    f = d <= 32 ? &launch<T, 32, 128, 64, 8, 8, DROPOUT>
-                : &launch<T, 64, 128, 64, 8, 8, DROPOUT>;
-  return f((const T*)q, (const T*)k, (const T*)v, (T*)o, lse, bh, L, d, scale,
-           dp, stream);
+    f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT>
+                : &launch<64, 128, 64, 8, 8, DROPOUT>;
+  return f((const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+           bh, L, d, scale, dp, stream);
+}
+
+template <int DMAX, int NW, int BK, bool DROPOUT>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                float* lse, int bh, int L, int d, float scale,
+                const DropoutParams& dp, cudaStream_t stream) {
+  using C = Bf16Cfg<DMAX, NW, BK>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const int rc = opt_in(flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT>,
+                        opted_in, C::SMEM);
+  if (rc != 0) return rc;
+  const dim3 grid(bh, (L + C::BQ - 1) / C::BQ);
+  flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT>
+      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
+                                         scale * kLog2e, dp);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 forms by query tile: 16 rows (one warp, key tiles of 16) and 128
+// (eight warps) at d <= 64, 64 (four warps) at any d; key tiles of 64.
+template <bool DROPOUT>
+int launch_form_bf16(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int bh, int L, int d, float scale, int tile,
+                     const DropoutParams& dp, cudaStream_t stream) {
+  auto f = d <= 32   ? &launch_bf16<32, 4, 64, DROPOUT>
+           : d <= 64 ? &launch_bf16<64, 4, 64, DROPOUT>
+                     : &launch_bf16<128, 4, 64, DROPOUT>;
+  if (tile == 16)
+    f = d <= 32 ? &launch_bf16<32, 1, 16, DROPOUT>
+                : &launch_bf16<64, 1, 16, DROPOUT>;
+  else if (tile == 128)
+    f = d <= 32 ? &launch_bf16<32, 8, 64, DROPOUT>
+                : &launch_bf16<64, 8, 64, DROPOUT>;
+  return f((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh,
+           L, d, scale, dp, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, L, d), contiguous, 16-byte aligned, float32 or (`bf16` !=
-// 0) bfloat16; lse: (bh, L) float32. d % 8 == 0 and d <= 128. `tile` is the query tile height: 32 or
-// 128 for d <= 64, 64 for d > 64. `dropout` != 0 takes the dropout form: a
-// key is kept iff its Philox word (philox.cuh, from `seed`) is below
-// `threshold`, and a kept probability is multiplied by `keep_scale`. Returns
-// the CUDA error of the launch.
+// q, k, v, o: (bh, L, d), contiguous, 16-byte aligned; lse: (bh, L) float32.
+// float32 (`bf16_form` == 0): d % 8 == 0, d <= 128, `tile` (the query tile
+// height) 32 or 128 for d <= 64, 64 for d > 64. bfloat16 (`bf16_form` != 0):
+// d % 16 == 0, d <= 128, `tile` 16 or 128 for d <= 64, or 64. `dropout` != 0
+// takes the dropout form: a key is kept iff its Philox word (philox.cuh, from
+// `seed`) is below `threshold`, and a kept probability is multiplied by
+// `keep_scale`. Returns the CUDA error of the launch.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int bh, int L, int d, float scale,
                               int tile, int dropout, unsigned threshold,
                               float keep_scale, unsigned long long seed,
-                              int bf16, void* stream) {
-  if (d < 8 || d % 8 || d > 128 ||
-      !(d <= 64 ? tile == 32 || tile == 128 : tile == 64))
-    return (int)cudaErrorInvalidValue;
+                              int bf16_form, void* stream) {
+  const bool ok =
+      bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
+                      (tile == 64 || (d <= 64 && (tile == 16 || tile == 128)))
+                : d >= 8 && d % 8 == 0 && d <= 128 &&
+                      (d <= 64 ? tile == 32 || tile == 128 : tile == 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32)};
-  auto f = bf16 ? (dropout ? &launch_form<__nv_bfloat16, true>
-                           : &launch_form<__nv_bfloat16, false>)
-                : (dropout ? &launch_form<float, true>
-                           : &launch_form<float, false>);
+  auto f = bf16_form ? (dropout ? &launch_form_bf16<true>
+                                : &launch_form_bf16<false>)
+                     : (dropout ? &launch_form<true> : &launch_form<false>);
   return f(q, k, v, o, (float*)lse, bh, L, d, scale, tile, dp,
            (cudaStream_t)stream);
 }

@@ -110,6 +110,24 @@ def build() -> Path:
     return lib_path
 
 
+def kernel_sass() -> dict:
+    """The SASS of every kernel in the built library, by mangled name, as
+    `cuobjdump -sass` (beside nvcc) prints it: what shows which units a
+    kernel runs on (`HMMA`: the tensor cores)."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name(
+        "cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(build())],
+                         capture_output=True, text=True, check=True).stdout
+    sass, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            sass[name] = []
+        elif name is not None:
+            sass[name].append(line)
+    return {key: "\n".join(lines) for key, lines in sass.items()}
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed

@@ -11,7 +11,8 @@ custom_vjp does; `flash_attention` is its entry point and
 `flash_attention_ref` the plain differentiable attention it is held against.
 
 The forward kernel walks query tiles of `fwd_tile` rows: 128 or, for a
-short sequence, 32 at head_dim <= 64, else 64. The backward kernel has two
+short sequence, 32 at head_dim <= 64, else 64 (bf16: 16, 64 or 128). The
+backward kernel has two
 forms (`csrc/flash_attn_bwd.cu`). The fused one computes the scores once:
 each (head, key tile) block also forms its share of dq, which a scratch
 buffer of (BH, key tiles, L, d) floats carries to a sum kernel when there
@@ -20,9 +21,10 @@ is more than one key tile. `bwd_fused` takes it up to
 form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
 tile height both forms walk in.
 
-The plain versions take any head_dim. The kernels take multiples of 8 up to
-`MAX_HEAD_DIM`: on a CUDA tensor the wrappers pad another head_dim to the
-next multiple of 8 with zero columns, which changes no score (the softmax
+The plain versions take any head_dim. The kernels take multiples of 8 (bf16:
+16, the depth of a tensor-core product) up to `MAX_HEAD_DIM`: on a CUDA
+tensor the wrappers pad another head_dim to that multiple (`padded_head_dim`)
+with zero columns, which changes no score (the softmax
 scale is an argument of the kernels and stays 1 / sqrt(head_dim)) and adds
 only zero columns to o, dq, dk and dv, sliced off again; a head_dim beyond
 `MAX_HEAD_DIM` raises there.
@@ -37,9 +39,14 @@ tile and the backward regenerates, so nothing of size (BH, L, L) is stored.
 q, k, v (o, dO, dq, dk, dv) are float32 or bfloat16, lse float32. A
 bfloat16 input takes the kernels' bf16 form, as the JAX kernels run on the
 bf16 q, k, v of the models' mixed precision: every product, the softmax and
-lse in float32 from the exactly widened inputs, and o, dq, dk, dv rounded to
+lse in float32 from the exact bf16 inputs, and o, dq, dk, dv rounded to
 bfloat16 at their store. Each plain version does the same: it upcasts, runs
-the float32 formulas and rounds its outputs to q's type.
+the float32 formulas and rounds its outputs to q's type. The bf16 forms run
+their products on the tensor cores with bf16 operands: q, k, v and dO as they
+are, and each float32 operand that the products make (the probabilities P,
+dropped out, and dS) split into two bf16 terms, hi = bf16(x) and lo =
+bf16(x - hi), whose two products with the same exact operand keep float32
+accuracy (`csrc/bf16_mma.cuh`).
 """
 
 from __future__ import annotations
@@ -76,28 +83,51 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 FUSED_MAX_LEN = 256
 
 
-def fwd_tile(seq_len: int, head_dim: int) -> int:
-    """Rows of a query tile of the forward kernel. At head_dim <= 64, where
-    the kernel has these forms: 128 (key tiles of 64, eight rows and keys a
-    thread) for a sequence longer than 64, else 32 (key tiles of 32), so
-    that a short sequence does not compute mostly masked rows. Beyond 64:
+def fwd_tile(seq_len: int, head_dim: int,
+             dtype: torch.dtype = torch.float32) -> int:
+    """Rows of a query tile of the forward kernel. float32, at head_dim <= 64,
+    where the kernel has these forms: 128 (key tiles of 64, eight rows and
+    keys a thread) for a sequence longer than 64, else 32 (key tiles of 32),
+    so that a short sequence does not compute mostly masked rows. Beyond 64:
     64 (key tiles of 64). Set by `tools/profile_torch_kernels.py --only
-    attn_fwd`, which times every form at the UNet's shapes."""
+    attn_fwd`, which times every form at the UNet's shapes. bfloat16 (16
+    rows a warp, key tiles of 64): 16 (one warp, key tiles of 16) for a
+    sequence that fits them, 64 up to L 64 or beyond head_dim 64, else 128;
+    set by `--only bf16`."""
+    if dtype == torch.bfloat16:
+        if head_dim > 64:
+            return 64
+        if seq_len <= 16:
+            return 16
+        return 64 if seq_len <= 64 else 128
     if head_dim > 64:
         return 64
     return 128 if seq_len > 64 else 32
 
 
-def bwd_tile(seq_len: int, head_dim: int) -> int:
-    """Rows of a query or key tile of the backward kernel: 64, or 32 for a
-    sequence that fits 32 rows (at head_dim <= 64, where the kernel has
-    that form), so that a short sequence does not pay a mostly empty tile."""
-    return 32 if seq_len <= 32 and head_dim <= 64 else 64
+def bwd_tile(seq_len: int, head_dim: int,
+             dtype: torch.dtype = torch.float32) -> int:
+    """Rows of a query or key tile of the backward kernel: 64, or for a
+    sequence that fits a smaller tile (at head_dim <= 64, where the kernel
+    has that form) 32 in float32 and 16 in bfloat16, so that a short
+    sequence does not pay a mostly empty tile."""
+    small = 16 if dtype == torch.bfloat16 else 32
+    return small if seq_len <= small and head_dim <= 64 else 64
 
 
 def bwd_fused(seq_len: int) -> bool:
     """Whether the backward of this length runs the fused form."""
     return seq_len <= FUSED_MAX_LEN
+
+
+def tensor_core_products() -> dict:
+    """The tensor-core products (`HMMA` instructions) in the SASS of each
+    attention kernel of the built library, by mangled name: every bf16 form
+    (`*_bf16_*`) has them, the float32 forms and the delta and dq-sum
+    kernels none. Needs the card's toolkit (`cuobjdump`)."""
+    return {name: text.count("HMMA")
+            for name, text in _build.kernel_sass().items()
+            if "flash_" in name}
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,20 +263,23 @@ def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {head_dim} exceeds the kernel's "
                          f"limit of {MAX_HEAD_DIM}")
-    if q.shape[0] * q.shape[1] * padded_head_dim(head_dim) >= 2**31:
+    if q.shape[0] * q.shape[1] * padded_head_dim(head_dim, q.dtype) >= 2**31:
         raise ValueError(f"{name}: shape {tuple(q.shape)} exceeds the "
                          "kernel's 32-bit indexing")
 
 
-def padded_head_dim(head_dim: int) -> int:
-    """The head_dim the kernels run at: the next multiple of 8."""
-    return -(-head_dim // 8) * 8
+def padded_head_dim(head_dim: int,
+                    dtype: torch.dtype = torch.float32) -> int:
+    """The head_dim the kernels run at: the next multiple of 8, or in
+    bfloat16 of 16, the depth of a tensor-core product."""
+    step = 16 if dtype == torch.bfloat16 else 8
+    return -(-head_dim // step) * step
 
 
 def _pad_heads(head_dim: int, *tensors: torch.Tensor):
-    """The tensors with zero columns up to `padded_head_dim` (as they are
-    when head_dim is a multiple of 8)."""
-    extra = padded_head_dim(head_dim) - head_dim
+    """The tensors with zero columns up to `padded_head_dim` of their dtype
+    (as they are when head_dim is a multiple of it)."""
+    extra = padded_head_dim(head_dim, tensors[0].dtype) - head_dim
     if not extra:
         return tensors
     return tuple(F.pad(t, (0, extra)) for t in tensors)
@@ -298,7 +331,7 @@ def flash_attention_fwd(
             err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), lse.data_ptr(), bh, seq_len,
                                      width, 1.0 / math.sqrt(head_dim),
-                                     fwd_tile(seq_len, width),
+                                     fwd_tile(seq_len, width, q.dtype),
                                      *_dropout_args(dropout_p, seed),
                                      int(bf16), stream)
         _build.check(err, "flash_attn_fwd")
@@ -340,7 +373,7 @@ def flash_attention_bwd(
         if fused is None:
             fused = bwd_fused(seq_len)
         width = q.shape[-1]
-        tile = bwd_tile(seq_len, width)
+        tile = bwd_tile(seq_len, width, q.dtype)
         tiles = -(-seq_len // tile)
         partial = None
         if fused and tiles > 1:

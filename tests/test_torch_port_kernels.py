@@ -1167,14 +1167,16 @@ def test_gn_silu_bf16_kernels_match_plain(cuda, shape):
 
 
 # K2 and K3's bf16 forms in every tile form, one key tile and many, ragged
-# tiles, the two-kernel backward, a padded head_dim, with and without
-# dropout
+# tiles (L 17, 65, 129 past the tiles of 16 and 64), the two-kernel
+# backward, head_dims padded to the mma's depth of 16 (8, 12, 24, 40), with
+# and without dropout
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("fused", [None, False])
 @pytest.mark.parametrize("seq_len,head_dim", [
     (256, 64), (64, 64), (16, 64), (100, 64), (1, 8), (33, 32), (257, 64),
-    (1024, 64), (256, 128), (100, 48), (40, 12)])
+    (1024, 64), (256, 128), (100, 48), (40, 12), (17, 8), (65, 24),
+    (129, 40), (129, 64), (17, 128)])
 def test_flash_attention_bf16_kernels_match_plain(cuda, seq_len, head_dim,
                                                   fused, dropout):
     gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
@@ -1194,6 +1196,63 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, seq_len, head_dim,
     refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
     for got, want in zip(grads, refs):
         assert_bf16_close(got, want, 2, TOL_BWD)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_dropout_mask_reads_back_bit_for_bit(cuda):
+    """The bf16 forms' dropout: with v = I, o = P o Z to within its two-term
+    split and bf16 rounding, so its zeros are the dropped keys, which must be
+    those of `philox_keep_mask`; the backward's dv = (P o Z)^T dO with dO =
+    I has the same zeros, transposed."""
+    bh, seq_len = 64, 64
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k = (torch.randn(bh, seq_len, seq_len, generator=gen,
+                        device=cuda).bfloat16() for _ in range(2))
+    eye = torch.eye(seq_len, device=cuda, dtype=torch.bfloat16).expand(
+        bh, -1, -1).contiguous()
+    o, lse = flash_attention.flash_attention_fwd(q, k, eye, DROPOUT_P,
+                                                 DROPOUT_SEED)
+    _, _, dv = flash_attention.flash_attention_bwd(q, k, eye, o, eye, lse,
+                                                   DROPOUT_P, DROPOUT_SEED)
+    keep = flash_attention.philox_keep_mask(DROPOUT_SEED, bh, seq_len,
+                                            seq_len, DROPOUT_P, device=cuda)
+    assert torch.equal(o != 0, keep)
+    assert torch.equal(dv != 0, keep.transpose(1, 2))
+
+
+@pytest.mark.parametrize("seq_len,head_dim,fwd,bwd", [
+    (16, 64, 16, 16), (1, 16, 16, 16), (17, 64, 64, 64), (64, 64, 64, 64),
+    (65, 64, 128, 64), (256, 64, 128, 64), (256, 48, 128, 64),
+    (16, 128, 64, 64), (1024, 128, 64, 64)])
+def test_attention_bf16_tiles_over_the_main_path_and_its_edges(
+        seq_len, head_dim, fwd, bwd):
+    """The bf16 forms' tile rules (the UNet's L 256, 64, 16 and the DiT's
+    256 at d 64, the DiM fallback's d 48, and the edges of each choice)."""
+    dtype = torch.bfloat16
+    assert flash_attention.fwd_tile(seq_len, head_dim, dtype) == fwd
+    assert flash_attention.bwd_tile(seq_len, head_dim, dtype) == bwd
+
+
+@pytest.mark.cuda
+def test_bf16_attention_runs_only_its_tensor_core_forms(cuda):
+    """Autograd through `flash_attention` on bf16 tensors launches one
+    forward and one backward, both in the bf16 form, and those forms are
+    the tensor cores': every bf16 attention kernel of the built library has
+    HMMA instructions in its SASS, and no float32 one has any."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(8, 100, 64, generator=gen, device=cuda).bfloat16()
+               .requires_grad_() for _ in range(3))
+    before = (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES,
+              *bf16_launch_counts()[2:])
+    o = flash_attention.flash_attention(q, k, v, DROPOUT_P, DROPOUT_SEED)
+    torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+    after = (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES,
+             *bf16_launch_counts()[2:])
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    products = flash_attention.tensor_core_products()
+    bf16 = {name: n for name, n in products.items() if "_bf16_" in name}
+    assert bf16 and all(bf16.values()), bf16
+    assert not any(n for name, n in products.items() if name not in bf16)
 
 
 @pytest.mark.cuda

@@ -36,8 +36,10 @@ batch 160, the backward at 128) and the DiT's (sampling, BH 960; a train
 step, BH 768 at p 0.1), each timed beside the float32 form and
 `F.scaled_dot_product_attention` on the same bf16 inputs as (1, BH, L, d),
 which takes PyTorch's flash kernel (and on the float32 ones, its
-memory-efficient kernel); then the sums over
-one forward's or step's calls. A tree without the bf16 forms is skipped.
+memory-efficient kernel), and K2's and K3's bf16 forms with each tile height
+they offer forced (the data behind `fwd_tile` and `bwd_tile` in bf16); then
+the sums over one forward's or step's calls. A tree without the bf16 forms
+is skipped.
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -324,6 +326,33 @@ ATTN_BWD_UNET = [(512, 256, 64, 5), (512, 64, 64, 5), (512, 16, 64, 1)]
 ATTN_DIT = [(960, 256, 64, 12, 0.0), (768, 256, 64, 12, ATTN_DROPOUT)]
 
 
+def sweep_bf16_tiles(attention, rule, length, d, fn, refs):
+    """`fn` (K2 or K3 in bf16) with each tile height that the tree's bf16
+    form offers at this length and head_dim forced in place of `rule`
+    (`fwd_tile` or `bwd_tile`): the readings behind the bf16 rules. A tree
+    whose rules take no dtype has no such forms and is skipped."""
+    import torch
+    tiles = {"fwd_tile": (16, 64, 128), "bwd_tile": (16, 64)}[rule]
+    chosen = getattr(attention, rule)
+    if "dtype" not in inspect.signature(chosen).parameters:
+        return True
+    ok = True
+    try:
+        for forced in tiles:
+            # (bf16 sums the fused backward's dq shares in a cluster of at
+            # most 8 key tiles)
+            if (d > 64 and forced != 64) or (
+                    rule == "bwd_tile" and -(-length // forced) > 8):
+                continue
+            setattr(attention, rule, lambda *shape, t=forced: t)
+            label = (f"   forced {rule} {forced} (the rule: "
+                     f"{chosen(length, d, torch.bfloat16)})")
+            ok &= check(label, fn, refs, BAR_BF16)
+    finally:
+        setattr(attention, rule, chosen)
+    return ok
+
+
 def run_bf16(root, attention, randn):
     """The bf16 forms of K1, K1b, K2 and K3 beside their float32 forms and
     the library call on the same bf16 inputs, with the sums over a UNet
@@ -388,6 +417,8 @@ def run_bf16(root, attention, randn):
                 q16, k16, v16, *drop)[:1]
             ok &= check(f"K2 bf16 {shape}", fn, (o_ref,), BAR_BF16)
             add(f"K2 bf16, {which}", calls, fn)
+            ok &= sweep_bf16_tiles(attention, "fwd_tile", length, d, fn,
+                                   (o_ref,))
             add(f"K2 fp32, {which}", calls,
                 lambda: attention.flash_attention_fwd(q, k, v, *drop))
             # (1, BH, L, d): PyTorch's flash kernel (3-D takes its math
@@ -406,6 +437,7 @@ def run_bf16(root, attention, randn):
                 *args16, *drop)
             ok &= check(f"K3 bf16 {shape}", fn, refs, BAR_BF16)
             add(f"K3 bf16, {which}", calls, fn)
+            ok &= sweep_bf16_tiles(attention, "bwd_tile", length, d, fn, refs)
             add(f"K3 fp32, {which}", calls,
                 lambda: attention.flash_attention_bwd(q, k, v, o, do, lse,
                                                       *drop))

@@ -54,7 +54,7 @@ SAMPLES, STEPS, CFG_SCALE, PROFILED_STEPS, REPEATS = 80, 50, 3.0, 5, 3
 # are cuDNN's, cuBLAS's, PyTorch's and the port's own.
 KINDS = [
     ("GN+SiLU, K1 (gn_silu_fwd)", ("gn_silu",)),
-    ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd_kernel",)),
+    ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd",)),
     ("selective scan forward, K4/K5/K6 (selective_scan_fwd)",
      ("scan_fwd_kernel",)),
     ("3x3 convs as FFT", ("fft", "pointwise_mult_and_sum_complex",

@@ -65,7 +65,7 @@ WARMUP, PROFILED_STEPS, TIMED, REPEATS = 3, 5, 10, 3
 KINDS = [
     ("GN+SiLU backward, K1b (gn_silu_bwd)", ("gn_silu_bwd",)),
     ("GN+SiLU forward, K1 (gn_silu_fwd)", ("gn_silu",)),
-    ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd_kernel",)),
+    ("attention forward, K2 (flash_attn_fwd)", ("flash_fwd",)),
     ("attention backward's delta and dq-share sum passes (K3)",
      ("flash_bwd_delta", "flash_bwd_dq_sum")),
     ("attention backward, K3 (flash_attn_bwd)", ("flash_bwd",)),
