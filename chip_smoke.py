@@ -15,7 +15,11 @@ through the port's entry points. The UNet's:
   both batches and a short sampling run against the plain versions, then 80
   images with DDIM-50 and classifier-free guidance (scale 3) through
   `diffusion_models_collection_tpu_torch.sample` from a randomly
-  initialised checkpoint;
+  initialised checkpoint; then the same under DPM-Solver++ (20 steps), its
+  SDE form (20), UniPC (10) and DDIM on a Karras grid (50), each with a
+  10-step trajectory against the plain versions first (the SDE form with
+  one explicit noise list for both runs) and exactly one forward's launches
+  per model call;
 * training: the GroupNorm+SiLU backward kernel at every shape of the UNet
   at batch 160 and 128, at a ragged shape and at a group too large for
   shared memory, against its plain version and against autograd through the
@@ -28,7 +32,13 @@ through the port's entry points. The UNet's:
   train` on the committed CIFAR-10 fixtures (200 images, one batch of 128
   an epoch), train images/s through the trainer's own step with the
   kernels and with the plain versions, and `sample` from the checkpoint it
-  wrote with DDIM-10 and DDPM.
+  wrote with DDIM-10 and DDPM;
+* flow matching and EDM: the same config with `diffusion_type` set to
+  'flow_matching' and then 'edm': the loss and gradients against the plain
+  versions, three epochs of `train` on the fixtures with one train step's
+  launches a step, train images/s, and `sample` from the checkpoint it
+  wrote (flow Euler 50 steps and Heun 25, EDM Heun 18; CFG 3), with one
+  forward's launches per model call (Heun: 2 S - 1 calls).
 
 The DiM's, at full width (hidden 384, depth 12, patch 2, state 16: the scan
 runs at L = 256, D = 768, N = 16 in each of the 12 blocks):
@@ -110,7 +120,7 @@ activations on float32 parameters, float32 eps):
   versions, 80 images DDIM-50 CFG 3 through `sample --mixed_precision bf16`
   and three epochs of `train` from the config with `mixed_precision:
   'bf16'`, samples/s, train images/s and peak memory beside the float32
-  figures of the same run.
+  figures of the same run; the DiT also under DPM-Solver++ (20 steps).
 
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
@@ -151,7 +161,10 @@ from diffusion_models_collection_tpu_torch import (  # noqa: E402
     sample,
     train,
 )
-from diffusion_models_collection_tpu_torch.diffusion import DDIM, DDPM  # noqa: E402
+from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
+from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
+    karras_timesteps,
+)
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     _build,
@@ -803,20 +816,24 @@ def phase_gn_train_step(gn_shapes, gen):
 
 
 def phase_sample_main(label, config, model, per_forward, tmp,
-                      compare_plain=False, flags=()):
-    """80 images, DDIM-50, CFG 3 through `sample.main` from a checkpoint of
-    `model`'s weights, with `flags` added to its command line and exactly 50
-    forwards' worth of kernel launches (`per_forward`, a `read_launches()`
-    subset). With `compare_plain`, the same call again inside
-    `plain_kernels()`, with no launch, for the plain versions' samples/s.
-    Returns the launches and the sampling seconds (and the plain run's)."""
+                      compare_plain=False, flags=(), method="ddim",
+                      steps=STEPS):
+    """80 images, CFG 3, through `sample.main` with `--sampling_method
+    method` at `steps` steps (DDIM-50 by default) from a checkpoint of
+    `model`'s weights and `config`, with `flags` added to its command line
+    and exactly one `per_forward` (a `read_launches()` subset) for each
+    model call the sampler makes (`model_calls`). With `compare_plain`, the
+    same call again inside `plain_kernels()`, with no launch, for the plain
+    versions' samples/s. Returns the launches and the sampling seconds (and
+    the plain run's)."""
     ckpt = Path(tmp) / f"{config['model_type']}_random.pth"
     checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
-    argv = ["--checkpoint", str(ckpt), "--sampling_method", "ddim",
+    argv = ["--checkpoint", str(ckpt), "--sampling_method", method,
             "--cfg_scale", str(CFG_SCALE), "--num_samples", str(SAMPLES),
             "--batch_size", str(SAMPLES), "--seed", "0", "--device", "cuda",
             "--output_dir", tmp, "--output_name", "samples.png",
-            "--num_inference_steps", str(STEPS), *flags]
+            "--num_inference_steps", str(steps), *flags]
+    calls = model_calls(config, method, steps)
     # the caller ran the model at this batch, so cuDNN, cuBLAS and the
     # kernel library are warm
     torch.cuda.synchronize()
@@ -834,12 +851,13 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     for name in ("samples.png", "samples.npy"):
         if not (Path(tmp) / name).is_file():
             raise AssertionError(f"{label}: {name} was not written")
-    expected = scaled(per_forward, STEPS)
+    expected = scaled(per_forward, calls)
     if launches != expected:
         raise AssertionError(f"{label} kernel launches {launches}, expected "
                              f"{expected}")
-    print(f"sample.main {label}: {SAMPLES} images, DDIM-{STEPS}, CFG "
-          f"{CFG_SCALE}: sampling {result['sampling_seconds']:.3f} s "
+    print(f"sample.main {label}: {SAMPLES} images, {method}-{steps} "
+          f"({calls} model calls), CFG {CFG_SCALE}: sampling "
+          f"{result['sampling_seconds']:.3f} s "
           f"({SAMPLES / result['sampling_seconds']:.2f} samples/s), whole "
           f"call {wall:.3f} s; launches {launches}")
     if not compare_plain:
@@ -857,6 +875,27 @@ def phase_sample_main(label, config, model, per_forward, tmp,
         raise AssertionError(f"{label} plain sampling launched "
                              f"{plain_launched}")
     return launches, result["sampling_seconds"], plain["sampling_seconds"]
+
+
+def model_calls(config, method, steps):
+    """The model calls of one sampling run of `config`'s process under
+    `method` at `steps` steps: 2 S - 1 for Heun (flow matching's `heun` and
+    EDM; their last step is first order and makes one call), S for flow's
+    Euler, all T steps for DDPM, else the grid's length (a Karras grid may
+    be shorter than the steps asked for)."""
+    kind = str(config.get("diffusion_type", "ddpm"))
+    if kind == "edm" or (kind == "flow_matching"
+                         and config.get("flow_solver") == "heun"):
+        return 2 * steps - 1
+    if kind == "flow_matching":
+        return steps
+    if method == "ddpm":
+        return config["num_timesteps"]
+    if config.get("timestep_spacing") == "karras":
+        schedule = factory.get_diffusion(config, method).schedule
+        return len(karras_timesteps(schedule, steps,
+                                    config.get("karras_rho", 7.0)))
+    return steps
 
 
 def attention_bwd_case(bh, seq, d, gen):
@@ -1054,11 +1093,12 @@ def phase_mask_readback(gen):
                              f"share {share}")
 
 
-def loss_and_grads(model, ddpm, batch):
-    """The DDPM eps-loss of one batch and every parameter's gradient."""
+def loss_and_grads(model, process, batch):
+    """The process's loss of one batch (DDPM's eps-loss unless the config
+    names flow matching or EDM) and every parameter's gradient."""
     model.zero_grad(set_to_none=True)
-    loss = ddpm.p_losses(model, batch["x0"], batch["t"], batch["noise"],
-                         y=batch["y"])
+    loss = process.p_losses(model, batch["x0"], batch["t"], batch["noise"],
+                            y=batch["y"])
     loss.backward()
     return loss.detach(), {n: p.grad.detach().clone()
                            for n, p in model.named_parameters()}
@@ -1079,9 +1119,10 @@ def phase_train_grads(label, model, config, per_step, gen,
     train mode with a `seed` that reseeds the CPU and CUDA generators before
     each run, so both draw the same dropout masks (the attention's seeds
     from the CPU generator, the MLP's masks from the CUDA one). `tol` is
-    the (loss, gradient) bar. Returns the batch, the loss and the flattened
-    gradient."""
-    ddpm = DDPM(num_timesteps=config["num_timesteps"])
+    the (loss, gradient) bar. The loss is the config's process's
+    (`factory.get_diffusion`: DDPM, flow matching or EDM). Returns the
+    batch, the loss and the flattened gradient."""
+    process = factory.get_diffusion(config)
     shape = (batch_size, *image_shape(config))
     batch = batch or {
         "x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
@@ -1096,7 +1137,7 @@ def phase_train_grads(label, model, config, per_step, gen,
     def run():
         if seed is not None:
             torch.manual_seed(seed)
-        return loss_and_grads(model, ddpm, batch)
+        return loss_and_grads(model, process, batch)
 
     reset_launches()
     loss, grads = run()
@@ -1248,8 +1289,8 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
           f"{', '.join(f'{r:.2f}' for r in rates['plain'])}; peak device "
           f"memory of the kernel path's steps {peak / 2**20:.1f} MiB")
 
-    for method, calls, flags in samplers:
-        out = Path(tmp) / method
+    for i, (method, calls, flags) in enumerate(samplers):
+        out = Path(tmp) / f"sample_{i}_{method}"
         reset_launches()
         result = sample.main([
             "--checkpoint", str(ckpt), "--sampling_method", method, *flags,
@@ -1258,8 +1299,10 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
         torch.cuda.synchronize()
         got = read_launches()
         samples = result["samples"]
-        print(f"sample.main {label} {method} from the trained checkpoint: 8 "
-              f"images in {result['sampling_seconds']:.3f} s; launches {got}")
+        print(f"sample.main {label} {method} {' '.join(flags)} from the "
+              f"trained checkpoint: 8 images in "
+              f"{result['sampling_seconds']:.3f} s ({calls} model calls); "
+              f"launches {got}")
         if not (samples.shape == (8, *image_shape(config))
                 and np.isfinite(samples).all()
                 and (out / "samples.png").is_file()
@@ -1267,6 +1310,110 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
             raise AssertionError(f"{label} {method}: samples "
                                  f"{samples.shape}, launches {got}")
     return launches, rates, peak
+
+
+# ------------------------------------------------- samplers and processes
+# (method, steps, config changes) of the fast samplers on the UNet: the
+# factory's default step counts, and DDIM on a Karras grid at the CLI's 50
+FAST_SAMPLERS = [("dpm++", 20, {}), ("dpm++sde", 20, {}), ("unipc", 10, {}),
+                 ("ddim", 50, {"timestep_spacing": "karras"})]
+TRAJ_STEPS = 10  # the trajectory checks' steps, as `phase_trajectory`'s
+
+
+def sampler_label(method, changes):
+    return method + ("-karras" if changes.get("timestep_spacing") else "")
+
+
+def phase_sampler_trajectory(label, config, model, method, gen):
+    """8 images, CFG 3, TRAJ_STEPS steps of `method` on `config`'s grid from
+    one noise through the kernels against the same inside `plain_kernels()`,
+    at TOL_TRAJ; the SDE form takes one explicit noise sequence for both
+    runs."""
+    process = factory.get_diffusion(dict(config,
+                                         num_inference_steps=TRAJ_STEPS),
+                                    method)
+    noise = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    noises = [torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+              for _ in range(len(process.inference_timesteps))]
+    labels = torch.arange(1, 9, device="cuda")
+
+    def run():
+        return process.sample_with_cfg(
+            model, noise.shape, labels, None, cfg_scale=CFG_SCALE,
+            init_noise=noise,
+            noises=noises if getattr(process, "sde", False) else None)
+
+    out = run()
+    with plain_kernels():
+        ref = run()
+    torch.cuda.synchronize()
+    rel = max_rel(out, ref)
+    print(f"{label} {TRAJ_STEPS}-step CFG trajectory, 8 images: kernels vs "
+          f"plain max_rel {rel:.3e}")
+    if not (torch.isfinite(out).all() and rel <= TOL_TRAJ):
+        raise AssertionError(f"{label} trajectory max_rel {rel}")
+
+
+def phase_samplers(config, model, per_forward, gen, smi):
+    """The fast samplers on the full-width model of `config`: each one's
+    trajectory against the plain versions, then 80 images with CFG 3
+    through `sample.main` at its default steps with exact launches
+    (`phase_sample_main`). Returns {label: (launches, seconds, calls)}."""
+    runs = {}
+    for method, steps, changes in FAST_SAMPLERS:
+        label = sampler_label(method, changes)
+        run_config = dict(config, **changes)
+        phase_sampler_trajectory(f"UNet {label}", run_config, model, method,
+                                 gen)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, seconds = phase_sample_main(
+                f"UNet {label}", run_config, model, per_forward, tmp,
+                method=method, steps=steps)
+        calls = model_calls(run_config, method, steps)
+        runs[label] = (launches, seconds, calls)
+        print(f"UNet {label}-{steps} ({calls} model calls) CFG {CFG_SCALE} "
+              f"fp32: {SAMPLES / seconds:.2f} samples/s on {smi}")
+    return runs
+
+
+# diffusion_type -> the samplers of its checkpoint: (name, steps, config
+# changes); the config's num_inference_steps is 50
+PROCESS_SAMPLERS = {
+    "flow_matching": [("euler", 50, {}), ("heun", 25, {"flow_solver": "heun"})],
+    "edm": [("heun", 18, {})],
+}
+
+
+def phase_process(kind, gen, smi, tmp):
+    """The full-width UNet config with `diffusion_type: kind` (flow matching
+    or EDM): its loss and gradients against the plain versions
+    (`phase_train_grads`, the process's own loss), then `train.main` on
+    the fixtures with exact K1, K1b, K2, K3 launches a step, train images/s,
+    and `sample.main` from the written checkpoint with each of
+    PROCESS_SAMPLERS[kind] (a config file with the changes, CFG 3), with
+    exactly one UNet forward's launches per model call."""
+    config = dict(load_config(CONFIG), diffusion_type=kind)
+    torch.manual_seed(0)
+    label = f"UNet {kind}"
+    phase_train_grads(label, factory.get_model(config).to("cuda").eval(),
+                      config, UNET_STEP, gen)
+    samplers = []
+    for name, steps, changes in PROCESS_SAMPLERS[kind]:
+        flags = ["--num_inference_steps", str(steps),
+                 "--cfg_scale", str(CFG_SCALE)]
+        if changes:
+            path = Path(tmp) / f"{kind}_{name}.py"
+            path.write_text(f"config = {dict(config, **changes)!r}\n")
+            flags += ["--config", str(path)]
+        samplers.append(("ddpm", model_calls(dict(config, **changes), "ddpm",
+                                             steps), flags))
+    launches, rates, peak = phase_train_main(label, config, UNET_STEP,
+                                             UNET_FORWARD, samplers, tmp)
+    print(f"{label}: {statistics.median(rates['kernels']):.2f} train "
+          f"images/s at batch {TRAIN_BATCH} fp32 (plain versions: "
+          f"{statistics.median(rates['plain']):.2f}), peak device memory "
+          f"{peak / 2**20:.1f} MiB, on {smi}")
+    return {"launches": launches, "rates": rates, "peak": peak}
 
 
 # ------------------------------------------------------------------- DiM
@@ -1967,7 +2114,7 @@ def time_train_rates(trainer, runs=2):
 
 
 def phase_bf16_model(label, config, per_forward, per_step, gen,
-                     train_seed=None):
+                     train_seed=None, fast_sampler=None):
     """The full-width model under `mixed_precision: 'bf16'` (float32
     parameters, the kernels' bf16 forms, float32 eps): forwards at batch 32
     and 160 against the same inside `plain_kernels()`; 80 images DDIM-50
@@ -1976,7 +2123,9 @@ def phase_bf16_model(label, config, per_forward, per_step, gen,
     plain versions (in train mode with dropout when `train_seed`, at batch
     128); three epochs of `train.main` from the config with
     `mixed_precision: 'bf16'`, train images/s and peak memory. Exact
-    launches everywhere (`per_forward`, `per_step`)."""
+    launches everywhere (`per_forward`, `per_step`). `fast_sampler`, a
+    (method, steps) pair, adds the same `sample.main` run under that
+    sampler."""
     config16 = dict(config, mixed_precision="bf16")
     name = f"{label} bf16"
     model, n_params, _ = phase_model_forward(name, config16, per_forward, gen,
@@ -1987,6 +2136,14 @@ def phase_bf16_model(label, config, per_forward, per_step, gen,
         sample_launches, seconds = phase_sample_main(
             name, config, model, per_forward, tmp,
             flags=("--mixed_precision", "bf16"))
+    fast = None
+    if fast_sampler is not None:
+        method, steps = fast_sampler
+        with tempfile.TemporaryDirectory() as tmp:
+            fast = phase_sample_main(f"{name} {method}", config, model,
+                                     per_forward, tmp, method=method,
+                                     steps=steps,
+                                     flags=("--mixed_precision", "bf16"))
     if train_seed is not None:
         model.train()
     phase_train_grads(name, model, config16, per_step, gen,
@@ -2003,7 +2160,10 @@ def phase_bf16_model(label, config, per_forward, per_step, gen,
           f"{peak / 2**20:.1f} MiB")
     return {"params": n_params, "sample_launches": sample_launches,
             "seconds": seconds, "train_launches": train_launches,
-            "rates": rates, "peak": peak}
+            "rates": rates, "peak": peak, "fast": fast}
+
+
+DIT_BF16_FAST_SAMPLER = ("dpm++", 20)
 
 
 def phase_bf16(gn_shapes, attn_shapes, gen):
@@ -2018,7 +2178,8 @@ def phase_bf16(gn_shapes, attn_shapes, gen):
                                 DIM_STEP, gen),
         "DiT": phase_bf16_model("DiT", load_config(DIT_CONFIG),
                                 DIT_FORWARD_BF16, DIT_STEP_BF16, gen,
-                                train_seed=TRAIN_SEED),
+                                train_seed=TRAIN_SEED,
+                                fast_sampler=DIT_BF16_FAST_SAMPLER),
     }
     return {"gn_err": gn_err, "gn_totals": gn_totals,
             "gn_bounds": gn_bounds, "attn_err": attn_err,
@@ -2048,6 +2209,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches, seconds = phase_sample_main("UNet", config, model,
                                               UNET_FORWARD, tmp)
+    fast = phase_samplers(config, model, UNET_FORWARD, gen, smi)
     del model
     gn_step_err, gn_step, gn_bwd_bound = phase_gn_train_step(gn_shapes, gen)
     bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
@@ -2060,6 +2222,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, rates, unet_peak = phase_train_main(
             "UNet", config, UNET_STEP, UNET_FORWARD, samplers, tmp)
+    processes = {}
+    for kind in PROCESS_SAMPLERS:
+        with tempfile.TemporaryDirectory() as tmp:
+            processes[kind] = phase_process(kind, gen, smi, tmp)
 
     dim_config = load_config(DIM_CONFIG)
     scan_err, scan_times = phase_scan(gen)
@@ -2117,6 +2283,13 @@ def main():
     print(f"{statistics.median(rates['kernels']):.2f} train images/s at batch "
           f"{TRAIN_BATCH} fp32 (plain versions: "
           f"{statistics.median(rates['plain']):.2f}) on {smi}")
+    for label, (_, sec, calls) in fast.items():
+        print(f"UNet {label} ({calls} model calls): {SAMPLES / sec:.2f} "
+              f"samples/s CFG {CFG_SCALE} fp32 on {smi}")
+    for kind, run in processes.items():
+        print(f"UNet {kind}: {statistics.median(run['rates']['kernels']):.2f} "
+              f"train images/s at batch {TRAIN_BATCH} fp32 (plain versions: "
+              f"{statistics.median(run['rates']['plain']):.2f}) on {smi}")
     print(f"DiM ({dim_params} parameters): {SAMPLES / dim_seconds:.2f} "
           f"samples/s DDIM-{STEPS} CFG {CFG_SCALE} fp32; "
           f"{statistics.median(dim_rates['kernels']):.2f} train images/s at "
@@ -2145,6 +2318,11 @@ def main():
         "UNet": (seconds, rates["kernels"], unet_peak),
         "DiM": (dim_seconds, dim_rates["kernels"], dim_peak),
         "DiT": (dit["seconds"], dit["rates"]["kernels"], dit["peak"])}
+    dit_fast_launches, dit_fast_seconds = bf16["models"]["DiT"]["fast"]
+    print(f"DiT bf16 {DIT_BF16_FAST_SAMPLER[0]}-{DIT_BF16_FAST_SAMPLER[1]}: "
+          f"{SAMPLES / dit_fast_seconds:.2f} samples/s CFG {CFG_SCALE}, "
+          f"{dit_fast_launches['attn_bf16']} bf16 attention launches, on "
+          f"{smi}")
     for label, run in bf16["models"].items():
         seconds32, rates32, peak32 = fp32_figures[label]
         print(f"{label} bf16 ({run['params']} float32 parameters): "
@@ -2174,6 +2352,14 @@ def main():
                                          DIT_HEAD_DIM, backward),
                               ATTN_PER_DIT_FORWARD).ms
         for backward in (False, True)}
+    def path_launches(key, train_only=False):
+        """A UNet kernel's launches on this slice's paths: the fast samplers'
+        `sample.main` runs, and flow matching's and EDM's `train.main`."""
+        out = {} if train_only else {
+            f"sample_{label}": run[0][key] for label, run in fast.items()}
+        out.update({f"train_{kind}": run["launches"][key]
+                    for kind, run in processes.items()})
+        return out
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -2182,7 +2368,8 @@ def main():
          "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:46",
          "launches": launches["gn"],
          "launches_by_path": {"sample": launches["gn"],
-                              "train": train_launches["gn"]},
+                              "train": train_launches["gn"],
+                              **path_launches("gn")},
          "max_abs_err": max(gn_err, main_err["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
@@ -2193,7 +2380,8 @@ def main():
          "source": csrc + "gn_silu.cu",
          "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:125",
          "launches": train_launches["gn_bwd"],
-         "launches_by_path": {"train": train_launches["gn_bwd"]},
+         "launches_by_path": {"train": train_launches["gn_bwd"],
+                              **path_launches("gn_bwd", train_only=True)},
          "max_abs_err": max(gn_bwd_err, gn_step_err),
          "ms": gn_step["bwd"], "plain_ms": gn_step["bwd_plain"],
          "recompute_ms": gn_step["recompute"],
@@ -2208,7 +2396,8 @@ def main():
                               "dit_train": dit["train_launches"]["attn"],
                               "dit_train_remat":
                                   dit["remat_launches"]["attn"],
-                              "dim_fallback": dit["fallback_launches"]},
+                              "dim_fallback": dit["fallback_launches"],
+                              **path_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
@@ -2222,6 +2411,7 @@ def main():
          "replaces": "diffusion_models_collection_tpu/ops/flash_attention.py:126",
          "launches": train_launches["attn_bwd"],
          "launches_by_path": {"train": train_launches["attn_bwd"],
+                              **path_launches("attn_bwd", train_only=True),
                               "dit_train": dit["train_launches"]["attn_bwd"],
                               "dit_train_remat":
                                   dit["remat_launches"]["attn_bwd"]},
@@ -2333,6 +2523,7 @@ def main():
              "sample_bf16": unet16["sample_launches"]["attn_bf16"],
              "train_bf16": unet16["train_launches"]["attn_bf16"],
              "dit_sample_bf16": dit16["sample_launches"]["attn_bf16"],
+             "dit_sample_bf16_dpmpp": dit_fast_launches["attn_bf16"],
              "dit_train_bf16": dit16["train_launches"]["attn_bf16"]},
          "max_abs_err": bf16["attn_err"],
          "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],

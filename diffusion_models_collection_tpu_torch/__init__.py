@@ -6,9 +6,10 @@ timesteps and labels) and runs in PyTorch, with hand-written CUDA kernels
 where the JAX package had Pallas kernels (`ops/`, `csrc/`). It never imports
 JAX.
 
-Ported so far: the class-conditional UNet and DiM (diffusion Mamba),
-sampled with DDIM or DDPM and classifier-free guidance (`sample.py`) and
-trained with the DDPM objective (`train.py`).
+Ported so far: the class-conditional UNet, DiM (diffusion Mamba) and DiT,
+sampled with DDPM, DDIM, DPM-Solver++ (2M, SDE) or UniPC and
+classifier-free guidance (`sample.py`) and trained with the DDPM objective
+(`train.py`), or trained and sampled as flow matching or EDM.
 """
 
 __version__ = "0.1.0"

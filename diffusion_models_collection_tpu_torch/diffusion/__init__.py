@@ -1,9 +1,16 @@
-"""Diffusion processes: DDPM (training and ancestral sampling) and DDIM
-sampling."""
+"""Diffusion processes: DDPM (training and ancestral sampling), the fast VP
+samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC; uniform or Karras grids),
+flow matching and EDM."""
 
 from .ddim import DDIM, ddim_step
 from .ddpm import DDPM, posterior_step
-from .schedule import NoiseSchedule, ddim_timesteps, extract, make_betas
+from .dpm_solver import DPMSolverPP
+from .edm import EDM
+from .flow_matching import FlowMatching
+from .schedule import (NoiseSchedule, ddim_timesteps, extract,
+                       karras_timesteps, make_betas)
+from .unipc import UniPC
 
-__all__ = ["DDIM", "DDPM", "NoiseSchedule", "ddim_step", "ddim_timesteps",
-           "extract", "make_betas", "posterior_step"]
+__all__ = ["DDIM", "DDPM", "DPMSolverPP", "EDM", "FlowMatching",
+           "NoiseSchedule", "UniPC", "ddim_step", "ddim_timesteps", "extract",
+           "karras_timesteps", "make_betas", "posterior_step"]

@@ -1,6 +1,7 @@
 """Shared diffusion-process pieces: the forward process and training
 losses, x0 recovery, parameterization views, classifier-free guidance and
-x0 constraints.
+x0 constraints, and `VPProcess`, what the processes over one VP schedule
+(DDPM, DDIM, DPM-Solver++, UniPC) share.
 
 Counterpart of `diffusion_models_collection_tpu/diffusion/base.py`. Plain
 functions on tensors; the model is any callable `(x, t, y) -> output` on
@@ -10,11 +11,11 @@ NHWC tensors, and the noise is always passed in (the callers draw it from a
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from .schedule import NoiseSchedule, extract
+from .schedule import NoiseSchedule, extract, inference_timesteps
 
 VALID_LOSS_TYPES = ("l1", "l2", "huber")
 VALID_PREDICTION_TYPES = ("eps", "v", "x0")
@@ -147,6 +148,41 @@ def predict_x0_from_eps(schedule: NoiseSchedule, x: torch.Tensor,
     return c1 * x - c2 * eps
 
 
+def eps_from_prediction(schedule: NoiseSchedule, x: torch.Tensor,
+                        t: torch.Tensor, out: torch.Tensor,
+                        prediction_type: str) -> torch.Tensor:
+    """A model output in any parameterization as eps: v gives
+    b x_t + a v, x0 gives (c1 x_t - x0) / c2, with a = sqrt(acp_t),
+    b = sqrt(1 - acp_t), c1 = sqrt(1/acp_t), c2 = sqrt(1/acp_t - 1)."""
+    if prediction_type == "eps":
+        return out
+    if prediction_type == "v":
+        a = extract(schedule.sqrt_alphas_cumprod, t, x.ndim)
+        b = extract(schedule.sqrt_one_minus_alphas_cumprod, t, x.ndim)
+        return b * x + a * out
+    if prediction_type == "x0":
+        c1 = extract(schedule.sqrt_recip_alphas_cumprod, t, x.ndim)
+        c2 = extract(schedule.sqrt_recipm1_alphas_cumprod, t, x.ndim)
+        return (c1 * x - out) / c2
+    raise invalid_choice("prediction type", prediction_type,
+                         VALID_PREDICTION_TYPES)
+
+
+def wrap_model_as_eps(schedule: NoiseSchedule, model_fn: Callable,
+                      prediction_type: str) -> Callable:
+    """An `(x, t, y) -> eps` view of a model in any parameterization."""
+    if prediction_type not in VALID_PREDICTION_TYPES:
+        raise invalid_choice("prediction type", prediction_type,
+                             VALID_PREDICTION_TYPES)
+    if prediction_type == "eps":
+        return model_fn
+
+    def eps_fn(x, t, y=None):
+        return eps_from_prediction(schedule, x, t, model_fn(x, t, y),
+                                   prediction_type)
+    return eps_fn
+
+
 def wrap_model_as_eps_x0(schedule: NoiseSchedule, model_fn: Callable,
                          prediction_type: str) -> Callable:
     """A `(x, t, y) -> (eps, x0)` view of a model in any parameterization,
@@ -208,6 +244,13 @@ def constrain_x0(x0: torch.Tensor, p_threshold: Optional[float],
     if clip_denoised:
         return torch.clamp(x0, -1.0, 1.0)
     return x0
+
+
+def apply_x0_constraint(x0: torch.Tensor,
+                        p_threshold: Optional[float]) -> torch.Tensor:
+    """Dynamic thresholding when p_threshold is set, else clamp to
+    [-1, 1]."""
+    return constrain_x0(x0, p_threshold, clip_denoised=True)
 
 
 def rescale_guided(x_g: torch.Tensor, x_c: torch.Tensor,
@@ -272,3 +315,198 @@ def cfg_eps_x0(pair_fn: Callable, x: torch.Tensor, t: torch.Tensor,
         eps_g = torch.where(gate, eps_g, eps_c)
         x0_g = torch.where(gate, x0_g, x0_c)
     return eps_g, x0_g
+
+
+def cfg_eps(model_fn: Callable, x: torch.Tensor, t: torch.Tensor,
+            y: torch.Tensor, cfg_scale: float) -> torch.Tensor:
+    """Classifier-free-guided eps with one model call on the [cond; uncond]
+    batch."""
+    x2 = torch.cat([x, x], dim=0)
+    t2 = torch.cat([t, t], dim=0)
+    y2 = torch.cat([y, torch.zeros_like(y)], dim=0)
+    eps_c, eps_u = model_fn(x2, t2, y2).chunk(2, dim=0)
+    return eps_u + cfg_scale * (eps_c - eps_u)
+
+
+def initial_image(shape, generator: Optional[torch.Generator],
+                  init_noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """`init_noise` as float32, or a standard normal draw of `shape` from
+    `generator`, on the generator's device."""
+    if init_noise is not None:
+        return init_noise.to(torch.float32)
+    if generator is None:
+        raise ValueError("pass a torch.Generator or init_noise")
+    return torch.randn(tuple(shape), generator=generator,
+                       device=generator.device, dtype=torch.float32)
+
+
+def step_noise(noises: Optional[Sequence], i: int, like: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The noise of step `i`: `noises[i]` when the caller passed the
+    sequence, else a standard normal draw from `generator`."""
+    if noises is not None:
+        return noises[i].to(like.device, torch.float32)
+    if generator is None:
+        raise ValueError("pass a torch.Generator or the per-step noises")
+    return torch.randn(like.shape, generator=generator,
+                       device=generator.device).to(like.device)
+
+
+def check_noises(noises: Optional[Sequence], steps: int):
+    if noises is not None and len(noises) != steps:
+        raise ValueError(f"noises: {len(noises)} given for {steps} steps")
+
+
+class Trajectory:
+    """The states a sampler returns: the last one, or with
+    `return_all_timesteps` every step's, stacked as (S, B, H, W, C)."""
+
+    def __init__(self, return_all_timesteps: bool):
+        self.frames = [] if return_all_timesteps else None
+        self.last = None
+
+    def add(self, x: torch.Tensor) -> None:
+        self.last = x
+        if self.frames is not None:
+            self.frames.append(x)
+
+    def result(self) -> torch.Tensor:
+        return (torch.stack(self.frames) if self.frames is not None
+                else self.last)
+
+
+def report_progress(progress: bool, desc: str, done: int, total: int,
+                    every: int = 5) -> None:
+    if progress and done % max(1, total // every) == 0:
+        print(f"{desc}: step {done}/{total}", flush=True)
+
+
+class VPProcess(ScheduledProcess):
+    """A process over one VP `NoiseSchedule`: its options, the training API
+    (`q_sample`, `p_losses`), the guided, constrained (eps, x0) each
+    sampling step reads (`eps_x0_fn`, JAX's `make_x0_fn`) and the sampling
+    API (`sample`, `sample_with_cfg`) around a subclass's `_solve` loop.
+    DDPM, DDIM, DPM-Solver++ and UniPC build on it, as the JAX classes
+    share these pieces."""
+
+    DESC = "Sampling"
+
+    def __init__(self, num_timesteps: int = 1000, beta_start: float = 1e-4,
+                 beta_end: float = 0.02, beta_schedule: str = "linear",
+                 prediction_type: str = "eps",
+                 loss_weighting: str = "uniform",
+                 min_snr_gamma: float = 5.0, zero_terminal_snr: bool = False,
+                 guidance_rescale: float = 0.0, clip_sample: bool = True,
+                 cfg_interval=None):
+        if prediction_type not in VALID_PREDICTION_TYPES:
+            raise invalid_choice("prediction type", prediction_type,
+                                 VALID_PREDICTION_TYPES)
+        if zero_terminal_snr and prediction_type == "eps":
+            raise ValueError(
+                "zero_terminal_snr requires prediction_type 'v' or 'x0': at "
+                "SNR = 0 an eps-prediction carries no signal to denoise from")
+        if loss_weighting not in VALID_LOSS_WEIGHTINGS:
+            raise invalid_choice("loss weighting", loss_weighting,
+                                 VALID_LOSS_WEIGHTINGS)
+        self.num_timesteps = num_timesteps
+        self.prediction_type = prediction_type
+        self.loss_weighting = loss_weighting
+        self.min_snr_gamma = float(min_snr_gamma)
+        self.zero_terminal_snr = bool(zero_terminal_snr)
+        self.guidance_rescale = validate_guidance_rescale(guidance_rescale)
+        self.clip_sample = bool(clip_sample)
+        self.cfg_interval = validate_cfg_interval(cfg_interval, num_timesteps)
+        self.schedule = NoiseSchedule.create(
+            num_timesteps, beta_start, beta_end, beta_schedule,
+            zero_terminal_snr=zero_terminal_snr)
+
+    # -- training --------------------------------------------------------
+    def q_sample(self, x_start, t, noise):
+        return q_sample(self.schedule_on(x_start.device), x_start, t, noise)
+
+    def p_losses(self, model_fn, x_start, t, noise, y=None, loss_type="l2"):
+        return p_losses(
+            self.schedule_on(x_start.device), model_fn, x_start, t, noise,
+            y=y, loss_type=loss_type, prediction_type=self.prediction_type,
+            weighting=self.loss_weighting, snr_gamma=self.min_snr_gamma)
+
+    # -- sampling --------------------------------------------------------
+    def pair_fn(self, model_fn, device) -> Callable:
+        """The `(x, t, y) -> (eps, x0)` view of `model_fn`."""
+        return wrap_model_as_eps_x0(self.schedule_on(device), model_fn,
+                                    self.prediction_type)
+
+    def eps_x0_fn(self, model_fn, device, y, cfg_scale: float, *,
+                  use_cfg: bool, p_threshold) -> Callable:
+        """`(x, t) -> (eps, x0)` of one sampling step: one model call on the
+        [cond; uncond] batch with guidance rescale, interval and the x0
+        constraint under CFG; else the plain call and the clamp when
+        `clip_sample`."""
+        schedule = self.schedule_on(device)
+        pair_fn = self.pair_fn(model_fn, device)
+
+        def eps_x0(x, t):
+            if use_cfg:
+                eps, x0 = cfg_eps_x0(
+                    pair_fn, x, t, y, cfg_scale,
+                    guidance_rescale=self.guidance_rescale,
+                    schedule=schedule, cfg_interval=self.cfg_interval)
+                return eps, constrain_x0(x0, p_threshold, self.clip_sample)
+            eps, x0 = pair_fn(x, t, y)
+            return eps, (torch.clamp(x0, -1.0, 1.0) if self.clip_sample
+                         else x0)
+        return eps_x0
+
+    def sample(self, model_fn, shape, generator=None, y=None,
+               init_noise=None, noises: Optional[Sequence] = None,
+               return_all_timesteps: bool = False,
+               progress: bool = False) -> torch.Tensor:
+        """Unguided sampling: (B, H, W, C), or every step's state
+        (S, B, H, W, C) with `return_all_timesteps`."""
+        img = initial_image(shape, generator, init_noise)
+        if y is not None:
+            y = torch.as_tensor(y, device=img.device)
+        eps_x0 = self.eps_x0_fn(model_fn, img.device, y, 0.0, use_cfg=False,
+                                p_threshold=None)
+        return self._solve(eps_x0, img, generator, noises,
+                           return_all_timesteps, progress, self.DESC)
+
+    def sample_with_cfg(self, model_fn, shape, y, generator=None,
+                        cfg_scale: float = 3.0, p_threshold=AUTO_THRESHOLD,
+                        init_noise=None, noises: Optional[Sequence] = None,
+                        return_all_timesteps: bool = False,
+                        progress: bool = False) -> torch.Tensor:
+        """Sampling with classifier-free guidance on labels `y` (shifted
+        +1) and dynamic thresholding of x0 (p = 0.995 by default in pixel
+        space)."""
+        if y is None:
+            raise ValueError("CFG sampling requires class labels y.")
+        img = initial_image(shape, generator, init_noise)
+        eps_x0 = self.eps_x0_fn(
+            model_fn, img.device, torch.as_tensor(y, device=img.device),
+            float(cfg_scale), use_cfg=True,
+            p_threshold=resolve_p_threshold(p_threshold, self.clip_sample))
+        return self._solve(eps_x0, img, generator, noises,
+                           return_all_timesteps, progress,
+                           f"{self.DESC} with CFG scale {cfg_scale}")
+
+
+class FastVPSampler(VPProcess):
+    """A VP process that samples on a grid of `num_inference_steps`
+    timesteps, uniform (`ddim_timesteps`) or Karras-spaced
+    (`timestep_spacing: 'karras'`, `karras_rho`): DDIM, DPM-Solver++ and
+    UniPC."""
+
+    def __init__(self, num_inference_steps: int = 50,
+                 timestep_spacing: str = "uniform", karras_rho: float = 7.0,
+                 **common):
+        super().__init__(**common)
+        self.timestep_spacing = timestep_spacing
+        self.karras_rho = float(karras_rho)
+        self.set_inference_steps(num_inference_steps)
+
+    def set_inference_steps(self, num_inference_steps: int):
+        self.num_inference_steps = num_inference_steps
+        self.inference_timesteps = inference_timesteps(
+            self.schedule, num_inference_steps, self.timestep_spacing,
+            self.karras_rho)

@@ -14,8 +14,6 @@ to feed both packages the same draws.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
 import torch
 
 from . import base
@@ -34,122 +32,41 @@ def posterior_step(schedule: NoiseSchedule, x: torch.Tensor, t: torch.Tensor,
     return mean + nonzero * torch.exp(0.5 * logvar) * noise
 
 
-class DDPM(base.ScheduledProcess):
+class DDPM(base.VPProcess):
     """DDPM diffusion process: the JAX class's training API (`q_sample`,
-    `p_losses`) and its samplers (`sample`, `sample_with_cfg`)."""
+    `p_losses`), its one-step `p_sample` and its samplers (`sample`,
+    `sample_with_cfg`) over all T steps."""
 
-    def __init__(
-        self,
-        num_timesteps: int = 1000,
-        beta_start: float = 1e-4,
-        beta_end: float = 0.02,
-        beta_schedule: str = "linear",
-        prediction_type: str = "eps",
-        loss_weighting: str = "uniform",
-        min_snr_gamma: float = 5.0,
-        zero_terminal_snr: bool = False,
-        guidance_rescale: float = 0.0,
-        clip_sample: bool = True,
-        cfg_interval=None,
-    ):
-        if prediction_type not in base.VALID_PREDICTION_TYPES:
-            raise base.invalid_choice("prediction type", prediction_type,
-                                      base.VALID_PREDICTION_TYPES)
-        if loss_weighting not in base.VALID_LOSS_WEIGHTINGS:
-            raise base.invalid_choice("loss weighting", loss_weighting,
-                                      base.VALID_LOSS_WEIGHTINGS)
-        if zero_terminal_snr and prediction_type == "eps":
-            raise ValueError(
-                "zero_terminal_snr requires prediction_type 'v' or 'x0': at "
-                "SNR = 0 an eps-prediction carries no signal to denoise from")
-        self.num_timesteps = num_timesteps
-        self.prediction_type = prediction_type
-        self.loss_weighting = loss_weighting
-        self.min_snr_gamma = float(min_snr_gamma)
-        self.guidance_rescale = base.validate_guidance_rescale(guidance_rescale)
-        self.clip_sample = bool(clip_sample)
-        self.cfg_interval = base.validate_cfg_interval(cfg_interval,
-                                                       num_timesteps)
-        self.schedule = NoiseSchedule.create(
-            num_timesteps, beta_start, beta_end, beta_schedule,
-            zero_terminal_snr=zero_terminal_snr)
+    DESC = "DDPM sampling"
 
-    # -- training --------------------------------------------------------
-    def q_sample(self, x_start, t, noise):
-        return base.q_sample(self.schedule_on(x_start.device), x_start, t,
-                             noise)
+    def p_sample(self, model_fn, x, t, noise, y=None,
+                 clip_denoised: bool = True, eps=None, x0_pred=None):
+        """One ancestral step x_t -> x_{t-1} with the step's `noise`; x0
+        from the model unless `x0_pred` or `eps` is given."""
+        schedule = self.schedule_on(x.device)
+        if x0_pred is None:
+            if eps is None:
+                _, x0_pred = self.pair_fn(model_fn, x.device)(x, t, y)
+            else:
+                x0_pred = base.predict_x0_from_eps(schedule, x, t, eps)
+        if clip_denoised:
+            x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
+        return posterior_step(schedule, x, t, x0_pred, noise)
 
-    def p_losses(self, model_fn, x_start, t, noise, y=None, loss_type="l2"):
-        return base.p_losses(
-            self.schedule_on(x_start.device), model_fn, x_start, t, noise,
-            y=y, loss_type=loss_type, prediction_type=self.prediction_type,
-            weighting=self.loss_weighting, snr_gamma=self.min_snr_gamma)
-
-    # -- sampling --------------------------------------------------------
     @torch.no_grad()
-    def _run(self, model_fn, shape, generator, y, cfg_scale, init_noise,
-             noises, *, use_cfg, p_threshold, progress, desc):
-        if init_noise is not None:
-            img = init_noise.to(torch.float32)
-        else:
-            if generator is None:
-                raise ValueError("pass a torch.Generator or init_noise")
-            img = torch.randn(tuple(shape), generator=generator,
-                              device=generator.device, dtype=torch.float32)
-        if noises is None and generator is None:
-            raise ValueError("pass a torch.Generator or the per-step noises")
-        if noises is not None and len(noises) != self.num_timesteps:
-            raise ValueError(f"noises: {len(noises)} given for "
-                             f"{self.num_timesteps} steps")
+    def _solve(self, eps_x0, img, generator, noises, return_all_timesteps,
+               progress, desc):
+        base.check_noises(noises, self.num_timesteps)
         device = img.device
         schedule = self.schedule_on(device)
-        pair_fn = base.wrap_model_as_eps_x0(schedule, model_fn,
-                                            self.prediction_type)
-        if y is not None:
-            y = torch.as_tensor(y, device=device)
+        out = base.Trajectory(return_all_timesteps)
         batch = img.shape[0]
         for i, t_i in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((batch,), t_i, dtype=torch.int64, device=device)
-            if use_cfg:
-                _, x0 = base.cfg_eps_x0(
-                    pair_fn, img, t, y, cfg_scale,
-                    guidance_rescale=self.guidance_rescale, schedule=schedule,
-                    cfg_interval=self.cfg_interval)
-                x0 = base.constrain_x0(x0, p_threshold, self.clip_sample)
-            else:
-                _, x0 = pair_fn(img, t, y)
-                if self.clip_sample:
-                    x0 = torch.clamp(x0, -1.0, 1.0)
-            if noises is not None:
-                noise = noises[i].to(device, torch.float32)
-            else:
-                noise = torch.randn(img.shape, generator=generator,
-                                    device=generator.device).to(device)
+            _, x0 = eps_x0(img, t)
+            noise = base.step_noise(noises, i, img, generator)
             img = posterior_step(schedule, img, t, x0, noise)
-            if progress and (i + 1) % max(1, self.num_timesteps // 10) == 0:
-                print(f"{desc}: step {i + 1}/{self.num_timesteps}", flush=True)
-        return img
-
-    def sample(self, model_fn, shape, generator=None, y=None,
-               init_noise=None, noises: Optional[Sequence] = None,
-               progress: bool = False) -> torch.Tensor:
-        """Ancestral sampling over all T steps: (B, H, W, C)."""
-        return self._run(model_fn, shape, generator, y, 0.0, init_noise,
-                         noises, use_cfg=False, p_threshold=None,
-                         progress=progress, desc="Sampling")
-
-    def sample_with_cfg(self, model_fn, shape, y, generator=None,
-                        cfg_scale: float = 3.0,
-                        p_threshold=base.AUTO_THRESHOLD, init_noise=None,
-                        noises: Optional[Sequence] = None,
-                        progress: bool = False) -> torch.Tensor:
-        """Ancestral sampling with classifier-free guidance on labels `y`
-        (shifted +1) and dynamic thresholding of x0 (p = 0.995 by default in
-        pixel space)."""
-        if y is None:
-            raise ValueError("CFG sampling requires class labels y.")
-        p_threshold = base.resolve_p_threshold(p_threshold, self.clip_sample)
-        return self._run(model_fn, shape, generator, y, float(cfg_scale),
-                         init_noise, noises, use_cfg=True,
-                         p_threshold=p_threshold, progress=progress,
-                         desc=f"DDPM Sampling with CFG scale {cfg_scale}")
+            out.add(img)
+            base.report_progress(progress, desc, i + 1, self.num_timesteps,
+                                 every=10)
+        return out.result()

@@ -2,7 +2,8 @@
 
 Counterpart of `diffusion_models_collection_tpu/diffusion/schedule.py`:
 linear, cosine and quadratic beta schedules and every derived coefficient,
-in float32, with the same zero-terminal-SNR rescale and DDIM grid.
+in float32, with the same zero-terminal-SNR rescale, DDIM grid and Karras
+grid.
 """
 
 from __future__ import annotations
@@ -10,9 +11,11 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 VALID_SCHEDULES = ("linear", "cosine", "quadratic")
+VALID_SPACINGS = ("uniform", "karras")
 
 
 def make_betas(num_timesteps: int, beta_start: float = 1e-4,
@@ -123,3 +126,42 @@ def ddim_timesteps(num_timesteps: int,
     grid = torch.linspace(num_timesteps - 1, 0, num_inference_steps,
                           dtype=torch.float64)
     return torch.round(grid).to(torch.int64)
+
+
+def karras_timesteps(schedule: NoiseSchedule, num_inference_steps: int,
+                     rho: float = 7.0) -> torch.Tensor:
+    """Karras-spaced grid (Karras et al. 2022, eq. 5) over the schedule's VP
+    sigma range sigma_t = sqrt((1 - acp) / acp), each sigma mapped to the
+    nearest timestep, deduplicated; descending int64. Computed in float64
+    from the float32 `alphas_cumprod`, so it may hold fewer than
+    `num_inference_steps` entries. Zero-terminal-SNR puts sigma = inf at
+    the last step, which the grid then starts from."""
+    if num_inference_steps < 2:
+        return torch.tensor([schedule.num_timesteps - 1], dtype=torch.int64)
+    acp = schedule.alphas_cumprod.cpu().numpy().astype(np.float64)
+    # zero-terminal-SNR: sigma[-1] = inf and the grid after it NaN, as in
+    # the JAX package
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sigmas = np.sqrt((1.0 - acp) / acp)  # ascending in t
+        smin, smax = sigmas[0], sigmas[-1]
+        i = np.arange(num_inference_steps, dtype=np.float64)
+        grid = (smax ** (1.0 / rho) + i / (num_inference_steps - 1)
+                * (smin ** (1.0 / rho) - smax ** (1.0 / rho))) ** rho
+    idx = np.clip(np.searchsorted(sigmas, grid, side="left"), 1,
+                  len(sigmas) - 1)
+    left_closer = np.abs(grid - sigmas[idx - 1]) <= np.abs(sigmas[idx] - grid)
+    ts = np.unique(np.where(left_closer, idx - 1, idx))[::-1]
+    return torch.from_numpy(ts.copy()).to(torch.int64)
+
+
+def inference_timesteps(schedule: NoiseSchedule, num_inference_steps: int,
+                        spacing: str = "uniform",
+                        rho: float = 7.0) -> torch.Tensor:
+    """The fast samplers' descending grid: `ddim_timesteps` or, with
+    `spacing` 'karras', `karras_timesteps`."""
+    if spacing == "karras":
+        return karras_timesteps(schedule, num_inference_steps, rho)
+    if spacing != "uniform":
+        raise ValueError(f"Unknown timestep spacing: {spacing!r} (expected "
+                         f"one of {VALID_SPACINGS})")
+    return ddim_timesteps(schedule.num_timesteps, num_inference_steps)

@@ -3,8 +3,10 @@ and the training data from a config, and load a checkpoint's weights for
 inference.
 
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
-port covers: the UNet, DiT and DiM, DDPM training and sampling, DDIM
-sampling, float32 or mixed precision (`mixed_precision: 'bf16'`).
+port covers: the UNet, DiT and DiM; DDPM training and sampling and the fast
+VP samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC); flow matching and EDM,
+each training and sampling; float32 or mixed precision
+(`mixed_precision: 'bf16'`).
 The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it). Every
 other model type,
@@ -14,13 +16,13 @@ item that ports it.
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Mapping
 
 import torch
 from torch import nn
 
 from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
-from .diffusion import DDIM, DDPM
+from .diffusion import DDIM, DDPM, DPMSolverPP, EDM, FlowMatching, UniPC
 from .models import DiM, DiT, UNet
 from .utils.helpers import resolve_image_size
 
@@ -60,40 +62,107 @@ def get_model(config: Mapping) -> nn.Module:
     return MODEL_CLASSES[model_type](**params)
 
 
-def get_diffusion(config: Mapping,
-                  sampling_method: str = "ddpm") -> Union[DDPM, DDIM]:
-    """The diffusion process over the config's VP schedule: DDPM (training
-    always, and ancestral sampling) or DDIM sampling."""
+def get_diffusion(config: Mapping, sampling_method: str = "ddpm"):
+    """The diffusion process of a config, as the JAX factory builds it.
+
+    `diffusion_type: 'flow_matching'` (also 'flow', 'rectified_flow') and
+    'edm' own training and sampling, whatever `sampling_method` says, and
+    reject the VP-only keys that do not apply to them. Otherwise
+    `sampling_method` picks DDIM, DPM-Solver++ (also its SDE form) or
+    UniPC on the VP schedule, under the JAX factory's aliases, and DDPM
+    for 'ddpm' or any other name (training always runs DDPM's objective).
+    """
     dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
-    if dtype_key not in ("ddpm", "diffusion"):
+    clip_sample = bool(config.get("clip_sample",
+                                  not config.get("latent_diffusion", False)))
+    if dtype_key in ("flow", "flow_matching", "rectified_flow"):
+        if str(config.get("loss_weighting", "uniform")) != "uniform":
+            raise ValueError(
+                "loss_weighting is SNR-based and does not apply to flow "
+                "matching (the velocity objective is already uniformly "
+                "weighted along the path)")
+        if float(config.get("guidance_rescale", 0.0)) != 0.0:
+            raise ValueError(
+                "guidance_rescale is defined on the VP-diffusion x0 "
+                "prediction and does not apply to flow matching")
+        if config.get("cfg_interval") is not None:
+            raise ValueError("cfg_interval is defined on the VP timestep "
+                             "grid and does not apply to flow matching")
+        return FlowMatching(
+            num_timesteps=config["num_timesteps"],
+            num_inference_steps=config.get("num_inference_steps", 50),
+            solver=config.get("flow_solver", "euler"),
+            clip_sample=clip_sample)
+    if dtype_key == "edm":
+        if str(config.get("loss_weighting", "uniform")) != "uniform":
+            raise ValueError("loss_weighting does not apply to EDM: it has "
+                             "its own lambda(sigma) weighting")
+        if str(config.get("prediction_type", "eps")) != "eps":
+            raise ValueError("prediction_type does not apply to EDM: the "
+                             "preconditioned denoiser D is defined in x0 "
+                             "space")
+        if config.get("cfg_interval") is not None:
+            raise ValueError("cfg_interval is defined on the VP timestep "
+                             "grid and does not apply to EDM (its noise "
+                             "levels are sigmas)")
+        return EDM(
+            num_timesteps=config["num_timesteps"],
+            num_inference_steps=config.get("num_inference_steps", 18),
+            sigma_data=config.get("sigma_data", 0.5),
+            sigma_min=config.get("sigma_min", 0.002),
+            sigma_max=config.get("sigma_max", 80.0),
+            rho=config.get("edm_rho", config.get("karras_rho", 7.0)),
+            p_mean=config.get("p_mean", -1.2),
+            p_std=config.get("p_std", 1.2),
+            s_churn=config.get("s_churn", 0.0),
+            s_min=config.get("s_min", 0.0),
+            s_max=config.get("s_max", float("inf")),
+            s_noise=config.get("s_noise", 1.0),
+            guidance_rescale=config.get("guidance_rescale", 0.0),
+            clip_sample=clip_sample)
+    if dtype_key == "consistency":
         raise NotImplementedError(
-            f"diffusion_type {dtype_key!r} is not ported yet (ROADMAP queue "
-            "1 item 10)")
+            "diffusion_type 'consistency' is not ported yet: its sampler "
+            "needs a checkpoint distilled by tools/distill.py and comes with "
+            "that trainer (ROADMAP queue 1 item 12)")
+    if dtype_key not in ("ddpm", "diffusion"):
+        raise ValueError(
+            f"Unknown diffusion_type: {config.get('diffusion_type')!r} "
+            "(expected 'ddpm', 'flow_matching', 'edm' or 'consistency')")
     common = dict(
         num_timesteps=config["num_timesteps"],
         beta_start=config["beta_start"],
         beta_end=config["beta_end"],
         beta_schedule=config["beta_schedule"],
         prediction_type=config.get("prediction_type", "eps"),
+        loss_weighting=config.get("loss_weighting", "uniform"),
+        min_snr_gamma=config.get("min_snr_gamma", 5.0),
         zero_terminal_snr=config.get("zero_terminal_snr", False),
         guidance_rescale=config.get("guidance_rescale", 0.0),
-        clip_sample=bool(config.get("clip_sample", True)),
+        clip_sample=clip_sample,
         cfg_interval=config.get("cfg_interval"),
     )
-    method = sampling_method.lower()
-    if method == "ddpm":
-        return DDPM(loss_weighting=config.get("loss_weighting", "uniform"),
-                    min_snr_gamma=config.get("min_snr_gamma", 5.0), **common)
-    if method != "ddim":
-        raise NotImplementedError(
-            f"sampling_method {sampling_method!r} is not ported yet (ROADMAP "
-            "queue 1 item 10)")
-    return DDIM(
-        num_inference_steps=config.get("num_inference_steps", 50),
-        eta=config.get("ddim_eta", 0.0),
+    fast_common = dict(
+        common,
         timestep_spacing=config.get("timestep_spacing", "uniform"),
-        **common,
+        karras_rho=config.get("karras_rho", 7.0),
     )
+    method = sampling_method.lower()
+    if method == "ddim":
+        return DDIM(num_inference_steps=config.get("num_inference_steps", 50),
+                    eta=config.get("ddim_eta", 0.0), **fast_common)
+    if method in ("dpm++", "dpmpp", "dpm_solver++", "dpm-solver++"):
+        return DPMSolverPP(
+            num_inference_steps=config.get("num_inference_steps", 20),
+            **fast_common)
+    if method in ("unipc", "uni-pc", "uni_pc"):
+        return UniPC(num_inference_steps=config.get("num_inference_steps", 10),
+                     **fast_common)
+    if method in ("dpm++sde", "dpmpp_sde", "sde-dpm++", "dpm++_sde"):
+        return DPMSolverPP(
+            num_inference_steps=config.get("num_inference_steps", 20),
+            sde=True, **fast_common)
+    return DDPM(**common)
 
 
 def get_dataset(config: Mapping, train: bool = True):

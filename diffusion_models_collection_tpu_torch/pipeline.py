@@ -1,13 +1,16 @@
 """Sampling pipeline behind `sample.py`.
 
 Counterpart of `diffusion_models_collection_tpu/pipeline.py` for the
-branches this port serves: DDIM or DDPM, each with classifier-free guidance
-(conditional checkpoints with --cfg_scale > 0; --guidance_rescale and
---cfg_interval override the config's keys) or plain; --mixed_precision
-overrides the config's compute dtype. The JAX pipeline's other
-knobs (ToMe, FreeU, int8, PAG, DeepCache, classifier guidance,
-super-resolution, img2img, restarts, latent decode) are ROADMAP queue 1
-items 10 and 11; configs that ask for them raise in the factory.
+branches this port serves: DDPM, DDIM, DPM-Solver++ (2M and SDE) and UniPC
+on a VP checkpoint, and the flow-matching and EDM checkpoints' own
+samplers, each with classifier-free guidance (conditional checkpoints with
+--cfg_scale > 0; --guidance_rescale and --cfg_interval override the
+config's keys) or plain, optionally returning every step's state;
+--num_inference_steps and --mixed_precision override the config's keys.
+The JAX pipeline's other knobs (ToMe, FreeU, int8, PAG, DeepCache,
+classifier guidance, super-resolution, img2img, restarts, latent decode)
+are ROADMAP queue 1 items 10 and 11; configs that ask for them raise in the
+factory.
 """
 
 from __future__ import annotations
@@ -50,6 +53,26 @@ def build_labels(args, config, nrow: int, num_rows: int):
     return labels.astype(np.int64)
 
 
+FAST_SAMPLERS = ("ddim", "dpm++", "dpm++sde", "unipc")
+
+
+def apply_steps_and_precision(args, config, is_flow: bool,
+                              is_edm: bool) -> None:
+    """The JAX pipeline's step-count rule: --num_inference_steps sets the
+    config's count for the fast samplers and for flow and EDM checkpoints;
+    without it DDIM on a VP checkpoint takes the CLI's default of 50 and
+    every other case keeps the checkpoint's count. --mixed_precision
+    overrides the compute dtype."""
+    method = args.sampling_method.lower()
+    if args.num_inference_steps is not None:
+        if method in FAST_SAMPLERS or is_flow or is_edm:
+            config["num_inference_steps"] = args.num_inference_steps
+    elif method == "ddim" and not (is_flow or is_edm):
+        config["num_inference_steps"] = 50
+    if args.mixed_precision is not None:
+        config["mixed_precision"] = args.mixed_precision
+
+
 class SamplingPipeline:
     """Model, sampler and per-batch dispatch for `sample.py`."""
 
@@ -57,19 +80,16 @@ class SamplingPipeline:
         self.args = args
         self.config = config
         self.device = device
-        if args.sampling_method.lower() == "ddim":
-            # the sample CLI's DDIM default of 50 steps overrides the
-            # checkpoint's embedded count unless the flag is given
-            config["num_inference_steps"] = (
-                args.num_inference_steps
-                if args.num_inference_steps is not None else 50)
+        dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
+        self.is_flow = dtype_key in ("flow", "flow_matching",
+                                     "rectified_flow")
+        self.is_edm = dtype_key == "edm"
+        apply_steps_and_precision(args, config, self.is_flow, self.is_edm)
         if args.guidance_rescale is not None:
             config["guidance_rescale"] = args.guidance_rescale
         if args.cfg_interval is not None:
             lo, hi = (int(v) for v in args.cfg_interval.split(","))
             config["cfg_interval"] = (lo, hi)
-        if args.mixed_precision is not None:
-            config["mixed_precision"] = args.mixed_precision
         config["image_size"] = resolve_image_size(config["image_size"])
         print("Creating model...")
         self.model = load_model_for_inference(checkpoint, config, args.use_ema,
@@ -82,9 +102,11 @@ class SamplingPipeline:
         self.hw = (h, w)
 
     def run_batch(self, i: int, num_batches: int, batch: int, labels,
-                  generator: torch.Generator) -> torch.Tensor:
+                  generator: torch.Generator,
+                  return_all: bool = False) -> torch.Tensor:
         """Generate `batch` images with labels `labels` (None for an
-        unconditional model): (B, H, W, C) in [-1, 1]."""
+        unconditional model): (B, H, W, C) in [-1, 1], or with `return_all`
+        every step's state, (S, B, H, W, C)."""
         args = self.args
         shape = (batch, *self.hw, self.channels)
         y = (torch.as_tensor(labels, device=self.device)
@@ -94,7 +116,8 @@ class SamplingPipeline:
                   f"{args.cfg_scale}...")
             return self.diffusion.sample_with_cfg(
                 self.model, shape, y, generator, cfg_scale=args.cfg_scale,
-                progress=True)
+                return_all_timesteps=return_all, progress=True)
         print(f"Sampling batch {i + 1}/{num_batches}...")
         return self.diffusion.sample(self.model, shape, generator, y=y,
+                                     return_all_timesteps=return_all,
                                      progress=True)

@@ -6,9 +6,15 @@
 
 Counterpart of the repository's `sample.py` with the flags this port serves:
 DDPM's ancestral sampling over all T steps (the default, which ignores
-`--num_inference_steps`) or DDIM (`--sampling_method ddim`), each with
-classifier-free guidance and its two knobs (`--guidance_rescale`,
-`--cfg_interval`).
+`--num_inference_steps`), DDIM, DPM-Solver++ (`dpm++`, its SDE form
+`dpm++sde`) or UniPC (`unipc`), on the config's uniform or Karras grid
+(`timestep_spacing`); a flow-matching or EDM checkpoint samples with its own
+solver whatever `--sampling_method` says. Each with classifier-free
+guidance and its two knobs (`--guidance_rescale`, `--cfg_interval`).
+`--save_intermediate` writes every step's state (`intermediate/steps.npy`,
+(S, N, H, W, C) in [0, 1], and PNG grids); `--create_gif` writes the
+trajectory as a GIF with Pillow and stops with an error where Pillow is
+absent.
 The checkpoint is a PyTorch reference `.pth` or a JAX `.ckpt`, config
 embedded. Labels follow the reference: per-row classes shifted by +1, 0 the
 CFG null label. Writes an image grid (PNG) and the images as a float32
@@ -34,8 +40,9 @@ import torch
 
 from .pipeline import SamplingPipeline, build_labels
 from .utils.checkpoint import load_checkpoint
-from .utils.helpers import (format_duration, load_config, resolve_device,
-                            save_image_grid, set_seed)
+from .utils.helpers import (create_gif, format_duration, load_config,
+                            make_grid, resolve_device, save_image_grid,
+                            set_seed)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,9 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--config", type=str, default=None,
                         help="Path to config file (if not in checkpoint)")
     parser.add_argument("--sampling_method", type=str, default="ddpm",
-                        choices=["ddpm", "ddim"], help="Sampling method")
+                        choices=["ddpm", "ddim", "dpm++", "dpm++sde",
+                                 "unipc"],
+                        help="Sampling method (dpm++ = DPM-Solver++(2M), "
+                             "dpm++sde = its stochastic SDE form, unipc = "
+                             "UniPC predictor-corrector)")
     parser.add_argument("--num_inference_steps", type=int, default=None,
-                        help="Number of inference steps (default: 50)")
+                        help="Number of inference steps (default: 50 for "
+                             "ddim; other methods and flow/edm checkpoints "
+                             "default to the config's count)")
     parser.add_argument("--num_samples", type=int, default=64,
                         help="Number of samples to generate")
     parser.add_argument("--batch_size", type=int, default=16,
@@ -78,7 +91,54 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=42, help="Random seed")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
+    parser.add_argument("--save_intermediate", action="store_true",
+                        help="Save intermediate denoising steps")
+    parser.add_argument("--create_gif", action="store_true",
+                        help="Create GIF of the denoising process (needs "
+                             "Pillow)")
+    parser.add_argument("--gif_fps", type=int, default=20,
+                        help="FPS for the GIF")
+    parser.add_argument("--gif_final_seconds", type=float, default=2.0,
+                        help="Seconds to hold the final frame in the GIF")
     return parser
+
+
+def save_trajectory(args, inter: np.ndarray, output_dir: Path,
+                    nrow: int) -> None:
+    """Write the (S, N, H, W, C) trajectory in [0, 1]: with
+    --save_intermediate `intermediate/steps.npy` and a PNG grid of every
+    step (every S // 50-th beyond 100 steps, and the last); with
+    --create_gif the GIF beside the samples."""
+    steps = inter.shape[0]
+    if args.create_gif:
+        gif_path = output_dir / Path(args.output_name).with_suffix(".gif")
+        print(f"Creating GIF at {gif_path}...")
+        frames = [make_grid(inter[t], nrow=nrow, padding=2)
+                  for t in range(steps)]
+        if args.gif_final_seconds and args.gif_final_seconds > 0:
+            frames += [frames[-1]] * max(
+                1, int(args.gif_fps * float(args.gif_final_seconds)))
+        create_gif(frames, gif_path, fps=args.gif_fps)
+    if args.save_intermediate:
+        intermediate_dir = output_dir / "intermediate"
+        intermediate_dir.mkdir(exist_ok=True)
+        print(f"Saving intermediate frames to {intermediate_dir}...")
+        np.save(intermediate_dir / "steps.npy", inter)
+        interval = 1 if steps <= 100 else steps // 50
+        for t in sorted(set(range(0, steps, interval)) | {steps - 1}):
+            save_image_grid(inter[t], intermediate_dir / f"step_{t:04d}.png",
+                            nrow=nrow)
+
+
+def require_pillow() -> None:
+    """--create_gif writes with Pillow: stop before sampling where it is
+    absent."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        raise SystemExit("--create_gif needs Pillow, which is not installed; "
+                         "use --save_intermediate for the frames as .npy "
+                         "and PNG") from None
 
 
 def main(argv=None) -> dict:
@@ -93,6 +153,8 @@ def main(argv=None) -> dict:
     checkpoint = load_checkpoint(args.checkpoint, config)
     config = config if config is not None else checkpoint["config"]
 
+    if args.create_gif:
+        require_pillow()
     pipe = SamplingPipeline(args, config, checkpoint, device)
 
     nrow = max(1, int(math.sqrt(args.num_samples)))
@@ -103,6 +165,7 @@ def main(argv=None) -> dict:
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
 
+    return_all = args.save_intermediate or args.create_gif
     num_batches = math.ceil(args.num_samples / args.batch_size)
     start_time = time.perf_counter()
     batches = []
@@ -111,9 +174,11 @@ def main(argv=None) -> dict:
         end = min(start + args.batch_size, args.num_samples)
         batch_labels = labels[start:end] if labels is not None else None
         batches.append(pipe.run_batch(i, num_batches, end - start,
-                                      batch_labels, generator))
-    samples = torch.cat(batches).cpu().numpy()  # waits for the device
+                                      batch_labels, generator, return_all))
+    # waits for the device
+    trajectory = torch.cat(batches, dim=1 if return_all else 0).cpu().numpy()
     seconds = time.perf_counter() - start_time
+    samples = trajectory[-1] if return_all else trajectory
     print(f"Sampled {args.num_samples} images in {format_duration(seconds)} "
           f"({args.num_samples / seconds:.2f} samples/s) on {device}")
 
@@ -122,6 +187,10 @@ def main(argv=None) -> dict:
     print(f"Saving samples to {output_path}...")
     save_image_grid(samples, output_path, nrow=nrow)
     np.save(output_path.with_suffix(".npy"), samples)
+    if return_all:
+        print("Processing intermediate steps...")
+        save_trajectory(args, np.clip((trajectory + 1) / 2, 0, 1).astype(
+            np.float32), output_dir, nrow)
     print("Done!")
     return {"samples": samples, "sampling_seconds": seconds}
 

@@ -4,8 +4,10 @@
         --config configs/cifar10_unet.py [--device cuda|cpu]
 
 Counterpart of the repository's `train.py` for the diffusion denoisers this
-port has (the UNet and the DiM, DDPM objective; `configs/cifar10_dim.py`
-trains the DiM): one process on one device. The seed
+port has (the UNet, the DiT and the DiM: `configs/cifar10_unet.py`,
+`configs/cifar10_dit.py`, `configs/cifar10_dim.py`) under the config's
+process (DDPM's objective, or `diffusion_type: 'flow_matching'` or
+`'edm'`): one process on one device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
@@ -67,7 +69,9 @@ def main(argv=None) -> DiffusionTrainer:
 
     trainer = DiffusionTrainer(
         model=model,
-        diffusion=get_diffusion(config),  # training is always DDPM
+        # DDPM's objective, or the flow-matching or EDM process that the
+        # config's diffusion_type names
+        diffusion=get_diffusion(config),
         train_loader=train_loader,
         config=config,
         device=device,

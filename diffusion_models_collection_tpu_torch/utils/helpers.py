@@ -3,7 +3,7 @@
 Counterpart of `diffusion_models_collection_tpu/utils/helpers.py`.
 `set_seed` returns a `torch.Generator` (the JAX package returns a PRNG key),
 and images are written as PNG by a small zlib encoder, since Pillow is not
-a dependency of the port.
+a dependency of the port: only `create_gif` imports it, when called.
 """
 
 from __future__ import annotations
@@ -135,6 +135,22 @@ def save_image_grid(images: np.ndarray, save_path: Union[str, Path],
     grid = make_grid(np.asarray(images, dtype=np.float32), nrow, padding)
     write_png(save_path,
               (np.clip(grid, 0.0, 1.0) * 255).round().astype(np.uint8))
+
+
+def create_gif(frames: Sequence[np.ndarray], save_path: Union[str, Path],
+               fps: int = 20) -> None:
+    """Write (H, W, C) float frames in [0, 1] as a looping GIF (Pillow)."""
+    from PIL import Image
+
+    images = []
+    for frame in frames:
+        arr = (np.clip(np.asarray(frame, np.float32), 0.0, 1.0) * 255
+               ).round().astype(np.uint8)
+        images.append(Image.fromarray(arr[..., 0] if arr.shape[-1] == 1
+                                      else arr))
+    Path(save_path).parent.mkdir(parents=True, exist_ok=True)
+    images[0].save(str(save_path), save_all=True, append_images=images[1:],
+                   duration=1000 / fps, loop=0)
 
 
 def format_duration(total_seconds: float) -> str:

@@ -50,6 +50,9 @@ def _not_ported(cfg: dict):
                       ("super_resolution", 11)):
         if cfg.get(key):
             yield key, f"queue 1 item {item}"
+    # the JAX trainer's other format is orbax, which the port does not need
+    if cfg.get("checkpoint_format", "pickle") != "pickle":
+        yield "checkpoint_format", "queue 1 item 16"
 
 
 @torch.no_grad()

@@ -26,6 +26,9 @@ import torch
 from PIL import Image
 
 from diffusion_models_collection_tpu.pipeline import (
+    _apply_steps_and_precision as jax_apply_steps_and_precision,
+)
+from diffusion_models_collection_tpu.pipeline import (
     build_labels as jax_build_labels,
 )
 from diffusion_models_collection_tpu.utils.checkpoint import (
@@ -33,7 +36,10 @@ from diffusion_models_collection_tpu.utils.checkpoint import (
 )
 from diffusion_models_collection_tpu_torch import factory, sample
 from diffusion_models_collection_tpu_torch.diffusion import base
-from diffusion_models_collection_tpu_torch.pipeline import build_labels
+from diffusion_models_collection_tpu_torch.pipeline import (
+    apply_steps_and_precision,
+    build_labels,
+)
 from diffusion_models_collection_tpu_torch.utils import checkpoint
 from diffusion_models_collection_tpu_torch.utils.helpers import (
     make_grid,
@@ -120,8 +126,8 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
     {"model_type": "vae"},
     {"model_type": "classifier"},
     {"latent_diffusion": True},
-    {"diffusion_type": "flow_matching"},
-    {"timestep_spacing": "karras"},
+    {"diffusion_type": "consistency"},
+    {"super_resolution": {"scale": 2}},
 ])
 def test_factory_raises_on_what_is_not_ported(change):
     config = dict(small_config(), **change)
@@ -131,8 +137,12 @@ def test_factory_raises_on_what_is_not_ported(change):
 
 
 def test_factory_raises_on_samplers_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_diffusion(small_config(), "dpm++")
+    """Consistency sampling waits for its distillation trainer, whatever
+    the sampling method."""
+    for method in ("ddpm", "ddim", "dpm++", "unipc"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+            factory.get_diffusion(
+                dict(small_config(), diffusion_type="consistency"), method)
 
 
 # -------------------------------- the flags shared with the root `sample.py`
@@ -152,6 +162,85 @@ def test_sampling_method_defaults_to_ddpm_on_both_sides():
     ours = sample.build_parser().parse_args(argv)
     root = root_sample_parser().parse_args(argv)
     assert ours.sampling_method == root.sampling_method == "ddpm"
+    choices = [next(a.choices for a in p._actions
+                    if a.dest == "sampling_method")
+               for p in (sample.build_parser(), root_sample_parser())]
+    assert choices[0] == choices[1] == ["ddpm", "ddim", "dpm++", "dpm++sde",
+                                        "unipc"]
+    for flag in ("save_intermediate", "create_gif", "gif_fps",
+                 "gif_final_seconds"):
+        assert (getattr(ours, flag) == getattr(root, flag)), flag
+
+
+@pytest.mark.parametrize("diffusion_type", ["ddpm", "flow_matching", "edm"])
+@pytest.mark.parametrize("steps", [None, 7])
+@pytest.mark.parametrize("method", ["ddpm", "ddim", "dpm++", "dpm++sde",
+                                    "unipc"])
+def test_step_count_rule_matches_jax(method, steps, diffusion_type):
+    """--num_inference_steps and the DDIM default of 50, case by case
+    against the JAX pipeline's `_apply_steps_and_precision`."""
+    args = SimpleNamespace(sampling_method=method, num_inference_steps=steps,
+                           mixed_precision=None)
+    flags = (diffusion_type == "flow_matching", diffusion_type == "edm")
+    ours = dict(small_config(), diffusion_type=diffusion_type)
+    ref = dict(ours)
+    apply_steps_and_precision(args, ours, *flags)
+    jax_apply_steps_and_precision(args, ref, (*flags, False))
+    assert ours == ref
+    assert ours["num_inference_steps"] == (
+        steps if steps is not None and (method != "ddpm" or any(flags))
+        else 50 if method == "ddim" and not any(flags) else 10)
+
+
+def tiny_checkpoint(tmp_path, **changes):
+    """A `.pth` of the small conditional UNet's random weights, T = 10."""
+    config = dict(small_config(), num_timesteps=10, **changes)
+    torch.manual_seed(0)
+    ckpt = tmp_path / "model.pth"
+    checkpoint.save_checkpoint(ckpt, factory.get_model(config).state_dict(),
+                               config)
+    return ckpt
+
+
+@pytest.mark.parametrize("method,spacing", [
+    ("dpm++", "uniform"), ("dpm++sde", "uniform"), ("unipc", "uniform"),
+    ("ddim", "karras")])
+def test_fast_samplers_run_through_the_cli(tmp_path, method, spacing):
+    ckpt = tiny_checkpoint(tmp_path, timestep_spacing=spacing)
+    result = sample.main([
+        "--checkpoint", str(ckpt), "--sampling_method", method,
+        "--num_inference_steps", "4", "--num_samples", "3", "--batch_size",
+        "2", "--cfg_scale", "3", "--device", "cpu", "--output_dir",
+        str(tmp_path / "out")])
+    samples = result["samples"]
+    assert samples.shape == (3, 16, 16, 3) and np.isfinite(samples).all()
+    assert (tmp_path / "out" / "samples.png").is_file()
+
+
+def test_save_intermediate_writes_every_step(tmp_path):
+    ckpt = tiny_checkpoint(tmp_path)
+    out = tmp_path / "out"
+    result = sample.main([
+        "--checkpoint", str(ckpt), "--sampling_method", "unipc",
+        "--num_inference_steps", "3", "--num_samples", "3", "--batch_size",
+        "2", "--cfg_scale", "3", "--device", "cpu", "--output_dir", str(out),
+        "--save_intermediate", "--create_gif", "--gif_fps", "5"])
+    frames = np.load(out / "intermediate" / "steps.npy")
+    assert frames.shape == (3, 3, 16, 16, 3)
+    np.testing.assert_array_equal(frames[-1], result["samples"])
+    assert sorted(p.name for p in (out / "intermediate").glob("*.png")) == [
+        "step_0000.png", "step_0001.png", "step_0002.png"]
+    gif = Image.open(out / "samples.gif")
+    assert gif.n_frames == 3  # Pillow merges the held copies of the last
+
+
+def test_create_gif_stops_where_pillow_is_absent(monkeypatch, tmp_path):
+    ckpt = tiny_checkpoint(tmp_path)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(SystemExit, match="Pillow"):
+        sample.main(["--checkpoint", str(ckpt), "--sampling_method", "ddim",
+                     "--device", "cpu", "--output_dir", str(tmp_path),
+                     "--create_gif"])
 
 
 @pytest.mark.parametrize("argv,rescale,interval", [

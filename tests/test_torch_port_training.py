@@ -71,16 +71,9 @@ from torch_port_helpers import (
     W,
     jax_unet,
     max_rel,
+    shared_schedule,
     small_config,
 )
-
-
-def shared_schedule(num_timesteps=1000):
-    """The JAX schedule, and the port's NoiseSchedule holding its arrays."""
-    jsched = jax_schedule.NoiseSchedule.create(num_timesteps)
-    fields = {name: torch.tensor(np.asarray(getattr(jsched, name)))
-              for name in NoiseSchedule.__dataclass_fields__}
-    return jsched, NoiseSchedule(**fields)
 
 
 def affine_model(x, t, y, lib):
@@ -464,6 +457,7 @@ def test_resume_from_a_jax_checkpoint_starts_a_fresh_optimizer(
     {"tensor_parallel": 2}, {"pipeline_parallel": 2},
     {"sequence_parallel": 2}, {"expert_parallel": 2}, {"fsdp": True},
     {"latent_diffusion": True}, {"super_resolution": {"scale": 2}},
+    {"checkpoint_format": "orbax"},
 ])
 def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
     config = dict(train_config(tmp_path, 1), **change)

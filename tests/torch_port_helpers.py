@@ -5,12 +5,17 @@ with the same weights through the weight bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from diffusion_models_collection_tpu.diffusion import (
+    schedule as jax_schedule,
+)
 from diffusion_models_collection_tpu.models import DiM as JaxDiM
 from diffusion_models_collection_tpu.models import DiT as JaxDiT
 from diffusion_models_collection_tpu.models import UNet as JaxUNet
 from diffusion_models_collection_tpu.ops import dispatch
+from diffusion_models_collection_tpu_torch.diffusion import NoiseSchedule
 from diffusion_models_collection_tpu_torch.models import DiM, DiT, UNet
 from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
 from diffusion_models_collection_tpu_torch.utils.weights import (
@@ -169,3 +174,30 @@ def record_scan_calls(monkeypatch, suffix=""):
             return _real(*args)
         monkeypatch.setattr(ss, name + suffix, wrapper)
     return calls
+
+
+def shared_schedule(num_timesteps=1000):
+    """The JAX schedule, and the port's NoiseSchedule holding its arrays:
+    both sides on one set of coefficients, so only the arithmetic that
+    uses them is compared."""
+    jsched = jax_schedule.NoiseSchedule.create(num_timesteps)
+    fields = {name: torch.tensor(np.asarray(getattr(jsched, name)))
+              for name in NoiseSchedule.__dataclass_fields__}
+    return jsched, NoiseSchedule(**fields)
+
+
+def affine_xty(x, t, y, lib):
+    """A stand-in model both frameworks can run: affine in x, t and y
+    (`lib` is jnp or torch)."""
+    if lib is jnp:
+        tt, yy = t.astype(jnp.float32), y.astype(jnp.float32)
+    else:
+        tt, yy = t.to(torch.float32), y.to(torch.float32)
+    return (0.6 * x + 1e-3 * tt[:, None, None, None]
+            - 0.05 * yy[:, None, None, None])
+
+
+def normal_arrays(seed, n=3, shape=(3, 8, 8, 3)):
+    """`n` standard normal float32 arrays of `shape` from one seed."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
