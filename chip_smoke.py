@@ -20,6 +20,21 @@ through the port's entry points. The UNet's:
   10-step trajectory against the plain versions first (the SDE form with
   one explicit noise list for both runs) and exactly one forward's launches
   per model call;
+* editing and training-free knobs: a 10-step, 8-image trajectory of each
+  against the plain versions, with the plain run's own sensitivity to a
+  1e-6 change of its input beside it (DDIM img2img and inpainting at
+  strength 0.5, DDPM RePaint, DDIM with two restarts, DDIM inversion; PAG
+  on the UNet and the DiT, DeepCache at depth 1 and 2 and FreeU held
+  without the x0 constraint and printed with it), then 80 images CFG 3 through
+  `sample` for each (`--init_image` and `--mask` PNGs written by the port,
+  strength 0.5; RePaint `--repaint_jump 10 --repaint_resample 2` at
+  strength 0.075; `--restarts 2`; `--pag_scale 2`, also on the DiT;
+  `--deepcache 3` at depth 1 and 2, also on the bf16 UNet; `--freeu
+  1.1,1.2,0.9,0.2`) with exact launches (a PAG call 90 GroupNorm+SiLU and 11
+  attention launches, a DeepCache shallow call 11 and 0 at depth 1, 21 and
+  5 at depth 2), the kept pixels of the masked runs equal to the init
+  image, samples/s beside DDIM-50's; and DDIM-50 inversion of 80 images and
+  back, its round-trip error printed;
 * training: the GroupNorm+SiLU backward kernel at every shape of the UNet
   at batch 160 and 128, at a ragged shape and at a group too large for
   shared memory, against its plain version and against autograd through the
@@ -162,8 +177,15 @@ from diffusion_models_collection_tpu_torch import (  # noqa: E402
     train,
 )
 from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
+from diffusion_models_collection_tpu_torch.diffusion import DDPM  # noqa: E402
 from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
     karras_timesteps,
+)
+from diffusion_models_collection_tpu_torch.diffusion.deepcache import (  # noqa: E402
+    deepcache_sample,
+)
+from diffusion_models_collection_tpu_torch.diffusion.pag import (  # noqa: E402
+    pag_model_fn,
 )
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
@@ -179,6 +201,7 @@ from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
     resolve_image_size,
+    write_png,
 )
 
 CONFIG = ROOT / "configs" / "cifar10_unet.py"
@@ -817,15 +840,16 @@ def phase_gn_train_step(gn_shapes, gen):
 
 def phase_sample_main(label, config, model, per_forward, tmp,
                       compare_plain=False, flags=(), method="ddim",
-                      steps=STEPS):
+                      steps=STEPS, calls=None, expected=None):
     """80 images, CFG 3, through `sample.main` with `--sampling_method
     method` at `steps` steps (DDIM-50 by default) from a checkpoint of
     `model`'s weights and `config`, with `flags` added to its command line
     and exactly one `per_forward` (a `read_launches()` subset) for each
-    model call the sampler makes (`model_calls`). With `compare_plain`, the
-    same call again inside `plain_kernels()`, with no launch, for the plain
-    versions' samples/s. Returns the launches and the sampling seconds (and
-    the plain run's)."""
+    model call the sampler makes (`model_calls`), or exactly `expected`
+    launches over `calls` model calls where the caller gives them. With
+    `compare_plain`, the same call again inside `plain_kernels()`, with no
+    launch, for the plain versions' samples/s. Returns the launches and the
+    sampling seconds (and the plain run's)."""
     ckpt = Path(tmp) / f"{config['model_type']}_random.pth"
     checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
     argv = ["--checkpoint", str(ckpt), "--sampling_method", method,
@@ -833,7 +857,8 @@ def phase_sample_main(label, config, model, per_forward, tmp,
             "--batch_size", str(SAMPLES), "--seed", "0", "--device", "cuda",
             "--output_dir", tmp, "--output_name", "samples.png",
             "--num_inference_steps", str(steps), *flags]
-    calls = model_calls(config, method, steps)
+    if calls is None:
+        calls = model_calls(config, method, steps)
     # the caller ran the model at this batch, so cuDNN, cuBLAS and the
     # kernel library are warm
     torch.cuda.synchronize()
@@ -851,7 +876,8 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     for name in ("samples.png", "samples.npy"):
         if not (Path(tmp) / name).is_file():
             raise AssertionError(f"{label}: {name} was not written")
-    expected = scaled(per_forward, calls)
+    if expected is None:
+        expected = scaled(per_forward, calls)
     if launches != expected:
         raise AssertionError(f"{label} kernel launches {launches}, expected "
                              f"{expected}")
@@ -1414,6 +1440,296 @@ def phase_process(kind, gen, smi, tmp):
           f"{statistics.median(rates['plain']):.2f}), peak device memory "
           f"{peak / 2**20:.1f} MiB, on {smi}")
     return {"launches": launches, "rates": rates, "peak": peak}
+
+
+# ------------------------------------- editing and training-free knobs
+EDIT_STRENGTH = 0.5  # DDIM-50 img2img and inpainting: 25 steps
+# DDPM RePaint from t0 = round(0.075 * 999) = 75: 76 steps, each run twice
+REPAINT_STRENGTH, REPAINT_JUMP, REPAINT_RESAMPLE = 0.075, 10, 2
+RESTARTS = 2  # in the CLI's default interval (1, 0.3 T)
+PAG_SCALE = 2.0
+DEEPCACHE_INTERVAL = 3
+FREEU = (1.1, 1.2, 0.9, 0.2)
+# A PAG model call: the forward, then the same weights with every attention
+# map the identity, which runs each GroupNorm+SiLU and no attention
+UNET_PAG = {"gn": 2 * GN_PER_FORWARD, "attn": ATTN_PER_FORWARD}
+DIT_PAG = DIT_FORWARD
+# A DeepCache shallow call (configs/cifar10_unet.py: mult (1, 2, 2, 2), two
+# res blocks, attention at 16 and 8): at depth 1 down level 0's two res
+# blocks (4), up level 3's three (6) and the head (1), all at 32x32, so no
+# attention; at depth 2 also down level 1 (4, and 2 attentions at 16x16)
+# and up level 2 (6, and 3 attentions)
+DEEPCACHE_SHALLOW = {1: {"gn": 11}, 2: {"gn": 21, "attn": 5}}
+
+
+def bf16_counts(counts):
+    """`counts` of the float32 kernels with the same in their bf16 form."""
+    return dict(counts, **{f"{key}_bf16": n for key, n in counts.items()})
+
+
+def ddim_grid(config, steps):
+    return np.round(np.linspace(config["num_timesteps"] - 1, 0, steps))
+
+
+def add_counts(*pairs):
+    """The sum of `n` times `counts` over (counts, n) pairs, as `expect`."""
+    total = {}
+    for counts, n in pairs:
+        for key, c in counts.items():
+            total[key] = total.get(key, 0) + n * c
+    return expect(**total)
+
+
+def knob_runs(config):
+    """Each `sample.main` run of the knobs' phase: (label, sampling method,
+    flags, model calls, launches of the run). Model calls from the grids:
+    img2img the DDIM-50 grid at or below round(strength (T - 1)); RePaint
+    every step from t0 `resample` times; restarts the grid plus `restarts`
+    reruns from the first grid point at or below t_max to the last at or
+    above t_min; DeepCache one full step each `interval`."""
+    grid = ddim_grid(config, STEPS)
+    t_total = config["num_timesteps"]
+    img2img = int((grid <= round(EDIT_STRENGTH * (t_total - 1))).sum())
+    repaint = REPAINT_RESAMPLE * (round(REPAINT_STRENGTH * (t_total - 1)) + 1)
+    inside = np.nonzero((grid >= 1) & (grid <= max(2, int(0.3 * t_total))))[0]
+    restarts = STEPS + RESTARTS * int(inside[-1] - inside[0])
+    full = len(range(0, STEPS, DEEPCACHE_INTERVAL))
+    edit = ["--strength", str(EDIT_STRENGTH), "--init_image", "{dir}/init.png"]
+    runs = [
+        ("img2img", "ddim", edit, img2img, scaled(UNET_FORWARD, img2img)),
+        ("inpainting", "ddim", edit + ["--mask", "{dir}/mask.png"], img2img,
+         scaled(UNET_FORWARD, img2img)),
+        ("RePaint", "ddpm", ["--strength", str(REPAINT_STRENGTH),
+                             "--init_image", "{dir}/init.png", "--mask",
+                             "{dir}/mask.png", "--repaint_jump",
+                             str(REPAINT_JUMP), "--repaint_resample",
+                             str(REPAINT_RESAMPLE)],
+         repaint, scaled(UNET_FORWARD, repaint)),
+        ("restarts", "ddim", ["--restarts", str(RESTARTS)], restarts,
+         scaled(UNET_FORWARD, restarts)),
+        ("PAG", "ddim", ["--pag_scale", str(PAG_SCALE)], STEPS,
+         scaled(UNET_PAG, STEPS)),
+        ("FreeU", "ddim", ["--freeu", ",".join(map(str, FREEU))], STEPS,
+         scaled(UNET_FORWARD, STEPS)),
+    ]
+    for depth in (1, 2):
+        runs.append((f"DeepCache depth {depth}", "ddim",
+                     ["--deepcache", str(DEEPCACHE_INTERVAL),
+                      "--deepcache_depth", str(depth)], STEPS,
+                     add_counts((UNET_FORWARD, full),
+                                (DEEPCACHE_SHALLOW[depth], STEPS - full))))
+    return runs
+
+
+def editing_inputs(tmp, gen):
+    """A 32x32 init image and a mask regenerating its right half, written
+    as PNG by the port (`write_png`); returns the image in [0, 1] and the
+    mask."""
+    image = (torch.rand(32, 32, 3, generator=gen, device="cuda") * 255
+             ).round().to(torch.uint8).cpu().numpy()
+    mask = np.zeros((32, 32), np.uint8)
+    mask[:, 16:] = 255
+    write_png(Path(tmp) / "init.png", image)
+    write_png(Path(tmp) / "mask.png", mask)
+    return image / 255.0, mask
+
+
+def check_kept_pixels(label, samples, image, mask):
+    """With a mask, the kept (black) pixels come back as the init image."""
+    kept = np.broadcast_to((mask == 0)[None, :, :, None], samples.shape)
+    err = np.abs(samples[kept] - np.broadcast_to(image, samples.shape)[kept])
+    print(f"{label}: kept pixels against the init image max_abs "
+          f"{err.max():.3e}")
+    if not err.max() <= 1e-6:
+        raise AssertionError(f"{label}: kept pixels moved by {err.max()}")
+
+
+def phase_knob_trajectory(label, run, x, checked=True):
+    """`run(x)` (8 images, 10 steps or so, from the input `x`) through the
+    kernels against the same inside `plain_kernels()`, at TOL_TRAJ; `run`
+    reseeds whatever it draws, so both runs take the same noise. Beside it
+    the plain run's own sensitivity: how far it moves when `x` changes by
+    1e-6 relative, the distance that float32 rounding alone can open along
+    this trajectory. A run with `checked` False is printed, not held."""
+    out = run(x)
+    with plain_kernels():
+        ref = run(x)
+        moved = run(x * (1 + 1e-6))
+    torch.cuda.synchronize()
+    rel, sensitivity = max_rel(out, ref), max_rel(moved, ref)
+    print(f"{label} trajectory, 8 images: kernels vs plain max_rel "
+          f"{rel:.3e}; the plain run moved {sensitivity:.3e} by a 1e-6 "
+          f"change of its input" + ("" if checked else " (reported only)"))
+    if checked and not (torch.isfinite(out).all() and rel <= TOL_TRAJ):
+        raise AssertionError(f"{label} trajectory max_rel {rel}")
+
+
+def phase_knob_trajectories(model, freeu_model, dit_model, gen):
+    """A short trajectory of every knob's path against the plain versions:
+    DDIM-10 img2img and inpainting at strength 0.5, DDPM RePaint over 5
+    steps run twice, DDIM-10 with two restarts, DDIM-10 inversion, PAG over
+    DDIM-10 on the UNet and the DiT, DeepCache over DDIM-10 at depth 1 and
+    2, FreeU over DDIM-10; CFG 3 but for the inversion. PAG, FreeU and
+    DeepCache, which change the model's output, are held without the x0
+    constraint (`clip_sample: False`) and printed with the dynamic
+    threshold: there a random-weight trajectory can be chaotic (on an H100
+    80GB HBM3, PAG on the UNet ends 1.2e-2 from the plain versions, and the
+    plain run itself moves 1.7e-2 when its noise changes by 1e-6;
+    tests/test_torch_port_guidance.py finds the same on the CPU), and the
+    plain run's sensitivity is printed beside each."""
+    shape = (8, 32, 32, 3)
+    images = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn(shape, generator=gen, device="cuda")
+    mask = torch.zeros(1, 32, 32, 1, device="cuda")
+    mask[:, :, 16:] = 1.0
+    labels = torch.arange(1, 9, device="cuda")
+    ddim = DDIM(num_inference_steps=TRAJ_STEPS)
+    ddim_free = DDIM(num_inference_steps=TRAJ_STEPS, clip_sample=False)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(1)
+
+    def pag(m):
+        def perturbed(x, t, y=None):
+            return m(x, t, y, pag_perturb=True)
+        return pag_model_fn(m, perturbed, PAG_SCALE)
+
+    def views(depth):
+        return (lambda x, t, y: model(x, t, y, deepcache_mode="full",
+                                      deepcache_depth=depth),
+                lambda x, t, y, c: model(x, t, y, c, deepcache_mode="shallow",
+                                         deepcache_depth=depth))
+
+    cfg = dict(y=labels, cfg_scale=CFG_SCALE)
+    # label: (run, its input, held at TOL_TRAJ)
+    runs = {
+        "DDIM-10 img2img": (lambda x: ddim.img2img(
+            model, x, seeded(), strength=EDIT_STRENGTH, **cfg), images, True),
+        "DDIM-10 inpainting": (lambda x: ddim.img2img(
+            model, x, seeded(), strength=EDIT_STRENGTH, mask=mask, **cfg),
+            images, True),
+        "DDPM RePaint (5 steps x 2)": (lambda x: DDPM().img2img(
+            model, x, seeded(), strength=0.004, mask=mask,
+            repaint_jump=REPAINT_JUMP, repaint_resample=REPAINT_RESAMPLE,
+            **cfg), images, True),
+        "DDIM-10 restarts": (lambda x: ddim.sample_restart(
+            model, shape, seeded(), restart_interval=(1, 300),
+            restarts=RESTARTS, init_noise=x, **cfg), noise, True),
+        "DDIM-10 inversion": (lambda x: ddim.invert(model, x, y=labels),
+                              images, True),
+    }
+    # the knobs that change the model's output, each held without the x0
+    # constraint and printed with the dynamic threshold
+    guided = {"UNet PAG": lambda d, x: d.sample_with_cfg(
+                  pag(model), shape, labels, cfg_scale=CFG_SCALE,
+                  init_noise=x),
+              "DiT PAG": lambda d, x: d.sample_with_cfg(
+                  pag(dit_model), shape, labels, cfg_scale=CFG_SCALE,
+                  init_noise=x),
+              "FreeU": lambda d, x: d.sample_with_cfg(
+                  freeu_model, shape, labels, cfg_scale=CFG_SCALE,
+                  init_noise=x)}
+    for depth in (1, 2):
+        guided[f"DeepCache depth {depth}"] = (
+            lambda d, x, depth=depth: deepcache_sample(
+                d, *views(depth), shape, y=labels, cfg_scale=CFG_SCALE,
+                interval=DEEPCACHE_INTERVAL, init_noise=x))
+    for label, run in guided.items():
+        runs[f"{label} DDIM-10, dynamic threshold"] = (
+            lambda x, run=run: run(ddim, x), noise, False)
+        runs[f"{label} DDIM-10, no x0 constraint"] = (
+            lambda x, run=run: run(ddim_free, x), noise, True)
+    for label, (run, x, checked) in runs.items():
+        phase_knob_trajectory(label, run, x, checked)
+
+
+def phase_inversion(model, gen, smi):
+    """DDIM-50 inversion of 80 images (no CFG, their labels), then DDIM-50
+    sampling from the latent it gives: one UNet forward's launches a call,
+    100 calls at 80 rows; the round-trip error printed."""
+    low = torch.rand(SAMPLES, 8, 8, 3, generator=gen, device="cuda") * 2 - 1
+    images = F.interpolate(low.permute(0, 3, 1, 2), size=(32, 32),
+                           mode="bilinear").permute(0, 2, 3, 1).contiguous()
+    labels = torch.arange(SAMPLES, device="cuda") % 10 + 1
+    ddim = DDIM(num_inference_steps=STEPS)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    latent = ddim.invert(model, images, y=labels)
+    back = ddim.sample(model, images.shape, y=labels, init_noise=latent)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    expected = scaled(UNET_FORWARD, 2 * STEPS)
+    err = (back - images).abs()
+    print(f"UNet DDIM-{STEPS} inversion and back, {SAMPLES} images: "
+          f"{seconds:.3f} s; latent std {latent.std().item():.4f}, round "
+          f"trip max_abs {err.max().item():.4f} mean_abs "
+          f"{err.mean().item():.4f} (random weights); launches {launches} "
+          f"on {smi}")
+    if launches != expected:
+        raise AssertionError(f"inversion launches {launches}, expected "
+                             f"{expected}")
+    if not (torch.isfinite(latent).all() and torch.isfinite(back).all()):
+        raise AssertionError("inversion: values not finite")
+    return launches
+
+
+def phase_knobs(config, model, gen, smi, ddim_seconds):
+    """The editing and training-free knobs on the full-width UNet (and PAG
+    on the full-width DiT): the trajectories against the plain versions,
+    then 80 images CFG 3 through `sample.main` for each with exact launches
+    (img2img and inpainting at strength 0.5, RePaint, restarts, PAG, FreeU,
+    DeepCache at depth 1 and 2; the kept pixels of each masked run checked),
+    DDIM inversion and back, PAG on the DiT, and DeepCache on the bf16 UNet.
+    Returns {label: (launches, seconds, calls)}; `ddim_seconds` is DDIM-50's
+    in this run, the yardstick of the rates printed."""
+    freeu_config = dict(config, model_params=dict(config["model_params"],
+                                                  freeu=FREEU))
+    freeu_model = factory.get_model(freeu_config).to("cuda").eval()
+    freeu_model.load_state_dict(model.state_dict(), strict=True)
+    dit_config = load_config(DIT_CONFIG)
+    dit_model = random_model(dit_config, gen)
+    phase_knob_trajectories(model, freeu_model, dit_model, gen)
+    del freeu_model
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        image, mask = editing_inputs(tmp, gen)
+        for label, method, flags, calls, expected in knob_runs(config):
+            launches, seconds = phase_sample_main(
+                f"UNet {label}", config, model, UNET_FORWARD, tmp,
+                flags=[f.format(dir=tmp) for f in flags], method=method,
+                calls=calls, expected=expected)
+            if "--mask" in flags:
+                samples = np.load(Path(tmp) / "samples.npy")
+                check_kept_pixels(f"UNet {label}", samples, image, mask)
+            runs[f"UNet {label}"] = (launches, seconds, calls)
+        runs["UNet DDIM inversion"] = (phase_inversion(model, gen, smi), None,
+                                       2 * STEPS)
+        runs["DiT PAG"] = (*phase_sample_main(
+            "DiT PAG", dit_config, dit_model, DIT_FORWARD, tmp,
+            flags=["--pag_scale", str(PAG_SCALE)], calls=STEPS,
+            expected=scaled(DIT_PAG, STEPS)), STEPS)
+        full = len(range(0, STEPS, DEEPCACHE_INTERVAL))
+        runs["UNet bf16 DeepCache depth 1"] = (*phase_sample_main(
+            "UNet bf16 DeepCache depth 1", config, model, UNET_FORWARD, tmp,
+            flags=["--mixed_precision", "bf16", "--deepcache",
+                   str(DEEPCACHE_INTERVAL), "--deepcache_depth", "1"],
+            calls=STEPS,
+            expected=add_counts((bf16_counts(UNET_FORWARD), full),
+                                (bf16_counts(DEEPCACHE_SHALLOW[1]),
+                                 STEPS - full))), STEPS)
+    del dit_model
+    for label, (_, seconds, calls) in runs.items():
+        if seconds is not None:
+            # the fp32 UNet's against its DDIM-50; the DiT's and the bf16
+            # run's against theirs at the end of the run
+            against = ("" if label in ("DiT PAG", "UNet bf16 DeepCache depth 1")
+                       else f", {ddim_seconds / seconds:.3f}x DDIM-{STEPS}'s "
+                            f"{SAMPLES / ddim_seconds:.2f} in this run")
+            print(f"{label} ({calls} model calls) CFG {CFG_SCALE}: "
+                  f"{SAMPLES / seconds:.2f} samples/s{against}, on {smi}")
+    return runs
 
 
 # ------------------------------------------------------------------- DiM
@@ -2210,6 +2526,7 @@ def main():
         launches, seconds = phase_sample_main("UNet", config, model,
                                               UNET_FORWARD, tmp)
     fast = phase_samplers(config, model, UNET_FORWARD, gen, smi)
+    knobs = phase_knobs(config, model, gen, smi, seconds)
     del model
     gn_step_err, gn_step, gn_bwd_bound = phase_gn_train_step(gn_shapes, gen)
     bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
@@ -2286,6 +2603,17 @@ def main():
     for label, (_, sec, calls) in fast.items():
         print(f"UNet {label} ({calls} model calls): {SAMPLES / sec:.2f} "
               f"samples/s CFG {CFG_SCALE} fp32 on {smi}")
+    # each knob's rate against DDIM-50's of its model and precision
+    yardsticks = {"DiT PAG": ("DiT", dit["seconds"]),
+                  "UNet bf16 DeepCache depth 1": (
+                      "UNet bf16", bf16["models"]["UNet"]["seconds"])}
+    for label, (_, sec, calls) in knobs.items():
+        if sec is not None:
+            model_name, ddim_sec = yardsticks.get(label, ("UNet", seconds))
+            print(f"{label} ({calls} model calls): {SAMPLES / sec:.2f} "
+                  f"samples/s CFG {CFG_SCALE} ({ddim_sec / sec:.3f}x the "
+                  f"{model_name} DDIM-{STEPS}'s {SAMPLES / ddim_sec:.2f}) on "
+                  f"{smi}")
     for kind, run in processes.items():
         print(f"UNet {kind}: {statistics.median(run['rates']['kernels']):.2f} "
               f"train images/s at batch {TRAIN_BATCH} fp32 (plain versions: "
@@ -2353,10 +2681,16 @@ def main():
                               ATTN_PER_DIT_FORWARD).ms
         for backward in (False, True)}
     def path_launches(key, train_only=False):
-        """A UNet kernel's launches on this slice's paths: the fast samplers'
-        `sample.main` runs, and flow matching's and EDM's `train.main`."""
+        """A UNet kernel's launches on the later slices' paths: the fast
+        samplers' and the editing and training-free knobs' `sample.main`
+        runs (also DDIM inversion and back, PAG on the DiT and DeepCache on
+        the bf16 UNet, whose `_bf16` counts the bf16 rows carry), and flow
+        matching's and EDM's `train.main`."""
         out = {} if train_only else {
             f"sample_{label}": run[0][key] for label, run in fast.items()}
+        if not train_only:
+            out.update({f"sample_{label.replace(' ', '_')}": run[0][key]
+                        for label, run in knobs.items()})
         out.update({f"train_{kind}": run["launches"][key]
                     for kind, run in processes.items()})
         return out
@@ -2502,6 +2836,8 @@ def main():
          "launches": unet16["sample_launches"]["gn_bf16"],
          "launches_by_path": {
              "sample_bf16": unet16["sample_launches"]["gn_bf16"],
+             "sample_bf16_deepcache": knobs["UNet bf16 DeepCache depth 1"][
+                 0]["gn_bf16"],
              "train_bf16": unet16["train_launches"]["gn_bf16"]},
          "max_abs_err": bf16["gn_err"][0],
          "ms": gn_t["fwd"], "plain_ms": gn_t["fwd_plain"],
@@ -2521,6 +2857,8 @@ def main():
          "launches": unet16["sample_launches"]["attn_bf16"],
          "launches_by_path": {
              "sample_bf16": unet16["sample_launches"]["attn_bf16"],
+             "sample_bf16_deepcache": knobs["UNet bf16 DeepCache depth 1"][
+                 0]["attn_bf16"],
              "train_bf16": unet16["train_launches"]["attn_bf16"],
              "dit_sample_bf16": dit16["sample_launches"]["attn_bf16"],
              "dit_sample_bf16_dpmpp": dit_fast_launches["attn_bf16"],

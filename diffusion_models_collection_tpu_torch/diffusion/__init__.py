@@ -1,6 +1,8 @@
 """Diffusion processes: DDPM (training and ancestral sampling), the fast VP
 samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC; uniform or Karras grids),
-flow matching and EDM."""
+flow matching and EDM, with img2img and inpainting (RePaint on DDPM, DDIM
+inversion and restarts); PAG (`pag`) and DeepCache (`deepcache`) sampling
+around them."""
 
 from .ddim import DDIM, ddim_step
 from .ddpm import DDPM, posterior_step

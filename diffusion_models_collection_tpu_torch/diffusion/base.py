@@ -328,6 +328,18 @@ def cfg_eps(model_fn: Callable, x: torch.Tensor, t: torch.Tensor,
     return eps_u + cfg_scale * (eps_c - eps_u)
 
 
+def editing_start(init_image: torch.Tensor, mask):
+    """An img2img's float32 init image and `known` = (init image, mask
+    broadcast to its shape; 1 regenerates, 0 keeps), or None without a
+    mask."""
+    init_image = init_image.to(torch.float32)
+    if mask is None:
+        return init_image, None
+    mask = torch.as_tensor(mask, dtype=torch.float32,
+                           device=init_image.device).expand(init_image.shape)
+    return init_image, (init_image, mask)
+
+
 def initial_image(shape, generator: Optional[torch.Generator],
                   init_noise: Optional[torch.Tensor]) -> torch.Tensor:
     """`init_noise` as float32, or a standard normal draw of `shape` from

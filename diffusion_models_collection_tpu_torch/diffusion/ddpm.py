@@ -10,9 +10,20 @@ that launches asynchronously on the model's device. Each step's noise comes
 from the caller's `torch.Generator`, or from `noises`, one tensor per step
 in the order the steps run (t = T-1 down to 0), which the parity tests use
 to feed both packages the same draws.
+
+`img2img` is SDEdit from a given image, with an optional inpainting mask
+(each step's result re-imposes the kept pixels, forward-noised to the level
+just reached) and RePaint's resampling (Lugmayr et al. 2022, Alg. 2: every
+`repaint_jump` steps are renoised back up in one forward hop and rerun,
+`repaint_resample` times in all). Its draws come from the generator, or
+from the caller: `start_noise` for the start, one tensor a step in the
+order the steps run (reruns included) in `noises` and `known_noises` (the
+projection's), and one a hop in `renoise_noises`.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -32,10 +43,27 @@ def posterior_step(schedule: NoiseSchedule, x: torch.Tensor, t: torch.Tensor,
     return mean + nonzero * torch.exp(0.5 * logvar) * noise
 
 
+def project_known(schedule: NoiseSchedule, img: torch.Tensor, t_next: int,
+                  known, noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inpainting projection: where the mask is 0 (keep), the known image
+    forward-noised to the level `t_next` just reached with `noise`, or the
+    known image itself at `t_next` -1 (the clean end). `known` is
+    (known_x0, mask), mask 1 to generate."""
+    known_x0, mask = known
+    if t_next >= 0:
+        t = torch.full((img.shape[0],), t_next, dtype=torch.int64,
+                       device=img.device)
+        x_known = base.q_sample(schedule, known_x0, t, noise)
+    else:
+        x_known = known_x0
+    return mask * img + (1.0 - mask) * x_known
+
+
 class DDPM(base.VPProcess):
     """DDPM diffusion process: the JAX class's training API (`q_sample`,
-    `p_losses`), its one-step `p_sample` and its samplers (`sample`,
-    `sample_with_cfg`) over all T steps."""
+    `p_losses`), its one-step `p_sample`, its samplers (`sample`,
+    `sample_with_cfg`) over all T steps, and `img2img` with inpainting and
+    RePaint."""
 
     DESC = "DDPM sampling"
 
@@ -57,16 +85,128 @@ class DDPM(base.VPProcess):
     def _solve(self, eps_x0, img, generator, noises, return_all_timesteps,
                progress, desc):
         base.check_noises(noises, self.num_timesteps)
-        device = img.device
-        schedule = self.schedule_on(device)
         out = base.Trajectory(return_all_timesteps)
-        batch = img.shape[0]
-        for i, t_i in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            t = torch.full((batch,), t_i, dtype=torch.int64, device=device)
-            _, x0 = eps_x0(img, t)
-            noise = base.step_noise(noises, i, img, generator)
-            img = posterior_step(schedule, img, t, x0, noise)
-            out.add(img)
-            base.report_progress(progress, desc, i + 1, self.num_timesteps,
-                                 every=10)
+        self._steps(eps_x0, img, list(range(self.num_timesteps - 1, -1, -1)),
+                    0, generator, noises, None, None, out, progress, desc)
         return out.result()
+
+    def _steps(self, eps_x0, img, ts, first, generator, noises, known,
+               known_noises, out, progress, desc):
+        """Ancestral steps at the descending timesteps `ts`, each followed by
+        the inpainting projection when `known` is given; the run's k-th
+        step, k = `first` + position, takes noises[k] and known_noises[k]
+        (or draws). Every step's state goes to `out`."""
+        schedule = self.schedule_on(img.device)
+        batch = img.shape[0]
+        for j, t_i in enumerate(ts):
+            k = first + j
+            t = torch.full((batch,), t_i, dtype=torch.int64, device=img.device)
+            _, x0 = eps_x0(img, t)
+            noise = base.step_noise(noises, k, img, generator)
+            img = posterior_step(schedule, img, t, x0, noise)
+            if known is not None:
+                img = project_known(
+                    schedule, img, t_i - 1, known,
+                    base.step_noise(known_noises, k, img, generator)
+                    if t_i > 0 else None)
+            out.add(img)
+            base.report_progress(progress, desc, j + 1, len(ts), every=10)
+        return img
+
+    @torch.no_grad()
+    def img2img(self, model_fn, init_image, generator=None,
+                strength: float = 0.8, y=None,
+                cfg_scale: Optional[float] = None,
+                p_threshold=base.AUTO_THRESHOLD, mask=None,
+                repaint_jump: int = 0, repaint_resample: int = 1,
+                start_noise: Optional[torch.Tensor] = None,
+                noises: Optional[Sequence] = None,
+                known_noises: Optional[Sequence] = None,
+                renoise_noises: Optional[Sequence] = None,
+                return_all_timesteps: bool = False,
+                progress: bool = False) -> torch.Tensor:
+        """SDEdit: forward-noise `init_image` to t0 = round(strength (T - 1))
+        and denoise from there (strength 0 returns the input). `mask`
+        (1 regenerate, 0 keep; broadcast to the image) inpaints, ending at
+        the kept pixels exactly. `cfg_scale` None runs unguided, a float
+        with classifier-free guidance on labels `y`. `repaint_resample` > 1
+        with `repaint_jump` j >= 1 runs RePaint's schedule (needs a mask)."""
+        if not 0.0 <= float(strength) <= 1.0:
+            raise ValueError("strength must be in [0, 1]")
+        repaint_jump = int(repaint_jump)
+        repaint_resample = int(repaint_resample)
+        if repaint_resample < 1:
+            raise ValueError("repaint_resample must be >= 1")
+        if repaint_resample > 1:
+            if mask is None:
+                raise ValueError(
+                    "repaint_resample > 1 is the RePaint inpainting schedule "
+                    "— it requires a mask")
+            if repaint_jump < 1:
+                raise ValueError(
+                    "repaint_resample > 1 requires repaint_jump >= 1 (the "
+                    "jump length j in RePaint Alg. 2)")
+        init_image, known = base.editing_start(init_image, mask)
+        t0 = int(round(float(strength) * (self.num_timesteps - 1)))
+        if t0 <= 0 and known is None:
+            return init_image
+        img = init_image
+        if t0 > 0:
+            noise = (start_noise if start_noise is not None
+                     else base.step_noise(None, 0, init_image, generator))
+            t = torch.full((init_image.shape[0],), t0, dtype=torch.int64,
+                           device=init_image.device)
+            img = self.q_sample(init_image, t, noise.to(img.device))
+        use_cfg = cfg_scale is not None
+        if use_cfg and y is None:
+            raise ValueError("CFG img2img requires class labels y.")
+        if y is not None:
+            y = torch.as_tensor(y, device=img.device)
+        eps_x0 = self.eps_x0_fn(
+            model_fn, img.device, y, float(cfg_scale) if use_cfg else 0.0,
+            use_cfg=use_cfg,
+            p_threshold=(base.resolve_p_threshold(p_threshold,
+                                                  self.clip_sample)
+                         if use_cfg else None))
+        ts = list(range(t0, -1, -1))
+        out = base.Trajectory(return_all_timesteps)
+        desc = f"DDPM img2img (strength {strength})"
+        if repaint_resample == 1:
+            self._steps(eps_x0, img, ts, 0, generator, noises, known,
+                        known_noises, out, progress, desc)
+            return out.result()
+        self._run_repaint(eps_x0, img, ts, generator, noises, known,
+                          known_noises, renoise_noises, repaint_jump,
+                          repaint_resample, out, progress, desc + " [RePaint]")
+        return out.result()
+
+    def _renoise(self, img: torch.Tensor, t_lo: int, t_hi: int,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """One forward hop x_{t_lo} -> x_{t_hi} (t_lo -1: the clean image):
+        sqrt(r) x + sqrt(1 - r) noise, r = acp[t_hi] / acp[t_lo], the
+        marginal of the composed per-step kernels."""
+        acp = self.schedule_on(img.device).alphas_cumprod
+        ratio = acp[t_hi] if t_lo < 0 else acp[t_hi] / acp[t_lo]
+        return torch.sqrt(ratio) * img + torch.sqrt(1.0 - ratio) * noise
+
+    def _run_repaint(self, eps_x0, img, ts, generator, noises, known,
+                     known_noises, renoise_noises, jump, resample, out,
+                     progress, desc):
+        """RePaint (Alg. 2): denoise `jump` steps, renoise back to the
+        chunk's top level, `resample` times in all, then go on."""
+        first = hop = pos = 0
+        while pos < len(ts):
+            chunk = ts[pos:pos + jump]
+            for rep in range(resample):
+                img = self._steps(eps_x0, img, chunk, first, generator,
+                                  noises, known, known_noises, out, False,
+                                  desc)
+                first += len(chunk)
+                if rep < resample - 1:
+                    img = self._renoise(
+                        img, chunk[-1] - 1, chunk[0],
+                        base.step_noise(renoise_noises, hop, img, generator))
+                    hop += 1
+            pos += len(chunk)
+            base.report_progress(progress, desc, pos, len(ts), every=10)
+        return img

@@ -22,6 +22,12 @@ discards it with `where`; here it is skipped, one model call fewer
 (2 S - 1 calls). Churn noise comes from the caller's `torch.Generator`, or
 from `noises`, one tensor a step (the parity tests pass the JAX package's
 `fold_in(rng, i)` draws); with no churn nothing is drawn.
+
+`img2img` enters the grid at sigma0 = sigma_min (sigma_max / sigma_min) **
+strength: the input plus the first grid sigma <= sigma0 times a draw
+(`start_noise`), then the grid's steps from there. With a mask, each step
+re-imposes the kept pixels as the original plus sigma_next times a draw
+(`known_noises`, one a step).
 """
 
 from __future__ import annotations
@@ -154,7 +160,11 @@ class EDM:
     # -- sampling --------------------------------------------------------
     @torch.no_grad()
     def _solve(self, model_fn, img, y, cfg_scale, generator, noises, *,
-               use_cfg, p_threshold, return_all_timesteps, progress, desc):
+               use_cfg, p_threshold, return_all_timesteps, progress, desc,
+               rows=None, unit_img=True, known=None, known_noises=None):
+        """Heun over `rows` (the grid's by default) from `img`, scaled by
+        the first sigma where `unit_img` (a unit Gaussian); with `known`,
+        the inpainting projection after each step."""
         batch, device = img.shape[0], img.device
         d_fn = self.denoiser_fn(model_fn)
 
@@ -168,10 +178,11 @@ class EDM:
             d = d_fn(x, sigma, y)
             return torch.clamp(d, -1.0, 1.0) if self.clip_sample else d
 
-        base.check_noises(noises, len(self.rows))
+        rows = self.rows if rows is None else rows
+        base.check_noises(noises, len(rows))
         out = base.Trajectory(return_all_timesteps)
-        x = float(self.rows[0, 0]) * img
-        for i, (sigma, sigma_hat, sigma_next) in enumerate(self.rows):
+        x = float(rows[0, 0]) * img if unit_img else img
+        for i, (sigma, sigma_hat, sigma_next) in enumerate(rows):
             churn_std = np.sqrt(np.maximum(sigma_hat**2 - sigma**2,
                                            np.float32(0.0)))
             x_hat = x
@@ -184,8 +195,15 @@ class EDM:
             if sigma_next > 0.0:
                 d2 = (x - denoise(x, sigma_next)) / float(sigma_next)
                 x = x_hat + h * 0.5 * (d1 + d2)
+            if known is not None:
+                known_x0, mask = known
+                x_known = known_x0
+                if sigma_next > 0.0:
+                    x_known = known_x0 + float(sigma_next) * base.step_noise(
+                        known_noises, i, x, generator)
+                x = mask * x + (1.0 - mask) * x_known
             out.add(x)
-            base.report_progress(progress, desc, i + 1, len(self.rows))
+            base.report_progress(progress, desc, i + 1, len(rows))
         return out.result()
 
     def sample(self, model_fn, shape, generator=None, y=None,
@@ -219,7 +237,45 @@ class EDM:
             return_all_timesteps=return_all_timesteps, progress=progress,
             desc=f"EDM (Heun) sampling with CFG scale {cfg_scale}")
 
-    def img2img(self, *args, **kwargs):
-        raise NotImplementedError(
-            "EDM img2img is not ported yet (ROADMAP queue 1 item 10, "
-            "img2img)")
+    def img2img(self, model_fn, init_image, generator=None,
+                strength: float = 0.8, y=None,
+                cfg_scale: Optional[float] = None,
+                p_threshold=base.AUTO_THRESHOLD, mask=None,
+                start_noise: Optional[torch.Tensor] = None,
+                noises: Optional[Sequence] = None,
+                known_noises: Optional[Sequence] = None,
+                return_all_timesteps: bool = False,
+                progress: bool = False) -> torch.Tensor:
+        """SDEdit and inpainting on the Karras grid (see `DDPM.img2img` for
+        the arguments): the grid from its first sigma <= sigma_min
+        (sigma_max / sigma_min) ** strength; `noises` and `known_noises`
+        one a step of that run."""
+        if not 0.0 <= float(strength) <= 1.0:
+            raise ValueError("strength must be in [0, 1]")
+        init_image, known = base.editing_start(init_image, mask)
+        if float(strength) <= 0.0 and known is None:
+            return init_image
+        sigma0 = self.sigma_min * (self.sigma_max
+                                   / self.sigma_min) ** float(strength)
+        keep = self.rows[:, 0] <= sigma0 + 1e-12
+        if not keep.any():
+            return init_image
+        rows = self.rows[int(np.argmax(keep)):]
+        noise = (start_noise if start_noise is not None
+                 else base.step_noise(None, 0, init_image, generator))
+        start_img = init_image + float(rows[0, 0]) * noise.to(
+            init_image.device, torch.float32)
+        use_cfg = cfg_scale is not None
+        if use_cfg and y is None:
+            raise ValueError("CFG img2img requires class labels y.")
+        if y is not None:
+            y = torch.as_tensor(y, device=init_image.device)
+        return self._solve(
+            model_fn, start_img, y, float(cfg_scale) if use_cfg else 0.0,
+            generator, noises, use_cfg=use_cfg,
+            p_threshold=(base.resolve_p_threshold(p_threshold,
+                                                  self.clip_sample)
+                         if use_cfg else None),
+            return_all_timesteps=return_all_timesteps, progress=progress,
+            desc=f"EDM img2img (strength {strength})", rows=rows,
+            unit_img=False, known=known, known_noises=known_noises)

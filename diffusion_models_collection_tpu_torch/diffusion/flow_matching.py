@@ -14,10 +14,16 @@ final step (tau_next = 0) is first order. The JAX package evaluates that
 step's corrector and discards it with `where`; here it is skipped, one
 model call fewer (2 S - 1 calls for Heun). The steps are a Python loop on
 host scalars that launches asynchronously on the model's device.
+
+`img2img` starts at tau0 = strength on the path toward one noise draw
+(`start_noise`, or the generator's) and integrates back to 0 in
+ceil(strength S) steps; with a mask, the kept pixels ride that same path,
+(1 - tau) x0 + tau noise, and end at the original values.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -93,7 +99,7 @@ class FlowMatching:
 
     @torch.no_grad()
     def _solve(self, model_fn, img, y, cfg_scale, *, use_cfg, p_threshold,
-               return_all_timesteps, progress, desc):
+               return_all_timesteps, progress, desc, rows=None, known=None):
         batch, device = img.shape[0], img.device
         t_max = np.float32(self.num_timesteps - 1)
 
@@ -107,7 +113,8 @@ class FlowMatching:
             return _constrained_velocity(x, float(tau), v, p_threshold,
                                          self.clip_sample)
 
-        rows = self.taus()
+        if rows is None:
+            rows = self.taus()
         out = base.Trajectory(return_all_timesteps)
         x = img
         for i, (tau, tau_next) in enumerate(rows):
@@ -119,6 +126,11 @@ class FlowMatching:
                 x = x + dt * 0.5 * (v1 + v2)
             else:
                 x = x_pred
+            if known is not None:
+                known_x0, mask, eps0 = known
+                x_known = (float(np.float32(1.0) - tau_next) * known_x0
+                           + float(tau_next) * eps0)
+                x = mask * x + (1.0 - mask) * x_known
             out.add(x)
             base.report_progress(progress, desc, i + 1, len(rows))
         return out.result()
@@ -151,7 +163,42 @@ class FlowMatching:
             return_all_timesteps=return_all_timesteps, progress=progress,
             desc=f"Flow sampling ({self.solver}) with CFG scale {cfg_scale}")
 
-    def img2img(self, *args, **kwargs):
-        raise NotImplementedError(
-            "flow-matching img2img is not ported yet (ROADMAP queue 1 item "
-            "10, img2img)")
+    def img2img(self, model_fn, init_image, generator=None,
+                strength: float = 0.8, y=None,
+                cfg_scale: Optional[float] = None,
+                p_threshold=base.AUTO_THRESHOLD, mask=None,
+                start_noise: Optional[torch.Tensor] = None,
+                return_all_timesteps: bool = False,
+                progress: bool = False) -> torch.Tensor:
+        """SDEdit and inpainting on the flow ODE (see `DDPM.img2img` for the
+        arguments): from (1 - strength) x + strength noise, ceil(strength
+        S) steps on linspace(strength, 0)."""
+        if not 0.0 <= float(strength) <= 1.0:
+            raise ValueError("strength must be in [0, 1]")
+        init_image, known = base.editing_start(init_image, mask)
+        tau0 = float(strength)
+        if tau0 <= 0.0:
+            return init_image
+        n_steps = max(1, math.ceil(tau0 * self.num_inference_steps))
+        eps0 = (start_noise if start_noise is not None
+                else base.step_noise(None, 0, init_image, generator))
+        eps0 = eps0.to(init_image.device, torch.float32)
+        start_img = (1.0 - tau0) * init_image + tau0 * eps0
+        if known is not None:
+            known = (*known, eps0)
+        grid = np.linspace(tau0, 0.0, n_steps + 1,
+                           dtype=np.float64).astype(np.float32)
+        use_cfg = cfg_scale is not None
+        if use_cfg and y is None:
+            raise ValueError("CFG img2img requires class labels y.")
+        if y is not None:
+            y = torch.as_tensor(y, device=init_image.device)
+        return self._solve(
+            model_fn, start_img, y, float(cfg_scale) if use_cfg else 0.0,
+            use_cfg=use_cfg,
+            p_threshold=(base.resolve_p_threshold(p_threshold,
+                                                  self.clip_sample)
+                         if use_cfg else None),
+            return_all_timesteps=return_all_timesteps, progress=progress,
+            desc=f"Flow img2img ({self.solver}, strength {strength})",
+            rows=np.stack([grid[:-1], grid[1:]], axis=1), known=known)

@@ -8,10 +8,13 @@ VP samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC); flow matching and EDM,
 each training and sampling; float32 or mixed precision
 (`mixed_precision: 'bf16'`).
 The datasets and the loader are this package's `datasets/` (numpy and
-ctypes, a copy of the JAX package's: the port imports nothing of it). Every
-other model type,
+ctypes, a copy of the JAX package's: the port imports nothing of it).
+`model_params` reach the model as they are, the training-free fields among
+them (the UNet's `pag_perturb`, `freeu`, `deepcache_mode`,
+`deepcache_depth`; the DiT's `pag_perturb`). Every other model type,
 diffusion type, sampler and config extension raises, naming the ROADMAP
-item that ports it.
+item that ports it (the DiT's `num_experts`, `tome_ratio` and `quant`
+raise in the model).
 """
 
 from __future__ import annotations

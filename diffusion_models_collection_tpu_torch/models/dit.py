@@ -22,9 +22,12 @@ on float32 parameters (`layers.CastLinear`, `CastConv2d`), LayerNorms in
 float32 with a bf16 result (`layers.CastLayerNorm`), attention on bf16 q, k,
 v (the kernels' bf16 form), eps float32.
 
-Not ported, and raising when asked for: MoE MLPs (`num_experts`), token
-merging (`tome_ratio`) and `quant` (ROADMAP queue 1 item 11), PAG's
-identity attention (`pag_perturb`, item 10).
+`pag_perturb` (a constructor field, and a call-time argument of `forward`
+so one module serves both views) makes every attention map the identity:
+each block's attention output is its v, through the out projection
+(Perturbed Attention Guidance, `diffusion/pag.py`). Not ported, and raising
+when asked for: MoE MLPs (`num_experts`), token merging (`tome_ratio`) and
+`quant` (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ class SelfAttention(nn.Module):
     fused (3D, D) `in_proj_weight` with rows [q; k; v], `in_proj_bias`,
     `out_proj`), xavier weights and zero biases; dropout on the attention
     probabilities in training mode only; projections and attention in
-    `dtype`."""
+    `dtype`. With `perturb` the attention map is the identity: the out
+    projection runs on v (PAG)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None):
@@ -90,12 +94,12 @@ class SelfAttention(nn.Module):
                                                   compute_dtype=dtype))
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, perturb: bool = False) -> torch.Tensor:
         q, k, v = cast_linear(x, self.in_proj_weight, self.in_proj_bias,
                               self.dtype).chunk(3, dim=-1)
-        out = multihead_attention(q, k, v, self.num_heads,
-                                  dropout_rate=self.dropout,
-                                  deterministic=not self.training)
+        out = v if perturb else multihead_attention(
+            q, k, v, self.num_heads, dropout_rate=self.dropout,
+            deterministic=not self.training)
         return self.out_proj(out)
 
 
@@ -121,11 +125,12 @@ class DiTBlock(nn.Module):
                        dropout, dtype)
         self.adaLN_modulation = AdaLNModulation(hidden_size, 6, dtype)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                perturb: bool = False) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.adaLN_modulation(c)
         x = x + gate_msa[:, None, :] * self.attn(
-            modulate(self.norm1(x), shift_msa, scale_msa))
+            modulate(self.norm1(x), shift_msa, scale_msa), perturb)
         return x + gate_mlp[:, None, :] * self.mlp(
             modulate(self.norm2(x), shift_mlp, scale_mlp))
 
@@ -179,14 +184,13 @@ class DiT(nn.Module):
         pag_perturb: bool = False,
     ):
         super().__init__()
-        for name, value, item in (("num_experts", num_experts, 11),
-                                  ("tome_ratio", tome_ratio, 11),
-                                  ("quant", quant, 11),
-                                  ("pag_perturb", pag_perturb, 10)):
+        for name, value in (("num_experts", num_experts),
+                            ("tome_ratio", tome_ratio), ("quant", quant)):
             if value:
                 raise NotImplementedError(
                     f"DiT {name}={value!r} is not ported yet (ROADMAP queue 1 "
-                    f"item {item})")
+                    "item 11)")
+        self.pag_perturb = bool(pag_perturb)
         self.remat = remat
         img_h, img_w = ((img_size, img_size) if isinstance(img_size, int)
                         else tuple(img_size))
@@ -211,14 +215,18 @@ class DiT(nn.Module):
                                       self.out_channels, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, *,
+                pag_perturb: Optional[bool] = None) -> torch.Tensor:
+        """eps (B, H, W, C) float32; `pag_perturb` overrides the module's
+        field for this call (None keeps it)."""
+        perturb = self.pag_perturb if pag_perturb is None else pag_perturb
         h = self.x_embedder(x)
         h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
         for block in self.blocks:
-            h = run_block(block, self.remat, h, c)
+            h = run_block(block, self.remat, h, c, perturb)
         h = self.final_layer(h, c)
         # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,

@@ -23,13 +23,27 @@ float32 on the widened input and its attention on bf16 q, k, v, the residual
 adds run in bf16, and eps comes back float32.
 
 `remat=True` runs each `ResidualBlock` under gradient checkpointing, as the
-JAX model's `nn.remat(ResidualBlock)`. Not ported yet, and raising when
-asked for: `pag_perturb`, `freeu` and `deepcache_mode` (ROADMAP queue 1
-item 10).
+JAX model's `nn.remat(ResidualBlock)`.
+
+The JAX model's three training-free sampling knobs, each a constructor field
+(so a config's `model_params` builds them) and, for PAG and DeepCache, also
+a call-time argument of `forward`, so that one module with one set of
+weights serves every view:
+  * `pag_perturb`: every attention map is the identity, so an attention
+    block's output is its v (Perturbed Attention Guidance,
+    `diffusion/pag.py`);
+  * `freeu` (b1, b2, s1, s2): at the two deepest up levels the backbone's
+    first half of channels is scaled by b and the skip's lowest spatial
+    frequencies by s (`ops/fourier.py`);
+  * `deepcache_mode` 'full' returns `(eps, cache)`, the up-path feature
+    entering up level n_levels - `deepcache_depth`; 'shallow' runs only
+    the outermost `deepcache_depth` levels and splices a `cache` from a
+    'full' call in place of everything deeper (`diffusion/deepcache.py`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multihead_attention
+from ..ops.fourier import fourier_lowpass_scale
 from ..ops.fused_norm import group_norm_silu
 from .layers import (
     CastConv2d,
@@ -109,7 +124,8 @@ class AttentionBlock(nn.Module):
     q, k, v (split as `reshape(b, hw, 3, c)`, as the JAX package does),
     multi-head attention, a 1x1 projection and the residual. The norm is
     float32 whatever `dtype` (the JAX block's plain `nn.GroupNorm` on
-    `x.astype(f32)`); the convs and the attention run in `dtype`."""
+    `x.astype(f32)`); the convs and the attention run in `dtype`. With
+    `perturb` the attention map is the identity: the output is v (PAG)."""
 
     def __init__(self, channels: int, num_heads: int = 4,
                  dtype: Optional[torch.dtype] = None):
@@ -119,12 +135,12 @@ class AttentionBlock(nn.Module):
         self.qkv = CastConv2d(channels, 3 * channels, 1, compute_dtype=dtype)
         self.proj = CastConv2d(channels, channels, 1, compute_dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, perturb: bool = False):
         b, c, h, w = x.shape
         hidden = self.norm(x.to(torch.float32))
         qkv = self.qkv(hidden).permute(0, 2, 3, 1).reshape(b, h * w, 3, c)
         q, k, v = qkv.unbind(2)
-        out = multihead_attention(q, k, v, self.num_heads)
+        out = v if perturb else multihead_attention(q, k, v, self.num_heads)
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + self.proj(out)
 
@@ -182,19 +198,21 @@ class UNet(nn.Module):
         deepcache_depth: int = 1,
     ):
         super().__init__()
-        for knob, value, default in (("pag_perturb", pag_perturb, False),
-                                     ("freeu", freeu, None),
-                                     ("deepcache_mode", deepcache_mode, None)):
-            if value != default:
-                raise NotImplementedError(
-                    f"{knob} is not ported yet (ROADMAP queue 1 item 10)")
+        n_levels = len(channel_mult)
+        check_deepcache(deepcache_mode, deepcache_depth, channel_mult)
+        self.pag_perturb = bool(pag_perturb)
+        self.freeu = check_freeu(freeu)
+        self.deepcache_mode = deepcache_mode
+        self.deepcache_depth = int(deepcache_depth)
+        self.channel_mult = tuple(channel_mult)
+        self.num_res_blocks = num_res_blocks
+        self.dtype = dtype
         self.image_size = tuple(image_size)
         self.remat = remat
         self.in_channels = in_channels
         self.num_classes = num_classes
         conditional = num_classes is not None
         time_dim = model_channels * 4
-        n_levels = len(channel_mult)
 
         def attend(resolution):
             return use_attention and (
@@ -252,28 +270,108 @@ class UNet(nn.Module):
         # channels-last conv weights: cuDNN then runs every conv in NHWC
         self.to(memory_format=torch.channels_last)
 
-    def _run(self, group, h, t_emb, y_emb):
+    def _run(self, group, h, t_emb, y_emb, perturb=False):
         for layer in group:
             if isinstance(layer, ResidualBlock):
                 h = run_block(layer, self.remat, h, t_emb, y_emb)
+            elif isinstance(layer, AttentionBlock):
+                h = layer(h, perturb)
             else:
                 h = layer(h)
         return h
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None,
+                cache: Optional[torch.Tensor] = None, *,
+                pag_perturb: Optional[bool] = None,
+                deepcache_mode: Optional[str] = None,
+                deepcache_depth: Optional[int] = None):
+        """eps (B, H, W, C) float32; with DeepCache 'full' `(eps, cache)`.
+        `pag_perturb`, `deepcache_mode` and `deepcache_depth` override the
+        module's fields for this call (None keeps them)."""
+        perturb = self.pag_perturb if pag_perturb is None else pag_perturb
+        mode = self.deepcache_mode if deepcache_mode is None else deepcache_mode
+        depth = (self.deepcache_depth if deepcache_depth is None
+                 else int(deepcache_depth))
+        check_deepcache(mode, depth, self.channel_mult)
+        if mode == "shallow" and cache is None:
+            raise ValueError("deepcache_mode 'shallow' needs the cache tensor "
+                             "from a 'full' forward")
+        n_levels = len(self.channel_mult)
         t_emb = self.time_embed(t)
         y_emb = (self.label_embed(y)
                  if self.label_embed is not None and y is not None else None)
         h = self.input_conv(x.to(torch.float32).permute(0, 3, 1, 2))
         hs = [h]
-        for group in self.down_blocks:
-            h = self._run(group, h, t_emb, y_emb)
+        # each level is num_res_blocks groups and a Downsample; 'shallow'
+        # runs the outermost `depth` levels but the last one's Downsample,
+        # whose output only the cached region reads
+        groups_a_level = self.num_res_blocks + 1
+        down = (self.down_blocks[:depth * groups_a_level - 1]
+                if mode == "shallow" else self.down_blocks)
+        for group in down:
+            h = self._run(group, h, t_emb, y_emb, perturb)
             hs.append(h)
-        h = self._run(self.middle_block, h, t_emb, y_emb)
-        for group in self.up_blocks:
-            h = torch.cat([h, hs.pop()], dim=1)
-            h = self._run(group, h, t_emb, y_emb)
+        if mode == "shallow":
+            h = cache if self.dtype is None else cache.to(self.dtype)
+        else:
+            h = self._run(self.middle_block, h, t_emb, y_emb, perturb)
+        # the first up group outside the cached region
+        first_live = (n_levels - depth) * groups_a_level
+        deep_cache = None
+        for i, group in enumerate(self.up_blocks):
+            if mode == "shallow" and i < first_live:
+                continue
+            if mode == "full" and i == first_live:
+                deep_cache = h
+            level = i // groups_a_level
+            skip = hs.pop()
+            if self.freeu is not None and level < 2:
+                h, skip = freeu_scale(h, skip, self.freeu[level],
+                                      self.freeu[2 + level])
+            h = torch.cat([h, skip], dim=1)
+            h = self._run(group, h, t_emb, y_emb, perturb)
         h = self.output(h)
         # eps in float32 whatever the compute type, as the JAX model
-        return h.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        out = h.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        return (out, deep_cache) if mode == "full" else out
+
+
+def check_deepcache(mode: Optional[str], depth: int,
+                    channel_mult: Sequence[int]) -> None:
+    """The JAX model's rules for `deepcache_mode` and `deepcache_depth`."""
+    n_levels = len(channel_mult)
+    if mode not in (None, "full", "shallow"):
+        raise ValueError(f"deepcache_mode must be None, 'full' or 'shallow', "
+                         f"got {mode!r}")
+    if mode is not None and not 1 <= int(depth) <= n_levels - 1:
+        raise ValueError(
+            f"deepcache_depth must be in [1, {n_levels - 1}] for "
+            f"channel_mult {tuple(channel_mult)}, got {depth}")
+
+
+def check_freeu(freeu) -> Optional[Tuple[float, float, float, float]]:
+    """`freeu` as four floats, or None; the JAX model's errors."""
+    if freeu is None:
+        return None
+    if len(freeu) != 4:
+        raise ValueError(f"freeu must be (b1, b2, s1, s2), got {freeu!r}")
+    for v in freeu:
+        if not isinstance(v, (int, float)) or not math.isfinite(v):
+            raise ValueError(
+                f"freeu factors must be finite numbers, got {freeu!r}")
+    return tuple(float(v) for v in freeu)
+
+
+def freeu_scale(h: torch.Tensor, skip: torch.Tensor, b: float,
+                s: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FreeU at one up block: the backbone's first half of channels times
+    b, the skip's low spatial frequencies (threshold 1) times s; a factor
+    of 1 leaves its tensor as it is."""
+    if b != 1.0:
+        half = h.shape[1] // 2
+        h = torch.cat([h[:, :half] * b, h[:, half:]], dim=1)
+    if s != 1.0:
+        skip = fourier_lowpass_scale(skip, 1, s).contiguous(
+            memory_format=torch.channels_last)
+    return h, skip

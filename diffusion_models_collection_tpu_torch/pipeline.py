@@ -7,10 +7,17 @@ samplers, each with classifier-free guidance (conditional checkpoints with
 --cfg_scale > 0; --guidance_rescale and --cfg_interval override the
 config's keys) or plain, optionally returning every step's state;
 --num_inference_steps and --mixed_precision override the config's keys.
-The JAX pipeline's other knobs (ToMe, FreeU, int8, PAG, DeepCache,
-classifier guidance, super-resolution, img2img, restarts, latent decode)
-are ROADMAP queue 1 items 10 and 11; configs that ask for them raise in the
-factory.
+The JAX pipeline's editing and training-free knobs, with its rules and
+messages: FreeU (--freeu, a model field), PAG (--pag_scale, a wrapper of
+the model), DeepCache (--deepcache, two views of the model), img2img,
+inpainting and RePaint (--init_image, --strength, --mask, --repaint_*) and
+restart sampling (--restarts, --restart_interval); each batch goes to
+img2img, then restarts, then DeepCache, then guided, then plain sampling,
+in the JAX pipeline's order. PAG and DeepCache call the one model with
+call-time arguments (`pag_perturb`, `deepcache_mode`), so no weights are
+copied. Not ported: ToMe, int8, classifier guidance, super-resolution and
+latent decoding (ROADMAP queue 1 item 11); configs that ask for them raise
+in the factory.
 """
 
 from __future__ import annotations
@@ -18,8 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .diffusion.deepcache import deepcache_sample
+from .diffusion.pag import pag_model_fn
 from .factory import get_diffusion, load_model_for_inference
-from .utils.helpers import resolve_image_size
+from .utils.helpers import (load_image_for_model, load_mask_for_model,
+                            resolve_image_size)
 
 
 def build_labels(args, config, nrow: int, num_rows: int):
@@ -73,8 +83,152 @@ def apply_steps_and_precision(args, config, is_flow: bool,
         config["mixed_precision"] = args.mixed_precision
 
 
+def apply_freeu(args, config) -> None:
+    """--freeu b1,b2,s1,s2 as the UNet's `freeu` field (no weights
+    change)."""
+    if args.freeu is None:
+        return
+    if str(config.get("model_type", "")).lower() != "unet":
+        raise SystemExit("--freeu reweights UNet skip connections — DiT/DiM "
+                         "have no skip-concat up path")
+    try:
+        factors = tuple(float(v) for v in args.freeu.split(","))
+    except ValueError:
+        factors = ()
+    if len(factors) != 4:
+        raise SystemExit("--freeu expects four floats: b1,b2,s1,s2")
+    config["model_params"] = dict(config.get("model_params", {}),
+                                  freeu=factors)
+    print(f"FreeU: b1,b2={factors[0]},{factors[1]} "
+          f"s1,s2={factors[2]},{factors[3]}")
+
+
+def wrap_pag(args, config, model, flags):
+    """--pag_scale: the PAG-rectified eps of `model` and the same model
+    called with `pag_perturb=True` (else `model` itself), ahead of any
+    other wrapper, so the fused-CFG batch inside the samplers sees it."""
+    is_flow, is_edm = flags
+    if args.pag_scale == 0.0:
+        return model
+    if args.pag_scale < 0:
+        raise SystemExit("--pag_scale must be >= 0")
+    if is_flow or is_edm:
+        raise SystemExit("PAG extrapolates the VP family's eps predictions — "
+                         "not flow/edm/consistency checkpoints")
+    if str(config.get("prediction_type", "eps")) != "eps":
+        raise SystemExit("PAG shifts the EPS prediction; this checkpoint "
+                         f"predicts {config.get('prediction_type')!r}")
+    model_type = str(config.get("model_type", "")).lower()
+    if model_type not in ("unet", "dit"):
+        raise SystemExit(
+            "PAG perturbs self-attention maps — implemented for UNet and DiT "
+            f"checkpoints, not {model_type!r} (DiM's Mamba mixer has no "
+            "attention map)")
+    if model_type == "unet" and not config.get("model_params", {}).get(
+            "use_attention", True):
+        raise SystemExit("PAG perturbs attention maps — this UNet was built "
+                         "with use_attention: false")
+
+    def perturbed_fn(x, t, y=None):
+        return model(x, t, y, pag_perturb=True)
+
+    print(f"Perturbed Attention Guidance: scale {args.pag_scale}")
+    return pag_model_fn(model, perturbed_fn, args.pag_scale)
+
+
+def build_deepcache(args, config, model, flags, base_wrapped: bool):
+    """--deepcache: the model's 'full' and 'shallow' views at
+    --deepcache_depth, or (None, None). Any wrapper of the model (PAG,
+    `base_wrapped`) is refused, since the views call the model itself."""
+    is_flow, is_edm = flags
+    if args.deepcache <= 0:
+        return None, None
+    if str(config.get("model_type", "")).lower() != "unet":
+        raise SystemExit(
+            "--deepcache caches UNet deep features across steps — DiT/DiM "
+            "have no resolution hierarchy to cache (use --tome_ratio for "
+            "DiT)")
+    if args.sampling_method.lower() != "ddim" or is_flow or is_edm:
+        raise SystemExit("--deepcache is implemented on the DDIM trajectory "
+                         "(--sampling_method ddim on a VP checkpoint)")
+    incompatible = [
+        (args.save_intermediate or args.create_gif,
+         "--save_intermediate/--create_gif (the cached scan returns final "
+         "samples only)"),
+        (bool(args.init_image), "img2img"),
+        (args.restarts > 0, "--restarts"),
+        (args.pag_scale != 0.0, "--pag_scale"),
+        (base_wrapped, "the active model_fn wrapper"),
+    ]
+    for cond, what in incompatible:
+        if cond:
+            raise SystemExit(f"--deepcache does not compose with {what}")
+    n_levels = len(config.get("model_params", {}).get("channel_mult",
+                                                      (1, 2, 2, 2)))
+    depth = args.deepcache_depth
+    if not 1 <= depth <= n_levels - 1:
+        raise SystemExit(f"--deepcache_depth must be in [1, {n_levels - 1}] "
+                         "for this checkpoint's channel_mult")
+
+    def full_fn(x, t, y):
+        return model(x, t, y, deepcache_mode="full", deepcache_depth=depth)
+
+    def shallow_fn(x, t, y, cache):
+        return model(x, t, y, cache, deepcache_mode="shallow",
+                     deepcache_depth=depth)
+
+    print(f"DeepCache: full pass every {args.deepcache} steps, depth {depth}")
+    return full_fn, shallow_fn
+
+
+def validate_editing(args, config, flags, in_channels):
+    """The img2img, inpainting, RePaint and restart rules; returns the init
+    image (1, H, W, C) in [-1, 1] and the mask (1, H, W, 1), or Nones."""
+    is_flow, is_edm = flags
+    method = args.sampling_method.lower()
+    if args.mask and not args.init_image:
+        raise SystemExit("--mask requires --init_image")
+    if args.repaint_resample > 1 and not args.mask:
+        raise SystemExit("--repaint_resample requires --init_image and --mask "
+                         "(RePaint is an inpainting schedule)")
+    if args.restarts > 0:
+        if method != "ddim" or is_flow or is_edm:
+            raise SystemExit("--restarts is defined on the deterministic DDIM "
+                             "ODE (--sampling_method ddim on a VP checkpoint)")
+        if args.init_image:
+            raise SystemExit("--restarts composes with from-noise sampling, "
+                             "not img2img")
+        if float(config.get("ddim_eta", 0.0) or 0.0) != 0.0:
+            raise SystemExit("--restarts requires ddim_eta = 0")
+    if not args.init_image:
+        return None, None
+    if ((method.startswith("dpm++") or method == "unipc")
+            and not (is_flow or is_edm)):
+        raise SystemExit("img2img supports --sampling_method ddpm/ddim (and "
+                         "flow/edm checkpoints), not dpm++/dpm++sde/unipc")
+    if not 0.0 < args.strength <= 1.0:
+        raise SystemExit("--strength must be in (0, 1] for img2img")
+    if args.repaint_resample > 1:
+        if not args.mask:
+            raise SystemExit("--repaint_resample requires --mask")
+        if method != "ddpm" or is_flow or is_edm:
+            raise SystemExit("RePaint resampling is defined on the DDPM "
+                             "ancestral sampler (--sampling_method ddpm)")
+        if args.repaint_jump < 1:
+            raise SystemExit("--repaint_resample needs --repaint_jump >= 1")
+    init_image = load_image_for_model(args.init_image, config["image_size"],
+                                      in_channels)
+    mask = (load_mask_for_model(args.mask, config["image_size"])
+            if args.mask else None)
+    print(f"img2img from {args.init_image} at strength {args.strength}"
+          + (f" with inpainting mask {args.mask}" if args.mask else ""))
+    return init_image, mask
+
+
 class SamplingPipeline:
-    """Model, sampler and per-batch dispatch for `sample.py`."""
+    """Model, sampler and per-batch dispatch for `sample.py`: construct,
+    then `setup_editing()` once the labels are built, then `run_batch` a
+    batch."""
 
     def __init__(self, args, config, checkpoint, device: torch.device):
         self.args = args
@@ -84,7 +238,9 @@ class SamplingPipeline:
         self.is_flow = dtype_key in ("flow", "flow_matching",
                                      "rectified_flow")
         self.is_edm = dtype_key == "edm"
+        flags = (self.is_flow, self.is_edm)
         apply_steps_and_precision(args, config, self.is_flow, self.is_edm)
+        apply_freeu(args, config)
         if args.guidance_rescale is not None:
             config["guidance_rescale"] = args.guidance_rescale
         if args.cfg_interval is not None:
@@ -94,12 +250,23 @@ class SamplingPipeline:
         print("Creating model...")
         self.model = load_model_for_inference(checkpoint, config, args.use_ema,
                                               device)
+        self.model_fn = wrap_pag(args, config, self.model, flags)
+        self.dc_full_fn, self.dc_shallow_fn = build_deepcache(
+            args, config, self.model, flags,
+            base_wrapped=self.model_fn is not self.model)
         print(f"Using sampling method: {args.sampling_method.upper()}")
         self.diffusion = get_diffusion(config, args.sampling_method)
         self.conditional = bool(config.get("conditional", False))
         h, w = config["image_size"]
         self.channels = config["model_params"]["in_channels"]
         self.hw = (h, w)
+        self.init_image = self.mask = None
+
+    def setup_editing(self) -> None:
+        """Check the editing flags and load --init_image and --mask."""
+        self.init_image, self.mask = validate_editing(
+            self.args, self.config, (self.is_flow, self.is_edm),
+            self.channels)
 
     def run_batch(self, i: int, num_batches: int, batch: int, labels,
                   generator: torch.Generator,
@@ -111,13 +278,48 @@ class SamplingPipeline:
         shape = (batch, *self.hw, self.channels)
         y = (torch.as_tensor(labels, device=self.device)
              if labels is not None else None)
-        if args.cfg_scale > 0 and self.conditional:
+        use_cfg = args.cfg_scale > 0 and self.conditional
+        cfg_scale = args.cfg_scale if use_cfg else None
+        with_cfg = f" with CFG scale {args.cfg_scale}" if use_cfg else ""
+        if self.init_image is not None:
+            init = torch.as_tensor(np.repeat(self.init_image, batch, axis=0),
+                                   device=self.device)
+            mask = (torch.as_tensor(np.repeat(self.mask, batch, axis=0),
+                                    device=self.device)
+                    if self.mask is not None else None)
+            repaint = ({} if args.repaint_resample <= 1 else dict(
+                repaint_jump=args.repaint_jump,
+                repaint_resample=args.repaint_resample))
+            print(f"img2img batch {i + 1}/{num_batches}{with_cfg}...")
+            return self.diffusion.img2img(
+                self.model_fn, init, generator, strength=args.strength, y=y,
+                cfg_scale=cfg_scale, mask=mask,
+                return_all_timesteps=return_all, progress=True, **repaint)
+        if args.restarts > 0:
+            if args.restart_interval is not None:
+                lo, hi = (int(v) for v in args.restart_interval.split(","))
+            else:
+                # the bottom 30 % of the checkpoint's schedule
+                lo, hi = 1, max(2, int(0.3 * self.diffusion.num_timesteps))
+            print(f"Restart sampling batch {i + 1}/{num_batches} "
+                  f"({args.restarts} restarts in [{lo}, {hi}]){with_cfg}...")
+            return self.diffusion.sample_restart(
+                self.model_fn, shape, generator, y=y, cfg_scale=cfg_scale,
+                restart_interval=(lo, hi), restarts=args.restarts,
+                return_all_timesteps=return_all, progress=True)
+        if args.deepcache > 0:
+            print(f"DeepCache batch {i + 1}/{num_batches} (interval "
+                  f"{args.deepcache}){with_cfg}...")
+            return deepcache_sample(
+                self.diffusion, self.dc_full_fn, self.dc_shallow_fn, shape,
+                generator, y=y, cfg_scale=cfg_scale, interval=args.deepcache)
+        if use_cfg:
             print(f"Sampling batch {i + 1}/{num_batches} with CFG scale "
                   f"{args.cfg_scale}...")
             return self.diffusion.sample_with_cfg(
-                self.model, shape, y, generator, cfg_scale=args.cfg_scale,
+                self.model_fn, shape, y, generator, cfg_scale=args.cfg_scale,
                 return_all_timesteps=return_all, progress=True)
         print(f"Sampling batch {i + 1}/{num_batches}...")
-        return self.diffusion.sample(self.model, shape, generator, y=y,
+        return self.diffusion.sample(self.model_fn, shape, generator, y=y,
                                      return_all_timesteps=return_all,
                                      progress=True)

@@ -11,6 +11,14 @@ DDPM's ancestral sampling over all T steps (the default, which ignores
 (`timestep_spacing`); a flow-matching or EDM checkpoint samples with its own
 solver whatever `--sampling_method` says. Each with classifier-free
 guidance and its two knobs (`--guidance_rescale`, `--cfg_interval`).
+Editing and training-free knobs, as the root CLI's: `--init_image` with
+`--strength` (SDEdit on DDPM, DDIM, flow or EDM), `--mask` (inpainting;
+white regenerates) and `--repaint_jump`/`--repaint_resample` (RePaint on
+DDPM); `--restarts` and `--restart_interval` (restart sampling on DDIM);
+`--pag_scale` (perturbed attention guidance, UNet and DiT); `--deepcache`
+and `--deepcache_depth` (cached deep features on DDIM, UNet); `--freeu`
+(UNet). Images and masks are 8-bit PNGs of the model's size, read without
+Pillow; other files or sizes need Pillow.
 `--save_intermediate` writes every step's state (`intermediate/steps.npy`,
 (S, N, H, W, C) in [0, 1], and PNG grids); `--create_gif` writes the
 trajectory as a GIF with Pillow and stops with an error where Pillow is
@@ -89,6 +97,51 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Comma-separated labels for conditional "
                              "generation")
     parser.add_argument("--seed", type=int, default=42, help="Random seed")
+    parser.add_argument("--init_image", type=str, default=None,
+                        help="Image-to-image (SDEdit): start from this image "
+                             "instead of pure noise")
+    parser.add_argument("--strength", type=float, default=0.8,
+                        help="img2img noising strength in [0, 1] (1.0 ~ "
+                             "fresh sample, 0.0 returns the input)")
+    parser.add_argument("--mask", type=str, default=None,
+                        help="Inpainting mask image (white = regenerate, "
+                             "black = keep); requires --init_image")
+    parser.add_argument("--repaint_jump", type=int, default=0,
+                        help="RePaint jump length j (inpainting; requires "
+                             "--mask and --sampling_method ddpm)")
+    parser.add_argument("--repaint_resample", type=int, default=1,
+                        help="RePaint resample count r: denoise j steps, "
+                             "renoise j levels, rerun r times; 1 = single "
+                             "pass (default)")
+    parser.add_argument("--restarts", type=int, default=0,
+                        help="Restart sampling: re-inject noise and "
+                             "re-integrate the DDIM ODE K times inside "
+                             "--restart_interval; 0 = plain sampling")
+    parser.add_argument("--restart_interval", type=str, default=None,
+                        help="'t_min,t_max' training-timestep interval for "
+                             "--restarts (must contain >= 2 inference-grid "
+                             "points); default: the bottom 30%% of the "
+                             "schedule (1,0.3*num_timesteps)")
+    parser.add_argument("--pag_scale", type=float, default=0.0,
+                        help="Perturbed Attention Guidance strength (UNet and "
+                             "DiT): the same checkpoint with identity "
+                             "attention maps, extrapolated away from; stacks "
+                             "with CFG; 0 = off")
+    parser.add_argument("--deepcache", type=int, default=0,
+                        metavar="INTERVAL",
+                        help="DeepCache (UNet + DDIM): the full network every "
+                             "INTERVAL steps, only the outermost levels in "
+                             "between on cached deep features; 0 = off, 1 = "
+                             "exact plain DDIM")
+    parser.add_argument("--deepcache_depth", type=int, default=1,
+                        help="Outer UNet levels that stay live on cached "
+                             "steps (must be < len(channel_mult))")
+    parser.add_argument("--freeu", type=str, default=None,
+                        metavar="B1,B2,S1,S2",
+                        help="FreeU factors (UNet): scale the backbone's "
+                             "first half-channels (b1, b2) and Fourier-low-"
+                             "pass the skip features (s1, s2) at the two "
+                             "deepest up levels (e.g. 1.2,1.1,0.9,0.95)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     parser.add_argument("--save_intermediate", action="store_true",
@@ -164,6 +217,7 @@ def main(argv=None) -> dict:
     print(f"Generating {args.num_samples} samples...")
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+    pipe.setup_editing()
 
     return_all = args.save_intermediate or args.create_gif
     num_batches = math.ceil(args.num_samples / args.batch_size)

@@ -2,8 +2,9 @@
 
 Counterpart of `diffusion_models_collection_tpu/utils/helpers.py`.
 `set_seed` returns a `torch.Generator` (the JAX package returns a PRNG key),
-and images are written as PNG by a small zlib encoder, since Pillow is not
-a dependency of the port: only `create_gif` imports it, when called.
+and images are written and read as PNG by a small zlib codec, since Pillow
+is not a dependency of the port: only `create_gif` and a resize in
+`load_image_for_model` or `load_mask_for_model` import it, when called.
 """
 
 from __future__ import annotations
@@ -127,6 +128,132 @@ def write_png(path: Union[str, Path], image: np.ndarray) -> None:
     Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                            + chunk(b"IDAT", zlib.compress(raw, 6))
                            + chunk(b"IEND", b""))
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG colour type -> channels: gray, RGB, gray + alpha, RGBA
+PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def read_png(path: Union[str, Path]) -> np.ndarray:
+    """An 8-bit, non-interlaced gray, RGB, gray + alpha or RGBA PNG as an
+    (H, W, C) uint8 array (every filter type; no palette, 16-bit or
+    interlaced files)."""
+    data = Path(path).read_bytes()
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = len(PNG_SIGNATURE), None, []
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color_type, _, _, interlace = header
+    if depth != 8 or color_type not in PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"{path}: only 8-bit non-interlaced gray, RGB, gray + alpha and "
+            f"RGBA PNGs are read here (bit depth {depth}, colour type "
+            f"{color_type}, interlace {interlace})")
+    bpp = PNG_CHANNELS[color_type]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * bpp)
+    out = np.zeros((h, w * bpp), np.uint8)
+    prior = np.zeros(w * bpp, np.int32)
+    for r in range(h):
+        kind, row = raw[r, 0], raw[r, 1:].astype(np.int32)
+        if kind == 1:  # Sub: a running sum along the row, per channel
+            row = np.cumsum(row.reshape(w, bpp), axis=0).reshape(-1)
+        elif kind == 2:  # Up
+            row = row + prior
+        elif kind in (3, 4):  # Average, Paeth: each pixel needs its left
+            row = row.copy()
+            for x in range(w):
+                cur = slice(x * bpp, (x + 1) * bpp)
+                up = prior[cur]
+                left = (row[cur.start - bpp:cur.start] % 256 if x
+                        else np.zeros(bpp, np.int32))
+                if kind == 3:
+                    row[cur] += (left + up) // 2
+                else:
+                    diag = (prior[cur.start - bpp:cur.start] if x
+                            else np.zeros(bpp, np.int32))
+                    pa = np.abs(up - diag)
+                    pb = np.abs(left - diag)
+                    pc = np.abs(left + up - 2 * diag)
+                    row[cur] += np.where((pa <= pb) & (pa <= pc), left,
+                                         np.where(pb <= pc, up, diag))
+        elif kind != 0:
+            raise ValueError(f"{path}: unknown PNG filter type {kind}")
+        prior = row % 256
+        out[r] = prior
+    return out.reshape(h, w, bpp)
+
+
+def _to_gray_or_rgb(image: np.ndarray, gray: bool) -> np.ndarray:
+    """Pillow's `convert('L')` or `convert('RGB')` of an (H, W, C) uint8
+    image: alpha dropped, gray copied to three channels, RGB to gray by
+    the ITU-R 601-2 luma in Pillow's integer form."""
+    color = image[..., :3] if image.shape[2] >= 3 else image[..., :1]
+    if not gray:
+        return np.repeat(color, 3, axis=2) if color.shape[2] == 1 else color
+    if color.shape[2] == 1:
+        return color
+    rgb = color.astype(np.uint32)
+    luma = (rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+            + 0x8000) >> 16
+    return luma.astype(np.uint8)[..., None]
+
+
+def _read_at_size(path, image_size: Tuple[int, int], mode: str,
+                  resample: str) -> np.ndarray:
+    """The file as (H, W, C) uint8 in Pillow mode `mode` ('L' or 'RGB') at
+    `image_size`: read here when it already has that size, else opened,
+    converted and resized (`resample`) by Pillow."""
+    h, w = image_size
+    try:
+        image = read_png(path)
+    except ValueError:
+        image = None
+    if image is not None and image.shape[:2] == (h, w):
+        return _to_gray_or_rgb(image, mode == "L")
+    try:
+        from PIL import Image
+    except ImportError:
+        raise SystemExit(
+            f"{path} is not an 8-bit PNG of the model's size {h}x{w}: "
+            "reading and resizing it needs Pillow, which is not installed"
+        ) from None
+    img = Image.open(path).convert(mode)
+    img = img.resize((w, h), getattr(Image, resample))
+    arr = np.asarray(img)
+    return arr[..., None] if arr.ndim == 2 else arr
+
+
+def load_image_for_model(path, image_size: Tuple[int, int],
+                         in_channels: int) -> np.ndarray:
+    """An image as the model's (1, H, W, C) float32 input in [-1, 1]: gray
+    for one channel, else RGB, bilinear resize when its size differs (the
+    JAX pipeline's `load_image_for_model`)."""
+    arr = _read_at_size(path, image_size, "L" if in_channels == 1 else "RGB",
+                        "BILINEAR")
+    return np.asarray(arr, np.float32)[None] / 255.0 * 2.0 - 1.0
+
+
+def load_mask_for_model(path, image_size: Tuple[int, int]) -> np.ndarray:
+    """An inpainting mask as (1, H, W, 1) float32: white (gray >= 0.5)
+    regenerates (1), black keeps (0); nearest resize when its size
+    differs (the JAX pipeline's `load_mask_for_model`)."""
+    arr = _read_at_size(path, image_size, "L", "NEAREST")
+    return (np.asarray(arr, np.float32) / 255.0 >= 0.5).astype(
+        np.float32)[None]
 
 
 def save_image_grid(images: np.ndarray, save_path: Union[str, Path],

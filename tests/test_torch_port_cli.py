@@ -7,7 +7,10 @@ The end-to-end test writes a JAX `.ckpt` with the JAX package's
 the import log, that the process never imported jax, flax or optax. The
 flag tests hold the port's parser to the root `sample.py`'s: the default
 sampler and the two classifier-free-guidance knobs, which must reach
-`base.cfg_eps_x0`.
+`base.cfg_eps_x0`, and the editing and training-free knobs (img2img,
+inpainting, RePaint, restarts, PAG, DeepCache, FreeU): their defaults, the
+JAX pipeline's SystemExit rules with their messages, and one CPU run of
+each flag family.
 """
 
 import argparse
@@ -25,6 +28,7 @@ import pytest
 import torch
 from PIL import Image
 
+from diffusion_models_collection_tpu import pipeline as jax_pipeline
 from diffusion_models_collection_tpu.pipeline import (
     _apply_steps_and_precision as jax_apply_steps_and_precision,
 )
@@ -34,7 +38,7 @@ from diffusion_models_collection_tpu.pipeline import (
 from diffusion_models_collection_tpu.utils.checkpoint import (
     save_checkpoint as jax_save_checkpoint,
 )
-from diffusion_models_collection_tpu_torch import factory, sample
+from diffusion_models_collection_tpu_torch import factory, pipeline, sample
 from diffusion_models_collection_tpu_torch.diffusion import base
 from diffusion_models_collection_tpu_torch.pipeline import (
     apply_steps_and_precision,
@@ -45,7 +49,11 @@ from diffusion_models_collection_tpu_torch.utils.helpers import (
     make_grid,
     write_png,
 )
-from torch_port_helpers import jax_unet, small_config
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
+    jax_unet,
+    one_torch_thread,
+    small_config,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -333,3 +341,175 @@ def test_cfg_knobs_reach_cfg_eps_x0(monkeypatch, tmp_path, method, flags,
     assert np.isfinite(result["samples"]).all()
     assert len(seen) == (2 if method == "ddim" else 10)
     assert set(seen) == {(rescale, interval)}
+
+
+# ------ editing and training-free knobs (ROADMAP queue 1 item 10)
+EDITING_FLAGS = ("init_image", "strength", "mask", "repaint_jump",
+                 "repaint_resample", "restarts", "restart_interval",
+                 "pag_scale", "deepcache", "deepcache_depth", "freeu")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--init_image", "a.png", "--strength", "0.3", "--mask", "m.png",
+     "--repaint_jump", "4", "--repaint_resample", "3"],
+    ["--restarts", "2", "--restart_interval", "10,300", "--pag_scale", "1.5",
+     "--deepcache", "3", "--deepcache_depth", "2", "--freeu",
+     "1.1,1.2,0.9,0.2"],
+])
+def test_editing_flags_parse_as_the_root_cli_parses_them(argv):
+    argv = ["--checkpoint", "x", *argv]
+    ours = sample.build_parser().parse_args(argv)
+    root = root_sample_parser().parse_args(argv)
+    for flag in EDITING_FLAGS:
+        assert getattr(ours, flag) == getattr(root, flag), flag
+
+
+def namespace(argv=()):
+    """The port's parsed flags (the root CLI's, by the test above)."""
+    return sample.build_parser().parse_args(["--checkpoint", "x", *argv])
+
+
+# (rule, flags, config changes, flow/edm): each a SystemExit of the JAX
+# pipeline's `_apply_freeu`, `_wrap_pag`, `_build_deepcache` and
+# `_validate_editing`
+PIPELINE_RULES = [
+    ("freeu", ["--freeu", "1,2,3"], {}, None),
+    ("freeu", ["--freeu", "a,b,c,d"], {}, None),
+    ("freeu", ["--freeu", "1,1,1,1"], {"model_type": "dit"}, None),
+    ("pag", ["--pag_scale", "-1"], {}, None),
+    ("pag", ["--pag_scale", "2"], {}, "flow"),
+    ("pag", ["--pag_scale", "2"], {}, "edm"),
+    ("pag", ["--pag_scale", "2"], {"prediction_type": "v"}, None),
+    ("pag", ["--pag_scale", "2"], {"model_type": "dim"}, None),
+    ("pag", ["--pag_scale", "2"],
+     {"model_params": dict(small_config()["model_params"],
+                           use_attention=False)}, None),
+    ("deepcache", ["--deepcache", "2"], {"model_type": "dit"}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "dpm++"], {},
+     None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim"], {},
+     "flow"),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--save_intermediate"], {}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--init_image", "a.png"], {}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--restarts", "1"], {}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--pag_scale", "1"], {}, None),
+    ("deepcache_wrapped", ["--deepcache", "2", "--sampling_method", "ddim"],
+     {}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--deepcache_depth", "2"], {}, None),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
+                   "--deepcache_depth", "0"], {}, None),
+    ("editing", ["--mask", "m.png"], {}, None),
+    ("editing", ["--init_image", "a.png", "--repaint_resample", "2"], {},
+     None),
+    ("editing", ["--restarts", "1"], {}, None),
+    ("editing", ["--restarts", "1", "--sampling_method", "ddim"], {}, "edm"),
+    ("editing", ["--restarts", "1", "--sampling_method", "ddim",
+                 "--init_image", "a.png"], {}, None),
+    ("editing", ["--restarts", "1", "--sampling_method", "ddim"],
+     {"ddim_eta": 0.5}, None),
+    ("editing", ["--init_image", "a.png", "--sampling_method", "unipc"], {},
+     None),
+    ("editing", ["--init_image", "a.png", "--strength", "0"], {}, None),
+    ("editing", ["--init_image", "a.png", "--strength", "1.5"], {}, None),
+    ("editing", ["--init_image", "a.png", "--mask", "m.png",
+                 "--repaint_resample", "2", "--repaint_jump", "2",
+                 "--sampling_method", "ddim"], {}, None),
+    ("editing", ["--init_image", "a.png", "--mask", "m.png",
+                 "--repaint_resample", "2"], {}, None),
+]
+
+
+@pytest.mark.parametrize("rule,argv,changes,kind", PIPELINE_RULES)
+def test_pipeline_rules_match_jax(rule, argv, changes, kind):
+    """Each SystemExit of the JAX pipeline's knob rules, with its message,
+    from the same flags and config (the rules run before any model)."""
+    args = namespace(argv)
+    config = dict(small_config(), **changes)
+    flags = (kind == "flow", kind == "edm")
+    wrapped = rule == "deepcache_wrapped"
+    calls = {
+        "freeu": (lambda: jax_pipeline._apply_freeu(args, dict(config)),
+                  lambda: pipeline.apply_freeu(args, dict(config))),
+        "pag": (lambda: jax_pipeline._wrap_pag(args, config, None, None,
+                                               (*flags, False)),
+                lambda: pipeline.wrap_pag(args, config, None, flags)),
+        "deepcache": (lambda: jax_pipeline._build_deepcache(
+            args, config, None, (*flags, False), wrapped),
+            lambda: pipeline.build_deepcache(args, config, None, flags,
+                                             wrapped)),
+        "editing": (lambda: jax_pipeline._validate_editing(
+            args, config, (*flags, False), None, 3),
+            lambda: pipeline.validate_editing(args, config, flags, 3)),
+    }
+    ref_call, our_call = calls["deepcache" if wrapped else rule]
+    with pytest.raises(SystemExit) as ref:
+        ref_call()
+    with pytest.raises(SystemExit) as ours:
+        our_call()
+    assert str(ours.value) == str(ref.value)
+
+
+def editing_files(tmp_path):
+    """A 16x16 RGB init image and a mask regenerating its right half, as
+    the port writes PNGs."""
+    image = np.random.default_rng(0).integers(0, 256, (16, 16, 3),
+                                              dtype=np.uint8)
+    mask = np.zeros((16, 16), np.uint8)
+    mask[:, 8:] = 255
+    write_png(tmp_path / "init.png", image)
+    write_png(tmp_path / "mask.png", mask)
+    return image, mask
+
+
+# flag family: (its flags, the line it prints)
+FLAG_FAMILIES = {
+    "img2img": (["--sampling_method", "ddim", "--num_inference_steps", "4",
+                 "--strength", "0.5", "--init_image", "{dir}/init.png"],
+                "img2img from"),
+    "inpainting": (["--sampling_method", "ddim", "--num_inference_steps",
+                    "4", "--strength", "0.5", "--init_image",
+                    "{dir}/init.png", "--mask", "{dir}/mask.png"],
+                   "with inpainting mask"),
+    "repaint": (["--sampling_method", "ddpm", "--strength", "0.5",
+                 "--init_image", "{dir}/init.png", "--mask", "{dir}/mask.png",
+                 "--repaint_jump", "2", "--repaint_resample", "2"],
+                "[RePaint]"),
+    "restarts": (["--sampling_method", "ddim", "--num_inference_steps", "6",
+                  "--restarts", "1", "--restart_interval", "1,8"],
+                 "Restart sampling batch"),
+    "pag": (["--sampling_method", "ddim", "--num_inference_steps", "3",
+             "--pag_scale", "2"], "Perturbed Attention Guidance: scale 2.0"),
+    "deepcache": (["--sampling_method", "ddim", "--num_inference_steps", "5",
+                   "--deepcache", "2", "--deepcache_depth", "1"],
+                  "DeepCache: full pass every 2 steps, depth 1"),
+    "freeu": (["--sampling_method", "ddim", "--num_inference_steps", "3",
+               "--freeu", "1.1,1.2,0.9,0.2"], "FreeU: b1,b2=1.1,1.2"),
+}
+
+
+@pytest.mark.parametrize("family", list(FLAG_FAMILIES))
+def test_editing_and_guidance_flags_run_through_the_cli(tmp_path, capsys,
+                                                        family):
+    """One CPU run of `sample.main` a flag family, CFG 3, on the tiny UNet
+    (T = 10); with a mask the kept half comes back as the init image."""
+    ckpt = tiny_checkpoint(tmp_path)
+    image, mask = editing_files(tmp_path)
+    flags, line = FLAG_FAMILIES[family]
+    result = sample.main([
+        "--checkpoint", str(ckpt), "--num_samples", "3", "--batch_size", "2",
+        "--cfg_scale", "3", "--device", "cpu", "--output_dir",
+        str(tmp_path / "out"), *(f.format(dir=tmp_path) for f in flags)])
+    assert line in capsys.readouterr().out
+    samples = result["samples"]
+    assert samples.shape == (3, 16, 16, 3) and np.isfinite(samples).all()
+    if "--mask" in flags:
+        kept = np.broadcast_to(mask[None, :, :, None] == 0, samples.shape)
+        np.testing.assert_allclose(
+            samples[kept], np.broadcast_to(image / 255.0, samples.shape)[kept],
+            atol=1e-6)

@@ -49,10 +49,11 @@ from diffusion_models_collection_tpu_torch.utils.trainer import (
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
 )
-from torch_port_helpers import (
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     DIM_PARAMS,
     jax_dim,
     max_rel,
+    one_torch_thread,
     run_pallas_interpreted,
     small_dim_config,
     torch_dim,

@@ -488,10 +488,14 @@ def test_factory_builds_dit_with_injected_size_and_classes():
 
 
 @pytest.mark.parametrize("knob", [dict(num_experts=4), dict(tome_ratio=0.5),
-                                  dict(quant="int8"), dict(pag_perturb=True)])
+                                  dict(quant="int8"),
+                                  dict(pag_perturb=True, quant="int8")])
 def test_dit_raises_on_knobs_not_ported(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Item 11's knobs raise, also beside `pag_perturb`, which is ported
+    (a DiT with it alone builds)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
         DiT(img_size=(16, 16), **DIT_PARAMS, **knob)
+    assert DiT(img_size=(16, 16), **DIT_PARAMS, pag_perturb=True).pag_perturb
 
 
 def test_bridge_raises_on_a_moe_dit():

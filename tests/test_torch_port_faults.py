@@ -31,10 +31,11 @@ from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
 )
-from torch_port_helpers import (
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     DIM_PARAMS,
     MODEL_PARAMS,
     max_rel,
+    one_torch_thread,
     perturbed,
     small_config,
     small_dim_config,

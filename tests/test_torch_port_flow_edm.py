@@ -47,25 +47,16 @@ from diffusion_models_collection_tpu_torch.diffusion import (
     edm,
     flow_matching,
 )
-from torch_port_helpers import (
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     affine_xty,
     jax_dit,
     jax_unet,
     max_rel,
     normal_arrays,
+    one_torch_thread,
     torch_dit,
     torch_unet,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side at these tiny shapes runs fastest on one thread and
-    leaves the cores to the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------- formulas
@@ -154,9 +145,15 @@ def test_edm_preconditioning_matches_jax():
 
 
 def test_img2img_waits_for_its_roadmap_item():
+    """img2img is ported (its trajectories are held against JAX in
+    tests/test_torch_port_editing.py): a strength outside [0, 1] raises the
+    JAX process's ValueError, and strength 0 returns the input."""
+    image = torch.zeros(1, 8, 8, 3)
     for process in (FlowMatching(), EDM()):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            process.img2img(None, torch.zeros(1, 8, 8, 3), None)
+        with pytest.raises(ValueError, match="strength must be in"):
+            process.img2img(None, image, None, strength=1.5)
+        assert torch.equal(process.img2img(None, image, None, strength=0.0),
+                           image)
 
 
 # ---------------------------------------------------- models and losses

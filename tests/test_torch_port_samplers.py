@@ -42,29 +42,20 @@ from diffusion_models_collection_tpu_torch.diffusion import (
     dpm_solver,
     schedule,
 )
-from torch_port_helpers import (
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     affine_xty,
     jax_dim,
     jax_dit,
     jax_unet,
     max_rel,
     normal_arrays,
+    one_torch_thread,
     shared_schedule,
     small_config,
     torch_dim,
     torch_dit,
     torch_unet,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's side at these tiny shapes runs fastest on one thread and
-    leaves the cores to the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------- Karras grid

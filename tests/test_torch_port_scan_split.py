@@ -24,8 +24,9 @@ from diffusion_models_collection_tpu.ops.selective_scan import (
     selective_scan_sequential as jax_sequential,
 )
 from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
-from torch_port_helpers import (
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     max_rel,
+    one_torch_thread,
     record_scan_calls,
     run_pallas_interpreted,
 )

@@ -65,12 +65,13 @@ from diffusion_models_collection_tpu_torch.utils.trainer import (
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
 )
-from torch_port_helpers import (
-    MODEL_PARAMS,
+from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     H,
+    MODEL_PARAMS,
     W,
     jax_unet,
     max_rel,
+    one_torch_thread,
     shared_schedule,
     small_config,
 )

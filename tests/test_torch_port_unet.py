@@ -132,8 +132,18 @@ def test_label_embedder_masks_null_row_like_jax():
                                   dict(freeu=(1.2, 1.1, 0.9, 0.95)),
                                   dict(deepcache_mode="full")])
 def test_unet_raises_on_knobs_not_ported(knob):
-    with pytest.raises(NotImplementedError):
-        UNet(**MODEL_PARAMS, num_classes=10, **knob)
+    """The three knobs are ported: each builds with the plain UNet's
+    parameter names, and a malformed value of each raises the JAX model's
+    ValueError (PAG's has none: any truth value is one)."""
+    plain = set(UNet(**MODEL_PARAMS, num_classes=10).state_dict())
+    assert set(UNet(**MODEL_PARAMS, num_classes=10,
+                    **knob).state_dict()) == plain
+    bad = {"pag_perturb": None, "freeu": dict(freeu=(1.2, 1.1)),
+           "deepcache_mode": dict(deepcache_mode="full",
+                                  deepcache_depth=2)}[next(iter(knob))]
+    if bad is not None:
+        with pytest.raises(ValueError):
+            UNet(**MODEL_PARAMS, num_classes=10, **bad)
 
 
 def test_reference_pth_from_jax_exporter_loads_strict(cond, tmp_path):

@@ -1,10 +1,13 @@
 """Shared set-up of the PyTorch port's parity tests: a small JAX UNet, DiM
 and DiT with seeded, perturbed params, their configs, and the port's models
-with the same weights through the weight bridge."""
+with the same weights through the weight bridge, and `one_torch_thread`, a
+module fixture that a test file imports to run the port on one torch
+thread."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -21,6 +24,16 @@ from diffusion_models_collection_tpu_torch.ops import selective_scan as ss
 from diffusion_models_collection_tpu_torch.utils.weights import (
     state_dict_from_jax,
 )
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side at these tiny shapes runs fastest on one thread and
+    leaves the cores to the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 H = W = 16
 MODEL_PARAMS = dict(image_size=(H, W), in_channels=3, model_channels=32,
