@@ -137,6 +137,20 @@ activations on float32 parameters, float32 eps):
   'bf16'`, samples/s, train images/s and peak memory beside the float32
   figures of the same run; the DiT also under DPM-Solver++ (20 steps).
 
+Then the metrics and `evaluate` (no kernel of their own: the metric networks
+are cuDNN convolutions and matrix products, always float32):
+
+* InceptionV3 pool features and logits (8 images at 32x32, 2 at 299x299) and
+  LPIPS distances (8 pairs at 32x32) on the card against the same networks
+  on the CPU; InceptionV3 images/s at batch 50; tr sqrtm of a 2048x2048
+  covariance product by Newton-Schulz on the card beside scipy's on the host;
+* `diffusion_models_collection_tpu_torch.evaluate` on a full-width UNet
+  checkpoint (DDIM-50, CFG 3, 100 samples in batches of 50, SWD) and on the
+  DiT in bf16 (DDIM-20, 50 samples), against the fixtures' 50-image test
+  split: exact launches (4500 GroupNorm+SiLU and 1100 attention; 240 bf16
+  attention), every metric finite, the metric networks float32, and the
+  seconds of each stage.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
@@ -167,12 +181,15 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy import linalg
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from diffusion_models_collection_tpu_torch import (  # noqa: E402
+    evaluate,
     factory,
+    metrics,
     sample,
     train,
 )
@@ -186,6 +203,9 @@ from diffusion_models_collection_tpu_torch.diffusion.deepcache import (  # noqa:
 )
 from diffusion_models_collection_tpu_torch.diffusion.pag import (  # noqa: E402
     pag_model_fn,
+)
+from diffusion_models_collection_tpu_torch.metrics import (  # noqa: E402
+    lpips_score,
 )
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
@@ -2503,6 +2523,199 @@ def phase_bf16(gn_shapes, attn_shapes, gen):
             "models": models}
 
 
+# ------------------------------------------------------ metrics and evaluate
+TOL_METRIC_NET = 2e-4  # the metric networks on the card against the CPU
+INCEPTION_RATE_BATCH = 50
+SQRTM_DIM = 2048  # InceptionV3's pool features
+# `evaluate.main` on the fp32 UNet: DDIM-50, CFG 3 in one batch of 2 x 50
+# rows, 2 batches, against the fixtures' 50-image test split
+EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 100, 50, 50
+# and on the bf16 DiT: DDIM-20, one batch of 50
+EVAL_DIT_SAMPLES, EVAL_DIT_STEPS = 50, 20
+
+
+def phase_metric_networks(gen):
+    """The metric networks on the card against the same networks (the same
+    weights) on the CPU: InceptionV3 pool features and logits for 8 images
+    at 32x32 and 2 at 299x299, LPIPS distances for 8 pairs at 32x32, each
+    within TOL_METRIC_NET; then the rate of feature extraction at batch 50
+    and tr sqrtm of a 2048x2048 covariance product by Newton-Schulz on the
+    card against scipy's sqrtm on the host. Returns the figures."""
+    rng = np.random.default_rng(0)
+    cpu_inc = metrics.InceptionFeatures(device="cpu")
+    card_inc = metrics.InceptionFeatures(device="cuda")
+    card_inc.model.load_state_dict(cpu_inc.model.state_dict())
+    worst = 0.0
+    for shape in ((8, 32, 32, 3), (2, 299, 299, 3)):
+        images = rng.random(shape, dtype=np.float32)
+        for name, ours, ref in zip(("features", "logits"), card_inc(images),
+                                   cpu_inc(images)):
+            err = max_rel(ours.cpu(), ref)
+            worst = max(worst, err)
+            print(f"InceptionV3 {name} at {shape} on the card against the "
+                  f"CPU: max-rel {err:.3e} (bar {TOL_METRIC_NET:g})")
+            if not (ours.dtype == torch.float32 and err <= TOL_METRIC_NET):
+                raise AssertionError(f"InceptionV3 {name} at {shape}: "
+                                     f"{ours.dtype}, max-rel {err:.3e}")
+    cpu_lpips = lpips_score.LPIPSScore(device="cpu")
+    card_lpips = lpips_score.LPIPSScore(device="cuda")
+    card_lpips.model.load_state_dict(cpu_lpips.model.state_dict())
+    x1, x2 = (rng.random((8, 32, 32, 3), dtype=np.float32) for _ in range(2))
+    err = max_rel(card_lpips.distance(x1, x2).cpu(),
+                  cpu_lpips.distance(x1, x2))
+    worst = max(worst, err)
+    print(f"LPIPS distances of 8 pairs at 32x32 on the card against the "
+          f"CPU: max-rel {err:.3e} (bar {TOL_METRIC_NET:g})")
+    if err > TOL_METRIC_NET:
+        raise AssertionError(f"LPIPS max-rel {err:.3e}")
+
+    batch = torch.rand(INCEPTION_RATE_BATCH, 32, 32, 3, generator=gen,
+                       device="cuda")
+    ms = median_ms(lambda: card_inc(batch), reps=5, warmup=2)
+    rate = INCEPTION_RATE_BATCH / ms * 1e3
+    print(f"InceptionV3 feature extraction at batch {INCEPTION_RATE_BATCH} "
+          f"(32x32, resized to 299): {ms:.3f} ms a batch (median of 5), "
+          f"{rate:.1f} images/s")
+
+    feats = [rng.standard_normal((n, SQRTM_DIM)) for n in (4096, 3000)]
+    prod = np.cov(feats[0], rowvar=False) @ np.cov(feats[1], rowvar=False)
+    start = time.perf_counter()
+    ref = float(np.trace(linalg.sqrtm(prod).real))
+    scipy_s = time.perf_counter() - start
+    trace = metrics.FIDScore.trace_sqrtm_newton_schulz(prod, device="cuda")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics.FIDScore.trace_sqrtm_newton_schulz(prod, device="cuda")
+        times.append(time.perf_counter() - start)
+    ns_s = statistics.median(times)
+    print(f"tr sqrtm at {SQRTM_DIM}x{SQRTM_DIM}: scipy on the host {ref:.6f} "
+          f"in {scipy_s:.3f} s; Newton-Schulz (30 iterations, float32) on "
+          f"the card {trace:.6f} in {ns_s * 1e3:.2f} ms (median of 3), "
+          f"relative difference {abs(trace - ref) / abs(ref):.3e}")
+    return {"err": worst, "rate": rate, "scipy_s": scipy_s, "ns_s": ns_s}
+
+
+class MetricDtypes:
+    """Records, while active, the dtype of a parameter and of the outputs
+    of every InceptionV3 and LPIPS call, from the classes' own methods."""
+
+    def __enter__(self):
+        self.seen = []
+        self.saved = (metrics.InceptionFeatures.__call__,
+                      lpips_score.LPIPSScore.distance)
+        inception_call, distance = self.saved
+        seen = self.seen
+
+        def record_inception(inc, images):
+            out = inception_call(inc, images)
+            seen.append(("InceptionV3", next(inc.model.parameters()).dtype,
+                         *(t.dtype for t in out)))
+            return out
+
+        def record_lpips(lp, x1, x2):
+            out = distance(lp, x1, x2)
+            seen.append(("LPIPS", next(lp.model.parameters()).dtype,
+                         out.dtype))
+            return out
+
+        metrics.InceptionFeatures.__call__ = record_inception
+        lpips_score.LPIPSScore.distance = record_lpips
+        return self
+
+    def __exit__(self, *exc):
+        (metrics.InceptionFeatures.__call__,
+         lpips_score.LPIPSScore.distance) = self.saved
+
+
+def run_evaluate(label, model, config, flags, expected, tmp):
+    """`evaluate.main` from a checkpoint of `model` (its weights also as the
+    EMA weights) and `config` on the fixtures, with `flags`, exactly
+    `expected` launches, every metric finite, the metric networks float32.
+    Returns the launches, the report and the stage seconds."""
+    ckpt = Path(tmp) / f"{label.replace(' ', '_')}.pth"
+    state = model.state_dict()
+    checkpoint.save_checkpoint(ckpt, state,
+                               dict(config, data_root=str(FIXTURE_DATA)),
+                               ema_model_state_dict=state)
+    out = Path(tmp) / f"{label.replace(' ', '_')}_metrics.json"
+    argv = ["--checkpoint", str(ckpt), "--device", "cuda", "--use_ema",
+            "--sampling_method", "ddim", "--cfg_scale", str(CFG_SCALE),
+            "--swd", "--seed", "0", "--output", str(out),
+            "--save_images_dir", str(Path(tmp) / "eval"), *flags]
+    seconds = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    with MetricDtypes() as dtypes:
+        report = evaluate.main(argv, seconds=seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    print(f"evaluate.main {label} ({' '.join(flags)}): whole call "
+          f"{wall:.3f} s; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f"; launches {launches}")
+    print(f"evaluate.main {label} report: {json.dumps(report)}")
+    if launches != expected:
+        raise AssertionError(f"evaluate {label} kernel launches {launches}, "
+                             f"expected {expected}")
+    values = [v for k, v in report.items()
+              if k != "uncalibrated_relative_only"]
+    if not (values and all(map(math.isfinite, values))
+            and "swd_avg" in report
+            and json.loads(out.read_text()) == report):
+        raise AssertionError(f"evaluate {label} report {report}")
+    kinds = {entry[0] for entry in dtypes.seen}
+    if kinds != {"InceptionV3", "LPIPS"} or any(
+            dtype != torch.float32 for entry in dtypes.seen
+            for dtype in entry[1:]):
+        raise AssertionError(f"evaluate {label}: metric network dtypes "
+                             f"{sorted(set(dtypes.seen))}")
+    print(f"evaluate.main {label}: metric networks ran "
+          f"{sorted(set(dtypes.seen))}")
+    return launches, report, seconds
+
+
+def phase_evaluate(config, gen, smi):
+    """The metric networks on the card (`phase_metric_networks`), then
+    `evaluate.main` on a full-width fp32 UNet checkpoint (DDIM-50, CFG 3,
+    100 samples in batches of 50, SWD; one forward's launches a model
+    call: 4500 GroupNorm+SiLU and 1100 attention launches) and on the bf16
+    DiT (DDIM-20, 50 samples: 240 bf16 attention launches, no
+    GroupNorm+SiLU), each against the fixtures' 50-image test split."""
+    networks = phase_metric_networks(gen)
+    torch.manual_seed(0)
+    unet = factory.get_model(config).to("cuda").eval()
+    calls = 2 * EVAL_STEPS  # two batches
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_launches, unet_report, unet_seconds = run_evaluate(
+            "UNet", unet, config,
+            ["--num_inference_steps", str(EVAL_STEPS), "--num_samples",
+             str(EVAL_SAMPLES), "--batch_size", str(EVAL_BATCH)],
+            scaled(UNET_FORWARD, calls), tmp)
+    del unet
+    rate = EVAL_SAMPLES / unet_seconds["generation"]
+    print(f"evaluate UNet generation: {EVAL_SAMPLES} samples DDIM-"
+          f"{EVAL_STEPS} CFG {CFG_SCALE} in {unet_seconds['generation']:.3f} "
+          f"s ({rate:.2f} samples/s) on {smi}")
+    dit_config = load_config(DIT_CONFIG)
+    dit = random_model(dit_config, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        dit_launches, dit_report, dit_seconds = run_evaluate(
+            "DiT bf16", dit, dit_config,
+            ["--mixed_precision", "bf16", "--num_inference_steps",
+             str(EVAL_DIT_STEPS), "--num_samples", str(EVAL_DIT_SAMPLES),
+             "--batch_size", str(EVAL_DIT_SAMPLES)],
+            scaled(bf16_counts(DIT_FORWARD), EVAL_DIT_STEPS), tmp)
+    del dit
+    return {"networks": networks, "unet_launches": unet_launches,
+            "unet_seconds": unet_seconds, "unet_report": unet_report,
+            "dit_launches": dit_launches, "dit_seconds": dit_seconds,
+            "dit_report": dit_report}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -2594,6 +2807,7 @@ def main():
 
     dit = phase_dit(gen)
     bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
+    evaluated = phase_evaluate(config, gen, smi)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -2660,6 +2874,16 @@ def main():
               f"batch {TRAIN_BATCH} (fp32 {statistics.median(rates32):.2f}), "
               f"peak device memory {run['peak'] / 2**20:.1f} MiB (fp32 "
               f"{peak32 / 2**20:.1f} MiB); on {smi}")
+    nets = evaluated["networks"]
+    print(f"metric networks on the card against the CPU: max-rel "
+          f"{nets['err']:.3e}; InceptionV3 {nets['rate']:.1f} images/s at "
+          f"batch {INCEPTION_RATE_BATCH}; tr sqrtm {SQRTM_DIM}: scipy "
+          f"{nets['scipy_s']:.3f} s on the host, Newton-Schulz "
+          f"{nets['ns_s'] * 1e3:.2f} ms on the card; on {smi}")
+    for label, key in (("UNet fp32", "unet"), ("DiT bf16", "dit")):
+        print(f"evaluate {label} stage seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in evaluated[f"{key}_seconds"].items())
+            + f"; on {smi}")
     fwd_ms, fwd_plain = scan_times[("fwd", 2 * SAMPLES, 256, False)]
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
     k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
@@ -2703,7 +2927,8 @@ def main():
          "launches": launches["gn"],
          "launches_by_path": {"sample": launches["gn"],
                               "train": train_launches["gn"],
-                              **path_launches("gn")},
+                              **path_launches("gn"),
+                              "evaluate": evaluated["unet_launches"]["gn"]},
          "max_abs_err": max(gn_err, main_err["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
@@ -2731,7 +2956,8 @@ def main():
                               "dit_train_remat":
                                   dit["remat_launches"]["attn"],
                               "dim_fallback": dit["fallback_launches"],
-                              **path_launches("attn")},
+                              **path_launches("attn"),
+                              "evaluate": evaluated["unet_launches"]["attn"]},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
@@ -2862,7 +3088,8 @@ def main():
              "train_bf16": unet16["train_launches"]["attn_bf16"],
              "dit_sample_bf16": dit16["sample_launches"]["attn_bf16"],
              "dit_sample_bf16_dpmpp": dit_fast_launches["attn_bf16"],
-             "dit_train_bf16": dit16["train_launches"]["attn_bf16"]},
+             "dit_train_bf16": dit16["train_launches"]["attn_bf16"],
+             "evaluate_dit_bf16": evaluated["dit_launches"]["attn_bf16"]},
          "max_abs_err": bf16["attn_err"],
          "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],
          **ab["unet_fwd"][1].keys(),

@@ -151,12 +151,15 @@ def build_deepcache(args, config, model, flags, base_wrapped: bool):
     if args.sampling_method.lower() != "ddim" or is_flow or is_edm:
         raise SystemExit("--deepcache is implemented on the DDIM trajectory "
                          "(--sampling_method ddim on a VP checkpoint)")
+    # getattr defaults: `evaluate` shares this builder but has only a
+    # subset of `sample`'s flags (no img2img, trajectory or restarts)
     incompatible = [
-        (args.save_intermediate or args.create_gif,
+        (getattr(args, "save_intermediate", False)
+         or getattr(args, "create_gif", False),
          "--save_intermediate/--create_gif (the cached scan returns final "
          "samples only)"),
-        (bool(args.init_image), "img2img"),
-        (args.restarts > 0, "--restarts"),
+        (bool(getattr(args, "init_image", None)), "img2img"),
+        (getattr(args, "restarts", 0) > 0, "--restarts"),
         (args.pag_scale != 0.0, "--pag_scale"),
         (base_wrapped, "the active model_fn wrapper"),
     ]

@@ -256,6 +256,12 @@ def load_mask_for_model(path, image_size: Tuple[int, int]) -> np.ndarray:
         np.float32)[None]
 
 
+def save_image(image: np.ndarray, save_path: Union[str, Path]) -> None:
+    """Save one (H, W, C) float image in [0, 1] as an 8-bit PNG."""
+    write_png(save_path, (np.clip(np.asarray(image, np.float32), 0.0, 1.0)
+                          * 255).round().astype(np.uint8))
+
+
 def save_image_grid(images: np.ndarray, save_path: Union[str, Path],
                     nrow: int = 8, padding: int = 2) -> None:
     """Save (N, H, W, C) float images in [0, 1] as one PNG grid."""

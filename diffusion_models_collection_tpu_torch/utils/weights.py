@@ -1,5 +1,8 @@
 """Weight bridge: a Flax UNet, DiT or DiM param tree (nested dicts of numpy
-arrays, as a JAX checkpoint stores it) to the port's `state_dict`.
+arrays, as a JAX checkpoint stores it) to the port's `state_dict`; and the
+metric networks' param trees (InceptionV3, the LPIPS AlexNet) to
+torchvision's keys, the inverses of the JAX package's
+`convert_torchvision_state` and `convert_lpips_state`.
 
 Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 (`_unet_torch_plan`, `_export_unet`, `_export_patch_scaffold`,
@@ -295,3 +298,43 @@ def state_dict_from_jax(params: Mapping,
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
             "item 11)")
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies: jax arrays are read-only
+
+
+def inception_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A Flax `metrics.inception.InceptionV3` param tree -> torchvision
+    `inception_v3` keys (without `AuxLogits.*` and `num_batches_tracked`):
+    `<block>.conv.weight` (OIHW), `<block>.bn.{weight, bias, running_mean,
+    running_var}` from `bn_scale`, `bn_bias`, `bn_mean`, `bn_var`, and
+    `fc.weight`, `fc.bias`."""
+    bn = {"bn_scale": "bn.weight", "bn_bias": "bn.bias",
+          "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for name, child in node.items():
+            if prefix == "" and name == "fc":
+                _dense(sd, "fc", child)
+            elif name == "conv":
+                sd[f"{prefix}conv.weight"] = _conv2d(child["kernel"])
+            elif name in bn:
+                sd[f"{prefix}{bn[name]}"] = _arr(child)
+            else:
+                walk(child, f"{prefix}{name}.")
+
+    walk(params, "")
+    return sd
+
+
+# torchvision alexnet `features` index of the LPIPS AlexNet's conv1..conv5
+ALEXNET_CONV_IDS = (0, 3, 6, 8, 10)
+
+
+def alexnet_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A Flax `metrics.lpips_score.AlexNetFeatures` param tree (conv1..conv5)
+    -> torchvision alexnet keys `features.N.{weight, bias}`."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, idx in enumerate(ALEXNET_CONV_IDS, start=1):
+        conv = params[f"conv{i}"]
+        sd[f"features.{idx}.weight"] = _conv2d(conv["kernel"])
+        sd[f"features.{idx}.bias"] = _arr(conv["bias"])
+    return sd

@@ -156,11 +156,20 @@ def port_modules():
 def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
     """In a fresh process that refuses `jax`, `flax`, `optax` and
     `diffusion_models_collection_tpu`: every module of the port, the
-    `train` and `sample` CLIs among them, `chip_smoke.py`'s imports and the
-    profiling tools."""
+    `train`, `sample` and `evaluate` CLIs, the metrics and the fixture tool
+    among them, `chip_smoke.py`'s imports and the profiling tools."""
     modules = port_modules()
     assert {"diffusion_models_collection_tpu_torch.train",
             "diffusion_models_collection_tpu_torch.sample",
+            "diffusion_models_collection_tpu_torch.evaluate",
+            "diffusion_models_collection_tpu_torch.metrics.inception",
+            "diffusion_models_collection_tpu_torch.metrics.fid",
+            "diffusion_models_collection_tpu_torch.metrics.inception_score",
+            "diffusion_models_collection_tpu_torch.metrics.kid",
+            "diffusion_models_collection_tpu_torch.metrics.precision_recall",
+            "diffusion_models_collection_tpu_torch.metrics.lpips_score",
+            "diffusion_models_collection_tpu_torch.metrics.swd",
+            "diffusion_models_collection_tpu_torch.tools.fixture_quality_run",
             "diffusion_models_collection_tpu_torch.datasets.loader",
             "diffusion_models_collection_tpu_torch.ops.selective_scan",
             "diffusion_models_collection_tpu_torch.models.dit",
