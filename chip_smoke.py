@@ -20,6 +20,18 @@ through the port's entry points. The UNet's:
   10-step trajectory against the plain versions first (the SDE form with
   one explicit noise list for both runs) and exactly one forward's launches
   per model call;
+* serving, from the same checkpoint through
+  `diffusion_models_collection_tpu_torch.serve` (DDIM-50, CFG 3, 16 images
+  a batch or 16 slots): the batched mode behind a ThreadingHTTPServer on
+  127.0.0.1 (/healthz, an npy request against `sample_with_cfg` on the same
+  seeded draw, a png request decoded by the port's `read_png`); the
+  continuous engine in fp32 and in bf16 (16 images in one submit against
+  `sample_with_cfg` at batch 16, two single-image requests admitted five
+  steps apart each against its row of a pool-shaped `sample_with_cfg`, then
+  the JAX bench leg's traffic: 64 single-image requests from 8 client
+  threads, p50/p99 latency and images/s, beside 16 images in one batch),
+  one forward's launches a step; and what the engine's admission of one row
+  and read-back of one slot cost against a pool's worth;
 * editing and training-free knobs: a 10-step, 8-image trajectory of each
   against the plain versions, with the plain run's own sensitivity to a
   1e-6 change of its input beside it (DDIM img2img and inpainting at
@@ -169,12 +181,15 @@ timings after warm-up; samples/s is the generation loop of one
 steps; all on the card named in the output.
 """
 
+import http.client
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -191,6 +206,7 @@ from diffusion_models_collection_tpu_torch import (  # noqa: E402
     factory,
     metrics,
     sample,
+    serve,
     train,
 )
 from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
@@ -220,6 +236,7 @@ from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noq
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
+    read_png,
     resolve_image_size,
     write_png,
 )
@@ -2716,6 +2733,285 @@ def phase_evaluate(config, gen, smi):
             "dit_report": dit_report}
 
 
+# ------------------------------------------------------------------ serving
+SERVE_SLOTS = 16  # `--batch_size`: the batched mode's batch, the engine's pool
+SERVE_SEED = 11
+SERVE_STAGGER_TICKS = 5  # the second solo request joins this many steps in
+# the JAX bench leg's traffic (`bench.py` `_leg_serving`): single-image CFG
+# requests from client threads, each waiting for its reply (a closed loop)
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+TOL_SERVE_BATCHED = 1e-6  # in [0, 1]: the same trajectory, bit-equal expected
+TOL_SERVE_SLOT = 1e-5  # model space: one row of a pool, bit-equal expected
+
+
+def http_request(address, method, path, body=None):
+    conn = http.client.HTTPConnection(*address, timeout=600)
+    conn.request(method, path, body=json.dumps(body) if body else None)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), data
+
+
+def serve_reference(model, config, noise, labels):
+    """DDIM-50 CFG 3 of `model` from `noise` on labels `labels` (+1
+    shifted), a fresh sampler from `config`: (images in model space, seconds
+    with the card synchronised)."""
+    ddim = factory.get_diffusion(dict(config, num_inference_steps=STEPS),
+                                 "ddim")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = ddim.sample_with_cfg(model, noise.shape,
+                               torch.as_tensor(labels, device="cuda"),
+                               cfg_scale=CFG_SCALE, init_noise=noise)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def phase_serve_batched(ckpt, config, model, smi):
+    """`serve`'s batched mode over real HTTP: a ThreadingHTTPServer on
+    127.0.0.1, port 0, with the port's handler, `--batch_size 16`, DDIM-50,
+    CFG 3. /healthz, then one npy request (its images against
+    `sample_with_cfg` on the same seeded draw at batch 16) and one png
+    request (decoded by `read_png`), each with exactly 50 forwards'
+    launches. Returns the launches of one request and its seconds."""
+    service = serve.SamplerService(
+        str(ckpt), sampling_method="ddim", num_inference_steps=STEPS,
+        batch_size=SERVE_SLOTS, device="cuda")
+    print(f"serve batched: warm-up {service.warmup():.3f} s")
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0),
+                                      serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever)
+    thread.start()
+    try:
+        address = httpd.server_address
+        status, _, data = http_request(address, "GET", "/healthz")
+        health = json.loads(data)
+        if status != 200 or health["max_batch"] != SERVE_SLOTS:
+            raise AssertionError(f"serve /healthz: {status} {health}")
+        labels = [i % 10 for i in range(SERVE_SLOTS)]
+        runs = {}
+        for fmt in ("npy", "png"):
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            status, ctype, data = http_request(
+                address, "POST", "/generate",
+                {"num_samples": SERVE_SLOTS, "labels": labels,
+                 "seed": SERVE_SEED, "cfg_scale": CFG_SCALE, "format": fmt})
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            if status != 200:
+                raise AssertionError(f"serve batched {fmt}: {status} {data}")
+            if launches != scaled(UNET_FORWARD, STEPS):
+                raise AssertionError(f"serve batched {fmt} launches "
+                                     f"{launches}")
+            runs[fmt] = (data, launches, seconds)
+            print(f"serve batched {fmt}: {SERVE_SLOTS} images DDIM-{STEPS} "
+                  f"CFG {CFG_SCALE} in {seconds:.3f} s over HTTP on {smi}; "
+                  f"launches {launches}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    images = np.load(io.BytesIO(runs["npy"][0]))
+    generator = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    noise = torch.randn((SERVE_SLOTS, 32, 32, 3), generator=generator,
+                        device="cuda")
+    ref, _ = serve_reference(model, config, noise,
+                             np.asarray(labels) + 1)
+    ref = np.clip((ref.cpu().numpy() + 1) / 2, 0, 1)
+    err = float(np.abs(images - ref).max())
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "grid.png").write_bytes(runs["png"][0])
+        grid = read_png(Path(tmp) / "grid.png")
+    side = 4 * 32 + 5 * 2  # 4 x 4 images, padding 2
+    print(f"serve batched npy against sample_with_cfg at batch "
+          f"{SERVE_SLOTS} on the request's draw: max_abs {err:.3e} (bar "
+          f"{TOL_SERVE_BATCHED:g}); png grid {grid.shape}")
+    if not (images.shape == (SERVE_SLOTS, 32, 32, 3)
+            and err <= TOL_SERVE_BATCHED and grid.shape == (side, side, 3)):
+        raise AssertionError(f"serve batched: images {images.shape}, "
+                             f"max_abs {err}, grid {grid.shape}")
+    del service
+    return runs["npy"][1], runs["npy"][2]
+
+
+def pool_reference(model, config, requests):
+    """The pool-shaped DDIM-50 CFG 3 trajectory with each request's noise
+    and labels in its slots (the other rows zero noise, null label): each
+    slot's row is what the engine owes that request."""
+    noise = torch.zeros((SERVE_SLOTS, 32, 32, 3), device="cuda")
+    labels = np.zeros(SERVE_SLOTS, np.int64)
+    for slots, x, y in requests:
+        noise[slots] = x
+        labels[slots] = y
+    return serve_reference(model, config, noise, labels)
+
+
+def serve_traffic(engine, label, smi):
+    """The bench leg's traffic: SERVE_REQUESTS single-image CFG 3 requests
+    from SERVE_CLIENTS threads, labels (client + i) % 10 + 1, exactly one
+    forward's launches a step. Returns the launches and the figures."""
+    latencies, lock = [], threading.Lock()
+    per_client = SERVE_REQUESTS // SERVE_CLIENTS
+
+    def client(wid):
+        rng = np.random.RandomState(1000 + wid)
+        for i in range(per_client):
+            x = rng.randn(1, 32, 32, 3).astype(np.float32)
+            y = np.asarray([(wid + i) % 10 + 1])
+            start = time.perf_counter()
+            out = engine.submit(x, y, cfg_scale=CFG_SCALE, timeout=600)
+            seconds = time.perf_counter() - start
+            if not (out.shape == (1, 32, 32, 3) and np.isfinite(out).all()):
+                raise AssertionError(f"{label}: a request returned "
+                                     f"{out.shape}")
+            with lock:
+                latencies.append(seconds)
+
+    ticks = engine.ticks
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(w,))
+               for w in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    steps = engine.ticks - ticks
+    if len(latencies) != SERVE_REQUESTS:
+        raise AssertionError(f"{label}: {len(latencies)} of "
+                             f"{SERVE_REQUESTS} requests answered")
+    latencies.sort()
+    figures = {"p50_ms": 1e3 * latencies[len(latencies) // 2],
+               "p99_ms": 1e3 * latencies[min(len(latencies) - 1,
+                                             int(len(latencies) * 0.99))],
+               "images_per_s": SERVE_REQUESTS / wall, "wall_s": wall,
+               "steps": steps, "ms_per_step": 1e3 * wall / steps}
+    print(f"{label}: {SERVE_REQUESTS} single-image requests from "
+          f"{SERVE_CLIENTS} clients, {SERVE_SLOTS} slots, DDIM-{STEPS} CFG "
+          f"{CFG_SCALE}: p50 {figures['p50_ms']:.1f} ms, p99 "
+          f"{figures['p99_ms']:.1f} ms ({SERVE_REQUESTS} samples), "
+          f"{figures['images_per_s']:.2f} images/s, {steps} steps in "
+          f"{wall:.3f} s ({figures['ms_per_step']:.2f} ms a step); launches "
+          f"{launches}; on {smi}")
+    return launches, figures
+
+
+def phase_serve_continuous(ckpt, config, model, precision, smi, gen):
+    """`serve --continuous` (16 slots, DDIM-50, CFG 3, one step a tick) in
+    `precision`: 16 images in one submit against `sample_with_cfg` at batch
+    16 on the same noise; two single-image requests admitted
+    SERVE_STAGGER_TICKS steps apart, each against its row of a pool-shaped
+    `sample_with_cfg`; then `serve_traffic`, beside the whole-trajectory
+    comparator's time (16 images in one batch). Every step exactly one
+    forward's launches (in the bf16 forms under bf16)."""
+    bf16 = precision == "bf16"
+    label = f"serve continuous {precision}"
+    per_forward = UNET_FORWARD_BF16 if bf16 else UNET_FORWARD
+    service = serve.SamplerService(
+        str(ckpt), sampling_method="ddim", num_inference_steps=STEPS,
+        batch_size=SERVE_SLOTS, continuous=True, steps_per_tick=1,
+        mixed_precision=precision, device="cuda")
+    engine = service.engine
+    if bf16:
+        model = factory.get_model(dict(config, mixed_precision="bf16")).to(
+            "cuda").eval()
+        model.load_state_dict(service.model.state_dict())
+    try:
+        print(f"{label}: warm-up {service.warmup():.3f} s")
+        # 16 images in one submit, against sample_with_cfg at batch 16
+        noise = torch.randn((SERVE_SLOTS, 32, 32, 3), generator=gen,
+                            device="cuda")
+        labels = np.arange(SERVE_SLOTS) % 10 + 1
+        ticks = engine.ticks
+        torch.cuda.synchronize()
+        reset_launches()
+        out = engine.submit(noise, labels, cfg_scale=CFG_SCALE, timeout=600)
+        launches = read_launches()
+        steps = engine.ticks - ticks
+        ref, batch_seconds = serve_reference(model, config, noise, labels)
+        ref = ref.cpu().numpy()
+        # bf16: one bf16 step at the largest value (the pool stays float32)
+        tol = (torch.finfo(torch.bfloat16).eps * float(np.abs(ref).max())
+               if bf16 else TOL_SERVE_SLOT)
+        err = float(np.abs(out - ref).max())
+        print(f"{label}: {SERVE_SLOTS} images in one submit against "
+              f"sample_with_cfg at batch {SERVE_SLOTS}: max_abs {err:.3e} "
+              f"(bar {tol:.3e}); launches {launches}")
+        if not (steps == STEPS and launches == scaled(per_forward, STEPS)
+                and err <= tol):
+            raise AssertionError(f"{label} full pool: {steps} steps, "
+                                 f"launches {launches}, max_abs {err}")
+        # two single-image requests, the second SERVE_STAGGER_TICKS steps in
+        with engine._lock:  # slots are taken from the end of the free list
+            slot_a, slot_b = engine._free[-1], engine._free[-2]
+        xa, xb = (torch.randn((1, 32, 32, 3), generator=gen, device="cuda")
+                  for _ in range(2))
+        results = {}
+
+        def submit(name, x, y):
+            start = time.perf_counter()
+            results[name] = engine.submit(x, np.asarray([y]),
+                                          cfg_scale=CFG_SCALE, timeout=600)
+            results[name + "_s"] = time.perf_counter() - start
+
+        start_ticks = engine.ticks
+        first = threading.Thread(target=submit, args=("a", xa, 3))
+        first.start()
+        while (engine.ticks < start_ticks + SERVE_STAGGER_TICKS
+               and first.is_alive()):
+            time.sleep(0.001)
+        joined = engine.ticks - start_ticks
+        submit("b", xb, 8)
+        first.join()
+        ref, _ = pool_reference(model, config, [([slot_a], xa, 3),
+                                                ([slot_b], xb, 8)])
+        ref = ref.cpu().numpy()
+        errs = [float(np.abs(results[n] - ref[[s]]).max())
+                for n, s in (("a", slot_a), ("b", slot_b))]
+        print(f"{label}: solo request in an idle pool {results['a_s']:.3f} "
+              f"s, the second joined {joined} steps later "
+              f"({results['b_s']:.3f} s); each against its row of a "
+              f"pool-shaped sample_with_cfg: "
+              f"max_abs {errs[0]:.3e}, {errs[1]:.3e} (bar {tol:.3e}); on "
+              f"{smi}")
+        if not (joined >= SERVE_STAGGER_TICKS and max(errs) <= tol):
+            raise AssertionError(f"{label} staggered: joined after {joined}"
+                                 f" steps, max_abs {errs}")
+        launches, figures = serve_traffic(engine, label, smi)
+    finally:
+        service.close()
+    if launches != scaled(per_forward, figures["steps"]):
+        raise AssertionError(f"{label} traffic launches {launches}, expected "
+                             f"{scaled(per_forward, figures['steps'])}")
+    figures["batch_ms"] = 1e3 * batch_seconds
+    figures["solo_s"] = results["a_s"]
+    print(f"{label}: whole-trajectory comparator, {SERVE_SLOTS} images in "
+          f"one sample_with_cfg batch: {figures['batch_ms']:.1f} ms; on {smi}")
+    return launches, figures
+
+
+def phase_serve(ckpt, config, model, gen, smi):
+    """The serving daemon on the fp32 UNet checkpoint `ckpt` of `model`:
+    batched mode over HTTP, continuous mode in fp32 and in bf16."""
+    batched_launches, batched_seconds = phase_serve_batched(ckpt, config,
+                                                            model, smi)
+    continuous = {precision: phase_serve_continuous(ckpt, config, model,
+                                                    precision, smi, gen)
+                  for precision in ("none", "bf16")}
+    return {"batched_launches": batched_launches,
+            "batched_seconds": batched_seconds,
+            "continuous_launches": continuous["none"][0],
+            "continuous": continuous["none"][1],
+            "continuous_bf16_launches": continuous["bf16"][0],
+            "continuous_bf16": continuous["bf16"][1]}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -2738,6 +3034,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches, seconds = phase_sample_main("UNet", config, model,
                                               UNET_FORWARD, tmp)
+        served = phase_serve(Path(tmp) / "unet_random.pth", config, model,
+                             gen, smi)
     fast = phase_samplers(config, model, UNET_FORWARD, gen, smi)
     knobs = phase_knobs(config, model, gen, smi, seconds)
     del model
@@ -2874,6 +3172,18 @@ def main():
               f"batch {TRAIN_BATCH} (fp32 {statistics.median(rates32):.2f}), "
               f"peak device memory {run['peak'] / 2**20:.1f} MiB (fp32 "
               f"{peak32 / 2**20:.1f} MiB); on {smi}")
+    for precision, key in (("fp32", "continuous"), ("bf16",
+                                                     "continuous_bf16")):
+        fig = served[key]
+        print(f"serve --continuous {precision}, {SERVE_SLOTS} slots, "
+              f"DDIM-{STEPS} CFG {CFG_SCALE}, {SERVE_REQUESTS} requests from "
+              f"{SERVE_CLIENTS} clients: p50 {fig['p50_ms']:.1f} ms, p99 "
+              f"{fig['p99_ms']:.1f} ms, {fig['images_per_s']:.2f} images/s, "
+              f"{fig['ms_per_step']:.2f} ms a step, solo request "
+              f"{fig['solo_s']:.3f} s, 16 images in one batch "
+              f"{fig['batch_ms']:.1f} ms; on {smi}")
+    print(f"serve batched: {SERVE_SLOTS} images DDIM-{STEPS} CFG {CFG_SCALE} "
+          f"in {served['batched_seconds']:.3f} s over HTTP; on {smi}")
     nets = evaluated["networks"]
     print(f"metric networks on the card against the CPU: max-rel "
           f"{nets['err']:.3e}; InceptionV3 {nets['rate']:.1f} images/s at "
@@ -2918,6 +3228,15 @@ def main():
         out.update({f"train_{kind}": run["launches"][key]
                     for kind, run in processes.items()})
         return out
+    def serve_launches(key):
+        """A forward kernel's launches in `serve`: one batched request over
+        HTTP, the continuous engine's traffic in fp32 and in bf16 (`*_bf16`
+        keys count only the bf16 run, the others both)."""
+        runs = {"serve": served["batched_launches"],
+                "serve_continuous": served["continuous_launches"],
+                "serve_continuous_bf16": served["continuous_bf16_launches"]}
+        return {path: run[key] for path, run in runs.items()
+                if run[key] or not key.endswith("_bf16")}
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -2928,7 +3247,8 @@ def main():
          "launches_by_path": {"sample": launches["gn"],
                               "train": train_launches["gn"],
                               **path_launches("gn"),
-                              "evaluate": evaluated["unet_launches"]["gn"]},
+                              "evaluate": evaluated["unet_launches"]["gn"],
+                              **serve_launches("gn")},
          "max_abs_err": max(gn_err, main_err["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
@@ -2957,7 +3277,8 @@ def main():
                                   dit["remat_launches"]["attn"],
                               "dim_fallback": dit["fallback_launches"],
                               **path_launches("attn"),
-                              "evaluate": evaluated["unet_launches"]["attn"]},
+                              "evaluate": evaluated["unet_launches"]["attn"],
+                              **serve_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
@@ -3064,7 +3385,8 @@ def main():
              "sample_bf16": unet16["sample_launches"]["gn_bf16"],
              "sample_bf16_deepcache": knobs["UNet bf16 DeepCache depth 1"][
                  0]["gn_bf16"],
-             "train_bf16": unet16["train_launches"]["gn_bf16"]},
+             "train_bf16": unet16["train_launches"]["gn_bf16"],
+             **serve_launches("gn_bf16")},
          "max_abs_err": bf16["gn_err"][0],
          "ms": gn_t["fwd"], "plain_ms": gn_t["fwd_plain"],
          **gn_b["fwd"].keys(), "library_ms": None},
@@ -3089,7 +3411,8 @@ def main():
              "dit_sample_bf16": dit16["sample_launches"]["attn_bf16"],
              "dit_sample_bf16_dpmpp": dit_fast_launches["attn_bf16"],
              "dit_train_bf16": dit16["train_launches"]["attn_bf16"],
-             "evaluate_dit_bf16": evaluated["dit_launches"]["attn_bf16"]},
+             "evaluate_dit_bf16": evaluated["dit_launches"]["attn_bf16"],
+             **serve_launches("attn_bf16")},
          "max_abs_err": bf16["attn_err"],
          "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],
          **ab["unet_fwd"][1].keys(),

@@ -9,7 +9,9 @@ JAX.
 Ported so far: the class-conditional UNet, DiM (diffusion Mamba) and DiT,
 sampled with DDPM, DDIM, DPM-Solver++ (2M, SDE) or UniPC and
 classifier-free guidance (`sample.py`) and trained with the DDPM objective
-(`train.py`), or trained and sampled as flow matching or EDM.
+(`train.py`), or trained and sampled as flow matching or EDM; measured by
+`evaluate.py` and served over HTTP by `serve.py`, batched or through the
+continuous-batching engine (`serving_engine.py`).
 """
 
 __version__ = "0.1.0"

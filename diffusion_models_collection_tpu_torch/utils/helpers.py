@@ -105,12 +105,17 @@ def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2
     return grid
 
 
-def write_png(path: Union[str, Path], image: np.ndarray) -> None:
-    """Write an (H, W) or (H, W, C) uint8 image, C in {1, 3, 4}, as an
-    8-bit PNG (no filtering, zlib level 6)."""
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG colour type -> channels: gray, RGB, gray + alpha, RGBA
+PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """An (H, W) or (H, W, C) uint8 image, C in {1, 3, 4}, as the bytes of
+    an 8-bit PNG (no filtering, zlib level 6)."""
     image = np.asarray(image)
     if image.dtype != np.uint8:
-        raise TypeError(f"write_png takes uint8, got {image.dtype}")
+        raise TypeError(f"encode_png takes uint8, got {image.dtype}")
     if image.ndim == 3 and image.shape[2] == 1:
         image = image[..., 0]
     h, w = image.shape[:2]
@@ -124,15 +129,16 @@ def write_png(path: Union[str, Path], image: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: Union[str, Path], image: np.ndarray) -> None:
+    """Write an (H, W) or (H, W, C) uint8 image, C in {1, 3, 4}, as an
+    8-bit PNG (`encode_png`)."""
+    data = encode_png(image)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                           + chunk(b"IDAT", zlib.compress(raw, 6))
-                           + chunk(b"IEND", b""))
-
-
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels: gray, RGB, gray + alpha, RGBA
-PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+    Path(path).write_bytes(data)
 
 
 def read_png(path: Union[str, Path]) -> np.ndarray:

@@ -156,12 +156,15 @@ def port_modules():
 def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
     """In a fresh process that refuses `jax`, `flax`, `optax` and
     `diffusion_models_collection_tpu`: every module of the port, the
-    `train`, `sample` and `evaluate` CLIs, the metrics and the fixture tool
-    among them, `chip_smoke.py`'s imports and the profiling tools."""
+    `train`, `sample`, `evaluate` and `serve` CLIs, the serving engine, the
+    metrics and the fixture tool among them, `chip_smoke.py`'s imports and
+    the profiling tools."""
     modules = port_modules()
     assert {"diffusion_models_collection_tpu_torch.train",
             "diffusion_models_collection_tpu_torch.sample",
             "diffusion_models_collection_tpu_torch.evaluate",
+            "diffusion_models_collection_tpu_torch.serve",
+            "diffusion_models_collection_tpu_torch.serving_engine",
             "diffusion_models_collection_tpu_torch.metrics.inception",
             "diffusion_models_collection_tpu_torch.metrics.fid",
             "diffusion_models_collection_tpu_torch.metrics.inception_score",
