@@ -163,6 +163,24 @@ are cuDNN convolutions and matrix products, always float32):
   attention), every metric finite, the metric networks float32, and the
   seconds of each stage.
 
+Then latent diffusion, both stages of configs/cifar10_vae.py and
+configs/cifar10_latent_unet.py at full width (`phase_latent`): a VAE forward
+(2,385,227 parameters) against the plain versions; K1 and K1b at every
+GroupNorm+SiLU shape of the VAE at batch 128 (C 64 at 32x32, eight channels a
+group; the decoder's 128 -> 64 transition) and K2 and K3 at its attention (4
+heads of d 32 at L 256), float32 and bf16; three one-batch epochs of `train`
+for the VAE (22 K1 + 2 K2 + 22 K1b + 2 K3 a step, its reconstruction grid at
+the last), `tools/compute_latent_scale` on its checkpoint, three epochs of
+`train` for the latent UNet from a copy of its config naming that checkpoint
+and scale (the frozen encoder's 11 K1 + 1 K2, then 35 K1 + 11 K2 + 35 K1b +
+11 K3 a step), train images/s and peak memory of both; `sample` DDIM-50 CFG
+1.8 of 80 images (1750 K1 + 550 K2 and one decode) against the same call on
+the plain versions, img2img at strength 0.5 through the posterior mode,
+`--mask` refused; `evaluate` (DDIM-20, 50 samples, SWD); `serve` batched and
+`--continuous` over HTTP, each 16-image request against `sample_with_cfg` and
+`decode` of the same draw, then 16 single-image requests from 8 clients
+decoded on their handlers' threads.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
@@ -233,6 +251,9 @@ from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     selective_scan as scan,
 )
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
+from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
+    compute_latent_scale,
+)
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
@@ -690,35 +711,47 @@ def attention_fwd_form(seq, d, dtype=torch.float32):
             f"{'s' if seq > tile else ''}, d padded to {dmax}")
 
 
+def check_attention_fwd(label, bh, seq, d, gen, timed=False):
+    """K2 against its plain version on one float32 input, the line naming
+    its form; with `timed` also the kernel's, the plain version's and
+    `F.scaled_dot_product_attention`'s time on (1, BH, L, d) (never called
+    by the port). Returns the worst absolute error and the times."""
+    q, k, v = (torch.randn(bh, seq, d, generator=gen, device="cuda")
+               for _ in range(3))
+    o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    rel = max_rel(o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    line = (f"{label} BH={bh} L={seq} d={d} [{attention_fwd_form(seq, d)}]: "
+            f"o max_rel {rel:.3e} lse max_abs {lse_err:.3e}")
+    times = {}
+    if timed:
+        times = {
+            "fwd": median_ms(
+                lambda: flash_attention.flash_attention_fwd(q, k, v)),
+            "fwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_fwd_ref(q, k, v)),
+            "fwd_library": median_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None]))}
+        line += (" kernel {fwd:.4f} ms plain {fwd_plain:.4f} ms "
+                 "scaled_dot_product_attention {fwd_library:.4f} ms"
+                 ).format(**times)
+    print(line)
+    if not (rel <= TOL_OUT and lse_err <= TOL_LSE):
+        raise AssertionError(f"{label} L={seq} d={d}: o {rel}, lse {lse_err}")
+    return max((o - o_ref).abs().max().item(), lse_err), times
+
+
 def phase_attn(gen):
     """K2 against its plain version at BH 128, d 64 and L 256, 64, 16, 100
     (timed), then in the forms the UNet does not take; each line names the
     form. Returns the worst absolute error."""
-    worst_abs = 0.0
     cases = [(seq, HEAD_DIM, True) for seq in ATTN_LENGTHS]
     cases += [(seq, d, False) for seq, d in ATTN_FWD_FORMS]
-    for seq, d, timed in cases:
-        q, k, v = (torch.randn(ATTN_BH, seq, d, generator=gen,
-                               device="cuda") for _ in range(3))
-        o, lse = flash_attention.flash_attention_fwd(q, k, v)
-        o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v)
-        torch.cuda.synchronize()
-        rel = max_rel(o, o_ref)
-        lse_err = (lse - lse_ref).abs().max().item()
-        worst_abs = max(worst_abs, (o - o_ref).abs().max().item(), lse_err)
-        line = (f"flash_attn_fwd BH={ATTN_BH} L={seq} d={d} "
-                f"[{attention_fwd_form(seq, d)}]: o max_rel {rel:.3e} lse "
-                f"max_abs {lse_err:.3e}")
-        if timed:
-            ms = median_ms(lambda: flash_attention.flash_attention_fwd(q, k, v))
-            plain = median_ms(
-                lambda: flash_attention.flash_attention_fwd_ref(q, k, v))
-            line += f" kernel {ms:.4f} ms plain {plain:.4f} ms"
-        print(line)
-        if not (rel <= TOL_OUT and lse_err <= TOL_LSE):
-            raise AssertionError(f"flash_attn_fwd L={seq} d={d}: o {rel}, "
-                                 f"lse {lse_err}")
-    return worst_abs
+    return max(check_attention_fwd("flash_attn_fwd", ATTN_BH, seq, d, gen,
+                                   timed)[0]
+               for seq, d, timed in cases)
 
 
 def phase_unet(config, gen):
@@ -1259,15 +1292,16 @@ def phase_remat_grads(label, model, config, per_step, remat_step, gen,
                              f"gradient {grad_rel}")
 
 
-def write_train_config(config, epochs, tmp):
+def write_train_config(config, epochs, tmp, **changes):
     """The config at full width with only the run's length, data and output
     places changed: the committed CIFAR-10 fixtures (where the config reads
     CIFAR-10), `epochs` epochs, outputs under `tmp`, no best-model copy, no
-    sample grid."""
+    sample grid (unless `changes` say otherwise)."""
     run = dict(config, data_root=str(FIXTURE_DATA), epochs=epochs,
                save_dir=str(Path(tmp) / "checkpoints"),
                sample_dir=str(Path(tmp) / "samples"), save_best=False,
                sample_start_epoch=epochs + 1)
+    run.update(changes)
     path = Path(tmp) / f"cifar10_{config['model_type']}_fixtures.py"
     path.write_text(f"config = {run!r}\n")
     return path
@@ -1287,12 +1321,39 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch):
+def timed_rates(label, trainer):
+    """Train images/s through the trainer's own step with the kernels and
+    with the plain versions (kernels, plain, plain, kernels) on its first
+    batch, and the peak device memory of the kernel path's steps."""
+    images, labels = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).to("cuda")
+    if labels is not None:  # the VAE's data is unconditional
+        labels = torch.from_numpy(labels).to("cuda")
+    rates, peak = {"kernels": [], "plain": []}, 0
+    for path in ("kernels", "plain", "plain", "kernels"):
+        if path == "plain":
+            with plain_kernels():
+                rates[path].append(time_train_steps(trainer, images, labels))
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            rates[path].append(time_train_steps(trainer, images, labels))
+            peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"{label} train images/s at batch {images.shape[0]} (median of "
+          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP}), kernel path "
+          f"{', '.join(f'{r:.2f}' for r in rates['kernels'])}, plain path "
+          f"{', '.join(f'{r:.2f}' for r in rates['plain'])}; peak device "
+          f"memory of the kernel path's steps {peak / 2**20:.1f} MiB")
+    return rates, peak
+
+
+def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
+                   extra=(), **changes):
     """`train.main` for `epochs` epochs at full width, with exactly
-    `per_step` launches a step, finite losses and a checkpoint. Returns the
-    trainer and the launches."""
+    `per_step` launches a step (and the (counts, n) pairs of `extra`
+    besides), finite losses and a checkpoint; `changes` go into its config.
+    Returns the trainer and the launches."""
     batch_size = config["batch_size"]
-    cfg_path = write_train_config(config, epochs, tmp)
+    cfg_path = write_train_config(config, epochs, tmp, **changes)
     torch.cuda.synchronize()
     reset_launches()
     start = time.perf_counter()
@@ -1309,7 +1370,7 @@ def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch):
     print(f"train.main {label}: {epochs} epochs, {steps} steps of "
           f"batch {batch_size} in {wall:.3f} s; losses {losses}; launches "
           f"{launches}")
-    expected = scaled(per_step, steps)
+    expected = add_counts((per_step, steps), *extra)
     if not (steps == epochs * steps_per_epoch and launches == expected):
         raise AssertionError(f"{label}: {steps} steps, launches {launches}, "
                              f"expected {expected}")
@@ -1329,28 +1390,10 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
     `sample.main` from the checkpoint it wrote, once for each (method,
     model calls, flags) of `samplers`, with exactly `per_forward` launches
     a model call."""
-    batch_size = config["batch_size"]
     trainer, launches = run_train_main(label, config, per_step, tmp, epochs,
                                        steps_per_epoch)
     ckpt = trainer.save_dir / "current_model.pth"
-    images, labels = next(iter(trainer.train_loader))
-    images = torch.from_numpy(images).to("cuda")
-    labels = torch.from_numpy(labels).to("cuda")
-    rates = {"kernels": [], "plain": []}
-    peak = 0
-    for path in ("kernels", "plain", "plain", "kernels"):
-        if path == "plain":
-            with plain_kernels():
-                rates[path].append(time_train_steps(trainer, images, labels))
-        else:
-            torch.cuda.reset_peak_memory_stats()
-            rates[path].append(time_train_steps(trainer, images, labels))
-            peak = max(peak, torch.cuda.max_memory_allocated())
-    print(f"{label} train images/s at batch {batch_size} (median of "
-          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP}), kernel path "
-          f"{', '.join(f'{r:.2f}' for r in rates['kernels'])}, plain path "
-          f"{', '.join(f'{r:.2f}' for r in rates['plain'])}; peak device "
-          f"memory of the kernel path's steps {peak / 2**20:.1f} MiB")
+    rates, peak = timed_rates(label, trainer)
 
     for i, (method, calls, flags) in enumerate(samplers):
         out = Path(tmp) / f"sample_{i}_{method}"
@@ -2235,6 +2278,36 @@ def bf16_bar(steps, tol):
     return f"bar {steps} bf16 step{'s' if steps > 1 else ''} or {tol:g} of max"
 
 
+def check_gn_bf16(label, b, h, w, c, gen):
+    """K1's and K1b's bf16 forms against their plain versions at one shape,
+    one line naming the forms. Returns the worst absolute errors (forward,
+    backward) and the inputs (x, scale, bias, g, stats, plain stats)."""
+    x, scale, bias, g = gn_case(b, h, w, c, gen)
+    x, g = x.bfloat16(), g.bfloat16()
+    y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    stats_ref = fused_norm.group_norm_silu_stats_ref(x, 8)
+    grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    refs = fused_norm.group_norm_silu_bwd_ref(x, scale, bias, g, stats_ref, 8)
+    torch.cuda.synchronize()
+    label = f"{label} B={b} {h}x{w}x{c}"
+    steps, err = bf16_check(label, y, fused_norm.group_norm_silu_ref(
+        x, scale, bias, 8), BF16_STEPS_FWD, TOL_OUT)
+    steps_bwd, err_bwd = bf16_check(label + " dx", grads[0], refs[0],
+                                    BF16_STEPS_FWD, TOL_OUT)
+    rels = [max_rel(stats, stats_ref),
+            *(max_rel(a, r) for a, r in zip(grads[1:], refs[1:]))]
+    if not max(rels) <= TOL_OUT:
+        raise AssertionError(f"{label}: stats, dscale, dbias max_rel "
+                             f"{rels} > {TOL_OUT}")
+    print(f"{label} [{fused_norm.kernel_form(x.shape, 8, False, x.dtype)}"
+          f"; backward: {fused_norm.kernel_form(x.shape, 8, True, x.dtype)}"
+          f"]: y {steps} bf16 steps, dx {steps_bwd} "
+          f"({bf16_bar(BF16_STEPS_FWD, TOL_OUT)}); stats, dscale, dbias "
+          f"max_rel {' '.join(f'{r:.3e}' for r in rels)} (bar {TOL_OUT:g})")
+    errs = (max(err, (stats - stats_ref).abs().max().item()), err_bwd)
+    return errs, (x, scale, bias, g, stats, stats_ref)
+
+
 def phase_bf16_gn(gn_shapes, gen):
     """K1's and K1b's bf16 forms against their plain versions at every
     GroupNorm+SiLU shape of a UNet forward at the sampling batch (K1) and of
@@ -2249,34 +2322,9 @@ def phase_bf16_gn(gn_shapes, gen):
     cases += [(TRAIN_BATCH, h, w, c, n, "bwd") for (c, h, w), n in counts]
     cases += [(*shape, 0, "both") for shape in GN_BF16_EDGES]
     for b, h, w, c, n, which in cases:
-        x, scale, bias, g = gn_case(b, h, w, c, gen)
-        x, g = x.bfloat16(), g.bfloat16()
-        y, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
-        stats_ref = fused_norm.group_norm_silu_stats_ref(x, 8)
-        grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
-        refs = fused_norm.group_norm_silu_bwd_ref(x, scale, bias, g,
-                                                  stats_ref, 8)
-        torch.cuda.synchronize()
-        label = f"gn_silu bf16 B={b} {h}x{w}x{c}"
-        steps, err = bf16_check(label, y,
-                                fused_norm.group_norm_silu_ref(x, scale,
-                                                               bias, 8),
-                                BF16_STEPS_FWD, TOL_OUT)
-        steps_bwd, err_bwd = bf16_check(label + " dx", grads[0], refs[0],
-                                        BF16_STEPS_FWD, TOL_OUT)
-        rels = [max_rel(stats, stats_ref),
-                *(max_rel(a, r) for a, r in zip(grads[1:], refs[1:]))]
-        if not max(rels) <= TOL_OUT:
-            raise AssertionError(f"{label}: stats, dscale, dbias max_rel "
-                                 f"{rels} > {TOL_OUT}")
-        worst = [max(worst[0], err, (stats - stats_ref).abs().max().item()),
-                 max(worst[1], err_bwd)]
-        line = (f"{label} [{fused_norm.kernel_form(x.shape, 8, False, x.dtype)}"
-                f"; backward: {fused_norm.kernel_form(x.shape, 8, True, x.dtype)}"
-                f"]: y {steps} bf16 steps, dx {steps_bwd} "
-                f"({bf16_bar(BF16_STEPS_FWD, TOL_OUT)}); stats, dscale, dbias "
-                f"max_rel {' '.join(f'{r:.3e}' for r in rels)} (bar "
-                f"{TOL_OUT:g})")
+        errs, (x, scale, bias, g, stats, stats_ref) = check_gn_bf16(
+            "gn_silu bf16", b, h, w, c, gen)
+        worst = [max(a, e) for a, e in zip(worst, errs)]
         if which == "fwd":
             ms = median_ms(
                 lambda: fused_norm.group_norm_silu_fwd(x, scale, bias, 8))
@@ -2285,7 +2333,7 @@ def phase_bf16_gn(gn_shapes, gen):
             totals["fwd"] += n * ms
             totals["fwd_plain"] += n * plain
             bounds["fwd"].add(*gn_work(b, h, w, c, elem=2), n)
-            line += f"; x{n} a forward: kernel {ms:.4f} ms plain {plain:.4f} ms"
+            print(f"  x{n} a forward: kernel {ms:.4f} ms plain {plain:.4f} ms")
         elif which == "bwd":
             ms = median_ms(lambda: fused_norm.group_norm_silu_bwd(
                 x, scale, bias, g, stats, 8))
@@ -2294,9 +2342,8 @@ def phase_bf16_gn(gn_shapes, gen):
             totals["bwd"] += n * ms
             totals["bwd_plain"] += n * plain
             bounds["bwd"].add(*gn_bwd_work(b, h, w, c, elem=2), n)
-            line += (f"; x{n} a train step: backward kernel {ms:.4f} ms plain "
-                     f"{plain:.4f} ms")
-        print(line)
+            print(f"  x{n} a train step: backward kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} ms")
     print(f"GroupNorm+SiLU bf16: a UNet sampling forward at batch "
           f"{2 * SAMPLES} {totals['fwd']:.3f} ms (plain {totals['fwd_plain']:.3f}"
           f", bound {bounds['fwd'].ms:.3f} ms, {bounds['fwd'].keys()['bound_by']}"
@@ -3012,6 +3059,375 @@ def phase_serve(ckpt, config, model, gen, smi):
             "continuous_bf16": continuous["bf16"][1]}
 
 
+# ------------------------------------------------------- latent diffusion
+VAE_CONFIG = ROOT / "configs" / "cifar10_vae.py"
+LATENT_CONFIG = ROOT / "configs" / "cifar10_latent_unet.py"
+VAE_PARAMETERS = 2_385_227  # `eval_shape` of the JAX VAE at this config
+# Launches of one VAE encode and of one decode (each five VAEResBlocks of two
+# GroupNorm+SiLU and the output norm; one attention block at 16x16, 4 heads
+# of 32), of a VAE train step (a forward through both, its backward), of one
+# latent UNet forward (17 ResBlocks of two and the output norm; attention
+# at 8x8 and 4x4) and of a latent train step (the frozen encoder under no
+# gradient, then the UNet's forward and backward)
+VAE_CODER = {"gn": 11, "attn": 1}
+VAE_STEP = {"gn": 22, "attn": 2, "gn_bwd": 22, "attn_bwd": 2}
+LATENT_FORWARD = {"gn": 35, "attn": 11}
+LATENT_STEP = {"gn": 35 + 11, "attn": 11 + 1, "gn_bwd": 35, "attn_bwd": 11}
+LATENT_EVAL_STEPS, LATENT_EVAL_SAMPLES = 20, 50
+# The 80 decoded images of DDIM-50 through the kernels against the same
+# run on the plain versions, in [0, 1]: 50 steps of float32 rounding
+# differences of about 1e-6 relative a forward, through an unclamped latent
+# trajectory and the decoder
+TOL_LATENT_SAMPLES = 1e-3
+LATENT_CLIENTS, LATENT_REQUESTS = 8, 16  # single-image requests, continuous
+
+
+def coder_shapes(model, run):
+    """The (C, H, W) that each GroupNorm+SiLU and each attention block of
+    `model` sees in `run()`, recorded by forward pre-hooks."""
+    gn, attn = [], []
+    hooks = [m.register_forward_pre_hook(
+                 lambda mod, args, acc=acc: acc.append(
+                     tuple(args[0].shape[1:])))
+             for acc, kind in ((gn, unet_mod.FusedGroupNormSiLU),
+                               (attn, unet_mod.AttentionBlock))
+             for m in model.modules() if isinstance(m, kind)]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return gn, attn
+
+
+def phase_latent_kernels(vae_gn, vae_attn, gen):
+    """K1, K1b, K2 and K3 at the shapes this slice adds, float32 and bf16,
+    against their plain versions: every GroupNorm+SiLU shape of the VAE at
+    its training batch (C 64 at 32x32, eight channels a group; the
+    decoder's 128 -> 64 transition) and its attention, 4 heads of d 32 at
+    L 256. Returns the worst absolute errors."""
+    worst = dict.fromkeys(("gn", "gn_bwd", "attn", "attn_bwd", "gn_bf16",
+                           "gn_bwd_bf16", "attn_bf16"), 0.0)
+    for c, h, w in sorted(set(vae_gn)):
+        (fwd, bwd), _ = check_gn("latent: VAE gn_silu", TRAIN_BATCH, h, w,
+                                     c, gen, timed=(c, h, w) == (64, 32, 32))
+        worst["gn"], worst["gn_bwd"] = (max(worst["gn"], fwd),
+                                        max(worst["gn_bwd"], bwd))
+        (fwd, bwd), _ = check_gn_bf16("latent: VAE gn_silu bf16",
+                                      TRAIN_BATCH, h, w, c, gen)
+        worst["gn_bf16"] = max(worst["gn_bf16"], fwd)
+        worst["gn_bwd_bf16"] = max(worst["gn_bwd_bf16"], bwd)
+    (c, h, w), = set(vae_attn)
+    bh, seq, d = TRAIN_BATCH * 4, h * w, c // 4
+    worst["attn"] = check_attention_fwd("latent: VAE flash_attn_fwd", bh, seq,
+                                        d, gen, timed=True)[0]
+    worst["attn_bwd"] = check_attention_bwd(
+        f"latent: VAE flash_attn_bwd BH={bh} L={seq} d={d}",
+        attention_bwd_case(bh, seq, d, gen))[0]
+    worst["attn_bf16"] = check_attention_bf16(
+        "latent: VAE attention bf16", bh, seq, d, gen, timed=True)[0]
+    return worst
+
+
+def latent_sample(label, argv, expected):
+    """`sample.main(argv)` with exactly `expected` launches; returns the
+    result."""
+    torch.cuda.synchronize()
+    reset_launches()
+    result = sample.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    samples = result["samples"]
+    print(f"sample.main {label}: {len(samples)} images in "
+          f"{result['sampling_seconds']:.3f} s "
+          f"({len(samples) / result['sampling_seconds']:.2f} samples/s, "
+          f"decode included); launches {launches}")
+    if not (samples.shape[1:] == (32, 32, 3) and np.isfinite(samples).all()
+            and launches == expected):
+        raise AssertionError(f"{label}: samples {samples.shape}, launches "
+                             f"{launches}, expected {expected}")
+    return result, launches
+
+
+def phase_latent_sample(ckpt, config, tmp, gen, smi):
+    """From the latent checkpoint through `sample.main`: 80 images DDIM-50
+    with CFG at the config's scale (50 forwards and one decode), against
+    the same call inside `plain_kernels()`; img2img at strength 0.5 (the
+    init image encoded to its posterior mode, 25 forwards, one decode);
+    `--mask` refused. Returns the launches and the seconds."""
+    scale = config["cfg_scale"]
+    argv = ["--checkpoint", str(ckpt), "--sampling_method", "ddim",
+            "--num_inference_steps", str(STEPS), "--cfg_scale", str(scale),
+            "--num_samples", str(SAMPLES), "--batch_size", str(SAMPLES),
+            "--seed", "0", "--use_ema", "--device", "cuda",
+            "--output_dir", str(Path(tmp) / "latent_samples")]
+    result, launches = latent_sample(
+        f"latent DDIM-{STEPS} CFG {scale}", argv,
+        add_counts((LATENT_FORWARD, STEPS), (VAE_CODER, 1)))
+    with plain_kernels():
+        plain, _ = latent_sample(f"latent DDIM-{STEPS} CFG {scale} inside "
+                                 "plain_kernels()", argv, expect())
+    err = float(np.abs(result["samples"] - plain["samples"]).max())
+    print(f"latent DDIM-{STEPS} CFG {scale}, {SAMPLES} decoded images: "
+          f"kernels vs plain max_abs {err:.3e} in [0, 1] (bar "
+          f"{TOL_LATENT_SAMPLES:g}); {SAMPLES / result['sampling_seconds']:.2f}"
+          f" samples/s (plain {SAMPLES / plain['sampling_seconds']:.2f}) on "
+          f"{smi}")
+    if not err <= TOL_LATENT_SAMPLES:
+        raise AssertionError(f"latent samples kernels vs plain: {err}")
+    editing_inputs(tmp, gen)
+    edit = ["--init_image", str(Path(tmp) / "init.png"), "--strength",
+            str(EDIT_STRENGTH)]
+    _, img2img = latent_sample(
+        f"latent img2img strength {EDIT_STRENGTH}", argv + edit,
+        add_counts((VAE_CODER, 2), (LATENT_FORWARD, int(STEPS * EDIT_STRENGTH))))
+    try:
+        sample.main(argv + edit + ["--mask", str(Path(tmp) / "mask.png")])
+    except SystemExit as e:
+        if "--mask is not supported with latent-diffusion" not in str(e):
+            raise
+        print(f"latent --mask refused: {e}")
+    else:
+        raise AssertionError("latent --mask was not refused")
+    return {"sample": launches, "img2img": img2img,
+            "seconds": result["sampling_seconds"],
+            "plain_seconds": plain["sampling_seconds"]}
+
+
+def phase_latent_serve(ckpt, smi):
+    """`serve` on the latent checkpoint (16 rows or slots, DDIM-50, CFG 3):
+    batched over HTTP, /healthz in pixels, a 16-image request against
+    `sample_with_cfg` plus `decode` of the same seeded draw; `--continuous`
+    over HTTP, a 16-image request against the same on its own draw, then
+    LATENT_REQUESTS single-image requests from LATENT_CLIENTS threads, each
+    decoded on its handler's thread while the engine steps. Exact launches
+    (a forward a step, a decode a request). Returns the launches of each."""
+    out = {}
+    labels = [i % 10 for i in range(SERVE_SLOTS)]
+    body = {"num_samples": SERVE_SLOTS, "labels": labels, "seed": SERVE_SEED,
+            "cfg_scale": CFG_SCALE, "format": "npy"}
+    for mode in ("batched", "continuous"):
+        service = serve.SamplerService(
+            str(ckpt), sampling_method="ddim", num_inference_steps=STEPS,
+            batch_size=SERVE_SLOTS, continuous=mode == "continuous",
+            device="cuda")
+        print(f"latent serve {mode}: warm-up {service.warmup():.3f} s")
+        httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0),
+                                          serve.make_handler(service))
+        thread = threading.Thread(target=httpd.serve_forever)
+        thread.start()
+        try:
+            address = httpd.server_address
+            status, _, data = http_request(address, "GET", "/healthz")
+            if status != 200 or json.loads(data)["image_size"] != [32, 32]:
+                raise AssertionError(f"latent serve /healthz: {status} {data}")
+            ticks = service.engine.ticks if service.engine else 0
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            status, _, data = http_request(address, "POST", "/generate", body)
+            seconds = time.perf_counter() - start
+            launches = read_launches()
+            steps = (service.engine.ticks - ticks if service.engine
+                     else STEPS)
+            if status != 200:
+                raise AssertionError(f"latent serve {mode}: {status} {data}")
+            images = np.load(io.BytesIO(data))
+            shape = (SERVE_SLOTS, *service.image_hw, service.channels)
+            with torch.no_grad():
+                noise = service.initial_noise(shape, SERVE_SEED)
+                ref = service.codec.decode(service.diffusion.sample_with_cfg(
+                    service.model, shape,
+                    torch.as_tensor(np.asarray(labels) + 1, device="cuda"),
+                    cfg_scale=CFG_SCALE, init_noise=noise))
+            ref = np.clip((ref.cpu().numpy() + 1) / 2, 0, 1)
+            err = float(np.abs(images - ref).max())
+            tol = TOL_SERVE_BATCHED if mode == "batched" else TOL_SERVE_SLOT
+            print(f"latent serve {mode}: {SERVE_SLOTS} images DDIM-{STEPS} CFG "
+                  f"{CFG_SCALE} in {seconds:.3f} s over HTTP; against "
+                  f"sample_with_cfg + decode of the same draw: max_abs "
+                  f"{err:.3e} (bar {tol:g}); launches {launches} on {smi}")
+            expected = add_counts((LATENT_FORWARD, steps), (VAE_CODER, 1))
+            if not (images.shape == (SERVE_SLOTS, 32, 32, 3) and err <= tol
+                    and steps == STEPS and launches == expected):
+                raise AssertionError(f"latent serve {mode}: {images.shape}, "
+                                     f"max_abs {err}, {steps} steps, "
+                                     f"launches {launches}")
+            out[mode] = launches
+            if mode == "continuous":
+                out["traffic"] = latent_traffic(service, address, smi)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+            service.close()
+    return out
+
+
+def latent_traffic(service, address, smi):
+    """LATENT_REQUESTS single-image requests over HTTP from LATENT_CLIENTS
+    threads to the continuous server: every answer 200 and finite, a
+    forward's launches each engine step and a decode's each request."""
+    latencies, errors, lock = [], [], threading.Lock()
+
+    def client(wid):
+        for i in range(LATENT_REQUESTS // LATENT_CLIENTS):
+            start = time.perf_counter()
+            status, _, data = http_request(
+                address, "POST", "/generate",
+                {"num_samples": 1, "labels": [(wid + i) % 10],
+                 "seed": 100 * wid + i, "format": "npy"})
+            seconds = time.perf_counter() - start
+            with lock:
+                if status != 200:
+                    errors.append((status, data))
+                    continue
+                image = np.load(io.BytesIO(data))
+                if not (image.shape == (1, 32, 32, 3)
+                        and np.isfinite(image).all()):
+                    errors.append(image.shape)
+                latencies.append(seconds)
+
+    ticks = service.engine.ticks
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(w,))
+               for w in range(LATENT_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    steps = service.engine.ticks - ticks
+    expected = add_counts((LATENT_FORWARD, steps),
+                          (VAE_CODER, LATENT_REQUESTS))
+    latencies.sort()
+    print(f"latent serve continuous: {LATENT_REQUESTS} single-image requests "
+          f"from {LATENT_CLIENTS} clients over HTTP in {wall:.3f} s "
+          f"({LATENT_REQUESTS / wall:.2f} images/s, p50 "
+          f"{1e3 * latencies[len(latencies) // 2]:.1f} ms), {steps} steps; "
+          f"launches {launches} on {smi}")
+    if errors or len(latencies) != LATENT_REQUESTS or launches != expected:
+        raise AssertionError(f"latent traffic: errors {errors}, launches "
+                             f"{launches}, expected {expected}")
+    return launches
+
+
+def phase_latent(gen, smi):
+    """The two-stage pipeline of configs/cifar10_vae.py and
+    configs/cifar10_latent_unet.py at full width on the fixtures: a VAE
+    forward and the kernels at the VAE's shapes against the plain versions;
+    `train` of the VAE (TRAIN_EPOCHS one-batch epochs at 128, its
+    reconstruction grid at the last); `compute_latent_scale` on its
+    checkpoint; `train` of the latent UNet from a copy of its config naming
+    that checkpoint and scale; `sample`, `evaluate` and `serve` from the
+    latent checkpoint. Exact launches throughout. Returns the figures."""
+    start = time.perf_counter()
+    vae_config = dict(load_config(VAE_CONFIG), image_size=(32, 32))
+    torch.manual_seed(0)
+    vae = factory.get_model(vae_config).to("cuda").eval()
+    n_vae = sum(p.numel() for p in vae.parameters())
+    x = torch.rand(CHECK_BATCH, 32, 32, 3, generator=gen, device="cuda") * 2 - 1
+    noise = torch.randn(CHECK_BATCH, 16, 16, 4, generator=gen, device="cuda")
+    vae_gn, vae_attn = coder_shapes(vae, lambda: vae(x, noise))
+    calls = {"gn": len(vae_gn), "attn": len(vae_attn)}
+    with torch.no_grad():
+        out = vae(x, noise)
+        with plain_kernels():
+            ref = vae(x, noise)
+    torch.cuda.synchronize()
+    rels = [max_rel(a, b) for a, b in zip(out, ref)]
+    print(f"latent: VAE ({n_vae} parameters) forward B={CHECK_BATCH}, "
+          f"{calls} calls an encode and a decode: reconstruction, mean, "
+          f"logvar kernels vs plain max_rel {' '.join(f'{r:.3e}' for r in rels)}")
+    if not (n_vae == VAE_PARAMETERS and max(rels) <= TOL_UNET
+            and calls == {k: 2 * n for k, n in VAE_CODER.items()}):
+        raise AssertionError(f"VAE: {n_vae} parameters, calls {calls}, "
+                             f"max_rel {rels}")
+    del vae, out, ref
+    worst = phase_latent_kernels(vae_gn, vae_attn, gen)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for stage in ("vae", "latent"):
+            (Path(tmp) / stage).mkdir()
+        vae_trainer, vae_launches = run_train_main(
+            "VAE", vae_config, VAE_STEP, Path(tmp) / "vae", TRAIN_EPOCHS, 1,
+            extra=((VAE_CODER, 2),), sample_start_epoch=TRAIN_EPOCHS,
+            sample_interval=TRAIN_EPOCHS)
+        grid = vae_trainer.sample_dir / f"vae_epoch_{TRAIN_EPOCHS:04d}.png"
+        if not grid.is_file():
+            raise AssertionError(f"VAE: {grid} was not written")
+        vae_rates, vae_peak = timed_rates("VAE", vae_trainer)
+        vae_ckpt = vae_trainer.save_dir / "current_model.pth"
+        del vae_trainer
+
+        latent_config = dict(load_config(LATENT_CONFIG), image_size=(32, 32),
+                             vae_checkpoint=str(vae_ckpt),
+                             data_root=str(FIXTURE_DATA))
+        cfg_path = Path(tmp) / "latent_scale_config.py"
+        cfg_path.write_text(f"config = {latent_config!r}\n")
+        torch.cuda.synchronize()
+        reset_launches()
+        scale = compute_latent_scale.main(["--config", str(cfg_path),
+                                           "--batches", "1", "--device",
+                                           "cuda"])
+        launches = read_launches()
+        print(f"compute_latent_scale on the VAE's checkpoint: {scale}; "
+              f"launches {launches}")
+        if not (math.isfinite(scale["latent_scale_factor"])
+                and scale["latent_scale_factor"] > 0
+                and launches == scaled(VAE_CODER, 1)):
+            raise AssertionError(f"latent scale {scale}, launches {launches}")
+        latent_config["latent_scale_factor"] = scale["latent_scale_factor"]
+
+        latent_trainer, latent_launches = run_train_main(
+            "latent UNet", latent_config, LATENT_STEP, Path(tmp) / "latent",
+            TRAIN_EPOCHS, 1)
+        n_latent = sum(p.numel() for p in latent_trainer.model.parameters())
+        print(f"latent UNet: {n_latent} parameters on "
+              f"{latent_trainer.image_size} x {latent_trainer.in_channels} "
+              "latents")
+        latent_rates, latent_peak = timed_rates("latent UNet", latent_trainer)
+        ckpt = latent_trainer.save_dir / "current_model.pth"
+        model = latent_trainer.model.eval()
+        del latent_trainer
+
+        sampled = phase_latent_sample(ckpt, latent_config, tmp, gen, smi)
+        evaluated, _, eval_seconds = run_evaluate(
+            "latent UNet", model, latent_config,
+            ["--num_inference_steps", str(LATENT_EVAL_STEPS),
+             "--num_samples", str(LATENT_EVAL_SAMPLES), "--batch_size",
+             str(LATENT_EVAL_SAMPLES)],
+            add_counts((LATENT_FORWARD, LATENT_EVAL_STEPS), (VAE_CODER, 1)),
+            tmp)
+        del model
+        served = phase_latent_serve(ckpt, smi)
+    seconds = time.perf_counter() - start
+    rate = statistics.median
+    print(f"latent: VAE ({n_vae} parameters) {rate(vae_rates['kernels']):.2f} "
+          f"train images/s at batch {TRAIN_BATCH} (plain versions "
+          f"{rate(vae_rates['plain']):.2f}), peak {vae_peak / 2**20:.1f} MiB; "
+          f"latent UNet ({n_latent} parameters) "
+          f"{rate(latent_rates['kernels']):.2f} train images/s (plain "
+          f"{rate(latent_rates['plain']):.2f}), peak "
+          f"{latent_peak / 2**20:.1f} MiB; DDIM-{STEPS} CFG "
+          f"{latent_config['cfg_scale']} {SAMPLES / sampled['seconds']:.2f} "
+          f"samples/s decoded (plain "
+          f"{SAMPLES / sampled['plain_seconds']:.2f}); evaluate stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in eval_seconds.items())
+          + f"; phase {seconds:.1f} s; on {smi}")
+    return {"worst": worst, "launches": {
+        "latent_vae_train": vae_launches, "latent_train": latent_launches,
+        "latent_sample": sampled["sample"],
+        "latent_img2img": sampled["img2img"], "latent_evaluate": evaluated,
+        "latent_serve": served["batched"],
+        "latent_serve_continuous": add_counts((served["continuous"], 1),
+                                              (served["traffic"], 1))}}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -3106,6 +3522,7 @@ def main():
     dit = phase_dit(gen)
     bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
     evaluated = phase_evaluate(config, gen, smi)
+    latent = phase_latent(gen, smi)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -3237,6 +3654,13 @@ def main():
                 "serve_continuous_bf16": served["continuous_bf16_launches"]}
         return {path: run[key] for path, run in runs.items()
                 if run[key] or not key.endswith("_bf16")}
+    def latent_launches(key):
+        """A float32 kernel's launches on the latent slice's paths: both
+        stages' `train.main`, `sample.main` (DDIM-50 CFG and img2img, decode
+        included), `evaluate.main` and `serve` (batched, and continuous with
+        its traffic)."""
+        return {path: run[key] for path, run in latent["launches"].items()
+                if run[key]}
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -3248,8 +3672,9 @@ def main():
                               "train": train_launches["gn"],
                               **path_launches("gn"),
                               "evaluate": evaluated["unet_launches"]["gn"],
-                              **serve_launches("gn")},
-         "max_abs_err": max(gn_err, main_err["gn"]),
+                              **serve_launches("gn"),
+                              **latent_launches("gn")},
+         "max_abs_err": max(gn_err, main_err["gn"], latent["worst"]["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
         # K1b, ms per train step: 45 calls at batch 128. It has no TPU kernel
@@ -3260,8 +3685,10 @@ def main():
          "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:125",
          "launches": train_launches["gn_bwd"],
          "launches_by_path": {"train": train_launches["gn_bwd"],
-                              **path_launches("gn_bwd", train_only=True)},
-         "max_abs_err": max(gn_bwd_err, gn_step_err),
+                              **path_launches("gn_bwd", train_only=True),
+                              **latent_launches("gn_bwd")},
+         "max_abs_err": max(gn_bwd_err, gn_step_err,
+                            latent["worst"]["gn_bwd"]),
          "ms": gn_step["bwd"], "plain_ms": gn_step["bwd_plain"],
          "recompute_ms": gn_step["recompute"],
          **gn_bwd_bound.keys(), "library_ms": None},
@@ -3278,9 +3705,11 @@ def main():
                               "dim_fallback": dit["fallback_launches"],
                               **path_launches("attn"),
                               "evaluate": evaluated["unet_launches"]["attn"],
-                              **serve_launches("attn")},
+                              **serve_launches("attn"),
+                              **latent_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
-         "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"]),
+         "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"],
+                            latent["worst"]["attn"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
          **bounds["attn"].keys(), "library_ms": totals["attn"][2],
          "dropout_ms": drop_ms["fwd"], "dropout_p0_ms": drop_ms["fwd_p0"],
@@ -3295,9 +3724,11 @@ def main():
                               **path_launches("attn_bwd", train_only=True),
                               "dit_train": dit["train_launches"]["attn_bwd"],
                               "dit_train_remat":
-                                  dit["remat_launches"]["attn_bwd"]},
+                                  dit["remat_launches"]["attn_bwd"],
+                              **latent_launches("attn_bwd")},
          "dropout_launches": dit["train_launches"]["attn_bwd_dropout"],
-         "max_abs_err": max(bwd_err, dit["dropout_err"]),
+         "max_abs_err": max(bwd_err, dit["dropout_err"],
+                            latent["worst"]["attn_bwd"]),
          "ms": bwd_totals[0], "plain_ms": bwd_totals[1],
          **bwd_bound.keys(), "library_ms": bwd_totals[2],
          "dropout_ms": drop_ms["bwd"], "dropout_p0_ms": drop_ms["bwd_p0"],
@@ -3387,7 +3818,7 @@ def main():
                  0]["gn_bf16"],
              "train_bf16": unet16["train_launches"]["gn_bf16"],
              **serve_launches("gn_bf16")},
-         "max_abs_err": bf16["gn_err"][0],
+         "max_abs_err": max(bf16["gn_err"][0], latent["worst"]["gn_bf16"]),
          "ms": gn_t["fwd"], "plain_ms": gn_t["fwd_plain"],
          **gn_b["fwd"].keys(), "library_ms": None},
         {"name": "gn_silu_bwd_bf16", "route": "cuda",
@@ -3396,7 +3827,8 @@ def main():
          "launches": unet16["train_launches"]["gn_bwd_bf16"],
          "launches_by_path": {
              "train_bf16": unet16["train_launches"]["gn_bwd_bf16"]},
-         "max_abs_err": bf16["gn_err"][1],
+         "max_abs_err": max(bf16["gn_err"][1],
+                            latent["worst"]["gn_bwd_bf16"]),
          "ms": gn_t["bwd"], "plain_ms": gn_t["bwd_plain"],
          **gn_b["bwd"].keys(), "library_ms": None},
         {"name": "flash_attn_fwd_bf16", "route": "cuda",
@@ -3413,7 +3845,7 @@ def main():
              "dit_train_bf16": dit16["train_launches"]["attn_bf16"],
              "evaluate_dit_bf16": evaluated["dit_launches"]["attn_bf16"],
              **serve_launches("attn_bf16")},
-         "max_abs_err": bf16["attn_err"],
+         "max_abs_err": max(bf16["attn_err"], latent["worst"]["attn_bf16"]),
          "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],
          **ab["unet_fwd"][1].keys(),
          "cuda_core_bound_ms": ab["unet_fwd"][0].ms,
@@ -3434,7 +3866,7 @@ def main():
          "launches_by_path": {
              "train_bf16": unet16["train_launches"]["attn_bwd_bf16"],
              "dit_train_bf16": dit16["train_launches"]["attn_bwd_bf16"]},
-         "max_abs_err": bf16["attn_err"],
+         "max_abs_err": max(bf16["attn_err"], latent["worst"]["attn_bf16"]),
          "ms": at["unet_bwd"]["bwd"], "plain_ms": at["unet_bwd"]["bwd_plain"],
          **ab["unet_bwd"][1].keys(),
          "cuda_core_bound_ms": ab["unet_bwd"][0].ms,

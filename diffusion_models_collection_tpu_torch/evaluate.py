@@ -25,10 +25,12 @@ metrics JSON to `--output`, the relative-only metrics listed under
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
 only when asked for with `--device cpu`. Everything runs on that one
 device: the JAX package's data-parallel generation and feature extraction
-over a device mesh is not ported (ROADMAP queue 1 item 15). Not ported
-either, each raising `NotImplementedError` with its ROADMAP item:
-`--tome_ratio` and `--quantize` on a DiT, latent-diffusion and
-super-resolution checkpoints (item 11), consistency checkpoints (item 12).
+over a device mesh is not ported (ROADMAP queue 1 item 15). A
+latent-diffusion checkpoint generates the latents of the VAE its config names
+and decodes them before the metric networks see them. Not ported, each
+raising `NotImplementedError` with its ROADMAP item: `--tome_ratio` and
+`--quantize` on a DiT, super-resolution checkpoints (item 11), consistency
+checkpoints (item 12).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, save_image, save_image_grid,
                             set_seed)
+from .utils.latent import LatentCodec
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -291,8 +294,15 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
     labels_all = generation_labels(args, config, real_labels)
 
     print(f"Generating {args.num_samples} fake images...")
-    h, w = config["image_size"]
-    shape = (args.batch_size, h, w, config["model_params"]["in_channels"])
+    codec = LatentCodec.from_config(config, device=device)
+    if codec is not None:
+        shape = codec.latent_shape(args.batch_size)
+        print(f"Latent diffusion: sampling {shape[1]}x{shape[2]}x{shape[3]} "
+              "latents, decoding through the VAE")
+    else:
+        h, w = config["image_size"]
+        shape = (args.batch_size, h, w,
+                 config["model_params"]["in_channels"])
     num_batches = (args.num_samples + args.batch_size - 1) // args.batch_size
     use_cfg = args.cfg_scale > 0 and config.get("conditional", False)
     start_time = time.perf_counter()
@@ -321,6 +331,8 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
         else:
             samples = diffusion.sample(model_fn, shape, generator, y=y,
                                        progress=True)
+        if codec is not None:
+            samples = codec.decode(samples)
         batches.append(samples[: end - start])
     # waits for the device
     fake_images = torch.cat(batches).float().cpu().numpy()

@@ -3,7 +3,10 @@ and the training data from a config, and load a checkpoint's weights for
 inference.
 
 Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
-port covers: the UNet, DiT and DiM; DDPM training and sampling and the fast
+port covers: the UNet, DiT and DiM; the KL-VAE (`model_type: 'vae'`) and
+latent diffusion (`latent_diffusion: true`: any denoiser in the latent space
+of the VAE checkpoint that `vae_checkpoint` names, its geometry read from
+that checkpoint, `utils/latent.py`); DDPM training and sampling and the fast
 VP samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC); flow matching and EDM,
 each training and sampling; float32 or mixed precision
 (`mixed_precision: 'bf16'`).
@@ -26,27 +29,51 @@ from torch import nn
 
 from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
 from .diffusion import DDIM, DDPM, DPMSolverPP, EDM, FlowMatching, UniPC
-from .models import DiM, DiT, UNet
+from .models import VAE, DiM, DiT, UNet
 from .utils.helpers import resolve_image_size
+from .utils.latent import LatentCodec
 
 
-MODEL_CLASSES = {"unet": UNet, "dit": DiT, "dim": DiM}
+MODEL_CLASSES = {"unet": UNet, "dit": DiT, "dim": DiM, "vae": VAE}
 
 
 def get_model(config: Mapping) -> nn.Module:
-    """Build the denoiser from config, injecting the normalized image size
-    (`image_size` for the UNet, `img_size` for DiT and DiM) and the
-    conditional class count."""
+    """Build the model from config, injecting the normalized image size
+    (`image_size` for the UNet and the VAE, `img_size` for DiT and DiM) and,
+    for a denoiser, the conditional class count. Under `latent_diffusion`
+    the denoiser's size and channels are the VAE checkpoint's latent ones
+    (the JAX factory's rule), and a declared `in_channels` must agree."""
     model_type = str(config["model_type"]).lower()
     if model_type not in MODEL_CLASSES:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
             "item 11)")
-    for key in ("latent_diffusion", "super_resolution"):
-        if config.get(key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP queue 1 item 11)")
     params = dict(config.get("model_params", {}))
+    image_size = resolve_image_size(config["image_size"])
+    if config.get("super_resolution"):
+        if model_type == "vae":
+            raise ValueError(
+                "super_resolution applies to denoisers, not the VAE stage")
+        if config.get("latent_diffusion"):
+            raise ValueError(
+                "super_resolution composes with pixel-space diffusion only "
+                "(the LR conditioning is defined on pixels, not on a VAE's "
+                "latent grid)")
+        raise NotImplementedError(
+            "super_resolution is not ported yet (ROADMAP queue 1 item 11)")
+    if config.get("latent_diffusion") and model_type != "vae":
+        # the geometry only: the VAE is read on the host, once per process
+        codec = LatentCodec.from_config(config, device="cpu")
+        image_size = codec.latent_hw()
+        lc = codec.latent_channels
+        declared = params.get("in_channels")
+        if declared is not None and int(declared) != lc:
+            raise ValueError(
+                f"model_params.in_channels={declared} conflicts with the "
+                f"VAE's latent_channels={lc} under latent_diffusion")
+        params["in_channels"] = lc
+        if model_type == "unet":
+            params["out_channels"] = lc
     # Mixed precision, the JAX factory's policy: 'bf16' runs the model's
     # convs, linears and activations in bfloat16 while the parameters, the
     # optimizer state, the EMA and the loss stay float32 (the model returns
@@ -56,10 +83,11 @@ def get_model(config: Mapping) -> nn.Module:
         params["dtype"] = torch.bfloat16
     elif mp not in ("none", "fp32", "float32", "off", "false"):
         raise ValueError(f"Unknown mixed_precision: {mp!r}")
-    size_key = "image_size" if model_type == "unet" else "img_size"
-    params[size_key] = resolve_image_size(config["image_size"])
-    params["num_classes"] = (config.get("num_classes")
-                             if config.get("conditional", False) else None)
+    size_key = "image_size" if model_type in ("unet", "vae") else "img_size"
+    params[size_key] = image_size
+    if model_type != "vae":  # the autoencoder is unconditional
+        params["num_classes"] = (config.get("num_classes")
+                                 if config.get("conditional", False) else None)
     if config.get("remat", False):
         params["remat"] = True
     return MODEL_CLASSES[model_type](**params)

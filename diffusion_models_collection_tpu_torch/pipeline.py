@@ -15,8 +15,11 @@ restart sampling (--restarts, --restart_interval); each batch goes to
 img2img, then restarts, then DeepCache, then guided, then plain sampling,
 in the JAX pipeline's order. PAG and DeepCache call the one model with
 call-time arguments (`pag_perturb`, `deepcache_mode`), so no weights are
-copied. Not ported: ToMe, int8, classifier guidance, super-resolution and
-latent decoding (ROADMAP queue 1 item 11); configs that ask for them raise
+copied. A latent-diffusion checkpoint samples the VAE's latents and decodes
+them (every step's with `return_all`) before they leave the pipeline; its
+img2img encodes the init image to the posterior mode, and --mask raises, as
+in the JAX pipeline. Not ported: ToMe, int8, classifier guidance and
+super-resolution (ROADMAP queue 1 item 11); configs that ask for them raise
 in the factory.
 """
 
@@ -30,6 +33,7 @@ from .diffusion.pag import pag_model_fn
 from .factory import get_diffusion, load_model_for_inference
 from .utils.helpers import (load_image_for_model, load_mask_for_model,
                             resolve_image_size)
+from .utils.latent import LatentCodec
 
 
 def build_labels(args, config, nrow: int, num_rows: int):
@@ -260,23 +264,45 @@ class SamplingPipeline:
         print(f"Using sampling method: {args.sampling_method.upper()}")
         self.diffusion = get_diffusion(config, args.sampling_method)
         self.conditional = bool(config.get("conditional", False))
-        h, w = config["image_size"]
-        self.channels = config["model_params"]["in_channels"]
-        self.hw = (h, w)
+        self.codec = LatentCodec.from_config(config, device=device)
+        if self.codec is not None:
+            self.hw = self.codec.latent_hw()
+            self.channels = self.codec.latent_channels
+            self.pixel_channels = self.codec.in_channels
+            print(f"Latent diffusion: sampling {self.hw[0]}x{self.hw[1]}x"
+                  f"{self.channels} latents, decoding through the VAE")
+        else:
+            self.hw = tuple(config["image_size"])
+            self.channels = self.pixel_channels = config["model_params"][
+                "in_channels"]
         self.init_image = self.mask = None
 
     def setup_editing(self) -> None:
         """Check the editing flags and load --init_image and --mask."""
         self.init_image, self.mask = validate_editing(
             self.args, self.config, (self.is_flow, self.is_edm),
-            self.channels)
+            self.pixel_channels)
+        if self.codec is not None and self.mask is not None:
+            raise SystemExit(
+                "--mask is not supported with latent-diffusion checkpoints "
+                "(pixel masks do not map exactly onto the latent grid)")
 
     def run_batch(self, i: int, num_batches: int, batch: int, labels,
                   generator: torch.Generator,
                   return_all: bool = False) -> torch.Tensor:
         """Generate `batch` images with labels `labels` (None for an
         unconditional model): (B, H, W, C) in [-1, 1], or with `return_all`
-        every step's state, (S, B, H, W, C)."""
+        every step's state, (S, B, H, W, C); a latent checkpoint's decoded
+        (the trajectory on the host)."""
+        samples = self._sample(i, num_batches, batch, labels, generator,
+                               return_all)
+        if self.codec is None:
+            return samples
+        return (self.codec.decode_trajectory(samples) if return_all
+                else self.codec.decode(samples))
+
+    def _sample(self, i, num_batches, batch, labels, generator, return_all):
+        """`run_batch` in the model's space."""
         args = self.args
         shape = (batch, *self.hw, self.channels)
         y = (torch.as_tensor(labels, device=self.device)
@@ -287,6 +313,8 @@ class SamplingPipeline:
         if self.init_image is not None:
             init = torch.as_tensor(np.repeat(self.init_image, batch, axis=0),
                                    device=self.device)
+            if self.codec is not None:
+                init = self.codec.encode_mode(init)
             mask = (torch.as_tensor(np.repeat(self.mask, batch, axis=0),
                                     device=self.device)
                     if self.mask is not None else None)

@@ -23,6 +23,10 @@ Pillow; other files or sizes need Pillow.
 (S, N, H, W, C) in [0, 1], and PNG grids); `--create_gif` writes the
 trajectory as a GIF with Pillow and stops with an error where Pillow is
 absent.
+A latent-diffusion checkpoint (`latent_diffusion: true`) samples the
+latents of the VAE its config's `vae_checkpoint` names and decodes them
+before clipping and saving (the trajectory too); its img2img encodes
+`--init_image` to the posterior mode, and `--mask` raises.
 The checkpoint is a PyTorch reference `.pth` or a JAX `.ckpt`, config
 embedded. Labels follow the reference: per-row classes shifted by +1, 0 the
 CFG null label. Writes an image grid (PNG) and the images as a float32

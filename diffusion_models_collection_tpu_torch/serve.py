@@ -25,14 +25,19 @@ between steps. `/healthz` and refusals stay responsive on their own
 threads; generates beyond `--max_queue` get 503, malformed requests 400,
 other failures 500.
 
+A latent-diffusion checkpoint samples the latents of the VAE its config
+names (the sampler and the engine work at the latent geometry; `/healthz`
+reports pixels) and decodes each result before it is answered: in the
+batched mode inside the lock, in `--continuous` on the request's own thread
+after the engine returns it, with the model's device made current there.
+
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
 only when asked for with `--device cpu`. `--mixed_precision bf16` overrides
 the checkpoint config's compute dtype (the engine's images stay float32).
-Not ported: ToMe and int8 serving of a DiT (`--tome_ratio`, `--quantize`)
-and latent checkpoints (ROADMAP queue 1 item 11), consistency checkpoints
-(item 12), the data-parallel split of the batch over several devices (item
-15); super-resolution checkpoints are refused, as the root daemon refuses
-them.
+Not ported: ToMe and int8 serving of a DiT (`--tome_ratio`, `--quantize`,
+ROADMAP queue 1 item 11), consistency checkpoints (item 12), the
+data-parallel split of the batch over several devices (item 15);
+super-resolution checkpoints are refused, as the root daemon refuses them.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from .serving_engine import ContinuousBatchingEngine, device_context
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (encode_png, make_grid, resolve_device,
                             resolve_image_size)
+from .utils.latent import LatentCodec
 
 
 class SamplerService:
@@ -94,8 +100,7 @@ class SamplerService:
                 "super-resolution checkpoints are not servable: each "
                 "request would need an LR conditioning image (use "
                 "sample.py --sr_source or tools/cascade.py)")
-        # latent checkpoints raise here (item 11), consistency ones in
-        # get_diffusion (item 12)
+        # consistency checkpoints raise in get_diffusion (item 12)
         self.model = load_model_for_inference(payload, self.config, use_ema,
                                               self.device)
         self.diffusion = get_diffusion(self.config, sampling_method)
@@ -103,9 +108,17 @@ class SamplerService:
                                            "set_inference_steps"):
             self.diffusion.set_inference_steps(num_inference_steps)
         self.batch_size = int(batch_size)
-        self.image_hw = resolve_image_size(self.config["image_size"])
-        self.channels = self.config.get("model_params", {}).get(
-            "in_channels", 3)
+        self.codec = LatentCodec.from_config(self.config, device=self.device)
+        self.pixel_hw = resolve_image_size(self.config["image_size"])
+        if self.codec is not None:
+            # the sampler works at the latent geometry; /healthz and the
+            # answers speak pixels
+            self.image_hw = self.codec.latent_hw()
+            self.channels = self.codec.latent_channels
+        else:
+            self.image_hw = self.pixel_hw
+            self.channels = self.config.get("model_params", {}).get(
+                "in_channels", 3)
         self.conditional = bool(self.config.get("conditional", False))
         self.num_classes = self.config.get("num_classes")
         self.default_cfg = float(self.config.get("cfg_scale", 1.8))
@@ -197,6 +210,8 @@ class SamplerService:
                         cfg_scale=scale)
                 else:
                     out = self.engine.submit(noise)
+                if self.codec is not None:
+                    out = self._decode(out)
             else:
                 out = self._generate_batch(num_samples, labels, seed,
                                            scale if self.conditional else None)
@@ -218,9 +233,23 @@ class SamplerService:
                     generator, cfg_scale=cfg_scale)
             else:
                 out = self.diffusion.sample(self.model, shape, generator)
+            out = out[:num_samples]
+            if self.codec is not None:
+                out = self.codec.decode(out)
             # copied inside the lock: launches are asynchronous, so the card
-            # runs the trajectory until this copy returns
-            return out[:num_samples].float().cpu().numpy()
+            # runs the trajectory (and the decode) until this copy returns
+            return out.float().cpu().numpy()
+
+    def _decode(self, latents: np.ndarray) -> np.ndarray:
+        """A finished request's latents decoded on the model's device, on
+        the calling thread (made current by `generate`) while the engine
+        goes on stepping. Any failure is the server's: a RuntimeError, so
+        that the request gets a 500 whatever was raised."""
+        try:
+            return self.codec.decode(torch.as_tensor(latents)).cpu().numpy()
+        except Exception as e:
+            raise RuntimeError(f"decoding the latents failed: "
+                               f"{type(e).__name__}: {e}") from e
 
     def try_acquire_slot(self) -> bool:
         return self._slots.acquire(blocking=False)
@@ -254,7 +283,7 @@ def make_handler(service: SamplerService):
 
         def do_GET(self):
             if self.path == "/healthz":
-                h, w = service.image_hw
+                h, w = service.pixel_hw
                 self._send_json(200, {
                     "status": "ok",
                     "model_type": service.config.get("model_type"),

@@ -7,7 +7,10 @@ Counterpart of the repository's `train.py` for the diffusion denoisers this
 port has (the UNet, the DiT and the DiM: `configs/cifar10_unet.py`,
 `configs/cifar10_dit.py`, `configs/cifar10_dim.py`) under the config's
 process (DDPM's objective, or `diffusion_type: 'flow_matching'` or
-`'edm'`): one process on one device. The seed
+`'edm'`), in pixel space or, with `latent_diffusion: true`, in the latent
+space of a trained VAE (`configs/cifar10_latent_unet.py`), and for that VAE
+itself (`model_type: 'vae'`, `configs/cifar10_vae.py`, `VAETrainer`): one
+process on one device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
@@ -16,7 +19,7 @@ asked for with `--device cpu`. The model computes in the config's
 activations while the weights, the optimizer state, the EMA and the loss stay
 float32); on CUDA, TF32 is switched off for matrix products and
 convolutions. The JAX trainer's other model
-types (VAE, classifier, consistency training) and its multi-process,
+types (classifier, consistency training) and its multi-process,
 multi-device launch raise, naming their ROADMAP items.
 """
 
@@ -30,6 +33,7 @@ from .factory import get_dataloader, get_dataset, get_diffusion, get_model
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, set_seed)
 from .utils.trainer import DiffusionTrainer
+from .utils.vae_trainer import VAETrainer
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,10 +53,10 @@ def main(argv=None) -> DiffusionTrainer:
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])
     model_type = str(config.get("model_type", "")).lower()
-    if model_type in ("vae", "classifier"):
+    if model_type == "classifier":
         raise NotImplementedError(
-            f"training a {model_type} is not ported yet (ROADMAP queue 1 "
-            "items 11 and 12)")
+            "training a classifier is not ported yet (ROADMAP queue 1 "
+            "item 11)")
     if str(config.get("diffusion_type", "ddpm")).lower() == "consistency":
         raise NotImplementedError(
             "consistency training is not ported yet (ROADMAP queue 1 item 12)")
@@ -66,6 +70,16 @@ def main(argv=None) -> DiffusionTrainer:
     train_dataset = get_dataset(config, train=True)
     train_loader = get_dataloader(config, train_dataset, train=True,
                                   seed=config.get("seed", 42))
+
+    if model_type == "vae":
+        # stage 1 of latent diffusion: the KL-VAE alone; diffusion configs
+        # then point `vae_checkpoint` at its checkpoint
+        trainer = VAETrainer(model=model, train_loader=train_loader,
+                             config=config, device=device,
+                             generator=generator,
+                             resume_path=config.get("resume_path"))
+        trainer.train()
+        return trainer
 
     trainer = DiffusionTrainer(
         model=model,

@@ -13,11 +13,20 @@ step is PyTorch code that launches asynchronously on the model's device:
 * the losses stay on the device during an epoch and are read once at its
   end; a non-finite epoch loss stops the run before the checkpoints rotate.
 
+Latent diffusion (`latent_diffusion: true`, `utils/latent.py`): the working
+geometry is the VAE's latent one, each batch is encoded inside the step to a
+scaled posterior sample (no gradient reaches the frozen VAE), and the
+in-training sample grids are decoded. The encoder's noise is drawn from the
+trainer's generator after the step's other draws, and only under latent, so
+pixel-space runs keep their random stream (the JAX trainer splits its key
+five ways only under latent).
+
 Checkpoints are the reference's `torch.save` schema (`current_model.pth`,
 `best_model.pth`, `model_epoch_NNNN.pth`); resuming keeps the epoch
 extension. The JAX trainer's parallel layouts (tensor, pipeline, sequence,
-expert, FSDP), latent and super-resolution training raise, naming their
-ROADMAP items.
+expert, FSDP) and super-resolution training raise, naming their ROADMAP
+items. `VAETrainer` (`utils/vae_trainer.py`) trains the first stage on this
+trainer's optimizer, EMA, checkpoints and loop.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from . import checkpoint as ckpt_lib
 from .ema import ema_update
 from .helpers import count_parameters, resolve_image_size, save_image_grid
+from .latent import LatentCodec
 from .lr_schedules import build_lr_schedule
 from .profiler import StepTimer, profile_trace
 from .tracker import Tracker, build_tracker
@@ -46,8 +56,7 @@ def _not_ported(cfg: dict):
                 "expert_parallel"):
         if int(cfg.get(key, 1) or 1) > 1:
             yield key, "queue 1 item 15"
-    for key, item in (("fsdp", 15), ("latent_diffusion", 11),
-                      ("super_resolution", 11)):
+    for key, item in (("fsdp", 15), ("super_resolution", 11)):
         if cfg.get(key):
             yield key, f"queue 1 item {item}"
     # the JAX trainer's other format is orbax, which the port does not need
@@ -173,6 +182,10 @@ class DiffusionTrainer:
         self.num_classes = cfg.get("num_classes", None)
         self.image_size = resolve_image_size(cfg.get("image_size", 32))
         self.in_channels = cfg.get("model_params", {}).get("in_channels", 3)
+        self.latent = LatentCodec.from_config(cfg, device=self.device)
+        if self.latent is not None:
+            self.image_size = self.latent.latent_hw()
+            self.in_channels = self.latent.latent_channels
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.sample_dir.mkdir(parents=True, exist_ok=True)
         print(f"Model parameters: {count_parameters(self.model):,}")
@@ -198,15 +211,15 @@ class DiffusionTrainer:
         self.profile_dir = cfg.get("profile_dir")
 
     # ---------------------------------------------------------------- step
-    def draw(self, images: torch.Tensor
+    def draw(self, shape: Sequence[int]
              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """The step's random draws from the trainer's generator: timesteps
-        t ~ U[0, T), the noise, and the CFG dropout mask (None when labels
-        are not dropped)."""
-        batch, gen = images.shape[0], self.generator
+        """The step's random draws from the trainer's generator for a batch
+        of `shape` (the model's space): timesteps t ~ U[0, T), the noise,
+        and the CFG dropout mask (None when labels are not dropped)."""
+        batch, gen = shape[0], self.generator
         t = torch.randint(0, self.diffusion.num_timesteps, (batch,),
                           generator=gen, device=self.device)
-        noise = torch.randn(images.shape, generator=gen, device=self.device)
+        noise = torch.randn(tuple(shape), generator=gen, device=self.device)
         drop = None
         if (self.conditional and self.cfg_dropout_prob > 0
                 and self.num_classes is not None):
@@ -217,13 +230,24 @@ class DiffusionTrainer:
     def train_step(self, images: torch.Tensor, labels: torch.Tensor,
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
-                   drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   drop: Optional[torch.Tensor] = None,
+                   encoder_noise: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
         """One step on a device batch: images (B, H, W, C) in [-1, 1],
         labels (B,) unshifted. `t`, `noise` and `drop` are drawn unless
-        given. Returns the loss, on the device."""
+        given; under latent diffusion the images are encoded with
+        `encoder_noise`, drawn after them unless given. Returns the loss, on
+        the device."""
         self.model.train()
+        shape = (images.shape if self.latent is None
+                 else self.latent.latent_shape(images.shape[0]))
         if t is None:
-            t, noise, drop = self.draw(images)
+            t, noise, drop = self.draw(shape)
+        if self.latent is not None:
+            if encoder_noise is None:
+                encoder_noise = torch.randn(shape, generator=self.generator,
+                                            device=self.device)
+            images = self.latent.encode(images, noise=encoder_noise)
         y = None
         if self.conditional:
             y = labels.to(torch.int64) + 1
@@ -240,7 +264,9 @@ class DiffusionTrainer:
 
     # --------------------------------------------------------------- epoch
     def train_epoch(self, epoch: int) -> float:
-        """One epoch; returns the mean loss over its batches."""
+        """One epoch; returns the mean loss over its batches. A step may
+        return further values after its loss (the VAE's reconstruction and
+        KL terms): the means of all are kept in `epoch_means`."""
         self.train_loader.set_epoch(epoch)
         losses: List[torch.Tensor] = []
         for images, labels in self.train_loader:
@@ -253,15 +279,23 @@ class DiffusionTrainer:
                     self.device)
                 losses.append(self.train_step(x, y))
         if not losses:
+            self.epoch_means = None
             return float("nan")
-        return torch.stack(losses).mean().item()  # the epoch's one host read
+        # the epoch's one host read
+        self.epoch_means = torch.stack(losses).mean(0).cpu()
+        return float(self.epoch_means.reshape(-1)[0])
+
+    def epoch_details(self) -> dict:
+        """Metrics of the epoch just run beyond its loss, for the log."""
+        return {}
 
     # ------------------------------------------------------------ sampling
     def sample_images(self, epoch: int,
                       num_samples: Optional[int] = None) -> np.ndarray:
         """In-training sample grid from the EMA model (the model without
         EMA): CFG sampling over the labels 0, 1, ... one per row for a
-        conditional model. Saved as `<sample_dir>/epoch_NNNN.png`."""
+        conditional model; a latent model's samples decoded. Saved as
+        `<sample_dir>/epoch_NNNN.png`."""
         num_samples = num_samples or self.num_samples
         h, w = self.image_size
         shape = (num_samples, h, w, self.in_channels)
@@ -282,6 +316,8 @@ class DiffusionTrainer:
         else:
             samples = self.diffusion.sample(model, shape, self.generator)
         model.train(was_training)
+        if self.latent is not None:
+            samples = self.latent.decode(samples)
         samples = np.clip((samples.cpu().numpy() + 1) / 2, 0, 1)
         save_path = self.sample_dir / f"epoch_{epoch:04d}.png"
         save_image_grid(samples, save_path, nrow=nrow)
@@ -370,14 +406,18 @@ class DiffusionTrainer:
                 self.tracker.log({"train/diverged_epoch": epoch}, step=epoch)
                 break
             lr = self.current_lr()
-            print(f"Epoch {epoch}/{self.epochs} - Loss: {avg_loss:.4f} - "
-                  f"LR: {lr:.6f} - Time: {epoch_time:.2f}s")
+            details = self.epoch_details()
+            parts = ", ".join(f"{k.split('/')[-1]} {v:.4f}"
+                              for k, v in details.items())
+            print(f"Epoch {epoch}/{self.epochs} - Loss: {avg_loss:.4f}"
+                  + (f" ({parts})" if parts else "")
+                  + f" - LR: {lr:.6f} - Time: {epoch_time:.2f}s")
             timing = {f"train/step_{k}": v
                       for k, v in self.step_timer.summary().items()}
             self.step_timer.reset()
-            self.tracker.log({"train/loss": avg_loss, "train/lr": lr,
-                              "train/epoch_time": epoch_time, **timing},
-                             step=epoch)
+            self.tracker.log({"train/loss": avg_loss, **details,
+                              "train/lr": lr, "train/epoch_time": epoch_time,
+                              **timing}, step=epoch)
             is_best = avg_loss < self.best_loss
             if is_best:
                 self.best_loss = avg_loss

@@ -1,5 +1,5 @@
-"""Weight bridge: a Flax UNet, DiT or DiM param tree (nested dicts of numpy
-arrays, as a JAX checkpoint stores it) to the port's `state_dict`; and the
+"""Weight bridge: a Flax UNet, DiT, DiM or VAE param tree (nested dicts of
+numpy arrays, as a JAX checkpoint stores it) to the port's `state_dict`; and the
 metric networks' param trees (InceptionV3, the LPIPS AlexNet) to
 torchvision's keys, the inverses of the JAX package's
 `convert_torchvision_state` and `convert_lpips_state`.
@@ -9,7 +9,8 @@ Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 `_export_dit`, `_export_dim`), in numpy and torch only: that module imports
 the JAX package's helpers, which need JAX. The port's models use the PyTorch
 reference's key names, so the result also equals what the JAX exporter
-writes for the reference, and loads with `strict=True`.
+writes for the reference, and loads with `strict=True`. The VAE has no
+reference names: its keys are the port's own (`models/vae.py`).
 
 Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
 Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); depthwise conv
@@ -271,11 +272,81 @@ def dim_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _vae_block(sd: Dict, key: str, blk: Mapping) -> None:
+    """A Flax `VAEResBlock`: FusedGroupNormSiLU_0/1, Conv_0/1 and the 1x1
+    shortcut Conv_2 of a block that changes the width."""
+    _norm(sd, f"{key}.norm1", blk["FusedGroupNormSiLU_0"])
+    sd[f"{key}.conv1.weight"] = _conv2d(blk["Conv_0"]["kernel"])
+    sd[f"{key}.conv1.bias"] = _arr(blk["Conv_0"]["bias"])
+    _norm(sd, f"{key}.norm2", blk["FusedGroupNormSiLU_1"])
+    sd[f"{key}.conv2.weight"] = _conv2d(blk["Conv_1"]["kernel"])
+    sd[f"{key}.conv2.bias"] = _arr(blk["Conv_1"]["bias"])
+    if "Conv_2" in blk:
+        sd[f"{key}.shortcut.weight"] = _conv2d(blk["Conv_2"]["kernel"])
+        sd[f"{key}.shortcut.bias"] = _arr(blk["Conv_2"]["bias"])
+
+
+def _conv(sd: Dict, key: str, conv: Mapping) -> None:
+    sd[f"{key}.weight"] = _conv2d(conv["kernel"])
+    sd[f"{key}.bias"] = _arr(conv["bias"])
+
+
+def vae_params_to_numpy_state_dict(params: Mapping,
+                                   model_cfg: Mapping) -> Dict[str, np.ndarray]:
+    """Flax VAE params -> the port's VAE keys. `model_cfg` holds the VAE's
+    constructor fields (channel_mult, num_res_blocks). Flax names a block
+    `VAEResBlock_N`, or `CheckpointVAEResBlock_N` under `remat: true`, and
+    numbers a coder's convs in call order: Conv_0 in, Conv_1 out."""
+    n_levels = len(tuple(model_cfg.get("channel_mult", (1, 2))))
+    n_blocks = int(model_cfg.get("num_res_blocks", 1))
+    sd: Dict[str, np.ndarray] = {}
+    for part in ("encoder", "decoder"):
+        tree = params[part]
+        prefix = ("CheckpointVAEResBlock" if "CheckpointVAEResBlock_0" in tree
+                  else "VAEResBlock")
+        blocks = iter(range(n_levels * n_blocks + 1))
+        _conv(sd, f"{part}.conv_in", tree["Conv_0"])
+        _conv(sd, f"{part}.conv_out", tree["Conv_1"])
+        _norm(sd, f"{part}.norm_out", tree["FusedGroupNormSiLU_0"])
+        if "AttentionBlock_0" in tree:
+            attn = tree["AttentionBlock_0"]
+            _norm(sd, f"{part}.attn.norm", attn["GroupNorm_0"])
+            _conv(sd, f"{part}.attn.qkv", attn["Conv_0"])
+            _conv(sd, f"{part}.attn.proj", attn["Conv_1"])
+        if part == "decoder":  # the middle block runs first
+            _vae_block(sd, f"{part}.mid", tree[f"{prefix}_{next(blocks)}"])
+        # the blocks and resamplers in call order: down.{i} or up.{i}
+        seq, resampler = ((f"{part}.down", "Downsample") if part == "encoder"
+                          else (f"{part}.up", "Upsample"))
+        i = 0
+        for level in range(n_levels):
+            for _ in range(n_blocks):
+                _vae_block(sd, f"{seq}.{i}", tree[f"{prefix}_{next(blocks)}"])
+                i += 1
+            if level != n_levels - 1:
+                _conv(sd, f"{seq}.{i}.conv",
+                      tree[f"{resampler}_{level}"]["Conv_0"])
+                i += 1
+        if part == "encoder":
+            _vae_block(sd, f"{part}.mid", tree[f"{prefix}_{next(blocks)}"])
+        extra = f"{prefix}_{n_levels * n_blocks + 1}"
+        if extra in tree:
+            raise ValueError(
+                f"VAE {part} holds {extra}: the model config does not match "
+                "the checkpoint (channel_mult, num_res_blocks)")
+    return sd
+
+
 def resolved_model_cfg(config: Mapping) -> Dict:
     """model_params with the image_size and num_classes that the factory
-    injects."""
+    injects (under latent diffusion the size of the VAE's latents)."""
     cfg = dict(config.get("model_params", {}))
     cfg["image_size"] = resolve_image_size(config["image_size"])
+    if config.get("latent_diffusion"):
+        from .latent import LatentCodec  # deferred: it loads checkpoints
+
+        cfg["image_size"] = LatentCodec.from_config(
+            config, device="cpu").latent_hw()
     if not config.get("conditional", False):
         cfg["num_classes"] = None
     return cfg
@@ -283,8 +354,9 @@ def resolved_model_cfg(config: Mapping) -> Dict:
 
 def state_dict_from_jax(params: Mapping,
                        config: Mapping) -> Dict[str, torch.Tensor]:
-    """A Flax UNet, DiT or DiM param tree -> the port's (and the
-    reference's) `state_dict`, for the model that `config` describes."""
+    """A Flax UNet, DiT, DiM or VAE param tree -> the port's (and, but for
+    the VAE, the reference's) `state_dict`, for the model that `config`
+    describes."""
     model_type = str(config.get("model_type", "unet")).lower()
     if model_type == "unet":
         sd = unet_params_to_numpy_state_dict(params,
@@ -293,6 +365,9 @@ def state_dict_from_jax(params: Mapping,
         sd = dit_params_to_numpy_state_dict(params)
     elif model_type == "dim":
         sd = dim_params_to_numpy_state_dict(params)
+    elif model_type == "vae":
+        sd = vae_params_to_numpy_state_dict(params,
+                                            config.get("model_params", {}))
     else:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "

@@ -131,9 +131,7 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"model_type": "vae"},
     {"model_type": "classifier"},
-    {"latent_diffusion": True},
     {"diffusion_type": "consistency"},
     {"super_resolution": {"scale": 2}},
 ])

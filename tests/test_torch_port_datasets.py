@@ -177,6 +177,10 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.ops.selective_scan",
             "diffusion_models_collection_tpu_torch.models.dit",
             "diffusion_models_collection_tpu_torch.ops.attention",
+            "diffusion_models_collection_tpu_torch.models.vae",
+            "diffusion_models_collection_tpu_torch.utils.latent",
+            "diffusion_models_collection_tpu_torch.utils.vae_trainer",
+            "diffusion_models_collection_tpu_torch.tools.compute_latent_scale",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys

@@ -163,8 +163,6 @@ def test_system_exit_rules_match_the_root_cli(tmp_path, model, changes,
 @pytest.mark.parametrize("model,changes,flags,item", [
     ("dit", {}, ["--tome_ratio", "0.5"], 11),
     ("dit", {}, ["--quantize", "int8"], 11),
-    ("unet", {"latent_diffusion": True, "vae_checkpoint": "vae.ckpt"}, [],
-     11),
     ("unet", {"super_resolution": {"factor": 2}}, [], 11),
     ("unet", {"diffusion_type": "consistency"}, [], 12),
 ])

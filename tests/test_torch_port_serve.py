@@ -411,19 +411,17 @@ def test_bf16_serving_matches_jax_at_the_bf16_bar(unet):
     ("unet", ["--quantize", "int8"], ValueError, "DiT"),
     ("dit", ["--tome_ratio", "0.5"], NotImplementedError, "item 11"),
     ("dit", ["--quantize", "int8"], NotImplementedError, "item 11"),
-    ("latent", [], NotImplementedError, "item 11"),
     ("consistency", [], NotImplementedError, "item 12"),
     ("super_resolution", [], ValueError, "super-resolution"),
 ])
 def test_what_is_not_ported_raises(tmp_path, case, flags, error, match):
     config = {"unet": small_config(), "dit": small_dit_config(),
-              "latent": dict(small_config(), latent_diffusion=True),
               "consistency": dict(small_config(),
                                   diffusion_type="consistency"),
               "super_resolution": dict(small_config(),
                                        super_resolution=True)}[case]
     state = (factory.get_model(small_config()).state_dict()
-             if case in ("latent", "super_resolution") else None)
+             if case == "super_resolution" else None)
     path = save_config(tmp_path, case, config, state)
     with pytest.raises(error, match=match):
         serve.main(["--checkpoint", str(path), "--device", "cpu", *flags])
