@@ -7,8 +7,9 @@ PyTorch built for CUDA. It builds the port's kernels from
 `diffusion_models_collection_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at the shapes of the CIFAR-10 UNet (configs/cifar10_unet.py),
 the CIFAR-10 DiM (configs/cifar10_dim.py) and the CIFAR-10 DiT
-(configs/cifar10_dit.py), and drives the main paths of the three models
-through the port's entry points. The UNet's:
+(configs/cifar10_dit.py), and later of the VAE, the guidance classifier and
+the 64x64 SR stage, and drives the main paths of those models through the
+port's entry points. The UNet's:
 
 * sampling: the forward kernels at batch 32 and at the sampling run's own
   batch of 160 rows (80 images, cond + uncond), full-width UNet forwards at
@@ -181,6 +182,31 @@ the plain versions, img2img at strength 0.5 through the posterior mode,
 `decode` of the same draw, then 16 single-image requests from 8 clients
 decoded on their handlers' threads.
 
+Then classifier guidance and SR3 super-resolution (no kernel of their own):
+
+* `phase_classifier`: configs/cifar10_classifier.py at full width (the UNet's
+  encoder half, 1,832,778 parameters): the cross-entropy and every gradient at
+  its batch of 256 against the plain versions (13 K1 + 2 K2 + 13 K1b + 2 K3 a
+  step), three one-batch epochs of `train` on the fixtures, train images/s at
+  256 with the kernels and the plain versions, peak memory;
+* `phase_guided`: from the trained UNet's checkpoint and the classifier's, a
+  guided DDIM-10 CFG trajectory against the plain versions (held without the
+  x0 clamp, printed with it), then `sample --classifier_checkpoint
+  --classifier_scale 2` of 80 images DDIM-50 CFG 3 beside the unguided run (a
+  guided call: 45 + 13 K1, 11 + 2 K2 and the classifier's 13 K1b + 2 K3, the
+  backward kernels inside the sampler's no_grad), and 16 images at scale 0
+  equal to the unguided run bit for bit;
+* `phase_sr`: configs/celeba64_sr_unet.py at full width on the `synthetic`
+  dataset at 64x64 (74,054,787 parameters, 6 channels in): the largest batch
+  of 256, 128, 64 whose step fits; K1 and K1b at every GroupNorm+SiLU shape
+  of that step (the generic form where a group outgrows shared memory,
+  timed with its bound) and K2, K3 at d 64 (L 256) and d 128 (L 64), timed
+  beside `F.scaled_dot_product_attention`; the loss and gradients against the
+  plain versions; one epoch of `train` (45 K1 + 11 K2 + 45 K1b + 11 K3 a
+  step), train images/s and peak memory; `sample --sr_source` on a PNG
+  written there; the two-stage cascade of `tools/cascade.py` from the trained
+  32x32 UNet to 64x64.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
@@ -203,6 +229,7 @@ import http.client
 import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -235,6 +262,9 @@ from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
 from diffusion_models_collection_tpu_torch.diffusion.deepcache import (  # noqa: E402
     deepcache_sample,
 )
+from diffusion_models_collection_tpu_torch.diffusion.guidance import (  # noqa: E402
+    classifier_guided_model_fn,
+)
 from diffusion_models_collection_tpu_torch.diffusion.pag import (  # noqa: E402
     pag_model_fn,
 )
@@ -252,9 +282,11 @@ from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
 )
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
 from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
+    cascade,
     compute_latent_scale,
 )
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
+from diffusion_models_collection_tpu_torch.utils import sr  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
     read_png,
@@ -1321,14 +1353,18 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def timed_rates(label, trainer):
+def timed_rates(label, trainer, batch=None):
     """Train images/s through the trainer's own step with the kernels and
     with the plain versions (kernels, plain, plain, kernels) on its first
-    batch, and the peak device memory of the kernel path's steps."""
-    images, labels = next(iter(trainer.train_loader))
-    images = torch.from_numpy(images).to("cuda")
-    if labels is not None:  # the VAE's data is unconditional
-        labels = torch.from_numpy(labels).to("cuda")
+    batch (or on `batch`, (images, labels) on the card), and the peak
+    device memory of the kernel path's steps."""
+    if batch is None:
+        images, labels = next(iter(trainer.train_loader))
+        images = torch.from_numpy(images).to("cuda")
+        if labels is not None:  # the VAE's data is unconditional
+            labels = torch.from_numpy(labels).to("cuda")
+    else:
+        images, labels = batch
     rates, peak = {"kernels": [], "plain": []}, 0
     for path in ("kernels", "plain", "plain", "kernels"):
         if path == "plain":
@@ -3130,9 +3166,9 @@ def phase_latent_kernels(vae_gn, vae_attn, gen):
     return worst
 
 
-def latent_sample(label, argv, expected):
-    """`sample.main(argv)` with exactly `expected` launches; returns the
-    result."""
+def checked_sample(label, argv, expected, hw=(32, 32)):
+    """`sample.main(argv)` with exactly `expected` launches and finite
+    images of size `hw`; returns the result and the launches."""
     torch.cuda.synchronize()
     reset_launches()
     result = sample.main(argv)
@@ -3141,9 +3177,9 @@ def latent_sample(label, argv, expected):
     samples = result["samples"]
     print(f"sample.main {label}: {len(samples)} images in "
           f"{result['sampling_seconds']:.3f} s "
-          f"({len(samples) / result['sampling_seconds']:.2f} samples/s, "
-          f"decode included); launches {launches}")
-    if not (samples.shape[1:] == (32, 32, 3) and np.isfinite(samples).all()
+          f"({len(samples) / result['sampling_seconds']:.2f} samples/s); "
+          f"launches {launches}")
+    if not (samples.shape[1:] == (*hw, 3) and np.isfinite(samples).all()
             and launches == expected):
         raise AssertionError(f"{label}: samples {samples.shape}, launches "
                              f"{launches}, expected {expected}")
@@ -3162,11 +3198,11 @@ def phase_latent_sample(ckpt, config, tmp, gen, smi):
             "--num_samples", str(SAMPLES), "--batch_size", str(SAMPLES),
             "--seed", "0", "--use_ema", "--device", "cuda",
             "--output_dir", str(Path(tmp) / "latent_samples")]
-    result, launches = latent_sample(
-        f"latent DDIM-{STEPS} CFG {scale}", argv,
+    result, launches = checked_sample(
+        f"latent DDIM-{STEPS} CFG {scale}, decode included", argv,
         add_counts((LATENT_FORWARD, STEPS), (VAE_CODER, 1)))
     with plain_kernels():
-        plain, _ = latent_sample(f"latent DDIM-{STEPS} CFG {scale} inside "
+        plain, _ = checked_sample(f"latent DDIM-{STEPS} CFG {scale} inside "
                                  "plain_kernels()", argv, expect())
     err = float(np.abs(result["samples"] - plain["samples"]).max())
     print(f"latent DDIM-{STEPS} CFG {scale}, {SAMPLES} decoded images: "
@@ -3179,7 +3215,7 @@ def phase_latent_sample(ckpt, config, tmp, gen, smi):
     editing_inputs(tmp, gen)
     edit = ["--init_image", str(Path(tmp) / "init.png"), "--strength",
             str(EDIT_STRENGTH)]
-    _, img2img = latent_sample(
+    _, img2img = checked_sample(
         f"latent img2img strength {EDIT_STRENGTH}", argv + edit,
         add_counts((VAE_CODER, 2), (LATENT_FORWARD, int(STEPS * EDIT_STRENGTH))))
     try:
@@ -3428,6 +3464,347 @@ def phase_latent(gen, smi):
                                               (served["traffic"], 1))}}
 
 
+CLASSIFIER_CONFIG = ROOT / "configs" / "cifar10_classifier.py"
+SR_CONFIG = ROOT / "configs" / "celeba64_sr_unet.py"
+# Launches of one classifier forward (six ResidualBlocks of two
+# GroupNorm+SiLU and the output norm; an attention block after each of the
+# two blocks at 8x8, 4 heads of 32 at L 64) and of its train step
+CLASSIFIER_FORWARD = {"gn": 13, "attn": 2}
+CLASSIFIER_STEP = dict(CLASSIFIER_FORWARD, gn_bwd=13, attn_bwd=2)
+# The config's batch, for the gradients and the rates; `train.main` on the
+# fixtures takes one batch of 128 an epoch (200 images make no batch of 256)
+CLASSIFIER_BATCH = 256
+GUIDANCE_SCALE = 2.0
+# One guided model call: the UNet on the fused CFG batch of 2B rows, then
+# the classifier's forward and its backward to x on the first B rows
+GUIDED_CALL = dict(UNET_FORWARD, gn=GN_PER_FORWARD + 13,
+                   attn=ATTN_PER_FORWARD + 2, gn_bwd=13, attn_bwd=2)
+GUIDED_CHECK_STEPS = 10  # the 16-image runs: scale 0 against unguided
+# The SR stage's batches tried, largest first (the config's 256), and the
+# images of its `sample` and cascade runs
+SR_BATCHES = (256, 128, 64)
+SR_SAMPLES, SR_STEPS = 16, 10
+
+
+def classifier_loss_and_grads(model, batch):
+    """The cross-entropy of one batch of noisy images and every
+    parameter's gradient."""
+    model.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(model(batch["x_t"], batch["t"]), batch["y"])
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def phase_classifier(gen, smi, tmp):
+    """configs/cifar10_classifier.py at full width: K1, K1b, K2 and K3 at
+    every shape of its forward at its batch of 256 and at the 80 rows of
+    guided sampling (`shape_kernels`); the loss and every gradient of one
+    step at 256 through the kernels against `plain_kernels()` (13 K1 + 2 K2
+    + 13 K1b + 2 K3, none inside); three
+    one-batch epochs of `train` on the fixtures; train images/s at 256 with
+    the kernels and the plain versions, and the peak memory. Returns the
+    checkpoint, the launches and the figures."""
+    config = dict(load_config(CLASSIFIER_CONFIG), image_size=(32, 32))
+    tmp = Path(tmp) / "classifier"
+    tmp.mkdir()
+    torch.manual_seed(0)
+    model = factory.get_model(config).to("cuda").eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    b = CLASSIFIER_BATCH
+    batch = {"x_t": torch.randn(b, 32, 32, 3, generator=gen, device="cuda"),
+             "t": torch.randint(0, 1000, (b,), generator=gen, device="cuda"),
+             "y": torch.randint(0, 10, (b,), generator=gen, device="cuda")}
+    gn_shapes, attn_shapes = coder_shapes(
+        model, lambda: model(batch["x_t"][:2], batch["t"][:2]))
+    calls = {"gn": len(gn_shapes), "attn": len(attn_shapes)}
+    if calls != CLASSIFIER_FORWARD:
+        raise AssertionError(f"classifier forward calls {calls}")
+    # the training batch, and the guided sampling's 80 rows
+    worst = {}
+    for label, rows in (("classifier", b), ("guided classifier", SAMPLES)):
+        got, _ = shape_kernels(label, gn_shapes, attn_shapes, rows, gen)
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in got.items()}
+    reset_launches()
+    loss, grads = classifier_loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    launched = read_launches()
+    with plain_kernels():
+        reset_launches()
+        loss_ref, grads_ref = classifier_loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        plain_launched = read_launches()
+    flat = torch.cat([g.flatten() for g in grads.values()])
+    flat_ref = torch.cat([g.flatten() for g in grads_ref.values()])
+    loss_rel, grad_rel = max_rel(loss, loss_ref), max_rel(flat, flat_ref)
+    no_grad = [n for n, g in grads.items() if not g.any()]
+    print(f"classifier ({n_params} parameters) loss and gradients B={b}, "
+          f"kernels vs plain: cross-entropy {loss.item():.6f} max_rel "
+          f"{loss_rel:.3e}, flattened gradient max_abs_diff/max_abs "
+          f"{grad_rel:.3e}; launches {launched}, inside plain_kernels "
+          f"{plain_launched}")
+    if not (launched == expect(**CLASSIFIER_STEP)
+            and not any(plain_launched.values()) and loss_rel <= TOL_LOSS
+            and grad_rel <= TOL_GRAD and not no_grad):
+        raise AssertionError(f"classifier step: launches {launched}, plain "
+                             f"{plain_launched}, loss {loss_rel}, gradient "
+                             f"{grad_rel}, zero gradients {no_grad}")
+    del model, grads, grads_ref
+    trainer, launches = run_train_main(
+        "classifier", dict(config, batch_size=TRAIN_BATCH), CLASSIFIER_STEP,
+        tmp, TRAIN_EPOCHS, 1)
+    pairs = []  # the fixtures give one batch of 128 an epoch: two epochs'
+    for epoch in range(b // TRAIN_BATCH):
+        trainer.train_loader.set_epoch(TRAIN_EPOCHS + 1 + epoch)
+        pairs.append(next(iter(trainer.train_loader)))
+    images = torch.from_numpy(np.concatenate([p[0] for p in pairs])).cuda()
+    labels = torch.from_numpy(np.concatenate([p[1] for p in pairs])).cuda()
+    rates, peak = timed_rates("classifier", trainer, (images, labels))
+    return {"ckpt": trainer.save_dir / "current_model.pth",
+            "launches": launches, "rates": rates, "peak": peak,
+            "params": n_params, "worst": worst}
+
+
+def phase_guided(unet_ckpt, classifier_ckpt, tmp, gen, smi):
+    """Classifier guidance from the trained UNet's checkpoint and the
+    classifier's (one schedule): a guided DDIM-10 CFG trajectory of 8 images
+    against `plain_kernels()` (without the x0 clamp; with it printed), then
+    through `sample.main` 80 images DDIM-50 CFG 3 unguided and with
+    `--classifier_checkpoint --classifier_scale 2` (a guided call: the
+    UNet's forward on 2B rows, the classifier's forward and backward on B,
+    K1b and K3 inside the sampler's no_grad), and 16 images DDIM-10 at
+    scale 0 equal to the unguided run bit for bit. Returns the launches and
+    the seconds."""
+    payload = checkpoint.load_checkpoint(unet_ckpt)
+    config = dict(payload["config"], num_inference_steps=TRAJ_STEPS)
+    unet = factory.load_model_for_inference(payload, config, True, "cuda")
+    cls_payload = checkpoint.load_checkpoint(classifier_ckpt)
+    classifier = factory.load_model_for_inference(
+        cls_payload, cls_payload["config"], True, "cuda").requires_grad_(False)
+    targets = torch.arange(8, device="cuda") % 10
+    x = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    for clip in (False, True):
+        ddim = factory.get_diffusion(dict(config, clip_sample=clip), "ddim")
+
+        def run(init, ddim=ddim):
+            fn = classifier_guided_model_fn(unet, classifier, targets,
+                                            GUIDANCE_SCALE, ddim.schedule)
+            return ddim.sample_with_cfg(fn, init.shape, targets + 1,
+                                        cfg_scale=CFG_SCALE, init_noise=init)
+        phase_knob_trajectory(
+            f"classifier guidance scale {GUIDANCE_SCALE} DDIM-{TRAJ_STEPS} "
+            f"CFG {CFG_SCALE}, x0 clamp {'on' if clip else 'off'}", run, x,
+            checked=not clip)
+    del unet, classifier
+    argv = ["--checkpoint", str(unet_ckpt), "--sampling_method", "ddim",
+            "--cfg_scale", str(CFG_SCALE), "--seed", "0", "--use_ema",
+            "--device", "cuda", "--output_dir", str(Path(tmp) / "guided")]
+    guide = ["--classifier_checkpoint", str(classifier_ckpt),
+             "--classifier_scale", str(GUIDANCE_SCALE)]
+    full = ["--num_inference_steps", str(STEPS), "--num_samples",
+            str(SAMPLES), "--batch_size", str(SAMPLES)]
+    plain_run, _ = checked_sample(f"unguided DDIM-{STEPS} CFG {CFG_SCALE}",
+                                 argv + full, scaled(UNET_FORWARD, STEPS))
+    guided, launches = checked_sample(
+        f"classifier-guided scale {GUIDANCE_SCALE} DDIM-{STEPS} CFG "
+        f"{CFG_SCALE}", argv + full + guide, scaled(GUIDED_CALL, STEPS))
+    short = ["--num_inference_steps", str(GUIDED_CHECK_STEPS),
+             "--num_samples", "16", "--batch_size", "16"]
+    unguided, _ = checked_sample("unguided, 16 images", argv + short,
+                                scaled(UNET_FORWARD, GUIDED_CHECK_STEPS))
+    zero, _ = checked_sample(
+        "classifier scale 0, 16 images",
+        argv + short + guide[:2] + ["--classifier_scale", "0"],
+        scaled(GUIDED_CALL, GUIDED_CHECK_STEPS))
+    if not np.array_equal(zero["samples"], unguided["samples"]):
+        raise AssertionError("--classifier_scale 0 differs from the "
+                             "unguided run")
+    moved = float(np.abs(guided["samples"] - plain_run["samples"]).max())
+    print(f"classifier guidance: scale 0 equals the unguided run bit for "
+          f"bit; scale {GUIDANCE_SCALE} moved the 80 samples by max_abs "
+          f"{moved:.3e} in [0, 1]; DDIM-{STEPS} CFG {CFG_SCALE} "
+          f"{SAMPLES / guided['sampling_seconds']:.2f} samples/s guided, "
+          f"{SAMPLES / plain_run['sampling_seconds']:.2f} unguided; on {smi}")
+    if not moved > 0:
+        raise AssertionError("the guidance did not move the samples")
+    return {"launches": launches, "seconds": guided["sampling_seconds"],
+            "unguided_seconds": plain_run["sampling_seconds"]}
+
+
+class Conditioned(torch.nn.Module):
+    """An SR model on [x ; cond], as `utils.sr.wrap_model_fn` calls it,
+    with the model's parameters as its own."""
+
+    def __init__(self, model, cond):
+        super().__init__()
+        self.model, self.cond = model, cond
+
+    def forward(self, x, t, y=None):
+        return sr.wrap_model_fn(self.model, self.cond)(x, t, y)
+
+
+def sr_batch(model, config, gen):
+    """The largest of SR_BATCHES whose train step (forward and backward at
+    64x64) fits on the card."""
+    process = factory.get_diffusion(config)
+    model.train()
+    for batch in SR_BATCHES:
+        try:
+            x = torch.rand(batch, 64, 64, 3, generator=gen, device="cuda")
+            cond = sr.make_condition(sr.SRSpec(2), (64, 64), hr_images=x)
+            loss = process.p_losses(Conditioned(model, cond), x,
+                                    torch.zeros(batch, dtype=torch.int64,
+                                                device="cuda"),
+                                    torch.randn_like(x))
+            loss.backward()
+            torch.cuda.synchronize()
+            print(f"SR: a train step at batch {batch} fits")
+            return batch
+        except torch.cuda.OutOfMemoryError:
+            print(f"SR: a train step at batch {batch} does not fit")
+        finally:
+            model.zero_grad(set_to_none=True)
+            loss = x = cond = None
+            torch.cuda.empty_cache()
+    raise AssertionError(f"SR: no batch of {SR_BATCHES} fits")
+
+
+def shape_kernels(label, gn_shapes, attn_shapes, batch, gen):
+    """K1 and K1b at every GroupNorm+SiLU (C, H, W) of `gn_shapes` at
+    `batch` (timed, with its bound, where the kernels take their generic
+    form, a group beyond shared memory), and K2, K3 at each attention
+    (C, H, W) of `attn_shapes` (4 heads of C / 4), timed beside
+    `F.scaled_dot_product_attention` with their bounds. Returns the worst
+    absolute errors and the times."""
+    worst = dict.fromkeys(("gn", "gn_bwd", "attn", "attn_bwd"), 0.0)
+    times = {}
+    for c, h, w in sorted(set(gn_shapes)):
+        form = fused_norm.kernel_form((batch, h, w, c), 8)
+        timed = "generic" in form
+        (fwd, bwd), t = check_gn(f"{label} gn_silu", batch, h, w, c, gen,
+                                 timed=timed)
+        worst["gn"], worst["gn_bwd"] = (max(worst["gn"], fwd),
+                                        max(worst["gn_bwd"], bwd))
+        if timed:
+            bound = Bound().add(*gn_work(batch, h, w, c))
+            bound_bwd = Bound().add(*gn_bwd_work(batch, h, w, c))
+            times[("gn", c, h, w)] = dict(t, bound=bound.ms,
+                                          bound_bwd=bound_bwd.ms)
+            print(f"  bound of B={batch} {h}x{w}x{c}: forward {bound.ms:.4f}"
+                  f" ms ({bound.keys()['bound_by']}), backward "
+                  f"{bound_bwd.ms:.4f} ms")
+    for c, h, w in sorted(set(attn_shapes)):
+        bh, seq, d = batch * 4, h * w, c // 4
+        err, t = check_attention_fwd(f"{label} flash_attn_fwd", bh, seq, d,
+                                     gen, timed=True)
+        worst["attn"] = max(worst["attn"], err)
+        err_b, ms, plain, library = check_attention_bwd(
+            f"{label} flash_attn_bwd BH={bh} L={seq} d={d}",
+            attention_bwd_case(bh, seq, d, gen))
+        worst["attn_bwd"] = max(worst["attn_bwd"], err_b)
+        bound = Bound().add(*attn_work(bh, seq, d))
+        bound_bwd = Bound().add(*attn_work(bh, seq, d, backward=True))
+        times[("attn", seq, d)] = dict(t, bwd=ms, bwd_plain=plain,
+                                       bwd_library=library, bound=bound.ms,
+                                       bound_bwd=bound_bwd.ms)
+        print(f"  bound of BH={bh} L={seq} d={d}: forward {bound.ms:.4f} ms "
+              f"({bound.keys()['bound_by']}), backward {bound_bwd.ms:.4f} ms "
+              f"({bound_bwd.keys()['bound_by']})")
+    return worst, times
+
+
+def phase_sr(unet_ckpt, tmp, gen, smi):
+    """configs/celeba64_sr_unet.py at full width on the `synthetic` dataset
+    at 64x64 (6 channels in: x_t and the upsampled 32x32 condition): the
+    largest batch of SR_BATCHES whose step fits; the kernels at every shape
+    of that step (`shape_kernels`); the loss and gradients at the check
+    batch against `plain_kernels()`; one epoch of `train` (45 K1 + 11 K2 +
+    45 K1b + 11 K3 a step), train images/s and peak memory; `sample
+    --sr_source` on a PNG written here; the two-stage cascade
+    (`tools/cascade.py`) from the trained 32x32 UNet to 64x64. Returns the
+    launches and the figures."""
+    config = dict(load_config(SR_CONFIG), dataset="synthetic",
+                  image_size=(64, 64))
+    tmp = Path(tmp) / "sr"
+    tmp.mkdir()
+    torch.manual_seed(0)
+    model = factory.get_model(config).to("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = sr_batch(model, config, gen)
+    model.eval()
+    probe = torch.zeros(2, 64, 64, 6, device="cuda")
+    gn_shapes, attn_shapes = coder_shapes(
+        model, lambda: model(probe, torch.zeros(2, dtype=torch.int64,
+                                                device="cuda")))
+    calls = {"gn": len(gn_shapes), "attn": len(attn_shapes)}
+    print(f"SR UNet ({n_params} parameters): {calls} calls a forward; "
+          f"GroupNorm+SiLU shapes {sorted(set(gn_shapes))}, attention "
+          f"{sorted(set(attn_shapes))}")
+    if calls != UNET_FORWARD:
+        raise AssertionError(f"SR forward calls {calls}")
+    worst, times = shape_kernels("SR", gn_shapes, attn_shapes, batch, gen)
+    x0 = torch.rand(CHECK_BATCH, 64, 64, 3, generator=gen,
+                    device="cuda") * 2 - 1
+    cond = sr.make_condition(sr.SRSpec(2, 0.1), (64, 64), hr_images=x0,
+                             generator=gen)
+    phase_train_grads(
+        "SR UNet", Conditioned(model, cond), config, UNET_STEP, gen,
+        batch={"x0": x0,
+               "t": torch.randint(0, 1000, (CHECK_BATCH,), generator=gen,
+                                  device="cuda"),
+               "noise": torch.randn(x0.shape, generator=gen, device="cuda"),
+               "y": None})
+    del model, cond
+    trainer, train_launches = run_train_main(
+        "SR UNet", dict(config, batch_size=batch), UNET_STEP, tmp, 1,
+        SYNTHETIC_IMAGES // batch)
+    rates, peak = timed_rates("SR UNet", trainer)
+    ckpt = trainer.save_dir / "current_model.pth"
+    del trainer
+
+    png = Path(tmp) / "lr.png"
+    write_png(png, (torch.rand(32, 32, 3, generator=gen, device="cuda")
+                    * 255).byte().cpu().numpy())
+    _, sample_launches = checked_sample(
+        f"SR --sr_source DDIM-{SR_STEPS}",
+        ["--checkpoint", str(ckpt), "--sr_source", str(png),
+         "--sampling_method", "ddim", "--num_inference_steps", str(SR_STEPS),
+         "--num_samples", str(SR_SAMPLES), "--batch_size", str(SR_SAMPLES),
+         "--use_ema", "--device", "cuda", "--output_dir",
+         str(Path(tmp) / "sr_samples")],
+        scaled(UNET_FORWARD, SR_STEPS), hw=(64, 64))
+
+    out = Path(tmp) / "cascade"
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    stages = cascade.main([
+        "--base_checkpoint", str(unet_ckpt), "--sr_checkpoint", str(ckpt),
+        "--num_samples", str(SR_SAMPLES), "--batch_size", str(SR_SAMPLES),
+        "--cfg_scale", str(CFG_SCALE), "--num_inference_steps",
+        str(SR_STEPS), "--sr_num_inference_steps", str(SR_STEPS),
+        "--use_ema", "--device", "cuda", "--output_dir", str(out)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    cascade_launches = read_launches()
+    shapes = [s.shape for s in stages]
+    print(f"cascade 32x32 UNet -> 64x64 SR stage: {SR_SAMPLES} images, "
+          f"DDIM-{SR_STEPS} each (CFG {CFG_SCALE} at the base) in "
+          f"{seconds:.3f} s; shapes {shapes}; launches {cascade_launches}")
+    if not (shapes == [(SR_SAMPLES, 32, 32, 3), (SR_SAMPLES, 64, 64, 3)]
+            and all(np.isfinite(s).all() for s in stages)
+            and cascade_launches == scaled(UNET_FORWARD, 2 * SR_STEPS)
+            and all((out / f"cascade_stage{k}.png").is_file()
+                    for k in (0, 1))):
+        raise AssertionError(f"cascade: shapes {shapes}, launches "
+                             f"{cascade_launches}")
+    return {"worst": worst, "times": times, "batch": batch, "rates": rates,
+            "peak": peak, "params": n_params,
+            "launches": {"sr_train": train_launches,
+                         "sr_sample": sample_launches,
+                         "cascade": cascade_launches}}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -3437,6 +3814,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # what the later phases take from the earlier ones: the trained UNet
+    keep = tempfile.TemporaryDirectory()
+    unet_ckpt = Path(keep.name) / "unet_trained.pth"
 
     phase_build()
     phase_tensor_cores()
@@ -3466,6 +3846,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, rates, unet_peak = phase_train_main(
             "UNet", config, UNET_STEP, UNET_FORWARD, samplers, tmp)
+        shutil.copy(Path(tmp) / "checkpoints" / "current_model.pth",
+                    unet_ckpt)
     processes = {}
     for kind in PROCESS_SAMPLERS:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3523,6 +3905,15 @@ def main():
     bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
     evaluated = phase_evaluate(config, gen, smi)
     latent = phase_latent(gen, smi)
+    start = time.perf_counter()
+    classified = phase_classifier(gen, smi, keep.name)
+    guided = phase_guided(unet_ckpt, classified["ckpt"], keep.name, gen, smi)
+    print(f"phase_classifier and phase_guided: "
+          f"{time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
+    print(f"phase_sr: {time.perf_counter() - start:.1f} s")
+    keep.cleanup()
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -3601,6 +3992,23 @@ def main():
               f"{fig['batch_ms']:.1f} ms; on {smi}")
     print(f"serve batched: {SERVE_SLOTS} images DDIM-{STEPS} CFG {CFG_SCALE} "
           f"in {served['batched_seconds']:.3f} s over HTTP; on {smi}")
+    print(f"classifier ({classified['params']} parameters): "
+          f"{statistics.median(classified['rates']['kernels']):.2f} train "
+          f"images/s at batch {CLASSIFIER_BATCH} (plain versions: "
+          f"{statistics.median(classified['rates']['plain']):.2f}), peak "
+          f"device memory {classified['peak'] / 2**20:.1f} MiB; classifier-"
+          f"guided DDIM-{STEPS} CFG {CFG_SCALE} scale {GUIDANCE_SCALE}: "
+          f"{SAMPLES / guided['seconds']:.2f} samples/s (unguided "
+          f"{SAMPLES / guided['unguided_seconds']:.2f}); on {smi}")
+    print(f"SR UNet 64x64 ({super_res['params']} parameters): "
+          f"{statistics.median(super_res['rates']['kernels']):.2f} train "
+          f"images/s at batch {super_res['batch']}, the largest of "
+          f"{SR_BATCHES} that fits (plain versions: "
+          f"{statistics.median(super_res['rates']['plain']):.2f}), peak "
+          f"device memory {super_res['peak'] / 2**20:.1f} MiB; on {smi}")
+    for key, t in super_res["times"].items():
+        print(f"SR {key}: " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in t.items()) + f"; on {smi}")
     nets = evaluated["networks"]
     print(f"metric networks on the card against the CPU: max-rel "
           f"{nets['err']:.3e}; InceptionV3 {nets['rate']:.1f} images/s at "
@@ -3654,6 +4062,15 @@ def main():
                 "serve_continuous_bf16": served["continuous_bf16_launches"]}
         return {path: run[key] for path, run in runs.items()
                 if run[key] or not key.endswith("_bf16")}
+    def later_launches(key):
+        """A float32 kernel's launches on the classifier's and SR3's paths:
+        the classifier's `train.main`, guided `sample.main` (K1b and K3
+        inside the sampler), the SR stage's `train.main`, `sample
+        --sr_source` and the cascade."""
+        runs = {"classifier_train": classified["launches"],
+                "guided_sample": guided["launches"],
+                **super_res["launches"]}
+        return {path: run[key] for path, run in runs.items() if run[key]}
     def latent_launches(key):
         """A float32 kernel's launches on the latent slice's paths: both
         stages' `train.main`, `sample.main` (DDIM-50 CFG and img2img, decode
@@ -3673,8 +4090,11 @@ def main():
                               **path_launches("gn"),
                               "evaluate": evaluated["unet_launches"]["gn"],
                               **serve_launches("gn"),
-                              **latent_launches("gn")},
-         "max_abs_err": max(gn_err, main_err["gn"], latent["worst"]["gn"]),
+                              **latent_launches("gn"),
+                              **later_launches("gn")},
+         "max_abs_err": max(gn_err, main_err["gn"], latent["worst"]["gn"],
+                            super_res["worst"]["gn"],
+                            classified["worst"]["gn"]),
          "ms": totals["gn"][0], "plain_ms": totals["gn"][1],
          **bounds["gn"].keys(), "library_ms": None},
         # K1b, ms per train step: 45 calls at batch 128. It has no TPU kernel
@@ -3686,9 +4106,12 @@ def main():
          "launches": train_launches["gn_bwd"],
          "launches_by_path": {"train": train_launches["gn_bwd"],
                               **path_launches("gn_bwd", train_only=True),
-                              **latent_launches("gn_bwd")},
+                              **latent_launches("gn_bwd"),
+                              **later_launches("gn_bwd")},
          "max_abs_err": max(gn_bwd_err, gn_step_err,
-                            latent["worst"]["gn_bwd"]),
+                            latent["worst"]["gn_bwd"],
+                            super_res["worst"]["gn_bwd"],
+                            classified["worst"]["gn_bwd"]),
          "ms": gn_step["bwd"], "plain_ms": gn_step["bwd_plain"],
          "recompute_ms": gn_step["recompute"],
          **gn_bwd_bound.keys(), "library_ms": None},
@@ -3706,10 +4129,13 @@ def main():
                               **path_launches("attn"),
                               "evaluate": evaluated["unet_launches"]["attn"],
                               **serve_launches("attn"),
-                              **latent_launches("attn")},
+                              **latent_launches("attn"),
+                              **later_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"],
-                            latent["worst"]["attn"]),
+                            latent["worst"]["attn"],
+                            super_res["worst"]["attn"],
+                            classified["worst"]["attn"]),
          "ms": totals["attn"][0], "plain_ms": totals["attn"][1],
          **bounds["attn"].keys(), "library_ms": totals["attn"][2],
          "dropout_ms": drop_ms["fwd"], "dropout_p0_ms": drop_ms["fwd_p0"],
@@ -3725,10 +4151,13 @@ def main():
                               "dit_train": dit["train_launches"]["attn_bwd"],
                               "dit_train_remat":
                                   dit["remat_launches"]["attn_bwd"],
-                              **latent_launches("attn_bwd")},
+                              **latent_launches("attn_bwd"),
+                              **later_launches("attn_bwd")},
          "dropout_launches": dit["train_launches"]["attn_bwd_dropout"],
          "max_abs_err": max(bwd_err, dit["dropout_err"],
-                            latent["worst"]["attn_bwd"]),
+                            latent["worst"]["attn_bwd"],
+                            super_res["worst"]["attn_bwd"],
+                            classified["worst"]["attn_bwd"]),
          "ms": bwd_totals[0], "plain_ms": bwd_totals[1],
          **bwd_bound.keys(), "library_ms": bwd_totals[2],
          "dropout_ms": drop_ms["bwd"], "dropout_p0_ms": drop_ms["bwd_p0"],

@@ -12,7 +12,10 @@ unipc with `--num_inference_steps`), with classifier-free guidance, PAG,
 DeepCache and FreeU as `sample` has them; load as many real images from the
 checkpoint config's dataset (its test split, shuffled with `--seed`, no
 flip); conditional checkpoints generate with the real labels shifted by +1
-(0 is the null label), cycled where the eval set is smaller; save both sets
+(0 is the null label), cycled where the eval set is smaller; a
+super-resolution checkpoint generates each batch conditioned on the real
+images area-downsampled by its factor (cycled likewise; `--deepcache` is
+refused for it), so the metrics measure upsampling fidelity; save both sets
 as PNGs and 64-image grids under `--save_images_dir` (`real/`,
 `generate/`); compute FID, improved precision/recall (or the marker that
 skips it below 1000 images), KID, Inception Score and LPIPS diversity with
@@ -29,8 +32,7 @@ over a device mesh is not ported (ROADMAP queue 1 item 15). A
 latent-diffusion checkpoint generates the latents of the VAE its config names
 and decodes them before the metric networks see them. Not ported, each
 raising `NotImplementedError` with its ROADMAP item: `--tome_ratio` and
-`--quantize` on a DiT, super-resolution checkpoints (item 11), consistency
-checkpoints (item 12).
+`--quantize` on a DiT (item 11), consistency checkpoints (item 12).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, save_image, save_image_grid,
                             set_seed)
+from .utils import sr as sr_lib
 from .utils.latent import LatentCodec
 
 
@@ -292,6 +295,15 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
     real_images, real_labels = load_real_images(args, config)
     print(f"Loaded {len(real_images)} real images")
     labels_all = generation_labels(args, config, real_labels)
+    sr_spec = sr_lib.SRSpec.from_config(config)
+    if sr_spec is not None:
+        if args.deepcache > 0:
+            raise SystemExit(
+                "--deepcache does not compose with super-resolution "
+                "checkpoints (the cached views bypass the SR conditioning "
+                "wrapper)")
+        print(f"Super-resolution checkpoint: conditioning on real images "
+              f"downsampled by {sr_spec.factor}x")
 
     print(f"Generating {args.num_samples} fake images...")
     codec = LatentCodec.from_config(config, device=device)
@@ -318,6 +330,14 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
                     batch_labels, (0, args.batch_size - len(batch_labels)),
                     mode="edge")
             y = torch.as_tensor(batch_labels, device=device)
+        batch_fn = model_fn
+        if sr_spec is not None:
+            # the eval set may hold fewer images than --num_samples
+            cond = sr_lib.batch_condition(
+                sr_spec, config["image_size"], real_images * 2.0 - 1.0,
+                start, end, args.batch_size, generator, source_is_hr=True,
+                cycle=True, device=device)
+            batch_fn = sr_lib.wrap_model_fn(model_fn, cond)
         print(f"Generating batch {i + 1}/{num_batches}...")
         if args.deepcache > 0:
             samples = deepcache_sample(
@@ -326,10 +346,10 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
                 interval=args.deepcache)
         elif use_cfg:
             samples = diffusion.sample_with_cfg(
-                model_fn, shape, y, generator, cfg_scale=args.cfg_scale,
+                batch_fn, shape, y, generator, cfg_scale=args.cfg_scale,
                 progress=True)
         else:
-            samples = diffusion.sample(model_fn, shape, generator, y=y,
+            samples = diffusion.sample(batch_fn, shape, generator, y=y,
                                        progress=True)
         if codec is not None:
             samples = codec.decode(samples)

@@ -6,7 +6,11 @@ Counterpart of `diffusion_models_collection_tpu/factory.py` for what this
 port covers: the UNet, DiT and DiM; the KL-VAE (`model_type: 'vae'`) and
 latent diffusion (`latent_diffusion: true`: any denoiser in the latent space
 of the VAE checkpoint that `vae_checkpoint` names, its geometry read from
-that checkpoint, `utils/latent.py`); DDPM training and sampling and the fast
+that checkpoint, `utils/latent.py`); the noise-conditional classifier of
+classifier guidance (`model_type: 'classifier'`, `models/classifier.py`);
+SR3 super-resolution stages (a `super_resolution` block, `utils/sr.py`:
+the denoiser's input channels double for the upsampled LR image, its
+output keeps the data channels); DDPM training and sampling and the fast
 VP samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC); flow matching and EDM,
 each training and sampling; float32 or mixed precision
 (`mixed_precision: 'bf16'`).
@@ -14,10 +18,10 @@ The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it).
 `model_params` reach the model as they are, the training-free fields among
 them (the UNet's `pag_perturb`, `freeu`, `deepcache_mode`,
-`deepcache_depth`; the DiT's `pag_perturb`). Every other model type,
-diffusion type, sampler and config extension raises, naming the ROADMAP
-item that ports it (the DiT's `num_experts`, `tome_ratio` and `quant`
-raise in the model).
+`deepcache_depth`; the DiT's `pag_perturb`). Consistency sampling
+raises, naming the ROADMAP item that ports it, as do the DiT's
+`num_experts`, `tome_ratio` and `quant` (in the model); an unknown model
+type raises as in the JAX factory.
 """
 
 from __future__ import annotations
@@ -29,28 +33,34 @@ from torch import nn
 
 from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
 from .diffusion import DDIM, DDPM, DPMSolverPP, EDM, FlowMatching, UniPC
-from .models import VAE, DiM, DiT, UNet
+from .models import VAE, DiM, DiT, NoisyClassifier, UNet
 from .utils.helpers import resolve_image_size
 from .utils.latent import LatentCodec
+from .utils.sr import SRSpec
 
 
-MODEL_CLASSES = {"unet": UNet, "dit": DiT, "dim": DiM, "vae": VAE}
+MODEL_CLASSES = {"unet": UNet, "dit": DiT, "dim": DiM, "vae": VAE,
+                 "classifier": NoisyClassifier}
 
 
 def get_model(config: Mapping) -> nn.Module:
     """Build the model from config, injecting the normalized image size
-    (`image_size` for the UNet and the VAE, `img_size` for DiT and DiM) and,
-    for a denoiser, the conditional class count. Under `latent_diffusion`
-    the denoiser's size and channels are the VAE checkpoint's latent ones
-    (the JAX factory's rule), and a declared `in_channels` must agree."""
+    (`image_size` for the UNet, the VAE and the classifier, `img_size` for
+    DiT and DiM) and, for a denoiser, the conditional class count (for the
+    classifier the real class count, at least 2, with no null class). Under
+    `latent_diffusion` the denoiser's size and channels are the VAE
+    checkpoint's latent ones (the JAX factory's rule), and a declared
+    `in_channels` must agree. Under `super_resolution` the denoiser takes
+    twice the data channels and predicts the data channels."""
     model_type = str(config["model_type"]).lower()
     if model_type not in MODEL_CLASSES:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "item 11)")
+        raise ValueError(f"Unknown model type: {model_type}")
     params = dict(config.get("model_params", {}))
     image_size = resolve_image_size(config["image_size"])
-    if config.get("super_resolution"):
+    # validated before the latent block, so a conflict surfaces without
+    # reading the VAE checkpoint
+    sr = SRSpec.from_config(config)
+    if sr is not None:
         if model_type == "vae":
             raise ValueError(
                 "super_resolution applies to denoisers, not the VAE stage")
@@ -59,8 +69,6 @@ def get_model(config: Mapping) -> nn.Module:
                 "super_resolution composes with pixel-space diffusion only "
                 "(the LR conditioning is defined on pixels, not on a VAE's "
                 "latent grid)")
-        raise NotImplementedError(
-            "super_resolution is not ported yet (ROADMAP queue 1 item 11)")
     if config.get("latent_diffusion") and model_type != "vae":
         # the geometry only: the VAE is read on the host, once per process
         codec = LatentCodec.from_config(config, device="cpu")
@@ -74,6 +82,14 @@ def get_model(config: Mapping) -> nn.Module:
         params["in_channels"] = lc
         if model_type == "unet":
             params["out_channels"] = lc
+    if sr is not None:
+        # [x_t ; upsampled LR] in, eps of the data channels out
+        data_ch = int(params.get("in_channels", 3))
+        params["in_channels"] = 2 * data_ch
+        if model_type == "unet":
+            params.setdefault("out_channels", data_ch)
+        else:
+            params["out_channels"] = data_ch
     # Mixed precision, the JAX factory's policy: 'bf16' runs the model's
     # convs, linears and activations in bfloat16 while the parameters, the
     # optimizer state, the EMA and the loss stay float32 (the model returns
@@ -83,9 +99,20 @@ def get_model(config: Mapping) -> nn.Module:
         params["dtype"] = torch.bfloat16
     elif mp not in ("none", "fp32", "float32", "off", "false"):
         raise ValueError(f"Unknown mixed_precision: {mp!r}")
-    size_key = "image_size" if model_type in ("unet", "vae") else "img_size"
+    size_key = ("image_size" if model_type in ("unet", "vae", "classifier")
+                else "img_size")
     params[size_key] = image_size
-    if model_type != "vae":  # the autoencoder is unconditional
+    if model_type == "classifier":
+        # labels are the classifier's targets, not an input embedding: the
+        # real class count, no CFG null class
+        if sr is not None:
+            raise ValueError(
+                "super_resolution does not apply to the classifier")
+        nc = int(config.get("num_classes", 0) or 0)
+        if nc < 2:
+            raise ValueError("model_type 'classifier' needs num_classes >= 2")
+        params["num_classes"] = nc
+    elif model_type != "vae":  # the autoencoder is unconditional
         params["num_classes"] = (config.get("num_classes")
                                  if config.get("conditional", False) else None)
     if config.get("remat", False):

@@ -18,19 +18,29 @@ call-time arguments (`pag_perturb`, `deepcache_mode`), so no weights are
 copied. A latent-diffusion checkpoint samples the VAE's latents and decodes
 them (every step's with `return_all`) before they leave the pipeline; its
 img2img encodes the init image to the posterior mode, and --mask raises, as
-in the JAX pipeline. Not ported: ToMe, int8, classifier guidance and
-super-resolution (ROADMAP queue 1 item 11); configs that ask for them raise
-in the factory.
+in the JAX pipeline. Classifier guidance (--classifier_checkpoint,
+--classifier_scale: `diffusion/guidance.py`, the classifier in its own
+config's dtype) and SR3 super-resolution (a checkpoint with a
+`super_resolution` block and --sr_source: `utils/sr.py`) wrap the model per
+batch, SR conditioning first and guidance after it (after PAG), as the JAX
+pipeline composes them, so both reach img2img, restarts, CFG and plain
+sampling. Not ported: ToMe and int8 (ROADMAP queue 1 item 11); configs that
+ask for them raise in the model.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .diffusion.deepcache import deepcache_sample
+from .diffusion.guidance import classifier_guided_model_fn
 from .diffusion.pag import pag_model_fn
-from .factory import get_diffusion, load_model_for_inference
+from .factory import get_diffusion, get_model, load_model_for_inference
+from .utils import sr as sr_lib
+from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (load_image_for_model, load_mask_for_model,
                             resolve_image_size)
 from .utils.latent import LatentCodec
@@ -164,7 +174,10 @@ def build_deepcache(args, config, model, flags, base_wrapped: bool):
          "samples only)"),
         (bool(getattr(args, "init_image", None)), "img2img"),
         (getattr(args, "restarts", 0) > 0, "--restarts"),
+        (bool(getattr(args, "classifier_checkpoint", None)),
+         "classifier guidance"),
         (args.pag_scale != 0.0, "--pag_scale"),
+        (bool(getattr(args, "sr_source", None)), "super-resolution"),
         (base_wrapped, "the active model_fn wrapper"),
     ]
     for cond, what in incompatible:
@@ -186,6 +199,108 @@ def build_deepcache(args, config, model, flags, base_wrapped: bool):
 
     print(f"DeepCache: full pass every {args.deepcache} steps, depth {depth}")
     return full_fn, shallow_fn
+
+
+def load_sr_sources(source, lr_hw, in_channels: int,
+                    num_samples: int) -> np.ndarray:
+    """LR conditioning images for SR sampling from an image file (repeated)
+    or a directory (sorted, cycled to `num_samples`): (num_samples, lr_h,
+    lr_w, C) in [-1, 1]."""
+    src = Path(source)
+    if src.is_dir():
+        exts = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
+        files = sorted(p for p in src.iterdir() if p.suffix.lower() in exts)
+        if not files:
+            raise SystemExit(f"--sr_source directory {src} has no images")
+    elif src.is_file():
+        files = [src]
+    else:
+        raise SystemExit(f"--sr_source {src} does not exist")
+    return np.stack([
+        load_image_for_model(files[i % len(files)], lr_hw, in_channels)[0]
+        for i in range(num_samples)])
+
+
+def build_classifier(args, config, flags, nrow: int, num_rows: int, labels,
+                     device):
+    """--classifier_checkpoint: (the classifier on `device`, frozen, in its
+    own config's dtype; the guidance targets, raw 0..K-1, one a sample), or
+    (None, None). The targets are the CFG labels - 1, or built as for a
+    conditional checkpoint of the classifier's class count."""
+    is_flow, is_edm = flags
+    if not getattr(args, "classifier_checkpoint", None):
+        return None, None
+    if is_flow or is_edm:
+        raise SystemExit(
+            "classifier guidance is defined on the VP (DDPM/DDIM/"
+            "DPM++/UniPC) family's eps predictions — not flow/edm/"
+            "consistency checkpoints")
+    if str(config.get("prediction_type", "eps")) != "eps":
+        raise SystemExit(
+            "classifier guidance shifts the EPS prediction; this checkpoint "
+            f"predicts {config.get('prediction_type')!r}")
+    if config.get("latent_diffusion"):
+        raise SystemExit(
+            "classifier guidance is defined on pixels — a latent-diffusion "
+            "checkpoint samples VAE latents the pixel classifier cannot "
+            "score")
+    payload = load_checkpoint(args.classifier_checkpoint)
+    cls_config = dict(payload["config"])
+    if str(cls_config.get("model_type", "")).lower() != "classifier":
+        raise SystemExit(
+            "--classifier_checkpoint must be a model_type 'classifier' "
+            "checkpoint (train one with utils/classifier_trainer.py through "
+            "train.py)")
+    for key in ("num_timesteps", "beta_start", "beta_end", "beta_schedule"):
+        if cls_config.get(key) != config.get(key):
+            raise SystemExit(
+                f"classifier/diffusion schedule mismatch on {key!r}: "
+                f"{cls_config.get(key)!r} vs {config.get(key)!r} — the "
+                "classifier must be trained on the same noising schedule it "
+                "guides")
+    cls_config["image_size"] = resolve_image_size(cls_config["image_size"])
+    classifier = get_model(cls_config)
+    state = payload.get("ema_model_state_dict")
+    if not args.use_ema or state is None:
+        state = payload["model_state_dict"]
+    classifier.load_state_dict(state, strict=True)
+    classifier.requires_grad_(False)  # the gradient is taken in x only
+    classifier = classifier.to(device).eval()
+    num_classes = int(cls_config["num_classes"])
+    print(f"Classifier guidance: scale {args.classifier_scale}, "
+          f"{num_classes} classes")
+    if labels is not None:
+        targets = np.asarray(labels, np.int64) - 1
+    else:
+        fake = {"conditional": True, "num_classes": num_classes}
+        targets = build_labels(args, fake, nrow, num_rows) - 1
+    if int(targets.max()) >= num_classes:
+        raise SystemExit(
+            f"label {int(targets.max())} is out of the classifier's range "
+            f"[0, {num_classes})")
+    return classifier, targets
+
+
+def build_sr(args, config, in_channels: int):
+    """A super-resolution checkpoint's (SRSpec, LR images (N, lr_h, lr_w,
+    C) in [-1, 1] from --sr_source), or (None, None); --sr_source is
+    required with one and refused without."""
+    spec = sr_lib.SRSpec.from_config(config)
+    source = getattr(args, "sr_source", None)
+    if spec is None:
+        if source:
+            raise SystemExit("--sr_source requires a checkpoint trained with "
+                             "a super_resolution config block")
+        return None, None
+    if not source:
+        raise SystemExit(
+            "this checkpoint was trained with super_resolution: pass "
+            "--sr_source <image|directory> to condition on")
+    lr_hw = spec.lr_hw(config["image_size"])
+    lr_all = load_sr_sources(source, lr_hw, in_channels, args.num_samples)
+    print(f"Super-resolving {len(lr_all)} conditioning images {lr_hw} -> "
+          f"{tuple(config['image_size'])} (factor {spec.factor})")
+    return spec, lr_all
 
 
 def validate_editing(args, config, flags, in_channels):
@@ -234,13 +349,18 @@ def validate_editing(args, config, flags, in_channels):
 
 class SamplingPipeline:
     """Model, sampler and per-batch dispatch for `sample.py`: construct,
-    then `setup_editing()` once the labels are built, then `run_batch` a
-    batch."""
+    then `setup_conditioning()` once the labels are built, then `run_batch`
+    a batch."""
 
     def __init__(self, args, config, checkpoint, device: torch.device):
         self.args = args
         self.config = config
         self.device = device
+        if str(config.get("model_type", "")).lower() == "classifier":
+            raise SystemExit(
+                "this is a noise-conditional CLASSIFIER checkpoint — pass it "
+                "via --classifier_checkpoint alongside a diffusion "
+                "checkpoint")
         dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
         self.is_flow = dtype_key in ("flow", "flow_matching",
                                      "rectified_flow")
@@ -276,37 +396,68 @@ class SamplingPipeline:
             self.channels = self.pixel_channels = config["model_params"][
                 "in_channels"]
         self.init_image = self.mask = None
+        self.classifier = self.guidance_labels = None
+        self.sr_spec = self.sr_lr_all = None
 
-    def setup_editing(self) -> None:
-        """Check the editing flags and load --init_image and --mask."""
+    def setup_conditioning(self, labels, nrow: int, num_rows: int) -> None:
+        """Load the classifier of --classifier_checkpoint (its targets from
+        `labels`, the CFG labels of all samples, or built), the LR images of
+        --sr_source, then check the editing flags and load --init_image and
+        --mask, in the JAX pipeline's order."""
+        flags = (self.is_flow, self.is_edm)
+        self.classifier, self.guidance_labels = build_classifier(
+            self.args, self.config, flags, nrow, num_rows, labels,
+            self.device)
+        self.sr_spec, self.sr_lr_all = build_sr(self.args, self.config,
+                                                self.pixel_channels)
         self.init_image, self.mask = validate_editing(
-            self.args, self.config, (self.is_flow, self.is_edm),
-            self.pixel_channels)
+            self.args, self.config, flags, self.pixel_channels)
         if self.codec is not None and self.mask is not None:
             raise SystemExit(
                 "--mask is not supported with latent-diffusion checkpoints "
                 "(pixel masks do not map exactly onto the latent grid)")
 
-    def run_batch(self, i: int, num_batches: int, batch: int, labels,
-                  generator: torch.Generator,
+    def batch_model_fn(self, start: int, end: int,
+                       generator: torch.Generator):
+        """The model callable of samples [start, end): the PAG-wrapped model,
+        conditioned on its LR images (SR), then classifier-guided."""
+        fn = self.model_fn
+        if self.sr_lr_all is not None:
+            cond = sr_lib.batch_condition(
+                self.sr_spec, self.config["image_size"], self.sr_lr_all,
+                start, end, end - start, generator, device=self.device)
+            fn = sr_lib.wrap_model_fn(fn, cond)
+        if self.classifier is not None:
+            fn = classifier_guided_model_fn(
+                fn, self.classifier,
+                torch.as_tensor(self.guidance_labels[start:end],
+                                device=self.device),
+                self.args.classifier_scale, self.diffusion.schedule)
+        return fn
+
+    def run_batch(self, i: int, num_batches: int, start: int, end: int,
+                  labels, generator: torch.Generator,
                   return_all: bool = False) -> torch.Tensor:
-        """Generate `batch` images with labels `labels` (None for an
-        unconditional model): (B, H, W, C) in [-1, 1], or with `return_all`
-        every step's state, (S, B, H, W, C); a latent checkpoint's decoded
-        (the trajectory on the host)."""
-        samples = self._sample(i, num_batches, batch, labels, generator,
+        """Generate samples [start, end) with their labels `labels[start:
+        end]` (`labels` None for an unconditional model): (B, H, W, C) in
+        [-1, 1], or with `return_all` every step's state, (S, B, H, W, C); a
+        latent checkpoint's decoded (the trajectory on the host)."""
+        samples = self._sample(i, num_batches, start, end, labels, generator,
                                return_all)
         if self.codec is None:
             return samples
         return (self.codec.decode_trajectory(samples) if return_all
                 else self.codec.decode(samples))
 
-    def _sample(self, i, num_batches, batch, labels, generator, return_all):
+    def _sample(self, i, num_batches, start, end, labels, generator,
+                return_all):
         """`run_batch` in the model's space."""
         args = self.args
+        batch = end - start
         shape = (batch, *self.hw, self.channels)
-        y = (torch.as_tensor(labels, device=self.device)
+        y = (torch.as_tensor(labels[start:end], device=self.device)
              if labels is not None else None)
+        model_fn = self.batch_model_fn(start, end, generator)
         use_cfg = args.cfg_scale > 0 and self.conditional
         cfg_scale = args.cfg_scale if use_cfg else None
         with_cfg = f" with CFG scale {args.cfg_scale}" if use_cfg else ""
@@ -323,7 +474,7 @@ class SamplingPipeline:
                 repaint_resample=args.repaint_resample))
             print(f"img2img batch {i + 1}/{num_batches}{with_cfg}...")
             return self.diffusion.img2img(
-                self.model_fn, init, generator, strength=args.strength, y=y,
+                model_fn, init, generator, strength=args.strength, y=y,
                 cfg_scale=cfg_scale, mask=mask,
                 return_all_timesteps=return_all, progress=True, **repaint)
         if args.restarts > 0:
@@ -335,7 +486,7 @@ class SamplingPipeline:
             print(f"Restart sampling batch {i + 1}/{num_batches} "
                   f"({args.restarts} restarts in [{lo}, {hi}]){with_cfg}...")
             return self.diffusion.sample_restart(
-                self.model_fn, shape, generator, y=y, cfg_scale=cfg_scale,
+                model_fn, shape, generator, y=y, cfg_scale=cfg_scale,
                 restart_interval=(lo, hi), restarts=args.restarts,
                 return_all_timesteps=return_all, progress=True)
         if args.deepcache > 0:
@@ -348,9 +499,9 @@ class SamplingPipeline:
             print(f"Sampling batch {i + 1}/{num_batches} with CFG scale "
                   f"{args.cfg_scale}...")
             return self.diffusion.sample_with_cfg(
-                self.model_fn, shape, y, generator, cfg_scale=args.cfg_scale,
+                model_fn, shape, y, generator, cfg_scale=args.cfg_scale,
                 return_all_timesteps=return_all, progress=True)
         print(f"Sampling batch {i + 1}/{num_batches}...")
-        return self.diffusion.sample(self.model_fn, shape, generator, y=y,
+        return self.diffusion.sample(model_fn, shape, generator, y=y,
                                      return_all_timesteps=return_all,
                                      progress=True)

@@ -17,8 +17,14 @@ white regenerates) and `--repaint_jump`/`--repaint_resample` (RePaint on
 DDPM); `--restarts` and `--restart_interval` (restart sampling on DDIM);
 `--pag_scale` (perturbed attention guidance, UNet and DiT); `--deepcache`
 and `--deepcache_depth` (cached deep features on DDIM, UNet); `--freeu`
-(UNet). Images and masks are 8-bit PNGs of the model's size, read without
-Pillow; other files or sizes need Pillow.
+(UNet). Classifier guidance: `--classifier_checkpoint` (a checkpoint of
+`model_type: 'classifier'` trained on the same schedule) and
+`--classifier_scale` shift eps by the classifier's gradient toward the
+labels (VP eps checkpoints). Super-resolution: a checkpoint with a
+`super_resolution` block needs `--sr_source` (an image or a directory of
+them, read at the LR size) and generates their high-resolution versions.
+Images and masks are 8-bit PNGs of the model's size, read without Pillow;
+other files or sizes need Pillow.
 `--save_intermediate` writes every step's state (`intermediate/steps.npy`,
 (S, N, H, W, C) in [0, 1], and PNG grids); `--create_gif` writes the
 trajectory as a GIF with Pillow and stops with an error where Pillow is
@@ -126,6 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "--restarts (must contain >= 2 inference-grid "
                              "points); default: the bottom 30%% of the "
                              "schedule (1,0.3*num_timesteps)")
+    parser.add_argument("--classifier_checkpoint", type=str, default=None,
+                        help="Noise-conditional classifier checkpoint "
+                             "(model_type 'classifier') for classifier "
+                             "guidance: shifts eps by the classifier score "
+                             "toward the target labels")
+    parser.add_argument("--classifier_scale", type=float, default=1.0,
+                        help="Classifier-guidance strength s (gradient "
+                             "scale); used with --classifier_checkpoint")
     parser.add_argument("--pag_scale", type=float, default=0.0,
                         help="Perturbed Attention Guidance strength (UNet and "
                              "DiT): the same checkpoint with identity "
@@ -146,6 +160,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "first half-channels (b1, b2) and Fourier-low-"
                              "pass the skip features (s1, s2) at the two "
                              "deepest up levels (e.g. 1.2,1.1,0.9,0.95)")
+    parser.add_argument("--sr_source", type=str, default=None,
+                        help="Super-resolution conditioning source (image "
+                             "file or directory): required for checkpoints "
+                             "trained with a super_resolution config block; "
+                             "inputs are read at the LR grid and the model "
+                             "generates their high-resolution versions")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     parser.add_argument("--save_intermediate", action="store_true",
@@ -221,7 +241,7 @@ def main(argv=None) -> dict:
     print(f"Generating {args.num_samples} samples...")
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    pipe.setup_editing()
+    pipe.setup_conditioning(labels, nrow, num_rows)
 
     return_all = args.save_intermediate or args.create_gif
     num_batches = math.ceil(args.num_samples / args.batch_size)
@@ -230,9 +250,8 @@ def main(argv=None) -> dict:
     for i in range(num_batches):
         start = i * args.batch_size
         end = min(start + args.batch_size, args.num_samples)
-        batch_labels = labels[start:end] if labels is not None else None
-        batches.append(pipe.run_batch(i, num_batches, end - start,
-                                      batch_labels, generator, return_all))
+        batches.append(pipe.run_batch(i, num_batches, start, end, labels,
+                                      generator, return_all))
     # waits for the device
     trajectory = torch.cat(batches, dim=1 if return_all else 0).cpu().numpy()
     seconds = time.perf_counter() - start_time

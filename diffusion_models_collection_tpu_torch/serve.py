@@ -36,8 +36,10 @@ only when asked for with `--device cpu`. `--mixed_precision bf16` overrides
 the checkpoint config's compute dtype (the engine's images stay float32).
 Not ported: ToMe and int8 serving of a DiT (`--tome_ratio`, `--quantize`,
 ROADMAP queue 1 item 11), consistency checkpoints (item 12), the
-data-parallel split of the batch over several devices (item 15);
-super-resolution checkpoints are refused, as the root daemon refuses them.
+data-parallel split of the batch over several devices (item 15).
+Super-resolution checkpoints are refused, as the root daemon refuses them:
+each request would need an LR image (`sample --sr_source` and
+`tools/cascade.py` run them).
 """
 
 from __future__ import annotations

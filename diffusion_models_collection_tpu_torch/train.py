@@ -8,9 +8,14 @@ port has (the UNet, the DiT and the DiM: `configs/cifar10_unet.py`,
 `configs/cifar10_dit.py`, `configs/cifar10_dim.py`) under the config's
 process (DDPM's objective, or `diffusion_type: 'flow_matching'` or
 `'edm'`), in pixel space or, with `latent_diffusion: true`, in the latent
-space of a trained VAE (`configs/cifar10_latent_unet.py`), and for that VAE
-itself (`model_type: 'vae'`, `configs/cifar10_vae.py`, `VAETrainer`): one
-process on one device. The seed
+space of a trained VAE (`configs/cifar10_latent_unet.py`), or as an SR3
+super-resolution stage (a `super_resolution` block,
+`configs/celeba64_sr_unet.py`: each batch conditions on its own area
+downsample); for that VAE itself (`model_type: 'vae'`,
+`configs/cifar10_vae.py`, `VAETrainer`); and for the noise-conditional
+classifier of classifier guidance (`model_type: 'classifier'`,
+`configs/cifar10_classifier.py`, `ClassifierTrainer`): one process on one
+device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
@@ -18,8 +23,7 @@ asked for with `--device cpu`. The model computes in the config's
 `mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
 activations while the weights, the optimizer state, the EMA and the loss stay
 float32); on CUDA, TF32 is switched off for matrix products and
-convolutions. The JAX trainer's other model
-types (classifier, consistency training) and its multi-process,
+convolutions. Consistency training and the JAX trainer's multi-process,
 multi-device launch raise, naming their ROADMAP items.
 """
 
@@ -32,6 +36,7 @@ from pathlib import Path
 from .factory import get_dataloader, get_dataset, get_diffusion, get_model
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, set_seed)
+from .utils.classifier_trainer import ClassifierTrainer
 from .utils.trainer import DiffusionTrainer
 from .utils.vae_trainer import VAETrainer
 
@@ -46,17 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> DiffusionTrainer:
+def main(argv=None):
     """Run the CLI; returns the trainer after its last epoch."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device, "train")
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])
     model_type = str(config.get("model_type", "")).lower()
-    if model_type == "classifier":
-        raise NotImplementedError(
-            "training a classifier is not ported yet (ROADMAP queue 1 "
-            "item 11)")
     if str(config.get("diffusion_type", "ddpm")).lower() == "consistency":
         raise NotImplementedError(
             "consistency training is not ported yet (ROADMAP queue 1 item 12)")
@@ -78,6 +79,15 @@ def main(argv=None) -> DiffusionTrainer:
                              config=config, device=device,
                              generator=generator,
                              resume_path=config.get("resume_path"))
+        trainer.train()
+        return trainer
+    if model_type == "classifier":
+        # the guidance classifier; `sample --classifier_checkpoint` reads
+        # its checkpoint
+        trainer = ClassifierTrainer(model=model, train_loader=train_loader,
+                                    config=config, device=device,
+                                    generator=generator,
+                                    resume_path=config.get("resume_path"))
         trainer.train()
         return trainer
 

@@ -16,8 +16,9 @@ its own config's `mixed_precision`, with its EMA weights where the checkpoint
 has them. A checkpoint is loaded once per process and device (and again
 only if the file changes). The port's trainers write `.pth`; the shipped
 `configs/cifar10_latent_unet.py` names the JAX trainer's `best_model.ckpt`.
-Where that file is missing and a `.pth` of the same stem lies beside it, the
-load raises naming the `.pth`: point a copy of the config at it.
+Where the named file is missing and a `.pth` of the same stem lies beside
+it, that `.pth` is read, and the load says so; so the repo's two configs run
+end to end in the port as they do in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,16 +57,16 @@ def _load_vae(abspath: str, stamp: Tuple[int, int], device: str):
 
 def load_vae(path: Union[str, Path], device: Union[str, torch.device]):
     """(the frozen VAE of the checkpoint at `path` on `device`, its
-    config)."""
+    config). A missing file is replaced by the `.pth` of its stem where one
+    exists."""
     path = Path(path).resolve()
     if not path.exists():
         beside = path.with_suffix(".pth")
-        if path.suffix != ".pth" and beside.exists():
-            raise FileNotFoundError(
-                f"vae_checkpoint {path} does not exist, but {beside} does: "
-                "the port's trainers write .pth checkpoints; point "
-                f"vae_checkpoint at {beside}")
-        raise FileNotFoundError(f"vae_checkpoint {path} does not exist")
+        if path.suffix == ".pth" or not beside.exists():
+            raise FileNotFoundError(f"vae_checkpoint {path} does not exist")
+        print(f"vae_checkpoint {path} does not exist; reading {beside}, "
+              "the .pth of its stem that the port's trainers write")
+        path = beside
     stat = os.stat(path)
     return _load_vae(str(path), (stat.st_mtime_ns, stat.st_size),
                      str(torch.device(device)))

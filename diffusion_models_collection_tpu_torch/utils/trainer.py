@@ -21,12 +21,20 @@ trainer's generator after the step's other draws, and only under latent, so
 pixel-space runs keep their random stream (the JAX trainer splits its key
 five ways only under latent).
 
+Super-resolution (a `super_resolution` block, `utils/sr.py`): each step
+conditions the model on its own batch, area-downsampled and upsampled back
+(plus `noise_aug` noise, drawn from the trainer's generator after the
+step's other draws and only under SR, or passed in), concatenated to x_t on
+the channel axis. The in-training grids condition on the first batch's
+images (`sr_condition.png` shows that view once); before any batch the grid
+is skipped. SR with latent diffusion raises.
+
 Checkpoints are the reference's `torch.save` schema (`current_model.pth`,
 `best_model.pth`, `model_epoch_NNNN.pth`); resuming keeps the epoch
 extension. The JAX trainer's parallel layouts (tensor, pipeline, sequence,
-expert, FSDP) and super-resolution training raise, naming their ROADMAP
-items. `VAETrainer` (`utils/vae_trainer.py`) trains the first stage on this
-trainer's optimizer, EMA, checkpoints and loop.
+expert, FSDP) raise, naming their ROADMAP items. `VAETrainer`
+(`utils/vae_trainer.py`) trains the first stage on this trainer's optimizer,
+EMA, checkpoints and loop.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from .helpers import count_parameters, resolve_image_size, save_image_grid
 from .latent import LatentCodec
 from .lr_schedules import build_lr_schedule
 from .profiler import StepTimer, profile_trace
+from .sr import SRSpec, make_condition, wrap_model_fn
 from .tracker import Tracker, build_tracker
 
 
@@ -56,9 +65,8 @@ def _not_ported(cfg: dict):
                 "expert_parallel"):
         if int(cfg.get(key, 1) or 1) > 1:
             yield key, "queue 1 item 15"
-    for key, item in (("fsdp", 15), ("super_resolution", 11)):
-        if cfg.get(key):
-            yield key, f"queue 1 item {item}"
+    if cfg.get("fsdp"):
+        yield "fsdp", "queue 1 item 15"
     # the JAX trainer's other format is orbax, which the port does not need
     if cfg.get("checkpoint_format", "pickle") != "pickle":
         yield "checkpoint_format", "queue 1 item 16"
@@ -146,6 +154,31 @@ def build_optimizer(config: dict, params,
                      int(config.get("gradient_accumulation_steps", 1)))
 
 
+def restore_checkpoint(trainer, checkpoint_path) -> None:
+    """Resume `trainer` (its `model`, `ema_model`, `optimizer`, `accum` and
+    `config`) from a `.pth` or a JAX `.ckpt`: weights, EMA, optimizer state
+    where it is a torch optimizer's, step count, `start_epoch` (the
+    checkpoint's epoch + 1) and best loss. The epoch target is left alone:
+    each trainer keeps its JAX counterpart's rule for it."""
+    print(f"Loading checkpoint from {checkpoint_path}...")
+    payload = ckpt_lib.load_checkpoint(checkpoint_path, trainer.config)
+    trainer.model.load_state_dict(payload["model_state_dict"])
+    if trainer.ema_model is not None:
+        ema = payload.get("ema_model_state_dict")
+        trainer.ema_model.load_state_dict(
+            ema if ema is not None else payload["model_state_dict"])
+    trainer.global_step = int(payload.get("global_step", 0))
+    opt_state = payload.get("optimizer_state_dict")
+    if isinstance(opt_state, dict) and "param_groups" in opt_state:
+        trainer.optimizer.load_state_dict(opt_state)
+    else:
+        print("The checkpoint holds no torch optimizer state (a JAX "
+              "checkpoint?): reinitializing the optimizer.")
+    trainer.optimizer.count = trainer.global_step // trainer.accum
+    trainer.start_epoch = int(payload.get("epoch", 0)) + 1
+    trainer.best_loss = float(payload.get("best_loss", float("inf")))
+
+
 class DiffusionTrainer:
     """Trainer of a denoiser under a diffusion process's `p_losses`, on
     one device. `train()` runs the epochs; `train_step` is one step."""
@@ -186,6 +219,14 @@ class DiffusionTrainer:
         if self.latent is not None:
             self.image_size = self.latent.latent_hw()
             self.in_channels = self.latent.latent_channels
+        self.sr = SRSpec.from_config(cfg)
+        if self.sr is not None and self.latent is not None:
+            raise ValueError("super_resolution composes with pixel-space "
+                             "diffusion only (the LR conditioning is defined "
+                             "on pixels)")
+        # the first train batch's images: the in-training grids' condition
+        self.sr_cond_images = None
+        self.sr_cond_saved = False
         self.save_dir.mkdir(parents=True, exist_ok=True)
         self.sample_dir.mkdir(parents=True, exist_ok=True)
         print(f"Model parameters: {count_parameters(self.model):,}")
@@ -231,18 +272,27 @@ class DiffusionTrainer:
                    t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
                    drop: Optional[torch.Tensor] = None,
-                   encoder_noise: Optional[torch.Tensor] = None
+                   encoder_noise: Optional[torch.Tensor] = None,
+                   sr_noise: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
         """One step on a device batch: images (B, H, W, C) in [-1, 1],
         labels (B,) unshifted. `t`, `noise` and `drop` are drawn unless
         given; under latent diffusion the images are encoded with
-        `encoder_noise`, drawn after them unless given. Returns the loss, on
-        the device."""
+        `encoder_noise`, drawn after them unless given; under
+        super-resolution the batch's condition takes `sr_noise` (with
+        `noise_aug` > 0), drawn after them unless given. Returns the loss,
+        on the device."""
         self.model.train()
         shape = (images.shape if self.latent is None
                  else self.latent.latent_shape(images.shape[0]))
         if t is None:
             t, noise, drop = self.draw(shape)
+        model_fn = self.model
+        if self.sr is not None:
+            cond = make_condition(self.sr, images.shape[1:3],
+                                  hr_images=images, generator=self.generator,
+                                  noise=sr_noise)
+            model_fn = wrap_model_fn(self.model, cond)
         if self.latent is not None:
             if encoder_noise is None:
                 encoder_noise = torch.randn(shape, generator=self.generator,
@@ -253,7 +303,7 @@ class DiffusionTrainer:
             y = labels.to(torch.int64) + 1
             if drop is not None:
                 y = torch.where(drop, torch.zeros_like(y), y)
-        loss = self.diffusion.p_losses(self.model, images, t, noise, y=y,
+        loss = self.diffusion.p_losses(model_fn, images, t, noise, y=y,
                                        loss_type=self.loss_type)
         loss.backward()
         if self.optimizer.step() and self.ema_model is not None:
@@ -270,6 +320,9 @@ class DiffusionTrainer:
         self.train_loader.set_epoch(epoch)
         losses: List[torch.Tensor] = []
         for images, labels in self.train_loader:
+            if self.sr is not None and self.sr_cond_images is None:
+                self.sr_cond_images = np.asarray(
+                    images, np.float32)[:self.num_samples]
             with self.step_timer.step():
                 x = torch.from_numpy(np.asarray(images, np.float32)).to(
                     self.device)
@@ -291,16 +344,23 @@ class DiffusionTrainer:
 
     # ------------------------------------------------------------ sampling
     def sample_images(self, epoch: int,
-                      num_samples: Optional[int] = None) -> np.ndarray:
+                      num_samples: Optional[int] = None
+                      ) -> Optional[np.ndarray]:
         """In-training sample grid from the EMA model (the model without
         EMA): CFG sampling over the labels 0, 1, ... one per row for a
-        conditional model; a latent model's samples decoded. Saved as
-        `<sample_dir>/epoch_NNNN.png`."""
+        conditional model; a latent model's samples decoded; an SR model's
+        conditioned on the first train batch (None before one was seen).
+        Saved as `<sample_dir>/epoch_NNNN.png`."""
         num_samples = num_samples or self.num_samples
         h, w = self.image_size
         shape = (num_samples, h, w, self.in_channels)
         nrow = max(1, int(math.sqrt(num_samples)))
         model = self.ema_model if self.ema_model is not None else self.model
+        model_fn = model
+        if self.sr is not None:
+            model_fn = self.sr_wrap_for_sampling(model, num_samples, nrow)
+            if model_fn is None:
+                return None
         was_training = model.training
         model.eval()
         if self.conditional and self.num_classes:
@@ -311,10 +371,10 @@ class DiffusionTrainer:
                 device=self.device)
             print(f"Sampling with labels: {labels.tolist()}")
             samples = self.diffusion.sample_with_cfg(
-                model, shape, labels, self.generator,
+                model_fn, shape, labels, self.generator,
                 cfg_scale=self.cfg_scale)
         else:
-            samples = self.diffusion.sample(model, shape, self.generator)
+            samples = self.diffusion.sample(model_fn, shape, self.generator)
         model.train(was_training)
         if self.latent is not None:
             samples = self.latent.decode(samples)
@@ -323,6 +383,28 @@ class DiffusionTrainer:
         save_image_grid(samples, save_path, nrow=nrow)
         self.tracker.log_image("samples", str(save_path), step=epoch)
         return samples
+
+    def sr_wrap_for_sampling(self, model, num_samples: int, nrow: int):
+        """`model` conditioned on the cached first-batch images (tiled to
+        `num_samples`), or None before any batch was seen. The first call
+        saves the condition as `<sample_dir>/sr_condition.png`."""
+        if self.sr_cond_images is None:
+            print("SR sample grid skipped: no train batch seen yet")
+            return None
+        src = self.sr_cond_images
+        if len(src) < num_samples:
+            src = np.tile(src, (-(-num_samples // len(src)), 1, 1, 1))
+        cond = make_condition(
+            self.sr, self.image_size,
+            hr_images=torch.as_tensor(src[:num_samples], device=self.device),
+            generator=self.generator)
+        if not self.sr_cond_saved:
+            # the LR view the model sees, beside the generated grids
+            grid = np.clip((cond.cpu().numpy() + 1) / 2, 0, 1)
+            save_image_grid(grid, self.sample_dir / "sr_condition.png",
+                            nrow=nrow)
+            self.sr_cond_saved = True
+        return wrap_model_fn(model, cond)
 
     # --------------------------------------------------------- checkpoints
     def save_checkpoint(self, epoch: int, is_best: bool = False,
@@ -354,26 +436,9 @@ class DiffusionTrainer:
 
     def load_checkpoint(self, checkpoint_path) -> None:
         """Resume from a `.pth` (this trainer's or the reference's) or a JAX
-        `.ckpt`: weights, EMA, optimizer state where it is a torch
-        optimizer's, epoch, best loss and step count. A run resumed past its
-        configured epochs is extended by that many epochs."""
-        print(f"Loading checkpoint from {checkpoint_path}...")
-        payload = ckpt_lib.load_checkpoint(checkpoint_path, self.config)
-        self.model.load_state_dict(payload["model_state_dict"])
-        if self.ema_model is not None:
-            ema = payload.get("ema_model_state_dict")
-            self.ema_model.load_state_dict(
-                ema if ema is not None else payload["model_state_dict"])
-        self.global_step = int(payload.get("global_step", 0))
-        opt_state = payload.get("optimizer_state_dict")
-        if isinstance(opt_state, dict) and "param_groups" in opt_state:
-            self.optimizer.load_state_dict(opt_state)
-        else:
-            print("The checkpoint holds no torch optimizer state (a JAX "
-                  "checkpoint?): reinitializing the optimizer.")
-        self.optimizer.count = self.global_step // self.accum
-        self.start_epoch = int(payload.get("epoch", 0)) + 1
-        self.best_loss = float(payload.get("best_loss", float("inf")))
+        `.ckpt` (`restore_checkpoint`). A run resumed past its configured
+        epochs is extended by that many epochs."""
+        restore_checkpoint(self, checkpoint_path)
         print(f"Resuming training from epoch {self.start_epoch}")
         if self.start_epoch > self.epochs:
             extend = self.config.get("epochs", 100)

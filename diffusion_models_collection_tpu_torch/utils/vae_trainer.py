@@ -6,13 +6,17 @@ trainer's generator (or passed in, as the parity tests do), the loss
 mse(reconstruction, x) + `kl_weight` * KL (`kl_weight` 1e-4 by default, as
 LDM trains its KL autoencoders), backward, then `DiffusionTrainer`'s clip,
 AdamW or Adam, EMA (once per optimizer update, also under gradient
-accumulation), epoch loop, non-finite stop, checkpoint schema and gates
-(`save_current_interval`, `save_best`, `save_interval`; `.pth`) and resume.
+accumulation), epoch loop, non-finite stop and checkpoint schema and gates
+(`save_current_interval`, `save_best`, `save_interval`; `.pth`). Resuming
+follows the JAX VAE trainer, not the diffusion trainer: the run continues
+at the checkpoint's epoch + 1 up to the configured `epochs` and is never
+extended, so a resume at or past `epochs` trains nothing.
 The epoch log carries the mean reconstruction and KL terms beside the loss;
 every `sample_interval` epochs from `sample_start_epoch` (1 by default) it
-writes `<sample_dir>/vae_epoch_NNNN.png`, the first batch's images over
-their posterior-mode reconstructions. A diffusion config then points
-`vae_checkpoint` at the checkpoint (`utils/latent.py`).
+writes `<sample_dir>/vae_epoch_NNNN.png`: the loader's first batch, drawn
+once at the first sampled epoch and kept, over its posterior-mode
+reconstructions. A diffusion config then points `vae_checkpoint` at the
+checkpoint (`utils/latent.py`).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from ..models.vae import kl_divergence
 from .ema import ema_update
 from .helpers import save_image_grid
-from .trainer import DiffusionTrainer
+from .trainer import DiffusionTrainer, restore_checkpoint
 
 
 class VAETrainer(DiffusionTrainer):
@@ -41,6 +45,13 @@ class VAETrainer(DiffusionTrainer):
         self.kl_weight = float(config.get("kl_weight", 1e-4))
         self.sample_start_epoch = config.get("sample_start_epoch", 1)
         self.num_samples = config.get("num_samples", 8)
+        self.grid_batch = None  # the reconstruction grid's images, kept
+
+    def load_checkpoint(self, checkpoint_path) -> None:
+        """Resume at the checkpoint's epoch + 1 (`restore_checkpoint`), with
+        no extension past the configured `epochs`."""
+        restore_checkpoint(self, checkpoint_path)
+        print(f"Resuming VAE training from epoch {self.start_epoch}")
 
     def draw(self, shape):
         """The step's reparameterisation noise for a pixel batch of
@@ -96,6 +107,8 @@ class VAETrainer(DiffusionTrainer):
 
     def sample_images(self, epoch: int) -> np.ndarray:
         """The VAE's in-training grid: `reconstruction_grid` of the
-        loader's first batch."""
-        images, _ = next(iter(self.train_loader))
-        return self.reconstruction_grid(epoch, images)
+        loader's first batch, drawn at the first sampled epoch and reused at
+        every later one."""
+        if self.grid_batch is None:
+            self.grid_batch, _ = next(iter(self.train_loader))
+        return self.reconstruction_grid(epoch, self.grid_batch)

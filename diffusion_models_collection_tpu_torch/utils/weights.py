@@ -1,7 +1,7 @@
-"""Weight bridge: a Flax UNet, DiT, DiM or VAE param tree (nested dicts of
-numpy arrays, as a JAX checkpoint stores it) to the port's `state_dict`; and the
-metric networks' param trees (InceptionV3, the LPIPS AlexNet) to
-torchvision's keys, the inverses of the JAX package's
+"""Weight bridge: a Flax UNet, DiT, DiM, VAE or classifier param tree
+(nested dicts of numpy arrays, as a JAX checkpoint stores it) to the port's
+`state_dict`; and the metric networks' param trees (InceptionV3, the LPIPS
+AlexNet) to torchvision's keys, the inverses of the JAX package's
 `convert_torchvision_state` and `convert_lpips_state`.
 
 Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
@@ -9,8 +9,9 @@ Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 `_export_dit`, `_export_dim`), in numpy and torch only: that module imports
 the JAX package's helpers, which need JAX. The port's models use the PyTorch
 reference's key names, so the result also equals what the JAX exporter
-writes for the reference, and loads with `strict=True`. The VAE has no
-reference names: its keys are the port's own (`models/vae.py`).
+writes for the reference, and loads with `strict=True`. The VAE and the
+classifier have no reference names: their keys are the port's own
+(`models/vae.py`, `models/classifier.py`).
 
 Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
 Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); depthwise conv
@@ -28,6 +29,7 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.classifier import classifier_plan
 from .helpers import resolve_image_size
 
 
@@ -337,9 +339,61 @@ def vae_params_to_numpy_state_dict(params: Mapping,
     return sd
 
 
+def classifier_params_to_numpy_state_dict(
+        params: Mapping, model_cfg: Mapping) -> Dict[str, np.ndarray]:
+    """Flax `NoisyClassifier` params -> the port's classifier keys.
+    `model_cfg` holds its constructor fields. Flax names the residual blocks
+    `ResidualBlock_N` explicitly (with and without `remat`), the others in
+    call order: AttentionBlock_N, Downsample_N, Conv_0 (the input conv),
+    FusedGroupNormSiLU_0 and Dense_0 (the head)."""
+    sd: Dict[str, np.ndarray] = {}
+    te = params["UNetTimeEmbed_0"]
+    _dense(sd, "time_embed.1", te["Dense_0"])
+    _dense(sd, "time_embed.3", te["Dense_1"])
+    _conv(sd, "input_conv", params["Conv_0"])
+    _norm(sd, "norm_out", params["FusedGroupNormSiLU_0"])
+    _dense(sd, "head", params["Dense_0"])
+    plan = classifier_plan(
+        tuple(model_cfg["image_size"]), model_cfg.get("num_res_blocks", 1),
+        tuple(model_cfg.get("attention_resolutions", (8,))),
+        tuple(model_cfg.get("channel_mult", (1, 2, 2))),
+        model_cfg.get("use_attention", True))
+    counters = {"res": 0, "attn": 0, "down": 0}
+    jax_name = {"res": "ResidualBlock", "attn": "AttentionBlock",
+                "down": "Downsample"}
+    for i, (kind, _) in enumerate(plan):
+        blk = params[f"{jax_name[kind]}_{counters[kind]}"]
+        counters[kind] += 1
+        pref = f"blocks.{i}"
+        if kind == "res":
+            _norm(sd, f"{pref}.conv1.0", blk["FusedGroupNormSiLU_0"])
+            _conv(sd, f"{pref}.conv1.2", blk["Conv_0"])
+            _dense(sd, f"{pref}.time_mlp.1", blk["Dense_0"])
+            _norm(sd, f"{pref}.conv2.0", blk["FusedGroupNormSiLU_1"])
+            _conv(sd, f"{pref}.conv2.3", blk["Conv_1"])
+            if "Conv_2" in blk:  # 1x1 shortcut of channel-changing blocks
+                _conv(sd, f"{pref}.shortcut", blk["Conv_2"])
+        elif kind == "attn":
+            _norm(sd, f"{pref}.norm", blk["GroupNorm_0"])
+            _conv(sd, f"{pref}.qkv", blk["Conv_0"])
+            _conv(sd, f"{pref}.proj", blk["Conv_1"])
+        else:
+            _conv(sd, f"{pref}.conv", blk["Conv_0"])
+    for kind, count in counters.items():
+        extra = f"{jax_name[kind]}_{count}"
+        if extra in params:
+            raise ValueError(
+                f"classifier plan consumed {count} {jax_name[kind]}s but the "
+                f"params contain {extra}: the model config does not match "
+                "the checkpoint (attention_resolutions, channel_mult, "
+                "num_res_blocks, image_size)")
+    return sd
+
+
 def resolved_model_cfg(config: Mapping) -> Dict:
-    """model_params with the image_size and num_classes that the factory
-    injects (under latent diffusion the size of the VAE's latents)."""
+    """model_params with the image_size, channels and num_classes that the
+    factory injects (under latent diffusion the size of the VAE's latents;
+    under super_resolution twice the data channels in)."""
     cfg = dict(config.get("model_params", {}))
     cfg["image_size"] = resolve_image_size(config["image_size"])
     if config.get("latent_diffusion"):
@@ -347,6 +401,10 @@ def resolved_model_cfg(config: Mapping) -> Dict:
 
         cfg["image_size"] = LatentCodec.from_config(
             config, device="cpu").latent_hw()
+    if config.get("super_resolution"):
+        data_ch = int(cfg.get("in_channels", 3))
+        cfg["in_channels"] = 2 * data_ch
+        cfg.setdefault("out_channels", data_ch)
     if not config.get("conditional", False):
         cfg["num_classes"] = None
     return cfg
@@ -354,9 +412,9 @@ def resolved_model_cfg(config: Mapping) -> Dict:
 
 def state_dict_from_jax(params: Mapping,
                        config: Mapping) -> Dict[str, torch.Tensor]:
-    """A Flax UNet, DiT, DiM or VAE param tree -> the port's (and, but for
-    the VAE, the reference's) `state_dict`, for the model that `config`
-    describes."""
+    """A Flax UNet, DiT, DiM, VAE or classifier param tree -> the port's
+    (and, but for the VAE and the classifier, the reference's) `state_dict`,
+    for the model that `config` describes."""
     model_type = str(config.get("model_type", "unet")).lower()
     if model_type == "unet":
         sd = unet_params_to_numpy_state_dict(params,
@@ -368,10 +426,11 @@ def state_dict_from_jax(params: Mapping,
     elif model_type == "vae":
         sd = vae_params_to_numpy_state_dict(params,
                                             config.get("model_params", {}))
+    elif model_type == "classifier":
+        sd = classifier_params_to_numpy_state_dict(
+            params, resolved_model_cfg(config))
     else:
-        raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (ROADMAP queue 1 "
-            "item 11)")
+        raise ValueError(f"Unknown model type: {model_type}")
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies: jax arrays are read-only
 
 

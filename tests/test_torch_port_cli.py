@@ -53,6 +53,7 @@ from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     jax_unet,
     one_torch_thread,
     small_config,
+    small_dit_config,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -130,10 +131,15 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
     assert grid.shape == (7, 7, 1) and grid.sum() == 12
 
 
+# MoE and ToMe, DiT options of item 11 that remain; the classifier and SR3,
+# ported since, have tests of their own (test_torch_port_classifier.py,
+# test_torch_port_sr.py)
 @pytest.mark.parametrize("change", [
-    {"model_type": "classifier"},
+    {"model_type": "dit", "model_params": dict(
+        small_dit_config()["model_params"], num_experts=4)},
     {"diffusion_type": "consistency"},
-    {"super_resolution": {"scale": 2}},
+    {"model_type": "dit", "model_params": dict(
+        small_dit_config()["model_params"], tome_ratio=0.5)},
 ])
 def test_factory_raises_on_what_is_not_ported(change):
     config = dict(small_config(), **change)

@@ -181,6 +181,11 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.utils.latent",
             "diffusion_models_collection_tpu_torch.utils.vae_trainer",
             "diffusion_models_collection_tpu_torch.tools.compute_latent_scale",
+            "diffusion_models_collection_tpu_torch.models.classifier",
+            "diffusion_models_collection_tpu_torch.utils.classifier_trainer",
+            "diffusion_models_collection_tpu_torch.diffusion.guidance",
+            "diffusion_models_collection_tpu_torch.utils.sr",
+            "diffusion_models_collection_tpu_torch.tools.cascade",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys

@@ -163,7 +163,10 @@ def test_system_exit_rules_match_the_root_cli(tmp_path, model, changes,
 @pytest.mark.parametrize("model,changes,flags,item", [
     ("dit", {}, ["--tome_ratio", "0.5"], 11),
     ("dit", {}, ["--quantize", "int8"], 11),
-    ("unet", {"super_resolution": {"factor": 2}}, [], 11),
+    # a DiT's MoE config on the plain UNet's weights (super-resolution, the
+    # case before it, is ported: test_torch_port_sr.py)
+    ("unet", {"model_type": "dit", "model_params": dict(
+        small_dit_config()["model_params"], num_experts=4)}, [], 11),
     ("unet", {"diffusion_type": "consistency"}, [], 12),
 ])
 def test_what_is_not_ported_raises_naming_its_item(tmp_path, model, changes,

@@ -160,7 +160,7 @@ def test_codec_matches_jax_on_a_jax_checkpoint(vae_ckpt):
     assert LatentCodec(vae_ckpt, device="cpu").model is pc.model
 
 
-def test_codec_gates(vae_ckpt, tmp_path):
+def test_codec_gates(vae_ckpt, tmp_path, capsys):
     assert LatentCodec.from_config({"model_type": "unet"},
                                    device="cpu") is None
     with pytest.raises(ValueError, match="vae_checkpoint"):
@@ -176,14 +176,20 @@ def test_codec_gates(vae_ckpt, tmp_path):
                                config)
     with pytest.raises(ValueError, match="is not a VAE checkpoint"):
         LatentCodec(unet, device="cpu")
-    # the JAX config names best_model.ckpt; the port's trainers write .pth
-    (tmp_path / "best_model.pth").write_bytes(vae_ckpt.read_bytes())
-    with pytest.raises(FileNotFoundError,
-                       match=r"best_model\.ckpt does not exist, but .*"
-                             r"best_model\.pth does"):
-        LatentCodec(tmp_path / "best_model.ckpt", device="cpu")
+    # the JAX config names best_model.ckpt; the port's trainers write .pth,
+    # which is read in its place
+    want = LatentCodec(vae_ckpt, device="cpu").model
+    checkpoint.save_checkpoint(tmp_path / "best_model.pth", want.state_dict(),
+                               vae_config())
+    capsys.readouterr()
+    got = LatentCodec(tmp_path / "best_model.ckpt", device="cpu").model
+    assert "best_model.pth" in capsys.readouterr().out
+    for a, b in zip(got.state_dict().values(), want.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(FileNotFoundError, match="does not exist"):
         LatentCodec(tmp_path / "none.ckpt", device="cpu")
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        LatentCodec(tmp_path / "none.pth", device="cpu")
 
 
 def test_factory_reads_the_latent_geometry(vae_ckpt):

@@ -20,9 +20,9 @@ and `CheckpointVAEResBlock_N` under `remat: true`):
 * the full-width parameter count of `configs/cifar10_vae.py` (2,385,227)
   and the bridge's refusal of a config that does not describe the tree;
 * `train.main` on a tiny VAE config on the committed CIFAR-10 fixtures:
-  checkpoints, the reconstruction grid, the per-epoch log, resume with the
-  epoch extension, and the stop before the checkpoints rotate on a
-  non-finite loss.
+  checkpoints, the reconstruction grid (one batch, kept across epochs), the
+  per-epoch log, resume without the epoch extension (the JAX VAE trainer's
+  rule), and the stop before the checkpoints rotate on a non-finite loss.
 """
 
 import functools
@@ -346,6 +346,11 @@ def test_train_cli_trains_the_vae_and_resumes(tmp_path):
         assert (save_dir / name).is_file(), name
     assert (Path(config["sample_dir"]) / "vae_epoch_0002.png").is_file()
     assert not (Path(config["sample_dir"]) / "vae_epoch_0001.png").exists()
+    # the grid's batch is drawn once and kept, whatever the loader's epoch
+    kept = trainer.grid_batch
+    trainer.train_loader.set_epoch(7)
+    trainer.sample_images(7)
+    assert trainer.grid_batch is kept
     logged = [m for m in metrics(save_dir) if "train/loss" in m]
     assert len(logged) == 2
     for m in logged:
@@ -358,14 +363,25 @@ def test_train_cli_trains_the_vae_and_resumes(tmp_path):
     assert {"epoch", "model_state_dict", "ema_model_state_dict",
             "optimizer_state_dict", "global_step"} <= set(ckpt)
 
+    # the JAX VAE trainer's rule: a resume at or past `epochs` trains no
+    # epoch (no extension, unlike the diffusion trainer)
     cfg_path, _ = tiny_vae_config(
         tmp_path, epochs=1, sample_start_epoch=100, save_best=False,
         save_interval=100, resume_path=str(save_dir / "current_model.pth"))
     resumed = train.main(["--config", cfg_path, "--device", "cpu"])
-    assert (resumed.start_epoch, resumed.epochs) == (3, 4)
-    assert resumed.global_step == 12
+    assert (resumed.start_epoch, resumed.epochs) == (3, 1)
+    assert resumed.global_step == 6
     assert torch.load(save_dir / "current_model.pth",
-                      weights_only=True)["epoch"] == 4
+                      weights_only=True)["epoch"] == 2
+    # before its `epochs` it trains on to them
+    cfg_path, _ = tiny_vae_config(
+        tmp_path, epochs=3, sample_start_epoch=100, save_best=False,
+        save_interval=100, resume_path=str(save_dir / "current_model.pth"))
+    resumed = train.main(["--config", cfg_path, "--device", "cpu"])
+    assert (resumed.start_epoch, resumed.epochs) == (3, 3)
+    assert resumed.global_step == 9
+    assert torch.load(save_dir / "current_model.pth",
+                      weights_only=True)["epoch"] == 3
 
 
 def test_vae_non_finite_loss_stops_before_the_checkpoints_rotate(
