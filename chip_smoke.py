@@ -29,8 +29,9 @@ port's entry points. The UNet's:
   continuous engine in fp32 and in bf16 (16 images in one submit against
   `sample_with_cfg` at batch 16, two single-image requests admitted five
   steps apart each against its row of a pool-shaped `sample_with_cfg`, then
-  the JAX bench leg's traffic: 64 single-image requests from 8 client
-  threads, p50/p99 latency and images/s, beside 16 images in one batch),
+  the JAX bench leg's traffic cut to half its length: 32 single-image
+  requests from 8 client threads, p50/p99 latency and images/s, beside 16
+  images in one batch),
   one forward's launches a step; and what the engine's admission of one row
   and read-back of one slot cost against a pool's worth;
 * editing and training-free knobs: a 10-step, 8-image trajectory of each
@@ -207,6 +208,33 @@ Then classifier guidance and SR3 super-resolution (no kernel of their own):
   written there; the two-stage cascade of `tools/cascade.py` from the trained
   32x32 UNet to 64x64.
 
+Then the DiT's last three families:
+
+* `phase_moe`: configs/cifar10_dit_moe.py at full width (hidden 384, depth
+  12, 6 heads, 8 experts, top 2, capacity 1.25: 131,862,636 parameters): a
+  forward at batch 160 and a train step at 128 (dropout 0.1; the loss with
+  0.01 times the load-balance loss) against the plain versions, on the
+  kernel run's routing (a near-tie token may route apart at float
+  rounding: how many do when left free is printed), in float32 and bf16; 12
+  K2 a forward, 12 K2 and 12 K3 in the dropout form a step; 80 images
+  DDIM-50 CFG 3 through `sample` and three epochs of `train` at batch 128,
+  each in float32 and bf16, samples/s, train images/s and peak memory; a
+  16-image `serve --continuous` request against `sample_with_cfg`;
+* `phase_tome`: the key-bias forms of K2 and K3 (float32 and bf16) against
+  their plain versions at BH 960 and ToMe's merged lengths L' 128 and 179
+  (d 64), timed beside `F.scaled_dot_product_attention` with the bias as an
+  additive mask, and with dropout at BH 768; the DiT (configs/cifar10_dit.py)
+  with ratio 0.5, with and without `tome_mlp`: forwards at batch 160 against
+  the plain versions on the kernel run's merge plans; 80 images DDIM-50 CFG
+  3 through `sample --tome_ratio 0.5 [--tome_mlp]` in float32 and bf16 (12 K2
+  in the key-bias form a forward), samples/s beside the unmerged DiT's; three
+  epochs of `train` with merging (12 K2 and 12 K3 in the key-bias and dropout
+  forms a step), in each precision;
+* `phase_int8`: the same DiT weights with `quant='int8'`: a forward at batch
+  160 with its 48 int8 products and its distance from the float forward,
+  then `sample --quantize int8` in float32 and bf16, samples/s beside the
+  float DiT's.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
@@ -225,6 +253,7 @@ timings after warm-up; samples/s is the generation loop of one
 steps; all on the card named in the output.
 """
 
+import contextlib
 import http.client
 import io
 import json
@@ -272,11 +301,14 @@ from diffusion_models_collection_tpu_torch.metrics import (  # noqa: E402
     lpips_score,
 )
 from diffusion_models_collection_tpu_torch.models import unet as unet_mod  # noqa: E402
+from diffusion_models_collection_tpu_torch.models.moe import MoeMlp  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     _build,
     flash_attention,
     fused_norm,
+    quant,
 )
+from diffusion_models_collection_tpu_torch.ops import tome as tome_ops  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     selective_scan as scan,
 )
@@ -576,13 +608,18 @@ def reset_launches():
     flash_attention.BWD_DROPOUT_LAUNCHES = 0
     flash_attention.BF16_LAUNCHES = 0
     flash_attention.BWD_BF16_LAUNCHES = 0
+    flash_attention.BIAS_LAUNCHES = 0
+    flash_attention.BWD_BIAS_LAUNCHES = 0
+    quant.PRODUCTS = 0
     for counter in SCAN_COUNTERS.values():
         setattr(scan, counter, 0)
 
 
 def read_launches():
     """Every kernel's launches; `gn`, `attn` and their backward count every
-    form, `*_dropout` and `*_bf16` the launches in that form."""
+    form, `*_dropout`, `*_bf16` and `*_bias` (the key-bias forms) the
+    launches in that form; `int8` the int8 products (a library call, not a
+    kernel of the port: counted to show the int8 path ran)."""
     return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
             "gn_bf16": fused_norm.BF16_LAUNCHES,
             "gn_bwd_bf16": fused_norm.BWD_BF16_LAUNCHES,
@@ -592,6 +629,9 @@ def read_launches():
             "attn_bwd_dropout": flash_attention.BWD_DROPOUT_LAUNCHES,
             "attn_bf16": flash_attention.BF16_LAUNCHES,
             "attn_bwd_bf16": flash_attention.BWD_BF16_LAUNCHES,
+            "attn_bias": flash_attention.BIAS_LAUNCHES,
+            "attn_bwd_bias": flash_attention.BWD_BIAS_LAUNCHES,
+            "int8": quant.PRODUCTS,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
 
@@ -1353,11 +1393,11 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def timed_rates(label, trainer, batch=None):
+def timed_rates(label, trainer, batch=None, plain_runs=2):
     """Train images/s through the trainer's own step with the kernels and
-    with the plain versions (kernels, plain, plain, kernels) on its first
-    batch (or on `batch`, (images, labels) on the card), and the peak
-    device memory of the kernel path's steps."""
+    with the plain versions (kernels, `plain_runs` times plain, kernels) on
+    its first batch (or on `batch`, (images, labels) on the card), and the
+    peak device memory of the kernel path's steps."""
     if batch is None:
         images, labels = next(iter(trainer.train_loader))
         images = torch.from_numpy(images).to("cuda")
@@ -1366,7 +1406,7 @@ def timed_rates(label, trainer, batch=None):
     else:
         images, labels = batch
     rates, peak = {"kernels": [], "plain": []}, 0
-    for path in ("kernels", "plain", "plain", "kernels"):
+    for path in ("kernels", *["plain"] * plain_runs, "kernels"):
         if path == "plain":
             with plain_kernels():
                 rates[path].append(time_train_steps(trainer, images, labels))
@@ -1418,7 +1458,7 @@ def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
 
 
 def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
-                     epochs=TRAIN_EPOCHS, steps_per_epoch=1):
+                     epochs=TRAIN_EPOCHS, steps_per_epoch=1, plain_runs=2):
     """`train.main` for `epochs` epochs at full width (on the fixtures:
     three epochs of one batch of 128), with exactly `per_step` launches a
     step; then train images/s with the kernels and with the plain versions,
@@ -1429,7 +1469,7 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
     trainer, launches = run_train_main(label, config, per_step, tmp, epochs,
                                        steps_per_epoch)
     ckpt = trainer.save_dir / "current_model.pth"
-    rates, peak = timed_rates(label, trainer)
+    rates, peak = timed_rates(label, trainer, plain_runs=plain_runs)
 
     for i, (method, calls, flags) in enumerate(samplers):
         out = Path(tmp) / f"sample_{i}_{method}"
@@ -2227,7 +2267,7 @@ def phase_dit(gen):
     with tempfile.TemporaryDirectory() as tmp:
         remat_launches, remat_rates, remat_peak = phase_train_main(
             "DiT remat", dict(config, remat=True), DIT_REMAT_STEP,
-            DIT_FORWARD, samplers, tmp)
+            DIT_FORWARD, samplers, tmp, plain_runs=1)
 
     # the DiM with 8-head attention in place of each Mamba mixer (d 48)
     dim_config = load_config(DIM_CONFIG)
@@ -2822,7 +2862,9 @@ SERVE_SEED = 11
 SERVE_STAGGER_TICKS = 5  # the second solo request joins this many steps in
 # the JAX bench leg's traffic (`bench.py` `_leg_serving`): single-image CFG
 # requests from client threads, each waiting for its reply (a closed loop)
-SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+# the JAX bench leg sends 64 requests from 8 clients; 32 from 8 keep its
+# shape (8 waiting clients, single images) in half the steps
+SERVE_REQUESTS, SERVE_CLIENTS = 32, 8
 TOL_SERVE_BATCHED = 1e-6  # in [0, 1]: the same trajectory, bit-equal expected
 TOL_SERVE_SLOT = 1e-5  # model space: one row of a pool, bit-equal expected
 
@@ -3805,6 +3847,478 @@ def phase_sr(unet_ckpt, tmp, gen, smi):
                          "cascade": cascade_launches}}
 
 
+# ---------------------------------- Mixture-of-Experts, token merging, int8
+MOE_CONFIG = ROOT / "configs" / "cifar10_dit_moe.py"
+# the dense DiT's parameters and, in each of the 12 blocks, a router and 8
+# experts in place of the MLP: 8,274,056 more a block
+MOE_PARAMS = 32_573_964 + 12 * 8_274_056
+MOE_AUX_WEIGHT = 0.01  # the config's moe_aux_weight
+TOME_RATIO = 0.5
+# ToMe at 0.5 and 0.3 merges the DiT's 256 tokens to 128 and 179; the
+# sampling batch's 160 rows of 6 heads
+TOME_LENGTHS = (128, 179)
+TOME_BH = 2 * SAMPLES * DIT_HEADS
+# a forward with merging: each of the 12 attentions in the key-bias form
+# (an MLP merged by `tome_mlp` adds no attention); a train step's in the
+# dropout form too, and its backward
+TOME_FORWARD = dict(DIT_FORWARD, attn_bias=ATTN_PER_DIT_FORWARD)
+TOME_FORWARD_BF16 = dict(TOME_FORWARD, attn_bf16=ATTN_PER_DIT_FORWARD)
+TOME_STEP = dict(DIT_STEP, attn_bias=ATTN_PER_DIT_FORWARD,
+                 attn_bwd_bias=ATTN_PER_DIT_FORWARD)
+TOME_STEP_BF16 = dict(TOME_STEP, attn_bf16=ATTN_PER_DIT_FORWARD,
+                      attn_bwd_bf16=ATTN_PER_DIT_FORWARD)
+# int8: the qkv and out projections and the MLP's two products of 12 blocks
+INT8_PER_FORWARD = 4 * 12
+INT8_FORWARD = dict(DIT_FORWARD, int8=INT8_PER_FORWARD)
+INT8_FORWARD_BF16 = dict(DIT_FORWARD_BF16, int8=INT8_PER_FORWARD)
+
+
+@contextlib.contextmanager
+def recorded_choices(model, replay=None):
+    """Record the discrete choices of the forwards of `model` run inside:
+    each MoE block's experts and each token-merging plan, in call order;
+    with `replay` (an earlier record), impose them instead. Two runs of one
+    network that differ at float rounding (the kernels against their plain
+    versions) can otherwise route a near-tie token to another expert or
+    merge it elsewhere, a difference of the order of the token itself; held
+    to one set of choices they compare at the float bars."""
+    record = {"experts": [], "plans": []}
+    build_plan = tome_ops.build_plan
+
+    def plan(metric, spec):
+        chosen = (replay["plans"][len(record["plans"])] if replay is not None
+                  else build_plan(metric, spec))
+        record["plans"].append(chosen)
+        return chosen
+
+    mlps = [m for m in model.modules() if isinstance(m, MoeMlp)]
+    for mlp in mlps:
+        def route(x, expert=None, _mlp=mlp):
+            if replay is not None:
+                expert = replay["experts"][len(record["experts"])]
+            out = MoeMlp.route(_mlp, x, expert)
+            record["experts"].append(out[1])
+            return out
+        mlp.route = route
+    tome_ops.build_plan = plan
+    try:
+        yield record
+    finally:
+        tome_ops.build_plan = build_plan
+        for mlp in mlps:
+            del mlp.route
+
+
+def choices_apart(a, b):
+    """(experts chosen apart, of all (token, slot)s; tokens placed apart by
+    the merge plans, of all tokens) between two records."""
+    experts = sum(int((x != y).sum()) for x, y in zip(a["experts"],
+                                                       b["experts"]))
+    tokens = sum(int((x["gather"] != y["gather"]).sum())
+                 for x, y in zip(a["plans"], b["plans"]))
+    return ((experts, sum(x.numel() for x in a["experts"])),
+            (tokens, sum(x["gather"].numel() for x in a["plans"])))
+
+
+def phase_choice_forward(label, model, per_forward, gen, tol,
+                         batch=2 * SAMPLES):
+    """A forward of a full-width MoE or token-merging DiT at the sampling
+    batch through the kernels, with exactly `per_forward` launches, against
+    the same inside `plain_kernels()` on the kernel run's routing and plans
+    (`recorded_choices`); how many choices the plain run makes apart when
+    left free is printed. Returns the max-rel."""
+    x = torch.randn(batch, 32, 32, 3, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+    y = torch.randint(0, 11, (batch,), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        with recorded_choices(model) as choices:
+            out = model(x, t, y)
+        launched = read_launches()
+        with plain_kernels():
+            with recorded_choices(model) as free:
+                model(x, t, y)
+            with recorded_choices(model, choices):
+                ref = model(x, t, y)
+    torch.cuda.synchronize()
+    rel = max_rel(out, ref)
+    (experts, slots), (tokens, placed) = choices_apart(choices, free)
+    print(f"{label} forward B={batch}: kernels vs plain on the kernel run's "
+          f"choices max_rel {rel:.3e} (bar {tol:g}); left free, the plain "
+          f"run chose {experts} of {slots} experts and placed {tokens} of "
+          f"{placed} merged tokens apart; launches {launched}")
+    if launched != expect(**per_forward):
+        raise AssertionError(f"{label} forward launches {launched}")
+    if not (out.shape == (batch, 32, 32, 3) and torch.isfinite(out).all()
+            and ref.abs().max() > 0 and rel <= tol):
+        raise AssertionError(f"{label} forward: max_rel {rel}")
+    return rel
+
+
+def phase_moe_grads(label, model, config, per_step, gen, tol):
+    """A MoE DiT's train-step loss (DDPM's eps-loss plus MOE_AUX_WEIGHT
+    times the blocks' mean load-balance loss, as the trainer forms it) and
+    every gradient at batch 128 in train mode (dropout 0.1, the same draws
+    in both runs) through the kernels against the same inside
+    `plain_kernels()` on the kernel run's routing; exactly `per_step`
+    launches, none inside; every parameter gets a gradient."""
+    process = factory.get_diffusion(config)
+    shape = (TRAIN_BATCH, 32, 32, 3)
+    batch = {"x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
+             "t": torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen,
+                                device="cuda"),
+             "noise": torch.randn(*shape, generator=gen, device="cuda"),
+             "y": torch.randint(0, 11, (TRAIN_BATCH,), generator=gen,
+                                device="cuda")}
+
+    def run(replay=None):
+        torch.manual_seed(TRAIN_SEED)
+        model.zero_grad(set_to_none=True)
+        aux = []
+        with recorded_choices(model, replay) as choices:
+            loss = process.p_losses(
+                lambda x, t, y: model(x, t, y, moe_losses=aux), batch["x0"],
+                batch["t"], batch["noise"], y=batch["y"])
+        loss = loss + MOE_AUX_WEIGHT * aux[0]
+        loss.backward()
+        return (loss.detach(), aux[0].detach(), choices,
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()})
+
+    reset_launches()
+    loss, aux, choices, grads = run()
+    torch.cuda.synchronize()
+    launched = read_launches()
+    with plain_kernels():
+        reset_launches()
+        loss_ref, aux_ref, _, grads_ref = run(choices)
+        torch.cuda.synchronize()
+        plain_launched = read_launches()
+    flat = torch.cat([g.flatten() for g in grads.values()])
+    flat_ref = torch.cat([g.flatten() for g in grads_ref.values()])
+    loss_rel, grad_rel = max_rel(loss, loss_ref), max_rel(flat, flat_ref)
+    print(f"{label} train step B={TRAIN_BATCH}, p {ATTN_DROPOUT}: loss "
+          f"{loss.item():.6f} (load balance {aux.item():.6f} x "
+          f"{MOE_AUX_WEIGHT}) kernels vs plain max_rel {loss_rel:.3e} (bar "
+          f"{tol[0]:g}), flattened gradient {grad_rel:.3e} (bar {tol[1]:g}); "
+          f"launches {launched}, inside plain_kernels {plain_launched}")
+    if launched != expect(**per_step) or any(plain_launched.values()):
+        raise AssertionError(f"{label} train-step launches {launched}")
+    no_grad = [n for n, g in grads.items() if not g.any()]
+    if not (loss_rel <= tol[0] and grad_rel <= tol[1] and not no_grad
+            and torch.isfinite(flat).all()
+            and max_rel(aux, aux_ref) <= tol[0]):
+        raise AssertionError(f"{label} loss {loss_rel}, gradient {grad_rel}, "
+                             f"zero gradients {no_grad}")
+
+
+def phase_serve_moe(ckpt, config, model, gen, smi):
+    """`serve --continuous` on the MoE DiT's checkpoint (16 slots, DDIM-50,
+    CFG 3): 16 images in one submit against `sample_with_cfg` at batch 16
+    on the same noise, one forward's launches a step."""
+    service = serve.SamplerService(
+        str(ckpt), sampling_method="ddim", num_inference_steps=STEPS,
+        batch_size=SERVE_SLOTS, continuous=True, steps_per_tick=1,
+        device="cuda")
+    try:
+        print(f"serve continuous DiT-MoE: warm-up {service.warmup():.3f} s")
+        noise = torch.randn((SERVE_SLOTS, 32, 32, 3), generator=gen,
+                            device="cuda")
+        labels = np.arange(SERVE_SLOTS) % 10 + 1
+        ticks = service.engine.ticks
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        out = service.engine.submit(noise, labels, cfg_scale=CFG_SCALE,
+                                    timeout=600)
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+        steps = service.engine.ticks - ticks
+    finally:
+        service.close()
+    ref, _ = serve_reference(model, config, noise, labels)
+    err = float(np.abs(out - ref.cpu().numpy()).max())
+    print(f"serve continuous DiT-MoE: {SERVE_SLOTS} images in one submit in "
+          f"{seconds:.3f} s ({SERVE_SLOTS / seconds:.2f} images/s), against "
+          f"sample_with_cfg at batch {SERVE_SLOTS}: max_abs {err:.3e} (bar "
+          f"{TOL_SERVE_SLOT:g}); launches {launches}; on {smi}")
+    if not (steps == STEPS and launches == scaled(DIT_FORWARD, STEPS)
+            and err <= TOL_SERVE_SLOT):
+        raise AssertionError(f"serve continuous DiT-MoE: {steps} steps, "
+                             f"launches {launches}, max_abs {err}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_moe(gen, smi):
+    """The MoE DiT (configs/cifar10_dit_moe.py at full width: hidden 384,
+    depth 12, 6 heads, 8 experts, top 2, capacity 1.25): forwards and a
+    train step against the plain versions in float32 and bf16, three
+    epochs of `train.main` at batch 128 in each with train images/s and
+    peak memory, DDIM-50 CFG 3 on 80 images through `sample.main` in each,
+    and a 16-image `serve --continuous` request."""
+    config = load_config(MOE_CONFIG)
+    model = random_model(config, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"DiT-MoE: {n_params} parameters")
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"DiT-MoE: {n_params} parameters, expected "
+                             f"{MOE_PARAMS}")
+    phase_choice_forward("DiT-MoE", model, DIT_FORWARD, gen, TOL_UNET)
+    model.train()
+    phase_moe_grads("DiT-MoE", model, config, DIT_STEP, gen,
+                    (TOL_LOSS, TOL_GRAD))
+    config16 = dict(config, mixed_precision="bf16")
+    model16 = factory.get_model(config16).to("cuda").eval()
+    model16.load_state_dict(model.state_dict())
+    phase_choice_forward("DiT-MoE bf16", model16, DIT_FORWARD_BF16, gen,
+                         TOL_BF16_MODEL)
+    model16.train()
+    phase_moe_grads("DiT-MoE bf16", model16, config16, DIT_STEP_BF16, gen,
+                    (TOL_BF16_LOSS, TOL_BF16_GRAD))
+    del model16
+    model.eval()
+    out = {"params": n_params, "seconds": {}, "launches": {}, "rates": {},
+           "peak": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for precision, per_forward, flags in (
+                ("fp32", DIT_FORWARD, ()),
+                ("bf16", DIT_FORWARD_BF16, ("--mixed_precision", "bf16"))):
+            launches, seconds = phase_sample_main(
+                f"DiT-MoE {precision}", config, model, per_forward, tmp,
+                flags=flags)
+            out["seconds"][precision] = seconds
+            out["launches"][f"sample_{precision}"] = launches
+        out["serve"] = phase_serve_moe(Path(tmp) / "dit_random.pth", config,
+                                       model, gen, smi)
+    del model
+    for precision, cfg, per_step in (("fp32", config, DIT_STEP),
+                                     ("bf16", config16, DIT_STEP_BF16)):
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, launches = run_train_main(
+                f"DiT-MoE {precision}", cfg, per_step, tmp, TRAIN_EPOCHS, 1)
+            rates, peak = time_train_rates(trainer, runs=1)
+            del trainer
+        out["launches"][f"train_{precision}"] = launches
+        out["rates"][precision], out["peak"][precision] = rates, peak
+        print(f"DiT-MoE {precision} train images/s at batch {TRAIN_BATCH}: "
+              f"{', '.join(f'{r:.2f}' for r in rates)}; peak device memory "
+              f"{peak / 2**20:.1f} MiB; on {smi}")
+    return out
+
+
+def check_attention_bias(label, bh, seq, d, dtype, gen, drop=(0.0, None),
+                         timed=False):
+    """K2 and K3 in their key-bias forms (float32 or bf16; with dropout
+    when `drop` has p > 0) against their plain versions on one input, the
+    bias log of merged sizes 1 .. 8 shared by each item's DIT_HEADS heads;
+    with `timed`, per call: each kernel, its plain version, and
+    `F.scaled_dot_product_attention` with the bias as an additive mask on
+    (1, BH, L, d) and its backward (never called by the port). Returns the
+    worst absolute error and the times."""
+    q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device="cuda").to(
+        dtype) for _ in range(4))
+    sizes = torch.randint(1, 9, (bh // DIT_HEADS, seq), generator=gen,
+                          device="cuda")
+    bias = torch.log(sizes.float())
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop, bias=bias)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop,
+                                                             bias=bias)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                bias=bias)
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop,
+                                                   bias=bias)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    label = (f"{label} BH={bh} L={seq} d={d} p={drop[0]} "
+             f"[{attention_fwd_form(seq, d, dtype)}; backward "
+             f"{attention_bwd_form(seq, d, None, dtype)}]")
+    lse_err = (lse - lse_ref).abs().max().item()
+    if bf16:
+        steps, err = bf16_check(label + " o", o, o_ref, BF16_STEPS_FWD,
+                                TOL_OUT)
+        checked = [bf16_check(f"{label} {n}", a, r, BF16_STEPS_BWD, TOL_BWD)
+                   for n, a, r in zip(("dq", "dk", "dv"), grads, refs)]
+        line = (f"{label}: o {steps} bf16 steps, lse max_abs {lse_err:.3e}; "
+                f"dq/dk/dv {' '.join(str(c[0]) for c in checked)} bf16 steps")
+        worst = max(err, lse_err, *(c[1] for c in checked))
+        ok = lse_err <= TOL_LSE
+    else:
+        rel = max_rel(o, o_ref)
+        rels = [max_rel(g, r) for g, r in zip(grads, refs)]
+        line = (f"{label}: o max_rel {rel:.3e} lse max_abs {lse_err:.3e}; "
+                f"dq/dk/dv max_rel {' '.join(f'{r:.3e}' for r in rels)}")
+        worst = max((o - o_ref).abs().max().item(), lse_err,
+                    *((g - r).abs().max().item() for g, r in zip(grads, refs)))
+        ok = rel <= TOL_OUT and lse_err <= TOL_LSE and max(rels) <= TOL_BWD
+    if not ok:
+        raise AssertionError(line)
+    times = {}
+    if timed:
+        args = (q, k, v, o, do, lse)
+        mask = bias.repeat_interleave(DIT_HEADS, dim=0)[None, :, None, :].to(
+            dtype)
+        times = {
+            "fwd": median_ms(lambda: flash_attention.flash_attention_fwd(
+                q, k, v, *drop, bias=bias)),
+            "fwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_fwd_ref(
+                    q, k, v, *drop, bias=bias), reps=10),
+            "fwd_library": median_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=mask)),
+            "bwd": median_ms(lambda: flash_attention.flash_attention_bwd(
+                *args, *drop, bias=bias)),
+            "bwd_plain": median_ms(
+                lambda: flash_attention.flash_attention_bwd_ref(
+                    *args, *drop, bias=bias), reps=10)}
+        qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*qkv, attn_mask=mask)
+        times["bwd_library"] = median_ms(
+            lambda: torch.autograd.grad(out, qkv, do[None],
+                                        retain_graph=True))
+        line += ("; ms a call: forward kernel {fwd:.4f} plain {fwd_plain:.4f} "
+                 "scaled_dot_product_attention(attn_mask) {fwd_library:.4f}; "
+                 "backward kernel {bwd:.4f} plain {bwd_plain:.4f} its "
+                 "backward {bwd_library:.4f}").format(**times)
+    print(line)
+    return worst, times
+
+
+def bias_bounds(bh, seq, d, dtype):
+    """The bound of the key-bias forms' forward and backward at one shape:
+    the attention's work (`attn_work`) and the bias read, at the float32
+    CUDA-core rate, or in bf16 at the tensor cores' rate."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    rate = (PEAK_BF16_TC_OPS_PER_S if dtype == torch.bfloat16
+            else PEAK_FP32_OPS_PER_S)
+    bias_bytes = 4 * (bh // DIT_HEADS) * seq
+    bounds = {}
+    for backward in (False, True):
+        n_bytes, n_ops = attn_work(bh, seq, d, backward, elem=elem)
+        bounds["bwd" if backward else "fwd"] = Bound(rate).add(
+            n_bytes + bias_bytes, n_ops)
+    return bounds
+
+
+def phase_bias_kernels(gen):
+    """The key-bias forms of K2 and K3, float32 and bf16, against their
+    plain versions at the sampling batch's BH 960 and ToMe's merged lengths
+    (128 at ratio 0.5, 179 at 0.3, a ragged last tile), d 64, timed beside
+    the library call; with dropout at the train step's BH 768. Returns the
+    worst error, the times and the bounds by (dtype, L)."""
+    worst, times, bounds = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        worst[name] = 0.0
+        for seq in TOME_LENGTHS:
+            err, t = check_attention_bias(
+                f"attention key bias {name}", TOME_BH, seq, DIT_HEAD_DIM,
+                dtype, gen, timed=True)
+            worst[name] = max(worst[name], err)
+            times[(name, seq)] = t
+            bounds[(name, seq)] = bias_bounds(TOME_BH, seq, DIT_HEAD_DIM,
+                                              dtype)
+            err, _ = check_attention_bias(
+                f"attention key bias {name}", TRAIN_BATCH * DIT_HEADS, seq,
+                DIT_HEAD_DIM, dtype, gen,
+                drop=(ATTN_DROPOUT, ATTN_DROPOUT_SEED))
+            worst[name] = max(worst[name], err)
+    return worst, times, bounds
+
+
+def phase_tome(gen, smi):
+    """Token merging on the DiT (configs/cifar10_dit.py at full width, the
+    same random weights as `phase_int8`'s): the key-bias kernels
+    (`phase_bias_kernels`); forwards at ratio 0.5 with and without
+    `tome_mlp` against the plain versions on the kernel run's plans, in
+    float32 and bf16; DDIM-50 CFG 3 on 80 images through `sample.main
+    --tome_ratio 0.5` with and without `--tome_mlp`, in float32 and bf16,
+    12 K2 in the key-bias form a forward; three epochs of `train.main` with
+    merging (the bias forms of K2 and K3 with dropout) in each. Returns the
+    model and what the summary and the `kernels` line read."""
+    worst, times, bounds = phase_bias_kernels(gen)
+    config = load_config(DIT_CONFIG)
+    model = random_model(config, gen)
+    out = {"worst": worst, "times": times, "bounds": bounds, "seconds": {},
+           "launches": {}}
+    for mlp in (False, True):
+        for precision, per_forward, tol in (
+                ("fp32", TOME_FORWARD, TOL_UNET),
+                ("bf16", TOME_FORWARD_BF16, TOL_BF16_MODEL)):
+            cfg = dict(config, mixed_precision=(
+                "bf16" if precision == "bf16" else "none"),
+                model_params=dict(config["model_params"],
+                                  tome_ratio=TOME_RATIO, tome_mlp=mlp))
+            merged = factory.get_model(cfg).to("cuda").eval()
+            merged.load_state_dict(model.state_dict())
+            phase_choice_forward(
+                f"DiT ToMe {TOME_RATIO}{' + MLP' if mlp else ''} {precision}",
+                merged, per_forward, gen, tol)
+            del merged
+    with tempfile.TemporaryDirectory() as tmp:
+        for mlp in (False, True):
+            for precision, per_forward, flags in (
+                    ("fp32", TOME_FORWARD, ()),
+                    ("bf16", TOME_FORWARD_BF16,
+                     ("--mixed_precision", "bf16"))):
+                key = f"{'mlp_' if mlp else ''}{precision}"
+                launches, seconds = phase_sample_main(
+                    f"DiT ToMe {TOME_RATIO}{' + MLP' if mlp else ''} "
+                    f"{precision}", config, model, per_forward, tmp,
+                    flags=(*flags, "--tome_ratio", str(TOME_RATIO),
+                           *(("--tome_mlp",) if mlp else ())))
+                out["seconds"][key] = seconds
+                out["launches"][f"sample_{key}"] = launches
+    for precision, per_step in (("fp32", TOME_STEP), ("bf16", TOME_STEP_BF16)):
+        cfg = dict(config, mixed_precision=(
+            "bf16" if precision == "bf16" else "none"),
+            model_params=dict(config["model_params"], tome_ratio=TOME_RATIO))
+        with tempfile.TemporaryDirectory() as tmp:
+            _, launches = run_train_main(f"DiT ToMe {TOME_RATIO} {precision}",
+                                         cfg, per_step, tmp, TRAIN_EPOCHS, 1)
+        out["launches"][f"train_{precision}"] = launches
+    return model, out
+
+
+def phase_int8(model, gen, smi):
+    """int8 (w8a8) inference on the DiT's random weights `model`: a forward
+    at the sampling batch with exactly 48 int8 products beside the float
+    one (the distance between them printed), then DDIM-50 CFG 3 on 80
+    images through `sample.main --quantize int8`, float32 and bf16, with
+    48 int8 products a forward."""
+    config = load_config(DIT_CONFIG)
+    q_model = factory.get_model(dict(config, model_params=dict(
+        config["model_params"], quant="int8"))).to("cuda").eval()
+    q_model.load_state_dict(model.state_dict())
+    x = torch.randn(2 * SAMPLES, 32, 32, 3, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (2 * SAMPLES,), generator=gen, device="cuda")
+    y = torch.randint(0, 11, (2 * SAMPLES,), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        got = q_model(x, t, y)
+        launched = read_launches()
+        ref = model(x, t, y)
+    torch.cuda.synchronize()
+    distance = max_rel(got, ref)
+    print(f"DiT int8 forward B={2 * SAMPLES}: max|int8 - float| / max|float| "
+          f"{distance:.3e}; launches {launched}")
+    if not (launched == expect(**INT8_FORWARD) and torch.isfinite(got).all()
+            and 0 < distance < 0.1):
+        raise AssertionError(f"DiT int8 forward: launches {launched}, "
+                             f"distance {distance}")
+    del q_model
+    out = {"distance": distance, "seconds": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for precision, per_forward, flags in (
+                ("fp32", INT8_FORWARD, ()),
+                ("bf16", INT8_FORWARD_BF16, ("--mixed_precision", "bf16"))):
+            launches, seconds = phase_sample_main(
+                f"DiT int8 {precision}", config, model, per_forward, tmp,
+                flags=(*flags, "--quantize", "int8"))
+            out["seconds"][precision] = seconds
+            out["launches"][precision] = launches
+    return out
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -3875,7 +4389,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         remat_launches, remat_rates, remat_peak = phase_train_main(
             "DiM remat", dict(dim_config, remat=True), DIM_REMAT_STEP,
-            DIM_FORWARD, samplers, tmp)
+            DIM_FORWARD, samplers, tmp, plain_runs=1)
 
     # the same DiM on 64x64 images, on the `synthetic` dataset (one epoch)
     for batch, step in ((DIM64_BATCH, DIM64_STEP),
@@ -3894,7 +4408,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         dim64_launches, dim64_rates, dim64_peak = phase_train_main(
             "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers, tmp,
-            epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH)
+            epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH,
+            plain_runs=1)
     with tempfile.TemporaryDirectory() as tmp:
         _, dim64_small_launches = run_train_main(
             "DiM 64x64 batch 8",
@@ -3914,6 +4429,16 @@ def main():
     super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
     print(f"phase_sr: {time.perf_counter() - start:.1f} s")
     keep.cleanup()
+    start = time.perf_counter()
+    moe = phase_moe(gen, smi)
+    print(f"phase_moe: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    dit_random, merged = phase_tome(gen, smi)
+    print(f"phase_tome: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    int8 = phase_int8(dit_random, gen, smi)
+    del dit_random
+    print(f"phase_int8: {time.perf_counter() - start:.1f} s")
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -4009,6 +4534,30 @@ def main():
     for key, t in super_res["times"].items():
         print(f"SR {key}: " + ", ".join(f"{k} {v:.4f} ms"
                                         for k, v in t.items()) + f"; on {smi}")
+    dit32, dit16 = dit["seconds"], bf16["models"]["DiT"]["seconds"]
+    for precision in ("fp32", "bf16"):
+        dense = dit32 if precision == "fp32" else dit16
+        sec = moe["seconds"][precision]
+        print(f"DiT-MoE ({moe['params']} parameters) {precision}: "
+              f"{SAMPLES / sec:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
+              f"(dense DiT {SAMPLES / dense:.2f}, {dense / sec:.3f}x); "
+              f"{statistics.median(moe['rates'][precision]):.2f} train "
+              f"images/s at batch {TRAIN_BATCH}, peak device memory "
+              f"{moe['peak'][precision] / 2**20:.1f} MiB; on {smi}")
+        for key, what in ((precision, "attention"),
+                          (f"mlp_{precision}", "attention + MLP")):
+            sec = merged["seconds"][key]
+            print(f"DiT ToMe {TOME_RATIO} ({what}) {precision}: "
+                  f"{SAMPLES / sec:.2f} samples/s DDIM-{STEPS} CFG "
+                  f"{CFG_SCALE} (unmerged DiT {SAMPLES / dense:.2f}, "
+                  f"{dense / sec:.3f}x); on {smi}")
+        sec = int8["seconds"][precision]
+        print(f"DiT int8 {precision}: {SAMPLES / sec:.2f} samples/s "
+              f"DDIM-{STEPS} CFG {CFG_SCALE} (float DiT "
+              f"{SAMPLES / dense:.2f}, {dense / sec:.3f}x); on {smi}")
+    print(f"serve --continuous DiT-MoE, {SERVE_SLOTS} images in one submit: "
+          f"{moe['serve']['seconds']:.3f} s; DiT int8 output's distance from "
+          f"the float DiT's {int8['distance']:.3e}; on {smi}")
     nets = evaluated["networks"]
     print(f"metric networks on the card against the CPU: max-rel "
           f"{nets['err']:.3e}; InceptionV3 {nets['rate']:.1f} images/s at "
@@ -4306,6 +4855,56 @@ def main():
          "dropout_cuda_core_bound_ms": ab["dit_dropout_bwd"][0].ms,
          "dropout_library_ms": at["dit_dropout"]["bwd_library"]},
     ]
+    # the key-bias forms (ToMe's proportional attention), ms a call at the
+    # sampling batch's BH 960 and L' 128 (ratio 0.5), with L' 179 beside
+    def bias_row(name, source, fwd, precision):
+        key = "fwd" if fwd else "bwd"
+        t = merged["times"][(precision, TOME_LENGTHS[0])]
+        t179 = merged["times"][(precision, TOME_LENGTHS[1])]
+        bound = merged["bounds"][(precision, TOME_LENGTHS[0])][key]
+        count = "attn_bias" if fwd else "attn_bwd_bias"
+        runs = {f"tome_{path}": run[count]
+                for path, run in merged["launches"].items()
+                if precision in path and run[count]}
+        return {
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": "diffusion_models_collection_tpu/ops/"
+                        + ("flash_attention.py:65" if fwd
+                           else "flash_attention.py:126"),
+            "launches": runs[f"tome_{'sample' if fwd else 'train'}_"
+                             f"{precision}"],
+            "launches_by_path": runs,
+            "max_abs_err": merged["worst"][precision],
+            "ms": t[key], "plain_ms": t[f"{key}_plain"], **bound.keys(),
+            "library_ms": t[f"{key}_library"],
+            "l179": {"ms": t179[key], "plain_ms": t179[f"{key}_plain"],
+                     "bound_ms": merged["bounds"][
+                         (precision, TOME_LENGTHS[1])][key].ms,
+                     "library_ms": t179[f"{key}_library"]}}
+    kernels += [bias_row("flash_attn_fwd_bias", "flash_attn.cu", True,
+                         "fp32"),
+                bias_row("flash_attn_bwd_bias", "flash_attn_bwd.cu", False,
+                         "fp32"),
+                bias_row("flash_attn_fwd_bias_bf16", "flash_attn.cu", True,
+                         "bf16"),
+                bias_row("flash_attn_bwd_bias_bf16", "flash_attn_bwd.cu",
+                         False, "bf16")]
+    # the MoE DiT's and the int8 DiT's K2 and K3 launches (their rows above
+    # time the forms at the dense DiT's shapes, which these paths share)
+    for row in kernels:
+        if row["name"] in ("flash_attn_fwd", "flash_attn_bwd",
+                           "flash_attn_fwd_bf16", "flash_attn_bwd_bf16"):
+            key = ("attn" if row["name"].startswith("flash_attn_fwd")
+                   else "attn_bwd")
+            bf16_row = row["name"].endswith("_bf16")
+            for path, run in moe["launches"].items():
+                if bf16_row == path.endswith("bf16"):
+                    row["launches_by_path"][f"moe_{path}"] = run[key]
+            if key == "attn":
+                for precision, run in int8["launches"].items():
+                    if bf16_row == (precision == "bf16"):
+                        row["launches_by_path"][
+                            f"int8_sample_{precision}"] = run[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

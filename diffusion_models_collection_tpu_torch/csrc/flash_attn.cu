@@ -49,6 +49,12 @@
 // those of the undropped P, so lse is unchanged, and only the values that
 // enter P V, where P is written to shared memory, are multiplied by keep / (1
 // - p), keep from `philox.cuh`: o = (P o Z) V.
+// A per-key additive bias (ToMe's proportional attention, key_bias.cuh; a
+// template flag, so the forms without it are unchanged): log2(e) bias[key]
+// joins each scaled score before the running max and sum, so lse includes it
+// and the backward's P = exp(S scale + bias - lse) is the forward's. Keys
+// past L are masked as before. These forms compile in flash_attn_bias.cu,
+// which includes this file with DMC_FLASH_BIAS_FORMS defined.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // from a CUDA graph): 0.29 ms a call at BH 640, L 256, d 64 against 0.36 for
 // the four-by-four form and a bound of 0.16 ms (operations).
@@ -103,6 +109,7 @@
 #include <cstdint>
 
 #include "bf16_mma.cuh"
+#include "key_bias.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -261,13 +268,13 @@ __device__ __forceinline__ void pv_product(
   }
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int L, int d, float scale_log2,
-                 DropoutParams dp) {
+                 DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -283,6 +290,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t head = (size_t)bh * L * d;
   const float* kh = k + head;
   const float* vh = v + head;
+  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
 
   request_rows<DMAX, BQ, C::NT>(Qs, q + head, q0, L, d, tid);
   request_rows<DMAX, BK, C::NT>(Ks, kh, 0, L, d, tid);
@@ -309,13 +317,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     float s[RA][KB];
     rows_dot<DMAX, BQ, BK, RA, KB>(Qs, Ks, ty, tx, s);
+    float kbias[KB] = {};  // this thread's keys' bias, base 2
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int b = 0; b < KB; ++b)
+        kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, L, kLog2e);
+    }
 #pragma unroll
     for (int a = 0; a < RA; ++a) {
       float mx = -INFINITY;
 #pragma unroll
       for (int b = 0; b < KB; ++b) {
         // key k0 (tx 0, b 0) is always real, so the row's max is finite
-        s[a][b] = k0 + tx + C::TX * b < L ? s[a][b] * scale_log2 : -INFINITY;
+        s[a][b] = k0 + tx + C::TX * b < L
+                      ? (BIAS ? fmaf(s[a][b], scale_log2, kbias[b])
+                              : s[a][b] * scale_log2)
+                      : -INFINITY;
         mx = fmaxf(mx, s[a][b]);
       }
 #pragma unroll
@@ -387,12 +404,12 @@ struct Bf16Cfg {
   static_assert(BK % 16 == 0 && DMAX % 16 == 0 && NB <= 8, "tile shape");
 };
 
-template <int DMAX, int NW, int BK, bool DROPOUT>
+template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(32 * NW)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, int L, int d, float scale_log2,
-                      DropoutParams dp) {
+                      DropoutParams dp, KeyBias kb) {
   using C = Bf16Cfg<DMAX, NW, BK>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
@@ -409,6 +426,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t head = (size_t)bh * L * d;
   const bf16* kh = k + head;
   const bf16* vh = v + head;
+  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
   const int off_a = lane_off_a(lane, C::S);
   const int off_b = lane_off_b(lane, C::S);
 
@@ -477,6 +495,16 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < C::NB; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    if constexpr (BIAS) {  // keys 8 j + 2 t and + 1 of both rows
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float b = key_bias_at(brow, k0 + 8 * j + 2 * t + c, L, kLog2e);
+          s[j][c] += b;
+          s[j][c + 2] += b;
+        }
+    }
     if (k0 + BK > L) {  // keys past L (only in the last tile) weigh nothing
 #pragma unroll
       for (int j = 0; j < C::NB; ++j)
@@ -574,70 +602,97 @@ int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
   return 0;
 }
 
-template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT>
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT, bool BIAS>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int bh, int L, int d, float scale,
-           const DropoutParams& dp, cudaStream_t stream) {
+           const DropoutParams& dp, const KeyBias& kb, cudaStream_t stream) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   static std::atomic<bool> opted_in[kMaxDevices];
-  const int rc = opt_in(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>,
+  const int rc = opt_in(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT, BIAS>,
                         opted_in, C::SMEM);
   if (rc != 0) return rc;
   const dim3 grid(bh, (L + BQ - 1) / BQ);
-  flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT>
+  flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT, BIAS>
       <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
-                                         scale * kLog2e, dp);
+                                         scale * kLog2e, dp, kb);
   return (int)cudaGetLastError();
 }
 
-template <bool DROPOUT>
+template <bool DROPOUT, bool BIAS>
 int launch_form(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int L, int d, float scale, int tile,
-                const DropoutParams& dp, cudaStream_t stream) {
-  auto f = &launch<128, 64, 64, 4, 4, DROPOUT>;
+                const DropoutParams& dp, const KeyBias& kb,
+                cudaStream_t stream) {
+  auto f = &launch<128, 64, 64, 4, 4, DROPOUT, BIAS>;
   if (tile == 32)
-    f = d <= 32 ? &launch<32, 32, 32, 4, 4, DROPOUT>
-                : &launch<64, 32, 32, 4, 4, DROPOUT>;
+    f = d <= 32 ? &launch<32, 32, 32, 4, 4, DROPOUT, BIAS>
+                : &launch<64, 32, 32, 4, 4, DROPOUT, BIAS>;
   else if (tile == 128)
-    f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT>
-                : &launch<64, 128, 64, 8, 8, DROPOUT>;
+    f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT, BIAS>
+                : &launch<64, 128, 64, 8, 8, DROPOUT, BIAS>;
   return f((const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
-           bh, L, d, scale, dp, stream);
+           bh, L, d, scale, dp, kb, stream);
 }
 
-template <int DMAX, int NW, int BK, bool DROPOUT>
+template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                 float* lse, int bh, int L, int d, float scale,
-                const DropoutParams& dp, cudaStream_t stream) {
+                const DropoutParams& dp, const KeyBias& kb,
+                cudaStream_t stream) {
   using C = Bf16Cfg<DMAX, NW, BK>;
   static std::atomic<bool> opted_in[kMaxDevices];
-  const int rc = opt_in(flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT>,
+  const int rc = opt_in(flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT, BIAS>,
                         opted_in, C::SMEM);
   if (rc != 0) return rc;
   const dim3 grid(bh, (L + C::BQ - 1) / C::BQ);
-  flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT>
+  flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT, BIAS>
       <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
-                                         scale * kLog2e, dp);
+                                         scale * kLog2e, dp, kb);
   return (int)cudaGetLastError();
 }
 
 // The bf16 forms by query tile: 16 rows (one warp, key tiles of 16) and 128
 // (eight warps) at d <= 64, 64 (four warps) at any d; key tiles of 64.
-template <bool DROPOUT>
+template <bool DROPOUT, bool BIAS>
 int launch_form_bf16(const void* q, const void* k, const void* v, void* o,
                      float* lse, int bh, int L, int d, float scale, int tile,
-                     const DropoutParams& dp, cudaStream_t stream) {
-  auto f = d <= 32   ? &launch_bf16<32, 4, 64, DROPOUT>
-           : d <= 64 ? &launch_bf16<64, 4, 64, DROPOUT>
-                     : &launch_bf16<128, 4, 64, DROPOUT>;
+                     const DropoutParams& dp, const KeyBias& kb,
+                     cudaStream_t stream) {
+  auto f = d <= 32   ? &launch_bf16<32, 4, 64, DROPOUT, BIAS>
+           : d <= 64 ? &launch_bf16<64, 4, 64, DROPOUT, BIAS>
+                     : &launch_bf16<128, 4, 64, DROPOUT, BIAS>;
   if (tile == 16)
-    f = d <= 32 ? &launch_bf16<32, 1, 16, DROPOUT>
-                : &launch_bf16<64, 1, 16, DROPOUT>;
+    f = d <= 32 ? &launch_bf16<32, 1, 16, DROPOUT, BIAS>
+                : &launch_bf16<64, 1, 16, DROPOUT, BIAS>;
   else if (tile == 128)
-    f = d <= 32 ? &launch_bf16<32, 8, 64, DROPOUT>
-                : &launch_bf16<64, 8, 64, DROPOUT>;
+    f = d <= 32 ? &launch_bf16<32, 8, 64, DROPOUT, BIAS>
+                : &launch_bf16<64, 8, 64, DROPOUT, BIAS>;
   return f((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh,
-           L, d, scale, dp, stream);
+           L, d, scale, dp, kb, stream);
+}
+
+// The checks and the choice of form of both entries; BIAS picks the set of
+// forms that this translation unit compiles.
+template <bool BIAS>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            int bh, int L, int d, float scale, int tile, int dropout,
+            unsigned threshold, float keep_scale, unsigned long long seed,
+            int bf16_form, const KeyBias& kb, void* stream) {
+  const bool ok =
+      bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
+                      (tile == 64 || (d <= 64 && (tile == 16 || tile == 128)))
+                : d >= 8 && d % 8 == 0 && d <= 128 &&
+                      (d <= 64 ? tile == 32 || tile == 128 : tile == 64);
+  if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
+    return (int)cudaErrorInvalidValue;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32)};
+  auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
+                                : &launch_form_bf16<false, BIAS>)
+                     : (dropout ? &launch_form<true, BIAS>
+                                : &launch_form<false, BIAS>);
+  return f(q, k, v, o, (float*)lse, bh, L, d, scale, tile, dp, kb,
+           (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -649,27 +704,33 @@ int launch_form_bf16(const void* q, const void* k, const void* v, void* o,
 // takes the dropout form: a key is kept iff its Philox word (philox.cuh, from
 // `seed`) is below `threshold`, and a kept probability is multiplied by
 // `keep_scale`. Returns the CUDA error of the launch.
+#ifndef DMC_FLASH_BIAS_FORMS
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int bh, int L, int d, float scale,
                               int tile, int dropout, unsigned threshold,
                               float keep_scale, unsigned long long seed,
                               int bf16_form, void* stream) {
-  const bool ok =
-      bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
-                      (tile == 64 || (d <= 64 && (tile == 16 || tile == 128)))
-                : d >= 8 && d % 8 == 0 && d <= 128 &&
-                      (d <= 64 ? tile == 32 || tile == 128 : tile == 64);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
-                         (uint32_t)(seed >> 32)};
-  auto f = bf16_form ? (dropout ? &launch_form_bf16<true>
-                                : &launch_form_bf16<false>)
-                     : (dropout ? &launch_form<true> : &launch_form<false>);
-  return f(q, k, v, o, (float*)lse, bh, L, d, scale, tile, dp,
-           (cudaStream_t)stream);
+  return forward<false>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
+                        threshold, keep_scale, seed, bf16_form,
+                        KeyBias{nullptr, 1}, stream);
 }
 
 // Message of a CUDA error code returned by the entries above.
 extern "C" const char* dmc_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#else
+// flash_attn_fwd with a per-key bias (key_bias.cuh): float32 (bh / heads, L),
+// added to every scaled score of head bh's row bh / heads before the softmax;
+// lse includes it. `heads` divides bh.
+extern "C" int flash_attn_fwd_bias(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, int bh, int L, int d,
+                                   float scale, int tile, int dropout,
+                                   unsigned threshold, float keep_scale,
+                                   unsigned long long seed, int bf16_form,
+                                   const void* bias, int heads, void* stream) {
+  return forward<true>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
+                       threshold, keep_scale, seed, bf16_form,
+                       KeyBias{(const float*)bias, heads}, stream);
+}
+#endif

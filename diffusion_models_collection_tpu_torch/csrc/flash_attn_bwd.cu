@@ -54,6 +54,12 @@
 //   dV = (P o Z)^T dO,  dP = (dO V^T) o Z,  dS = P o (dP - delta) * scale,
 // and delta = rowsum(dO o O) stays right, since rowsum(P o dP) = rowsum(dO o
 // O) when O = (P o Z) V. Both forms take it.
+// A per-key additive bias (ToMe's proportional attention, key_bias.cuh; a
+// template flag, so the forms without it are unchanged): P = exp(S scale +
+// bias[key] - lse) with the forward's lse, which includes the bias; dS keeps
+// its formula and the bias gets no gradient (it is the log of a count).
+// These forms compile in flash_attn_bwd_bias.cu, which includes this file
+// with DMC_FLASH_BIAS_FORMS defined.
 // Float32 form read by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.85 ms
 // a call at BH 512, L 256, d 64 (fused; 1.02 ms with the two-kernel form
 // forced), 4.9 ms for the 11 calls of a UNet train step against a bound of
@@ -115,6 +121,7 @@
 #include <cstdint>
 
 #include "bf16_mma.cuh"
+#include "key_bias.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -308,17 +315,24 @@ __device__ __forceinline__ void rows_dot(const float* As, const float* Bs, int t
 // S = Q K^T and dP = dO V^T of the current tiles (query rows from q0, keys
 // from k0 of head bh), then P (stored when Ps is given; P o Z with DROPOUT)
 // and dS into their (BT, BT + 4) tiles: rows ty + TX a, keys tx + TX b
-template <int DMAX, int BT, bool DROPOUT>
+template <int DMAX, int BT, bool DROPOUT, bool BIAS>
 __device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
                                            const float* Ks, const float* Vs,
                                            const float* lse_s, const float* dl_s,
                                            float* Ps, float* dSs, int ty, int tx,
                                            float scale, const DropoutParams& dp,
-                                           int bh, int q0, int k0) {
+                                           const float* brow, int L, int bh,
+                                           int q0, int k0) {
   using C = Cfg<DMAX, BT>;
   float s[4][4], dpv[4][4];
   rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
   rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dpv);
+  float kbias[4] = {};  // the keys' bias (0 past L, where K = V = 0)
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, L, 1.f);
+  }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = ty + C::TX * a;
@@ -330,7 +344,8 @@ __device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int col = tx + C::TX * b;
-      const float p = expf(s[a][b] * scale - lr);
+      const float p = expf(BIAS ? fmaf(s[a][b], scale, kbias[b]) - lr
+                                : s[a][b] * scale - lr);
       float z = 1.f;
       if constexpr (DROPOUT) z = (keep >> b) & 1u ? dp.keep_scale : 0.f;
       if (Ps != nullptr) Ps[r * C::SP + col] = DROPOUT ? p * z : p;
@@ -392,7 +407,7 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 // tile's share of every dQ_i, into dq_out (the head's rows at
 // (bh * gridDim.y + tile) * L * d: the shares, or dq itself when there is one
 // key tile).
-template <int DMAX, int BT, bool WITH_DQ, bool DROPOUT>
+template <int DMAX, int BT, bool WITH_DQ, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -400,7 +415,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dq_out, float* __restrict__ dk,
                       float* __restrict__ dv, int L, int d, float scale,
-                      DropoutParams dp) {
+                      DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -419,6 +434,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
   const size_t base = (size_t)bh * L;
+  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
 
   request_tile<DMAX, BT>(Ks, k + head, k0, L, d, tid);
   request_tile<DMAX, BT>(Vs, v + head, k0, L, d, tid);
@@ -443,8 +459,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // the tiles and row stats are in; dSs is read
 
-    probs_tile<DMAX, BT, DROPOUT>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs, ty, tx,
-                                  scale, dp, bh, q0, k0);
+    probs_tile<DMAX, BT, DROPOUT, BIAS>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs,
+                                        ty, tx, scale, dp, brow, L, bh, q0, k0);
     __syncthreads();
 
     // dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :]
@@ -503,14 +519,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The two-kernel form's dQ: one block per (head, query tile) walks the key
 // tiles, recomputes dS and keeps dQ_i in registers.
-template <int DMAX, int BT, bool DROPOUT>
+template <int DMAX, int BT, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
                                   (DMAX <= 64 && BT == 64) ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, int L, int d, float scale,
-                    DropoutParams dp) {
+                    DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Kbuf = smem;  // two K tiles
@@ -527,6 +543,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
   const size_t head = (size_t)bh * L * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
 
   request_tile<DMAX, BT>(Qs, q + head, q0, L, d, tid);
   request_tile<DMAX, BT>(dOs, dout + head, q0, L, d, tid);
@@ -547,8 +564,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();  // the tiles are in; dSs and the other K tile are read
 
-    probs_tile<DMAX, BT, DROPOUT>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr, dSs, ty,
-                                  tx, scale, dp, bh, q0, k0);
+    probs_tile<DMAX, BT, DROPOUT, BIAS>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr,
+                                        dSs, ty, tx, scale, dp, brow, L, bh,
+                                        q0, k0);
     __syncthreads();  // Vs is read
 
     if (k0 + BT < L) {  // the next tiles fly during the dQ product
@@ -666,7 +684,8 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst,
 // At BT 64, d <= 64 three blocks share an SM (at most 170 registers; 74.75 KB
 // of shared memory each): the dropout form needs 183 unbounded, and two
 // blocks an SM leave it waiting on its own instructions.
-template <typename DQ, int DMAX, int BT, int BQ, bool WITH_DQ, bool DROPOUT>
+template <typename DQ, int DMAX, int BT, int BQ, bool WITH_DQ, bool DROPOUT,
+          bool BIAS>
 __global__ void __launch_bounds__(2 * BT, BT == 64 && DMAX <= 64 ? 3 : 1)
 flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -675,7 +694,7 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const float* __restrict__ delta,
                          DQ* __restrict__ dq_out, bf16* __restrict__ dk,
                          bf16* __restrict__ dv, int L, int d, float scale,
-                         DropoutParams dp) {
+                         DropoutParams dp, KeyBias kb) {
   using C = Bf16Cfg<DMAX, BT, BQ>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_bf16);
@@ -695,6 +714,13 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool live = k0 + kw < L;
   // P = 2^(S scale log2(e) - lse log2(e)), one ex2.approx an entry
   const float scale_log2 = scale * kLog2e;
+  // the bias of the lane's two keys, base 2: the same for every query tile
+  float kbias[2] = {};
+  if constexpr (BIAS) {
+    const float* brow = key_bias_row(kb, bh, L);
+    kbias[0] = key_bias_at(brow, k0 + kw + g, L, kLog2e);
+    kbias[1] = key_bias_at(brow, k0 + kw + g + 8, L, kLog2e);
+  }
   const int steps = d >> 4;
   const size_t head = (size_t)bh * L * d;
   const size_t base = (size_t)bh * L;
@@ -782,8 +808,9 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float2 dq2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = ex2_approx(
-              fmaf(st[j][e], scale_log2, -((e & 1) ? lq.y : lq.x)));
+          const float lqe = (e & 1) ? lq.y : lq.x;
+          const float p = ex2_approx(fmaf(
+              st[j][e], scale_log2, BIAS ? kbias[e >> 1] - lqe : -lqe));
           float z = 1.f;
           if constexpr (DROPOUT)
             z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
@@ -878,14 +905,15 @@ struct Bf16DqCfg {
   static_assert(BK % 16 == 0 && NB <= 8, "tile shape");
 };
 
-template <int DMAX, int NW, int BK, bool DROPOUT>
+template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(32 * NW)
 flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dq,
-                         int L, int d, float scale, DropoutParams dp) {
+                         int L, int d, float scale, DropoutParams dp,
+                         KeyBias kb) {
   using C = Bf16DqCfg<DMAX, NW, BK>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
@@ -902,6 +930,8 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t head = (size_t)bh * L * d;
   const bf16* kh = k + head;
   const bf16* vh = v + head;
+  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const int t = lane & 3;  // the lane's keys in an n8 tile: 2 t, 2 t + 1
   const int off_a = lane_off_a(lane, C::S);
   const int off_b = lane_off_b(lane, C::S);
 
@@ -974,16 +1004,25 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int j = 0; j < C::NB; ++j)
+    for (int j = 0; j < C::NB; ++j) {
+      // the bias of keys 8 j + 2 t and + 1, base 2
+      float kbias[2] = {};
+      if constexpr (BIAS) {
+        kbias[0] = key_bias_at(brow, k0 + 8 * j + 2 * t, L, kLog2e);
+        kbias[1] = key_bias_at(brow, k0 + 8 * j + 2 * t + 1, L, kLog2e);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // a key past L has K = V = 0: its dS meets a zero K row below
-        const float p = ex2_approx(fmaf(s[j][e], scale_log2, -lr[e >> 1]));
+        const float p = ex2_approx(fmaf(
+            s[j][e], scale_log2,
+            BIAS ? kbias[e & 1] - lr[e >> 1] : -lr[e >> 1]));
         float z = 1.f;
         if constexpr (DROPOUT)
           z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
         s[j][e] = p * ((DROPOUT ? dp_[j][e] * z : dp_[j][e]) - dl[e >> 1]);
       }
+    }
 #pragma unroll
     for (int c = 0; c < C::NB / 2; ++c) {
       if (k0 + 16 * c >= L) break;
@@ -1003,11 +1042,12 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (row0 < L) store_acc(dq + head, acc, scale, row0, 0, L, d, lane);
 }
 
-template <int DMAX, int BT, bool DROPOUT>
+template <int DMAX, int BT, bool DROPOUT, bool BIAS>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* partial,
            float* dq, float* dk, float* dv, int bh, int L, int d, float scale,
-           int fused, const DropoutParams& dp, cudaStream_t stream) {
+           int fused, const DropoutParams& dp, const KeyBias& kb,
+           cudaStream_t stream) {
   using C = Cfg<DMAX, BT>;
   static std::atomic<bool> opted_fused[kMaxDevices], opted_dkdv[kMaxDevices],
       opted_dq[kMaxDevices];
@@ -1024,13 +1064,13 @@ int launch(const float* q, const float* k, const float* v, const float* o,
 
   const dim3 grid(bh, tiles);
   if (fused) {  // dq itself with one key tile, else shares summed into dq
-    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>,
+    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>,
                     opted_fused, C::SMEM_DKDV);
     if (rc != 0) return rc;
-    flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT>
+    flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>
         <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
             q, k, v, dout, lse, delta, tiles == 1 ? dq : partial, dk, dv, L, d,
-            scale, dp);
+            scale, dp, kb);
     err = cudaGetLastError();
     if (err != cudaSuccess || tiles == 1) return (int)err;
     const size_t head4 = (size_t)L * d / 4;
@@ -1040,49 +1080,51 @@ int launch(const float* q, const float* k, const float* v, const float* o,
             (const float4*)partial, dq, head4, tiles, total4);
     return (int)cudaGetLastError();
   }
-  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>, opted_dkdv,
+  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT, BIAS>, opted_dkdv,
                   C::SMEM_DKDV);
   if (rc != 0) return rc;
-  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT, DROPOUT>, opted_dq, C::SMEM_DQ);
+  rc = opt_in(flash_bwd_dq_kernel<DMAX, BT, DROPOUT, BIAS>, opted_dq, C::SMEM_DQ);
   if (rc != 0) return rc;
-  flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT>
+  flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT, BIAS>
       <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-          q, k, v, dout, lse, delta, nullptr, dk, dv, L, d, scale, dp);
+          q, k, v, dout, lse, delta, nullptr, dk, dv, L, d, scale, dp, kb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DMAX, BT, DROPOUT><<<grid, C::NT, C::SMEM_DQ, stream>>>(
-      q, k, v, dout, lse, delta, dq, L, d, scale, dp);
+  flash_bwd_dq_kernel<DMAX, BT, DROPOUT, BIAS><<<grid, C::NT, C::SMEM_DQ, stream>>>(
+      q, k, v, dout, lse, delta, dq, L, d, scale, dp, kb);
   return (int)cudaGetLastError();
 }
 
-template <bool DROPOUT>
+template <bool DROPOUT, bool BIAS>
 int launch_form(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* delta,
                 float* partial, void* dq, void* dk, void* dv, int bh, int L,
                 int d, float scale, int tile, int fused,
-                const DropoutParams& dp, cudaStream_t stream) {
-  auto f = &launch<128, 64, DROPOUT>;
+                const DropoutParams& dp, const KeyBias& kb,
+                cudaStream_t stream) {
+  auto f = &launch<128, 64, DROPOUT, BIAS>;
   if (tile == 32)
-    f = d <= 32 ? &launch<32, 32, DROPOUT> : &launch<64, 32, DROPOUT>;
+    f = d <= 32 ? &launch<32, 32, DROPOUT, BIAS>
+                : &launch<64, 32, DROPOUT, BIAS>;
   else if (d <= 32)
-    f = &launch<32, 64, DROPOUT>;
+    f = &launch<32, 64, DROPOUT, BIAS>;
   else if (d <= 64)
-    f = &launch<64, 64, DROPOUT>;
+    f = &launch<64, 64, DROPOUT, BIAS>;
   return f((const float*)q, (const float*)k, (const float*)v, (const float*)o,
            (const float*)dout, lse, delta, partial, (float*)dq, (float*)dk,
-           (float*)dv, bh, L, d, scale, fused, dp, stream);
+           (float*)dv, bh, L, d, scale, fused, dp, kb, stream);
 }
 
 // The bf16 forms: key tiles of BT keys walking query tiles of BQ; the
 // two-kernel form's dQ in blocks of four warps (64 query rows) walking key
 // tiles of 64 keys (32 at DMAX 128, where dQ's accumulators are twice as
 // many).
-template <int DMAX, int BT, int BQ, bool DROPOUT>
+template <int DMAX, int BT, int BQ, bool DROPOUT, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                 const bf16* dout, const float* lse, float* delta,
                 float* partial, bf16* dq, bf16* dk, bf16* dv, int bh, int L,
                 int d, float scale, int fused, const DropoutParams& dp,
-                cudaStream_t stream) {
+                const KeyBias& kb, cudaStream_t stream) {
   using C = Bf16Cfg<DMAX, BT, BQ>;
   constexpr int kDqWarps = 4, kDqKeys = DMAX > 64 ? 32 : 64;
   using CQ = Bf16DqCfg<DMAX, kDqWarps, kDqKeys>;
@@ -1101,19 +1143,21 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 
   const dim3 grid(bh, tiles);
   if (fused && tiles == 1) {  // dq itself
-    auto kernel = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, true, DROPOUT>;
+    auto kernel = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, true, DROPOUT, BIAS>;
     const int rc = opt_in(kernel, opted_one, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta, dq,
-                                             dk, dv, L, d, scale, dp);
+                                             dk, dv, L, d, scale, dp, kb);
     return (int)cudaGetLastError();
   }
   if (fused) {  // float32 shares, summed into dq in tile order
-    auto kernel = flash_bwd_bf16_kv_kernel<float, DMAX, BT, BQ, true, DROPOUT>;
+    auto kernel = flash_bwd_bf16_kv_kernel<float, DMAX, BT, BQ, true, DROPOUT,
+                                           BIAS>;
     const int rc = opt_in(kernel, opted_fused, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta,
-                                             partial, dk, dv, L, d, scale, dp);
+                                             partial, dk, dv, L, d, scale, dp,
+                                             kb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t head4 = (size_t)L * d / 4;
@@ -1123,39 +1167,68 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
             (const float4*)partial, dq, head4, tiles, total4);
     return (int)cudaGetLastError();
   }
-  auto kv = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, false, DROPOUT>;
-  auto dq_kernel = flash_bwd_bf16_dq_kernel<DMAX, kDqWarps, kDqKeys, DROPOUT>;
+  auto kv = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, false, DROPOUT, BIAS>;
+  auto dq_kernel = flash_bwd_bf16_dq_kernel<DMAX, kDqWarps, kDqKeys, DROPOUT,
+                                            BIAS>;
   int rc = opt_in(kv, opted_kv, C::SMEM);
   if (rc != 0) return rc;
   rc = opt_in(dq_kernel, opted_dq, CQ::SMEM);
   if (rc != 0) return rc;
   kv<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta,
-                                       (bf16*)nullptr, dk, dv, L, d, scale, dp);
+                                       (bf16*)nullptr, dk, dv, L, d, scale, dp,
+                                       kb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dq_kernel<<<dim3(bh, (L + CQ::BQ - 1) / CQ::BQ), CQ::NT, CQ::SMEM, stream>>>(
-      q, k, v, dout, lse, delta, dq, L, d, scale, dp);
+      q, k, v, dout, lse, delta, dq, L, d, scale, dp, kb);
   return (int)cudaGetLastError();
 }
 
 // The bf16 forms by tile: 16 keys and queries (one warp, d <= 64) or 64 keys
 // walking 64 queries (32 at d > 64, where dK and dV take twice the
 // registers).
-template <bool DROPOUT>
+template <bool DROPOUT, bool BIAS>
 int launch_form_bf16(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
                      float* delta, float* partial, void* dq, void* dk,
                      void* dv, int bh, int L, int d, float scale, int tile,
-                     int fused, const DropoutParams& dp, cudaStream_t stream) {
-  auto f = d <= 32   ? &launch_bf16<32, 64, 64, DROPOUT>
-           : d <= 64 ? &launch_bf16<64, 64, 64, DROPOUT>
-                     : &launch_bf16<128, 64, 32, DROPOUT>;
+                     int fused, const DropoutParams& dp, const KeyBias& kb,
+                     cudaStream_t stream) {
+  auto f = d <= 32   ? &launch_bf16<32, 64, 64, DROPOUT, BIAS>
+           : d <= 64 ? &launch_bf16<64, 64, 64, DROPOUT, BIAS>
+                     : &launch_bf16<128, 64, 32, DROPOUT, BIAS>;
   if (tile == 16)
-    f = d <= 32 ? &launch_bf16<32, 16, 16, DROPOUT>
-                : &launch_bf16<64, 16, 16, DROPOUT>;
+    f = d <= 32 ? &launch_bf16<32, 16, 16, DROPOUT, BIAS>
+                : &launch_bf16<64, 16, 16, DROPOUT, BIAS>;
   return f((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
            (const bf16*)dout, lse, delta, partial, (bf16*)dq, (bf16*)dk,
-           (bf16*)dv, bh, L, d, scale, fused, dp, stream);
+           (bf16*)dv, bh, L, d, scale, fused, dp, kb, stream);
+}
+
+// The checks and the choice of form of both entries; BIAS picks the set of
+// forms that this translation unit compiles.
+template <bool BIAS>
+int backward(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* delta, void* partial,
+             void* dq, void* dk, void* dv, int bh, int L, int d, float scale,
+             int tile, int fused, int dropout, unsigned threshold,
+             float keep_scale, unsigned long long seed, int bf16_form,
+             const KeyBias& kb, void* stream) {
+  const bool ok = bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
+                                  (tile == 64 || (tile == 16 && d <= 64))
+                            : d >= 8 && d % 8 == 0 && d <= 128 &&
+                                  (tile == 64 || (tile == 32 && d <= 64));
+  if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
+    return (int)cudaErrorInvalidValue;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32)};
+  auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
+                                : &launch_form_bf16<false, BIAS>)
+                     : (dropout ? &launch_form<true, BIAS>
+                                : &launch_form<false, BIAS>);
+  return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
+           (float*)partial, dq, dk, dv, bh, L, d, scale, tile, fused, dp, kb,
+           (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -1169,6 +1242,7 @@ int launch_form_bf16(const void* q, const void* k, const void* v,
 // `fused` == 0 the two-kernel form (`partial` unused). `dropout` != 0 takes the dropout
 // form with the forward's `threshold`, `keep_scale` and `seed`
 // (flash_attn.cu). Returns the CUDA error of the launches.
+#ifndef DMC_FLASH_BIAS_FORMS
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
                               void* delta, void* partial, void* dq, void* dk,
@@ -1177,17 +1251,28 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               unsigned threshold, float keep_scale,
                               unsigned long long seed, int bf16_form,
                               void* stream) {
-  const bool ok = bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
-                                  (tile == 64 || (tile == 16 && d <= 64))
-                            : d >= 8 && d % 8 == 0 && d <= 128 &&
-                                  (tile == 64 || (tile == 32 && d <= 64));
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
-                         (uint32_t)(seed >> 32)};
-  auto f = bf16_form ? (dropout ? &launch_form_bf16<true>
-                                : &launch_form_bf16<false>)
-                     : (dropout ? &launch_form<true> : &launch_form<false>);
-  return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
-           (float*)partial, dq, dk, dv, bh, L, d, scale, tile, fused, dp,
-           (cudaStream_t)stream);
+  return backward<false>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
+                         L, d, scale, tile, fused, dropout, threshold,
+                         keep_scale, seed, bf16_form, KeyBias{nullptr, 1},
+                         stream);
 }
+#else
+// flash_attn_bwd with the forward's per-key bias (key_bias.cuh): float32
+// (bh / heads, L), row bh / heads for head bh; `heads` divides bh. lse is the
+// forward's, which includes the bias.
+extern "C" int flash_attn_bwd_bias(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const void* lse,
+                                   void* delta, void* partial, void* dq,
+                                   void* dk, void* dv, int bh, int L, int d,
+                                   float scale, int tile, int fused,
+                                   int dropout, unsigned threshold,
+                                   float keep_scale, unsigned long long seed,
+                                   int bf16_form, const void* bias, int heads,
+                                   void* stream) {
+  return backward<true>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
+                        L, d, scale, tile, fused, dropout, threshold,
+                        keep_scale, seed, bf16_form,
+                        KeyBias{(const float*)bias, heads}, stream);
+}
+#endif

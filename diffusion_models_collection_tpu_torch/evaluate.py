@@ -30,9 +30,11 @@ only when asked for with `--device cpu`. Everything runs on that one
 device: the JAX package's data-parallel generation and feature extraction
 over a device mesh is not ported (ROADMAP queue 1 item 15). A
 latent-diffusion checkpoint generates the latents of the VAE its config names
-and decodes them before the metric networks see them. Not ported, each
-raising `NotImplementedError` with its ROADMAP item: `--tome_ratio` and
-`--quantize` on a DiT (item 11), consistency checkpoints (item 12).
+and decodes them before the metric networks see them. `--tome_ratio`
+(with `--tome_mlp`) and `--quantize int8` generate through the DiT's token
+merging and int8 products, to measure their quality cost. Not ported,
+raising `NotImplementedError` with its ROADMAP item: consistency
+checkpoints (item 12).
 """
 
 from __future__ import annotations
@@ -101,12 +103,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Guide only inside this 'lo,hi' timestep "
                              "interval; overrides the config key")
     parser.add_argument("--tome_ratio", type=float, default=0.0,
-                        help="Token Merging (DiT only; not ported yet)")
+                        help="Token Merging (DiT only): merge this "
+                             "fraction of patch tokens per block during "
+                             "generation — measures ToMe's quality cost")
     parser.add_argument("--tome_mlp", action="store_true",
                         help="extend --tome_ratio merging to block MLPs")
     parser.add_argument("--quantize", type=str, default=None,
                         choices=["int8"],
-                        help="w8a8 int8 inference (DiT only; not ported yet)")
+                        help="w8a8 int8 inference (DiT only) — measures "
+                             "the quantization quality cost")
     parser.add_argument("--pag_scale", type=float, default=0.0,
                         help="Perturbed Attention Guidance strength (UNet/"
                              "DiT, eps-VP checkpoints) during generation; "
@@ -145,7 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
 def apply_overrides(args, config: dict) -> None:
     """--mixed_precision, --tome_ratio, --freeu, --quantize,
     --guidance_rescale and --cfg_interval into `config`, with the root
-    CLI's rules and messages (ToMe and int8 then raise in the DiT)."""
+    CLI's rules and messages (ToMe and int8 become the DiT's `tome_ratio`,
+    `tome_mlp` and `quant` fields)."""
     model_type = str(config.get("model_type", "")).lower()
     if args.mixed_precision is not None:
         config["mixed_precision"] = args.mixed_precision

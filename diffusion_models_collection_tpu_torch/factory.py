@@ -18,10 +18,11 @@ The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it).
 `model_params` reach the model as they are, the training-free fields among
 them (the UNet's `pag_perturb`, `freeu`, `deepcache_mode`,
-`deepcache_depth`; the DiT's `pag_perturb`). Consistency sampling
-raises, naming the ROADMAP item that ports it, as do the DiT's
-`num_experts`, `tome_ratio` and `quant` (in the model); an unknown model
-type raises as in the JAX factory.
+`deepcache_depth`; the DiT's `pag_perturb`, `tome_ratio`, `tome_mlp`,
+`quant`) and the DiT's Mixture-of-Experts keys (`num_experts`,
+`moe_top_k`, `moe_capacity_factor`), so every config of `configs/` builds.
+Consistency sampling raises, naming the ROADMAP item that ports it; an
+unknown model type raises as in the JAX factory.
 """
 
 from __future__ import annotations

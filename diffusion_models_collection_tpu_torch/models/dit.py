@@ -25,9 +25,29 @@ v (the kernels' bf16 form), eps float32.
 `pag_perturb` (a constructor field, and a call-time argument of `forward`
 so one module serves both views) makes every attention map the identity:
 each block's attention output is its v, through the out projection
-(Perturbed Attention Guidance, `diffusion/pag.py`). Not ported, and raising
-when asked for: MoE MLPs (`num_experts`), token merging (`tome_ratio`) and
-`quant` (ROADMAP queue 1 item 11).
+(Perturbed Attention Guidance, `diffusion/pag.py`).
+
+The JAX DiT's three extensions:
+
+* `num_experts` > 0 makes every block's MLP a routed Mixture-of-Experts bank
+  (`models/moe.py`, top `moe_top_k` of `num_experts`, capacity factor
+  `moe_capacity_factor`); a forward given a list in `moe_losses` appends to
+  it the mean over blocks of their load-balance losses (the JAX model sows
+  them into its 'losses' collection), which the trainer weighs by
+  `moe_aux_weight`. Each block returns its loss beside its output, so a
+  block under gradient checkpointing gives the same loss and gradient, and
+  the model keeps no tensor of a call.
+* `tome_ratio` > 0 merges that fraction of the patch tokens before every
+  block's attention and unmerges after (`ops/tome.py`, one plan a block from
+  the modulated tokens; proportional attention through the kernels' key-bias
+  forms); with `tome_mlp`, again around the MLP with a fresh plan. Under PAG
+  the identity attention is not merged. Meant for inference: merging in
+  training changes the objective.
+* `quant='int8'` runs the four products of every block (the qkv and out
+  projections, the dense MLP's two) through the int8 product of
+  `ops/quant.py`, each weight quantized once and cached; the MoE MLP, adaLN
+  and the final layer stay in float. Inference only: the forward raises in
+  training mode, with the JAX message.
 """
 
 from __future__ import annotations
@@ -37,7 +57,9 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..ops import tome as tome_ops
 from ..ops.attention import multihead_attention
+from ..ops.quant import Int8Weights, check_quant, int8_linear
 from .layers import (
     AdaLNModulation,
     CastLayerNorm,
@@ -51,6 +73,23 @@ from .layers import (
     cast_linear,
     xavier_linear_,
 )
+from .moe import MoeMlp
+
+
+class QuantLinear(CastLinear):
+    """`CastLinear` that runs through the int8 product when `quant` is
+    'int8' (the JAX `dense_layer` switch); same parameters and names."""
+
+    def __init__(self, *args, quant: Optional[str] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.quant = quant
+        self.int8 = Int8Weights()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is None:
+            return super().forward(x)
+        return int8_linear(x, self.weight, self.bias, self.compute_dtype,
+                           self.int8)
 
 
 class Mlp(nn.Sequential):
@@ -59,14 +98,15 @@ class Mlp(nn.Sequential):
     `dtype`."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None,
+                 quant: Optional[str] = None):
         super().__init__(
-            xavier_linear_(CastLinear(in_dim, hidden_dim,
-                                      compute_dtype=dtype)),
+            xavier_linear_(QuantLinear(in_dim, hidden_dim,
+                                       compute_dtype=dtype, quant=quant)),
             nn.GELU(approximate="none"),
             nn.Dropout(dropout),
-            xavier_linear_(CastLinear(hidden_dim, out_dim,
-                                      compute_dtype=dtype)),
+            xavier_linear_(QuantLinear(hidden_dim, out_dim,
+                                       compute_dtype=dtype, quant=quant)),
             nn.Dropout(dropout),
         )
 
@@ -76,11 +116,14 @@ class SelfAttention(nn.Module):
     fused (3D, D) `in_proj_weight` with rows [q; k; v], `in_proj_bias`,
     `out_proj`), xavier weights and zero biases; dropout on the attention
     probabilities in training mode only; projections and attention in
-    `dtype`. With `perturb` the attention map is the identity: the out
-    projection runs on v (PAG)."""
+    `dtype`, or through the int8 product with `quant`. With `perturb` the
+    attention map is the identity: the out projection runs on v (PAG).
+    `key_sizes` (B, L) makes it proportional attention over merged tokens
+    (ToMe)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quant: Optional[str] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"hidden size {dim} is not a multiple of "
@@ -88,18 +131,27 @@ class SelfAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout = dropout
         self.dtype = dtype
+        self.quant = quant
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = xavier_linear_(CastLinear(dim, dim,
-                                                  compute_dtype=dtype))
+        self.in_proj_int8 = Int8Weights()
+        self.out_proj = xavier_linear_(QuantLinear(dim, dim,
+                                                   compute_dtype=dtype,
+                                                   quant=quant))
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x: torch.Tensor, perturb: bool = False) -> torch.Tensor:
-        q, k, v = cast_linear(x, self.in_proj_weight, self.in_proj_bias,
-                              self.dtype).chunk(3, dim=-1)
+    def forward(self, x: torch.Tensor, perturb: bool = False,
+                key_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.quant is None:
+            qkv = cast_linear(x, self.in_proj_weight, self.in_proj_bias,
+                              self.dtype)
+        else:
+            qkv = int8_linear(x, self.in_proj_weight, self.in_proj_bias,
+                              self.dtype, self.in_proj_int8)
+        q, k, v = qkv.chunk(3, dim=-1)
         out = v if perturb else multihead_attention(
             q, k, v, self.num_heads, dropout_rate=self.dropout,
-            deterministic=not self.training)
+            deterministic=not self.training, key_sizes=key_sizes)
         return self.out_proj(out)
 
 
@@ -112,27 +164,66 @@ def _layer_norm(hidden_size: int,
 class DiTBlock(nn.Module):
     """adaLN-Zero transformer block: six modulations from the conditioning,
     x + gate_msa * attn(modulate(LN(x))), then x + gate_mlp *
-    mlp(modulate(LN(x)))."""
+    mlp(modulate(LN(x))). `num_experts` > 0 makes the MLP a `MoeMlp`, whose
+    load-balance loss the block returns beside x; `tome` merges the tokens
+    around the attention (and with `tome_mlp` around the MLP); `quant`
+    routes the attention's and the dense MLP's products through int8."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, num_experts: int = 0,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
+                 tome: Optional[tome_ops.ToMeSpec] = None,
+                 tome_mlp: bool = False, quant: Optional[str] = None):
         super().__init__()
+        self.tome = tome
+        self.tome_mlp = tome_mlp
+        self.quant = quant
         self.norm1 = _layer_norm(hidden_size, dtype)
-        self.attn = SelfAttention(hidden_size, num_heads, dropout, dtype)
+        self.attn = SelfAttention(hidden_size, num_heads, dropout, dtype,
+                                  quant)
         self.norm2 = _layer_norm(hidden_size, dtype)
-        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio), hidden_size,
-                       dropout, dtype)
+        hidden = int(hidden_size * mlp_ratio)
+        self.mlp = (MoeMlp(hidden_size, hidden, hidden_size, num_experts,
+                           moe_top_k, moe_capacity_factor, dropout, dtype)
+                    if num_experts > 0 else
+                    Mlp(hidden_size, hidden, hidden_size, dropout, dtype,
+                        quant))
         self.adaLN_modulation = AdaLNModulation(hidden_size, 6, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
-                perturb: bool = False) -> torch.Tensor:
+                perturb: bool = False):
+        """x after the block; with a MoE MLP, (x, its load-balance loss)."""
+        if self.quant is not None and self.training:
+            raise ValueError(
+                "quant='int8' is inference-only (rounding has no "
+                "gradient); train with fp32/bf16 and quantize at serving")
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.adaLN_modulation(c)
-        x = x + gate_msa[:, None, :] * self.attn(
-            modulate(self.norm1(x), shift_msa, scale_msa), perturb)
-        return x + gate_mlp[:, None, :] * self.mlp(
-            modulate(self.norm2(x), shift_mlp, scale_mlp))
+        h = modulate(self.norm1(x), shift_msa, scale_msa)
+        if self.tome is not None and not perturb:
+            # (identity attention is token-local: merging would only change
+            # the degradation, not save work, so PAG bypasses it)
+            plan = tome_ops.build_plan(h, self.tome)
+            h = tome_ops.unmerge(plan, self.attn(
+                tome_ops.merge(plan, h), key_sizes=tome_ops.sizes(plan)))
+        else:
+            h = self.attn(h, perturb)
+        x = x + gate_msa[:, None, :] * h
+        h = modulate(self.norm2(x), shift_mlp, scale_mlp)
+        if self.tome is not None and self.tome_mlp:
+            plan = tome_ops.build_plan(h, self.tome)
+            h = self.mlp(tome_ops.merge(plan, h))
+        else:
+            plan = None
+            h = self.mlp(h)
+        loss = None
+        if isinstance(self.mlp, MoeMlp):
+            h, loss = h
+        if plan is not None:
+            h = tome_ops.unmerge(plan, h)
+        x = x + gate_mlp[:, None, :] * h
+        return x if loss is None else (x, loss)
 
 
 class FinalLayer(nn.Module):
@@ -184,13 +275,9 @@ class DiT(nn.Module):
         pag_perturb: bool = False,
     ):
         super().__init__()
-        for name, value in (("num_experts", num_experts),
-                            ("tome_ratio", tome_ratio), ("quant", quant)):
-            if value:
-                raise NotImplementedError(
-                    f"DiT {name}={value!r} is not ported yet (ROADMAP queue 1 "
-                    "item 11)")
         self.pag_perturb = bool(pag_perturb)
+        self.num_experts = int(num_experts or 0)
+        self.quant = check_quant(quant)
         self.remat = remat
         img_h, img_w = ((img_size, img_size) if isinstance(img_size, int)
                         else tuple(img_size))
@@ -200,6 +287,9 @@ class DiT(nn.Module):
         self.num_classes = num_classes
         self.tokens_hw = (img_h // patch_size, img_w // patch_size)
         num_patches = self.tokens_hw[0] * self.tokens_hw[1]
+        self.tome = (tome_ops.ToMeSpec.from_ratio(*self.tokens_hw, tome_ratio,
+                                                  tome_sx, tome_sy)
+                     if tome_ratio else None)
 
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size,
                                      dtype)
@@ -209,24 +299,36 @@ class DiT(nn.Module):
         self.y_embedder = (LabelTable(num_classes, hidden_size, dtype)
                            if num_classes is not None else None)
         self.blocks = nn.ModuleList(
-            DiTBlock(hidden_size, num_heads, mlp_ratio, dropout, dtype)
+            DiTBlock(hidden_size, num_heads, mlp_ratio, dropout, dtype,
+                     num_experts=self.num_experts, moe_top_k=moe_top_k,
+                     moe_capacity_factor=moe_capacity_factor,
+                     tome=self.tome, tome_mlp=tome_mlp, quant=self.quant)
             for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, patch_size,
                                       self.out_channels, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None, *,
-                pag_perturb: Optional[bool] = None) -> torch.Tensor:
+                pag_perturb: Optional[bool] = None,
+                moe_losses: Optional[list] = None) -> torch.Tensor:
         """eps (B, H, W, C) float32; `pag_perturb` overrides the module's
-        field for this call (None keeps it)."""
+        field for this call (None keeps it). A MoE DiT appends the mean of
+        its blocks' load-balance losses (a float32 scalar) to `moe_losses`
+        when that is a list."""
         perturb = self.pag_perturb if pag_perturb is None else pag_perturb
         h = self.x_embedder(x)
         h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
+        aux = []
         for block in self.blocks:
             h = run_block(block, self.remat, h, c, perturb)
+            if self.num_experts:
+                h, loss = h
+                aux.append(loss)
+        if aux and moe_losses is not None:
+            moe_losses.append(torch.stack(aux).mean())
         h = self.final_layer(h, c)
         # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,

@@ -44,7 +44,9 @@ build_info: dict = {}
 
 def _sources():
     """Every source the build compiles or includes (`philox.cuh`,
-    `selective_scan_common.cuh`): all of them key the build's hash."""
+    `selective_scan_common.cuh`, and `flash_attn.cu`, `flash_attn_bwd.cu`
+    once more through the bias forms' units): all of them key the build's
+    hash."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
@@ -146,6 +148,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32]
                                    + dropout + [i32, ptr])
     lib.flash_attn_bwd.restype = i32
+    # the bias forms: the same arguments, then (bias, heads) before the stream
+    lib.flash_attn_fwd_bias.argtypes = (lib.flash_attn_fwd.argtypes[:-1]
+                                        + [ptr, i32, ptr])
+    lib.flash_attn_fwd_bias.restype = i32
+    lib.flash_attn_bwd_bias.argtypes = (lib.flash_attn_bwd.argtypes[:-1]
+                                        + [ptr, i32, ptr])
+    lib.flash_attn_bwd_bias.restype = i32
     lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.selective_scan_fwd.restype = i32
     lib.selective_scan_bwd.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]

@@ -10,7 +10,10 @@ host, from a `torch.Generator` on the CPU (torch's default generator unless
 the caller passes one), and the kernels derive the mask from it (a CPU draw:
 no device sync). `torch.utils.checkpoint` restores the CPU generator's state
 for its recompute, so a checkpointed block draws the same seed, and the same
-mask, again. Proportional (ToMe) key sizes are not ported and raise.
+mask, again. Proportional attention (`key_sizes`, ToMe, `ops/tome.py`)
+adds log(size) of each key to its logits, so a merged key that stands for s
+tokens draws softmax mass as if present s times: the kernels' key-bias forms,
+with the float32 bias log(key_sizes) of shape (B, Lk) shared by the heads.
 """
 
 from __future__ import annotations
@@ -45,11 +48,8 @@ def multihead_attention(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention over (B, L, D) tensors split into `num_heads` heads, with
-    dropout on the probabilities at `dropout_rate` unless `deterministic`."""
-    if key_sizes is not None:
-        raise NotImplementedError(
-            "proportional attention (key_sizes, ToMe) is not ported yet "
-            "(ROADMAP queue 1 item 11)")
+    dropout on the probabilities at `dropout_rate` unless `deterministic`,
+    and proportional attention over `key_sizes` (B, L) when given."""
     batch, length, dim = q.shape
     head_dim = dim // num_heads
     dropout_p = 0.0 if deterministic else float(dropout_rate)
@@ -59,6 +59,9 @@ def multihead_attention(
         x = x.reshape(batch, -1, num_heads, head_dim).transpose(1, 2)
         return x.reshape(batch * num_heads, -1, head_dim).contiguous()
 
-    out = flash_attention(split(q), split(k), split(v), dropout_p, seed)
+    bias = None
+    if key_sizes is not None:
+        bias = torch.log(key_sizes.to(torch.float32)).contiguous()
+    out = flash_attention(split(q), split(k), split(v), dropout_p, seed, bias)
     out = out.reshape(batch, num_heads, length, head_dim).transpose(1, 2)
     return out.reshape(batch, length, dim)

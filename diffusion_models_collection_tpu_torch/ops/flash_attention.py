@@ -47,6 +47,16 @@ are, and each float32 operand that the products make (the probabilities P,
 dropped out, and dS) split into two bf16 terms, hi = bf16(x) and lo =
 bf16(x - hi), whose two products with the same exact operand keep float32
 accuracy (`csrc/bf16_mma.cuh`).
+
+A per-key additive bias (`bias`, float32 (B, L) with BH = B * H: ToMe's
+proportional attention, log of each merged key's size, `ops/attention.py`)
+joins every scaled score before the softmax: s = q k^T / sqrt(d) + bias[b,
+key] for head bh of batch item b = bh // H. lse includes it, so the backward
+recomputes the forward's P from the same definition; the bias gets no
+gradient. On a CUDA tensor it takes the kernels' bias forms
+(`csrc/key_bias.cuh`, entries `flash_attn_fwd_bias`, `flash_attn_bwd_bias`),
+which read row bh / H themselves: the wrapper passes H and never expands the
+bias to (BH, L).
 """
 
 from __future__ import annotations
@@ -64,13 +74,15 @@ MAX_HEAD_DIM = 128
 
 # Kernel launches since the process started (or since a caller reset them):
 # the forward's and the backward's, and of those the ones in the dropout
-# form and the ones in the bf16 form.
+# form, the ones in the bf16 form and the ones with a key bias.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 DROPOUT_LAUNCHES = 0
 BWD_DROPOUT_LAUNCHES = 0
 BF16_LAUNCHES = 0
 BWD_BF16_LAUNCHES = 0
+BIAS_LAUNCHES = 0
+BWD_BIAS_LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
 # Philox4x32's multipliers and key increments (Random123)
@@ -195,18 +207,27 @@ def _check_dropout(name: str, dropout_p: float, seed: Optional[int]) -> None:
         raise ValueError(f"{name}: dropout needs an int seed, got {seed!r}")
 
 
+def _head_bias(bias: torch.Tensor, bh: int) -> torch.Tensor:
+    """The (B, L) key bias as (BH, 1, L): row b for the heads of item b."""
+    return bias.repeat_interleave(bh // bias.shape[0], dim=0)[:, None, :]
+
+
 def flash_attention_fwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    dropout_p: float = 0.0, seed: Optional[int] = None
+    dropout_p: float = 0.0, seed: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch attention: o = (softmax(q k^T / sqrt(d)) o Z) v, Z the
-    dropout factor (none at p = 0), and lse = logsumexp(q k^T / sqrt(d)) of
-    shape (BH, L, 1); in float32, o rounded to q's type."""
+    """Plain PyTorch attention: o = (softmax(s) o Z) v with s = q k^T /
+    sqrt(d) (+ the key bias), Z the dropout factor (none at p = 0), and lse
+    = logsumexp(s) of shape (BH, L, 1); in float32, o rounded to q's
+    type."""
     _check_dropout("flash_attention_fwd_ref", dropout_p, seed)
     dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + _head_bias(bias, q.shape[0])
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
         probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device)
@@ -215,19 +236,20 @@ def flash_attention_fwd_ref(
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        dropout_p: float = 0.0,
-                        seed: Optional[int] = None) -> torch.Tensor:
+                        dropout_p: float = 0.0, seed: Optional[int] = None,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch attention output, differentiable by autograd (through
     the casts of a bfloat16 input: gradients in its type)."""
-    return flash_attention_fwd_ref(q, k, v, dropout_p, seed)[0]
+    return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias)[0]
 
 
 def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
-    seed: Optional[int] = None
+    seed: Optional[int] = None, bias: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse,
+    """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse
+    (and the forward's key bias),
     dv = (P o Z)^T dO, dS = P (dO v^T o Z - rowsum(dO o)) / sqrt(d),
     dq = dS k, dk = dS^T q, with Z the forward's dropout factor (1 at
     p = 0); in float32, the gradients rounded to q's type."""
@@ -235,7 +257,10 @@ def flash_attention_bwd_ref(
     dtype = q.dtype
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + _head_bias(bias, q.shape[0])
+    p = torch.exp(logits - lse)
     dp = torch.matmul(do, v.transpose(-1, -2))
     p_kept = p
     if dropout_p > 0.0:
@@ -266,6 +291,25 @@ def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     if q.shape[0] * q.shape[1] * padded_head_dim(head_dim, q.dtype) >= 2**31:
         raise ValueError(f"{name}: shape {tuple(q.shape)} exceeds the "
                          "kernel's 32-bit indexing")
+
+
+def _check_bias(name: str, bias: Optional[torch.Tensor],
+                q: torch.Tensor) -> int:
+    """The key bias: None, or float32 (B, L) on q's device, contiguous, with B
+    dividing q's BH; returns the heads a batch item (1 without a bias)."""
+    if bias is None:
+        return 1
+    bh, seq_len = q.shape[0], q.shape[1]
+    if (bias.dim() != 2 or bias.shape[1] != seq_len or bias.shape[0] < 1
+            or bh % bias.shape[0]):
+        raise ValueError(f"{name}: the key bias must be (B, {seq_len}) with B "
+                         f"dividing {bh}, got {tuple(bias.shape)}")
+    if bias.dtype != torch.float32 or bias.device != q.device:
+        raise TypeError(f"{name}: the key bias must be float32 on "
+                        f"{q.device}, got {bias.dtype} on {bias.device}")
+    if not bias.is_contiguous():
+        raise ValueError(f"{name}: the key bias must be contiguous")
+    return bh // bias.shape[0]
 
 
 def padded_head_dim(head_dim: int,
@@ -303,19 +347,22 @@ def _dropout_args(dropout_p: float, seed: Optional[int]):
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    dropout_p: float = 0.0, seed: Optional[int] = None
+    dropout_p: float = 0.0, seed: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
     with dropout on the probabilities when `dropout_p` > 0 (the mask of
-    `philox_keep_mask(seed, ...)`): the kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (o, lse), o of q's type and lse float32
-    of shape (BH, L, 1), the JAX kernel's layout."""
-    global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES
+    `philox_keep_mask(seed, ...)`) and the key bias when one is given: the
+    kernel for CUDA tensors, the plain version for CPU tensors. Returns (o,
+    lse), o of q's type and lse float32 of shape (BH, L, 1), the JAX
+    kernel's layout."""
+    global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES, BIAS_LAUNCHES
     bf16 = _build.check_io_dtype("flash_attention_fwd", (q, k, v))
     _check_shapes("flash_attention_fwd", q, k, v)
     _check_dropout("flash_attention_fwd", dropout_p, seed)
+    heads = _check_bias("flash_attention_fwd", bias, q)
     if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, dropout_p, seed)
+        return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias)
     bh, seq_len, head_dim = q.shape
     lib = _build.library()
     q, k, v = _pad_heads(head_dim, q, k, v)
@@ -326,42 +373,50 @@ def flash_attention_fwd(
     lse = torch.empty((bh, seq_len, 1), dtype=torch.float32, device=q.device)
     if q.numel():
         width = q.shape[-1]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), bh, seq_len, width, 1.0 / math.sqrt(head_dim),
+                fwd_tile(seq_len, width, q.dtype),
+                *_dropout_args(dropout_p, seed), int(bf16))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     o.data_ptr(), lse.data_ptr(), bh, seq_len,
-                                     width, 1.0 / math.sqrt(head_dim),
-                                     fwd_tile(seq_len, width, q.dtype),
-                                     *_dropout_args(dropout_p, seed),
-                                     int(bf16), stream)
+            if bias is None:
+                err = lib.flash_attn_fwd(*args, stream)
+            else:
+                err = lib.flash_attn_fwd_bias(*args, bias.data_ptr(), heads,
+                                              stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
         DROPOUT_LAUNCHES += dropout_p > 0.0
         BF16_LAUNCHES += bf16
+        BIAS_LAUNCHES += bias is not None
     return (*_cut_heads(head_dim, o), lse)
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
-    seed: Optional[int] = None, fused: Optional[bool] = None
+    seed: Optional[int] = None, fused: Optional[bool] = None,
+    bias: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
     and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
-    its `dropout_p` and `seed`: the kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns (dq, dk, dv) of q's type. `fused` picks the
-    kernel's form; None leaves it to `bwd_fused`."""
+    its `dropout_p`, `seed` and key `bias`: the kernel for CUDA tensors, the
+    plain version for CPU tensors. Returns (dq, dk, dv) of q's type. `fused`
+    picks the kernel's form; None leaves it to `bwd_fused`."""
     global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
+    global BWD_BIAS_LAUNCHES
     bf16 = _build.check_io_dtype("flash_attention_bwd", (q, k, v, o, do),
                                  (lse,))
     _check_shapes("flash_attention_bwd", q, k, v, o, do)
     _check_dropout("flash_attention_bwd", dropout_p, seed)
+    heads = _check_bias("flash_attention_bwd", bias, q)
     bh, seq_len, head_dim = q.shape
     if lse.shape != (bh, seq_len, 1):
         raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
                          f"1), got {tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, lse, dropout_p, seed)
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, dropout_p, seed,
+                                       bias)
     q, k, v, o, do = _pad_heads(head_dim, q, k, v, o, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: q, k, v and dO must be "
@@ -381,48 +436,55 @@ def flash_attention_bwd(
                                   dtype=torch.float32, device=q.device)
         # autograd runs a backward on its own thread: take that thread's
         # current stream for the device here, at the launch
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.flash_attn_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 None if partial is None else partial.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
                 width, 1.0 / math.sqrt(head_dim), tile, int(fused),
-                *_dropout_args(dropout_p, seed), int(bf16), stream)
+                *_dropout_args(dropout_p, seed), int(bf16))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            if bias is None:
+                err = lib.flash_attn_bwd(*args, stream)
+            else:
+                err = lib.flash_attn_bwd_bias(*args, bias.data_ptr(), heads,
+                                              stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
         BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
         BWD_BF16_LAUNCHES += bf16
+        BWD_BIAS_LAUNCHES += bias is not None
     return _cut_heads(head_dim, dq, dk, dv)
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is `flash_attention_fwd` and whose backward
-    is `flash_attention_bwd`, from the residuals (q, k, v, o, lse) and the
-    dropout's (p, seed), as the JAX package's `_flash_core`
-    (`_flash_core_fwd`, `_flash_core_bwd`)."""
+    is `flash_attention_bwd`, from the residuals (q, k, v, o, lse), the
+    dropout's (p, seed) and the key bias, as the JAX package's `_flash_core`
+    (`_flash_core_fwd`, `_flash_core_bwd`). The bias gets no gradient: it
+    is the log of merged tokens' counts."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_p=0.0, seed=None):
-        o, lse = flash_attention_fwd(q, k, v, dropout_p, seed)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, dropout_p=0.0, seed=None, bias=None):
+        o, lse = flash_attention_fwd(q, k, v, dropout_p, seed, bias)
+        ctx.save_for_backward(q, k, v, o, lse, bias)
         ctx.dropout = (dropout_p, seed)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, bias = ctx.saved_tensors
         # autograd hands dO over in the layout of the caller's reshapes
         grads = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
-                                    *ctx.dropout)
-        return (*grads, None, None)
+                                    *ctx.dropout, bias=bias)
+        return (*grads, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    dropout_p: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_p: float = 0.0, seed: Optional[int] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable attention over (BH, L, d) float32 or bfloat16 through
     the forward and backward kernels (their plain versions on the CPU), with
-    dropout on the probabilities when `dropout_p` > 0; o of q's type."""
-    return FlashAttention.apply(q, k, v, dropout_p, seed)
+    dropout on the probabilities when `dropout_p` > 0 and the key bias (B, L)
+    when one is given; o of q's type."""
+    return FlashAttention.apply(q, k, v, dropout_p, seed, bias)

@@ -24,8 +24,10 @@ config's dtype) and SR3 super-resolution (a checkpoint with a
 `super_resolution` block and --sr_source: `utils/sr.py`) wrap the model per
 batch, SR conditioning first and guidance after it (after PAG), as the JAX
 pipeline composes them, so both reach img2img, restarts, CFG and plain
-sampling. Not ported: ToMe and int8 (ROADMAP queue 1 item 11); configs that
-ask for them raise in the model.
+sampling. Token merging (--tome_ratio, --tome_mlp) and int8 inference
+(--quantize int8) are DiT model fields, applied in the JAX pipeline's order
+of overrides: steps and precision, ToMe, FreeU, quantization, the CFG knobs
+(`apply_tome`, `apply_quantize`, with its messages).
 """
 
 from __future__ import annotations
@@ -95,6 +97,38 @@ def apply_steps_and_precision(args, config, is_flow: bool,
         config["num_inference_steps"] = 50
     if args.mixed_precision is not None:
         config["mixed_precision"] = args.mixed_precision
+
+
+def apply_tome(args, config) -> None:
+    """--tome_ratio (and --tome_mlp) as the DiT's `tome_ratio` and
+    `tome_mlp` fields: parameter-free, so any DiT checkpoint applies."""
+    if args.tome_ratio <= 0:
+        return
+    if str(config.get("model_type", "")).lower() != "dit":
+        raise SystemExit(
+            "--tome_ratio is a DiT token-merging knob (the UNet has "
+            "no token stream; DiM's scan is already linear in L)")
+    mp = dict(config.get("model_params", {}))
+    mp["tome_ratio"] = args.tome_ratio
+    if args.tome_mlp:
+        mp["tome_mlp"] = True
+    config["model_params"] = mp
+    print(f"Token merging: ratio {args.tome_ratio}"
+          + (" (attention + MLP)" if args.tome_mlp else " (attention)"))
+
+
+def apply_quantize(args, config) -> None:
+    """--quantize int8 as the DiT's `quant` field: any float DiT checkpoint
+    applies unchanged."""
+    if not args.quantize:
+        return
+    if str(config.get("model_type", "")).lower() != "dit":
+        raise SystemExit(
+            "--quantize int8 is implemented for DiT checkpoints (the "
+            "UNet is conv-bound; int8 convs showed no MXU win)")
+    config["model_params"] = dict(config.get("model_params", {}),
+                                  quant=args.quantize)
+    print(f"Quantized inference: {args.quantize}")
 
 
 def apply_freeu(args, config) -> None:
@@ -367,7 +401,9 @@ class SamplingPipeline:
         self.is_edm = dtype_key == "edm"
         flags = (self.is_flow, self.is_edm)
         apply_steps_and_precision(args, config, self.is_flow, self.is_edm)
+        apply_tome(args, config)
         apply_freeu(args, config)
+        apply_quantize(args, config)
         if args.guidance_rescale is not None:
             config["guidance_rescale"] = args.guidance_rescale
         if args.cfg_interval is not None:

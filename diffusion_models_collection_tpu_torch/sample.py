@@ -17,7 +17,9 @@ white regenerates) and `--repaint_jump`/`--repaint_resample` (RePaint on
 DDPM); `--restarts` and `--restart_interval` (restart sampling on DDIM);
 `--pag_scale` (perturbed attention guidance, UNet and DiT); `--deepcache`
 and `--deepcache_depth` (cached deep features on DDIM, UNet); `--freeu`
-(UNet). Classifier guidance: `--classifier_checkpoint` (a checkpoint of
+(UNet); `--tome_ratio` and `--tome_mlp` (token merging, DiT) and
+`--quantize int8` (w8a8 products, DiT), which compose with each other and
+with bf16. Classifier guidance: `--classifier_checkpoint` (a checkpoint of
 `model_type: 'classifier'` trained on the same schedule) and
 `--classifier_scale` shift eps by the classifier's gradient toward the
 labels (VP eps checkpoints). Super-resolution: a checkpoint with a
@@ -132,6 +134,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "--restarts (must contain >= 2 inference-grid "
                              "points); default: the bottom 30%% of the "
                              "schedule (1,0.3*num_timesteps)")
+    parser.add_argument("--tome_ratio", type=float, default=0.0,
+                        help="Token Merging (ToMe, beyond the reference; "
+                             "DiT checkpoints only): merge this fraction "
+                             "of patch tokens before every block's "
+                             "attention — training-free inference "
+                             "speedup; 0 = off")
+    parser.add_argument("--tome_mlp", action="store_true",
+                        help="extend --tome_ratio merging around each "
+                             "block's MLP too (faster, coarser)")
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=["int8"],
+                        help="w8a8 int8 inference (beyond the reference; "
+                             "DiT checkpoints only): contract the block "
+                             "matmuls through the int8 path — per-token "
+                             "dynamic activation scales, per-channel "
+                             "weight scales quantized once")
     parser.add_argument("--classifier_checkpoint", type=str, default=None,
                         help="Noise-conditional classifier checkpoint "
                              "(model_type 'classifier') for classifier "

@@ -34,8 +34,9 @@ after the engine returns it, with the model's device made current there.
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
 only when asked for with `--device cpu`. `--mixed_precision bf16` overrides
 the checkpoint config's compute dtype (the engine's images stay float32).
-Not ported: ToMe and int8 serving of a DiT (`--tome_ratio`, `--quantize`,
-ROADMAP queue 1 item 11), consistency checkpoints (item 12), the
+`--tome_ratio` (with `--tome_mlp`) and `--quantize int8` serve a DiT
+through token merging and the int8 products, and compose with each other
+and with bf16. Not ported: consistency checkpoints (item 12), the
 data-parallel split of the batch over several devices (item 15).
 Super-resolution checkpoints are refused, as the root daemon refuses them:
 each request would need an LR image (`sample --sr_source` and
@@ -82,8 +83,8 @@ class SamplerService:
         if mixed_precision is not None:
             self.config["mixed_precision"] = mixed_precision
         model_type = str(self.config.get("model_type", "")).lower()
-        # ToMe and int8 are DiT knobs, as in the root daemon; the port's DiT
-        # raises on both (ROADMAP queue 1 item 11)
+        # ToMe and int8 are DiT knobs, as in the root daemon: model fields,
+        # any checkpoint's weights as they are; int8 composes with ToMe
         if tome_ratio > 0:
             if model_type != "dit":
                 raise ValueError("tome_ratio applies to DiT checkpoints")
@@ -366,14 +367,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "tick, at the cost of admission granularity "
                              "of that many steps")
     parser.add_argument("--tome_ratio", type=float, default=0.0,
-                        help="Token Merging (DiT checkpoints; not ported "
-                             "yet); 0 = off")
+                        help="Token Merging (DiT checkpoints): merge this "
+                             "fraction of patch tokens per block — "
+                             "training-free serving speedup; 0 = off")
     parser.add_argument("--tome_mlp", action="store_true",
                         help="extend --tome_ratio merging to block MLPs")
     parser.add_argument("--quantize", type=str, default=None,
                         choices=["int8"],
-                        help="w8a8 int8 serving (DiT checkpoints; not "
-                             "ported yet)")
+                        help="w8a8 int8 serving (DiT checkpoints): block "
+                             "products through the int8 path")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     return parser

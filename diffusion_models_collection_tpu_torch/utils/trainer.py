@@ -8,8 +8,12 @@ step is PyTorch code that launches asynchronously on the model's device:
   (`draw`), or are passed in, which the parity tests do; the dropout masks
   come from torch's global generator, seeded by `helpers.set_seed`;
 * the labels shift by +1 and the CFG dropout maps them to the null label 0;
-* `p_losses`, `backward`, clip by global norm 1.0, AdamW or Adam at the
-  scheduled learning rate, then the EMA lerp, once per optimizer update;
+* `p_losses`, plus `moe_aux_weight` (default 0.01) times the mean
+  load-balance loss of a MoE DiT's blocks (only when the model routes
+  experts; the forward hands it over in its `moe_losses` list, the JAX
+  model's sown 'losses'), `backward`, clip by global norm 1.0, AdamW or Adam
+  at the scheduled learning rate, then the EMA lerp, once per optimizer
+  update;
 * the losses stay on the device during an epoch and are read once at its
   end; a non-finite epoch loss stops the run before the checkpoints rotate.
 
@@ -209,6 +213,11 @@ class DiffusionTrainer:
         self.sample_start_epoch = cfg.get("sample_start_epoch", 20)
         self.num_samples = cfg.get("num_samples", 16)
         self.cfg_dropout_prob = float(cfg.get("cfg_dropout_prob", 0.2))
+        # the MoE load-balance loss's weight, active only when the model
+        # routes experts
+        self.moe_aux_weight = (
+            float(cfg.get("moe_aux_weight", 0.01))
+            if int(getattr(model, "num_experts", 0) or 0) > 0 else 0.0)
         self.cfg_scale = cfg.get("cfg_scale", 1.8)
         self.ema_decay = float(cfg.get("ema_decay", 0.9999))
         self.conditional = cfg.get("conditional", False)
@@ -288,11 +297,15 @@ class DiffusionTrainer:
         if t is None:
             t, noise, drop = self.draw(shape)
         model_fn = self.model
+        moe_losses = []
+        if self.moe_aux_weight > 0:
+            def model_fn(x, tt, yy=None):
+                return self.model(x, tt, yy, moe_losses=moe_losses)
         if self.sr is not None:
             cond = make_condition(self.sr, images.shape[1:3],
                                   hr_images=images, generator=self.generator,
                                   noise=sr_noise)
-            model_fn = wrap_model_fn(self.model, cond)
+            model_fn = wrap_model_fn(model_fn, cond)
         if self.latent is not None:
             if encoder_noise is None:
                 encoder_noise = torch.randn(shape, generator=self.generator,
@@ -305,6 +318,8 @@ class DiffusionTrainer:
                 y = torch.where(drop, torch.zeros_like(y), y)
         loss = self.diffusion.p_losses(model_fn, images, t, noise, y=y,
                                        loss_type=self.loss_type)
+        if moe_losses:  # the first call's, as the JAX trainer
+            loss = loss + self.moe_aux_weight * moe_losses[0]
         loss.backward()
         if self.optimizer.step() and self.ema_model is not None:
             ema_update(self.ema_model.parameters(), self.model.parameters(),

@@ -9,9 +9,13 @@ Counterpart of `diffusion_models_collection_tpu/utils/torch_export.py`
 `_export_dit`, `_export_dim`), in numpy and torch only: that module imports
 the JAX package's helpers, which need JAX. The port's models use the PyTorch
 reference's key names, so the result also equals what the JAX exporter
-writes for the reference, and loads with `strict=True`. The VAE and the
-classifier have no reference names: their keys are the port's own
-(`models/vae.py`, `models/classifier.py`).
+writes for the reference, and loads with `strict=True`. The VAE, the
+classifier and a MoE DiT's expert MLPs have no reference names (the JAX
+exporter refuses a MoE DiT): their keys are the port's own (`models/vae.py`,
+`models/classifier.py`, `models/moe.py`). A DiT block's `MoeMlp_0` maps to
+`blocks.{i}.mlp.router.weight` (the router kernel, transposed to (E, d)),
+`blocks.{i}.mlp.router.bias`, and `blocks.{i}.mlp.w1`, `.b1`, `.w2`, `.b2`
+as they are (w1 (E, d, h), b1 (E, h), w2 (E, h, d), b2 (E, d)).
 
 Layouts (Flax -> torch): Dense kernel (in, out) -> Linear weight (out, in);
 Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); depthwise conv
@@ -204,20 +208,27 @@ def _patch_scaffold(params: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _moe(sd: Dict, key: str, moe: Mapping) -> None:
+    """A `MoeMlp`'s router and stacked experts under the port's names."""
+    _dense(sd, f"{key}.router", moe["router"])
+    for name in ("w1", "b1", "w2", "b2"):
+        sd[f"{key}.{name}"] = _arr(moe[name])
+
+
 def dit_params_to_numpy_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
     """Flax DiT params -> reference-named arrays (its LayerNorms are
-    affine-free: nothing to bridge)."""
+    affine-free: nothing to bridge); a MoE block's experts under the port's
+    names."""
     sd = _patch_scaffold(params)
     i = 0
     while f"DiTBlock_{i}" in params:
         blk, ref = params[f"DiTBlock_{i}"], f"blocks.{i}"
-        if "MoeMlp_0" in blk:
-            raise NotImplementedError(
-                f"DiTBlock_{i} holds a MoE MLP, which is not ported yet "
-                "(ROADMAP queue 1 item 11)")
         _attention(sd, f"{ref}.attn", blk["SelfAttention_0"])
-        _dense(sd, f"{ref}.mlp.0", blk["Mlp_0"]["Dense_0"])
-        _dense(sd, f"{ref}.mlp.3", blk["Mlp_0"]["Dense_1"])
+        if "MoeMlp_0" in blk:
+            _moe(sd, f"{ref}.mlp", blk["MoeMlp_0"])
+        else:
+            _dense(sd, f"{ref}.mlp.0", blk["Mlp_0"]["Dense_0"])
+            _dense(sd, f"{ref}.mlp.3", blk["Mlp_0"]["Dense_1"])
         _dense(sd, f"{ref}.adaLN_modulation.1",
                blk["AdaLNModulation_0"]["Dense_0"])
         i += 1

@@ -186,6 +186,9 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.diffusion.guidance",
             "diffusion_models_collection_tpu_torch.utils.sr",
             "diffusion_models_collection_tpu_torch.tools.cascade",
+            "diffusion_models_collection_tpu_torch.models.moe",
+            "diffusion_models_collection_tpu_torch.ops.tome",
+            "diffusion_models_collection_tpu_torch.ops.quant",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys

@@ -491,17 +491,34 @@ def test_factory_builds_dit_with_injected_size_and_classes():
                                   dict(quant="int8"),
                                   dict(pag_perturb=True, quant="int8")])
 def test_dit_raises_on_knobs_not_ported(knob):
-    """Item 11's knobs raise, also beside `pag_perturb`, which is ported
-    (a DiT with it alone builds)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        DiT(img_size=(16, 16), **DIT_PARAMS, **knob)
+    """The DiT's last three families (MoE, token merging, int8), which
+    raised until they were ported, build and run an eval forward, also
+    beside `pag_perturb`; what still raises is int8 in training mode (their
+    parity with JAX: tests/test_torch_port_moe.py, test_torch_port_tome.py,
+    test_torch_port_quant.py)."""
+    model = DiT(img_size=(16, 16), **DIT_PARAMS, num_classes=10, **knob)
+    x = torch.randn(2, 16, 16, 3)
+    t, y = torch.tensor([3, 700]), torch.tensor([1, 0])
+    with torch.no_grad():
+        out = model.eval()(x, t, y)
+    assert out.shape == (2, 16, 16, 3) and torch.isfinite(out).all()
+    assert model.num_experts == knob.get("num_experts", 0)
+    assert model.quant == knob.get("quant")
+    assert (model.tome is not None) == ("tome_ratio" in knob)
+    if "quant" in knob:
+        with pytest.raises(ValueError, match="inference-only"):
+            model.train()(x, t, y)
     assert DiT(img_size=(16, 16), **DIT_PARAMS, pag_perturb=True).pag_perturb
 
 
 def test_bridge_raises_on_a_moe_dit():
+    """A Flax MoE DiT, which the bridge refused until the MoE MLP was
+    ported, bridges to the port's names and loads strict."""
     model = jax_dit_mod.DiT(img_size=(8, 8), **DIT_PARAMS, num_experts=2)
     params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 3)),
                         jnp.zeros((1,), jnp.int32))["params"]
     config = dict(small_dim_config(False, 8), model_type="dit")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state_dict_from_jax(params, config)
+    sd = state_dict_from_jax(params, config)
+    assert sd["blocks.1.mlp.w1"].shape == (2, 64, 256)
+    DiT(img_size=(8, 8), **DIT_PARAMS, num_experts=2).load_state_dict(
+        sd, strict=True)

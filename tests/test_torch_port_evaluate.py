@@ -160,13 +160,9 @@ def test_system_exit_rules_match_the_root_cli(tmp_path, model, changes,
     assert str(err.value).startswith(message)
 
 
+# what remains of the raises: consistency (item 12); the DiT's ToMe, int8
+# and MoE, which raised until they were ported, evaluate (the next test)
 @pytest.mark.parametrize("model,changes,flags,item", [
-    ("dit", {}, ["--tome_ratio", "0.5"], 11),
-    ("dit", {}, ["--quantize", "int8"], 11),
-    # a DiT's MoE config on the plain UNet's weights (super-resolution, the
-    # case before it, is ported: test_torch_port_sr.py)
-    ("unet", {"model_type": "dit", "model_params": dict(
-        small_dit_config()["model_params"], num_experts=4)}, [], 11),
     ("unet", {"diffusion_type": "consistency"}, [], 12),
 ])
 def test_what_is_not_ported_raises_naming_its_item(tmp_path, model, changes,
@@ -179,6 +175,36 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path, model, changes,
                                    dict(base, **changes))
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         run_main(ckpt, *flags)
+
+
+@pytest.mark.parametrize("changes,flags", [
+    ({}, ["--tome_ratio", "0.5", "--tome_mlp"]),
+    ({}, ["--quantize", "int8", "--tome_ratio", "0.3"]),
+    ({"num_experts": 4}, []),
+])
+def test_tome_int8_and_moe_dits_evaluate(tmp_path, monkeypatch, changes,
+                                         flags):
+    """`evaluate` generates through a DiT with token merging, int8
+    products and both, and from a MoE DiT's checkpoint, and hands the
+    images to the metrics (stubbed here: the metric networks have tests of
+    their own)."""
+    seen = []
+
+    def metrics_stub(real, fake, **kwargs):
+        seen.append(fake)
+        return {"stub": float(fake.mean())}
+
+    monkeypatch.setattr(evaluate, "calculate_all_metrics", metrics_stub)
+    base = small_dit_config(size=8)
+    config = dict(base, num_timesteps=10, dataset="cifar10",
+                  data_root=str(FIXTURES), model_params=dict(
+                      base["model_params"], **changes))
+    ckpt = save_random(tmp_path, config)
+    report = run_main(ckpt, "--sampling_method", "ddim",
+                      "--num_inference_steps", "2", "--cfg_scale", "2",
+                      "--output", str(tmp_path / "m.json"), *flags)
+    assert len(seen) == 1 and seen[0].shape == (4, 8, 8, 3)
+    assert np.isfinite(seen[0]).all() and math.isfinite(report["stub"])
 
 
 def test_device_cuda_raises_where_cuda_is_absent(monkeypatch, tmp_path):

@@ -105,10 +105,28 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(shape):
 
 
 def test_attention_raises_on_paths_not_ported():
+    """Proportional attention (`key_sizes`, ToMe) is ported: log(sizes) is
+    the kernels' key bias, and the wrappers refuse a bias of another shape,
+    type or layout. What the attention still refuses is below."""
     q = torch.randn(1, 4, 8)
-    with pytest.raises(NotImplementedError):
-        attention_mod.multihead_attention(q, q, q, 2,
-                                          key_sizes=torch.ones(1, 4))
+    sizes = torch.tensor([[1.0, 3.0, 2.0, 1.0]])
+    got = attention_mod.multihead_attention(q, q, q, 2, key_sizes=sizes)
+    split = q.reshape(1, 4, 2, 4).transpose(1, 2).reshape(2, 4, 4)
+    split = split.contiguous()
+    want = flash_attention.flash_attention_ref(split, split, split,
+                                               bias=torch.log(sizes))
+    torch.testing.assert_close(
+        got, want.reshape(1, 2, 4, 4).transpose(1, 2).reshape(1, 4, 8),
+        rtol=0, atol=0)
+    for bad in (torch.zeros(1, 5), torch.zeros(3, 4), torch.zeros(4)):
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention(split, split, split, bias=bad)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(split, split, split,
+                                        bias=torch.zeros(1, 4).double())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(split, split, split,
+                                        bias=torch.zeros(1, 8)[:, ::2])
     # attention dropout is ported; what it refuses: p outside [0, 1), a
     # seed that is no int, a generator off the host
     with pytest.raises(ValueError):
@@ -1354,3 +1372,65 @@ def test_small_bf16_models_run_the_bf16_kernels_and_match_plain(cuda, kind):
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     assert max_rel(out, out_ref) <= TOL_BF16_MODEL
     assert max_rel(grads, grads_ref) <= TOL_BF16_GRAD
+
+
+# K2 and K3's key-bias forms (ToMe's proportional attention), float32 and
+# bf16, with and without dropout, at ToMe's merged lengths on the CIFAR DiT
+# (L' 128 at ratio 0.5, 179 at 0.3: a ragged last tile) with d 64, at a
+# head_dim that is no multiple of 16 (40) and a short sequence in the
+# smallest tiles; the fused and the two-kernel backward. The bias rows are
+# log of merged sizes in 1 .. 8, one row per batch item of 3, shared by its
+# two heads; the bars are the forms' own without a bias.
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_len,head_dim", [
+    (179, 64), (128, 64), (179, 40), (12, 64), (300, 64)])
+def test_flash_attention_bias_forms_match_plain(cuda, seq_len, head_dim,
+                                                dtype, dropout, fused):
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(seq_len + head_dim)
+    q, k, v, do = (torch.randn(6, seq_len, head_dim, generator=gen,
+                               device=cuda).to(dtype) for _ in range(4))
+    sizes = torch.randint(1, 9, (3, seq_len), generator=gen, device=cuda)
+    bias = torch.log(sizes.float())
+    drop = (dropout, 77) if dropout else (0.0, None)
+    before = (flash_attention.BIAS_LAUNCHES, flash_attention.BWD_BIAS_LAUNCHES)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop, bias=bias)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused, bias=bias)
+    torch.cuda.synchronize()
+    assert (flash_attention.BIAS_LAUNCHES,
+            flash_attention.BWD_BIAS_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop,
+                                                             bias=bias)
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop,
+                                                   bias=bias)
+    if dtype == torch.bfloat16:
+        assert_bf16_close(o, o_ref, 1, TOL)
+        for got, want in zip(grads, refs):
+            assert_bf16_close(got, want, 2, TOL_BWD)
+    else:
+        assert max_rel(o, o_ref) <= TOL
+        for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+            assert max_rel(got, want) <= TOL_BWD, name
+
+
+@pytest.mark.cuda
+def test_flash_attention_bias_of_zeros_is_the_form_without_one(cuda):
+    """A bias of zeros gives what the form without a bias gives, to the
+    rounding of one more add: the bias forms change nothing else."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(12, 179, 64, generator=gen, device=cuda)
+               .requires_grad_() for _ in range(3))
+    zeros = torch.zeros(2, 179, device=cuda)
+    outs = []
+    for bias in (None, zeros):
+        o = flash_attention.flash_attention(q, k, v, bias=bias)
+        outs.append((o, *torch.autograd.grad(o, (q, k, v),
+                                             torch.ones_like(o))))
+    for got, want in zip(*outs):
+        assert max_rel(got, want) <= TOL

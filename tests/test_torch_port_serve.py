@@ -406,11 +406,11 @@ def test_bf16_serving_matches_jax_at_the_bf16_bar(unet):
               jax_run(model))
 
 
+# a DiT's --tome_ratio and --quantize, which raised until they were ported,
+# serve: the next test
 @pytest.mark.parametrize("case,flags,error,match", [
     ("unet", ["--tome_ratio", "0.5"], ValueError, "DiT"),
     ("unet", ["--quantize", "int8"], ValueError, "DiT"),
-    ("dit", ["--tome_ratio", "0.5"], NotImplementedError, "item 11"),
-    ("dit", ["--quantize", "int8"], NotImplementedError, "item 11"),
     ("consistency", [], NotImplementedError, "item 12"),
     ("super_resolution", [], ValueError, "super-resolution"),
 ])
@@ -425,6 +425,46 @@ def test_what_is_not_ported_raises(tmp_path, case, flags, error, match):
     path = save_config(tmp_path, case, config, state)
     with pytest.raises(error, match=match):
         serve.main(["--checkpoint", str(path), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("knobs,continuous", [
+    (dict(tome_ratio=0.5), False),
+    (dict(quantize="int8"), False),
+    (dict(quantize="int8", tome_ratio=0.5, tome_mlp=True), True),
+])
+def test_tome_and_int8_serve_a_dit(tmp_path, knobs, continuous):
+    """A DiT served with token merging, int8 products or both (composed, as
+    the root daemon composes them): the service's model carries the fields,
+    and a request's images are the port's `sample_with_cfg` of that model on
+    the request's draw (in the continuous engine, at the pool's shape)."""
+    path = save_config(tmp_path, "dit", small_dit_config())
+    server = Server(make_service(path, batch_size=2, continuous=continuous,
+                                 **knobs))
+    service = server.service
+    try:
+        body = {"num_samples": 2, "labels": [3, 8], "seed": 4,
+                "cfg_scale": 2.0, "format": "npy"}
+        status, _, data = server.request("POST", "/generate", body)
+        assert status == 200, data
+    finally:
+        server.close()
+    images = np.load(io.BytesIO(data))
+    assert service.model.quant == knobs.get("quantize")
+    assert (service.model.tome is not None) == ("tome_ratio" in knobs)
+    if continuous:
+        slots = [1, 0]  # taken from the end of the free list
+        pool = torch.zeros(2, 16, 16, 3)
+        pool[slots] = service.initial_noise((2, 16, 16, 3), 4)
+        y = torch.zeros(2, dtype=torch.int64)
+        y[slots] = torch.tensor([4, 9])
+        ref = service.diffusion.sample_with_cfg(
+            service.model, pool.shape, y, cfg_scale=2.0, init_noise=pool)
+        np.testing.assert_allclose(
+            images, np.clip((ref[slots].numpy() + 1) / 2, 0, 1), rtol=0,
+            atol=1e-6)
+    else:
+        np.testing.assert_array_equal(
+            images, port_reference(service, [3, 8], 4, 2.0))
 
 
 def test_device_cuda_raises_where_cuda_is_absent(monkeypatch, tmp_path):
