@@ -233,7 +233,20 @@ Then the DiT's last three families:
 * `phase_int8`: the same DiT weights with `quant='int8'`: a forward at batch
   160 with its 48 int8 products and its distance from the float forward,
   then `sample --quantize int8` in float32 and bf16, samples/s beside the
-  float DiT's.
+  float DiT's;
+* `phase_fewstep`: the UNet config as a consistency model: the loss and
+  gradients of consistency training against the plain versions (90 K1,
+  22 K2, 45 K1b, 11 K3 a step), three epochs of `train` on two grid stages
+  and train images/s, in fp32 and bf16; of its checkpoint, `sample` with
+  2 steps and CFG 3 against the same inside `plain_kernels()`, `evaluate`
+  of 50 samples, a 16-image `serve` request against `sample_with_cfg` on
+  its draw, and `--continuous`'s refusal; `tools/distill.py` from the
+  trained UNet, consistency (CFG 3 inside) and progressive (8 -> 4
+  steps), 135 K1, 33 K2, 45 K1b, 11 K3 a step, and a sample of each
+  result; `tools/reflow.py` from the flow-matching UNet `phase_process`
+  trained (256 pairs, 10 Euler steps with CFG 3, then 4 steps) and a
+  1-step sample of its round; 12 DDPM steps with AdamW, Adafactor and
+  Lion (images/s, peak memory, the optimizer state's bytes).
 
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
@@ -254,6 +267,7 @@ steps; all on the card named in the output.
 """
 
 import contextlib
+import copy
 import http.client
 import io
 import json
@@ -284,6 +298,13 @@ from diffusion_models_collection_tpu_torch import (  # noqa: E402
     train,
 )
 from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
+from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
+    ConsistencyModel,
+)
+from diffusion_models_collection_tpu_torch.diffusion import base as dbase  # noqa: E402
+from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
+    consistency as cm_lib,
+)
 from diffusion_models_collection_tpu_torch.diffusion import DDPM  # noqa: E402
 from diffusion_models_collection_tpu_torch.diffusion import (  # noqa: E402
     karras_timesteps,
@@ -317,8 +338,20 @@ from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
     cascade,
     compute_latent_scale,
 )
+from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
+    distill as distill_tool,
+)
+from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
+    reflow as reflow_tool,
+)
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils import sr  # noqa: E402
+from diffusion_models_collection_tpu_torch.utils.reflow_trainer import (  # noqa: E402
+    ReflowTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.trainer import (  # noqa: E402
+    DiffusionTrainer,
+)
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
     read_png,
@@ -1278,7 +1311,7 @@ def image_shape(config):
 
 def phase_train_grads(label, model, config, per_step, gen,
                       batch_size=CHECK_BATCH, batch=None, seed=None,
-                      tol=(TOL_LOSS, TOL_GRAD)):
+                      tol=(TOL_LOSS, TOL_GRAD), process=None):
     """The full-width model's loss and every gradient at `batch_size`
     (or on `batch`, an earlier call's) through the kernels against the same
     inside `plain_kernels()`, with exactly one step's launches (`per_step`)
@@ -1287,10 +1320,11 @@ def phase_train_grads(label, model, config, per_step, gen,
     train mode with a `seed` that reseeds the CPU and CUDA generators before
     each run, so both draw the same dropout masks (the attention's seeds
     from the CPU generator, the MLP's masks from the CUDA one). `tol` is
-    the (loss, gradient) bar. The loss is the config's process's
-    (`factory.get_diffusion`: DDPM, flow matching or EDM). Returns the
-    batch, the loss and the flattened gradient."""
-    process = factory.get_diffusion(config)
+    the (loss, gradient) bar. The loss is `process`'s `p_losses`, by
+    default the config's process's (`factory.get_diffusion`: DDPM, flow
+    matching or EDM). Returns the batch, the loss and the flattened
+    gradient."""
+    process = process or factory.get_diffusion(config)
     shape = (batch_size, *image_shape(config))
     batch = batch or {
         "x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
@@ -1374,6 +1408,7 @@ def write_train_config(config, epochs, tmp, **changes):
                sample_dir=str(Path(tmp) / "samples"), save_best=False,
                sample_start_epoch=epochs + 1)
     run.update(changes)
+    Path(tmp).mkdir(parents=True, exist_ok=True)
     path = Path(tmp) / f"cifar10_{config['model_type']}_fixtures.py"
     path.write_text(f"config = {run!r}\n")
     return path
@@ -1393,11 +1428,12 @@ def time_train_steps(trainer, images, labels):
     return images.shape[0] / statistics.median(times)
 
 
-def timed_rates(label, trainer, batch=None, plain_runs=2):
+def timed_rates(label, trainer, batch=None, plain_runs=2, kernel_runs=2):
     """Train images/s through the trainer's own step with the kernels and
-    with the plain versions (kernels, `plain_runs` times plain, kernels) on
-    its first batch (or on `batch`, (images, labels) on the card), and the
-    peak device memory of the kernel path's steps."""
+    with the plain versions (kernels, `plain_runs` times plain, then
+    kernels again unless `kernel_runs` is 1) on its first batch (or on
+    `batch`, (images, labels) on the card), and the peak device memory of
+    the kernel path's steps."""
     if batch is None:
         images, labels = next(iter(trainer.train_loader))
         images = torch.from_numpy(images).to("cuda")
@@ -1406,7 +1442,8 @@ def timed_rates(label, trainer, batch=None, plain_runs=2):
     else:
         images, labels = batch
     rates, peak = {"kernels": [], "plain": []}, 0
-    for path in ("kernels", *["plain"] * plain_runs, "kernels"):
+    for path in ("kernels", *["plain"] * plain_runs,
+                 *["kernels"] * (kernel_runs - 1)):
         if path == "plain":
             with plain_kernels():
                 rates[path].append(time_train_steps(trainer, images, labels))
@@ -1423,11 +1460,11 @@ def timed_rates(label, trainer, batch=None, plain_runs=2):
 
 
 def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
-                   extra=(), **changes):
+                   extra=(), loss_key="train/loss", **changes):
     """`train.main` for `epochs` epochs at full width, with exactly
     `per_step` launches a step (and the (counts, n) pairs of `extra`
-    besides), finite losses and a checkpoint; `changes` go into its config.
-    Returns the trainer and the launches."""
+    besides), finite losses (logged under `loss_key`) and a checkpoint;
+    `changes` go into its config. Returns the trainer and the launches."""
     batch_size = config["batch_size"]
     cfg_path = write_train_config(config, epochs, tmp, **changes)
     torch.cuda.synchronize()
@@ -1441,7 +1478,7 @@ def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
     metrics = [json.loads(line) for line in (
         trainer.save_dir / f"{config['experiment_name']}.metrics.jsonl"
     ).read_text().splitlines()]
-    losses = [m["train/loss"] for m in metrics if "train/loss" in m]
+    losses = [m[loss_key] for m in metrics if loss_key in m]
     ckpt = trainer.save_dir / "current_model.pth"
     print(f"train.main {label}: {epochs} epochs, {steps} steps of "
           f"batch {batch_size} in {wall:.3f} s; losses {losses}; launches "
@@ -1458,7 +1495,8 @@ def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
 
 
 def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
-                     epochs=TRAIN_EPOCHS, steps_per_epoch=1, plain_runs=2):
+                     epochs=TRAIN_EPOCHS, steps_per_epoch=1, plain_runs=2,
+                     kernel_runs=2):
     """`train.main` for `epochs` epochs at full width (on the fixtures:
     three epochs of one batch of 128), with exactly `per_step` launches a
     step; then train images/s with the kernels and with the plain versions,
@@ -1469,7 +1507,8 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
     trainer, launches = run_train_main(label, config, per_step, tmp, epochs,
                                        steps_per_epoch)
     ckpt = trainer.save_dir / "current_model.pth"
-    rates, peak = timed_rates(label, trainer, plain_runs=plain_runs)
+    rates, peak = timed_rates(label, trainer, plain_runs=plain_runs,
+                              kernel_runs=kernel_runs)
 
     for i, (method, calls, flags) in enumerate(samplers):
         out = Path(tmp) / f"sample_{i}_{method}"
@@ -1590,7 +1629,8 @@ def phase_process(kind, gen, smi, tmp):
         samplers.append(("ddpm", model_calls(dict(config, **changes), "ddpm",
                                              steps), flags))
     launches, rates, peak = phase_train_main(label, config, UNET_STEP,
-                                             UNET_FORWARD, samplers, tmp)
+                                             UNET_FORWARD, samplers, tmp,
+                                             plain_runs=1, kernel_runs=1)
     print(f"{label}: {statistics.median(rates['kernels']):.2f} train "
           f"images/s at batch {TRAIN_BATCH} fp32 (plain versions: "
           f"{statistics.median(rates['plain']):.2f}), peak device memory "
@@ -3800,7 +3840,8 @@ def phase_sr(unet_ckpt, tmp, gen, smi):
     trainer, train_launches = run_train_main(
         "SR UNet", dict(config, batch_size=batch), UNET_STEP, tmp, 1,
         SYNTHETIC_IMAGES // batch)
-    rates, peak = timed_rates("SR UNet", trainer)
+    rates, peak = timed_rates("SR UNet", trainer, plain_runs=1,
+                              kernel_runs=1)
     ckpt = trainer.save_dir / "current_model.pth"
     del trainer
 
@@ -4319,6 +4360,347 @@ def phase_int8(model, gen, smi):
     return out
 
 
+# ------------------------------------------------------- few-step trainers
+# Consistency training: two UNet forwards (the student's, and the target's
+# without a gradient) and one backward a step; consistency distillation
+# (guided: one teacher call on the [cond; uncond] batch) and progressive
+# distillation (two teacher forwards): three forwards and one backward
+CT_STEP = dict(UNET_STEP, gn=2 * GN_PER_FORWARD, attn=2 * ATTN_PER_FORWARD)
+DISTILL_STEP = dict(UNET_STEP, gn=3 * GN_PER_FORWARD,
+                    attn=3 * ATTN_PER_FORWARD)
+CT_GRIDS = [10, 20]  # `ct_grid_schedule`: 3 epochs, 1 on 10 points, 2 on 20
+CM_STEPS = 2  # the consistency checkpoints' embedded step count
+PD_STEPS = 4  # the progressive student's count (its teacher's grid: 8)
+REFLOW_PAIRS, REFLOW_BATCH, REFLOW_TEACHER_STEPS = 256, 128, 10
+TOL_FEWSTEP_SAMPLES = 1e-4  # consistency-2 images in [0, 1], kernels vs plain
+
+
+class ConsistencyObjective:
+    """Consistency training's loss in the `p_losses` form that
+    `phase_train_grads` calls: the batch's t % (grid pairs) picks a pair of
+    the CT_GRIDS[0]-point grid, the target is a frozen copy of the model
+    made here (the student's start, as the trainer's)."""
+
+    def __init__(self, config, model):
+        self.schedule = factory.get_diffusion(
+            dict(config, diffusion_type="ddpm")).schedule_on("cuda")
+        self.grid = [g.to("cuda") for g in cm_lib.cd_grids(
+            config["num_timesteps"], CT_GRIDS[0])]
+        self.target = copy.deepcopy(model).eval().requires_grad_(False)
+
+    def p_losses(self, model, x0, t, noise, y=None):
+        idx = t % len(self.grid[0])
+
+        def pair(m):
+            return dbase.wrap_model_as_eps_x0(self.schedule, m, "eps")
+        return cm_lib.consistency_training_loss(
+            self.schedule, pair(model), pair(self.target), x0, noise,
+            self.grid[0][idx], self.grid[1][idx], y, sigma_data=0.5,
+            timestep_scaling=10.0)
+
+
+def fewstep_sample(label, ckpt, flags, calls, tmp, compare_plain=False):
+    """`sample.main` of 80 images from `ckpt` with `flags` (CFG 3 unless
+    they say otherwise), exactly one UNet forward's launches for each of
+    `calls` model calls, finite; with `compare_plain`, the same call inside
+    `plain_kernels()` within TOL_FEWSTEP_SAMPLES. Returns the launches and
+    the sampling seconds."""
+    argv = ["--checkpoint", str(ckpt), "--cfg_scale", str(CFG_SCALE),
+            "--num_samples", str(SAMPLES), "--batch_size", str(SAMPLES),
+            "--seed", "0", "--use_ema", "--device", "cuda", "--output_dir",
+            str(Path(tmp) / label.replace(" ", "_")), *flags]
+    result, launches = checked_sample(label, argv,
+                                      scaled(UNET_FORWARD, calls))
+    if compare_plain:
+        with plain_kernels():
+            reset_launches()
+            plain = sample.main(argv)
+            torch.cuda.synchronize()
+            plain_launched = read_launches()
+        err = float(np.abs(result["samples"] - plain["samples"]).max())
+        print(f"sample.main {label}, kernels vs plain: max_abs {err:.3e} "
+              f"(bar {TOL_FEWSTEP_SAMPLES:g}); plain sampling "
+              f"{plain['sampling_seconds']:.3f} s")
+        if err > TOL_FEWSTEP_SAMPLES or any(plain_launched.values()):
+            raise AssertionError(f"{label}: max_abs {err}, plain launches "
+                                 f"{plain_launched}")
+    return launches, result["sampling_seconds"]
+
+
+def fewstep_serve(ckpt, smi):
+    """A consistency checkpoint behind `serve`'s batched mode over HTTP
+    (`--batch_size 16`, CFG 3): one npy request with exactly its 2 model
+    calls' launches, against the service's own `sample_with_cfg` on the
+    request's seeded draw; then `--continuous`, which refuses it."""
+    service = serve.SamplerService(str(ckpt), batch_size=SERVE_SLOTS,
+                                   use_ema=True, device="cuda")
+    if not isinstance(service.diffusion, ConsistencyModel):
+        raise AssertionError(f"serve built {type(service.diffusion)}")
+    print(f"serve consistency-{CM_STEPS}: warm-up {service.warmup():.3f} s")
+    httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0),
+                                      serve.make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever)
+    thread.start()
+    labels = [i % 10 for i in range(SERVE_SLOTS)]
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        status, _, data = http_request(
+            httpd.server_address, "POST", "/generate",
+            {"num_samples": SERVE_SLOTS, "labels": labels,
+             "seed": SERVE_SEED, "cfg_scale": CFG_SCALE, "format": "npy"})
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    if status != 200 or launches != scaled(UNET_FORWARD, CM_STEPS):
+        raise AssertionError(f"serve consistency: {status}, launches "
+                             f"{launches}")
+    images = np.load(io.BytesIO(data))
+    with torch.no_grad():
+        ref = service.diffusion.sample_with_cfg(
+            service.model, (SERVE_SLOTS, 32, 32, 3),
+            torch.as_tensor(np.asarray(labels) + 1, device="cuda"),
+            torch.Generator(device="cuda").manual_seed(SERVE_SEED),
+            cfg_scale=CFG_SCALE)
+    err = float(np.abs(images - np.clip((ref.cpu().numpy() + 1) / 2, 0, 1))
+                .max())
+    print(f"serve consistency-{CM_STEPS} batched: {SERVE_SLOTS} images CFG "
+          f"{CFG_SCALE} in {seconds:.3f} s over HTTP on {smi}; against "
+          f"sample_with_cfg on the request's draw max_abs {err:.3e}; "
+          f"launches {launches}")
+    if err > TOL_SERVE_BATCHED:
+        raise AssertionError(f"serve consistency max_abs {err}")
+    del service
+    try:
+        serve.SamplerService(str(ckpt), sampling_method="ddim",
+                             continuous=True, device="cuda")
+    except ValueError as e:
+        if "requires a VP" not in str(e):
+            raise
+        print(f"serve --continuous refuses the consistency checkpoint: {e}")
+    else:
+        raise AssertionError("serve --continuous took a consistency "
+                             "checkpoint")
+    return launches, seconds
+
+
+def run_tool(label, tool, config, tmp, per_step, epochs, **changes):
+    """A few-step tool's `main` (`tools/distill.py`) on a config file
+    written from `config` (`write_train_config`: the fixtures, `epochs`
+    epochs of one batch of 128), with exactly `per_step` launches a step.
+    Returns the trainer and the launches."""
+    path = write_train_config(config, epochs, tmp, **changes)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    trainer = tool.main(["--config", str(path), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = read_launches()
+    print(f"{label}: {trainer.global_step} steps of batch "
+          f"{config['batch_size']} in {wall:.3f} s; launches {launches}")
+    if launches != scaled(per_step, trainer.global_step) or (
+            trainer.global_step != epochs):
+        raise AssertionError(f"{label}: {trainer.global_step} steps, "
+                             f"launches {launches}")
+    return trainer, launches
+
+
+def phase_reflow(flow_ckpt, tmp, smi):
+    """`tools/reflow.py` on the flow-matching UNet `phase_process` trained:
+    REFLOW_PAIRS pairs from its Euler sampler at REFLOW_TEACHER_STEPS steps
+    with CFG 3 (2 batches of 128: 20 calls of one UNet forward at 256 rows,
+    counted at `synthesize_pairs`), then one round of 2 epochs (4 steps);
+    then 1-step Euler `sample` of `reflow_round1.pth`."""
+    counted = {}
+    synthesize = ReflowTrainer.synthesize_pairs
+
+    def counting(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = read_launches()
+        out = synthesize(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        counted.update({k: v - before[k] for k, v in read_launches().items()})
+        return out
+
+    path = Path(tmp) / "reflow.json"
+    path.write_text(json.dumps({
+        "teacher_checkpoint": str(flow_ckpt), "reflow_pairs": REFLOW_PAIRS,
+        "pair_batch_size": REFLOW_BATCH,
+        "teacher_sample_steps": REFLOW_TEACHER_STEPS,
+        "reflow_cfg_scale": CFG_SCALE, "reflow_rounds": 1, "epochs": 2,
+        "optimizer": "adamw", "learning_rate": 1e-4,
+        "save_dir": str(Path(tmp) / "reflow"), "seed": 0}))
+    ReflowTrainer.synthesize_pairs = counting
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        trainer = reflow_tool.main(["--config", str(path), "--device",
+                                    "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        total = read_launches()
+    finally:
+        ReflowTrainer.synthesize_pairs = synthesize
+    pair_calls = REFLOW_PAIRS // REFLOW_BATCH * REFLOW_TEACHER_STEPS
+    train_launches = {k: v - counted[k] for k, v in total.items()}
+    print(f"reflow: {REFLOW_PAIRS} pairs ({pair_calls} teacher calls at "
+          f"{2 * REFLOW_BATCH} rows) and {trainer.global_step} steps in "
+          f"{wall:.3f} s; pair launches {counted}, train launches "
+          f"{train_launches}")
+    if counted != scaled(UNET_FORWARD, pair_calls) or (
+            train_launches != scaled(UNET_STEP, trainer.global_step)
+            or trainer.global_step != 2 * REFLOW_PAIRS // REFLOW_BATCH):
+        raise AssertionError(f"reflow launches: pairs {counted}, train "
+                             f"{train_launches}")
+    sample_launches, seconds = fewstep_sample(
+        "reflow Euler-1", trainer.save_dir / "reflow_round1.pth",
+        ["--num_inference_steps", "1"], 1, tmp)
+    return {"pairs": counted, "train": train_launches,
+            "sample": sample_launches, "seconds": seconds}
+
+
+def phase_optimizers(config, smi):
+    """12 DDPM steps (the median of 10 after 2) of the full-width UNet at
+    batch 128 with AdamW, Adafactor and Lion (the same init), each step
+    exactly one step's launches, a finite loss, peak memory and the
+    optimizer state's bytes."""
+    out = {}
+    for name in ("adamw", "adafactor", "lion"):
+        run = dict(config, optimizer=name, data_root=str(FIXTURE_DATA))
+        with tempfile.TemporaryDirectory() as tmp:
+            run.update(save_dir=str(Path(tmp) / "checkpoints"),
+                       sample_dir=str(Path(tmp) / "samples"))
+            torch.manual_seed(0)
+            loader = factory.get_dataloader(
+                run, factory.get_dataset(run, train=True), train=True)
+            trainer = DiffusionTrainer(
+                factory.get_model(run), factory.get_diffusion(run), loader,
+                run, "cuda")
+            rates, peak = time_train_rates(trainer, runs=1)
+            images, labels = next(iter(loader))
+            reset_launches()
+            loss = trainer.train_step(torch.from_numpy(images).to("cuda"),
+                                      torch.from_numpy(labels).to("cuda"))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            state = trainer.optimizer.state_dict()["state"]
+            state_bytes = sum(t.numel() * t.element_size()
+                              for s in state.values() for t in s.values()
+                              if torch.is_tensor(t))
+        print(f"DDPM UNet with {name}: {rates[0]:.2f} train images/s at "
+              f"batch {TRAIN_BATCH} fp32, peak device memory "
+              f"{peak / 2**20:.1f} MiB, optimizer state "
+              f"{state_bytes / 2**20:.1f} MiB, loss {loss.item():.5f}; "
+              f"launches a step {launches}; on {smi}")
+        if not (math.isfinite(loss.item()) and launches == expect(
+                **UNET_STEP)):
+            raise AssertionError(f"{name}: loss {loss}, launches {launches}")
+        out[name] = {"rate": rates[0], "peak": peak,
+                     "state_bytes": state_bytes}
+        del trainer
+    return out
+
+
+def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
+    """The few-step trainers at the full width of configs/cifar10_unet.py
+    on the fixtures: consistency training (the loss and gradients against
+    `plain_kernels()`, `train` with two grid stages, train images/s in fp32
+    and bf16, then of its checkpoint `sample` with 2-step CFG 3 against
+    the plain versions, `evaluate` of 50 samples, a 16-image `serve`
+    request and `--continuous`'s refusal); consistency and progressive
+    distillation of `unet_ckpt` through `tools/distill.py` and a sample of
+    each; reflow of `flow_ckpt` (`phase_reflow`); Adafactor and Lion beside
+    AdamW (`phase_optimizers`). Returns the launches by path and the
+    figures."""
+    config = load_config(CONFIG)
+    ct_config = dict(config, diffusion_type="consistency",
+                     ct_grid_schedule=CT_GRIDS, consistency_sample_steps=CM_STEPS,
+                     save_current_interval=TRAIN_EPOCHS)
+    launches, figures = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for precision in ("fp32", "bf16"):
+            run = (ct_config if precision == "fp32" else
+                   dict(ct_config, mixed_precision="bf16"))
+            per_step = CT_STEP if precision == "fp32" else bf16_counts(
+                CT_STEP)
+            torch.manual_seed(0)
+            model = factory.get_model(run).to("cuda").eval()
+            phase_train_grads(
+                f"UNet consistency training {precision}", model, run,
+                per_step, gen, process=ConsistencyObjective(run, model),
+                tol=((TOL_LOSS, TOL_GRAD) if precision == "fp32"
+                     else (TOL_BF16_LOSS, TOL_BF16_GRAD)))
+            del model
+            trainer, launches[f"ct_train_{precision}"] = run_train_main(
+                f"UNet consistency training {precision}", run, per_step,
+                Path(tmp) / precision, TRAIN_EPOCHS, 1, loss_key="ct/loss")
+            if trainer.grid_for_epoch() != [CT_GRIDS[0]] + [CT_GRIDS[1]] * 2:
+                raise AssertionError(f"CT grids {trainer.grid_for_epoch()}")
+            rates, peak = time_train_rates(trainer, runs=1)
+            figures[f"ct_{precision}"] = {"rate": rates[0], "peak": peak}
+            print(f"UNet consistency training {precision}: {rates[0]:.2f} "
+                  f"train images/s at batch {TRAIN_BATCH}, peak device "
+                  f"memory {peak / 2**20:.1f} MiB, on {smi}")
+            if precision == "fp32":
+                ct_ckpt = trainer.save_dir / "consistency_model.pth"
+                ct_model, ct_cfg = trainer.ema_model, trainer.out_config()
+            del trainer
+        launches["ct_sample_fp32"], seconds = fewstep_sample(
+            f"consistency-{CM_STEPS} CFG {CFG_SCALE}", ct_ckpt, [], CM_STEPS,
+            tmp, compare_plain=True)
+        figures["ct_sample_seconds"] = seconds
+        print(f"consistency-{CM_STEPS} CFG {CFG_SCALE}: "
+              f"{SAMPLES / seconds:.2f} samples/s fp32 ({CM_STEPS} model "
+              f"calls), {ddim_seconds / seconds:.2f}x DDIM-{STEPS}'s "
+              f"{SAMPLES / ddim_seconds:.2f}, on {smi}")
+        launches["ct_evaluate_fp32"], _, eval_seconds = run_evaluate(
+            "UNet consistency", ct_model, ct_cfg,
+            ["--num_samples", str(EVAL_DIT_SAMPLES), "--batch_size",
+             str(EVAL_DIT_SAMPLES)], scaled(UNET_FORWARD, CM_STEPS), tmp)
+        figures["ct_evaluate_seconds"] = eval_seconds
+        launches["ct_serve_fp32"], figures["ct_serve_seconds"] = (
+            fewstep_serve(ct_ckpt, smi))
+        del ct_model
+
+        distill = dict(config, teacher_checkpoint=str(unet_ckpt))
+        cd, launches["cd_train_fp32"] = run_tool(
+            "consistency distillation (tools/distill.py)", distill_tool,
+            distill, Path(tmp) / "cd", DISTILL_STEP, TRAIN_EPOCHS,
+            distill_method="consistency", distill_cfg_scale=CFG_SCALE,
+            consistency_sample_steps=CM_STEPS)
+        figures["cd_rate"] = time_train_rates(cd, runs=1)[0][0]
+        cd_ckpt = cd.save_dir / "consistency_model.pth"
+        del cd
+        launches["cd_sample_fp32"], _ = fewstep_sample(
+            f"CD consistency-{CM_STEPS}", cd_ckpt, ["--cfg_scale", "1"],
+            CM_STEPS, tmp)
+        pd, launches["pd_train_fp32"] = run_tool(
+            "progressive distillation (tools/distill.py)", distill_tool,
+            distill, Path(tmp) / "pd", DISTILL_STEP, 2,
+            distill_method="progressive", distill_steps=PD_STEPS)
+        figures["pd_rate"] = time_train_rates(pd, runs=1)[0][0]
+        del pd
+        launches["pd_sample_fp32"], _ = fewstep_sample(
+            f"PD DDIM-{PD_STEPS}",
+            Path(tmp) / "pd" / "checkpoints" /
+            f"distilled_{PD_STEPS:04d}step.pth",
+            ["--sampling_method", "ddim", "--num_inference_steps",
+             str(PD_STEPS)], PD_STEPS, tmp)
+        reflow = phase_reflow(flow_ckpt, tmp, smi)
+    launches.update({"reflow_pairs_fp32": reflow["pairs"],
+                     "reflow_train_fp32": reflow["train"],
+                     "reflow_sample_fp32": reflow["sample"]})
+    figures["reflow_sample_seconds"] = reflow["seconds"]
+    figures["optimizers"] = phase_optimizers(config, smi)
+    return {"launches": launches, "figures": figures}
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -4331,6 +4713,7 @@ def main():
     # what the later phases take from the earlier ones: the trained UNet
     keep = tempfile.TemporaryDirectory()
     unet_ckpt = Path(keep.name) / "unet_trained.pth"
+    flow_ckpt = Path(keep.name) / "flow_trained.pth"
 
     phase_build()
     phase_tensor_cores()
@@ -4366,6 +4749,9 @@ def main():
     for kind in PROCESS_SAMPLERS:
         with tempfile.TemporaryDirectory() as tmp:
             processes[kind] = phase_process(kind, gen, smi, tmp)
+            if kind == "flow_matching":  # reflow's teacher
+                shutil.copy(Path(tmp) / "checkpoints" / "current_model.pth",
+                            flow_ckpt)
 
     dim_config = load_config(DIM_CONFIG)
     scan_err, scan_times = phase_scan(gen)
@@ -4409,7 +4795,7 @@ def main():
         dim64_launches, dim64_rates, dim64_peak = phase_train_main(
             "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers, tmp,
             epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH,
-            plain_runs=1)
+            plain_runs=0, kernel_runs=1)
     with tempfile.TemporaryDirectory() as tmp:
         _, dim64_small_launches = run_train_main(
             "DiM 64x64 batch 8",
@@ -4428,6 +4814,9 @@ def main():
     start = time.perf_counter()
     super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
     print(f"phase_sr: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    fewstep = phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, seconds)
+    print(f"phase_fewstep: {time.perf_counter() - start:.1f} s")
     keep.cleanup()
     start = time.perf_counter()
     moe = phase_moe(gen, smi)
@@ -4474,9 +4863,8 @@ def main():
           f"memory {remat_peak / 2**20:.1f} MiB against "
           f"{dim_peak / 2**20:.1f} MiB without remat, on {smi}")
     print(f"DiM 64x64: {statistics.median(dim64_rates['kernels']):.2f} train "
-          f"images/s at batch {DIM64_BATCH} (plain versions: "
-          f"{statistics.median(dim64_rates['plain']):.2f}), peak device "
-          f"memory {dim64_peak / 2**20:.1f} MiB, on {smi}")
+          f"images/s at batch {DIM64_BATCH}, peak device memory "
+          f"{dim64_peak / 2**20:.1f} MiB, on {smi}")
     print(f"DiT ({dit['params']} parameters): {SAMPLES / dit['seconds']:.2f} "
           f"samples/s DDIM-{STEPS} CFG {CFG_SCALE} fp32 (plain versions: "
           f"{SAMPLES / dit['plain_seconds']:.2f}); "
@@ -4568,6 +4956,37 @@ def main():
         print(f"evaluate {label} stage seconds: " + ", ".join(
             f"{k} {v:.3f}" for k, v in evaluated[f"{key}_seconds"].items())
             + f"; on {smi}")
+    few = fewstep["figures"]
+    ddpm_rate = statistics.median(rates["kernels"])
+    for label, key in (("consistency training fp32", "ct_fp32"),
+                       ("consistency training bf16", "ct_bf16")):
+        print(f"UNet {label}: {few[key]['rate']:.2f} train images/s at batch "
+              f"{TRAIN_BATCH} ({few[key]['rate'] / ddpm_rate:.3f}x the fp32 "
+              f"DDPM step's {ddpm_rate:.2f}), peak device memory "
+              f"{few[key]['peak'] / 2**20:.1f} MiB; on {smi}")
+    for label, key in (("consistency distillation CFG 3", "cd_rate"),
+                       ("progressive distillation", "pd_rate")):
+        print(f"UNet {label}: {few[key]:.2f} train images/s at batch "
+              f"{TRAIN_BATCH} fp32 ({few[key] / ddpm_rate:.3f}x DDPM's); on "
+              f"{smi}")
+    for label, key, calls in (
+            (f"consistency-{CM_STEPS} CFG {CFG_SCALE}", "ct_sample_seconds",
+             CM_STEPS),
+            (f"reflow Euler-1 CFG {CFG_SCALE}", "reflow_sample_seconds", 1)):
+        sec = few[key]
+        print(f"UNet {label} ({calls} model calls): {SAMPLES / sec:.2f} "
+              f"samples/s fp32 ({seconds / sec:.2f}x DDIM-{STEPS}'s "
+              f"{SAMPLES / seconds:.2f}); on {smi}")
+    print(f"serve consistency-{CM_STEPS}: {SERVE_SLOTS} images CFG "
+          f"{CFG_SCALE} in {few['ct_serve_seconds']:.3f} s over HTTP; "
+          f"evaluate of {EVAL_DIT_SAMPLES} stage seconds " + ", ".join(
+              f"{k} {v:.3f}" for k, v in few["ct_evaluate_seconds"].items())
+          + f"; on {smi}")
+    for opt_name, fig in few["optimizers"].items():
+        print(f"DDPM UNet {opt_name}: {fig['rate']:.2f} train images/s at batch "
+              f"{TRAIN_BATCH} fp32, peak device memory "
+              f"{fig['peak'] / 2**20:.1f} MiB, optimizer state "
+              f"{fig['state_bytes'] / 2**20:.1f} MiB; on {smi}")
     fwd_ms, fwd_plain = scan_times[("fwd", 2 * SAMPLES, 256, False)]
     bwd_ms, bwd_plain = scan_times[("bwd", TRAIN_BATCH, 256)]
     k7_ms, k7_plain = scan_times[("bwd_nostate", TRAIN_BATCH, 256)]
@@ -4620,6 +5039,17 @@ def main():
                 "guided_sample": guided["launches"],
                 **super_res["launches"]}
         return {path: run[key] for path, run in runs.items() if run[key]}
+    def fewstep_launches(key):
+        """A UNet kernel's launches on the few-step paths: consistency
+        training's `train.main` (fp32 and bf16), `sample`, `evaluate` and
+        `serve` of its checkpoint, the two distillations' and reflow's
+        tools (reflow's pair synthesis counted apart) and a sample of each
+        result; a float32 row lists the fp32 runs, a bf16 row the runs of
+        its form."""
+        return {path: run[key]
+                for path, run in fewstep["launches"].items()
+                if run[key] and (key.endswith("_bf16")
+                                 or path.endswith("_fp32"))}
     def latent_launches(key):
         """A float32 kernel's launches on the latent slice's paths: both
         stages' `train.main`, `sample.main` (DDIM-50 CFG and img2img, decode
@@ -4640,7 +5070,8 @@ def main():
                               "evaluate": evaluated["unet_launches"]["gn"],
                               **serve_launches("gn"),
                               **latent_launches("gn"),
-                              **later_launches("gn")},
+                              **later_launches("gn"),
+                              **fewstep_launches("gn")},
          "max_abs_err": max(gn_err, main_err["gn"], latent["worst"]["gn"],
                             super_res["worst"]["gn"],
                             classified["worst"]["gn"]),
@@ -4656,7 +5087,8 @@ def main():
          "launches_by_path": {"train": train_launches["gn_bwd"],
                               **path_launches("gn_bwd", train_only=True),
                               **latent_launches("gn_bwd"),
-                              **later_launches("gn_bwd")},
+                              **later_launches("gn_bwd"),
+                              **fewstep_launches("gn_bwd")},
          "max_abs_err": max(gn_bwd_err, gn_step_err,
                             latent["worst"]["gn_bwd"],
                             super_res["worst"]["gn_bwd"],
@@ -4679,7 +5111,8 @@ def main():
                               "evaluate": evaluated["unet_launches"]["attn"],
                               **serve_launches("attn"),
                               **latent_launches("attn"),
-                              **later_launches("attn")},
+                              **later_launches("attn"),
+                              **fewstep_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"],
                             latent["worst"]["attn"],
@@ -4701,7 +5134,8 @@ def main():
                               "dit_train_remat":
                                   dit["remat_launches"]["attn_bwd"],
                               **latent_launches("attn_bwd"),
-                              **later_launches("attn_bwd")},
+                              **later_launches("attn_bwd"),
+                              **fewstep_launches("attn_bwd")},
          "dropout_launches": dit["train_launches"]["attn_bwd_dropout"],
          "max_abs_err": max(bwd_err, dit["dropout_err"],
                             latent["worst"]["attn_bwd"],
@@ -4795,7 +5229,7 @@ def main():
              "sample_bf16_deepcache": knobs["UNet bf16 DeepCache depth 1"][
                  0]["gn_bf16"],
              "train_bf16": unet16["train_launches"]["gn_bf16"],
-             **serve_launches("gn_bf16")},
+             **serve_launches("gn_bf16"), **fewstep_launches("gn_bf16")},
          "max_abs_err": max(bf16["gn_err"][0], latent["worst"]["gn_bf16"]),
          "ms": gn_t["fwd"], "plain_ms": gn_t["fwd_plain"],
          **gn_b["fwd"].keys(), "library_ms": None},
@@ -4804,7 +5238,8 @@ def main():
          "replaces": "diffusion_models_collection_tpu/ops/fused_norm.py:125",
          "launches": unet16["train_launches"]["gn_bwd_bf16"],
          "launches_by_path": {
-             "train_bf16": unet16["train_launches"]["gn_bwd_bf16"]},
+             "train_bf16": unet16["train_launches"]["gn_bwd_bf16"],
+             **fewstep_launches("gn_bwd_bf16")},
          "max_abs_err": max(bf16["gn_err"][1],
                             latent["worst"]["gn_bwd_bf16"]),
          "ms": gn_t["bwd"], "plain_ms": gn_t["bwd_plain"],
@@ -4822,7 +5257,7 @@ def main():
              "dit_sample_bf16_dpmpp": dit_fast_launches["attn_bf16"],
              "dit_train_bf16": dit16["train_launches"]["attn_bf16"],
              "evaluate_dit_bf16": evaluated["dit_launches"]["attn_bf16"],
-             **serve_launches("attn_bf16")},
+             **serve_launches("attn_bf16"), **fewstep_launches("attn_bf16")},
          "max_abs_err": max(bf16["attn_err"], latent["worst"]["attn_bf16"]),
          "ms": at["unet_fwd"]["fwd"], "plain_ms": at["unet_fwd"]["fwd_plain"],
          **ab["unet_fwd"][1].keys(),
@@ -4843,7 +5278,8 @@ def main():
          "launches": unet16["train_launches"]["attn_bwd_bf16"],
          "launches_by_path": {
              "train_bf16": unet16["train_launches"]["attn_bwd_bf16"],
-             "dit_train_bf16": dit16["train_launches"]["attn_bwd_bf16"]},
+             "dit_train_bf16": dit16["train_launches"]["attn_bwd_bf16"],
+             **fewstep_launches("attn_bwd_bf16")},
          "max_abs_err": max(bf16["attn_err"], latent["worst"]["attn_bf16"]),
          "ms": at["unet_bwd"]["bwd"], "plain_ms": at["unet_bwd"]["bwd_plain"],
          **ab["unet_bwd"][1].keys(),
@@ -4907,7 +5343,8 @@ def main():
                             f"int8_sample_{precision}"] = run[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

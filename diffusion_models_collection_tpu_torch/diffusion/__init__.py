@@ -2,8 +2,10 @@
 samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC; uniform or Karras grids),
 flow matching and EDM, with img2img and inpainting (RePaint on DDPM, DDIM
 inversion and restarts); PAG (`pag`) and DeepCache (`deepcache`) sampling
-around them."""
+around them; consistency models (`consistency`) and progressive
+distillation's objective (`distill`)."""
 
+from .consistency import ConsistencyModel
 from .ddim import DDIM, ddim_step
 from .ddpm import DDPM, posterior_step
 from .dpm_solver import DPMSolverPP
@@ -13,6 +15,6 @@ from .schedule import (NoiseSchedule, ddim_timesteps, extract,
                        karras_timesteps, make_betas)
 from .unipc import UniPC
 
-__all__ = ["DDIM", "DDPM", "DPMSolverPP", "EDM", "FlowMatching",
-           "NoiseSchedule", "UniPC", "ddim_step", "ddim_timesteps", "extract",
+__all__ = ["ConsistencyModel", "DDIM", "DDPM", "DPMSolverPP", "EDM",
+           "FlowMatching", "NoiseSchedule", "UniPC", "ddim_step", "ddim_timesteps", "extract",
            "karras_timesteps", "make_betas", "posterior_step"]

@@ -388,9 +388,11 @@ class Trajectory:
 
 
 def report_progress(progress: bool, desc: str, done: int, total: int,
-                    every: int = 5) -> None:
+                    every: int = 5, file=None) -> None:
+    """Print `desc: step done/total` about `every` times over `total`
+    steps (to `file`, stdout by default) when `progress`."""
     if progress and done % max(1, total // every) == 0:
-        print(f"{desc}: step {done}/{total}", flush=True)
+        print(f"{desc}: step {done}/{total}", flush=True, file=file)
 
 
 class VPProcess(ScheduledProcess):

@@ -32,9 +32,9 @@ over a device mesh is not ported (ROADMAP queue 1 item 15). A
 latent-diffusion checkpoint generates the latents of the VAE its config names
 and decodes them before the metric networks see them. `--tome_ratio`
 (with `--tome_mlp`) and `--quantize int8` generate through the DiT's token
-merging and int8 products, to measure their quality cost. Not ported,
-raising `NotImplementedError` with its ROADMAP item: consistency
-checkpoints (item 12).
+merging and int8 products, to measure their quality cost. A consistency
+checkpoint generates with its own multistep sampler at its embedded step
+count (or `--num_inference_steps`), whatever `--sampling_method` says.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from .datasets import DataLoader
 from .diffusion.deepcache import deepcache_sample
 from .factory import get_dataset, get_diffusion, load_model_for_inference
 from .metrics import calculate_all_metrics, compute_swd
-from .pipeline import build_deepcache, wrap_pag
+from .pipeline import build_deepcache, process_flags, wrap_pag
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, save_image, save_image_grid,
@@ -276,15 +276,12 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
 
     print("Creating model...")
     model = load_model_for_inference(checkpoint, config, args.use_ema, device)
-    dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
-    is_flow = dtype_key in ("flow", "flow_matching", "rectified_flow")
-    is_edm = dtype_key == "edm"
-    model_fn = wrap_pag(args, config, model, (is_flow, is_edm))
+    flags = process_flags(config)
+    model_fn = wrap_pag(args, config, model, flags)
     dc_full_fn, dc_shallow_fn = build_deepcache(
-        args, config, model, (is_flow, is_edm),
-        base_wrapped=model_fn is not model)
+        args, config, model, flags, base_wrapped=model_fn is not model)
     if args.num_inference_steps is not None:
-        if args.sampling_method == "ddpm" and not (is_flow or is_edm):
+        if args.sampling_method == "ddpm" and not any(flags):
             raise SystemExit(
                 "--num_inference_steps has no effect with the default DDPM "
                 "eval protocol (always full-step) — pass --sampling_method "

@@ -12,7 +12,8 @@ SR3 super-resolution stages (a `super_resolution` block, `utils/sr.py`:
 the denoiser's input channels double for the upsampled LR image, its
 output keeps the data channels); DDPM training and sampling and the fast
 VP samplers (DDIM, DPM-Solver++ 2M and SDE, UniPC); flow matching and EDM,
-each training and sampling; float32 or mixed precision
+each training and sampling; consistency models (`diffusion_type:
+'consistency'`, their multistep sampler); float32 or mixed precision
 (`mixed_precision: 'bf16'`).
 The datasets and the loader are this package's `datasets/` (numpy and
 ctypes, a copy of the JAX package's: the port imports nothing of it).
@@ -21,8 +22,7 @@ them (the UNet's `pag_perturb`, `freeu`, `deepcache_mode`,
 `deepcache_depth`; the DiT's `pag_perturb`, `tome_ratio`, `tome_mlp`,
 `quant`) and the DiT's Mixture-of-Experts keys (`num_experts`,
 `moe_top_k`, `moe_capacity_factor`), so every config of `configs/` builds.
-Consistency sampling raises, naming the ROADMAP item that ports it; an
-unknown model type raises as in the JAX factory.
+An unknown model type raises as in the JAX factory.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ import torch
 from torch import nn
 
 from .datasets import CustomImageDataset, DataLoader, DiffusionDataset
-from .diffusion import DDIM, DDPM, DPMSolverPP, EDM, FlowMatching, UniPC
+from .diffusion import (DDIM, DDPM, ConsistencyModel, DPMSolverPP, EDM,
+                        FlowMatching, UniPC)
 from .models import VAE, DiM, DiT, NoisyClassifier, UNet
 from .utils.helpers import resolve_image_size
 from .utils.latent import LatentCodec
@@ -125,8 +126,9 @@ def get_diffusion(config: Mapping, sampling_method: str = "ddpm"):
     """The diffusion process of a config, as the JAX factory builds it.
 
     `diffusion_type: 'flow_matching'` (also 'flow', 'rectified_flow') and
-    'edm' own training and sampling, whatever `sampling_method` says, and
-    reject the VP-only keys that do not apply to them. Otherwise
+    'edm' own training and sampling, and 'consistency' sampling, whatever
+    `sampling_method` says; the first two reject the VP-only keys that do
+    not apply to them. Otherwise
     `sampling_method` picks DDIM, DPM-Solver++ (also its SDE form) or
     UniPC on the VP schedule, under the JAX factory's aliases, and DDPM
     for 'ddpm' or any other name (training always runs DDPM's objective).
@@ -180,10 +182,19 @@ def get_diffusion(config: Mapping, sampling_method: str = "ddpm"):
             guidance_rescale=config.get("guidance_rescale", 0.0),
             clip_sample=clip_sample)
     if dtype_key == "consistency":
-        raise NotImplementedError(
-            "diffusion_type 'consistency' is not ported yet: its sampler "
-            "needs a checkpoint distilled by tools/distill.py and comes with "
-            "that trainer (ROADMAP queue 1 item 12)")
+        # a checkpoint of the consistency trainers owns its stack and step
+        # count: DDPM/DDIM grids mean nothing for f(x, t) -> x0
+        return ConsistencyModel(
+            num_timesteps=config["num_timesteps"],
+            num_inference_steps=config.get("num_inference_steps", 2),
+            beta_start=config["beta_start"],
+            beta_end=config["beta_end"],
+            beta_schedule=config["beta_schedule"],
+            prediction_type=config.get("prediction_type", "eps"),
+            sigma_data=config.get("sigma_data", 0.5),
+            timestep_scaling=config.get("timestep_scaling", 10.0),
+            zero_terminal_snr=config.get("zero_terminal_snr", False),
+            clip_sample=clip_sample)
     if dtype_key not in ("ddpm", "diffusion"):
         raise ValueError(
             f"Unknown diffusion_type: {config.get('diffusion_type')!r} "

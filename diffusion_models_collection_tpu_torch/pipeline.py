@@ -2,8 +2,9 @@
 
 Counterpart of `diffusion_models_collection_tpu/pipeline.py` for the
 branches this port serves: DDPM, DDIM, DPM-Solver++ (2M and SDE) and UniPC
-on a VP checkpoint, and the flow-matching and EDM checkpoints' own
-samplers, each with classifier-free guidance (conditional checkpoints with
+on a VP checkpoint, and the flow-matching, EDM and consistency checkpoints'
+own samplers (their step count is the checkpoint's unless
+--num_inference_steps says otherwise), each with classifier-free guidance (conditional checkpoints with
 --cfg_scale > 0; --guidance_rescale and --cfg_interval override the
 config's keys) or plain, optionally returning every step's state;
 --num_inference_steps and --mixed_precision override the config's keys.
@@ -82,18 +83,27 @@ def build_labels(args, config, nrow: int, num_rows: int):
 FAST_SAMPLERS = ("ddim", "dpm++", "dpm++sde", "unipc")
 
 
-def apply_steps_and_precision(args, config, is_flow: bool,
-                              is_edm: bool) -> None:
+def process_flags(config):
+    """(is_flow, is_edm, is_cm): whether the checkpoint's own process is
+    flow matching, EDM or a consistency model, each of which owns its
+    sampler and step count."""
+    dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
+    return (dtype_key in ("flow", "flow_matching", "rectified_flow"),
+            dtype_key == "edm", dtype_key == "consistency")
+
+
+def apply_steps_and_precision(args, config, flags) -> None:
     """The JAX pipeline's step-count rule: --num_inference_steps sets the
-    config's count for the fast samplers and for flow and EDM checkpoints;
-    without it DDIM on a VP checkpoint takes the CLI's default of 50 and
-    every other case keeps the checkpoint's count. --mixed_precision
+    config's count for the fast samplers and for flow, EDM and consistency
+    checkpoints; without it DDIM on a VP checkpoint takes the CLI's default
+    of 50 and every other case keeps the checkpoint's count (a distilled
+    consistency checkpoint's embedded one among them). --mixed_precision
     overrides the compute dtype."""
     method = args.sampling_method.lower()
     if args.num_inference_steps is not None:
-        if method in FAST_SAMPLERS or is_flow or is_edm:
+        if method in FAST_SAMPLERS or any(flags):
             config["num_inference_steps"] = args.num_inference_steps
-    elif method == "ddim" and not (is_flow or is_edm):
+    elif method == "ddim" and not any(flags):
         config["num_inference_steps"] = 50
     if args.mixed_precision is not None:
         config["mixed_precision"] = args.mixed_precision
@@ -155,12 +165,11 @@ def wrap_pag(args, config, model, flags):
     """--pag_scale: the PAG-rectified eps of `model` and the same model
     called with `pag_perturb=True` (else `model` itself), ahead of any
     other wrapper, so the fused-CFG batch inside the samplers sees it."""
-    is_flow, is_edm = flags
     if args.pag_scale == 0.0:
         return model
     if args.pag_scale < 0:
         raise SystemExit("--pag_scale must be >= 0")
-    if is_flow or is_edm:
+    if any(flags):
         raise SystemExit("PAG extrapolates the VP family's eps predictions — "
                          "not flow/edm/consistency checkpoints")
     if str(config.get("prediction_type", "eps")) != "eps":
@@ -188,7 +197,6 @@ def build_deepcache(args, config, model, flags, base_wrapped: bool):
     """--deepcache: the model's 'full' and 'shallow' views at
     --deepcache_depth, or (None, None). Any wrapper of the model (PAG,
     `base_wrapped`) is refused, since the views call the model itself."""
-    is_flow, is_edm = flags
     if args.deepcache <= 0:
         return None, None
     if str(config.get("model_type", "")).lower() != "unet":
@@ -196,7 +204,7 @@ def build_deepcache(args, config, model, flags, base_wrapped: bool):
             "--deepcache caches UNet deep features across steps — DiT/DiM "
             "have no resolution hierarchy to cache (use --tome_ratio for "
             "DiT)")
-    if args.sampling_method.lower() != "ddim" or is_flow or is_edm:
+    if args.sampling_method.lower() != "ddim" or any(flags):
         raise SystemExit("--deepcache is implemented on the DDIM trajectory "
                          "(--sampling_method ddim on a VP checkpoint)")
     # getattr defaults: `evaluate` shares this builder but has only a
@@ -261,10 +269,9 @@ def build_classifier(args, config, flags, nrow: int, num_rows: int, labels,
     own config's dtype; the guidance targets, raw 0..K-1, one a sample), or
     (None, None). The targets are the CFG labels - 1, or built as for a
     conditional checkpoint of the classifier's class count."""
-    is_flow, is_edm = flags
     if not getattr(args, "classifier_checkpoint", None):
         return None, None
-    if is_flow or is_edm:
+    if any(flags):
         raise SystemExit(
             "classifier guidance is defined on the VP (DDPM/DDIM/"
             "DPM++/UniPC) family's eps predictions — not flow/edm/"
@@ -340,7 +347,7 @@ def build_sr(args, config, in_channels: int):
 def validate_editing(args, config, flags, in_channels):
     """The img2img, inpainting, RePaint and restart rules; returns the init
     image (1, H, W, C) in [-1, 1] and the mask (1, H, W, 1), or Nones."""
-    is_flow, is_edm = flags
+    is_flow, is_edm, is_cm = flags
     method = args.sampling_method.lower()
     if args.mask and not args.init_image:
         raise SystemExit("--mask requires --init_image")
@@ -348,7 +355,7 @@ def validate_editing(args, config, flags, in_channels):
         raise SystemExit("--repaint_resample requires --init_image and --mask "
                          "(RePaint is an inpainting schedule)")
     if args.restarts > 0:
-        if method != "ddim" or is_flow or is_edm:
+        if method != "ddim" or any(flags):
             raise SystemExit("--restarts is defined on the deterministic DDIM "
                              "ODE (--sampling_method ddim on a VP checkpoint)")
         if args.init_image:
@@ -358,6 +365,10 @@ def validate_editing(args, config, flags, in_channels):
             raise SystemExit("--restarts requires ddim_eta = 0")
     if not args.init_image:
         return None, None
+    if is_cm:
+        raise SystemExit("img2img is not defined for consistency checkpoints "
+                         "(f(x, t) maps straight to x0 — there is no partial "
+                         "trajectory to start from)")
     if ((method.startswith("dpm++") or method == "unipc")
             and not (is_flow or is_edm)):
         raise SystemExit("img2img supports --sampling_method ddpm/ddim (and "
@@ -395,12 +406,8 @@ class SamplingPipeline:
                 "this is a noise-conditional CLASSIFIER checkpoint — pass it "
                 "via --classifier_checkpoint alongside a diffusion "
                 "checkpoint")
-        dtype_key = str(config.get("diffusion_type", "ddpm")).lower()
-        self.is_flow = dtype_key in ("flow", "flow_matching",
-                                     "rectified_flow")
-        self.is_edm = dtype_key == "edm"
-        flags = (self.is_flow, self.is_edm)
-        apply_steps_and_precision(args, config, self.is_flow, self.is_edm)
+        self.flags = flags = process_flags(config)
+        apply_steps_and_precision(args, config, flags)
         apply_tome(args, config)
         apply_freeu(args, config)
         apply_quantize(args, config)
@@ -440,7 +447,7 @@ class SamplingPipeline:
         `labels`, the CFG labels of all samples, or built), the LR images of
         --sr_source, then check the editing flags and load --init_image and
         --mask, in the JAX pipeline's order."""
-        flags = (self.is_flow, self.is_edm)
+        flags = self.flags
         self.classifier, self.guidance_labels = build_classifier(
             self.args, self.config, flags, nrow, num_rows, labels,
             self.device)

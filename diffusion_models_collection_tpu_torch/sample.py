@@ -9,7 +9,10 @@ DDPM's ancestral sampling over all T steps (the default, which ignores
 `--num_inference_steps`), DDIM, DPM-Solver++ (`dpm++`, its SDE form
 `dpm++sde`) or UniPC (`unipc`), on the config's uniform or Karras grid
 (`timestep_spacing`); a flow-matching or EDM checkpoint samples with its own
-solver whatever `--sampling_method` says. Each with classifier-free
+solver, and a consistency checkpoint (`train` with `diffusion_type:
+'consistency'`, `tools/distill.py`) with its multistep sampler at the step
+count it embeds unless `--num_inference_steps` is given, whatever
+`--sampling_method` says. Each with classifier-free
 guidance and its two knobs (`--guidance_rescale`, `--cfg_interval`).
 Editing and training-free knobs, as the root CLI's: `--init_image` with
 `--strength` (SDEdit on DDPM, DDIM, flow or EDM), `--mask` (inpainting;

@@ -14,8 +14,8 @@
 Counterpart of the repository's `serve.py`, with its flags and HTTP
 interface. Batched mode (the default): every request pads to the fixed
 `--batch_size` and runs the whole trajectory of `--sampling_method` (ddpm,
-ddim, dpm++, dpm++sde, unipc; flow-matching and EDM checkpoints with their
-own solver) under one lock, its images copied to the host inside the lock,
+ddim, dpm++, dpm++sde, unipc; flow-matching, EDM and consistency checkpoints
+with their own solver) under one lock, its images copied to the host inside the lock,
 so two trajectories never share the card. Its initial noise (and DDPM's and
 the SDE's per-step noise) comes from a `torch.Generator` on the device
 seeded with the request's `seed`, so a seed gives the same images on every
@@ -36,8 +36,9 @@ only when asked for with `--device cpu`. `--mixed_precision bf16` overrides
 the checkpoint config's compute dtype (the engine's images stay float32).
 `--tome_ratio` (with `--tome_mlp`) and `--quantize int8` serve a DiT
 through token merging and the int8 products, and compose with each other
-and with bf16. Not ported: consistency checkpoints (item 12), the
-data-parallel split of the batch over several devices (item 15).
+and with bf16. `--continuous` steps DDIM only: it refuses flow-matching, EDM
+and consistency checkpoints with the root daemon's `ValueError`. Not ported:
+the data-parallel split of the batch over several devices (item 15).
 Super-resolution checkpoints are refused, as the root daemon refuses them:
 each request would need an LR image (`sample --sr_source` and
 `tools/cascade.py` run them).
@@ -103,7 +104,6 @@ class SamplerService:
                 "super-resolution checkpoints are not servable: each "
                 "request would need an LR conditioning image (use "
                 "sample.py --sr_source or tools/cascade.py)")
-        # consistency checkpoints raise in get_diffusion (item 12)
         self.model = load_model_for_inference(payload, self.config, use_ema,
                                               self.device)
         self.diffusion = get_diffusion(self.config, sampling_method)
@@ -135,9 +135,9 @@ class SamplerService:
                 raise ValueError(
                     "--continuous runs the stepwise DDIM engine; pass "
                     "--sampling_method ddim")
-            # flow-matching and EDM checkpoints get their own process
-            # whatever sampling_method says: DDIM updates on them would
-            # silently produce garbage
+            # flow-matching, EDM and consistency checkpoints get their own
+            # process whatever sampling_method says: DDIM updates on them
+            # would silently produce garbage
             if not isinstance(self.diffusion, DDIM):
                 raise ValueError(
                     "--continuous requires a VP (DDPM/DDIM-family) "

@@ -12,10 +12,13 @@ space of a trained VAE (`configs/cifar10_latent_unet.py`), or as an SR3
 super-resolution stage (a `super_resolution` block,
 `configs/celeba64_sr_unet.py`: each batch conditions on its own area
 downsample); for that VAE itself (`model_type: 'vae'`,
-`configs/cifar10_vae.py`, `VAETrainer`); and for the noise-conditional
+`configs/cifar10_vae.py`, `VAETrainer`); for the noise-conditional
 classifier of classifier guidance (`model_type: 'classifier'`,
-`configs/cifar10_classifier.py`, `ClassifierTrainer`): one process on one
-device. The seed
+`configs/cifar10_classifier.py`, `ClassifierTrainer`); and consistency
+training from scratch (`diffusion_type: 'consistency'`,
+`ConsistencyTrainingTrainer`; consistency and progressive distillation of a
+trained checkpoint are `tools/distill.py`'s, reflow `tools/reflow.py`'s):
+one process on one device. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout. `--device`
 defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
@@ -23,8 +26,8 @@ asked for with `--device cpu`. The model computes in the config's
 `mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
 activations while the weights, the optimizer state, the EMA and the loss stay
 float32); on CUDA, TF32 is switched off for matrix products and
-convolutions. Consistency training and the JAX trainer's multi-process,
-multi-device launch raise, naming their ROADMAP items.
+convolutions. The JAX trainer's multi-process, multi-device launch
+raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from .factory import get_dataloader, get_dataset, get_diffusion, get_model
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, set_seed)
 from .utils.classifier_trainer import ClassifierTrainer
+from .utils.consistency_trainer import ConsistencyTrainingTrainer
 from .utils.trainer import DiffusionTrainer
 from .utils.vae_trainer import VAETrainer
 
@@ -58,9 +62,6 @@ def main(argv=None):
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])
     model_type = str(config.get("model_type", "")).lower()
-    if str(config.get("diffusion_type", "ddpm")).lower() == "consistency":
-        raise NotImplementedError(
-            "consistency training is not ported yet (ROADMAP queue 1 item 12)")
     generator = set_seed(config.get("seed", 42), device)
     print(f"Device: {device}")
 
@@ -88,6 +89,15 @@ def main(argv=None):
                                     config=config, device=device,
                                     generator=generator,
                                     resume_path=config.get("resume_path"))
+        trainer.train()
+        return trainer
+    if str(config.get("diffusion_type", "ddpm")).lower() == "consistency":
+        # teacher-free (Song et al. 2023 Alg. 3); distilling a trained
+        # checkpoint is tools/distill.py's
+        trainer = ConsistencyTrainingTrainer(
+            model=model, train_loader=train_loader, config=config,
+            device=device, generator=generator,
+            resume_path=config.get("resume_path"))
         trainer.train()
         return trainer
 

@@ -36,7 +36,8 @@ from .ema import ema_update
 from .helpers import count_parameters
 from .profiler import StepTimer
 from .tracker import Tracker, build_tracker
-from .trainer import build_optimizer, restore_checkpoint
+from .trainer import (build_optimizer, progress_shown, report_batch,
+                      restore_checkpoint)
 
 
 class ClassifierTrainer:
@@ -141,6 +142,7 @@ class ClassifierTrainer:
         batches (one host read at its end)."""
         self.train_loader.set_epoch(epoch)
         out: List[torch.Tensor] = []
+        shown, total = progress_shown(self.config), len(self.train_loader)
         for images, labels in self.train_loader:
             if labels is None:
                 raise ValueError("classifier training requires labeled "
@@ -151,6 +153,7 @@ class ClassifierTrainer:
                 y = torch.from_numpy(np.asarray(labels, np.int64)).to(
                     self.device)
                 out.append(self.train_step(x, y))
+            report_batch(shown, epoch, self.epochs, len(out), total)
         if not out:
             return float("nan"), float("nan")
         ce, acc = torch.stack(out).mean(0).tolist()

@@ -15,7 +15,14 @@ step is PyTorch code that launches asynchronously on the model's device:
   at the scheduled learning rate, then the EMA lerp, once per optimizer
   update;
 * the losses stay on the device during an epoch and are read once at its
-  end; a non-finite epoch loss stops the run before the checkpoints rotate.
+  end; a non-finite epoch loss stops the run before the checkpoints rotate;
+* `progress` (the JAX trainer's key): a line a batch on stderr, under a tty
+  (True, the default) or always ('force'); False shows none. The JAX
+  trainer's bar is tqdm's and shows nothing without it; the port prints
+  its own (`progress_shown`, `diffusion/base.py` `report_progress`).
+
+`optimizer` is 'adamw' (default), 'adam', 'adafactor' or 'lion', the last
+two Optax's formulas (`utils/optimizers.py`).
 
 Latent diffusion (`latent_diffusion: true`, `utils/latent.py`): the working
 geometry is the VAE's latent one, each batch is encoded inside the step to a
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import copy
 import math
+import sys
 import time
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -52,11 +60,13 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..diffusion.base import report_progress
 from . import checkpoint as ckpt_lib
 from .ema import ema_update
 from .helpers import count_parameters, resolve_image_size, save_image_grid
 from .latent import LatentCodec
 from .lr_schedules import build_lr_schedule
+from .optimizers import Adafactor, Lion
 from .profiler import StepTimer, profile_trace
 from .sr import SRSpec, make_condition, wrap_model_fn
 from .tracker import Tracker, build_tracker
@@ -138,7 +148,8 @@ def build_optimizer(config: dict, params,
                     updates_per_epoch: int) -> Optimizer:
     """Clip by global norm 1.0, then AdamW (decoupled weight decay) or Adam
     (weight decay as an L2 term added to the gradient), betas (0.9, 0.999),
-    eps 1e-8, at the config's learning-rate schedule."""
+    eps 1e-8, or Optax's Adafactor or Lion (`utils/optimizers.py`), at the
+    config's learning-rate schedule."""
     lr_schedule = build_lr_schedule(config, updates_per_epoch)
     wd = float(config.get("weight_decay", 0.0))
     opt_type = config.get("optimizer", "adamw").lower()
@@ -148,14 +159,28 @@ def build_optimizer(config: dict, params,
         inner = torch.optim.AdamW(params, lr=lr, weight_decay=wd)
     elif opt_type == "adam":
         inner = torch.optim.Adam(params, lr=lr, weight_decay=wd)
-    elif opt_type in ("adafactor", "lion"):
-        raise NotImplementedError(
-            f"optimizer {opt_type!r} is not ported yet (ROADMAP queue 1 "
-            "item 4)")
+    elif opt_type == "adafactor":
+        inner = Adafactor(params, lr=lr, weight_decay=wd)
+    elif opt_type == "lion":
+        inner = Lion(params, lr=lr, weight_decay=wd)
     else:
         raise ValueError(f"Unknown optimizer: {opt_type}")
     return Optimizer(params, inner, lr_schedule,
                      int(config.get("gradient_accumulation_steps", 1)))
+
+
+def progress_shown(config: dict) -> bool:
+    """Whether the trainer prints a line a batch: `progress` 'force', or
+    true (the default) with stderr a terminal."""
+    progress = config.get("progress", True)
+    return progress == "force" or (bool(progress) and sys.stderr.isatty())
+
+
+def report_batch(shown: bool, epoch: int, epochs: int, done: int,
+                 total: int) -> None:
+    """The per-batch progress line of `progress_shown`, on stderr."""
+    report_progress(shown, f"Epoch {epoch}/{epochs}", done, total,
+                    every=total, file=sys.stderr)
 
 
 def restore_checkpoint(trainer, checkpoint_path) -> None:
@@ -334,6 +359,7 @@ class DiffusionTrainer:
         KL terms): the means of all are kept in `epoch_means`."""
         self.train_loader.set_epoch(epoch)
         losses: List[torch.Tensor] = []
+        shown, total = progress_shown(self.config), len(self.train_loader)
         for images, labels in self.train_loader:
             if self.sr is not None and self.sr_cond_images is None:
                 self.sr_cond_images = np.asarray(
@@ -346,6 +372,7 @@ class DiffusionTrainer:
                                else np.zeros(len(images)), np.int64)).to(
                     self.device)
                 losses.append(self.train_step(x, y))
+            report_batch(shown, epoch, self.epochs, len(losses), total)
         if not losses:
             self.epoch_means = None
             return float("nan")

@@ -460,19 +460,19 @@ def sample_args(**changes):
 
 
 @pytest.mark.parametrize("case", [
-    "flow", "edm", "v_prediction", "latent", "not_a_classifier",
+    "flow", "edm", "consistency", "v_prediction", "latent",
+    "not_a_classifier",
     "num_timesteps", "beta_start", "beta_end", "beta_schedule",
     "label_range",
 ])
 def test_build_classifier_exits_as_jax(checkpoints, case):
     unet, cls = checkpoints
     config = small_config()
-    flags_jax, flags = (False, False, False), (False, False)
+    flags = (False, False, False)
     labels = np.array([1, 2, 3, 4])
     args = sample_args(classifier_checkpoint=str(cls))
-    if case in ("flow", "edm"):
-        flags_jax = (case == "flow", case == "edm", False)
-        flags = flags_jax[:2]
+    if case in ("flow", "edm", "consistency"):
+        flags = (case == "flow", case == "edm", case == "consistency")
     elif case == "v_prediction":
         config["prediction_type"] = "v"
     elif case == "latent":
@@ -485,7 +485,7 @@ def test_build_classifier_exits_as_jax(checkpoints, case):
         config[case] = {"num_timesteps": 500, "beta_start": 0.001,
                         "beta_end": 0.01, "beta_schedule": "cosine"}[case]
     with pytest.raises(SystemExit) as ref:
-        jax_pipeline._build_classifier(args, config, flags_jax, 2, 2,
+        jax_pipeline._build_classifier(args, config, flags, 2, 2,
                                        labels.astype(np.int32))
     with pytest.raises(SystemExit) as ours:
         pipeline.build_classifier(args, config, flags, 2, 2, labels, "cpu")
@@ -498,7 +498,7 @@ def test_build_classifier_targets_and_ema(checkpoints, capsys):
     for use_ema, seed in ((False, 0), (True, 5)):
         args = sample_args(classifier_checkpoint=str(cls), use_ema=use_ema)
         classifier, targets = pipeline.build_classifier(
-            args, config, (False, False), 2, 2, np.array([1, 2, 3, 4]),
+            args, config, (False, False, False), 2, 2, np.array([1, 2, 3, 4]),
             "cpu")
         assert targets.tolist() == [0, 1, 2, 3]
         assert not any(p.requires_grad for p in classifier.parameters())
@@ -509,8 +509,8 @@ def test_build_classifier_targets_and_ema(checkpoints, capsys):
     # an unconditional checkpoint: the targets are built as JAX builds them
     args = sample_args(classifier_checkpoint=str(cls), labels="7,2")
     _, targets = pipeline.build_classifier(
-        args, dict(config, conditional=False), (False, False), 2, 2, None,
-        "cpu")
+        args, dict(config, conditional=False), (False, False, False), 2, 2,
+        None, "cpu")
     ref = jax_pipeline.build_labels(
         args, {"conditional": True, "num_classes": 10}, 2, 2) - 1
     assert targets.tolist() == ref.tolist() == [7, 7, 2, 2]

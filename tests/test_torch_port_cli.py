@@ -28,6 +28,7 @@ import pytest
 import torch
 from PIL import Image
 
+from diffusion_models_collection_tpu import factory as jax_factory
 from diffusion_models_collection_tpu import pipeline as jax_pipeline
 from diffusion_models_collection_tpu.pipeline import (
     _apply_steps_and_precision as jax_apply_steps_and_precision,
@@ -39,7 +40,11 @@ from diffusion_models_collection_tpu.utils.checkpoint import (
     save_checkpoint as jax_save_checkpoint,
 )
 from diffusion_models_collection_tpu_torch import factory, pipeline, sample
-from diffusion_models_collection_tpu_torch.diffusion import base
+from diffusion_models_collection_tpu_torch.diffusion import (
+    DDIM,
+    ConsistencyModel,
+    base,
+)
 from diffusion_models_collection_tpu_torch.pipeline import (
     apply_steps_and_precision,
     build_labels,
@@ -131,35 +136,46 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
     assert grid.shape == (7, 7, 1) and grid.sum() == 12
 
 
-# Consistency raises; the DiT's MoE and ToMe configs, which raised until
-# they were ported, build (as the classifier and SR3 did before them: their
-# tests are test_torch_port_classifier.py and test_torch_port_sr.py)
+# The DiT's MoE and ToMe configs and consistency checkpoints, which raised
+# until they were ported, build (as the classifier and SR3 did before them:
+# their tests are test_torch_port_classifier.py and test_torch_port_sr.py)
 @pytest.mark.parametrize("change,ported", [
     ({"model_type": "dit", "model_params": dict(
-        small_dit_config()["model_params"], num_experts=4)}, True),
-    ({"diffusion_type": "consistency"}, False),
+        small_dit_config()["model_params"], num_experts=4)}, "moe"),
+    ({"diffusion_type": "consistency"}, "consistency"),
     ({"model_type": "dit", "model_params": dict(
-        small_dit_config()["model_params"], tome_ratio=0.5)}, True),
+        small_dit_config()["model_params"], tome_ratio=0.5)}, "tome"),
 ])
 def test_factory_raises_on_what_is_not_ported(change, ported):
     config = dict(small_config(), **change)
-    if ported:
-        model = factory.get_model(config)
+    model = factory.get_model(config)
+    diffusion = factory.get_diffusion(config, "ddim")
+    if ported == "consistency":
+        assert isinstance(diffusion, ConsistencyModel)
+    else:
         assert model.num_experts or model.tome is not None
-        assert factory.get_diffusion(config, "ddim") is not None
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_model(config)
-        factory.get_diffusion(config, "ddim")
+        assert isinstance(diffusion, DDIM)
 
 
-def test_factory_raises_on_samplers_not_ported():
-    """Consistency sampling waits for its distillation trainer, whatever
-    the sampling method."""
-    for method in ("ddpm", "ddim", "dpm++", "unipc"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            factory.get_diffusion(
-                dict(small_config(), diffusion_type="consistency"), method)
+@pytest.mark.parametrize("steps", [None, 3])
+def test_factory_raises_on_samplers_not_ported(steps):
+    """A consistency checkpoint owns its stack for every sampling method:
+    the JAX factory's ConsistencyModel, its step count the config's (2
+    without the key)."""
+    config = dict(small_config(), diffusion_type="consistency",
+                  sigma_data=0.25, timestep_scaling=4.0)
+    config.pop("num_inference_steps")
+    if steps is not None:
+        config["num_inference_steps"] = steps
+    for method in ("ddpm", "ddim", "dpm++", "dpm++sde", "unipc"):
+        ours = factory.get_diffusion(config, method)
+        ref = jax_factory.get_diffusion(config, method)
+        assert isinstance(ours, ConsistencyModel)
+        for key in ("num_inference_steps", "sigma_data", "timestep_scaling",
+                    "prediction_type", "clip_sample"):
+            assert getattr(ours, key) == getattr(ref, key), key
+        np.testing.assert_array_equal(ours.inference_timesteps.numpy(),
+                                      np.asarray(ref.inference_timesteps))
 
 
 # -------------------------------- the flags shared with the root `sample.py`
@@ -189,7 +205,8 @@ def test_sampling_method_defaults_to_ddpm_on_both_sides():
         assert (getattr(ours, flag) == getattr(root, flag)), flag
 
 
-@pytest.mark.parametrize("diffusion_type", ["ddpm", "flow_matching", "edm"])
+@pytest.mark.parametrize("diffusion_type", ["ddpm", "flow_matching", "edm",
+                                            "consistency"])
 @pytest.mark.parametrize("steps", [None, 7])
 @pytest.mark.parametrize("method", ["ddpm", "ddim", "dpm++", "dpm++sde",
                                     "unipc"])
@@ -198,11 +215,11 @@ def test_step_count_rule_matches_jax(method, steps, diffusion_type):
     against the JAX pipeline's `_apply_steps_and_precision`."""
     args = SimpleNamespace(sampling_method=method, num_inference_steps=steps,
                            mixed_precision=None)
-    flags = (diffusion_type == "flow_matching", diffusion_type == "edm")
     ours = dict(small_config(), diffusion_type=diffusion_type)
+    flags = pipeline.process_flags(ours)
     ref = dict(ours)
-    apply_steps_and_precision(args, ours, *flags)
-    jax_apply_steps_and_precision(args, ref, (*flags, False))
+    apply_steps_and_precision(args, ours, flags)
+    jax_apply_steps_and_precision(args, ref, flags)
     assert ours == ref
     assert ours["num_inference_steps"] == (
         steps if steps is not None and (method != "ddpm" or any(flags))
@@ -379,7 +396,7 @@ def namespace(argv=()):
     return sample.build_parser().parse_args(["--checkpoint", "x", *argv])
 
 
-# (rule, flags, config changes, flow/edm): each a SystemExit of the JAX
+# (rule, flags, config changes, flow/edm/cm): each a SystemExit of the JAX
 # pipeline's `_apply_freeu`, `_wrap_pag`, `_build_deepcache` and
 # `_validate_editing`
 PIPELINE_RULES = [
@@ -389,6 +406,7 @@ PIPELINE_RULES = [
     ("pag", ["--pag_scale", "-1"], {}, None),
     ("pag", ["--pag_scale", "2"], {}, "flow"),
     ("pag", ["--pag_scale", "2"], {}, "edm"),
+    ("pag", ["--pag_scale", "2"], {}, "cm"),
     ("pag", ["--pag_scale", "2"], {"prediction_type": "v"}, None),
     ("pag", ["--pag_scale", "2"], {"model_type": "dim"}, None),
     ("pag", ["--pag_scale", "2"],
@@ -399,6 +417,8 @@ PIPELINE_RULES = [
      None),
     ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim"], {},
      "flow"),
+    ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim"], {},
+     "cm"),
     ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
                    "--save_intermediate"], {}, None),
     ("deepcache", ["--deepcache", "2", "--sampling_method", "ddim",
@@ -418,6 +438,8 @@ PIPELINE_RULES = [
      None),
     ("editing", ["--restarts", "1"], {}, None),
     ("editing", ["--restarts", "1", "--sampling_method", "ddim"], {}, "edm"),
+    ("editing", ["--restarts", "1", "--sampling_method", "ddim"], {}, "cm"),
+    ("editing", ["--init_image", "a.png"], {}, "cm"),
     ("editing", ["--restarts", "1", "--sampling_method", "ddim",
                  "--init_image", "a.png"], {}, None),
     ("editing", ["--restarts", "1", "--sampling_method", "ddim"],
@@ -440,20 +462,20 @@ def test_pipeline_rules_match_jax(rule, argv, changes, kind):
     from the same flags and config (the rules run before any model)."""
     args = namespace(argv)
     config = dict(small_config(), **changes)
-    flags = (kind == "flow", kind == "edm")
+    flags = (kind == "flow", kind == "edm", kind == "cm")
     wrapped = rule == "deepcache_wrapped"
     calls = {
         "freeu": (lambda: jax_pipeline._apply_freeu(args, dict(config)),
                   lambda: pipeline.apply_freeu(args, dict(config))),
         "pag": (lambda: jax_pipeline._wrap_pag(args, config, None, None,
-                                               (*flags, False)),
+                                               flags),
                 lambda: pipeline.wrap_pag(args, config, None, flags)),
         "deepcache": (lambda: jax_pipeline._build_deepcache(
-            args, config, None, (*flags, False), wrapped),
+            args, config, None, flags, wrapped),
             lambda: pipeline.build_deepcache(args, config, None, flags,
                                              wrapped)),
         "editing": (lambda: jax_pipeline._validate_editing(
-            args, config, (*flags, False), None, 3),
+            args, config, flags, None, 3),
             lambda: pipeline.validate_editing(args, config, flags, 3)),
     }
     ref_call, our_call = calls["deepcache" if wrapped else rule]

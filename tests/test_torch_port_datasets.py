@@ -189,6 +189,16 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.models.moe",
             "diffusion_models_collection_tpu_torch.ops.tome",
             "diffusion_models_collection_tpu_torch.ops.quant",
+            "diffusion_models_collection_tpu_torch.diffusion.consistency",
+            "diffusion_models_collection_tpu_torch.diffusion.distill",
+            "diffusion_models_collection_tpu_torch.utils.ema",
+            "diffusion_models_collection_tpu_torch.utils.optimizers",
+            "diffusion_models_collection_tpu_torch.utils.fewstep",
+            "diffusion_models_collection_tpu_torch.utils.consistency_trainer",
+            "diffusion_models_collection_tpu_torch.utils.distill_trainer",
+            "diffusion_models_collection_tpu_torch.utils.reflow_trainer",
+            "diffusion_models_collection_tpu_torch.tools.distill",
+            "diffusion_models_collection_tpu_torch.tools.reflow",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys

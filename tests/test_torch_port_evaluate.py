@@ -24,6 +24,7 @@ from scipy import linalg
 from threadpoolctl import threadpool_limits
 
 from diffusion_models_collection_tpu_torch import evaluate, factory, train
+from diffusion_models_collection_tpu_torch.diffusion import ConsistencyModel
 from diffusion_models_collection_tpu_torch.utils import checkpoint
 from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     one_torch_thread,
@@ -119,6 +120,9 @@ PAG_TYPES = ("PAG perturbs self-attention maps — implemented for UNet and DiT 
     ("unet", {"diffusion_type": "flow_matching"}, ["--pag_scale", "1"],
      "PAG extrapolates the VP family's eps predictions — not "
      "flow/edm/consistency checkpoints"),
+    ("unet", {"diffusion_type": "consistency"}, ["--pag_scale", "1"],
+     "PAG extrapolates the VP family's eps predictions — not "
+     "flow/edm/consistency checkpoints"),
     ("unet", {"prediction_type": "v"}, ["--pag_scale", "1"], PAG_EPS),
     ("dim", {}, ["--pag_scale", "1"], PAG_TYPES),
     ("unet", {"model_params": dict(small_config()["model_params"],
@@ -160,21 +164,35 @@ def test_system_exit_rules_match_the_root_cli(tmp_path, model, changes,
     assert str(err.value).startswith(message)
 
 
-# what remains of the raises: consistency (item 12); the DiT's ToMe, int8
-# and MoE, which raised until they were ported, evaluate (the next test)
-@pytest.mark.parametrize("model,changes,flags,item", [
-    ("unet", {"diffusion_type": "consistency"}, [], 12),
+# consistency checkpoints, which raised until they were ported, evaluate
+# with their own sampler (the DiT's ToMe, int8 and MoE: the next test)
+@pytest.mark.parametrize("model,changes,flags,steps", [
+    ("unet", {"diffusion_type": "consistency",
+              "num_inference_steps": 2}, ["--cfg_scale", "2"], 2),
 ])
-def test_what_is_not_ported_raises_naming_its_item(tmp_path, model, changes,
-                                                   flags, item):
+def test_what_is_not_ported_raises_naming_its_item(tmp_path, monkeypatch,
+                                                   model, changes, flags,
+                                                   steps):
+    """The default protocol's DDPM and `--sampling_method ddim` both give
+    way to the checkpoint's consistency sampler at its step count, or at
+    `--num_inference_steps` (the root CLI allows it for consistency
+    checkpoints); the images reach the metrics (stubbed)."""
+    seen = []
+    monkeypatch.setattr(evaluate, "calculate_all_metrics",
+                        lambda real, fake, **kw: seen.append(fake) or {})
+    calls = []
+    real_run = ConsistencyModel._run
+    monkeypatch.setattr(ConsistencyModel, "_run", lambda self, *a, **kw: (
+        calls.append(self.num_inference_steps), real_run(self, *a, **kw))[1])
     base = {"unet": unet_config, "dit": small_dit_config}[model]()
-    ckpt = save_random(tmp_path, base)
-    if changes:  # the weights of the plain model, the config asking for more
-        state = torch.load(ckpt, weights_only=True)
-        checkpoint.save_checkpoint(ckpt, state["model_state_dict"],
-                                   dict(base, **changes))
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        run_main(ckpt, *flags)
+    ckpt = save_random(tmp_path, dict(base, **changes))
+    flags = [*flags, "--output", str(tmp_path / "metrics.json")]
+    run_main(ckpt, *flags)
+    run_main(ckpt, *flags, "--sampling_method", "ddim",
+             "--num_inference_steps", "1")
+    assert calls == [steps, steps, 1, 1]  # two batches a run
+    for fake in seen:
+        assert fake.shape == (4, 16, 16, 3) and np.isfinite(fake).all()
 
 
 @pytest.mark.parametrize("changes,flags", [

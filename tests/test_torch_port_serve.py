@@ -29,6 +29,7 @@ import torch
 
 from diffusion_models_collection_tpu.diffusion.ddim import DDIM as JaxDDIM
 from diffusion_models_collection_tpu_torch import factory, serve
+from diffusion_models_collection_tpu_torch.diffusion import ConsistencyModel
 from diffusion_models_collection_tpu_torch.utils import checkpoint
 from diffusion_models_collection_tpu_torch.utils.helpers import read_png
 from test_torch_port_bf16_models import TRAJECTORY_BAR, check_bar
@@ -407,11 +408,13 @@ def test_bf16_serving_matches_jax_at_the_bf16_bar(unet):
 
 
 # a DiT's --tome_ratio and --quantize, which raised until they were ported,
-# serve: the next test
+# serve: the next test; a consistency checkpoint serves batched
+# (test_consistency_checkpoints_serve_batched) and `--continuous` refuses it
 @pytest.mark.parametrize("case,flags,error,match", [
     ("unet", ["--tome_ratio", "0.5"], ValueError, "DiT"),
     ("unet", ["--quantize", "int8"], ValueError, "DiT"),
-    ("consistency", [], NotImplementedError, "item 12"),
+    ("consistency", ["--continuous", "--sampling_method", "ddim"], ValueError,
+     "requires a VP .*'consistency'"),
     ("super_resolution", [], ValueError, "super-resolution"),
 ])
 def test_what_is_not_ported_raises(tmp_path, case, flags, error, match):
@@ -421,10 +424,37 @@ def test_what_is_not_ported_raises(tmp_path, case, flags, error, match):
               "super_resolution": dict(small_config(),
                                        super_resolution=True)}[case]
     state = (factory.get_model(small_config()).state_dict()
-             if case == "super_resolution" else None)
+             if case in ("super_resolution", "consistency") else None)
     path = save_config(tmp_path, case, config, state)
     with pytest.raises(error, match=match):
         serve.main(["--checkpoint", str(path), "--device", "cpu", *flags])
+
+
+def test_consistency_checkpoints_serve_batched(unet, tmp_path):
+    """A consistency checkpoint of the small UNet's weights serves in the
+    batched mode with its own sampler at its step count (a request's
+    `num_inference_steps` is the daemon's flag, 1 here): the images are the
+    port's `sample_with_cfg` of the serving batch on the request's draw."""
+    state = torch.load(unet[3], weights_only=True)["model_state_dict"]
+    path = save_config(tmp_path, "consistency",
+                       dict(unet[2], diffusion_type="consistency",
+                            num_inference_steps=2), state)
+    for steps in (None, 1):
+        server = Server(make_service(path, batch_size=2,
+                                     num_inference_steps=steps))
+        try:
+            service = server.service
+            assert isinstance(service.diffusion, ConsistencyModel)
+            assert service.diffusion.num_inference_steps == (steps or 2)
+            body = {"num_samples": 2, "labels": [1, 7], "seed": 3,
+                    "cfg_scale": 2.0, "format": "npy"}
+            status, _, data = server.request("POST", "/generate", body)
+            assert status == 200, data
+            np.testing.assert_array_equal(
+                np.load(io.BytesIO(data)),
+                port_reference(service, [1, 7], 3, 2.0))
+        finally:
+            server.close()
 
 
 @pytest.mark.parametrize("knobs,continuous", [

@@ -79,6 +79,26 @@ def torch_unet(params, config):
     return model.eval()
 
 
+def traced_unet(conditional=True, seed=0):
+    """(flax UNet of MODEL_PARAMS, params as numpy, config): the param
+    shapes from `jax.eval_shape` of its init (traced, never run: seconds
+    where the jitted init takes about ten), each drawn from numpy, norm
+    scales 1 + N(0, 0.05^2), everything else N(0, 0.05^2)."""
+    num_classes = 10 if conditional else None
+    model = JaxUNet(**MODEL_PARAMS, num_classes=num_classes)
+    y = jnp.zeros((1,), jnp.int32) if conditional else None
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)),
+                           jnp.zeros((1,), jnp.int32), y))["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        noise = 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
+        return noise + (1.0 if path[-1].key == "scale" else 0.0)
+    return (model, jax.tree_util.tree_map_with_path(draw, shapes),
+            small_config(conditional))
+
+
 def perturbed(params, seed):
     """Every param plus seeded noise (0.05 std), as numpy: norms are not the
     identity, adaLN and the output layers are not zero, and the null
@@ -158,6 +178,35 @@ def torch_dit(params, config, **overrides):
 def max_rel(ours, ref):
     ours, ref = np.asarray(ours), np.asarray(ref)
     return np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30)
+
+
+def recording_gradients(trainer):
+    """Make `trainer.optimizer.step` record a copy of every gradient of
+    `trainer.model` before it runs (clipping included); returns the dict it
+    fills."""
+    grads = {}
+    step = trainer.optimizer.step
+
+    def recording_step():
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in trainer.model.named_parameters()})
+        return step()
+    trainer.optimizer.step = recording_step
+    return grads
+
+
+def check_first_adam_update(what, ours, ref, grads, lr, bar=2e-4):
+    """Tensors after one Adam(W) update against the JAX package's: Adam's
+    first update is about lr sign(g), so where a gradient element lies
+    within float noise of 0 the two frameworks may move it by up to 2 lr.
+    Held at `bar` (max-rel) over the elements whose gradient is at least
+    1e-3 of its tensor's largest, and within 2 lr everywhere."""
+    for name, want in ref.items():
+        got, g = ours[name].detach(), grads[name].abs()
+        want = torch.as_tensor(np.asarray(want))
+        decided = g >= 1e-3 * g.max()
+        assert max_rel(got[decided], want[decided]) <= bar, (what, name)
+        assert (got - want).abs().max().item() <= 2 * lr + 1e-7, (what, name)
 
 
 def run_pallas_interpreted(fn, *args):
