@@ -114,8 +114,8 @@ the attention probabilities and in the MLP in training):
 * the attention kernels' dropout forms against their plain versions with
   the same seed: at the training shape (BH 768, L 256, d 64, p 0.1) timed
   beside the same call at p = 0 and `F.scaled_dot_product_attention` with
-  dropout, then at L 16, 64, 100 and 300 (a ragged tile; the two-kernel
-  backward beyond 256), at d 48 (the DiM's attention fallback) and with
+  dropout, then at L 16, 64, 100, 300 (a ragged tile) and 1025 (the
+  two-kernel backward beyond 1024), at d 48 (the DiM's attention fallback) and with
   the two-kernel backward forced; and a read-back of the mask: with v = I
   the output is P o Z exactly, so its zeros must be the dropped keys of
   `philox_keep_mask`, bit for bit;
@@ -248,6 +248,25 @@ Then the DiT's last three families:
   1-step sample of its round; 12 DDPM steps with AdamW, Adafactor and
   Lion (images/s, peak memory, the optimizer state's bytes).
 
+Then the kernels as `torch.library` operators and the sampler export, and
+the DiT at 64x64:
+
+* `phase_export`: `torch.library.opcheck` on every `dmc::` operator with
+  CUDA tensors; then `serving.export_sampler` of the fp32 UNet, the bf16 DiT
+  and the latent UNet with its decode (random weights; DDIM-50 CFG 3, 80
+  images), each blob loaded back and run from one x_T beside the live
+  `sample_with_cfg`: bit for bit, exact launches (the scan's own extra
+  model call on a torch that makes one), export, save and load seconds,
+  the blob's size, samples/s beside the live sampler's;
+* `phase_dit64`: configs/cifar10_dit.py at 64x64 on `synthetic` (L 1024):
+  in fp32 and bf16 the largest of batch 128, 64, 32, 16 whose step fits,
+  the loss and gradients at batch 4 in train mode against the plain
+  versions (12 K2 + 12 K3 in the dropout form), one epoch of `train`,
+  train images/s and peak memory, 80 images DDIM-50 CFG 3 through `sample`
+  (12 K2 a forward); K3's fused and two-kernel forms at the fp32 training
+  shape (BH = batch x 6, L 1024, d 64) in fp32 and bf16 at p 0 and 0.1,
+  with K2, `F.scaled_dot_product_attention` and the bounds beside them.
+
 Each path is run with every launch count set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
@@ -295,6 +314,7 @@ from diffusion_models_collection_tpu_torch import (  # noqa: E402
     metrics,
     sample,
     serve,
+    serving,
     train,
 )
 from diffusion_models_collection_tpu_torch.diffusion import DDIM  # noqa: E402
@@ -325,6 +345,7 @@ from diffusion_models_collection_tpu_torch.models import unet as unet_mod  # noq
 from diffusion_models_collection_tpu_torch.models.moe import MoeMlp  # noqa: E402
 from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     _build,
+    _library,
     flash_attention,
     fused_norm,
     quant,
@@ -351,6 +372,9 @@ from diffusion_models_collection_tpu_torch.utils.reflow_trainer import (  # noqa
 )
 from diffusion_models_collection_tpu_torch.utils.trainer import (  # noqa: E402
     DiffusionTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.latent import (  # noqa: E402
+    LatentCodec,
 )
 from diffusion_models_collection_tpu_torch.utils.helpers import (  # noqa: E402
     load_config,
@@ -392,8 +416,9 @@ TOL_TRAJ = 5e-4  # 10 DDIM steps with CFG and dynamic thresholding
 # difference of two products of similar size, so it loses more digits.
 TOL_BWD = 1e-4
 ATTN_BWD_HEAD_DIMS = (32, 128)  # at L 256, beside the UNet's d = 64
-# beyond `flash_attention.FUSED_MAX_LEN`: the two-kernel form
-ATTN_BWD_LONG = (1024, 257)
+# L 257 and 1024 fused with more key tiles (4 dq shares at most before PR
+# 19's `flash_attention.FUSED_MAX_LEN` of 1024); beyond it, the two-kernel form
+ATTN_BWD_LONG = (1024, 257, 1025)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # Loss of one full-width forward, and the flattened gradient as max-abs
@@ -416,10 +441,10 @@ DIT_HEADS, DIT_LENGTH, DIT_HEAD_DIM = 6, 256, 64
 ATTN_DROPOUT = 0.1  # the DiT's and the DiM's `dropout`
 ATTN_DROPOUT_SEED = 0x0123_4567_89AB_CDEF
 # (L, d) of the dropout forms the DiT's step does not take: ragged tiles,
-# the short-sequence forms, the two-kernel backward beyond L 256, and d 48
+# the short-sequence forms, the two-kernel backward beyond L 1024, and d 48
 # (the DiM's attention fallback: hidden 384 in 8 heads)
-ATTN_DROPOUT_FORMS = [(16, 64), (64, 64), (100, 64), (300, 64), (256, 48),
-                      (100, 48)]
+ATTN_DROPOUT_FORMS = [(16, 64), (64, 64), (100, 64), (300, 64), (1025, 64),
+                      (256, 48), (100, 48)]
 TRAIN_SEED = 1234  # reseeds the generators before each run of a train step
 
 DIM_CONFIG = ROOT / "configs" / "cifar10_dim.py"
@@ -1044,7 +1069,7 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     wall = time.perf_counter() - start
     launches = read_launches()
     samples = result["samples"]
-    if not (samples.shape == (SAMPLES, 32, 32, 3)
+    if not (samples.shape == (SAMPLES, *image_shape(config))
             and np.isfinite(samples).all()):
         raise AssertionError(f"{label} samples: shape {samples.shape}, "
                              f"finite {np.isfinite(samples).all()}")
@@ -1149,8 +1174,8 @@ def check_attention_bwd(label, args, fused=None):
 
 def phase_attn_bwd(attn_shapes, gen):
     """K3 against `flash_attention_bwd_ref` at BH 128 in every form it has
-    (L 256, 64, 16, 100 at d 64 and d 32, 128 at L 256: fused; L 1024 and
-    257: two kernels; each line names the form), then at every attention
+    (L 256, 64, 16, 100, 257 and 1024 at d 64 and d 32, 128 at L 256:
+    fused; L 1025: two kernels; each line names the form), then at every attention
     shape of a batch-128 train step, the longest of them also with the
     two-kernel form forced; returns the worst absolute error, the kernel,
     plain and library time of one step's worth of backward calls, and
@@ -2359,11 +2384,11 @@ TOL_BF16_MODEL, TOL_BF16_LOSS, TOL_BF16_GRAD = 3e-2, 1e-4, 2e-2
 # 64 x 64 x 16 (shared memory holds it in bf16, not in float32)
 GN_BF16_EDGES = [GN_RAGGED, (3, 8, 8, 32), GN_LARGE]
 # K2/K3 beyond the main paths' shapes: ragged tiles (L 17, 65 and 100 past
-# tiles of 16 and 64), many key tiles with the two-kernel backward, d 48
-# (the DiM's attention fallback), d 32, d 24 (padded to the mma's depth of
-# 16, 32 columns)
-ATTN_BF16_FORMS = [(100, 64), (1024, 64), (257, 64), (100, 48), (33, 32),
-                   (17, 64), (65, 64), (100, 24)]
+# tiles of 16 and 64), many key tiles fused and with the two-kernel backward
+# (L 1025), d 48 (the DiM's attention fallback), d 32, d 24 (padded to the
+# mma's depth of 16, 32 columns)
+ATTN_BF16_FORMS = [(100, 64), (1024, 64), (1025, 64), (257, 64), (100, 48),
+                   (33, 32), (17, 64), (65, 64), (100, 24)]
 
 
 def bf16_steps(a, b):
@@ -2809,11 +2834,66 @@ class MetricDtypes:
          lpips_score.LPIPSScore.distance) = self.saved
 
 
+def trace_sqrtm_eigh(sigma1, sigma2):
+    """tr sqrtm(S1 S2) of two covariances (symmetric, positive semidefinite)
+    from two float64 eigendecompositions on the card: with S1 = U L U^T and
+    B = U L^(1/2), S1 S2 has the eigenvalues of B^T S2 B, so the trace is the
+    sum of their square roots. It holds at any rank (50 or 100 samples of
+    2048 features), where Newton-Schulz diverges."""
+    s1, s2 = (torch.as_tensor(np.atleast_2d(s), dtype=torch.float64,
+                              device="cuda") for s in (sigma1, sigma2))
+    lam, u = torch.linalg.eigh(s1)
+    b = u * lam.clamp_min(0.0).sqrt()
+    return torch.linalg.eigvalsh(b.T @ s2 @ b).clamp_min(0.0).sqrt().sum(
+        ).item()
+
+
+class CardFrechet:
+    """While active, FID's tr sqrtm is `trace_sqrtm_eigh` on the card in
+    place of scipy's 2048x2048 sqrtm on the host (11-16 s an `evaluate` call
+    on the GPU machine), to keep the script inside its time; with `host`,
+    scipy's value stays the result and the card's is recorded beside it
+    (`seen`), so the script's first `evaluate` run holds the two together."""
+
+    def __init__(self, host: bool):
+        self.host, self.seen = host, []
+
+    def __enter__(self):
+        self.saved = metrics.FIDScore.calculate_frechet_distance
+        scipy_fid, seen, host = self.saved, self.seen, self.host
+
+        def frechet(mu1, sigma1, mu2, sigma2, eps=1e-6):
+            diff = np.atleast_1d(mu1) - np.atleast_1d(mu2)
+            card = (diff.dot(diff) + np.trace(np.atleast_2d(sigma1))
+                    + np.trace(np.atleast_2d(sigma2))
+                    - 2 * trace_sqrtm_eigh(sigma1, sigma2))
+            if not host:
+                return card
+            fid = scipy_fid(mu1, sigma1, mu2, sigma2, eps)
+            seen.append((fid, card))
+            return fid
+        metrics.FIDScore.calculate_frechet_distance = staticmethod(frechet)
+        return self
+
+    def __exit__(self, *exc):
+        metrics.FIDScore.calculate_frechet_distance = self.saved
+
+
+# the evaluate runs so far: the first computes FID as `evaluate` does (and
+# the card's value beside it), the later ones under `CardFrechet`
+EVALUATE_RUNS = []
+# the largest relative difference the first run allows between FID with
+# scipy's sqrtm and with `trace_sqrtm_eigh` (2.8e-7 measured on the H100)
+FRECHET_BAR = 1e-5
+
+
 def run_evaluate(label, model, config, flags, expected, tmp):
     """`evaluate.main` from a checkpoint of `model` (its weights also as the
     EMA weights) and `config` on the fixtures, with `flags`, exactly
-    `expected` launches, every metric finite, the metric networks float32.
-    Returns the launches, the report and the stage seconds."""
+    `expected` launches, every metric finite, the metric networks float32
+    (FID's tr sqrtm on the card after the script's first run,
+    `CardFrechet`, and beside scipy's in that run). Returns the launches,
+    the report and the stage seconds."""
     ckpt = Path(tmp) / f"{label.replace(' ', '_')}.pth"
     state = model.state_dict()
     checkpoint.save_checkpoint(ckpt, state,
@@ -2828,13 +2908,28 @@ def run_evaluate(label, model, config, flags, expected, tmp):
     torch.cuda.synchronize()
     reset_launches()
     start = time.perf_counter()
-    with MetricDtypes() as dtypes:
+    frechet = CardFrechet(host=not EVALUATE_RUNS)
+    EVALUATE_RUNS.append(label)
+    with MetricDtypes() as dtypes, frechet:
         report = evaluate.main(argv, seconds=seconds)
+    for fid, card in frechet.seen:
+        rel = abs(card - fid) / abs(fid)
+        print(f"evaluate.main {label}: FID with scipy's host sqrtm "
+              f"{fid:.6f}, with the card's eigendecompositions {card:.6f}, "
+              f"relative difference {rel:.3e} (bar {FRECHET_BAR:g})")
+        if not rel <= FRECHET_BAR:
+            raise AssertionError(
+                f"evaluate {label}: the card's FID {card} is {rel:.3e} from "
+                f"scipy's {fid}, over the bar {FRECHET_BAR:g}")
+    if frechet.host and not frechet.seen:
+        raise AssertionError(f"evaluate {label}: FID was not computed, so "
+                             "the card's tr sqrtm was not held to scipy's")
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = read_launches()
-    print(f"evaluate.main {label} ({' '.join(flags)}): whole call "
-          f"{wall:.3f} s; stage seconds "
+    print(f"evaluate.main {label} ({' '.join(flags)}; FID's tr sqrtm "
+          f"{'on the card' if len(EVALUATE_RUNS) > 1 else 'scipy, host'}): "
+          f"whole call {wall:.3f} s; stage seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
           + f"; launches {launches}")
     print(f"evaluate.main {label} report: {json.dumps(report)}")
@@ -4701,6 +4796,362 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
     return {"launches": launches, "figures": figures}
 
 
+# ------------------------------------------ the operators and the export
+# Every kernel launcher is a `torch.library` operator (`ops/_library.py`);
+# `serving.py` exports a whole sampling trajectory with `torch.export`
+EXPORT_DIT_FORWARD = DIT_FORWARD_BF16
+
+
+def opcheck_args(name, gen):
+    """Inputs of one call of the operator `name` on the card: the shapes of
+    the UNet's attention at 16x16 and a GroupNorm+SiLU of its first level,
+    and a DiM scan at L 100 (a ragged last block)."""
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    if name.startswith("gn_silu"):
+        x, scale, bias = randn(4, 32, 32, 128), randn(128), randn(128)
+        if name == "gn_silu_fwd":
+            return (x, scale, bias, 8)
+        _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+        return (x, scale, bias, randn(4, 32, 32, 128), stats, 8)
+    if name.startswith("flash_attn"):
+        q, k, v, do = (randn(64, 256, 64) for _ in range(4))
+        drop = (ATTN_DROPOUT, ATTN_DROPOUT_SEED)
+        if name == "flash_attn_fwd":
+            return (q, k, v, *drop, None)
+        o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+        return (q, k, v, o, do, lse, *drop, None, None)
+    batch, length, d_inner, n_state = 2, 100, 256, 16
+    x = randn(batch, length, d_inner)
+    dt = F.softplus(randn(batch, length, d_inner) - 2)
+    A = -torch.exp(randn(d_inner, n_state) * 0.5)
+    B, C = randn(batch, length, n_state), randn(batch, length, n_state)
+    if name in ("selective_scan_fwd", "selective_scan_fwd_states",
+                "selective_scan_fwd_split"):
+        return (x, dt, A, B, C)
+    g = randn(batch, length, d_inner)
+    if name == "selective_scan_bwd_nostate":
+        return (x, dt, A, B, C, g)
+    _, bound = scan.selective_scan_fwd(x, dt, A, B, C, True)
+    return (x, dt, A, B, C, g, bound)
+
+
+def phase_opcheck(gen):
+    """`torch.library.opcheck` on every `dmc::` operator with CUDA tensors:
+    its schema, its fake implementation against the CUDA one (shapes,
+    dtypes, strides), its registration, and a trace through AOT autograd
+    with dynamic shapes. Its launches count nowhere: every path resets the
+    counts before it runs."""
+    start = time.perf_counter()
+    for name, op in _library.OPS.items():
+        result = torch.library.opcheck(op, opcheck_args(name, gen))
+        torch.cuda.synchronize()
+        if set(result.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck {name}: {result}")
+    print(f"opcheck on CUDA tensors: {len(_library.OPS)} operators "
+          f"({', '.join(_library.OPS)}), every test SUCCESS in "
+          f"{time.perf_counter() - start:.1f} s")
+
+
+def scan_extra_calls():
+    """How many more times than its length the installed torch's scan
+    operator calls its step: torch 2.11's runs the first step once more
+    before its loop, to learn the outputs' shapes (2.13's does not)."""
+    from torch._higher_order_ops.scan import scan_op
+    calls = []
+
+    def step(x, t):
+        calls.append(t)
+        return [x + t]
+    scan_op(step, [torch.zeros(())], [torch.ones(4)], ())
+    return len(calls) - 4
+
+
+def export_case(label, model, config, per_call, extra, gen, smi):
+    """`serving.export_sampler` of `model` at `config` (DDIM-50, CFG 3, 80
+    images), the blob loaded back and run from one x_T beside the live
+    `sample_with_cfg` (and the codec's decode under latent diffusion) from
+    the same x_T, each with exactly `per_call` launches a model call plus
+    `extra` ((counts, n) pairs), the program's run `scan_extra_calls()`
+    model calls more; the images held bit for bit, or within
+    TOL_SERVE_BATCHED (images in [0, 1]) where a sum's order differs.
+    Returns the launches of the program's run and the figures."""
+    params = dict(model.named_parameters())
+    config = dict(config, num_inference_steps=STEPS)
+    seconds = {}
+    blob = serving.export_sampler(model, params, config, batch_size=SAMPLES,
+                                  cfg_scale=CFG_SCALE, device="cuda",
+                                  seconds=seconds)
+    start = time.perf_counter()
+    program, meta = serving.load_exported(blob)
+    module = program.module()
+    seconds["load"] = time.perf_counter() - start
+    shape = tuple(meta["shape"])
+    x_T = torch.randn(shape, generator=gen, device="cuda")
+    labels = torch.randint(1, 11, (SAMPLES,), generator=gen, device="cuda")
+    ddim = factory.get_diffusion(config, "ddim")
+    codec = LatentCodec.from_config(config, device="cuda")
+    expected = add_counts((per_call, STEPS), *extra)
+    scan_extra = scan_extra_calls()
+    expected_program = add_counts((per_call, STEPS + scan_extra), *extra)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - start, read_launches()
+
+    def live():
+        out = ddim.sample_with_cfg(model, shape, labels, cfg_scale=CFG_SCALE,
+                                   init_noise=x_T)
+        if codec is not None:
+            out = codec.decode(out)
+        return torch.clamp((out + 1.0) * 0.5, 0.0, 1.0)
+    with torch.no_grad():  # cuDNN and cuBLAS warm at the call's 2 B rows
+        model(torch.cat([x_T, x_T]),
+              torch.zeros(2 * SAMPLES, dtype=torch.int64, device="cuda"),
+              torch.cat([labels, torch.zeros_like(labels)]))
+    want, live_s, live_launches = timed(live)
+    got, run_s, launches = timed(lambda: module(params, x_T, labels, None))
+    err = (got - want).abs().max().item()
+    print(f"export {label}: DDIM-{STEPS} CFG {CFG_SCALE}, {SAMPLES} images "
+          f"{tuple(got.shape)}: export {seconds['export']:.2f} s, save "
+          f"{seconds['save']:.2f} s, load {seconds['load']:.2f} s, blob "
+          f"{len(blob) / 2**20:.2f} MiB; the program {SAMPLES / run_s:.2f} "
+          f"samples/s ({run_s:.3f} s), the live sampler "
+          f"{SAMPLES / live_s:.2f} samples/s ({live_s:.3f} s); max |program "
+          f"- live| {err:.3e} ({'bit-equal' if err == 0 else 'not bit-equal'}"
+          f", bar {TOL_SERVE_BATCHED:g}); launches {launches} ({STEPS} + "
+          f"{scan_extra} model calls: the scan's own on torch "
+          f"{torch.__version__}), live {live_launches}; on {smi}")
+    if not (launches == expected_program and live_launches == expected
+            and err <= TOL_SERVE_BATCHED and torch.isfinite(got).all()
+            and got.shape == (SAMPLES, *image_shape(config))):
+        raise AssertionError(f"export {label}: launches {launches} "
+                             f"(expected {expected_program}), live "
+                             f"{live_launches} (expected {expected}), "
+                             f"max |program - live| {err}")
+    return launches, dict(seconds, blob_mib=len(blob) / 2**20,
+                          rate=SAMPLES / run_s, live_rate=SAMPLES / live_s,
+                          bit_equal=err == 0, calls=STEPS + scan_extra)
+
+
+def phase_export(gen, smi):
+    """`serving.export_sampler` on the card: the full-width fp32 UNet
+    (configs/cifar10_unet.py; 2250 K1 + 550 K2), the DiT in bf16
+    (configs/cifar10_dit.py, `mixed_precision: 'bf16'`; 600 bf16 K2) and
+    the latent UNet with its decode (configs/cifar10_latent_unet.py on a
+    VAE checkpoint of random weights written here; 1761 K1 + 551 K2), each
+    DDIM-50 CFG 3 for 80 images (`export_case`). Returns the launches and
+    figures by path."""
+    phase_opcheck(gen)
+    launches, figures = {}, {}
+    config = load_config(CONFIG)
+    model = random_model(config, gen)
+    launches["export_unet"], figures["UNet fp32"] = export_case(
+        "UNet fp32", model, config, UNET_FORWARD, (), gen, smi)
+    del model
+    config = dict(load_config(DIT_CONFIG), mixed_precision="bf16")
+    model = random_model(config, gen)
+    launches["export_dit_bf16"], figures["DiT bf16"] = export_case(
+        "DiT bf16", model, config, EXPORT_DIT_FORWARD, (), gen, smi)
+    del model
+    with tempfile.TemporaryDirectory() as tmp:
+        vae_config = load_config(VAE_CONFIG)
+        torch.manual_seed(0)
+        vae = factory.get_model(vae_config)
+        vae_ckpt = Path(tmp) / "vae_random.pth"
+        checkpoint.save_checkpoint(vae_ckpt, vae.state_dict(), vae_config)
+        del vae
+        config = dict(load_config(LATENT_CONFIG), vae_checkpoint=str(vae_ckpt),
+                      latent_scale_factor=0.5)
+        model = random_model(config, gen)
+        launches["export_latent"], figures["latent UNet"] = export_case(
+            "latent UNet + decode", model, config, LATENT_FORWARD,
+            ((VAE_CODER, 1),), gen, smi)
+        del model
+    return launches, figures
+
+
+# ------------------------------------------------------------ the 64x64 DiT
+DIT64_SIZE, DIT64_LENGTH = 64, 1024
+DIT64_BATCHES = (128, 64, 32, 16)  # the largest whose train step fits
+DIT64_CHECK_BATCH = 4  # the plain dropout mask is BH L^2 values
+TOL_DIT64_LOSS, TOL_DIT64_GRAD = TOL_LOSS, TOL_GRAD
+
+
+def dit64_config(precision="none"):
+    size = (DIT64_SIZE, DIT64_SIZE)
+    config = load_config(DIT_CONFIG)
+    return dict(config, image_size=size, dataset="synthetic",
+                mixed_precision=precision,
+                model_params=dict(config["model_params"], img_size=size))
+
+
+def dit64_step_fits(config, batch, gen):
+    """Whether one train step of the 64x64 DiT (forward, backward, AdamW)
+    at `batch` fits on the card."""
+    torch.manual_seed(0)
+    model = factory.get_model(config).to("cuda").train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    process = factory.get_diffusion(config)
+    try:
+        x0 = torch.rand(batch, DIT64_SIZE, DIT64_SIZE, 3, generator=gen,
+                        device="cuda") * 2 - 1
+        t = torch.randint(0, 1000, (batch,), generator=gen, device="cuda")
+        y = torch.randint(0, 11, (batch,), generator=gen, device="cuda")
+        process.p_losses(model, x0, t, torch.randn_like(x0), y=y).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return True
+    except torch.cuda.OutOfMemoryError:
+        return False
+
+
+def dit64_batch(config, gen):
+    """The largest of DIT64_BATCHES whose train step fits on the card,
+    tried from the largest down."""
+    for batch in DIT64_BATCHES:
+        fits = dit64_step_fits(config, batch, gen)
+        torch.cuda.empty_cache()
+        if fits:
+            return batch
+        print(f"DiT 64x64 {config['mixed_precision']}: a train step at "
+              f"batch {batch} does not fit")
+    raise AssertionError("DiT 64x64: no train step fits")
+
+
+def phase_k3_sweep(batch, gen, smi):
+    """K3's two forms at the 64x64 DiT's train step (BH = batch x 6, L 1024,
+    d 64) in float32 and bf16, at p 0 and 0.1: the fused form (its dq
+    shares in a (BH, L/64, L, 64) float32 scratch) against the two-kernel
+    form, which recomputes the scores for dq; each beside K2, the library's
+    forward and backward (`F.scaled_dot_product_attention` on (1, BH, L,
+    d), its own dropout mask) and the bound. Both forms held against each
+    other; at BH 12 each against the plain version. The reading behind
+    `flash_attention.FUSED_MAX_LEN`. Returns the times by (dtype, p)."""
+    seq, d = DIT64_LENGTH, DIT_HEAD_DIM
+    for fused in (True, False):
+        check_attention_dropout("attention dropout, 64x64 DiT", 12, seq, d,
+                                gen, fused=fused)
+    bh = batch * DIT_HEADS
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        q, k, v, do = (torch.randn(bh, seq, d, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+        for p in (0.0, ATTN_DROPOUT):
+            drop = (p, ATTN_DROPOUT_SEED if p else None)
+            o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+            bwd = {fused: flash_attention.flash_attention_bwd(
+                q, k, v, o, do, lse, *drop, fused=fused)
+                for fused in (True, False)}
+            torch.cuda.synchronize()
+            apart = max(max_rel(a.float(), b.float())
+                        for a, b in zip(bwd[True], bwd[False]))
+            del bwd
+            t = {
+                "fwd": median_ms(lambda: flash_attention.flash_attention_fwd(
+                    q, k, v, *drop), reps=10, warmup=2),
+                "fused": median_ms(lambda: flash_attention.flash_attention_bwd(
+                    q, k, v, o, do, lse, *drop, fused=True), reps=10,
+                    warmup=2),
+                "two_kernel": median_ms(
+                    lambda: flash_attention.flash_attention_bwd(
+                        q, k, v, o, do, lse, *drop, fused=False), reps=10,
+                    warmup=2),
+                "fwd_library": median_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], dropout_p=p), reps=10,
+                    warmup=2)}
+            out = F.scaled_dot_product_attention(*qkv, dropout_p=p)
+            t["bwd_library"] = median_ms(lambda: torch.autograd.grad(
+                out, qkv, do[None], retain_graph=True), reps=10, warmup=2)
+            del out
+            rate = PEAK_BF16_TC_OPS_PER_S if bf16 else PEAK_FP32_OPS_PER_S
+            elem = 2 if bf16 else 4
+            t["fwd_bound"] = Bound(rate).add(*attn_work(bh, seq, d,
+                                                        elem=elem)).ms
+            t["bwd_bound"] = Bound(rate).add(*attn_work(bh, seq, d, True,
+                                                        elem=elem)).ms
+            tile = flash_attention.bwd_tile(seq, d, dtype)
+            scratch = bh * -(-seq // tile) * seq * d * 4
+            name = "bf16" if bf16 else "fp32"
+            times[(name, p)] = t
+            print(f"K3 form sweep, 64x64 DiT step BH={bh} L={seq} d={d} "
+                  f"{name} p={p}: fused {t['fused']:.4f} ms (scratch "
+                  f"{scratch / 2**30:.2f} GiB), two kernels "
+                  f"{t['two_kernel']:.4f} ms, apart max_rel {apart:.3e}; "
+                  f"the library's backward {t['bwd_library']:.4f} ms; K2 "
+                  f"{t['fwd']:.4f} ms, the library's forward "
+                  f"{t['fwd_library']:.4f} ms; bounds forward "
+                  f"{t['fwd_bound']:.4f} ms, backward {t['bwd_bound']:.4f} "
+                  f"ms; the wrapper takes "
+                  f"{attention_bwd_form(seq, d, dtype=dtype)}; on {smi}")
+            if not apart <= (2 * 2**-8 if bf16 else TOL_BWD):
+                raise AssertionError(f"K3 forms apart {apart} at {name} "
+                                     f"p={p}")
+        del q, k, v, do, qkv, o, lse
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_dit64(gen, smi):
+    """The DiT on 64x64 images (configs/cifar10_dit.py with image_size and
+    img_size (64, 64) on the `synthetic` dataset: L 1024, 6 heads of 64, 12
+    blocks): for fp32 and bf16, the largest of DIT64_BATCHES whose step
+    fits; the loss and gradients at batch DIT64_CHECK_BATCH in train mode
+    (dropout 0.1) against `plain_kernels()` with 12 K2 + 12 K3 in the
+    dropout form; one epoch of `train` at that batch, train images/s and
+    peak memory; K3's form sweep and the library at the fp32 training
+    shape; 80 images DDIM-50 CFG 3 through `sample` (12 K2 a forward) in
+    fp32 and bf16. Returns the launches and figures."""
+    out = {"launches": {}, "rates": {}, "peak": {}, "batch": {},
+           "seconds": {}}
+    for precision, step, forward, tol in (
+            ("none", DIT_STEP, DIT_FORWARD, (TOL_DIT64_LOSS, TOL_DIT64_GRAD)),
+            ("bf16", DIT_STEP_BF16, DIT_FORWARD_BF16,
+             (TOL_BF16_LOSS, TOL_BF16_GRAD))):
+        name = "fp32" if precision == "none" else precision
+        label = f"DiT 64x64 {name}"
+        config = dit64_config(precision)
+        batch = dit64_batch(config, gen)
+        out["batch"][name] = batch
+        model = random_model(config, gen).train()
+        phase_train_grads(label, model, config, step, gen,
+                          batch_size=DIT64_CHECK_BATCH, seed=TRAIN_SEED,
+                          tol=tol)
+        del model
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, out["launches"][f"dit64_train_{name}"] = run_train_main(
+                label, dict(config, batch_size=batch), step, tmp, 1,
+                SYNTHETIC_IMAGES // batch)
+            rates, peak = time_train_rates(trainer, runs=1)
+            del trainer
+        torch.cuda.empty_cache()
+        out["rates"][name], out["peak"][name] = rates[0], peak
+        print(f"{label} train images/s at batch {batch}, the largest of "
+              f"{DIT64_BATCHES} that fits: {rates[0]:.2f}; peak device "
+              f"memory {peak / 2**20:.1f} MiB; on {smi}")
+        if name == "fp32":
+            out["sweep"] = phase_k3_sweep(batch, gen, smi)
+        model = random_model(dit64_config(), gen)
+        flags = () if name == "fp32" else ("--mixed_precision", "bf16")
+        with tempfile.TemporaryDirectory() as tmp:
+            out["launches"][f"dit64_sample_{name}"], out["seconds"][name] = (
+                phase_sample_main(label, dit64_config(), model, forward, tmp,
+                                  flags=flags))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+
 def main():
     smi = device_line()
     name = torch.cuda.get_device_name(0)
@@ -4775,7 +5226,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         remat_launches, remat_rates, remat_peak = phase_train_main(
             "DiM remat", dict(dim_config, remat=True), DIM_REMAT_STEP,
-            DIM_FORWARD, samplers, tmp, plain_runs=1)
+            DIM_FORWARD, samplers, tmp, plain_runs=0, kernel_runs=1)
 
     # the same DiM on 64x64 images, on the `synthetic` dataset (one epoch)
     for batch, step in ((DIM64_BATCH, DIM64_STEP),
@@ -4828,6 +5279,12 @@ def main():
     int8 = phase_int8(dit_random, gen, smi)
     del dit_random
     print(f"phase_int8: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    exported, export_figures = phase_export(gen, smi)
+    print(f"phase_export: {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    dit64 = phase_dit64(gen, smi)
+    print(f"phase_dit64: {time.perf_counter() - start:.1f} s")
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -4858,8 +5315,7 @@ def main():
           f"batch {TRAIN_BATCH} (plain versions: "
           f"{statistics.median(dim_rates['plain']):.2f}) on {smi}")
     print(f"DiM remat: {statistics.median(remat_rates['kernels']):.2f} train "
-          f"images/s at batch {TRAIN_BATCH} (plain versions: "
-          f"{statistics.median(remat_rates['plain']):.2f}), peak device "
+          f"images/s at batch {TRAIN_BATCH}, peak device "
           f"memory {remat_peak / 2**20:.1f} MiB against "
           f"{dim_peak / 2**20:.1f} MiB without remat, on {smi}")
     print(f"DiM 64x64: {statistics.median(dim64_rates['kernels']):.2f} train "
@@ -4943,6 +5399,19 @@ def main():
         print(f"DiT int8 {precision}: {SAMPLES / sec:.2f} samples/s "
               f"DDIM-{STEPS} CFG {CFG_SCALE} (float DiT "
               f"{SAMPLES / dense:.2f}, {dense / sec:.3f}x); on {smi}")
+    for label, fig in export_figures.items():
+        print(f"export {label} DDIM-{STEPS} CFG {CFG_SCALE}, {SAMPLES} images: "
+              f"export {fig['export']:.2f} s, save {fig['save']:.2f} s, load "
+              f"{fig['load']:.2f} s, blob {fig['blob_mib']:.2f} MiB; the "
+              f"program {fig['rate']:.2f} samples/s, the live sampler "
+              f"{fig['live_rate']:.2f}; bit-equal {fig['bit_equal']}; on "
+              f"{smi}")
+    for name in ("fp32", "bf16"):
+        print(f"DiT 64x64 {name}: {dit64['rates'][name]:.2f} train images/s "
+              f"at batch {dit64['batch'][name]}, peak device memory "
+              f"{dit64['peak'][name] / 2**20:.1f} MiB; "
+              f"{SAMPLES / dit64['seconds'][name]:.2f} samples/s DDIM-{STEPS} "
+              f"CFG {CFG_SCALE}; on {smi}")
     print(f"serve --continuous DiT-MoE, {SERVE_SLOTS} images in one submit: "
           f"{moe['serve']['seconds']:.3f} s; DiT int8 output's distance from "
           f"the float DiT's {int8['distance']:.3e}; on {smi}")
@@ -5341,6 +5810,39 @@ def main():
                     if bf16_row == (precision == "bf16"):
                         row["launches_by_path"][
                             f"int8_sample_{precision}"] = run[key]
+    # the export's and the 64x64 DiT's launches, and K2's and K3's readings
+    # at the 64x64 DiT's train step (BH = batch x 6, L 1024, d 64; K3 in
+    # both forms, `FUSED_MAX_LEN` set from them)
+    dit64_launches = {**exported, **dit64["launches"]}
+    for row in kernels:
+        bf16_row = row["name"].endswith("_bf16")
+        if row["name"] not in ("gn_silu_fwd", "flash_attn_fwd",
+                               "flash_attn_bwd", "gn_silu_fwd_bf16",
+                               "flash_attn_fwd_bf16", "flash_attn_bwd_bf16"):
+            continue
+        key = {"gn": "gn", "flash_attn_fwd": "attn",
+               "flash_attn_bwd": "attn_bwd"}[
+            "gn" if row["name"].startswith("gn") else
+            row["name"].replace("_bf16", "")]
+        key += "_bf16" if bf16_row else ""
+        for path, run in dit64_launches.items():
+            # a float32 row counts the float32 form's launches alone
+            n = (run[key] if bf16_row
+                 else run[key] - run[key + "_bf16"])
+            if n:
+                row["launches_by_path"][path] = n
+        if row["name"].startswith("flash_attn"):
+            fwd = row["name"].startswith("flash_attn_fwd")
+            for p in (0.0, ATTN_DROPOUT):
+                t = dit64["sweep"][("bf16" if bf16_row else "fp32", p)]
+                row[f"l1024_p{p:g}"] = (
+                    {"ms": t["fwd"], "bound_ms": t["fwd_bound"],
+                     "library_ms": t["fwd_library"]} if fwd else
+                    {"ms": (t["fused"] if flash_attention.bwd_fused(
+                        DIT64_LENGTH) else t["two_kernel"]),
+                     "fused_ms": t["fused"], "two_kernel_ms": t["two_kernel"],
+                     "bound_ms": t["bwd_bound"],
+                     "library_ms": t["bwd_library"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

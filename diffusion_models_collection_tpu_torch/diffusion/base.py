@@ -445,19 +445,24 @@ class VPProcess(ScheduledProcess):
             weighting=self.loss_weighting, snr_gamma=self.min_snr_gamma)
 
     # -- sampling --------------------------------------------------------
-    def pair_fn(self, model_fn, device) -> Callable:
-        """The `(x, t, y) -> (eps, x0)` view of `model_fn`."""
-        return wrap_model_as_eps_x0(self.schedule_on(device), model_fn,
-                                    self.prediction_type)
+    def pair_fn(self, model_fn, device,
+                schedule: Optional[NoiseSchedule] = None) -> Callable:
+        """The `(x, t, y) -> (eps, x0)` view of `model_fn` over `schedule`,
+        by default the process's own on `device`."""
+        if schedule is None:
+            schedule = self.schedule_on(device)
+        return wrap_model_as_eps_x0(schedule, model_fn, self.prediction_type)
 
     def eps_x0_fn(self, model_fn, device, y, cfg_scale: float, *,
-                  use_cfg: bool, p_threshold) -> Callable:
+                  use_cfg: bool, p_threshold,
+                  schedule: Optional[NoiseSchedule] = None) -> Callable:
         """`(x, t) -> (eps, x0)` of one sampling step: one model call on the
         [cond; uncond] batch with guidance rescale, interval and the x0
         constraint under CFG; else the plain call and the clamp when
-        `clip_sample`."""
-        schedule = self.schedule_on(device)
-        pair_fn = self.pair_fn(model_fn, device)
+        `clip_sample`. `schedule` as in `pair_fn`."""
+        if schedule is None:
+            schedule = self.schedule_on(device)
+        pair_fn = self.pair_fn(model_fn, device, schedule)
 
         def eps_x0(x, t):
             if use_cfg:
@@ -471,6 +476,22 @@ class VPProcess(ScheduledProcess):
                          else x0)
         return eps_x0
 
+    def guided_eps_x0(self, model_fn, device, y, cfg_scale: Optional[float],
+                      p_threshold=AUTO_THRESHOLD,
+                      schedule: Optional[NoiseSchedule] = None) -> Callable:
+        """`eps_x0_fn` unguided (`cfg_scale` None) or with classifier-free
+        guidance on labels `y` and the x0 constraint `p_threshold` (0.995
+        by default in pixel space)."""
+        use_cfg = cfg_scale is not None
+        if y is not None:
+            y = torch.as_tensor(y, device=device)
+        return self.eps_x0_fn(
+            model_fn, device, y, float(cfg_scale) if use_cfg else 0.0,
+            use_cfg=use_cfg,
+            p_threshold=(resolve_p_threshold(p_threshold, self.clip_sample)
+                         if use_cfg else None),
+            schedule=schedule)
+
     def sample(self, model_fn, shape, generator=None, y=None,
                init_noise=None, noises: Optional[Sequence] = None,
                return_all_timesteps: bool = False,
@@ -478,10 +499,7 @@ class VPProcess(ScheduledProcess):
         """Unguided sampling: (B, H, W, C), or every step's state
         (S, B, H, W, C) with `return_all_timesteps`."""
         img = initial_image(shape, generator, init_noise)
-        if y is not None:
-            y = torch.as_tensor(y, device=img.device)
-        eps_x0 = self.eps_x0_fn(model_fn, img.device, y, 0.0, use_cfg=False,
-                                p_threshold=None)
+        eps_x0 = self.guided_eps_x0(model_fn, img.device, y, None)
         return self._solve(eps_x0, img, generator, noises,
                            return_all_timesteps, progress, self.DESC)
 
@@ -496,10 +514,8 @@ class VPProcess(ScheduledProcess):
         if y is None:
             raise ValueError("CFG sampling requires class labels y.")
         img = initial_image(shape, generator, init_noise)
-        eps_x0 = self.eps_x0_fn(
-            model_fn, img.device, torch.as_tensor(y, device=img.device),
-            float(cfg_scale), use_cfg=True,
-            p_threshold=resolve_p_threshold(p_threshold, self.clip_sample))
+        eps_x0 = self.guided_eps_x0(model_fn, img.device, y, cfg_scale,
+                                    p_threshold)
         return self._solve(eps_x0, img, generator, noises,
                            return_all_timesteps, progress,
                            f"{self.DESC} with CFG scale {cfg_scale}")

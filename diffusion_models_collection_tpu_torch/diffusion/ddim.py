@@ -85,15 +85,27 @@ class DDIM(base.FastVPSampler):
         return ddim_step(schedule, x, t, t_next, eps, x0_pred, self.eta,
                          noise)
 
+    def timestep_pairs(self):
+        """The sampler's steps as (t, t_next) lists: the grid, and the grid
+        shifted by one with -1 (the clean image) last."""
+        steps = self.inference_timesteps.tolist()
+        return steps, steps[1:] + [-1]
+
+    def step(self, schedule: NoiseSchedule, x, t, t_next, noise, eps_x0):
+        """One sampling step from x_t to x_{t_next} through `eps_x0`, the
+        step's (eps, x0) (`guided_eps_x0`); `noise` is the eta > 0 draw."""
+        eps, x0 = eps_x0(x, t)
+        return ddim_step(schedule, x, t, t_next, eps, x0, self.eta, noise)
+
     @torch.no_grad()
     def _solve(self, eps_x0, img, generator, noises, return_all_timesteps,
                progress, desc):
-        steps = self.inference_timesteps.tolist()
+        ts, ts_next = self.timestep_pairs()
         if self.eta > 0:
-            base.check_noises(noises, len(steps))
+            base.check_noises(noises, len(ts))
         out = base.Trajectory(return_all_timesteps)
-        self._steps(eps_x0, img, steps, steps[1:] + [-1], 0, generator,
-                    noises, out, progress, desc)
+        self._steps(eps_x0, img, ts, ts_next, 0, generator, noises, out,
+                    progress, desc)
         return out.result()
 
     def _steps(self, eps_x0, img, ts, ts_next, first, generator, noises, out,
@@ -110,10 +122,9 @@ class DDIM(base.FastVPSampler):
             t = torch.full((batch,), t_i, dtype=torch.int64, device=img.device)
             t_next = torch.full((batch,), t_next_i, dtype=torch.int64,
                                 device=img.device)
-            eps, x0 = eps_x0(img, t)
             noise = (base.step_noise(noises, k, img, generator)
                      if self.eta > 0 else None)
-            img = ddim_step(schedule, img, t, t_next, eps, x0, self.eta, noise)
+            img = self.step(schedule, img, t, t_next, noise, eps_x0)
             if known is not None:
                 img = project_known(
                     schedule, img, t_next_i, known,
@@ -122,19 +133,6 @@ class DDIM(base.FastVPSampler):
             out.add(img)
             base.report_progress(progress, desc, j + 1, len(ts))
         return img
-
-    def _guided_eps_x0(self, model_fn, device, y, cfg_scale, p_threshold):
-        """`eps_x0_fn` unguided (`cfg_scale` None) or with classifier-free
-        guidance on labels `y`."""
-        use_cfg = cfg_scale is not None
-        if y is not None:
-            y = torch.as_tensor(y, device=device)
-        return self.eps_x0_fn(
-            model_fn, device, y, float(cfg_scale) if use_cfg else 0.0,
-            use_cfg=use_cfg,
-            p_threshold=(base.resolve_p_threshold(p_threshold,
-                                                  self.clip_sample)
-                         if use_cfg else None))
 
     @torch.no_grad()
     def img2img(self, model_fn, init_image, generator=None,
@@ -169,8 +167,8 @@ class DDIM(base.FastVPSampler):
             img = self.q_sample(init_image, t, noise.to(img.device))
         if cfg_scale is not None and y is None:
             raise ValueError("CFG img2img requires class labels y.")
-        eps_x0 = self._guided_eps_x0(model_fn, img.device, y, cfg_scale,
-                                     p_threshold)
+        eps_x0 = self.guided_eps_x0(model_fn, img.device, y, cfg_scale,
+                                    p_threshold)
         out = base.Trajectory(return_all_timesteps)
         self._steps(eps_x0, img, sub, sub[1:] + [-1], 0, generator, noises,
                     out, progress, f"DDIM img2img (strength {strength})",
@@ -238,8 +236,8 @@ class DDIM(base.FastVPSampler):
                 "the interval or raise num_inference_steps)")
         base.check_noises(restart_noises, restarts)
         img = base.initial_image(shape, generator, init_noise)
-        eps_x0 = self._guided_eps_x0(model_fn, img.device, y, cfg_scale,
-                                     p_threshold)
+        eps_x0 = self.guided_eps_x0(model_fn, img.device, y, cfg_scale,
+                                    p_threshold)
         ts_next = grid[1:] + [-1]
         out = base.Trajectory(return_all_timesteps)
 

@@ -81,13 +81,26 @@ class DDPM(base.VPProcess):
             x0_pred = torch.clamp(x0_pred, -1.0, 1.0)
         return posterior_step(schedule, x, t, x0_pred, noise)
 
+    def timestep_pairs(self):
+        """The sampler's steps as (t, t_next) lists: every timestep from
+        T - 1 down to 0, and the one below it."""
+        ts = list(range(self.num_timesteps - 1, -1, -1))
+        return ts, [t - 1 for t in ts]
+
+    def step(self, schedule: NoiseSchedule, x, t, t_next, noise, eps_x0):
+        """One ancestral step x_t -> x_{t-1} (`t_next`, always t - 1, is
+        not read) through `eps_x0`, the step's (eps, x0)
+        (`guided_eps_x0`), with the step's `noise`."""
+        _, x0 = eps_x0(x, t)
+        return posterior_step(schedule, x, t, x0, noise)
+
     @torch.no_grad()
     def _solve(self, eps_x0, img, generator, noises, return_all_timesteps,
                progress, desc):
         base.check_noises(noises, self.num_timesteps)
         out = base.Trajectory(return_all_timesteps)
-        self._steps(eps_x0, img, list(range(self.num_timesteps - 1, -1, -1)),
-                    0, generator, noises, None, None, out, progress, desc)
+        self._steps(eps_x0, img, self.timestep_pairs()[0], 0, generator,
+                    noises, None, None, out, progress, desc)
         return out.result()
 
     def _steps(self, eps_x0, img, ts, first, generator, noises, known,
@@ -101,9 +114,8 @@ class DDPM(base.VPProcess):
         for j, t_i in enumerate(ts):
             k = first + j
             t = torch.full((batch,), t_i, dtype=torch.int64, device=img.device)
-            _, x0 = eps_x0(img, t)
             noise = base.step_noise(noises, k, img, generator)
-            img = posterior_step(schedule, img, t, x0, noise)
+            img = self.step(schedule, img, t, None, noise, eps_x0)
             if known is not None:
                 img = project_known(
                     schedule, img, t_i - 1, known,
@@ -157,17 +169,10 @@ class DDPM(base.VPProcess):
             t = torch.full((init_image.shape[0],), t0, dtype=torch.int64,
                            device=init_image.device)
             img = self.q_sample(init_image, t, noise.to(img.device))
-        use_cfg = cfg_scale is not None
-        if use_cfg and y is None:
+        if cfg_scale is not None and y is None:
             raise ValueError("CFG img2img requires class labels y.")
-        if y is not None:
-            y = torch.as_tensor(y, device=img.device)
-        eps_x0 = self.eps_x0_fn(
-            model_fn, img.device, y, float(cfg_scale) if use_cfg else 0.0,
-            use_cfg=use_cfg,
-            p_threshold=(base.resolve_p_threshold(p_threshold,
-                                                  self.clip_sample)
-                         if use_cfg else None))
+        eps_x0 = self.guided_eps_x0(model_fn, img.device, y, cfg_scale,
+                                    p_threshold)
         ts = list(range(t0, -1, -1))
         out = base.Trajectory(return_all_timesteps)
         desc = f"DDPM img2img (strength {strength})"

@@ -52,12 +52,19 @@ def multistep_D(x0: torch.Tensor, x0_prev: torch.Tensor, h: float,
 
 def alpha_sigma_lambda(schedule: NoiseSchedule):
     """alpha = sqrt(acp), sigma = sqrt(1 - acp) and lambda = log(alpha /
-    sigma), float32 numpy arrays over the schedule's timesteps."""
-    acp = schedule.alphas_cumprod.cpu()
-    a = torch.sqrt(acp)
-    s = torch.sqrt(1.0 - acp)
-    lam = torch.log(a.clamp(min=1e-12) / s.clamp(min=1e-12))
-    return a.numpy(), s.numpy(), lam.numpy()
+    sigma), float32 numpy arrays over the schedule's timesteps, computed
+    once per schedule and kept on it: a run that `torch.export` traces
+    (`serving.export_sampler`, which computes them first) cannot read a
+    tensor back to the host."""
+    cached = schedule.__dict__.get("_alpha_sigma_lambda")
+    if cached is None:
+        acp = schedule.alphas_cumprod.cpu()
+        a = torch.sqrt(acp)
+        s = torch.sqrt(1.0 - acp)
+        lam = torch.log(a.clamp(min=1e-12) / s.clamp(min=1e-12))
+        cached = (a.numpy(), s.numpy(), lam.numpy())
+        schedule.__dict__["_alpha_sigma_lambda"] = cached
+    return cached
 
 
 def grid_scalars(schedule: NoiseSchedule, timesteps: torch.Tensor

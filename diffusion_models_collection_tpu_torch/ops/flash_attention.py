@@ -3,10 +3,11 @@
 Counterpart of `diffusion_models_collection_tpu/ops/flash_attention.py`:
 `flash_attention_fwd` (`_flash_fwd_bh`) returns the output and the row
 logsumexp; `flash_attention_bwd` (`_flash_bwd_bh`, `_bwd_jnp`) recomputes the
-probabilities from them and returns dq, dk and dv. Each launches its kernel
-(`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) on a CUDA tensor and runs
-its plain version (`flash_attention_fwd_ref`, `flash_attention_bwd_ref`) on a
-CPU tensor. `FlashAttention` joins the two as the JAX package's `_flash_core`
+probabilities from them and returns dq, dk and dv. Each is a `torch.library`
+operator (`dmc::flash_attn_fwd`, `dmc::flash_attn_bwd`, `ops/_library.py`)
+that launches its kernel (`csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`) on
+a CUDA tensor and runs its plain version (`flash_attention_fwd_ref`,
+`flash_attention_bwd_ref`) on a CPU tensor. `FlashAttention` joins the two as the JAX package's `_flash_core`
 custom_vjp does; `flash_attention` is its entry point and
 `flash_attention_ref` the plain differentiable attention it is held against.
 
@@ -17,8 +18,8 @@ forms (`csrc/flash_attn_bwd.cu`). The fused one computes the scores once:
 each (head, key tile) block also forms its share of dq, which a scratch
 buffer of (BH, key tiles, L, d) floats carries to a sum kernel when there
 is more than one key tile. `bwd_fused` takes it up to
-`FUSED_MAX_LEN`; beyond, the scratch would grow with L^2 and the two-kernel
-form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
+`FUSED_MAX_LEN` (L 1024); beyond, the scratch would grow with L^2 and the
+two-kernel form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
 tile height both forms walk in.
 
 The plain versions take any head_dim. The kernels take multiples of 8 (bf16:
@@ -68,7 +69,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _library
 
 MAX_HEAD_DIM = 128
 
@@ -89,10 +90,15 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
-# The longest sequence whose backward runs fused: four key tiles of 64, so
-# the dq shares cost as much traffic as one more pass over q, k, v and dO.
-# Every attention of the CIFAR-10 UNet (L 64, 256) lies below it.
-FUSED_MAX_LEN = 256
+# The longest sequence whose backward runs fused: 16 key tiles of 64, the
+# 64x64 DiT's L 1024, where its dq shares (16 x dq in float32, 3 GiB at BH
+# 768) cost less than the two-kernel form's recomputed scores: on an H100
+# at BH 768, d 64, fused against two kernels 16.84 against 22.20 ms fp32
+# and 17.54 against 23.79 at p 0.1; bf16 5.31 against 5.64 at p 0.1 (the
+# DiT's training), 4.67 against 3.85 at p 0 (`chip_smoke.py`'s
+# `phase_k3_sweep`; PERF.md). Every attention of the CIFAR-10 UNet (L 64,
+# 256) and DiT (L 256) lies below it too.
+FUSED_MAX_LEN = 1024
 
 
 def fwd_tile(seq_len: int, head_dim: int,
@@ -294,11 +300,11 @@ def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def _check_bias(name: str, bias: Optional[torch.Tensor],
-                q: torch.Tensor) -> int:
+                q: torch.Tensor) -> None:
     """The key bias: None, or float32 (B, L) on q's device, contiguous, with B
-    dividing q's BH; returns the heads a batch item (1 without a bias)."""
+    dividing q's BH (the kernels' bias forms read row bh / (BH / B))."""
     if bias is None:
-        return 1
+        return
     bh, seq_len = q.shape[0], q.shape[1]
     if (bias.dim() != 2 or bias.shape[1] != seq_len or bias.shape[0] < 1
             or bh % bias.shape[0]):
@@ -309,7 +315,6 @@ def _check_bias(name: str, bias: Optional[torch.Tensor],
                         f"{q.device}, got {bias.dtype} on {bias.device}")
     if not bias.is_contiguous():
         raise ValueError(f"{name}: the key bias must be contiguous")
-    return bh // bias.shape[0]
 
 
 def padded_head_dim(head_dim: int,
@@ -345,24 +350,20 @@ def _dropout_args(dropout_p: float, seed: Optional[int]):
             seed & 0xFFFFFFFFFFFFFFFF)
 
 
-def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    dropout_p: float = 0.0, seed: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
-    with dropout on the probabilities when `dropout_p` > 0 (the mask of
-    `philox_keep_mask(seed, ...)`) and the key bias when one is given: the
-    kernel for CUDA tensors, the plain version for CPU tensors. Returns (o,
-    lse), o of q's type and lse float32 of shape (BH, L, 1), the JAX
-    kernel's layout."""
+def _signed_seed(seed: Optional[int]) -> Optional[int]:
+    """A dropout seed as the operators' 64-bit signed int: the same 64 bits,
+    so the same mask (`philox_keep_mask` reads its low and high words)."""
+    if seed is None:
+        return None
+    seed &= 0xFFFFFFFFFFFFFFFF
+    return seed - 2**64 if seed >= 2**63 else seed
+
+
+def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
+              bias: Optional[torch.Tensor]):
+    """The forward kernel's launch: (o, lse)."""
     global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES, BIAS_LAUNCHES
-    bf16 = _build.check_io_dtype("flash_attention_fwd", (q, k, v))
-    _check_shapes("flash_attention_fwd", q, k, v)
-    _check_dropout("flash_attention_fwd", dropout_p, seed)
-    heads = _check_bias("flash_attention_fwd", bias, q)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias)
+    bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
     lib = _build.library()
     q, k, v = _pad_heads(head_dim, q, k, v)
@@ -382,8 +383,8 @@ def flash_attention_fwd(
             if bias is None:
                 err = lib.flash_attn_fwd(*args, stream)
             else:
-                err = lib.flash_attn_fwd_bias(*args, bias.data_ptr(), heads,
-                                              stream)
+                err = lib.flash_attn_fwd_bias(*args, bias.data_ptr(),
+                                              bh // bias.shape[0], stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
         DROPOUT_LAUNCHES += dropout_p > 0.0
@@ -392,31 +393,48 @@ def flash_attention_fwd(
     return (*_cut_heads(head_dim, o), lse)
 
 
-def flash_attention_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
-    seed: Optional[int] = None, fused: Optional[bool] = None,
+_FWD = _library.define(
+    "flash_attn_fwd(Tensor q, Tensor k, Tensor v, float dropout_p, "
+    "int? seed, Tensor? bias) -> (Tensor, Tensor)",
+    cpu=flash_attention_fwd_ref,
+    cuda=_fwd_cuda,
+    fake=lambda q, k, v, dropout_p, seed, bias: (
+        torch.empty_like(q),
+        q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)))
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    dropout_p: float = 0.0, seed: Optional[int] = None,
     bias: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
-    and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
-    its `dropout_p`, `seed` and key `bias`: the kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns (dq, dk, dv) of q's type. `fused`
-    picks the kernel's form; None leaves it to `bwd_fused`."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
+    with dropout on the probabilities when `dropout_p` > 0 (the mask of
+    `philox_keep_mask(seed, ...)`) and the key bias when one is given, the
+    operator `dmc::flash_attn_fwd`: the kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (o, lse), o of q's type and lse float32
+    of shape (BH, L, 1), the JAX kernel's layout."""
+    _build.check_io_dtype("flash_attention_fwd", (q, k, v))
+    _check_shapes("flash_attention_fwd", q, k, v)
+    _check_dropout("flash_attention_fwd", dropout_p, seed)
+    _check_bias("flash_attention_fwd", bias, q)
+    return _FWD(q, k, v, float(dropout_p), _signed_seed(seed), bias)
+
+
+def _bwd_cpu(q, k, v, o, dout, lse, dropout_p: float, seed: Optional[int],
+             fused: Optional[bool], bias: Optional[torch.Tensor]):
+    return flash_attention_bwd_ref(q, k, v, o, dout, lse, dropout_p, seed,
+                                   bias)
+
+
+def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
+              fused: Optional[bool], bias: Optional[torch.Tensor]):
+    """The backward kernel's launch in the form `fused` picks (None:
+    `bwd_fused`): (dq, dk, dv)."""
     global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
     global BWD_BIAS_LAUNCHES
-    bf16 = _build.check_io_dtype("flash_attention_bwd", (q, k, v, o, do),
-                                 (lse,))
-    _check_shapes("flash_attention_bwd", q, k, v, o, do)
-    _check_dropout("flash_attention_bwd", dropout_p, seed)
-    heads = _check_bias("flash_attention_bwd", bias, q)
+    bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
-    if lse.shape != (bh, seq_len, 1):
-        raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
-                         f"1), got {tuple(lse.shape)}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, o, do, lse, dropout_p, seed,
-                                       bias)
     q, k, v, o, do = _pad_heads(head_dim, q, k, v, o, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: q, k, v and dO must be "
@@ -447,14 +465,47 @@ def flash_attention_bwd(
             if bias is None:
                 err = lib.flash_attn_bwd(*args, stream)
             else:
-                err = lib.flash_attn_bwd_bias(*args, bias.data_ptr(), heads,
-                                              stream)
+                err = lib.flash_attn_bwd_bias(*args, bias.data_ptr(),
+                                              bh // bias.shape[0], stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
         BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
         BWD_BF16_LAUNCHES += bf16
         BWD_BIAS_LAUNCHES += bias is not None
     return _cut_heads(head_dim, dq, dk, dv)
+
+
+_BWD = _library.define(
+    "flash_attn_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, "
+    "Tensor lse, float dropout_p, int? seed, bool? fused, Tensor? bias) "
+    "-> (Tensor, Tensor, Tensor)",
+    cpu=_bwd_cpu,
+    cuda=_bwd_cuda,
+    fake=lambda q, *args: tuple(torch.empty_like(q) for _ in range(3)))
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
+    seed: Optional[int] = None, fused: Optional[bool] = None,
+    bias: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
+    and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
+    its `dropout_p`, `seed` and key `bias`, the operator
+    `dmc::flash_attn_bwd`: the kernel for CUDA tensors, the plain version
+    for CPU tensors. Returns (dq, dk, dv) of q's type. `fused` picks the
+    kernel's form; None leaves it to `bwd_fused`."""
+    _build.check_io_dtype("flash_attention_bwd", (q, k, v, o, do), (lse,))
+    _check_shapes("flash_attention_bwd", q, k, v, o, do)
+    _check_dropout("flash_attention_bwd", dropout_p, seed)
+    _check_bias("flash_attention_bwd", bias, q)
+    bh, seq_len, _ = q.shape
+    if lse.shape != (bh, seq_len, 1):
+        raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
+                         f"1), got {tuple(lse.shape)}")
+    return _BWD(q, k, v, o, do, lse, float(dropout_p), _signed_seed(seed),
+                fused, bias)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -4,11 +4,13 @@ Counterpart of `diffusion_models_collection_tpu/ops/fused_norm.py`. The UNet
 applies GroupNorm(8) + SiLU before both convs of every residual block and at
 the output head.
 
-* `group_norm_silu_fwd_stats` computes it in one kernel (`csrc/gn_silu.cu`)
+* `group_norm_silu_fwd_stats` (the operator `dmc::gn_silu_fwd`,
+  `ops/_library.py`) computes it in one kernel (`csrc/gn_silu.cu`)
   on a CUDA tensor and through `group_norm_silu_ref` on a CPU tensor, and
   also returns `stats` (2, B, G): each (image, group)'s mean and 1 / sigma;
   `group_norm_silu_fwd` returns the output alone.
-* `group_norm_silu_bwd` is the backward from those statistics: one kernel
+* `group_norm_silu_bwd` (`dmc::gn_silu_bwd`) is the backward from those
+  statistics: one kernel
   of `csrc/gn_silu.cu` on a CUDA tensor, `group_norm_silu_bwd_ref` (the same
   formulas on whole tensors) on a CPU tensor. The JAX package has no
   backward kernel: its `_core_bwd` recomputes the plain forward and takes
@@ -35,7 +37,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _library
 
 EPS = 1e-5
 
@@ -103,11 +105,10 @@ def group_norm_silu_bwd_ref(
     return dx.reshape(shape).to(dtype), dscale, dbias
 
 
-def _check(name: str, x, scale, bias, num_groups: int, *others) -> bool:
+def _check(name: str, x, scale, bias, num_groups: int, *others) -> None:
     """Checks the inputs (x and, in the backward, g float32 or bfloat16 of
-    one type; scale, bias, stats float32); returns whether x is bfloat16."""
-    bf16 = _build.check_io_dtype(name, (x, *others[:1]),
-                                 (scale, bias, *others[1:]))
+    one type; scale, bias, stats float32)."""
+    _build.check_io_dtype(name, (x, *others[:1]), (scale, bias, *others[1:]))
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, C), got "
                          f"{tuple(x.shape)}")
@@ -121,20 +122,12 @@ def _check(name: str, x, scale, bias, num_groups: int, *others) -> bool:
                                     or h * w * c >= 2**31):
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit indexing")
-    return bf16
 
 
-def group_norm_silu_fwd_stats(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GroupNorm + SiLU on (B, H, W, C) float32 or bfloat16: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor. Returns (y, stats), y of
-    x's type, `stats` (2, B, G) the groups' float32 means and 1 / sigma."""
+def _fwd_cuda(x, scale, bias, num_groups: int):
+    """The forward kernel's launch: (y, stats)."""
     global LAUNCHES, BF16_LAUNCHES
-    bf16 = _check("group_norm_silu", x, scale, bias, num_groups)
-    if x.device.type == "cpu":
-        return (group_norm_silu_ref(x, scale, bias, num_groups),
-                group_norm_silu_stats_ref(x, num_groups))
+    bf16 = x.dtype == torch.bfloat16
     b, h, w, c = x.shape
     lib = _build.library()
     y = torch.empty_like(x)
@@ -154,6 +147,29 @@ def group_norm_silu_fwd_stats(
     return y, stats
 
 
+_FWD = _library.define(
+    "gn_silu_fwd(Tensor x, Tensor scale, Tensor bias, int num_groups) "
+    "-> (Tensor, Tensor)",
+    cpu=lambda x, scale, bias, num_groups: (
+        group_norm_silu_ref(x, scale, bias, num_groups),
+        group_norm_silu_stats_ref(x, num_groups)),
+    cuda=_fwd_cuda,
+    fake=lambda x, scale, bias, num_groups: (
+        torch.empty_like(x),
+        x.new_empty((2, x.shape[0], num_groups), dtype=torch.float32)))
+
+
+def group_norm_silu_fwd_stats(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm + SiLU on (B, H, W, C) float32 or bfloat16, the operator
+    `dmc::gn_silu_fwd`: the kernel for a CUDA tensor, the plain version for
+    a CPU tensor. Returns (y, stats), y of x's type, `stats` (2, B, G) the
+    groups' float32 means and 1 / sigma."""
+    _check("group_norm_silu", x, scale, bias, num_groups)
+    return _FWD(x, scale, bias, num_groups)
+
+
 def group_norm_silu_fwd(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, num_groups: int
 ) -> torch.Tensor:
@@ -161,30 +177,21 @@ def group_norm_silu_fwd(
     return group_norm_silu_fwd_stats(x, scale, bias, num_groups)[0]
 
 
-def group_norm_silu_bwd(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
-    stats: torch.Tensor, num_groups: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GroupNorm + SiLU backward from the forward's `stats`, for the
-    output gradient g (B, H, W, C): the kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (dx, dscale, dbias): dx of x's type
-    (float32 or bfloat16; g of the same), dscale and dbias float32. The
-    kernel writes dscale and dbias per image, (B, C), summed over the batch
-    here."""
+def _bwd_cpu(x, scale, bias, g, stats, num_groups: int):
+    dx, dscale, dbias = group_norm_silu_bwd_ref(x, scale, bias, g, stats,
+                                                num_groups)
+    return dx, torch.stack([dscale, dbias])
+
+
+def _bwd_cuda(x, scale, bias, g, stats, num_groups: int):
+    """The backward kernel's launch: (dx, [dscale; dbias]). The kernel
+    writes dscale and dbias per image, (B, C), summed over the batch here."""
     global BWD_LAUNCHES, BWD_BF16_LAUNCHES
-    name = "group_norm_silu_bwd"
-    bf16 = _check(name, x, scale, bias, num_groups, g, stats)
-    want = (2, x.shape[0], num_groups)
-    if g.shape != x.shape or stats.shape != want:
-        raise ValueError(
-            f"{name}: g must be {tuple(x.shape)} and stats {want}, got "
-            f"{tuple(g.shape)} and {tuple(stats.shape)}")
-    if x.device.type == "cpu":
-        return group_norm_silu_bwd_ref(x, scale, bias, g, stats, num_groups)
+    bf16 = x.dtype == torch.bfloat16
     b, h, w, c = x.shape
     dx = torch.empty_like(x)
     if not x.numel():
-        return dx, torch.zeros_like(scale), torch.zeros_like(bias)
+        return dx, scale.new_zeros((2, c))
     lib = _build.library()
     rows = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     # autograd runs a backward on its own thread: take that thread's current
@@ -200,8 +207,37 @@ def group_norm_silu_bwd(
     _build.check(err, "gn_silu_bwd")
     BWD_LAUNCHES += 1
     BWD_BF16_LAUNCHES += bf16
-    dscale, dbias = rows.sum(1)
-    return dx, dscale, dbias
+    return dx, rows.sum(1)
+
+
+_BWD = _library.define(
+    "gn_silu_bwd(Tensor x, Tensor scale, Tensor bias, Tensor g, "
+    "Tensor stats, int num_groups) -> (Tensor, Tensor)",
+    cpu=_bwd_cpu,
+    cuda=_bwd_cuda,
+    fake=lambda x, scale, bias, g, stats, num_groups: (
+        torch.empty_like(x),
+        scale.new_empty((2, x.shape[-1]), dtype=torch.float32)))
+
+
+def group_norm_silu_bwd(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
+    stats: torch.Tensor, num_groups: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GroupNorm + SiLU backward from the forward's `stats`, for the
+    output gradient g (B, H, W, C), the operator `dmc::gn_silu_bwd`: the
+    kernel for CUDA tensors, the plain version for CPU tensors. Returns (dx,
+    dscale, dbias): dx of x's type (float32 or bfloat16; g of the same),
+    dscale and dbias float32 (the operator returns them stacked, (2, C))."""
+    name = "group_norm_silu_bwd"
+    _check(name, x, scale, bias, num_groups, g, stats)
+    want = (2, x.shape[0], num_groups)
+    if g.shape != x.shape or stats.shape != want:
+        raise ValueError(
+            f"{name}: g must be {tuple(x.shape)} and stats {want}, got "
+            f"{tuple(g.shape)} and {tuple(stats.shape)}")
+    dx, sums = _BWD(x, scale, bias, g, stats, num_groups)
+    return dx, sums[0], sums[1]
 
 
 def kernel_form(x_shape, num_groups: int, backward: bool = False,

@@ -83,6 +83,11 @@ class Int8Weights:
         self._value = None
 
     def get(self, weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if torch.compiler.is_exporting():
+            # a traced weight (an input of `serving.py`'s program) has no
+            # storage to key on: the program quantizes it at each call
+            wq, scale = quantize_rows(weight.detach())
+            return wq, scale.reshape(1, -1)
         key = (weight.data_ptr(), weight._version, weight.device,
                tuple(weight.shape))
         if key != self._key:

@@ -38,6 +38,10 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   adjoint from chunk to chunk in a serial pass and completes each chunk.
   `csrc/selective_scan_split.cu` on a CUDA tensor, the `_ref` versions, the
   same passes in plain PyTorch, on a CPU tensor.
+* Each launcher is a `torch.library` operator (`ops/_library.py`):
+  `dmc::selective_scan_fwd` and `dmc::selective_scan_fwd_states` (states
+  off and on), `dmc::selective_scan_bwd`, `dmc::selective_scan_bwd_nostate`,
+  `dmc::selective_scan_fwd_split` and `dmc::selective_scan_bwd_split`.
 * `SelectiveScan` joins them as the JAX `_selective_scan_core` custom_vjp
   does. With no gradient wanted the forward saves nothing (K5). With one,
   it saves the block states (K6, or K9 where `split_forward` says so) and
@@ -64,7 +68,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _library
 
 MAX_STATE = 32
 
@@ -385,25 +389,27 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def selective_scan_fwd(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, save_states: bool = False
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Scan forward over float32 inputs: the kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns (y without the D skip, bound):
-    bound (batch, n_blocks, N, D) with `save_states`, else None."""
+def _n_blocks(length) -> int:
+    """The number of time blocks, `len(_blocks(length))` in arithmetic (the
+    fake implementations take symbolic lengths)."""
+    return -(-length // t_block_for(length))
+
+
+def _bound_like(x: torch.Tensor, n_state: int) -> torch.Tensor:
+    """An empty `bound` (batch, n_blocks, N, D) for x (batch, L, D)."""
+    batch, length, d_inner = x.shape
+    return x.new_empty((batch, _n_blocks(length), n_state, d_inner))
+
+
+def _fwd_cuda(x, dt, A, B, C, save_states: bool):
+    """The forward kernel's launch (K5, or K6 with `save_states`): (y,
+    bound or None)."""
     global FWD_LAUNCHES, FWD_STATES_LAUNCHES
-    _build.check_inputs("selective_scan_fwd", x, dt, A, B, C)
-    batch, length, d_inner, n_state = _check_shapes(
-        "selective_scan_fwd", x, dt, A, B, C)
-    if x.device.type == "cpu":
-        return selective_scan_fwd_ref(x, dt, A, B, C, save_states)
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
     lib = _build.library()
     y = torch.empty_like(x)
-    n_blocks = len(_blocks(length))
-    bound = (torch.empty((batch, n_blocks, n_state, d_inner),
-                         dtype=torch.float32, device=x.device)
-             if save_states else None)
+    bound = _bound_like(x, n_state) if save_states else None
     if x.numel():
         with torch.cuda.device(x.device):
             err = lib.selective_scan_fwd(
@@ -415,6 +421,45 @@ def selective_scan_fwd(
         FWD_LAUNCHES += 1
         FWD_STATES_LAUNCHES += bool(save_states)
     return y, bound
+
+
+_SCAN_ARGS = "Tensor x, Tensor dt, Tensor A, Tensor B, Tensor C"
+_GRADS = "-> (Tensor, Tensor, Tensor, Tensor, Tensor)"
+
+
+def _grads_fake(x, dt, A, B, C, *rest):
+    return (torch.empty_like(x), torch.empty_like(x), torch.empty_like(A),
+            torch.empty_like(B), torch.empty_like(C))
+
+
+_FWD = _library.define(
+    f"selective_scan_fwd({_SCAN_ARGS}) -> Tensor",
+    cpu=lambda x, dt, A, B, C: selective_scan_fwd_ref(x, dt, A, B, C,
+                                                      False)[0],
+    cuda=lambda x, dt, A, B, C: _fwd_cuda(x, dt, A, B, C, False)[0],
+    fake=lambda x, dt, A, B, C: torch.empty_like(x))
+_FWD_STATES = _library.define(
+    f"selective_scan_fwd_states({_SCAN_ARGS}) -> (Tensor, Tensor)",
+    cpu=lambda x, dt, A, B, C: selective_scan_fwd_ref(x, dt, A, B, C, True),
+    cuda=lambda x, dt, A, B, C: _fwd_cuda(x, dt, A, B, C, True),
+    fake=lambda x, dt, A, B, C: (torch.empty_like(x),
+                                 _bound_like(x, A.shape[1])))
+
+
+def selective_scan_fwd(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, save_states: bool = False
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Scan forward over float32 inputs, the operator `dmc::selective_scan_fwd`
+    (`dmc::selective_scan_fwd_states` with `save_states`): the kernel for
+    CUDA tensors, the plain version for CPU tensors. Returns (y without the
+    D skip, bound): bound (batch, n_blocks, N, D) with `save_states`, else
+    None."""
+    _build.check_inputs("selective_scan_fwd", x, dt, A, B, C)
+    _check_shapes("selective_scan_fwd", x, dt, A, B, C)
+    if save_states:
+        return _FWD_STATES(x, dt, A, B, C)
+    return _FWD(x, dt, A, B, C), None
 
 
 def _check_bound(name: str, bound, batch, length, d_inner, n_state) -> None:
@@ -444,24 +489,16 @@ def _zero_grads(x, A, B, C):
             torch.zeros_like(B), torch.zeros_like(C))
 
 
-def selective_scan_bwd(
-    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
-) -> Tuple[torch.Tensor, ...]:
-    """Scan backward from the forward's `bound`: the kernel for CUDA
-    tensors, the plain version for CPU tensors. Returns (dx, ddt, dA, dB,
-    dC). The kernel writes dA per batch row, (batch, D, N), and it is summed
-    over the batch here, outside the kernel, as the JAX wrapper does
+def _bwd_cuda(x, dt, A, B, C, g, bound):
+    """The backward kernel's launch from saved states (K8): (dx, ddt, dA,
+    dB, dC). The kernel writes dA per batch row, (batch, D, N), summed over
+    the batch here, outside the kernel, as the JAX wrapper does
     (`selective_scan_pallas.py:571`)."""
     global BWD_LAUNCHES
-    _build.check_inputs("selective_scan_bwd", x, dt, A, B, C, g, bound)
-    batch, length, d_inner, n_state = _check_shapes(
-        "selective_scan_bwd", x, dt, A, B, C, g)
-    _check_bound("selective_scan_bwd", bound, batch, length, d_inner, n_state)
-    if x.device.type == "cpu":
-        return selective_scan_bwd_ref(x, dt, A, B, C, g, bound)
     if not x.numel():
         return _zero_grads(x, A, B, C)
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
     lib = _build.library()
     dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
         lib, x, B, C, (batch, d_inner, n_state))
@@ -479,34 +516,42 @@ def selective_scan_bwd(
     return dx, ddt, da_rows.sum(0), dB, dC
 
 
-def selective_scan_bwd_nostate(
+_BWD = _library.define(
+    f"selective_scan_bwd({_SCAN_ARGS}, Tensor g, Tensor bound) {_GRADS}",
+    cpu=selective_scan_bwd_ref, cuda=_bwd_cuda, fake=_grads_fake)
+
+
+def selective_scan_bwd(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, g: torch.Tensor
+    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
-    """Scan backward for a forward that saved nothing (JAX
-    `selective_scan_bwd_pallas`): one kernel launch that rebuilds the state
-    entering each time block and then sweeps in reverse, for CUDA tensors;
-    the plain version for CPU tensors. The rebuilt states stay in the
-    kernel's shared memory where they fit, else in a scratch buffer
-    allocated here. Returns (dx, ddt, dA, dB, dC)."""
+    """Scan backward from the forward's `bound`, the operator
+    `dmc::selective_scan_bwd`: the kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (dx, ddt, dA, dB, dC)."""
+    _build.check_inputs("selective_scan_bwd", x, dt, A, B, C, g, bound)
+    batch, length, d_inner, n_state = _check_shapes(
+        "selective_scan_bwd", x, dt, A, B, C, g)
+    _check_bound("selective_scan_bwd", bound, batch, length, d_inner, n_state)
+    return _BWD(x, dt, A, B, C, g, bound)
+
+
+def _bwd_nostate_cuda(x, dt, A, B, C, g):
+    """The backward kernel's launch with nothing saved (K7). The rebuilt
+    states stay in the kernel's shared memory where they fit, else in a
+    scratch buffer allocated here."""
     global BWD_NOSTATE_LAUNCHES
-    name = "selective_scan_bwd_nostate"
-    _build.check_inputs(name, x, dt, A, B, C, g)
-    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C, g)
-    if x.device.type == "cpu":
-        return selective_scan_bwd_nostate_ref(x, dt, A, B, C, g)
     if not x.numel():
         return _zero_grads(x, A, B, C)
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
     lib = _build.library()
     dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
         lib, x, B, C, (batch, d_inner, n_state))
     t_block = t_block_for(length)
     scratch = None
     if lib.selective_scan_bwd_nostate_needs_scratch(length, n_state, t_block):
-        scratch = torch.empty(
-            (batch, len(_blocks(length)), n_state, d_inner),
-            dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):  # the stream: see selective_scan_bwd
+        scratch = _bound_like(x, n_state)
+    with torch.cuda.device(x.device):  # the stream: see _bwd_cuda
         err = lib.selective_scan_bwd_nostate(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), g.data_ptr(),
@@ -514,32 +559,43 @@ def selective_scan_bwd_nostate(
             ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             partial.data_ptr(), batch, length, d_inner, n_state, t_block,
             _stream(x.device))
-    _build.check(err, name)
+    _build.check(err, "selective_scan_bwd_nostate")
     BWD_NOSTATE_LAUNCHES += 1
     return dx, ddt, da_rows.sum(0), dB, dC
 
 
-def selective_scan_fwd_split(
+_BWD_NOSTATE = _library.define(
+    f"selective_scan_bwd_nostate({_SCAN_ARGS}, Tensor g) {_GRADS}",
+    cpu=selective_scan_bwd_nostate_ref, cuda=_bwd_nostate_cuda,
+    fake=_grads_fake)
+
+
+def selective_scan_bwd_nostate(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Time-split scan forward with saved states (JAX
-    `selective_scan_fwd_ckpt_pallas_grid`): the kernels for CUDA tensors,
-    the plain version for CPU tensors. Returns (y without the D skip,
-    bound), the same function of the inputs as `selective_scan_fwd(...,
-    save_states=True)`."""
+    C: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Scan backward for a forward that saved nothing (JAX
+    `selective_scan_bwd_pallas`), the operator
+    `dmc::selective_scan_bwd_nostate`: one kernel launch that rebuilds the
+    state entering each time block and then sweeps in reverse, for CUDA
+    tensors; the plain version for CPU tensors. Returns (dx, ddt, dA, dB,
+    dC)."""
+    name = "selective_scan_bwd_nostate"
+    _build.check_inputs(name, x, dt, A, B, C, g)
+    _check_shapes(name, x, dt, A, B, C, g)
+    return _BWD_NOSTATE(x, dt, A, B, C, g)
+
+
+def _fwd_split_cuda(x, dt, A, B, C):
+    """The time-split forward's launch (K9): (y, bound)."""
     global FWD_SPLIT_LAUNCHES
-    name = "selective_scan_fwd_split"
-    _build.check_inputs(name, x, dt, A, B, C)
-    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C)
-    if x.device.type == "cpu":
-        return selective_scan_fwd_split_ref(x, dt, A, B, C)
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
     y = torch.empty_like(x)
-    n_blocks = len(_blocks(length))
-    bound = torch.empty((batch, n_blocks, n_state, d_inner),
-                        dtype=torch.float32, device=x.device)
+    bound = _bound_like(x, n_state)
     if x.numel():
         lib = _build.library()
+        n_blocks = bound.shape[1]
         chunk = fwd_chunk_blocks(batch, length, d_inner)
         # the end state and sum of dt of every chunk but the last
         carried = -(-n_blocks // chunk) - 1
@@ -554,29 +610,41 @@ def selective_scan_fwd_split(
                 ends.data_ptr() if carried else None,
                 sdt.data_ptr() if carried else None, batch, length, d_inner,
                 n_state, t_block_for(length), chunk, _stream(x.device))
-        _build.check(err, name)
+        _build.check(err, "selective_scan_fwd_split")
         FWD_SPLIT_LAUNCHES += 1
     return y, bound
 
 
-def selective_scan_bwd_split(
+_FWD_SPLIT = _library.define(
+    f"selective_scan_fwd_split({_SCAN_ARGS}) -> (Tensor, Tensor)",
+    cpu=selective_scan_fwd_split_ref, cuda=_fwd_split_cuda,
+    fake=lambda x, dt, A, B, C: (torch.empty_like(x),
+                                 _bound_like(x, A.shape[1])))
+
+
+def selective_scan_fwd_split(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
-) -> Tuple[torch.Tensor, ...]:
-    """Time-split scan backward from the forward's `bound` (JAX
-    `selective_scan_bwd_from_ckpt_pallas_grid`): the kernels for CUDA
-    tensors, the plain version for CPU tensors. Returns (dx, ddt, dA, dB,
-    dC), the same function of the inputs as `selective_scan_bwd`. The
-    kernel writes dA per (row, chunk) and it is summed here."""
+    C: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Time-split scan forward with saved states (JAX
+    `selective_scan_fwd_ckpt_pallas_grid`), the operator
+    `dmc::selective_scan_fwd_split`: the kernels for CUDA tensors, the plain
+    version for CPU tensors. Returns (y without the D skip, bound), the same
+    function of the inputs as `selective_scan_fwd(..., save_states=True)`."""
+    name = "selective_scan_fwd_split"
+    _build.check_inputs(name, x, dt, A, B, C)
+    _check_shapes(name, x, dt, A, B, C)
+    return _FWD_SPLIT(x, dt, A, B, C)
+
+
+def _bwd_split_cuda(x, dt, A, B, C, g, bound):
+    """The time-split backward's launch (K10). The kernel writes dA per
+    (row, chunk) and it is summed here."""
     global BWD_SPLIT_LAUNCHES
-    name = "selective_scan_bwd_split"
-    _build.check_inputs(name, x, dt, A, B, C, g, bound)
-    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C, g)
-    _check_bound(name, bound, batch, length, d_inner, n_state)
-    if x.device.type == "cpu":
-        return selective_scan_bwd_split_ref(x, dt, A, B, C, g, bound)
     if not x.numel():
         return _zero_grads(x, A, B, C)
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
     lib = _build.library()
     chunk = bwd_chunk_blocks(batch, length, d_inner)
     n_chunks = -(-len(_blocks(length)) // chunk)
@@ -586,16 +654,39 @@ def selective_scan_bwd_split(
                       dtype=torch.float32, device=x.device)
     sdt = torch.empty((batch, n_chunks, d_inner), dtype=torch.float32,
                       device=x.device)
-    with torch.cuda.device(x.device):  # the stream: see selective_scan_bwd
+    with torch.cuda.device(x.device):  # the stream: see _bwd_cuda
         err = lib.selective_scan_bwd_split(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), g.data_ptr(), bound.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             partial.data_ptr(), phi.data_ptr(), sdt.data_ptr(), batch, length,
             d_inner, n_state, t_block_for(length), chunk, _stream(x.device))
-    _build.check(err, name)
+    _build.check(err, "selective_scan_bwd_split")
     BWD_SPLIT_LAUNCHES += 1
     return dx, ddt, da_rows.sum((0, 1)), dB, dC
+
+
+_BWD_SPLIT = _library.define(
+    f"selective_scan_bwd_split({_SCAN_ARGS}, Tensor g, Tensor bound) "
+    f"{_GRADS}",
+    cpu=selective_scan_bwd_split_ref, cuda=_bwd_split_cuda,
+    fake=_grads_fake)
+
+
+def selective_scan_bwd_split(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: torch.Tensor, bound: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Time-split scan backward from the forward's `bound` (JAX
+    `selective_scan_bwd_from_ckpt_pallas_grid`), the operator
+    `dmc::selective_scan_bwd_split`: the kernels for CUDA tensors, the plain
+    version for CPU tensors. Returns (dx, ddt, dA, dB, dC), the same
+    function of the inputs as `selective_scan_bwd`."""
+    name = "selective_scan_bwd_split"
+    _build.check_inputs(name, x, dt, A, B, C, g, bound)
+    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C, g)
+    _check_bound(name, bound, batch, length, d_inner, n_state)
+    return _BWD_SPLIT(x, dt, A, B, C, g, bound)
 
 
 def _scan_forward(ctx, suffix, x, dt, A, B, C, save_states):

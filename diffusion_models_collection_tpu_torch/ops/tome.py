@@ -33,9 +33,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 
@@ -84,28 +83,37 @@ class ToMeSpec:
         return cls(h, w, r, sx, sy)
 
 
-def _partition(spec: ToMeSpec) -> Tuple[np.ndarray, np.ndarray]:
-    """The static destination and source token indices of the h * w grid."""
-    rows = np.arange(0, spec.h, spec.sy)
-    cols = np.arange(0, spec.w, spec.sx)
-    dst = (rows[:, None] * spec.w + cols[None, :]).reshape(-1)
-    mask = np.zeros(spec.h * spec.w, dtype=bool)
-    mask[dst] = True
-    src = np.nonzero(~mask)[0]
-    return dst.astype(np.int64), src.astype(np.int64)
-
-
-@functools.lru_cache(maxsize=16)
 def _layout(spec: ToMeSpec, device: torch.device):
     """The partition's indices on `device` (destinations, sources) and the
     map from a token to its column of [sources ; destinations]: built once
-    per geometry and device, not copied to the card at every plan."""
-    idx_dst, idx_src = _partition(spec)
-    inv = np.empty(spec.h * spec.w, np.int64)
-    inv[idx_src] = np.arange(spec.num_src)
-    inv[idx_dst] = spec.num_src + np.arange(spec.num_dst)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (idx_dst, idx_src, inv))
+    per geometry and device (`_cached_layout`), not at every plan; built
+    anew in a run that `torch.export` traces, where cached tensors would be
+    constants of the program, which the scan of `serving.py` refuses in its
+    step."""
+    if torch.compiler.is_exporting():
+        return _build_layout(spec, device)
+    return _cached_layout(spec, device)
+
+
+def _build_layout(spec: ToMeSpec, device: torch.device):
+    """Destinations are the top-left anchors of the sy x sx regions; the
+    sources, in token order, are the positions a stable sort of the
+    destination flags puts first."""
+    rows = torch.arange(0, spec.h, spec.sy, device=device)
+    cols = torch.arange(0, spec.w, spec.sx, device=device)
+    idx_dst = (rows[:, None] * spec.w + cols[None, :]).reshape(-1)
+    flags = torch.zeros(spec.h * spec.w, dtype=torch.int64,
+                        device=device).index_fill(0, idx_dst, 1)
+    idx_src = torch.argsort(flags, stable=True)[:spec.num_src]
+    inv = torch.empty(spec.h * spec.w, dtype=torch.int64, device=device)
+    inv = inv.index_copy(0, idx_src, torch.arange(spec.num_src,
+                                                  device=device))
+    inv = inv.index_copy(0, idx_dst, spec.num_src + torch.arange(
+        spec.num_dst, device=device))
+    return idx_dst, idx_src, inv
+
+
+_cached_layout = functools.lru_cache(maxsize=16)(_build_layout)
 
 
 def build_plan(metric: torch.Tensor, spec: ToMeSpec) -> Dict[str, torch.Tensor]:

@@ -157,8 +157,9 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
     """In a fresh process that refuses `jax`, `flax`, `optax` and
     `diffusion_models_collection_tpu`: every module of the port, the
     `train`, `sample`, `evaluate` and `serve` CLIs, the serving engine, the
-    metrics and the fixture tool among them, `chip_smoke.py`'s imports and
-    the profiling tools."""
+    metrics and the fixture tool among them, the sampler export
+    (`serving`) and the kernels' operators (`ops._library`), `chip_smoke.py`'s
+    imports and the profiling tools."""
     modules = port_modules()
     assert {"diffusion_models_collection_tpu_torch.train",
             "diffusion_models_collection_tpu_torch.sample",
@@ -199,6 +200,8 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             "diffusion_models_collection_tpu_torch.utils.reflow_trainer",
             "diffusion_models_collection_tpu_torch.tools.distill",
             "diffusion_models_collection_tpu_torch.tools.reflow",
+            "diffusion_models_collection_tpu_torch.serving",
+            "diffusion_models_collection_tpu_torch.ops._library",
             } <= set(modules)
     script = textwrap.dedent("""
         import importlib, importlib.abc, runpy, sys
@@ -216,7 +219,8 @@ def test_every_module_of_the_port_imports_without_jax_or_the_jax_package():
             importlib.import_module(name)
         for tool in ("tools/profile_torch_sampling.py",
                      "tools/profile_torch_training.py",
-                     "tools/profile_torch_kernels.py"):
+                     "tools/profile_torch_kernels.py",
+                     "tools/profile_torch_dispatch.py"):
             runpy.run_path(tool, run_name="not_main")
         loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not loaded, loaded

@@ -184,23 +184,25 @@ def test_flash_attention_bwd_rejects_a_wrong_lse():
                                             torch.zeros(2, 8, 1))
 
 
-# (L, d) of every attention of a CIFAR-10 UNet train step, then the edges of
-# the two choices: L 32 | 33 (tile 32 | 64), d 64 | 72 (the 32-row form ends
-# at d 64), L 256 | 257 (fused | two kernels)
+# (L, d) of every attention of a CIFAR-10 UNet train step and of the 64x64
+# DiT's (L 1024), then the edges of the two choices: L 32 | 33 (tile 32 |
+# 64), d 64 | 72 (the 32-row form ends at d 64), L 1024 | 1025 (fused | two
+# kernels)
 @pytest.mark.parametrize("seq_len,head_dim,tile,fused", [
     (256, 64, 64, True), (64, 64, 64, True), (16, 64, 32, True),
     (1, 8, 32, True), (32, 64, 32, True), (33, 64, 64, True),
     (32, 72, 64, True), (16, 128, 64, True), (100, 32, 64, True),
-    (257, 64, 64, False), (1024, 64, 64, False), (4096, 128, 64, False),
+    (257, 64, 64, True), (1024, 64, 64, True), (1025, 64, 64, False),
+    (4096, 128, 64, False),
 ])
 def test_attention_bwd_tile_and_form_over_the_main_path_and_its_edges(
         seq_len, head_dim, tile, fused):
     assert flash_attention.bwd_tile(seq_len, head_dim) == tile
     assert flash_attention.bwd_fused(seq_len) is fused
-    # the fused form's dq shares: at most four, a scratch of at most 4 x dq
+    # the fused form's dq shares: at most 16, a scratch of at most 16 x dq
     tiles = -(-seq_len // tile)
-    assert (tiles <= 4) or not fused
-    assert flash_attention.FUSED_MAX_LEN == 256
+    assert (tiles <= 16) or not fused
+    assert flash_attention.FUSED_MAX_LEN == 1024
 
 
 # (L, d) of every attention of a CIFAR-10 UNet forward (L 256, 64 and 16 at

@@ -95,6 +95,22 @@ def test_build_plan_index_arrays_equal_jax(seed, h, w, ratio, sx, sy):
                                   np.asarray(ref["counts"]))
 
 
+@pytest.mark.parametrize("h,w,sy,sx", [(8, 8, 2, 2), (5, 7, 2, 2),
+                                        (16, 16, 2, 2), (6, 9, 3, 2)])
+def test_layout_equals_jax_partition(h, w, sy, sx):
+    """The partition the plan is built on (`_layout`, cached per geometry
+    and device) is the JAX package's `_partition`, and its map from a token
+    to its column of [sources ; destinations] inverts that order."""
+    spec = tome.ToMeSpec(h, w, 1, sx, sy)
+    idx_dst, idx_src, inv = tome._layout(spec, torch.device("cpu"))
+    ref_dst, ref_src = jax_tome._partition(jax_tome.ToMeSpec(h, w, 1, sx, sy))
+    np.testing.assert_array_equal(idx_dst.numpy(), ref_dst)
+    np.testing.assert_array_equal(idx_src.numpy(), ref_src)
+    order = np.concatenate([ref_src, ref_dst])
+    np.testing.assert_array_equal(order[inv.numpy()], np.arange(h * w))
+    assert tome._layout(spec, torch.device("cpu"))[0] is idx_dst
+
+
 @pytest.fixture(scope="module")
 def plans():
     m = metric(5)

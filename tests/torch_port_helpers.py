@@ -99,6 +99,21 @@ def traced_unet(conditional=True, seed=0):
             small_config(conditional))
 
 
+def traced_params(model, inputs, seed):
+    """A flax model's params from `jax.eval_shape` of its init on `inputs`
+    (traced, never run), each drawn from numpy: norm scales 1 + N(0,
+    0.05^2), everything else N(0, 0.05^2), so adaLN-Zero layers are not
+    zero."""
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), *inputs))["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        noise = 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
+        return noise + (1.0 if path[-1].key == "scale" else 0.0)
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
 def perturbed(params, seed):
     """Every param plus seeded noise (0.05 std), as numpy: norms are not the
     identity, adaLN and the output layers are not zero, and the null
