@@ -29,7 +29,7 @@ port's entry points. The UNet's:
   continuous engine in fp32 and in bf16 (16 images in one submit against
   `sample_with_cfg` at batch 16, two single-image requests admitted five
   steps apart each against its row of a pool-shaped `sample_with_cfg`, then
-  the JAX bench leg's traffic cut to half its length: 32 single-image
+  the JAX bench leg's traffic cut to a quarter of its length: 16 single-image
   requests from 8 client threads, p50/p99 latency and images/s, beside 16
   images in one batch),
   one forward's launches a step; and what the engine's admission of one row
@@ -39,16 +39,16 @@ port's entry points. The UNet's:
   1e-6 change of its input beside it (DDIM img2img and inpainting at
   strength 0.5, DDPM RePaint, DDIM with two restarts, DDIM inversion; PAG
   on the UNet and the DiT, DeepCache at depth 1 and 2 and FreeU held
-  without the x0 constraint and printed with it), then 80 images CFG 3 through
-  `sample` for each (`--init_image` and `--mask` PNGs written by the port,
-  strength 0.5; RePaint `--repaint_jump 10 --repaint_resample 2` at
-  strength 0.075; `--restarts 2`; `--pag_scale 2`, also on the DiT;
+  without the x0 constraint and printed with it), then 40 images CFG 3 on a
+  20-step grid through `sample` for each (`--init_image` and `--mask` PNGs
+  written by the port, strength 0.5; RePaint `--repaint_jump 10
+  --repaint_resample 2` at strength 0.035; `--restarts 2`; `--pag_scale 2`, also on the DiT;
   `--deepcache 3` at depth 1 and 2, also on the bf16 UNet; `--freeu
   1.1,1.2,0.9,0.2`) with exact launches (a PAG call 90 GroupNorm+SiLU and 11
   attention launches, a DeepCache shallow call 11 and 0 at depth 1, 21 and
   5 at depth 2), the kept pixels of the masked runs equal to the init
-  image, samples/s beside DDIM-50's; and DDIM-50 inversion of 80 images and
-  back, its round-trip error printed;
+  image, samples/s; and DDIM-20 inversion of 40 images and back, its
+  round-trip error printed;
 * training: the GroupNorm+SiLU backward kernel at every shape of the UNet
   at batch 160 and 128, at a ragged shape and at a group too large for
   shared memory, against its plain version and against autograd through the
@@ -61,7 +61,7 @@ port's entry points. The UNet's:
   train` on the committed CIFAR-10 fixtures (200 images, one batch of 128
   an epoch), train images/s through the trainer's own step with the
   kernels and with the plain versions, and `sample` from the checkpoint it
-  wrote with DDIM-10 and DDPM;
+  wrote with DDIM-10 and with DDPM over a 50-step schedule (`--config`);
 * flow matching and EDM: the same config with `diffusion_type` set to
   'flow_matching' and then 'edm': the loss and gradients against the plain
   versions, three epochs of `train` on the fixtures with one train step's
@@ -156,12 +156,15 @@ are cuDNN convolutions and matrix products, always float32):
 
 * InceptionV3 pool features and logits (8 images at 32x32, 2 at 299x299) and
   LPIPS distances (8 pairs at 32x32) on the card against the same networks
-  on the CPU; InceptionV3 images/s at batch 50; tr sqrtm of a 2048x2048
+  on the CPU; InceptionV3 images/s at batch 50; tr sqrtm of a 512x512
   covariance product by Newton-Schulz on the card beside scipy's on the host;
 * `diffusion_models_collection_tpu_torch.evaluate` on a full-width UNet
-  checkpoint (DDIM-50, CFG 3, 100 samples in batches of 50, SWD) and on the
+  checkpoint (DDIM-20, CFG 3, 50 samples in one batch, SWD; FID as the port
+  computes it, with scipy's sqrtm on the host, and beside it FID with tr
+  sqrtm from two eigendecompositions on the card, which every later
+  `evaluate` run of the script uses) and on the
   DiT in bf16 (DDIM-20, 50 samples), against the fixtures' 50-image test
-  split: exact launches (4500 GroupNorm+SiLU and 1100 attention; 240 bf16
+  split: exact launches (900 GroupNorm+SiLU and 220 attention; 240 bf16
   attention), every metric finite, the metric networks float32, and the
   seconds of each stage.
 
@@ -217,7 +220,7 @@ Then the DiT's last three families:
   kernel run's routing (a near-tie token may route apart at float
   rounding: how many do when left free is printed), in float32 and bf16; 12
   K2 a forward, 12 K2 and 12 K3 in the dropout form a step; 80 images
-  DDIM-50 CFG 3 through `sample` and three epochs of `train` at batch 128,
+  DDIM-50 CFG 3 through `sample` and one epoch of `train` at batch 128,
   each in float32 and bf16, samples/s, train images/s and peak memory; a
   16-image `serve --continuous` request against `sample_with_cfg`;
 * `phase_tome`: the key-bias forms of K2 and K3 (float32 and bf16) against
@@ -253,7 +256,7 @@ the DiT at 64x64:
 
 * `phase_export`: `torch.library.opcheck` on every `dmc::` operator with
   CUDA tensors; then `serving.export_sampler` of the fp32 UNet, the bf16 DiT
-  and the latent UNet with its decode (random weights; DDIM-50 CFG 3, 80
+  and the latent UNet with its decode (random weights; DDIM-50 CFG 3, 16
   images), each blob loaded back and run from one x_T beside the live
   `sample_with_cfg`: bit for bit, exact launches (the scan's own extra
   model call on a torch that makes one), export, save and load seconds,
@@ -262,12 +265,33 @@ the DiT at 64x64:
   in fp32 and bf16 the largest of batch 128, 64, 32, 16 whose step fits,
   the loss and gradients at batch 4 in train mode against the plain
   versions (12 K2 + 12 K3 in the dropout form), one epoch of `train`,
-  train images/s and peak memory, 80 images DDIM-50 CFG 3 through `sample`
+  train images/s and peak memory, 40 images DDIM-20 CFG 3 through `sample`
   (12 K2 a forward); K3's fused and two-kernel forms at the fp32 training
   shape (BH = batch x 6, L 1024, d 64) in fp32 and bf16 at p 0 and 0.1,
   with K2, `F.scaled_dot_product_attention` and the bounds beside them.
 
-Each path is run with every launch count set to 0 just before it and read
+Then the parallel layouts (`phase_parallel`, `parallel/` of the port):
+
+* `phase_ddp`: the fp32 UNet through `DiffusionTrainer` under DDP at world
+  1 (NCCL, this process): three steps at batch 128 from the same weights on
+  the same draws as the trainer without a process group (losses and
+  parameters within 1e-6, one step's launches a step), train images/s of
+  both and the DDP step's overhead;
+* `phase_e7`: K2 and K3's dropout forms at a tensor-parallel rank's head
+  grid (heads 3..5 of the DiT's 6 at batch 128) in float32 and bf16, with
+  and without the key bias, fused and two-kernel backward, against the
+  plain versions at the same grid; the kernel's mask read back (v = I)
+  against the rank's slice of the single-device mask;
+* a gloo world of two processes on the card (`tools/dryrun_multichip.py`
+  `launch`; NCCL refuses two ranks on one device): the DiT (dropout 0.1) at
+  TP 2, DP 2 and FSDP 2 and the DiM at TP 2, one `train_step` each at
+  global batch 32, each rank's loss and gathered gradients against the
+  one-process step on the same batch (1e-5, 1e-4), a rank's launches (12
+  K2 + 12 K3 in the dropout form; 12 K6 + 12 K8 on the DiM's 384 channels a
+  rank), and the peak memory a rank under FSDP beside DDP's.
+
+Every phase prints its seconds. Each path is run with every launch count
+set to 0 just before it and read
 just after, and checks that every GroupNorm+SiLU, attention and scan call
 (forward and backward) of its run went through a kernel, and that the other
 model's kernels did not run. Every failure raises; there is no fallback. The
@@ -302,6 +326,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from scipy import linalg
 
@@ -355,6 +380,12 @@ from diffusion_models_collection_tpu_torch.ops import (  # noqa: E402
     selective_scan as scan,
 )
 from diffusion_models_collection_tpu_torch.ops.plain import plain_kernels  # noqa: E402
+from diffusion_models_collection_tpu_torch.parallel.fsdp import (  # noqa: E402
+    sharded_fraction,
+)
+from diffusion_models_collection_tpu_torch.parallel.mesh import (  # noqa: E402
+    init_process_group,
+)
 from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
     cascade,
     compute_latent_scale,
@@ -365,10 +396,16 @@ from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
 from diffusion_models_collection_tpu_torch.tools import (  # noqa: E402
     reflow as reflow_tool,
 )
+from diffusion_models_collection_tpu_torch.tools.dryrun_multichip import (  # noqa: E402
+    launch,
+)
 from diffusion_models_collection_tpu_torch.utils import checkpoint  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils import sr  # noqa: E402
 from diffusion_models_collection_tpu_torch.utils.reflow_trainer import (  # noqa: E402
     ReflowTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.tracker import (  # noqa: E402
+    NullTracker,
 )
 from diffusion_models_collection_tpu_torch.utils.trainer import (  # noqa: E402
     DiffusionTrainer,
@@ -420,7 +457,12 @@ ATTN_BWD_HEAD_DIMS = (32, 128)  # at L 256, beside the UNet's d = 64
 # 19's `flash_attention.FUSED_MAX_LEN` of 1024); beyond it, the two-kernel form
 ATTN_BWD_LONG = (1024, 257, 1025)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
+# the trained UNet's DDPM run: the schedule's timesteps (1000 in the config)
+DDPM_CUT = 50
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# for a step of over half a second (the SR stage at batch 256, the 64x64 DiT
+# in fp32), cut to keep the script inside its time
+LONG_STEP_WARMUP, LONG_STEP_TIMED = 1, 5
 # Loss of one full-width forward, and the flattened gradient as max-abs
 # difference over max-abs: a backward chains 60 conv backwards and the GN
 # recomputes through 45 norms.
@@ -534,6 +576,14 @@ PEAK_EXP_PER_S = PEAK_FP32_OPS_PER_S / 16
 
 def max_rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def clock(name):
+    """Print the seconds a phase of the script took."""
+    start = time.perf_counter()
+    yield
+    print(f"{name}: {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def median_ms(fn, reps=30, warmup=5):
@@ -721,7 +771,8 @@ def phase_tensor_cores():
     (`cuobjdump -sass`), no float32 form, delta or dq-sum kernel has any.
     One line a bf16 kernel with its HMMA count (`phase_build` printed the
     registers and spills of every kernel)."""
-    products = flash_attention.tensor_core_products()
+    SASS_READ["thread"].join()
+    products = SASS_READ["products"]
     bf16 = {n: c for n, c in products.items() if "_bf16_" in n}
     for kernel, count in sorted(bf16.items()):
         print(f"  tensor cores: {count} HMMA in {kernel}")
@@ -736,9 +787,21 @@ def phase_tensor_cores():
           "kernels")
 
 
+# the tensor-core products of the attention kernels, read from the built
+# library's SASS by `cuobjdump` (20-25 s on the host) in a thread that
+# `phase_build` starts and `phase_tensor_cores` joins, while the card works
+SASS_READ = {}
+
+
+def read_sass():
+    SASS_READ["products"] = flash_attention.tensor_core_products()
+
+
 def phase_build():
     start = time.perf_counter()
     _build.library()
+    SASS_READ["thread"] = threading.Thread(target=read_sass, daemon=True)
+    SASS_READ["thread"].start()
     wall = time.perf_counter() - start
     print(f"kernel build: {_build.build_info['path']} "
           f"(nvcc {_build.build_info['seconds']:.1f} s, load {wall:.1f} s)")
@@ -1040,8 +1103,9 @@ def phase_gn_train_step(gn_shapes, gen):
 
 def phase_sample_main(label, config, model, per_forward, tmp,
                       compare_plain=False, flags=(), method="ddim",
-                      steps=STEPS, calls=None, expected=None):
-    """80 images, CFG 3, through `sample.main` with `--sampling_method
+                      steps=STEPS, calls=None, expected=None,
+                      samples=SAMPLES):
+    """`samples` images (80), CFG 3, through `sample.main` with `--sampling_method
     method` at `steps` steps (DDIM-50 by default) from a checkpoint of
     `model`'s weights and `config`, with `flags` added to its command line
     and exactly one `per_forward` (a `read_launches()` subset) for each
@@ -1053,8 +1117,8 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     ckpt = Path(tmp) / f"{config['model_type']}_random.pth"
     checkpoint.save_checkpoint(ckpt, model.state_dict(), config)
     argv = ["--checkpoint", str(ckpt), "--sampling_method", method,
-            "--cfg_scale", str(CFG_SCALE), "--num_samples", str(SAMPLES),
-            "--batch_size", str(SAMPLES), "--seed", "0", "--device", "cuda",
+            "--cfg_scale", str(CFG_SCALE), "--num_samples", str(samples),
+            "--batch_size", str(samples), "--seed", "0", "--device", "cuda",
             "--output_dir", tmp, "--output_name", "samples.png",
             "--num_inference_steps", str(steps), *flags]
     if calls is None:
@@ -1068,11 +1132,11 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = read_launches()
-    samples = result["samples"]
-    if not (samples.shape == (SAMPLES, *image_shape(config))
-            and np.isfinite(samples).all()):
-        raise AssertionError(f"{label} samples: shape {samples.shape}, "
-                             f"finite {np.isfinite(samples).all()}")
+    images = result["samples"]
+    if not (images.shape == (samples, *image_shape(config))
+            and np.isfinite(images).all()):
+        raise AssertionError(f"{label} samples: shape {images.shape}, "
+                             f"finite {np.isfinite(images).all()}")
     for name in ("samples.png", "samples.npy"):
         if not (Path(tmp) / name).is_file():
             raise AssertionError(f"{label}: {name} was not written")
@@ -1081,10 +1145,10 @@ def phase_sample_main(label, config, model, per_forward, tmp,
     if launches != expected:
         raise AssertionError(f"{label} kernel launches {launches}, expected "
                              f"{expected}")
-    print(f"sample.main {label}: {SAMPLES} images, {method}-{steps} "
+    print(f"sample.main {label}: {samples} images, {method}-{steps} "
           f"({calls} model calls), CFG {CFG_SCALE}: sampling "
           f"{result['sampling_seconds']:.3f} s "
-          f"({SAMPLES / result['sampling_seconds']:.2f} samples/s), whole "
+          f"({samples / result['sampling_seconds']:.2f} samples/s), whole "
           f"call {wall:.3f} s; launches {launches}")
     if not compare_plain:
         return launches, result["sampling_seconds"]
@@ -1095,7 +1159,7 @@ def phase_sample_main(label, config, model, per_forward, tmp,
         plain_launched = read_launches()
     print(f"sample.main {label} inside plain_kernels(): sampling "
           f"{plain['sampling_seconds']:.3f} s "
-          f"({SAMPLES / plain['sampling_seconds']:.2f} samples/s); launches "
+          f"({samples / plain['sampling_seconds']:.2f} samples/s); launches "
           f"{plain_launched}")
     if any(plain_launched.values()):
         raise AssertionError(f"{label} plain sampling launched "
@@ -1439,26 +1503,29 @@ def write_train_config(config, epochs, tmp, **changes):
     return path
 
 
-def time_train_steps(trainer, images, labels):
-    """Median wall time of TRAIN_TIMED CUDA-synchronised trainer steps
-    after TRAIN_WARMUP, in images/s."""
+def time_train_steps(trainer, images, labels, warmup=TRAIN_WARMUP,
+                     timed=TRAIN_TIMED):
+    """Median wall time of `timed` CUDA-synchronised trainer steps after
+    `warmup`, in images/s."""
     times = []
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+    for i in range(warmup + timed):
         torch.cuda.synchronize()
         start = time.perf_counter()
         trainer.train_step(images, labels)
         torch.cuda.synchronize()
-        if i >= TRAIN_WARMUP:
+        if i >= warmup:
             times.append(time.perf_counter() - start)
     return images.shape[0] / statistics.median(times)
 
 
-def timed_rates(label, trainer, batch=None, plain_runs=2, kernel_runs=2):
+def timed_rates(label, trainer, batch=None, plain_runs=1, kernel_runs=1,
+                warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
     """Train images/s through the trainer's own step with the kernels and
     with the plain versions (kernels, `plain_runs` times plain, then
     kernels again unless `kernel_runs` is 1) on its first batch (or on
-    `batch`, (images, labels) on the card), and the peak device memory of
-    the kernel path's steps."""
+    `batch`, (images, labels) on the card), each the median of `timed`
+    steps after `warmup`, and the peak device memory of the kernel path's
+    steps."""
     if batch is None:
         images, labels = next(iter(trainer.train_loader))
         images = torch.from_numpy(images).to("cuda")
@@ -1471,13 +1538,15 @@ def timed_rates(label, trainer, batch=None, plain_runs=2, kernel_runs=2):
                  *["kernels"] * (kernel_runs - 1)):
         if path == "plain":
             with plain_kernels():
-                rates[path].append(time_train_steps(trainer, images, labels))
+                rates[path].append(time_train_steps(trainer, images, labels,
+                                                    warmup, timed))
         else:
             torch.cuda.reset_peak_memory_stats()
-            rates[path].append(time_train_steps(trainer, images, labels))
+            rates[path].append(time_train_steps(trainer, images, labels,
+                                                warmup, timed))
             peak = max(peak, torch.cuda.max_memory_allocated())
     print(f"{label} train images/s at batch {images.shape[0]} (median of "
-          f"{TRAIN_TIMED} steps after {TRAIN_WARMUP}), kernel path "
+          f"{timed} steps after {warmup}), kernel path "
           f"{', '.join(f'{r:.2f}' for r in rates['kernels'])}, plain path "
           f"{', '.join(f'{r:.2f}' for r in rates['plain'])}; peak device "
           f"memory of the kernel path's steps {peak / 2**20:.1f} MiB")
@@ -1520,8 +1589,8 @@ def run_train_main(label, config, per_step, tmp, epochs, steps_per_epoch,
 
 
 def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
-                     epochs=TRAIN_EPOCHS, steps_per_epoch=1, plain_runs=2,
-                     kernel_runs=2):
+                     epochs=TRAIN_EPOCHS, steps_per_epoch=1, plain_runs=1,
+                     kernel_runs=1):
     """`train.main` for `epochs` epochs at full width (on the fixtures:
     three epochs of one batch of 128), with exactly `per_step` launches a
     step; then train images/s with the kernels and with the plain versions,
@@ -1562,7 +1631,7 @@ def phase_train_main(label, config, per_step, per_forward, samplers, tmp,
 # (method, steps, config changes) of the fast samplers on the UNet: the
 # factory's default step counts, and DDIM on a Karras grid at the CLI's 50
 FAST_SAMPLERS = [("dpm++", 20, {}), ("dpm++sde", 20, {}), ("unipc", 10, {}),
-                 ("ddim", 50, {"timestep_spacing": "karras"})]
+                 ("ddim", 20, {"timestep_spacing": "karras"})]
 TRAJ_STEPS = 10  # the trajectory checks' steps, as `phase_trajectory`'s
 
 
@@ -1664,10 +1733,15 @@ def phase_process(kind, gen, smi, tmp):
 
 
 # ------------------------------------- editing and training-free knobs
-EDIT_STRENGTH = 0.5  # DDIM-50 img2img and inpainting: 25 steps
-# DDPM RePaint from t0 = round(0.075 * 999) = 75: 76 steps, each run twice
-REPAINT_STRENGTH, REPAINT_JUMP, REPAINT_RESAMPLE = 0.075, 10, 2
+EDIT_STRENGTH = 0.5  # DDIM-20 img2img and inpainting: 10 steps
+# DDPM RePaint from t0 = round(0.035 * 999) = 35: 36 steps, each run twice
+REPAINT_STRENGTH, REPAINT_JUMP, REPAINT_RESAMPLE = 0.035, 10, 2
 RESTARTS = 2  # in the CLI's default interval (1, 0.3 T)
+# the knobs' and the 64x64 DiT's `sample.main` runs and DDIM inversion: 40
+# images on a 20-step grid; the exported samplers' runs: 16 images (the
+# other sampling runs: 80 images, DDIM-50), cut to keep the script inside
+# its time
+SHORT_SAMPLES, SHORT_STEPS, EXPORT_SAMPLES = 40, 20, 16
 PAG_SCALE = 2.0
 DEEPCACHE_INTERVAL = 3
 FREEU = (1.1, 1.2, 0.9, 0.2)
@@ -1704,17 +1778,17 @@ def add_counts(*pairs):
 def knob_runs(config):
     """Each `sample.main` run of the knobs' phase: (label, sampling method,
     flags, model calls, launches of the run). Model calls from the grids:
-    img2img the DDIM-50 grid at or below round(strength (T - 1)); RePaint
+    img2img the DDIM-20 grid at or below round(strength (T - 1)); RePaint
     every step from t0 `resample` times; restarts the grid plus `restarts`
     reruns from the first grid point at or below t_max to the last at or
     above t_min; DeepCache one full step each `interval`."""
-    grid = ddim_grid(config, STEPS)
+    grid = ddim_grid(config, SHORT_STEPS)
     t_total = config["num_timesteps"]
     img2img = int((grid <= round(EDIT_STRENGTH * (t_total - 1))).sum())
     repaint = REPAINT_RESAMPLE * (round(REPAINT_STRENGTH * (t_total - 1)) + 1)
     inside = np.nonzero((grid >= 1) & (grid <= max(2, int(0.3 * t_total))))[0]
-    restarts = STEPS + RESTARTS * int(inside[-1] - inside[0])
-    full = len(range(0, STEPS, DEEPCACHE_INTERVAL))
+    restarts = SHORT_STEPS + RESTARTS * int(inside[-1] - inside[0])
+    full = len(range(0, SHORT_STEPS, DEEPCACHE_INTERVAL))
     edit = ["--strength", str(EDIT_STRENGTH), "--init_image", "{dir}/init.png"]
     runs = [
         ("img2img", "ddim", edit, img2img, scaled(UNET_FORWARD, img2img)),
@@ -1728,17 +1802,18 @@ def knob_runs(config):
          repaint, scaled(UNET_FORWARD, repaint)),
         ("restarts", "ddim", ["--restarts", str(RESTARTS)], restarts,
          scaled(UNET_FORWARD, restarts)),
-        ("PAG", "ddim", ["--pag_scale", str(PAG_SCALE)], STEPS,
-         scaled(UNET_PAG, STEPS)),
-        ("FreeU", "ddim", ["--freeu", ",".join(map(str, FREEU))], STEPS,
-         scaled(UNET_FORWARD, STEPS)),
+        ("PAG", "ddim", ["--pag_scale", str(PAG_SCALE)], SHORT_STEPS,
+         scaled(UNET_PAG, SHORT_STEPS)),
+        ("FreeU", "ddim", ["--freeu", ",".join(map(str, FREEU))],
+         SHORT_STEPS, scaled(UNET_FORWARD, SHORT_STEPS)),
     ]
     for depth in (1, 2):
         runs.append((f"DeepCache depth {depth}", "ddim",
                      ["--deepcache", str(DEEPCACHE_INTERVAL),
-                      "--deepcache_depth", str(depth)], STEPS,
+                      "--deepcache_depth", str(depth)], SHORT_STEPS,
                      add_counts((UNET_FORWARD, full),
-                                (DEEPCACHE_SHALLOW[depth], STEPS - full))))
+                                (DEEPCACHE_SHALLOW[depth],
+                                 SHORT_STEPS - full))))
     return runs
 
 
@@ -1865,14 +1940,16 @@ def phase_knob_trajectories(model, freeu_model, dit_model, gen):
 
 
 def phase_inversion(model, gen, smi):
-    """DDIM-50 inversion of 80 images (no CFG, their labels), then DDIM-50
-    sampling from the latent it gives: one UNet forward's launches a call,
-    100 calls at 80 rows; the round-trip error printed."""
-    low = torch.rand(SAMPLES, 8, 8, 3, generator=gen, device="cuda") * 2 - 1
+    """DDIM inversion of SHORT_SAMPLES images on SHORT_STEPS steps (no CFG,
+    their labels), then DDIM sampling from the latent it gives: one UNet
+    forward's launches a call, 2 SHORT_STEPS calls at SHORT_SAMPLES rows;
+    the round-trip error printed."""
+    low = (torch.rand(SHORT_SAMPLES, 8, 8, 3, generator=gen, device="cuda")
+           * 2 - 1)
     images = F.interpolate(low.permute(0, 3, 1, 2), size=(32, 32),
                            mode="bilinear").permute(0, 2, 3, 1).contiguous()
-    labels = torch.arange(SAMPLES, device="cuda") % 10 + 1
-    ddim = DDIM(num_inference_steps=STEPS)
+    labels = torch.arange(SHORT_SAMPLES, device="cuda") % 10 + 1
+    ddim = DDIM(num_inference_steps=SHORT_STEPS)
     torch.cuda.synchronize()
     reset_launches()
     start = time.perf_counter()
@@ -1881,9 +1958,9 @@ def phase_inversion(model, gen, smi):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = read_launches()
-    expected = scaled(UNET_FORWARD, 2 * STEPS)
+    expected = scaled(UNET_FORWARD, 2 * SHORT_STEPS)
     err = (back - images).abs()
-    print(f"UNet DDIM-{STEPS} inversion and back, {SAMPLES} images: "
+    print(f"UNet DDIM-{SHORT_STEPS} inversion and back, {SHORT_SAMPLES} images: "
           f"{seconds:.3f} s; latent std {latent.std().item():.4f}, round "
           f"trip max_abs {err.max().item():.4f} mean_abs "
           f"{err.mean().item():.4f} (random weights); launches {launches} "
@@ -1896,15 +1973,16 @@ def phase_inversion(model, gen, smi):
     return launches
 
 
-def phase_knobs(config, model, gen, smi, ddim_seconds):
+def phase_knobs(config, model, gen, smi):
     """The editing and training-free knobs on the full-width UNet (and PAG
     on the full-width DiT): the trajectories against the plain versions,
-    then 80 images CFG 3 through `sample.main` for each with exact launches
+    then SHORT_SAMPLES images CFG 3 on SHORT_STEPS steps through
+    `sample.main` for each with exact
+    launches
     (img2img and inpainting at strength 0.5, RePaint, restarts, PAG, FreeU,
     DeepCache at depth 1 and 2; the kept pixels of each masked run checked),
     DDIM inversion and back, PAG on the DiT, and DeepCache on the bf16 UNet.
-    Returns {label: (launches, seconds, calls)}; `ddim_seconds` is DDIM-50's
-    in this run, the yardstick of the rates printed."""
+    Returns {label: (launches, seconds, calls)}."""
     freeu_config = dict(config, model_params=dict(config["model_params"],
                                                   freeu=FREEU))
     freeu_model = factory.get_model(freeu_config).to("cuda").eval()
@@ -1920,36 +1998,35 @@ def phase_knobs(config, model, gen, smi, ddim_seconds):
             launches, seconds = phase_sample_main(
                 f"UNet {label}", config, model, UNET_FORWARD, tmp,
                 flags=[f.format(dir=tmp) for f in flags], method=method,
-                calls=calls, expected=expected)
+                steps=SHORT_STEPS, calls=calls, expected=expected,
+                samples=SHORT_SAMPLES)
             if "--mask" in flags:
                 samples = np.load(Path(tmp) / "samples.npy")
                 check_kept_pixels(f"UNet {label}", samples, image, mask)
             runs[f"UNet {label}"] = (launches, seconds, calls)
         runs["UNet DDIM inversion"] = (phase_inversion(model, gen, smi), None,
-                                       2 * STEPS)
+                                       2 * SHORT_STEPS)
         runs["DiT PAG"] = (*phase_sample_main(
             "DiT PAG", dit_config, dit_model, DIT_FORWARD, tmp,
-            flags=["--pag_scale", str(PAG_SCALE)], calls=STEPS,
-            expected=scaled(DIT_PAG, STEPS)), STEPS)
-        full = len(range(0, STEPS, DEEPCACHE_INTERVAL))
+            flags=["--pag_scale", str(PAG_SCALE)], steps=SHORT_STEPS,
+            calls=SHORT_STEPS, expected=scaled(DIT_PAG, SHORT_STEPS),
+            samples=SHORT_SAMPLES), SHORT_STEPS)
+        full = len(range(0, SHORT_STEPS, DEEPCACHE_INTERVAL))
         runs["UNet bf16 DeepCache depth 1"] = (*phase_sample_main(
             "UNet bf16 DeepCache depth 1", config, model, UNET_FORWARD, tmp,
             flags=["--mixed_precision", "bf16", "--deepcache",
                    str(DEEPCACHE_INTERVAL), "--deepcache_depth", "1"],
-            calls=STEPS,
+            steps=SHORT_STEPS, calls=SHORT_STEPS,
             expected=add_counts((bf16_counts(UNET_FORWARD), full),
                                 (bf16_counts(DEEPCACHE_SHALLOW[1]),
-                                 STEPS - full))), STEPS)
+                                 SHORT_STEPS - full)),
+            samples=SHORT_SAMPLES), SHORT_STEPS)
     del dit_model
     for label, (_, seconds, calls) in runs.items():
         if seconds is not None:
-            # the fp32 UNet's against its DDIM-50; the DiT's and the bf16
-            # run's against theirs at the end of the run
-            against = ("" if label in ("DiT PAG", "UNet bf16 DeepCache depth 1")
-                       else f", {ddim_seconds / seconds:.3f}x DDIM-{STEPS}'s "
-                            f"{SAMPLES / ddim_seconds:.2f} in this run")
             print(f"{label} ({calls} model calls) CFG {CFG_SCALE}: "
-                  f"{SAMPLES / seconds:.2f} samples/s{against}, on {smi}")
+                  f"{SHORT_SAMPLES / seconds:.2f} samples/s at "
+                  f"{SHORT_SAMPLES} images, on {smi}")
     return runs
 
 
@@ -2332,7 +2409,7 @@ def phase_dit(gen):
     with tempfile.TemporaryDirectory() as tmp:
         remat_launches, remat_rates, remat_peak = phase_train_main(
             "DiT remat", dict(config, remat=True), DIT_REMAT_STEP,
-            DIT_FORWARD, samplers, tmp, plain_runs=1)
+            DIT_FORWARD, samplers, tmp, plain_runs=0)
 
     # the DiM with 8-head attention in place of each Mamba mixer (d 48)
     dim_config = load_config(DIM_CONFIG)
@@ -2640,16 +2717,18 @@ def phase_bf16_attn(attn_shapes, gen):
     return worst, sums, bounds
 
 
-def time_train_rates(trainer, runs=2):
+def time_train_rates(trainer, runs=1, warmup=TRAIN_WARMUP, timed=TRAIN_TIMED):
     """Train images/s through the trainer's own step on its first batch,
-    `runs` times, and the peak device memory of those steps."""
+    `runs` times (each the median of `timed` steps after `warmup`), and the
+    peak device memory of those steps."""
     images, labels = next(iter(trainer.train_loader))
     images = torch.from_numpy(images).to("cuda")
     labels = torch.from_numpy(labels).to("cuda")
     rates, peak = [], 0
     for _ in range(runs):
         torch.cuda.reset_peak_memory_stats()
-        rates.append(time_train_steps(trainer, images, labels))
+        rates.append(time_train_steps(trainer, images, labels, warmup,
+                                      timed))
         peak = max(peak, torch.cuda.max_memory_allocated())
     return rates, peak
 
@@ -2731,10 +2810,13 @@ def phase_bf16(gn_shapes, attn_shapes, gen):
 # ------------------------------------------------------ metrics and evaluate
 TOL_METRIC_NET = 2e-4  # the metric networks on the card against the CPU
 INCEPTION_RATE_BATCH = 50
-SQRTM_DIM = 2048  # InceptionV3's pool features
-# `evaluate.main` on the fp32 UNet: DDIM-50, CFG 3 in one batch of 2 x 50
-# rows, 2 batches, against the fixtures' 50-image test split
-EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 100, 50, 50
+# Newton-Schulz against scipy's sqrtm at 512 features (InceptionV3's pool
+# has 2048: scipy takes 11-22 s there on the host, cut to keep the script
+# inside its time)
+SQRTM_DIM = 512
+# `evaluate.main` on the fp32 UNet: DDIM-20, CFG 3 in one batch of 2 x 50
+# rows, against the fixtures' 50-image test split
+EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 50, 50, 20
 # and on the bf16 DiT: DDIM-20, one batch of 50
 EVAL_DIT_SAMPLES, EVAL_DIT_STEPS = 50, 20
 
@@ -2850,10 +2932,12 @@ def trace_sqrtm_eigh(sigma1, sigma2):
 
 class CardFrechet:
     """While active, FID's tr sqrtm is `trace_sqrtm_eigh` on the card in
-    place of scipy's 2048x2048 sqrtm on the host (11-16 s an `evaluate` call
-    on the GPU machine), to keep the script inside its time; with `host`,
-    scipy's value stays the result and the card's is recorded beside it
-    (`seen`), so the script's first `evaluate` run holds the two together."""
+    place of scipy's 2048x2048 sqrtm on the host (11-22 s an `evaluate`
+    call on the GPU machine), to keep the script inside its time; with
+    `host`, scipy's value stays the result and the card's is recorded
+    beside it (`seen`), so the script's first `evaluate` run computes FID as
+    the port's `FIDScore.calculate_frechet_distance` does and holds the two
+    together."""
 
     def __init__(self, host: bool):
         self.host, self.seen = host, []
@@ -2955,15 +3039,16 @@ def run_evaluate(label, model, config, flags, expected, tmp):
 
 def phase_evaluate(config, gen, smi):
     """The metric networks on the card (`phase_metric_networks`), then
-    `evaluate.main` on a full-width fp32 UNet checkpoint (DDIM-50, CFG 3,
-    100 samples in batches of 50, SWD; one forward's launches a model
-    call: 4500 GroupNorm+SiLU and 1100 attention launches) and on the bf16
+    `evaluate.main` on a full-width fp32 UNet checkpoint (DDIM-20, CFG 3,
+    50 samples in one batch, SWD, FID with scipy's sqrtm; one forward's
+    launches a model call: 900 GroupNorm+SiLU and 220 attention launches)
+    and on the bf16
     DiT (DDIM-20, 50 samples: 240 bf16 attention launches, no
     GroupNorm+SiLU), each against the fixtures' 50-image test split."""
     networks = phase_metric_networks(gen)
     torch.manual_seed(0)
     unet = factory.get_model(config).to("cuda").eval()
-    calls = 2 * EVAL_STEPS  # two batches
+    calls = EVAL_SAMPLES // EVAL_BATCH * EVAL_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         unet_launches, unet_report, unet_seconds = run_evaluate(
             "UNet", unet, config,
@@ -2997,9 +3082,10 @@ SERVE_SEED = 11
 SERVE_STAGGER_TICKS = 5  # the second solo request joins this many steps in
 # the JAX bench leg's traffic (`bench.py` `_leg_serving`): single-image CFG
 # requests from client threads, each waiting for its reply (a closed loop)
-# the JAX bench leg sends 64 requests from 8 clients; 32 from 8 keep its
-# shape (8 waiting clients, single images) in half the steps
-SERVE_REQUESTS, SERVE_CLIENTS = 32, 8
+# the JAX bench leg sends 64 requests from 8 clients; 16 from 8 keep its
+# shape (8 waiting clients, single images) in a quarter of the steps (cut
+# from 32 to keep the script inside its time)
+SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
 TOL_SERVE_BATCHED = 1e-6  # in [0, 1]: the same trajectory, bit-equal expected
 TOL_SERVE_SLOT = 1e-5  # model space: one row of a pool, bit-equal expected
 
@@ -3935,8 +4021,11 @@ def phase_sr(unet_ckpt, tmp, gen, smi):
     trainer, train_launches = run_train_main(
         "SR UNet", dict(config, batch_size=batch), UNET_STEP, tmp, 1,
         SYNTHETIC_IMAGES // batch)
-    rates, peak = timed_rates("SR UNet", trainer, plain_runs=1,
-                              kernel_runs=1)
+    # the kernel path only: the plain versions' timed run was cut to keep the
+    # script inside its time
+    rates, peak = timed_rates("SR UNet", trainer, plain_runs=0,
+                              kernel_runs=1, warmup=LONG_STEP_WARMUP,
+                              timed=LONG_STEP_TIMED)
     ckpt = trainer.save_dir / "current_model.pth"
     del trainer
 
@@ -4188,8 +4277,8 @@ def phase_serve_moe(ckpt, config, model, gen, smi):
 def phase_moe(gen, smi):
     """The MoE DiT (configs/cifar10_dit_moe.py at full width: hidden 384,
     depth 12, 6 heads, 8 experts, top 2, capacity 1.25): forwards and a
-    train step against the plain versions in float32 and bf16, three
-    epochs of `train.main` at batch 128 in each with train images/s and
+    train step against the plain versions in float32 and bf16, one
+    epoch of `train.main` at batch 128 in each with train images/s and
     peak memory, DDIM-50 CFG 3 on 80 images through `sample.main` in each,
     and a 16-image `serve --continuous` request."""
     config = load_config(MOE_CONFIG)
@@ -4230,8 +4319,10 @@ def phase_moe(gen, smi):
     for precision, cfg, per_step in (("fp32", config, DIT_STEP),
                                      ("bf16", config16, DIT_STEP_BF16)):
         with tempfile.TemporaryDirectory() as tmp:
+            # one epoch each (cut from three to keep the script inside its
+            # time: a 131.9 M-parameter checkpoint is written every epoch)
             trainer, launches = run_train_main(
-                f"DiT-MoE {precision}", cfg, per_step, tmp, TRAIN_EPOCHS, 1)
+                f"DiT-MoE {precision}", cfg, per_step, tmp, 1, 1)
             rates, peak = time_train_rates(trainer, runs=1)
             del trainer
         out["launches"][f"train_{precision}"] = launches
@@ -4815,12 +4906,15 @@ def opcheck_args(name, gen):
         _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
         return (x, scale, bias, randn(4, 32, 32, 128), stats, 8)
     if name.startswith("flash_attn"):
+        # the dropout form at a sharded rank's head grid (E7)
         q, k, v, do = (randn(64, 256, 64) for _ in range(4))
         drop = (ATTN_DROPOUT, ATTN_DROPOUT_SEED)
+        grid = [4, 8, 16, 4]
         if name == "flash_attn_fwd":
-            return (q, k, v, *drop, None)
-        o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
-        return (q, k, v, o, do, lse, *drop, None, None)
+            return (q, k, v, *drop, None, grid)
+        o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop,
+                                                     head_grid=grid)
+        return (q, k, v, o, do, lse, *drop, None, None, grid)
     batch, length, d_inner, n_state = 2, 100, 256, 16
     x = randn(batch, length, d_inner)
     dt = F.softplus(randn(batch, length, d_inner) - 2)
@@ -4879,7 +4973,8 @@ def export_case(label, model, config, per_call, extra, gen, smi):
     params = dict(model.named_parameters())
     config = dict(config, num_inference_steps=STEPS)
     seconds = {}
-    blob = serving.export_sampler(model, params, config, batch_size=SAMPLES,
+    blob = serving.export_sampler(model, params, config,
+                                  batch_size=EXPORT_SAMPLES,
                                   cfg_scale=CFG_SCALE, device="cuda",
                                   seconds=seconds)
     start = time.perf_counter()
@@ -4888,7 +4983,8 @@ def export_case(label, model, config, per_call, extra, gen, smi):
     seconds["load"] = time.perf_counter() - start
     shape = tuple(meta["shape"])
     x_T = torch.randn(shape, generator=gen, device="cuda")
-    labels = torch.randint(1, 11, (SAMPLES,), generator=gen, device="cuda")
+    labels = torch.randint(1, 11, (EXPORT_SAMPLES,), generator=gen,
+                           device="cuda")
     ddim = factory.get_diffusion(config, "ddim")
     codec = LatentCodec.from_config(config, device="cuda")
     expected = add_counts((per_call, STEPS), *extra)
@@ -4912,30 +5008,32 @@ def export_case(label, model, config, per_call, extra, gen, smi):
         return torch.clamp((out + 1.0) * 0.5, 0.0, 1.0)
     with torch.no_grad():  # cuDNN and cuBLAS warm at the call's 2 B rows
         model(torch.cat([x_T, x_T]),
-              torch.zeros(2 * SAMPLES, dtype=torch.int64, device="cuda"),
+              torch.zeros(2 * EXPORT_SAMPLES, dtype=torch.int64,
+                          device="cuda"),
               torch.cat([labels, torch.zeros_like(labels)]))
     want, live_s, live_launches = timed(live)
     got, run_s, launches = timed(lambda: module(params, x_T, labels, None))
     err = (got - want).abs().max().item()
-    print(f"export {label}: DDIM-{STEPS} CFG {CFG_SCALE}, {SAMPLES} images "
+    print(f"export {label}: DDIM-{STEPS} CFG {CFG_SCALE}, {EXPORT_SAMPLES} images "
           f"{tuple(got.shape)}: export {seconds['export']:.2f} s, save "
           f"{seconds['save']:.2f} s, load {seconds['load']:.2f} s, blob "
-          f"{len(blob) / 2**20:.2f} MiB; the program {SAMPLES / run_s:.2f} "
+          f"{len(blob) / 2**20:.2f} MiB; the program {EXPORT_SAMPLES / run_s:.2f} "
           f"samples/s ({run_s:.3f} s), the live sampler "
-          f"{SAMPLES / live_s:.2f} samples/s ({live_s:.3f} s); max |program "
+          f"{EXPORT_SAMPLES / live_s:.2f} samples/s ({live_s:.3f} s); max |program "
           f"- live| {err:.3e} ({'bit-equal' if err == 0 else 'not bit-equal'}"
           f", bar {TOL_SERVE_BATCHED:g}); launches {launches} ({STEPS} + "
           f"{scan_extra} model calls: the scan's own on torch "
           f"{torch.__version__}), live {live_launches}; on {smi}")
     if not (launches == expected_program and live_launches == expected
             and err <= TOL_SERVE_BATCHED and torch.isfinite(got).all()
-            and got.shape == (SAMPLES, *image_shape(config))):
+            and got.shape == (EXPORT_SAMPLES, *image_shape(config))):
         raise AssertionError(f"export {label}: launches {launches} "
                              f"(expected {expected_program}), live "
                              f"{live_launches} (expected {expected}), "
                              f"max |program - live| {err}")
     return launches, dict(seconds, blob_mib=len(blob) / 2**20,
-                          rate=SAMPLES / run_s, live_rate=SAMPLES / live_s,
+                          rate=EXPORT_SAMPLES / run_s,
+                          live_rate=EXPORT_SAMPLES / live_s,
                           bit_equal=err == 0, calls=STEPS + scan_extra)
 
 
@@ -4945,8 +5043,8 @@ def phase_export(gen, smi):
     (configs/cifar10_dit.py, `mixed_precision: 'bf16'`; 600 bf16 K2) and
     the latent UNet with its decode (configs/cifar10_latent_unet.py on a
     VAE checkpoint of random weights written here; 1761 K1 + 551 K2), each
-    DDIM-50 CFG 3 for 80 images (`export_case`). Returns the launches and
-    figures by path."""
+    DDIM-50 CFG 3 for EXPORT_SAMPLES images (`export_case`). Returns the
+    launches and figures by path."""
     phase_opcheck(gen)
     launches, figures = {}, {}
     config = load_config(CONFIG)
@@ -5108,7 +5206,7 @@ def phase_dit64(gen, smi):
     (dropout 0.1) against `plain_kernels()` with 12 K2 + 12 K3 in the
     dropout form; one epoch of `train` at that batch, train images/s and
     peak memory; K3's form sweep and the library at the fp32 training
-    shape; 80 images DDIM-50 CFG 3 through `sample` (12 K2 a forward) in
+    shape; 40 images DDIM-20 CFG 3 through `sample` (12 K2 a forward) in
     fp32 and bf16. Returns the launches and figures."""
     out = {"launches": {}, "rates": {}, "peak": {}, "batch": {},
            "seconds": {}}
@@ -5131,7 +5229,11 @@ def phase_dit64(gen, smi):
             trainer, out["launches"][f"dit64_train_{name}"] = run_train_main(
                 label, dict(config, batch_size=batch), step, tmp, 1,
                 SYNTHETIC_IMAGES // batch)
-            rates, peak = time_train_rates(trainer, runs=1)
+            long_step = precision == "none"  # 0.76 s a step at 128
+            rates, peak = time_train_rates(
+                trainer, runs=1,
+                warmup=LONG_STEP_WARMUP if long_step else TRAIN_WARMUP,
+                timed=LONG_STEP_TIMED if long_step else TRAIN_TIMED)
             del trainer
         torch.cuda.empty_cache()
         out["rates"][name], out["peak"][name] = rates[0], peak
@@ -5145,11 +5247,366 @@ def phase_dit64(gen, smi):
         with tempfile.TemporaryDirectory() as tmp:
             out["launches"][f"dit64_sample_{name}"], out["seconds"][name] = (
                 phase_sample_main(label, dit64_config(), model, forward, tmp,
-                                  flags=flags))
+                                  flags=flags, steps=SHORT_STEPS,
+                                  samples=SHORT_SAMPLES))
         del model
         torch.cuda.empty_cache()
     return out
 
+
+# ------------------------------------------------------------------ parallel
+# Item 15's first slice (`parallel/`): DDP at world 1 under NCCL in this
+# process, then the tensor-parallel, data-parallel and FSDP layouts in a gloo
+# world of two processes on the one card (NCCL refuses two ranks on one
+# device; gloo carries CUDA tensors through host memory, so those legs run
+# a small global batch and time nothing). FSDP runs at world 2 under gloo:
+# gloo took `reduce_scatter_tensor` and `all_gather_into_tensor` on CUDA
+# tensors and FSDP2's hooks on the H100.
+DDP_STEPS = 3
+PARALLEL_BATCH = 32  # the world-2 legs' global batch: 16 rows a DP rank
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT = 480
+# E7 at a tensor-parallel rank of the DiT at its training batch: heads 3..5
+# of 6 (rank 1 of 2), every row of 128
+E7_BATCH, E7_GRID = TRAIN_BATCH, (DIT_HEADS // 2, DIT_HEADS, 0, DIT_HEADS // 2)
+
+
+def parallel_trainer(config, state, device="cuda"):
+    """`DiffusionTrainer` on `config` with the weights `state` (the full
+    model's, before any split), no tracker, no loader."""
+    model = factory.get_model(config)
+    model.load_state_dict(state)
+    return DiffusionTrainer(model, factory.get_diffusion(config), [None],
+                            config, device, tracker=NullTracker())
+
+
+def record_full_grads(trainer):
+    """Make `trainer`'s optimizer record the full gradients (gathered to the
+    single-device names, before the clip) at its update, flattened in the
+    model's parameter order; returns the list it fills."""
+    plan, store = trainer.plan, []
+    before = plan.average_replicated_grads
+
+    def hook():
+        before()
+        store.append(torch.cat([plan.gather(n, p.grad).flatten() for n, p in
+                                trainer.model.named_parameters()]))
+    plan.average_replicated_grads = hook
+    return store
+
+
+def parallel_leg_step(leg):
+    """One train step of `leg` (its config, weights and global batch, files
+    under the parent's directory) on this rank's layout, dropout on with
+    the generators seeded at TRAIN_SEED: the loss (mean over 'data') and
+    the full gradients held against the one-process step's (`leg["ref"]`,
+    on rank 0), this rank's launches, peak device memory and sharded
+    share."""
+    config = load_config(Path(leg["config"]))
+    trainer = parallel_trainer(config, torch.load(leg["state"]))
+    grads = record_full_grads(trainer)
+    lay = trainer.plan.layout
+    batch = {k: lay.rows(v.to("cuda")) for k, v in torch.load(
+        leg["batch"]).items()}
+    torch.manual_seed(TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    loss = trainer.train_step(batch["x0"], batch["labels"], batch["t"],
+                              batch["noise"], batch["drop"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    out = {"launches": read_launches(),
+           "peak": torch.cuda.max_memory_allocated(),
+           "loss": float(lay.mean_over_data(loss)),
+           "sharded": sharded_fraction(trainer.model),
+           "layout": (lay.dp, lay.tp), "seconds": seconds}
+    if dist.get_rank() == 0:
+        ref = torch.load(leg["ref"])
+        out["loss_rel"] = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+        out["grad_rel"] = max_rel(grads[0], ref["grads"])
+    del trainer, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank(legs):
+    """(In each rank of the gloo world.) Every leg in turn."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [parallel_leg_step(leg) for leg in legs]
+
+
+def phase_ddp(gen, smi, tmp):
+    """The fp32 UNet through `DiffusionTrainer` under DDP at world 1 (NCCL,
+    this process): DDP_STEPS steps from the same weights on the same draws
+    as the trainer without a process group, parameters and losses within
+    1e-6, one train step's launches a step; then train images/s of both."""
+    config = load_config(CONFIG)
+    config = dict(config, save_dir=str(Path(tmp) / "ddp"),
+                  sample_dir=str(Path(tmp) / "ddp_samples"))
+    torch.manual_seed(0)
+    state = factory.get_model(config).state_dict()
+    shape = (TRAIN_BATCH, *image_shape(config))
+    draws = [{"x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
+              "labels": torch.randint(0, 10, (TRAIN_BATCH,), generator=gen,
+                                      device="cuda"),
+              "t": torch.randint(0, config["num_timesteps"], (TRAIN_BATCH,),
+                                 generator=gen, device="cuda"),
+              "noise": torch.randn(*shape, generator=gen, device="cuda"),
+              "drop": torch.rand(TRAIN_BATCH, generator=gen, device="cuda")
+              < 0.2} for _ in range(DDP_STEPS)]
+
+    def steps(trainer):
+        """The losses, the parameters after the steps and the launches of
+        all the steps, each step's read just after it."""
+        losses, launched = [], expect()
+        for d in draws:
+            torch.manual_seed(TRAIN_SEED)
+            reset_launches()
+            loss = trainer.train_step(d["x0"], d["labels"], d["t"],
+                                      d["noise"], d["drop"])
+            torch.cuda.synchronize()
+            counts = read_launches()
+            if counts != expect(**UNET_STEP):
+                raise AssertionError(f"DDP leg launches {counts}, "
+                                     f"expected {expect(**UNET_STEP)}")
+            launched = {k: n + counts[k] for k, n in launched.items()}
+            losses.append(loss.item())
+        return losses, torch.cat([p.detach().flatten() for p in
+                                  trainer.model.parameters()]), launched
+
+    plain = parallel_trainer(config, state)
+    plain_losses, plain_params, _ = steps(plain)
+    images, labels = draws[0]["x0"], draws[0]["labels"]
+    plain_rate = time_train_steps(plain, images, labels)
+    del plain
+    init_process_group(torch.device("cuda", 0), rank=0, world_size=1,
+                       store=dist.FileStore(str(Path(tmp) / "ddp_store"), 1),
+                       backend="nccl")
+    try:
+        ddp = parallel_trainer(config, state)
+        if type(ddp.train_model).__name__ != "DistributedDataParallel":
+            raise AssertionError(f"world 1 trained through "
+                                 f"{type(ddp.train_model).__name__}")
+        ddp_losses, ddp_params, ddp_launches = steps(ddp)
+        ddp_rate = time_train_steps(ddp, images, labels)
+        del ddp
+    finally:
+        dist.destroy_process_group()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ddp_losses,
+                                                       plain_losses))
+    param_rel = max_rel(ddp_params, plain_params)
+    print(f"parallel DDP (world 1, NCCL) UNet B={TRAIN_BATCH}, {DDP_STEPS} "
+          f"steps vs no process group: losses {ddp_losses} vs "
+          f"{plain_losses}, max_rel {loss_rel:.3e}; parameters max_rel "
+          f"{param_rel:.3e}; launches of the {DDP_STEPS} DDP steps "
+          f"{ddp_launches}")
+    print(f"parallel DDP train images/s at batch {TRAIN_BATCH}: "
+          f"{ddp_rate:.2f} through DDP, {plain_rate:.2f} without; DDP step "
+          f"overhead {1e3 * TRAIN_BATCH * (1 / ddp_rate - 1 / plain_rate):.3f}"
+          f" ms on {smi}")
+    if not (loss_rel <= 1e-6 and param_rel <= 1e-6):
+        raise AssertionError(f"DDP world 1: losses {loss_rel}, parameters "
+                             f"{param_rel}")
+    return {"ddp_rate": ddp_rate, "plain_rate": plain_rate,
+            "loss_rel": loss_rel, "param_rel": param_rel,
+            "launches": ddp_launches}
+
+
+def phase_e7(gen):
+    """E7 on the card: every dropout form of K2 and K3 (float32 and bf16,
+    with and without the key bias, fused and two-kernel backward) at a
+    tensor-parallel rank's head grid, against the plain versions at the
+    same grid; and the kernel's mask read back (v = I) against the rank's
+    slice of the single-device `philox_keep_mask` (at L 64). Returns the
+    worst error of each form (relative in float32, absolute in bf16)."""
+    bh, seq, d = E7_BATCH * E7_GRID[0], DIT_LENGTH, DIT_HEAD_DIM
+    drop, worst = (ATTN_DROPOUT, ATTN_DROPOUT_SEED), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for bias in (False, True):
+            for fused in (True, False):
+                q, k, v, do = (torch.randn(bh, seq, d, generator=gen,
+                                           device="cuda").to(dtype)
+                               for _ in range(4))
+                key_bias = (torch.rand(E7_BATCH, seq, generator=gen,
+                                       device="cuda").add(0.5).log()
+                            if bias else None)
+                reset_launches()
+                o, lse = flash_attention.flash_attention_fwd(
+                    q, k, v, *drop, key_bias, head_grid=E7_GRID)
+                grads = flash_attention.flash_attention_bwd(
+                    q, k, v, o, do, lse, *drop, fused=fused, bias=key_bias,
+                    head_grid=E7_GRID)
+                torch.cuda.synchronize()
+                counts = read_launches()
+                if (counts["attn_dropout"], counts["attn_bwd_dropout"]) != (
+                        1, 1):
+                    raise AssertionError(f"E7 launches {counts}")
+                o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(
+                    q, k, v, *drop, key_bias, E7_GRID)
+                # the backward's plain version from the kernel's o and lse
+                # (as `check_attention_bf16`)
+                refs = flash_attention.flash_attention_bwd_ref(
+                    q, k, v, o, do, lse, *drop, key_bias, E7_GRID)
+                label = (f"E7 {str(dtype).split('.')[-1]} "
+                         f"{'bias' if bias else 'no bias'} "
+                         f"{'fused' if fused else 'two-kernel'}")
+                lse_err = (lse - lse_ref).abs().max().item()
+                if dtype == torch.bfloat16:
+                    errs = [bf16_check(label, o, o_ref, BF16_STEPS_FWD,
+                                       TOL_OUT)[1]]
+                    errs += [bf16_check(label, g, r, BF16_STEPS_BWD,
+                                        TOL_BWD)[1]
+                             for g, r in zip(grads, refs)]
+                    ok = lse_err <= TOL_LSE
+                else:
+                    errs = [max_rel(o, o_ref)] + [max_rel(g, r) for g, r in
+                                                  zip(grads, refs)]
+                    ok = (errs[0] <= TOL_OUT and lse_err <= TOL_LSE
+                          and max(errs[1:]) <= TOL_BWD)
+                print(f"  {label}: BH={bh} L={seq} d={d} grid {E7_GRID}, "
+                      f"o {errs[0]:.3e}, lse {lse_err:.3e}, dq/dk/dv "
+                      f"{', '.join(f'{e:.3e}' for e in errs[1:])}")
+                if not ok:
+                    raise AssertionError(f"{label}: {errs}, lse {lse_err}")
+                worst[label] = max(errs)
+    full_bh = E7_BATCH * DIT_HEADS
+    index = torch.tensor([b * DIT_HEADS + E7_GRID[3] + h
+                          for b in range(E7_BATCH)
+                          for h in range(E7_GRID[0])], device="cuda")
+    seq = 64  # v = I: head_dim = L, within the kernels' 128
+    for dtype in (torch.float32, torch.bfloat16):
+        qk = [torch.randn(bh, seq, seq, generator=gen, device="cuda").to(
+            dtype) for _ in range(2)]
+        eye = torch.eye(seq, device="cuda", dtype=dtype).expand(
+            bh, -1, -1).contiguous()
+        o, _ = flash_attention.flash_attention_fwd(*qk, eye, *drop,
+                                                   head_grid=E7_GRID)
+        full = flash_attention.philox_keep_mask(
+            ATTN_DROPOUT_SEED, full_bh, seq, seq, ATTN_DROPOUT,
+            device="cuda")
+        if not torch.equal(o != 0, full[index]):
+            raise AssertionError(f"E7 {dtype}: the kernel's mask at the "
+                                 "rank's grid is not its slice of the "
+                                 "single-device mask")
+    print(f"E7: the mask of a tensor-parallel rank (heads {E7_GRID[3]}.."
+          f"{E7_GRID[3] + E7_GRID[0] - 1} of {DIT_HEADS}, BH {bh}, L {seq}) "
+          "read back from K2 in float32 and bf16 equals its slice of the "
+          "single-device mask")
+    return worst
+
+
+def parallel_reference(label, config, state, batch):
+    """The one-process step of a world-2 leg: loss and full gradients."""
+    trainer = parallel_trainer(config, state)
+    grads = record_full_grads(trainer)
+    torch.manual_seed(TRAIN_SEED)
+    reset_launches()
+    loss = trainer.train_step(*(batch[k].to("cuda") for k in (
+        "x0", "labels", "t", "noise", "drop")))
+    torch.cuda.synchronize()
+    out = {"loss": loss.item(), "grads": grads[0],
+           "launches": read_launches(),
+           "peak": torch.cuda.max_memory_allocated()}
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"parallel {label} one-process reference: loss {out['loss']:.6f}, "
+          f"launches {out['launches']}")
+    return out
+
+
+def phase_parallel(gen, smi):
+    """Item 15's first slice on the card: DDP at world 1 (`phase_ddp`), E7
+    (`phase_e7`), then a gloo world of two processes on the card: the DiT
+    (dropout 0.1) at TP 2, at DP 2 and at FSDP 2, the DiM at TP 2, each
+    rank's loss and gathered gradients against the one-process step on the
+    same global batch (TOL_LOSS, TOL_GRAD), each rank with one step's
+    launches (the DiT's attention in the dropout form, at its rank's head
+    grid; the DiM's scans on its 384 channels, K6 and K8), and the peak
+    memory a rank under FSDP beside DDP's."""
+    # the ranks compute float32 without TF32 (`parallel_rank`): so must the
+    # references here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        figures["ddp"] = phase_ddp(gen, smi, tmp)
+        figures["e7"] = phase_e7(gen)
+        legs, refs = [], {}
+        for name, path, step in (("DiT", DIT_CONFIG, DIT_STEP),
+                                 ("DiM", DIM_CONFIG, DIM_STEP)):
+            config = load_config(path)
+            state = random_model(config, gen).cpu().state_dict()
+            shape = (PARALLEL_BATCH, *image_shape(config))
+            batch = {
+                "x0": torch.rand(*shape, generator=gen, device="cuda") * 2 - 1,
+                "labels": torch.randint(0, 10, (PARALLEL_BATCH,),
+                                        generator=gen, device="cuda"),
+                "t": torch.randint(0, config["num_timesteps"],
+                                   (PARALLEL_BATCH,), generator=gen,
+                                   device="cuda"),
+                "noise": torch.randn(*shape, generator=gen, device="cuda"),
+                "drop": torch.rand(PARALLEL_BATCH, generator=gen,
+                                   device="cuda") < 0.2}
+            files = {}
+            for key, obj in (("state", state), ("batch", {
+                    k: v.cpu() for k, v in batch.items()})):
+                files[key] = str(Path(tmp) / f"{name}_{key}.pt")
+                torch.save(obj, files[key])
+            base = dict(config, save_dir=str(Path(tmp) / f"{name}_ckpt"),
+                        sample_dir=str(Path(tmp) / f"{name}_samples"),
+                        batch_size=PARALLEL_BATCH // PARALLEL_WORLD)
+            refs[name] = parallel_reference(name, base, state, batch)
+            files["ref"] = str(Path(tmp) / f"{name}_ref.pt")
+            torch.save(refs[name], files["ref"])
+            layouts = ([("TP 2", {"tensor_parallel": 2}), ("DP 2", {}),
+                        ("FSDP 2", {"fsdp": True})] if name == "DiT" else
+                       [("TP 2", {"tensor_parallel": 2})])
+            for layout, changes in layouts:
+                cfg_path = Path(tmp) / f"{name}_{layout.replace(' ', '')}.py"
+                cfg_path.write_text(f"config = {dict(base, **changes)!r}\n")
+                legs.append(dict(name=name, layout=layout, step=step,
+                                 config=str(cfg_path), **files))
+        launched = time.perf_counter()
+        ranks = launch(PARALLEL_WORLD, "chip_smoke.parallel_rank",
+                       [{k: leg[k] for k in ("config", "state", "batch",
+                                             "ref")}
+                        for leg in legs], device="cuda", backend="gloo",
+                       timeout=PARALLEL_TIMEOUT)
+        world_seconds = time.perf_counter() - launched
+    peaks, launched_by_leg = {}, {}
+    for i, leg in enumerate(legs):
+        ref = refs[leg["name"]]
+        first = ranks[0][i]
+        loss_rel, grad_rel = first["loss_rel"], first["grad_rel"]
+        per_rank = [r[i]["launches"] for r in ranks]
+        peaks[(leg["name"], leg["layout"])] = [r[i]["peak"] for r in ranks]
+        launched_by_leg[f"{leg['name']} {leg['layout']}"] = per_rank[0]
+        label = f"parallel {leg['name']} {leg['layout']} (gloo, 2 ranks)"
+        print(f"{label}: layout (dp, tp) {first['layout']}, loss "
+              f"{first['loss']:.6f} vs {ref['loss']:.6f} max_rel "
+              f"{loss_rel:.3e}, gathered gradient max_abs_diff/max_abs "
+              f"{grad_rel:.3e}; sharded share {first['sharded']:.3f}; "
+              f"launches a rank {per_rank}; peak a rank "
+              f"{[round(r[i]['peak'] / 2**20, 1) for r in ranks]} MiB; "
+              f"step {first['seconds']:.3f} s")
+        if any(c != expect(**leg["step"]) for c in per_rank):
+            raise AssertionError(f"{label}: launches {per_rank}, expected "
+                                 f"{expect(**leg['step'])} a rank")
+        if not (loss_rel <= TOL_LOSS and grad_rel <= TOL_GRAD):
+            raise AssertionError(f"{label}: loss {loss_rel}, gradients "
+                                 f"{grad_rel}")
+    fsdp, ddp = peaks[("DiT", "FSDP 2")], peaks[("DiT", "DP 2")]
+    print(f"parallel DiT peak device memory a rank at global batch "
+          f"{PARALLEL_BATCH}: FSDP 2 {max(fsdp) / 2**20:.1f} MiB, DDP "
+          f"{max(ddp) / 2**20:.1f} MiB ({max(fsdp) / max(ddp):.3f}x) on "
+          f"{smi}; the gloo world took {world_seconds:.1f} s")
+    figures.update(peaks=peaks, world_seconds=world_seconds,
+                   launches=launched_by_leg)
+    return figures
 
 
 def main():
@@ -5166,64 +5623,87 @@ def main():
     unet_ckpt = Path(keep.name) / "unet_trained.pth"
     flow_ckpt = Path(keep.name) / "flow_trained.pth"
 
-    phase_build()
-    phase_tensor_cores()
-    gn_err, gn_bwd_err = phase_gn(gen)
-    attn_err = phase_attn(gen)
+    with clock("phase_build"):
+        phase_build()
+    with clock("phase_gn"):
+        gn_err, gn_bwd_err = phase_gn(gen)
+    with clock("phase_attn"):
+        attn_err = phase_attn(gen)
     config = load_config(CONFIG)
-    model, gn_shapes, attn_shapes = phase_unet(config, gen)
-    phase_trajectory(model, gen)
-    totals, main_err, bounds = phase_main_shapes(gn_shapes, attn_shapes,
-                                                 2 * SAMPLES, gen)
+    with clock("phase_unet, phase_trajectory, phase_main_shapes"):
+        model, gn_shapes, attn_shapes = phase_unet(config, gen)
+        phase_trajectory(model, gen)
+        totals, main_err, bounds = phase_main_shapes(gn_shapes, attn_shapes,
+                                                     2 * SAMPLES, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, seconds = phase_sample_main("UNet", config, model,
-                                              UNET_FORWARD, tmp)
-        served = phase_serve(Path(tmp) / "unet_random.pth", config, model,
-                             gen, smi)
-    fast = phase_samplers(config, model, UNET_FORWARD, gen, smi)
-    knobs = phase_knobs(config, model, gen, smi, seconds)
+        with clock("phase_sample_main UNet"):
+            launches, seconds = phase_sample_main("UNet", config, model,
+                                                  UNET_FORWARD, tmp)
+        with clock("phase_serve"):
+            served = phase_serve(Path(tmp) / "unet_random.pth", config,
+                                 model, gen, smi)
+    with clock("phase_samplers"):
+        fast = phase_samplers(config, model, UNET_FORWARD, gen, smi)
+    with clock("phase_knobs"):
+        knobs = phase_knobs(config, model, gen, smi)
+    # the SASS that `phase_build` began to read
+    with clock("phase_tensor_cores (the wait)"):
+        phase_tensor_cores()
     del model
-    gn_step_err, gn_step, gn_bwd_bound = phase_gn_train_step(gn_shapes, gen)
-    bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
-    torch.manual_seed(0)
-    phase_train_grads("UNet", factory.get_model(config).to("cuda").eval(),
-                      config, UNET_STEP, gen)
-    # DDIM-10, and DDPM over all of the config's timesteps
-    samplers = [("ddim", 10, ["--num_inference_steps", "10"]),
-                ("ddpm", config["num_timesteps"], [])]
-    with tempfile.TemporaryDirectory() as tmp:
+    with clock("phase_gn_train_step, phase_attn_bwd, UNet train grads"):
+        gn_step_err, gn_step, gn_bwd_bound = phase_gn_train_step(gn_shapes,
+                                                                 gen)
+        bwd_err, bwd_totals, bwd_bound = phase_attn_bwd(attn_shapes, gen)
+        torch.manual_seed(0)
+        phase_train_grads("UNet",
+                          factory.get_model(config).to("cuda").eval(),
+                          config, UNET_STEP, gen)
+    with tempfile.TemporaryDirectory() as tmp, clock("phase_train_main UNet"):
+        # DDIM-10, and DDPM over all the timesteps of a config that has
+        # DDPM_CUT of them (the checkpoint's 1000 took 25 s, cut to keep
+        # the script inside its time)
+        ddpm_config = Path(tmp) / "unet_ddpm_cut.py"
+        ddpm_config.write_text(
+            f"config = {dict(config, num_timesteps=DDPM_CUT)!r}\n")
+        samplers = [("ddim", 10, ["--num_inference_steps", "10"]),
+                    ("ddpm", DDPM_CUT, ["--config", str(ddpm_config)])]
         train_launches, rates, unet_peak = phase_train_main(
             "UNet", config, UNET_STEP, UNET_FORWARD, samplers, tmp)
         shutil.copy(Path(tmp) / "checkpoints" / "current_model.pth",
                     unet_ckpt)
     processes = {}
     for kind in PROCESS_SAMPLERS:
-        with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp, \
+                clock(f"phase_process {kind}"):
             processes[kind] = phase_process(kind, gen, smi, tmp)
             if kind == "flow_matching":  # reflow's teacher
                 shutil.copy(Path(tmp) / "checkpoints" / "current_model.pth",
                             flow_ckpt)
 
     dim_config = load_config(DIM_CONFIG)
-    scan_err, scan_times = phase_scan(gen)
-    dim_model, dim_params, _ = phase_model_forward("DiM", dim_config,
-                                                   DIM_FORWARD, gen)
-    phase_trajectory(dim_model, gen)
-    with tempfile.TemporaryDirectory() as tmp:
-        dim_launches, dim_seconds = phase_sample_main(
-            "DiM", dim_config, dim_model, DIM_FORWARD, tmp)
-    del dim_model
-    dim_model = random_model(dim_config, gen)
-    phase_train_grads("DiM", dim_model, dim_config, DIM_STEP, gen)
-    phase_remat_grads("DiM", dim_model, dim_config, DIM_STEP, DIM_REMAT_STEP,
-                      gen)
-    del dim_model
+    with clock("phase_scan"):
+        scan_err, scan_times = phase_scan(gen)
+    with clock("DiM forwards, trajectory, sample.main"):
+        dim_model, dim_params, _ = phase_model_forward("DiM", dim_config,
+                                                       DIM_FORWARD, gen)
+        phase_trajectory(dim_model, gen)
+        with tempfile.TemporaryDirectory() as tmp:
+            dim_launches, dim_seconds = phase_sample_main(
+                "DiM", dim_config, dim_model, DIM_FORWARD, tmp)
+        del dim_model
+    with clock("DiM train grads and remat grads"):
+        dim_model = random_model(dim_config, gen)
+        phase_train_grads("DiM", dim_model, dim_config, DIM_STEP, gen)
+        phase_remat_grads("DiM", dim_model, dim_config, DIM_STEP,
+                          DIM_REMAT_STEP, gen)
+        del dim_model
     samplers = [("ddim", 10, ["--num_inference_steps", "10",
                               "--cfg_scale", str(CFG_SCALE)])]
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, clock("phase_train_main DiM"):
         dim_train_launches, dim_rates, dim_peak = phase_train_main(
             "DiM", dim_config, DIM_STEP, DIM_FORWARD, samplers, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            clock("phase_train_main DiM remat"):
         remat_launches, remat_rates, remat_peak = phase_train_main(
             "DiM remat", dict(dim_config, remat=True), DIM_REMAT_STEP,
             DIM_FORWARD, samplers, tmp, plain_runs=0, kernel_runs=1)
@@ -5240,51 +5720,52 @@ def main():
         dim_config, image_size=size, dataset="synthetic",
         batch_size=DIM64_BATCH,
         model_params=dict(dim_config["model_params"], img_size=size))
-    phase_train_grads("DiM 64x64", random_model(dim64_config, gen),
-                      dim64_config, DIM64_STEP, gen, batch_size=DIM64_BATCH)
-    with tempfile.TemporaryDirectory() as tmp:
-        dim64_launches, dim64_rates, dim64_peak = phase_train_main(
-            "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers, tmp,
-            epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH,
-            plain_runs=0, kernel_runs=1)
-    with tempfile.TemporaryDirectory() as tmp:
-        _, dim64_small_launches = run_train_main(
-            "DiM 64x64 batch 8",
-            dict(dim64_config, batch_size=DIM64_SMALL_BATCH),
-            DIM64_SMALL_STEP, tmp, 1, SYNTHETIC_IMAGES // DIM64_SMALL_BATCH)
+    with clock("DiM 64x64"):
+        phase_train_grads("DiM 64x64", random_model(dim64_config, gen),
+                          dim64_config, DIM64_STEP, gen,
+                          batch_size=DIM64_BATCH)
+        with tempfile.TemporaryDirectory() as tmp:
+            dim64_launches, dim64_rates, dim64_peak = phase_train_main(
+                "DiM 64x64", dim64_config, DIM64_STEP, DIM_FORWARD, samplers,
+                tmp, epochs=1, steps_per_epoch=SYNTHETIC_IMAGES // DIM64_BATCH,
+                plain_runs=0, kernel_runs=1)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, dim64_small_launches = run_train_main(
+                "DiM 64x64 batch 8",
+                dict(dim64_config, batch_size=DIM64_SMALL_BATCH),
+                DIM64_SMALL_STEP, tmp, 1,
+                SYNTHETIC_IMAGES // DIM64_SMALL_BATCH)
 
-    dit = phase_dit(gen)
-    bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
-    evaluated = phase_evaluate(config, gen, smi)
-    latent = phase_latent(gen, smi)
-    start = time.perf_counter()
-    classified = phase_classifier(gen, smi, keep.name)
-    guided = phase_guided(unet_ckpt, classified["ckpt"], keep.name, gen, smi)
-    print(f"phase_classifier and phase_guided: "
-          f"{time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
-    print(f"phase_sr: {time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    fewstep = phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, seconds)
-    print(f"phase_fewstep: {time.perf_counter() - start:.1f} s")
+    with clock("phase_dit"):
+        dit = phase_dit(gen)
+    with clock("phase_bf16"):
+        bf16 = phase_bf16(gn_shapes, attn_shapes, gen)
+    with clock("phase_evaluate"):
+        evaluated = phase_evaluate(config, gen, smi)
+    with clock("phase_latent"):
+        latent = phase_latent(gen, smi)
+    with clock("phase_classifier and phase_guided"):
+        classified = phase_classifier(gen, smi, keep.name)
+        guided = phase_guided(unet_ckpt, classified["ckpt"], keep.name, gen,
+                              smi)
+    with clock("phase_sr"):
+        super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
+    with clock("phase_fewstep"):
+        fewstep = phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, seconds)
     keep.cleanup()
-    start = time.perf_counter()
-    moe = phase_moe(gen, smi)
-    print(f"phase_moe: {time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    dit_random, merged = phase_tome(gen, smi)
-    print(f"phase_tome: {time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    int8 = phase_int8(dit_random, gen, smi)
+    with clock("phase_moe"):
+        moe = phase_moe(gen, smi)
+    with clock("phase_tome"):
+        dit_random, merged = phase_tome(gen, smi)
+    with clock("phase_int8"):
+        int8 = phase_int8(dit_random, gen, smi)
     del dit_random
-    print(f"phase_int8: {time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    exported, export_figures = phase_export(gen, smi)
-    print(f"phase_export: {time.perf_counter() - start:.1f} s")
-    start = time.perf_counter()
-    dit64 = phase_dit64(gen, smi)
-    print(f"phase_dit64: {time.perf_counter() - start:.1f} s")
+    with clock("phase_export"):
+        exported, export_figures = phase_export(gen, smi)
+    with clock("phase_dit64"):
+        dit64 = phase_dit64(gen, smi)
+    with clock("phase_parallel"):
+        parallel = phase_parallel(gen, smi)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -5294,17 +5775,20 @@ def main():
     for label, (_, sec, calls) in fast.items():
         print(f"UNet {label} ({calls} model calls): {SAMPLES / sec:.2f} "
               f"samples/s CFG {CFG_SCALE} fp32 on {smi}")
-    # each knob's rate against DDIM-50's of its model and precision
+    # each knob's images a second a model call against DDIM-50's of its
+    # model and precision (SAMPLES images) at SHORT_SAMPLES images
     yardsticks = {"DiT PAG": ("DiT", dit["seconds"]),
                   "UNet bf16 DeepCache depth 1": (
                       "UNet bf16", bf16["models"]["UNet"]["seconds"])}
     for label, (_, sec, calls) in knobs.items():
         if sec is not None:
             model_name, ddim_sec = yardsticks.get(label, ("UNet", seconds))
-            print(f"{label} ({calls} model calls): {SAMPLES / sec:.2f} "
-                  f"samples/s CFG {CFG_SCALE} ({ddim_sec / sec:.3f}x the "
-                  f"{model_name} DDIM-{STEPS}'s {SAMPLES / ddim_sec:.2f}) on "
-                  f"{smi}")
+            ratio = (SHORT_SAMPLES * calls / sec) / (SAMPLES * STEPS
+                                                     / ddim_sec)
+            print(f"{label} ({calls} model calls, {SHORT_SAMPLES} images): "
+                  f"{SHORT_SAMPLES / sec:.2f} samples/s CFG {CFG_SCALE} "
+                  f"({ratio:.3f}x the {model_name} DDIM-{STEPS}'s model "
+                  f"calls a second at {SAMPLES} images) on {smi}")
     for kind, run in processes.items():
         print(f"UNet {kind}: {statistics.median(run['rates']['kernels']):.2f} "
               f"train images/s at batch {TRAIN_BATCH} fp32 (plain versions: "
@@ -5328,8 +5812,7 @@ def main():
           f"at batch {TRAIN_BATCH}, dropout 0.1 (plain versions: "
           f"{statistics.median(dit['rates']['plain']):.2f}), peak device "
           f"memory {dit['peak'] / 2**20:.1f} MiB; remat "
-          f"{statistics.median(dit['remat_rates']['kernels']):.2f} (plain "
-          f"versions: {statistics.median(dit['remat_rates']['plain']):.2f}), "
+          f"{statistics.median(dit['remat_rates']['kernels']):.2f}, "
           f"peak {dit['remat_peak'] / 2**20:.1f} MiB; on {smi}")
     fp32_figures = {
         "UNet": (seconds, rates["kernels"], unet_peak),
@@ -5372,9 +5855,8 @@ def main():
     print(f"SR UNet 64x64 ({super_res['params']} parameters): "
           f"{statistics.median(super_res['rates']['kernels']):.2f} train "
           f"images/s at batch {super_res['batch']}, the largest of "
-          f"{SR_BATCHES} that fits (plain versions: "
-          f"{statistics.median(super_res['rates']['plain']):.2f}), peak "
-          f"device memory {super_res['peak'] / 2**20:.1f} MiB; on {smi}")
+          f"{SR_BATCHES} that fits, peak device memory "
+          f"{super_res['peak'] / 2**20:.1f} MiB; on {smi}")
     for key, t in super_res["times"].items():
         print(f"SR {key}: " + ", ".join(f"{k} {v:.4f} ms"
                                         for k, v in t.items()) + f"; on {smi}")
@@ -5400,7 +5882,8 @@ def main():
               f"DDIM-{STEPS} CFG {CFG_SCALE} (float DiT "
               f"{SAMPLES / dense:.2f}, {dense / sec:.3f}x); on {smi}")
     for label, fig in export_figures.items():
-        print(f"export {label} DDIM-{STEPS} CFG {CFG_SCALE}, {SAMPLES} images: "
+        print(f"export {label} DDIM-{STEPS} CFG {CFG_SCALE}, {EXPORT_SAMPLES} "
+              "images: "
               f"export {fig['export']:.2f} s, save {fig['save']:.2f} s, load "
               f"{fig['load']:.2f} s, blob {fig['blob_mib']:.2f} MiB; the "
               f"program {fig['rate']:.2f} samples/s, the live sampler "
@@ -5410,7 +5893,8 @@ def main():
         print(f"DiT 64x64 {name}: {dit64['rates'][name]:.2f} train images/s "
               f"at batch {dit64['batch'][name]}, peak device memory "
               f"{dit64['peak'][name] / 2**20:.1f} MiB; "
-              f"{SAMPLES / dit64['seconds'][name]:.2f} samples/s DDIM-{STEPS} "
+              f"{SHORT_SAMPLES / dit64['seconds'][name]:.2f} samples/s "
+              f"({SHORT_SAMPLES} images) DDIM-{SHORT_STEPS} "
               f"CFG {CFG_SCALE}; on {smi}")
     print(f"serve --continuous DiT-MoE, {SERVE_SLOTS} images in one submit: "
           f"{moe['serve']['seconds']:.3f} s; DiT int8 output's distance from "
@@ -5526,6 +6010,17 @@ def main():
         its traffic)."""
         return {path: run[key] for path, run in latent["launches"].items()
                 if run[key]}
+    def parallel_launches(key):
+        """A kernel's launches on the parallel paths: a rank's (rank 0's)
+        in one step of each gloo leg (the DiT at TP 2, DP 2 and FSDP 2,
+        the DiM at TP 2), and the UNet's DDP_STEPS steps under DDP, each
+        as its run read them."""
+        out = {f"parallel_{leg.lower().replace(' ', '_')}": counts[key]
+               for leg, counts in parallel["launches"].items()
+               if counts[key]}
+        if parallel["ddp"]["launches"][key]:
+            out["parallel_unet_ddp"] = parallel["ddp"]["launches"][key]
+        return out
     pallas = "diffusion_models_collection_tpu/ops/selective_scan_pallas.py"
     csrc = "diffusion_models_collection_tpu_torch/csrc/"
     kernels = [
@@ -5540,7 +6035,8 @@ def main():
                               **serve_launches("gn"),
                               **latent_launches("gn"),
                               **later_launches("gn"),
-                              **fewstep_launches("gn")},
+                              **fewstep_launches("gn"),
+                              **parallel_launches("gn")},
          "max_abs_err": max(gn_err, main_err["gn"], latent["worst"]["gn"],
                             super_res["worst"]["gn"],
                             classified["worst"]["gn"]),
@@ -5557,7 +6053,8 @@ def main():
                               **path_launches("gn_bwd", train_only=True),
                               **latent_launches("gn_bwd"),
                               **later_launches("gn_bwd"),
-                              **fewstep_launches("gn_bwd")},
+                              **fewstep_launches("gn_bwd"),
+                              **parallel_launches("gn_bwd")},
          "max_abs_err": max(gn_bwd_err, gn_step_err,
                             latent["worst"]["gn_bwd"],
                             super_res["worst"]["gn_bwd"],
@@ -5581,8 +6078,10 @@ def main():
                               **serve_launches("attn"),
                               **latent_launches("attn"),
                               **later_launches("attn"),
-                              **fewstep_launches("attn")},
+                              **fewstep_launches("attn"),
+                              **parallel_launches("attn")},
          "dropout_launches": dit["train_launches"]["attn_dropout"],
+         "head_grid_max_err": max(parallel["e7"].values()),
          "max_abs_err": max(attn_err, main_err["attn"], dit["dropout_err"],
                             latent["worst"]["attn"],
                             super_res["worst"]["attn"],
@@ -5604,8 +6103,10 @@ def main():
                                   dit["remat_launches"]["attn_bwd"],
                               **latent_launches("attn_bwd"),
                               **later_launches("attn_bwd"),
-                              **fewstep_launches("attn_bwd")},
+                              **fewstep_launches("attn_bwd"),
+                              **parallel_launches("attn_bwd")},
          "dropout_launches": dit["train_launches"]["attn_bwd_dropout"],
+         "head_grid_max_err": max(parallel["e7"].values()),
          "max_abs_err": max(bwd_err, dit["dropout_err"],
                             latent["worst"]["attn_bwd"],
                             super_res["worst"]["attn_bwd"],
@@ -5625,7 +6126,8 @@ def main():
          "launches": dim_launches["scan_fwd"],
          "launches_by_path": {"sample": dim_launches["scan_fwd"],
                               "train": dim_train_launches["scan_fwd"],
-                              "train_remat": remat_launches["scan_fwd"]},
+                              "train_remat": remat_launches["scan_fwd"],
+                              **parallel_launches("scan_fwd")},
          "max_abs_err": scan_err["fwd"],
          "ms": SCAN_PER_FORWARD * fwd_ms,
          "plain_ms": SCAN_PER_FORWARD * fwd_plain,
@@ -5636,7 +6138,8 @@ def main():
          "replaces": pallas + ":511",
          "launches": dim_train_launches["scan_bwd"],
          "launches_by_path": {"train": dim_train_launches["scan_bwd"],
-                              "train_64x64": dim64_launches["scan_bwd"]},
+                              "train_64x64": dim64_launches["scan_bwd"],
+                              **parallel_launches("scan_bwd")},
          "max_abs_err": scan_err["bwd"],
          "ms": SCAN_PER_FORWARD * bwd_ms,
          "plain_ms": SCAN_PER_FORWARD * bwd_plain,

@@ -677,6 +677,7 @@ template <bool BIAS>
 int forward(const void* q, const void* k, const void* v, void* o, void* lse,
             int bh, int L, int d, float scale, int tile, int dropout,
             unsigned threshold, float keep_scale, unsigned long long seed,
+            const unsigned* grid,
             int bf16_form, const KeyBias& kb, void* stream) {
   const bool ok =
       bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
@@ -685,8 +686,11 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
                       (d <= 64 ? tile == 32 || tile == 128 : tile == 64);
   if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
     return (int)cudaErrorInvalidValue;
+  if (dropout && (grid[0] < 1 || bh % grid[0]))
+    return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
-                         (uint32_t)(seed >> 32)};
+                         (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
+                         grid[3]};
   auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
                                 : &launch_form_bf16<false, BIAS>)
                      : (dropout ? &launch_form<true, BIAS>
@@ -703,15 +707,21 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
 // d % 16 == 0, d <= 128, `tile` 16 or 128 for d <= 64, or 64. `dropout` != 0
 // takes the dropout form: a key is kept iff its Philox word (philox.cuh, from
 // `seed`) is below `threshold`, and a kept probability is multiplied by
-// `keep_scale`. Returns the CUDA error of the launch.
+// `keep_scale`; (heads, total_heads, batch0, head0) place the launch's heads
+// in the model's global (batch, head) grid, whose index keys the mask
+// (philox.cuh; (1, 1, 0, 0) on one device), and `heads` divides bh. Returns
+// the CUDA error of the launch.
 #ifndef DMC_FLASH_BIAS_FORMS
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int bh, int L, int d, float scale,
                               int tile, int dropout, unsigned threshold,
                               float keep_scale, unsigned long long seed,
-                              int bf16_form, void* stream) {
+                              unsigned heads, unsigned total_heads,
+                              unsigned batch0, unsigned head0, int bf16_form,
+                              void* stream) {
+  const unsigned grid[4] = {heads, total_heads, batch0, head0};
   return forward<false>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
-                        threshold, keep_scale, seed, bf16_form,
+                        threshold, keep_scale, seed, grid, bf16_form,
                         KeyBias{nullptr, 1}, stream);
 }
 
@@ -721,16 +731,20 @@ extern "C" const char* dmc_cuda_error_string(int err) {
 }
 #else
 // flash_attn_fwd with a per-key bias (key_bias.cuh): float32 (bh / heads, L),
-// added to every scaled score of head bh's row bh / heads before the softmax;
-// lse includes it. `heads` divides bh.
+// added to every scaled score of head bh's row bh / bias_heads before the
+// softmax; lse includes it. `bias_heads` divides bh.
 extern "C" int flash_attn_fwd_bias(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int L, int d,
                                    float scale, int tile, int dropout,
                                    unsigned threshold, float keep_scale,
-                                   unsigned long long seed, int bf16_form,
-                                   const void* bias, int heads, void* stream) {
+                                   unsigned long long seed, unsigned heads,
+                                   unsigned total_heads, unsigned batch0,
+                                   unsigned head0, int bf16_form,
+                                   const void* bias, int bias_heads,
+                                   void* stream) {
+  const unsigned grid[4] = {heads, total_heads, batch0, head0};
   return forward<true>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
-                       threshold, keep_scale, seed, bf16_form,
-                       KeyBias{(const float*)bias, heads}, stream);
+                       threshold, keep_scale, seed, grid, bf16_form,
+                       KeyBias{(const float*)bias, bias_heads}, stream);
 }
 #endif

@@ -1212,7 +1212,8 @@ int backward(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* partial,
              void* dq, void* dk, void* dv, int bh, int L, int d, float scale,
              int tile, int fused, int dropout, unsigned threshold,
-             float keep_scale, unsigned long long seed, int bf16_form,
+             float keep_scale, unsigned long long seed,
+             const unsigned* grid, int bf16_form,
              const KeyBias& kb, void* stream) {
   const bool ok = bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
                                   (tile == 64 || (tile == 16 && d <= 64))
@@ -1220,8 +1221,11 @@ int backward(const void* q, const void* k, const void* v, const void* o,
                                   (tile == 64 || (tile == 32 && d <= 64));
   if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
     return (int)cudaErrorInvalidValue;
+  if (dropout && (grid[0] < 1 || bh % grid[0]))
+    return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
-                         (uint32_t)(seed >> 32)};
+                         (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
+                         grid[3]};
   auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
                                 : &launch_form_bf16<false, BIAS>)
                      : (dropout ? &launch_form<true, BIAS>
@@ -1240,8 +1244,9 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 // `tile` 64, or 16 for d <= 64. `fused` != 0 takes the one-pass form, which
 // needs the scratch `partial` (bh, ceil(L / tile), L, d) when L > tile;
 // `fused` == 0 the two-kernel form (`partial` unused). `dropout` != 0 takes the dropout
-// form with the forward's `threshold`, `keep_scale` and `seed`
-// (flash_attn.cu). Returns the CUDA error of the launches.
+// form with the forward's `threshold`, `keep_scale`, `seed` and head grid
+// (heads, total_heads, batch0, head0) (flash_attn.cu). Returns the CUDA error
+// of the launches.
 #ifndef DMC_FLASH_BIAS_FORMS
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
@@ -1249,17 +1254,19 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               void* dv, int bh, int L, int d, float scale,
                               int tile, int fused, int dropout,
                               unsigned threshold, float keep_scale,
-                              unsigned long long seed, int bf16_form,
-                              void* stream) {
+                              unsigned long long seed, unsigned heads,
+                              unsigned total_heads, unsigned batch0,
+                              unsigned head0, int bf16_form, void* stream) {
+  const unsigned grid[4] = {heads, total_heads, batch0, head0};
   return backward<false>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
                          L, d, scale, tile, fused, dropout, threshold,
-                         keep_scale, seed, bf16_form, KeyBias{nullptr, 1},
-                         stream);
+                         keep_scale, seed, grid, bf16_form,
+                         KeyBias{nullptr, 1}, stream);
 }
 #else
 // flash_attn_bwd with the forward's per-key bias (key_bias.cuh): float32
-// (bh / heads, L), row bh / heads for head bh; `heads` divides bh. lse is the
-// forward's, which includes the bias.
+// (bh / bias_heads, L), row bh / bias_heads for head bh; `bias_heads` divides
+// bh. lse is the forward's, which includes the bias.
 extern "C" int flash_attn_bwd_bias(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -1268,11 +1275,14 @@ extern "C" int flash_attn_bwd_bias(const void* q, const void* k,
                                    float scale, int tile, int fused,
                                    int dropout, unsigned threshold,
                                    float keep_scale, unsigned long long seed,
-                                   int bf16_form, const void* bias, int heads,
-                                   void* stream) {
+                                   unsigned heads, unsigned total_heads,
+                                   unsigned batch0, unsigned head0,
+                                   int bf16_form, const void* bias,
+                                   int bias_heads, void* stream) {
+  const unsigned grid[4] = {heads, total_heads, batch0, head0};
   return backward<true>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
                         L, d, scale, tile, fused, dropout, threshold,
-                        keep_scale, seed, bf16_form,
-                        KeyBias{(const float*)bias, heads}, stream);
+                        keep_scale, seed, grid, bf16_form,
+                        KeyBias{(const float*)bias, bias_heads}, stream);
 }
 #endif

@@ -5,11 +5,19 @@
 // backward regenerates exactly the forward's mask in whatever tiles it walks,
 // and nothing of size (BH, L, L) is ever stored. Philox4x32-10 (Salmon et
 // al., SC 2011, as Random123 defines it): key = the 64-bit seed as (lo, hi),
-// counter = (col >> 2, row, bh, 0); word col & 3 of the output decides
+// counter = (col >> 2, row, head, 0); word col & 3 of the output decides
 // column col, kept iff it is below threshold = floor((1 - p) 2^32), which the
 // host computes once. An integer compare leaves no float rounding for the
 // kernels and `ops/flash_attention.py:philox_keep_mask`, the plain version,
 // to disagree on.
+//
+// `head` is the launch's head bh placed in the model's global (batch, head)
+// grid: (batch0 + bh / heads) * total_heads + head0 + bh % heads, where
+// `heads` is the launch's heads an item, `batch0` its first item in the
+// global batch and `head0` its first head of `total_heads`. A shard of a
+// data- or tensor-parallel run so draws exactly the masks the single-device
+// run draws for the same rows and heads; a single-device launch passes (1,
+// 1, 0, 0), where head = bh.
 //
 // The tiles give a thread the keys tx + TX b of a row (a stride that keeps
 // their shared loads on disjoint banks), so the four aligned columns of one
@@ -30,7 +38,16 @@ struct DropoutParams {
   uint32_t threshold;  // keep iff the Philox word is below it
   float keep_scale;    // 1 / (1 - p), the factor of a kept probability
   uint32_t seed_lo, seed_hi;
+  // the global (batch, head) grid of the launch's heads (see above)
+  uint32_t heads, total_heads, batch0, head0;
 };
+
+// The counter's head word of the launch's head bh.
+__device__ __forceinline__ uint32_t dropout_head(const DropoutParams& dp,
+                                                 uint32_t bh) {
+  return (dp.batch0 + bh / dp.heads) * dp.total_heads + dp.head0 +
+         bh % dp.heads;
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -52,13 +69,15 @@ __device__ __forceinline__ uint32_t philox_word(const uint4& w, int i) {
 }
 
 // Bit b of the result keeps key k0 + tx + TX b of query row `row` of head
-// `bh`, b < KB. k0 % 4 == 0; every lane of the warp calls this together (the
-// exchange shuffles), the four lanes of a quad with the same row.
+// `bh` (whose counter word is `dropout_head`), b < KB. k0 % 4 == 0; every
+// lane of the warp calls this together (the exchange shuffles), the four
+// lanes of a quad with the same row.
 template <int TX, int KB>
 __device__ __forceinline__ uint32_t dropout_keep_bits(const DropoutParams& dp,
                                                       uint32_t bh, uint32_t row,
                                                       int k0, int tx) {
   static_assert(TX % 4 == 0 && KB % 4 == 0, "four aligned keys a quad");
+  const uint32_t head = dropout_head(dp, bh);
   const int j = tx & 3;
   uint32_t bits = 0;
 #pragma unroll
@@ -67,7 +86,7 @@ __device__ __forceinline__ uint32_t dropout_keep_bits(const DropoutParams& dp,
     const uint32_t group =
         (uint32_t)((k0 >> 2) + (tx >> 2) + (TX / 4) * (j + 4 * bb));
     const uint4 w =
-        philox4x32_10(make_uint4(group, row, bh, 0u), dp.seed_lo, dp.seed_hi);
+        philox4x32_10(make_uint4(group, row, head, 0u), dp.seed_lo, dp.seed_hi);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       // lane i = j ^ r computed the call of key i + 4 bb and sends its word
@@ -98,13 +117,14 @@ template <int NB>
 __device__ __forceinline__ uint32_t dropout_keep_bits_rows(
     const DropoutParams& dp, uint32_t bh, int row0, int k0, int lane) {
   static_assert(NB <= 8, "four bits a tile in one word");
+  const uint32_t head = dropout_head(dp, bh);
   const int g = lane >> 2, t = lane & 3;
   const uint32_t row = (uint32_t)(row0 + g + 8 * (t & 1));
   uint32_t own = 0;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const uint32_t group = (uint32_t)((k0 >> 2) + 2 * j + (t >> 1));
-    own |= keep_nibble(philox4x32_10(make_uint4(group, row, bh, 0u),
+    own |= keep_nibble(philox4x32_10(make_uint4(group, row, head, 0u),
                                      dp.seed_lo, dp.seed_hi),
                        dp.threshold)
            << (4 * j);
@@ -132,6 +152,7 @@ template <int NB>
 __device__ __forceinline__ uint32_t dropout_keep_bits_cols(
     const DropoutParams& dp, uint32_t bh, int key0, int q0, int lane) {
   static_assert(NB <= 8, "four bits a tile in one word");
+  const uint32_t head = dropout_head(dp, bh);
   const uint32_t group = (uint32_t)((key0 >> 2) + (lane & 3));
   uint32_t mine = 0;
 #pragma unroll
@@ -139,7 +160,7 @@ __device__ __forceinline__ uint32_t dropout_keep_bits_cols(
     mine |= keep_nibble(
                 philox4x32_10(
                     make_uint4(group, (uint32_t)(q0 + 8 * j + (lane >> 2)),
-                               bh, 0u),
+                               head, 0u),
                     dp.seed_lo, dp.seed_hi),
                 dp.threshold)
             << (4 * j);

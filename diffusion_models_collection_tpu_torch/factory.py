@@ -268,16 +268,20 @@ def get_dataset(config: Mapping, train: bool = True):
 
 
 def get_dataloader(config: Mapping, dataset, train: bool = True,
-                   seed: int = 0) -> DataLoader:
-    """The loader of `.datasets` in one process: numpy batches (B, H, W, C)
-    in [-1, 1], reshuffled per epoch from `seed`, the last partial batch
-    dropped in training."""
+                   seed: int = 0, process_index: int = 0,
+                   process_count: int = 1) -> DataLoader:
+    """The loader of `.datasets`: numpy batches (B, H, W, C) in [-1, 1],
+    reshuffled per epoch from `seed`, the last partial batch dropped in
+    training; with `process_count` > 1, the strided shard `process_index`
+    of each epoch (a data-parallel rank's: `batch_size` images a rank)."""
     return DataLoader(
         dataset,
         batch_size=config["batch_size"],
         shuffle=train,
         drop_last=train,
         seed=seed,
+        process_index=process_index,
+        process_count=process_count,
         num_workers=config.get("num_workers"),
         cache_decoded=config.get("cache_decoded", False),
         fast_jpeg_decode=train and config.get("fast_jpeg_decode", False),

@@ -64,6 +64,7 @@ from .layers import (
     AdaLNModulation,
     CastLayerNorm,
     CastLinear,
+    Dropout,
     LabelTable,
     PatchEmbed,
     TimestepEmbedder,
@@ -104,10 +105,10 @@ class Mlp(nn.Sequential):
             xavier_linear_(QuantLinear(in_dim, hidden_dim,
                                        compute_dtype=dtype, quant=quant)),
             nn.GELU(approximate="none"),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             xavier_linear_(QuantLinear(hidden_dim, out_dim,
                                        compute_dtype=dtype, quant=quant)),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
 
@@ -119,7 +120,12 @@ class SelfAttention(nn.Module):
     `dtype`, or through the int8 product with `quant`. With `perturb` the
     attention map is the identity: the out projection runs on v (PAG).
     `key_sizes` (B, L) makes it proportional attention over merged tokens
-    (ToMe)."""
+    (ToMe). `data_rank`, `head0` and `total_heads` place the dropout masks
+    of a data- or tensor-parallel rank (`ops/attention.py`): rows data_rank
+    * B .. of the global batch, heads head0 .. of total_heads. On a
+    tensor-parallel rank (`parallel/tensor_parallel.py`) the module holds
+    its heads' slices and `model_group`, whose `copy_to_model` (Megatron's
+    f) takes the input of the in-projection."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None,
@@ -129,6 +135,8 @@ class SelfAttention(nn.Module):
             raise ValueError(f"hidden size {dim} is not a multiple of "
                              f"{num_heads} heads")
         self.num_heads = num_heads
+        self.data_rank, self.head0, self.total_heads = 0, 0, num_heads
+        self.model_group = None
         self.dropout = dropout
         self.dtype = dtype
         self.quant = quant
@@ -142,6 +150,8 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, perturb: bool = False,
                 key_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.model_group is not None:
+            x = self.model_group.copy_to_model(x)
         if self.quant is None:
             qkv = cast_linear(x, self.in_proj_weight, self.in_proj_bias,
                               self.dtype)
@@ -151,7 +161,9 @@ class SelfAttention(nn.Module):
         q, k, v = qkv.chunk(3, dim=-1)
         out = v if perturb else multihead_attention(
             q, k, v, self.num_heads, dropout_rate=self.dropout,
-            deterministic=not self.training, key_sizes=key_sizes)
+            deterministic=not self.training, key_sizes=key_sizes,
+            batch0=self.data_rank * x.shape[0], head0=self.head0,
+            total_heads=self.total_heads)
         return self.out_proj(out)
 
 

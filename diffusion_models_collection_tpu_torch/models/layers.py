@@ -14,6 +14,10 @@ each call, as flax's `Dense`/`Conv(dtype=...)` do, and `CastLayerNorm`
 normalises in float32 and casts only its output, as flax's
 `LayerNorm(dtype=...)`. `dtype=None` is float32, unchanged. Sinusoidal
 embeddings compute their trig in float32 and cast only the result.
+
+`Dropout` is every model's activation dropout: its mask is drawn over the
+global batch of a data-parallel run (and over the whole last axis of a
+tensor-parallel one), so a sharded run draws the single-device run's masks.
 """
 
 from __future__ import annotations
@@ -36,6 +40,61 @@ def cast_linear(x: torch.Tensor, weight: torch.Tensor,
         return F.linear(x, weight, bias)
     return F.linear(x.to(dtype), weight.to(dtype),
                     None if bias is None else bias.to(dtype))
+
+
+class _MaskedScale(torch.autograd.Function):
+    """x * keep * scale with a bool `keep`: `F.dropout`'s own masked scale
+    (`native_dropout_backward`) each way, with only the one-byte mask saved
+    for the backward, as `F.dropout` saves it (autograd's formula for
+    `native_dropout_backward` called directly would also save x)."""
+
+    @staticmethod
+    def forward(ctx, x, keep, scale):
+        ctx.save_for_backward(keep)
+        ctx.scale = scale
+        return torch.ops.aten.native_dropout_backward(x, keep, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        keep, = ctx.saved_tensors
+        return (torch.ops.aten.native_dropout_backward(grad, keep, ctx.scale),
+                None, None)
+
+
+class Dropout(nn.Dropout):
+    """`nn.Dropout` (no parameters, the same place in a state dict) whose
+    mask is one bool Bernoulli(1 - p) draw from torch's generator over the
+    global tensor: a data-parallel rank, `data_rank` of `data_ranks`, draws
+    the mask of all ranks' rows, (data_ranks * B, ...), and keeps a copy of
+    rows data_rank * B ..; with `features` = (first, total), a
+    tensor-parallel rank's last axis is columns first .. of `total`. Every
+    rank seeds that generator alike, so a sharded run draws exactly the
+    masks the single-device run draws on the same global batch, and no two
+    ranks share one: what the JAX package's dropout does under GSPMD. Kept
+    values are scaled by 1 / (1 - p) in `F.dropout`'s own masked scale,
+    which saves the one-byte mask as `F.dropout` does. One device draws only
+    its own mask; a sharded rank draws the global mask for the moment of
+    the draw (data_ranks times its own) and keeps a copy of its slice. A
+    tensor that is not batch-major (a MoE's expert buffers) gets a mask of
+    its own on each rank the same way."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__(p)
+        self.data_rank, self.data_ranks = 0, 1
+        self.features: Optional[tuple] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        rows, width = x.shape[0], x.shape[-1]
+        first, total = self.features or (0, width)
+        keep = torch.empty((rows * self.data_ranks, *x.shape[1:-1], total),
+                           dtype=torch.bool, device=x.device
+                           ).bernoulli_(1.0 - self.p)
+        if self.data_ranks > 1 or total != width:
+            keep = keep[self.data_rank * rows:(self.data_rank + 1) * rows,
+                        ..., first:first + width].contiguous()
+        return _MaskedScale.apply(x, keep, 1.0 / (1.0 - self.p))
 
 
 class CastLinear(nn.Linear):

@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Dropout
+
 
 def moe_capacity(seq_len: int, num_experts: int, top_k: int,
                  capacity_factor: float) -> int:
@@ -88,8 +90,8 @@ class MoeMlp(nn.Module):
         self.w2 = nn.Parameter(_expert_xavier_(
             torch.empty(num_experts, hidden_dim, dim)))
         self.b2 = nn.Parameter(torch.zeros(num_experts, dim))
-        self.hidden_dropout = nn.Dropout(dropout)
-        self.out_dropout = nn.Dropout(dropout)
+        self.hidden_dropout = Dropout(dropout)
+        self.out_dropout = Dropout(dropout)
 
     def route(self, x: torch.Tensor, expert: Optional[torch.Tensor] = None):
         """The routing of (B, S, d) tokens: gate values and experts (B, S,

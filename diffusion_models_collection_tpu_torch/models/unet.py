@@ -56,6 +56,7 @@ from ..ops.fused_norm import group_norm_silu
 from .layers import (
     CastConv2d,
     CastLinear,
+    Dropout,
     LabelEmbedder,
     UNetTimeEmbed,
     run_block,
@@ -105,7 +106,7 @@ class ResidualBlock(nn.Module):
             if conditional else None)
         self.conv2 = nn.Sequential(
             FusedGroupNormSiLU(out_ch, dtype=dtype), nn.Identity(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             CastConv2d(out_ch, out_ch, 3, padding=1, compute_dtype=dtype))
         self.shortcut = (CastConv2d(in_ch, out_ch, 1, compute_dtype=dtype)
                          if in_ch != out_ch else nn.Identity())

@@ -30,7 +30,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import CastConv2d, run_block
+from .layers import CastConv2d, Dropout, run_block
 from .unet import AttentionBlock, Downsample, FusedGroupNormSiLU, Upsample
 
 
@@ -45,7 +45,7 @@ class VAEResBlock(nn.Module):
         self.conv1 = CastConv2d(in_ch, out_ch, 3, padding=1,
                                 compute_dtype=dtype)
         self.norm2 = FusedGroupNormSiLU(out_ch, dtype=dtype)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv2 = CastConv2d(out_ch, out_ch, 3, padding=1,
                                 compute_dtype=dtype)
         self.shortcut = (CastConv2d(in_ch, out_ch, 1, compute_dtype=dtype)

@@ -16,6 +16,7 @@ and flags, so a second process reuses it.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -65,19 +66,36 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile `csrc/*.cu` into the shared library unless a build of the
-    same sources and flags exists; return its path."""
+    same sources and flags exists; return its path. Processes that build at
+    once (the ranks of a parallel run) take turns on a file lock: the first
+    compiles, the others find its library."""
     srcs = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in srcs:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libdmc_torch_kernels-{digest.hexdigest()[:16]}.so"
-    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0,
-                          log=log_path.read_text() if log_path.exists() else "")
-        return lib_path
+        return _found(lib_path)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return _found(lib_path)
+        return _compile(srcs, lib_path)
+
+
+def _found(lib_path: Path) -> Path:
+    """An earlier build's library, with its compiler report."""
+    log_path = lib_path.with_suffix(".log")
+    build_info.update(path=str(lib_path), seconds=0.0,
+                      log=log_path.read_text() if log_path.exists() else "")
+    return lib_path
+
+
+def _compile(srcs, lib_path: Path) -> Path:
+    """Compile the sources into `lib_path`, its compiler report beside it."""
+    log_path = lib_path.with_suffix(".log")
     nvcc = _nvcc()
     tag = f"{lib_path.stem}.{os.getpid()}"
     tmp = BUILD_DIR / f"{tag}.so.tmp"
@@ -132,8 +150,10 @@ def kernel_sass() -> dict:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed
-    dropout = [i32, ctypes.c_uint32, f32, ctypes.c_uint64]
+    # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed and
+    # the head grid (heads, total_heads, batch0, head0)
+    dropout = [i32, ctypes.c_uint32, f32, ctypes.c_uint64,
+               *[ctypes.c_uint32] * 4]
     # the GroupNorm+SiLU and attention entries end in (bf16, stream): bf16
     # != 0 takes the bfloat16 form
     lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]

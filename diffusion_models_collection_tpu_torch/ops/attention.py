@@ -14,6 +14,12 @@ mask, again. Proportional attention (`key_sizes`, ToMe, `ops/tome.py`)
 adds log(size) of each key to its logits, so a merged key that stands for s
 tokens draws softmax mass as if present s times: the kernels' key-bias forms,
 with the float32 bias log(key_sizes) of shape (B, Lk) shared by the heads.
+
+The dropout masks are keyed on the global (batch, head) of each head
+(`flash_attention`'s `head_grid`): a data-parallel rank passes its first
+row `batch0` in the global batch, a tensor-parallel rank its first head
+`head0` of `total_heads`, so a sharded run draws the single-device run's
+masks (every rank draws the same seed: torch's CPU generator, seeded alike).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import ONE_DEVICE, flash_attention
 
 
 def draw_seed(generator: Optional[torch.Generator] = None) -> int:
@@ -46,10 +52,16 @@ def multihead_attention(
     deterministic: bool = True,
     key_sizes: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    batch0: int = 0,
+    head0: int = 0,
+    total_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention over (B, L, D) tensors split into `num_heads` heads, with
     dropout on the probabilities at `dropout_rate` unless `deterministic`,
-    and proportional attention over `key_sizes` (B, L) when given."""
+    and proportional attention over `key_sizes` (B, L) when given. The call's
+    rows are rows `batch0` .. of the global batch and its heads heads `head0`
+    .. of the model's `total_heads` (default `num_heads`): the place of its
+    dropout masks."""
     batch, length, dim = q.shape
     head_dim = dim // num_heads
     dropout_p = 0.0 if deterministic else float(dropout_rate)
@@ -62,6 +74,11 @@ def multihead_attention(
     bias = None
     if key_sizes is not None:
         bias = torch.log(key_sizes.to(torch.float32)).contiguous()
-    out = flash_attention(split(q), split(k), split(v), dropout_p, seed, bias)
+    total_heads = num_heads if total_heads is None else total_heads
+    grid = ((num_heads, total_heads, batch0, head0)
+            if (batch0, head0, total_heads) != (0, 0, num_heads)
+            else ONE_DEVICE)
+    out = flash_attention(split(q), split(k), split(v), dropout_p, seed, bias,
+                          grid)
     out = out.reshape(batch, num_heads, length, head_dim).transpose(1, 2)
     return out.reshape(batch, length, dim)

@@ -36,6 +36,12 @@ with Z = keep / (1 - p), lse that of the undropped P. `philox_keep_mask` is
 the one definition of the mask, a pure function of (seed, head, row, key)
 through Philox4x32-10, which the kernels (`csrc/philox.cuh`) compute tile by
 tile and the backward regenerates, so nothing of size (BH, L, L) is stored.
+The head of that key is global: `head_grid` = (heads, total_heads, batch0,
+head0) places the call's head bh at (batch0 + bh // heads) * total_heads +
+head0 + bh % heads of the model's (batch, head) grid, so a data-parallel
+rank (batch0 its first row) or a tensor-parallel rank (head0 its first head)
+draws the masks the single-device run draws for the same rows and heads.
+`ONE_DEVICE` = (1, 1, 0, 0), the default, maps bh to itself.
 
 q, k, v (o, dO, dq, dk, dv) are float32 or bfloat16, lse float32. A
 bfloat16 input takes the kernels' bf16 form, as the JAX kernels run on the
@@ -72,6 +78,8 @@ import torch.nn.functional as F
 from . import _build, _library
 
 MAX_HEAD_DIM = 128
+# the head grid of a single-device call: (heads, total_heads, batch0, head0)
+ONE_DEVICE = (1, 1, 0, 0)
 
 # Kernel launches since the process started (or since a caller reset them):
 # the forward's and the backward's, and of those the ones in the dropout
@@ -177,30 +185,56 @@ def dropout_threshold(dropout_p: float) -> int:
     return min(math.floor((1.0 - dropout_p) * 2.0**32), _MASK32)
 
 
+def check_head_grid(head_grid, bh: int) -> Tuple[int, int, int, int]:
+    """`head_grid` as four ints (heads, total_heads, batch0, head0), with
+    heads dividing `bh` and the call's heads inside the grid."""
+    grid = tuple(int(v) for v in head_grid)
+    if len(grid) != 4:
+        raise ValueError(f"head_grid must be (heads, total_heads, batch0, "
+                         f"head0), got {head_grid!r}")
+    heads, total, batch0, head0 = grid
+    if (heads < 1 or bh % heads or batch0 < 0 or head0 < 0
+            or head0 + heads > total):
+        raise ValueError(f"head_grid {grid}: heads must divide {bh} and "
+                         "head0 + heads lie within total_heads")
+    return grid
+
+
+def global_heads(bh: int, head_grid=ONE_DEVICE, *, bh0: int = 0,
+                 device=None) -> torch.Tensor:
+    """The counter's head word of local heads bh0 .. bh0 + bh - 1, int64:
+    (batch0 + h // heads) * total_heads + head0 + h % heads."""
+    heads, total, batch0, head0 = head_grid
+    local = torch.arange(bh0, bh0 + bh, dtype=torch.int64, device=device)
+    return (batch0 + local // heads) * total + head0 + local % heads
+
+
 def philox_keep_mask(seed: int, bh: int, lq: int, lk: int, dropout_p: float,
                      *, bh0: int = 0, row0: int = 0, col0: int = 0,
-                     device=None) -> torch.Tensor:
+                     head_grid=ONE_DEVICE, device=None) -> torch.Tensor:
     """The keep mask of attention dropout, bool (bh, lq, lk): heads bh0 ..,
     query rows row0 .., keys col0 .. . Key `col` of row `row` of head `h` is
-    kept iff word col & 3 of Philox4x32-10 at counter (col >> 2, row, h, 0)
-    under key (seed & 0xFFFFFFFF, seed >> 32) is below
+    kept iff word col & 3 of Philox4x32-10 at counter (col >> 2, row,
+    `global_heads`(h), 0) under key (seed & 0xFFFFFFFF, seed >> 32) is below
     `dropout_threshold(dropout_p)`: what the kernels compute, tile by tile."""
     g0, g1 = col0 >> 2, ((col0 + lk - 1) >> 2) + 1
     arange = partial(torch.arange, dtype=torch.int64, device=device)
     words = philox4x32(
         (arange(g0, g1)[None, None, :], arange(row0, row0 + lq)[None, :, None],
-         arange(bh0, bh0 + bh)[:, None, None], 0),
+         global_heads(bh, head_grid, bh0=bh0, device=device)[:, None, None],
+         0),
         (seed & _MASK32, (seed >> 32) & _MASK32))
     words = torch.stack(torch.broadcast_tensors(*words), dim=-1)
     words = words.reshape(bh, lq, 4 * (g1 - g0))[..., col0 - 4 * g0:][..., :lk]
     return words < dropout_threshold(dropout_p)
 
 
-def dropout_factor(seed: int, dropout_p: float, shape,
-                   device=None) -> torch.Tensor:
+def dropout_factor(seed: int, dropout_p: float, shape, device=None,
+                   head_grid=ONE_DEVICE) -> torch.Tensor:
     """Z = keep / (1 - p) over (BH, L, L) scores, float32: 1 / (1 - p) rounded
     to float32 where kept, as the kernels multiply."""
-    keep = philox_keep_mask(seed, *shape, dropout_p, device=device)
+    keep = philox_keep_mask(seed, *shape, dropout_p, head_grid=head_grid,
+                            device=device)
     return keep.to(torch.float32) * torch.tensor(
         1.0 / (1.0 - dropout_p), dtype=torch.float32, device=device)
 
@@ -221,7 +255,7 @@ def _head_bias(bias: torch.Tensor, bh: int) -> torch.Tensor:
 def flash_attention_fwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout_p: float = 0.0, seed: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention: o = (softmax(s) o Z) v with s = q k^T /
     sqrt(d) (+ the key bias), Z the dropout factor (none at p = 0), and lse
@@ -236,23 +270,27 @@ def flash_attention_fwd_ref(
         logits = logits + _head_bias(bias, q.shape[0])
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
-        probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device)
+        probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device,
+                                       head_grid)
     o = torch.matmul(probs, v)
     return o.to(dtype), torch.logsumexp(logits, dim=-1, keepdim=True)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_p: float = 0.0, seed: Optional[int] = None,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None,
+                        head_grid=ONE_DEVICE) -> torch.Tensor:
     """Plain PyTorch attention output, differentiable by autograd (through
     the casts of a bfloat16 input: gradients in its type)."""
-    return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias)[0]
+    return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias,
+                                   head_grid)[0]
 
 
 def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
-    seed: Optional[int] = None, bias: Optional[torch.Tensor] = None
+    seed: Optional[int] = None, bias: Optional[torch.Tensor] = None,
+    head_grid=ONE_DEVICE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse
     (and the forward's key bias),
@@ -270,7 +308,7 @@ def flash_attention_bwd_ref(
     dp = torch.matmul(do, v.transpose(-1, -2))
     p_kept = p
     if dropout_p > 0.0:
-        z = dropout_factor(seed, dropout_p, p.shape, q.device)
+        z = dropout_factor(seed, dropout_p, p.shape, q.device, head_grid)
         p_kept, dp = p * z, dp * z
     dv = torch.matmul(p_kept.transpose(-1, -2), do)
     delta = (do * o).sum(dim=-1, keepdim=True)
@@ -341,13 +379,13 @@ def _cut_heads(head_dim: int, *tensors: torch.Tensor):
     return tuple(t[..., :head_dim].contiguous() for t in tensors)
 
 
-def _dropout_args(dropout_p: float, seed: Optional[int]):
+def _dropout_args(dropout_p: float, seed: Optional[int], head_grid):
     """The kernels' trailing dropout arguments: (on, threshold, 1 / (1 - p),
-    seed as an unsigned 64-bit int)."""
+    seed as an unsigned 64-bit int, the head grid's four words)."""
     if dropout_p == 0.0:
-        return 0, 0, 1.0, 0
+        return 0, 0, 1.0, 0, *ONE_DEVICE
     return (1, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p),
-            seed & 0xFFFFFFFFFFFFFFFF)
+            seed & 0xFFFFFFFFFFFFFFFF, *head_grid)
 
 
 def _signed_seed(seed: Optional[int]) -> Optional[int]:
@@ -359,8 +397,19 @@ def _signed_seed(seed: Optional[int]) -> Optional[int]:
     return seed - 2**64 if seed >= 2**63 else seed
 
 
+def _fwd_cpu(q, k, v, dropout_p: float, seed: Optional[int],
+             bias: Optional[torch.Tensor], head_grid=None):
+    return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias,
+                                   _grid(head_grid))
+
+
+def _grid(head_grid) -> Tuple[int, int, int, int]:
+    """The operators' optional int[] head grid as a tuple."""
+    return ONE_DEVICE if head_grid is None else tuple(head_grid)
+
+
 def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
-              bias: Optional[torch.Tensor]):
+              bias: Optional[torch.Tensor], head_grid=None):
     """The forward kernel's launch: (o, lse)."""
     global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES, BIAS_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
@@ -377,7 +426,7 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), bh, seq_len, width, 1.0 / math.sqrt(head_dim),
                 fwd_tile(seq_len, width, q.dtype),
-                *_dropout_args(dropout_p, seed), int(bf16))
+                *_dropout_args(dropout_p, seed, _grid(head_grid)), int(bf16))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
@@ -395,10 +444,10 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
 
 _FWD = _library.define(
     "flash_attn_fwd(Tensor q, Tensor k, Tensor v, float dropout_p, "
-    "int? seed, Tensor? bias) -> (Tensor, Tensor)",
-    cpu=flash_attention_fwd_ref,
+    "int? seed, Tensor? bias, int[]? head_grid=None) -> (Tensor, Tensor)",
+    cpu=_fwd_cpu,
     cuda=_fwd_cuda,
-    fake=lambda q, k, v, dropout_p, seed, bias: (
+    fake=lambda q, k, v, dropout_p, seed, bias, head_grid=None: (
         torch.empty_like(q),
         q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)))
 
@@ -406,11 +455,12 @@ _FWD = _library.define(
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout_p: float = 0.0, seed: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
     with dropout on the probabilities when `dropout_p` > 0 (the mask of
-    `philox_keep_mask(seed, ...)`) and the key bias when one is given, the
+    `philox_keep_mask(seed, ..., head_grid=head_grid)`) and the key bias
+    when one is given, the
     operator `dmc::flash_attn_fwd`: the kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (o, lse), o of q's type and lse float32
     of shape (BH, L, 1), the JAX kernel's layout."""
@@ -418,17 +468,21 @@ def flash_attention_fwd(
     _check_shapes("flash_attention_fwd", q, k, v)
     _check_dropout("flash_attention_fwd", dropout_p, seed)
     _check_bias("flash_attention_fwd", bias, q)
-    return _FWD(q, k, v, float(dropout_p), _signed_seed(seed), bias)
+    grid = check_head_grid(head_grid, q.shape[0])
+    return _FWD(q, k, v, float(dropout_p), _signed_seed(seed), bias,
+                None if grid == ONE_DEVICE else list(grid))
 
 
 def _bwd_cpu(q, k, v, o, dout, lse, dropout_p: float, seed: Optional[int],
-             fused: Optional[bool], bias: Optional[torch.Tensor]):
+             fused: Optional[bool], bias: Optional[torch.Tensor],
+             head_grid=None):
     return flash_attention_bwd_ref(q, k, v, o, dout, lse, dropout_p, seed,
-                                   bias)
+                                   bias, _grid(head_grid))
 
 
 def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
-              fused: Optional[bool], bias: Optional[torch.Tensor]):
+              fused: Optional[bool], bias: Optional[torch.Tensor],
+              head_grid=None):
     """The backward kernel's launch in the form `fused` picks (None:
     `bwd_fused`): (dq, dk, dv)."""
     global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
@@ -459,7 +513,7 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
                 None if partial is None else partial.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
                 width, 1.0 / math.sqrt(head_dim), tile, int(fused),
-                *_dropout_args(dropout_p, seed), int(bf16))
+                *_dropout_args(dropout_p, seed, _grid(head_grid)), int(bf16))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
@@ -477,8 +531,8 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
 
 _BWD = _library.define(
     "flash_attn_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, "
-    "Tensor lse, float dropout_p, int? seed, bool? fused, Tensor? bias) "
-    "-> (Tensor, Tensor, Tensor)",
+    "Tensor lse, float dropout_p, int? seed, bool? fused, Tensor? bias, "
+    "int[]? head_grid=None) -> (Tensor, Tensor, Tensor)",
     cpu=_bwd_cpu,
     cuda=_bwd_cuda,
     fake=lambda q, *args: tuple(torch.empty_like(q) for _ in range(3)))
@@ -488,11 +542,11 @@ def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
     seed: Optional[int] = None, fused: Optional[bool] = None,
-    bias: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
     and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
-    its `dropout_p`, `seed` and key `bias`, the operator
+    its `dropout_p`, `seed`, key `bias` and `head_grid`, the operator
     `dmc::flash_attn_bwd`: the kernel for CUDA tensors, the plain version
     for CPU tensors. Returns (dq, dk, dv) of q's type. `fused` picks the
     kernel's form; None leaves it to `bwd_fused`."""
@@ -504,22 +558,27 @@ def flash_attention_bwd(
     if lse.shape != (bh, seq_len, 1):
         raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
                          f"1), got {tuple(lse.shape)}")
+    grid = check_head_grid(head_grid, bh)
     return _BWD(q, k, v, o, do, lse, float(dropout_p), _signed_seed(seed),
-                fused, bias)
+                fused, bias, None if grid == ONE_DEVICE else list(grid))
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose forward is `flash_attention_fwd` and whose backward
     is `flash_attention_bwd`, from the residuals (q, k, v, o, lse), the
-    dropout's (p, seed) and the key bias, as the JAX package's `_flash_core`
+    dropout's (p, seed, head grid) and the key bias, as the JAX package's
+    `_flash_core`
     (`_flash_core_fwd`, `_flash_core_bwd`). The bias gets no gradient: it
     is the log of merged tokens' counts."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_p=0.0, seed=None, bias=None):
-        o, lse = flash_attention_fwd(q, k, v, dropout_p, seed, bias)
+    def forward(ctx, q, k, v, dropout_p=0.0, seed=None, bias=None,
+                head_grid=ONE_DEVICE):
+        o, lse = flash_attention_fwd(q, k, v, dropout_p, seed, bias,
+                                     head_grid)
         ctx.save_for_backward(q, k, v, o, lse, bias)
         ctx.dropout = (dropout_p, seed)
+        ctx.head_grid = head_grid
         return o
 
     @staticmethod
@@ -527,15 +586,17 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, bias = ctx.saved_tensors
         # autograd hands dO over in the layout of the caller's reshapes
         grads = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
-                                    *ctx.dropout, bias=bias)
-        return (*grads, None, None, None)
+                                    *ctx.dropout, bias=bias,
+                                    head_grid=ctx.head_grid)
+        return (*grads, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_p: float = 0.0, seed: Optional[int] = None,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    head_grid=ONE_DEVICE) -> torch.Tensor:
     """Differentiable attention over (BH, L, d) float32 or bfloat16 through
     the forward and backward kernels (their plain versions on the CPU), with
-    dropout on the probabilities when `dropout_p` > 0 and the key bias (B, L)
-    when one is given; o of q's type."""
-    return FlashAttention.apply(q, k, v, dropout_p, seed, bias)
+    dropout on the probabilities when `dropout_p` > 0 (its masks placed by
+    `head_grid`) and the key bias (B, L) when one is given; o of q's type."""
+    return FlashAttention.apply(q, k, v, dropout_p, seed, bias, head_grid)

@@ -56,14 +56,19 @@ The JAX gate `supported()` (D % 128, N <= 32, L >= 8) is a TPU lane limit
 and is not ported: the kernels take any L >= 1 and any D, and N up to 32
 (`MAX_STATE`; a larger state raises on a CUDA tensor, where the JAX package
 falls back to its XLA scan, and runs the plain versions, which take any N,
-on a CPU tensor). The sequence-parallel scan
-(`selective_scan_with_state`), the tensor-parallel scope
-(`scan_tensor_parallel`) and the XLA `chunk_size` path raise (ROADMAP queue
-1 item 15).
+on a CPU tensor). Under tensor parallelism the scan needs no form of its
+own: the DiM's `Mamba` mixer, cut to a tensor-parallel rank
+(`parallel/tensor_parallel.py`), calls these kernels unchanged on its rank's
+d_inner / tp channels, with (dt, B, C) all-reduced before the scan, and
+`scan_tensor_parallel`, the JAX package's scope for it, is a no-op kept for
+its callers. The sequence-parallel scan (`selective_scan_with_state`) and
+the XLA `chunk_size` path raise: they are the sequence-parallel slice's
+(ROADMAP queue 1 item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
@@ -752,7 +757,8 @@ def _apply(fn, x, dt, A, B, C, D, chunk_size, save_states):
     if chunk_size is not None:
         raise NotImplementedError(
             "selective_scan: chunk_size selects the JAX package's XLA "
-            "chunked scan, which is not ported (ROADMAP queue 1 item 15)")
+            "chunked scan, which is not ported: the sequence-parallel slice "
+            "(ROADMAP queue 1 item 15)")
     inputs = [t.contiguous() for t in (x, dt, A, B, C)]
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in inputs)
@@ -785,11 +791,12 @@ def selective_scan_with_state(*args, **kwargs):
     """Not ported: the sequence-parallel scan's building block."""
     raise NotImplementedError(
         "selective_scan_with_state (the sequence-parallel DiM scan) is not "
-        "ported yet (ROADMAP queue 1 item 15)")
+        "ported yet: the sequence-parallel slice (ROADMAP queue 1 item 15)")
 
 
+@contextlib.contextmanager
 def scan_tensor_parallel(*args, **kwargs):
-    """Not ported: the tensor-parallel scan scope."""
-    raise NotImplementedError(
-        "scan_tensor_parallel (the tensor-parallel DiM scan) is not ported "
-        "yet (ROADMAP queue 1 item 15)")
+    """The JAX package's tensor-parallel scan scope, a no-op here: the
+    tensor-parallel DiM (`parallel/tensor_parallel.py`) runs the scan on its
+    rank's channels as it is."""
+    yield

@@ -1,0 +1,160 @@
+"""Process groups, the device mesh and the batch split of a parallel run.
+
+Counterpart of `diffusion_models_collection_tpu/parallel/mesh.py` (and the
+multi-process launch of its `train.py`). The JAX package lays a batch over a
+`jax.sharding.Mesh` and lets XLA insert the collectives; here each rank is a
+process with one device, torchrun's (or a test's) process group joins them,
+and the port's code calls the collectives itself.
+
+* `init_process_group` joins the default group, from torchrun's environment
+  (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`) or from explicit arguments and a
+  store. NCCL on `cuda:LOCAL_RANK`; gloo only for a CPU device (or when a
+  caller names it, as a test of two ranks on one card does).
+* `Layout` is a run's (data, model) mesh: `tensor_parallel` ranks a model
+  group (consecutive ranks, as the JAX `data_model_mesh` reshapes its
+  devices (dp, tp)), `world / tensor_parallel` model replicas over 'data'.
+  Without a process group it is the one-device layout, and every collective
+  of the port is skipped.
+* Every rank draws the step's draws for the global batch from a generator
+  seeded alike and keeps its rows (`Layout.rows`, the JAX `shard_batch`): a
+  data-parallel run at world N takes the steps that one device takes on the
+  same global batch.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def distributed_env() -> Optional[tuple]:
+    """(rank, world size, local rank) from torchrun's environment, or None
+    when the process was not started by it."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    return rank, world, int(os.environ.get("LOCAL_RANK", rank))
+
+
+def init_process_group(device: torch.device, *, rank: Optional[int] = None,
+                       world_size: Optional[int] = None, store=None,
+                       backend: Optional[str] = None) -> bool:
+    """Join the default process group unless one is joined: with `rank` and
+    `world_size` given (and a `store`, e.g. `dist.FileStore`), or from
+    torchrun's environment. The backend is NCCL for a CUDA device, gloo for
+    the CPU, unless `backend` names one. Returns whether a group is joined
+    (False: a single process, nothing to join)."""
+    if dist.is_available() and dist.is_initialized():
+        return True
+    if rank is None:
+        env = distributed_env()
+        if env is None:
+            return False
+        rank, world_size, _ = env
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    kwargs = {} if store is None else {"store": store}
+    if backend == "nccl":
+        kwargs["device_id"] = device
+    dist.init_process_group(backend, rank=rank, world_size=world_size,
+                            **kwargs)
+    return True
+
+
+def local_device(device: torch.device) -> torch.device:
+    """`cuda` as this process's card, `cuda:LOCAL_RANK`, under torchrun;
+    any other device as it is."""
+    device = torch.device(device)
+    env = distributed_env()
+    if device.type == "cuda" and device.index is None and env is not None:
+        return torch.device("cuda", env[2])
+    return device
+
+
+def process_index() -> int:
+    """This process's rank (0 without a process group)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def process_count() -> int:
+    """The number of processes (1 without a process group)."""
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def is_main_process() -> bool:
+    """Rank 0: the process that prints, writes files and logs."""
+    return process_index() == 0
+
+
+@dataclass
+class Layout:
+    """A run's place on the (data, model) mesh: `dp` replicas over 'data'
+    times `tp` ranks a model group; this rank's `dp_rank` and `tp_rank`;
+    the mesh and its groups (None in the one-device layout)."""
+
+    dp: int = 1
+    tp: int = 1
+    dp_rank: int = 0
+    tp_rank: int = 0
+    mesh: object = None  # torch.distributed.device_mesh.DeviceMesh
+
+    @property
+    def dp_group(self):
+        return None if self.mesh is None else self.mesh.get_group(DATA_AXIS)
+
+    @property
+    def tp_group(self):
+        return None if self.mesh is None else self.mesh.get_group(MODEL_AXIS)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor over the global batch (dp equal
+        blocks along axis 0, in rank order)."""
+        if self.dp == 1:
+            return x
+        if x.shape[0] % self.dp:
+            raise ValueError(f"a global batch of {x.shape[0]} rows does not "
+                             f"split over {self.dp} data-parallel ranks")
+        n = x.shape[0] // self.dp
+        return x[self.dp_rank * n:(self.dp_rank + 1) * n]
+
+    def mean_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of `x` over the data-parallel ranks (the reference's
+        `dist.all_reduce` of the logged loss); `x` itself at dp 1."""
+        if self.dp == 1:
+            return x
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.dp_group)
+        return x / self.dp
+
+
+def make_layout(device: torch.device, tensor_parallel: int = 1) -> Layout:
+    """The layout of this process: one device without a process group, else
+    the (world / tensor_parallel, tensor_parallel) mesh over the group (at
+    world 1 too), on `device`'s type, with axes 'data' and 'model'."""
+    tp = int(tensor_parallel or 1)
+    world = process_count()
+    if world % tp:
+        raise ValueError(f"tensor_parallel={tp} does not divide {world} "
+                         "devices")
+    if not (dist.is_available() and dist.is_initialized()):
+        if tp > 1:
+            raise ValueError(f"tensor_parallel={tp} needs {tp} processes "
+                             "(torchrun --nproc_per_node N)")
+        return Layout()
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(torch.device(device).type, (world // tp, tp),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    rank = process_index()
+    return Layout(dp=world // tp, tp=tp, dp_rank=rank // tp,
+                  tp_rank=rank % tp, mesh=mesh)

@@ -18,16 +18,27 @@ classifier of classifier guidance (`model_type: 'classifier'`,
 training from scratch (`diffusion_type: 'consistency'`,
 `ConsistencyTrainingTrainer`; consistency and progressive distillation of a
 trained checkpoint are `tools/distill.py`'s, reflow `tools/reflow.py`'s):
-one process on one device. The seed
+one process on one device, or one process a device under torchrun:
+
+    torchrun --nproc_per_node N \
+        -m diffusion_models_collection_tpu_torch.train \
+        --config configs/cifar10_dit.py
+
+joins a process group (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
+cpu`) and trains data parallel (`batch_size` images a rank), or with the
+config's `tensor_parallel: k` (DiT, DiM) and `fsdp: true` (`fsdp_min_size`)
+on a (N / k data, k model) mesh (`parallel/`); each data-parallel rank loads
+its strided shard of every epoch, and rank 0 prints and writes. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
-trainer's generator for t, noise and the CFG label dropout. `--device`
-defaults to `cuda` and fails when CUDA is absent; the CPU runs only when
-asked for with `--device cpu`. The model computes in the config's
-`mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
+trainer's generator for t, noise and the CFG label dropout, alike on every
+rank (Python's and numpy's generators take seed + rank, as the JAX CLI's
+host seed). `--device` defaults to `cuda` and fails when CUDA is absent;
+the CPU runs only when asked for with `--device cpu`. The model computes in
+the config's `mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
 activations while the weights, the optimizer state, the EMA and the loss stay
 float32); on CUDA, TF32 is switched off for matrix products and
-convolutions. The JAX trainer's multi-process, multi-device launch
-raises, naming its ROADMAP item.
+convolutions. The JAX trainer's pipeline, sequence and expert parallelism
+raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +47,12 @@ import argparse
 import time
 from pathlib import Path
 
+import torch
+import torch.distributed as dist
+
 from .factory import get_dataloader, get_dataset, get_diffusion, get_model
+from .parallel.mesh import (init_process_group, local_device, process_count,
+                            process_index)
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, set_seed)
 from .utils.classifier_trainer import ClassifierTrainer
@@ -58,20 +74,29 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the CLI; returns the trainer after its last epoch."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device, "train")
+    device = local_device(resolve_device(args.device, "train"))
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)  # this rank's card under torchrun
+    init_process_group(device)  # under torchrun; else one process
+    rank, world = process_index(), process_count()
+    say = print if rank == 0 else (lambda *a: None)
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])
     model_type = str(config.get("model_type", "")).lower()
-    generator = set_seed(config.get("seed", 42), device)
-    print(f"Device: {device}")
+    generator = set_seed(config.get("seed", 42), device, process_offset=rank)
+    say(f"Device: {device}" + (f" ({world} processes)" if world > 1 else ""))
 
-    print("Creating model...")
+    say("Creating model...")
     model = get_model(config)
 
-    print("Loading dataset...")
+    say("Loading dataset...")
     train_dataset = get_dataset(config, train=True)
+    # a model group (tensor_parallel ranks) shares one shard of the data
+    tp = int(config.get("tensor_parallel", 1) or 1)
     train_loader = get_dataloader(config, train_dataset, train=True,
-                                  seed=config.get("seed", 42))
+                                  seed=config.get("seed", 42),
+                                  process_index=rank // tp,
+                                  process_count=max(1, world // tp))
 
     if model_type == "vae":
         # stage 1 of latent diffusion: the KL-VAE alone; diffusion configs
@@ -119,4 +144,8 @@ def main(argv=None):
 if __name__ == "__main__":
     start_time = time.time()
     main()
-    print(f"Total training time: {format_duration(time.time() - start_time)}")
+    if process_index() == 0:
+        print(f"Total training time: "
+              f"{format_duration(time.time() - start_time)}")
+    if dist.is_initialized():
+        dist.destroy_process_group()

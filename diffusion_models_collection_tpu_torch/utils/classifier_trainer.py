@@ -1,7 +1,11 @@
 """Trainer of the noise-conditional classifier of classifier guidance.
 
 Counterpart of `diffusion_models_collection_tpu/utils/classifier_trainer.py`
-on one device. `model_type: 'classifier'` routes `train` here. A step: t
+on one device or data parallel (`parallel/plan.py`: DDP over 'data', every
+rank drawing the global batch's t and noise and keeping its rows, rank 0
+printing and writing; `tensor_parallel` and `fsdp` raise, as the JAX trainer
+has only its 'data' mesh). `model_type: 'classifier'` routes `train` here.
+A step: t
 uniform in [0, T) and the noise from the trainer's generator (or passed in,
 as the parity tests do), x_t by `q_sample` on the config's schedule (the
 four schedule keys and `zero_terminal_snr`, the marginals the classifier
@@ -31,11 +35,12 @@ import torch
 
 from ..diffusion.base import q_sample
 from ..diffusion.schedule import NoiseSchedule
+from ..parallel.plan import ParallelPlan
 from . import checkpoint as ckpt_lib
 from .ema import ema_update
 from .helpers import count_parameters
 from .profiler import StepTimer
-from .tracker import Tracker, build_tracker
+from .tracker import NullTracker, Tracker, build_tracker
 from .trainer import (build_optimizer, progress_shown, report_batch,
                       restore_checkpoint)
 
@@ -70,7 +75,11 @@ class ClassifierTrainer:
                 "checkpoint_format is not ported yet (ROADMAP queue 1 item "
                 "16)")
         self.device = torch.device(device)
-        self.model = model.to(self.device)
+        # data parallel only, as the JAX trainer
+        self.plan = ParallelPlan(cfg, model, self.device,
+                                 model_parallel=False)
+        self.is_main = self.plan.is_main
+        self.model = self.plan.prepare(model).to(self.device)
         self.train_loader = train_loader
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(
@@ -85,36 +94,45 @@ class ClassifierTrainer:
             cfg.get("beta_end", 0.02), cfg.get("beta_schedule", "linear"),
             zero_terminal_snr=bool(cfg.get("zero_terminal_snr", False)),
         ).to(self.device)
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        print(f"Classifier parameters: {count_parameters(self.model):,}")
+        if self.is_main:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            print(f"Classifier parameters: "
+                  f"{count_parameters(self.model):,}")
 
         self.accum = max(1, int(cfg.get("gradient_accumulation_steps", 1)))
         updates_per_epoch = max(1, max(1, len(train_loader)) // self.accum)
-        self.optimizer = build_optimizer(cfg, self.model.parameters(),
-                                         updates_per_epoch)
         self.ema_model = None
         if cfg.get("use_ema", False):
             self.ema_model = copy.deepcopy(self.model).eval()
             self.ema_model.requires_grad_(False)
+        self.train_model = self.plan.wrap(self.model)
+        self.optimizer = build_optimizer(cfg, self.model.parameters(),
+                                         updates_per_epoch, self.plan)
 
         self.best_loss = float("inf")
         self.start_epoch = 1
         self.global_step = 0
         if resume_path:
             self.load_checkpoint(resume_path)
-        self.tracker = (tracker if tracker is not None
-                        else build_tracker(cfg, str(self.save_dir)))
+        if tracker is not None:
+            self.tracker = tracker
+        elif self.is_main:
+            self.tracker = build_tracker(cfg, str(self.save_dir))
+        else:
+            self.tracker = NullTracker()
         self.step_timer = StepTimer()
 
     # ---------------------------------------------------------------- step
     def draw(self, shape) -> Tuple[torch.Tensor, torch.Tensor]:
         """The step's draws from the trainer's generator: t ~ U[0, T), then
-        the noise."""
-        gen = self.generator
-        t = torch.randint(0, self.num_timesteps, (shape[0],), generator=gen,
+        the noise, for the global batch, cut to this rank's rows."""
+        gen, lay = self.generator, self.plan.layout
+        batch = shape[0] * lay.dp
+        t = torch.randint(0, self.num_timesteps, (batch,), generator=gen,
                           device=self.device)
-        noise = torch.randn(tuple(shape), generator=gen, device=self.device)
-        return t, noise
+        noise = torch.randn((batch, *shape[1:]), generator=gen,
+                            device=self.device)
+        return lay.rows(t), lay.rows(noise)
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor,
                    t: Optional[torch.Tensor] = None,
@@ -127,10 +145,11 @@ class ClassifierTrainer:
             t, noise = self.draw(images.shape)
         x_t = q_sample(self.schedule, images, t, noise)
         y = labels.to(torch.int64)
-        logits = self.model(x_t, t)
-        ce = torch.nn.functional.cross_entropy(logits, y)
-        acc = (logits.argmax(-1) == y).to(torch.float32).mean()
-        ce.backward()
+        with self.plan.sync(self.train_model, self.optimizer.updates_next()):
+            logits = self.train_model(x_t, t)
+            ce = torch.nn.functional.cross_entropy(logits, y)
+            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+            ce.backward()
         if self.optimizer.step() and self.ema_model is not None:
             ema_update(self.ema_model.parameters(), self.model.parameters(),
                        self.ema_decay)
@@ -156,7 +175,8 @@ class ClassifierTrainer:
             report_batch(shown, epoch, self.epochs, len(out), total)
         if not out:
             return float("nan"), float("nan")
-        ce, acc = torch.stack(out).mean(0).tolist()
+        ce, acc = self.plan.layout.mean_over_data(
+            torch.stack(out).mean(0)).tolist()
         return ce, acc
 
     # --------------------------------------------------------- checkpoints
@@ -166,6 +186,8 @@ class ClassifierTrainer:
             names.append("best_model.pth")
         if epoch % self.save_interval == 0:
             names.append(f"model_epoch_{epoch:04d}.pth")
+        if not self.is_main:  # data parallel: every rank holds it all
+            return
         for name in names:
             ckpt_lib.save_checkpoint(
                 self.save_dir / name, self.model.state_dict(), self.config,
@@ -180,24 +202,27 @@ class ClassifierTrainer:
         """Resume at the checkpoint's epoch + 1, with no extension past the
         configured `epochs`."""
         restore_checkpoint(self, checkpoint_path)
-        print(f"Resuming classifier training from epoch {self.start_epoch}")
+        if self.is_main:
+            print(f"Resuming classifier training from epoch "
+                  f"{self.start_epoch}")
 
     # ---------------------------------------------------------------- loop
     def train(self) -> None:
-        print(f"Starting classifier training for {self.epochs} epochs on "
-              f"{self.device}")
+        say = print if self.is_main else (lambda *a: None)
+        say(f"Starting classifier training for {self.epochs} epochs on "
+            f"{self.device}")
         for epoch in range(self.start_epoch, self.epochs + 1):
             start_time = time.time()
             avg_loss, avg_acc = self.train_epoch(epoch)
             epoch_time = time.time() - start_time
             if not math.isfinite(avg_loss):
-                print(f"ERROR: non-finite classifier loss ({avg_loss}) at "
-                      f"epoch {epoch}; stopping before overwriting "
-                      "checkpoints.")
+                say(f"ERROR: non-finite classifier loss ({avg_loss}) at "
+                    f"epoch {epoch}; stopping before overwriting "
+                    "checkpoints.")
                 self.tracker.log({"train/diverged_epoch": epoch}, step=epoch)
                 break
-            print(f"Epoch {epoch}/{self.epochs} - CE: {avg_loss:.4f} - "
-                  f"Acc: {avg_acc:.3f} - Time: {epoch_time:.2f}s")
+            say(f"Epoch {epoch}/{self.epochs} - CE: {avg_loss:.4f} - "
+                f"Acc: {avg_acc:.3f} - Time: {epoch_time:.2f}s")
             self.tracker.log({"train/loss": avg_loss,
                               "train/accuracy": avg_acc,
                               "train/epoch_time": epoch_time}, step=epoch)
@@ -205,5 +230,5 @@ class ClassifierTrainer:
             if is_best:
                 self.best_loss = avg_loss
             self.save_checkpoint(epoch, is_best=is_best)
-        print("Training completed!")
+        say("Training completed!")
         self.tracker.finish()

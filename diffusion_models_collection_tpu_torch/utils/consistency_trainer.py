@@ -101,10 +101,10 @@ class ConsistencyTrainingTrainer(FewStepTrainer):
         self.cfg_dropout_prob = float(cfg.get("cfg_dropout_prob", 0.0))
         self.train_loader = train_loader
         self.start(model, len(train_loader), target_decay)
-        print(f"Consistency training from scratch "
-              f"({count_parameters(self.model):,} params): grids "
-              f"{self.grid_schedule}, mu={target_decay}, {self.weighting} "
-              "weighting")
+        self.say(f"Consistency training from scratch "
+                 f"({count_parameters(self.model):,} params): grids "
+                 f"{self.grid_schedule}, mu={target_decay}, {self.weighting} "
+                 "weighting")
         self.set_grid(self.grid_schedule[0])
         self.start_epoch = 0
         if resume_path:
@@ -129,8 +129,8 @@ class ConsistencyTrainingTrainer(FewStepTrainer):
         self.global_step = int(payload.get("global_step", 0))
         self.optimizer.count = self.global_step // self.accum
         self.start_epoch = int(payload.get("epoch", 0))
-        print(f"Resuming consistency training from {path} "
-              f"(epoch {self.start_epoch})")
+        self.say(f"Resuming consistency training from {path} "
+                 f"(epoch {self.start_epoch})")
 
     def set_grid(self, grid_size: int) -> None:
         """Train on the adjacent pairs of the `grid_size`-point grid."""
@@ -167,7 +167,7 @@ class ConsistencyTrainingTrainer(FewStepTrainer):
             idx, noise, drop = self.draw(images.shape, len(self.grid[0]))
         t, t_next = self.grid[0][idx], self.grid[1][idx]
         loss = consistency_training_loss(
-            self.schedule, self.pair_of(self.model),
+            self.schedule, self.pair_of(self.train_model),
             self.pair_of(self.ema_model), images, noise, t, t_next,
             self.model_labels(labels, drop), sigma_data=self.sigma_data,
             timestep_scaling=self.timestep_scaling, loss_type=self.loss_type,
@@ -197,14 +197,14 @@ class ConsistencyTrainingTrainer(FewStepTrainer):
                 len(self.train_loader), self.train_step,
                 f"consistency-training loss at epoch {epoch}")
             best = min(best, avg)
-            print(f"[ct] epoch {epoch}/{self.epochs} (grid {grid_size}) - "
-                  f"loss {avg:.5f} - {time.time() - start:.1f}s")
+            self.say(f"[ct] epoch {epoch}/{self.epochs} (grid {grid_size}) - "
+                     f"loss {avg:.5f} - {time.time() - start:.1f}s")
             self.tracker.log({"ct/loss": avg, "ct/grid_size": grid_size},
                              step=epoch)
             if epoch % save_every == 0 or epoch == self.epochs:
                 self.save(["consistency_model.pth", "current_model.pth"],
                           epoch, best, self.out_config())
-        print("Consistency training completed!")
+        self.say("Consistency training completed!")
         self.tracker.finish()
         return self
 
@@ -267,9 +267,9 @@ class ConsistencyDistillationTrainer(FewStepTrainer):
         self.teacher = frozen_copy(student).to(self.device)
         self.start(student, len(train_loader),
                    float(cfg.get("target_ema_decay", 0.95)))
-        print(f"Consistency-distilling {cfg['teacher_checkpoint']} "
-              f"({count_parameters(self.model):,} params): grid "
-              f"{self.grid_size}, w={self.distill_cfg_scale}")
+        self.say(f"Consistency-distilling {cfg['teacher_checkpoint']} "
+                 f"({count_parameters(self.model):,} params): grid "
+                 f"{self.grid_size}, w={self.distill_cfg_scale}")
 
     def pair_of(self, model):
         return dbase.wrap_model_as_eps_x0(self.schedule, model,
@@ -288,7 +288,7 @@ class ConsistencyDistillationTrainer(FewStepTrainer):
         t, t_next = self.grid[0][idx], self.grid[1][idx]
         z = dbase.q_sample(self.schedule, images, t, noise)
         loss = consistency_distill_loss(
-            self.schedule, self.pair_of(self.model),
+            self.schedule, self.pair_of(self.train_model),
             self.pair_of(self.ema_model), self.pair_of(self.teacher), z, t,
             t_next, self.model_labels(labels, drop),
             sigma_data=self.sigma_data,
@@ -320,11 +320,11 @@ class ConsistencyDistillationTrainer(FewStepTrainer):
                 len(self.train_loader), self.train_step,
                 f"consistency loss at epoch {epoch}")
             best = min(best, avg)
-            print(f"[consistency] epoch {epoch}/{self.epochs} - loss "
-                  f"{avg:.5f} - {time.time() - start:.1f}s")
+            self.say(f"[consistency] epoch {epoch}/{self.epochs} - loss "
+                     f"{avg:.5f} - {time.time() - start:.1f}s")
             self.tracker.log({"consistency/loss": avg}, step=epoch)
         self.save(["consistency_model.pth", "current_model.pth"],
                   self.epochs, best, self.out_config())
-        print("Consistency distillation completed!")
+        self.say("Consistency distillation completed!")
         self.tracker.finish()
         return self

@@ -63,9 +63,9 @@ class DistillationTrainer(FewStepTrainer):
         self.train_loader = train_loader
         self.student = get_model(t_cfg)
         self.student.load_state_dict(teacher_state(payload), strict=True)
-        print(f"Distilling {cfg['teacher_checkpoint']} "
-              f"({count_parameters(self.student):,} params): {steps0} "
-              f"steps, {stages} stage(s)")
+        self.say(f"Distilling {cfg['teacher_checkpoint']} "
+                 f"({count_parameters(self.student):,} params): {steps0} "
+                 f"steps, {stages} stage(s)")
 
     def pair_of(self, model):
         return dbase.wrap_model_as_eps_x0(self.schedule, model,
@@ -97,7 +97,8 @@ class DistillationTrainer(FewStepTrainer):
         y = self.model_labels(labels, drop)
         x0_target = two_step_teacher_target(
             self.schedule, self.pair_of(self.teacher), z, t, t_mid, t_next, y)
-        loss = student_distill_loss(self.schedule, self.pair_of(self.model),
+        loss = student_distill_loss(self.schedule,
+                                    self.pair_of(self.train_model),
                                     x0_target, z, t, y)
         return self.update(loss)
 
@@ -115,9 +116,9 @@ class DistillationTrainer(FewStepTrainer):
                     len(self.train_loader), self.train_step,
                     f"distillation loss at stage {stage} epoch {epoch}")
                 best = min(best, avg)
-                print(f"[stage {stage + 1}/{self.stages}, {steps} steps] "
-                      f"epoch {epoch}/{self.epochs} - loss {avg:.5f} - "
-                      f"{time.time() - start:.1f}s")
+                self.say(f"[stage {stage + 1}/{self.stages}, {steps} steps] "
+                         f"epoch {epoch}/{self.epochs} - loss {avg:.5f} - "
+                         f"{time.time() - start:.1f}s")
                 self.tracker.log({f"distill/{steps}step/loss": avg},
                                  step=epoch)
             self.save([f"distilled_{steps:04d}step.pth", "current_model.pth"],
@@ -128,6 +129,6 @@ class DistillationTrainer(FewStepTrainer):
             if self.ema_model is not None:
                 self.student.load_state_dict(self.ema_model.state_dict())
             steps //= 2
-        print("Distillation completed!")
+        self.say("Distillation completed!")
         self.tracker.finish()
         return self

@@ -14,8 +14,13 @@ generator. Losses stay on the device during an epoch and are read once at
 its end; a non-finite epoch raises. Checkpoints are the `.pth` schema of
 the other trainers: the student as `model_state_dict`, the target or EMA as
 `ema_model_state_dict` (`sample --use_ema` samples it), the config of the
-result embedded. The JAX trainers' parallel layouts and orbax checkpoints
-raise, as in `DiffusionTrainer`.
+result embedded. Data parallel as the JAX trainers (`parallel/plan.py`):
+DDP around the student over 'data' (it synchronises every backward, the
+accumulation micro-steps' too), each rank drawing the global batch's draws
+and keeping its rows, the logged loss the mean over 'data', rank 0 printing
+and writing; `tensor_parallel` and `fsdp` raise, and so do the JAX
+trainers' other parallel layouts and orbax checkpoints, as in
+`DiffusionTrainer`.
 """
 
 from __future__ import annotations
@@ -28,10 +33,11 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.plan import ParallelPlan
 from . import checkpoint as ckpt_lib
 from .ema import gated_ema_update
 from .profiler import StepTimer
-from .tracker import Tracker, build_tracker
+from .tracker import NullTracker, Tracker, build_tracker
 from .trainer import (_not_ported, build_optimizer, progress_shown,
                       report_batch)
 
@@ -76,16 +82,31 @@ class FewStepTrainer:
                               config.get("seed", 42)))
         self.epochs = int(config.get("epochs", 1))
         self.save_dir = Path(config.get("save_dir", "./checkpoints"))
-        self.save_dir.mkdir(parents=True, exist_ok=True)
+        # data parallel only: the layout of any student
+        self.plan = ParallelPlan(config, torch.nn.Module(), self.device,
+                                 model_parallel=False)
+        self.is_main = self.plan.is_main
+        if self.is_main:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
         self.accum = max(1, int(config.get("gradient_accumulation_steps", 1)))
-        self.tracker = (tracker if tracker is not None
-                        else build_tracker(config, str(self.save_dir)))
+        if tracker is not None:
+            self.tracker = tracker
+        elif self.is_main:
+            self.tracker = build_tracker(config, str(self.save_dir))
+        else:
+            self.tracker = NullTracker()
         self.step_timer = StepTimer()
         self.global_step = 0
-        self.model = self.ema_model = self.optimizer = None
+        self.model = self.train_model = self.ema_model = None
+        self.optimizer = None
         self.conditional = False
         self.num_classes = None
         self.cfg_dropout_prob = 0.0
+
+    def say(self, *args) -> None:
+        """`print` on rank 0."""
+        if self.is_main:
+            print(*args)
 
     # ------------------------------------------------------------- student
     def start(self, model: torch.nn.Module, batches_per_epoch: int,
@@ -94,12 +115,14 @@ class FewStepTrainer:
         schedule counts the updates of `batches_per_epoch` batches, and,
         with `decay`, a target copy lerped at that decay (it starts at the
         student, the paper's initialisation)."""
-        self.model = model.to(self.device).train()
+        self.model = self.plan.prepare(model).to(self.device).train()
         self.decay = decay
         self.ema_model = frozen_copy(self.model) if decay is not None else None
+        # the student's training forward goes through `train_model` (DDP)
+        self.train_model = self.plan.wrap(self.model)
         self.optimizer = build_optimizer(
             self.config, self.model.parameters(),
-            max(1, max(1, batches_per_epoch) // self.accum))
+            max(1, max(1, batches_per_epoch) // self.accum), self.plan)
 
     def update(self, loss: torch.Tensor) -> torch.Tensor:
         """Backward, the optimizer call and the gated lerp; the loss,
@@ -116,17 +139,21 @@ class FewStepTrainer:
     def draw(self, shape: Sequence[int], n_pairs: int):
         """A step's draws for a batch of `shape`: the grid-pair index of
         each sample, the noise, the CFG dropout mask (None when labels are
-        not dropped)."""
-        gen, batch = self.generator, shape[0]
+        not dropped); drawn for the global batch, cut to this rank's
+        rows."""
+        gen, lay = self.generator, self.plan.layout
+        batch = shape[0] * lay.dp
         idx = torch.randint(0, n_pairs, (batch,), generator=gen,
                             device=self.device)
-        noise = torch.randn(tuple(shape), generator=gen, device=self.device)
+        noise = torch.randn((batch, *shape[1:]), generator=gen,
+                            device=self.device)
         drop = None
         if (self.conditional and self.cfg_dropout_prob > 0
                 and self.num_classes is not None):
-            drop = torch.rand(batch, generator=gen,
-                              device=self.device) < self.cfg_dropout_prob
-        return idx, noise, drop
+            drop = lay.rows(torch.rand(batch, generator=gen,
+                                       device=self.device)
+                            < self.cfg_dropout_prob)
+        return lay.rows(idx), lay.rows(noise), drop
 
     def model_labels(self, labels: torch.Tensor,
                      drop: Optional[torch.Tensor]):
@@ -153,15 +180,16 @@ class FewStepTrainer:
 
     def run_epoch(self, epoch: int, batches: Iterable, total: int,
                   step: Callable, what: str) -> float:
-        """`step(*batch)` over the batches; their mean loss, read once. A
-        non-finite mean raises "non-finite `what`"."""
+        """`step(*batch)` over the batches; their mean loss (over 'data'
+        too), read once. A non-finite mean raises "non-finite `what`"."""
         shown = progress_shown(self.config)
         losses = []
         for batch in batches:
             with self.step_timer.step():
                 losses.append(step(*batch))
             report_batch(shown, epoch, self.epochs, len(losses), total)
-        avg = float(torch.stack(losses).mean()) if losses else float("nan")
+        avg = (float(self.plan.layout.mean_over_data(
+            torch.stack(losses).mean())) if losses else float("nan"))
         if not math.isfinite(avg):
             raise RuntimeError(f"non-finite {what}")
         return avg
@@ -169,7 +197,9 @@ class FewStepTrainer:
     def save(self, names: Sequence[str], epoch: int, best_loss: float,
              config: dict) -> None:
         """The student, its target or EMA and the optimizer under each of
-        `names` in `save_dir`, with `config` embedded."""
+        `names` in `save_dir`, with `config` embedded (rank 0 writes)."""
+        if not self.is_main:
+            return
         for name in names:
             ckpt_lib.save_checkpoint(
                 self.save_dir / name, self.model.state_dict(), config,

@@ -23,13 +23,17 @@ import numpy as np
 import torch
 
 
-def set_seed(seed: int = 42, device: Union[str, torch.device] = "cpu"
-             ) -> torch.Generator:
+def set_seed(seed: int = 42, device: Union[str, torch.device] = "cpu",
+             process_offset: int = 0) -> torch.Generator:
     """Seed Python's, numpy's and torch's global generators (torch's draws
     the dropout masks) and return a `torch.Generator` on `device` seeded
-    with `seed`."""
-    random.seed(seed)
-    np.random.seed(seed)
+    with `seed`. `process_offset` (a rank) is added to the seed of Python's
+    and numpy's generators only, as the JAX CLI offsets its host seed by
+    the process index: torch's generators, which draw the weights, the
+    dropout masks and the step's draws over the global batch, are seeded
+    alike on every rank."""
+    random.seed(seed + process_offset)
+    np.random.seed(seed + process_offset)
     torch.manual_seed(seed)
     return torch.Generator(device=device).manual_seed(seed)
 

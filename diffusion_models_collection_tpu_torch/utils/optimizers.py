@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.fsdp import full_tensor, local, local_piece
+
 
 # Optax's adafactor defaults, the JAX package's choice
 DECAY_RATE, EPS, CLIPPING_THRESHOLD, MIN_DIM_SIZE_TO_FACTOR = (0.8, 1e-30,
@@ -49,7 +51,14 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
 
 
 class Adafactor(torch.optim.Optimizer):
-    """Optax's adafactor chain without the parameter-scale multiply."""
+    """Optax's adafactor chain without the parameter-scale multiply. A
+    parameter sharded by FSDP (a DTensor) is updated from its whole
+    gradient, gathered: the factored means and the RMS clip span the whole
+    tensor, as the JAX package's do under GSPMD. Its moments are then kept
+    whole on every rank (`full_state`: they are a row and a column, or a
+    small tensor's), and the update's local piece applied."""
+
+    full_state = True
 
     def __init__(self, params, lr: float, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
@@ -60,13 +69,13 @@ class Adafactor(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
+                g = full_tensor(p.grad)  # an FSDP shard's whole
                 state = self.state[p]
                 dims = factored_dims(p.shape)
                 if not state:
                     state["step"] = 0
                     if dims is None:
-                        state["v"] = torch.zeros_like(p)
+                        state["v"] = torch.zeros_like(g)
                     else:
                         d1, d0 = dims
                         state["v_row"] = g.new_zeros(g.mean(d0).shape)
@@ -90,9 +99,10 @@ class Adafactor(torch.optim.Optimizer):
                 rms = torch.sqrt(torch.mean(u * u))
                 u = u / torch.clamp(rms / CLIPPING_THRESHOLD, min=1.0)
                 u = u * group["lr"]
+                u = local_piece(u, p)
                 if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
-                p.sub_(u)
+                    u = u + group["weight_decay"] * local(p)
+                local(p).sub_(u)
                 state["step"] += 1
 
 

@@ -76,8 +76,8 @@ class ReflowTrainer(FewStepTrainer):
         # whole batches are synthesized anyway: keep every pair
         self.n_pairs = math.ceil(n_pairs / batch) * batch
         if self.n_pairs != n_pairs:
-            print(f"reflow_pairs {n_pairs} -> {self.n_pairs} (rounded up to "
-                  "a pair_batch_size multiple)")
+            self.say(f"reflow_pairs {n_pairs} -> {self.n_pairs} (rounded up "
+                     "to a pair_batch_size multiple)")
         self.sample_steps = int(cfg.get(
             "teacher_sample_steps", t_cfg.get("num_inference_steps", 50)))
         self.diffusion = get_diffusion(t_cfg)  # FlowMatching
@@ -88,10 +88,10 @@ class ReflowTrainer(FewStepTrainer):
                       t_cfg.get("model_params", {}).get("in_channels", 3))
         self.student = get_model(t_cfg).to(self.device)
         self.student.load_state_dict(teacher_state(payload), strict=True)
-        print(f"Reflowing {cfg['teacher_checkpoint']} "
-              f"({count_parameters(self.student):,} params): {self.n_pairs} "
-              f"pairs x {rounds} round(s), {self.sample_steps}-step "
-              "synthesis")
+        self.say(f"Reflowing {cfg['teacher_checkpoint']} "
+                 f"({count_parameters(self.student):,} params): "
+                 f"{self.n_pairs} pairs x {rounds} round(s), "
+                 f"{self.sample_steps}-step synthesis")
 
     def draw_pairs(self):
         """A synthesis batch's draws: z, then the +1-shifted labels (None
@@ -129,15 +129,18 @@ class ReflowTrainer(FewStepTrainer):
                    labels: torch.Tensor,
                    t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on a batch of pairs (labels already shifted); t is drawn
-        uniformly from [0, T) unless given. Returns the loss, on the
-        device."""
+        uniformly from [0, T) unless given. Every data-parallel rank holds
+        the round's pairs and takes its rows of each batch (the batch is the
+        global one). Returns the loss, on the device."""
         self.model.train()
         if t is None:
             t = torch.randint(0, self.diffusion.num_timesteps,
                               (x_hat.shape[0],), generator=self.generator,
                               device=self.device)
+        x_hat, z, labels, t = (self.plan.layout.rows(a)
+                               for a in (x_hat, z, labels, t))
         x_t = interpolate(x_hat, self.diffusion.tau_of_t(t), z)
-        v = self.model(x_t, t, labels if self.conditional else None)
+        v = self.train_model(x_t, t, labels if self.conditional else None)
         return self.update(diffusion_loss(z - x_hat, v, "l2"))
 
     def reflow(self):
@@ -146,8 +149,8 @@ class ReflowTrainer(FewStepTrainer):
         for rnd in range(1, self.rounds + 1):
             start = time.time()
             x_hat, z, y = self.synthesize_pairs(self.student.eval())
-            print(f"[reflow round {rnd}/{self.rounds}] synthesized "
-                  f"{len(x_hat)} pairs in {time.time() - start:.1f}s")
+            self.say(f"[reflow round {rnd}/{self.rounds}] synthesized "
+                     f"{len(x_hat)} pairs in {time.time() - start:.1f}s")
             num_batches = len(x_hat) // self.batch
             self.start(self.student, num_batches,
                        self.ema_decay if self.use_ema else None)
@@ -162,9 +165,9 @@ class ReflowTrainer(FewStepTrainer):
                     epoch, batches, num_batches, self.train_step,
                     f"reflow loss at round {rnd} epoch {epoch}")
                 best = min(best, avg)
-                print(f"[reflow round {rnd}/{self.rounds}] epoch "
-                      f"{epoch}/{self.epochs} - loss {avg:.5f} - "
-                      f"{time.time() - start:.1f}s")
+                self.say(f"[reflow round {rnd}/{self.rounds}] epoch "
+                         f"{epoch}/{self.epochs} - loss {avg:.5f} - "
+                         f"{time.time() - start:.1f}s")
                 self.tracker.log({f"reflow/round{rnd}/loss": avg},
                                  step=epoch)
             done = int(self.teacher_config.get("reflow_rounds_done", 0)) + rnd
@@ -174,6 +177,6 @@ class ReflowTrainer(FewStepTrainer):
             # the (EMA) student's couplings drive the next rectification
             if self.ema_model is not None:
                 self.student.load_state_dict(self.ema_model.state_dict())
-        print("Reflow completed!")
+        self.say("Reflow completed!")
         self.tracker.finish()
         return self

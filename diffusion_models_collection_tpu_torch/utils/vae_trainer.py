@@ -34,7 +34,9 @@ from .trainer import DiffusionTrainer, restore_checkpoint
 
 class VAETrainer(DiffusionTrainer):
     """Trainer for the `model_type: 'vae'` stage; `train()` runs the epochs,
-    `train_step` is one step."""
+    `train_step` is one step. Data parallel only, as the JAX trainer."""
+
+    model_parallel = False
 
     def __init__(self, model: torch.nn.Module, train_loader, config: dict,
                  device, generator: torch.Generator = None,
@@ -51,14 +53,16 @@ class VAETrainer(DiffusionTrainer):
         """Resume at the checkpoint's epoch + 1 (`restore_checkpoint`), with
         no extension past the configured `epochs`."""
         restore_checkpoint(self, checkpoint_path)
-        print(f"Resuming VAE training from epoch {self.start_epoch}")
+        if self.is_main:
+            print(f"Resuming VAE training from epoch {self.start_epoch}")
 
     def draw(self, shape):
         """The step's reparameterisation noise for a pixel batch of
-        `shape`, from the trainer's generator."""
+        `shape`, from the trainer's generator (this rank's rows of the
+        global batch's)."""
         lh, lw = self.model.latent_hw()
-        return torch.randn((shape[0], lh, lw, self.model.latent_channels),
-                           generator=self.generator, device=self.device)
+        return self.randn_rows((shape[0], lh, lw,
+                                self.model.latent_channels))
 
     def train_step(self, images: torch.Tensor, labels=None,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -68,11 +72,12 @@ class VAETrainer(DiffusionTrainer):
         self.model.train()
         if noise is None:
             noise = self.draw(images.shape)
-        recon, mean, logvar = self.model(images, noise)
-        rec = torch.mean((recon - images) ** 2)
-        kl = kl_divergence(mean, logvar)
-        loss = rec + self.kl_weight * kl
-        loss.backward()
+        with self.plan.sync(self.train_model, self.optimizer.updates_next()):
+            recon, mean, logvar = self.train_model(images, noise)
+            rec = torch.mean((recon - images) ** 2)
+            kl = kl_divergence(mean, logvar)
+            loss = rec + self.kl_weight * kl
+            loss.backward()
         if self.optimizer.step() and self.ema_model is not None:
             ema_update(self.ema_model.parameters(), self.model.parameters(),
                        self.ema_decay)
@@ -100,9 +105,10 @@ class VAETrainer(DiffusionTrainer):
         recon = model.decode(mean)
         model.train(was_training)
         grid = np.clip((torch.cat([x, recon]).cpu().numpy() + 1) / 2, 0, 1)
-        path = self.sample_dir / f"vae_epoch_{epoch:04d}.png"
-        save_image_grid(grid, path, nrow=len(x))
-        self.tracker.log_image("vae_recon", str(path), step=epoch)
+        if self.is_main:
+            path = self.sample_dir / f"vae_epoch_{epoch:04d}.png"
+            save_image_grid(grid, path, nrow=len(x))
+            self.tracker.log_image("vae_recon", str(path), step=epoch)
         return grid
 
     def sample_images(self, epoch: int) -> np.ndarray:

@@ -24,6 +24,12 @@ kernel (k, 1, D) -> Conv1d weight (D, 1, k); GroupNorm and LayerNorm scale
 one fused `in_proj` with rows [x; z]; a self-attention's qkv Dense becomes
 `nn.MultiheadAttention`'s `in_proj_weight` and `in_proj_bias`, its output
 Dense `out_proj`.
+
+`tp_shard_state_dict` cuts a full DiT/DiM state dict (the bridge's, or a
+checkpoint's) to one tensor-parallel rank's (`parallel/tensor_parallel.py`
+`tp_rule`: q, k, v per head, x, z per channel), and
+`tp_gather_state_dicts` joins the ranks' back, so the JAX parameters drive
+the sharded port and a sharded run's checkpoint is the full model's.
 """
 
 from __future__ import annotations
@@ -483,3 +489,34 @@ def alexnet_state_dict_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         sd[f"features.{idx}.weight"] = _conv2d(conv["kernel"])
         sd[f"features.{idx}.bias"] = _arr(conv["bias"])
     return sd
+
+
+def tp_shard_state_dict(state_dict: Mapping, rank: int,
+                        size: int) -> Dict[str, torch.Tensor]:
+    """Rank `rank`'s state dict of a DiT/DiM at `size` tensor-parallel ranks:
+    each entry with a `tp_rule` split, the others as they are."""
+    from ..parallel.tensor_parallel import split_tensor, tp_rule
+
+    out = {}
+    for name, value in state_dict.items():
+        value = torch.as_tensor(value)
+        rule = tp_rule(name)
+        out[name] = (value if rule is None or size == 1
+                     else split_tensor(value, *rule, rank, size))
+    return out
+
+
+def tp_gather_state_dicts(state_dicts) -> Dict[str, torch.Tensor]:
+    """The full state dict of every tensor-parallel rank's, in rank order
+    (the inverse of `tp_shard_state_dict`)."""
+    from ..parallel.tensor_parallel import join_tensors, tp_rule
+
+    state_dicts = list(state_dicts)
+    out = {}
+    for name, value in state_dicts[0].items():
+        rule = tp_rule(name)
+        out[name] = (torch.as_tensor(value)
+                     if rule is None or len(state_dicts) == 1 else
+                     join_tensors([torch.as_tensor(sd[name])
+                                   for sd in state_dicts], *rule))
+    return out

@@ -233,10 +233,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
 
 
 def test_pieces_not_ported_raise():
+    """The sequence-parallel pieces raise; the tensor-parallel scope, ported
+    with the parallel slice, is a no-op around the unchanged scan."""
     x, dt, A, B, C, _ = torch_args(*scan_inputs(1, 8, 4, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ss.selective_scan(x, dt, A, B, C, chunk_size=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ss.selective_scan_with_state(x, dt, A, B, C, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ss.scan_tensor_parallel(None)
+    with ss.scan_tensor_parallel(None):
+        y = ss.selective_scan(x, dt, A, B, C)
+    torch.testing.assert_close(y, ss.selective_scan(x, dt, A, B, C),
+                               rtol=0, atol=0)

@@ -460,10 +460,24 @@ def test_resume_from_a_jax_checkpoint_starts_a_fresh_optimizer(
     {"checkpoint_format": "orbax"},
 ])
 def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
+    """What is not ported raises, naming its ROADMAP item. `tensor_parallel`
+    and `fsdp`, ported with the parallel slice, build: in one process FSDP
+    is the one-device layout, and tensor_parallel 2 raises the JAX
+    trainer's ValueError, as it needs two devices."""
     config = dict(train_config(tmp_path, 1), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiffusionTrainer(UNet(**MODEL_PARAMS, num_classes=10),
-                         DDPM(num_timesteps=10), [None], config, "cpu")
+
+    def build():
+        return DiffusionTrainer(UNet(**MODEL_PARAMS, num_classes=10),
+                                DDPM(num_timesteps=10), [None], config, "cpu")
+
+    if "fsdp" in change:
+        assert build().plan.fsdp
+    elif "tensor_parallel" in change:
+        with pytest.raises(ValueError, match="does not divide 1 devices"):
+            build()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build()
 
 
 @pytest.mark.parametrize("name", ["adafactor", "lion"])

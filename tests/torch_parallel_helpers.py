@@ -1,0 +1,165 @@
+"""Shared set-up of the parallel tests (`test_torch_port_parallel.py`,
+`test_torch_port_fsdp.py`, `test_torch_port_tensor_parallel.py`): the JAX
+package's sharded step on its virtual CPU devices, the port's ranks in a
+gloo world (`torch_parallel_jobs.py`, which imports no JAX), and the bars.
+
+Bars: against JAX, 2e-4 (max|port - jax| / max|jax|) for the losses and
+the parameters, the bar of `test_torch_port_training.py`; against the
+port's own one-device step, 1e-6 for the losses and 1e-5 for the
+parameters and gradients. Adam's (and Adafactor's) first update moves an
+element by about lr sign(g), so where a gradient element lies within float
+noise of 0 (the key bias's, whose true gradient is 0, among them) two
+orders of summation may move it by up to 2 lr an update: the parameters are
+held to the bar over the elements whose first gradient is at least 1e-3 of
+its tensor's largest, and to 2 lr a step everywhere
+(`torch_port_helpers.check_first_adam_update`'s rule).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from diffusion_models_collection_tpu.diffusion import ddpm as jax_ddpm
+from diffusion_models_collection_tpu.parallel.fsdp import fsdp_shardings
+from diffusion_models_collection_tpu.parallel.tensor_parallel import (
+    data_model_mesh,
+    tp_shardings,
+)
+from diffusion_models_collection_tpu.utils.trainer import (
+    build_optimizer as jax_build_optimizer,
+)
+from diffusion_models_collection_tpu_torch.tools.dryrun_multichip import (
+    launch,
+)
+from diffusion_models_collection_tpu_torch.utils.weights import (
+    state_dict_from_jax,
+)
+
+TOL_JAX = 2e-4
+TOL_LOSS = 1e-6
+TOL_PARAMS = 1e-5
+LR = 1e-4
+
+
+def max_rel(ours, ref):
+    ours = np.asarray(torch.as_tensor(ours).detach(), np.float64)
+    ref = np.asarray(torch.as_tensor(ref).detach(), np.float64)
+    return np.abs(ours - ref).max() / max(np.abs(ref).max(), 1e-30)
+
+
+def train_config(config, tmp_path, **changes):
+    """A training config on `config`'s model: AdamW at a constant 1e-4,
+    EMA 0.9, CFG drop 0.2, checkpoints under `tmp_path`."""
+    return dict(config, optimizer="adamw", learning_rate=LR,
+                weight_decay=1e-4, use_scheduler=False, epochs=1,
+                use_ema=True, ema_decay=0.9, cfg_dropout_prob=0.2,
+                gradient_accumulation_steps=1, loss_type="l2",
+                batch_size=4, save_dir=str(tmp_path / "ckpt"),
+                sample_dir=str(tmp_path / "samples"), seed=0,
+                progress=False, **changes)
+
+
+def run_world(world, jobs, timeout=300):
+    """The jobs in a gloo world of `world` processes: rank 0's results."""
+    return launch(world, "torch_parallel_jobs.run_jobs", jobs,
+                  timeout=timeout)[0]
+
+
+def numpy_state(state_dict):
+    return {k: np.asarray(v) for k, v in state_dict.items()}
+
+
+def cfg_labels(batch):
+    return np.where(batch["drop"], 0, batch["labels"] + 1).astype(np.int32)
+
+
+def jax_sharded_steps(model, params, config, batches, dp, tp=1, fsdp=False,
+                      min_size=None):
+    """The JAX package's train step in pieces (the DDPM loss of `model`,
+    its gradient, the Optax chain of `build_optimizer`) jitted over a (dp,
+    tp) mesh of the virtual CPU devices, with the parameters placed by the
+    JAX package's rules: Megatron over 'model' (`tp_shardings`, ZeRO over
+    'data' too with `fsdp`), or ZeRO alone (`fsdp_shardings`), or
+    replicated; the batch sharded over 'data'. Returns the losses and the
+    parameters (numpy) after the steps."""
+    mesh = data_model_mesh(dp, tp, jax.devices()[:dp * tp])
+    if tp > 1:
+        shardings = tp_shardings(mesh, params, zero=fsdp,
+                                 zero_min_size=min_size)
+    elif fsdp:
+        shardings = fsdp_shardings(jax.sharding.Mesh(
+            np.asarray(jax.devices()[:dp]), ("data",)), params, min_size)
+    else:
+        shardings = jax.tree_util.tree_map(
+            lambda _: NamedSharding(mesh, P()), params)
+    p = jax.tree_util.tree_map(lambda a, s: jax.device_put(jnp.asarray(a), s),
+                               params, shardings)
+    tx, _, _ = jax_build_optimizer(config, 1)
+    opt_state = tx.init(p)
+    ddpm = jax_ddpm.DDPM(num_timesteps=config["num_timesteps"])
+    rows = NamedSharding(mesh, P("data"))
+
+    @jax.jit
+    def step(p, opt_state, x0, t, noise, y):
+        def loss_fn(q):
+            return ddpm.p_losses(
+                lambda x, tt, yy: model.apply({"params": q}, x, tt, yy),
+                x0, t, noise, y=y)
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, opt_state = tx.update(grads, opt_state, p)
+        return optax.apply_updates(p, updates), opt_state, loss
+
+    losses = []
+    for b in batches:
+        args = [jax.device_put(jnp.asarray(a), rows) for a in (
+            b["x0"], b["t"].astype(np.int32), b["noise"], cfg_labels(b))]
+        p, opt_state, loss = step(p, opt_state, *args)
+        losses.append(float(loss))
+    return losses, jax.tree_util.tree_map(np.asarray, p)
+
+
+def check_against_jax(result, jax_losses, jax_params, config):
+    """The port's sharded run against the JAX package's: losses and
+    parameters at `TOL_JAX`, Adam's near-zero elements within 2 lr a step
+    (the first gradient from the port's run)."""
+    assert max_rel(result["losses"], jax_losses) <= TOL_JAX
+    check_params(result, state_dict_from_jax(jax_params, config), TOL_JAX,
+                 len(jax_losses))
+
+
+def check_params(result, want, bar, steps, what="params", move=2 * LR):
+    """`result[what]` against `want`, by name: at `bar` over the elements
+    whose first gradient is decided, within `move` a step everywhere (2 lr
+    for Adam; Adafactor's second update of an undecided element reaches lr
+    / sqrt(1 - 2^-0.8), 1.32 lr, so 3 lr there)."""
+    grads = result["grads"][0]
+    for name, ref in want.items():
+        got = torch.as_tensor(result[what][name]).double()
+        ref = torch.as_tensor(np.asarray(ref)).double()
+        g = grads[name].abs() if name in grads else None
+        decided = (torch.ones_like(got, dtype=torch.bool) if g is None
+                   else g >= 1e-3 * g.max())
+        assert max_rel(got[decided], ref[decided]) <= bar, (what, name)
+        assert (got - ref).abs().max().item() <= move * steps + 1e-6, (
+            what, name)
+
+
+def check_against_one_device(result, ref, what=("params", "ema"),
+                             move=2 * LR):
+    """A sharded run against the port's one-device run of the same job:
+    losses at `TOL_LOSS`, every update's gradients and the parameters (and
+    EMA) at `TOL_PARAMS` (`check_params`)."""
+    assert max_rel(result["losses"], ref["losses"]) <= TOL_LOSS, (
+        result["losses"], ref["losses"])
+    assert len(result["grads"]) == len(ref["grads"])
+    for got, want in zip(result["grads"], ref["grads"]):
+        assert set(got) == set(want)
+        for name in want:
+            assert max_rel(got[name], want[name]) <= TOL_PARAMS, name
+    for key in what:
+        assert set(result[key]) == set(ref[key])
+        check_params(result, ref[key], TOL_PARAMS, len(ref["losses"]), key,
+                     move)

@@ -1,0 +1,147 @@
+"""What the parallel tests run in each rank of a gloo world of processes
+(`tools/dryrun_multichip.launch`), and alone in the test process for the
+one-device reference. It imports no JAX: the ranks must not.
+
+A job is a dict: the trainer (`kind`: 'diffusion', 'vae', 'classifier' or
+'consistency'),
+its config, the full weights (numpy, by state-dict name), the global
+batches with their draws (numpy), the torch seed of the dropout masks, and
+what to return. Every rank trains on its rows of each global batch and its
+draws; the result (from rank 0) holds the loss of each step (the mean over
+'data'), the gradients of each update gathered to the full parameters
+before the clip, the full parameters, EMA and optimizer state after the
+steps, and the local shapes and sharded share of the parameters.
+"""
+
+import copy
+
+import numpy as np
+import torch
+
+from diffusion_models_collection_tpu_torch.diffusion import DDPM
+from diffusion_models_collection_tpu_torch.factory import get_model
+from diffusion_models_collection_tpu_torch.parallel.fsdp import (
+    local,
+    sharded_fraction,
+)
+from diffusion_models_collection_tpu_torch.parallel.mesh import process_index
+from diffusion_models_collection_tpu_torch.utils.classifier_trainer import (
+    ClassifierTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.consistency_trainer import (
+    ConsistencyTrainingTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.tracker import NullTracker
+from diffusion_models_collection_tpu_torch.utils.trainer import (
+    DiffusionTrainer,
+)
+from diffusion_models_collection_tpu_torch.utils.vae_trainer import VAETrainer
+
+
+def build_trainer(job):
+    config = copy.deepcopy(job["config"])
+    model = get_model(config)
+    if job.get("state") is not None:
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in job["state"].items()})
+    kind = job.get("kind", "diffusion")
+    loader = [None] * max(1, len(job.get("batches", ())))
+    common = dict(train_loader=loader, config=config, device="cpu",
+                  tracker=NullTracker(),
+                  resume_path=config.get("resume_path"))
+    if kind == "vae":
+        return VAETrainer(model=model, **common)
+    if kind == "classifier":
+        return ClassifierTrainer(model=model, **common)
+    if kind == "consistency":
+        return ConsistencyTrainingTrainer(model=model, **common)
+    return DiffusionTrainer(model, DDPM(num_timesteps=config.get(
+        "num_timesteps", 1000)), **common)
+
+
+def record_gradients(trainer, store):
+    """Append to `store`, at every update, the full gradients (gathered,
+    before the clip) of `trainer.model`, by name."""
+    plan = trainer.plan
+    before = plan.average_replicated_grads
+
+    def hook():
+        before()
+        store.append({name: plan.gather(name, p.grad)
+                      for name, p in trainer.model.named_parameters()
+                      if p.grad is not None})
+
+    plan.average_replicated_grads = hook
+
+
+def step(trainer, kind, batch):
+    lay = trainer.plan.layout
+    b = {k: lay.rows(torch.as_tensor(v)) for k, v in batch.items()}
+    if kind == "vae":
+        return trainer.train_step(b["x0"], None, b["noise"])[0]
+    if kind == "classifier":
+        return trainer.train_step(b["x0"], b["labels"], b["t"],
+                                  b["noise"])[0]
+    if kind == "consistency":  # t picks the grid pair
+        return trainer.train_step(b["x0"], b["labels"],
+                                  b["t"] % len(trainer.grid[0]), b["noise"],
+                                  b.get("drop"))
+    return trainer.train_step(b["x0"], b["labels"], b["t"], b["noise"],
+                              b.get("drop"))
+
+
+def train_job(job):
+    """Run `job` (see the module docstring); rank 0's result, None on the
+    other ranks."""
+    torch.manual_seed(job.get("seed", 0))
+    trainer = build_trainer(job)
+    kind = job.get("kind", "diffusion")
+    grads = []
+    record_gradients(trainer, grads)
+    lay = trainer.plan.layout
+    loaded = (trainer.plan.full_state_dict(trainer.model)
+              if job["config"].get("resume_path") else None)
+    losses = []
+    for batch in job.get("batches", ()):
+        loss = step(trainer, kind, batch)
+        losses.append(float(lay.mean_over_data(loss)))
+    if job.get("save"):
+        trainer.save_checkpoint(epoch=1, is_last=True)
+    result = {
+        "losses": losses,
+        "grads": grads,
+        "params": trainer.plan.full_state_dict(trainer.model),
+        "ema": (trainer.plan.full_state_dict(trainer.ema_model)
+                if trainer.ema_model is not None else None),
+        "opt": trainer.optimizer.state_dict(),
+        "loaded": loaded,
+        "sharded": sharded_fraction(trainer.model),
+        "local_shapes": {n: tuple(local(p).shape)
+                         for n, p in trainer.model.named_parameters()},
+        "dtensor_states": sum(hasattr(v, "placements")
+                              for s in trainer.optimizer.inner.state.values()
+                              for v in s.values()),
+    }
+    return result if process_index() == 0 else None
+
+
+def run_jobs(jobs):
+    """Every job in turn (one world of processes serves a test file)."""
+    return [train_job(job) for job in jobs]
+
+
+def batches(seed, n, shape, num_classes=10, num_timesteps=1000,
+            latent=None):
+    """`n` global batches of `shape` (B, H, W, C): x0 in [-1, 1], labels,
+    t, noise (of `latent`'s shape when given, the VAE's posterior draw) and
+    the CFG drop mask, numpy from one seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        out.append(dict(
+            x0=rng.uniform(-1, 1, shape).astype(np.float32),
+            labels=rng.integers(0, num_classes, shape[0]).astype(np.int64),
+            t=rng.integers(0, num_timesteps, shape[0]).astype(np.int64),
+            noise=rng.standard_normal(latent or shape).astype(np.float32),
+            drop=rng.uniform(size=shape[0]) < 0.3))
+    return out
