@@ -284,11 +284,20 @@ Then the parallel layouts (`phase_parallel`, `parallel/` of the port):
   against the rank's slice of the single-device mask;
 * a gloo world of two processes on the card (`tools/dryrun_multichip.py`
   `launch`; NCCL refuses two ranks on one device): the DiT (dropout 0.1) at
-  TP 2, DP 2 and FSDP 2 and the DiM at TP 2, one `train_step` each at
-  global batch 32, each rank's loss and gathered gradients against the
-  one-process step on the same batch (1e-5, 1e-4), a rank's launches (12
-  K2 + 12 K3 in the dropout form; 12 K6 + 12 K8 on the DiM's 384 channels a
-  rank), and the peak memory a rank under FSDP beside DDP's.
+  TP 2, DP 2, FSDP 2 and SP 2 and the DiM at TP 2, DP 2 and SP 2, one
+  `train_step` each at global batch 32, each rank's loss and gathered
+  gradients against the one-process step on the same batch (1e-5, 1e-4), a
+  rank's launches (12 K2 + 12 K3 in the dropout form, at SP 2 in E6's form;
+  12 K6 + 12 K8 on the DiM's 384 channels a rank at TP 2, on all 768 at DP
+  2, 24 + 24 stated scans at SP 2), and the peak memory a rank under FSDP
+  beside DDP's.
+
+Then sequence parallelism (`phase_sequence_parallel`, in
+`chip_smoke_sequence.py` beside this script): E6 (K2 and K3 of a seq rank's
+queries against every key, dropout rows keyed on the global row) and E4
+(the scan from and to a state) against their plain versions, and the SP 2
+legs of `phase_parallel`'s world (their step seconds and peak memory a rank
+beside DP 2's).
 
 Every phase prints its seconds. Each path is run with every launch count
 set to 0 just before it and read
@@ -311,6 +320,7 @@ steps; all on the card named in the output.
 
 import contextlib
 import copy
+import gc
 import http.client
 import io
 import json
@@ -461,8 +471,11 @@ TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 DDPM_CUT = 50
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # for a step of over half a second (the SR stage at batch 256, the 64x64 DiT
-# in fp32), cut to keep the script inside its time
+# in fp32), and for the timed runs of the bf16 models, the MoE DiT, the
+# few-step trainers and the optimizers (cut to keep the script inside its
+# time when the sequence-parallel phase came)
 LONG_STEP_WARMUP, LONG_STEP_TIMED = 1, 5
+SHORT_RATE = dict(warmup=LONG_STEP_WARMUP, timed=LONG_STEP_TIMED)
 # Loss of one full-width forward, and the flattened gradient as max-abs
 # difference over max-abs: a backward chains 60 conv backwards and the GN
 # recomputes through 45 norms.
@@ -556,7 +569,9 @@ SCAN_COUNTERS = {"scan_fwd": "FWD_LAUNCHES",
                  "scan_bwd": "BWD_LAUNCHES",
                  "scan_bwd_nostate": "BWD_NOSTATE_LAUNCHES",
                  "scan_fwd_split": "FWD_SPLIT_LAUNCHES",
-                 "scan_bwd_split": "BWD_SPLIT_LAUNCHES"}
+                 "scan_bwd_split": "BWD_SPLIT_LAUNCHES",
+                 "scan_fwd_state": "FWD_STATE_LAUNCHES",
+                 "scan_bwd_state": "BWD_STATE_LAUNCHES"}
 # Published peaks of one H100 SXM: device memory and float32 outside the
 # tensor cores. A kernel's bound is the larger of its bytes over the one and
 # its operations over the other.
@@ -673,33 +688,41 @@ def gn_bwd_work(b, h, w, c, elem=4):
     return elem * 3 * n + 4 * (2 * c + 2 * b * c), 24 * n
 
 
-def attn_work(bh, seq, d, backward=False, elem=4):
+def attn_work(bh, seq, d, backward=False, elem=4, keys=None):
     """Attention forward: q, k, v in, o out (`elem` bytes each: 4, or 2 in
     bf16) and float32 lse out; QK^T and PV (2 L^2 d multiply-adds) and the
     softmax (5 an entry). Backward: q, k, v, o, dO and lse in, dq, dk, dv
-    out; five such products and the softmax's."""
-    n = bh * seq * d
+    out; five such products and the softmax's. `keys`: Lk when it is not
+    `seq` (E6: q, o, dO, dq of `seq` rows, k, v, dk, dv of Lk, the products
+    `seq` Lk d)."""
+    keys = seq if keys is None else keys
+    q_side, k_side = bh * seq * d, bh * keys * d
     if backward:
-        return elem * 8 * n + 4 * bh * seq, bh * seq * seq * (10 * d + 8)
-    return elem * 4 * n + 4 * bh * seq, bh * seq * seq * (4 * d + 5)
+        return (elem * 4 * (q_side + k_side) + 4 * bh * seq,
+                bh * seq * keys * (10 * d + 8))
+    return (elem * 2 * (q_side + k_side) + 4 * bh * seq,
+            bh * seq * keys * (4 * d + 5))
 
 
-def scan_work(kind, batch, length, d_inner=768, n_state=16):
+def scan_work(kind, batch, length, d_inner=768, n_state=16, state=False):
     """The scan's bytes and operations. Forward ("fwd", with "fwd_states"
     also `bound` out): x, dt in, y out, B, C, A in; per state and step the
     decay (2, the exponential as one), the update (3) and the output (2).
     Backward from states ("bwd"; "bwd_nostate" reads no `bound` and walks
     forward once more): x, dt, g in, dx, ddt out, B, C in, dB, dC out, A in,
     dA out; per state and step one recompute of h (5) and the adjoint with
-    its five gradients (16)."""
+    its five gradients (16). `state` (E4): also h_in read and h_out written
+    (forward), the cotangent of h_out read and dh_in written (backward)."""
     rows = batch * length
     states = rows * d_inner * n_state
     small = 4 * (2 * rows * n_state + d_inner * n_state)
+    # h_in and h_out, or the cotangent of h_out and dh_in
+    stated = 4 * 2 * batch * d_inner * n_state if state else 0
     bound = 4 * batch * len(scan._blocks(length)) * n_state * d_inner
     if kind in ("fwd", "fwd_states"):
-        return (4 * 3 * rows * d_inner + small
+        return (4 * 3 * rows * d_inner + small + stated
                 + (bound if kind == "fwd_states" else 0)), 7 * states
-    n_bytes = 4 * 5 * rows * d_inner + 2 * small
+    n_bytes = 4 * 5 * rows * d_inner + 2 * small + stated
     if kind == "bwd":
         return n_bytes + bound, 21 * states
     return n_bytes, 26 * states
@@ -718,6 +741,8 @@ def reset_launches():
     flash_attention.BWD_BF16_LAUNCHES = 0
     flash_attention.BIAS_LAUNCHES = 0
     flash_attention.BWD_BIAS_LAUNCHES = 0
+    flash_attention.CROSS_LAUNCHES = 0
+    flash_attention.BWD_CROSS_LAUNCHES = 0
     quant.PRODUCTS = 0
     for counter in SCAN_COUNTERS.values():
         setattr(scan, counter, 0)
@@ -725,8 +750,8 @@ def reset_launches():
 
 def read_launches():
     """Every kernel's launches; `gn`, `attn` and their backward count every
-    form, `*_dropout`, `*_bf16` and `*_bias` (the key-bias forms) the
-    launches in that form; `int8` the int8 products (a library call, not a
+    form, `*_dropout`, `*_bf16`, `*_bias` (the key-bias forms) and
+    `*_cross` (queries against longer keys, E6) the launches in that form; `int8` the int8 products (a library call, not a
     kernel of the port: counted to show the int8 path ran)."""
     return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
             "gn_bf16": fused_norm.BF16_LAUNCHES,
@@ -739,6 +764,8 @@ def read_launches():
             "attn_bwd_bf16": flash_attention.BWD_BF16_LAUNCHES,
             "attn_bias": flash_attention.BIAS_LAUNCHES,
             "attn_bwd_bias": flash_attention.BWD_BIAS_LAUNCHES,
+            "attn_cross": flash_attention.CROSS_LAUNCHES,
+            "attn_bwd_cross": flash_attention.BWD_CROSS_LAUNCHES,
             "int8": quant.PRODUCTS,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
@@ -2774,7 +2801,7 @@ def phase_bf16_model(label, config, per_forward, per_step, gen,
     with tempfile.TemporaryDirectory() as tmp:
         trainer, train_launches = run_train_main(name, config16, per_step,
                                                  tmp, TRAIN_EPOCHS, 1)
-        rates, peak = time_train_rates(trainer)
+        rates, peak = time_train_rates(trainer, **SHORT_RATE)
     print(f"{name} train images/s at batch {config['batch_size']}: "
           f"{', '.join(f'{r:.2f}' for r in rates)}; peak device memory "
           f"{peak / 2**20:.1f} MiB")
@@ -4323,7 +4350,7 @@ def phase_moe(gen, smi):
             # time: a 131.9 M-parameter checkpoint is written every epoch)
             trainer, launches = run_train_main(
                 f"DiT-MoE {precision}", cfg, per_step, tmp, 1, 1)
-            rates, peak = time_train_rates(trainer, runs=1)
+            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
             del trainer
         out["launches"][f"train_{precision}"] = launches
         out["rates"][precision], out["peak"][precision] = rates, peak
@@ -4752,7 +4779,7 @@ def phase_reflow(flow_ckpt, tmp, smi):
 
 
 def phase_optimizers(config, smi):
-    """12 DDPM steps (the median of 10 after 2) of the full-width UNet at
+    """6 DDPM steps (the median of 5 after 1) of the full-width UNet at
     batch 128 with AdamW, Adafactor and Lion (the same init), each step
     exactly one step's launches, a finite loss, peak memory and the
     optimizer state's bytes."""
@@ -4768,7 +4795,7 @@ def phase_optimizers(config, smi):
             trainer = DiffusionTrainer(
                 factory.get_model(run), factory.get_diffusion(run), loader,
                 run, "cuda")
-            rates, peak = time_train_rates(trainer, runs=1)
+            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
             images, labels = next(iter(loader))
             reset_launches()
             loss = trainer.train_step(torch.from_numpy(images).to("cuda"),
@@ -4828,7 +4855,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
                 Path(tmp) / precision, TRAIN_EPOCHS, 1, loss_key="ct/loss")
             if trainer.grid_for_epoch() != [CT_GRIDS[0]] + [CT_GRIDS[1]] * 2:
                 raise AssertionError(f"CT grids {trainer.grid_for_epoch()}")
-            rates, peak = time_train_rates(trainer, runs=1)
+            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
             figures[f"ct_{precision}"] = {"rate": rates[0], "peak": peak}
             print(f"UNet consistency training {precision}: {rates[0]:.2f} "
                   f"train images/s at batch {TRAIN_BATCH}, peak device "
@@ -4860,7 +4887,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
             distill, Path(tmp) / "cd", DISTILL_STEP, TRAIN_EPOCHS,
             distill_method="consistency", distill_cfg_scale=CFG_SCALE,
             consistency_sample_steps=CM_STEPS)
-        figures["cd_rate"] = time_train_rates(cd, runs=1)[0][0]
+        figures["cd_rate"] = time_train_rates(cd, runs=1, **SHORT_RATE)[0][0]
         cd_ckpt = cd.save_dir / "consistency_model.pth"
         del cd
         launches["cd_sample_fp32"], _ = fewstep_sample(
@@ -4870,7 +4897,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
             "progressive distillation (tools/distill.py)", distill_tool,
             distill, Path(tmp) / "pd", DISTILL_STEP, 2,
             distill_method="progressive", distill_steps=PD_STEPS)
-        figures["pd_rate"] = time_train_rates(pd, runs=1)[0][0]
+        figures["pd_rate"] = time_train_rates(pd, runs=1, **SHORT_RATE)[0][0]
         del pd
         launches["pd_sample_fp32"], _ = fewstep_sample(
             f"PD DDIM-{PD_STEPS}",
@@ -4906,15 +4933,17 @@ def opcheck_args(name, gen):
         _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
         return (x, scale, bias, randn(4, 32, 32, 128), stats, 8)
     if name.startswith("flash_attn"):
-        # the dropout form at a sharded rank's head grid (E7)
-        q, k, v, do = (randn(64, 256, 64) for _ in range(4))
+        # the dropout form at a sharded rank's head grid (E7) and a
+        # sequence-parallel rank's rows 128 .. of 256 keys (E6)
+        q, do = (randn(64, 128, 64) for _ in range(2))
+        k, v = (randn(64, 256, 64) for _ in range(2))
         drop = (ATTN_DROPOUT, ATTN_DROPOUT_SEED)
         grid = [4, 8, 16, 4]
         if name == "flash_attn_fwd":
-            return (q, k, v, *drop, None, grid)
+            return (q, k, v, *drop, None, grid, 128)
         o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop,
-                                                     head_grid=grid)
-        return (q, k, v, o, do, lse, *drop, None, None, grid)
+                                                     head_grid=grid, row0=128)
+        return (q, k, v, o, do, lse, *drop, None, None, grid, 128)
     batch, length, d_inner, n_state = 2, 100, 256, 16
     x = randn(batch, length, d_inner)
     dt = F.softplus(randn(batch, length, d_inner) - 2)
@@ -4923,9 +4952,15 @@ def opcheck_args(name, gen):
     if name in ("selective_scan_fwd", "selective_scan_fwd_states",
                 "selective_scan_fwd_split"):
         return (x, dt, A, B, C)
+    h = randn(batch, d_inner, n_state)
+    if name in ("selective_scan_fwd_state", "selective_scan_end_state"):
+        return (x, dt, A, B, C, h)
     g = randn(batch, length, d_inner)
     if name == "selective_scan_bwd_nostate":
         return (x, dt, A, B, C, g)
+    if name == "selective_scan_bwd_state":
+        _, bound, _ = scan.selective_scan_fwd_state(x, dt, A, B, C, h)
+        return (x, dt, A, B, C, g, bound, randn(batch, d_inner, n_state))
     _, bound = scan.selective_scan_fwd(x, dt, A, B, C, True)
     return (x, dt, A, B, C, g, bound)
 
@@ -5263,9 +5298,19 @@ def phase_dit64(gen, smi):
 # gloo took `reduce_scatter_tensor` and `all_gather_into_tensor` on CUDA
 # tensors and FSDP2's hooks on the H100.
 DDP_STEPS = 3
-PARALLEL_BATCH = 32  # the world-2 legs' global batch: 16 rows a DP rank
+PARALLEL_BATCH = 32  # the world-2 legs' global batch (`batch_size`): 16
+# rows a DP rank
 PARALLEL_WORLD = 2
 PARALLEL_TIMEOUT = 480
+# a rank's step at sequence parallel 2 (`parallel/sequence_parallel.py`,
+# `dim_sequence_parallel.py`): the DiT's attention in E6's dropout form (its
+# queries against every key), the DiM's two stated scans a block (E4: the end
+# state from zero, then y from h_in) and their two stated backwards
+SP_DEGREE = 2
+DIT_SP_STEP = dict(DIT_STEP, attn_cross=ATTN_PER_DIT_FORWARD,
+                   attn_bwd_cross=ATTN_PER_DIT_FORWARD)
+DIM_SP_STEP = {"scan_fwd_state": 2 * SCAN_PER_FORWARD,
+               "scan_bwd_state": 2 * SCAN_PER_FORWARD}
 # E7 at a tensor-parallel rank of the DiT at its training batch: heads 3..5
 # of 6 (rank 1 of 2), every row of 128
 E7_BATCH, E7_GRID = TRAIN_BATCH, (DIT_HEADS // 2, DIT_HEADS, 0, DIT_HEADS // 2)
@@ -5309,8 +5354,12 @@ def parallel_leg_step(leg):
     batch = {k: lay.rows(v.to("cuda")) for k, v in torch.load(
         leg["batch"]).items()}
     torch.manual_seed(TRAIN_SEED)
+    # the legs before this one in the process leave nothing behind (the
+    # recording hook holds its trainer in a cycle): the peak is this leg's
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_launches()
     start = time.perf_counter()
     loss = trainer.train_step(batch["x0"], batch["labels"], batch["t"],
@@ -5318,7 +5367,7 @@ def parallel_leg_step(leg):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     out = {"launches": read_launches(),
-           "peak": torch.cuda.max_memory_allocated(),
+           "peak": torch.cuda.max_memory_allocated(), "base": base,
            "loss": float(lay.mean_over_data(loss)),
            "sharded": sharded_fraction(trainer.model),
            "layout": (lay.dp, lay.tp), "seconds": seconds}
@@ -5327,6 +5376,7 @@ def parallel_leg_step(leg):
         out["loss_rel"] = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
         out["grad_rel"] = max_rel(grads[0], ref["grads"])
     del trainer, grads
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -5519,14 +5569,16 @@ def parallel_reference(label, config, state, batch):
 
 
 def phase_parallel(gen, smi):
-    """Item 15's first slice on the card: DDP at world 1 (`phase_ddp`), E7
-    (`phase_e7`), then a gloo world of two processes on the card: the DiT
-    (dropout 0.1) at TP 2, at DP 2 and at FSDP 2, the DiM at TP 2, each
-    rank's loss and gathered gradients against the one-process step on the
-    same global batch (TOL_LOSS, TOL_GRAD), each rank with one step's
+    """Item 15 on the card: DDP at world 1 (`phase_ddp`), E7 (`phase_e7`),
+    then a gloo world of two processes on the card: the DiT (dropout 0.1)
+    at TP 2, at DP 2, at FSDP 2 and at SP 2, the DiM at TP 2, DP 2 and SP 2,
+    each rank's loss and gathered gradients against the one-process step on
+    the same global batch (TOL_LOSS, TOL_GRAD), each rank with one step's
     launches (the DiT's attention in the dropout form, at its rank's head
-    grid; the DiM's scans on its 384 channels, K6 and K8), and the peak
-    memory a rank under FSDP beside DDP's."""
+    grid or, at SP 2, its rows against every key (E6); the DiM's scans on
+    its 384 channels, K6 and K8, or at SP 2 the stated scans (E4)), and the
+    peak memory a rank under FSDP beside DDP's (`phase_sequence_parallel`
+    reads the SP legs beside DP 2's)."""
     # the ranks compute float32 without TF32 (`parallel_rank`): so must the
     # references here
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5536,8 +5588,9 @@ def phase_parallel(gen, smi):
         figures["ddp"] = phase_ddp(gen, smi, tmp)
         figures["e7"] = phase_e7(gen)
         legs, refs = [], {}
-        for name, path, step in (("DiT", DIT_CONFIG, DIT_STEP),
-                                 ("DiM", DIM_CONFIG, DIM_STEP)):
+        for name, path, step, sp_step in (
+                ("DiT", DIT_CONFIG, DIT_STEP, DIT_SP_STEP),
+                ("DiM", DIM_CONFIG, DIM_STEP, DIM_SP_STEP)):
             config = load_config(path)
             state = random_model(config, gen).cpu().state_dict()
             shape = (PARALLEL_BATCH, *image_shape(config))
@@ -5558,17 +5611,21 @@ def phase_parallel(gen, smi):
                 torch.save(obj, files[key])
             base = dict(config, save_dir=str(Path(tmp) / f"{name}_ckpt"),
                         sample_dir=str(Path(tmp) / f"{name}_samples"),
-                        batch_size=PARALLEL_BATCH // PARALLEL_WORLD)
+                        batch_size=PARALLEL_BATCH)
             refs[name] = parallel_reference(name, base, state, batch)
             files["ref"] = str(Path(tmp) / f"{name}_ref.pt")
             torch.save(refs[name], files["ref"])
-            layouts = ([("TP 2", {"tensor_parallel": 2}), ("DP 2", {}),
-                        ("FSDP 2", {"fsdp": True})] if name == "DiT" else
-                       [("TP 2", {"tensor_parallel": 2})])
-            for layout, changes in layouts:
+            sp = (f"SP {SP_DEGREE}", {"sequence_parallel": SP_DEGREE},
+                  sp_step)
+            layouts = ([("TP 2", {"tensor_parallel": 2}, step),
+                        ("DP 2", {}, step), ("FSDP 2", {"fsdp": True}, step),
+                        sp] if name == "DiT" else
+                       [("TP 2", {"tensor_parallel": 2}, step),
+                        ("DP 2", {}, step), sp])
+            for layout, changes, per_step in layouts:
                 cfg_path = Path(tmp) / f"{name}_{layout.replace(' ', '')}.py"
                 cfg_path.write_text(f"config = {dict(base, **changes)!r}\n")
-                legs.append(dict(name=name, layout=layout, step=step,
+                legs.append(dict(name=name, layout=layout, step=per_step,
                                  config=str(cfg_path), **files))
         launched = time.perf_counter()
         ranks = launch(PARALLEL_WORLD, "chip_smoke.parallel_rank",
@@ -5577,7 +5634,7 @@ def phase_parallel(gen, smi):
                         for leg in legs], device="cuda", backend="gloo",
                        timeout=PARALLEL_TIMEOUT)
         world_seconds = time.perf_counter() - launched
-    peaks, launched_by_leg = {}, {}
+    peaks, launched_by_leg, by_leg = {}, {}, {}
     for i, leg in enumerate(legs):
         ref = refs[leg["name"]]
         first = ranks[0][i]
@@ -5591,21 +5648,27 @@ def phase_parallel(gen, smi):
               f"{loss_rel:.3e}, gathered gradient max_abs_diff/max_abs "
               f"{grad_rel:.3e}; sharded share {first['sharded']:.3f}; "
               f"launches a rank {per_rank}; peak a rank "
-              f"{[round(r[i]['peak'] / 2**20, 1) for r in ranks]} MiB; "
-              f"step {first['seconds']:.3f} s")
+              f"{[round(r[i]['peak'] / 2**20, 1) for r in ranks]} MiB (at "
+              f"the step's start {[round(r[i]['base'] / 2**20, 1) for r in ranks]}"
+              f" MiB); step {first['seconds']:.3f} s")
         if any(c != expect(**leg["step"]) for c in per_rank):
             raise AssertionError(f"{label}: launches {per_rank}, expected "
                                  f"{expect(**leg['step'])} a rank")
         if not (loss_rel <= TOL_LOSS and grad_rel <= TOL_GRAD):
             raise AssertionError(f"{label}: loss {loss_rel}, gradients "
                                  f"{grad_rel}")
+        by_leg[(leg["name"], leg["layout"])] = {
+            "launches": per_rank[0], "peak": max(r[i]["peak"] for r in ranks),
+            "base": max(r[i]["base"] for r in ranks),
+            "seconds": max(r[i]["seconds"] for r in ranks),
+            "err": max(loss_rel, grad_rel)}
     fsdp, ddp = peaks[("DiT", "FSDP 2")], peaks[("DiT", "DP 2")]
     print(f"parallel DiT peak device memory a rank at global batch "
           f"{PARALLEL_BATCH}: FSDP 2 {max(fsdp) / 2**20:.1f} MiB, DDP "
           f"{max(ddp) / 2**20:.1f} MiB ({max(fsdp) / max(ddp):.3f}x) on "
           f"{smi}; the gloo world took {world_seconds:.1f} s")
     figures.update(peaks=peaks, world_seconds=world_seconds,
-                   launches=launched_by_leg)
+                   launches=launched_by_leg, legs=by_leg)
     return figures
 
 
@@ -5766,6 +5829,12 @@ def main():
         dit64 = phase_dit64(gen, smi)
     with clock("phase_parallel"):
         parallel = phase_parallel(gen, smi)
+    # beside this script; it imports this script's helpers as `chip_smoke`
+    import chip_smoke_sequence
+
+    with clock("phase_sequence_parallel"):
+        sequence = chip_smoke_sequence.phase_sequence_parallel(
+            gen, smi, parallel["legs"])
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -6346,6 +6415,7 @@ def main():
                      "fused_ms": t["fused"], "two_kernel_ms": t["two_kernel"],
                      "bound_ms": t["bwd_bound"],
                      "library_ms": t["bwd_library"]})
+    kernels += chip_smoke_sequence.kernel_rows(sequence)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

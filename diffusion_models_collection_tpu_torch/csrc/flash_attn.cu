@@ -96,6 +96,13 @@
 // bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads with zero
 // columns) up to 128; warps whose rows all lie past L skip the products, and
 // key blocks of 16 past L skip P V.
+// Queries and keys of their own lengths (E6, no TPU counterpart: the JAX
+// package's sequence-parallel attention is XLA's): q and o of Lq rows, k and
+// v of Lk; every form walks Lq in query tiles and Lk in key tiles and masks
+// each ragged tail on its own length. A sequence-parallel rank passes its
+// Lq = L / S queries against the L keys gathered from every rank, and
+// `row0`, its first query's global row, which keys the dropout mask
+// (philox.cuh), so its rows draw the one-device mask.
 // bf16 measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py
 // --only bf16, from a CUDA graph): 0.110 ms a call at the DiT's sampling
 // shape (BH 960, L 256, d 64) against 0.055 for PyTorch's flash kernel and a
@@ -273,8 +280,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int L, int d, float scale_log2,
-                 DropoutParams dp, KeyBias kb) {
+                 float* __restrict__ lse, int Lq, int Lk, int d,
+                 float scale_log2, DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -287,13 +294,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
-  const size_t head = (size_t)bh * L * d;
-  const float* kh = k + head;
-  const float* vh = v + head;
-  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const size_t head = (size_t)bh * Lq * d;  // q and o
+  const float* kh = k + (size_t)bh * Lk * d;
+  const float* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
 
-  request_rows<DMAX, BQ, C::NT>(Qs, q + head, q0, L, d, tid);
-  request_rows<DMAX, BK, C::NT>(Ks, kh, 0, L, d, tid);
+  request_rows<DMAX, BQ, C::NT>(Qs, q + head, q0, Lq, d, tid);
+  request_rows<DMAX, BK, C::NT>(Ks, kh, 0, Lk, d, tid);
   cp_async_commit();
 
   // rows q0 + ty + TY a: the output at columns VW (tx + TX g) .. + VW - 1,
@@ -308,11 +315,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int b = 0; b < C::DC; ++b) acc[a][b] = 0.f;
   }
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
     cp_async_wait_all();
     __syncthreads();  // this K tile is in; every thread is past the last P V
     // V flies during Q K^T and the softmax
-    request_rows<DMAX, BK, C::NT>(Vs, vh, k0, L, d, tid);
+    request_rows<DMAX, BK, C::NT>(Vs, vh, k0, Lk, d, tid);
     cp_async_commit();
 
     float s[RA][KB];
@@ -321,7 +328,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if constexpr (BIAS) {
 #pragma unroll
       for (int b = 0; b < KB; ++b)
-        kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, L, kLog2e);
+        kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, Lk, kLog2e);
     }
 #pragma unroll
     for (int a = 0; a < RA; ++a) {
@@ -329,7 +336,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < KB; ++b) {
         // key k0 (tx 0, b 0) is always real, so the row's max is finite
-        s[a][b] = k0 + tx + C::TX * b < L
+        s[a][b] = k0 + tx + C::TX * b < Lk
                       ? (BIAS ? fmaf(s[a][b], scale_log2, kbias[b])
                               : s[a][b] * scale_log2)
                       : -INFINITY;
@@ -360,8 +367,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_async_wait_all();
     __syncthreads();  // P is whole and V is in; the K tile is read
-    if (k0 + BK < L) {  // the next K tile flies during P V
-      request_rows<DMAX, BK, C::NT>(Ks, kh, k0 + BK, L, d, tid);
+    if (k0 + BK < Lk) {  // the next K tile flies during P V
+      request_rows<DMAX, BK, C::NT>(Ks, kh, k0 + BK, Lk, d, tid);
       cp_async_commit();
     }
     pv_product<DMAX, BQ, BK, RA, KB>(Ps, Vs, ty, tx, acc);
@@ -374,7 +381,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int off = C::TX / 2; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
     const int row = q0 + ty + C::TY * a;
-    if (row < L) {
+    if (row < Lq) {
       const float inv = 1.f / sum;
 #pragma unroll
       for (int b = 0; b < C::DC; ++b) acc[a][b] *= inv;
@@ -384,7 +391,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (c < d)
           store_vec<C::VW>(o + head + (size_t)row * d + c, acc[a] + g * C::VW);
       }
-      if (tx == 0) lse[(size_t)bh * L + row] = m[a] * kLn2 + logf(sum);
+      if (tx == 0) lse[(size_t)bh * Lq + row] = m[a] * kLn2 + logf(sum);
     }
   }
 }
@@ -408,8 +415,8 @@ template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(32 * NW)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int L, int d, float scale_log2,
-                      DropoutParams dp, KeyBias kb) {
+                      float* __restrict__ lse, int Lq, int Lk, int d,
+                      float scale_log2, DropoutParams dp, KeyBias kb) {
   using C = Bf16Cfg<DMAX, NW, BK>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
@@ -423,16 +430,16 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;
   const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, row0 + g + 8
   const int steps = d >> 4;         // k16 steps (and 16-column blocks) of d
-  const size_t head = (size_t)bh * L * d;
-  const bf16* kh = k + head;
-  const bf16* vh = v + head;
-  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const size_t head = (size_t)bh * Lq * d;  // q and o
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
   const int off_a = lane_off_a(lane, C::S);
   const int off_b = lane_off_b(lane, C::S);
 
-  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, L, d, tid);
-  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, L, d, tid);
-  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, L, d, tid);
+  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, Lk, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, Lk, d, tid);
   cp_async_commit_group();
 
   // rows g and g + 8: Q's A fragments, the output's accumulators, the
@@ -445,19 +452,19 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0, it = 0; k0 < L; k0 += BK, ++it) {
+  for (int k0 = 0, it = 0; k0 < Lk; k0 += BK, ++it) {
     const bf16* Ks = Kb + (it & 1) * BK * C::S;
     const bf16* Vs = Vb + (it & 1) * BK * C::S;
     cp_async_wait_groups();
     __syncthreads();  // this tile is in; every warp is past the last one
-    if (k0 + BK < L) {  // the next tile flies during this one's products
+    if (k0 + BK < Lk) {  // the next tile flies during this one's products
       request_bf16_rows<DMAX, BK, C::NT>(Kb + ((it + 1) & 1) * BK * C::S, kh,
-                                         k0 + BK, L, d, tid);
+                                         k0 + BK, Lk, d, tid);
       request_bf16_rows<DMAX, BK, C::NT>(Vb + ((it + 1) & 1) * BK * C::S, vh,
-                                         k0 + BK, L, d, tid);
+                                         k0 + BK, Lk, d, tid);
       cp_async_commit_group();
     }
-    if (row0 >= L) continue;  // no real row: only the barriers
+    if (row0 >= Lq) continue;  // no real row: only the barriers
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < C::KD; ++kk)
@@ -500,17 +507,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < C::NB; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float b = key_bias_at(brow, k0 + 8 * j + 2 * t + c, L, kLog2e);
+          const float b = key_bias_at(brow, k0 + 8 * j + 2 * t + c, Lk, kLog2e);
           s[j][c] += b;
           s[j][c + 2] += b;
         }
     }
-    if (k0 + BK > L) {  // keys past L (only in the last tile) weigh nothing
+    if (k0 + BK > Lk) {  // keys past Lk (only in the last tile) weigh nothing
 #pragma unroll
       for (int j = 0; j < C::NB; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t + (e & 1) >= L) s[j][e] = -INFINITY;
+          if (k0 + 8 * j + 2 * t + (e & 1) >= Lk) s[j][e] = -INFINITY;
     }
     // key k0 (t 0, j 0, e 0) is always real, so a row's max is finite
     float mx[2] = {-INFINITY, -INFINITY};
@@ -548,7 +555,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // V's fragments by ldmatrix.trans
 #pragma unroll
     for (int c = 0; c < C::NB / 2; ++c) {
-      if (k0 + 16 * c >= L) break;  // keys past L: P is 0
+      if (k0 + 16 * c >= Lk) break;  // keys past Lk: P is 0
       uint32_t hi[4], lo[4];
       split_a(s[2 * c], s[2 * c + 1], hi, lo);
 #pragma unroll
@@ -562,7 +569,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
-  if (row0 >= L) return;
+  if (row0 >= Lq) return;
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -570,7 +577,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int row = row0 + (lane >> 2) + 8 * r;
-    if (row < L) {
+    if (row < Lq) {
       const float inv = 1.f / sum;
       bf16* orow = o + head + (size_t)row * d;
 #pragma unroll
@@ -580,7 +587,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<uint32_t*>(orow + c) =
               pack_bf16x2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
       }
-      if (t == 0) lse[(size_t)bh * L + row] = m[r] * kLn2 + logf(sum);
+      if (t == 0) lse[(size_t)bh * Lq + row] = m[r] * kLn2 + logf(sum);
     }
   }
 }
@@ -604,24 +611,24 @@ int opt_in(Kernel kernel, std::atomic<bool>* done, size_t smem) {
 
 template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT, bool BIAS>
 int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int bh, int L, int d, float scale,
+           float* lse, int bh, int Lq, int Lk, int d, float scale,
            const DropoutParams& dp, const KeyBias& kb, cudaStream_t stream) {
   using C = Cfg<DMAX, BQ, BK, RA, KB>;
   static std::atomic<bool> opted_in[kMaxDevices];
   const int rc = opt_in(flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT, BIAS>,
                         opted_in, C::SMEM);
   if (rc != 0) return rc;
-  const dim3 grid(bh, (L + BQ - 1) / BQ);
+  const dim3 grid(bh, (Lq + BQ - 1) / BQ);
   flash_fwd_kernel<DMAX, BQ, BK, RA, KB, DROPOUT, BIAS>
-      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
+      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, Lq, Lk, d,
                                          scale * kLog2e, dp, kb);
   return (int)cudaGetLastError();
 }
 
 template <bool DROPOUT, bool BIAS>
 int launch_form(const void* q, const void* k, const void* v, void* o,
-                float* lse, int bh, int L, int d, float scale, int tile,
-                const DropoutParams& dp, const KeyBias& kb,
+                float* lse, int bh, int Lq, int Lk, int d, float scale,
+                int tile, const DropoutParams& dp, const KeyBias& kb,
                 cudaStream_t stream) {
   auto f = &launch<128, 64, 64, 4, 4, DROPOUT, BIAS>;
   if (tile == 32)
@@ -631,12 +638,12 @@ int launch_form(const void* q, const void* k, const void* v, void* o,
     f = d <= 32 ? &launch<32, 128, 64, 8, 8, DROPOUT, BIAS>
                 : &launch<64, 128, 64, 8, 8, DROPOUT, BIAS>;
   return f((const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
-           bh, L, d, scale, dp, kb, stream);
+           bh, Lq, Lk, d, scale, dp, kb, stream);
 }
 
 template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                float* lse, int bh, int L, int d, float scale,
+                float* lse, int bh, int Lq, int Lk, int d, float scale,
                 const DropoutParams& dp, const KeyBias& kb,
                 cudaStream_t stream) {
   using C = Bf16Cfg<DMAX, NW, BK>;
@@ -644,9 +651,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const int rc = opt_in(flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT, BIAS>,
                         opted_in, C::SMEM);
   if (rc != 0) return rc;
-  const dim3 grid(bh, (L + C::BQ - 1) / C::BQ);
+  const dim3 grid(bh, (Lq + C::BQ - 1) / C::BQ);
   flash_fwd_bf16_kernel<DMAX, NW, BK, DROPOUT, BIAS>
-      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, L, d,
+      <<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o, lse, Lq, Lk, d,
                                          scale * kLog2e, dp, kb);
   return (int)cudaGetLastError();
 }
@@ -655,8 +662,8 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // (eight warps) at d <= 64, 64 (four warps) at any d; key tiles of 64.
 template <bool DROPOUT, bool BIAS>
 int launch_form_bf16(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int bh, int L, int d, float scale, int tile,
-                     const DropoutParams& dp, const KeyBias& kb,
+                     float* lse, int bh, int Lq, int Lk, int d, float scale,
+                     int tile, const DropoutParams& dp, const KeyBias& kb,
                      cudaStream_t stream) {
   auto f = d <= 32   ? &launch_bf16<32, 4, 64, DROPOUT, BIAS>
            : d <= 64 ? &launch_bf16<64, 4, 64, DROPOUT, BIAS>
@@ -668,40 +675,43 @@ int launch_form_bf16(const void* q, const void* k, const void* v, void* o,
     f = d <= 32 ? &launch_bf16<32, 8, 64, DROPOUT, BIAS>
                 : &launch_bf16<64, 8, 64, DROPOUT, BIAS>;
   return f((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, bh,
-           L, d, scale, dp, kb, stream);
+           Lq, Lk, d, scale, dp, kb, stream);
 }
 
 // The checks and the choice of form of both entries; BIAS picks the set of
 // forms that this translation unit compiles.
 template <bool BIAS>
 int forward(const void* q, const void* k, const void* v, void* o, void* lse,
-            int bh, int L, int d, float scale, int tile, int dropout,
+            int bh, int Lq, int Lk, int d, float scale, int tile, int dropout,
             unsigned threshold, float keep_scale, unsigned long long seed,
-            const unsigned* grid,
-            int bf16_form, const KeyBias& kb, void* stream) {
+            const unsigned* grid, int bf16_form, const KeyBias& kb,
+            void* stream) {
   const bool ok =
-      bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
-                      (tile == 64 || (d <= 64 && (tile == 16 || tile == 128)))
-                : d >= 8 && d % 8 == 0 && d <= 128 &&
-                      (d <= 64 ? tile == 32 || tile == 128 : tile == 64);
+      Lq >= 1 && Lk >= 1 &&
+      (bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
+                       (tile == 64 || (d <= 64 && (tile == 16 || tile == 128)))
+                 : d >= 8 && d % 8 == 0 && d <= 128 &&
+                       (d <= 64 ? tile == 32 || tile == 128 : tile == 64));
   if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
     return (int)cudaErrorInvalidValue;
   if (dropout && (grid[0] < 1 || bh % grid[0]))
     return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
-                         grid[3]};
+                         grid[3], grid[4]};
   auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
                                 : &launch_form_bf16<false, BIAS>)
                      : (dropout ? &launch_form<true, BIAS>
                                 : &launch_form<false, BIAS>);
-  return f(q, k, v, o, (float*)lse, bh, L, d, scale, tile, dp, kb,
+  return f(q, k, v, o, (float*)lse, bh, Lq, Lk, d, scale, tile, dp, kb,
            (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, L, d), contiguous, 16-byte aligned; lse: (bh, L) float32.
+// q, o: (bh, Lq, d) and k, v: (bh, Lk, d), contiguous, 16-byte aligned; lse:
+// (bh, Lq) float32. Lq == Lk is self-attention; Lq < Lk a sequence-parallel
+// rank's own queries against the keys gathered from every rank.
 // float32 (`bf16_form` == 0): d % 8 == 0, d <= 128, `tile` (the query tile
 // height) 32 or 128 for d <= 64, 64 for d > 64. bfloat16 (`bf16_form` != 0):
 // d % 16 == 0, d <= 128, `tile` 16 or 128 for d <= 64, or 64. `dropout` != 0
@@ -709,18 +719,20 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
 // `seed`) is below `threshold`, and a kept probability is multiplied by
 // `keep_scale`; (heads, total_heads, batch0, head0) place the launch's heads
 // in the model's global (batch, head) grid, whose index keys the mask
-// (philox.cuh; (1, 1, 0, 0) on one device), and `heads` divides bh. Returns
-// the CUDA error of the launch.
+// (philox.cuh; (1, 1, 0, 0) on one device), and `heads` divides bh; `row0`
+// is the global index of query row 0, which keys the mask of each row (0 on
+// one device). Returns the CUDA error of the launch.
 #ifndef DMC_FLASH_BIAS_FORMS
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* lse, int bh, int L, int d, float scale,
-                              int tile, int dropout, unsigned threshold,
-                              float keep_scale, unsigned long long seed,
-                              unsigned heads, unsigned total_heads,
-                              unsigned batch0, unsigned head0, int bf16_form,
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int bh, int Lq, int Lk,
+                              int d, float scale, int tile, int dropout,
+                              unsigned threshold, float keep_scale,
+                              unsigned long long seed, unsigned heads,
+                              unsigned total_heads, unsigned batch0,
+                              unsigned head0, unsigned row0, int bf16_form,
                               void* stream) {
-  const unsigned grid[4] = {heads, total_heads, batch0, head0};
-  return forward<false>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return forward<false>(q, k, v, o, lse, bh, Lq, Lk, d, scale, tile, dropout,
                         threshold, keep_scale, seed, grid, bf16_form,
                         KeyBias{nullptr, 1}, stream);
 }
@@ -730,20 +742,20 @@ extern "C" const char* dmc_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 #else
-// flash_attn_fwd with a per-key bias (key_bias.cuh): float32 (bh / heads, L),
-// added to every scaled score of head bh's row bh / bias_heads before the
-// softmax; lse includes it. `bias_heads` divides bh.
+// flash_attn_fwd with a per-key bias (key_bias.cuh): float32 (bh / heads,
+// Lk), added to every scaled score of head bh's row bh / bias_heads before
+// the softmax; lse includes it. `bias_heads` divides bh.
 extern "C" int flash_attn_fwd_bias(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int bh, int L, int d,
-                                   float scale, int tile, int dropout,
+                                   void* o, void* lse, int bh, int Lq, int Lk,
+                                   int d, float scale, int tile, int dropout,
                                    unsigned threshold, float keep_scale,
                                    unsigned long long seed, unsigned heads,
                                    unsigned total_heads, unsigned batch0,
-                                   unsigned head0, int bf16_form,
-                                   const void* bias, int bias_heads,
-                                   void* stream) {
-  const unsigned grid[4] = {heads, total_heads, batch0, head0};
-  return forward<true>(q, k, v, o, lse, bh, L, d, scale, tile, dropout,
+                                   unsigned head0, unsigned row0,
+                                   int bf16_form, const void* bias,
+                                   int bias_heads, void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return forward<true>(q, k, v, o, lse, bh, Lq, Lk, d, scale, tile, dropout,
                        threshold, keep_scale, seed, grid, bf16_form,
                        KeyBias{(const float*)bias, bias_heads}, stream);
 }

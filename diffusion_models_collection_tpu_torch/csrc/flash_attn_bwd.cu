@@ -108,6 +108,10 @@
 //   (32 at d > 64): S and dP query-major from Q and dO fragments held in
 //   registers, dS split from the accumulators against K by ldmatrix.trans.
 // bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads) up to 128.
+// Queries and keys of their own lengths (E6, flash_attn.cu): q, o, dO and dq
+// of Lq rows, k, v, dk and dv of Lk; the key-tile blocks walk Lq's query
+// tiles, the dq blocks Lk's key tiles, the fused form's dq shares are one a
+// key tile (`bwd_fused` reads Lk), and `row0` keys the dropout rows.
 // bf16 measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py
 // --only bf16, from a CUDA graph): 0.384 ms a call at the DiT's train step
 // (BH 768, L 256, d 64, p 0.1; 4.61 ms for its 12 calls) against a bound of
@@ -321,17 +325,17 @@ __device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
                                            const float* lse_s, const float* dl_s,
                                            float* Ps, float* dSs, int ty, int tx,
                                            float scale, const DropoutParams& dp,
-                                           const float* brow, int L, int bh,
+                                           const float* brow, int Lk, int bh,
                                            int q0, int k0) {
   using C = Cfg<DMAX, BT>;
   float s[4][4], dpv[4][4];
   rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
   rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dpv);
-  float kbias[4] = {};  // the keys' bias (0 past L, where K = V = 0)
+  float kbias[4] = {};  // the keys' bias (0 past Lk, where K = V = 0)
   if constexpr (BIAS) {
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, L, 1.f);
+      kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, Lk, 1.f);
   }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -414,8 +418,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       float* __restrict__ dq_out, float* __restrict__ dk,
-                      float* __restrict__ dv, int L, int d, float scale,
-                      DropoutParams dp, KeyBias kb) {
+                      float* __restrict__ dv, int Lq, int Lk, int d,
+                      float scale, DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -432,15 +436,16 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
-  const size_t head = (size_t)bh * L * d;
-  const size_t base = (size_t)bh * L;
-  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const size_t head = (size_t)bh * Lq * d;    // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;   // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
 
-  request_tile<DMAX, BT>(Ks, k + head, k0, L, d, tid);
-  request_tile<DMAX, BT>(Vs, v + head, k0, L, d, tid);
-  request_tile<DMAX, BT>(Qs, q + head, 0, L, d, tid);
-  request_tile<DMAX, BT>(dOs, dout + head, 0, L, d, tid);
-  load_row_stats<BT>(lse_s, dl_s, lse, delta, base, 0, L, tid);
+  request_tile<DMAX, BT>(Ks, k + khead, k0, Lk, d, tid);
+  request_tile<DMAX, BT>(Vs, v + khead, k0, Lk, d, tid);
+  request_tile<DMAX, BT>(Qs, q + head, 0, Lq, d, tid);
+  request_tile<DMAX, BT>(dOs, dout + head, 0, Lq, d, tid);
+  load_row_stats<BT>(lse_s, dl_s, lse, delta, base, 0, Lq, tid);
 
   // keys k0 + 4 ty .. + 3, columns VW (tx + TX g) .. + VW - 1
   float dk_acc[4][C::DC], dv_acc[4][C::DC];
@@ -453,14 +458,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   float* dq_head = nullptr;
   if constexpr (WITH_DQ)
-    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * L * d;
+    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * Lq * d;
 
-  for (int q0 = 0; q0 < L; q0 += BT) {
+  for (int q0 = 0; q0 < Lq; q0 += BT) {
     cp_async_wait_all();
     __syncthreads();  // the tiles and row stats are in; dSs is read
 
     probs_tile<DMAX, BT, DROPOUT, BIAS>(Qs, dOs, Ks, Vs, lse_s, dl_s, Ps, dSs,
-                                        ty, tx, scale, dp, brow, L, bh, q0, k0);
+                                        ty, tx, scale, dp, brow, Lk, bh, q0, k0);
     __syncthreads();
 
     // dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :]
@@ -485,10 +490,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // Qs, dOs and the row stats are read
 
-    if (q0 + BT < L) {  // the next tiles fly during the dQ product
-      request_tile<DMAX, BT>(Qs, q + head, q0 + BT, L, d, tid);
-      request_tile<DMAX, BT>(dOs, dout + head, q0 + BT, L, d, tid);
-      load_row_stats<BT>(lse_s, dl_s, lse, delta, base, q0 + BT, L, tid);
+    if (q0 + BT < Lq) {  // the next tiles fly during the dQ product
+      request_tile<DMAX, BT>(Qs, q + head, q0 + BT, Lq, d, tid);
+      request_tile<DMAX, BT>(dOs, dout + head, q0 + BT, Lq, d, tid);
+      load_row_stats<BT>(lse_s, dl_s, lse, delta, base, q0 + BT, Lq, tid);
     }
     if constexpr (WITH_DQ) {
       float acc[4][C::DC];
@@ -497,20 +502,20 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int b = 0; b < C::DC; ++b) acc[a][b] = 0.f;
       dq_product<DMAX, BT>(dSs, Ks, ty, tx, acc);
-      store_rows<DMAX, BT>(dq_head, acc, q0, L, d, ty, tx);
+      store_rows<DMAX, BT>(dq_head, acc, q0, Lq, d, ty, tx);
     }
   }
 
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = k0 + 4 * ty + a;
-    if (row < L) {
+    if (row < Lk) {
 #pragma unroll
       for (int g = 0; g < C::G; ++g) {
         const int c = C::VW * (tx + C::TX * g);
         if (c < d) {
-          store_vec<C::VW>(dk + head + (size_t)row * d + c, dk_acc[a] + g * C::VW);
-          store_vec<C::VW>(dv + head + (size_t)row * d + c, dv_acc[a] + g * C::VW);
+          store_vec<C::VW>(dk + khead + (size_t)row * d + c, dk_acc[a] + g * C::VW);
+          store_vec<C::VW>(dv + khead + (size_t)row * d + c, dv_acc[a] + g * C::VW);
         }
       }
     }
@@ -525,8 +530,8 @@ __global__ void __launch_bounds__(Cfg<DMAX, BT>::NT,
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int L, int d, float scale,
-                    DropoutParams dp, KeyBias kb) {
+                    float* __restrict__ dq, int Lq, int Lk, int d,
+                    float scale, DropoutParams dp, KeyBias kb) {
   using C = Cfg<DMAX, BT>;
   extern __shared__ __align__(16) float smem[];
   float* Kbuf = smem;  // two K tiles
@@ -542,14 +547,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % C::TX;
   const int ty = tid / C::TX;
-  const size_t head = (size_t)bh * L * d;
-  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const size_t head = (size_t)bh * Lq * d;
+  const size_t khead = (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
 
-  request_tile<DMAX, BT>(Qs, q + head, q0, L, d, tid);
-  request_tile<DMAX, BT>(dOs, dout + head, q0, L, d, tid);
-  request_tile<DMAX, BT>(Kbuf, k + head, 0, L, d, tid);
-  request_tile<DMAX, BT>(Vs, v + head, 0, L, d, tid);
-  load_row_stats<BT>(lse_s, dl_s, lse, delta, (size_t)bh * L, q0, L, tid);
+  request_tile<DMAX, BT>(Qs, q + head, q0, Lq, d, tid);
+  request_tile<DMAX, BT>(dOs, dout + head, q0, Lq, d, tid);
+  request_tile<DMAX, BT>(Kbuf, k + khead, 0, Lk, d, tid);
+  request_tile<DMAX, BT>(Vs, v + khead, 0, Lk, d, tid);
+  load_row_stats<BT>(lse_s, dl_s, lse, delta, (size_t)bh * Lq, q0, Lq, tid);
 
   // query rows q0 + ty + TX a, columns VW (tx + TX g) .. + VW - 1
   float acc[4][C::DC];
@@ -559,24 +565,24 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int b = 0; b < C::DC; ++b) acc[a][b] = 0.f;
 
   int cur = 0;
-  for (int k0 = 0; k0 < L; k0 += BT, cur ^= 1) {
+  for (int k0 = 0; k0 < Lk; k0 += BT, cur ^= 1) {
     const float* Ks = Kbuf + cur * C::TILE;
     cp_async_wait_all();
     __syncthreads();  // the tiles are in; dSs and the other K tile are read
 
     probs_tile<DMAX, BT, DROPOUT, BIAS>(Qs, dOs, Ks, Vs, lse_s, dl_s, nullptr,
-                                        dSs, ty, tx, scale, dp, brow, L, bh,
+                                        dSs, ty, tx, scale, dp, brow, Lk, bh,
                                         q0, k0);
     __syncthreads();  // Vs is read
 
-    if (k0 + BT < L) {  // the next tiles fly during the dQ product
-      request_tile<DMAX, BT>(Kbuf + (cur ^ 1) * C::TILE, k + head, k0 + BT, L,
-                             d, tid);
-      request_tile<DMAX, BT>(Vs, v + head, k0 + BT, L, d, tid);
+    if (k0 + BT < Lk) {  // the next tiles fly during the dQ product
+      request_tile<DMAX, BT>(Kbuf + (cur ^ 1) * C::TILE, k + khead, k0 + BT,
+                             Lk, d, tid);
+      request_tile<DMAX, BT>(Vs, v + khead, k0 + BT, Lk, d, tid);
     }
     dq_product<DMAX, BT>(dSs, Ks, ty, tx, acc);
   }
-  store_rows<DMAX, BT>(dq + head, acc, q0, L, d, ty, tx);
+  store_rows<DMAX, BT>(dq + head, acc, q0, Lq, d, ty, tx);
 }
 
 // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
@@ -693,8 +699,8 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          DQ* __restrict__ dq_out, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int L, int d, float scale,
-                         DropoutParams dp, KeyBias kb) {
+                         bf16* __restrict__ dv, int Lq, int Lk, int d,
+                         float scale, DropoutParams dp, KeyBias kb) {
   using C = Bf16Cfg<DMAX, BT, BQ>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_bf16);
@@ -711,30 +717,31 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kw = 16 * warp;  // the warp's keys: k0 + kw + g, + 8
-  const bool live = k0 + kw < L;
+  const bool live = k0 + kw < Lk;
   // P = 2^(S scale log2(e) - lse log2(e)), one ex2.approx an entry
   const float scale_log2 = scale * kLog2e;
   // the bias of the lane's two keys, base 2: the same for every query tile
   float kbias[2] = {};
   if constexpr (BIAS) {
-    const float* brow = key_bias_row(kb, bh, L);
-    kbias[0] = key_bias_at(brow, k0 + kw + g, L, kLog2e);
-    kbias[1] = key_bias_at(brow, k0 + kw + g + 8, L, kLog2e);
+    const float* brow = key_bias_row(kb, bh, Lk);
+    kbias[0] = key_bias_at(brow, k0 + kw + g, Lk, kLog2e);
+    kbias[1] = key_bias_at(brow, k0 + kw + g + 8, Lk, kLog2e);
   }
   const int steps = d >> 4;
-  const size_t head = (size_t)bh * L * d;
-  const size_t base = (size_t)bh * L;
+  const size_t head = (size_t)bh * Lq * d;    // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;   // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
   const int off_a = lane_off_a(lane, C::S);
   const int off_b = lane_off_b(lane, C::S);
   DQ* dq_head = nullptr;
   if constexpr (WITH_DQ)
-    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * L * d;
+    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * Lq * d;
 
-  request_bf16_rows<DMAX, BT, C::NT>(Ks, k + head, k0, L, d, tid);
-  request_bf16_rows<DMAX, BT, C::NT>(Vs, v + head, k0, L, d, tid);
-  request_bf16_rows<DMAX, BQ, C::NT>(Qb, q + head, 0, L, d, tid);
-  request_bf16_rows<DMAX, BQ, C::NT>(dOb, dout + head, 0, L, d, tid);
-  request_row_stats<BQ, C::NT>(stats, stats + 2 * BQ, lse, delta, base, 0, L,
+  request_bf16_rows<DMAX, BT, C::NT>(Ks, k + khead, k0, Lk, d, tid);
+  request_bf16_rows<DMAX, BT, C::NT>(Vs, v + khead, k0, Lk, d, tid);
+  request_bf16_rows<DMAX, BQ, C::NT>(Qb, q + head, 0, Lq, d, tid);
+  request_bf16_rows<DMAX, BQ, C::NT>(dOb, dout + head, 0, Lq, d, tid);
+  request_row_stats<BQ, C::NT>(stats, stats + 2 * BQ, lse, delta, base, 0, Lq,
                                tid);
   cp_async_commit_group();
 
@@ -746,23 +753,23 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dk_acc[n][e] = 0.f;
       dv_acc[n][e] = 0.f;
     }
-  for (int q0 = 0, it = 0; q0 < L; q0 += BQ, ++it) {
+  for (int q0 = 0, it = 0; q0 < Lq; q0 += BQ, ++it) {
     const int buf = it & 1;
     const bf16* Qs = Qb + buf * BQ * C::S;
     const bf16* dOs = dOb + buf * BQ * C::S;
     float* lse_s = stats + buf * BQ;
     const float* dl_s = stats + (2 + buf) * BQ;
     cp_async_wait_groups();
-    base2_row_stats<BQ, C::NT>(lse_s, q0, L, tid);
+    base2_row_stats<BQ, C::NT>(lse_s, q0, Lq, tid);
     __syncthreads();  // this tile is in; every warp is past the last one
-    if (q0 + BQ < L) {  // the next tile flies during this one's products
+    if (q0 + BQ < Lq) {  // the next tile flies during this one's products
       const int nb = buf ^ 1;
       request_bf16_rows<DMAX, BQ, C::NT>(Qb + nb * BQ * C::S, q + head,
-                                         q0 + BQ, L, d, tid);
+                                         q0 + BQ, Lq, d, tid);
       request_bf16_rows<DMAX, BQ, C::NT>(dOb + nb * BQ * C::S, dout + head,
-                                         q0 + BQ, L, d, tid);
+                                         q0 + BQ, Lq, d, tid);
       request_row_stats<BQ, C::NT>(stats + nb * BQ, stats + (2 + nb) * BQ,
-                                   lse, delta, base, q0 + BQ, L, tid);
+                                   lse, delta, base, q0 + BQ, Lq, tid);
       cp_async_commit_group();
     }
     if (live) {
@@ -836,7 +843,7 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             *reinterpret_cast<uint32_t*>(dSl + at) = sl[r];
           }
         }
-        if (q0 + 16 * c >= L) continue;  // queries past L: P and dS are 0
+        if (q0 + 16 * c >= Lq) continue;  // queries past Lq: P and dS are 0
 #pragma unroll
         for (int np = 0; np < C::KD; ++np) {
           if (np < steps) {
@@ -864,7 +871,7 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 #pragma unroll
       for (int kc = 0; kc < C::NW; ++kc) {
-        if (k0 + 16 * kc >= L) break;  // keys past L: no dS was written
+        if (k0 + 16 * kc >= Lk) break;  // keys past Lk: no dS was written
         uint32_t ah[4], al[4];
         ldmatrix_x4_trans(ah, dSh + 16 * kc * C::SQ + 16 * rg + off_sq);
         ldmatrix_x4_trans(al, dSl + 16 * kc * C::SQ + 16 * rg + off_sq);
@@ -879,12 +886,12 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
-      store_acc(dq_head, acc, scale, q0 + 16 * rg, part * C::NDW, L, d, lane);
+      store_acc(dq_head, acc, scale, q0 + 16 * rg, part * C::NDW, Lq, d, lane);
     }
   }
   if (live) {
-    store_acc(dk + head, dk_acc, scale, k0 + kw, 0, L, d, lane);
-    store_acc(dv + head, dv_acc, 1.f, k0 + kw, 0, L, d, lane);
+    store_acc(dk + khead, dk_acc, scale, k0 + kw, 0, Lk, d, lane);
+    store_acc(dv + khead, dv_acc, 1.f, k0 + kw, 0, Lk, d, lane);
   }
 }
 
@@ -912,7 +919,7 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, bf16* __restrict__ dq,
-                         int L, int d, float scale, DropoutParams dp,
+                         int Lq, int Lk, int d, float scale, DropoutParams dp,
                          KeyBias kb) {
   using C = Bf16DqCfg<DMAX, NW, BK>;
   extern __shared__ __align__(16) unsigned char smem_bf16[];
@@ -927,18 +934,18 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = tid >> 5, lane = tid & 31;
   const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, + 8
   const int steps = d >> 4;
-  const size_t head = (size_t)bh * L * d;
-  const bf16* kh = k + head;
-  const bf16* vh = v + head;
-  const float* brow = BIAS ? key_bias_row(kb, bh, L) : nullptr;
+  const size_t head = (size_t)bh * Lq * d;
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
   const int t = lane & 3;  // the lane's keys in an n8 tile: 2 t, 2 t + 1
   const int off_a = lane_off_a(lane, C::S);
   const int off_b = lane_off_b(lane, C::S);
 
-  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, L, d, tid);
-  request_bf16_rows<DMAX, C::BQ, C::NT>(dOs, dout + head, q0, L, d, tid);
-  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, L, d, tid);
-  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, L, d, tid);
+  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, C::BQ, C::NT>(dOs, dout + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, Lk, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, Lk, d, tid);
   cp_async_commit_group();
 
   // the rows' lse in base 2 (rows past L: +inf, so P = 0) and delta
@@ -947,8 +954,8 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + (lane >> 2) + 8 * r;
-    lr[r] = row < L ? kLog2e * lse[(size_t)bh * L + row] : INFINITY;
-    dl[r] = row < L ? delta[(size_t)bh * L + row] : 0.f;
+    lr[r] = row < Lq ? kLog2e * lse[(size_t)bh * Lq + row] : INFINITY;
+    dl[r] = row < Lq ? delta[(size_t)bh * Lq + row] : 0.f;
   }
   uint32_t qf[C::KD][4], dof[C::KD][4];
   float acc[C::ND][4];
@@ -957,19 +964,19 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int k0 = 0, it = 0; k0 < L; k0 += BK, ++it) {
+  for (int k0 = 0, it = 0; k0 < Lk; k0 += BK, ++it) {
     const bf16* Ks = Kb + (it & 1) * BK * C::S;
     const bf16* Vs = Vb + (it & 1) * BK * C::S;
     cp_async_wait_groups();
     __syncthreads();  // this tile is in; every warp is past the last one
-    if (k0 + BK < L) {  // the next tile flies during this one's products
+    if (k0 + BK < Lk) {  // the next tile flies during this one's products
       request_bf16_rows<DMAX, BK, C::NT>(Kb + ((it + 1) & 1) * BK * C::S, kh,
-                                         k0 + BK, L, d, tid);
+                                         k0 + BK, Lk, d, tid);
       request_bf16_rows<DMAX, BK, C::NT>(Vb + ((it + 1) & 1) * BK * C::S, vh,
-                                         k0 + BK, L, d, tid);
+                                         k0 + BK, Lk, d, tid);
       cp_async_commit_group();
     }
-    if (row0 >= L) continue;  // no real row: only the barriers
+    if (row0 >= Lq) continue;  // no real row: only the barriers
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < C::KD; ++kk) {
@@ -1008,12 +1015,12 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // the bias of keys 8 j + 2 t and + 1, base 2
       float kbias[2] = {};
       if constexpr (BIAS) {
-        kbias[0] = key_bias_at(brow, k0 + 8 * j + 2 * t, L, kLog2e);
-        kbias[1] = key_bias_at(brow, k0 + 8 * j + 2 * t + 1, L, kLog2e);
+        kbias[0] = key_bias_at(brow, k0 + 8 * j + 2 * t, Lk, kLog2e);
+        kbias[1] = key_bias_at(brow, k0 + 8 * j + 2 * t + 1, Lk, kLog2e);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // a key past L has K = V = 0: its dS meets a zero K row below
+        // a key past Lk has K = V = 0: its dS meets a zero K row below
         const float p = ex2_approx(fmaf(
             s[j][e], scale_log2,
             BIAS ? kbias[e & 1] - lr[e >> 1] : -lr[e >> 1]));
@@ -1025,7 +1032,7 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 #pragma unroll
     for (int c = 0; c < C::NB / 2; ++c) {
-      if (k0 + 16 * c >= L) break;
+      if (k0 + 16 * c >= Lk) break;
       uint32_t hi[4], lo[4];
       split_a(s[2 * c], s[2 * c + 1], hi, lo);
 #pragma unroll
@@ -1039,22 +1046,22 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
-  if (row0 < L) store_acc(dq + head, acc, scale, row0, 0, L, d, lane);
+  if (row0 < Lq) store_acc(dq + head, acc, scale, row0, 0, Lq, d, lane);
 }
 
 template <int DMAX, int BT, bool DROPOUT, bool BIAS>
 int launch(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* delta, float* partial,
-           float* dq, float* dk, float* dv, int bh, int L, int d, float scale,
-           int fused, const DropoutParams& dp, const KeyBias& kb,
+           float* dq, float* dk, float* dv, int bh, int Lq, int Lk, int d,
+           float scale, int fused, const DropoutParams& dp, const KeyBias& kb,
            cudaStream_t stream) {
   using C = Cfg<DMAX, BT>;
   static std::atomic<bool> opted_fused[kMaxDevices], opted_dkdv[kMaxDevices],
       opted_dq[kMaxDevices];
-  const int tiles = (L + BT - 1) / BT;
+  const int tiles = (Lk + BT - 1) / BT;  // key tiles
   if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
-  const int rows = bh * L;
+  const int rows = bh * Lq;
   const int rows_per_block = kDeltaThreads / 32;
   flash_bwd_delta_kernel<float>
       <<<(rows + rows_per_block - 1) / rows_per_block, kDeltaThreads, 0,
@@ -1069,11 +1076,11 @@ int launch(const float* q, const float* k, const float* v, const float* o,
     if (rc != 0) return rc;
     flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>
         <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-            q, k, v, dout, lse, delta, tiles == 1 ? dq : partial, dk, dv, L, d,
-            scale, dp, kb);
+            q, k, v, dout, lse, delta, tiles == 1 ? dq : partial, dk, dv, Lq,
+            Lk, d, scale, dp, kb);
     err = cudaGetLastError();
     if (err != cudaSuccess || tiles == 1) return (int)err;
-    const size_t head4 = (size_t)L * d / 4;
+    const size_t head4 = (size_t)Lq * d / 4;
     const size_t total4 = head4 * bh;
     flash_bwd_dq_sum_kernel<float>
         <<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
@@ -1087,19 +1094,21 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   if (rc != 0) return rc;
   flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT, BIAS>
       <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
-          q, k, v, dout, lse, delta, nullptr, dk, dv, L, d, scale, dp, kb);
+          q, k, v, dout, lse, delta, nullptr, dk, dv, Lq, Lk, d, scale, dp,
+          kb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<DMAX, BT, DROPOUT, BIAS><<<grid, C::NT, C::SMEM_DQ, stream>>>(
-      q, k, v, dout, lse, delta, dq, L, d, scale, dp, kb);
+  flash_bwd_dq_kernel<DMAX, BT, DROPOUT, BIAS>
+      <<<dim3(bh, (Lq + BT - 1) / BT), C::NT, C::SMEM_DQ, stream>>>(
+          q, k, v, dout, lse, delta, dq, Lq, Lk, d, scale, dp, kb);
   return (int)cudaGetLastError();
 }
 
 template <bool DROPOUT, bool BIAS>
 int launch_form(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* delta,
-                float* partial, void* dq, void* dk, void* dv, int bh, int L,
-                int d, float scale, int tile, int fused,
+                float* partial, void* dq, void* dk, void* dv, int bh, int Lq,
+                int Lk, int d, float scale, int tile, int fused,
                 const DropoutParams& dp, const KeyBias& kb,
                 cudaStream_t stream) {
   auto f = &launch<128, 64, DROPOUT, BIAS>;
@@ -1112,7 +1121,7 @@ int launch_form(const void* q, const void* k, const void* v, const void* o,
     f = &launch<64, 64, DROPOUT, BIAS>;
   return f((const float*)q, (const float*)k, (const float*)v, (const float*)o,
            (const float*)dout, lse, delta, partial, (float*)dq, (float*)dk,
-           (float*)dv, bh, L, d, scale, fused, dp, kb, stream);
+           (float*)dv, bh, Lq, Lk, d, scale, fused, dp, kb, stream);
 }
 
 // The bf16 forms: key tiles of BT keys walking query tiles of BQ; the
@@ -1122,18 +1131,18 @@ int launch_form(const void* q, const void* k, const void* v, const void* o,
 template <int DMAX, int BT, int BQ, bool DROPOUT, bool BIAS>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                 const bf16* dout, const float* lse, float* delta,
-                float* partial, bf16* dq, bf16* dk, bf16* dv, int bh, int L,
-                int d, float scale, int fused, const DropoutParams& dp,
+                float* partial, bf16* dq, bf16* dk, bf16* dv, int bh, int Lq,
+                int Lk, int d, float scale, int fused, const DropoutParams& dp,
                 const KeyBias& kb, cudaStream_t stream) {
   using C = Bf16Cfg<DMAX, BT, BQ>;
   constexpr int kDqWarps = 4, kDqKeys = DMAX > 64 ? 32 : 64;
   using CQ = Bf16DqCfg<DMAX, kDqWarps, kDqKeys>;
   static std::atomic<bool> opted_one[kMaxDevices], opted_fused[kMaxDevices],
       opted_kv[kMaxDevices], opted_dq[kMaxDevices];
-  const int tiles = (L + BT - 1) / BT;
+  const int tiles = (Lk + BT - 1) / BT;  // key tiles
   if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
-  const int rows = bh * L;
+  const int rows = bh * Lq;
   const int rows_per_block = kDeltaThreads / 32;
   flash_bwd_delta_kernel<bf16>
       <<<(rows + rows_per_block - 1) / rows_per_block, kDeltaThreads, 0,
@@ -1147,7 +1156,7 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     const int rc = opt_in(kernel, opted_one, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta, dq,
-                                             dk, dv, L, d, scale, dp, kb);
+                                             dk, dv, Lq, Lk, d, scale, dp, kb);
     return (int)cudaGetLastError();
   }
   if (fused) {  // float32 shares, summed into dq in tile order
@@ -1156,11 +1165,11 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     const int rc = opt_in(kernel, opted_fused, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta,
-                                             partial, dk, dv, L, d, scale, dp,
-                                             kb);
+                                             partial, dk, dv, Lq, Lk, d, scale,
+                                             dp, kb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const size_t head4 = (size_t)L * d / 4;
+    const size_t head4 = (size_t)Lq * d / 4;
     const size_t total4 = head4 * bh;
     flash_bwd_dq_sum_kernel<bf16>
         <<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
@@ -1175,12 +1184,12 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   rc = opt_in(dq_kernel, opted_dq, CQ::SMEM);
   if (rc != 0) return rc;
   kv<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta,
-                                       (bf16*)nullptr, dk, dv, L, d, scale, dp,
-                                       kb);
+                                       (bf16*)nullptr, dk, dv, Lq, Lk, d,
+                                       scale, dp, kb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<<<dim3(bh, (L + CQ::BQ - 1) / CQ::BQ), CQ::NT, CQ::SMEM, stream>>>(
-      q, k, v, dout, lse, delta, dq, L, d, scale, dp, kb);
+  dq_kernel<<<dim3(bh, (Lq + CQ::BQ - 1) / CQ::BQ), CQ::NT, CQ::SMEM, stream>>>(
+      q, k, v, dout, lse, delta, dq, Lq, Lk, d, scale, dp, kb);
   return (int)cudaGetLastError();
 }
 
@@ -1191,9 +1200,9 @@ template <bool DROPOUT, bool BIAS>
 int launch_form_bf16(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
                      float* delta, float* partial, void* dq, void* dk,
-                     void* dv, int bh, int L, int d, float scale, int tile,
-                     int fused, const DropoutParams& dp, const KeyBias& kb,
-                     cudaStream_t stream) {
+                     void* dv, int bh, int Lq, int Lk, int d, float scale,
+                     int tile, int fused, const DropoutParams& dp,
+                     const KeyBias& kb, cudaStream_t stream) {
   auto f = d <= 32   ? &launch_bf16<32, 64, 64, DROPOUT, BIAS>
            : d <= 64 ? &launch_bf16<64, 64, 64, DROPOUT, BIAS>
                      : &launch_bf16<128, 64, 32, DROPOUT, BIAS>;
@@ -1202,7 +1211,7 @@ int launch_form_bf16(const void* q, const void* k, const void* v,
                 : &launch_bf16<64, 16, 16, DROPOUT, BIAS>;
   return f((const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
            (const bf16*)dout, lse, delta, partial, (bf16*)dq, (bf16*)dk,
-           (bf16*)dv, bh, L, d, scale, fused, dp, kb, stream);
+           (bf16*)dv, bh, Lq, Lk, d, scale, fused, dp, kb, stream);
 }
 
 // The checks and the choice of form of both entries; BIAS picks the set of
@@ -1210,78 +1219,83 @@ int launch_form_bf16(const void* q, const void* k, const void* v,
 template <bool BIAS>
 int backward(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* partial,
-             void* dq, void* dk, void* dv, int bh, int L, int d, float scale,
-             int tile, int fused, int dropout, unsigned threshold,
-             float keep_scale, unsigned long long seed,
+             void* dq, void* dk, void* dv, int bh, int Lq, int Lk, int d,
+             float scale, int tile, int fused, int dropout,
+             unsigned threshold, float keep_scale, unsigned long long seed,
              const unsigned* grid, int bf16_form,
              const KeyBias& kb, void* stream) {
-  const bool ok = bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
-                                  (tile == 64 || (tile == 16 && d <= 64))
-                            : d >= 8 && d % 8 == 0 && d <= 128 &&
-                                  (tile == 64 || (tile == 32 && d <= 64));
+  const bool ok = Lq >= 1 && Lk >= 1 &&
+                  (bf16_form ? d >= 16 && d % 16 == 0 && d <= 128 &&
+                                   (tile == 64 || (tile == 16 && d <= 64))
+                             : d >= 8 && d % 8 == 0 && d <= 128 &&
+                                   (tile == 64 || (tile == 32 && d <= 64)));
   if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
     return (int)cudaErrorInvalidValue;
   if (dropout && (grid[0] < 1 || bh % grid[0]))
     return (int)cudaErrorInvalidValue;
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
-                         grid[3]};
+                         grid[3], grid[4]};
   auto f = bf16_form ? (dropout ? &launch_form_bf16<true, BIAS>
                                 : &launch_form_bf16<false, BIAS>)
                      : (dropout ? &launch_form<true, BIAS>
                                 : &launch_form<false, BIAS>);
   return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
-           (float*)partial, dq, dk, dv, bh, L, d, scale, tile, fused, dp, kb,
-           (cudaStream_t)stream);
+           (float*)partial, dq, dk, dv, bh, Lq, Lk, d, scale, tile, fused, dp,
+           kb, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (bh, L, d), contiguous, 16-byte aligned;
-// lse and the scratch delta: (bh, L) float32; `partial` float32. float32
-// (`bf16_form` == 0): d % 8 == 0, d <= 128, `tile` (the tile height) 64, or
-// 32 for d <= 64. bfloat16 (`bf16_form` != 0): d % 16 == 0, d <= 128,
-// `tile` 64, or 16 for d <= 64. `fused` != 0 takes the one-pass form, which
-// needs the scratch `partial` (bh, ceil(L / tile), L, d) when L > tile;
-// `fused` == 0 the two-kernel form (`partial` unused). `dropout` != 0 takes the dropout
-// form with the forward's `threshold`, `keep_scale`, `seed` and head grid
-// (heads, total_heads, batch0, head0) (flash_attn.cu). Returns the CUDA error
-// of the launches.
+// q, o, dout, dq: (bh, Lq, d) and k, v, dk, dv: (bh, Lk, d), contiguous,
+// 16-byte aligned (Lq == Lk is self-attention; Lq < Lk a sequence-parallel
+// rank's queries against the gathered keys); lse and the scratch delta:
+// (bh, Lq) float32; `partial` float32. float32 (`bf16_form` == 0): d % 8 ==
+// 0, d <= 128, `tile` (the tile height of queries and keys) 64, or 32 for d
+// <= 64. bfloat16 (`bf16_form` != 0): d % 16 == 0, d <= 128, `tile` 64, or
+// 16 for d <= 64. `fused` != 0 takes the one-pass form, which needs the
+// scratch `partial` (bh, ceil(Lk / tile), Lq, d) when Lk > tile; `fused` ==
+// 0 the two-kernel form (`partial` unused). `dropout` != 0 takes the dropout
+// form with the forward's `threshold`, `keep_scale`, `seed`, head grid
+// (heads, total_heads, batch0, head0) and first global query row `row0`
+// (flash_attn.cu). Returns the CUDA error of the launches.
 #ifndef DMC_FLASH_BIAS_FORMS
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
                               void* delta, void* partial, void* dq, void* dk,
-                              void* dv, int bh, int L, int d, float scale,
-                              int tile, int fused, int dropout,
+                              void* dv, int bh, int Lq, int Lk, int d,
+                              float scale, int tile, int fused, int dropout,
                               unsigned threshold, float keep_scale,
                               unsigned long long seed, unsigned heads,
                               unsigned total_heads, unsigned batch0,
-                              unsigned head0, int bf16_form, void* stream) {
-  const unsigned grid[4] = {heads, total_heads, batch0, head0};
+                              unsigned head0, unsigned row0, int bf16_form,
+                              void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
   return backward<false>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
-                         L, d, scale, tile, fused, dropout, threshold,
+                         Lq, Lk, d, scale, tile, fused, dropout, threshold,
                          keep_scale, seed, grid, bf16_form,
                          KeyBias{nullptr, 1}, stream);
 }
 #else
 // flash_attn_bwd with the forward's per-key bias (key_bias.cuh): float32
-// (bh / bias_heads, L), row bh / bias_heads for head bh; `bias_heads` divides
-// bh. lse is the forward's, which includes the bias.
+// (bh / bias_heads, Lk), row bh / bias_heads for head bh; `bias_heads`
+// divides bh. lse is the forward's, which includes the bias.
 extern "C" int flash_attn_bwd_bias(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* partial, void* dq,
-                                   void* dk, void* dv, int bh, int L, int d,
-                                   float scale, int tile, int fused,
+                                   void* dk, void* dv, int bh, int Lq, int Lk,
+                                   int d, float scale, int tile, int fused,
                                    int dropout, unsigned threshold,
                                    float keep_scale, unsigned long long seed,
                                    unsigned heads, unsigned total_heads,
                                    unsigned batch0, unsigned head0,
-                                   int bf16_form, const void* bias,
-                                   int bias_heads, void* stream) {
-  const unsigned grid[4] = {heads, total_heads, batch0, head0};
+                                   unsigned row0, int bf16_form,
+                                   const void* bias, int bias_heads,
+                                   void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
   return backward<true>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv, bh,
-                        L, d, scale, tile, fused, dropout, threshold,
+                        Lq, Lk, d, scale, tile, fused, dropout, threshold,
                         keep_scale, seed, grid, bf16_form,
                         KeyBias{(const float*)bias, bias_heads}, stream);
 }

@@ -19,6 +19,12 @@
 // run draws for the same rows and heads; a single-device launch passes (1,
 // 1, 0, 0), where head = bh.
 //
+// `row` is the query's global row: the launch's row plus `row0`, the global
+// index of its first query. A sequence-parallel rank holds query rows row0
+// .. of the sequence against every key (flash_attn.cu takes Lq != Lk), so
+// it too draws the single-device run's mask for its rows; on one device
+// row0 is 0.
+//
 // The tiles give a thread the keys tx + TX b of a row (a stride that keeps
 // their shared loads on disjoint banks), so the four aligned columns of one
 // Philox call belong to the four neighbouring lanes tx & ~3 .. tx | 3 of the
@@ -40,6 +46,7 @@ struct DropoutParams {
   uint32_t seed_lo, seed_hi;
   // the global (batch, head) grid of the launch's heads (see above)
   uint32_t heads, total_heads, batch0, head0;
+  uint32_t row0;  // the global row of the launch's query row 0
 };
 
 // The counter's head word of the launch's head bh.
@@ -68,7 +75,8 @@ __device__ __forceinline__ uint32_t philox_word(const uint4& w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
-// Bit b of the result keeps key k0 + tx + TX b of query row `row` of head
+// Bit b of the result keeps key k0 + tx + TX b of query row `row` (local: the
+// counter takes row + row0) of head
 // `bh` (whose counter word is `dropout_head`), b < KB. k0 % 4 == 0; every
 // lane of the warp calls this together (the exchange shuffles), the four
 // lanes of a quad with the same row.
@@ -78,6 +86,7 @@ __device__ __forceinline__ uint32_t dropout_keep_bits(const DropoutParams& dp,
                                                       int k0, int tx) {
   static_assert(TX % 4 == 0 && KB % 4 == 0, "four aligned keys a quad");
   const uint32_t head = dropout_head(dp, bh);
+  const uint32_t grow = row + dp.row0;
   const int j = tx & 3;
   uint32_t bits = 0;
 #pragma unroll
@@ -86,7 +95,7 @@ __device__ __forceinline__ uint32_t dropout_keep_bits(const DropoutParams& dp,
     const uint32_t group =
         (uint32_t)((k0 >> 2) + (tx >> 2) + (TX / 4) * (j + 4 * bb));
     const uint4 w =
-        philox4x32_10(make_uint4(group, row, head, 0u), dp.seed_lo, dp.seed_hi);
+        philox4x32_10(make_uint4(group, grow, head, 0u), dp.seed_lo, dp.seed_hi);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       // lane i = j ^ r computed the call of key i + 4 bb and sends its word
@@ -106,8 +115,9 @@ __device__ __forceinline__ uint32_t keep_nibble(const uint4& w,
 }
 
 // The bf16 kernels' layout (bf16_mma.cuh): scores of 16 query rows row0 + g,
-// row0 + g + 8 (lane = 4 g + t) against keys k0 + 8 j + 2 t, + 1 in n8
-// tile j < NB <= 8. Bit 4 j + e of the result keeps element e of tile j's
+// row0 + g + 8 (lane = 4 g + t; local rows, the counter adds dp.row0)
+// against keys k0 + 8 j + 2 t, + 1 in n8 tile j < NB <= 8. Bit 4 j + e of
+// the result keeps element e of tile j's
 // accumulator: row g for e < 2, row g + 8 for e >= 2, key k0 + 8 j + 2 t +
 // (e & 1). k0 % 4 == 0. The four keys of one Philox call (8 j + 4 (t >> 1)
 // ..) of one row lie in lanes t and t ^ 1: the even lane computes row g's
@@ -119,7 +129,7 @@ __device__ __forceinline__ uint32_t dropout_keep_bits_rows(
   static_assert(NB <= 8, "four bits a tile in one word");
   const uint32_t head = dropout_head(dp, bh);
   const int g = lane >> 2, t = lane & 3;
-  const uint32_t row = (uint32_t)(row0 + g + 8 * (t & 1));
+  const uint32_t row = (uint32_t)(row0 + g + 8 * (t & 1)) + dp.row0;
   uint32_t own = 0;
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
@@ -142,7 +152,8 @@ __device__ __forceinline__ uint32_t dropout_keep_bits_rows(
 }
 
 // The transposed layout of the bf16 backward: keys along the rows, 16 keys
-// key0 + g, key0 + g + 8 against queries q0 + 8 j + 2 t, + 1 in n8 tile j <
+// key0 + g, key0 + g + 8 against queries q0 + 8 j + 2 t, + 1 (local rows,
+// the counter adds dp.row0) in n8 tile j <
 // NB <= 8; bit 4 j + e keeps element e (key g for e < 2, g + 8 for e >= 2,
 // query q0 + 8 j + 2 t + (e & 1)). key0 % 4 == 0. The warp's 4 key groups x 8
 // queries of a tile are 32 Philox calls: lane l computes the call of group l
@@ -159,7 +170,8 @@ __device__ __forceinline__ uint32_t dropout_keep_bits_cols(
   for (int j = 0; j < NB; ++j)
     mine |= keep_nibble(
                 philox4x32_10(
-                    make_uint4(group, (uint32_t)(q0 + 8 * j + (lane >> 2)),
+                    make_uint4(group,
+                               (uint32_t)(q0 + 8 * j + (lane >> 2)) + dp.row0,
                                head, 0u),
                     dp.seed_lo, dp.seed_hi),
                 dp.threshold)

@@ -29,6 +29,14 @@
 // channels, lane q of a channel with states q * NMAX / 4 onwards.
 // dA is written per row (batch, D, N) and summed over the batch by the
 // caller, as the JAX wrapper does.
+// The stated form (`selective_scan_bwd_state`, E4: the backward of the JAX
+// package's `selective_scan_with_state`, `_analytic_bwd(..., h0=h_in,
+// phi0=g_hout)`, XLA's on the TPU): K8's sweep from the stated forward's
+// bound (whose block 0 is h_in), its adjoint carry starting from the
+// cotangent of h_out instead of zeros, and the carry it ends with, a_0
+// gamma_0 = dL/dh_in, written out. A stated scan always saves its block
+// states, under gradient checkpointing too (the recompute keeps them only
+// inside its window), so there is no stated K7.
 
 #include <atomic>
 
@@ -44,14 +52,15 @@ constexpr int kMaxDevices = 64;
 // 1 KB the system keeps per block.
 constexpr size_t kSharedBoundMax = 232448 / 2 - 49152 - 1024;
 
-template <int NMAX>
+template <int NMAX, bool HAS_G>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, const float* __restrict__ g,
                 const float* __restrict__ bound, float* __restrict__ dx,
                 float* __restrict__ ddt, float* __restrict__ da_rows,
-                float* __restrict__ partial, int L, int D, int N, int T) {
+                float* __restrict__ partial, const float* __restrict__ g_hout,
+                float* __restrict__ dh_in, int L, int D, int N, int T) {
   constexpr int SPL = BwdShape<NMAX>::SPL;
   __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
@@ -61,20 +70,27 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
+  const size_t state = ((size_t)b * D + d) * N;  // (b, d, 0) of a state
 
   float a_coef[SPL], phi[SPL], da[SPL];
   load_a_lane<SPL>(a_coef, A, d, q, N, active);
+  // the adjoint entering the last step: the cotangent of h_out, or none
+  if (g_hout != nullptr)
+    load_lane_states<SPL>(phi, g_hout + (active ? state : 0), 1, q, N,
+                          active);
 #pragma unroll
   for (int i = 0; i < SPL; ++i) {
-    phi[i] = 0.f;
+    if (g_hout == nullptr) phi[i] = 0.f;
     da[i] = 0.f;
   }
-  scan_bwd_range<NMAX>(x, dt, Bm, Cm, g,
-                       bound + (size_t)b * n_blocks * N * D + d, (size_t)N * D,
-                       (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
-                       tile, gridDim.x, d0, active, L, D, N, T, 0, L);
-  if (active)
-    store_lane_states<SPL>(da_rows + ((size_t)b * D + d) * N, 1, da, q, N);
+  scan_bwd_range<NMAX, HAS_G>(
+      x, dt, Bm, Cm, g, bound + (size_t)b * n_blocks * N * D + d,
+      (size_t)N * D, (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
+      tile, gridDim.x, d0, active, L, D, N, T, 0, L);
+  if (active) {
+    store_lane_states<SPL>(da_rows + state, 1, da, q, N);
+    if (dh_in != nullptr) store_lane_states<SPL>(dh_in + state, 1, phi, q, N);
+  }
 }
 
 // K7. `scratch` is (batch, n_blocks, N, D) in device memory, or null: the
@@ -151,14 +167,19 @@ size_t shared_bound_bytes(int L, int N, int T) {
   return (size_t)((L + T - 1) / T) * N * kBwdChannels * sizeof(float);
 }
 
+// g null: the state-only form's backward (no cotangent of y).
 template <int NMAX>
 int launch(const float* x, const float* dt, const float* A, const float* B,
            const float* C, const float* g, const float* bound, float* dx,
            float* ddt, float* da_rows, float* dB, float* dC, float* partial,
-           int batch, int L, int D, int N, int T, cudaStream_t stream) {
+           const float* g_hout, float* dh_in, int batch, int L, int D, int N,
+           int T, cudaStream_t stream) {
   const dim3 grid(bwd_tiles_for(D), batch);
-  scan_bwd_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
-      x, dt, A, B, C, g, bound, dx, ddt, da_rows, partial, L, D, N, T);
+  auto kernel = g != nullptr ? &scan_bwd_kernel<NMAX, true>
+                             : &scan_bwd_kernel<NMAX, false>;
+  kernel<<<grid, kBwdThreads, 0, stream>>>(x, dt, A, B, C, g, bound, dx, ddt,
+                                           da_rows, partial, g_hout, dh_in, L,
+                                           D, N, T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_bwd_sum(partial, dB, dC, batch, L, D, N, 2 * NMAX, stream);
@@ -219,12 +240,34 @@ extern "C" int selective_scan_bwd(const void* x, const void* dt, const void* A,
                                   void* da_rows, void* dB, void* dC,
                                   void* partial, int batch, int L, int D, int N,
                                   int T, void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > 32) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 32 || T < 1 || T > 32 || g == nullptr)
+    return (int)cudaErrorInvalidValue;
   auto f = N <= 16 ? &launch<16> : &launch<32>;
   return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
            (const float*)C, (const float*)g, (const float*)bound, (float*)dx,
            (float*)ddt, (float*)da_rows, (float*)dB, (float*)dC,
-           (float*)partial, batch, L, D, N, T, (cudaStream_t)stream);
+           (float*)partial, nullptr, nullptr, batch, L, D, N, T,
+           (cudaStream_t)stream);
+}
+
+// The stated form (E4): as `selective_scan_bwd` from the stated forward's
+// `bound`, the adjoint starting from g_hout (batch, D, N), the cotangent of
+// h_out, and dh_in (batch, D, N), the gradient of h_in, written too. g is
+// null for the state-only forward's backward: no cotangent of y, dC is 0.
+extern "C" int selective_scan_bwd_state(
+    const void* x, const void* dt, const void* A, const void* B, const void* C,
+    const void* g, const void* bound, const void* g_hout, void* dx, void* ddt,
+    void* da_rows, void* dB, void* dC, void* partial, void* dh_in, int batch,
+    int L, int D, int N, int T, void* stream) {
+  if (N < 1 || N > 32 || T < 1 || T > 32 || g_hout == nullptr ||
+      dh_in == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto f = N <= 16 ? &launch<16> : &launch<32>;
+  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
+           (const float*)C, (const float*)g, (const float*)bound, (float*)dx,
+           (float*)ddt, (float*)da_rows, (float*)dB, (float*)dC,
+           (float*)partial, (const float*)g_hout, (float*)dh_in, batch, L, D,
+           N, T, (cudaStream_t)stream);
 }
 
 // As `selective_scan_bwd` with no `bound`: `scratch` is null, or (batch,

@@ -511,8 +511,11 @@ __device__ __forceinline__ void channel_transpose_sum(float (&v)[V], int lane) {
 // The states inside a stretch are recomputed forward from the saved state
 // of the time block, never as h_{t-1} = (h_t - b_t) / a_t, which is unstable
 // where a_t underflows.
+// Without HAS_G (the backward of a scan whose y nobody reads, the stated
+// forward's state-only form) there is no cotangent of y: g is not read, C
+// is not staged, the adjoint takes no C_t g_t term and the dC sums are 0.
 // Every thread of the block must call it (it synchronises), active or not.
-template <int NMAX>
+template <int NMAX, bool HAS_G = true>
 __device__ __forceinline__ void scan_bwd_range(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ Bm, const float* __restrict__ Cm,
@@ -544,7 +547,8 @@ __device__ __forceinline__ void scan_bwd_range(
     const int tb0 = k * T;
     const int tlen = min(T, t_end - tb0);
     __syncthreads();  // the previous time block's dx, ddt have left
-    stage_time_block<NMAX>(sm, x, dt, g, Bm, Cm, row, tb0, tlen, d0, D, N);
+    stage_time_block<NMAX>(sm, x, dt, HAS_G ? g : nullptr, Bm, Cm, row, tb0,
+                           tlen, d0, D, N);
     __syncthreads();
 
     for (int s0 = ((tlen - 1) / S) * S; s0 >= 0; s0 -= S) {
@@ -573,11 +577,16 @@ __device__ __forceinline__ void scan_bwd_range(
         if (s < slen) {
           const float dtv = sm.dt[s0 + s][ch];
           const float xv = sm.x[s0 + s][ch];
-          const float gv = sm.g[s0 + s][ch];
+          const float gv = HAS_G ? sm.g[s0 + s][ch] : 0.f;
           const float u = dtv * xv;
           float v[2 * SPL], bn[SPL], cn[SPL];
           load_lane_row<SPL>(bn, sm.B[s0 + s], q);
-          load_lane_row<SPL>(cn, sm.C[s0 + s], q);
+          if (HAS_G) {
+            load_lane_row<SPL>(cn, sm.C[s0 + s], q);
+          } else {
+#pragma unroll
+            for (int i = 0; i < SPL; ++i) cn[i] = 0.f;
+          }
           float g_b = 0.f, ddt_acc = 0.f;
 #pragma unroll
           for (int i = 0; i < SPL; ++i) {

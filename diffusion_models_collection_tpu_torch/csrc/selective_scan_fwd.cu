@@ -25,6 +25,13 @@
 // of selective_scan_split.cu with a scratch row a chunk) was tried for few
 // rows at L 1024: three launches and the exponentials twice lost to this
 // walk from two rows up and tied at one, so there is none.
+// The stated form (`selective_scan_fwd_state`, E4: the JAX package's
+// `selective_scan_with_state`, whose TPU path is XLA's, for the
+// sequence-parallel DiM's distributed scan): the walk starts from h_in
+// (batch, D, N) instead of zeros and writes the state after the last step to
+// h_out (batch, D, N); block 0's saved state is h_in. With y null it writes
+// no y and reads no C (the distributed scan's first pass wants h_out alone).
+// The same walk, two loads and two stores a lane more.
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // launches in a row, ms; a thread a channel with expf before): batch 160,
 // L 256, D 768, N 16 0.217-0.219 (0.353); with states at batch 128 0.184-
@@ -37,12 +44,15 @@ namespace {
 
 using namespace dmc_scan;
 
-template <int NMAX>
+// OUT: y is written. h_in, h_out: null (a zero first state, no last one),
+// or (batch, D, N).
+template <int NMAX, bool OUT>
 __global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, float* __restrict__ y,
-                float* __restrict__ bound, int L, int D, int N, int T,
+                float* __restrict__ bound, const float* __restrict__ h_in,
+                float* __restrict__ h_out, int L, int D, int N, int T,
                 FwdCopy copy) {
   constexpr int SPL = NMAX / kBwdLanes;
   __shared__ FwdShared<NMAX> sm;
@@ -51,22 +61,36 @@ scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int d = d0 + (threadIdx.x >> 2);
   const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
+  const size_t state = ((size_t)b * D + d) * N;  // (b, d, 0) of h_in, h_out
 
   float a2[SPL], h[SPL];
   load_a_lane<SPL>(a2, A, d, q, N, active);
+  if (h_in != nullptr) {
+    load_lane_states<SPL>(h, h_in + (active ? state : 0), 1, q, N, active);
+  } else {
 #pragma unroll
-  for (int i = 0; i < SPL; ++i) h[i] = 0.f;
-  scan_fwd_walk<NMAX, true>(x, dt, Bm, Cm, y, bound, a2, h, sm, b, d0, active,
-                            L, D, N, T, 0, (L + T - 1) / T, false, copy);
+    for (int i = 0; i < SPL; ++i) h[i] = 0.f;
+  }
+  scan_fwd_walk<NMAX, OUT, false>(x, dt, Bm, Cm, y, bound, a2, h, sm, b, d0,
+                                  active, L, D, N, T, 0, (L + T - 1) / T,
+                                  false, copy);
+  if (h_out != nullptr && active)
+    store_lane_states<SPL>(h_out + state, 1, h, q, N);
 }
 
 template <int NMAX>
 int launch(const float* x, const float* dt, const float* A, const float* B,
-           const float* C, float* y, float* bound, int batch, int L, int D,
-           int N, int T, cudaStream_t stream) {
+           const float* C, float* y, float* bound, const float* h_in,
+           float* h_out, int batch, int L, int D, int N, int T,
+           cudaStream_t stream) {
   const dim3 grid(bwd_tiles_for(D), batch);
-  scan_fwd_kernel<NMAX><<<grid, kBwdThreads, 0, stream>>>(
-      x, dt, A, B, C, y, bound, L, D, N, T, fwd_copy_for(x, dt, B, C, D, N));
+  const FwdCopy copy = fwd_copy_for(x, dt, B, C, D, N);
+  if (y != nullptr)
+    scan_fwd_kernel<NMAX, true><<<grid, kBwdThreads, 0, stream>>>(
+        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, T, copy);
+  else
+    scan_fwd_kernel<NMAX, false><<<grid, kBwdThreads, 0, stream>>>(
+        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, T, copy);
   return (int)cudaGetLastError();
 }
 
@@ -79,9 +103,28 @@ extern "C" int selective_scan_fwd(const void* x, const void* dt, const void* A,
                                   const void* B, const void* C, void* y,
                                   void* bound, int batch, int L, int D, int N,
                                   int T, void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > kMaxT) return (int)cudaErrorInvalidValue;
+  if (N < 1 || N > 32 || T < 1 || T > kMaxT || y == nullptr)
+    return (int)cudaErrorInvalidValue;
   auto f = N <= 16 ? &launch<16> : &launch<32>;
   return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (float*)y, (float*)bound, batch, L, D, N, T,
-           (cudaStream_t)stream);
+           (const float*)C, (float*)y, (float*)bound, nullptr, nullptr, batch,
+           L, D, N, T, (cudaStream_t)stream);
+}
+
+// The stated form (E4): as `selective_scan_fwd` from the state h_in
+// (batch, D, N), writing the last state to h_out (batch, D, N); y may be
+// null (no output: C is not read), bound may be null. float32, contiguous.
+extern "C" int selective_scan_fwd_state(const void* x, const void* dt,
+                                        const void* A, const void* B,
+                                        const void* C, void* y, void* bound,
+                                        const void* h_in, void* h_out,
+                                        int batch, int L, int D, int N, int T,
+                                        void* stream) {
+  if (N < 1 || N > 32 || T < 1 || T > kMaxT || h_in == nullptr ||
+      h_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto f = N <= 16 ? &launch<16> : &launch<32>;
+  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
+           (const float*)C, (float*)y, (float*)bound, (const float*)h_in,
+           (float*)h_out, batch, L, D, N, T, (cudaStream_t)stream);
 }

@@ -28,7 +28,9 @@ metrics JSON to `--output`, the relative-only metrics listed under
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
 only when asked for with `--device cpu`. Everything runs on that one
 device: the JAX package's data-parallel generation and feature extraction
-over a device mesh is not ported (ROADMAP queue 1 item 15). A
+over a device mesh is not ported (ROADMAP queue 1 item 15d, data
+parallelism outside `train`; `train` has the rest of item 15 but pipeline
+and expert parallelism). A
 latent-diffusion checkpoint generates the latents of the VAE its config names
 and decodes them before the metric networks see them. `--tome_ratio`
 (with `--tome_mlp`) and `--quantize int8` generate through the DiT's token

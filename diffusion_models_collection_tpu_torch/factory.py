@@ -272,11 +272,13 @@ def get_dataloader(config: Mapping, dataset, train: bool = True,
                    process_count: int = 1) -> DataLoader:
     """The loader of `.datasets`: numpy batches (B, H, W, C) in [-1, 1],
     reshuffled per epoch from `seed`, the last partial batch dropped in
-    training; with `process_count` > 1, the strided shard `process_index`
-    of each epoch (a data-parallel rank's: `batch_size` images a rank)."""
+    training; with `process_count` > 1 data-parallel ranks, the strided
+    shard `process_index` of each epoch in batches of `max(1, batch_size //
+    process_count)`: `batch_size` is the global batch, as the JAX package's
+    loader takes it (`factory.py` there)."""
     return DataLoader(
         dataset,
-        batch_size=config["batch_size"],
+        batch_size=max(1, config["batch_size"] // max(1, process_count)),
         shuffle=train,
         drop_last=train,
         seed=seed,

@@ -316,7 +316,7 @@ class InceptionFeatures:
     pool features collapse to a constant, so FID reads ~0 for any pair of
     image sets) and `self.calibrated` is False. One device: the JAX
     package's sharding over a data mesh is not ported (ROADMAP queue 1
-    item 15)."""
+    item 15d, data parallelism outside `train`)."""
 
     def __init__(self, weights_path: Optional[str] = None,
                  device: Union[str, torch.device] = "cpu"):

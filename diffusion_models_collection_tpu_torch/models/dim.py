@@ -104,19 +104,39 @@ class Mamba(nn.Module):
             self.dt_proj.weight.uniform_(-bound, bound)
             self.dt_proj.bias.copy_(dt_bias_init(d_inner))
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, seq=None) -> torch.Tensor:
+        """The mixer on u (B, L, d_model). On a sequence-parallel rank, `seq`
+        its group (`parallel/sequence_parallel.SeqGroup`, u its L / S
+        tokens), the conv reads the left neighbour's last d_conv - 1 tokens
+        in place of the left padding and the scan runs distributed
+        (`parallel/dim_sequence_parallel.py`)."""
         length = u.shape[1]
         x, z = self.in_proj(u).chunk(2, dim=-1)
-        # causal: padded by d_conv - 1 on both sides, cut to the first L
-        x = F.silu(self.conv1d(x.transpose(1, 2))[..., :length]).transpose(1, 2)
+        lead = 0
+        if seq is not None:
+            from ..parallel import dim_sequence_parallel as dim_sp
+
+            width = self.conv1d.kernel_size[0]
+            if width != dim_sp.D_CONV:
+                raise ValueError(f"conv kernel width {width} != the assumed "
+                                 f"d_conv={dim_sp.D_CONV} — the halo exchange "
+                                 "would ship the wrong number of tokens")
+            x, lead = dim_sp.halo_exchange(x, seq), dim_sp.CONV_HALO
+        # causal: padded by d_conv - 1 on both sides, cut to the L outputs
+        # whose windows end at the tokens (past the halo)
+        x = F.silu(self.conv1d(x.transpose(1, 2))[..., lead:lead + length]
+                   ).transpose(1, 2)
         dt, B, C = self.x_proj(x).split(
             [self.dt_rank, self.d_state, self.d_state], dim=-1)
         dt = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)
         # the recurrence in float32 whatever the compute type (the casts are
         # no-ops in float32)
-        y = selective_scan(x.float(), dt.float(), A, B.float(), C.float(),
-                           self.D, save_states=self.save_scan_states)
+        args = (x.float(), dt.float(), A, B.float(), C.float(), self.D)
+        if seq is None:
+            y = selective_scan(*args, save_states=self.save_scan_states)
+        else:
+            y = dim_sp.distributed_selective_scan(*args, seq=seq)
         return self.out_proj(y.to(z.dtype) * F.silu(z))
 
 
@@ -138,9 +158,11 @@ class MambaBlock(nn.Module):
                                  save_scan_states=save_scan_states,
                                  dtype=dtype))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                seq=None) -> torch.Tensor:
         shift, scale, gate = self.adaLN_modulation(c)
-        h = self.mamba(modulate(self.norm(x), shift, scale))
+        h = modulate(self.norm(x), shift, scale)
+        h = self.mamba(h) if seq is None else self.mamba(h, seq)
         return x + gate[:, None, :] * h
 
 
@@ -162,7 +184,8 @@ class FeedForward(nn.Module):
 
 
 class DiMBlock(nn.Module):
-    """Mamba mixer, then the feed-forward."""
+    """Mamba mixer, then the feed-forward; `seq` runs it on a
+    sequence-parallel rank's tokens (`Mamba`)."""
 
     def __init__(self, hidden_size: int, state_size: int = 16,
                  mlp_ratio: float = 4.0, dropout: float = 0.1,
@@ -175,8 +198,9 @@ class DiMBlock(nn.Module):
                                       use_attention_fallback, dtype)
         self.ff_block = FeedForward(hidden_size, mlp_ratio, dropout, dtype)
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        return self.ff_block(self.mamba_block(x, c), c)
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                seq=None) -> torch.Tensor:
+        return self.ff_block(self.mamba_block(x, c, seq), c)
 
 
 class DiMFinalLayer(nn.Module):
@@ -222,6 +246,7 @@ class DiM(nn.Module):
     ):
         super().__init__()
         self.remat = remat
+        self.use_attention_fallback = use_attention_fallback
         img_h, img_w = ((img_size, img_size) if isinstance(img_size, int)
                         else tuple(img_size))
         self.patch_size = patch_size
@@ -247,16 +272,39 @@ class DiM(nn.Module):
         self.final_layer = DiMFinalLayer(hidden_size, patch_size,
                                          self.out_channels, dtype)
 
+    def check_sequence_parallel(self, sp: int) -> None:
+        """The JAX trainer's rules for this DiM on `sp` 'seq' ranks, with its
+        messages: the Mamba mixer, the tokens split evenly, at least the
+        conv's halo a rank."""
+        from ..parallel.dim_sequence_parallel import check_halo
+        from ..parallel.sequence_parallel import check_tokens
+
+        if self.use_attention_fallback:
+            raise ValueError("sequence_parallel for DiM runs the Mamba mixer "
+                             "— the attention fallback has no distributed "
+                             "path")
+        n_tok = self.tokens_hw[0] * self.tokens_hw[1]
+        check_tokens(n_tok, sp)
+        check_halo(n_tok, sp)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, seq=None) -> torch.Tensor:
+        """eps (B, H, W, C) float32. With `seq`, this rank's group under
+        sequence parallelism (`parallel/sequence_parallel.py`): the blocks
+        and the final layer run on its tokens, whose outputs are gathered,
+        so the rank returns the whole eps of its rows."""
         h = self.x_embedder(x)
         h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
+        if seq is not None:
+            h = seq.local(h)
         for block in self.blocks:
-            h = run_block(block, self.remat, h, c)
+            h = run_block(block, self.remat, h, c, seq)
         h = self.final_layer(h, c)
+        if seq is not None:
+            h = seq.gather_output(h.to(torch.float32))
         # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,
                           self.out_channels).to(torch.float32).contiguous()

@@ -125,7 +125,10 @@ class SelfAttention(nn.Module):
     * B .. of the global batch, heads head0 .. of total_heads. On a
     tensor-parallel rank (`parallel/tensor_parallel.py`) the module holds
     its heads' slices and `model_group`, whose `copy_to_model` (Megatron's
-    f) takes the input of the in-projection."""
+    f) takes the input of the in-projection. A sequence-parallel rank
+    passes `kv_group` (`parallel/sequence_parallel.SeqGroup`): its K and V
+    are gathered over the group (the JAX `kv_axis`) and its queries, tokens
+    kv_group.rank * L_local .. of the sequence, attend to all of them."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None,
@@ -149,7 +152,8 @@ class SelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x: torch.Tensor, perturb: bool = False,
-                key_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_sizes: Optional[torch.Tensor] = None,
+                kv_group=None) -> torch.Tensor:
         if self.model_group is not None:
             x = self.model_group.copy_to_model(x)
         if self.quant is None:
@@ -159,11 +163,15 @@ class SelfAttention(nn.Module):
             qkv = int8_linear(x, self.in_proj_weight, self.in_proj_bias,
                               self.dtype, self.in_proj_int8)
         q, k, v = qkv.chunk(3, dim=-1)
+        row0 = 0
+        if kv_group is not None and not perturb:
+            k, v = kv_group.gather_kv(k), kv_group.gather_kv(v)
+            row0 = kv_group.rank * x.shape[1]
         out = v if perturb else multihead_attention(
             q, k, v, self.num_heads, dropout_rate=self.dropout,
             deterministic=not self.training, key_sizes=key_sizes,
             batch0=self.data_rank * x.shape[0], head0=self.head0,
-            total_heads=self.total_heads)
+            total_heads=self.total_heads, row0=row0)
         return self.out_proj(out)
 
 
@@ -179,7 +187,9 @@ class DiTBlock(nn.Module):
     mlp(modulate(LN(x))). `num_experts` > 0 makes the MLP a `MoeMlp`, whose
     load-balance loss the block returns beside x; `tome` merges the tokens
     around the attention (and with `tome_mlp` around the MLP); `quant`
-    routes the attention's and the dense MLP's products through int8."""
+    routes the attention's and the dense MLP's products through int8.
+    `kv_group` (a call-time argument, the JAX `kv_axis` field) runs the
+    block on a sequence-parallel rank's tokens, K and V gathered over it."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dropout: float = 0.1,
@@ -204,8 +214,12 @@ class DiTBlock(nn.Module):
         self.adaLN_modulation = AdaLNModulation(hidden_size, 6, dtype)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
-                perturb: bool = False):
+                perturb: bool = False, kv_group=None):
         """x after the block; with a MoE MLP, (x, its load-balance loss)."""
+        if self.tome is not None and kv_group is not None:
+            raise ValueError(
+                "token merging needs the full token set on one device — "
+                "it does not compose with sequence parallelism")
         if self.quant is not None and self.training:
             raise ValueError(
                 "quant='int8' is inference-only (rounding has no "
@@ -220,7 +234,7 @@ class DiTBlock(nn.Module):
             h = tome_ops.unmerge(plan, self.attn(
                 tome_ops.merge(plan, h), key_sizes=tome_ops.sizes(plan)))
         else:
-            h = self.attn(h, perturb)
+            h = self.attn(h, perturb, kv_group=kv_group)
         x = x + gate_msa[:, None, :] * h
         h = modulate(self.norm2(x), shift_mlp, scale_mlp)
         if self.tome is not None and self.tome_mlp:
@@ -319,29 +333,44 @@ class DiT(nn.Module):
         self.final_layer = FinalLayer(hidden_size, patch_size,
                                       self.out_channels, dtype)
 
+    def check_sequence_parallel(self, sp: int) -> None:
+        """The JAX trainer's rule for this DiT on `sp` 'seq' ranks, with its
+        message: the tokens split evenly."""
+        from ..parallel.sequence_parallel import check_tokens
+
+        check_tokens(self.tokens_hw[0] * self.tokens_hw[1], sp)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None, *,
                 pag_perturb: Optional[bool] = None,
-                moe_losses: Optional[list] = None) -> torch.Tensor:
+                moe_losses: Optional[list] = None, seq=None) -> torch.Tensor:
         """eps (B, H, W, C) float32; `pag_perturb` overrides the module's
         field for this call (None keeps it). A MoE DiT appends the mean of
         its blocks' load-balance losses (a float32 scalar) to `moe_losses`
-        when that is a list."""
+        when that is a list. With `seq`, this rank's group under sequence
+        parallelism (`parallel/sequence_parallel.py`): the blocks (K and V
+        gathered over it) and the final layer run on its tokens, whose
+        outputs are gathered, so the rank returns the whole eps of its
+        rows."""
         perturb = self.pag_perturb if pag_perturb is None else pag_perturb
         h = self.x_embedder(x)
         h = h + self.pos_embed.to(h.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
             c = c + self.y_embedder(y)
+        if seq is not None:
+            h = seq.local(h)
         aux = []
         for block in self.blocks:
-            h = run_block(block, self.remat, h, c, perturb)
+            h = run_block(block, self.remat, h, c, perturb, seq)
             if self.num_experts:
                 h, loss = h
                 aux.append(loss)
         if aux and moe_losses is not None:
             moe_losses.append(torch.stack(aux).mean())
         h = self.final_layer(h, c)
+        if seq is not None:
+            h = seq.gather_output(h.to(torch.float32))
         # eps in float32 whatever the compute type, as the JAX model
         return unpatchify(h, *self.tokens_hw, self.patch_size,
                           self.out_channels).to(torch.float32).contiguous()

@@ -16,8 +16,9 @@ normalises in float32 and casts only its output, as flax's
 embeddings compute their trig in float32 and cast only the result.
 
 `Dropout` is every model's activation dropout: its mask is drawn over the
-global batch of a data-parallel run (and over the whole last axis of a
-tensor-parallel one), so a sharded run draws the single-device run's masks.
+global batch of a data-parallel run (over the whole last axis of a
+tensor-parallel one, over all the tokens of a sequence-parallel one), so a
+sharded run draws the single-device run's masks.
 """
 
 from __future__ import annotations
@@ -70,7 +71,10 @@ class Dropout(nn.Dropout):
     tensor-parallel rank's last axis is columns first .. of `total`. Every
     rank seeds that generator alike, so a sharded run draws exactly the
     masks the single-device run draws on the same global batch, and no two
-    ranks share one: what the JAX package's dropout does under GSPMD. Kept
+    ranks share one: what the JAX package's dropout does under GSPMD. A
+    sequence-parallel rank, `token_rank` of `token_ranks`, holds tokens
+    token_rank * l .. of a (B, l, ...) tensor: its mask is the slice of one
+    drawn over all token_ranks * l tokens. Kept
     values are scaled by 1 / (1 - p) in `F.dropout`'s own masked scale,
     which saves the one-byte mask as `F.dropout` does. One device draws only
     its own mask; a sharded rank draws the global mask for the moment of
@@ -81,6 +85,7 @@ class Dropout(nn.Dropout):
     def __init__(self, p: float = 0.5):
         super().__init__(p)
         self.data_rank, self.data_ranks = 0, 1
+        self.token_rank, self.token_ranks = 0, 1
         self.features: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +93,17 @@ class Dropout(nn.Dropout):
             return x
         rows, width = x.shape[0], x.shape[-1]
         first, total = self.features or (0, width)
-        keep = torch.empty((rows * self.data_ranks, *x.shape[1:-1], total),
+        mid = list(x.shape[1:-1])
+        tokens = self.token_ranks > 1 and len(mid) > 0
+        if tokens:
+            mid[0] *= self.token_ranks
+        keep = torch.empty((rows * self.data_ranks, *mid, total),
                            dtype=torch.bool, device=x.device
                            ).bernoulli_(1.0 - self.p)
-        if self.data_ranks > 1 or total != width:
+        if tokens:
+            n = x.shape[1]
+            keep = keep[:, self.token_rank * n:(self.token_rank + 1) * n]
+        if self.data_ranks > 1 or total != width or tokens:
             keep = keep[self.data_rank * rows:(self.data_rank + 1) * rows,
                         ..., first:first + width].contiguous()
         return _MaskedScale.apply(x, keep, 1.0 / (1.0 - self.p))

@@ -150,10 +150,11 @@ def kernel_sass() -> dict:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed and
-    # the head grid (heads, total_heads, batch0, head0)
+    # the attention kernels' dropout: on, threshold, 1 / (1 - p), seed, the
+    # head grid (heads, total_heads, batch0, head0) and the first query's
+    # global row
     dropout = [i32, ctypes.c_uint32, f32, ctypes.c_uint64,
-               *[ctypes.c_uint32] * 4]
+               *[ctypes.c_uint32] * 5]
     # the GroupNorm+SiLU and attention entries end in (bf16, stream): bf16
     # != 0 takes the bfloat16 form
     lib.gn_silu_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32, i32, ptr]
@@ -162,10 +163,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gn_silu_bwd.restype = i32
     lib.gn_silu_form.argtypes = [i32] * 5
     lib.gn_silu_form.restype = i32
-    lib.flash_attn_fwd.argtypes = ([ptr] * 5 + [i32, i32, i32, f32, i32]
+    # (bh, Lq, Lk, d, scale, tile)
+    lib.flash_attn_fwd.argtypes = ([ptr] * 5 + [i32] * 4 + [f32, i32]
                                    + dropout + [i32, ptr])
     lib.flash_attn_fwd.restype = i32
-    lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32, i32, i32, f32, i32, i32]
+    # (bh, Lq, Lk, d, scale, tile, fused)
+    lib.flash_attn_bwd.argtypes = ([ptr] * 11 + [i32] * 4 + [f32, i32, i32]
                                    + dropout + [i32, ptr])
     lib.flash_attn_bwd.restype = i32
     # the bias forms: the same arguments, then (bias, heads) before the stream
@@ -183,6 +186,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.selective_scan_bwd_nostate.restype = i32
     lib.selective_scan_bwd_nostate_needs_scratch.argtypes = [i32] * 3
     lib.selective_scan_bwd_nostate_needs_scratch.restype = i32
+    lib.selective_scan_fwd_state.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+    lib.selective_scan_fwd_state.restype = i32
+    lib.selective_scan_bwd_state.argtypes = [ptr] * 15 + [i32] * 5 + [ptr]
+    lib.selective_scan_bwd_state.restype = i32
     lib.selective_scan_fwd_split.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.selective_scan_fwd_split.restype = i32
     lib.selective_scan_bwd_split.argtypes = [ptr] * 15 + [i32] * 6 + [ptr]

@@ -20,6 +20,10 @@ The dropout masks are keyed on the global (batch, head) of each head
 row `batch0` in the global batch, a tensor-parallel rank its first head
 `head0` of `total_heads`, so a sharded run draws the single-device run's
 masks (every rank draws the same seed: torch's CPU generator, seeded alike).
+A sequence-parallel rank passes its own queries against the keys and values
+gathered from every rank (k, v longer than q) and `row0`, the global index
+of its first query token, which keys each query row's mask on its global
+row (E6).
 """
 
 from __future__ import annotations
@@ -55,13 +59,15 @@ def multihead_attention(
     batch0: int = 0,
     head0: int = 0,
     total_heads: Optional[int] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Attention over (B, L, D) tensors split into `num_heads` heads, with
-    dropout on the probabilities at `dropout_rate` unless `deterministic`,
-    and proportional attention over `key_sizes` (B, L) when given. The call's
-    rows are rows `batch0` .. of the global batch and its heads heads `head0`
-    .. of the model's `total_heads` (default `num_heads`): the place of its
-    dropout masks."""
+    """Attention of q (B, Lq, D) against k, v (B, Lk, D), split into
+    `num_heads` heads, with dropout on the probabilities at `dropout_rate`
+    unless `deterministic`, and proportional attention over `key_sizes` (B,
+    Lk) when given. The call's rows are rows `batch0` .. of the global batch,
+    its heads heads `head0` .. of the model's `total_heads` (default
+    `num_heads`) and its query tokens tokens `row0` .. of the sequence: the
+    place of its dropout masks."""
     batch, length, dim = q.shape
     head_dim = dim // num_heads
     dropout_p = 0.0 if deterministic else float(dropout_rate)
@@ -79,6 +85,6 @@ def multihead_attention(
             if (batch0, head0, total_heads) != (0, 0, num_heads)
             else ONE_DEVICE)
     out = flash_attention(split(q), split(k), split(v), dropout_p, seed, bias,
-                          grid)
+                          grid, row0)
     out = out.reshape(batch, num_heads, length, head_dim).transpose(1, 2)
     return out.reshape(batch, length, dim)

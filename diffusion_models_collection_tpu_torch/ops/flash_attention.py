@@ -41,7 +41,20 @@ head0) places the call's head bh at (batch0 + bh // heads) * total_heads +
 head0 + bh % heads of the model's (batch, head) grid, so a data-parallel
 rank (batch0 its first row) or a tensor-parallel rank (head0 its first head)
 draws the masks the single-device run draws for the same rows and heads.
-`ONE_DEVICE` = (1, 1, 0, 0), the default, maps bh to itself.
+`ONE_DEVICE` = (1, 1, 0, 0), the default, maps bh to itself. The query row
+of that key is global too: `row0` is the global index of the call's first
+query row (0 on one device).
+
+Queries and keys may differ in length (E6): q, o and dO (BH, Lq, d) against
+k and v (BH, Lk, d), lse (BH, Lq, 1), dk and dv at Lk. That is a
+sequence-parallel rank's attention (`parallel/sequence_parallel.py`): its
+own Lq = L / S queries, rows `row0` = s L / S .., against the keys and
+values gathered from every rank, so its dropout rows are the one-device
+run's. Every form of the kernels (float32 and bf16, the fused and two-kernel
+backward, the key bias, the head grid) walks the query and key tiles to
+their own lengths and masks each ragged tail; `fwd_tile` reads Lq, `bwd_tile`
+the longer of the two and `bwd_fused` Lk (the scratch of dq shares is one
+per key tile).
 
 q, k, v (o, dO, dq, dk, dv) are float32 or bfloat16, lse float32. A
 bfloat16 input takes the kernels' bf16 form, as the JAX kernels run on the
@@ -92,6 +105,9 @@ BF16_LAUNCHES = 0
 BWD_BF16_LAUNCHES = 0
 BIAS_LAUNCHES = 0
 BWD_BIAS_LAUNCHES = 0
+# and of those the ones whose keys are not the queries (Lk != Lq, E6)
+CROSS_LAUNCHES = 0
+BWD_CROSS_LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
 # Philox4x32's multipliers and key increments (Random123)
@@ -230,11 +246,12 @@ def philox_keep_mask(seed: int, bh: int, lq: int, lk: int, dropout_p: float,
 
 
 def dropout_factor(seed: int, dropout_p: float, shape, device=None,
-                   head_grid=ONE_DEVICE) -> torch.Tensor:
-    """Z = keep / (1 - p) over (BH, L, L) scores, float32: 1 / (1 - p) rounded
-    to float32 where kept, as the kernels multiply."""
-    keep = philox_keep_mask(seed, *shape, dropout_p, head_grid=head_grid,
-                            device=device)
+                   head_grid=ONE_DEVICE, row0: int = 0) -> torch.Tensor:
+    """Z = keep / (1 - p) over (BH, Lq, Lk) scores, query rows row0 ..,
+    float32: 1 / (1 - p) rounded to float32 where kept, as the kernels
+    multiply."""
+    keep = philox_keep_mask(seed, *shape, dropout_p, row0=row0,
+                            head_grid=head_grid, device=device)
     return keep.to(torch.float32) * torch.tensor(
         1.0 / (1.0 - dropout_p), dtype=torch.float32, device=device)
 
@@ -248,19 +265,20 @@ def _check_dropout(name: str, dropout_p: float, seed: Optional[int]) -> None:
 
 
 def _head_bias(bias: torch.Tensor, bh: int) -> torch.Tensor:
-    """The (B, L) key bias as (BH, 1, L): row b for the heads of item b."""
+    """The (B, Lk) key bias as (BH, 1, Lk): row b for the heads of item b."""
     return bias.repeat_interleave(bh // bias.shape[0], dim=0)[:, None, :]
 
 
 def flash_attention_fwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout_p: float = 0.0, seed: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE,
+    row0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention: o = (softmax(s) o Z) v with s = q k^T /
-    sqrt(d) (+ the key bias), Z the dropout factor (none at p = 0), and lse
-    = logsumexp(s) of shape (BH, L, 1); in float32, o rounded to q's
-    type."""
+    sqrt(d) (+ the key bias), Z the dropout factor of query rows row0 ..
+    (none at p = 0), and lse = logsumexp(s) of shape (BH, Lq, 1); in
+    float32, o rounded to q's type."""
     _check_dropout("flash_attention_fwd_ref", dropout_p, seed)
     dtype = q.dtype
     q, k, v = q.float(), k.float(), v.float()
@@ -271,7 +289,7 @@ def flash_attention_fwd_ref(
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
         probs = probs * dropout_factor(seed, dropout_p, probs.shape, q.device,
-                                       head_grid)
+                                       head_grid, row0)
     o = torch.matmul(probs, v)
     return o.to(dtype), torch.logsumexp(logits, dim=-1, keepdim=True)
 
@@ -279,18 +297,18 @@ def flash_attention_fwd_ref(
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_p: float = 0.0, seed: Optional[int] = None,
                         bias: Optional[torch.Tensor] = None,
-                        head_grid=ONE_DEVICE) -> torch.Tensor:
+                        head_grid=ONE_DEVICE, row0: int = 0) -> torch.Tensor:
     """Plain PyTorch attention output, differentiable by autograd (through
     the casts of a bfloat16 input: gradients in its type)."""
     return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias,
-                                   head_grid)[0]
+                                   head_grid, row0)[0]
 
 
 def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
     seed: Optional[int] = None, bias: Optional[torch.Tensor] = None,
-    head_grid=ONE_DEVICE
+    head_grid=ONE_DEVICE, row0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward (the JAX package's `_bwd_jnp`): P from lse
     (and the forward's key bias),
@@ -308,7 +326,8 @@ def flash_attention_bwd_ref(
     dp = torch.matmul(do, v.transpose(-1, -2))
     p_kept = p
     if dropout_p > 0.0:
-        z = dropout_factor(seed, dropout_p, p.shape, q.device, head_grid)
+        z = dropout_factor(seed, dropout_p, p.shape, q.device, head_grid,
+                           row0)
         p_kept, dp = p * z, dp * z
     dv = torch.matmul(p_kept.transpose(-1, -2), do)
     delta = (do * o).sum(dim=-1, keepdim=True)
@@ -317,13 +336,18 @@ def flash_attention_bwd_ref(
         torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv))
 
 
-def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
-    """q and every other tensor one (BH, L, d) shape; on the card d at most
-    MAX_HEAD_DIM and the tensors 32-bit indexable."""
-    if q.dim() != 3 or any(t.shape != q.shape for t in others):
+def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *like_q: torch.Tensor) -> None:
+    """q (and `like_q`: o, dO) (BH, Lq, d) and k, v (BH, Lk, d) with Lq, Lk
+    >= 1; on the card d at most MAX_HEAD_DIM and the tensors 32-bit
+    indexable."""
+    if (q.dim() != 3 or k.dim() != 3 or k.shape != v.shape
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]
+            or any(t.shape != q.shape for t in like_q)):
         raise ValueError(
-            f"{name}: the inputs must share one (BH, L, d) shape, got "
-            + ", ".join(str(tuple(t.shape)) for t in (q, *others)))
+            f"{name}: q{', o, dO' if like_q else ''} must be (BH, Lq, d) and "
+            "k, v (BH, Lk, d), got "
+            + ", ".join(str(tuple(t.shape)) for t in (q, k, v, *like_q)))
     head_dim = q.shape[-1]
     if head_dim < 1:
         raise ValueError(f"{name}: head_dim must be at least 1")
@@ -332,25 +356,29 @@ def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {head_dim} exceeds the kernel's "
                          f"limit of {MAX_HEAD_DIM}")
-    if q.shape[0] * q.shape[1] * padded_head_dim(head_dim, q.dtype) >= 2**31:
-        raise ValueError(f"{name}: shape {tuple(q.shape)} exceeds the "
-                         "kernel's 32-bit indexing")
+    if q.shape[1] < 1 or k.shape[1] < 1:
+        raise ValueError(f"{name}: the kernels take Lq, Lk >= 1, got "
+                         f"{q.shape[1]} and {k.shape[1]}")
+    rows = q.shape[0] * max(q.shape[1], k.shape[1])
+    if rows * padded_head_dim(head_dim, q.dtype) >= 2**31:
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)} "
+                         "exceed the kernel's 32-bit indexing")
 
 
 def _check_bias(name: str, bias: Optional[torch.Tensor],
-                q: torch.Tensor) -> None:
-    """The key bias: None, or float32 (B, L) on q's device, contiguous, with B
-    dividing q's BH (the kernels' bias forms read row bh / (BH / B))."""
+                k: torch.Tensor) -> None:
+    """The key bias: None, or float32 (B, Lk) on k's device, contiguous, with
+    B dividing BH (the kernels' bias forms read row bh / (BH / B))."""
     if bias is None:
         return
-    bh, seq_len = q.shape[0], q.shape[1]
+    bh, seq_len = k.shape[0], k.shape[1]
     if (bias.dim() != 2 or bias.shape[1] != seq_len or bias.shape[0] < 1
             or bh % bias.shape[0]):
         raise ValueError(f"{name}: the key bias must be (B, {seq_len}) with B "
                          f"dividing {bh}, got {tuple(bias.shape)}")
-    if bias.dtype != torch.float32 or bias.device != q.device:
+    if bias.dtype != torch.float32 or bias.device != k.device:
         raise TypeError(f"{name}: the key bias must be float32 on "
-                        f"{q.device}, got {bias.dtype} on {bias.device}")
+                        f"{k.device}, got {bias.dtype} on {bias.device}")
     if not bias.is_contiguous():
         raise ValueError(f"{name}: the key bias must be contiguous")
 
@@ -379,13 +407,22 @@ def _cut_heads(head_dim: int, *tensors: torch.Tensor):
     return tuple(t[..., :head_dim].contiguous() for t in tensors)
 
 
-def _dropout_args(dropout_p: float, seed: Optional[int], head_grid):
+def _dropout_args(dropout_p: float, seed: Optional[int], head_grid,
+                  row0: int):
     """The kernels' trailing dropout arguments: (on, threshold, 1 / (1 - p),
-    seed as an unsigned 64-bit int, the head grid's four words)."""
+    seed as an unsigned 64-bit int, the head grid's four words, row0)."""
     if dropout_p == 0.0:
-        return 0, 0, 1.0, 0, *ONE_DEVICE
+        return 0, 0, 1.0, 0, *ONE_DEVICE, 0
     return (1, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p),
-            seed & 0xFFFFFFFFFFFFFFFF, *head_grid)
+            seed & 0xFFFFFFFFFFFFFFFF, *head_grid, row0)
+
+
+def _check_row0(row0: int) -> int:
+    """The global index of the first query row, an int in [0, 2^31)."""
+    row0 = int(row0)
+    if not 0 <= row0 < 2**31:
+        raise ValueError(f"row0 must lie in [0, 2^31), got {row0}")
+    return row0
 
 
 def _signed_seed(seed: Optional[int]) -> Optional[int]:
@@ -398,9 +435,9 @@ def _signed_seed(seed: Optional[int]) -> Optional[int]:
 
 
 def _fwd_cpu(q, k, v, dropout_p: float, seed: Optional[int],
-             bias: Optional[torch.Tensor], head_grid=None):
+             bias: Optional[torch.Tensor], head_grid=None, row0: int = 0):
     return flash_attention_fwd_ref(q, k, v, dropout_p, seed, bias,
-                                   _grid(head_grid))
+                                   _grid(head_grid), row0)
 
 
 def _grid(head_grid) -> Tuple[int, int, int, int]:
@@ -409,11 +446,13 @@ def _grid(head_grid) -> Tuple[int, int, int, int]:
 
 
 def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
-              bias: Optional[torch.Tensor], head_grid=None):
+              bias: Optional[torch.Tensor], head_grid=None, row0: int = 0):
     """The forward kernel's launch: (o, lse)."""
     global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES, BIAS_LAUNCHES
+    global CROSS_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
+    keys = k.shape[1]
     lib = _build.library()
     q, k, v = _pad_heads(head_dim, q, k, v)
     # the kernel copies 16 bytes at a time: a view that starts elsewhere in
@@ -424,9 +463,10 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
     if q.numel():
         width = q.shape[-1]
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), bh, seq_len, width, 1.0 / math.sqrt(head_dim),
-                fwd_tile(seq_len, width, q.dtype),
-                *_dropout_args(dropout_p, seed, _grid(head_grid)), int(bf16))
+                lse.data_ptr(), bh, seq_len, keys, width,
+                1.0 / math.sqrt(head_dim), fwd_tile(seq_len, width, q.dtype),
+                *_dropout_args(dropout_p, seed, _grid(head_grid), row0),
+                int(bf16))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
@@ -439,15 +479,17 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
         DROPOUT_LAUNCHES += dropout_p > 0.0
         BF16_LAUNCHES += bf16
         BIAS_LAUNCHES += bias is not None
+        CROSS_LAUNCHES += keys != seq_len
     return (*_cut_heads(head_dim, o), lse)
 
 
 _FWD = _library.define(
     "flash_attn_fwd(Tensor q, Tensor k, Tensor v, float dropout_p, "
-    "int? seed, Tensor? bias, int[]? head_grid=None) -> (Tensor, Tensor)",
+    "int? seed, Tensor? bias, int[]? head_grid=None, int row0=0) -> "
+    "(Tensor, Tensor)",
     cpu=_fwd_cpu,
     cuda=_fwd_cuda,
-    fake=lambda q, k, v, dropout_p, seed, bias, head_grid=None: (
+    fake=lambda q, k, v, dropout_p, seed, bias, head_grid=None, row0=0: (
         torch.empty_like(q),
         q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)))
 
@@ -455,53 +497,56 @@ _FWD = _library.define(
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout_p: float = 0.0, seed: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE,
+    row0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over (BH, L, d) float32 or bfloat16, square scores,
-    with dropout on the probabilities when `dropout_p` > 0 (the mask of
-    `philox_keep_mask(seed, ..., head_grid=head_grid)`) and the key bias
-    when one is given, the
-    operator `dmc::flash_attn_fwd`: the kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (o, lse), o of q's type and lse float32
-    of shape (BH, L, 1), the JAX kernel's layout."""
+    """Attention forward of q (BH, Lq, d) against k, v (BH, Lk, d), float32
+    or bfloat16, with dropout on the probabilities when `dropout_p` > 0 (the
+    mask of `philox_keep_mask(seed, ..., row0=row0, head_grid=head_grid)`)
+    and the key bias (B, Lk) when one is given, the operator
+    `dmc::flash_attn_fwd`: the kernel for CUDA tensors, the plain version for
+    CPU tensors. Returns (o, lse), o of q's type and lse float32 of shape
+    (BH, Lq, 1), the JAX kernel's layout."""
     _build.check_io_dtype("flash_attention_fwd", (q, k, v))
     _check_shapes("flash_attention_fwd", q, k, v)
     _check_dropout("flash_attention_fwd", dropout_p, seed)
-    _check_bias("flash_attention_fwd", bias, q)
+    _check_bias("flash_attention_fwd", bias, k)
     grid = check_head_grid(head_grid, q.shape[0])
     return _FWD(q, k, v, float(dropout_p), _signed_seed(seed), bias,
-                None if grid == ONE_DEVICE else list(grid))
+                None if grid == ONE_DEVICE else list(grid), _check_row0(row0))
 
 
 def _bwd_cpu(q, k, v, o, dout, lse, dropout_p: float, seed: Optional[int],
              fused: Optional[bool], bias: Optional[torch.Tensor],
-             head_grid=None):
+             head_grid=None, row0: int = 0):
     return flash_attention_bwd_ref(q, k, v, o, dout, lse, dropout_p, seed,
-                                   bias, _grid(head_grid))
+                                   bias, _grid(head_grid), row0)
 
 
 def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
               fused: Optional[bool], bias: Optional[torch.Tensor],
-              head_grid=None):
+              head_grid=None, row0: int = 0):
     """The backward kernel's launch in the form `fused` picks (None:
     `bwd_fused`): (dq, dk, dv)."""
     global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
-    global BWD_BIAS_LAUNCHES
+    global BWD_BIAS_LAUNCHES, BWD_CROSS_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
+    keys = k.shape[1]
     q, k, v, o, do = _pad_heads(head_dim, q, k, v, o, do)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd: q, k, v and dO must be "
                          "16-byte aligned")
     lib = _build.library()
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, seq_len), dtype=torch.float32, device=q.device)
     if q.numel():
         if fused is None:
-            fused = bwd_fused(seq_len)
+            fused = bwd_fused(keys)
         width = q.shape[-1]
-        tile = bwd_tile(seq_len, width, q.dtype)
-        tiles = -(-seq_len // tile)
+        tile = bwd_tile(max(seq_len, keys), width, q.dtype)
+        tiles = -(-keys // tile)  # key tiles, one dq share each
         partial = None
         if fused and tiles > 1:
             partial = torch.empty((bh, tiles, seq_len, width),
@@ -511,9 +556,10 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 None if partial is None else partial.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len,
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, seq_len, keys,
                 width, 1.0 / math.sqrt(head_dim), tile, int(fused),
-                *_dropout_args(dropout_p, seed, _grid(head_grid)), int(bf16))
+                *_dropout_args(dropout_p, seed, _grid(head_grid), row0),
+                int(bf16))
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
@@ -526,41 +572,46 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
         BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
         BWD_BF16_LAUNCHES += bf16
         BWD_BIAS_LAUNCHES += bias is not None
+        BWD_CROSS_LAUNCHES += keys != seq_len
     return _cut_heads(head_dim, dq, dk, dv)
 
 
 _BWD = _library.define(
     "flash_attn_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor dout, "
     "Tensor lse, float dropout_p, int? seed, bool? fused, Tensor? bias, "
-    "int[]? head_grid=None) -> (Tensor, Tensor, Tensor)",
+    "int[]? head_grid=None, int row0=0) -> (Tensor, Tensor, Tensor)",
     cpu=_bwd_cpu,
     cuda=_bwd_cuda,
-    fake=lambda q, *args: tuple(torch.empty_like(q) for _ in range(3)))
+    fake=lambda q, k, v, *args, **kwargs: (
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: torch.Tensor, dropout_p: float = 0.0,
     seed: Optional[int] = None, fused: Optional[bool] = None,
-    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE
+    bias: Optional[torch.Tensor] = None, head_grid=ONE_DEVICE,
+    row0: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Attention backward over (BH, L, d) float32 or bfloat16 (q, k, v, o
-    and dO of one type) from the forward's o and float32 lse (BH, L, 1) and
-    its `dropout_p`, `seed`, key `bias` and `head_grid`, the operator
-    `dmc::flash_attn_bwd`: the kernel for CUDA tensors, the plain version
-    for CPU tensors. Returns (dq, dk, dv) of q's type. `fused` picks the
-    kernel's form; None leaves it to `bwd_fused`."""
+    """Attention backward of q, o, dO (BH, Lq, d) against k, v (BH, Lk, d),
+    float32 or bfloat16 (all of one type), from the forward's o and float32
+    lse (BH, Lq, 1) and its `dropout_p`, `seed`, key `bias`, `head_grid` and
+    `row0`, the operator `dmc::flash_attn_bwd`: the kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns (dq, dk, dv) of q's type, dk
+    and dv at Lk. `fused` picks the kernel's form; None leaves it to
+    `bwd_fused`."""
     _build.check_io_dtype("flash_attention_bwd", (q, k, v, o, do), (lse,))
     _check_shapes("flash_attention_bwd", q, k, v, o, do)
     _check_dropout("flash_attention_bwd", dropout_p, seed)
-    _check_bias("flash_attention_bwd", bias, q)
+    _check_bias("flash_attention_bwd", bias, k)
     bh, seq_len, _ = q.shape
     if lse.shape != (bh, seq_len, 1):
         raise ValueError(f"flash_attention_bwd: lse must be ({bh}, {seq_len}, "
                          f"1), got {tuple(lse.shape)}")
     grid = check_head_grid(head_grid, bh)
     return _BWD(q, k, v, o, do, lse, float(dropout_p), _signed_seed(seed),
-                fused, bias, None if grid == ONE_DEVICE else list(grid))
+                fused, bias, None if grid == ONE_DEVICE else list(grid),
+                _check_row0(row0))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -573,12 +624,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, dropout_p=0.0, seed=None, bias=None,
-                head_grid=ONE_DEVICE):
+                head_grid=ONE_DEVICE, row0=0):
         o, lse = flash_attention_fwd(q, k, v, dropout_p, seed, bias,
-                                     head_grid)
+                                     head_grid, row0)
         ctx.save_for_backward(q, k, v, o, lse, bias)
         ctx.dropout = (dropout_p, seed)
-        ctx.head_grid = head_grid
+        ctx.place = (head_grid, row0)
         return o
 
     @staticmethod
@@ -587,16 +638,19 @@ class FlashAttention(torch.autograd.Function):
         # autograd hands dO over in the layout of the caller's reshapes
         grads = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
                                     *ctx.dropout, bias=bias,
-                                    head_grid=ctx.head_grid)
-        return (*grads, None, None, None, None)
+                                    head_grid=ctx.place[0],
+                                    row0=ctx.place[1])
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_p: float = 0.0, seed: Optional[int] = None,
                     bias: Optional[torch.Tensor] = None,
-                    head_grid=ONE_DEVICE) -> torch.Tensor:
-    """Differentiable attention over (BH, L, d) float32 or bfloat16 through
-    the forward and backward kernels (their plain versions on the CPU), with
-    dropout on the probabilities when `dropout_p` > 0 (its masks placed by
-    `head_grid`) and the key bias (B, L) when one is given; o of q's type."""
-    return FlashAttention.apply(q, k, v, dropout_p, seed, bias, head_grid)
+                    head_grid=ONE_DEVICE, row0: int = 0) -> torch.Tensor:
+    """Differentiable attention of q (BH, Lq, d) against k, v (BH, Lk, d),
+    float32 or bfloat16, through the forward and backward kernels (their
+    plain versions on the CPU), with dropout on the probabilities when
+    `dropout_p` > 0 (its masks placed by `head_grid` and `row0`) and the key
+    bias (B, Lk) when one is given; o of q's type."""
+    return FlashAttention.apply(q, k, v, dropout_p, seed, bias, head_grid,
+                                row0)

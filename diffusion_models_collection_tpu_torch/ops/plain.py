@@ -10,13 +10,15 @@ launch their kernel or raise.
 import contextlib
 
 from ..models import dim, unet
+from ..parallel import dim_sequence_parallel as dim_sp
 from . import attention, flash_attention, fused_norm, selective_scan
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Point the kernels' call sites (the UNet's GroupNorm+SiLU, the
-    attention, the DiM's selective scan) at plain PyTorch versions, so
+    attention, the DiM's selective scan and the sequence-parallel DiM's
+    stated scans) at plain PyTorch versions, so
     neither the forward kernels nor the backward kernels run; restore them
     on exit. Attention becomes plain code that autograd differentiates,
     called with the same dropout arguments (so the same seed gives the same
@@ -26,12 +28,17 @@ def plain_kernels():
     backward: they do the kernels' passes, and autograd through the scan's
     L-step loop would hold every step's (batch, D, N) state."""
     saved = (unet.group_norm_silu, attention.flash_attention,
-             dim.selective_scan)
+             dim.selective_scan, dim_sp.selective_scan_with_state,
+             dim_sp.selective_scan_end_state)
     unet.group_norm_silu = fused_norm.group_norm_silu_plain
     attention.flash_attention = flash_attention.flash_attention_ref
     dim.selective_scan = selective_scan.selective_scan_ref
+    dim_sp.selective_scan_with_state = (
+        selective_scan.selective_scan_with_state_ref)
+    dim_sp.selective_scan_end_state = selective_scan.selective_scan_end_state_ref
     try:
         yield
     finally:
         (unet.group_norm_silu, attention.flash_attention,
-         dim.selective_scan) = saved
+         dim.selective_scan, dim_sp.selective_scan_with_state,
+         dim_sp.selective_scan_end_state) = saved

@@ -38,10 +38,30 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   adjoint from chunk to chunk in a serial pass and completes each chunk.
   `csrc/selective_scan_split.cu` on a CUDA tensor, the `_ref` versions, the
   same passes in plain PyTorch, on a CPU tensor.
+* `selective_scan_with_state` (E4, the JAX package's
+  `selective_scan_with_state`, the sequence-parallel DiM's building block:
+  `parallel/dim_sequence_parallel.py`) runs the recurrence from a state
+  h_in (batch, D, N) and returns (y, h_out), the state after the last step;
+  `selective_scan_end_state` returns h_out alone (no y: the distributed
+  scan's first pass). Their forward is `selective_scan_fwd_state`, K5/K6's
+  walk from h_in (`csrc/selective_scan_fwd.cu`, always with its block
+  states), their backward `selective_scan_bwd_state`, K8's sweep with its
+  adjoint starting from the cotangent of h_out and ending in dh_in
+  (`csrc/selective_scan_bwd.cu`). The time-split routes (`split_forward`,
+  `split_backward`) never take a stated scan: its shards are short (L / S
+  tokens), and K9/K10's passes start from zero. A stated scan keeps its
+  block states under gradient checkpointing too (the recompute holds them
+  only inside its window), so there is no stated K7.
+* `chunk_size` (the JAX package's XLA chunked scan) scans the chunks of
+  that many steps in turn, each a stated scan from the state the one before
+  left: the same function of the inputs as the whole scan, through the
+  stated kernels on the card and their plain versions on the CPU.
 * Each launcher is a `torch.library` operator (`ops/_library.py`):
   `dmc::selective_scan_fwd` and `dmc::selective_scan_fwd_states` (states
   off and on), `dmc::selective_scan_bwd`, `dmc::selective_scan_bwd_nostate`,
-  `dmc::selective_scan_fwd_split` and `dmc::selective_scan_bwd_split`.
+  `dmc::selective_scan_fwd_split` and `dmc::selective_scan_bwd_split`,
+  `dmc::selective_scan_fwd_state`, `dmc::selective_scan_end_state` and
+  `dmc::selective_scan_bwd_state`.
 * `SelectiveScan` joins them as the JAX `_selective_scan_core` custom_vjp
   does. With no gradient wanted the forward saves nothing (K5). With one,
   it saves the block states (K6, or K9 where `split_forward` says so) and
@@ -61,9 +81,7 @@ own: the DiM's `Mamba` mixer, cut to a tensor-parallel rank
 (`parallel/tensor_parallel.py`), calls these kernels unchanged on its rank's
 d_inner / tp channels, with (dt, B, C) all-reduced before the scan, and
 `scan_tensor_parallel`, the JAX package's scope for it, is a no-op kept for
-its callers. The sequence-parallel scan (`selective_scan_with_state`) and
-the XLA `chunk_size` path raise: they are the sequence-parallel slice's
-(ROADMAP queue 1 item 15).
+its callers.
 """
 
 from __future__ import annotations
@@ -87,6 +105,10 @@ BWD_LAUNCHES = 0
 BWD_NOSTATE_LAUNCHES = 0
 FWD_SPLIT_LAUNCHES = 0
 BWD_SPLIT_LAUNCHES = 0
+# the stated forms' (E4): the forward from h_in (with y or without) and the
+# backward to dh_in
+FWD_STATE_LAUNCHES = 0
+BWD_STATE_LAUNCHES = 0
 
 # Channels of one row in a tile of the backward rules (`split_backward`,
 # `bwd_chunk_blocks`; the thread-a-channel passes of K10 cover 128) and in a
@@ -264,18 +286,20 @@ def _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, first, blocks, outs):
     `blocks`, the first of which is block number `first`, last to first:
     recompute h inside each block from `bound`, run the adjoint gamma_t =
     C_t ybar_t + a_{t+1} gamma_{t+1} backwards from the carry phi = a_{t+1}
-    gamma_{t+1}. Writes dx, ddt, dB, dC of those steps into `outs`; returns
-    (the carry out of the first block, dA (D, N) summed over the batch)."""
+    gamma_{t+1}. Writes dx, ddt, dB, dC of those steps into `outs` (dC 0
+    where g, the cotangent of y, is None); returns (the carry out of the
+    first block, dA (D, N) summed over the batch)."""
     dx, ddt, dB, dC = outs
     dA = torch.zeros_like(A)
     for k in range(len(blocks) - 1, -1, -1):
         t0, steps = blocks[k]
         sl = slice(t0, t0 + steps)
-        dt_c, x_c, b_c, c_c, g_c = dt[:, sl], x[:, sl], B[:, sl], C[:, sl], g[:, sl]
+        dt_c, x_c, b_c = dt[:, sl], x[:, sl], B[:, sl]
         decay = torch.exp(dt_c[..., None] * A)                 # (B, T, D, N)
         u_c = dt_c * x_c
         drive = u_c[..., None] * b_c[:, :, None, :]
-        w = c_c[:, :, None, :] * g_c[..., None]                 # C_t (x) ybar_t
+        # C_t (x) ybar_t; none without a cotangent of y
+        w = None if g is None else C[:, sl, None, :] * g[:, sl, :, None]
         h = bound[:, first + k].transpose(1, 2)
         h_prevs, hs = [], []
         for s in range(steps):
@@ -284,7 +308,7 @@ def _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, first, blocks, outs):
             hs.append(h)
         gammas = [None] * steps
         for s in range(steps - 1, -1, -1):
-            gammas[s] = w[:, s] + phi
+            gammas[s] = phi if w is None else w[:, s] + phi
             phi = decay[:, s] * gammas[s]
         gamma = torch.stack(gammas, 1)
         dadec = gamma * torch.stack(h_prevs, 1) * decay
@@ -292,7 +316,8 @@ def _bwd_blocks_ref(x, dt, A, B, C, g, bound, phi, first, blocks, outs):
         ddt[:, sl] = (dadec * A).sum(-1) + g_b * x_c
         dx[:, sl] = g_b * dt_c
         dB[:, sl] = (gamma * u_c[..., None]).sum(2)
-        dC[:, sl] = (torch.stack(hs, 1) * g_c[..., None]).sum(2)
+        dC[:, sl] = (0.0 if g is None else
+                     (torch.stack(hs, 1) * g[:, sl, :, None]).sum(2))
         dA += (dadec * dt_c[..., None]).sum((0, 1))
     return phi, dA
 
@@ -359,6 +384,39 @@ def selective_scan_bwd_split_ref(
         phi = torch.exp(total[..., None] * A) * phi + out
     dx, ddt, dB, dC = outs
     return dx, ddt, dA, dB, dC
+
+
+def selective_scan_fwd_state_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, h_in: torch.Tensor, with_y: bool = True
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Plain PyTorch stated forward: the blocked walk from h_in (batch, D,
+    N). Returns (y without the D skip, or None without `with_y`; bound,
+    whose block 0 is h_in; h_out)."""
+    ys, bounds, h_out = _fwd_blocks_ref(x, dt, A, B, C if with_y else None,
+                                        h_in, _blocks(x.shape[1]))
+    y = None
+    if with_y:
+        y = torch.cat(ys, dim=1) if ys else x.clone()
+    bound = (_stack_bound(bounds) if bounds else
+             x.new_zeros(x.shape[0], 0, A.shape[1], x.shape[2]))
+    return y, bound, h_out.clone()
+
+
+def selective_scan_bwd_state_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: Optional[torch.Tensor], bound: torch.Tensor,
+    g_hout: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch stated backward: the reverse sweep from the stated
+    forward's `bound` with the carry starting from g_hout, the cotangent of
+    h_out; g, the cotangent of y, is None for the state-only form. Returns
+    (dx, ddt, dA, dB, dC, dh_in)."""
+    outs = _empty_grads(x, B, C)
+    dh_in, dA = _bwd_blocks_ref(x, dt, A, B, C, g, bound, g_hout, 0,
+                                _blocks(x.shape[1]), outs)
+    dx, ddt, dB, dC = outs
+    return dx, ddt, dA, dB, dC, dh_in.clone()
 
 
 def _check_shapes(name: str, x, dt, A, B, C, *others) -> Tuple[int, ...]:
@@ -694,6 +752,124 @@ def selective_scan_bwd_split(
     return _BWD_SPLIT(x, dt, A, B, C, g, bound)
 
 
+def _check_state(name: str, h, batch, d_inner, n_state) -> None:
+    if h.shape != (batch, d_inner, n_state):
+        raise ValueError(f"{name}: a state must be {(batch, d_inner, n_state)}"
+                         f", got {tuple(h.shape)}")
+
+
+def _fwd_state_cuda(x, dt, A, B, C, h_in, with_y: bool):
+    """The stated forward's launch (E4): (y or None, bound, h_out)."""
+    global FWD_STATE_LAUNCHES
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
+    y = torch.empty_like(x) if with_y else None
+    bound = _bound_like(x, n_state)
+    if not x.numel():
+        return y, bound, h_in.clone()
+    h_out = torch.empty_like(h_in)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.selective_scan_fwd_state(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), None if y is None else y.data_ptr(),
+            bound.data_ptr(), h_in.data_ptr(), h_out.data_ptr(), batch,
+            length, d_inner, n_state, t_block_for(length), _stream(x.device))
+    _build.check(err, "selective_scan_fwd_state")
+    FWD_STATE_LAUNCHES += 1
+    return y, bound, h_out
+
+
+def _state_fake(x, dt, A, B, C, h_in):
+    return _bound_like(x, A.shape[1]), torch.empty_like(h_in)
+
+
+_FWD_STATE = _library.define(
+    f"selective_scan_fwd_state({_SCAN_ARGS}, Tensor h_in) "
+    "-> (Tensor, Tensor, Tensor)",
+    cpu=lambda *a: selective_scan_fwd_state_ref(*a, with_y=True),
+    cuda=lambda *a: _fwd_state_cuda(*a, with_y=True),
+    fake=lambda x, *a: (torch.empty_like(x), *_state_fake(x, *a)))
+_END_STATE = _library.define(
+    f"selective_scan_end_state({_SCAN_ARGS}, Tensor h_in) "
+    "-> (Tensor, Tensor)",
+    cpu=lambda *a: selective_scan_fwd_state_ref(*a, with_y=False)[1:],
+    cuda=lambda *a: _fwd_state_cuda(*a, with_y=False)[1:],
+    fake=_state_fake)
+
+
+def selective_scan_fwd_state(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, h_in: torch.Tensor, with_y: bool = True
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Stated scan forward over float32 inputs from h_in (batch, D, N), the
+    operator `dmc::selective_scan_fwd_state` (`dmc::selective_scan_end_state`
+    without `with_y`): the kernel for CUDA tensors, the plain version for CPU
+    tensors. Returns (y without the D skip, or None without `with_y`; bound;
+    h_out)."""
+    name = "selective_scan_fwd_state"
+    _build.check_inputs(name, x, dt, A, B, C, h_in)
+    batch, _, d_inner, n_state = _check_shapes(name, x, dt, A, B, C)
+    _check_state(name, h_in, batch, d_inner, n_state)
+    if with_y:
+        return _FWD_STATE(x, dt, A, B, C, h_in)
+    return (None, *_END_STATE(x, dt, A, B, C, h_in))
+
+
+def _bwd_state_cuda(x, dt, A, B, C, g, bound, g_hout):
+    """The stated backward's launch (E4): (dx, ddt, dA, dB, dC, dh_in); g
+    None launches the form without a cotangent of y (no g or C read, dC
+    0)."""
+    global BWD_STATE_LAUNCHES
+    if not x.numel():
+        return (*_zero_grads(x, A, B, C), g_hout.clone())
+    batch, length, d_inner = x.shape
+    n_state = A.shape[1]
+    lib = _build.library()
+    dx, ddt, dB, dC, da_rows, partial = _bwd_outputs(
+        lib, x, B, C, (batch, d_inner, n_state))
+    dh_in = torch.empty_like(g_hout)
+    with torch.cuda.device(x.device):  # the stream: see _bwd_cuda
+        err = lib.selective_scan_bwd_state(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), None if g is None else g.data_ptr(),
+            bound.data_ptr(), g_hout.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da_rows.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), partial.data_ptr(), dh_in.data_ptr(), batch,
+            length, d_inner, n_state, t_block_for(length), _stream(x.device))
+    _build.check(err, "selective_scan_bwd_state")
+    BWD_STATE_LAUNCHES += 1
+    return dx, ddt, da_rows.sum(0), dB, dC, dh_in
+
+
+_BWD_STATE = _library.define(
+    f"selective_scan_bwd_state({_SCAN_ARGS}, Tensor? g, Tensor bound, "
+    "Tensor g_hout) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=selective_scan_bwd_state_ref, cuda=_bwd_state_cuda,
+    fake=lambda x, dt, A, B, C, g, bound, g_hout: (
+        *_grads_fake(x, dt, A, B, C), torch.empty_like(g_hout)))
+
+
+def selective_scan_bwd_state(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+    C: torch.Tensor, g: Optional[torch.Tensor], bound: torch.Tensor,
+    g_hout: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Stated scan backward from the stated forward's `bound` and the
+    cotangents g of y (None after the state-only form, whose y nobody
+    reads) and g_hout of h_out, the operator `dmc::selective_scan_bwd_state`:
+    the kernel for CUDA tensors, the plain version for CPU tensors. Returns
+    (dx, ddt, dA, dB, dC, dh_in)."""
+    name = "selective_scan_bwd_state"
+    ys = () if g is None else (g,)
+    _build.check_inputs(name, x, dt, A, B, C, *ys, bound, g_hout)
+    batch, length, d_inner, n_state = _check_shapes(name, x, dt, A, B, C,
+                                                    *ys)
+    _check_bound(name, bound, batch, length, d_inner, n_state)
+    _check_state(name, g_hout, batch, d_inner, n_state)
+    return _BWD_STATE(x, dt, A, B, C, g, bound, g_hout)
+
+
 def _scan_forward(ctx, suffix, x, dt, A, B, C, save_states):
     """Forward of the wrappers (suffix "") or the plain versions ("_ref"),
     looked up by name at the call."""
@@ -753,16 +929,78 @@ class SelectiveScanRef(torch.autograd.Function):
         return _scan_backward(ctx, "_ref", g)
 
 
+def _state_forward(ctx, suffix, x, dt, A, B, C, h_in, with_y):
+    y, bound, h_out = globals()["selective_scan_fwd_state" + suffix](
+        x, dt, A, B, C, h_in, with_y)
+    ctx.save_for_backward(x, dt, A, B, C, bound)
+    ctx.with_y = with_y
+    return (y, h_out) if with_y else h_out
+
+
+def _state_backward(ctx, suffix, *grads):
+    x, dt, A, B, C, bound = ctx.saved_tensors
+    g = grads[0].contiguous() if ctx.with_y else None
+    g_hout = grads[-1].contiguous()
+    out = (selective_scan_bwd_state if suffix == "" else
+           selective_scan_bwd_state_ref)(x, dt, A, B, C, g, bound, g_hout)
+    return (*out, None)
+
+
+class SelectiveScanState(torch.autograd.Function):
+    """The stated scan (JAX `selective_scan_with_state`'s custom_vjp): from
+    (x, dt, A, B, C, h_in) to (y, h_out), or h_out alone without `with_y`;
+    the forward saves its block states, the backward runs from them with
+    both cotangents and returns dh_in beside the other gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h_in, with_y):
+        return _state_forward(ctx, "", x, dt, A, B, C, h_in, with_y)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _state_backward(ctx, "", *grads)
+
+
+class SelectiveScanStateRef(torch.autograd.Function):
+    """`SelectiveScanState` over the plain versions, for
+    `ops.plain.plain_kernels`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, h_in, with_y):
+        return _state_forward(ctx, "_ref", x, dt, A, B, C, h_in, with_y)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _state_backward(ctx, "_ref", *grads)
+
+
+def _chunked(state_fn, x, dt, A, B, C, chunk_size: int) -> torch.Tensor:
+    """The scan over chunks of `chunk_size` steps in turn, each from the
+    state the one before left (JAX `_scan_state_impl` with an int chunk):
+    y without the D skip."""
+    batch, length, d_inner = x.shape
+    if chunk_size < 1 or length % chunk_size:
+        raise ValueError("sequence length must divide chunk_size")
+    h = x.new_zeros(batch, d_inner, A.shape[1])
+    ys = []
+    for t0 in range(0, length, chunk_size):
+        part = slice(t0, t0 + chunk_size)
+        y, h = state_fn(*(t[:, part].contiguous() for t in (x, dt)), A,
+                        *(t[:, part].contiguous() for t in (B, C)), h)
+        ys.append(y)
+    return torch.cat(ys, dim=1) if ys else x.new_zeros(x.shape)
+
+
 def _apply(fn, x, dt, A, B, C, D, chunk_size, save_states):
     if chunk_size is not None:
-        raise NotImplementedError(
-            "selective_scan: chunk_size selects the JAX package's XLA "
-            "chunked scan, which is not ported: the sequence-parallel slice "
-            "(ROADMAP queue 1 item 15)")
-    inputs = [t.contiguous() for t in (x, dt, A, B, C)]
-    wants_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in inputs)
-    y = fn.apply(*inputs, wants_grad and save_states)
+        state_fn = (selective_scan_with_state if fn is SelectiveScan
+                    else selective_scan_with_state_ref)
+        y = _chunked(state_fn, x, dt, A, B, C, int(chunk_size))
+    else:
+        inputs = [t.contiguous() for t in (x, dt, A, B, C)]
+        wants_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in inputs)
+        y = fn.apply(*inputs, wants_grad and save_states)
     if D is not None:
         y = y + x * D
     return y
@@ -776,7 +1014,9 @@ def selective_scan(x, dt, A, B, C, D=None, *, chunk_size=None,
     A's gradient on to A_log), D the optional (D,) skip. `save_states=False`
     keeps no block states for the backward, which then rebuilds them: for a
     caller under gradient checkpointing, which exists to keep no
-    residuals."""
+    residuals. `chunk_size` (dividing L) scans chunks of that many steps in
+    turn through the stated scan (the JAX package's XLA chunked path); the
+    result is the whole scan's."""
     return _apply(SelectiveScan, x, dt, A, B, C, D, chunk_size, save_states)
 
 
@@ -787,11 +1027,33 @@ def selective_scan_ref(x, dt, A, B, C, D=None, *, chunk_size=None,
                   save_states)
 
 
-def selective_scan_with_state(*args, **kwargs):
-    """Not ported: the sequence-parallel scan's building block."""
-    raise NotImplementedError(
-        "selective_scan_with_state (the sequence-parallel DiM scan) is not "
-        "ported yet: the sequence-parallel slice (ROADMAP queue 1 item 15)")
+def _with_state(fn, x, dt, A, B, C, h_in, with_y):
+    return fn.apply(*(t.contiguous() for t in (x, dt, A, B, C, h_in)),
+                    with_y)
+
+
+def selective_scan_with_state(x, dt, A, B, C, h_in):
+    """Differentiable selective scan from the state h_in (batch, D, N)
+    float32 (JAX `selective_scan_with_state`): returns (y without a D skip,
+    h_out), through the stated kernels (their plain versions on the CPU);
+    the gradients reach x, dt, A, B, C and h_in."""
+    return _with_state(SelectiveScanState, x, dt, A, B, C, h_in, True)
+
+
+def selective_scan_end_state(x, dt, A, B, C, h_in):
+    """h_out of `selective_scan_with_state` alone: the stated forward
+    without y (no C read, no y written), differentiable the same way."""
+    return _with_state(SelectiveScanState, x, dt, A, B, C, h_in, False)
+
+
+def selective_scan_with_state_ref(x, dt, A, B, C, h_in):
+    """`selective_scan_with_state` through the plain versions."""
+    return _with_state(SelectiveScanStateRef, x, dt, A, B, C, h_in, True)
+
+
+def selective_scan_end_state_ref(x, dt, A, B, C, h_in):
+    """`selective_scan_end_state` through the plain versions."""
+    return _with_state(SelectiveScanStateRef, x, dt, A, B, C, h_in, False)
 
 
 @contextlib.contextmanager

@@ -13,6 +13,11 @@ and the port's code calls the collectives itself.
 * `Layout` is a run's (data, model) mesh: `tensor_parallel` ranks a model
   group (consecutive ranks, as the JAX `data_model_mesh` reshapes its
   devices (dp, tp)), `world / tensor_parallel` model replicas over 'data'.
+  With `sequence_parallel` S it is the (data, seq, model) mesh of the JAX
+  `data_seq_model_mesh` (`data_seq_mesh` at tp 1), 'model' innermost: rank
+  (d S + s) tp + m; the S seq ranks of a model group share its rows and
+  hold its tokens s L / S .., and `replica_group` joins the ranks of one
+  model index, over which a sequence-parallel run sums its gradients.
   Without a process group it is the one-device layout, and every collective
   of the port is skipped.
 * Every rank draws the step's draws for the global batch from a generator
@@ -31,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
 
 
@@ -98,15 +104,20 @@ def is_main_process() -> bool:
 
 @dataclass
 class Layout:
-    """A run's place on the (data, model) mesh: `dp` replicas over 'data'
-    times `tp` ranks a model group; this rank's `dp_rank` and `tp_rank`;
-    the mesh and its groups (None in the one-device layout)."""
+    """A run's place on the (data, [seq,] model) mesh: `dp` replicas over
+    'data' times `sp` seq ranks times `tp` ranks a model group; this rank's
+    `dp_rank`, `sp_rank` and `tp_rank`; the mesh and its groups (None in the
+    one-device layout), and with `sp` > 1 `replica_group`, the (data, seq)
+    ranks of this rank's model index."""
 
     dp: int = 1
     tp: int = 1
     dp_rank: int = 0
     tp_rank: int = 0
     mesh: object = None  # torch.distributed.device_mesh.DeviceMesh
+    sp: int = 1
+    sp_rank: int = 0
+    replica_group: object = None
 
     @property
     def dp_group(self):
@@ -115,6 +126,10 @@ class Layout:
     @property
     def tp_group(self):
         return None if self.mesh is None else self.mesh.get_group(MODEL_AXIS)
+
+    @property
+    def sp_group(self):
+        return None if self.sp == 1 else self.mesh.get_group(SEQ_AXIS)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a tensor over the global batch (dp equal
@@ -137,24 +152,61 @@ class Layout:
         return x / self.dp
 
 
-def make_layout(device: torch.device, tensor_parallel: int = 1) -> Layout:
+def data_seq_model_mesh(device_type: str, dp: int, sp: int, tp: int):
+    """The (data, seq, model) `DeviceMesh` over ranks 0 .. dp sp tp - 1,
+    'model' innermost (the JAX `data_seq_model_mesh`: the per-block
+    tensor-parallel all-reduces on the nearest ranks, the sequence gathers
+    next, the gradient sum over 'data' farthest)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (dp, sp, tp),
+                            mesh_dim_names=(DATA_AXIS, SEQ_AXIS, MODEL_AXIS))
+
+
+def data_seq_mesh(device_type: str, dp: int, sp: int):
+    """The (data, seq, model) mesh with one rank a model group (the JAX
+    `data_seq_mesh`)."""
+    return data_seq_model_mesh(device_type, dp, sp, 1)
+
+
+def make_layout(device: torch.device, tensor_parallel: int = 1,
+                sequence_parallel: int = 1) -> Layout:
     """The layout of this process: one device without a process group, else
     the (world / tensor_parallel, tensor_parallel) mesh over the group (at
-    world 1 too), on `device`'s type, with axes 'data' and 'model'."""
+    world 1 too), on `device`'s type, with axes 'data' and 'model'; with
+    `sequence_parallel` > 1 the (data, seq, model) mesh."""
     tp = int(tensor_parallel or 1)
+    sp = int(sequence_parallel or 1)
     world = process_count()
     if world % tp:
         raise ValueError(f"tensor_parallel={tp} does not divide {world} "
+                         "devices")
+    if sp > 1 and world % (sp * tp):
+        if tp > 1:
+            raise ValueError(f"sequence_parallel={sp} x tensor_parallel="
+                             f"{tp} does not divide {world} devices")
+        raise ValueError(f"sequence_parallel={sp} does not divide {world} "
                          "devices")
     if not (dist.is_available() and dist.is_initialized()):
         if tp > 1:
             raise ValueError(f"tensor_parallel={tp} needs {tp} processes "
                              "(torchrun --nproc_per_node N)")
         return Layout()
-    from torch.distributed.device_mesh import init_device_mesh
-
-    mesh = init_device_mesh(torch.device(device).type, (world // tp, tp),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    device_type = torch.device(device).type
     rank = process_index()
-    return Layout(dp=world // tp, tp=tp, dp_rank=rank // tp,
-                  tp_rank=rank % tp, mesh=mesh)
+    if sp == 1:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh(device_type, (world // tp, tp),
+                                mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+        return Layout(dp=world // tp, tp=tp, dp_rank=rank // tp,
+                      tp_rank=rank % tp, mesh=mesh)
+    dp = world // (sp * tp)
+    mesh = data_seq_model_mesh(device_type, dp, sp, tp)
+    # the (data, seq) ranks of each model index: every rank makes every
+    # group, in one order
+    replicas = [dist.new_group([(d * sp + s) * tp + m for d in range(dp)
+                                for s in range(sp)]) for m in range(tp)]
+    return Layout(dp=dp, tp=tp, dp_rank=rank // (sp * tp), tp_rank=rank % tp,
+                  mesh=mesh, sp=sp, sp_rank=(rank // tp) % sp,
+                  replica_group=replicas[rank % tp])

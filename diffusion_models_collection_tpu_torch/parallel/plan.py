@@ -3,16 +3,21 @@
 The JAX trainers place a `TrainState` on a mesh and jit one step; the
 port's trainers hand their model, optimizer and checkpoints to a
 `ParallelPlan`, built from the config keys the JAX trainer reads
-(`tensor_parallel`, `fsdp`, `fsdp_min_size`) and the process group
-(`parallel/mesh.py`):
+(`tensor_parallel`, `sequence_parallel`, `fsdp`, `fsdp_min_size`) and the
+process group (`parallel/mesh.py`):
 
 * `prepare` cuts a DiT/DiM to its tensor-parallel rank
   (`parallel/tensor_parallel.py`) and tells every dropout its rows of the
-  global batch;
+  global batch (and, under sequence parallelism, its tokens);
 * `wrap` shards the model (and its EMA) with FSDP (`parallel/fsdp.py`), or
-  puts DDP around it over 'data'; the trainer trains through the result;
+  puts DDP around it over 'data', or, under `sequence_parallel`, returns the
+  model's forward given this rank's 'seq' group
+  (`parallel/sequence_parallel.py`); the trainer trains through the
+  result;
 * `sync` is DDP's `no_sync` (FSDP's gradient sync switch) for the
-  accumulation micro-steps of `MultiSteps`;
+  accumulation micro-steps of `MultiSteps`; under sequence parallelism
+  `average_replicated_grads` sums every gradient over 'seq' (each seq rank
+  holds its tokens' share) and averages it over 'data', once an update;
 * `grad_groups` tells the global-norm clip which groups hold the pieces of
   each gradient, and `replicated` which gradients FSDP leaves to average;
 * `gather`, `full_state_dict` and `full_optimizer_state` gather a tensor,
@@ -40,18 +45,36 @@ from . import tensor_parallel as tp_lib
 from .mesh import Layout, make_layout, process_count
 
 
-def check_config(config: dict) -> None:
+def check_config(config: dict, model: Optional[nn.Module] = None) -> None:
     """The JAX trainer's exclusions among the parallel layouts, with its
-    messages."""
+    messages; with `model`, its rules for the model under
+    `sequence_parallel` too."""
     pp, sp, ep = (int(config.get(k, 1) or 1) for k in (
         "pipeline_parallel", "sequence_parallel", "expert_parallel"))
+    tp = int(config.get("tensor_parallel", 1) or 1)
+    if ep > 1 and (tp > 1 or pp > 1 or sp > 1):
+        raise ValueError(
+            "expert_parallel composes with plain data parallelism only — "
+            "not tensor/pipeline/sequence parallelism")
+    if sp > 1 and pp > 1:
+        raise ValueError(
+            "sequence_parallel cannot be combined with pipeline_parallel "
+            "(both own the block-stack dataflow)")
+    if (model is not None and int(getattr(model, "num_experts", 0) or 0) > 0
+            and (pp > 1 or sp > 1)):
+        raise ValueError(
+            "MoE models (num_experts > 0) do not support pipeline/sequence "
+            "parallelism (their shard_map bodies drop the sown load-balance "
+            "loss); use expert_parallel, tensor_parallel, fsdp or plain data "
+            "parallelism")
     if config.get("fsdp") and (pp > 1 or sp > 1 or ep > 1):
         raise ValueError(
             "fsdp cannot be combined with pipeline_parallel, "
             "sequence_parallel or expert_parallel (those strategies "
             "define their own parameter layouts); fsdp + "
             "tensor_parallel is supported")
-    tp = int(config.get("tensor_parallel", 1) or 1)
+    if sp > 1 and model is not None:
+        _check_sequence_parallel(model, sp)
     world = process_count()
     if tp > 1 and world % tp:
         raise ValueError(f"tensor_parallel={tp} does not divide {world} "
@@ -64,30 +87,62 @@ def check_config(config: dict) -> None:
             "(fsdp takes adafactor)")
 
 
+def _check_sequence_parallel(model: nn.Module, sp: int) -> None:
+    """The JAX trainer's rules for a model under `sequence_parallel`: a
+    model that runs on a rank's tokens says so with its own
+    `check_sequence_parallel`, which holds its rules."""
+    check = getattr(model, "check_sequence_parallel", None)
+    if check is None:
+        raise ValueError("sequence_parallel supports the DiT and DiM "
+                         f"backbones (got {type(model).__name__})")
+    check(sp)
+
+
+def _check_data_axis(config: dict, dp: int) -> None:
+    """Under sequence parallelism the global batch and the sample grid split
+    over 'data' evenly (the JAX trainer's check, with its messages)."""
+    global_batch = int(config.get("batch_size", 0) or 0)
+    if global_batch and global_batch % dp:
+        raise ValueError(
+            f"global batch size {global_batch} not divisible by the "
+            f"data-axis size {dp} required by sequence_parallel")
+    num_samples = int(config.get("num_samples", 16))
+    if num_samples % dp:
+        raise ValueError(
+            f"num_samples {num_samples} not divisible by the data-axis size "
+            f"{dp} required by sequence_parallel (in-training sample grids "
+            "run through shard_map)")
+
+
 class ParallelPlan:
     """The layout of one trainer's model (see the module docstring).
     `model_parallel=False` (the VAE, classifier and few-step trainers, data
-    parallel only as in the JAX package) refuses `tensor_parallel` and
-    `fsdp`."""
+    parallel only as in the JAX package) refuses `tensor_parallel`,
+    `sequence_parallel` and `fsdp`."""
 
     def __init__(self, config: dict, model: nn.Module, device,
                  model_parallel: bool = True):
-        check_config(config)
         self.tp = int(config.get("tensor_parallel", 1) or 1)
+        self.sp = int(config.get("sequence_parallel", 1) or 1)
         self.fsdp = bool(config.get("fsdp", False))
-        if not model_parallel and (self.tp > 1 or self.fsdp):
+        if not model_parallel and (self.tp > 1 or self.sp > 1 or self.fsdp):
             raise ValueError(
                 f"{type(model).__name__}'s trainer is data-parallel only: "
-                "tensor_parallel and fsdp apply to the diffusion trainer")
+                "tensor_parallel, sequence_parallel and fsdp apply to the "
+                "diffusion trainer")
+        check_config(config, model if model_parallel else None)
         min_size = config.get("fsdp_min_size")
         self.fsdp_min_size = (fsdp_lib.DEFAULT_MIN_SIZE if min_size is None
                               else int(min_size))
         self.device = torch.device(device)
-        self.layout: Layout = make_layout(self.device, self.tp)
+        self.layout: Layout = make_layout(self.device, self.tp, self.sp)
+        if self.sp > 1:
+            _check_data_axis(config, self.layout.dp)
         # the state-dict entries `prepare` split over 'model' (none for a
         # UNet, whose parameters stay replicated)
         self.splits: Dict[str, tuple] = {}
         self.replicated: List[nn.Parameter] = []
+        self.model_params: List[nn.Parameter] = []
         self.names: Dict[int, str] = {}
 
     @property
@@ -96,18 +151,21 @@ class ParallelPlan:
 
     @property
     def is_main(self) -> bool:
-        return self.layout.dp_rank == 0 and self.layout.tp_rank == 0
+        lay = self.layout
+        return lay.dp_rank == 0 and lay.sp_rank == 0 and lay.tp_rank == 0
 
     # ------------------------------------------------------------- model
     def prepare(self, model: nn.Module) -> nn.Module:
         """`model` cut to this rank's tensor-parallel slices under
-        `tensor_parallel` (in place), its dropouts told this rank's rows."""
+        `tensor_parallel` (in place), its dropouts told this rank's rows (and
+        tokens under `sequence_parallel`)."""
         lay = self.layout
         self.splits = tp_lib.shard_model(model, lay.tp_group, lay.tp_rank,
                                          lay.tp)
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.data_rank, m.data_ranks = lay.dp_rank, lay.dp
+                m.token_rank, m.token_ranks = lay.sp_rank, lay.sp
             elif isinstance(m, SelfAttention):
                 m.data_rank = lay.dp_rank
         return model
@@ -116,10 +174,16 @@ class ParallelPlan:
              ema: Optional[nn.Module] = None) -> nn.Module:
         """Shard `model` and `ema` (in place) with FSDP, or return DDP
         around `model` over 'data'; the module the trainer trains through.
-        The one-device layout returns `model`."""
+        The one-device layout returns `model`; `sequence_parallel` returns
+        the model's forward given this rank's 'seq' group."""
         self.names = {id(p): n for n, p in model.named_parameters()}
+        self.model_params = list(model.parameters())
         if not self.distributed:
             return model
+        if self.sp > 1:
+            from .sequence_parallel import make_sequence_parallel_apply
+
+            return make_sequence_parallel_apply(model, self.layout)
         if self.fsdp:
             mesh = self.layout.mesh["data"]
             self.replicated = fsdp_lib.shard_model(model, mesh,
@@ -137,8 +201,10 @@ class ParallelPlan:
 
     def sync(self, train_model: nn.Module, sync: bool):
         """A context for one backward: gradients synchronised over 'data'
-        only when `sync` (the accumulation's last micro-step)."""
-        if not self.distributed or sync:
+        only when `sync` (the accumulation's last micro-step). Under
+        sequence parallelism the sum runs at the update
+        (`average_replicated_grads`)."""
+        if not self.distributed or sync or self.sp > 1:
             if self.fsdp and self.distributed:
                 train_model.set_requires_gradient_sync(True)
             return contextlib.nullcontext()
@@ -168,14 +234,23 @@ class ParallelPlan:
 
     @torch.no_grad()
     def average_replicated_grads(self) -> None:
-        """The gradients FSDP leaves replicated, averaged over 'data' (one
-        all-reduce of their concatenation)."""
-        grads = [p.grad for p in self.replicated if p.grad is not None]
-        if not grads or self.layout.dp == 1:
+        """The gradients the layout leaves to the update, each one
+        all-reduce of their concatenation: FSDP's replicated ones averaged
+        over 'data'; under sequence parallelism every gradient summed over
+        'seq' and averaged over 'data' (over the ranks of this rank's model
+        index, `Layout.replica_group`: a tensor-parallel slice with the
+        ranks that hold the same slice)."""
+        lay = self.layout
+        if self.sp > 1 and self.distributed:
+            params, group = self.model_params, lay.replica_group
+        else:
+            params, group = self.replicated, lay.dp_group
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads or (self.sp == 1 and lay.dp == 1):
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.layout.dp_group)
-        flat /= self.layout.dp
+        dist.all_reduce(flat, group=group)
+        flat /= lay.dp
         for g, new in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(new.view_as(g))
 

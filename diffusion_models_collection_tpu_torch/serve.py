@@ -38,7 +38,8 @@ the checkpoint config's compute dtype (the engine's images stay float32).
 through token merging and the int8 products, and compose with each other
 and with bf16. `--continuous` steps DDIM only: it refuses flow-matching, EDM
 and consistency checkpoints with the root daemon's `ValueError`. Not ported:
-the data-parallel split of the batch over several devices (item 15).
+the data-parallel split of the batch over several devices (ROADMAP queue 1
+item 15d, data parallelism outside `train`).
 Super-resolution checkpoints are refused, as the root daemon refuses them:
 each request would need an LR image (`sample --sr_source` and
 `tools/cascade.py` run them).

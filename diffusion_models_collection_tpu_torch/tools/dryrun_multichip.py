@@ -13,13 +13,18 @@ on the global batch and head, so the layouts must agree exactly):
   batches (each rank's batch, in rank order);
 * dit TP and dim TP: (N/2 data, 2 model) against their N-rank DP twins;
 * dit FSDP: N ranks of ZeRO-3 against the DP twin;
-* dit hybrid FSDPxTP: (N/2 data, 2 model), ZeRO over 'data' (N >= 4).
+* dit hybrid FSDPxTP: (N/2 data, 2 model), ZeRO over 'data' (N >= 4);
+* dit SP: (N/2 data, 2 seq) against the DP twin;
+* dim SP distributed scan: (N/2 data, 2 seq) at 16x16 (16 tokens: 8 a rank,
+  at least the conv's halo) against its 16x16 DP twin;
+* dim SPxTP: (N/4 data, 2 seq, 2 model) at 16x16 against the same twin
+  (N >= 4).
 
 Each leg prints `dryrun_multichip(N): OK, <leg> loss=... (dp ref ...)`, or
 the script raises. The ranks are processes joined in a gloo group on a
 `FileStore` in a temporary directory (`launch`, which the tests use too);
 `--device cuda` puts every rank's tensors on the one card (gloo carries
-them). Pipeline, sequence and expert parallelism are not ported yet.
+them). Pipeline and expert parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -50,6 +55,9 @@ TINY_MODEL_PARAMS = {
             "depth": 2, "state_size": 4, "dropout": 0.1},
 }
 SIZE = (8, 8)
+# the DiM's sequence-parallel legs: 16 tokens, 8 a seq rank (the conv's halo
+# needs 3)
+SP_SIZE = (16, 16)
 EPOCHS = 3
 # the DP-twin bar of the repository's dry run: the last epoch's losses
 BAR = 2e-3
@@ -118,13 +126,13 @@ def launch(world: int, target: str, *args, device: str = "cpu",
 
 # ------------------------------------------------------------------ legs
 def tiny_config(model_type: str, batch: int, save_dir: str,
-                **overrides) -> dict:
-    """The dry run's config: `batch` images a step (a data-parallel rank's,
-    in a trainer of several ranks)."""
+                size=SIZE, **overrides) -> dict:
+    """The dry run's config: `batch` images a step (the global batch, split
+    over the data-parallel ranks)."""
     return {
         "model_type": model_type,
         "model_params": dict(TINY_MODEL_PARAMS[model_type]),
-        "image_size": SIZE, "conditional": True, "num_classes": 10,
+        "image_size": size, "conditional": True, "num_classes": 10,
         "num_timesteps": 10, "beta_start": 1e-4, "beta_end": 0.02,
         "beta_schedule": "linear", "loss_type": "l2", "epochs": EPOCHS,
         "batch_size": batch, "optimizer": "adamw", "learning_rate": 1e-3,
@@ -138,14 +146,14 @@ def tiny_config(model_type: str, batch: int, save_dir: str,
     }
 
 
-def global_loader(global_batch: int):
+def global_loader(global_batch: int, size=SIZE):
     """The synthetic data in global batches of `global_batch` (two a
     epoch), the same whatever the layout."""
     from ..datasets import DataLoader, DiffusionDataset, ImageTransform
 
     ds = DiffusionDataset("synthetic", conditional=True,
-                          transform=ImageTransform(SIZE, train=True),
-                          image_size=SIZE, n_train=2 * global_batch, seed=7)
+                          transform=ImageTransform(size, train=True),
+                          image_size=size, n_train=2 * global_batch, seed=7)
     return DataLoader(ds, batch_size=global_batch, seed=0, prefetch=0)
 
 
@@ -178,26 +186,27 @@ def make_trainer(config: dict, device: str, global_batch: int):
     from ..utils.tracker import NullTracker
     from ..utils.trainer import DiffusionTrainer
 
-    tp = int(config.get("tensor_parallel", 1))
-    dp = process_count() // tp
-    config = dict(config, batch_size=global_batch // dp)
+    group = (int(config.get("tensor_parallel", 1))
+             * int(config.get("sequence_parallel", 1)))
+    dp = process_count() // group
     generator = set_seed(config["seed"], device)
     model = get_model(config)
-    loader = RowsLoader(global_loader(global_batch), process_index() // tp,
-                        dp)
+    loader = RowsLoader(global_loader(global_batch, config["image_size"]),
+                        process_index() // group, dp)
     return DiffusionTrainer(model, get_diffusion(config), loader, config,
                             device, generator=generator,
                             tracker=NullTracker())
 
 
 def leg_losses(model_type: str, overrides: dict, device: str,
-               global_batch: int) -> dict:
+               global_batch: int, size=SIZE) -> dict:
     """(In each rank, or alone.) The per-epoch losses of a trainer of
     `overrides`, and the share of its parameters' elements FSDP shards."""
     from ..parallel.fsdp import sharded_fraction
 
     with tempfile.TemporaryDirectory() as tmp:
-        config = tiny_config(model_type, global_batch, tmp, **overrides)
+        config = tiny_config(model_type, global_batch, tmp, size,
+                             **overrides)
         trainer = make_trainer(config, device, global_batch)
         losses = [trainer.train_epoch(e) for e in range(1, EPOCHS + 1)]
         return {"losses": losses,
@@ -217,6 +226,16 @@ def all_legs(world: int, device: str) -> dict:
     if world % 4 == 0:
         out["dit hybrid FSDPxTP"] = leg_losses(
             "dit", {"fsdp": True, "tensor_parallel": 2}, device, batch)
+    if world % 2 == 0:
+        sp = {"sequence_parallel": 2}
+        out["dit SP"] = leg_losses("dit", sp, device, batch)
+        out["dim 16x16 DP"] = leg_losses("dim", {}, device, batch, SP_SIZE)
+        out["dim SP distributed scan"] = leg_losses("dim", sp, device, batch,
+                                                    SP_SIZE)
+    if world % 4 == 0:
+        out["dim SPxTP"] = leg_losses(
+            "dim", {"sequence_parallel": 2, "tensor_parallel": 2}, device,
+            batch, SP_SIZE)
     return out
 
 
@@ -240,10 +259,13 @@ def dryrun(world: int = 4, device: str = "cpu") -> dict:
     ref = leg_losses("unet", {}, device, 2 * world)["losses"]
     _check("unet DP", legs["unet DP"]["losses"], ref, world,
            "1-process ref")
-    for name in ("dit TP", "dim TP", "dit FSDP", "dit hybrid FSDPxTP"):
+    twins = {"dim SP distributed scan": "dim 16x16 DP",
+             "dim SPxTP": "dim 16x16 DP"}
+    for name in ("dit TP", "dim TP", "dit FSDP", "dit hybrid FSDPxTP",
+                 "dit SP", "dim SP distributed scan", "dim SPxTP"):
         if name not in legs:
             continue
-        twin = legs[f"{name.split()[0]} DP"]["losses"]
+        twin = legs[twins.get(name, f"{name.split()[0]} DP")]["losses"]
         extra = ""
         if "FSDP" in name:
             extra = f" ({legs[name]['sharded']:.0%} param mass sharded)"

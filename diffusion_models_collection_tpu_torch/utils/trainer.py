@@ -47,7 +47,10 @@ extension.
 Parallel training (`parallel/`), in a process group (torchrun, or a test's):
 data parallelism (DDP over 'data'), `fsdp: true` (ZeRO-3, FSDP2 per block,
 `fsdp_min_size`), `tensor_parallel: N` (Megatron rules for the DiT and the
-DiM; a UNet stays replicated) and their hybrid, through `ParallelPlan`.
+DiM; a UNet stays replicated), their hybrid, and `sequence_parallel: S` (the
+DiT's and the DiM's tokens over S ranks, composing with `tensor_parallel`),
+through `ParallelPlan`. `batch_size` is the global batch: each data-parallel
+rank loads `max(1, batch_size // dp)` images (`factory.get_dataloader`).
 Every rank draws the global batch's (t, noise, drop) from the generator
 that every rank seeds alike and keeps its rows, so world N takes the steps
 of one device on the same global batch; the dropout masks are keyed on the
@@ -56,8 +59,8 @@ clip sums the squares of sharded gradients over their groups; rank 0
 prints, writes the grids, logs and writes the checkpoints, which every rank
 gathers to the full state dict; every rank samples the grids (a collective
 under FSDP and TP); the epoch's logged loss is the mean over 'data'. The
-JAX trainer's pipeline, sequence and expert parallelism raise, naming their
-ROADMAP item. `VAETrainer`
+JAX trainer's pipeline and expert parallelism raise, naming their ROADMAP
+item. `VAETrainer`
 (`utils/vae_trainer.py`) trains the first stage on this trainer's optimizer,
 EMA, checkpoints and loop.
 """
@@ -92,7 +95,7 @@ from .tracker import NullTracker, Tracker, build_tracker
 def _not_ported(cfg: dict):
     """(key, ROADMAP item) for each config key of the JAX trainer that
     selects what this port has not ported yet."""
-    for key in ("pipeline_parallel", "sequence_parallel", "expert_parallel"):
+    for key in ("pipeline_parallel", "expert_parallel"):
         if int(cfg.get(key, 1) or 1) > 1:
             yield key, "queue 1 item 15"
     # the JAX trainer's other format is orbax, which the port does not need

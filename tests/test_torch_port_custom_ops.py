@@ -32,7 +32,8 @@ from torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
 OPS = ("gn_silu_fwd", "gn_silu_bwd", "flash_attn_fwd", "flash_attn_bwd",
        "selective_scan_fwd", "selective_scan_fwd_states", "selective_scan_bwd",
        "selective_scan_bwd_nostate", "selective_scan_fwd_split",
-       "selective_scan_bwd_split")
+       "selective_scan_bwd_split", "selective_scan_fwd_state",
+       "selective_scan_end_state", "selective_scan_bwd_state")
 
 
 def randn(gen, *shape, dtype=torch.float32):
@@ -52,19 +53,26 @@ def gn_args(name, hw, dtype):
 
 def attn_args(name, length, dtype, form):
     gen = torch.Generator().manual_seed(2)
-    q, k, v = (randn(gen, 8, length, 16, dtype=dtype) for _ in range(3))
-    dropout_p, seed = (0.1, 2**63 + 5) if form == "dropout" else (0.0, None)
+    # "cross": a sequence-parallel rank's queries (the second half of the
+    # rows, row0) against twice as many keys, with dropout (E6)
+    lq = length // 2 if form == "cross" else length
+    row0 = length - lq
+    q = randn(gen, 8, lq, 16, dtype=dtype)
+    k, v = (randn(gen, 8, length, 16, dtype=dtype) for _ in range(2))
+    dropout_p, seed = ((0.1, 2**63 + 5) if form in ("dropout", "cross")
+                       else (0.0, None))
     bias = randn(gen, 2, length) if form == "bias" else None
     signed = flash_attention._signed_seed(seed)
     if name == "flash_attn_fwd":
-        return (q, k, v, dropout_p, signed, bias)
+        return (q, k, v, dropout_p, signed, bias, None, row0)
     o, lse = flash_attention.flash_attention_fwd(q, k, v, dropout_p, seed,
-                                                 bias)
-    return (q, k, v, o, randn(gen, 8, length, 16, dtype=dtype), lse,
-            dropout_p, signed, form == "fused" or None, bias)
+                                                 bias, row0=row0)
+    return (q, k, v, o, randn(gen, 8, lq, 16, dtype=dtype), lse,
+            dropout_p, signed, form == "fused" or None, bias, None, row0)
 
 
 def scan_args(name, length):
+    length, form = length if isinstance(length, tuple) else (length, None)
     gen = torch.Generator().manual_seed(3)
     x = randn(gen, 2, length, 8)
     dt = torch.rand(2, length, 8, generator=gen) * 0.1
@@ -73,9 +81,18 @@ def scan_args(name, length):
     if name in ("selective_scan_fwd", "selective_scan_fwd_states",
                 "selective_scan_fwd_split"):
         return (x, dt, A, B, C)
+    h = randn(gen, 2, 8, 4)
+    if name in ("selective_scan_fwd_state", "selective_scan_end_state"):
+        return (x, dt, A, B, C, h)
     g = randn(gen, 2, length, 8)
     if name == "selective_scan_bwd_nostate":
         return (x, dt, A, B, C, g)
+    if name == "selective_scan_bwd_state":
+        _, bound, _ = selective_scan.selective_scan_fwd_state(x, dt, A, B, C,
+                                                              h)
+        # the state-only form's backward takes no cotangent of y
+        return (x, dt, A, B, C, None if form == "state_only" else g, bound,
+                randn(gen, 2, 8, 4))
     _, bound = selective_scan.selective_scan_fwd(x, dt, A, B, C, True)
     return (x, dt, A, B, C, g, bound)
 
@@ -86,12 +103,13 @@ CASES = (
     + [(name, (length, form), dtype)
        for name in ("flash_attn_fwd", "flash_attn_bwd")
        for length, form in ((16, "plain"), (33, "plain"), (33, "dropout"),
-                            (33, "bias"), (33, "fused"))
+                            (33, "bias"), (33, "fused"), (40, "cross"))
        for dtype in (torch.float32, torch.bfloat16)
        if not (name == "flash_attn_fwd" and form == "fused")]
     + [(name, length, torch.float32)
        for name in OPS if name.startswith("selective_scan")
-       for length in (32, 40)])
+       for length in (32, 40)]
+    + [("selective_scan_bwd_state", (40, "state_only"), torch.float32)])
 
 
 def case_id(case):

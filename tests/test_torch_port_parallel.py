@@ -224,6 +224,7 @@ def test_dryrun_multichip_legs():
         capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     for leg in ("unet DP loss=", "dit TP loss=", "dim TP loss=",
-                "dit FSDP", "dit hybrid FSDPxTP"):
+                "dit FSDP", "dit hybrid FSDPxTP", "dit SP loss=",
+                "dim SP distributed scan loss=", "dim SPxTP loss="):
         assert f"dryrun_multichip(4): OK, {leg}" in proc.stdout, (
             leg, proc.stdout[-3000:])

@@ -233,13 +233,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
 
 
 def test_pieces_not_ported_raise():
-    """The sequence-parallel pieces raise; the tensor-parallel scope, ported
-    with the parallel slice, is a no-op around the unchanged scan."""
+    """The sequence-parallel pieces, which raised until the
+    sequence-parallel slice ported them, run: `chunk_size` gives the whole
+    scan, and `selective_scan_with_state` from a zero state gives it too
+    (their parity with JAX: test_torch_port_dim_sequence_parallel.py); the
+    tensor-parallel scope is a no-op around the unchanged scan."""
     x, dt, A, B, C, _ = torch_args(*scan_inputs(1, 8, 4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ss.selective_scan(x, dt, A, B, C, chunk_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ss.selective_scan_with_state(x, dt, A, B, C, None)
+    whole = ss.selective_scan(x, dt, A, B, C)
+    torch.testing.assert_close(ss.selective_scan(x, dt, A, B, C,
+                                                 chunk_size=4), whole)
+    y, h = ss.selective_scan_with_state(x, dt, A, B, C,
+                                        torch.zeros(1, 4, 2))
+    torch.testing.assert_close(y, whole)
+    assert h.shape == (1, 4, 2)
     with ss.scan_tensor_parallel(None):
         y = ss.selective_scan(x, dt, A, B, C)
     torch.testing.assert_close(y, ss.selective_scan(x, dt, A, B, C),

@@ -463,7 +463,9 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
     """What is not ported raises, naming its ROADMAP item. `tensor_parallel`
     and `fsdp`, ported with the parallel slice, build: in one process FSDP
     is the one-device layout, and tensor_parallel 2 raises the JAX
-    trainer's ValueError, as it needs two devices."""
+    trainer's ValueError, as it needs two devices. `sequence_parallel`,
+    ported with the sequence-parallel slice, raises the JAX trainer's
+    ValueError for a UNet."""
     config = dict(train_config(tmp_path, 1), **change)
 
     def build():
@@ -474,6 +476,9 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
         assert build().plan.fsdp
     elif "tensor_parallel" in change:
         with pytest.raises(ValueError, match="does not divide 1 devices"):
+            build()
+    elif "sequence_parallel" in change:
+        with pytest.raises(ValueError, match="supports the DiT and DiM"):
             build()
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

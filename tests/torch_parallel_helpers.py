@@ -1,6 +1,8 @@
 """Shared set-up of the parallel tests (`test_torch_port_parallel.py`,
-`test_torch_port_fsdp.py`, `test_torch_port_tensor_parallel.py`): the JAX
-package's sharded step on its virtual CPU devices, the port's ranks in a
+`test_torch_port_fsdp.py`, `test_torch_port_tensor_parallel.py`,
+`test_torch_port_sequence_parallel.py`,
+`test_torch_port_dim_sequence_parallel.py`): the JAX package's sharded step
+(and its sequence-parallel step) on its virtual CPU devices, the port's ranks in a
 gloo world (`torch_parallel_jobs.py`, which imports no JAX), and the bars.
 
 Bars: against JAX, 2e-4 (max|port - jax| / max|jax|) for the losses and
@@ -57,6 +59,8 @@ def train_config(config, tmp_path, **changes):
                 weight_decay=1e-4, use_scheduler=False, epochs=1,
                 use_ema=True, ema_decay=0.9, cfg_dropout_prob=0.2,
                 gradient_accumulation_steps=1, loss_type="l2",
+                # the global batch (the tests' batches hold 4 rows), split
+                # over the data-parallel ranks, as the JAX package reads it
                 batch_size=4, save_dir=str(tmp_path / "ckpt"),
                 sample_dir=str(tmp_path / "samples"), seed=0,
                 progress=False, **changes)
@@ -108,6 +112,62 @@ def jax_sharded_steps(model, params, config, batches, dp, tp=1, fsdp=False,
             return ddpm.p_losses(
                 lambda x, tt, yy: model.apply({"params": q}, x, tt, yy),
                 x0, t, noise, y=y)
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, opt_state = tx.update(grads, opt_state, p)
+        return optax.apply_updates(p, updates), opt_state, loss
+
+    losses = []
+    for b in batches:
+        args = [jax.device_put(jnp.asarray(a), rows) for a in (
+            b["x0"], b["t"].astype(np.int32), b["noise"], cfg_labels(b))]
+        p, opt_state, loss = step(p, opt_state, *args)
+        losses.append(float(loss))
+    return losses, jax.tree_util.tree_map(np.asarray, p)
+
+
+def jax_sp_steps(model, params, config, batches, dp, sp, tp=1):
+    """The JAX package's sequence-parallel train step
+    (`make_sequence_parallel_apply`, or `make_dim_sequence_parallel_apply`
+    for a DiM, as its trainer picks) jitted over a (dp, sp[, tp]) mesh of
+    the virtual CPU devices, the parameters replicated (or placed by the
+    Megatron rules at tp > 1, `shard_model_params`), dropout off: the
+    losses and the parameters (numpy) after the steps."""
+    from diffusion_models_collection_tpu.parallel import (
+        make_dim_sequence_parallel_apply,
+        make_sequence_parallel_apply,
+    )
+    from diffusion_models_collection_tpu.parallel import mesh as pmesh
+    from diffusion_models_collection_tpu.parallel.sequence_parallel import (
+        data_seq_mesh,
+        data_seq_model_mesh,
+    )
+    from diffusion_models_collection_tpu.parallel.tensor_parallel import (
+        shard_model_params,
+    )
+
+    if tp > 1:
+        mesh = data_seq_model_mesh(dp, sp, tp, jax.devices()[:dp * sp * tp])
+        p = shard_model_params(mesh, jax.tree_util.tree_map(jnp.asarray,
+                                                            params))
+    else:
+        mesh = data_seq_mesh(dp, sp, jax.devices()[:dp * sp])
+        p = pmesh.replicate(mesh, jax.tree_util.tree_map(jnp.asarray,
+                                                         params))
+    make = (make_dim_sequence_parallel_apply
+            if type(model).__name__ == "DiM" else make_sequence_parallel_apply)
+    apply_fn = make(model, mesh)
+    tx, _, _ = jax_build_optimizer(config, 1)
+    opt_state = tx.init(p)
+    ddpm = jax_ddpm.DDPM(num_timesteps=config["num_timesteps"])
+    rows = NamedSharding(mesh, P("data"))
+    conditional = config.get("conditional", False)
+
+    @jax.jit
+    def step(p, opt_state, x0, t, noise, y):
+        def loss_fn(q):
+            return ddpm.p_losses(
+                lambda x, tt, yy: apply_fn(q, x, tt, yy), x0, t, noise,
+                y=y if conditional else None)
         loss, grads = jax.value_and_grad(loss_fn)(p)
         updates, opt_state = tx.update(grads, opt_state, p)
         return optax.apply_updates(p, updates), opt_state, loss

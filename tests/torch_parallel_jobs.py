@@ -125,9 +125,67 @@ def train_job(job):
     return result if process_index() == 0 else None
 
 
+def scan_job(job):
+    """The distributed scan (`parallel/dim_sequence_parallel.py`) over
+    groups of `job["sp"]` consecutive ranks, each group on the whole
+    sequence of `job`'s numpy inputs (x, dt, A, B, C, D) with the cotangent
+    `gy` of y: (y, and the gradients of x, dt, A, B, C, D), whole, from rank
+    0."""
+    import torch.distributed as dist
+
+    from diffusion_models_collection_tpu_torch.parallel.dim_sequence_parallel \
+        import distributed_selective_scan
+    from diffusion_models_collection_tpu_torch.parallel.sequence_parallel \
+        import SeqGroup
+
+    sp, rank = job["sp"], process_index()
+    groups = [dist.new_group(list(range(i, i + sp)))
+              for i in range(0, dist.get_world_size(), sp)]
+    seq = SeqGroup(groups[rank // sp], rank % sp, sp)
+    n = job["x"].shape[1] // sp
+    cut = slice(seq.rank * n, (seq.rank + 1) * n)
+    args = {k: torch.tensor(job[k][:, cut] if k in ("x", "dt", "B", "C")
+                            else job[k], requires_grad=True)
+            for k in ("x", "dt", "A", "B", "C", "D")}
+    y = distributed_selective_scan(*args.values(), seq=seq)
+    (y * torch.as_tensor(job["gy"][:, cut])).sum().backward()
+    out = {"y": y.detach()}
+    for k, v in args.items():
+        g = v.grad.contiguous()
+        if k in ("A", "D"):  # a rank's tokens' share: summed over 'seq'
+            dist.all_reduce(g, group=seq.group)
+            out[k] = g
+        else:
+            parts = [torch.empty_like(g) for _ in range(sp)]
+            dist.all_gather(parts, g, group=seq.group)
+            out[k] = torch.cat(parts, 1)
+    parts = [torch.empty_like(out["y"]) for _ in range(sp)]
+    dist.all_gather(parts, out["y"], group=seq.group)
+    out["y"] = torch.cat(parts, 1)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def cli_job(config_paths):
+    """The port's `train` CLI (`train.main`, on the CPU) on each config file
+    in turn, in a rank of a world: each run's loader batch, batches an epoch,
+    steps taken and data-parallel ranks, from this rank."""
+    from diffusion_models_collection_tpu_torch import train
+
+    out = []
+    for path in config_paths:
+        trainer = train.main(["--config", path, "--device", "cpu"])
+        loader = trainer.train_loader
+        out.append(dict(batch=loader.batch_size, batches=len(loader),
+                        steps=trainer.global_step,
+                        dp=trainer.plan.layout.dp))
+    return out
+
+
 def run_jobs(jobs):
-    """Every job in turn (one world of processes serves a test file)."""
-    return [train_job(job) for job in jobs]
+    """Every job in turn (one world of processes serves a test file): a
+    train job, or a distributed-scan job (`kind` 'scan')."""
+    return [scan_job(job) if job.get("kind") == "scan" else train_job(job)
+            for job in jobs]
 
 
 def batches(seed, n, shape, num_classes=10, num_timesteps=1000,
