@@ -284,20 +284,26 @@ Then the parallel layouts (`phase_parallel`, `parallel/` of the port):
   against the rank's slice of the single-device mask;
 * a gloo world of two processes on the card (`tools/dryrun_multichip.py`
   `launch`; NCCL refuses two ranks on one device): the DiT (dropout 0.1) at
-  TP 2, DP 2, FSDP 2 and SP 2 and the DiM at TP 2, DP 2 and SP 2, one
-  `train_step` each at global batch 32, each rank's loss and gathered
-  gradients against the one-process step on the same batch (1e-5, 1e-4), a
-  rank's launches (12 K2 + 12 K3 in the dropout form, at SP 2 in E6's form;
-  12 K6 + 12 K8 on the DiM's 384 channels a rank at TP 2, on all 768 at DP
-  2, 24 + 24 stated scans at SP 2), and the peak memory a rank under FSDP
-  beside DDP's.
+  TP 2, DP 2, FSDP 2, SP 2 and PP 2 and the DiM at TP 2, DP 2, SP 2 and
+  PP 2 (and the legs `chip_smoke_pipeline.py` adds: the MoE DiT at EP 2
+  and DP 2), one `train_step` each at
+  global batch 32, each rank's loss and gathered gradients against the
+  one-process step on the same batch (1e-5, 1e-4), a rank's launches (12
+  K2 + 12 K3 in the dropout form, at SP 2 in E6's form, at PP 2 two
+  microbatches of a stage's 6 blocks; 12 K6 + 12 K8 on the DiM's 384
+  channels a rank at TP 2, on all 768 at DP 2 and on 16 rows at PP 2, 24 +
+  24 stated scans at SP 2), and the peak memory a rank under FSDP beside
+  DDP's.
 
 Then sequence parallelism (`phase_sequence_parallel`, in
 `chip_smoke_sequence.py` beside this script): E6 (K2 and K3 of a seq rank's
 queries against every key, dropout rows keyed on the global row) and E4
 (the scan from and to a state) against their plain versions, and the SP 2
 legs of `phase_parallel`'s world (their step seconds and peak memory a rank
-beside DP 2's).
+beside DP 2's); then pipeline and expert parallelism
+(`phase_pipeline_expert`, in `chip_smoke_pipeline.py`): K2's mask of a
+microbatch read back at its `batch0`, and the PP and EP legs beside DP 2's
+with the draw replay's cost.
 
 Every phase prints its seconds. Each path is run with every launch count
 set to 0 just before it and read
@@ -469,13 +475,10 @@ ATTN_BWD_LONG = (1024, 257, 1025)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 # the trained UNet's DDPM run: the schedule's timesteps (1000 in the config)
 DDPM_CUT = 50
-TRAIN_WARMUP, TRAIN_TIMED = 2, 10
-# for a step of over half a second (the SR stage at batch 256, the 64x64 DiT
-# in fp32), and for the timed runs of the bf16 models, the MoE DiT, the
-# few-step trainers and the optimizers (cut to keep the script inside its
-# time when the sequence-parallel phase came)
-LONG_STEP_WARMUP, LONG_STEP_TIMED = 1, 5
-SHORT_RATE = dict(warmup=LONG_STEP_WARMUP, timed=LONG_STEP_TIMED)
+# a timed train run: the median of 5 synchronised steps after 1 (the
+# trainer has run its epochs by then), kept short so that the script stays
+# inside its time as phases are added
+TRAIN_WARMUP, TRAIN_TIMED = 1, 5
 # Loss of one full-width forward, and the flattened gradient as max-abs
 # difference over max-abs: a backward chains 60 conv backwards and the GN
 # recomputes through 45 norms.
@@ -2801,7 +2804,7 @@ def phase_bf16_model(label, config, per_forward, per_step, gen,
     with tempfile.TemporaryDirectory() as tmp:
         trainer, train_launches = run_train_main(name, config16, per_step,
                                                  tmp, TRAIN_EPOCHS, 1)
-        rates, peak = time_train_rates(trainer, **SHORT_RATE)
+        rates, peak = time_train_rates(trainer)
     print(f"{name} train images/s at batch {config['batch_size']}: "
           f"{', '.join(f'{r:.2f}' for r in rates)}; peak device memory "
           f"{peak / 2**20:.1f} MiB")
@@ -4051,8 +4054,7 @@ def phase_sr(unet_ckpt, tmp, gen, smi):
     # the kernel path only: the plain versions' timed run was cut to keep the
     # script inside its time
     rates, peak = timed_rates("SR UNet", trainer, plain_runs=0,
-                              kernel_runs=1, warmup=LONG_STEP_WARMUP,
-                              timed=LONG_STEP_TIMED)
+                              kernel_runs=1)
     ckpt = trainer.save_dir / "current_model.pth"
     del trainer
 
@@ -4350,7 +4352,7 @@ def phase_moe(gen, smi):
             # time: a 131.9 M-parameter checkpoint is written every epoch)
             trainer, launches = run_train_main(
                 f"DiT-MoE {precision}", cfg, per_step, tmp, 1, 1)
-            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
+            rates, peak = time_train_rates(trainer, runs=1)
             del trainer
         out["launches"][f"train_{precision}"] = launches
         out["rates"][precision], out["peak"][precision] = rates, peak
@@ -4795,7 +4797,7 @@ def phase_optimizers(config, smi):
             trainer = DiffusionTrainer(
                 factory.get_model(run), factory.get_diffusion(run), loader,
                 run, "cuda")
-            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
+            rates, peak = time_train_rates(trainer, runs=1)
             images, labels = next(iter(loader))
             reset_launches()
             loss = trainer.train_step(torch.from_numpy(images).to("cuda"),
@@ -4855,7 +4857,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
                 Path(tmp) / precision, TRAIN_EPOCHS, 1, loss_key="ct/loss")
             if trainer.grid_for_epoch() != [CT_GRIDS[0]] + [CT_GRIDS[1]] * 2:
                 raise AssertionError(f"CT grids {trainer.grid_for_epoch()}")
-            rates, peak = time_train_rates(trainer, runs=1, **SHORT_RATE)
+            rates, peak = time_train_rates(trainer, runs=1)
             figures[f"ct_{precision}"] = {"rate": rates[0], "peak": peak}
             print(f"UNet consistency training {precision}: {rates[0]:.2f} "
                   f"train images/s at batch {TRAIN_BATCH}, peak device "
@@ -4887,7 +4889,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
             distill, Path(tmp) / "cd", DISTILL_STEP, TRAIN_EPOCHS,
             distill_method="consistency", distill_cfg_scale=CFG_SCALE,
             consistency_sample_steps=CM_STEPS)
-        figures["cd_rate"] = time_train_rates(cd, runs=1, **SHORT_RATE)[0][0]
+        figures["cd_rate"] = time_train_rates(cd, runs=1)[0][0]
         cd_ckpt = cd.save_dir / "consistency_model.pth"
         del cd
         launches["cd_sample_fp32"], _ = fewstep_sample(
@@ -4897,7 +4899,7 @@ def phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, ddim_seconds):
             "progressive distillation (tools/distill.py)", distill_tool,
             distill, Path(tmp) / "pd", DISTILL_STEP, 2,
             distill_method="progressive", distill_steps=PD_STEPS)
-        figures["pd_rate"] = time_train_rates(pd, runs=1, **SHORT_RATE)[0][0]
+        figures["pd_rate"] = time_train_rates(pd, runs=1)[0][0]
         del pd
         launches["pd_sample_fp32"], _ = fewstep_sample(
             f"PD DDIM-{PD_STEPS}",
@@ -5264,11 +5266,7 @@ def phase_dit64(gen, smi):
             trainer, out["launches"][f"dit64_train_{name}"] = run_train_main(
                 label, dict(config, batch_size=batch), step, tmp, 1,
                 SYNTHETIC_IMAGES // batch)
-            long_step = precision == "none"  # 0.76 s a step at 128
-            rates, peak = time_train_rates(
-                trainer, runs=1,
-                warmup=LONG_STEP_WARMUP if long_step else TRAIN_WARMUP,
-                timed=LONG_STEP_TIMED if long_step else TRAIN_TIMED)
+            rates, peak = time_train_rates(trainer, runs=1)
             del trainer
         torch.cuda.empty_cache()
         out["rates"][name], out["peak"][name] = rates[0], peak
@@ -5314,6 +5312,9 @@ DIM_SP_STEP = {"scan_fwd_state": 2 * SCAN_PER_FORWARD,
 # E7 at a tensor-parallel rank of the DiT at its training batch: heads 3..5
 # of 6 (rank 1 of 2), every row of 128
 E7_BATCH, E7_GRID = TRAIN_BATCH, (DIT_HEADS // 2, DIT_HEADS, 0, DIT_HEADS // 2)
+# after a leg's checked first step, steps 2 and 3 on the same batch, timed:
+# the steady step that a first step's allocations and first draws hide
+LEG_STEADY_STEPS = 2
 
 
 def parallel_trainer(config, state, device="cuda"):
@@ -5334,10 +5335,35 @@ def record_full_grads(trainer):
 
     def hook():
         before()
-        store.append(torch.cat([plan.gather(n, p.grad).flatten() for n, p in
-                                trainer.model.named_parameters()]))
+        store.append(torch.cat([g.flatten() for g in
+                                plan.full_gradients(trainer.model).values()]))
     plan.average_replicated_grads = hook
     return store
+
+
+def timed_step(trainer, batch):
+    """(loss, seconds) of one synchronised train step on `batch`."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loss = trainer.train_step(batch["x0"], batch["labels"], batch["t"],
+                              batch["noise"], batch["drop"])
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - start
+
+
+def time_calls(obj, name, store):
+    """Wrap the method `name` of `obj`: each call's synchronised seconds
+    are appended to `store`."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - start)
+        return out
+    setattr(obj, name, timed)
 
 
 def parallel_leg_step(leg):
@@ -5346,7 +5372,11 @@ def parallel_leg_step(leg):
     the generators seeded at TRAIN_SEED: the loss (mean over 'data') and
     the full gradients held against the one-process step's (`leg["ref"]`,
     on rank 0), this rank's launches, peak device memory and sharded
-    share."""
+    share; then LEG_STEADY_STEPS more steps, timed. A leg's own keys:
+    `replay_routing`, the one-process step's experts imposed on this
+    rank's rows in the checked step (a MoE leg); `time_replay`, the
+    pipeline's draw replay timed in every step, and one step more with
+    every dropout at 0 (a PP leg)."""
     config = load_config(Path(leg["config"]))
     trainer = parallel_trainer(config, torch.load(leg["state"]))
     grads = record_full_grads(trainer)
@@ -5360,17 +5390,33 @@ def parallel_leg_step(leg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    reset_launches()
-    start = time.perf_counter()
-    loss = trainer.train_step(batch["x0"], batch["labels"], batch["t"],
-                              batch["noise"], batch["drop"])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
+    replays = []
+    if leg.get("time_replay"):
+        time_calls(trainer.train_model, "replay", replays)
+    with contextlib.ExitStack() as stack:
+        if leg.get("replay_routing"):
+            ref = torch.load(leg["ref"])
+            stack.enter_context(recorded_choices(trainer.model, {
+                "experts": [lay.rows(e.to("cuda")) for e in ref["experts"]],
+                "plans": []}))
+        reset_launches()
+        loss, seconds = timed_step(trainer, batch)
     out = {"launches": read_launches(),
            "peak": torch.cuda.max_memory_allocated(), "base": base,
            "loss": float(lay.mean_over_data(loss)),
            "sharded": sharded_fraction(trainer.model),
            "layout": (lay.dp, lay.tp), "seconds": seconds}
+    out["steady"] = [timed_step(trainer, batch)[1]
+                     for _ in range(LEG_STEADY_STEPS)]
+    if leg.get("time_replay"):
+        # no draws to replay, K2/K3 in their plain form
+        for m in trainer.model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+            elif hasattr(m, "replayed_seed"):
+                m.dropout = 0.0
+        out["step_p0"] = timed_step(trainer, batch)[1]
+        out["replay_seconds"] = replays
     if dist.get_rank() == 0:
         ref = torch.load(leg["ref"])
         out["loss_rel"] = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -5568,17 +5614,21 @@ def parallel_reference(label, config, state, batch):
     return out
 
 
-def phase_parallel(gen, smi):
+def phase_parallel(gen, smi, more_legs=None):
     """Item 15 on the card: DDP at world 1 (`phase_ddp`), E7 (`phase_e7`),
     then a gloo world of two processes on the card: the DiT (dropout 0.1)
-    at TP 2, at DP 2, at FSDP 2 and at SP 2, the DiM at TP 2, DP 2 and SP 2,
+    at TP 2, at DP 2, at FSDP 2, at SP 2 and at PP 2, the DiM at TP 2, DP
+    2, SP 2 and PP 2, and the legs `more_legs(gen, tmp)` returns with
+    their references (`chip_smoke_pipeline.parallel_legs`: the MoE DiT at
+    EP 2 and DP 2),
     each rank's loss and gathered gradients against the one-process step on
     the same global batch (TOL_LOSS, TOL_GRAD), each rank with one step's
     launches (the DiT's attention in the dropout form, at its rank's head
     grid or, at SP 2, its rows against every key (E6); the DiM's scans on
     its 384 channels, K6 and K8, or at SP 2 the stated scans (E4)), and the
     peak memory a rank under FSDP beside DDP's (`phase_sequence_parallel`
-    reads the SP legs beside DP 2's)."""
+    reads the SP legs beside DP 2's, `phase_pipeline_expert` the PP and EP
+    legs)."""
     # the ranks compute float32 without TF32 (`parallel_rank`): so must the
     # references here
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5617,21 +5667,25 @@ def phase_parallel(gen, smi):
             torch.save(refs[name], files["ref"])
             sp = (f"SP {SP_DEGREE}", {"sequence_parallel": SP_DEGREE},
                   sp_step)
+            pp = ("PP 2", {"pipeline_parallel": 2}, step, True)
             layouts = ([("TP 2", {"tensor_parallel": 2}, step),
                         ("DP 2", {}, step), ("FSDP 2", {"fsdp": True}, step),
-                        sp] if name == "DiT" else
+                        sp, pp] if name == "DiT" else
                        [("TP 2", {"tensor_parallel": 2}, step),
-                        ("DP 2", {}, step), sp])
-            for layout, changes, per_step in layouts:
+                        ("DP 2", {}, step), sp, pp])
+            for layout, changes, per_step, *piped in layouts:
                 cfg_path = Path(tmp) / f"{name}_{layout.replace(' ', '')}.py"
                 cfg_path.write_text(f"config = {dict(base, **changes)!r}\n")
                 legs.append(dict(name=name, layout=layout, step=per_step,
-                                 config=str(cfg_path), **files))
+                                 config=str(cfg_path), time_replay=bool(piped),
+                                 **files))
+        if more_legs is not None:
+            more, more_refs = more_legs(gen, tmp)
+            legs += more
+            refs.update(more_refs)
         launched = time.perf_counter()
-        ranks = launch(PARALLEL_WORLD, "chip_smoke.parallel_rank",
-                       [{k: leg[k] for k in ("config", "state", "batch",
-                                             "ref")}
-                        for leg in legs], device="cuda", backend="gloo",
+        ranks = launch(PARALLEL_WORLD, "chip_smoke.parallel_rank", legs,
+                       device="cuda", backend="gloo",
                        timeout=PARALLEL_TIMEOUT)
         world_seconds = time.perf_counter() - launched
     peaks, launched_by_leg, by_leg = {}, {}, {}
@@ -5650,7 +5704,8 @@ def phase_parallel(gen, smi):
               f"launches a rank {per_rank}; peak a rank "
               f"{[round(r[i]['peak'] / 2**20, 1) for r in ranks]} MiB (at "
               f"the step's start {[round(r[i]['base'] / 2**20, 1) for r in ranks]}"
-              f" MiB); step {first['seconds']:.3f} s")
+              f" MiB); step {first['seconds']:.3f} s, steps 2 and 3 "
+              f"{[round(t, 4) for t in first['steady']]} s")
         if any(c != expect(**leg["step"]) for c in per_rank):
             raise AssertionError(f"{label}: launches {per_rank}, expected "
                                  f"{expect(**leg['step'])} a rank")
@@ -5661,7 +5716,10 @@ def phase_parallel(gen, smi):
             "launches": per_rank[0], "peak": max(r[i]["peak"] for r in ranks),
             "base": max(r[i]["base"] for r in ranks),
             "seconds": max(r[i]["seconds"] for r in ranks),
-            "err": max(loss_rel, grad_rel)}
+            "steady": max(statistics.mean(r[i]["steady"]) for r in ranks),
+            "err": max(loss_rel, grad_rel),
+            **{k: first[k] for k in ("replay_seconds", "step_p0")
+               if k in first}}
     fsdp, ddp = peaks[("DiT", "FSDP 2")], peaks[("DiT", "DP 2")]
     print(f"parallel DiT peak device memory a rank at global batch "
           f"{PARALLEL_BATCH}: FSDP 2 {max(fsdp) / 2**20:.1f} MiB, DDP "
@@ -5827,14 +5885,17 @@ def main():
         exported, export_figures = phase_export(gen, smi)
     with clock("phase_dit64"):
         dit64 = phase_dit64(gen, smi)
-    with clock("phase_parallel"):
-        parallel = phase_parallel(gen, smi)
-    # beside this script; it imports this script's helpers as `chip_smoke`
+    # beside this script; they import this script's helpers as `chip_smoke`
+    import chip_smoke_pipeline
     import chip_smoke_sequence
 
+    with clock("phase_parallel"):
+        parallel = phase_parallel(gen, smi, chip_smoke_pipeline.parallel_legs)
     with clock("phase_sequence_parallel"):
         sequence = chip_smoke_sequence.phase_sequence_parallel(
             gen, smi, parallel["legs"])
+    with clock("phase_pipeline_expert"):
+        chip_smoke_pipeline.phase_pipeline_expert(gen, smi, parallel)
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -6081,9 +6142,10 @@ def main():
                 if run[key]}
     def parallel_launches(key):
         """A kernel's launches on the parallel paths: a rank's (rank 0's)
-        in one step of each gloo leg (the DiT at TP 2, DP 2 and FSDP 2,
-        the DiM at TP 2), and the UNet's DDP_STEPS steps under DDP, each
-        as its run read them."""
+        in one step of each gloo leg (the DiT at TP 2, DP 2, FSDP 2, SP 2
+        and PP 2, the DiM at TP 2, DP 2, SP 2 and PP 2, the MoE DiT at EP 2
+        and DP 2), and the UNet's DDP_STEPS
+        steps under DDP, each as its run read them."""
         out = {f"parallel_{leg.lower().replace(' ', '_')}": counts[key]
                for leg, counts in parallel["launches"].items()
                if counts[key]}

@@ -275,9 +275,9 @@ def time_state_scan(batch, length, gen):
 
 
 def report_legs(legs, smi):
-    """The SP legs of `phase_parallel` beside its DP 2 legs: the step's
-    seconds, the peak memory a rank and what the step added to the memory
-    allocated at its start."""
+    """The SP legs of `phase_parallel` beside its DP 2 legs: the first and
+    the steady step's seconds (the mean of steps 2 and 3), the peak memory
+    a rank and what the step added to the memory allocated at its start."""
     for name in ("DiT", "DiM"):
         sp, dp = legs[(name, f"SP {SP}")], legs[(name, "DP 2")]
         mib = {k: {key: leg[key] / 2**20 for key in ("peak", "base")}
@@ -285,10 +285,12 @@ def report_legs(legs, smi):
         grown = ((sp["peak"] - sp["base"]) / (dp["peak"] - dp["base"]))
         print(f"sequence parallel {name} at global batch {c.PARALLEL_BATCH} "
               f"(gloo, 2 ranks on one card): SP {SP} step {sp['seconds']:.3f}"
-              f" s, peak a rank {mib['sp']['peak']:.1f} MiB "
-              f"({mib['sp']['base']:.1f} at the step's start), error "
-              f"{sp['err']:.3e}; DP 2 step {dp['seconds']:.3f} s, peak "
-              f"{mib['dp']['peak']:.1f} MiB ({mib['dp']['base']:.1f}); peak "
+              f" s (steady {sp['steady']:.4f}), peak a rank "
+              f"{mib['sp']['peak']:.1f} MiB ({mib['sp']['base']:.1f} at the "
+              f"step's start), error {sp['err']:.3e}; DP 2 step "
+              f"{dp['seconds']:.3f} s (steady {dp['steady']:.4f}), peak "
+              f"{mib['dp']['peak']:.1f} MiB ({mib['dp']['base']:.1f}); steady"
+              f" {sp['steady'] / dp['steady']:.3f}x, peak "
               f"{sp['peak'] / dp['peak']:.3f}x, the step's own {grown:.3f}x; "
               f"launches a rank at SP {SP} {sp['launches']} on {smi}")
 

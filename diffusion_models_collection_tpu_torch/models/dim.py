@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.selective_scan import selective_scan
-from .dit import Mlp, SelfAttention
+from .dit import DiT, Mlp, SelfAttention
 from .layers import (
     AdaLNModulation,
     CastConv1d,
@@ -58,7 +58,6 @@ from .layers import (
     TimestepEmbedder,
     modulate,
     run_block,
-    unpatchify,
 )
 
 
@@ -287,17 +286,31 @@ class DiM(nn.Module):
         check_tokens(n_tok, sp)
         check_halo(n_tok, sp)
 
+    def check_pipeline_parallel(self, pp: int, tp: int = 1) -> None:
+        """The JAX trainer's rules for this DiM on `pp` stages of `tp`
+        'model' ranks, with its messages: no tensor parallelism inside a
+        stage, the Mamba mixer, the blocks split evenly."""
+        from ..parallel.pipeline_parallel import check_depth
+
+        if tp > 1:
+            raise ValueError(
+                "pipeline_parallel x tensor_parallel is supported for DiT "
+                "(DiM's Pallas selective scan needs its own 'model'-axis "
+                "shard_map, which cannot nest inside the pipeline's manual "
+                "(data, stage) context)")
+        if self.use_attention_fallback:
+            raise ValueError("pipeline_parallel for DiM runs the Mamba mixer "
+                             "stack — the attention fallback has no "
+                             "pipelined path")
+        check_depth("DiM", len(self.blocks), pp)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None, seq=None) -> torch.Tensor:
         """eps (B, H, W, C) float32. With `seq`, this rank's group under
         sequence parallelism (`parallel/sequence_parallel.py`): the blocks
         and the final layer run on its tokens, whose outputs are gathered,
         so the rank returns the whole eps of its rows."""
-        h = self.x_embedder(x)
-        h = h + self.pos_embed.to(h.dtype)
-        c = self.t_embedder(t)
-        if self.y_embedder is not None and y is not None:
-            c = c + self.y_embedder(y)
+        h, c = self.embed(x, t, y)
         if seq is not None:
             h = seq.local(h)
         for block in self.blocks:
@@ -305,6 +318,8 @@ class DiM(nn.Module):
         h = self.final_layer(h, c)
         if seq is not None:
             h = seq.gather_output(h.to(torch.float32))
-        # eps in float32 whatever the compute type, as the JAX model
-        return unpatchify(h, *self.tokens_hw, self.patch_size,
-                          self.out_channels).to(torch.float32).contiguous()
+        return self.output(h)
+
+    # the prologue and the output are the DiT's
+    embed = DiT.embed
+    output = DiT.output

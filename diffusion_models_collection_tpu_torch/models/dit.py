@@ -110,6 +110,7 @@ class Mlp(nn.Sequential):
                                        compute_dtype=dtype, quant=quant)),
             Dropout(dropout),
         )
+        self[2].width, self[4].width = hidden_dim, out_dim
 
 
 class SelfAttention(nn.Module):
@@ -122,7 +123,10 @@ class SelfAttention(nn.Module):
     `key_sizes` (B, L) makes it proportional attention over merged tokens
     (ToMe). `data_rank`, `head0` and `total_heads` place the dropout masks
     of a data- or tensor-parallel rank (`ops/attention.py`): rows data_rank
-    * B .. of the global batch, heads head0 .. of total_heads. On a
+    * B .. of the global batch, heads head0 .. of total_heads. A pipeline
+    stage (`parallel/pipeline_parallel.py`) sets `batch0`, the global row of
+    a microbatch's first row, and `replayed_seed`, the seed this call would
+    have drawn on one device, before each microbatch. On a
     tensor-parallel rank (`parallel/tensor_parallel.py`) the module holds
     its heads' slices and `model_group`, whose `copy_to_model` (Megatron's
     f) takes the input of the in-projection. A sequence-parallel rank
@@ -139,6 +143,8 @@ class SelfAttention(nn.Module):
                              f"{num_heads} heads")
         self.num_heads = num_heads
         self.data_rank, self.head0, self.total_heads = 0, 0, num_heads
+        self.batch0: Optional[int] = None
+        self.replayed_seed: Optional[int] = None
         self.model_group = None
         self.dropout = dropout
         self.dtype = dtype
@@ -170,8 +176,10 @@ class SelfAttention(nn.Module):
         out = v if perturb else multihead_attention(
             q, k, v, self.num_heads, dropout_rate=self.dropout,
             deterministic=not self.training, key_sizes=key_sizes,
-            batch0=self.data_rank * x.shape[0], head0=self.head0,
-            total_heads=self.total_heads, row0=row0)
+            batch0=(self.data_rank * x.shape[0] if self.batch0 is None
+                    else self.batch0), head0=self.head0,
+            total_heads=self.total_heads, row0=row0,
+            seed=self.replayed_seed)
         return self.out_proj(out)
 
 
@@ -340,6 +348,14 @@ class DiT(nn.Module):
 
         check_tokens(self.tokens_hw[0] * self.tokens_hw[1], sp)
 
+    def check_pipeline_parallel(self, pp: int, tp: int = 1) -> None:
+        """The JAX trainer's rule for this DiT on `pp` stages (of `tp`
+        'model' ranks each, which a DiT stage takes), with its message: the
+        blocks split evenly."""
+        from ..parallel.pipeline_parallel import check_depth
+
+        check_depth("DiT", len(self.blocks), pp)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None, *,
                 pag_perturb: Optional[bool] = None,
@@ -353,11 +369,7 @@ class DiT(nn.Module):
         outputs are gathered, so the rank returns the whole eps of its
         rows."""
         perturb = self.pag_perturb if pag_perturb is None else pag_perturb
-        h = self.x_embedder(x)
-        h = h + self.pos_embed.to(h.dtype)
-        c = self.t_embedder(t)
-        if self.y_embedder is not None and y is not None:
-            c = c + self.y_embedder(y)
+        h, c = self.embed(x, t, y)
         if seq is not None:
             h = seq.local(h)
         aux = []
@@ -371,6 +383,23 @@ class DiT(nn.Module):
         h = self.final_layer(h, c)
         if seq is not None:
             h = seq.gather_output(h.to(torch.float32))
-        # eps in float32 whatever the compute type, as the JAX model
+        return self.output(h)
+
+    def embed(self, x: torch.Tensor, t: torch.Tensor,
+              y: Optional[torch.Tensor] = None):
+        """(tokens, c) of the prologue, which the DiM shares: the patch
+        embedding plus the position embedding, and the timestep embedding
+        plus the label's when `y` is given (the JAX models skip the label
+        embedding for y=None)."""
+        h = self.x_embedder(x)
+        h = h + self.pos_embed.to(h.dtype)
+        c = self.t_embedder(t)
+        if self.y_embedder is not None and y is not None:
+            c = c + self.y_embedder(y)
+        return h, c
+
+    def output(self, h: torch.Tensor) -> torch.Tensor:
+        """eps (B, H, W, C) of the final layer's patch tokens, float32
+        whatever the compute type, as the JAX models (the DiM's too)."""
         return unpatchify(h, *self.tokens_hw, self.patch_size,
                           self.out_channels).to(torch.float32).contiguous()

@@ -17,8 +17,10 @@ embeddings compute their trig in float32 and cast only the result.
 
 `Dropout` is every model's activation dropout: its mask is drawn over the
 global batch of a data-parallel run (over the whole last axis of a
-tensor-parallel one, over all the tokens of a sequence-parallel one), so a
-sharded run draws the single-device run's masks.
+tensor-parallel one, over all the tokens of a sequence-parallel one, over
+every expert and row of a MoE's expert buffer), so a sharded run draws the
+single-device run's masks; a pipeline stage draws them in the one-device
+order before its microbatches run.
 """
 
 from __future__ import annotations
@@ -78,34 +80,70 @@ class Dropout(nn.Dropout):
     values are scaled by 1 / (1 - p) in `F.dropout`'s own masked scale,
     which saves the one-byte mask as `F.dropout` does. One device draws only
     its own mask; a sharded rank draws the global mask for the moment of
-    the draw (data_ranks times its own) and keeps a copy of its slice. A
-    tensor that is not batch-major (a MoE's expert buffers) gets a mask of
-    its own on each rank the same way."""
+    the draw (data_ranks times its own) and keeps a copy of its slice.
+
+    A MoE's expert buffer (E, rows * C, H) is expert-major: `experts` =
+    (first, total) says so, and that the tensor holds experts first .. of
+    `total`. Its mask is the one-device draw (total, data_ranks * rows * C,
+    H), of which the rank keeps its experts and rows data_rank * rows * C ..
+    (an expert-parallel rank: its group's rows, `data_rank` its group).
+
+    A pipeline stage (`parallel/pipeline_parallel.py`) draws the step's
+    masks before its forward, in the one-device order, and hands this
+    module its rows of the mask (`replayed`, `draw` gives it); each
+    microbatch call then takes rows `replay_row0` .. of it. `width` is the
+    last axis of the tensors the module is given (the owner sets it), which
+    such a draw needs."""
 
     def __init__(self, p: float = 0.5):
         super().__init__(p)
         self.data_rank, self.data_ranks = 0, 1
         self.token_rank, self.token_ranks = 0, 1
         self.features: Optional[tuple] = None
+        self.experts: Optional[tuple] = None
+        self.width: Optional[int] = None
+        self.replayed: Optional[torch.Tensor] = None
+        self.replay_row0 = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        rows, width = x.shape[0], x.shape[-1]
+    def draw(self, shape, device) -> torch.Tensor:
+        """This rank's mask of a tensor of `shape`, sliced from the one draw
+        of the global tensor (see the class docstring)."""
+        if self.experts is not None:
+            first, total = self.experts
+            n = shape[1]
+            keep = torch.empty((total, n * self.data_ranks, *shape[2:]),
+                               dtype=torch.bool, device=device
+                               ).bernoulli_(1.0 - self.p)
+            if self.data_ranks > 1 or shape[0] != total:
+                keep = keep[first:first + shape[0],
+                            self.data_rank * n:(self.data_rank + 1) * n
+                            ].contiguous()
+            return keep
+        rows, width = shape[0], shape[-1]
         first, total = self.features or (0, width)
-        mid = list(x.shape[1:-1])
+        mid = list(shape[1:-1])
         tokens = self.token_ranks > 1 and len(mid) > 0
         if tokens:
             mid[0] *= self.token_ranks
         keep = torch.empty((rows * self.data_ranks, *mid, total),
-                           dtype=torch.bool, device=x.device
+                           dtype=torch.bool, device=device
                            ).bernoulli_(1.0 - self.p)
         if tokens:
-            n = x.shape[1]
+            n = shape[1]
             keep = keep[:, self.token_rank * n:(self.token_rank + 1) * n]
         if self.data_ranks > 1 or total != width or tokens:
             keep = keep[self.data_rank * rows:(self.data_rank + 1) * rows,
                         ..., first:first + width].contiguous()
+        return keep
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.replayed is not None:
+            keep = self.replayed[self.replay_row0:
+                                 self.replay_row0 + x.shape[0]]
+        else:
+            keep = self.draw(x.shape, x.device)
         return _MaskedScale.apply(x, keep, 1.0 / (1.0 - self.p))
 
 

@@ -29,6 +29,18 @@ tokens, 8 experts, C 80) the one-hot tensors would be 105 MB a block and
 each dispatch einsum about 20 GFLOP. These products are XLA einsums in the
 JAX package, not Pallas kernels, so `torch.bmm` is their counterpart.
 
+Under data parallelism (DDP, FSDP, and the data x expert ranks of expert
+parallelism) the load-balance loss is the global batch's, as in the JAX
+step, which is one program over the global batch: f and P are averaged over
+the data-parallel group (`balance_group`, which the plan sets) before their
+product, and every rank holds the same loss. Its gradient reaches each
+rank's P as E f (not E f / N): the data-parallel average of the gradients
+then applies the global loss's gradient once. Under expert parallelism
+(`parallel/expert_parallel.py`) the module holds its rank's experts and
+`expert_group`, which takes each chunk of the expert-major buffer to the
+rank that holds its experts and the outputs back (two all-to-alls); the
+routing is unchanged.
+
 Parameter names are the port's own, since the reference has no MoE (the JAX
 package's exporter refuses a MoE DiT): `router.weight` (E, d),
 `router.bias` (E), `w1`, `b1`, `w2`, `b2` under `blocks.{i}.mlp`
@@ -91,7 +103,12 @@ class MoeMlp(nn.Module):
             torch.empty(num_experts, hidden_dim, dim)))
         self.b2 = nn.Parameter(torch.zeros(num_experts, dim))
         self.hidden_dropout = Dropout(dropout)
+        self.hidden_dropout.experts = (0, num_experts)  # expert-major
         self.out_dropout = Dropout(dropout)
+        # set by a parallel layout (`parallel/plan.py`): the data-parallel
+        # group the load-balance loss averages over, and the expert group
+        self.balance_group = None
+        self.expert_group = None
 
     def route(self, x: torch.Tensor, expert: Optional[torch.Tensor] = None):
         """The routing of (B, S, d) tokens: gate values and experts (B, S,
@@ -112,7 +129,13 @@ class MoeMlp(nn.Module):
         ahead = (flat.cumsum(dim=1) - flat).reshape(batch, k, seq, E)
         position = (ahead.transpose(1, 2) * onehot).sum(dim=-1)  # (B, S, k)
         f = onehot.sum(dim=2).float().mean(dim=(0, 1)) / k
-        load_balance = E * (f * probs.mean(dim=(0, 1))).sum()
+        p_mean = probs.mean(dim=(0, 1))
+        if self.balance_group is not None and self.training:
+            # the global batch's f and P; P's gradient passes to this rank's
+            # P unscaled (see the module docstring)
+            both = self.balance_group.mean(torch.stack([f, p_mean.detach()]))
+            f, p_mean = both[0], p_mean + (both[1] - p_mean).detach()
+        load_balance = E * (f * p_mean).sum()
         return gate, expert, position, load_balance
 
     def forward(self, x: torch.Tensor):
@@ -133,12 +156,17 @@ class MoeMlp(nn.Module):
         buf = tokens.new_zeros(spare + 1, dim).index_copy(
             0, torch.where(keep, slot, spare).reshape(-1),
             tokens.index_select(0, token.expand_as(slot).reshape(-1)))
-        h = torch.baddbmm(self.b1.to(cdt)[:, None, :],
-                          buf[:spare].view(E, batch * cap, dim),
+        expert_in = buf[:spare].view(E, batch * cap, dim)
+        if self.expert_group is not None:  # this rank's experts' rows
+            expert_in = self.expert_group.dispatch(expert_in)
+        h = torch.baddbmm(self.b1.to(cdt)[:, None, :], expert_in,
                           self.w1.to(cdt))
         h = self.hidden_dropout(F.gelu(h, approximate="none"))
         out_e = torch.baddbmm(self.b2.to(cdt)[:, None, :], h,
-                              self.w2.to(cdt)).reshape(E * batch * cap, dim)
+                              self.w2.to(cdt))
+        if self.expert_group is not None:  # every expert's, this rank's rows
+            out_e = self.expert_group.combine(out_e)
+        out_e = out_e.reshape(E * batch * cap, dim)
         # each token's slots, weighted by their gates; a dropped slot weighs 0
         weight = torch.where(keep, gate, torch.zeros_like(gate)).to(cdt)
         picked = out_e[slot.reshape(-1)].view(batch, seq, self.top_k, dim)

@@ -60,6 +60,7 @@ def multihead_attention(
     head0: int = 0,
     total_heads: Optional[int] = None,
     row0: int = 0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention of q (B, Lq, D) against k, v (B, Lk, D), split into
     `num_heads` heads, with dropout on the probabilities at `dropout_rate`
@@ -67,11 +68,16 @@ def multihead_attention(
     Lk) when given. The call's rows are rows `batch0` .. of the global batch,
     its heads heads `head0` .. of the model's `total_heads` (default
     `num_heads`) and its query tokens tokens `row0` .. of the sequence: the
-    place of its dropout masks."""
+    place of its dropout masks. `seed` is the dropout's seed when the
+    caller drew it (a pipeline stage replays the one-device draws); else
+    the call draws one."""
     batch, length, dim = q.shape
     head_dim = dim // num_heads
     dropout_p = 0.0 if deterministic else float(dropout_rate)
-    seed = draw_seed(generator) if dropout_p > 0.0 else None
+    if dropout_p == 0.0:
+        seed = None
+    elif seed is None:
+        seed = draw_seed(generator)
 
     def split(x):
         x = x.reshape(batch, -1, num_heads, head_dim).transpose(1, 2)

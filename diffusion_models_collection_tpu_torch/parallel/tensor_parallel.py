@@ -259,6 +259,7 @@ def _tp_mlp(mlp: Mlp, group, rank: int, size: int) -> None:
                                compute_dtype=fc2.compute_dtype)
     if isinstance(drop, Dropout):
         drop.features = (rank * local, hidden)
+        drop.width = local
 
 
 def shard_model(model: nn.Module, group, rank: int,

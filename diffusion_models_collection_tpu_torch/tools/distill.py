@@ -23,7 +23,8 @@ data) and the optimizer. The results sample through the ordinary CLI:
         --sampling_method ddim --num_inference_steps 4
 
 (a consistency checkpoint samples at the step count it embeds).
-`--device` defaults to `cuda` and fails when CUDA is absent.
+`--device` defaults to `cuda` and fails when CUDA is absent. The tool runs in
+one process: under torchrun (`WORLD_SIZE` > 1) it raises.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import time
 from pathlib import Path
 
 from ..factory import get_dataloader, get_dataset
+from ..parallel.mesh import refuse_process_world
 from ..utils.consistency_trainer import ConsistencyDistillationTrainer
 from ..utils.distill_trainer import DistillationTrainer
 from ..utils.helpers import (format_duration, load_config, resolve_device,
@@ -51,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the tool; returns the trainer after its last epoch."""
     args = build_parser().parse_args(argv)
+    refuse_process_world("tools.distill")
     device = resolve_device(args.device, "distill")
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])

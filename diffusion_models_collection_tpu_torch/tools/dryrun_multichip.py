@@ -18,13 +18,19 @@ on the global batch and head, so the layouts must agree exactly):
 * dim SP distributed scan: (N/2 data, 2 seq) at 16x16 (16 tokens: 8 a rank,
   at least the conv's halo) against its 16x16 DP twin;
 * dim SPxTP: (N/4 data, 2 seq, 2 model) at 16x16 against the same twin
-  (N >= 4).
+  (N >= 4);
+* dit PP and dim PP: GPipe over (N/2 data, 2 stage), two microbatches a
+  data rank, against their DP twins;
+* dit PPxTP: (N/4 data, 2 stage, 2 model) against the DiT's DP twin (N >=
+  4);
+* dit-moe EP: a MoE DiT (4 experts, top 2) over (N/2 data, 2 expert)
+  against its N-rank DP twin.
 
 Each leg prints `dryrun_multichip(N): OK, <leg> loss=... (dp ref ...)`, or
 the script raises. The ranks are processes joined in a gloo group on a
 `FileStore` in a temporary directory (`launch`, which the tests use too);
 `--device cuda` puts every rank's tensors on the one card (gloo carries
-them). Pipeline and expert parallelism are not ported yet.
+them).
 """
 
 from __future__ import annotations
@@ -53,6 +59,9 @@ TINY_MODEL_PARAMS = {
             "depth": 2, "num_heads": 4, "dropout": 0.1},
     "dim": {"in_channels": 3, "patch_size": 4, "hidden_size": 64,
             "depth": 2, "state_size": 4, "dropout": 0.1},
+    "dit-moe": {"in_channels": 3, "patch_size": 4, "hidden_size": 32,
+                "depth": 2, "num_heads": 4, "dropout": 0.1,
+                "num_experts": 4, "moe_top_k": 2},
 }
 SIZE = (8, 8)
 # the DiM's sequence-parallel legs: 16 tokens, 8 a seq rank (the conv's halo
@@ -130,7 +139,7 @@ def tiny_config(model_type: str, batch: int, save_dir: str,
     """The dry run's config: `batch` images a step (the global batch, split
     over the data-parallel ranks)."""
     return {
-        "model_type": model_type,
+        "model_type": model_type.split("-")[0],
         "model_params": dict(TINY_MODEL_PARAMS[model_type]),
         "image_size": size, "conditional": True, "num_classes": 10,
         "num_timesteps": 10, "beta_start": 1e-4, "beta_end": 0.02,
@@ -187,7 +196,8 @@ def make_trainer(config: dict, device: str, global_batch: int):
     from ..utils.trainer import DiffusionTrainer
 
     group = (int(config.get("tensor_parallel", 1))
-             * int(config.get("sequence_parallel", 1)))
+             * int(config.get("sequence_parallel", 1))
+             * int(config.get("pipeline_parallel", 1)))
     dp = process_count() // group
     generator = set_seed(config["seed"], device)
     model = get_model(config)
@@ -236,6 +246,17 @@ def all_legs(world: int, device: str) -> dict:
         out["dim SPxTP"] = leg_losses(
             "dim", {"sequence_parallel": 2, "tensor_parallel": 2}, device,
             batch, SP_SIZE)
+    if world % 2 == 0:
+        pp = {"pipeline_parallel": 2}
+        out["dit PP"] = leg_losses("dit", pp, device, batch)
+        out["dim PP"] = leg_losses("dim", pp, device, batch)
+        out["dit-moe DP"] = leg_losses("dit-moe", {}, device, batch)
+        out["dit-moe EP"] = leg_losses("dit-moe", {"expert_parallel": 2},
+                                       device, batch)
+    if world % 4 == 0:
+        out["dit PPxTP"] = leg_losses(
+            "dit", {"pipeline_parallel": 2, "tensor_parallel": 2}, device,
+            batch)
     return out
 
 
@@ -262,7 +283,8 @@ def dryrun(world: int = 4, device: str = "cpu") -> dict:
     twins = {"dim SP distributed scan": "dim 16x16 DP",
              "dim SPxTP": "dim 16x16 DP"}
     for name in ("dit TP", "dim TP", "dit FSDP", "dit hybrid FSDPxTP",
-                 "dit SP", "dim SP distributed scan", "dim SPxTP"):
+                 "dit SP", "dim SP distributed scan", "dim SPxTP", "dit PP",
+                 "dit PPxTP", "dim PP", "dit-moe EP"):
         if name not in legs:
             continue
         twin = legs[twins.get(name, f"{name.split()[0]} DP")]["losses"]

@@ -16,7 +16,8 @@ samples through the ordinary CLI at any step count:
     python -m diffusion_models_collection_tpu_torch.sample \\
         --checkpoint <save_dir>/reflow_round1.pth --num_inference_steps 1
 
-`--device` defaults to `cuda` and fails when CUDA is absent.
+`--device` defaults to `cuda` and fails when CUDA is absent. The tool runs in
+one process: under torchrun (`WORLD_SIZE` > 1) it raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import argparse
 import time
 from pathlib import Path
 
+from ..parallel.mesh import refuse_process_world
 from ..utils.helpers import (format_duration, load_config, resolve_device,
                              set_seed)
 from ..utils.reflow_trainer import ReflowTrainer
@@ -42,6 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the tool; returns the trainer after its last round."""
     args = build_parser().parse_args(argv)
+    refuse_process_world("tools.reflow")
     device = resolve_device(args.device, "reflow")
     config = load_config(Path(args.config))
     generator = set_seed(config.get("seed", 42), device)

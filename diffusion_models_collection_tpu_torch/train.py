@@ -28,11 +28,15 @@ joins a process group (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
 cpu`) and trains data parallel, or with the config's `tensor_parallel: k`
 (DiT, DiM) and `fsdp: true` (`fsdp_min_size`) on a (N / k data, k model)
 mesh, or with `sequence_parallel: S` (DiT, DiM; with `tensor_parallel` too)
-on a (N / (S k) data, S seq, k model) mesh (`parallel/`). `batch_size` is
-the global batch, as in the JAX package: each of the dp = N / (S k)
-data-parallel ranks loads its strided shard of every epoch in batches of
-`max(1, batch_size // dp)` (a model group, its seq and model ranks, shares
-one), and rank 0 prints and writes. The seed
+on a (N / (S k) data, S seq, k model) mesh, or with `pipeline_parallel: S`
+(DiT, DiM; the DiT with `tensor_parallel` too; `pp_microbatches`) on a (N /
+(S k) data, S stage, k model) mesh, or with `expert_parallel: E` (a MoE
+DiT) on a (N / E data, E expert) mesh (`parallel/`). `batch_size` is the
+global batch, as in the JAX package: each of the dp = N / (S k)
+data-parallel ranks (every rank under expert parallelism) loads its
+strided shard of every epoch in batches of `max(1, batch_size // dp)` (a
+model group, its seq, stage and model ranks, shares one), and rank 0
+prints and writes. The seed
 (`config["seed"]`) seeds the weight init, the dropout masks and the
 trainer's generator for t, noise and the CFG label dropout, alike on every
 rank (Python's and numpy's generators take seed + rank, as the JAX CLI's
@@ -41,8 +45,7 @@ the CPU runs only when asked for with `--device cpu`. The model computes in
 the config's `mixed_precision` (float32, or 'bf16': bfloat16 convs, linears and
 activations while the weights, the optimizer state, the EMA and the loss stay
 float32); on CUDA, TF32 is switched off for matrix products and
-convolutions. The JAX trainer's pipeline and expert parallelism raise,
-naming their ROADMAP item.
+convolutions.
 """
 
 from __future__ import annotations
@@ -95,10 +98,12 @@ def main(argv=None):
 
     say("Loading dataset...")
     train_dataset = get_dataset(config, train=True)
-    # a model group (its tensor- and sequence-parallel ranks) shares one
-    # shard of the data; `batch_size` is the global batch
+    # a model group (its tensor-parallel, sequence-parallel and pipeline
+    # ranks) shares one shard of the data; `batch_size` is the global batch
+    # (an expert-parallel rank loads its own shard)
     group = (int(config.get("tensor_parallel", 1) or 1)
-             * int(config.get("sequence_parallel", 1) or 1))
+             * int(config.get("sequence_parallel", 1) or 1)
+             * int(config.get("pipeline_parallel", 1) or 1))
     train_loader = get_dataloader(config, train_dataset, train=True,
                                   seed=config.get("seed", 42),
                                   process_index=rank // group,

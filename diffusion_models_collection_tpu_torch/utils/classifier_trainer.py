@@ -3,7 +3,8 @@
 Counterpart of `diffusion_models_collection_tpu/utils/classifier_trainer.py`
 on one device or data parallel (`parallel/plan.py`: DDP over 'data', every
 rank drawing the global batch's t and noise and keeping its rows, rank 0
-printing and writing; `tensor_parallel` and `fsdp` raise, as the JAX trainer
+printing and writing; `tensor_parallel`, `sequence_parallel`,
+`pipeline_parallel`, `expert_parallel` and `fsdp` raise, as the JAX trainer
 has only its 'data' mesh). `model_type: 'classifier'` routes `train` here.
 A step: t
 uniform in [0, T) and the noise from the trainer's generator (or passed in,

@@ -18,9 +18,9 @@ result embedded. Data parallel as the JAX trainers (`parallel/plan.py`):
 DDP around the student over 'data' (it synchronises every backward, the
 accumulation micro-steps' too), each rank drawing the global batch's draws
 and keeping its rows, the logged loss the mean over 'data', rank 0 printing
-and writing; `tensor_parallel` and `fsdp` raise, and so do the JAX
-trainers' other parallel layouts and orbax checkpoints, as in
-`DiffusionTrainer`.
+and writing; `tensor_parallel`, `sequence_parallel`, `pipeline_parallel`,
+`expert_parallel` and `fsdp` raise as data-parallel only, and orbax
+checkpoints as in `DiffusionTrainer`.
 """
 
 from __future__ import annotations

@@ -47,9 +47,12 @@ extension.
 Parallel training (`parallel/`), in a process group (torchrun, or a test's):
 data parallelism (DDP over 'data'), `fsdp: true` (ZeRO-3, FSDP2 per block,
 `fsdp_min_size`), `tensor_parallel: N` (Megatron rules for the DiT and the
-DiM; a UNet stays replicated), their hybrid, and `sequence_parallel: S` (the
+DiM; a UNet stays replicated), their hybrid, `sequence_parallel: S` (the
 DiT's and the DiM's tokens over S ranks, composing with `tensor_parallel`),
-through `ParallelPlan`. `batch_size` is the global batch: each data-parallel
+`pipeline_parallel: S` (GPipe of the DiT's and the DiM's blocks over S
+stages in `pp_microbatches` microbatches, the DiT's composing with
+`tensor_parallel`) and `expert_parallel: E` (a MoE DiT's experts over E
+ranks), through `ParallelPlan`. `batch_size` is the global batch: each data-parallel
 rank loads `max(1, batch_size // dp)` images (`factory.get_dataloader`).
 Every rank draws the global batch's (t, noise, drop) from the generator
 that every rank seeds alike and keeps its rows, so world N takes the steps
@@ -58,9 +61,10 @@ global batch too (`models/layers.Dropout`, the attention's head grid). The
 clip sums the squares of sharded gradients over their groups; rank 0
 prints, writes the grids, logs and writes the checkpoints, which every rank
 gathers to the full state dict; every rank samples the grids (a collective
-under FSDP and TP); the epoch's logged loss is the mean over 'data'. The
-JAX trainer's pipeline and expert parallelism raise, naming their ROADMAP
-item. `VAETrainer`
+under FSDP, TP, PP and EP; under pipeline parallelism through the
+stages, each data rank on its rows of the grid); the epoch's logged loss is
+the mean over 'data'. A MoE's load-balance loss is the global batch's under
+every data-parallel layout (`models/moe.py`). `VAETrainer`
 (`utils/vae_trainer.py`) trains the first stage on this trainer's optimizer,
 EMA, checkpoints and loop.
 """
@@ -95,9 +99,6 @@ from .tracker import NullTracker, Tracker, build_tracker
 def _not_ported(cfg: dict):
     """(key, ROADMAP item) for each config key of the JAX trainer that
     selects what this port has not ported yet."""
-    for key in ("pipeline_parallel", "expert_parallel"):
-        if int(cfg.get(key, 1) or 1) > 1:
-            yield key, "queue 1 item 15"
     # the JAX trainer's other format is orbax, which the port does not need
     if cfg.get("checkpoint_format", "pickle") != "pickle":
         yield "checkpoint_format", "queue 1 item 16"
@@ -508,9 +509,10 @@ class DiffusionTrainer:
         shape = (num_samples, h, w, self.in_channels)
         nrow = max(1, int(math.sqrt(num_samples)))
         model = self.ema_model if self.ema_model is not None else self.model
-        model_fn = model
+        # the module, or its pipeline over the stages
+        model_fn = self.plan.forward_fn(model)
         if self.sr is not None:
-            model_fn = self.sr_wrap_for_sampling(model, num_samples, nrow)
+            model_fn = self.sr_wrap_for_sampling(model_fn, num_samples, nrow)
             if model_fn is None:
                 return None
         was_training = model.training

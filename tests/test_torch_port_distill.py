@@ -357,3 +357,19 @@ def test_validation_matches_jax(teachers, tmp_path, method, which, changes):
 def test_tool_refuses_an_unknown_method(tmp_path):
     with pytest.raises(ValueError, match="Unknown distill_method: 'nope'"):
         run_tool(tmp_path, {"distill_method": "nope", "image_size": 8})
+
+
+def test_tool_refuses_a_torchrun_world(tmp_path, monkeypatch):
+    """The tool joins no process group: under torchrun at WORLD_SIZE 2 every
+    rank would run the whole distillation and write the same files, so it
+    raises, naming the ROADMAP item of data parallelism outside train,
+    before it reads its config."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="item 15d"):
+        tool.main(["--config", str(tmp_path / "absent.py"), "--device",
+                   "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(FileNotFoundError):  # one process goes on to read it
+        tool.main(["--config", str(tmp_path / "absent.py"), "--device",
+                   "cpu"])

@@ -1,13 +1,15 @@
 """`batch_size` is the global batch in the port's `train`, as in the JAX
 package (F8): under torchrun each data-parallel rank loads `max(1,
 batch_size // dp)` images, dp = world / (tensor_parallel x
-sequence_parallel), so a run at any world takes the JAX run's global batch
-and steps an epoch.
+sequence_parallel x pipeline_parallel), every rank under expert_parallel,
+so a run at any world takes the JAX run's global batch and steps an epoch.
 
 A gloo world of two processes runs the port's `train` CLI on the CPU
 (`torch_parallel_jobs.cli_job`, importing no JAX) on a UNet config (two
-data-parallel ranks) and on a DiT config at `tensor_parallel: 2` (one data
-rank, which loads the whole global batch); the JAX package's
+data-parallel ranks), on a DiT config at `tensor_parallel: 2` and at
+`pipeline_parallel: 2` (one data rank, which loads the whole global batch)
+and on a MoE DiT config at `expert_parallel: 2` (two data ranks); the JAX
+package's
 `factory.get_dataloader` on the same config, with its process count and
 index set to the world's data ranks, gives the rule each rank's loader is
 held to: the same batch, the same batches an epoch, and as many steps.
@@ -59,9 +61,15 @@ def runs(tmp_path_factory):
         tmp, "dit", model_type="dit", tensor_parallel=2,
         model_params={"in_channels": 3, "patch_size": 4, "hidden_size": 32,
                       "depth": 1, "num_heads": 4, "dropout": 0.0})
+    dit_params = {"in_channels": 3, "patch_size": 4, "hidden_size": 32,
+                  "depth": 2, "num_heads": 4, "dropout": 0.0}
+    pp, pp_path = config(tmp, "pp", model_type="dit", pipeline_parallel=2,
+                         model_params=dit_params)
+    ep, ep_path = config(tmp, "ep", model_type="dit", expert_parallel=2,
+                         model_params=dict(dit_params, num_experts=4))
     ranks = launch(WORLD, "torch_parallel_jobs.cli_job",
-                   [unet_path, dit_path], timeout=300)
-    return [unet, dit], ranks
+                   [unet_path, dit_path, pp_path, ep_path], timeout=300)
+    return [unet, dit, pp, ep], ranks
 
 
 def jax_rule(config, monkeypatch, data_ranks, index):
@@ -75,19 +83,20 @@ def jax_rule(config, monkeypatch, data_ranks, index):
     return loader.batch_size, len(loader)
 
 
-@pytest.mark.parametrize("which,tp", [(0, 1), (1, 2)])
-def test_train_takes_the_jax_global_batch(runs, monkeypatch, which, tp):
-    """At tensor_parallel 1 the two ranks are two data ranks, each loading
-    24 // 2 images a step; at tensor_parallel 2 one data rank loads all 24
-    (a model group shares its rows). Each rank's batch and batches an epoch
-    are the JAX loader's for that many processes, and one epoch takes that
-    many steps."""
+@pytest.mark.parametrize("which,group", [(0, 1), (1, 2), (2, 2), (3, 1)])
+def test_train_takes_the_jax_global_batch(runs, monkeypatch, which, group):
+    """Data parallel, the two ranks are two data ranks, each loading 24 // 2
+    images a step, and so are they at expert_parallel 2; at tensor_parallel
+    2 or pipeline_parallel 2 (`group` ranks a model group) one data rank
+    loads all 24 (a model group shares its rows). Each rank's batch and
+    batches an epoch are the JAX loader's for that many processes, and one
+    epoch takes that many steps."""
     configs, ranks = runs
     cfg = configs[which]
-    data_ranks = WORLD // tp
+    data_ranks = WORLD // group
     for rank in range(WORLD):
         got = ranks[rank][which]
-        want = jax_rule(cfg, monkeypatch, data_ranks, rank // tp)
+        want = jax_rule(cfg, monkeypatch, data_ranks, rank // group)
         assert got["dp"] == data_ranks
         assert (got["batch"], got["batches"]) == want, (rank, got, want)
         assert got["batch"] * data_ranks == cfg["batch_size"]

@@ -418,8 +418,12 @@ def test_train_takes_steps_and_resumes(trained_moe):
 
 
 def test_expert_parallel_still_names_its_item(tmp_path):
+    """`expert_parallel: 2` through `train.main` in one process raises the
+    JAX trainer's ValueError: the layout needs two devices (its steps:
+    test_torch_port_expert_parallel.py)."""
     cfg_path, _ = tiny_moe_config(tmp_path, expert_parallel=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 15"):
+    with pytest.raises(ValueError, match="expert_parallel=2 does not divide "
+                       "1 devices"):
         train.main(["--config", cfg_path, "--device", "cpu"])
 
 

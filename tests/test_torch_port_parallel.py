@@ -225,6 +225,8 @@ def test_dryrun_multichip_legs():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     for leg in ("unet DP loss=", "dit TP loss=", "dim TP loss=",
                 "dit FSDP", "dit hybrid FSDPxTP", "dit SP loss=",
-                "dim SP distributed scan loss=", "dim SPxTP loss="):
+                "dim SP distributed scan loss=", "dim SPxTP loss=",
+                "dit PP loss=", "dit PPxTP loss=", "dim PP loss=",
+                "dit-moe EP loss="):
         assert f"dryrun_multichip(4): OK, {leg}" in proc.stdout, (
             leg, proc.stdout[-3000:])

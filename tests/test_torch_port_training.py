@@ -464,8 +464,8 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
     and `fsdp`, ported with the parallel slice, build: in one process FSDP
     is the one-device layout, and tensor_parallel 2 raises the JAX
     trainer's ValueError, as it needs two devices. `sequence_parallel`,
-    ported with the sequence-parallel slice, raises the JAX trainer's
-    ValueError for a UNet."""
+    `pipeline_parallel` and `expert_parallel`, ported since, raise the JAX
+    trainer's ValueError for a UNet."""
     config = dict(train_config(tmp_path, 1), **change)
 
     def build():
@@ -477,8 +477,13 @@ def test_trainer_raises_on_what_is_not_ported(tmp_path, change):
     elif "tensor_parallel" in change:
         with pytest.raises(ValueError, match="does not divide 1 devices"):
             build()
-    elif "sequence_parallel" in change:
-        with pytest.raises(ValueError, match="supports the DiT and DiM"):
+    elif "sequence_parallel" in change or "pipeline_parallel" in change:
+        with pytest.raises(ValueError, match="supports the DiT and DiM "
+                           r"backbones \(got UNet\)"):
+            build()
+    elif "expert_parallel" in change:
+        with pytest.raises(ValueError, match=r"expert_parallel > 1 needs a "
+                           r"MoE model \(DiT with num_experts > 0\)"):
             build()
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,9 +1,12 @@
 """Shared set-up of the parallel tests (`test_torch_port_parallel.py`,
 `test_torch_port_fsdp.py`, `test_torch_port_tensor_parallel.py`,
 `test_torch_port_sequence_parallel.py`,
-`test_torch_port_dim_sequence_parallel.py`): the JAX package's sharded step
-(and its sequence-parallel step) on its virtual CPU devices, the port's ranks in a
-gloo world (`torch_parallel_jobs.py`, which imports no JAX), and the bars.
+`test_torch_port_dim_sequence_parallel.py`,
+`test_torch_port_pipeline_parallel.py`,
+`test_torch_port_expert_parallel.py`): the JAX package's sharded step (and
+its sequence-parallel, pipeline and MoE steps) on its virtual CPU devices,
+the port's ranks in a gloo world (`torch_parallel_jobs.py`, which imports no
+JAX), and the bars.
 
 Bars: against JAX, 2e-4 (max|port - jax| / max|jax|) for the losses and
 the parameters, the bar of `test_torch_port_training.py`; against the
@@ -179,6 +182,105 @@ def jax_sp_steps(model, params, config, batches, dp, sp, tp=1):
         p, opt_state, loss = step(p, opt_state, *args)
         losses.append(float(loss))
     return losses, jax.tree_util.tree_map(np.asarray, p)
+
+
+def _jax_train(loss_of, p, config, batches, rows):
+    """Adam steps (the Optax chain of `build_optimizer`) of the jitted
+    `loss_of(params, x0, t, noise, y)` from `p` on `batches` placed by
+    `rows`: the losses, the first step's gradients and the parameters
+    after the steps (numpy)."""
+    tx, _, _ = jax_build_optimizer(config, 1)
+    opt_state = tx.init(p)
+
+    @jax.jit
+    def step(p, opt_state, *args):
+        loss, grads = jax.value_and_grad(loss_of)(p, *args)
+        updates, opt_state = tx.update(grads, opt_state, p)
+        return optax.apply_updates(p, updates), opt_state, loss, grads
+
+    losses, first = [], None
+    for b in batches:
+        args = [jax.device_put(jnp.asarray(a), rows) for a in (
+            b["x0"], b["t"].astype(np.int32), b["noise"], cfg_labels(b))]
+        p, opt_state, loss, grads = step(p, opt_state, *args)
+        losses.append(float(loss))
+        if first is None:
+            first = jax.tree_util.tree_map(np.asarray, grads)
+    return losses, first, jax.tree_util.tree_map(np.asarray, p)
+
+
+def jax_pp_steps(model, params, config, batches, dp, pp, tp=1,
+                 microbatches=None):
+    """The JAX package's pipeline-parallel train step
+    (`make_pipeline_apply` over its stacked-block tree, placed by
+    `shard_pp_param_tree`: the blocks over 'stage', Megatron over 'model'
+    at tp > 1) jitted over a (dp, pp[, tp]) mesh of the virtual CPU
+    devices, dropout off: the losses and the parameters (numpy, the
+    standard tree) after the steps."""
+    from diffusion_models_collection_tpu.parallel import pipeline_parallel \
+        as pp_lib
+
+    devices = jax.devices()[:dp * pp * tp]
+    mesh = (pp_lib.data_stage_model_mesh(dp, pp, tp, devices) if tp > 1
+            else pp_lib.data_stage_mesh(dp, pp, devices))
+    prefix, depth = pp_lib.block_prefix_for(model), model.depth
+    tree = pp_lib.shard_pp_param_tree(mesh, pp_lib.to_pp_tree(
+        jax.tree_util.tree_map(jnp.asarray, params), depth, prefix))
+    apply_fn = pp_lib.make_pipeline_apply(model, mesh,
+                                          num_microbatches=microbatches)
+    ddpm = jax_ddpm.DDPM(num_timesteps=config["num_timesteps"])
+    conditional = config.get("conditional", False)
+
+    def loss_of(q, x0, t, noise, y):
+        return ddpm.p_losses(
+            lambda x, tt, yy: apply_fn(q["blocks"], q["rest"], x, tt, yy),
+            x0, t, noise, y=y if conditional else None)
+
+    losses, _, p = _jax_train(loss_of, tree, config, batches,
+                              NamedSharding(mesh, P("data")))
+    return losses, pp_lib.from_pp_tree(p, depth, prefix)
+
+
+def jax_moe_steps(model, params, config, batches, dp, ep=1):
+    """The JAX package's MoE DiT train step, DDPM's loss plus
+    `moe_aux_weight` times the blocks' mean load-balance loss (its
+    trainer's objective), jitted over its virtual CPU devices: a (dp,)
+    data mesh with the parameters replicated (the data-parallel step), or
+    at ep > 1 the (dp, ep) mesh with the expert weights over 'expert'
+    (`shard_model_params`), the batch over both axes, traced under
+    `jax.set_mesh` as its trainer does. Dropout off. The losses, the first
+    step's gradients and the parameters (numpy) after the steps."""
+    from diffusion_models_collection_tpu.parallel import expert_parallel
+    from diffusion_models_collection_tpu.parallel import mesh as pmesh
+
+    weight = float(config.get("moe_aux_weight", 0.01))
+    ddpm = jax_ddpm.DDPM(num_timesteps=config["num_timesteps"])
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    if ep > 1:
+        mesh = expert_parallel.data_expert_mesh(dp, ep,
+                                                jax.devices()[:dp * ep])
+        p = expert_parallel.shard_model_params(mesh, p)
+        rows = NamedSharding(mesh, P(("data", "expert")))
+    else:
+        mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:dp]), ("data",))
+        p = pmesh.replicate(mesh, p)
+        rows = NamedSharding(mesh, P("data"))
+
+    def loss_of(q, x0, t, noise, y):
+        aux = []
+
+        def model_fn(x, tt, yy):
+            eps, sown = model.apply({"params": q}, x, tt, yy,
+                                    mutable=["losses"])
+            vals = jax.tree_util.tree_leaves(sown["losses"])
+            aux.append(sum(vals) / len(vals))
+            return eps
+
+        main = ddpm.p_losses(model_fn, x0, t, noise, y=y)
+        return main + weight * aux[0]
+
+    with jax.set_mesh(mesh):
+        return _jax_train(loss_of, p, config, batches, rows)
 
 
 def check_against_jax(result, jax_losses, jax_params, config):

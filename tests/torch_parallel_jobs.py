@@ -10,7 +10,9 @@ what to return. Every rank trains on its rows of each global batch and its
 draws; the result (from rank 0) holds the loss of each step (the mean over
 'data'), the gradients of each update gathered to the full parameters
 before the clip, the full parameters, EMA and optimizer state after the
-steps, and the local shapes and sharded share of the parameters.
+steps, the local shapes and sharded share of the parameters, every rank's
+parameter names, and with `sample` an in-training grid of that many
+images.
 """
 
 import copy
@@ -67,9 +69,7 @@ def record_gradients(trainer, store):
 
     def hook():
         before()
-        store.append({name: plan.gather(name, p.grad)
-                      for name, p in trainer.model.named_parameters()
-                      if p.grad is not None})
+        store.append(plan.full_gradients(trainer.model))
 
     plan.average_replicated_grads = hook
 
@@ -107,6 +107,8 @@ def train_job(job):
         losses.append(float(lay.mean_over_data(loss)))
     if job.get("save"):
         trainer.save_checkpoint(epoch=1, is_last=True)
+    samples = (trainer.sample_images(1, job["sample"]) if job.get("sample")
+               else None)
     result = {
         "losses": losses,
         "grads": grads,
@@ -121,8 +123,23 @@ def train_job(job):
         "dtensor_states": sum(hasattr(v, "placements")
                               for s in trainer.optimizer.inner.state.values()
                               for v in s.values()),
+        "names_by_rank": names_by_rank(trainer.model),
+        "samples": samples,
     }
     return result if process_index() == 0 else None
+
+
+def names_by_rank(model):
+    """Every rank's parameter names, in rank order (a collective in a
+    world; this process's alone without one)."""
+    import torch.distributed as dist
+
+    names = [n for n, _ in model.named_parameters()]
+    if not dist.is_initialized():
+        return [names]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, names)
+    return out
 
 
 def scan_job(job):
