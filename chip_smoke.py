@@ -247,7 +247,7 @@ Then the DiT's last three families:
   trained UNet, consistency (CFG 3 inside) and progressive (8 -> 4
   steps), 135 K1, 33 K2, 45 K1b, 11 K3 a step, and a sample of each
   result; `tools/reflow.py` from the flow-matching UNet `phase_process`
-  trained (256 pairs, 10 Euler steps with CFG 3, then 4 steps) and a
+  trained (128 pairs, 10 Euler steps with CFG 3, then 4 steps) and a
   1-step sample of its round; 12 DDPM steps with AdamW, Adafactor and
   Lion (images/s, peak memory, the optimizer state's bytes).
 
@@ -303,7 +303,15 @@ legs of `phase_parallel`'s world (their step seconds and peak memory a rank
 beside DP 2's); then pipeline and expert parallelism
 (`phase_pipeline_expert`, in `chip_smoke_pipeline.py`): K2's mask of a
 microbatch read back at its `batch0`, and the PP and EP legs beside DP 2's
-with the draw replay's cost.
+with the draw replay's cost; then data parallelism outside `train`
+(`phase_data_parallel`, in `chip_smoke_data.py`): `sample.main` (the
+trained fp32 UNet, DDIM-50 CFG 3, 32 images at batch 16), `evaluate.main`
+(64 images), the in-training grid of a DDP UNet, `tools.distill` and
+`tools.reflow` in a gloo world of two processes on the card against one
+process's run of the same call: images, metrics, losses and weights within
+their bars, a rank's launches equal to one process's, rank 0 alone
+writing, and samples/s and the all-gather's share of sampling beside one
+process's.
 
 Every phase prints its seconds. Each path is run with every launch count
 set to 0 just before it and read
@@ -4586,7 +4594,7 @@ DISTILL_STEP = dict(UNET_STEP, gn=3 * GN_PER_FORWARD,
 CT_GRIDS = [10, 20]  # `ct_grid_schedule`: 3 epochs, 1 on 10 points, 2 on 20
 CM_STEPS = 2  # the consistency checkpoints' embedded step count
 PD_STEPS = 4  # the progressive student's count (its teacher's grid: 8)
-REFLOW_PAIRS, REFLOW_BATCH, REFLOW_TEACHER_STEPS = 256, 128, 10
+REFLOW_PAIRS, REFLOW_BATCH, REFLOW_TEACHER_STEPS = 128, 64, 10
 TOL_FEWSTEP_SAMPLES = 1e-4  # consistency-2 images in [0, 1], kernels vs plain
 
 
@@ -4728,7 +4736,7 @@ def run_tool(label, tool, config, tmp, per_step, epochs, **changes):
 def phase_reflow(flow_ckpt, tmp, smi):
     """`tools/reflow.py` on the flow-matching UNet `phase_process` trained:
     REFLOW_PAIRS pairs from its Euler sampler at REFLOW_TEACHER_STEPS steps
-    with CFG 3 (2 batches of 128: 20 calls of one UNet forward at 256 rows,
+    with CFG 3 (2 batches of 64: 20 calls of one UNet forward at 128 rows,
     counted at `synthesize_pairs`), then one round of 2 epochs (4 steps);
     then 1-step Euler `sample` of `reflow_round1.pth`."""
     counted = {}
@@ -5873,7 +5881,6 @@ def main():
         super_res = phase_sr(unet_ckpt, keep.name, gen, smi)
     with clock("phase_fewstep"):
         fewstep = phase_fewstep(unet_ckpt, flow_ckpt, gen, smi, seconds)
-    keep.cleanup()
     with clock("phase_moe"):
         moe = phase_moe(gen, smi)
     with clock("phase_tome"):
@@ -5886,6 +5893,7 @@ def main():
     with clock("phase_dit64"):
         dit64 = phase_dit64(gen, smi)
     # beside this script; they import this script's helpers as `chip_smoke`
+    import chip_smoke_data
     import chip_smoke_pipeline
     import chip_smoke_sequence
 
@@ -5896,6 +5904,9 @@ def main():
             gen, smi, parallel["legs"])
     with clock("phase_pipeline_expert"):
         chip_smoke_pipeline.phase_pipeline_expert(gen, smi, parallel)
+    with clock("phase_data_parallel"):
+        data = chip_smoke_data.phase_data_parallel(smi, unet_ckpt, flow_ckpt)
+    keep.cleanup()
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
           f"fp32 on {smi}")
@@ -6478,6 +6489,15 @@ def main():
                      "bound_ms": t["bwd_bound"],
                      "library_ms": t["bwd_library"]})
     kernels += chip_smoke_sequence.kernel_rows(sequence)
+    # the float32 UNet kernels' launches a rank (rank 0's) on the
+    # data-parallel paths outside train
+    for row in kernels:
+        key = {"gn_silu_fwd": "gn", "gn_silu_bwd": "gn_bwd",
+               "flash_attn_fwd": "attn",
+               "flash_attn_bwd": "attn_bwd"}.get(row["name"])
+        for path, run in data["launches"].items():
+            if key is not None and run[key]:
+                row["launches_by_path"][f"data_parallel_{path}"] = run[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,11 +26,18 @@ metrics JSON to `--output`, the relative-only metrics listed under
 `uncalibrated_relative_only`.
 
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
-only when asked for with `--device cpu`. Everything runs on that one
-device: the JAX package's data-parallel generation and feature extraction
-over a device mesh is not ported (ROADMAP queue 1 item 15d, data
-parallelism outside `train`; `train` has the rest of item 15 but pipeline
-and expert parallelism). A
+only when asked for with `--device cpu`. Under torchrun (`torchrun
+--nproc_per_node N -m diffusion_models_collection_tpu_torch.evaluate ...`)
+every rank joins the group (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
+cpu`), loads the same real images and generates every batch as `sample`
+does, each model call on its rows and gathered
+(`parallel/data_parallel.py`), the one-process run's but for the float
+rounding of the model on fewer rows; the metric networks split each batch likewise (InceptionV3's
+features and logits, LPIPS's distances), and every rank forms FID, KID, IS,
+precision/recall and SWD from the gathered features and images, as the
+JAX package's data-parallel generation and feature extraction over a
+device mesh. Rank 0 alone prints and writes the JSON and the image
+folders. A
 latent-diffusion checkpoint generates the latents of the VAE its config names
 and decodes them before the metric networks see them. `--tome_ratio`
 (with `--tome_mlp`) and `--quantize int8` generate through the DiT's token
@@ -54,7 +61,10 @@ from .datasets import DataLoader
 from .diffusion.deepcache import deepcache_sample
 from .factory import get_dataset, get_diffusion, load_model_for_inference
 from .metrics import calculate_all_metrics, compute_swd
-from .pipeline import build_deepcache, process_flags, wrap_pag
+from .parallel.mesh import (Layout, is_main_process, join_world,
+                            leave_world, main_process_output)
+from .pipeline import (build_deepcache, process_flags, split_model_calls,
+                       wrap_pag)
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, save_image, save_image_grid,
@@ -260,7 +270,15 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
     SWD."""
     args = build_parser().parse_args(argv)
     seconds = {} if seconds is None else seconds
-    device = resolve_device(args.device, "evaluate")
+    device, layout = join_world(resolve_device(args.device, "evaluate"))
+    with main_process_output():
+        return run(args, device, layout, seconds)
+
+
+def run(args, device: torch.device, layout: Layout,
+        seconds: Dict[str, float]) -> dict:
+    """`main` after the world is joined; every rank generates and computes
+    the metrics, rank 0 writes."""
     generator = set_seed(args.seed, device)
 
     print(f"Loading checkpoint from {args.checkpoint}...")
@@ -278,10 +296,11 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
 
     print("Creating model...")
     model = load_model_for_inference(checkpoint, config, args.use_ema, device)
+    apply = split_model_calls(model, layout)
     flags = process_flags(config)
-    model_fn = wrap_pag(args, config, model, flags)
+    model_fn = wrap_pag(args, config, apply, flags)
     dc_full_fn, dc_shallow_fn = build_deepcache(
-        args, config, model, flags, base_wrapped=model_fn is not model)
+        args, config, apply, flags, base_wrapped=model_fn is not apply)
     if args.num_inference_steps is not None:
         if args.sampling_method == "ddpm" and not any(flags):
             raise SystemExit(
@@ -367,7 +386,7 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
     print(f"Generated {len(fake_images)} fake images in "
           f"{format_duration(seconds['generation'])} on {device}")
 
-    if args.save_images_dir:
+    if args.save_images_dir and is_main_process():
         save_images(Path(args.save_images_dir), real_images, fake_images)
 
     print("\n" + "=" * 50)
@@ -408,13 +427,17 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None) -> dict:
     report = {k: float(v) for k, v in metrics.items()}
     if uncalibrated:
         report["uncalibrated_relative_only"] = uncalibrated
-    with Path(args.output).open("w", encoding="utf-8") as f:
-        json.dump(report, f, indent=4)
-    print(f"\nResults saved to {args.output}")
+    if is_main_process():
+        with Path(args.output).open("w", encoding="utf-8") as f:
+            json.dump(report, f, indent=4)
+        print(f"\nResults saved to {args.output}")
     return report
 
 
 if __name__ == "__main__":
     start = time.time()
     main()
-    print(f"Total evaluation time: {format_duration(time.time() - start)}")
+    if is_main_process():
+        print(f"Total evaluation time: "
+              f"{format_duration(time.time() - start)}")
+    leave_world()

@@ -33,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_parallel import gather_rows
+from ..parallel.mesh import data_layout
+
 WEIGHTS_ENV_VAR = "DMC_TPU_INCEPTION_WEIGHTS"
 
 Pad = Union[int, Tuple[int, int]]
@@ -314,9 +317,11 @@ class InceptionFeatures:
     distribution from seed 0, conv kernels times sqrt(2): without it the
     activations halve at every ReLU through InceptionV3's ~94 convs and the
     pool features collapse to a constant, so FID reads ~0 for any pair of
-    image sets) and `self.calibrated` is False. One device: the JAX
-    package's sharding over a data mesh is not ported (ROADMAP queue 1
-    item 15d, data parallelism outside `train`)."""
+    image sets) and `self.calibrated` is False. In a world of processes
+    every call splits its batch over the ranks and gathers the features
+    and logits in rank order (`parallel/data_parallel.gather_rows`, as the
+    JAX extractor shards each batch over a 'data' mesh); every rank must
+    call it with the same images."""
 
     def __init__(self, weights_path: Optional[str] = None,
                  device: Union[str, torch.device] = "cpu"):
@@ -337,4 +342,5 @@ class InceptionFeatures:
         (features_2048, logits_1000), float32 on the extractor's device."""
         x = torch.as_tensor(images01).to(self.device, torch.float32)
         with torch.inference_mode():
-            return self.model(preprocess(x))
+            return gather_rows(lambda b: self.model(preprocess(b)),
+                               data_layout(), x)

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_parallel import gather_rows
+from ..parallel.mesh import data_layout
 from ..utils.weights import ALEXNET_CONV_IDS, alexnet_state_dict_from_jax
 from .inception import flax_default_init_
 
@@ -186,11 +188,20 @@ class LPIPSScore:
             return total
 
     def compute_lpips(self, images1, images2, batch_size: int = 32) -> float:
-        """Mean LPIPS between paired sets, inputs (N, H, W, C) in [0, 1]."""
+        """Mean LPIPS between paired sets, inputs (N, H, W, C) in [0, 1]. In
+        a world of processes each batch of pairs splits over the ranks and
+        the distances are gathered in rank order
+        (`parallel/data_parallel.gather_rows`, as the JAX score shards each
+        batch over a 'data' mesh); every rank must call it with the same
+        images."""
         assert len(images1) == len(images2), "Number of images must match"
-        dists = [self.distance(images1[start:start + batch_size],
-                               images2[start:start + batch_size]).cpu().numpy()
-                 for start in range(0, len(images1), batch_size)]
+        layout = data_layout()
+        dists = []
+        for start in range(0, len(images1), batch_size):
+            pair = (torch.as_tensor(images[start:start + batch_size])
+                    for images in (images1, images2))
+            dists.append(gather_rows(self.distance, layout, *pair)
+                         .cpu().numpy())
         return float(np.mean(np.concatenate(dists)))
 
     def compute_lpips_diversity(self, images, num_pairs: int = 1000,

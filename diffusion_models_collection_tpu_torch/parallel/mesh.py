@@ -31,6 +31,13 @@ and the port's code calls the collectives itself.
   same experts.
   Without a process group it is the one-device layout, and every collective
   of the port is skipped.
+* `join_world` is every entry point's start under torchrun (its card, the
+  group); `data_layout` makes every rank a data rank of the world, the
+  layout over which `sample`, `evaluate`, the distill and reflow tools and
+  the metric networks split their batches (`data_parallel.py`). The tools
+  that stay one process (`serve`, `tools.cascade`,
+  `tools.compute_latent_scale`) raise in a world instead
+  (`refuse_process_world`).
 * Every rank draws the step's draws for the global batch from a generator
   seeded alike and keeps its rows (`Layout.rows`, the JAX `shard_batch`): a
   data-parallel run at world N takes the steps that one device takes on the
@@ -39,6 +46,7 @@ and the port's code calls the collectives itself.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -88,17 +96,17 @@ def init_process_group(device: torch.device, *, rank: Optional[int] = None,
     return True
 
 
-def refuse_process_world(tool: str) -> None:
-    """Raise when `tool`, which joins no process group, runs in a torchrun
+def refuse_process_world(tool: str, item: str, reason: str) -> None:
+    """Raise when `tool`, which runs in one process, runs in a torchrun
     world of several processes: each would run the whole run on one card
-    and write the same files."""
+    and write the same files. The message gives `reason` and names ROADMAP
+    queue 1 `item`."""
     env = distributed_env()
     if env is not None and env[1] > 1:
         raise NotImplementedError(
-            f"{tool} runs in one process: data parallelism outside train is "
-            "not ported yet (ROADMAP queue 1 item 15d); under torchrun each "
-            f"of the {env[1]} processes would run the whole run and write "
-            "the same files")
+            f"{tool} runs in one process: {reason} (ROADMAP queue 1 item "
+            f"{item}); under torchrun each of the {env[1]} processes would "
+            "run the whole run and write the same files")
 
 
 def local_device(device: torch.device) -> torch.device:
@@ -126,6 +134,36 @@ def process_count() -> int:
 def is_main_process() -> bool:
     """Rank 0: the process that prints, writes files and logs."""
     return process_index() == 0
+
+
+def join_world(device: torch.device) -> tuple:
+    """The entry points' start under torchrun: this process's card
+    (`cuda:LOCAL_RANK`, made current), the default group joined (NCCL on
+    the card, gloo on the CPU), and `(device, data_layout())`. Without
+    torchrun: `device` and the one-device layout, no group."""
+    device = local_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    init_process_group(device)
+    return device, data_layout()
+
+
+def leave_world() -> None:
+    """Leave the default group, if one was joined (an entry point's
+    end)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def main_process_output():
+    """Within it, a rank other than 0 prints nothing (its stdout goes to
+    the null device): rank 0 alone reports a run that every rank runs."""
+    if is_main_process():
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
 
 
 def staged_on_host(tensor: torch.Tensor, group=None) -> bool:
@@ -328,3 +366,15 @@ def make_layout(device: torch.device, tensor_parallel: int = 1,
     return Layout(dp=dp, tp=tp, dp_rank=rank // (sp * tp), tp_rank=rank % tp,
                   mesh=mesh, sp=sp, sp_rank=(rank // tp) % sp,
                   replica_group=replicas[rank % tp])
+
+
+def data_layout() -> Layout:
+    """Every rank of the default group a data-parallel rank (dp the world,
+    the group every rank): the layout of `sample`, `evaluate` and the
+    metric networks, which split each batch over the world. The one-device
+    layout without a group."""
+    world = process_count()
+    if world == 1:
+        return Layout()
+    return Layout(dp=world, dp_rank=process_index(),
+                  batch_group=dist.group.WORLD)

@@ -72,6 +72,7 @@ from torch import nn
 from ..models.dit import SelfAttention
 from ..models.layers import Dropout
 from ..ops.attention import draw_seed
+from .data_parallel import DataParallelApply
 from .mesh import Layout, staged_on_host
 
 
@@ -350,25 +351,17 @@ def make_pipeline_apply(model: nn.Module, layout: Layout,
     return Pipeline(model, layout, microbatches or layout.pp)
 
 
-def gather_over_data(eps: torch.Tensor, layout: Layout) -> torch.Tensor:
-    """Every data rank's rows of `eps`, in rank order (no gradient)."""
-    if layout.dp == 1:
-        return eps
-    parts = [torch.empty_like(eps) for _ in range(layout.dp)]
-    dist.all_gather(parts, eps.contiguous(), group=layout.dp_group)
-    return torch.cat(parts)
-
-
 def make_sampling_apply(model: nn.Module, layout: Layout,
                         microbatches: Optional[int] = None):
     """apply(x, t, y=None) -> eps of every row of x (the same on every
     rank) through the pipeline: each data rank's rows (`num_samples` split
-    over 'data', as the JAX shard_map splits them), gathered back."""
-    pipe = make_pipeline_apply(model, layout, microbatches)
+    over 'data', as the JAX shard_map splits them), gathered back
+    (`data_parallel.DataParallelApply`)."""
+    split = DataParallelApply(make_pipeline_apply(model, layout,
+                                                  microbatches), layout)
 
     def apply(x, t, y=None, **_):
-        rows = [layout.rows(a) if a is not None else None for a in (x, t, y)]
         with torch.no_grad():
-            return gather_over_data(pipe(*rows), layout)
+            return split(x, t, y)
 
     return apply

@@ -18,7 +18,8 @@ process group (`parallel/mesh.py`):
   model's forward given this rank's 'seq' group
   (`parallel/sequence_parallel.py`), or under `pipeline_parallel` the
   stage's pipeline; the trainer trains through the result, and samples
-  through `forward_fn`'s;
+  through `forward_fn`'s (under DDP and FSDP each data rank's rows of every
+  model call, `parallel/data_parallel.py`);
 * `sync` is DDP's `no_sync` (FSDP's gradient sync switch) for the
   accumulation micro-steps of `MultiSteps`; under sequence, pipeline and
   expert parallelism `average_replicated_grads` reduces the gradients once
@@ -54,6 +55,7 @@ from . import expert_parallel as ep_lib
 from . import fsdp as fsdp_lib
 from . import pipeline_parallel as pp_lib
 from . import tensor_parallel as tp_lib
+from .data_parallel import DataParallelApply
 from .mesh import Layout, check_devices, make_layout, process_count
 
 # the config keys of the layouts that only the diffusion trainer takes
@@ -285,11 +287,19 @@ class ParallelPlan:
 
     def forward_fn(self, module: nn.Module):
         """The callable that samples with `module` (the model or its EMA):
-        the module itself, or under `pipeline_parallel` its pipeline over
-        every row given, each data rank on its rows."""
+        under `pipeline_parallel` its pipeline over every row given, each
+        data rank on its rows; under DDP and FSDP at dp > 1 the module on
+        each data rank's rows of every call, gathered
+        (`data_parallel.DataParallelApply`, the JAX trainer's
+        `_dp_sampling_inputs`); else (tensor, sequence and expert
+        parallelism, and one data rank) the module itself, every rank on
+        the whole grid, as in the JAX trainer."""
         if self.pp > 1 and self.distributed:
             return pp_lib.make_sampling_apply(module, self.layout,
                                               self.microbatches)
+        if (self.distributed and self.layout.dp > 1
+                and max(self.tp, self.sp, self.ep) == 1):
+            return DataParallelApply(module, self.layout)
         return module
 
     def sync(self, train_model: nn.Module, sync: bool):

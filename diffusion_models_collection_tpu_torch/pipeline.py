@@ -28,12 +28,15 @@ pipeline composes them, so both reach img2img, restarts, CFG and plain
 sampling. Token merging (--tome_ratio, --tome_mlp) and int8 inference
 (--quantize int8) are DiT model fields, applied in the JAX pipeline's order
 of overrides: steps and precision, ToMe, FreeU, quantization, the CFG knobs
-(`apply_tome`, `apply_quantize`, with its messages).
+(`apply_tome`, `apply_quantize`, with its messages). Under torchrun each
+model call is split over the ranks (`SamplingPipeline.apply`), as the JAX
+pipeline shards each batch over its devices (`dp_sampling_sharding`).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,11 +45,23 @@ from .diffusion.deepcache import deepcache_sample
 from .diffusion.guidance import classifier_guided_model_fn
 from .diffusion.pag import pag_model_fn
 from .factory import get_diffusion, get_model, load_model_for_inference
+from .parallel.data_parallel import DataParallelApply
+from .parallel.mesh import Layout
 from .utils import sr as sr_lib
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (load_image_for_model, load_mask_for_model,
                             resolve_image_size)
 from .utils.latent import LatentCodec
+
+
+def split_model_calls(model, layout: Layout):
+    """`model`, or with several data ranks in `layout` the model on this
+    rank's rows of each call, gathered in rank order."""
+    if layout.dp == 1:
+        return model
+    print(f"Sampling data-parallel over {layout.dp} processes (each model "
+          "call's rows split in rank order)")
+    return DataParallelApply(model, layout)
 
 
 def build_labels(args, config, nrow: int, num_rows: int):
@@ -395,12 +410,19 @@ def validate_editing(args, config, flags, in_channels):
 class SamplingPipeline:
     """Model, sampler and per-batch dispatch for `sample.py`: construct,
     then `setup_conditioning()` once the labels are built, then `run_batch`
-    a batch."""
+    a batch. With a `layout` of several data ranks (`parallel/mesh.py`
+    `join_world`) every model call runs on this rank's rows and is gathered
+    (`apply`, `parallel/data_parallel.py`): the bare model is split, inside
+    every per-batch composition (PAG, DeepCache's views, SR's concatenated
+    condition, classifier guidance), and the samplers' state and draws stay
+    the whole batch's on every rank."""
 
-    def __init__(self, args, config, checkpoint, device: torch.device):
+    def __init__(self, args, config, checkpoint, device: torch.device,
+                 layout: Optional[Layout] = None):
         self.args = args
         self.config = config
         self.device = device
+        self.layout = layout if layout is not None else Layout()
         if str(config.get("model_type", "")).lower() == "classifier":
             raise SystemExit(
                 "this is a noise-conditional CLASSIFIER checkpoint — pass it "
@@ -420,10 +442,11 @@ class SamplingPipeline:
         print("Creating model...")
         self.model = load_model_for_inference(checkpoint, config, args.use_ema,
                                               device)
-        self.model_fn = wrap_pag(args, config, self.model, flags)
+        self.apply = split_model_calls(self.model, self.layout)
+        self.model_fn = wrap_pag(args, config, self.apply, flags)
         self.dc_full_fn, self.dc_shallow_fn = build_deepcache(
-            args, config, self.model, flags,
-            base_wrapped=self.model_fn is not self.model)
+            args, config, self.apply, flags,
+            base_wrapped=self.model_fn is not self.apply)
         print(f"Using sampling method: {args.sampling_method.upper()}")
         self.diffusion = get_diffusion(config, args.sampling_method)
         self.conditional = bool(config.get("conditional", False))

@@ -43,6 +43,20 @@ embedded. Labels follow the reference: per-row classes shifted by +1, 0 the
 CFG null label. Writes an image grid (PNG) and the images as a float32
 (N, H, W, C) array in [0, 1] (`.npy` beside the PNG).
 
+Under torchrun, one process a card:
+
+    torchrun --nproc_per_node N \
+        -m diffusion_models_collection_tpu_torch.sample --checkpoint ...
+
+every rank joins the group (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
+cpu`), seeds its generator alike and runs every trajectory over the whole
+batch, each model call on its contiguous rows, gathered in rank order
+(`parallel/data_parallel.py`; a call whose rows do not divide by N runs
+whole on every rank): the one-process run's trajectory but for the float
+rounding of the model on fewer rows (cuDNN and oneDNN pick kernels by the
+batch), which a clamped CFG trajectory can grow. Rank 0 alone prints and
+writes the PNG, the `.npy`, the intermediates and the GIF.
+
 `--device` defaults to `cuda` and fails when CUDA is absent; the CPU runs
 only when asked for with `--device cpu`. The model computes in the
 checkpoint config's `mixed_precision` (float32, or 'bf16': bfloat16 convs,
@@ -61,6 +75,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .parallel.mesh import (Layout, is_main_process, join_world,
+                            leave_world, main_process_output)
 from .pipeline import SamplingPipeline, build_labels
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (create_gif, format_duration, load_config,
@@ -243,7 +259,14 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {"samples": (N, H, W, C) float32 in [0, 1],
     "sampling_seconds": seconds spent generating, device work included}."""
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device, "sample")
+    device, layout = join_world(resolve_device(args.device, "sample"))
+    with main_process_output():
+        return run(args, device, layout)
+
+
+def run(args, device: torch.device, layout: Layout) -> dict:
+    """`main` after the world is joined; every rank samples, rank 0
+    writes."""
     generator = set_seed(args.seed, device)
 
     print(f"Loading checkpoint from {args.checkpoint}...")
@@ -253,7 +276,7 @@ def main(argv=None) -> dict:
 
     if args.create_gif:
         require_pillow()
-    pipe = SamplingPipeline(args, config, checkpoint, device)
+    pipe = SamplingPipeline(args, config, checkpoint, device, layout)
 
     nrow = max(1, int(math.sqrt(args.num_samples)))
     num_rows = math.ceil(args.num_samples / nrow)
@@ -261,7 +284,9 @@ def main(argv=None) -> dict:
 
     print(f"Generating {args.num_samples} samples...")
     output_dir = Path(args.output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
+    writes = is_main_process()
+    if writes:
+        output_dir.mkdir(parents=True, exist_ok=True)
     pipe.setup_conditioning(labels, nrow, num_rows)
 
     return_all = args.save_intermediate or args.create_gif
@@ -278,9 +303,13 @@ def main(argv=None) -> dict:
     seconds = time.perf_counter() - start_time
     samples = trajectory[-1] if return_all else trajectory
     print(f"Sampled {args.num_samples} images in {format_duration(seconds)} "
-          f"({args.num_samples / seconds:.2f} samples/s) on {device}")
+          f"({args.num_samples / seconds:.2f} samples/s) on {device}"
+          + (f" and {layout.dp - 1} more processes" if layout.dp > 1
+             else ""))
 
     samples = np.clip((samples + 1) / 2, 0, 1).astype(np.float32)
+    if not writes:
+        return {"samples": samples, "sampling_seconds": seconds}
     output_path = output_dir / args.output_name
     print(f"Saving samples to {output_path}...")
     save_image_grid(samples, output_path, nrow=nrow)
@@ -295,3 +324,4 @@ def main(argv=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    leave_world()

@@ -37,9 +37,11 @@ the checkpoint config's compute dtype (the engine's images stay float32).
 `--tome_ratio` (with `--tome_mlp`) and `--quantize int8` serve a DiT
 through token merging and the int8 products, and compose with each other
 and with bf16. `--continuous` steps DDIM only: it refuses flow-matching, EDM
-and consistency checkpoints with the root daemon's `ValueError`. Not ported:
-the data-parallel split of the batch over several devices (ROADMAP queue 1
-item 15d, data parallelism outside `train`).
+and consistency checkpoints with the root daemon's `ValueError`. One
+process: under torchrun (`WORLD_SIZE` > 1) it raises, naming ROADMAP queue
+1 item 15e, the batched daemon's split of each batch over the ranks (JAX
+root `serve.py:244-260`), which needs rank 0 to hand every request to the
+others.
 Super-resolution checkpoints are refused, as the root daemon refuses them:
 each request would need an LR image (`sample --sr_source` and
 `tools/cascade.py` run them).
@@ -60,6 +62,7 @@ import torch
 
 from .diffusion import DDIM
 from .factory import get_diffusion, load_model_for_inference
+from .parallel.mesh import refuse_process_world
 from .serving_engine import ContinuousBatchingEngine, device_context
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (encode_png, make_grid, resolve_device,
@@ -384,6 +387,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    refuse_process_world(
+        "serve", "15e", "the batched daemon's split of each batch over the "
+        "processes is not ported yet")
     device = resolve_device(args.device, "serve")
     service = SamplerService(
         args.checkpoint,

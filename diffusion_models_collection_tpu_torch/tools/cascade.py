@@ -17,7 +17,8 @@ sampling. Each stage writes its grid (`cascade_stage{k}.png`); the last one
 also writes `--output_name`. The base and the SR stages take their own
 sampler, step count and CFG scale; the labels (one a sample, shifted by +1)
 are shared by every conditional stage. Checkpoints are `.pth` or JAX
-`.ckpt`, config embedded; latent-diffusion checkpoints are refused.
+`.ckpt`, config embedded; latent-diffusion checkpoints are refused. One
+process, as the JAX tool: under torchrun (`WORLD_SIZE` > 1) it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..factory import get_diffusion, load_model_for_inference
+from ..parallel.mesh import refuse_process_world
 from ..utils import sr as sr_lib
 from ..utils.checkpoint import load_checkpoint
 from ..utils.helpers import (format_duration, resolve_device,
@@ -131,6 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> list:
     """Run the CLI; returns each stage's images (N, H, W, C) in [0, 1]."""
     args = build_parser().parse_args(argv)
+    refuse_process_world(
+        "tools.cascade", "16", "the JAX package's tool does not split its "
+        "batches either")
     device = resolve_device(args.device, "run the cascade")
     generator = set_seed(args.seed, device)
     out_dir = Path(args.output_dir)

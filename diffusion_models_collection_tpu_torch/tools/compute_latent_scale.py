@@ -12,7 +12,8 @@ the config's `vae_checkpoint` over the first `--batches` batches of the
 config's training data (shuffled from its seed), accumulated in float64 on
 the host; prints one JSON object whose `latent_scale_factor` (1 / std) goes
 into the diffusion config. `--device` defaults to `cuda` and fails when CUDA
-is absent.
+is absent. One process, as the JAX tool: under torchrun (`WORLD_SIZE` > 1)
+it raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..factory import get_dataloader, get_dataset
+from ..parallel.mesh import refuse_process_world
 from ..utils.helpers import load_config, resolve_device, resolve_image_size
 from ..utils.latent import LatentCodec
 
@@ -73,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the tool; returns the JSON object it prints."""
     args = build_parser().parse_args(argv)
+    refuse_process_world(
+        "tools.compute_latent_scale", "16", "the JAX package's tool does not "
+        "split its batches either")
     device = resolve_device(args.device, "compute the latent scale")
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])

@@ -23,8 +23,16 @@ data) and the optimizer. The results sample through the ordinary CLI:
         --sampling_method ddim --num_inference_steps 4
 
 (a consistency checkpoint samples at the step count it embeds).
-`--device` defaults to `cuda` and fails when CUDA is absent. The tool runs in
-one process: under torchrun (`WORLD_SIZE` > 1) it raises.
+`--device` defaults to `cuda` and fails when CUDA is absent. Under torchrun
+(`torchrun --nproc_per_node N -m
+diffusion_models_collection_tpu_torch.tools.distill --config ...`) it joins
+the group as `train` does (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
+cpu`) and distills data parallel, as the JAX trainers on the 'data' mesh:
+`batch_size` is the global batch, each rank loads its strided shard of
+every epoch in batches of `batch_size // N`, draws the step's draws over
+the global batch from a generator seeded alike and keeps its rows, and DDP
+averages the student's gradients (`utils/fewstep.py`); Python's and numpy's
+generators take seed + rank; rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import time
 from pathlib import Path
 
 from ..factory import get_dataloader, get_dataset
-from ..parallel.mesh import refuse_process_world
+from ..parallel.mesh import is_main_process, join_world, leave_world
 from ..utils.consistency_trainer import ConsistencyDistillationTrainer
 from ..utils.distill_trainer import DistillationTrainer
 from ..utils.helpers import (format_duration, load_config, resolve_device,
@@ -53,17 +61,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the tool; returns the trainer after its last epoch."""
     args = build_parser().parse_args(argv)
-    refuse_process_world("tools.distill")
-    device = resolve_device(args.device, "distill")
+    device, layout = join_world(resolve_device(args.device, "distill"))
     config = load_config(Path(args.config))
     config["image_size"] = resolve_image_size(config["image_size"])
-    generator = set_seed(config.get("seed", 42), device)
+    generator = set_seed(config.get("seed", 42), device,
+                         process_offset=layout.dp_rank)
     method = str(config.get("distill_method", "progressive")).lower()
     if method not in ("progressive", "consistency"):
         raise ValueError(f"Unknown distill_method: {method!r} "
                          "(expected 'progressive' or 'consistency')")
     loader = get_dataloader(config, get_dataset(config, train=True),
-                            train=True, seed=config.get("seed", 42))
+                            train=True, seed=config.get("seed", 42),
+                            process_index=layout.dp_rank,
+                            process_count=layout.dp)
     trainer_class = (ConsistencyDistillationTrainer if method == "consistency"
                      else DistillationTrainer)
     return trainer_class(loader, config, device, generator=generator).distill()
@@ -72,4 +82,7 @@ def main(argv=None):
 if __name__ == "__main__":
     start = time.time()
     main()
-    print(f"Total distillation time: {format_duration(time.time() - start)}")
+    if is_main_process():
+        print(f"Total distillation time: "
+              f"{format_duration(time.time() - start)}")
+    leave_world()

@@ -11,6 +11,9 @@ on the global batch and head, so the layouts must agree exactly):
 
 * unet DP: N data-parallel ranks against one process fed the same global
   batches (each rank's batch, in rank order);
+* unet DP sample: the in-training CFG grid of that DP trainer (2N images,
+  each model call's rows split over the ranks, `parallel/data_parallel.py`)
+  against the one process's grid;
 * dit TP and dim TP: (N/2 data, 2 model) against their N-rank DP twins;
 * dit FSDP: N ranks of ZeRO-3 against the DP twin;
 * dit hybrid FSDPxTP: (N/2 data, 2 model), ZeRO over 'data' (N >= 4);
@@ -70,6 +73,9 @@ SP_SIZE = (16, 16)
 EPOCHS = 3
 # the DP-twin bar of the repository's dry run: the last epoch's losses
 BAR = 2e-3
+# the grid against one process's, max abs on [0, 1]: the trained weights
+# differ by float noise of three epochs
+SAMPLE_BAR = 1e-4
 
 
 def _child(rank: int, world: int, store_path: str, device: str,
@@ -209,9 +215,10 @@ def make_trainer(config: dict, device: str, global_batch: int):
 
 
 def leg_losses(model_type: str, overrides: dict, device: str,
-               global_batch: int, size=SIZE) -> dict:
+               global_batch: int, size=SIZE, sample: int = 0) -> dict:
     """(In each rank, or alone.) The per-epoch losses of a trainer of
-    `overrides`, and the share of its parameters' elements FSDP shards."""
+    `overrides`, the share of its parameters' elements FSDP shards, and
+    with `sample` its in-training grid of that many images."""
     from ..parallel.fsdp import sharded_fraction
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -220,13 +227,15 @@ def leg_losses(model_type: str, overrides: dict, device: str,
         trainer = make_trainer(config, device, global_batch)
         losses = [trainer.train_epoch(e) for e in range(1, EPOCHS + 1)]
         return {"losses": losses,
-                "sharded": sharded_fraction(trainer.model)}
+                "sharded": sharded_fraction(trainer.model),
+                "samples": (trainer.sample_images(EPOCHS, sample)
+                            if sample else None)}
 
 
 def all_legs(world: int, device: str) -> dict:
     """(In each rank.) Every leg of the dry run at this world size."""
     batch = 2 * world
-    out = {"unet DP": leg_losses("unet", {}, device, batch)}
+    out = {"unet DP": leg_losses("unet", {}, device, batch, sample=batch)}
     for model_type in ("dit", "dim"):
         out[f"{model_type} DP"] = leg_losses(model_type, {}, device, batch)
         if world % 2 == 0:
@@ -277,9 +286,17 @@ def dryrun(world: int = 4, device: str = "cpu") -> dict:
     legs = launch(world, f"{__name__}.all_legs", world, device,
                   device=device)[0]
     # the one-process reference: the same global batches, no group
-    ref = leg_losses("unet", {}, device, 2 * world)["losses"]
+    one = leg_losses("unet", {}, device, 2 * world, sample=2 * world)
+    ref = one["losses"]
     _check("unet DP", legs["unet DP"]["losses"], ref, world,
            "1-process ref")
+    grid, grid_ref = legs["unet DP"]["samples"], one["samples"]
+    err = float(np.abs(grid - grid_ref).max())
+    if grid.shape != grid_ref.shape or not err <= SAMPLE_BAR:
+        raise AssertionError(f"unet DP sample: the grid {grid.shape} is "
+                             f"{err} from the 1-process grid")
+    print(f"dryrun_multichip({world}): OK, unet DP sample "
+          f"{grid.shape[0]} images within {err:.2e} of the 1-process ref")
     twins = {"dim SP distributed scan": "dim 16x16 DP",
              "dim SPxTP": "dim 16x16 DP"}
     for name in ("dit TP", "dim TP", "dit FSDP", "dit hybrid FSDPxTP",
@@ -293,7 +310,7 @@ def dryrun(world: int = 4, device: str = "cpu") -> dict:
             extra = f" ({legs[name]['sharded']:.0%} param mass sharded)"
         _check(name + extra, legs[name]["losses"], twin, world, "dp ref")
     print(f"dryrun_multichip({world}): {time.perf_counter() - start:.1f}s")
-    legs["unet 1-process"] = {"losses": ref}
+    legs["unet 1-process"] = one
     return legs
 
 

@@ -16,8 +16,16 @@ samples through the ordinary CLI at any step count:
     python -m diffusion_models_collection_tpu_torch.sample \\
         --checkpoint <save_dir>/reflow_round1.pth --num_inference_steps 1
 
-`--device` defaults to `cuda` and fails when CUDA is absent. The tool runs in
-one process: under torchrun (`WORLD_SIZE` > 1) it raises.
+`--device` defaults to `cuda` and fails when CUDA is absent. Under torchrun
+(`torchrun --nproc_per_node N -m
+diffusion_models_collection_tpu_torch.tools.reflow --config ...`) it joins
+the group as `train` does (NCCL on `cuda:LOCAL_RANK`; gloo with `--device
+cpu`) and reflows data parallel, as the JAX trainer on the 'data' mesh:
+every rank synthesizes the round's pairs whole from a generator seeded
+alike (the JAX trainer's `_synthesize_pairs` runs unsharded too), takes its
+rows of each global batch of pairs, and DDP averages the student's
+gradients (`utils/fewstep.py`); Python's and numpy's generators take seed +
+rank; rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import argparse
 import time
 from pathlib import Path
 
-from ..parallel.mesh import refuse_process_world
+from ..parallel.mesh import is_main_process, join_world, leave_world
 from ..utils.helpers import (format_duration, load_config, resolve_device,
                              set_seed)
 from ..utils.reflow_trainer import ReflowTrainer
@@ -44,14 +52,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the tool; returns the trainer after its last round."""
     args = build_parser().parse_args(argv)
-    refuse_process_world("tools.reflow")
-    device = resolve_device(args.device, "reflow")
+    device, layout = join_world(resolve_device(args.device, "reflow"))
     config = load_config(Path(args.config))
-    generator = set_seed(config.get("seed", 42), device)
+    generator = set_seed(config.get("seed", 42), device,
+                         process_offset=layout.dp_rank)
     return ReflowTrainer(config, device, generator=generator).reflow()
 
 
 if __name__ == "__main__":
     start = time.time()
     main()
-    print(f"Total reflow time: {format_duration(time.time() - start)}")
+    if is_main_process():
+        print(f"Total reflow time: {format_duration(time.time() - start)}")
+    leave_world()

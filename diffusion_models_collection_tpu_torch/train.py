@@ -54,11 +54,8 @@ import argparse
 import time
 from pathlib import Path
 
-import torch
-import torch.distributed as dist
-
 from .factory import get_dataloader, get_dataset, get_diffusion, get_model
-from .parallel.mesh import (init_process_group, local_device, process_count,
+from .parallel.mesh import (join_world, leave_world, process_count,
                             process_index)
 from .utils.helpers import (format_duration, load_config, resolve_device,
                             resolve_image_size, set_seed)
@@ -81,10 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the CLI; returns the trainer after its last epoch."""
     args = build_parser().parse_args(argv)
-    device = local_device(resolve_device(args.device, "train"))
-    if device.type == "cuda" and device.index is not None:
-        torch.cuda.set_device(device)  # this rank's card under torchrun
-    init_process_group(device)  # under torchrun; else one process
+    # this rank's card and the group under torchrun; else one process
+    device, _ = join_world(resolve_device(args.device, "train"))
     rank, world = process_index(), process_count()
     say = print if rank == 0 else (lambda *a: None)
     config = load_config(Path(args.config))
@@ -158,5 +153,4 @@ if __name__ == "__main__":
     if process_index() == 0:
         print(f"Total training time: "
               f"{format_duration(time.time() - start_time)}")
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    leave_world()

@@ -215,17 +215,19 @@ def test_data_parallel_only_trainers_refuse_model_layouts(monkeypatch):
 
 
 def test_dryrun_multichip_legs():
-    """The port's dry run in a subprocess: every leg of this slice at 4
-    ranks, each printing its OK line with its loss beside its reference."""
+    """The port's dry run in a subprocess: every leg at 4 ranks, each
+    printing its OK line with its loss (the DP grid: its distance) beside
+    its reference."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m",
          "diffusion_models_collection_tpu_torch.tools.dryrun_multichip", "4"],
         capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    for leg in ("unet DP loss=", "dit TP loss=", "dim TP loss=",
-                "dit FSDP", "dit hybrid FSDPxTP", "dit SP loss=",
-                "dim SP distributed scan loss=", "dim SPxTP loss=",
+    for leg in ("unet DP loss=", "unet DP sample 8 images", "dit TP loss=",
+                "dim TP loss=", "dit FSDP", "dit hybrid FSDPxTP",
+                "dit SP loss=", "dim SP distributed scan loss=",
+                "dim SPxTP loss=",
                 "dit PP loss=", "dit PPxTP loss=", "dim PP loss=",
                 "dit-moe EP loss="):
         assert f"dryrun_multichip(4): OK, {leg}" in proc.stdout, (

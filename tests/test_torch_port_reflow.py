@@ -222,19 +222,3 @@ def test_pair_count_rounds_up_as_in_jax(teachers, tmp_path):
                            pair_batch_size=8)
     assert ReflowTrainer(config, "cpu").n_pairs == jax_rt.ReflowTrainer(
         config, tracker=jax_rt.NullTracker()).n_pairs == 16
-
-
-def test_tool_refuses_a_torchrun_world(tmp_path, monkeypatch):
-    """The tool joins no process group: under torchrun at WORLD_SIZE 2 every
-    rank would run the whole reflow and write the same files, so it raises,
-    naming the ROADMAP item of data parallelism outside train, before it
-    reads its config."""
-    monkeypatch.setenv("RANK", "0")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        tool.main(["--config", str(tmp_path / "absent.py"), "--device",
-                   "cpu"])
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    with pytest.raises(FileNotFoundError):  # one process goes on to read it
-        tool.main(["--config", str(tmp_path / "absent.py"), "--device",
-                   "cpu"])
