@@ -305,13 +305,19 @@ beside DP 2's); then pipeline and expert parallelism
 microbatch read back at its `batch0`, and the PP and EP legs beside DP 2's
 with the draw replay's cost; then data parallelism outside `train`
 (`phase_data_parallel`, in `chip_smoke_data.py`): `sample.main` (the
-trained fp32 UNet, DDIM-50 CFG 3, 32 images at batch 16), `evaluate.main`
-(64 images), the in-training grid of a DDP UNet, `tools.distill` and
+trained fp32 UNet, DDIM-50 CFG 3, 16 images at batch 16), `evaluate.main`
+(32 images), the in-training grid of a DDP UNet, `tools.distill` and
 `tools.reflow` in a gloo world of two processes on the card against one
 process's run of the same call: images, metrics, losses and weights within
 their bars, a rank's launches equal to one process's, rank 0 alone
 writing, and samples/s and the all-gather's share of sampling beside one
-process's.
+process's; then the batched `serve` daemon split over a gloo world of two
+processes (`phase_serve_data_parallel`, in `chip_smoke_serve.py`): the
+trained UNet at `--batch_size 16`, DDIM-50, rank 0 answering HTTP, each
+answer bit for bit the one-process run on the ranks' row blocks, a rank's
+launches a request 2250 K1 and 550 K2, an idle gap longer than the control
+timeout, SIGTERM stopping both ranks with exit code 0, and images/s and the
+p50 of a request beside one process's.
 
 Every phase prints its seconds. Each path is run with every launch count
 set to 0 just before it and read
@@ -483,10 +489,11 @@ ATTN_BWD_LONG = (1024, 257, 1025)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 # the trained UNet's DDPM run: the schedule's timesteps (1000 in the config)
 DDPM_CUT = 50
-# a timed train run: the median of 5 synchronised steps after 1 (the
+# a timed train run: the median of 3 synchronised steps after 1 (the
 # trainer has run its epochs by then), kept short so that the script stays
-# inside its time as phases are added
-TRAIN_WARMUP, TRAIN_TIMED = 1, 5
+# inside its time as phases are added (5 until the batched `serve` split's
+# phase came)
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
 # Loss of one full-width forward, and the flattened gradient as max-abs
 # difference over max-abs: a backward chains 60 conv backwards and the GN
 # recomputes through 45 norms.
@@ -5896,6 +5903,7 @@ def main():
     import chip_smoke_data
     import chip_smoke_pipeline
     import chip_smoke_sequence
+    import chip_smoke_serve
 
     with clock("phase_parallel"):
         parallel = phase_parallel(gen, smi, chip_smoke_pipeline.parallel_legs)
@@ -5906,6 +5914,8 @@ def main():
         chip_smoke_pipeline.phase_pipeline_expert(gen, smi, parallel)
     with clock("phase_data_parallel"):
         data = chip_smoke_data.phase_data_parallel(smi, unet_ckpt, flow_ckpt)
+    with clock("phase_serve_data_parallel"):
+        served_dp = chip_smoke_serve.phase_serve_data_parallel(smi, unet_ckpt)
     keep.cleanup()
 
     print(f"{SAMPLES / seconds:.2f} samples/s DDIM-{STEPS} CFG {CFG_SCALE} "
@@ -6498,6 +6508,10 @@ def main():
         for path, run in data["launches"].items():
             if key is not None and run[key]:
                 row["launches_by_path"][f"data_parallel_{path}"] = run[key]
+        # a rank's launches for one request of the batched daemon at world 2
+        if key is not None and served_dp["launches"][key]:
+            row["launches_by_path"]["serve_data_parallel_request"] = (
+                served_dp["launches"][key])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,15 +12,15 @@ on 32 by float rounding (cuDNN and cuBLAS pick kernels by the batch;
 trajectory grows step by step.
 
 * `sample.main`: the fp32 UNet of `configs/cifar10_unet.py` (the weights
-  `phase_train_main` trained), DDIM-50 with CFG 3, 32 images at batch 16,
+  `phase_train_main` trained), DDIM-50 with CFG 3, 16 images at batch 16,
   each model call's 32 rows split 16 a rank (K1 and K2 on a rank's rows):
   the images, a rank's K1 and K2 launches equal to one process's on whole
   calls (one model call a step; the row-block run launches twice as
   many), rank 0 alone writing, samples/s of both; then the
   same sampling of 16 images with the all-gather timed (its share of the
   sampling);
-* `evaluate.main`: the same checkpoint, 64 images DDIM-20 with CFG 3 at
-  batch 32, the metric networks' batches split too, FID's tr sqrtm on the
+* `evaluate.main`: the same checkpoint, 32 images DDIM-20 with CFG 3 at
+  batch 16, the metric networks' batches split too, FID's tr sqrtm on the
   card in every run (`chip_smoke.CardFrechet`): every metric, launches
   equal, rank 0 alone writing;
 * the in-training grid of a DDP UNet trainer (`parallel/plan.py`
@@ -64,7 +64,7 @@ import torch
 
 import chip_smoke as c
 from diffusion_models_collection_tpu_torch import (evaluate, factory,
-                                                   pipeline, sample)
+                                                   pipeline, sample, serve)
 from diffusion_models_collection_tpu_torch.metrics import (inception,
                                                            lpips_score)
 from diffusion_models_collection_tpu_torch.parallel import data_parallel
@@ -82,8 +82,11 @@ from diffusion_models_collection_tpu_torch.utils.trainer import Optimizer
 
 WORLD = 2
 TIMEOUT = 600
-SAMPLES, BATCH = 32, 16  # `sample`: 2 batches, 32 rows a CFG call
-EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 64, 32, 20
+# `sample`: one batch, 32 rows a CFG call (32 images, 2 batches, until the
+# batched `serve` split's phase came)
+SAMPLES, BATCH = 16, 16
+# `evaluate`: 2 batches (64 images at 32 until then)
+EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 32, 16, 20
 GRID_SAMPLES, GRID_TIMESTEPS = 16, 50
 GLOBAL_BATCH = 128  # the few-step tools' global batch: 64 rows a rank
 DISTILL_EPOCHS = 2
@@ -156,17 +159,17 @@ class Blocks:
 @contextlib.contextmanager
 def rows_in_blocks():
     """Within it, this process splits as a world of WORLD ranks would, on
-    its own: `sample`'s and `evaluate`'s model calls, the trainer's grid
-    and the metric networks' batches each run on the ranks' row blocks in
-    turn (`Blocks`)."""
+    its own: `sample`'s, `evaluate`'s and `serve`'s model calls, the
+    trainer's grid, the metric networks' batches and `serve`'s latent
+    decode each run on the ranks' row blocks in turn (`Blocks`)."""
     saved = [(pipeline, "split_model_calls"),
-             (evaluate, "split_model_calls"),
+             (evaluate, "split_model_calls"), (serve, "split_model_calls"),
              (inception, "gather_rows"), (lpips_score, "gather_rows"),
-             (ParallelPlan, "forward_fn")]
+             (serve, "gather_rows"), (ParallelPlan, "forward_fn")]
     saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
     pipeline.split_model_calls = evaluate.split_model_calls = (
-        lambda model, layout: Blocks(model))
-    inception.gather_rows = lpips_score.gather_rows = (
+        serve.split_model_calls) = lambda model, layout: Blocks(model)
+    inception.gather_rows = lpips_score.gather_rows = serve.gather_rows = (
         lambda fn, layout, *batches: Blocks(fn)(*batches))
     ParallelPlan.forward_fn = lambda self, module: Blocks(module)
     try:

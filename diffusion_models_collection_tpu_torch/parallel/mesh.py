@@ -34,9 +34,10 @@ and the port's code calls the collectives itself.
 * `join_world` is every entry point's start under torchrun (its card, the
   group); `data_layout` makes every rank a data rank of the world, the
   layout over which `sample`, `evaluate`, the distill and reflow tools and
-  the metric networks split their batches (`data_parallel.py`). The tools
-  that stay one process (`serve`, `tools.cascade`,
-  `tools.compute_latent_scale`) raise in a world instead
+  the metric networks split their batches (`data_parallel.py`), and that
+  of the batched `serve`, whose rank 0 hands each request on through the
+  default group's store (`world_store`). The tools that stay one process
+  (`tools.cascade`, `tools.compute_latent_scale`) raise in a world instead
   (`refuse_process_world`).
 * Every rank draws the step's draws for the global batch from a generator
   seeded alike and keeps its rows (`Layout.rows`, the JAX `shard_batch`): a
@@ -146,6 +147,13 @@ def join_world(device: torch.device) -> tuple:
         torch.cuda.set_device(device)
     init_process_group(device)
     return device, data_layout()
+
+
+def world_store():
+    """The store of the default group (torchrun's, or the one a caller
+    passed to `init_process_group`): keys every rank can set and wait for
+    outside any collective."""
+    return dist.distributed_c10d._get_default_store()
 
 
 def leave_world() -> None:

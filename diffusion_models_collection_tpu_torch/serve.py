@@ -37,11 +37,52 @@ the checkpoint config's compute dtype (the engine's images stay float32).
 `--tome_ratio` (with `--tome_mlp`) and `--quantize int8` serve a DiT
 through token merging and the int8 products, and compose with each other
 and with bf16. `--continuous` steps DDIM only: it refuses flow-matching, EDM
-and consistency checkpoints with the root daemon's `ValueError`. One
-process: under torchrun (`WORLD_SIZE` > 1) it raises, naming ROADMAP queue
-1 item 15e, the batched daemon's split of each batch over the ranks (JAX
-root `serve.py:244-260`), which needs rank 0 to hand every request to the
-others.
+and consistency checkpoints with the root daemon's `ValueError`.
+
+Under torchrun (`torchrun --nproc_per_node N -m
+diffusion_models_collection_tpu_torch.serve ...`) the batched daemon splits
+each trajectory's model calls over the ranks, as the JAX root `serve.py`
+spreads each batch over the host's devices (`dp_sampling_sharding`). Every
+rank joins the world (`mesh.join_world`: `cuda:LOCAL_RANK`, NCCL on the
+card, gloo on the CPU), loads the checkpoint and builds the same service,
+its model wrapped by `pipeline.split_model_calls`. Rank 0 alone binds
+`--host`/`--port` and answers HTTP; it checks each request first (a 400
+never leaves it), then, inside the service lock and so in the order its
+trajectories run, hands the request on to every rank (`ServingWorld`: the
+labels, seed and CFG scale, written to the default group's store). Every
+rank then runs the whole padded trajectory from the same seeded draws, each
+model call on its rows in rank order, all-gathered (`DataParallelApply`: a
+call whose rows do not divide by N runs whole on every rank); a latent
+checkpoint's decode of the request's rows is split the same way
+(`gather_rows`). Rank 0 answers; the others drop their copy. The images
+are what one process gives when it runs each call on the ranks' row blocks
+in turn: the JAX rule looks at `batch_size % ndev` once, the port at each
+call's rows, which gives the same images up to float rounding (a call on
+fewer rows may take other cuDNN, cuBLAS or oneDNN kernels). The warm-up is
+rank 0's first request, so every rank runs it.
+
+The other ranks wait for the next request on the store in a loop of waits
+of `CONTROL_TIMEOUT` seconds, never in a collective: a server idles for
+hours, and a collective of the default group ends the process when its
+timeout expires (NCCL's watchdog after 10 minutes). Model tensors go over
+the default group. When rank 0's server stops (KeyboardInterrupt, SIGTERM,
+`server.shutdown()`), it hands on a stop after the last trajectory and
+every rank returns from `main` (`__main__` then leaves the world) and
+exits 0; the other ranks ignore SIGINT and SIGTERM and leave when rank 0
+says. A rank whose trajectory fails writes the failure to the store and
+raises; rank 0 answers that request with a 500 and every rank ends with a
+non-zero exit, rank 0 when its server has stopped, the others as soon as
+they read the failure. Each trajectory runs on a thread of its own, which
+the rank waits for while a thread watching the store finds no failure:
+under NCCL a rank held by a dead peer sits in a collective, or in a kernel
+launch once the collectives have filled the card's queue, until the
+group's timeout. `python -m` (`cli`) then ends the process at once (exit
+code 1) rather than wait for that thread. A rank killed outright leaves no failure
+in the store: gloo's collectives then raise at once, NCCL's at its
+watchdog's timeout.
+`--continuous` runs in one process, as the JAX engine runs on one device:
+under a world of several processes it raises `ValueError`. In one process
+too, SIGTERM stops the daemon as Ctrl-C does.
 Super-resolution checkpoints are refused, as the root daemon refuses them:
 each request would need an LR image (`sample --sr_source` and
 `tools/cascade.py` run them).
@@ -50,11 +91,16 @@ each request would need an LR image (`sample --sr_source` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
+import os
+import signal
 import sys
 import threading
 import time
+import traceback
+from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -62,7 +108,10 @@ import torch
 
 from .diffusion import DDIM
 from .factory import get_diffusion, load_model_for_inference
-from .parallel.mesh import refuse_process_world
+from .parallel.data_parallel import gather_rows
+from .parallel.mesh import (Layout, distributed_env, join_world,
+                            leave_world, main_process_output, world_store)
+from .pipeline import split_model_calls
 from .serving_engine import ContinuousBatchingEngine, device_context
 from .utils.checkpoint import load_checkpoint
 from .utils.helpers import (encode_png, make_grid, resolve_device,
@@ -70,8 +119,162 @@ from .utils.helpers import (encode_png, make_grid, resolve_device,
 from .utils.latent import LatentCodec
 
 
+# seconds a rank other than 0 waits on the store for the next request
+# before it looks for a failure and waits again
+CONTROL_TIMEOUT = 60.0
+WATCH_SECONDS = 0.1  # how often each rank looks for another rank's failure
+DRAIN_SECONDS = 10.0  # rank 0's wait for the answers in flight at its end
+
+
+class ServingWorld:
+    """The batched daemon's ranks under torchrun: rank 0 hands each checked
+    request on to the others, in the order of its trajectories, as keys of
+    the default group's store (`mesh.world_store`), and every rank can
+    mark the world failed. Keys live under `dmc_serve/<start>/`, `<start>`
+    counting the daemons this rank has started, so a process that serves
+    again in the same world reads no old key; the last rank to read a
+    request deletes it."""
+
+    def __init__(self, layout: Layout):
+        self.layout = layout
+        self.rank, self.size = layout.dp_rank, layout.dp
+        self.store = world_store()
+        start = self.store.add(f"dmc_serve/starts/{self.rank}", 1)
+        self.prefix = f"dmc_serve/{start}/"
+        self.seq = 0
+        self.failure = None  # the first failure this rank has seen
+        self.stopping = False
+        self._closed = threading.Event()
+        self._failing = threading.Lock()
+        self._on_failure = None
+
+    @property
+    def leads(self) -> bool:
+        return self.rank == 0
+
+    def _key(self, seq: int) -> str:
+        return f"{self.prefix}request/{seq}"
+
+    def check(self) -> None:
+        """Raise if a rank has failed: the world can no longer run a
+        collective."""
+        if self.failure is not None:
+            raise RuntimeError(f"the serving world has failed: "
+                               f"{self.failure}")
+
+    def run(self, fn):
+        """`fn()` on a thread of its own, waited for while no rank has
+        failed. A rank held by a dead peer waits in a collective, or, under
+        NCCL, in a kernel launch once the collective has filled the card's
+        queue: its trajectory's thread stays there, and this raises."""
+        out = {}
+
+        def target():
+            try:
+                out["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                out["error"] = e
+
+        thread = threading.Thread(target=target, name="serve-trajectory",
+                                  daemon=True)
+        thread.start()
+        while thread.is_alive():
+            thread.join(WATCH_SECONDS)
+            self.check()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+
+    def hand_on(self, request: dict) -> None:
+        """(Rank 0, inside the service lock.) `request` to every rank."""
+        self.check()
+        if self.stopping:
+            raise RuntimeError("the server is stopping")
+        self.seq += 1
+        self.store.set(self._key(self.seq), json.dumps(request))
+
+    def stop(self) -> None:
+        """(Rank 0, inside the service lock.) A stop to every rank, unless
+        the world failed; returns when every rank has read it (the store
+        may live in this process) or after CONTROL_TIMEOUT."""
+        self.stopping = True
+        if self.failure is not None:
+            return
+        self.seq += 1
+        key = self._key(self.seq)
+        self.store.set(key, json.dumps(None))
+        deadline = time.monotonic() + CONTROL_TIMEOUT
+        while self.store.check([key]) and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    def next_request(self):
+        """(A rank other than 0.) The next request rank 0 hands on, or None
+        at a stop. Waits without a deadline, CONTROL_TIMEOUT at a time,
+        and raises when another rank has failed."""
+        self.seq += 1
+        key = self._key(self.seq)
+        while True:
+            try:
+                self.store.wait([key], timedelta(seconds=CONTROL_TIMEOUT))
+                break
+            except RuntimeError as e:  # the store's wait timed out
+                if "timeout" not in str(e).lower():
+                    raise
+            # the watch thread may not have had the store: look here
+            if self.store.check([self.prefix + "failed"]):
+                self._failed(self.store.get(self.prefix + "failed").decode())
+            self.check()
+        request = json.loads(self.store.get(key))
+        if self.store.add(key + "/read", 1) == self.size - 1:
+            self.store.delete_key(key)
+            self.store.delete_key(key + "/read")
+        return request
+
+    def _failed(self, message: str) -> None:
+        """Record the world's first failure (`check` raises from then on)
+        and call the watch's `on_failure` once."""
+        with self._failing:
+            if self.failure is not None:
+                return
+            self.failure = message
+        if self._on_failure is not None:
+            self._on_failure(message)
+
+    def fail(self, error: BaseException) -> None:
+        """Mark the world failed by this rank's `error`."""
+        self._failed(f"rank {self.rank}: {type(error).__name__}: {error}")
+        with contextlib.suppress(RuntimeError):  # the store's host is gone
+            self.store.set(self.prefix + "failed", self.failure)
+
+    def watch(self, on_failure=None) -> None:
+        """From a thread of its own, until `close`: record a failure that
+        another rank marks (`_failed`). `on_failure(message)` is called
+        once at the world's first failure, whichever rank saw it."""
+        key = self.prefix + "failed"
+        self._on_failure = on_failure
+
+        def watching():
+            while not self._closed.wait(WATCH_SECONDS):
+                try:
+                    if not self.store.check([key]):
+                        continue
+                    message = self.store.get(key).decode()
+                except RuntimeError:  # the store's host has left
+                    return
+                self._failed(message)
+                return
+
+        threading.Thread(target=watching, name="serve-world-watch",
+                         daemon=True).start()
+
+    def close(self) -> None:
+        self._closed.set()
+
+
 class SamplerService:
-    """Owns the model, the sampler and, with `continuous`, the engine."""
+    """Owns the model, the sampler and, with `continuous`, the engine;
+    under torchrun, this rank's part of the batched trajectories
+    (`world`)."""
 
     def __init__(self, checkpoint_path: str, *, sampling_method: str = "ddim",
                  num_inference_steps: int | None = None, batch_size: int = 16,
@@ -79,8 +282,11 @@ class SamplerService:
                  mixed_precision: str | None = None, max_queue: int = 8,
                  continuous: bool = False, steps_per_tick: int = 1,
                  tome_ratio: float = 0.0, tome_mlp: bool = False,
-                 quantize: str | None = None, device: str = "cuda"):
+                 quantize: str | None = None, device: str = "cuda",
+                 world: ServingWorld | None = None):
         self.device = resolve_device(str(device), "serve")
+        self.world = world
+        self.layout = world.layout if world is not None else Layout()
         payload = load_checkpoint(checkpoint_path, config)
         self.config = dict(config or payload.get("config") or {})
         if not self.config:
@@ -110,6 +316,9 @@ class SamplerService:
                 "sample.py --sr_source or tools/cascade.py)")
         self.model = load_model_for_inference(payload, self.config, use_ema,
                                               self.device)
+        # what the batched trajectories call: in a world, each call on this
+        # rank's rows, gathered
+        self.sampler_model = split_model_calls(self.model, self.layout)
         self.diffusion = get_diffusion(self.config, sampling_method)
         if num_inference_steps and hasattr(self.diffusion,
                                            "set_inference_steps"):
@@ -131,7 +340,8 @@ class SamplerService:
         self.default_cfg = float(self.config.get("cfg_scale", 1.8))
         self._lock = threading.Lock()  # one trajectory on the card at a time
         # generates in flight or waiting; beyond this -> 503
-        self._slots = threading.BoundedSemaphore(max(1, int(max_queue)))
+        self._max_queue = max(1, int(max_queue))
+        self._slots = threading.BoundedSemaphore(self._max_queue)
 
         self.engine = None
         if continuous:
@@ -159,9 +369,22 @@ class SamplerService:
             ).start()
 
     def close(self):
-        """Stop the engine thread, if any."""
+        """Stop the engine thread, if any; in a world, rank 0 hands on a
+        stop after the trajectory in flight, and this rank stops watching
+        for failures."""
         if self.engine is not None:
             self.engine.stop()
+        if self.world is not None:
+            if self.world.leads:
+                with self._lock:
+                    self.world.stop()
+                # the handlers in flight write their answers (a 500 after a
+                # failure) before the process ends
+                deadline = time.monotonic() + DRAIN_SECONDS
+                for _ in range(self._max_queue):
+                    self._slots.acquire(
+                        timeout=max(0.0, deadline - time.monotonic()))
+            self.world.close()
 
     def _resolve_labels(self, num_samples: int, labels):
         """Default and validate request labels (both modes)."""
@@ -227,25 +450,44 @@ class SamplerService:
     def _generate_batch(self, num_samples, labels, seed, cfg_scale):
         """The first `num_samples` images of one trajectory of the fixed
         serving batch, as a host array; labels beyond them are the null
-        label."""
-        shape = (self.batch_size, *self.image_hw, self.channels)
+        label. In a world rank 0 first hands the request on, and a failure
+        marks the world failed."""
         with self._lock:
-            generator = torch.Generator(device=self.device).manual_seed(
-                int(seed))
-            if cfg_scale is not None:
-                y = np.zeros((self.batch_size,), np.int64)
-                y[:num_samples] = np.asarray(labels) + 1  # 0 = null
-                out = self.diffusion.sample_with_cfg(
-                    self.model, shape, torch.from_numpy(y).to(self.device),
-                    generator, cfg_scale=cfg_scale)
-            else:
-                out = self.diffusion.sample(self.model, shape, generator)
-            out = out[:num_samples]
-            if self.codec is not None:
-                out = self.codec.decode(out)
-            # copied inside the lock: launches are asynchronous, so the card
-            # runs the trajectory (and the decode) until this copy returns
-            return out.float().cpu().numpy()
+            if self.world is not None and self.world.leads:
+                self.world.hand_on({"num_samples": num_samples,
+                                    "labels": labels, "seed": seed,
+                                    "cfg_scale": cfg_scale})
+            if self.world is None:
+                return self._trajectory(num_samples, labels, seed, cfg_scale)
+
+            def trajectory():
+                with device_context(self.device):
+                    return self._trajectory(num_samples, labels, seed,
+                                            cfg_scale)
+            try:
+                return self.world.run(trajectory)
+            except BaseException as e:
+                self.world.fail(e)
+                raise
+
+    def _trajectory(self, num_samples, labels, seed, cfg_scale):
+        shape = (self.batch_size, *self.image_hw, self.channels)
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        if cfg_scale is not None:
+            y = np.zeros((self.batch_size,), np.int64)
+            y[:num_samples] = np.asarray(labels) + 1  # 0 = null
+            out = self.diffusion.sample_with_cfg(
+                self.sampler_model, shape,
+                torch.from_numpy(y).to(self.device), generator,
+                cfg_scale=cfg_scale)
+        else:
+            out = self.diffusion.sample(self.sampler_model, shape, generator)
+        out = out[:num_samples]
+        if self.codec is not None:
+            out = gather_rows(self.codec.decode, self.layout, out)
+        # copied inside the lock: launches are asynchronous, so the card
+        # runs the trajectory (and the decode) until this copy returns
+        return out.float().cpu().numpy()
 
     def _decode(self, latents: np.ndarray) -> np.ndarray:
         """A finished request's latents decoded on the model's device, on
@@ -385,44 +627,128 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    refuse_process_world(
-        "serve", "15e", "the batched daemon's split of each batch over the "
-        "processes is not ported yet")
-    device = resolve_device(args.device, "serve")
-    service = SamplerService(
-        args.checkpoint,
-        sampling_method=args.sampling_method,
-        num_inference_steps=args.num_inference_steps,
-        batch_size=args.batch_size,
-        use_ema=args.use_ema,
-        mixed_precision=args.mixed_precision,
-        max_queue=args.max_queue,
-        continuous=args.continuous,
-        steps_per_tick=args.steps_per_tick,
-        tome_ratio=args.tome_ratio,
-        tome_mlp=args.tome_mlp,
-        quantize=args.quantize,
-        device=str(device),
-    )
+@contextlib.contextmanager
+def signals_handled(handler):
+    """SIGINT and SIGTERM go to `handler` within it (in the main thread;
+    elsewhere nothing changes)."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    saved = {sig: signal.signal(sig, handler)
+             for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        yield
+    finally:
+        for sig, previous in saved.items():
+            signal.signal(sig, previous)
+
+
+def interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def follow(service: SamplerService) -> None:
+    """A rank other than 0: run every request rank 0 hands on, in its
+    order, until rank 0 stops; raise when a rank has failed."""
+    world = service.world
+    world.watch()
+    try:
+        with signals_handled(signal.SIG_IGN):
+            while (request := world.next_request()) is not None:
+                service._generate_batch(**request)
+    finally:
+        world.close()
+
+
+def serve_http(args, service: SamplerService, device) -> None:
+    """Rank 0 (or the one process): warm up, bind, answer until the server
+    stops; in a world, raise when a rank failed."""
+    world, server = service.world, None
+
+    def on_failure(message):
+        print(f"serve: stopping, {message}", file=sys.stderr, flush=True)
+        if server is not None:
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+    if world is not None:
+        world.watch(on_failure)
     try:
         print("Warming up (building the kernels)...", flush=True)
         dt = service.warmup()
-        print(f"Warmup done in {dt:.1f}s on {device}", flush=True)
+        print(f"Warmup done in {dt:.1f}s on {device}"
+              + (f" and {world.size - 1} more processes" if world else ""),
+              flush=True)
         server = ThreadingHTTPServer((args.host, args.port),
                                      make_handler(service))
         print(f"Serving on http://{args.host}:{server.server_address[1]}",
               flush=True)
         try:
-            server.serve_forever()
+            with signals_handled(interrupt):
+                if world is None or world.failure is None:
+                    server.serve_forever()
         except KeyboardInterrupt:
             pass
         finally:
             server.server_close()
     finally:
         service.close()
+    if world is not None:
+        world.check()
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    env = distributed_env()
+    if args.continuous and env is not None and env[1] > 1:
+        raise ValueError(
+            "--continuous runs in one process, as the JAX engine runs on "
+            f"one device; under torchrun each of the {env[1]} processes "
+            "would serve on its own: start it without torchrun, or drop "
+            "--continuous for the batched daemon, which splits each batch "
+            "over the processes")
+    device, layout = join_world(resolve_device(args.device, "serve"))
+    world = ServingWorld(layout) if layout.dp > 1 else None
+    try:
+        with main_process_output():
+            service = SamplerService(
+                args.checkpoint,
+                sampling_method=args.sampling_method,
+                num_inference_steps=args.num_inference_steps,
+                batch_size=args.batch_size,
+                use_ema=args.use_ema,
+                mixed_precision=args.mixed_precision,
+                max_queue=args.max_queue,
+                continuous=args.continuous,
+                steps_per_tick=args.steps_per_tick,
+                tome_ratio=args.tome_ratio,
+                tome_mlp=args.tome_mlp,
+                quantize=args.quantize,
+                device=str(device),
+                world=world,
+            )
+            if world is not None and not world.leads:
+                follow(service)
+            else:
+                serve_http(args, service, device)
+    except BaseException as e:
+        if world is not None and not isinstance(e, KeyboardInterrupt):
+            world.fail(e)
+        raise
+
+
+def cli(argv=None):
+    """`python -m diffusion_models_collection_tpu_torch.serve`: `main`,
+    then leave the world. When `main` raises, the process ends at once with
+    exit code 1: a failed world may leave a trajectory's thread held on the
+    card by a dead peer, and the group's teardown waiting for it."""
+    try:
+        main(argv)
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    leave_world()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    cli(sys.argv[1:])

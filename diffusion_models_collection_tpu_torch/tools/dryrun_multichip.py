@@ -47,7 +47,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -103,11 +103,14 @@ def _child(rank: int, world: int, store_path: str, device: str,
 
 
 def launch(world: int, target: str, *args, device: str = "cpu",
-           backend: str = "gloo", timeout: float = 600.0) -> List:
+           backend: str = "gloo", timeout: float = 600.0,
+           exit_codes: Optional[list] = None) -> List:
     """Run `target(*args)` (a function named `module.name`, imported in each
     child) in `world` fresh processes joined in one process group, and
     return each rank's result in rank order. A rank that raises, dies or
-    outlives `timeout` fails the launch, and every process is stopped."""
+    outlives `timeout` fails the launch, and every process is stopped.
+    `exit_codes`, a list, receives each process's exit code in rank
+    order."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="dmc_ranks_") as tmp:
         store = os.path.join(tmp, "store")
@@ -125,6 +128,8 @@ def launch(world: int, target: str, *args, device: str = "cpu",
                 if p.is_alive():
                     p.kill()
                     p.join()
+        if exit_codes is not None:
+            exit_codes.extend(p.exitcode for p in procs)
         results = []
         for rank, p in enumerate(procs):
             path = Path(tmp) / f"rank{rank}.pt"

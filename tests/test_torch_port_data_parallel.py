@@ -20,8 +20,10 @@ background while the one-process and JAX references run here:
   distillation fed the global batches the two ranks load, in rank order),
   and one step of each at world 2 against the JAX trainers' step on a
   2-device 'data' mesh;
-* `serve`, `tools.cascade` and `tools.compute_latent_scale` refuse a
-  torchrun world, naming their ROADMAP item.
+* `tools.cascade` and `tools.compute_latent_scale` refuse a torchrun
+  world, naming their ROADMAP item, and so does `serve --continuous`
+  (`test_torch_port_serve_data_parallel.py` holds the batched daemon's
+  split).
 
 Bars: the split against one process that runs each model call and metric
 batch on the ranks' row blocks in turn (the same float work) 1e-6 (max abs
@@ -555,22 +557,27 @@ def test_data_parallel_apply_splits_in_rank_order(setup):
 
 
 # ------------------------------------------------ the one-process tools
-@pytest.mark.parametrize("main,item", [
-    (serve.main, "item 15e"),
-    (cascade.main, "item 16"),
-    (compute_latent_scale.main, "item 16"),
+@pytest.mark.parametrize("main,error,match", [
+    (serve.main, ValueError, "--continuous runs in one process"),
+    (cascade.main, NotImplementedError, "item 16"),
+    (compute_latent_scale.main, NotImplementedError, "item 16"),
 ], ids=["serve", "cascade", "compute_latent_scale"])
-def test_one_process_tool_refuses_a_torchrun_world(monkeypatch, main, item):
+def test_one_process_tool_refuses_a_torchrun_world(monkeypatch, main, error,
+                                                   match):
     """Under torchrun at WORLD_SIZE 2 each process would run the whole run
-    and write the same files: the tool raises before it reads its
-    arguments' files, naming its ROADMAP item."""
+    on its own: the tool raises before it reads its arguments' files, the
+    two tools naming their ROADMAP item, `serve --continuous` (the
+    continuous engine runs in one process, as the JAX engine runs on one
+    device; the batched daemon splits its batches over the world) with
+    `ValueError`."""
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    argv = {serve.main: ["--checkpoint", "absent.pth", "--device", "cpu"],
+    argv = {serve.main: ["--checkpoint", "absent.pth", "--device", "cpu",
+                         "--continuous"],
             cascade.main: ["--base_checkpoint", "absent.pth",
                            "--sr_checkpoint", "absent.pth", "--device",
                            "cpu"],
             compute_latent_scale.main: ["--config", "absent.py", "--device",
                                         "cpu"]}[main]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         main(argv)

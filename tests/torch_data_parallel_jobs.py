@@ -64,9 +64,14 @@ class Blocks:
 @contextlib.contextmanager
 def rows_in_blocks(world):
     """Within it, this process splits as a world of `world` ranks would, on
-    its own: `sample`'s and `evaluate`'s model calls, a trainer's grid and
-    the metric networks' batches each on the ranks' row blocks in turn."""
-    from diffusion_models_collection_tpu_torch import evaluate, pipeline
+    its own: `sample`'s, `evaluate`'s and `serve`'s model calls, a
+    trainer's grid, the metric networks' batches and `serve`'s latent
+    decode each on the ranks' row blocks in turn."""
+    from diffusion_models_collection_tpu_torch import (
+        evaluate,
+        pipeline,
+        serve,
+    )
     from diffusion_models_collection_tpu_torch.metrics import (
         inception,
         lpips_score,
@@ -77,11 +82,12 @@ def rows_in_blocks(world):
 
     saved = [(obj, name, getattr(obj, name)) for obj, name in (
         (pipeline, "split_model_calls"), (evaluate, "split_model_calls"),
-        (inception, "gather_rows"), (lpips_score, "gather_rows"),
+        (serve, "split_model_calls"), (inception, "gather_rows"),
+        (lpips_score, "gather_rows"), (serve, "gather_rows"),
         (ParallelPlan, "forward_fn"))]
     pipeline.split_model_calls = evaluate.split_model_calls = (
-        lambda model, layout: Blocks(model, world))
-    inception.gather_rows = lpips_score.gather_rows = (
+        serve.split_model_calls) = lambda model, layout: Blocks(model, world)
+    inception.gather_rows = lpips_score.gather_rows = serve.gather_rows = (
         lambda fn, layout, *batches: Blocks(fn, world)(*batches))
     ParallelPlan.forward_fn = lambda self, module: Blocks(module, world)
     try:
