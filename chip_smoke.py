@@ -29,7 +29,7 @@ port's entry points. The UNet's:
   continuous engine in fp32 and in bf16 (16 images in one submit against
   `sample_with_cfg` at batch 16, two single-image requests admitted five
   steps apart each against its row of a pool-shaped `sample_with_cfg`, then
-  the JAX bench leg's traffic cut to a quarter of its length: 16 single-image
+  the JAX bench leg's traffic cut to an eighth of its length: 8 single-image
   requests from 8 client threads, p50/p99 latency and images/s, beside 16
   images in one batch),
   one forward's launches a step; and what the engine's admission of one row
@@ -39,7 +39,7 @@ port's entry points. The UNet's:
   1e-6 change of its input beside it (DDIM img2img and inpainting at
   strength 0.5, DDPM RePaint, DDIM with two restarts, DDIM inversion; PAG
   on the UNet and the DiT, DeepCache at depth 1 and 2 and FreeU held
-  without the x0 constraint and printed with it), then 40 images CFG 3 on a
+  without the x0 constraint and printed with it), then 16 images CFG 3 on a
   20-step grid through `sample` for each (`--init_image` and `--mask` PNGs
   written by the port, strength 0.5; RePaint `--repaint_jump 10
   --repaint_resample 2` at strength 0.035; `--restarts 2`; `--pag_scale 2`, also on the DiT;
@@ -47,7 +47,7 @@ port's entry points. The UNet's:
   1.1,1.2,0.9,0.2`) with exact launches (a PAG call 90 GroupNorm+SiLU and 11
   attention launches, a DeepCache shallow call 11 and 0 at depth 1, 21 and
   5 at depth 2), the kept pixels of the masked runs equal to the init
-  image, samples/s; and DDIM-20 inversion of 40 images and back, its
+  image, samples/s; and DDIM-20 inversion of 16 images and back, its
   round-trip error printed;
 * training: the GroupNorm+SiLU backward kernel at every shape of the UNet
   at batch 160 and 128, at a ragged shape and at a group too large for
@@ -183,7 +183,7 @@ and scale (the frozen encoder's 11 K1 + 1 K2, then 35 K1 + 11 K2 + 35 K1b +
 the plain versions, img2img at strength 0.5 through the posterior mode,
 `--mask` refused; `evaluate` (DDIM-20, 50 samples, SWD); `serve` batched and
 `--continuous` over HTTP, each 16-image request against `sample_with_cfg` and
-`decode` of the same draw, then 16 single-image requests from 8 clients
+`decode` of the same draw, then 8 single-image requests from 8 clients
 decoded on their handlers' threads.
 
 Then classifier guidance and SR3 super-resolution (no kernel of their own):
@@ -265,7 +265,7 @@ the DiT at 64x64:
   in fp32 and bf16 the largest of batch 128, 64, 32, 16 whose step fits,
   the loss and gradients at batch 4 in train mode against the plain
   versions (12 K2 + 12 K3 in the dropout form), one epoch of `train`,
-  train images/s and peak memory, 40 images DDIM-20 CFG 3 through `sample`
+  train images/s and peak memory, 16 images DDIM-20 CFG 3 through `sample`
   (12 K2 a forward); K3's fused and two-kernel forms at the fp32 training
   shape (BH = batch x 6, L 1024, d 64) in fp32 and bf16 at p 0 and 0.1,
   with K2, `F.scaled_dot_product_attention` and the bounds beside them.
@@ -303,9 +303,15 @@ legs of `phase_parallel`'s world (their step seconds and peak memory a rank
 beside DP 2's); then pipeline and expert parallelism
 (`phase_pipeline_expert`, in `chip_smoke_pipeline.py`): K2's mask of a
 microbatch read back at its `batch0`, and the PP and EP legs beside DP 2's
-with the draw replay's cost; then data parallelism outside `train`
+with the draw replay's cost; before them the widths past the kernels'
+one-tile forms (`phase_shapes`, in `chip_smoke_shapes.py`): K2/K3's wide
+forms at head_dim 136 to 384 and every scan entry at 33 to 128 states
+against their plain versions, the int8 product at widths `torch._int_mm`
+refuses, and the DiM at `state_size` 64 and the DiT at `num_heads` 2 through
+`sample.main`, their loss and gradients and `train.main`, fp32 and bf16,
+with exact launches; then data parallelism outside `train`
 (`phase_data_parallel`, in `chip_smoke_data.py`): `sample.main` (the
-trained fp32 UNet, DDIM-50 CFG 3, 16 images at batch 16), `evaluate.main`
+trained fp32 UNet, DDIM-20 CFG 3, 16 images at batch 16), `evaluate.main`
 (32 images), the in-training grid of a DDP UNet, `tools.distill` and
 `tools.reflow` in a gloo world of two processes on the card against one
 process's run of the same call: images, metrics, losses and weights within
@@ -313,9 +319,9 @@ their bars, a rank's launches equal to one process's, rank 0 alone
 writing, and samples/s and the all-gather's share of sampling beside one
 process's; then the batched `serve` daemon split over a gloo world of two
 processes (`phase_serve_data_parallel`, in `chip_smoke_serve.py`): the
-trained UNet at `--batch_size 16`, DDIM-50, rank 0 answering HTTP, each
+trained UNet at `--batch_size 16`, DDIM-20, rank 0 answering HTTP, each
 answer bit for bit the one-process run on the ranks' row blocks, a rank's
-launches a request 2250 K1 and 550 K2, an idle gap longer than the control
+launches a request 900 K1 and 220 K2, an idle gap longer than the control
 timeout, SIGTERM stopping both ranks with exit code 0, and images/s and the
 p50 of a request beside one process's.
 
@@ -489,11 +495,11 @@ ATTN_BWD_LONG = (1024, 257, 1025)
 TRAIN_BATCH, TRAIN_EPOCHS = 128, 3
 # the trained UNet's DDPM run: the schedule's timesteps (1000 in the config)
 DDPM_CUT = 50
-# a timed train run: the median of 3 synchronised steps after 1 (the
+# a timed train run: the median of 2 synchronised steps after 1 (the
 # trainer has run its epochs by then), kept short so that the script stays
 # inside its time as phases are added (5 until the batched `serve` split's
-# phase came)
-TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+# phase came, 3 until the shapes phase came)
+TRAIN_WARMUP, TRAIN_TIMED = 1, 2
 # Loss of one full-width forward, and the flattened gradient as max-abs
 # difference over max-abs: a backward chains 60 conv backwards and the GN
 # recomputes through 45 norms.
@@ -761,6 +767,8 @@ def reset_launches():
     flash_attention.BWD_BIAS_LAUNCHES = 0
     flash_attention.CROSS_LAUNCHES = 0
     flash_attention.BWD_CROSS_LAUNCHES = 0
+    flash_attention.WIDE_LAUNCHES = 0
+    flash_attention.BWD_WIDE_LAUNCHES = 0
     quant.PRODUCTS = 0
     for counter in SCAN_COUNTERS.values():
         setattr(scan, counter, 0)
@@ -769,8 +777,9 @@ def reset_launches():
 def read_launches():
     """Every kernel's launches; `gn`, `attn` and their backward count every
     form, `*_dropout`, `*_bf16`, `*_bias` (the key-bias forms) and
-    `*_cross` (queries against longer keys, E6) the launches in that form; `int8` the int8 products (a library call, not a
-    kernel of the port: counted to show the int8 path ran)."""
+    `*_cross` (queries against longer keys, E6) and `*_wide` (head_dim past
+    128) the launches in that form; `int8` the int8 products (a library
+    call, not a kernel of the port: counted to show the int8 path ran)."""
     return {"gn": fused_norm.LAUNCHES, "gn_bwd": fused_norm.BWD_LAUNCHES,
             "gn_bf16": fused_norm.BF16_LAUNCHES,
             "gn_bwd_bf16": fused_norm.BWD_BF16_LAUNCHES,
@@ -784,6 +793,8 @@ def read_launches():
             "attn_bwd_bias": flash_attention.BWD_BIAS_LAUNCHES,
             "attn_cross": flash_attention.CROSS_LAUNCHES,
             "attn_bwd_cross": flash_attention.BWD_CROSS_LAUNCHES,
+            "attn_wide": flash_attention.WIDE_LAUNCHES,
+            "attn_bwd_wide": flash_attention.BWD_WIDE_LAUNCHES,
             "int8": quant.PRODUCTS,
             **{key: getattr(scan, counter)
                for key, counter in SCAN_COUNTERS.items()}}
@@ -1782,11 +1793,11 @@ EDIT_STRENGTH = 0.5  # DDIM-20 img2img and inpainting: 10 steps
 # DDPM RePaint from t0 = round(0.035 * 999) = 35: 36 steps, each run twice
 REPAINT_STRENGTH, REPAINT_JUMP, REPAINT_RESAMPLE = 0.035, 10, 2
 RESTARTS = 2  # in the CLI's default interval (1, 0.3 T)
-# the knobs' and the 64x64 DiT's `sample.main` runs and DDIM inversion: 40
-# images on a 20-step grid; the exported samplers' runs: 16 images (the
-# other sampling runs: 80 images, DDIM-50), cut to keep the script inside
-# its time
-SHORT_SAMPLES, SHORT_STEPS, EXPORT_SAMPLES = 40, 20, 16
+# the knobs' and the 64x64 DiT's `sample.main` runs and DDIM inversion: 16
+# images (40 until the shapes phase came) on a 20-step grid; the exported
+# samplers' runs: 16 images (the other sampling runs: 80 images, DDIM-50),
+# cut to keep the script inside its time
+SHORT_SAMPLES, SHORT_STEPS, EXPORT_SAMPLES = 16, 20, 16
 PAG_SCALE = 2.0
 DEEPCACHE_INTERVAL = 3
 FREEU = (1.1, 1.2, 0.9, 0.2)
@@ -3130,7 +3141,7 @@ SERVE_STAGGER_TICKS = 5  # the second solo request joins this many steps in
 # the JAX bench leg sends 64 requests from 8 clients; 16 from 8 keep its
 # shape (8 waiting clients, single images) in a quarter of the steps (cut
 # from 32 to keep the script inside its time)
-SERVE_REQUESTS, SERVE_CLIENTS = 16, 8
+SERVE_REQUESTS, SERVE_CLIENTS = 8, 8
 TOL_SERVE_BATCHED = 1e-6  # in [0, 1]: the same trajectory, bit-equal expected
 TOL_SERVE_SLOT = 1e-5  # model space: one row of a pool, bit-equal expected
 
@@ -5327,9 +5338,10 @@ DIM_SP_STEP = {"scan_fwd_state": 2 * SCAN_PER_FORWARD,
 # E7 at a tensor-parallel rank of the DiT at its training batch: heads 3..5
 # of 6 (rank 1 of 2), every row of 128
 E7_BATCH, E7_GRID = TRAIN_BATCH, (DIT_HEADS // 2, DIT_HEADS, 0, DIT_HEADS // 2)
-# after a leg's checked first step, steps 2 and 3 on the same batch, timed:
-# the steady step that a first step's allocations and first draws hide
-LEG_STEADY_STEPS = 2
+# after a leg's checked first step, step 2 on the same batch, timed: the
+# steady step that a first step's allocations and first draws hide (steps
+# 2 and 3 until the shapes phase came)
+LEG_STEADY_STEPS = 1
 
 
 def parallel_trainer(config, state, device="cuda"):
@@ -5719,7 +5731,7 @@ def phase_parallel(gen, smi, more_legs=None):
               f"launches a rank {per_rank}; peak a rank "
               f"{[round(r[i]['peak'] / 2**20, 1) for r in ranks]} MiB (at "
               f"the step's start {[round(r[i]['base'] / 2**20, 1) for r in ranks]}"
-              f" MiB); step {first['seconds']:.3f} s, steps 2 and 3 "
+              f" MiB); step {first['seconds']:.3f} s, steady steps "
               f"{[round(t, 4) for t in first['steady']]} s")
         if any(c != expect(**leg["step"]) for c in per_rank):
             raise AssertionError(f"{label}: launches {per_rank}, expected "
@@ -5904,6 +5916,10 @@ def main():
     import chip_smoke_pipeline
     import chip_smoke_sequence
     import chip_smoke_serve
+    import chip_smoke_shapes
+
+    with clock("phase_shapes"):
+        shapes = chip_smoke_shapes.phase_shapes(gen, smi)
 
     with clock("phase_parallel"):
         parallel = phase_parallel(gen, smi, chip_smoke_pipeline.parallel_legs)
@@ -6499,6 +6515,7 @@ def main():
                      "bound_ms": t["bwd_bound"],
                      "library_ms": t["bwd_library"]})
     kernels += chip_smoke_sequence.kernel_rows(sequence)
+    kernels += chip_smoke_shapes.kernel_rows(shapes)
     # the float32 UNet kernels' launches a rank (rank 0's) on the
     # data-parallel paths outside train
     for row in kernels:

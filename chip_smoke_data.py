@@ -12,7 +12,7 @@ on 32 by float rounding (cuDNN and cuBLAS pick kernels by the batch;
 trajectory grows step by step.
 
 * `sample.main`: the fp32 UNet of `configs/cifar10_unet.py` (the weights
-  `phase_train_main` trained), DDIM-50 with CFG 3, 16 images at batch 16,
+  `phase_train_main` trained), DDIM-20 with CFG 3, 16 images at batch 16,
   each model call's 32 rows split 16 a rank (K1 and K2 on a rank's rows):
   the images, a rank's K1 and K2 launches equal to one process's on whole
   calls (one model call a step; the row-block run launches twice as
@@ -87,7 +87,10 @@ TIMEOUT = 600
 SAMPLES, BATCH = 16, 16
 # `evaluate`: 2 batches (64 images at 32 until then)
 EVAL_SAMPLES, EVAL_BATCH, EVAL_STEPS = 32, 16, 20
-GRID_SAMPLES, GRID_TIMESTEPS = 16, 50
+# the in-training grid's images and DDPM steps, and `sample`'s DDIM steps
+# (both 50 until the shapes phase came: cut to keep the script inside its
+# time)
+GRID_SAMPLES, GRID_TIMESTEPS, SAMPLE_STEPS = 16, 20, c.SHORT_STEPS
 GLOBAL_BATCH = 128  # the few-step tools' global batch: 64 rows a rank
 DISTILL_EPOCHS = 2
 # the split run against one process that runs each model call and metric
@@ -398,8 +401,9 @@ def check_sample(got, ref, whole, smi):
     (`ref`, TOL_IMAGES) and one process on whole calls (`whole`,
     printed)."""
     err, whole_err = image_err(got, ref), image_err(got, whole)
-    print(f"data parallel sample.main: {SAMPLES} images DDIM-{c.STEPS} CFG "
-          f"{c.CFG_SCALE} at batch {BATCH}, world {WORLD} (gloo, one card): "
+    print(f"data parallel sample.main: {SAMPLES} images DDIM-{SAMPLE_STEPS} "
+          f"CFG {c.CFG_SCALE} at batch {BATCH}, world {WORLD} (gloo, one "
+          f"card): "
           f"against one process on the ranks' row blocks max_abs {err:.3e} "
           f"(bar {TOL_IMAGES:g}), against one process on whole calls "
           f"{whole_err:.3e}; launches a rank {got['launches']}; "
@@ -409,11 +413,11 @@ def check_sample(got, ref, whole, smi):
           f"{got['timed_seconds']:.3f} s ({got['gathers']} gathers, "
           f"{got['gather_seconds'] / got['timed_seconds']:.3f} of the "
           f"sampling) in a timed run of {BATCH} images; on {smi}")
-    calls = SAMPLES // BATCH * c.STEPS
+    calls = SAMPLES // BATCH * SAMPLE_STEPS
     if not (err <= TOL_IMAGES and got["launches"] == whole["launches"]
             == c.scaled(c.UNET_FORWARD, calls)
             and ref["launches"] == c.scaled(got["launches"], WORLD)
-            and got["gathers"] == c.STEPS and np.isfinite(whole_err)):
+            and got["gathers"] == SAMPLE_STEPS and np.isfinite(whole_err)):
         raise AssertionError(f"data parallel sample: max_abs {err}, "
                              f"launches {got['launches']}, "
                              f"{ref['launches']}, gathers {got['gathers']}")
@@ -505,7 +509,7 @@ def jobs_and_inputs(unet_ckpt, flow_ckpt, tmp, gen):
     common = ["--device", "cuda", "--seed", "0", "--cfg_scale",
               str(c.CFG_SCALE)]
     sample_argv = ["--checkpoint", str(unet_ckpt), "--sampling_method",
-                   "ddim", "--num_inference_steps", str(c.STEPS),
+                   "ddim", "--num_inference_steps", str(SAMPLE_STEPS),
                    "--num_samples", str(SAMPLES), "--batch_size", str(BATCH),
                    *common]
     eval_ckpt = Path(tmp) / "eval.pth"

@@ -19,7 +19,7 @@
   rounding otherwise;
 * K2's dropout mask at a microbatch's first global row (`batch0` 16 of 32,
   v = I) read back against its rows of the one-device mask;
-* the legs' first and steady (steps 2 and 3) step seconds and peak memory
+* the legs' first and steady (step 2) step seconds and peak memory
   a rank beside data parallel 2's, and the draw replay's cost: its seconds
   inside each of a stage rank's steps, and the PP step at dropout 0.1
   against one more at 0 (`time_replay`).
@@ -148,7 +148,7 @@ def check_microbatch_mask():
 
 def report_legs(legs, smi):
     """Each new leg beside its data-parallel twin: the first step's and the
-    steady step's seconds (the mean of steps 2 and 3), peak memory a rank,
+    steady step's seconds (the mean of the steady steps), peak memory a rank,
     and for the pipeline the replay's seconds in each step and the steady
     step at dropout 0.1 against one at 0."""
     mib = 2 ** 20

@@ -276,7 +276,7 @@ def time_state_scan(batch, length, gen):
 
 def report_legs(legs, smi):
     """The SP legs of `phase_parallel` beside its DP 2 legs: the first and
-    the steady step's seconds (the mean of steps 2 and 3), the peak memory
+    the steady step's seconds (the mean of the steady steps), the peak memory
     a rank and what the step added to the memory allocated at its start."""
     for name in ("DiT", "DiM"):
         sp, dp = legs[(name, f"SP {SP}")], legs[(name, "DP 2")]

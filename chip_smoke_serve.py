@@ -1,7 +1,7 @@
 """`chip_smoke.py`'s phase of the batched `serve` daemon split over a torchrun
 world (`phase_serve_data_parallel`): `serve.main` of the fp32 UNet of
 `configs/cifar10_unet.py` (the weights `phase_train_main` trained) at
-`--batch_size 16`, DDIM-50, in a gloo world of two processes on the one
+`--batch_size 16`, DDIM-20, in a gloo world of two processes on the one
 card (`tools/dryrun_multichip.py` `launch`; NCCL refuses two ranks on one
 device), rank 0 answering HTTP on 127.0.0.1:
 
@@ -12,8 +12,8 @@ device), rank 0 answering HTTP on 127.0.0.1:
   ranks' row blocks in turn (`chip_smoke_data.rows_in_blocks`: the same
   float work); the distance to one process on whole calls is printed;
 * each rank's K1 and K2 launches for each request equal to one process's
-  on whole calls: every request pads to the batch of 16, so 50 CFG calls of
-  32 rows, 16 a rank, `chip_smoke.UNET_FORWARD` each (2250 K1, 550 K2);
+  on whole calls: every request pads to the batch of 16, so 20 CFG calls of
+  32 rows, 16 a rank, `chip_smoke.UNET_FORWARD` each (900 K1, 220 K2);
 * the daemon idles IDLE seconds, longer than its control channel's timeout
   (`serve.CONTROL_TIMEOUT`, set to CONTROL_TIMEOUT for the phase), the
   worker's wait on the store times out and waits again, and one more
@@ -60,6 +60,9 @@ TIMEOUT = 300
 BATCH = 16  # `--batch_size`: every request pads to it
 CONTROL_TIMEOUT = 1.0  # the phase's `serve.CONTROL_TIMEOUT`
 IDLE = 3.0  # a FileStore's wait may take twice its timeout
+# DDIM steps a request (50 until the shapes phase came: cut to keep the
+# script inside its time)
+STEPS = c.SHORT_STEPS
 REQUESTS = [
     {"num_samples": 1, "labels": [3], "seed": 21, "cfg_scale": c.CFG_SCALE,
      "format": "npy"},
@@ -172,7 +175,7 @@ def one_process(ckpt, bodies):
     """One process serving `bodies` over HTTP on whole calls: the runs
     with their launches."""
     service = serve.SamplerService(
-        str(ckpt), sampling_method="ddim", num_inference_steps=c.STEPS,
+        str(ckpt), sampling_method="ddim", num_inference_steps=STEPS,
         batch_size=BATCH, device="cuda")
     service.warmup()
     httpd = serve.ThreadingHTTPServer(("127.0.0.1", 0),
@@ -203,12 +206,12 @@ def phase_serve_data_parallel(smi, unet_ckpt):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bodies = REQUESTS + [AFTER_IDLE]
-    per_request = c.scaled(c.UNET_FORWARD, c.STEPS)
+    per_request = c.scaled(c.UNET_FORWARD, STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         port = free_port()
         job = {"argv": ["--checkpoint", str(unet_ckpt), "--port", str(port),
                         "--batch_size", str(BATCH), "--sampling_method",
-                        "ddim", "--num_inference_steps", str(c.STEPS),
+                        "ddim", "--num_inference_steps", str(STEPS),
                         "--device", "cuda"],
                "out": tmp, "control_timeout": CONTROL_TIMEOUT}
         pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -222,7 +225,7 @@ def phase_serve_data_parallel(smi, unet_ckpt):
             with chip_smoke_data.rows_in_blocks():
                 service = serve.SamplerService(
                     str(unet_ckpt), sampling_method="ddim",
-                    num_inference_steps=c.STEPS, batch_size=BATCH,
+                    num_inference_steps=STEPS, batch_size=BATCH,
                     device="cuda")
                 refs = [service.generate(
                     b["num_samples"], labels=b.get("labels"), seed=b["seed"],
@@ -253,7 +256,7 @@ def phase_serve_data_parallel(smi, unet_ckpt):
     world_rates, one_rates = rates(runs, bodies), rates(whole, bodies)
     rank_launches = [r["launches"] for r in records]
     print(f"serve data parallel: world {WORLD} (gloo, one card), "
-          f"--batch_size {BATCH} DDIM-{c.STEPS}; /healthz {health}; "
+          f"--batch_size {BATCH} DDIM-{STEPS}; /healthz {health}; "
           f"{len(bodies)} requests of {[b['num_samples'] for b in bodies]} "
           f"images against one process on the ranks' row blocks: max_abs "
           f"{errs} (png bytes equal: 0.0), bit-equal expected; against one "

@@ -150,14 +150,14 @@ __device__ __forceinline__ void split_a(const float (&c0)[4],
   split_bf16x2(c1[2], c1[3], hi[3], lo[3]);
 }
 
-// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) bf16 matrix into a
-// (ROWS, DMAX + 8) tile by cp.async, 16 bytes a piece, zero past L and past
-// d (d % 8 == 0). A thread requests pieces tid, tid + NT, ...
+// Request rows r0 .. r0 + ROWS - 1 of a bf16 matrix with rows ld apart into
+// a (ROWS, DMAX + 8) tile by cp.async, 16 bytes a piece, zero past L and past
+// column ncols (ncols % 8 == 0). A thread requests pieces tid, tid + NT, ...
 template <int DMAX, int ROWS, int NT>
-__device__ __forceinline__ void request_bf16_rows(bf16* dst,
+__device__ __forceinline__ void request_bf16_cols(bf16* dst,
                                                   const bf16* __restrict__ src,
-                                                  int r0, int L, int d,
-                                                  int tid) {
+                                                  int r0, int L, int ld,
+                                                  int ncols, int tid) {
   constexpr int V = DMAX / 8;  // pieces of a row
 #pragma unroll
   for (int j = 0; j < (ROWS * V + NT - 1) / NT; ++j) {
@@ -165,8 +165,22 @@ __device__ __forceinline__ void request_bf16_rows(bf16* dst,
     if (ROWS * V % NT != 0 && i >= ROWS * V) break;
     const int r = i / V;
     const int c = (i - r * V) * 8;
-    const bool ok = r0 + r < L && c < d;
+    const bool ok = r0 + r < L && c < ncols;
     cp_async16_zfill(dst + r * (DMAX + 8) + c,
-                     ok ? src + (size_t)(r0 + r) * d + c : src, ok);
+                     ok ? src + (size_t)(r0 + r) * ld + c : src, ok);
   }
 }
+
+// The same for one head's (L, d) bf16 matrix (d % 8 == 0).
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void request_bf16_rows(bf16* dst,
+                                                  const bf16* __restrict__ src,
+                                                  int r0, int L, int d,
+                                                  int tid) {
+  request_bf16_cols<DMAX, ROWS, NT>(dst, src, r0, L, d, d, tid);
+}
+
+// Head dimensions past 128 (the wide forms of flash_attn.cu and
+// flash_attn_bwd.cu): a block owns kWideCols output columns and sums each
+// product over d in chunks of as many.
+constexpr int kWideCols = 128;

@@ -43,7 +43,8 @@
 //   for Q, K, V and P alone (104 KB in the 128-row form).
 // The (L, L) score matrix never reaches device memory. Rows and keys past L
 // are masked, so any L >= 1 runs (the TPU kernel needed L % 128 == 0); any
-// d % 8 == 0 up to 128 runs, zero-padded to DMAX of 32, 64 or 128.
+// d % 8 == 0 up to 128 runs, zero-padded to DMAX of 32, 64 or 128, and any
+// wider d in the wide forms (the section "head dimensions past 128").
 // Dropout on the probabilities (the DiT's training attention; a template
 // flag, so the form without it is unchanged): the running max and sum stay
 // those of the undropped P, so lse is unchanged, and only the values that
@@ -94,7 +95,8 @@
 //   once and one shuffle a key tile swaps the halves
 //   (`dropout_keep_bits_rows`, philox.cuh).
 // bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads with zero
-// columns) up to 128; warps whose rows all lie past L skip the products, and
+// columns) up to 128, past it the wide forms; warps whose rows all lie past L
+// skip the products, and
 // key blocks of 16 past L skip P V.
 // Queries and keys of their own lengths (E6, no TPU counterpart: the JAX
 // package's sequence-parallel attention is XLA's): q and o of Lq rows, k and
@@ -171,21 +173,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Request rows r0 .. r0 + ROWS - 1 of one head's (L, d) matrix into the
-// (ROWS, DMAX + 4) tile `dst`, zero past L and past d (d % 4 == 0). A thread
-// requests pieces tid, tid + NT, ...
+// Request rows r0 .. r0 + ROWS - 1 of a matrix with rows ld apart into the
+// (ROWS, DMAX + 4) tile `dst`, zero past L and past column ncols (ncols % 4
+// == 0). A thread requests pieces tid, tid + NT, ...
 template <int DMAX, int ROWS, int NT>
-__device__ __forceinline__ void request_rows(float* dst,
+__device__ __forceinline__ void request_cols(float* dst,
                                              const float* __restrict__ src,
-                                             int r0, int L, int d, int tid) {
+                                             int r0, int L, int ld, int ncols,
+                                             int tid) {
   constexpr int V = DMAX / 4;  // pieces of a row
   for (int i = tid; i < ROWS * V; i += NT) {
     const int r = i / V;
     const int c = (i - r * V) * 4;
-    const bool ok = r0 + r < L && c < d;
+    const bool ok = r0 + r < L && c < ncols;
     cp_async16(dst + r * (DMAX + 4) + c,
-               ok ? src + (size_t)(r0 + r) * d + c : src, ok);
+               ok ? src + (size_t)(r0 + r) * ld + c : src, ok);
   }
+}
+
+// The same for one head's (L, d) matrix (d % 4 == 0).
+template <int DMAX, int ROWS, int NT>
+__device__ __forceinline__ void request_rows(float* dst,
+                                             const float* __restrict__ src,
+                                             int r0, int L, int d, int tid) {
+  request_cols<DMAX, ROWS, NT>(dst, src, r0, L, d, d, tid);
 }
 
 template <int VW>
@@ -275,6 +286,92 @@ __device__ __forceinline__ void pv_product(
   }
 }
 
+// One key tile's online softmax: the scores s (rows q0 + ty + TY a, keys
+// k0 + tx + TX b) scaled to base 2, biased and masked past Lk; the running
+// max m, this thread's share of the running sum l and the output acc
+// rescaled; P (with DROPOUT, P o Z) into the thread's entries of the P tile.
+template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[RA][KB], float (&m)[RA], float (&l)[RA],
+    float (&acc)[RA][Cfg<DMAX, BQ, BK, RA, KB>::DC], float* Ps,
+    const float* brow, int bh, int q0, int k0, int Lk, int ty, int tx,
+    float scale_log2, const DropoutParams& dp) {
+  using C = Cfg<DMAX, BQ, BK, RA, KB>;
+  float kbias[KB] = {};  // this thread's keys' bias, base 2
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+      kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, Lk, kLog2e);
+  }
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      // key k0 (tx 0, b 0) is always real, so the row's max is finite
+      s[a][b] = k0 + tx + C::TX * b < Lk
+                    ? (BIAS ? fmaf(s[a][b], scale_log2, kbias[b])
+                            : s[a][b] * scale_log2)
+                    : -INFINITY;
+      mx = fmaxf(mx, s[a][b]);
+    }
+#pragma unroll
+    for (int off = C::TX / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[a], mx);
+    const float alpha = fast_exp2(m[a] - m_new);  // 0 on the first tile
+    m[a] = m_new;
+    l[a] *= alpha;
+#pragma unroll
+    for (int b = 0; b < C::DC; ++b) acc[a][b] *= alpha;
+    float* prow = Ps + (ty + C::TY * a) * C::SP + tx;
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits<C::TX, KB>(dp, bh, q0 + ty + C::TY * a, k0, tx);
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const float p = fast_exp2(s[a][b] - m_new);
+      l[a] += p;
+      if constexpr (DROPOUT)
+        prow[C::TX * b] = (keep >> b) & 1u ? p * dp.keep_scale : 0.f;
+      else
+        prow[C::TX * b] = p;
+    }
+  }
+}
+
+// The rows q0 + ty + TY a (< Lq) of the output, divided by their sums, at
+// the thread's columns below ncols of rows ld apart from `out`, and (where
+// lse_row is given) their lse.
+template <int DMAX, int BQ, int BK, int RA, int KB>
+__device__ __forceinline__ void store_output(
+    float (&acc)[RA][Cfg<DMAX, BQ, BK, RA, KB>::DC], const float (&m)[RA],
+    const float (&l)[RA], float* __restrict__ out, float* __restrict__ lse_row,
+    int q0, int Lq, int ld, int ncols, int ty, int tx) {
+  using C = Cfg<DMAX, BQ, BK, RA, KB>;
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    float sum = l[a];
+#pragma unroll
+    for (int off = C::TX / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int row = q0 + ty + C::TY * a;
+    if (row < Lq) {
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int b = 0; b < C::DC; ++b) acc[a][b] *= inv;
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        const int c = C::VW * (tx + C::TX * g);
+        if (c < ncols)
+          store_vec<C::VW>(out + (size_t)row * ld + c, acc[a] + g * C::VW);
+      }
+      if (lse_row != nullptr && tx == 0)
+        lse_row[row] = m[a] * kLn2 + logf(sum);
+    }
+  }
+}
+
 template <int DMAX, int BQ, int BK, int RA, int KB, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(Cfg<DMAX, BQ, BK, RA, KB>::NT,
                                   Cfg<DMAX, BQ, BK, RA, KB>::MIN_BLOCKS)
@@ -324,47 +421,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     float s[RA][KB];
     rows_dot<DMAX, BQ, BK, RA, KB>(Qs, Ks, ty, tx, s);
-    float kbias[KB] = {};  // this thread's keys' bias, base 2
-    if constexpr (BIAS) {
-#pragma unroll
-      for (int b = 0; b < KB; ++b)
-        kbias[b] = key_bias_at(brow, k0 + tx + C::TX * b, Lk, kLog2e);
-    }
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int b = 0; b < KB; ++b) {
-        // key k0 (tx 0, b 0) is always real, so the row's max is finite
-        s[a][b] = k0 + tx + C::TX * b < Lk
-                      ? (BIAS ? fmaf(s[a][b], scale_log2, kbias[b])
-                              : s[a][b] * scale_log2)
-                      : -INFINITY;
-        mx = fmaxf(mx, s[a][b]);
-      }
-#pragma unroll
-      for (int off = C::TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      const float alpha = fast_exp2(m[a] - m_new);  // 0 on the first tile
-      m[a] = m_new;
-      l[a] *= alpha;
-#pragma unroll
-      for (int b = 0; b < C::DC; ++b) acc[a][b] *= alpha;
-      float* prow = Ps + (ty + C::TY * a) * C::SP + tx;
-      uint32_t keep = 0;
-      if constexpr (DROPOUT)
-        keep = dropout_keep_bits<C::TX, KB>(dp, bh, q0 + ty + C::TY * a, k0, tx);
-#pragma unroll
-      for (int b = 0; b < KB; ++b) {
-        const float p = fast_exp2(s[a][b] - m_new);
-        l[a] += p;
-        if constexpr (DROPOUT)
-          prow[C::TX * b] = (keep >> b) & 1u ? p * dp.keep_scale : 0.f;
-        else
-          prow[C::TX * b] = p;
-      }
-    }
+    softmax_tile<DMAX, BQ, BK, RA, KB, DROPOUT, BIAS>(
+        s, m, l, acc, Ps, brow, bh, q0, k0, Lk, ty, tx, scale_log2, dp);
     cp_async_wait_all();
     __syncthreads();  // P is whole and V is in; the K tile is read
     if (k0 + BK < Lk) {  // the next K tile flies during P V
@@ -373,27 +431,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     pv_product<DMAX, BQ, BK, RA, KB>(Ps, Vs, ty, tx, acc);
   }
-
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    float sum = l[a];
-#pragma unroll
-    for (int off = C::TX / 2; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const int row = q0 + ty + C::TY * a;
-    if (row < Lq) {
-      const float inv = 1.f / sum;
-#pragma unroll
-      for (int b = 0; b < C::DC; ++b) acc[a][b] *= inv;
-#pragma unroll
-      for (int g = 0; g < C::G; ++g) {
-        const int c = C::VW * (tx + C::TX * g);
-        if (c < d)
-          store_vec<C::VW>(o + head + (size_t)row * d + c, acc[a] + g * C::VW);
-      }
-      if (tx == 0) lse[(size_t)bh * Lq + row] = m[a] * kLn2 + logf(sum);
-    }
-  }
+  store_output<DMAX, BQ, BK, RA, KB>(acc, m, l, o + head, lse + (size_t)bh * Lq,
+                                     q0, Lq, d, d, ty, tx);
 }
 
 // The bf16 form's geometry: NW warps of 16 query rows each (BQ rows a
@@ -410,6 +449,101 @@ struct Bf16Cfg {
   static constexpr size_t SMEM = sizeof(bf16) * (size_t)(BQ + 4 * BK) * S;
   static_assert(BK % 16 == 0 && DMAX % 16 == 0 && NB <= 8, "tile shape");
 };
+
+// One key tile's online softmax in the accumulator layout (a lane's rows g
+// and g + 8, keys k0 + 8 j + 2 t and + 1 of n8 tile j < NB): S scaled to base
+// 2 in float32, biased and masked past Lk; the running max m (the same in a
+// row's four lanes: two shuffles), this lane's share of the running sum l and
+// the output acc rescaled; s left holding P (with DROPOUT, P o Z by the
+// keep bits).
+template <int NB, int ND, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void softmax_bf16_tile(
+    float (&s)[NB][4], float (&m)[2], float (&l)[2], float (&acc)[ND][4],
+    uint32_t keep, const float* brow, int k0, int Lk, int t, float scale_log2,
+    const DropoutParams& dp) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+  if constexpr (BIAS) {  // keys 8 j + 2 t and + 1 of both rows
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float b = key_bias_at(brow, k0 + 8 * j + 2 * t + c, Lk, kLog2e);
+        s[j][c] += b;
+        s[j][c + 2] += b;
+      }
+  }
+  if (k0 + 8 * NB > Lk) {  // keys past Lk (only in the last tile) weigh nothing
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + 2 * t + (e & 1) >= Lk) s[j][e] = -INFINITY;
+  }
+  // key k0 (t 0, j 0, e 0) is always real, so a row's max is finite
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float alpha = ex2_approx(m[r] - m_new);  // 0 on the first tile
+    m[r] = m_new;
+    l[r] *= alpha;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][2 * r] *= alpha;
+      acc[n][2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2_approx(s[j][e] - m[e >> 1]);
+      l[e >> 1] += p;
+      if constexpr (DROPOUT)
+        s[j][e] = (keep >> (4 * j + e)) & 1u ? p * dp.keep_scale : 0.f;
+      else
+        s[j][e] = p;
+    }
+}
+
+// The warp's rows row0 + g and + 8 (< Lq) of the output, divided by their
+// sums and rounded to bf16 once, at the columns below ncols of rows ld apart
+// from `out`, and (where lse_row is given) their lse.
+template <int ND>
+__device__ __forceinline__ void store_output_bf16(
+    const float (&acc)[ND][4], const float (&m)[2], const float (&l)[2],
+    bf16* __restrict__ out, float* __restrict__ lse_row, int row0, int Lq,
+    int ld, int ncols, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + (lane >> 2) + 8 * r;
+    if (row < Lq) {
+      const float inv = 1.f / sum;
+      bf16* orow = out + (size_t)row * ld;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int c = 8 * n + 2 * t;
+        if (c < ncols)  // o is rounded to bf16 here, once
+          *reinterpret_cast<uint32_t*>(orow + c) =
+              pack_bf16x2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      }
+      if (lse_row != nullptr && t == 0) lse_row[row] = m[r] * kLn2 + logf(sum);
+    }
+  }
+}
 
 template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(32 * NW)
@@ -496,60 +630,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // online softmax in base 2, the scale applied to S in float32; a row's
-    // four lanes reduce its max by two shuffles
-#pragma unroll
-    for (int j = 0; j < C::NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
-    if constexpr (BIAS) {  // keys 8 j + 2 t and + 1 of both rows
-#pragma unroll
-      for (int j = 0; j < C::NB; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float b = key_bias_at(brow, k0 + 8 * j + 2 * t + c, Lk, kLog2e);
-          s[j][c] += b;
-          s[j][c + 2] += b;
-        }
-    }
-    if (k0 + BK > Lk) {  // keys past Lk (only in the last tile) weigh nothing
-#pragma unroll
-      for (int j = 0; j < C::NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * t + (e & 1) >= Lk) s[j][e] = -INFINITY;
-    }
-    // key k0 (t 0, j 0, e 0) is always real, so a row's max is finite
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < C::NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float alpha = ex2_approx(m[r] - m_new);  // 0 on the first tile
-      m[r] = m_new;
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < C::ND; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < C::NB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = ex2_approx(s[j][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        if constexpr (DROPOUT)
-          s[j][e] = (keep >> (4 * j + e)) & 1u ? p * dp.keep_scale : 0.f;
-        else
-          s[j][e] = p;
-      }
+    // online softmax in base 2, the scale applied to S in float32
+    softmax_bf16_tile<C::NB, C::ND, DROPOUT, BIAS>(s, m, l, acc, keep, brow,
+                                                   k0, Lk, t, scale_log2, dp);
 
     // O += (P o Z) V: P from the accumulators, split in hi + lo, against
     // V's fragments by ldmatrix.trans
@@ -570,26 +653,200 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   if (row0 >= Lq) return;
+  store_output_bf16<C::ND>(acc, m, l, o + head, lse + (size_t)bh * Lq, row0,
+                           Lq, d, d, lane);
+}
 
+// ------------------------------------------------ head dimensions past 128
+// The wide forms (entries `flash_attn_fwd_wide`, `flash_attn_fwd_wide_bias`,
+// compiled in flash_attn_wide.cu and flash_attn_wide_bias.cu so that the
+// forms up to 128 stay as they were). A block owns one block of output
+// columns (blockIdx.z, c0 = z kWideOutF32 in float32, z kWideCols in bf16)
+// of one (head, query tile of 64). For each key tile it sums S = Q K^T over
+// all of d, 128 columns at a time through single Q and K tiles in shared
+// memory, then runs the online softmax and P V over its own columns of V,
+// which arrive with the first chunk. Every column block of a row computes
+// the same S, P and dropout mask (the mask is a function of (seed, head,
+// row, key), with no column in it), so they agree on the running max and
+// sum; block 0 writes lse. The float32 form keeps the geometry of the d <=
+// 128 form at DMAX 128 for S (64 rows, key tiles of 64, four by four a
+// thread) and owns 256 output columns, 16 a thread, so up to d 256 one
+// block computes S once (at d 192, 128 columns a block computed S twice and
+// the forward ran at its plain version's time); the bf16 form keeps that of
+// its DMAX 128 form (four warps of 16 rows, key tiles of 64; 128 output
+// columns, whose accumulators take 64 registers a lane), with Q's fragments
+// loaded from shared memory for each chunk. Simple first: every chunk waits
+// for its copies (no double buffering), and Q is read again for every key
+// tile. What bounds it on an H100: as the forms up to 128 (float32 the
+// CUDA-core FMAs, bf16 the bytes and the instructions around the products),
+// plus the barriers and the waits of the chunk loop and Q read ceil(L / 64)
+// times.
+constexpr int kWideOutF32 = 256;
+
+// Shared memory of the float32 wide form: the Q and K chunk tiles, the V
+// tile of the block's output columns and P.
+constexpr size_t kWideF32Smem =
+    sizeof(float) * ((size_t)2 * 64 * (kWideCols + 4) +
+                     (size_t)64 * (kWideOutF32 + 4) + (size_t)64 * (64 + 4));
+
+template <bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int Lq, int Lk, int d,
+                      float scale_log2, DropoutParams dp, KeyBias kb) {
+  constexpr int BQ = 64, BK = 64, RA = 4, KB = 4;
+  using C = Cfg<kWideCols, BQ, BK, RA, KB>;     // the Q, K chunk tiles
+  using CO = Cfg<kWideOutF32, BQ, BK, RA, KB>;  // V, P and the output
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + BQ * C::P;
+  float* Vs = Ks + BK * C::P;
+  float* Ps = Vs + BK * CO::P;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int c0 = blockIdx.z * kWideOutF32;  // the block's output columns
+  const int tid = threadIdx.x;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
+  const float* qh = q + (size_t)bh * Lq * d;
+  const float* kh = k + (size_t)bh * Lk * d;
+  const float* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+
+  float acc[RA][CO::DC], m[RA], l[RA];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int row = row0 + (lane >> 2) + 8 * r;
-    if (row < Lq) {
-      const float inv = 1.f / sum;
-      bf16* orow = o + head + (size_t)row * d;
+  for (int a = 0; a < RA; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
 #pragma unroll
-      for (int n = 0; n < C::ND; ++n) {
-        const int c = 8 * n + 2 * t;
-        if (c < d)  // o is rounded to bf16 here, once
-          *reinterpret_cast<uint32_t*>(orow + c) =
-              pack_bf16x2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    for (int b = 0; b < CO::DC; ++b) acc[a][b] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    float s[RA][KB] = {};
+    for (int c = 0; c < d; c += kWideCols) {
+      __syncthreads();  // every thread is past its reads of the tiles
+      request_cols<kWideCols, BQ, C::NT>(Qs, qh + c, q0, Lq, d, d - c, tid);
+      request_cols<kWideCols, BK, C::NT>(Ks, kh + c, k0, Lk, d, d - c, tid);
+      if (c == 0)
+        request_cols<kWideOutF32, BK, C::NT>(Vs, vh + c0, k0, Lk, d, d - c0,
+                                             tid);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      float part[RA][KB];
+      rows_dot<kWideCols, BQ, BK, RA, KB>(Qs, Ks, ty, tx, part);
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int b = 0; b < KB; ++b) s[a][b] += part[a][b];
+    }
+    softmax_tile<kWideOutF32, BQ, BK, RA, KB, DROPOUT, BIAS>(
+        s, m, l, acc, Ps, brow, bh, q0, k0, Lk, ty, tx, scale_log2, dp);
+    __syncthreads();  // P is whole
+    pv_product<kWideOutF32, BQ, BK, RA, KB>(Ps, Vs, ty, tx, acc);
+  }
+  store_output<kWideOutF32, BQ, BK, RA, KB>(
+      acc, m, l, o + (size_t)bh * Lq * d + c0,
+      blockIdx.z == 0 ? lse + (size_t)bh * Lq : nullptr, q0, Lq, d, d - c0, ty,
+      tx);
+}
+
+template <bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(128)
+flash_fwd_bf16_wide_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int Lq, int Lk, int d,
+                           float scale_log2, DropoutParams dp, KeyBias kb) {
+  using C = Bf16Cfg<kWideCols, 4, 64>;
+  constexpr int BK = 64;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* Ks = Qs + C::BQ * C::S;
+  bf16* Vs = Ks + BK * C::S;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * C::BQ;
+  const int c0 = blockIdx.z * kWideCols;  // the block's output columns
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, row0 + g + 8
+  const int vsteps = min(C::KD, (d - c0) >> 4);  // k16 steps of V's columns
+  const bf16* qh = q + (size_t)bh * Lq * d;
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+
+  float acc[C::ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    float s[C::NB][4] = {};
+    for (int c = 0; c < d; c += kWideCols) {
+      __syncthreads();  // every warp is past its reads of the tiles
+      request_bf16_cols<kWideCols, C::BQ, C::NT>(Qs, qh + c, q0, Lq, d, d - c,
+                                                 tid);
+      request_bf16_cols<kWideCols, BK, C::NT>(Ks, kh + c, k0, Lk, d, d - c,
+                                              tid);
+      if (c == 0)
+        request_bf16_cols<kWideCols, BK, C::NT>(Vs, vh + c0, k0, Lk, d,
+                                                d - c0, tid);
+      cp_async_commit_group();
+      cp_async_wait_groups();
+      __syncthreads();
+      if (row0 >= Lq) continue;  // no real row: only the barriers
+      const int steps = min(C::KD, (d - c) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < C::KD; ++kk) {
+        if (kk < steps) {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, Qs + 16 * warp * C::S + 16 * kk + off_a);
+#pragma unroll
+          for (int jj = 0; jj < C::NB / 2; ++jj) {
+            uint32_t b[4];
+            ldmatrix_x4(b, Ks + 16 * jj * C::S + 16 * kk + off_b);
+            mma_bf16(s[2 * jj], qf, b[0], b[1]);
+            mma_bf16(s[2 * jj + 1], qf, b[2], b[3]);
+          }
+        }
       }
-      if (t == 0) lse[(size_t)bh * Lq + row] = m[r] * kLn2 + logf(sum);
+    }
+    if (row0 >= Lq) continue;
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits_rows<C::NB>(dp, bh, row0, k0, lane);
+    softmax_bf16_tile<C::NB, C::ND, DROPOUT, BIAS>(s, m, l, acc, keep, brow,
+                                                   k0, Lk, t, scale_log2, dp);
+    // O += (P o Z) V over the block's columns of V
+#pragma unroll
+    for (int cc = 0; cc < C::NB / 2; ++cc) {
+      if (k0 + 16 * cc >= Lk) break;  // keys past Lk: P is 0
+      uint32_t hi[4], lo[4];
+      split_a(s[2 * cc], s[2 * cc + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < C::KD; ++np) {
+        if (np < vsteps) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Vs + 16 * cc * C::S + 16 * np + off_a);
+          mma_bf16_split(acc[2 * np], hi, lo, b[0], b[1]);
+          mma_bf16_split(acc[2 * np + 1], hi, lo, b[2], b[3]);
+        }
+      }
     }
   }
+  if (row0 >= Lq) return;
+  store_output_bf16<C::ND>(acc, m, l, o + (size_t)bh * Lq * d + c0,
+                           blockIdx.z == 0 ? lse + (size_t)bh * Lq : nullptr,
+                           row0, Lq, d, d - c0, lane);
 }
 
 // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
@@ -707,6 +964,61 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
            (cudaStream_t)stream);
 }
 
+// The wide forms' launch: a block per (head, query tile of 64, 256 output
+// columns; bf16 128).
+template <bool DROPOUT, bool BIAS>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int Lq, int Lk, int d, float scale,
+                int bf16_form, const DropoutParams& dp, const KeyBias& kb,
+                cudaStream_t stream) {
+  const int out_cols = bf16_form ? kWideCols : kWideOutF32;
+  const dim3 grid(bh, (Lq + 63) / 64, (d + out_cols - 1) / out_cols);
+  if (bf16_form) {
+    using C = Bf16Cfg<kWideCols, 4, 64>;
+    constexpr size_t smem = sizeof(bf16) * (size_t)(C::BQ + 2 * 64) * C::S;
+    static std::atomic<bool> opted_in[kMaxDevices];
+    const int rc =
+        opt_in(flash_fwd_bf16_wide_kernel<DROPOUT, BIAS>, opted_in, smem);
+    if (rc != 0) return rc;
+    flash_fwd_bf16_wide_kernel<DROPOUT, BIAS><<<grid, C::NT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, Lq, Lk,
+        d, scale * kLog2e, dp, kb);
+    return (int)cudaGetLastError();
+  }
+  using C = Cfg<kWideCols, 64, 64, 4, 4>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const int rc = opt_in(flash_fwd_wide_kernel<DROPOUT, BIAS>, opted_in,
+                        kWideF32Smem);
+  if (rc != 0) return rc;
+  flash_fwd_wide_kernel<DROPOUT, BIAS>
+      <<<grid, C::NT, kWideF32Smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Lq,
+      Lk, d, scale * kLog2e, dp, kb);
+  return (int)cudaGetLastError();
+}
+
+// The checks of the wide entries: d past 128, a multiple of 8 (bf16: 16),
+// query tiles of 64.
+template <bool BIAS>
+int forward_wide(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int bh, int Lq, int Lk, int d, float scale,
+                 int tile, int dropout, unsigned threshold, float keep_scale,
+                 unsigned long long seed, const unsigned* grid, int bf16_form,
+                 const KeyBias& kb, void* stream) {
+  const bool ok = Lq >= 1 && Lk >= 1 && d > 128 && tile == 64 &&
+                  d % (bf16_form ? 16 : 8) == 0;
+  if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
+    return (int)cudaErrorInvalidValue;
+  if (dropout && (grid[0] < 1 || bh % grid[0]))
+    return (int)cudaErrorInvalidValue;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
+                         grid[3], grid[4]};
+  auto f = dropout ? &launch_wide<true, BIAS> : &launch_wide<false, BIAS>;
+  return f(q, k, v, o, (float*)lse, bh, Lq, Lk, d, scale, bf16_form, dp, kb,
+           (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // q, o: (bh, Lq, d) and k, v: (bh, Lk, d), contiguous, 16-byte aligned; lse:
@@ -714,15 +1026,16 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
 // rank's own queries against the keys gathered from every rank.
 // float32 (`bf16_form` == 0): d % 8 == 0, d <= 128, `tile` (the query tile
 // height) 32 or 128 for d <= 64, 64 for d > 64. bfloat16 (`bf16_form` != 0):
-// d % 16 == 0, d <= 128, `tile` 16 or 128 for d <= 64, or 64. `dropout` != 0
-// takes the dropout form: a key is kept iff its Philox word (philox.cuh, from
-// `seed`) is below `threshold`, and a kept probability is multiplied by
-// `keep_scale`; (heads, total_heads, batch0, head0) place the launch's heads
-// in the model's global (batch, head) grid, whose index keys the mask
-// (philox.cuh; (1, 1, 0, 0) on one device), and `heads` divides bh; `row0`
-// is the global index of query row 0, which keys the mask of each row (0 on
-// one device). Returns the CUDA error of the launch.
-#ifndef DMC_FLASH_BIAS_FORMS
+// d % 16 == 0, d <= 128, `tile` 16 or 128 for d <= 64, or 64. A wider d takes
+// `flash_attn_fwd_wide` (flash_attn_wide.cu), with the same arguments.
+// `dropout` != 0 takes the dropout form: a key is kept iff its Philox word
+// (philox.cuh, from `seed`) is below `threshold`, and a kept probability is
+// multiplied by `keep_scale`; (heads, total_heads, batch0, head0) place the
+// launch's heads in the model's global (batch, head) grid, whose index keys
+// the mask (philox.cuh; (1, 1, 0, 0) on one device), and `heads` divides
+// bh; `row0` is the global index of query row 0, which keys the mask of each
+// row (0 on one device). Returns the CUDA error of the launch.
+#if !defined(DMC_FLASH_BIAS_FORMS) && !defined(DMC_FLASH_WIDE_FORMS)
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int Lq, int Lk,
                               int d, float scale, int tile, int dropout,
@@ -741,7 +1054,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 extern "C" const char* dmc_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
-#else
+#elif !defined(DMC_FLASH_WIDE_FORMS)
 // flash_attn_fwd with a per-key bias (key_bias.cuh): float32 (bh / heads,
 // Lk), added to every scaled score of head bh's row bh / bias_heads before
 // the softmax; lse includes it. `bias_heads` divides bh.
@@ -758,5 +1071,37 @@ extern "C" int flash_attn_fwd_bias(const void* q, const void* k, const void* v,
   return forward<true>(q, k, v, o, lse, bh, Lq, Lk, d, scale, tile, dropout,
                        threshold, keep_scale, seed, grid, bf16_form,
                        KeyBias{(const float*)bias, bias_heads}, stream);
+}
+#elif !defined(DMC_FLASH_BIAS_FORMS)
+// flash_attn_fwd's arguments at d > 128 (d % 8 == 0, bf16 d % 16 == 0;
+// `tile` 64): the wide forms.
+extern "C" int flash_attn_fwd_wide(const void* q, const void* k, const void* v,
+                                   void* o, void* lse, int bh, int Lq, int Lk,
+                                   int d, float scale, int tile, int dropout,
+                                   unsigned threshold, float keep_scale,
+                                   unsigned long long seed, unsigned heads,
+                                   unsigned total_heads, unsigned batch0,
+                                   unsigned head0, unsigned row0,
+                                   int bf16_form, void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return forward_wide<false>(q, k, v, o, lse, bh, Lq, Lk, d, scale, tile,
+                             dropout, threshold, keep_scale, seed, grid,
+                             bf16_form, KeyBias{nullptr, 1}, stream);
+}
+#else
+// flash_attn_fwd_bias's arguments at d > 128: the wide forms with the key
+// bias.
+extern "C" int flash_attn_fwd_wide_bias(
+    const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+    int Lq, int Lk, int d, float scale, int tile, int dropout,
+    unsigned threshold, float keep_scale, unsigned long long seed,
+    unsigned heads, unsigned total_heads, unsigned batch0, unsigned head0,
+    unsigned row0, int bf16_form, const void* bias, int bias_heads,
+    void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return forward_wide<true>(q, k, v, o, lse, bh, Lq, Lk, d, scale, tile,
+                            dropout, threshold, keep_scale, seed, grid,
+                            bf16_form,
+                            KeyBias{(const float*)bias, bias_heads}, stream);
 }
 #endif

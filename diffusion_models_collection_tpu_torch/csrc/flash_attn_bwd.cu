@@ -47,7 +47,8 @@
 // to run. A query row past L gets lse = +inf, so its P and dS are 0; a key
 // past L has K = V = 0, so its dS meets a zero K row in dQ and its own dK,
 // dV rows are never written. Any L >= 1 runs; any d % 8 == 0 up to 128 runs,
-// zero-padded to DMAX of 32, 64 or 128.
+// zero-padded to DMAX of 32, 64 or 128, and any wider d in the wide forms (the
+// section "head dimensions past 128").
 // Dropout on the probabilities (a template flag; the form without it is
 // unchanged): with Z = keep / (1 - p) from `philox.cuh`, regenerated for each
 // tile from (seed, head, row, key) exactly as the forward drew it,
@@ -107,7 +108,8 @@
 //   a dQ kernel of four warps (16 query rows each) walking key tiles of 64
 //   (32 at d > 64): S and dP query-major from Q and dO fragments held in
 //   registers, dS split from the accumulators against K by ldmatrix.trans.
-// bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads) up to 128.
+// bf16 takes d % 16 == 0 (the mma's depth; the wrapper pads) up to 128, past
+// it the wide forms.
 // Queries and keys of their own lengths (E6, flash_attn.cu): q, o, dO and dq
 // of Lq rows, k, v, dk and dv of Lk; the key-tile blocks walk Lq's query
 // tiles, the dq blocks Lk's key tiles, the fused form's dq shares are one a
@@ -226,21 +228,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Request rows r0 .. r0 + BT - 1 of one head's (L, d) matrix into a
-// (BT, DMAX + 4) tile by cp.async, zero past L and past d (d % 4 == 0).
+// Request rows r0 .. r0 + BT - 1 of a matrix with rows ld apart into a
+// (BT, DMAX + 4) tile by cp.async, zero past L and past column ncols (ncols
+// % 4 == 0).
 template <int DMAX, int BT>
-__device__ __forceinline__ void request_tile(float* dst,
-                                             const float* __restrict__ src,
-                                             int r0, int L, int d, int tid) {
+__device__ __forceinline__ void request_tile_cols(float* dst,
+                                                  const float* __restrict__ src,
+                                                  int r0, int L, int ld,
+                                                  int ncols, int tid) {
   using C = Cfg<DMAX, BT>;
   constexpr int V = DMAX / 4;  // pieces of a row
   for (int i = tid; i < BT * V; i += C::NT) {
     const int r = i / V;
     const int c = (i - r * V) * 4;
-    const bool ok = r0 + r < L && c < d;
-    cp_async16(dst + r * C::P + c, ok ? src + (size_t)(r0 + r) * d + c : src,
+    const bool ok = r0 + r < L && c < ncols;
+    cp_async16(dst + r * C::P + c, ok ? src + (size_t)(r0 + r) * ld + c : src,
                ok);
   }
+}
+
+// The same for one head's (L, d) matrix (d % 4 == 0).
+template <int DMAX, int BT>
+__device__ __forceinline__ void request_tile(float* dst,
+                                             const float* __restrict__ src,
+                                             int r0, int L, int d, int tid) {
+  request_tile_cols<DMAX, BT>(dst, src, r0, L, d, d, tid);
 }
 
 // lse and delta of query rows q0 .. q0 + BT - 1; rows past L get lse = +inf,
@@ -316,21 +328,18 @@ __device__ __forceinline__ void rows_dot(const float* As, const float* Bs, int t
   }
 }
 
-// S = Q K^T and dP = dO V^T of the current tiles (query rows from q0, keys
-// from k0 of head bh), then P (stored when Ps is given; P o Z with DROPOUT)
-// and dS into their (BT, BT + 4) tiles: rows ty + TX a, keys tx + TX b
+// From S = Q K^T and dP = dO V^T of a tile (query rows from q0, keys from k0
+// of head bh; rows ty + TX a, keys tx + TX b): P (stored when Ps is given;
+// P o Z with DROPOUT) and dS into their (BT, BT + 4) tiles
 template <int DMAX, int BT, bool DROPOUT, bool BIAS>
-__device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
-                                           const float* Ks, const float* Vs,
+__device__ __forceinline__ void probs_from(const float (&s)[4][4],
+                                           const float (&dpv)[4][4],
                                            const float* lse_s, const float* dl_s,
                                            float* Ps, float* dSs, int ty, int tx,
                                            float scale, const DropoutParams& dp,
                                            const float* brow, int Lk, int bh,
                                            int q0, int k0) {
   using C = Cfg<DMAX, BT>;
-  float s[4][4], dpv[4][4];
-  rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
-  rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dpv);
   float kbias[4] = {};  // the keys' bias (0 past Lk, where K = V = 0)
   if constexpr (BIAS) {
 #pragma unroll
@@ -356,6 +365,53 @@ __device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
       dSs[r * C::SP + col] =
           p * ((DROPOUT ? dpv[a][b] * z : dpv[a][b]) - dl) * scale;
     }
+  }
+}
+
+// S and dP of the current tiles, then `probs_from`
+template <int DMAX, int BT, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void probs_tile(const float* Qs, const float* dOs,
+                                           const float* Ks, const float* Vs,
+                                           const float* lse_s, const float* dl_s,
+                                           float* Ps, float* dSs, int ty, int tx,
+                                           float scale, const DropoutParams& dp,
+                                           const float* brow, int Lk, int bh,
+                                           int q0, int k0) {
+  float s[4][4], dpv[4][4];
+  rows_dot<DMAX, BT>(Qs, Ks, ty, tx, s);
+  rows_dot<DMAX, BT>(dOs, Vs, ty, tx, dpv);
+  probs_from<DMAX, BT, DROPOUT, BIAS>(s, dpv, lse_s, dl_s, Ps, dSs, ty, tx,
+                                      scale, dp, brow, Lk, bh, q0, k0);
+}
+
+// dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :] over the
+// tile's rows: keys 4 ty .. + 3, the thread's columns
+template <int DMAX, int BT>
+__device__ __forceinline__ void dkdv_tile(const float* Ps, const float* dSs,
+                                          const float* Qs, const float* dOs,
+                                          int ty, int tx,
+                                          float (&dk_acc)[4][Cfg<DMAX, BT>::DC],
+                                          float (&dv_acc)[4][Cfg<DMAX,
+                                                                 BT>::DC]) {
+  using C = Cfg<DMAX, BT>;
+#pragma unroll 2
+  for (int r = 0; r < BT; ++r) {
+    float pv[4], dsv[4], dov[C::DC], qv[C::DC];
+    load_vec<4>(pv, Ps + r * C::SP + 4 * ty);
+    load_vec<4>(dsv, dSs + r * C::SP + 4 * ty);
+#pragma unroll
+    for (int g = 0; g < C::G; ++g) {
+      const int c = C::VW * (tx + C::TX * g);
+      load_vec<C::VW>(dov + g * C::VW, dOs + r * C::P + c);
+      load_vec<C::VW>(qv + g * C::VW, Qs + r * C::P + c);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < C::DC; ++b) {
+        dv_acc[a][b] = fmaf(pv[a], dov[b], dv_acc[a][b]);
+        dk_acc[a][b] = fmaf(dsv[a], qv[b], dk_acc[a][b]);
+      }
   }
 }
 
@@ -387,12 +443,12 @@ __device__ __forceinline__ void dq_product(const float* dSs, const float* Ks,
   }
 }
 
-// rows r0 + ty + TX a (< L) of `acc` into a head's (L, d) matrix at the
-// thread's columns
+// rows r0 + ty + TX a (< L) of `acc` into a matrix with rows ld apart at the
+// thread's columns below ncols
 template <int DMAX, int BT>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float acc[4][Cfg<DMAX, BT>::DC],
-                                           int r0, int L, int d, int ty, int tx) {
+__device__ __forceinline__ void store_rows_cols(
+    float* __restrict__ dst, const float acc[4][Cfg<DMAX, BT>::DC], int r0,
+    int L, int ld, int ncols, int ty, int tx) {
   using C = Cfg<DMAX, BT>;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -401,7 +457,41 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
 #pragma unroll
       for (int g = 0; g < C::G; ++g) {
         const int c = C::VW * (tx + C::TX * g);
-        if (c < d) store_vec<C::VW>(dst + (size_t)row * d + c, acc[a] + g * C::VW);
+        if (c < ncols)
+          store_vec<C::VW>(dst + (size_t)row * ld + c, acc[a] + g * C::VW);
+      }
+    }
+  }
+}
+
+// the same into a head's (L, d) matrix
+template <int DMAX, int BT>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float acc[4][Cfg<DMAX, BT>::DC],
+                                           int r0, int L, int d, int ty, int tx) {
+  store_rows_cols<DMAX, BT>(dst, acc, r0, L, d, d, ty, tx);
+}
+
+// keys k0 + 4 ty + a (< Lk) of dK and dV into matrices with rows ld apart at
+// the thread's columns below ncols
+template <int DMAX, int BT>
+__device__ __forceinline__ void store_key_rows(
+    float* __restrict__ dk, float* __restrict__ dv,
+    const float (&dk_acc)[4][Cfg<DMAX, BT>::DC],
+    const float (&dv_acc)[4][Cfg<DMAX, BT>::DC], int k0, int Lk, int ld,
+    int ncols, int ty, int tx) {
+  using C = Cfg<DMAX, BT>;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = k0 + 4 * ty + a;
+    if (row < Lk) {
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        const int c = C::VW * (tx + C::TX * g);
+        if (c < ncols) {
+          store_vec<C::VW>(dk + (size_t)row * ld + c, dk_acc[a] + g * C::VW);
+          store_vec<C::VW>(dv + (size_t)row * ld + c, dv_acc[a] + g * C::VW);
+        }
       }
     }
   }
@@ -468,26 +558,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                         ty, tx, scale, dp, brow, Lk, bh, q0, k0);
     __syncthreads();
 
-    // dV_j += sum_r P[r, j] dO[r, :],  dK_j += sum_r dS[r, j] Q[r, :]
-#pragma unroll 2
-    for (int r = 0; r < BT; ++r) {
-      float pv[4], dsv[4], dov[C::DC], qv[C::DC];
-      load_vec<4>(pv, Ps + r * C::SP + 4 * ty);
-      load_vec<4>(dsv, dSs + r * C::SP + 4 * ty);
-#pragma unroll
-      for (int g = 0; g < C::G; ++g) {
-        const int c = C::VW * (tx + C::TX * g);
-        load_vec<C::VW>(dov + g * C::VW, dOs + r * C::P + c);
-        load_vec<C::VW>(qv + g * C::VW, Qs + r * C::P + c);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < C::DC; ++b) {
-          dv_acc[a][b] = fmaf(pv[a], dov[b], dv_acc[a][b]);
-          dk_acc[a][b] = fmaf(dsv[a], qv[b], dk_acc[a][b]);
-        }
-    }
+    dkdv_tile<DMAX, BT>(Ps, dSs, Qs, dOs, ty, tx, dk_acc, dv_acc);
     __syncthreads();  // Qs, dOs and the row stats are read
 
     if (q0 + BT < Lq) {  // the next tiles fly during the dQ product
@@ -506,20 +577,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = k0 + 4 * ty + a;
-    if (row < Lk) {
-#pragma unroll
-      for (int g = 0; g < C::G; ++g) {
-        const int c = C::VW * (tx + C::TX * g);
-        if (c < d) {
-          store_vec<C::VW>(dk + khead + (size_t)row * d + c, dk_acc[a] + g * C::VW);
-          store_vec<C::VW>(dv + khead + (size_t)row * d + c, dv_acc[a] + g * C::VW);
-        }
-      }
-    }
-  }
+  store_key_rows<DMAX, BT>(dk + khead, dv + khead, dk_acc, dv_acc, k0, Lk, d,
+                           d, ty, tx);
 }
 
 // The two-kernel form's dQ: one block per (head, query tile) walks the key
@@ -664,10 +723,11 @@ __device__ __forceinline__ void store_pair(bf16* dst, float x0, float x1) {
 }
 
 template <typename T, int N>
-__device__ __forceinline__ void store_acc(T* __restrict__ dst,
-                                          const float (&acc)[N][4], float scale,
-                                          int r0, int n0, int L, int d,
-                                          int lane) {
+__device__ __forceinline__ void store_acc_cols(T* __restrict__ dst,
+                                               const float (&acc)[N][4],
+                                               float scale, int r0, int n0,
+                                               int L, int ld, int ncols,
+                                               int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + (lane >> 2) + 8 * r;
@@ -675,11 +735,137 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst,
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       const int c = 8 * (n0 + n) + 2 * (lane & 3);
-      if (c < d)
-        store_pair(dst + (size_t)row * d + c, scale * acc[n][2 * r],
+      if (c < ncols)
+        store_pair(dst + (size_t)row * ld + c, scale * acc[n][2 * r],
                    scale * acc[n][2 * r + 1]);
     }
   }
+}
+
+// the same into a head's (L, d) matrix
+template <typename T, int N>
+__device__ __forceinline__ void store_acc(T* __restrict__ dst,
+                                          const float (&acc)[N][4], float scale,
+                                          int r0, int n0, int L, int d,
+                                          int lane) {
+  store_acc_cols(dst, acc, scale, r0, n0, L, d, d, lane);
+}
+
+// From S^T and dP^T of a warp's 16 keys against a query tile (keys along the
+// rows; queries 8 j + 2 t and + 1 of n8 tile j): P^T o Z into st and dS^T /
+// scale into dpt, in float32 (a query past L has lse +inf, so P = 0). lse_s
+// holds the tile's lse in base 2, dl_s its delta; kbias the lane's two keys'
+// bias in base 2.
+template <int NB, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void bf16_probs_t(float (&st)[NB][4],
+                                             float (&dpt)[NB][4],
+                                             const float* lse_s,
+                                             const float* dl_s,
+                                             const float (&kbias)[2],
+                                             uint32_t keep, int t,
+                                             float scale_log2,
+                                             const DropoutParams& dp) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    // the lse and delta of queries 8 j + 2 t, + 1
+    const float2 lq = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+    const float2 dq2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lqe = (e & 1) ? lq.y : lq.x;
+      const float p = ex2_approx(fmaf(
+          st[j][e], scale_log2, BIAS ? kbias[e >> 1] - lqe : -lqe));
+      float z = 1.f;
+      if constexpr (DROPOUT)
+        z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
+      dpt[j][e] = p * ((DROPOUT ? dpt[j][e] * z : dpt[j][e]) -
+                       ((e & 1) ? dq2.y : dq2.x));
+      st[j][e] = DROPOUT ? p * z : p;
+    }
+  }
+}
+
+// dV += (P o Z)^T dO, dK += dS^T Q over a query tile for a warp's 16 keys kw
+// ..: both A operands from the registers (st, dpt), split in hi + lo; dO and
+// Q by ldmatrix.trans, `steps` k16 steps of their columns. With WITH_DQ dS^T
+// goes to shared memory too (dSh, dSl), for the dQ share.
+template <typename C, bool WITH_DQ>
+__device__ __forceinline__ void bf16_dkdv_tile(
+    const float (&st)[C::NB][4], const float (&dpt)[C::NB][4],
+    const bf16* Qs, const bf16* dOs, bf16* dSh, bf16* dSl,
+    float (&dk_acc)[C::ND][4], float (&dv_acc)[C::ND][4], int kw, int q0,
+    int Lq, int steps, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int off_a = lane_off_a(lane, C::S);
+#pragma unroll
+  for (int c = 0; c < C::NB / 2; ++c) {
+    uint32_t ph[4], pl[4], sh[4], sl[4];
+    split_a(st[2 * c], st[2 * c + 1], ph, pl);
+    split_a(dpt[2 * c], dpt[2 * c + 1], sh, sl);
+    if constexpr (WITH_DQ) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // a fragment's (row, column) block
+        const int at = (kw + g + 8 * (r & 1)) * C::SQ + 16 * c +
+                       8 * (r >> 1) + 2 * t;
+        *reinterpret_cast<uint32_t*>(dSh + at) = sh[r];
+        *reinterpret_cast<uint32_t*>(dSl + at) = sl[r];
+      }
+    }
+    if (q0 + 16 * c >= Lq) continue;  // queries past Lq: P and dS are 0
+#pragma unroll
+    for (int np = 0; np < C::KD; ++np) {
+      if (np < steps) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, dOs + 16 * c * C::S + 16 * np + off_a);
+        mma_bf16_split(dv_acc[2 * np], ph, pl, b[0], b[1]);
+        mma_bf16_split(dv_acc[2 * np + 1], ph, pl, b[2], b[3]);
+        ldmatrix_x4_trans(b, Qs + 16 * c * C::S + 16 * np + off_a);
+        mma_bf16_split(dk_acc[2 * np], sh, sl, b[0], b[1]);
+        mma_bf16_split(dk_acc[2 * np + 1], sh, sl, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// A warp's part of the dQ share dS K_j of a query tile (dS^T whole in dSh,
+// dSl): dS query-major by ldmatrix.trans of dS^T, K by ldmatrix.trans, `steps`
+// k16 steps of K's columns; query rows q0 + 16 rg .., d's n8 tiles part *
+// NDW .., stored times `scale` at the columns below ncols of rows ld apart
+// from `dst`.
+template <typename C, typename DQ>
+__device__ __forceinline__ void bf16_dq_share(const bf16* dSh, const bf16* dSl,
+                                              const bf16* Ks, DQ* dst,
+                                              float scale, int k0, int Lk,
+                                              int q0, int Lq, int ld,
+                                              int ncols, int steps, int warp,
+                                              int lane) {
+  const int rg = warp % C::RG, part = warp / C::RG;
+  const int off_sq = lane_off_b(lane, C::SQ);
+  const int off_a = lane_off_a(lane, C::S);
+  float acc[C::NDW][4];
+#pragma unroll
+  for (int n = 0; n < C::NDW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < C::NW; ++kc) {
+    if (k0 + 16 * kc >= Lk) break;  // keys past Lk: no dS was written
+    uint32_t ah[4], al[4];
+    ldmatrix_x4_trans(ah, dSh + 16 * kc * C::SQ + 16 * rg + off_sq);
+    ldmatrix_x4_trans(al, dSl + 16 * kc * C::SQ + 16 * rg + off_sq);
+#pragma unroll
+    for (int np = 0; np < C::NDW / 2; ++np) {
+      const int n16 = part * (C::NDW / 2) + np;  // d's 16-column block
+      if (n16 < steps) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Ks + 16 * kc * C::S + 16 * n16 + off_a);
+        mma_bf16_split(acc[2 * np], ah, al, b[0], b[1]);
+        mma_bf16_split(acc[2 * np + 1], ah, al, b[2], b[3]);
+      }
+    }
+  }
+  store_acc_cols(dst, acc, scale, q0 + 16 * rg, part * C::NDW, Lq, ld, ncols,
+                 lane);
 }
 
 // One block per (head, key tile of BT keys), each warp 16 keys: dK_j and dV_j
@@ -805,88 +991,17 @@ flash_bwd_bf16_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
-      // P^T o Z into st and dS^T / scale into dpt, in float32 (the scale
-      // multiplies dK and the dQ share once, at their stores; a query past L
-      // has lse +inf, so P = 0)
-#pragma unroll
-      for (int j = 0; j < C::NB; ++j) {
-        // the lse and delta of queries 8 j + 2 t, + 1
-        const float2 lq = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
-        const float2 dq2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float lqe = (e & 1) ? lq.y : lq.x;
-          const float p = ex2_approx(fmaf(
-              st[j][e], scale_log2, BIAS ? kbias[e >> 1] - lqe : -lqe));
-          float z = 1.f;
-          if constexpr (DROPOUT)
-            z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
-          dpt[j][e] = p * ((DROPOUT ? dpt[j][e] * z : dpt[j][e]) -
-                           ((e & 1) ? dq2.y : dq2.x));
-          st[j][e] = DROPOUT ? p * z : p;
-        }
-      }
-      // dV += (P o Z)^T dO, dK += dS^T Q: both A operands from the
-      // registers, split in hi + lo; dO and Q by ldmatrix.trans. dS^T goes
-      // to shared memory too, for the dQ share.
-#pragma unroll
-      for (int c = 0; c < C::NB / 2; ++c) {
-        uint32_t ph[4], pl[4], sh[4], sl[4];
-        split_a(st[2 * c], st[2 * c + 1], ph, pl);
-        split_a(dpt[2 * c], dpt[2 * c + 1], sh, sl);
-        if constexpr (WITH_DQ) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {  // a fragment's (row, column) block
-            const int at = (kw + g + 8 * (r & 1)) * C::SQ + 16 * c +
-                           8 * (r >> 1) + 2 * t;
-            *reinterpret_cast<uint32_t*>(dSh + at) = sh[r];
-            *reinterpret_cast<uint32_t*>(dSl + at) = sl[r];
-          }
-        }
-        if (q0 + 16 * c >= Lq) continue;  // queries past Lq: P and dS are 0
-#pragma unroll
-        for (int np = 0; np < C::KD; ++np) {
-          if (np < steps) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, dOs + 16 * c * C::S + 16 * np + off_a);
-            mma_bf16_split(dv_acc[2 * np], ph, pl, b[0], b[1]);
-            mma_bf16_split(dv_acc[2 * np + 1], ph, pl, b[2], b[3]);
-            ldmatrix_x4_trans(b, Qs + 16 * c * C::S + 16 * np + off_a);
-            mma_bf16_split(dk_acc[2 * np], sh, sl, b[0], b[1]);
-            mma_bf16_split(dk_acc[2 * np + 1], sh, sl, b[2], b[3]);
-          }
-        }
-      }
+      // P^T o Z into st and dS^T / scale into dpt (the scale multiplies dK
+      // and the dQ share once, at their stores), then dV and dK
+      bf16_probs_t<C::NB, DROPOUT, BIAS>(st, dpt, lse_s, dl_s, kbias, keep, t,
+                                         scale_log2, dp);
+      bf16_dkdv_tile<C, WITH_DQ>(st, dpt, Qs, dOs, dSh, dSl, dk_acc, dv_acc,
+                                 kw, q0, Lq, steps, lane);
     }
     if constexpr (WITH_DQ) {
       __syncthreads();  // dS^T is whole
-      // dQ_i share = dS K_j: dS query-major by ldmatrix.trans of dS^T, K by
-      // ldmatrix.trans; query rows q0 + 16 rg .., d's n8 tiles part * NDW ..
-      const int rg = warp % C::RG, part = warp / C::RG;
-      const int off_sq = lane_off_b(lane, C::SQ);
-      float acc[C::NDW][4];
-#pragma unroll
-      for (int n = 0; n < C::NDW; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < C::NW; ++kc) {
-        if (k0 + 16 * kc >= Lk) break;  // keys past Lk: no dS was written
-        uint32_t ah[4], al[4];
-        ldmatrix_x4_trans(ah, dSh + 16 * kc * C::SQ + 16 * rg + off_sq);
-        ldmatrix_x4_trans(al, dSl + 16 * kc * C::SQ + 16 * rg + off_sq);
-#pragma unroll
-        for (int np = 0; np < C::NDW / 2; ++np) {
-          const int n16 = part * (C::NDW / 2) + np;  // d's 16-column block
-          if (n16 < steps) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, Ks + 16 * kc * C::S + 16 * n16 + off_a);
-            mma_bf16_split(acc[2 * np], ah, al, b[0], b[1]);
-            mma_bf16_split(acc[2 * np + 1], ah, al, b[2], b[3]);
-          }
-        }
-      }
-      store_acc(dq_head, acc, scale, q0 + 16 * rg, part * C::NDW, Lq, d, lane);
+      bf16_dq_share<C>(dSh, dSl, Ks, dq_head, scale, k0, Lk, q0, Lq, d, d,
+                       steps, warp, lane);
     }
   }
   if (live) {
@@ -911,6 +1026,64 @@ struct Bf16DqCfg {
   static constexpr size_t SMEM = sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * S;
   static_assert(BK % 16 == 0 && NB <= 8, "tile shape");
 };
+
+// From S and dP of a warp's 16 query rows against a key tile (queries along
+// the rows; keys k0 + 8 j + 2 t and + 1 of n8 tile j): dS / scale into s, in
+// float32. lr holds the rows' lse in base 2 (+inf past L), dl their delta. A
+// key past Lk has K = V = 0: its dS meets a zero K row in the product.
+template <int NB, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void bf16_ds_rows(float (&s)[NB][4],
+                                             const float (&dp_)[NB][4],
+                                             const float (&lr)[2],
+                                             const float (&dl)[2],
+                                             const float* brow, int k0, int Lk,
+                                             int t, uint32_t keep,
+                                             float scale_log2,
+                                             const DropoutParams& dp) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    // the bias of keys 8 j + 2 t and + 1, base 2
+    float kbias[2] = {};
+    if constexpr (BIAS) {
+      kbias[0] = key_bias_at(brow, k0 + 8 * j + 2 * t, Lk, kLog2e);
+      kbias[1] = key_bias_at(brow, k0 + 8 * j + 2 * t + 1, Lk, kLog2e);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2_approx(fmaf(
+          s[j][e], scale_log2, BIAS ? kbias[e & 1] - lr[e >> 1] : -lr[e >> 1]));
+      float z = 1.f;
+      if constexpr (DROPOUT)
+        z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
+      s[j][e] = p * ((DROPOUT ? dp_[j][e] * z : dp_[j][e]) - dl[e >> 1]);
+    }
+  }
+}
+
+// dQ += dS K_j for a warp's 16 query rows: dS from the registers, split in
+// hi + lo, against K by ldmatrix.trans, `steps` k16 steps of K's columns.
+template <typename C>
+__device__ __forceinline__ void bf16_dq_tile(const float (&s)[C::NB][4],
+                                             const bf16* Ks,
+                                             float (&acc)[C::ND][4], int k0,
+                                             int Lk, int steps, int lane) {
+  const int off_a = lane_off_a(lane, C::S);
+#pragma unroll
+  for (int c = 0; c < C::NB / 2; ++c) {
+    if (k0 + 16 * c >= Lk) break;
+    uint32_t hi[4], lo[4];
+    split_a(s[2 * c], s[2 * c + 1], hi, lo);
+#pragma unroll
+    for (int np = 0; np < C::KD; ++np) {
+      if (np < steps) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Ks + 16 * c * C::S + 16 * np + off_a);
+        mma_bf16_split(acc[2 * np], hi, lo, b[0], b[1]);
+        mma_bf16_split(acc[2 * np + 1], hi, lo, b[2], b[3]);
+      }
+    }
+  }
+}
 
 template <int DMAX, int NW, int BK, bool DROPOUT, bool BIAS>
 __global__ void __launch_bounds__(32 * NW)
@@ -1010,43 +1183,511 @@ flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
+    bf16_ds_rows<C::NB, DROPOUT, BIAS>(s, dp_, lr, dl, brow, k0, Lk, t, keep,
+                                       scale_log2, dp);
+    bf16_dq_tile<C>(s, Ks, acc, k0, Lk, steps, lane);
+  }
+  if (row0 < Lq) store_acc(dq + head, acc, scale, row0, 0, Lq, d, lane);
+}
+
+template <typename T>
+int launch_delta(const T* o, const T* dout, float* delta, int rows, int d,
+                 cudaStream_t stream) {
+  const int rows_per_block = kDeltaThreads / 32;
+  flash_bwd_delta_kernel<T>
+      <<<(rows + rows_per_block - 1) / rows_per_block, kDeltaThreads, 0,
+         stream>>>(o, dout, delta, rows, d);
+  return (int)cudaGetLastError();
+}
+
+// dq (bh, Lq, d) from the float32 shares of `tiles` key tiles in `partial`
+template <typename T>
+int launch_dq_sum(const float* partial, T* dq, int bh, int Lq, int d,
+                  int tiles, cudaStream_t stream) {
+  const size_t head4 = (size_t)Lq * d / 4;
+  const size_t total4 = head4 * bh;
+  flash_bwd_dq_sum_kernel<T><<<(unsigned)((total4 + 255) / 256), 256, 0,
+                               stream>>>((const float4*)partial, dq, head4,
+                                         tiles, total4);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ head dimensions past 128
+// The wide forms (entries `flash_attn_bwd_wide`, `flash_attn_bwd_wide_bias`,
+// compiled in flash_attn_bwd_wide.cu and flash_attn_bwd_wide_bias.cu so that
+// the forms up to 128 stay as they were). Each block owns one block of
+// kWideCols columns of d (blockIdx.z, c0 = 128 z) of its outputs: dK_j, dV_j
+// and the dQ shares in the key-tile kernels, dQ_i in the dQ kernels. For
+// each tile pair it sums S = Q K^T and dP = dO V^T over all of d, 128
+// columns at a time through single Q, dO, K and V tiles, taking its own
+// columns last, so that they stay in shared memory for the products that
+// make its outputs: P and dS are computed in full by every column block (the
+// dropout mask has no column in it), and only the products with Q, dO and K
+// are split over the blocks. The geometry is that of the forms at DMAX 128:
+// float32 tiles of 64 (256 threads, four by four a thread); bf16 key tiles
+// of 64 (four warps) walking query tiles of 32, and the dQ kernel's four
+// warps of 16 query rows walking key tiles of 32. Simple first: every chunk
+// waits for its copies and Q, dO, K, V are read again for every tile pair.
+// What bounds it on an H100: as the forms up to 128, plus the chunk loop's
+// waits and the scores computed once for every column block.
+
+// The opt-in to more than 48 KiB of dynamic shared memory, once per kernel
+// and device.
+template <auto Kernel>
+int opt_in_once(size_t smem) {
+  static std::atomic<bool> done[kMaxDevices];
+  return opt_in(Kernel, done, smem);
+}
+
+// S = Q K^T and dP = dO V^T of one (query tile from q0, key tile from k0)
+// pair of head bh's rows (q_head, k_head: the head's first rows), summed over
+// all of d, 128 columns at a time through the four (64, 132) tiles; the
+// column block `own` comes last, so its tiles stay in shared memory. Every
+// thread of the block calls it.
+__device__ __forceinline__ void wide_scores(
+    float* Ks, float* Vs, float* Qs, float* dOs, const float* __restrict__ q,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, int q0, int k0, int Lq, int Lk, int d,
+    int own, int chunks, int ty, int tx, int tid, float (&s)[4][4],
+    float (&dpv)[4][4]) {
+  constexpr int BT = 64;
 #pragma unroll
-    for (int j = 0; j < C::NB; ++j) {
-      // the bias of keys 8 j + 2 t and + 1, base 2
-      float kbias[2] = {};
-      if constexpr (BIAS) {
-        kbias[0] = key_bias_at(brow, k0 + 8 * j + 2 * t, Lk, kLog2e);
-        kbias[1] = key_bias_at(brow, k0 + 8 * j + 2 * t + 1, Lk, kLog2e);
-      }
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // a key past Lk has K = V = 0: its dS meets a zero K row below
-        const float p = ex2_approx(fmaf(
-            s[j][e], scale_log2,
-            BIAS ? kbias[e & 1] - lr[e >> 1] : -lr[e >> 1]));
-        float z = 1.f;
-        if constexpr (DROPOUT)
-          z = (keep >> (4 * j + e)) & 1u ? dp.keep_scale : 0.f;
-        s[j][e] = p * ((DROPOUT ? dp_[j][e] * z : dp_[j][e]) - dl[e >> 1]);
+    for (int b = 0; b < 4; ++b) s[a][b] = dpv[a][b] = 0.f;
+  for (int j = 1; j <= chunks; ++j) {
+    const int c = (own + j) % chunks * kWideCols;
+    __syncthreads();  // every thread is past its reads of the tiles
+    request_tile_cols<kWideCols, BT>(Ks, k + c, k0, Lk, d, d - c, tid);
+    request_tile_cols<kWideCols, BT>(Vs, v + c, k0, Lk, d, d - c, tid);
+    request_tile_cols<kWideCols, BT>(Qs, q + c, q0, Lq, d, d - c, tid);
+    request_tile_cols<kWideCols, BT>(dOs, dout + c, q0, Lq, d, d - c, tid);
+    cp_async_wait_all();
+    __syncthreads();
+    float ps[4][4], pd[4][4];
+    rows_dot<kWideCols, BT>(Qs, Ks, ty, tx, ps);
+    rows_dot<kWideCols, BT>(dOs, Vs, ty, tx, pd);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] += ps[a][b];
+        dpv[a][b] += pd[a][b];
       }
+  }
+}
+
+template <bool WITH_DQ, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_out, float* __restrict__ dk,
+                           float* __restrict__ dv, int Lq, int Lk, int d,
+                           float scale, DropoutParams dp, KeyBias kb) {
+  constexpr int BT = 64;
+  using C = Cfg<kWideCols, BT>;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + C::TILE;
+  float* Qs = Vs + C::TILE;
+  float* dOs = Qs + C::TILE;
+  float* Ps = dOs + C::TILE;
+  float* dSs = Ps + C::STILE;
+  float* lse_s = dSs + C::STILE;
+  float* dl_s = lse_s + BT;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BT;
+  const int cb = blockIdx.z, chunks = gridDim.z;
+  const int c0 = cb * kWideCols;  // the block's columns
+  const int tid = threadIdx.x;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
+  const size_t head = (size_t)bh * Lq * d;    // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;   // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+
+  float dk_acc[4][C::DC] = {}, dv_acc[4][C::DC] = {};
+  float* dq_head = nullptr;
+  if constexpr (WITH_DQ)
+    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * Lq * d;
+
+  for (int q0 = 0; q0 < Lq; q0 += BT) {
+    // the last tile's readers of the row stats are past a barrier
+    load_row_stats<BT>(lse_s, dl_s, lse, delta, base, q0, Lq, tid);
+    float s[4][4], dpv[4][4];
+    wide_scores(Ks, Vs, Qs, dOs, q + head, k + khead, v + khead, dout + head,
+                q0, k0, Lq, Lk, d, cb, chunks, ty, tx, tid, s, dpv);
+    probs_from<kWideCols, BT, DROPOUT, BIAS>(s, dpv, lse_s, dl_s, Ps, dSs, ty,
+                                             tx, scale, dp, brow, Lk, bh, q0,
+                                             k0);
+    __syncthreads();  // P and dS are whole
+    dkdv_tile<kWideCols, BT>(Ps, dSs, Qs, dOs, ty, tx, dk_acc, dv_acc);
+    if constexpr (WITH_DQ) {
+      float acc[4][C::DC] = {};
+      dq_product<kWideCols, BT>(dSs, Ks, ty, tx, acc);
+      store_rows_cols<kWideCols, BT>(dq_head + c0, acc, q0, Lq, d, d - c0, ty,
+                                     tx);
     }
+  }
+  store_key_rows<kWideCols, BT>(dk + khead + c0, dv + khead + c0, dk_acc,
+                                dv_acc, k0, Lk, d, d - c0, ty, tx);
+}
+
+// The two-kernel form's dQ, wide: one block per (head, query tile, 128
+// columns) walks the key tiles.
+template <bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int Lq, int Lk, int d,
+                         float scale, DropoutParams dp, KeyBias kb) {
+  constexpr int BT = 64;
+  using C = Cfg<kWideCols, BT>;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + C::TILE;
+  float* Qs = Vs + C::TILE;
+  float* dOs = Qs + C::TILE;
+  float* dSs = dOs + C::TILE;
+  float* lse_s = dSs + C::STILE;
+  float* dl_s = lse_s + BT;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * BT;
+  const int cb = blockIdx.z, chunks = gridDim.z;
+  const int c0 = cb * kWideCols;
+  const int tid = threadIdx.x;
+  const int tx = tid % C::TX;
+  const int ty = tid / C::TX;
+  const size_t head = (size_t)bh * Lq * d;
+  const size_t khead = (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+
+  load_row_stats<BT>(lse_s, dl_s, lse, delta, (size_t)bh * Lq, q0, Lq, tid);
+  float acc[4][C::DC] = {};
+  for (int k0 = 0; k0 < Lk; k0 += BT) {
+    float s[4][4], dpv[4][4];
+    wide_scores(Ks, Vs, Qs, dOs, q + head, k + khead, v + khead, dout + head,
+                q0, k0, Lq, Lk, d, cb, chunks, ty, tx, tid, s, dpv);
+    probs_from<kWideCols, BT, DROPOUT, BIAS>(s, dpv, lse_s, dl_s, nullptr,
+                                             dSs, ty, tx, scale, dp, brow, Lk,
+                                             bh, q0, k0);
+    __syncthreads();  // dS is whole
+    dq_product<kWideCols, BT>(dSs, Ks, ty, tx, acc);
+  }
+  store_rows_cols<kWideCols, BT>(dq + head + c0, acc, q0, Lq, d, d - c0, ty,
+                                 tx);
+}
+
+// bf16, wide: key tiles of 64 (four warps of 16 keys) walking query tiles of
+// 32; dq_out as flash_bwd_bf16_kv_kernel's.
+template <typename DQ, bool WITH_DQ, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(128)
+flash_bwd_bf16_kv_wide_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              DQ* __restrict__ dq_out, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int Lq, int Lk, int d,
+                              float scale, DropoutParams dp, KeyBias kb) {
+  constexpr int BT = 64, BQ = 32;
+  using C = Bf16Cfg<kWideCols, BT, BQ>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* Vs = Ks + BT * C::S;
+  bf16* Qs = Vs + BT * C::S;
+  bf16* dOs = Qs + BQ * C::S;
+  bf16* dSh = dOs + BQ * C::S;  // dS^T as hi + lo, (BT, BQ + 8)
+  bf16* dSl = dSh + BT * C::SQ;
+  float* lse_s = reinterpret_cast<float*>(dSl + BT * C::SQ);
+  float* dl_s = lse_s + BQ;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BT;
+  const int cb = blockIdx.z, chunks = gridDim.z;
+  const int c0 = cb * kWideCols;  // the block's columns
+  const int own_steps = min(C::KD, (d - c0) >> 4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = 16 * warp;  // the warp's keys: k0 + kw + g, + 8
+  const bool live = k0 + kw < Lk;
+  const float scale_log2 = scale * kLog2e;
+  float kbias[2] = {};
+  if constexpr (BIAS) {
+    const float* brow = key_bias_row(kb, bh, Lk);
+    kbias[0] = key_bias_at(brow, k0 + kw + g, Lk, kLog2e);
+    kbias[1] = key_bias_at(brow, k0 + kw + g + 8, Lk, kLog2e);
+  }
+  const size_t head = (size_t)bh * Lq * d;    // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;   // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+  DQ* dq_head = nullptr;
+  if constexpr (WITH_DQ)
+    dq_head = dq_out + ((size_t)bh * gridDim.y + blockIdx.y) * Lq * d;
+
+  float dk_acc[C::ND][4] = {}, dv_acc[C::ND][4] = {};
+  for (int q0 = 0; q0 < Lq; q0 += BQ) {
+    float st[C::NB][4] = {}, dpt[C::NB][4] = {};
+    for (int j = 1; j <= chunks; ++j) {
+      const int c = (cb + j) % chunks * kWideCols;  // the block's own last
+      const int steps = min(C::KD, (d - c) >> 4);
+      __syncthreads();  // every warp is past its reads of the tiles
+      request_bf16_cols<kWideCols, BT, C::NT>(Ks, k + khead + c, k0, Lk, d,
+                                              d - c, tid);
+      request_bf16_cols<kWideCols, BT, C::NT>(Vs, v + khead + c, k0, Lk, d,
+                                              d - c, tid);
+      request_bf16_cols<kWideCols, BQ, C::NT>(Qs, q + head + c, q0, Lq, d,
+                                              d - c, tid);
+      request_bf16_cols<kWideCols, BQ, C::NT>(dOs, dout + head + c, q0, Lq, d,
+                                              d - c, tid);
+      if (j == 1)
+        request_row_stats<BQ, C::NT>(lse_s, dl_s, lse, delta, base, q0, Lq,
+                                     tid);
+      cp_async_commit_group();
+      cp_async_wait_groups();
+      if (j == 1) base2_row_stats<BQ, C::NT>(lse_s, q0, Lq, tid);
+      __syncthreads();
+      if (!live) continue;
+      // S^T = K Q^T and dP^T = V dO^T over these columns, keys along the rows
 #pragma unroll
-    for (int c = 0; c < C::NB / 2; ++c) {
-      if (k0 + 16 * c >= Lk) break;
-      uint32_t hi[4], lo[4];
-      split_a(s[2 * c], s[2 * c + 1], hi, lo);
+      for (int kk = 0; kk < C::KD; ++kk) {
+        if (kk < steps) {
+          uint32_t ak[4], av[4];
+          ldmatrix_x4(ak, Ks + kw * C::S + 16 * kk + off_a);
+          ldmatrix_x4(av, Vs + kw * C::S + 16 * kk + off_a);
 #pragma unroll
-      for (int np = 0; np < C::KD; ++np) {
-        if (np < steps) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, Ks + 16 * c * C::S + 16 * np + off_a);
-          mma_bf16_split(acc[2 * np], hi, lo, b[0], b[1]);
-          mma_bf16_split(acc[2 * np + 1], hi, lo, b[2], b[3]);
+          for (int jj = 0; jj < C::NB / 2; ++jj) {
+            uint32_t b[4];
+            ldmatrix_x4(b, Qs + 16 * jj * C::S + 16 * kk + off_b);
+            mma_bf16(st[2 * jj], ak, b[0], b[1]);
+            mma_bf16(st[2 * jj + 1], ak, b[2], b[3]);
+            ldmatrix_x4(b, dOs + 16 * jj * C::S + 16 * kk + off_b);
+            mma_bf16(dpt[2 * jj], av, b[0], b[1]);
+            mma_bf16(dpt[2 * jj + 1], av, b[2], b[3]);
+          }
         }
       }
     }
+    if (live) {
+      uint32_t keep = 0;
+      if constexpr (DROPOUT)
+        keep = dropout_keep_bits_cols<C::NB>(dp, bh, k0 + kw, q0, lane);
+      bf16_probs_t<C::NB, DROPOUT, BIAS>(st, dpt, lse_s, dl_s, kbias, keep, t,
+                                         scale_log2, dp);
+      bf16_dkdv_tile<C, WITH_DQ>(st, dpt, Qs, dOs, dSh, dSl, dk_acc, dv_acc,
+                                 kw, q0, Lq, own_steps, lane);
+    }
+    if constexpr (WITH_DQ) {
+      __syncthreads();  // dS^T is whole
+      bf16_dq_share<C>(dSh, dSl, Ks, dq_head + c0, scale, k0, Lk, q0, Lq, d,
+                       d - c0, own_steps, warp, lane);
+    }
   }
-  if (row0 < Lq) store_acc(dq + head, acc, scale, row0, 0, Lq, d, lane);
+  if (live) {
+    store_acc_cols(dk + khead + c0, dk_acc, scale, k0 + kw, 0, Lk, d, d - c0,
+                   lane);
+    store_acc_cols(dv + khead + c0, dv_acc, 1.f, k0 + kw, 0, Lk, d, d - c0,
+                   lane);
+  }
+}
+
+// bf16, wide, the two-kernel form's dQ: four warps of 16 query rows walking
+// key tiles of 32.
+template <bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(128)
+flash_bwd_bf16_dq_wide_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dq, int Lq, int Lk, int d,
+                              float scale, DropoutParams dp, KeyBias kb) {
+  constexpr int BK = 32;
+  using C = Bf16DqCfg<kWideCols, 4, BK>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* dOs = Qs + C::BQ * C::S;
+  bf16* Ks = dOs + C::BQ * C::S;
+  bf16* Vs = Ks + BK * C::S;
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * C::BQ;
+  const int cb = blockIdx.z, chunks = gridDim.z;
+  const int c0 = cb * kWideCols;
+  const int own_steps = min(C::KD, (d - c0) >> 4);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, + 8
+  const int t = lane & 3;
+  const size_t head = (size_t)bh * Lq * d;
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+  const float scale_log2 = scale * kLog2e;
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    lr[r] = row < Lq ? kLog2e * lse[(size_t)bh * Lq + row] : INFINITY;
+    dl[r] = row < Lq ? delta[(size_t)bh * Lq + row] : 0.f;
+  }
+  float acc[C::ND][4] = {};
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    float s[C::NB][4] = {}, dp_[C::NB][4] = {};
+    for (int j = 1; j <= chunks; ++j) {
+      const int c = (cb + j) % chunks * kWideCols;  // the block's own last
+      const int steps = min(C::KD, (d - c) >> 4);
+      __syncthreads();  // every warp is past its reads of the tiles
+      request_bf16_cols<kWideCols, C::BQ, C::NT>(Qs, q + head + c, q0, Lq, d,
+                                                 d - c, tid);
+      request_bf16_cols<kWideCols, C::BQ, C::NT>(dOs, dout + head + c, q0, Lq,
+                                                 d, d - c, tid);
+      request_bf16_cols<kWideCols, BK, C::NT>(Ks, kh + c, k0, Lk, d, d - c,
+                                              tid);
+      request_bf16_cols<kWideCols, BK, C::NT>(Vs, vh + c, k0, Lk, d, d - c,
+                                              tid);
+      cp_async_commit_group();
+      cp_async_wait_groups();
+      __syncthreads();
+      if (row0 >= Lq) continue;  // no real row: only the barriers
+#pragma unroll
+      for (int kk = 0; kk < C::KD; ++kk) {
+        if (kk < steps) {
+          uint32_t qf[4], dof[4];
+          ldmatrix_x4(qf, Qs + 16 * warp * C::S + 16 * kk + off_a);
+          ldmatrix_x4(dof, dOs + 16 * warp * C::S + 16 * kk + off_a);
+#pragma unroll
+          for (int jj = 0; jj < C::NB / 2; ++jj) {
+            uint32_t b[4];
+            ldmatrix_x4(b, Ks + 16 * jj * C::S + 16 * kk + off_b);
+            mma_bf16(s[2 * jj], qf, b[0], b[1]);
+            mma_bf16(s[2 * jj + 1], qf, b[2], b[3]);
+            ldmatrix_x4(b, Vs + 16 * jj * C::S + 16 * kk + off_b);
+            mma_bf16(dp_[2 * jj], dof, b[0], b[1]);
+            mma_bf16(dp_[2 * jj + 1], dof, b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (row0 >= Lq) continue;
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits_rows<C::NB>(dp, bh, row0, k0, lane);
+    bf16_ds_rows<C::NB, DROPOUT, BIAS>(s, dp_, lr, dl, brow, k0, Lk, t, keep,
+                                       scale_log2, dp);
+    bf16_dq_tile<C>(s, Ks, acc, k0, Lk, own_steps, lane);
+  }
+  if (row0 < Lq)
+    store_acc_cols(dq + head + c0, acc, scale, row0, 0, Lq, d, d - c0, lane);
+}
+
+// The wide forms' launches: delta, then the key-tile kernel over (head, key
+// tile of 64, 128 columns), fused (dq itself with one key tile, else shares
+// summed into dq) or followed by the dQ kernel.
+template <bool DROPOUT, bool BIAS>
+int launch_wide(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* delta,
+                float* partial, void* dq, void* dk, void* dv, int bh, int Lq,
+                int Lk, int d, float scale, int fused, int bf16_form,
+                const DropoutParams& dp, const KeyBias& kb,
+                cudaStream_t stream) {
+  constexpr int BT = 64;
+  const int tiles = (Lk + BT - 1) / BT;  // key tiles
+  if (fused && tiles > 1 && partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(bh, tiles, (d + kWideCols - 1) / kWideCols);
+  int rc;
+  if (bf16_form) {
+    using C = Bf16Cfg<kWideCols, BT, 32>;
+    using CQ = Bf16DqCfg<kWideCols, 4, 32>;
+    constexpr size_t smem =
+        sizeof(bf16) * ((size_t)(2 * BT + 2 * 32) * C::S +
+                        2 * (size_t)BT * C::SQ) +
+        sizeof(float) * 2 * 32;
+    constexpr size_t smem_dq = sizeof(bf16) * (size_t)(2 * CQ::BQ + 2 * 32) *
+                               CQ::S;
+    const bf16 *qb = (const bf16*)q, *kbp = (const bf16*)k,
+               *vb = (const bf16*)v, *db = (const bf16*)dout;
+    rc = launch_delta<bf16>((const bf16*)o, db, delta, bh * Lq, d, stream);
+    if (rc != 0) return rc;
+    if (fused && tiles == 1) {  // dq itself
+      constexpr auto kernel =
+          flash_bwd_bf16_kv_wide_kernel<bf16, true, DROPOUT, BIAS>;
+      if ((rc = opt_in_once<kernel>(smem)) != 0) return rc;
+      kernel<<<grid, C::NT, smem, stream>>>(qb, kbp, vb, db, lse, delta,
+                                            (bf16*)dq, (bf16*)dk, (bf16*)dv,
+                                            Lq, Lk, d, scale, dp, kb);
+      return (int)cudaGetLastError();
+    }
+    if (fused) {  // float32 shares, summed into dq in tile order
+      constexpr auto kernel =
+          flash_bwd_bf16_kv_wide_kernel<float, true, DROPOUT, BIAS>;
+      if ((rc = opt_in_once<kernel>(smem)) != 0) return rc;
+      kernel<<<grid, C::NT, smem, stream>>>(qb, kbp, vb, db, lse, delta,
+                                            partial, (bf16*)dk, (bf16*)dv, Lq,
+                                            Lk, d, scale, dp, kb);
+      if ((rc = (int)cudaGetLastError()) != 0) return rc;
+      return launch_dq_sum<bf16>(partial, (bf16*)dq, bh, Lq, d, tiles, stream);
+    }
+    constexpr auto kv =
+        flash_bwd_bf16_kv_wide_kernel<bf16, false, DROPOUT, BIAS>;
+    constexpr auto dq_kernel = flash_bwd_bf16_dq_wide_kernel<DROPOUT, BIAS>;
+    if ((rc = opt_in_once<kv>(smem)) != 0) return rc;
+    if ((rc = opt_in_once<dq_kernel>(smem_dq)) != 0) return rc;
+    kv<<<grid, C::NT, smem, stream>>>(qb, kbp, vb, db, lse, delta,
+                                      (bf16*)nullptr, (bf16*)dk, (bf16*)dv, Lq,
+                                      Lk, d, scale, dp, kb);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    dq_kernel<<<dim3(bh, (Lq + CQ::BQ - 1) / CQ::BQ, grid.z), CQ::NT, smem_dq,
+                stream>>>(qb, kbp, vb, db, lse, delta, (bf16*)dq, Lq, Lk, d,
+                          scale, dp, kb);
+    return (int)cudaGetLastError();
+  }
+  using C = Cfg<kWideCols, BT>;
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v, *df = (const float*)dout;
+  rc = launch_delta<float>((const float*)o, df, delta, bh * Lq, d, stream);
+  if (rc != 0) return rc;
+  if (fused) {  // dq itself with one key tile, else shares summed into dq
+    constexpr auto kernel = flash_bwd_dkdv_wide_kernel<true, DROPOUT, BIAS>;
+    if ((rc = opt_in_once<kernel>(C::SMEM_DKDV)) != 0) return rc;
+    kernel<<<grid, C::NT, C::SMEM_DKDV, stream>>>(
+        qf, kf, vf, df, lse, delta, tiles == 1 ? (float*)dq : partial,
+        (float*)dk, (float*)dv, Lq, Lk, d, scale, dp, kb);
+    if ((rc = (int)cudaGetLastError()) != 0 || tiles == 1) return rc;
+    return launch_dq_sum<float>(partial, (float*)dq, bh, Lq, d, tiles, stream);
+  }
+  constexpr auto dkdv = flash_bwd_dkdv_wide_kernel<false, DROPOUT, BIAS>;
+  constexpr auto dq_kernel = flash_bwd_dq_wide_kernel<DROPOUT, BIAS>;
+  if ((rc = opt_in_once<dkdv>(C::SMEM_DKDV)) != 0) return rc;
+  if ((rc = opt_in_once<dq_kernel>(C::SMEM_DKDV)) != 0) return rc;
+  dkdv<<<grid, C::NT, C::SMEM_DKDV, stream>>>(qf, kf, vf, df, lse, delta,
+                                              nullptr, (float*)dk, (float*)dv,
+                                              Lq, Lk, d, scale, dp, kb);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  dq_kernel<<<dim3(bh, (Lq + BT - 1) / BT, grid.z), C::NT, C::SMEM_DKDV,
+              stream>>>(qf, kf, vf, df, lse, delta, (float*)dq, Lq, Lk, d,
+                        scale, dp, kb);
+  return (int)cudaGetLastError();
 }
 
 template <int DMAX, int BT, bool DROPOUT, bool BIAS>
@@ -1061,18 +1702,14 @@ int launch(const float* q, const float* k, const float* v, const float* o,
   const int tiles = (Lk + BT - 1) / BT;  // key tiles
   if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
-  const int rows = bh * Lq;
-  const int rows_per_block = kDeltaThreads / 32;
-  flash_bwd_delta_kernel<float>
-      <<<(rows + rows_per_block - 1) / rows_per_block, kDeltaThreads, 0,
-         stream>>>(o, dout, delta, rows, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc = launch_delta<float>(o, dout, delta, bh * Lq, d, stream);
+  if (rc != 0) return rc;
 
   const dim3 grid(bh, tiles);
+  cudaError_t err;
   if (fused) {  // dq itself with one key tile, else shares summed into dq
-    int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>,
-                    opted_fused, C::SMEM_DKDV);
+    rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>,
+                opted_fused, C::SMEM_DKDV);
     if (rc != 0) return rc;
     flash_bwd_dkdv_kernel<DMAX, BT, true, DROPOUT, BIAS>
         <<<grid, C::NT, C::SMEM_DKDV, stream>>>(
@@ -1080,15 +1717,10 @@ int launch(const float* q, const float* k, const float* v, const float* o,
             Lk, d, scale, dp, kb);
     err = cudaGetLastError();
     if (err != cudaSuccess || tiles == 1) return (int)err;
-    const size_t head4 = (size_t)Lq * d / 4;
-    const size_t total4 = head4 * bh;
-    flash_bwd_dq_sum_kernel<float>
-        <<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-            (const float4*)partial, dq, head4, tiles, total4);
-    return (int)cudaGetLastError();
+    return launch_dq_sum<float>(partial, dq, bh, Lq, d, tiles, stream);
   }
-  int rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT, BIAS>, opted_dkdv,
-                  C::SMEM_DKDV);
+  rc = opt_in(flash_bwd_dkdv_kernel<DMAX, BT, false, DROPOUT, BIAS>, opted_dkdv,
+              C::SMEM_DKDV);
   if (rc != 0) return rc;
   rc = opt_in(flash_bwd_dq_kernel<DMAX, BT, DROPOUT, BIAS>, opted_dq, C::SMEM_DQ);
   if (rc != 0) return rc;
@@ -1142,18 +1774,14 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   const int tiles = (Lk + BT - 1) / BT;  // key tiles
   if (fused && tiles > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
-  const int rows = bh * Lq;
-  const int rows_per_block = kDeltaThreads / 32;
-  flash_bwd_delta_kernel<bf16>
-      <<<(rows + rows_per_block - 1) / rows_per_block, kDeltaThreads, 0,
-         stream>>>(o, dout, delta, rows, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc = launch_delta<bf16>(o, dout, delta, bh * Lq, d, stream);
+  if (rc != 0) return rc;
 
   const dim3 grid(bh, tiles);
+  cudaError_t err;
   if (fused && tiles == 1) {  // dq itself
     auto kernel = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, true, DROPOUT, BIAS>;
-    const int rc = opt_in(kernel, opted_one, C::SMEM);
+    rc = opt_in(kernel, opted_one, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta, dq,
                                              dk, dv, Lq, Lk, d, scale, dp, kb);
@@ -1162,24 +1790,19 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   if (fused) {  // float32 shares, summed into dq in tile order
     auto kernel = flash_bwd_bf16_kv_kernel<float, DMAX, BT, BQ, true, DROPOUT,
                                            BIAS>;
-    const int rc = opt_in(kernel, opted_fused, C::SMEM);
+    rc = opt_in(kernel, opted_fused, C::SMEM);
     if (rc != 0) return rc;
     kernel<<<grid, C::NT, C::SMEM, stream>>>(q, k, v, dout, lse, delta,
                                              partial, dk, dv, Lq, Lk, d, scale,
                                              dp, kb);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const size_t head4 = (size_t)Lq * d / 4;
-    const size_t total4 = head4 * bh;
-    flash_bwd_dq_sum_kernel<bf16>
-        <<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-            (const float4*)partial, dq, head4, tiles, total4);
-    return (int)cudaGetLastError();
+    return launch_dq_sum<bf16>(partial, dq, bh, Lq, d, tiles, stream);
   }
   auto kv = flash_bwd_bf16_kv_kernel<bf16, DMAX, BT, BQ, false, DROPOUT, BIAS>;
   auto dq_kernel = flash_bwd_bf16_dq_kernel<DMAX, kDqWarps, kDqKeys, DROPOUT,
                                             BIAS>;
-  int rc = opt_in(kv, opted_kv, C::SMEM);
+  rc = opt_in(kv, opted_kv, C::SMEM);
   if (rc != 0) return rc;
   rc = opt_in(dq_kernel, opted_dq, CQ::SMEM);
   if (rc != 0) return rc;
@@ -1245,6 +1868,31 @@ int backward(const void* q, const void* k, const void* v, const void* o,
            kb, (cudaStream_t)stream);
 }
 
+// The checks of the wide entries: d past 128, a multiple of 8 (bf16: 16),
+// tiles of 64.
+template <bool BIAS>
+int backward_wide(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const void* lse, void* delta,
+                  void* partial, void* dq, void* dk, void* dv, int bh, int Lq,
+                  int Lk, int d, float scale, int tile, int fused, int dropout,
+                  unsigned threshold, float keep_scale,
+                  unsigned long long seed, const unsigned* grid,
+                  int bf16_form, const KeyBias& kb, void* stream) {
+  const bool ok = Lq >= 1 && Lk >= 1 && d > 128 && tile == 64 &&
+                  d % (bf16_form ? 16 : 8) == 0;
+  if (!ok || (BIAS && (kb.ptr == nullptr || kb.heads < 1 || bh % kb.heads)))
+    return (int)cudaErrorInvalidValue;
+  if (dropout && (grid[0] < 1 || bh % grid[0]))
+    return (int)cudaErrorInvalidValue;
+  const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
+                         (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
+                         grid[3], grid[4]};
+  auto f = dropout ? &launch_wide<true, BIAS> : &launch_wide<false, BIAS>;
+  return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
+           (float*)partial, dq, dk, dv, bh, Lq, Lk, d, scale, fused,
+           bf16_form, dp, kb, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // q, o, dout, dq: (bh, Lq, d) and k, v, dk, dv: (bh, Lk, d), contiguous,
@@ -1253,13 +1901,15 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 // (bh, Lq) float32; `partial` float32. float32 (`bf16_form` == 0): d % 8 ==
 // 0, d <= 128, `tile` (the tile height of queries and keys) 64, or 32 for d
 // <= 64. bfloat16 (`bf16_form` != 0): d % 16 == 0, d <= 128, `tile` 64, or
-// 16 for d <= 64. `fused` != 0 takes the one-pass form, which needs the
-// scratch `partial` (bh, ceil(Lk / tile), Lq, d) when Lk > tile; `fused` ==
-// 0 the two-kernel form (`partial` unused). `dropout` != 0 takes the dropout
-// form with the forward's `threshold`, `keep_scale`, `seed`, head grid
-// (heads, total_heads, batch0, head0) and first global query row `row0`
-// (flash_attn.cu). Returns the CUDA error of the launches.
-#ifndef DMC_FLASH_BIAS_FORMS
+// 16 for d <= 64. A wider d takes `flash_attn_bwd_wide`
+// (flash_attn_bwd_wide.cu), with the same arguments. `fused` != 0 takes the
+// one-pass form, which needs the scratch `partial` (bh, ceil(Lk / tile), Lq,
+// d) when Lk > tile; `fused` == 0 the two-kernel form (`partial` unused).
+// `dropout` != 0 takes the dropout form with the forward's `threshold`,
+// `keep_scale`, `seed`, head grid (heads, total_heads, batch0, head0) and
+// first global query row `row0` (flash_attn.cu). Returns the CUDA error of
+// the launches.
+#if !defined(DMC_FLASH_BIAS_FORMS) && !defined(DMC_FLASH_WIDE_FORMS)
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const void* lse,
                               void* delta, void* partial, void* dq, void* dk,
@@ -1276,7 +1926,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                          keep_scale, seed, grid, bf16_form,
                          KeyBias{nullptr, 1}, stream);
 }
-#else
+#elif !defined(DMC_FLASH_WIDE_FORMS)
 // flash_attn_bwd with the forward's per-key bias (key_bias.cuh): float32
 // (bh / bias_heads, Lk), row bh / bias_heads for head bh; `bias_heads`
 // divides bh. lse is the forward's, which includes the bias.
@@ -1298,5 +1948,40 @@ extern "C" int flash_attn_bwd_bias(const void* q, const void* k,
                         Lq, Lk, d, scale, tile, fused, dropout, threshold,
                         keep_scale, seed, grid, bf16_form,
                         KeyBias{(const float*)bias, bias_heads}, stream);
+}
+#elif !defined(DMC_FLASH_BIAS_FORMS)
+// flash_attn_bwd's arguments at d > 128 (d % 8 == 0, bf16 d % 16 == 0;
+// `tile` 64; `partial` (bh, ceil(Lk / 64), Lq, d) when fused and Lk > 64):
+// the wide forms.
+extern "C" int flash_attn_bwd_wide(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* partial, void* dq,
+    void* dk, void* dv, int bh, int Lq, int Lk, int d, float scale, int tile,
+    int fused, int dropout, unsigned threshold, float keep_scale,
+    unsigned long long seed, unsigned heads, unsigned total_heads,
+    unsigned batch0, unsigned head0, unsigned row0, int bf16_form,
+    void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return backward_wide<false>(q, k, v, o, dout, lse, delta, partial, dq, dk,
+                              dv, bh, Lq, Lk, d, scale, tile, fused, dropout,
+                              threshold, keep_scale, seed, grid, bf16_form,
+                              KeyBias{nullptr, 1}, stream);
+}
+#else
+// flash_attn_bwd_bias's arguments at d > 128: the wide forms with the key
+// bias.
+extern "C" int flash_attn_bwd_wide_bias(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* partial, void* dq,
+    void* dk, void* dv, int bh, int Lq, int Lk, int d, float scale, int tile,
+    int fused, int dropout, unsigned threshold, float keep_scale,
+    unsigned long long seed, unsigned heads, unsigned total_heads,
+    unsigned batch0, unsigned head0, unsigned row0, int bf16_form,
+    const void* bias, int bias_heads, void* stream) {
+  const unsigned grid[5] = {heads, total_heads, batch0, head0, row0};
+  return backward_wide<true>(q, k, v, o, dout, lse, delta, partial, dq, dk, dv,
+                             bh, Lq, Lk, d, scale, tile, fused, dropout,
+                             threshold, keep_scale, seed, grid, bf16_form,
+                             KeyBias{(const float*)bias, bias_heads}, stream);
 }
 #endif

@@ -37,6 +37,11 @@
 // gamma_0 = dL/dh_in, written out. A stated scan always saves its block
 // states, under gradient checkpointing too (the recompute keeps them only
 // inside its window), so there is no stated K7.
+// Any N: past 32 states every entry runs its kernels once per chunk of 32,
+// in turn, each adding its share to dx and ddt and writing its own columns
+// of dA, dB, dC and dh_in (`for_state_chunks`, selective_scan_common.cuh);
+// K7 rebuilds a chunk's block states in the same shared memory or scratch
+// for each chunk.
 
 #include <atomic>
 
@@ -60,7 +65,8 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ bound, float* __restrict__ dx,
                 float* __restrict__ ddt, float* __restrict__ da_rows,
                 float* __restrict__ partial, const float* __restrict__ g_hout,
-                float* __restrict__ dh_in, int L, int D, int N, int T) {
+                float* __restrict__ dh_in, int L, int D, int N, int NS, int T,
+                bool acc) {
   constexpr int SPL = BwdShape<NMAX>::SPL;
   __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
@@ -70,10 +76,10 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
   const int n_blocks = (L + T - 1) / T;
-  const size_t state = ((size_t)b * D + d) * N;  // (b, d, 0) of a state
+  const size_t state = ((size_t)b * D + d) * NS;  // (b, d, 0) of a state
 
   float a_coef[SPL], phi[SPL], da[SPL];
-  load_a_lane<SPL>(a_coef, A, d, q, N, active);
+  load_a_lane<SPL>(a_coef, A, d, q, N, NS, active);
   // the adjoint entering the last step: the cotangent of h_out, or none
   if (g_hout != nullptr)
     load_lane_states<SPL>(phi, g_hout + (active ? state : 0), 1, q, N,
@@ -84,17 +90,18 @@ scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     da[i] = 0.f;
   }
   scan_bwd_range<NMAX, HAS_G>(
-      x, dt, Bm, Cm, g, bound + (size_t)b * n_blocks * N * D + d,
-      (size_t)N * D, (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
-      tile, gridDim.x, d0, active, L, D, N, T, 0, L);
+      x, dt, Bm, Cm, g, bound + (size_t)b * n_blocks * NS * D + d,
+      (size_t)NS * D, (size_t)D, dx, ddt, partial, a_coef, phi, da, sm, b,
+      tile, gridDim.x, d0, active, L, D, N, NS, T, 0, L, acc);
   if (active) {
     store_lane_states<SPL>(da_rows + state, 1, da, q, N);
     if (dh_in != nullptr) store_lane_states<SPL>(dh_in + state, 1, phi, q, N);
   }
 }
 
-// K7. `scratch` is (batch, n_blocks, N, D) in device memory, or null: the
-// block states then live in dynamic shared memory, (n_blocks, N, 64).
+// K7. `scratch` is (batch, n_blocks, NS, D) in device memory, or null: the
+// block states of the chunk's N states then live in dynamic shared memory,
+// (n_blocks, N, 64).
 template <int NMAX>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 scan_bwd_nostate_kernel(const float* __restrict__ x,
@@ -106,7 +113,7 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
                         float* __restrict__ dx, float* __restrict__ ddt,
                         float* __restrict__ da_rows,
                         float* __restrict__ partial, int L, int D, int N,
-                        int T) {
+                        int NS, int T, bool acc) {
   constexpr int SPL = BwdShape<NMAX>::SPL;
   extern __shared__ float bound_smem[];
   __shared__ BwdShared<NMAX> sm;
@@ -123,8 +130,8 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
   float* col;
   size_t stride_k, stride_n;
   if (scratch != nullptr) {
-    col = scratch + (size_t)b * n_blocks * N * D + d;
-    stride_k = (size_t)N * D;
+    col = scratch + (size_t)b * n_blocks * NS * D + d;
+    stride_k = (size_t)NS * D;
     stride_n = (size_t)D;
   } else {
     col = bound_smem + ch;
@@ -133,7 +140,7 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
   }
 
   float a_coef[SPL], phi[SPL], da[SPL];
-  load_a_lane<SPL>(a_coef, A, d, q, N, active);
+  load_a_lane<SPL>(a_coef, A, d, q, N, NS, active);
   // phase 1: the state entering each time block; phi holds h meanwhile
 #pragma unroll
   for (int i = 0; i < SPL; ++i) phi[i] = 0.f;
@@ -143,7 +150,7 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
     if (k + 1 < n_blocks) {
       __syncthreads();  // the previous time block's staged steps are read
       stage_time_block<NMAX>(sm, x, dt, nullptr, Bm, nullptr, row, k * T, T,
-                             d0, D, N);
+                             d0, D, N, NS);
       __syncthreads();
       advance_staged<NMAX>(sm, a_coef, phi, q, ch, 0, T);
     }
@@ -156,33 +163,52 @@ scan_bwd_nostate_kernel(const float* __restrict__ x,
   }
   scan_bwd_range<NMAX>(x, dt, Bm, Cm, g, col, stride_k, stride_n, dx, ddt,
                        partial, a_coef, phi, da, sm, b, tile, gridDim.x, d0,
-                       active, L, D, N, T, 0, L);
+                       active, L, D, N, NS, T, 0, L, acc);
   if (active)
-    store_lane_states<SPL>(da_rows + ((size_t)b * D + d) * N, 1, da, q, N);
+    store_lane_states<SPL>(da_rows + ((size_t)b * D + d) * NS, 1, da, q, N);
 }
 
+// dB then dC of a step in `partial`: 2 NMAX of the (first) chunk
 int width_for(int N) { return N <= 16 ? 32 : 64; }
 
+// K7's block states of the largest chunk of N states in shared memory
 size_t shared_bound_bytes(int L, int N, int T) {
-  return (size_t)((L + T - 1) / T) * N * kBwdChannels * sizeof(float);
+  const int chunk = N < kStateChunk ? N : kStateChunk;
+  return (size_t)((L + T - 1) / T) * chunk * kBwdChannels * sizeof(float);
 }
 
-// g null: the state-only form's backward (no cotangent of y).
+// g null: the state-only form's backward (no cotangent of y). One chunk:
+// states n0 .. n0 + N - 1 of NS.
 template <int NMAX>
 int launch(const float* x, const float* dt, const float* A, const float* B,
            const float* C, const float* g, const float* bound, float* dx,
            float* ddt, float* da_rows, float* dB, float* dC, float* partial,
-           const float* g_hout, float* dh_in, int batch, int L, int D, int N,
-           int T, cudaStream_t stream) {
+           const float* g_hout, float* dh_in, int batch, int L, int D, int n0,
+           int N, int NS, int T, cudaStream_t stream) {
   const dim3 grid(bwd_tiles_for(D), batch);
   auto kernel = g != nullptr ? &scan_bwd_kernel<NMAX, true>
                              : &scan_bwd_kernel<NMAX, false>;
-  kernel<<<grid, kBwdThreads, 0, stream>>>(x, dt, A, B, C, g, bound, dx, ddt,
-                                           da_rows, partial, g_hout, dh_in, L,
-                                           D, N, T);
+  kernel<<<grid, kBwdThreads, 0, stream>>>(
+      x, dt, A + n0, B + n0, C + n0, g, bound + (size_t)n0 * D, dx, ddt,
+      da_rows + n0, partial, g_hout == nullptr ? nullptr : g_hout + n0,
+      dh_in == nullptr ? nullptr : dh_in + n0, L, D, N, NS, T, n0 > 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_bwd_sum(partial, dB, dC, batch, L, D, N, 2 * NMAX, stream);
+  return launch_bwd_sum(partial, dB + n0, dC + n0, batch, L, D, N, NS,
+                        2 * NMAX, stream);
+}
+
+int launch_chunks(const float* x, const float* dt, const float* A,
+                  const float* B, const float* C, const float* g,
+                  const float* bound, float* dx, float* ddt, float* da_rows,
+                  float* dB, float* dC, float* partial, const float* g_hout,
+                  float* dh_in, int batch, int L, int D, int N, int T,
+                  cudaStream_t stream) {
+  return for_state_chunks(N, [&](int n0, int nc) {
+    auto f = nc <= 16 ? &launch<16> : &launch<32>;
+    return f(x, dt, A, B, C, g, bound, dx, ddt, da_rows, dB, dC, partial,
+             g_hout, dh_in, batch, L, D, n0, nc, N, T, stream);
+  });
 }
 
 template <int NMAX>
@@ -190,7 +216,7 @@ int launch_nostate(const float* x, const float* dt, const float* A,
                    const float* B, const float* C, const float* g,
                    float* scratch, float* dx, float* ddt, float* da_rows,
                    float* dB, float* dC, float* partial, int batch, int L,
-                   int D, int N, int T, cudaStream_t stream) {
+                   int D, int n0, int N, int NS, int T, cudaStream_t stream) {
   const size_t smem = scratch != nullptr ? 0 : shared_bound_bytes(L, N, T);
   if (smem > kSharedBoundMax) return (int)cudaErrorInvalidValue;
   // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
@@ -209,10 +235,13 @@ int launch_nostate(const float* x, const float* dt, const float* A,
   }
   const dim3 grid(bwd_tiles_for(D), batch);
   scan_bwd_nostate_kernel<NMAX><<<grid, kBwdThreads, smem, stream>>>(
-      x, dt, A, B, C, g, scratch, dx, ddt, da_rows, partial, L, D, N, T);
+      x, dt, A + n0, B + n0, C + n0, g,
+      scratch == nullptr ? nullptr : scratch + (size_t)n0 * D, dx, ddt,
+      da_rows + n0, partial, L, D, N, NS, T, n0 > 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_bwd_sum(partial, dB, dC, batch, L, D, N, 2 * NMAX, stream);
+  return launch_bwd_sum(partial, dB + n0, dC + n0, batch, L, D, N, NS,
+                        2 * NMAX, stream);
 }
 
 }  // namespace
@@ -224,7 +253,8 @@ extern "C" int selective_scan_bwd_tiles(int D) {
 extern "C" int selective_scan_bwd_width(int N) { return width_for(N); }
 
 // 1 when `selective_scan_bwd_nostate` needs its `scratch` in device memory
-// for these sizes, 0 when the block states fit shared memory.
+// for these sizes, 0 when the block states (of a chunk of at most 32 states)
+// fit shared memory.
 extern "C" int selective_scan_bwd_nostate_needs_scratch(int L, int N, int T) {
   return shared_bound_bytes(L, N, T) > kSharedBoundMax ? 1 : 0;
 }
@@ -232,22 +262,22 @@ extern "C" int selective_scan_bwd_nostate_needs_scratch(int L, int N, int T) {
 // x, dt, g, dx, ddt: (batch, L, D); A: (D, N); B, C, dB, dC: (batch, L, N);
 // bound: (batch, ceil(L / T), N, D); da_rows: (batch, D, N); partial:
 // (batch, selective_scan_bwd_tiles(D), L, selective_scan_bwd_width(N))
-// scratch. All float32, contiguous. 1 <= N <= 32, 1 <= T <= 32. Returns the
-// CUDA error of the launches.
+// scratch. All float32, contiguous. N >= 1 (in chunks of 32 past 32),
+// 1 <= T <= 32. Returns the CUDA error of the launches.
 extern "C" int selective_scan_bwd(const void* x, const void* dt, const void* A,
                                   const void* B, const void* C, const void* g,
                                   const void* bound, void* dx, void* ddt,
                                   void* da_rows, void* dB, void* dC,
                                   void* partial, int batch, int L, int D, int N,
                                   int T, void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > 32 || g == nullptr)
+  if (N < 1 || T < 1 || T > 32 || g == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto f = N <= 16 ? &launch<16> : &launch<32>;
-  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (const float*)g, (const float*)bound, (float*)dx,
-           (float*)ddt, (float*)da_rows, (float*)dB, (float*)dC,
-           (float*)partial, nullptr, nullptr, batch, L, D, N, T,
-           (cudaStream_t)stream);
+  return launch_chunks((const float*)x, (const float*)dt, (const float*)A,
+                       (const float*)B, (const float*)C, (const float*)g,
+                       (const float*)bound, (float*)dx, (float*)ddt,
+                       (float*)da_rows, (float*)dB, (float*)dC,
+                       (float*)partial, nullptr, nullptr, batch, L, D, N, T,
+                       (cudaStream_t)stream);
 }
 
 // The stated form (E4): as `selective_scan_bwd` from the stated forward's
@@ -259,15 +289,14 @@ extern "C" int selective_scan_bwd_state(
     const void* g, const void* bound, const void* g_hout, void* dx, void* ddt,
     void* da_rows, void* dB, void* dC, void* partial, void* dh_in, int batch,
     int L, int D, int N, int T, void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > 32 || g_hout == nullptr ||
-      dh_in == nullptr)
+  if (N < 1 || T < 1 || T > 32 || g_hout == nullptr || dh_in == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto f = N <= 16 ? &launch<16> : &launch<32>;
-  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (const float*)g, (const float*)bound, (float*)dx,
-           (float*)ddt, (float*)da_rows, (float*)dB, (float*)dC,
-           (float*)partial, (const float*)g_hout, (float*)dh_in, batch, L, D,
-           N, T, (cudaStream_t)stream);
+  return launch_chunks((const float*)x, (const float*)dt, (const float*)A,
+                       (const float*)B, (const float*)C, (const float*)g,
+                       (const float*)bound, (float*)dx, (float*)ddt,
+                       (float*)da_rows, (float*)dB, (float*)dC,
+                       (float*)partial, (const float*)g_hout, (float*)dh_in,
+                       batch, L, D, N, T, (cudaStream_t)stream);
 }
 
 // As `selective_scan_bwd` with no `bound`: `scratch` is null, or (batch,
@@ -278,10 +307,13 @@ extern "C" int selective_scan_bwd_nostate(
     const void* g, void* scratch, void* dx, void* ddt, void* da_rows, void* dB,
     void* dC, void* partial, int batch, int L, int D, int N, int T,
     void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > 32) return (int)cudaErrorInvalidValue;
-  auto f = N <= 16 ? &launch_nostate<16> : &launch_nostate<32>;
-  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (const float*)g, (float*)scratch, (float*)dx,
-           (float*)ddt, (float*)da_rows, (float*)dB, (float*)dC,
-           (float*)partial, batch, L, D, N, T, (cudaStream_t)stream);
+  if (N < 1 || T < 1 || T > 32) return (int)cudaErrorInvalidValue;
+  return for_state_chunks(N, [&](int n0, int nc) {
+    auto f = nc <= 16 ? &launch_nostate<16> : &launch_nostate<32>;
+    return f((const float*)x, (const float*)dt, (const float*)A,
+             (const float*)B, (const float*)C, (const float*)g,
+             (float*)scratch, (float*)dx, (float*)ddt, (float*)da_rows,
+             (float*)dB, (float*)dC, (float*)partial, batch, L, D, n0, nc, N,
+             T, (cudaStream_t)stream);
+  });
 }

@@ -23,6 +23,19 @@
 // (`fast_exp2`); every kernel holds its bar against the plain versions (2e-5
 // forward, 1e-4 backward) with it. The backward's carry pass keeps expf: it
 // runs once a chunk.
+//
+// More than 32 states (the JAX package runs any N; its TPU kernels stop at
+// 32 and hand larger states to XLA): the states of one channel are
+// independent recurrences, so each entry walks them in chunks of at most
+// kStateChunk, one launch of the same kernel a chunk, in turn on the stream
+// (`for_state_chunks`). A chunk reads A, B, C and the states at its own
+// columns (its pointers start at state n0, rows NS = N apart) and owns its
+// columns of bound, dA, dB, dC, h_out and dh_in; it adds its share of the
+// sums over n (y in the forward, dx and ddt in the backward) to what the
+// chunks before it wrote (`acc`). Each chunk rereads x, dt (and g), so the
+// bytes grow with the chunks while the exponentials, which bound the walk,
+// grow with N as they must. At N <= 32 there is one chunk, NS = N and no
+// `acc`: the kernels run as they did.
 
 #pragma once
 
@@ -43,16 +56,30 @@ constexpr int kMaxT = 32;
 // registers) stays.
 constexpr int kFwdBlocks = 4;
 constexpr int kFwdUnroll = 1;
+// the most states one walk holds (four lanes of eight)
+constexpr int kStateChunk = 32;
 
 inline int tiles_for(int D) { return (D + kThreads - 1) / kThreads; }
 
+// Calls f(n0, nc) for the chunks of at most kStateChunk of N states, in
+// order, and returns the first error.
+template <typename F>
+int for_state_chunks(int N, F f) {
+  for (int n0 = 0; n0 < N; n0 += kStateChunk) {
+    const int err = f(n0, N - n0 < kStateChunk ? N - n0 : kStateChunk);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// A chunk's A row: N states of a row NS long.
 template <int NMAX>
 __device__ __forceinline__ void load_a(float (&a_coef)[NMAX],
                                        const float* __restrict__ A, int d,
-                                       int N, bool active) {
+                                       int N, int NS, bool active) {
 #pragma unroll
   for (int n = 0; n < NMAX; ++n)
-    a_coef[n] = (active && n < N) ? A[(size_t)d * N + n] : 0.f;
+    a_coef[n] = (active && n < N) ? A[(size_t)d * NS + n] : 0.f;
 }
 
 // ------------------------------------------- the lanes' layout; the backward
@@ -129,15 +156,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // The A row of the lane's states, times log2(e): n = q * SPL + i, zero past
-// N.
+// N; A's rows are NS long.
 template <int SPL>
 __device__ __forceinline__ void load_a_lane(float (&a2)[SPL],
                                             const float* __restrict__ A, int d,
-                                            int q, int N, bool active) {
+                                            int q, int N, int NS,
+                                            bool active) {
 #pragma unroll
   for (int i = 0; i < SPL; ++i) {
     const int n = q * SPL + i;
-    a2[i] = (active && n < N) ? A[(size_t)d * N + n] * kLog2e : 0.f;
+    a2[i] = (active && n < N) ? A[(size_t)d * NS + n] * kLog2e : 0.f;
   }
 }
 
@@ -230,18 +258,19 @@ struct __align__(16) FwdShared {
 // along the B, C rows, or 4.
 struct FwdCopy {
   bool vec_d;  // D % 4 == 0 and x, dt 16-byte aligned
-  bool vec_n;  // N == NMAX and B, C 16-byte aligned: a time block's rows
-               // are one contiguous run that fills the staged rows
+  bool vec_n;  // N == NMAX == NS and B, C 16-byte aligned: a time block's
+               // rows are one contiguous run that fills the staged rows
 };
 
 inline FwdCopy fwd_copy_for(const void* x, const void* dt, const void* B,
-                            const void* C, int D, int N) {
+                            const void* C, int D, int N, int NS) {
   const auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
   FwdCopy copy;
   copy.vec_d = D % 4 == 0 && !misaligned(x) && !misaligned(dt);
-  copy.vec_n = (N == 16 || N == 32) && !misaligned(B) && !misaligned(C);
+  copy.vec_n = N == NS && (N == 16 || N == 32) && !misaligned(B) &&
+               !misaligned(C);
   return copy;
 }
 
@@ -274,15 +303,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Request the steps [t0, t0 + len) of the block's 64 channels from d0 on
-// into `st`: x, dt, the B rows and (OUT) the C rows. Channels past D arrive
-// as zeros; the columns past N of B and C are never written (the walk zeroes
-// them once).
+// into `st`: x, dt, the B rows and (OUT) the C rows (N states of rows NS
+// long). Channels past D arrive as zeros; the columns past N of B and C are
+// never written (the walk zeroes them once).
 template <int NMAX, bool OUT>
 __device__ __forceinline__ void request_time_block(
     FwdStage<NMAX>& st, const float* __restrict__ x,
     const float* __restrict__ dt, const float* __restrict__ Bm,
     const float* __restrict__ Cm, size_t row, int t0, int len, int d0, int D,
-    int N, FwdCopy copy) {
+    int N, int NS, FwdCopy copy) {
   const int tid = threadIdx.x;
   if (copy.vec_d) {
     constexpr int V = kBwdChannels / 4;
@@ -304,7 +333,7 @@ __device__ __forceinline__ void request_time_block(
       cp_async4(&st.dt[s][c], dt + off, ok);
     }
   }
-  if (copy.vec_n) {  // N == NMAX
+  if (copy.vec_n) {  // N == NMAX == NS
     const size_t base = (row + t0) * N;
     for (int i = tid; i < len * (NMAX / 4); i += kBwdThreads) {
       cp_async16(&st.B[0][0] + 4 * i, Bm + base + 4 * i, true);
@@ -314,7 +343,7 @@ __device__ __forceinline__ void request_time_block(
     for (int i = tid; i < len * N; i += kBwdThreads) {
       const int s = i / N;
       const int n = i - s * N;
-      const size_t off = (row + t0 + s) * N + n;
+      const size_t off = (row + t0 + s) * NS + n;
       cp_async4(&st.B[s][n], Bm + off, true);
       if (OUT) cp_async4(&st.C[s][n], Cm + off, true);
     }
@@ -331,7 +360,9 @@ __device__ __forceinline__ void request_time_block(
 // written, except the first when `skip_first_bound` (the caller read h from
 // that very row). SUM (by default where there is no output): returns the
 // sum of dt over the steps walked (exp(A * sum) is the product of their
-// decays), else 0.
+// decays), else 0. The walk's N states are a chunk of NS (B, C rows and
+// bound's state axis NS long); `acc`: y is added to, not written (a later
+// chunk of states).
 // Every thread of the block must call it (it synchronises), active or not.
 template <int NMAX, bool OUT, bool SUM = !OUT>
 __device__ __forceinline__ float scan_fwd_walk(
@@ -339,8 +370,8 @@ __device__ __forceinline__ float scan_fwd_walk(
     const float* __restrict__ Bm, const float* __restrict__ Cm,
     float* __restrict__ y, float* bound, const float (&a2)[NMAX / kBwdLanes],
     float (&h)[NMAX / kBwdLanes], FwdShared<NMAX>& sm, int b, int d0,
-    bool active, int L, int D, int N, int T, int k_begin, int k_end,
-    bool skip_first_bound, FwdCopy copy) {
+    bool active, int L, int D, int N, int NS, int T, int k_begin, int k_end,
+    bool skip_first_bound, bool acc, FwdCopy copy) {
   constexpr int SPL = NMAX / kBwdLanes;
   const int tid = threadIdx.x;
   const int q = tid & (kBwdLanes - 1);
@@ -361,7 +392,7 @@ __device__ __forceinline__ float scan_fwd_walk(
     sm.stage[st].C[s][n] = 0.f;
   }
   request_time_block<NMAX, OUT>(sm.stage[0], x, dt, Bm, Cm, row, k_begin * T,
-                                min(T, L - k_begin * T), d0, D, N, copy);
+                                min(T, L - k_begin * T), d0, D, N, NS, copy);
 
   for (int k = k_begin; k < k_end; ++k) {
     const int p = (k - k_begin) & 1;
@@ -373,10 +404,10 @@ __device__ __forceinline__ float scan_fwd_walk(
     if (k + 1 < k_end)
       request_time_block<NMAX, OUT>(sm.stage[p ^ 1], x, dt, Bm, Cm, row,
                                     t0 + T, min(T, L - t0 - T), d0, D, N,
-                                    copy);
+                                    NS, copy);
     if (active && bound != nullptr && !(skip_first_bound && k == k_begin))
       store_lane_states<SPL>(
-          bound + ((size_t)b * n_blocks + k) * N * D + d0 + ch, (size_t)D, h,
+          bound + ((size_t)b * n_blocks + k) * NS * D + d0 + ch, (size_t)D, h,
           q, N);
     // channels past D were staged as zeros: their lanes walk a = 1, u = 0.
     // Four steps at a time; `ragged` (a std::integral_constant) says whether
@@ -421,8 +452,10 @@ __device__ __forceinline__ float scan_fwd_walk(
         const bool odd_lane = q & 1;
         const float yv = (odd_lane ? w1 : w0) +
                          __shfl_xor_sync(0xffffffffu, odd_lane ? w0 : w1, 1);
-        if (active && (!decltype(ragged)::value || j + q < len))
-          y[(row + t0 + j + q) * D + d0 + ch] = yv;
+        if (active && (!decltype(ragged)::value || j + q < len)) {
+          float* out = y + (row + t0 + j + q) * D + d0 + ch;
+          *out = acc ? *out + yv : yv;
+        }
       }
     };
     const int whole = len & ~3;
@@ -434,14 +467,14 @@ __device__ __forceinline__ float scan_fwd_walk(
 }
 
 // Stage the steps [t0, t0 + len) of the block's 64 channels from d0 on: x
-// and dt, the B rows and (g != null) g and the C rows. Every thread of the
-// block calls it, between two barriers.
+// and dt, the B rows and (g != null) g and the C rows (N states of rows NS
+// long). Every thread of the block calls it, between two barriers.
 template <int NMAX>
 __device__ __forceinline__ void stage_time_block(
     BwdShared<NMAX>& sm, const float* __restrict__ x,
     const float* __restrict__ dt, const float* __restrict__ g,
     const float* __restrict__ Bm, const float* __restrict__ Cm, size_t row,
-    int t0, int len, int d0, int D, int N) {
+    int t0, int len, int d0, int D, int N, int NS) {
   const int tid = threadIdx.x;
   for (int i = tid; i < len * kBwdChannels; i += kBwdThreads) {
     const int s = i / kBwdChannels;
@@ -455,7 +488,7 @@ __device__ __forceinline__ void stage_time_block(
   for (int i = tid; i < len * NMAX; i += kBwdThreads) {
     const int s = i / NMAX;
     const int n = i - s * NMAX;
-    const size_t off = (row + t0 + s) * N + n;
+    const size_t off = (row + t0 + s) * NS + n;
     sm.B[s][n] = n < N ? Bm[off] : 0.f;
     if (g != nullptr) sm.C[s][n] = n < N ? Cm[off] : 0.f;
   }
@@ -507,7 +540,8 @@ __device__ __forceinline__ void channel_transpose_sum(float (&v)[V], int lane) {
 // return) and the dA sums da, which it adds to. The state entering time
 // block k is read at bound_col[k * stride_k + n * stride_n] (device or
 // shared memory). Writes dx, ddt and the block's dB/dC sums over its
-// channels into `partial` (batch, n_tiles, L, W).
+// channels into `partial` (batch, n_tiles, L, W); with `acc` (a later chunk
+// of the NS states) dx and ddt are added to, not written.
 // The states inside a stretch are recomputed forward from the saved state
 // of the time block, never as h_{t-1} = (h_t - b_t) / a_t, which is unstable
 // where a_t underflows.
@@ -525,7 +559,7 @@ __device__ __forceinline__ void scan_bwd_range(
     const float (&a2)[BwdShape<NMAX>::SPL],
     float (&phi)[BwdShape<NMAX>::SPL], float (&da)[BwdShape<NMAX>::SPL],
     BwdShared<NMAX>& sm, int b, int tile, int n_tiles, int d0, bool active,
-    int L, int D, int N, int T, int t_begin, int t_end) {
+    int L, int D, int N, int NS, int T, int t_begin, int t_end, bool acc) {
   constexpr int SPL = BwdShape<NMAX>::SPL;
   constexpr int S = BwdShape<NMAX>::S;
   constexpr int W = BwdShape<NMAX>::W;
@@ -548,7 +582,7 @@ __device__ __forceinline__ void scan_bwd_range(
     const int tlen = min(T, t_end - tb0);
     __syncthreads();  // the previous time block's dx, ddt have left
     stage_time_block<NMAX>(sm, x, dt, HAS_G ? g : nullptr, Bm, Cm, row, tb0,
-                           tlen, d0, D, N);
+                           tlen, d0, D, N, NS);
     __syncthreads();
 
     for (int s0 = ((tlen - 1) / S) * S; s0 >= 0; s0 -= S) {
@@ -632,19 +666,20 @@ __device__ __forceinline__ void scan_bwd_range(
       const int c = i - s * kBwdChannels;
       if (d0 + c < D) {
         const size_t off = (row + tb0 + s) * D + d0 + c;
-        dx[off] = sm.x[s][c];
-        ddt[off] = sm.dt[s][c];
+        dx[off] = acc ? dx[off] + sm.x[s][c] : sm.x[s][c];
+        ddt[off] = acc ? ddt[off] + sm.dt[s][c] : sm.dt[s][c];
       }
     }
   }
 }
 
-// dB, dC (batch, L, N) from the per-tile sums: one thread per element.
+// A chunk's N columns of dB, dC (batch, L, NS) from the per-tile sums: one
+// thread per element.
 // static: each source that includes this header links its own copy.
 static __global__ void __launch_bounds__(256)
 scan_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dB,
-                    float* __restrict__ dC, int batch, int L, int N, int tiles,
-                    int W) {
+                    float* __restrict__ dC, int batch, int L, int N, int NS,
+                    int tiles, int W) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)batch * L * N) return;
   const int n = (int)(i % N);
@@ -657,15 +692,16 @@ scan_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dB,
     sb += p[n];
     sc += p[W / 2 + n];
   }
-  dB[i] = sb;
-  dC[i] = sc;
+  dB[bt * NS + n] = sb;
+  dC[bt * NS + n] = sc;
 }
 
 inline int launch_bwd_sum(const float* partial, float* dB, float* dC, int batch,
-                          int L, int D, int N, int W, cudaStream_t stream) {
+                          int L, int D, int N, int NS, int W,
+                          cudaStream_t stream) {
   const size_t total = (size_t)batch * L * N;
   scan_bwd_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, dB, dC, batch, L, N, bwd_tiles_for(D), W);
+      partial, dB, dC, batch, L, N, NS, bwd_tiles_for(D), W);
   return (int)cudaGetLastError();
 }
 

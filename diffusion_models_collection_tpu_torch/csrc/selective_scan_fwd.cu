@@ -32,6 +32,9 @@
 // h_out (batch, D, N); block 0's saved state is h_in. With y null it writes
 // no y and reads no C (the distributed scan's first pass wants h_out alone).
 // The same walk, two loads and two stores a lane more.
+// Any N: past 32 states the entries walk them in chunks of 32, one launch a
+// chunk, each adding its share to y (`for_state_chunks`,
+// selective_scan_common.cuh).
 // Measured on an H100 80GB HBM3 at 700 W (tools/profile_torch_kernels.py,
 // launches in a row, ms; a thread a channel with expf before): batch 160,
 // L 256, D 768, N 16 0.217-0.219 (0.353); with states at batch 128 0.184-
@@ -44,16 +47,17 @@ namespace {
 
 using namespace dmc_scan;
 
-// OUT: y is written. h_in, h_out: null (a zero first state, no last one),
-// or (batch, D, N).
+// OUT: y is written (added to with `acc`). h_in, h_out: null (a zero first
+// state, no last one), or (batch, D, NS). The N states from A, B, C, bound,
+// h_in, h_out on are a chunk of NS.
 template <int NMAX, bool OUT>
 __global__ void __launch_bounds__(kBwdThreads, NMAX <= 16 ? kFwdBlocks : 3)
 scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
                 const float* __restrict__ Cm, float* __restrict__ y,
                 float* __restrict__ bound, const float* __restrict__ h_in,
-                float* __restrict__ h_out, int L, int D, int N, int T,
-                FwdCopy copy) {
+                float* __restrict__ h_out, int L, int D, int N, int NS, int T,
+                bool acc, FwdCopy copy) {
   constexpr int SPL = NMAX / kBwdLanes;
   __shared__ FwdShared<NMAX> sm;
   const int b = blockIdx.y;
@@ -61,10 +65,10 @@ scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int d = d0 + (threadIdx.x >> 2);
   const int q = threadIdx.x & (kBwdLanes - 1);
   const bool active = d < D;
-  const size_t state = ((size_t)b * D + d) * N;  // (b, d, 0) of h_in, h_out
+  const size_t state = ((size_t)b * D + d) * NS;  // (b, d, 0) of h_in, h_out
 
   float a2[SPL], h[SPL];
-  load_a_lane<SPL>(a2, A, d, q, N, active);
+  load_a_lane<SPL>(a2, A, d, q, N, NS, active);
   if (h_in != nullptr) {
     load_lane_states<SPL>(h, h_in + (active ? state : 0), 1, q, N, active);
   } else {
@@ -72,43 +76,63 @@ scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     for (int i = 0; i < SPL; ++i) h[i] = 0.f;
   }
   scan_fwd_walk<NMAX, OUT, false>(x, dt, Bm, Cm, y, bound, a2, h, sm, b, d0,
-                                  active, L, D, N, T, 0, (L + T - 1) / T,
-                                  false, copy);
+                                  active, L, D, N, NS, T, 0, (L + T - 1) / T,
+                                  false, acc, copy);
   if (h_out != nullptr && active)
     store_lane_states<SPL>(h_out + state, 1, h, q, N);
 }
 
+// One chunk: states n0 .. n0 + N - 1 of NS.
 template <int NMAX>
 int launch(const float* x, const float* dt, const float* A, const float* B,
            const float* C, float* y, float* bound, const float* h_in,
-           float* h_out, int batch, int L, int D, int N, int T,
-           cudaStream_t stream) {
+           float* h_out, int batch, int L, int D, int n0, int N, int NS,
+           int T, cudaStream_t stream) {
   const dim3 grid(bwd_tiles_for(D), batch);
-  const FwdCopy copy = fwd_copy_for(x, dt, B, C, D, N);
+  A += n0;
+  B += n0;
+  if (C != nullptr) C += n0;
+  if (bound != nullptr) bound += (size_t)n0 * D;
+  if (h_in != nullptr) h_in += n0;
+  if (h_out != nullptr) h_out += n0;
+  const FwdCopy copy = fwd_copy_for(x, dt, B, C, D, N, NS);
   if (y != nullptr)
     scan_fwd_kernel<NMAX, true><<<grid, kBwdThreads, 0, stream>>>(
-        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, T, copy);
+        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, NS, T, n0 > 0, copy);
   else
     scan_fwd_kernel<NMAX, false><<<grid, kBwdThreads, 0, stream>>>(
-        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, T, copy);
+        x, dt, A, B, C, y, bound, h_in, h_out, L, D, N, NS, T, n0 > 0, copy);
   return (int)cudaGetLastError();
+}
+
+// Every chunk of the N states in turn.
+int launch_chunks(const float* x, const float* dt, const float* A,
+                  const float* B, const float* C, float* y, float* bound,
+                  const float* h_in, float* h_out, int batch, int L, int D,
+                  int N, int T, cudaStream_t stream) {
+  return for_state_chunks(N, [&](int n0, int nc) {
+    auto f = nc <= 16 ? &launch<16> : &launch<32>;
+    return f(x, dt, A, B, C, y, bound, h_in, h_out, batch, L, D, n0, nc, N,
+             T, stream);
+  });
 }
 
 }  // namespace
 
 // x, dt, y: (batch, L, D); A: (D, N); B, C: (batch, L, N); bound: null, or
-// (batch, ceil(L / T), N, D). All float32, contiguous. 1 <= N <= 32,
-// T (the time block) <= 32. Returns the CUDA error of the launch.
+// (batch, ceil(L / T), N, D). All float32, contiguous. N >= 1 (in chunks of
+// 32 past 32), T (the time block) <= 32. Returns the CUDA error of the
+// launches.
 extern "C" int selective_scan_fwd(const void* x, const void* dt, const void* A,
                                   const void* B, const void* C, void* y,
                                   void* bound, int batch, int L, int D, int N,
                                   int T, void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > kMaxT || y == nullptr)
+  if (N < 1 || T < 1 || T > kMaxT || y == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto f = N <= 16 ? &launch<16> : &launch<32>;
-  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (float*)y, (float*)bound, nullptr, nullptr, batch,
-           L, D, N, T, (cudaStream_t)stream);
+  return launch_chunks((const float*)x, (const float*)dt, (const float*)A,
+                       (const float*)B, (const float*)C, (float*)y,
+                       (float*)bound, nullptr, nullptr, batch, L, D, N, T,
+                       (cudaStream_t)stream);
 }
 
 // The stated form (E4): as `selective_scan_fwd` from the state h_in
@@ -120,11 +144,10 @@ extern "C" int selective_scan_fwd_state(const void* x, const void* dt,
                                         const void* h_in, void* h_out,
                                         int batch, int L, int D, int N, int T,
                                         void* stream) {
-  if (N < 1 || N > 32 || T < 1 || T > kMaxT || h_in == nullptr ||
-      h_out == nullptr)
+  if (N < 1 || T < 1 || T > kMaxT || h_in == nullptr || h_out == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto f = N <= 16 ? &launch<16> : &launch<32>;
-  return f((const float*)x, (const float*)dt, (const float*)A, (const float*)B,
-           (const float*)C, (float*)y, (float*)bound, (const float*)h_in,
-           (float*)h_out, batch, L, D, N, T, (cudaStream_t)stream);
+  return launch_chunks((const float*)x, (const float*)dt, (const float*)A,
+                       (const float*)B, (const float*)C, (float*)y,
+                       (float*)bound, (const float*)h_in, (float*)h_out, batch,
+                       L, D, N, T, (cudaStream_t)stream);
 }

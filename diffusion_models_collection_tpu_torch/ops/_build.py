@@ -46,8 +46,8 @@ build_info: dict = {}
 def _sources():
     """Every source the build compiles or includes (`philox.cuh`,
     `selective_scan_common.cuh`, and `flash_attn.cu`, `flash_attn_bwd.cu`
-    once more through the bias forms' units): all of them key the build's
-    hash."""
+    once more through the bias and wide forms' units): all of them key the
+    build's hash."""
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
@@ -178,6 +178,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attn_bwd_bias.argtypes = (lib.flash_attn_bwd.argtypes[:-1]
                                         + [ptr, i32, ptr])
     lib.flash_attn_bwd_bias.restype = i32
+    # the wide forms (head_dim past 128): the same arguments as their twins
+    for name in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_fwd_bias",
+                 "flash_attn_bwd_bias"):
+        wide = getattr(lib, name.replace("_bias", "") + "_wide"
+                       + ("_bias" if name.endswith("_bias") else ""))
+        wide.argtypes = getattr(lib, name).argtypes
+        wide.restype = i32
     lib.selective_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.selective_scan_fwd.restype = i32
     lib.selective_scan_bwd.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]

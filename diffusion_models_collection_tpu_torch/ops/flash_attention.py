@@ -22,13 +22,20 @@ is more than one key tile. `bwd_fused` takes it up to
 two-kernel form, which recomputes the scores for dq, runs instead. `bwd_tile` is the
 tile height both forms walk in.
 
-The plain versions take any head_dim. The kernels take multiples of 8 (bf16:
-16, the depth of a tensor-core product) up to `MAX_HEAD_DIM`: on a CUDA
-tensor the wrappers pad another head_dim to that multiple (`padded_head_dim`)
-with zero columns, which changes no score (the softmax
-scale is an argument of the kernels and stays 1 / sqrt(head_dim)) and adds
-only zero columns to o, dq, dk and dv, sliced off again; a head_dim beyond
-`MAX_HEAD_DIM` raises there.
+The plain versions take any head_dim, and so do the kernels: multiples of 8
+(bf16: 16, the depth of a tensor-core product), to which the wrappers pad
+another head_dim on a CUDA tensor (`padded_head_dim`) with zero columns,
+which changes no score (the softmax scale is an argument of the kernels and
+stays 1 / sqrt(head_dim)) and adds only zero columns to o, dq, dk and dv,
+sliced off again. Up to `WIDE_HEAD_DIM` (128) every form holds a row's
+columns in one tile; past it the wrappers call the kernels' wide forms
+(entries `flash_attn_fwd_wide`, `flash_attn_bwd_wide` and their `_bias`
+twins; `csrc/flash_attn_wide*.cu`, `csrc/flash_attn_bwd_wide*.cu`), which
+split the output columns over blocks (256 in the float32 forward, 128 in the
+others) and sum the scores (and in the backward dP = dO V^T) over all of d
+in chunks of 128: every form there too
+(float32 and bf16, dropout, the key bias, the head grid, Lq != Lk, fused
+and two-kernel), counted in `WIDE_LAUNCHES` and `BWD_WIDE_LAUNCHES`.
 
 Dropout on the probabilities (`dropout_p` > 0 with a 64-bit `seed`), as the
 JAX package's `dot_product_attention` applies it in training: o = (P o Z) V
@@ -90,7 +97,9 @@ import torch.nn.functional as F
 
 from . import _build, _library
 
-MAX_HEAD_DIM = 128
+# the widest head_dim (padded) of the kernels' one-tile forms; wider heads
+# take the wide forms
+WIDE_HEAD_DIM = 128
 # the head grid of a single-device call: (heads, total_heads, batch0, head0)
 ONE_DEVICE = (1, 1, 0, 0)
 
@@ -108,6 +117,9 @@ BWD_BIAS_LAUNCHES = 0
 # and of those the ones whose keys are not the queries (Lk != Lq, E6)
 CROSS_LAUNCHES = 0
 BWD_CROSS_LAUNCHES = 0
+# and of those the ones in the wide forms (head_dim past WIDE_HEAD_DIM)
+WIDE_LAUNCHES = 0
+BWD_WIDE_LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
 # Philox4x32's multipliers and key increments (Random123)
@@ -131,8 +143,9 @@ def fwd_tile(seq_len: int, head_dim: int,
     where the kernel has these forms: 128 (key tiles of 64, eight rows and
     keys a thread) for a sequence longer than 64, else 32 (key tiles of 32),
     so that a short sequence does not compute mostly masked rows. Beyond 64:
-    64 (key tiles of 64). Set by `tools/profile_torch_kernels.py --only
-    attn_fwd`, which times every form at the UNet's shapes. bfloat16 (16
+    64 (key tiles of 64), the wide forms' too. Set by
+    `tools/profile_torch_kernels.py --only attn_fwd`, which times every form
+    at the UNet's shapes. bfloat16 (16
     rows a warp, key tiles of 64): 16 (one warp, key tiles of 16) for a
     sequence that fits them, 64 up to L 64 or beyond head_dim 64, else 128;
     set by `--only bf16`."""
@@ -152,7 +165,8 @@ def bwd_tile(seq_len: int, head_dim: int,
     """Rows of a query or key tile of the backward kernel: 64, or for a
     sequence that fits a smaller tile (at head_dim <= 64, where the kernel
     has that form) 32 in float32 and 16 in bfloat16, so that a short
-    sequence does not pay a mostly empty tile."""
+    sequence does not pay a mostly empty tile. The wide forms (head_dim past
+    128) take 64."""
     small = 16 if dtype == torch.bfloat16 else 32
     return small if seq_len <= small and head_dim <= 64 else 64
 
@@ -339,8 +353,7 @@ def flash_attention_bwd_ref(
 def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, *like_q: torch.Tensor) -> None:
     """q (and `like_q`: o, dO) (BH, Lq, d) and k, v (BH, Lk, d) with Lq, Lk
-    >= 1; on the card d at most MAX_HEAD_DIM and the tensors 32-bit
-    indexable."""
+    >= 1; on the card the tensors 32-bit indexable."""
     if (q.dim() != 3 or k.dim() != 3 or k.shape != v.shape
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]
             or any(t.shape != q.shape for t in like_q)):
@@ -353,9 +366,6 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: head_dim must be at least 1")
     if q.device.type != "cuda":
         return
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {head_dim} exceeds the kernel's "
-                         f"limit of {MAX_HEAD_DIM}")
     if q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError(f"{name}: the kernels take Lq, Lk >= 1, got "
                          f"{q.shape[1]} and {k.shape[1]}")
@@ -407,6 +417,13 @@ def _cut_heads(head_dim: int, *tensors: torch.Tensor):
     return tuple(t[..., :head_dim].contiguous() for t in tensors)
 
 
+def _entry(lib, name: str, width: int, bias: Optional[torch.Tensor]):
+    """The kernel entry `name` for a padded head_dim `width` (`_wide` past
+    WIDE_HEAD_DIM) with or without the key bias (`_bias`)."""
+    return getattr(lib, name + ("_wide" if width > WIDE_HEAD_DIM else "")
+                   + ("" if bias is None else "_bias"))
+
+
 def _dropout_args(dropout_p: float, seed: Optional[int], head_grid,
                   row0: int):
     """The kernels' trailing dropout arguments: (on, threshold, 1 / (1 - p),
@@ -449,7 +466,7 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
               bias: Optional[torch.Tensor], head_grid=None, row0: int = 0):
     """The forward kernel's launch: (o, lse)."""
     global LAUNCHES, DROPOUT_LAUNCHES, BF16_LAUNCHES, BIAS_LAUNCHES
-    global CROSS_LAUNCHES
+    global CROSS_LAUNCHES, WIDE_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
     keys = k.shape[1]
@@ -467,19 +484,21 @@ def _fwd_cuda(q, k, v, dropout_p: float, seed: Optional[int],
                 1.0 / math.sqrt(head_dim), fwd_tile(seq_len, width, q.dtype),
                 *_dropout_args(dropout_p, seed, _grid(head_grid), row0),
                 int(bf16))
+        entry = _entry(lib, "flash_attn_fwd", width, bias)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
-                err = lib.flash_attn_fwd(*args, stream)
+                err = entry(*args, stream)
             else:
-                err = lib.flash_attn_fwd_bias(*args, bias.data_ptr(),
-                                              bh // bias.shape[0], stream)
+                err = entry(*args, bias.data_ptr(), bh // bias.shape[0],
+                            stream)
         _build.check(err, "flash_attn_fwd")
         LAUNCHES += 1
         DROPOUT_LAUNCHES += dropout_p > 0.0
         BF16_LAUNCHES += bf16
         BIAS_LAUNCHES += bias is not None
         CROSS_LAUNCHES += keys != seq_len
+        WIDE_LAUNCHES += width > WIDE_HEAD_DIM
     return (*_cut_heads(head_dim, o), lse)
 
 
@@ -529,7 +548,7 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
     """The backward kernel's launch in the form `fused` picks (None:
     `bwd_fused`): (dq, dk, dv)."""
     global BWD_LAUNCHES, BWD_DROPOUT_LAUNCHES, BWD_BF16_LAUNCHES
-    global BWD_BIAS_LAUNCHES, BWD_CROSS_LAUNCHES
+    global BWD_BIAS_LAUNCHES, BWD_CROSS_LAUNCHES, BWD_WIDE_LAUNCHES
     bf16 = q.dtype == torch.bfloat16
     bh, seq_len, head_dim = q.shape
     keys = k.shape[1]
@@ -560,19 +579,21 @@ def _bwd_cuda(q, k, v, o, do, lse, dropout_p: float, seed: Optional[int],
                 width, 1.0 / math.sqrt(head_dim), tile, int(fused),
                 *_dropout_args(dropout_p, seed, _grid(head_grid), row0),
                 int(bf16))
+        entry = _entry(lib, "flash_attn_bwd", width, bias)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             if bias is None:
-                err = lib.flash_attn_bwd(*args, stream)
+                err = entry(*args, stream)
             else:
-                err = lib.flash_attn_bwd_bias(*args, bias.data_ptr(),
-                                              bh // bias.shape[0], stream)
+                err = entry(*args, bias.data_ptr(), bh // bias.shape[0],
+                            stream)
         _build.check(err, "flash_attn_bwd")
         BWD_LAUNCHES += 1
         BWD_DROPOUT_LAUNCHES += dropout_p > 0.0
         BWD_BF16_LAUNCHES += bf16
         BWD_BIAS_LAUNCHES += bias is not None
         BWD_CROSS_LAUNCHES += keys != seq_len
+        BWD_WIDE_LAUNCHES += width > WIDE_HEAD_DIM
     return _cut_heads(head_dim, dq, dk, dv)
 
 

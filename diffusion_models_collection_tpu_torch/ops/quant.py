@@ -12,8 +12,11 @@ The integer product is `torch._int_mm` (cuBLASLt's int8 product on the card,
 int8 x int8 -> int32), the counterpart of the XLA `dot_general` with an
 int32 result that the JAX package calls: a library product, as a float
 product goes to `torch.matmul`, not a kernel of the JAX package's. On CUDA
-it takes more than 16 rows and K, N multiples of 8 (at least 16): calls of
-16 rows or fewer are padded with zero rows, which change no other row.
+it takes more than 16 rows and K, N multiples of 8 (at least 16), where the
+JAX product takes any shape: `int8_accumulate` pads the rows, K and N with
+zeros up to what it takes and slices the result. A zero row changes no other
+row, a zero column of K adds nothing to an int32 sum and a zero row of the
+weight only makes a column that is cut off, so the result is exact.
 
 The JAX package quantizes the weights once, at compile, where they are
 constants of the jitted sampler. Here `Int8Weights` keeps each layer's int8
@@ -33,6 +36,7 @@ QUANT_MODES = ("int8",)
 
 # torch._int_mm's limits on CUDA: rows > 16; K and N multiples of 8, >= 16
 _MIN_ROWS = 17
+_MIN_WIDTH, _WIDTH_STEP = 16, 8
 
 # int8 products on a CUDA tensor since the process started (or since a
 # caller reset it): what shows that a run went through the int8 path
@@ -57,19 +61,31 @@ def quantize_rows(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def padded_width(n: int) -> int:
+    """K or N as `torch._int_mm` takes it on CUDA: the next multiple of 8,
+    at least 16."""
+    return max(_MIN_WIDTH, -(-n // _WIDTH_STEP) * _WIDTH_STEP)
+
+
 def int8_accumulate(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 x (N, K) int8 -> (M, N) int32, the exact integer sums."""
+    """(M, K) int8 x (N, K) int8 -> (M, N) int32, the exact integer sums,
+    through `torch._int_mm` on rows, K and N padded with zeros to what it
+    takes on CUDA (on every device, so the CPU runs the same product)."""
     global PRODUCTS
-    rows = xq.shape[0]
+    rows, k = xq.shape
+    n = wq.shape[0]
     if xq.device.type == "cuda":
-        k, n = xq.shape[1], wq.shape[0]
-        if k % 8 or n % 8 or k < 16 or n < 16:
-            raise ValueError(f"int8 product: K ({k}) and N ({n}) must be "
-                             "multiples of 8 of at least 16 on CUDA")
         PRODUCTS += 1
+    k_pad, n_pad = padded_width(k) - k, padded_width(n) - n
+    if k_pad:  # zero columns add nothing to the sums
+        xq = torch.cat([xq, xq.new_zeros(rows, k_pad)], dim=1)
+        wq = torch.cat([wq, wq.new_zeros(n, k_pad)], dim=1)
+    if n_pad:  # zero rows of the weight: output columns cut off below
+        wq = torch.cat([wq, wq.new_zeros(n_pad, wq.shape[1])])
     if rows < _MIN_ROWS:
         xq = torch.cat([xq, xq.new_zeros(_MIN_ROWS - rows, xq.shape[1])])
-    return torch._int_mm(xq, wq.t())[:rows]
+    out = torch._int_mm(xq, wq.t())
+    return out[:rows, :n] if n_pad else out[:rows]
 
 
 class Int8Weights:

@@ -73,11 +73,15 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
   reference that autograd differentiates, for tests.
 
 The JAX gate `supported()` (D % 128, N <= 32, L >= 8) is a TPU lane limit
-and is not ported: the kernels take any L >= 1 and any D, and N up to 32
-(`MAX_STATE`; a larger state raises on a CUDA tensor, where the JAX package
-falls back to its XLA scan, and runs the plain versions, which take any N,
-on a CPU tensor). Under tensor parallelism the scan needs no form of its
-own: the DiM's `Mamba` mixer, cut to a tensor-parallel rank
+and is not ported: the kernels take any L >= 1, any D and any N. A walk
+holds at most `STATE_CHUNK` (32) states of a channel, four lanes of eight;
+past that every kernel entry walks the states in chunks of 32 in turn, one
+launch of the same kernel a chunk (the JAX package runs its XLA scan
+there), each chunk adding its share to the sums over the states (y; dx,
+ddt) and owning its columns of the rest (`csrc/selective_scan_common.cuh`).
+A wrapper counts one launch a call whatever the chunks. Under tensor
+parallelism the scan needs no form of its own: the DiM's `Mamba` mixer, cut
+to a tensor-parallel rank
 (`parallel/tensor_parallel.py`), calls these kernels unchanged on its rank's
 d_inner / tp channels, with (dt, B, C) all-reduced before the scan, and
 `scan_tensor_parallel`, the JAX package's scope for it, is a no-op kept for
@@ -93,7 +97,8 @@ import torch
 
 from . import _build, _library
 
-MAX_STATE = 32
+# the states one walk of a kernel holds; a larger N runs in chunks of it
+STATE_CHUNK = 32
 
 # Kernel launches since the process started (or since a caller reset them):
 # the forward's (K5, K6), the forward's with saved states (K6, counted in
@@ -420,8 +425,9 @@ def selective_scan_bwd_state_ref(
 
 
 def _check_shapes(name: str, x, dt, A, B, C, *others) -> Tuple[int, ...]:
-    """x, dt and `others` one (batch, L, D) shape, A (D, N) with N >= 1 (on
-    the card at most MAX_STATE), B and C (batch, L, N)."""
+    """x, dt and `others` one (batch, L, D) shape, A (D, N) with N >= 1, B
+    and C (batch, L, N); on the card within the kernels' grid and 32-bit
+    indexing."""
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(f"{name}: x must be (batch, L, D) and A (D, N), got "
                          f"{tuple(x.shape)} and {tuple(A.shape)}")
@@ -437,11 +443,6 @@ def _check_shapes(name: str, x, dt, A, B, C, *others) -> Tuple[int, ...]:
                          f"got {tuple(B.shape)} and {tuple(C.shape)}")
     if n_state < 1:
         raise ValueError(f"{name}: state size must be at least 1")
-    if x.device.type == "cuda" and n_state > MAX_STATE:
-        raise ValueError(
-            f"{name}: state size {n_state} exceeds the kernels' limit of "
-            f"{MAX_STATE}: a channel's states live in the registers of at "
-            "most four lanes")
     if x.device.type == "cuda" and (batch >= 65536 or x.numel() >= 2**31):
         raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the "
                          "kernel's grid or 32-bit indexing")

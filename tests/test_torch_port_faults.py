@@ -6,7 +6,7 @@ scan). Both run the plain versions here and are held to the JAX models with
 the same weights at 2e-4, the forward bar of tests/test_torch_port_unet.py
 and tests/test_torch_port_dim.py; the wrappers themselves are held to their
 plain versions and to JAX at those shapes. On the card the same shapes pad
-(head_dim) or raise (state size): `cuda` tests in
+(head_dim) or run in chunks of 32 states (state size): `cuda` tests in
 tests/test_torch_port_kernels.py.
 """
 
@@ -140,7 +140,7 @@ def test_dim_with_40_states_matches_jax():
 
 @pytest.mark.parametrize("n_state,length", [(33, 32), (40, 100), (64, 20)])
 def test_scan_beyond_32_states_matches_jax_and_its_gradients(n_state, length):
-    assert n_state > ss.MAX_STATE
+    assert n_state > ss.STATE_CHUNK
     rng = np.random.default_rng(n_state)
     x = rng.standard_normal((2, length, 24)).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal(x.shape))).astype(np.float32)

@@ -90,9 +90,9 @@ def test_group_norm_silu_rejects_what_the_kernel_does_not_take(case):
 def test_flash_attention_rejects_what_the_kernel_does_not_take(shape):
     q = torch.randn(shape)
     if q.dim() == 3:
-        # a head_dim beyond the kernels' limit or no multiple of 8: refused
-        # or padded on the card (`cuda` tests below); the plain version on
-        # the CPU takes any head_dim
+        # a head_dim past 128 or no multiple of 8: the wide forms or padded
+        # on the card (`cuda` tests below); the plain version on the CPU
+        # takes any head_dim
         for got, want in zip(flash_attention.flash_attention_fwd(q, q, q),
                              flash_attention.flash_attention_fwd_ref(q, q, q)):
             torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -1002,7 +1002,7 @@ def test_group_norm_silu_function_grads_on_the_card(cuda, shape):
         assert max_rel(ours, ref) <= TOL
 
 
-# ------------- attention with a head_dim the kernels pad, or refuse
+# ------------- attention with a head_dim the kernels pad, or take wide
 @pytest.mark.cuda
 @pytest.mark.parametrize("seq_len", [1, 16, 100, 300])
 @pytest.mark.parametrize("head_dim", [4, 12, 20, 121])
@@ -1030,14 +1030,28 @@ def test_flash_attention_pads_a_head_dim_that_is_no_multiple_of_8(
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_a_head_dim_beyond_its_limit_on_the_card(cuda):
-    q = torch.randn(2, 8, 136, device=cuda)
-    before = flash_attention.LAUNCHES
-    with pytest.raises(ValueError, match="limit of 128"):
-        flash_attention.flash_attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="limit of 128"):
-        flash_attention.flash_attention_bwd(q, q, q, q, q,
-                                            torch.zeros(2, 8, 1, device=cuda))
-    assert flash_attention.LAUNCHES == before
+    """There is no such limit any more: a head_dim past 128 (here 136),
+    once refused, takes the wide forms, one launch each way, and what they
+    refuse is what every form refuses (keys of another length than the
+    values raise)."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, do = (torch.randn(2, 8, 136, generator=gen, device=cuda)
+                   for _ in range(4))
+    before = (flash_attention.WIDE_LAUNCHES, flash_attention.BWD_WIDE_LAUNCHES)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert (flash_attention.WIDE_LAUNCHES,
+            flash_attention.BWD_WIDE_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    o_ref, _ = flash_attention.flash_attention_fwd_ref(q, k, v)
+    assert max_rel(o, o_ref) <= TOL
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse)
+    for got, want in zip(grads, refs):
+        assert max_rel(got, want) <= TOL_BWD
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_fwd(q, q, torch.randn(
+            2, 9, 136, device=cuda))
 
 
 # ------------------- the scan forward's forms: states off and states on
@@ -1096,19 +1110,24 @@ def test_scan_fwd_takes_views_that_are_not_16_byte_aligned(cuda):
 @pytest.mark.parametrize("op", ["fwd", "fwd_split", "bwd", "bwd_nostate",
                                 "bwd_split"])
 def test_scan_refuses_more_than_32_states_on_the_card(cuda, op):
+    """There is no such limit any more: 33 states, once refused, run in
+    chunks of 32 and 1, one counted launch a call, and match the plain
+    versions, which the CPU runs on the same inputs."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     x, dt, A, B, C, g = scan_inputs(2, 32, 64, 33, gen, cuda)
-    bound = torch.zeros(2, 1, 33, 64, device=cuda)
+    _, bound = scan_mod.selective_scan_fwd_ref(x, dt, A, B, C, True)
     args = {"fwd": (x, dt, A, B, C), "fwd_split": (x, dt, A, B, C),
             "bwd": (x, dt, A, B, C, g, bound),
             "bwd_nostate": (x, dt, A, B, C, g),
             "bwd_split": (x, dt, A, B, C, g, bound)}[op]
     before = scan_launch_counts()
-    with pytest.raises(ValueError, match="limit of 32"):
-        getattr(scan_mod, "selective_scan_" + op)(*args)
-    assert launched_since(before) == {}
+    got = getattr(scan_mod, "selective_scan_" + op)(*args)
+    torch.cuda.synchronize()
+    assert sum(launched_since(before).values()) == 1
     cpu = [t.cpu() for t in args]  # the plain versions take it
-    assert getattr(scan_mod, "selective_scan_" + op)(*cpu)[0].shape == x.shape
+    want = getattr(scan_mod, "selective_scan_" + op)(*cpu)
+    bar = TOL if op.startswith("fwd") else TOL_BWD
+    assert max_rel(got[0].cpu(), want[0]) <= bar
 
 
 # ------------------------------------------------------------ bf16 forms
@@ -1436,3 +1455,147 @@ def test_flash_attention_bias_of_zeros_is_the_form_without_one(cuda):
                                              torch.ones_like(o))))
     for got, want in zip(*outs):
         assert max_rel(got, want) <= TOL
+
+
+# ------------------- head_dim past 128 and more than 32 states (F11, F10)
+# K2 and K3's wide forms: head_dim 136 (a second column block of 8), 192 (the
+# CIFAR-10 DiT at two heads), 256 (the TPU kernel's widest) and 384 (one
+# head); L 256 and a ragged 200; float32 and bf16, p 0 and 0.1, the fused
+# and the two-kernel backward
+WIDE_HEAD_DIMS = [136, 192, 256, 384]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_len", [256, 200])
+@pytest.mark.parametrize("head_dim", WIDE_HEAD_DIMS)
+def test_flash_attention_wide_forms_match_plain(cuda, head_dim, seq_len,
+                                                dtype, dropout, fused):
+    gen = torch.Generator(device=cuda).manual_seed(head_dim + seq_len)
+    q, k, v, do = (torch.randn(6, seq_len, head_dim, generator=gen,
+                               device=cuda).to(dtype) for _ in range(4))
+    drop = (dropout, 77) if dropout else (0.0, None)
+    before = (flash_attention.WIDE_LAUNCHES, flash_attention.BWD_WIDE_LAUNCHES)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                fused=fused)
+    torch.cuda.synchronize()
+    assert (flash_attention.WIDE_LAUNCHES,
+            flash_attention.BWD_WIDE_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(q, k, v, *drop)
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop)
+    if dtype == torch.bfloat16:
+        assert_bf16_close(o, o_ref, 1, TOL)
+        for got, want in zip(grads, refs):
+            assert_bf16_close(got, want, 2, TOL_BWD)
+    else:
+        assert max_rel(o, o_ref) <= TOL
+        for got, want in zip(grads, refs):
+            assert max_rel(got, want) <= TOL_BWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["bias", "cross", "head_grid", "long",
+                                  "unpadded"])
+def test_flash_attention_wide_forms_in_every_variant(cuda, case, dtype):
+    """The wide forms with the key bias, Lq 128 against Lk 256 (E6, row0 =
+    128), at a tensor-parallel rank's head grid (E7), at L 1024 (16 key
+    tiles fused) and at a head_dim the wrapper pads (196 in float32 to 200,
+    184 in bf16 to 192), each with dropout, against the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    lq = lk = 1024 if case == "long" else 256
+    if case == "cross":
+        lq = 128
+    d = {"unpadded": 196 if dtype == torch.float32 else 184}.get(case, 192)
+    bh = 4 if case == "long" else 6
+    q, do = (torch.randn(bh, lq, d, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, lk, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    bias = (torch.randn(2, lk, generator=gen, device=cuda)
+            if case == "bias" else None)
+    grid = (3, 6, 1, 3) if case == "head_grid" else flash_attention.ONE_DEVICE
+    row0 = lk - lq
+    drop = (0.1, 1234)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop, bias=bias,
+                                                 head_grid=grid, row0=row0)
+    grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
+                                                bias=bias, head_grid=grid,
+                                                row0=row0)
+    o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(
+        q, k, v, *drop, bias, grid, row0)
+    refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop,
+                                                   bias, grid, row0)
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+    if dtype == torch.bfloat16:
+        assert_bf16_close(o, o_ref, 1, TOL)
+        for got, want in zip(grads, refs):
+            assert_bf16_close(got, want, 2, TOL_BWD)
+    else:
+        assert max_rel(o, o_ref) <= TOL
+        for got, want in zip(grads, refs):
+            assert max_rel(got, want) <= TOL_BWD
+
+
+# more than 32 states: 33 (a chunk of 32 and one of 1), 48, 64 (the DiM at
+# state_size 64) and 128; L 256, a ragged 100 and 1024 (K7's scratch in
+# device memory); D 768 and 200
+WIDE_STATE_SHAPES = [(4, 256, 768, 64), (2, 100, 200, 33), (2, 1024, 768, 64),
+                     (3, 37, 130, 48), (2, 256, 768, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length,d_inner,n_state", WIDE_STATE_SHAPES)
+def test_scan_kernels_take_more_than_32_states(cuda, batch, length, d_inner,
+                                               n_state):
+    """Every scan entry past 32 states against its plain version: K5, K6
+    (bound), K8, K7, K9 and K10, and E4's stated forward (y, bound, h_out),
+    its state-only form and its backward (dh_in among the gradients)."""
+    gen = torch.Generator(device=cuda).manual_seed(length + n_state)
+    x, dt, A, B, C, g = scan_inputs(batch, length, d_inner, n_state, gen,
+                                    cuda)
+    args = (x, dt, A, B, C)
+    y_ref, bound_ref = scan_mod.selective_scan_fwd_ref(*args, True)
+    bar = TOL * max(bound_ref.abs().max().item(), 1.0)
+    before = scan_launch_counts()
+    y, _ = scan_mod.selective_scan_fwd(*args, False)
+    y_states, bound = scan_mod.selective_scan_fwd(*args, True)
+    y_split, bound_split = scan_mod.selective_scan_fwd_split(*args)
+    grads = {"bwd": scan_mod.selective_scan_bwd(*args, g, bound),
+             "bwd_nostate": scan_mod.selective_scan_bwd_nostate(*args, g),
+             "bwd_split": scan_mod.selective_scan_bwd_split(*args, g, bound)}
+    torch.cuda.synchronize()
+    assert launched_since(before) == {
+        "FWD_LAUNCHES": 2, "FWD_STATES_LAUNCHES": 1, "FWD_SPLIT_LAUNCHES": 1,
+        "BWD_LAUNCHES": 1, "BWD_NOSTATE_LAUNCHES": 1, "BWD_SPLIT_LAUNCHES": 1}
+    for got in (y, y_states, y_split):
+        assert max_rel(got, y_ref) <= TOL
+    for got in (bound, bound_split):
+        assert (got - bound_ref).abs().max().item() <= bar
+    refs = scan_mod.selective_scan_bwd_ref(*args, g, bound_ref)
+    for kernel, got in grads.items():
+        for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, refs):
+            assert max_rel(a, b) <= TOL_BWD, (kernel, name)
+
+    h_in = 0.5 * torch.randn(batch, d_inner, n_state, generator=gen,
+                             device=cuda)
+    g_h = torch.randn_like(h_in)
+    y_s, bound_s, h_out = scan_mod.selective_scan_fwd_state(*args, h_in)
+    _, bound_end, h_end = scan_mod.selective_scan_fwd_state(*args, h_in,
+                                                            with_y=False)
+    stated = scan_mod.selective_scan_bwd_state(*args, g, bound_s, g_h)
+    refs_s = scan_mod.selective_scan_fwd_state_ref(*args, h_in)
+    assert max_rel(y_s, refs_s[0]) <= TOL
+    for got in (bound_s, bound_end):
+        assert (got - refs_s[1]).abs().max().item() <= TOL * max(
+            refs_s[1].abs().max().item(), 1.0)
+    for got in (h_out, h_end):
+        assert max_rel(got, refs_s[2]) <= TOL
+    for a, b in zip(stated, scan_mod.selective_scan_bwd_state_ref(
+            *args, g, refs_s[1], g_h)):
+        assert max_rel(a, b) <= TOL_BWD

@@ -85,6 +85,29 @@ def test_int8_matmul_matches_jax(rows, k, n):
     assert max_rel(got.numpy(), want) <= 1e-6
 
 
+@pytest.mark.parametrize("rows,k,n", [(40, 75, 21), (5, 3, 1), (33, 8, 17),
+                                      (17, 100, 9)])
+def test_int8_product_pads_any_width_bit_for_bit(rows, k, n):
+    """K and N that `torch._int_mm` refuses on CUDA (no multiple of 8, or
+    under 16) are padded with zeros to `padded_width` and the result is
+    sliced back: the int32 sums equal those of the unpadded product bit for
+    bit, and those of the JAX package's `dot_general`, which takes any
+    width."""
+    rng = np.random.default_rng(rows * k + n)
+    xq = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    assert quant.padded_width(k) % 8 == 0 and quant.padded_width(k) >= 16
+    acc = quant.int8_accumulate(xq, wq)
+    assert acc.dtype == torch.int32 and acc.shape == (rows, n)
+    torch.testing.assert_close(acc, (xq.long() @ wq.long().t()).int(),
+                               rtol=0, atol=0)
+    want = jax.lax.dot_general(jnp.asarray(xq.numpy()),
+                               jnp.asarray(wq.numpy().T),
+                               (((1,), (0,)), ((), ())),
+                               preferred_element_type=jnp.int32)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want))
+
+
 def test_int8_linear_caches_the_weight_until_it_changes():
     weight = torch.nn.Parameter(torch.randn(32, 16))
     cache = quant.Int8Weights()

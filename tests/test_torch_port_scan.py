@@ -216,10 +216,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     else:
         bound = torch.zeros(2, 2, 4, 8)
     if case == "state":
-        # more than MAX_STATE states: the card's kernels refuse it (a `cuda`
-        # test in test_torch_port_kernels.py), the plain versions on the CPU
-        # take it, as the JAX package's XLA scan does
-        assert A.shape[1] > ss.MAX_STATE
+        # more than STATE_CHUNK states: the card's kernels walk them in
+        # chunks (`cuda` tests in test_torch_port_kernels.py), the plain
+        # versions on the CPU take them whole, as the JAX package's XLA scan
+        # does
+        assert A.shape[1] > ss.STATE_CHUNK
         y, saved = ss.selective_scan_fwd(x, dt, A, B, C, True)
         assert y.shape == x.shape and saved.shape == bound.shape
         grads = ss.selective_scan_bwd(x, dt, A, B, C, g, bound)

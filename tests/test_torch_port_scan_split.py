@@ -326,9 +326,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(op, case):
         getattr(ss, "selective_scan_" + op)(*args)  # not an input of this op
         return
     if case == "state":
-        # more than MAX_STATE states: refused on the card only; the plain
-        # versions on the CPU take any state size
-        assert A.shape[1] > ss.MAX_STATE
+        # more than STATE_CHUNK states: the card's kernels walk them in
+        # chunks; the plain versions on the CPU take any state size whole
+        assert A.shape[1] > ss.STATE_CHUNK
         outs = getattr(ss, "selective_scan_" + op)(*args)
         assert outs[0].shape == x.shape
         return
