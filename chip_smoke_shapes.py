@@ -4,11 +4,13 @@ card:
 
 * K2 and K3's wide forms (`ops/flash_attention.py` past `WIDE_HEAD_DIM`;
   `csrc/flash_attn.cu`, `csrc/flash_attn_bwd.cu`, built as
-  `flash_attn_wide*.cu`, `flash_attn_bwd_wide*.cu`) against their plain
+  `flash_attn_wide*.cu`, `flash_attn_bwd_wide*.cu`: one block a tile owns
+  every column up to 256, the chunked forms past it) against their plain
   versions: head_dim 136, 192, 256 and 384 at BH 192, L 256 and a ragged
   200; float32 and bf16, p 0 and 0.1, the fused and the two-kernel
   backward; with a key bias and Lq 128 against Lk 256 at 192 and 384; 192
-  also at L 1024;
+  also at L 1024; the dropout mask read back through v = I at 192, 256 and
+  384, bit for bit against `philox_keep_mask`;
 * the scan kernels past 32 states (`ops/selective_scan.py`, the chunks of
   `csrc/selective_scan_common.cuh`) against their plain versions at N 33,
   64 and 128, D 768, (batch, L) (32, 256), (8, 100) and (8, 1024): K5, K6
@@ -28,7 +30,9 @@ card:
   wide form, a step 12 + 12 in the wide dropout form;
 * ms a call of each new form on those paths beside its plain version, its
   bound (`scan_work(..., n_state=64)`, `attn_work(..., d=192)`) and, for
-  K2 and K3, `F.scaled_dot_product_attention` on (1, BH, L, d) inputs.
+  K2 and K3, `F.scaled_dot_product_attention` on (1, BH, L, d) inputs; K2
+  and K3 also at head_dim 256 (BH 256, L 256, p 0.1), the widest the
+  one-block wide forms take.
 
 Every failure raises. Alone, after `phase_build`:
 
@@ -55,6 +59,7 @@ ATTN_BH = 192
 ATTN_LENGTHS = (256, 200)
 VARIANT_HEAD_DIMS = (192, 384)  # the key bias and Lq != Lk
 LONG_LENGTH = 1024  # d 192 at the 64x64 DiT's L
+WIDEST_HEAD_DIM = fa.WIDEST_ONE_BLOCK  # the widest one-block form, timed too
 WIDE_STATES = (33, 64, 128)
 SCAN_CASES = [(32, 256), (8, 100), (8, 1024)]  # (batch, L) at D 768
 INT8_SHAPE = (40, 75, 21)  # (M, K, N)
@@ -153,6 +158,33 @@ def attention_checks(gen):
                 f"K2/K3 wide {name_of(dtype)}", ATTN_BH, LONG_LENGTH,
                 LONG_LENGTH, DIT_HEAD_DIM, dtype, c.ATTN_DROPOUT, fused, gen))
     return worst
+
+
+def check_wide_masks(gen):
+    """At L = d, v = I: o = P o Z exactly, so the zeros of the wide forward's
+    o must be the dropped keys of `philox_keep_mask`, bit for bit, at the
+    one-block forms' two widths (192, 256) and the chunked form's (384) in
+    float32 and bf16."""
+    for d in (DIT_HEAD_DIM, fa.WIDEST_ONE_BLOCK, WIDE_HEAD_DIMS[-1]):
+        keep = fa.philox_keep_mask(c.ATTN_DROPOUT_SEED, ATTN_BH, d, d,
+                                   c.ATTN_DROPOUT, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k = (torch.randn(ATTN_BH, d, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            v = torch.eye(d, device="cuda", dtype=dtype).expand(
+                ATTN_BH, -1, -1).contiguous()
+            c.reset_launches()
+            o, _ = fa.flash_attention_fwd(q, k, v, c.ATTN_DROPOUT,
+                                          c.ATTN_DROPOUT_SEED)
+            torch.cuda.synchronize()
+            differ = (o.ne(0) != keep).sum().item()
+            print(f"  K2 wide {name_of(dtype)} dropout mask read back through "
+                  f"v = I, BH={ATTN_BH} L=d={d} ({keep.numel()} keys): "
+                  f"{differ} keys differ from philox_keep_mask")
+            if differ or c.read_launches()["attn_wide"] != 1:
+                raise AssertionError(f"wide mask read-back d {d} {dtype}: "
+                                     f"{differ} keys differ, launches "
+                                     f"{c.read_launches()}")
 
 
 def check_scan_case(batch, length, n_state, gen):
@@ -335,6 +367,7 @@ def phase_shapes(gen, smi):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = {"attn": attention_checks(gen), "scan_fwd": 0.0, "scan_bwd": 0.0}
+    check_wide_masks(gen)
     for n_state in WIDE_STATES:
         for batch, length in SCAN_CASES:
             fwd, bwd = check_scan_case(batch, length, n_state, gen)
@@ -349,7 +382,10 @@ def phase_shapes(gen, smi):
                                               DIT_HEAD_DIM, dtype, 0.0, gen),
                      "train": time_attention(train_bh, c.DIT_LENGTH,
                                              DIT_HEAD_DIM, dtype,
-                                             c.ATTN_DROPOUT, gen)}
+                                             c.ATTN_DROPOUT, gen),
+                     "widest": time_attention(train_bh, c.DIT_LENGTH,
+                                              WIDEST_HEAD_DIM, dtype,
+                                              c.ATTN_DROPOUT, gen)}
              for dtype in (torch.float32, torch.bfloat16)}
     scan_times = {"sample": time_scan(2 * SAMPLES, c.DIT_LENGTH, DIM_STATES,
                                       gen),
@@ -396,6 +432,7 @@ def kernel_rows(figures):
                 ("bwd", "flash_attn_bwd_wide", "flash_attn_bwd.cu", "126",
                  "attn_bwd_wide", "train")):
             t = figures["times"][dtype][when]
+            widest = figures["times"][dtype]["widest"]
             launches = path[f"{when}_launches"][count]
             rows.append({
                 "name": name + suffix, "route": "cuda",
@@ -407,7 +444,10 @@ def kernel_rows(figures):
                 "ms": t[key], "plain_ms": t[f"{key}_plain"],
                 **t[f"{key}_bound"].keys(),
                 "library_ms": t[f"{key}_library"],
-                "head_dim": DIT_HEAD_DIM})
+                "head_dim": DIT_HEAD_DIM,
+                f"ms_d{WIDEST_HEAD_DIM}": widest[key],
+                f"library_ms_d{WIDEST_HEAD_DIM}": widest[f"{key}_library"],
+                f"bound_ms_d{WIDEST_HEAD_DIM}": widest[f"{key}_bound"].ms})
     for key, name, source, line, count, when, err in (
             ("fwd", "selective_scan_fwd_n64", "selective_scan_fwd.cu", "93",
              "scan_fwd", "sample", "scan_fwd"),

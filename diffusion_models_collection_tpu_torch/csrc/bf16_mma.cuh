@@ -181,6 +181,9 @@ __device__ __forceinline__ void request_bf16_rows(bf16* dst,
 }
 
 // Head dimensions past 128 (the wide forms of flash_attn.cu and
-// flash_attn_bwd.cu): a block owns kWideCols output columns and sums each
-// product over d in chunks of as many.
+// flash_attn_bwd.cu): up to kWideMax a block owns every column of d, which
+// it pads to kWideMid or kWideMax; past it a block owns kWideCols output
+// columns and sums each product over d in chunks of as many.
+constexpr int kWideMax = 256;
+constexpr int kWideMid = 192;  // the one-block forms' narrower DMAX
 constexpr int kWideCols = 128;

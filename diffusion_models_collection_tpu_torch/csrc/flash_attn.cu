@@ -660,27 +660,25 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------------ head dimensions past 128
 // The wide forms (entries `flash_attn_fwd_wide`, `flash_attn_fwd_wide_bias`,
 // compiled in flash_attn_wide.cu and flash_attn_wide_bias.cu so that the
-// forms up to 128 stay as they were). A block owns one block of output
-// columns (blockIdx.z, c0 = z kWideOutF32 in float32, z kWideCols in bf16)
-// of one (head, query tile of 64). For each key tile it sums S = Q K^T over
-// all of d, 128 columns at a time through single Q and K tiles in shared
-// memory, then runs the online softmax and P V over its own columns of V,
-// which arrive with the first chunk. Every column block of a row computes
-// the same S, P and dropout mask (the mask is a function of (seed, head,
-// row, key), with no column in it), so they agree on the running max and
-// sum; block 0 writes lse. The float32 form keeps the geometry of the d <=
-// 128 form at DMAX 128 for S (64 rows, key tiles of 64, four by four a
-// thread) and owns 256 output columns, 16 a thread, so up to d 256 one
-// block computes S once (at d 192, 128 columns a block computed S twice and
-// the forward ran at its plain version's time); the bf16 form keeps that of
-// its DMAX 128 form (four warps of 16 rows, key tiles of 64; 128 output
-// columns, whose accumulators take 64 registers a lane), with Q's fragments
-// loaded from shared memory for each chunk. Simple first: every chunk waits
-// for its copies (no double buffering), and Q is read again for every key
-// tile. What bounds it on an H100: as the forms up to 128 (float32 the
-// CUDA-core FMAs, bf16 the bytes and the instructions around the products),
-// plus the barriers and the waits of the chunk loop and Q read ceil(L / 64)
-// times.
+// forms up to 128 stay as they were). Up to 256 the one-block forms below
+// this section run; the chunked forms here take d past 256. A block owns one
+// block of output columns (blockIdx.z, c0 = z kWideOutF32 in float32, z
+// kWideCols in bf16) of one (head, query tile of 64). For each key tile it
+// sums S = Q K^T over all of d, 128 columns at a time through single Q and
+// K tiles in shared memory, then runs the online softmax and P V over its
+// own columns of V, which arrive with the first chunk. Every column block of
+// a row computes the same S, P and dropout mask (the mask is a function of
+// (seed, head, row, key), with no column in it), so they agree on the
+// running max and sum; block 0 writes lse. The float32 form keeps the
+// geometry of the d <= 128 form at DMAX 128 for S (64 rows, key tiles of
+// 64, four by four a thread) and owns 256 output columns, 16 a thread; the
+// bf16 form keeps that of its DMAX 128 form (four warps of 16 rows, key
+// tiles of 64; 128 output columns, whose accumulators take 64 registers a
+// lane), with Q's fragments loaded from shared memory for each chunk. Every chunk waits for its
+// copies (no double buffering), and Q is read again for every key tile.
+// What bounds it on an H100: as the forms up to 128 (float32 the CUDA-core
+// FMAs, bf16 the bytes and the instructions around the products), plus the
+// barriers and the waits of the chunk loop and Q read ceil(L / 64) times.
 constexpr int kWideOutF32 = 256;
 
 // Shared memory of the float32 wide form: the Q and K chunk tiles, the V
@@ -849,6 +847,154 @@ flash_fwd_bf16_wide_kernel(const bf16* __restrict__ q,
                            row0, Lq, d, d - c0, lane);
 }
 
+// ---------------------------- head dimensions past 128, up to 256: one block
+// The wide forms up to kWideMax (256, the TPU kernel's widest head_dim).
+// They replace the same _fwd_kernel (flash_attention.py:65) at those widths.
+// A block owns every column of its query rows, so it computes S, the online
+// softmax and the dropout mask once for each (query tile, key tile) pair,
+// whatever d is; only P V runs over the columns. d is padded to DMAX 192
+// (kWideMid, d <= 192: the DiT at two heads) or 256, so every loop over the
+// columns has a fixed count and the accumulators of the narrower form take
+// three quarters of the registers. Q is copied into shared memory once.
+// * bfloat16: what bounds it on an H100 is the bytes and the instructions
+//   around the tensor-core products (at BH 256, L 256, d 192: q, k, v, o
+//   take 0.030 ms at 3.35 TB/s; Q K^T and the two P V products, hi and lo,
+//   0.020 ms at 989 TFLOP/s). The query tiles of one head are neighbouring
+//   blocks (blockIdx.x = bh tiles + tile), so a head's K and V are read from
+//   device memory about once and from the L2 cache by its other tiles.
+//   Eight warps of 16 query rows (128 rows; the float32 accumulators of DMAX
+//   columns take 96 or 128 registers a lane, so Q's fragments are read from
+//   shared memory at each k16 step rather than held); key tiles of 64
+//   through two stages of K and V, the next tile's cp.async copies in
+//   flight during this tile's products, one barrier a key tile. Q plus two
+//   stages is 150 or 198 KB of shared memory: one block an SM. The arithmetic is the d <= 128 form's: exact bf16 operands, P in
+//   hi + lo, the same Philox calls and keep bits (`dropout_keep_bits_rows`).
+// * float32: what bounds it is the CUDA-core FMAs (the two products at 67
+//   TFLOP/s: 0.19 ms at BH 256, L 256, d 192). The d <= 128 form's kernel,
+//   `flash_fwd_kernel`, at DMAX: 64 query rows, key tiles of 64, four by
+//   four scores and four rows of DMAX / 16 columns a thread (256 threads).
+//   Two stages of K and V do not fit beside Q at 64-key tiles (Q, K, V and P
+//   are 164 or 212 KB), so the copies are staggered as that kernel's are:
+//   V's tile flies during Q K^T and the softmax, the next K tile during P V,
+//   one copy in flight under every product. A kernel of its own whose query
+//   tiles of a head were neighbouring blocks read the same times (within 3
+//   %), so there is none.
+// d past 256 keeps the chunked forms above. Measured on an H100 80GB HBM3 at
+// 700 W (tools/profile_torch_kernels.py --only wide, from a CUDA graph), ms
+// a call at BH 256, L 256, d 192, p 0.1: bf16 0.146 against the chunked
+// form's 0.293, PyTorch's flash kernel's 0.061 and a bound of 0.030 (bytes);
+// float32 0.46 against 0.65, the library's 0.42 and 0.19 (operations). Four
+// warps over key tiles of 32, two blocks an SM, read 0.153 in bf16.
+
+template <int DMAX, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_bf16_wide256_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ o, float* __restrict__ lse,
+                              int Lq, int Lk, int d, float scale_log2,
+                              DropoutParams dp, KeyBias kb) {
+  constexpr int BK = 64;
+  using C = Bf16Cfg<DMAX, 8, BK>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* Kb = Qs + C::BQ * C::S;  // K tiles: buffer (tile index & 1)
+  bf16* Vb = Kb + 2 * BK * C::S;
+
+  const int tiles = (Lq + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bh * tiles) * C::BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, row0 + g + 8
+  const int steps = d >> 4;         // k16 steps (and 16-column blocks) of d
+  const size_t head = (size_t)bh * Lq * d;  // q and o
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+
+  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, Lk, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, Lk, d, tid);
+  cp_async_commit_group();
+
+  // rows g and g + 8: the output's accumulators, the running max (base 2,
+  // the same in the row's four lanes) and this lane's share of the sum
+  float acc[C::ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int k0 = 0, it = 0; k0 < Lk; k0 += BK, ++it) {
+    const bf16* Ks = Kb + (it & 1) * BK * C::S;
+    const bf16* Vs = Vb + (it & 1) * BK * C::S;
+    cp_async_wait_groups();
+    __syncthreads();  // this tile is in; every warp is past the last one
+    if (k0 + BK < Lk) {  // the next tile flies during this one's products
+      request_bf16_rows<DMAX, BK, C::NT>(Kb + ((it + 1) & 1) * BK * C::S,
+                                             kh, k0 + BK, Lk, d, tid);
+      request_bf16_rows<DMAX, BK, C::NT>(Vb + ((it + 1) & 1) * BK * C::S,
+                                             vh, k0 + BK, Lk, d, tid);
+      cp_async_commit_group();
+    }
+    if (row0 >= Lq) continue;  // no real row: only the barriers
+
+    uint32_t keep = 0;  // first: Philox's integer work does not wait
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits_rows<C::NB>(dp, bh, row0, k0, lane);
+
+    // S = Q K^T from exact bf16 operands, float32 sums; Q's fragment of
+    // each k16 step from shared memory
+    float s[C::NB][4];
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      if (kk < steps) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, Qs + 16 * warp * C::S + 16 * kk + off_a);
+#pragma unroll
+        for (int jj = 0; jj < C::NB / 2; ++jj) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Ks + 16 * jj * C::S + 16 * kk + off_b);
+          mma_bf16(s[2 * jj], qa, b[0], b[1]);
+          mma_bf16(s[2 * jj + 1], qa, b[2], b[3]);
+        }
+      }
+    }
+
+    softmax_bf16_tile<C::NB, C::ND, DROPOUT, BIAS>(s, m, l, acc, keep, brow,
+                                                   k0, Lk, t, scale_log2, dp);
+
+    // O += (P o Z) V over every column: P split in hi + lo, V's fragments
+    // by ldmatrix.trans
+#pragma unroll
+    for (int c = 0; c < C::NB / 2; ++c) {
+      if (k0 + 16 * c >= Lk) break;  // keys past Lk: P is 0
+      uint32_t hi[4], lo[4];
+      split_a(s[2 * c], s[2 * c + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < C::KD; ++np) {
+        if (np < steps) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Vs + 16 * c * C::S + 16 * np + off_a);
+          mma_bf16_split(acc[2 * np], hi, lo, b[0], b[1]);
+          mma_bf16_split(acc[2 * np + 1], hi, lo, b[2], b[3]);
+        }
+      }
+    }
+  }
+  if (row0 >= Lq) return;
+  store_output_bf16<C::ND>(acc, m, l, o + head, lse + (size_t)bh * Lq, row0,
+                           Lq, d, d, lane);
+}
+
 // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
 // and device: set it at the first launch on each device, not every launch.
 template <typename Kernel>
@@ -964,13 +1110,44 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse,
            (cudaStream_t)stream);
 }
 
-// The wide forms' launch: a block per (head, query tile of 64, 256 output
-// columns; bf16 128).
+// The one-block bf16 wide form's launch at a head_dim padded to DMAX: a
+// block per (head, query tile of 128 rows), blockIdx.x = bh tiles + tile.
+template <int DMAX, bool DROPOUT, bool BIAS>
+int launch_wide256_bf16(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int bh, int Lq, int Lk, int d,
+                        float scale_log2, const DropoutParams& dp,
+                        const KeyBias& kb, cudaStream_t stream) {
+  using C = Bf16Cfg<DMAX, 8, 64>;
+  constexpr auto kernel = flash_fwd_bf16_wide256_kernel<DMAX, DROPOUT, BIAS>;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  const int rc = opt_in(kernel, opted_in, C::SMEM);
+  if (rc != 0) return rc;
+  kernel<<<(unsigned)bh * ((Lq + C::BQ - 1) / C::BQ), C::NT, C::SMEM,
+           stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                     (bf16*)o, lse, Lq, Lk, d, scale_log2, dp, kb);
+  return (int)cudaGetLastError();
+}
+
+// The wide forms' launch: up to kWideMax a block per (head, query tile of
+// 128 rows in bf16, 64 in float32); past it a block per (head, query tile of
+// 64, 256 output columns; bf16 128).
 template <bool DROPOUT, bool BIAS>
 int launch_wide(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int Lq, int Lk, int d, float scale,
                 int bf16_form, const DropoutParams& dp, const KeyBias& kb,
                 cudaStream_t stream) {
+  if (d <= kWideMax && bf16_form) {  // one block a query tile of 128 rows
+    auto f = d <= kWideMid ? &launch_wide256_bf16<kWideMid, DROPOUT, BIAS>
+                           : &launch_wide256_bf16<kWideMax, DROPOUT, BIAS>;
+    return f(q, k, v, o, lse, bh, Lq, Lk, d, scale * kLog2e, dp, kb, stream);
+  }
+  if (d <= kWideMax) {  // the d <= 128 form's kernel at DMAX 192 or 256
+    auto f = d <= kWideMid ? &launch<kWideMid, 64, 64, 4, 4, DROPOUT, BIAS>
+                           : &launch<kWideMax, 64, 64, 4, 4, DROPOUT, BIAS>;
+    return f((const float*)q, (const float*)k, (const float*)v, (float*)o,
+             lse, bh, Lq, Lk, d, scale, dp, kb, stream);
+  }
+  // past 256: the chunked forms
   const int out_cols = bf16_form ? kWideCols : kWideOutF32;
   const dim3 grid(bh, (Lq + 63) / 64, (d + out_cols - 1) / out_cols);
   if (bf16_form) {

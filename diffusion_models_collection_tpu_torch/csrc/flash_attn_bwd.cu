@@ -1215,7 +1215,9 @@ int launch_dq_sum(const float* partial, T* dq, int bh, int Lq, int d,
 // ------------------------------------------------ head dimensions past 128
 // The wide forms (entries `flash_attn_bwd_wide`, `flash_attn_bwd_wide_bias`,
 // compiled in flash_attn_bwd_wide.cu and flash_attn_bwd_wide_bias.cu so that
-// the forms up to 128 stay as they were). Each block owns one block of
+// the forms up to 128 stay as they were). Up to 256 the one-block forms
+// below this section run; the chunked forms here take d past 256. Each
+// block owns one block of
 // kWideCols columns of d (blockIdx.z, c0 = 128 z) of its outputs: dK_j, dV_j
 // and the dQ shares in the key-tile kernels, dQ_i in the dQ kernels. For
 // each tile pair it sums S = Q K^T and dP = dO V^T over all of d, 128
@@ -1226,8 +1228,8 @@ int launch_dq_sum(const float* partial, T* dq, int bh, int Lq, int d,
 // are split over the blocks. The geometry is that of the forms at DMAX 128:
 // float32 tiles of 64 (256 threads, four by four a thread); bf16 key tiles
 // of 64 (four warps) walking query tiles of 32, and the dQ kernel's four
-// warps of 16 query rows walking key tiles of 32. Simple first: every chunk
-// waits for its copies and Q, dO, K, V are read again for every tile pair.
+// warps of 16 query rows walking key tiles of 32. Every chunk waits for its
+// copies and Q, dO, K, V are read again for every tile pair.
 // What bounds it on an H100: as the forms up to 128, plus the chunk loop's
 // waits and the scores computed once for every column block.
 
@@ -1600,6 +1602,775 @@ flash_bwd_bf16_dq_wide_kernel(const bf16* __restrict__ q,
     store_acc_cols(dq + head + c0, acc, scale, row0, 0, Lq, d, d - c0, lane);
 }
 
+// ---------------------------- head dimensions past 128, up to 256: one block
+// The wide forms up to kWideMax (256, the TPU kernel's widest head_dim).
+// They replace the same _bwd_kernel (flash_attention.py:126) at those widths.
+// A block owns every column of its outputs, so S, P (with the dropout mask),
+// dP and dS are computed once for each (query tile, key tile) pair, whatever
+// d is; only the products that make the outputs (dV, dK and the dQ share;
+// dQ in the dQ kernels) are split over the block's warps. d is padded to
+// DMAX 192 (kWideMid, d <= 192) or 256, so every loop over the columns has a
+// fixed count. The tiles of one head are neighbouring blocks (blockIdx.x = bh
+// tiles + tile), so the tiles a head's blocks share are read from device
+// memory about once and from the L2 cache after.
+// * bfloat16: what bounds it on an H100 is the bytes and the instructions
+//   around the tensor-core products (q, k, v, o, dO, dq, dk, dv in bf16 take
+//   0.060 ms at BH 256, L 256, d 192 at 3.35 TB/s). A block of eight warps
+//   (two warpgroups) keeps K_j, V_j of 64 keys and walks query tiles of 32,
+//   Q, dO, lse and delta double-buffered by cp.async (the next tile's copies
+//   fly during this tile's products). dK and dV of 64 keys at 256 columns
+//   would take 256 accumulator registers a lane over four warps, so the
+//   eight warps split them: warp w keeps keys 16 (w % 4) .. of the column
+//   half w / 4 (96 or 128 registers a lane). The scores are not split with
+//   them: warp w computes S^T and dP^T of its 16 keys against 16 of the
+//   tile's 32 queries (16 (w / 4) ..), over all of d, makes P o Z and dS in
+//   float32 and shares them through shared memory as bf16 hi + lo (four (64,
+//   40) tiles), from which each warp reads the A fragments of its keys' dV
+//   and dK products. The dQ share dS K_j reads dS from the same tiles; each warp
+//   takes 16 queries and DMAX / 4 columns of it. Shared memory 121 or 153
+//   KB, one block an SM; two barriers a query tile.
+// * float32: what bounds it is the CUDA-core FMAs (the five products at 67
+//   TFLOP/s: 0.48 ms at BH 256, L 256, d 192). 256 threads keep K_j, V_j of
+//   64 keys and walk query tiles of 32: S and dP two rows by four keys a
+//   thread, P and dS through shared memory, dV and dK four keys by DMAX / 16
+//   columns a thread and the dQ share two rows by DMAX / 16 columns. K, V,
+//   Q, dO, P and dS take 164 or 212 KB of shared memory, so Q and dO are
+//   single tiles: the next ones fly during the dQ share's product (in the
+//   two-kernel form, whose key-tile kernel has no dQ product, the copies are
+//   waited for).
+// * The two-kernel form's dQ kernels own every column of dQ too: bf16 eight
+//   warps of 16 query rows (128 rows), key tiles of 32 in two stages, Q's
+//   and dO's fragments read from shared memory at each k16 step (dQ's
+//   accumulators take 128 registers a lane); float32 query tiles of 64 rows
+//   against key tiles of 32, S and dP two rows by four keys a thread, dQ four
+//   rows by DMAX / 16 columns, V's next tile flying during the dQ product.
+// d past 256 keeps the chunked forms above. Measured on an H100 80GB HBM3 at
+// 700 W (tools/profile_torch_kernels.py --only wide, from a CUDA graph), ms
+// a call at BH 256, L 256, d 192, p 0.1, fused: bf16 0.453 against the
+// chunked form's 0.655, the library's backward's 0.27-0.32 (in a row) and a
+// bound of 0.060 (bytes); float32 1.38 against 2.33, 1.34 and 0.48
+// (operations).
+
+// The bf16 key-tile kernel's geometry: a key tile of BT keys, query tiles of
+// BQ, head_dim padded to DMAX; HN n8 tiles of d in a warp's half of dK, dV;
+// `bf16_dq_share` reads NW (16-key chunks), RG (16-query groups) and NDW
+// (n8 tiles of d a warp's share takes, eight warps).
+template <int DMAX>
+struct Bf16WideCfg {
+  static constexpr int BT = 64, BQ = 32, NT = 256;
+  static constexpr int S = DMAX + 8;   // row stride of K, V, Q, dO
+  static constexpr int SQ = BQ + 8;    // row stride of the P, dS tiles
+  static constexpr int KD = DMAX / 16;
+  static constexpr int HN = DMAX / 16;
+  static constexpr int NW = BT / 16, RG = BQ / 16;
+  static constexpr int NDW = DMAX / 8 / (NT / 32 / RG);
+  // K, V; two Q and two dO tiles; (P o Z)^T and dS^T as hi + lo; two tiles'
+  // lse and delta
+  static constexpr size_t SMEM =
+      sizeof(bf16) * ((size_t)(2 * BT + 4 * BQ) * S + 4 * (size_t)BT * SQ) +
+      sizeof(float) * 4 * BQ;
+};
+
+// The float32 forms' tiles: a key tile of BT keys and query tiles of BQ in
+// the key-tile kernel; query tiles of DQ_BQ rows and key tiles of DQ_BK in
+// the dQ kernel; rows of DMAX + 4 floats, a thread's columns in G groups of
+// four, 4 (tx + 16 g).
+template <int DMAX>
+struct F32WideCfg {
+  static constexpr int BT = 64, BQ = 32, NT = 256;
+  static constexpr int DQ_BQ = 64, DQ_BK = 32;
+  static constexpr int P = DMAX + 4;
+  static constexpr int G = DMAX / 64;
+  static constexpr int SP = BT + 4;        // the key-tile kernel's P, dS
+  static constexpr int DQ_SP = DQ_BK + 4;  // the dQ kernel's dS
+  // K, V, Q, dO, P, dS and the rows' lse and delta
+  static constexpr size_t SMEM =
+      sizeof(float) *
+      ((size_t)(2 * BT + 2 * BQ) * P + 2 * (size_t)BQ * SP + 2 * BQ);
+  // Q, dO, K, V, dS, lse and delta
+  static constexpr size_t DQ_SMEM =
+      sizeof(float) * ((size_t)(2 * DQ_BQ + 2 * DQ_BK) * P +
+                       (size_t)DQ_BQ * DQ_SP + 2 * DQ_BQ);
+};
+
+// Request rows r0 .. r0 + ROWS - 1 of a head's (L, d) float32 matrix into a
+// (ROWS, DMAX + 4) tile by cp.async, zero past L and past column d; 256
+// threads.
+template <int DMAX, int ROWS>
+__device__ __forceinline__ void request_wide_rows(float* dst,
+                                                  const float* __restrict__ src,
+                                                  int r0, int L, int d,
+                                                  int tid) {
+  constexpr int V = DMAX / 4;  // pieces of a row
+  for (int i = tid; i < ROWS * V; i += F32WideCfg<DMAX>::NT) {
+    const int r = i / V;
+    const int c = (i - r * V) * 4;
+    const bool ok = r0 + r < L && c < d;
+    cp_async16(dst + r * F32WideCfg<DMAX>::P + c,
+               ok ? src + (size_t)(r0 + r) * d + c : src, ok);
+  }
+}
+
+// out[a][b] = A[row ty + TY a] . B[row tx + TX b] over the DMAX columns of
+// two tiles with rows DMAX + 4 apart (zero past d)
+template <int DMAX, int RA, int KB, int TX, int TY>
+__device__ __forceinline__ void wide_dot(const float* A, const float* B,
+                                         int ty, int tx,
+                                         float (&out)[RA][KB]) {
+  constexpr int P = F32WideCfg<DMAX>::P;
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int b = 0; b < KB; ++b) out[a][b] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < DMAX; c += 4) {
+    float4 bv[KB];
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+      bv[b] = *reinterpret_cast<const float4*>(B + (tx + TX * b) * P + c);
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(A + (ty + TY * a) * P + c);
+#pragma unroll
+      for (int b = 0; b < KB; ++b) {
+        float x = out[a][b];
+        x = fmaf(av.x, bv[b].x, x);
+        x = fmaf(av.y, bv[b].y, x);
+        x = fmaf(av.z, bv[b].z, x);
+        x = fmaf(av.w, bv[b].w, x);
+        out[a][b] = x;
+      }
+    }
+  }
+}
+
+// From S and dP of query rows ty + TY a, keys tx + TX b of a tile (query
+// rows from q0, keys from k0 of head bh): P (stored when Ps is given; P o Z
+// with DROPOUT) and dS into their tiles with rows SP apart, as `probs_from`
+template <int RA, int KB, int TX, int TY, int SP, bool DROPOUT, bool BIAS>
+__device__ __forceinline__ void wide_probs(
+    const float (&s)[RA][KB], const float (&dpv)[RA][KB], const float* lse_s,
+    const float* dl_s, float* Ps, float* dSs, int ty, int tx, float scale,
+    const DropoutParams& dp, const float* brow, int Lk, int bh, int q0,
+    int k0) {
+  float kbias[KB] = {};  // the keys' bias (0 past Lk, where K = V = 0)
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+      kbias[b] = key_bias_at(brow, k0 + tx + TX * b, Lk, 1.f);
+  }
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int r = ty + TY * a;
+    const float lr = lse_s[r];
+    const float dl = dl_s[r];
+    uint32_t keep = 0;
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits<TX, KB>(dp, bh, q0 + r, k0, tx);
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int col = tx + TX * b;
+      const float p = expf(BIAS ? fmaf(s[a][b], scale, kbias[b]) - lr
+                                : s[a][b] * scale - lr);
+      float z = 1.f;
+      if constexpr (DROPOUT) z = (keep >> b) & 1u ? dp.keep_scale : 0.f;
+      if (Ps != nullptr) Ps[r * SP + col] = DROPOUT ? p * z : p;
+      dSs[r * SP + col] = p * ((DROPOUT ? dpv[a][b] * z : dpv[a][b]) - dl) *
+                          scale;
+    }
+  }
+}
+
+// acc[a][4 g + e] += sum_j X[row ty + TY a][j] Y[j][4 (tx + 16 g) + e] over
+// the J columns of X (rows SX apart) and the rows of Y (rows DMAX + 4 apart)
+template <int DMAX, int RA, int TY, int SX, int J>
+__device__ __forceinline__ void wide_rows_product(
+    const float* X, const float* Y, int ty, int tx,
+    float (&acc)[RA][4 * F32WideCfg<DMAX>::G]) {
+  using C = F32WideCfg<DMAX>;
+#pragma unroll 2
+  for (int j = 0; j < J; j += 4) {
+    float xv[RA][4];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+      load_vec<4>(xv[a], X + (ty + TY * a) * SX + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        float yv[4];
+        load_vec<4>(yv, Y + (j + jj) * C::P + 4 * (tx + 16 * g));
+#pragma unroll
+        for (int a = 0; a < RA; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[a][4 * g + e] = fmaf(xv[a][jj], yv[e], acc[a][4 * g + e]);
+      }
+    }
+  }
+}
+
+// rows r0 + ty + TY a (< L) of acc at columns 4 (tx + 16 g) (< ncols) into
+// a head's (L, ncols) matrix
+template <int G, int RA, int TY>
+__device__ __forceinline__ void wide_store_rows(float* __restrict__ dst,
+                                                const float (&acc)[RA][4 * G],
+                                                int r0, int L, int ncols,
+                                                int ty, int tx) {
+#pragma unroll
+  for (int a = 0; a < RA; ++a) {
+    const int row = r0 + ty + TY * a;
+    if (row >= L) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int c = 4 * (tx + 16 * g);
+      if (c < ncols) store_vec<4>(dst + (size_t)row * ncols + c, acc[a] + 4 * g);
+    }
+  }
+}
+
+template <int DMAX, bool WITH_DQ, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_wide256_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq_out,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int Lq, int Lk, int d, float scale,
+                              DropoutParams dp, KeyBias kb) {
+  using C = F32WideCfg<DMAX>;
+  constexpr int BT = C::BT, BQ = C::BQ;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BT * C::P;
+  float* Qs = Vs + BT * C::P;
+  float* dOs = Qs + BQ * C::P;
+  float* Ps = dOs + BQ * C::P;  // (BQ, BT + 4)
+  float* dSs = Ps + BQ * C::SP;
+  float* lse_s = dSs + BQ * C::SP;
+  float* dl_s = lse_s + BQ;
+
+  const int tiles = (Lk + BT - 1) / BT;
+  const int bh = blockIdx.x / tiles;
+  const int tile = blockIdx.x - bh * tiles;
+  const int k0 = tile * BT;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const size_t head = (size_t)bh * Lq * d;   // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;  // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+  float* dq_head = nullptr;
+  if constexpr (WITH_DQ) dq_head = dq_out + ((size_t)bh * tiles + tile) * Lq * d;
+
+  request_wide_rows<DMAX, BT>(Ks, k + khead, k0, Lk, d, tid);
+  request_wide_rows<DMAX, BT>(Vs, v + khead, k0, Lk, d, tid);
+  request_wide_rows<DMAX, BQ>(Qs, q + head, 0, Lq, d, tid);
+  request_wide_rows<DMAX, BQ>(dOs, dout + head, 0, Lq, d, tid);
+  load_row_stats<BQ>(lse_s, dl_s, lse, delta, base, 0, Lq, tid);
+
+  // keys k0 + 4 ty + a, columns 4 (tx + 16 g) .. + 3
+  float dk_acc[4][4 * C::G], dv_acc[4][4 * C::G];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4 * C::G; ++b) dk_acc[a][b] = dv_acc[a][b] = 0.f;
+
+  for (int q0 = 0; q0 < Lq; q0 += BQ) {
+    cp_async_wait_all();
+    __syncthreads();  // the tiles and row stats are in; dSs is read
+    {  // S and dP: rows ty + 16 a, keys tx + 16 b
+      float s[2][4], dpv[2][4];
+      wide_dot<DMAX, 2, 4, 16, 16>(Qs, Ks, ty, tx, s);
+      wide_dot<DMAX, 2, 4, 16, 16>(dOs, Vs, ty, tx, dpv);
+      wide_probs<2, 4, 16, 16, C::SP, DROPOUT, BIAS>(
+          s, dpv, lse_s, dl_s, Ps, dSs, ty, tx, scale, dp, brow, Lk, bh, q0,
+          k0);
+    }
+    __syncthreads();  // P and dS are whole
+    // dV += P^T dO, dK += dS^T Q over the tile's rows
+    const int rows = min(BQ, Lq - q0);
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      float pv[4], dsv[4];
+      load_vec<4>(pv, Ps + r * C::SP + 4 * ty);
+      load_vec<4>(dsv, dSs + r * C::SP + 4 * ty);
+#pragma unroll
+      for (int g = 0; g < C::G; ++g) {
+        const int c = 4 * (tx + 16 * g);
+        float ov[4], qv[4];
+        load_vec<4>(ov, dOs + r * C::P + c);
+        load_vec<4>(qv, Qs + r * C::P + c);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv_acc[a][4 * g + e] = fmaf(pv[a], ov[e], dv_acc[a][4 * g + e]);
+            dk_acc[a][4 * g + e] = fmaf(dsv[a], qv[e], dk_acc[a][4 * g + e]);
+          }
+      }
+    }
+    __syncthreads();  // Qs, dOs and the row stats are read
+    if (q0 + BQ < Lq) {  // the next tiles fly during the dQ share
+      request_wide_rows<DMAX, BQ>(Qs, q + head, q0 + BQ, Lq, d, tid);
+      request_wide_rows<DMAX, BQ>(dOs, dout + head, q0 + BQ, Lq, d, tid);
+      load_row_stats<BQ>(lse_s, dl_s, lse, delta, base, q0 + BQ, Lq, tid);
+    }
+    if constexpr (WITH_DQ) {  // rows ty + 16 a, columns 4 (tx + 16 g)
+      float acc[2][4 * C::G];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4 * C::G; ++b) acc[a][b] = 0.f;
+      wide_rows_product<DMAX, 2, 16, C::SP, BT>(dSs, Ks, ty, tx, acc);
+      wide_store_rows<C::G, 2, 16>(dq_head, acc, q0, Lq, d, ty, tx);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = k0 + 4 * ty + a;
+    if (row >= Lk) continue;
+#pragma unroll
+    for (int g = 0; g < C::G; ++g) {
+      const int c = 4 * (tx + 16 * g);
+      if (c < d) {
+        store_vec<4>(dk + khead + (size_t)row * d + c, dk_acc[a] + 4 * g);
+        store_vec<4>(dv + khead + (size_t)row * d + c, dv_acc[a] + 4 * g);
+      }
+    }
+  }
+}
+
+// The two-kernel form's dQ, float32: one block per (head, query tile of 64)
+// walks key tiles of 32.
+template <int DMAX, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_wide256_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int Lq, int Lk, int d,
+                            float scale, DropoutParams dp, KeyBias kb) {
+  using C = F32WideCfg<DMAX>;
+  constexpr int BQ = C::DQ_BQ, BK = C::DQ_BK;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * C::P;
+  float* Ks = dOs + BQ * C::P;
+  float* Vs = Ks + BK * C::P;
+  float* dSs = Vs + BK * C::P;  // (BQ, BK + 4)
+  float* lse_s = dSs + BQ * C::DQ_SP;
+  float* dl_s = lse_s + BQ;
+
+  const int tiles = (Lq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bh * tiles) * BQ;
+  const int tid = threadIdx.x;
+  const size_t head = (size_t)bh * Lq * d;
+  const size_t khead = (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+
+  request_wide_rows<DMAX, BQ>(Qs, q + head, q0, Lq, d, tid);
+  request_wide_rows<DMAX, BQ>(dOs, dout + head, q0, Lq, d, tid);
+  request_wide_rows<DMAX, BK>(Ks, k + khead, 0, Lk, d, tid);
+  request_wide_rows<DMAX, BK>(Vs, v + khead, 0, Lk, d, tid);
+  load_row_stats<BQ>(lse_s, dl_s, lse, delta, (size_t)bh * Lq, q0, Lq, tid);
+
+  // query rows ty + 16 a, columns 4 (tx + 16 g) .. + 3
+  const int tx = tid & 15, ty = tid >> 4;
+  float acc[4][4 * C::G];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4 * C::G; ++b) acc[a][b] = 0.f;
+
+  for (int k0 = 0; k0 < Lk; k0 += BK) {
+    cp_async_wait_all();
+    __syncthreads();  // K, V and the row stats are in; dSs and K are read
+    {  // S and dP: rows (tid >> 3) + 32 a, keys (tid & 7) + 8 b
+      float s[2][4], dpv[2][4];
+      wide_dot<DMAX, 2, 4, 8, 32>(Qs, Ks, tid >> 3, tid & 7, s);
+      wide_dot<DMAX, 2, 4, 8, 32>(dOs, Vs, tid >> 3, tid & 7, dpv);
+      wide_probs<2, 4, 8, 32, C::DQ_SP, DROPOUT, BIAS>(
+          s, dpv, lse_s, dl_s, nullptr, dSs, tid >> 3, tid & 7, scale, dp,
+          brow, Lk, bh, q0, k0);
+    }
+    __syncthreads();  // dS is whole; V is read
+    if (k0 + BK < Lk)  // the next V tile flies during the dQ product
+      request_wide_rows<DMAX, BK>(Vs, v + khead, k0 + BK, Lk, d, tid);
+    wide_rows_product<DMAX, 4, 16, C::DQ_SP, BK>(dSs, Ks, ty, tx, acc);
+    __syncthreads();  // K is read
+    if (k0 + BK < Lk)
+      request_wide_rows<DMAX, BK>(Ks, k + khead, k0 + BK, Lk, d, tid);
+  }
+  wide_store_rows<C::G, 4, 16>(dq + head, acc, q0, Lq, d, ty, tx);
+}
+
+// bf16: one block per (head, key tile of 64) of eight warps; dq_out as
+// flash_bwd_bf16_kv_kernel's.
+template <typename DQ, int DMAX, bool WITH_DQ, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_bf16_kv_wide256_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 DQ* __restrict__ dq_out,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                 int Lq, int Lk, int d, float scale,
+                                 DropoutParams dp, KeyBias kb) {
+  using C = Bf16WideCfg<DMAX>;
+  constexpr int BT = C::BT, BQ = C::BQ;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* Vs = Ks + BT * C::S;
+  bf16* Qb = Vs + BT * C::S;  // Q tiles: buffer (tile index & 1)
+  bf16* dOb = Qb + 2 * BQ * C::S;
+  bf16* Ph = dOb + 2 * BQ * C::S;  // (P o Z)^T and dS^T as hi + lo, (BT, BQ + 8)
+  bf16* Pl = Ph + BT * C::SQ;
+  bf16* dSh = Pl + BT * C::SQ;
+  bf16* dSl = dSh + BT * C::SQ;
+  float* stats = reinterpret_cast<float*>(dSl + BT * C::SQ);  // lse, delta
+
+  const int tiles = (Lk + BT - 1) / BT;
+  const int bh = blockIdx.x / tiles;
+  const int tile = blockIdx.x - bh * tiles;
+  const int k0 = tile * BT;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = 16 * (warp & 3);   // the warp's keys: k0 + kw + g, + 8
+  const int qw = 16 * (warp >> 2);  // its 16 queries of a tile's scores
+  const int half = warp >> 2;       // its half of d for dK and dV
+  const bool live = k0 + kw < Lk;
+  const float scale_log2 = scale * kLog2e;
+  float kbias[2] = {};  // the lane's two keys' bias, base 2
+  if constexpr (BIAS) {
+    const float* brow = key_bias_row(kb, bh, Lk);
+    kbias[0] = key_bias_at(brow, k0 + kw + g, Lk, kLog2e);
+    kbias[1] = key_bias_at(brow, k0 + kw + g + 8, Lk, kLog2e);
+  }
+  const int steps = d >> 4;
+  const size_t head = (size_t)bh * Lq * d;   // q, dO, dq
+  const size_t khead = (size_t)bh * Lk * d;  // k, v, dk, dv
+  const size_t base = (size_t)bh * Lq;
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+  const int off_p = lane_off_a(lane, C::SQ);
+  DQ* dq_head = nullptr;
+  if constexpr (WITH_DQ)
+    dq_head = dq_out + ((size_t)bh * tiles + tile) * Lq * d;
+
+  request_bf16_rows<DMAX, BT, C::NT>(Ks, k + khead, k0, Lk, d, tid);
+  request_bf16_rows<DMAX, BT, C::NT>(Vs, v + khead, k0, Lk, d, tid);
+  request_bf16_rows<DMAX, BQ, C::NT>(Qb, q + head, 0, Lq, d, tid);
+  request_bf16_rows<DMAX, BQ, C::NT>(dOb, dout + head, 0, Lq, d, tid);
+  request_row_stats<BQ, C::NT>(stats, stats + 2 * BQ, lse, delta, base, 0, Lq,
+                               tid);
+  cp_async_commit_group();
+
+  // keys kw + g, + 8 at the n8 tiles HN half .. of d
+  float dk_acc[C::HN][4], dv_acc[C::HN][4];
+#pragma unroll
+  for (int n = 0; n < C::HN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int q0 = 0, it = 0; q0 < Lq; q0 += BQ, ++it) {
+    const int buf = it & 1;
+    const bf16* Qs = Qb + buf * BQ * C::S;
+    const bf16* dOs = dOb + buf * BQ * C::S;
+    float* lse_s = stats + buf * BQ;
+    const float* dl_s = stats + (2 + buf) * BQ;
+    cp_async_wait_groups();
+    base2_row_stats<BQ, C::NT>(lse_s, q0, Lq, tid);
+    __syncthreads();  // this tile is in; every warp is past the last one
+    if (q0 + BQ < Lq) {  // the next tile flies during this one's products
+      const int nb = buf ^ 1;
+      request_bf16_rows<DMAX, BQ, C::NT>(Qb + nb * BQ * C::S, q + head,
+                                         q0 + BQ, Lq, d, tid);
+      request_bf16_rows<DMAX, BQ, C::NT>(dOb + nb * BQ * C::S, dout + head,
+                                         q0 + BQ, Lq, d, tid);
+      request_row_stats<BQ, C::NT>(stats + nb * BQ, stats + (2 + nb) * BQ,
+                                   lse, delta, base, q0 + BQ, Lq, tid);
+      cp_async_commit_group();
+    }
+    if (live) {
+      // the scores of the warp's 16 keys against queries qw .. + 15, once
+      uint32_t keep = 0;
+      if constexpr (DROPOUT)
+        keep = dropout_keep_bits_cols<2>(dp, bh, k0 + kw, q0 + qw, lane);
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < C::KD; ++kk) {
+        if (kk < steps) {
+          uint32_t ak[4], av[4], b[4];
+          ldmatrix_x4(ak, Ks + kw * C::S + 16 * kk + off_a);
+          ldmatrix_x4(av, Vs + kw * C::S + 16 * kk + off_a);
+          ldmatrix_x4(b, Qs + qw * C::S + 16 * kk + off_b);
+          mma_bf16(st[0], ak, b[0], b[1]);
+          mma_bf16(st[1], ak, b[2], b[3]);
+          ldmatrix_x4(b, dOs + qw * C::S + 16 * kk + off_b);
+          mma_bf16(dpt[0], av, b[0], b[1]);
+          mma_bf16(dpt[1], av, b[2], b[3]);
+        }
+      }
+      // P^T o Z into st and dS^T / scale into dpt, then both as hi + lo into
+      // the shared tiles at (key, query)
+      bf16_probs_t<2, DROPOUT, BIAS>(st, dpt, lse_s + qw, dl_s + qw, kbias,
+                                     keep, t, scale_log2, dp);
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      split_a(st[0], st[1], ph, pl);
+      split_a(dpt[0], dpt[1], sh, sl);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // a fragment's (row, column) block
+        const int at = (kw + g + 8 * (r & 1)) * C::SQ + qw + 8 * (r >> 1) +
+                       2 * t;
+        *reinterpret_cast<uint32_t*>(Ph + at) = ph[r];
+        *reinterpret_cast<uint32_t*>(Pl + at) = pl[r];
+        *reinterpret_cast<uint32_t*>(dSh + at) = sh[r];
+        *reinterpret_cast<uint32_t*>(dSl + at) = sl[r];
+      }
+    }
+    __syncthreads();  // P o Z and dS are whole
+    if (live) {
+      // dV += (P o Z)^T dO, dK += dS^T Q for the warp's keys at its half of
+      // d: the A fragments from the shared tiles, dO and Q by ldmatrix.trans
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) {
+        if (q0 + 16 * c >= Lq) break;  // queries past Lq: P and dS are 0
+        uint32_t ph[4], pl[4], sh[4], sl[4];
+        const int at = kw * C::SQ + 16 * c + off_p;
+        ldmatrix_x4(ph, Ph + at);
+        ldmatrix_x4(pl, Pl + at);
+        ldmatrix_x4(sh, dSh + at);
+        ldmatrix_x4(sl, dSl + at);
+#pragma unroll
+        for (int np = 0; np < C::HN / 2; ++np) {
+          const int n16 = C::HN / 2 * half + np;  // d's 16-column block
+          if (n16 < steps) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, dOs + 16 * c * C::S + 16 * n16 + off_a);
+            mma_bf16_split(dv_acc[2 * np], ph, pl, b[0], b[1]);
+            mma_bf16_split(dv_acc[2 * np + 1], ph, pl, b[2], b[3]);
+            ldmatrix_x4_trans(b, Qs + 16 * c * C::S + 16 * n16 + off_a);
+            mma_bf16_split(dk_acc[2 * np], sh, sl, b[0], b[1]);
+            mma_bf16_split(dk_acc[2 * np + 1], sh, sl, b[2], b[3]);
+          }
+        }
+      }
+    }
+    if constexpr (WITH_DQ)
+      bf16_dq_share<C>(dSh, dSl, Ks, dq_head, scale, k0, Lk, q0, Lq, d, d,
+                       steps, warp, lane);
+  }
+  if (live) {
+    store_acc_cols(dk + khead, dk_acc, scale, k0 + kw, C::HN * half, Lk, d,
+                   d, lane);
+    store_acc_cols(dv + khead, dv_acc, 1.f, k0 + kw, C::HN * half, Lk, d, d,
+                   lane);
+  }
+}
+
+// bf16, the two-kernel form's dQ: eight warps of 16 query rows (128 rows)
+// walk key tiles of 32 in two stages; every column of dQ in each warp.
+template <int DMAX, bool DROPOUT, bool BIAS>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_bf16_dq_wide256_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 bf16* __restrict__ dq, int Lq, int Lk, int d,
+                                 float scale, DropoutParams dp, KeyBias kb) {
+  constexpr int BK = 32;
+  using C = Bf16DqCfg<DMAX, 8, BK>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* dOs = Qs + C::BQ * C::S;
+  bf16* Kb = dOs + C::BQ * C::S;  // K tiles: buffer (tile index & 1)
+  bf16* Vb = Kb + 2 * BK * C::S;
+
+  const int tiles = (Lq + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bh * tiles) * C::BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = q0 + 16 * warp;  // the warp's rows: row0 + g, + 8
+  const int steps = d >> 4;
+  const size_t head = (size_t)bh * Lq * d;
+  const bf16* kh = k + (size_t)bh * Lk * d;
+  const bf16* vh = v + (size_t)bh * Lk * d;
+  const float* brow = BIAS ? key_bias_row(kb, bh, Lk) : nullptr;
+  const int t = lane & 3;  // the lane's keys in an n8 tile: 2 t, 2 t + 1
+  const int off_a = lane_off_a(lane, C::S);
+  const int off_b = lane_off_b(lane, C::S);
+
+  request_bf16_rows<DMAX, C::BQ, C::NT>(Qs, q + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, C::BQ, C::NT>(dOs, dout + head, q0, Lq, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Kb, kh, 0, Lk, d, tid);
+  request_bf16_rows<DMAX, BK, C::NT>(Vb, vh, 0, Lk, d, tid);
+  cp_async_commit_group();
+
+  // the rows' lse in base 2 (rows past L: +inf, so P = 0) and delta
+  const float scale_log2 = scale * kLog2e;
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + (lane >> 2) + 8 * r;
+    lr[r] = row < Lq ? kLog2e * lse[(size_t)bh * Lq + row] : INFINITY;
+    dl[r] = row < Lq ? delta[(size_t)bh * Lq + row] : 0.f;
+  }
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int k0 = 0, it = 0; k0 < Lk; k0 += BK, ++it) {
+    const bf16* Ks = Kb + (it & 1) * BK * C::S;
+    const bf16* Vs = Vb + (it & 1) * BK * C::S;
+    cp_async_wait_groups();
+    __syncthreads();  // this tile is in; every warp is past the last one
+    if (k0 + BK < Lk) {  // the next tile flies during this one's products
+      request_bf16_rows<DMAX, BK, C::NT>(Kb + ((it + 1) & 1) * BK * C::S,
+                                             kh, k0 + BK, Lk, d, tid);
+      request_bf16_rows<DMAX, BK, C::NT>(Vb + ((it + 1) & 1) * BK * C::S,
+                                             vh, k0 + BK, Lk, d, tid);
+      cp_async_commit_group();
+    }
+    if (row0 >= Lq) continue;  // no real row: only the barriers
+    uint32_t keep = 0;  // first, as in the forward
+    if constexpr (DROPOUT)
+      keep = dropout_keep_bits_rows<C::NB>(dp, bh, row0, k0, lane);
+    float s[C::NB][4], dp_[C::NB][4];
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp_[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KD; ++kk) {
+      if (kk < steps) {
+        uint32_t qa[4], da[4];  // Q's and dO's fragments of this k16 step
+        ldmatrix_x4(qa, Qs + 16 * warp * C::S + 16 * kk + off_a);
+        ldmatrix_x4(da, dOs + 16 * warp * C::S + 16 * kk + off_a);
+#pragma unroll
+        for (int jj = 0; jj < C::NB / 2; ++jj) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Ks + 16 * jj * C::S + 16 * kk + off_b);
+          mma_bf16(s[2 * jj], qa, b[0], b[1]);
+          mma_bf16(s[2 * jj + 1], qa, b[2], b[3]);
+          ldmatrix_x4(b, Vs + 16 * jj * C::S + 16 * kk + off_b);
+          mma_bf16(dp_[2 * jj], da, b[0], b[1]);
+          mma_bf16(dp_[2 * jj + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    bf16_ds_rows<C::NB, DROPOUT, BIAS>(s, dp_, lr, dl, brow, k0, Lk, t, keep,
+                                       scale_log2, dp);
+    bf16_dq_tile<C>(s, Ks, acc, k0, Lk, steps, lane);
+  }
+  if (row0 < Lq) store_acc(dq + head, acc, scale, row0, 0, Lq, d, lane);
+}
+
+// The launches up to kWideMax, at a head_dim padded to DMAX (192 or 256):
+// delta, then the key-tile kernel over (head, key tile of 64), fused (dq itself with one key tile, else shares summed
+// into dq in tile order) or followed by the dQ kernel.
+template <int DMAX, bool DROPOUT, bool BIAS>
+int launch_wide256(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* delta,
+                   float* partial, void* dq, void* dk, void* dv, int bh,
+                   int Lq, int Lk, int d, float scale, int fused,
+                   int bf16_form, const DropoutParams& dp, const KeyBias& kb,
+                   cudaStream_t stream) {
+  constexpr int BT = 64;
+  const int tiles = (Lk + BT - 1) / BT;  // key tiles
+  if (fused && tiles > 1 && partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)bh * tiles;
+  int rc;
+  if (bf16_form) {
+    using C = Bf16WideCfg<DMAX>;
+    using CQ = Bf16DqCfg<DMAX, 8, 32>;
+    const bf16 *qb = (const bf16*)q, *kbp = (const bf16*)k,
+               *vb = (const bf16*)v, *db = (const bf16*)dout;
+    rc = launch_delta<bf16>((const bf16*)o, db, delta, bh * Lq, d, stream);
+    if (rc != 0) return rc;
+    if (fused && tiles == 1) {  // dq itself
+      constexpr auto kernel =
+          flash_bwd_bf16_kv_wide256_kernel<bf16, DMAX, true, DROPOUT, BIAS>;
+      if ((rc = opt_in_once<kernel>(C::SMEM)) != 0) return rc;
+      kernel<<<blocks, C::NT, C::SMEM, stream>>>(
+          qb, kbp, vb, db, lse, delta, (bf16*)dq, (bf16*)dk, (bf16*)dv, Lq,
+          Lk, d, scale, dp, kb);
+      return (int)cudaGetLastError();
+    }
+    if (fused) {  // float32 shares, summed into dq in tile order
+      constexpr auto kernel =
+          flash_bwd_bf16_kv_wide256_kernel<float, DMAX, true, DROPOUT, BIAS>;
+      if ((rc = opt_in_once<kernel>(C::SMEM)) != 0) return rc;
+      kernel<<<blocks, C::NT, C::SMEM, stream>>>(qb, kbp, vb, db, lse, delta,
+                                                 partial, (bf16*)dk,
+                                                 (bf16*)dv, Lq, Lk, d, scale,
+                                                 dp, kb);
+      if ((rc = (int)cudaGetLastError()) != 0) return rc;
+      return launch_dq_sum<bf16>(partial, (bf16*)dq, bh, Lq, d, tiles, stream);
+    }
+    constexpr auto kv =
+        flash_bwd_bf16_kv_wide256_kernel<bf16, DMAX, false, DROPOUT, BIAS>;
+    constexpr auto dq_kernel = flash_bwd_bf16_dq_wide256_kernel<DMAX, DROPOUT, BIAS>;
+    if ((rc = opt_in_once<kv>(C::SMEM)) != 0) return rc;
+    if ((rc = opt_in_once<dq_kernel>(CQ::SMEM)) != 0) return rc;
+    kv<<<blocks, C::NT, C::SMEM, stream>>>(qb, kbp, vb, db, lse, delta,
+                                           (bf16*)nullptr, (bf16*)dk,
+                                           (bf16*)dv, Lq, Lk, d, scale, dp,
+                                           kb);
+    if ((rc = (int)cudaGetLastError()) != 0) return rc;
+    dq_kernel<<<(unsigned)bh * ((Lq + CQ::BQ - 1) / CQ::BQ), CQ::NT,
+                CQ::SMEM, stream>>>(qb, kbp, vb, db, lse, delta, (bf16*)dq,
+                                    Lq, Lk, d, scale, dp, kb);
+    return (int)cudaGetLastError();
+  }
+  using C = F32WideCfg<DMAX>;
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v, *df = (const float*)dout;
+  rc = launch_delta<float>((const float*)o, df, delta, bh * Lq, d, stream);
+  if (rc != 0) return rc;
+  if (fused) {  // dq itself with one key tile, else shares summed into dq
+    constexpr auto kernel = flash_bwd_dkdv_wide256_kernel<DMAX, true, DROPOUT, BIAS>;
+    if ((rc = opt_in_once<kernel>(C::SMEM)) != 0) return rc;
+    kernel<<<blocks, C::NT, C::SMEM, stream>>>(
+        qf, kf, vf, df, lse, delta, tiles == 1 ? (float*)dq : partial,
+        (float*)dk, (float*)dv, Lq, Lk, d, scale, dp, kb);
+    if ((rc = (int)cudaGetLastError()) != 0 || tiles == 1) return rc;
+    return launch_dq_sum<float>(partial, (float*)dq, bh, Lq, d, tiles, stream);
+  }
+  constexpr auto dkdv = flash_bwd_dkdv_wide256_kernel<DMAX, false, DROPOUT, BIAS>;
+  constexpr auto dq_kernel = flash_bwd_dq_wide256_kernel<DMAX, DROPOUT, BIAS>;
+  if ((rc = opt_in_once<dkdv>(C::SMEM)) != 0) return rc;
+  if ((rc = opt_in_once<dq_kernel>(C::DQ_SMEM)) != 0) return rc;
+  dkdv<<<blocks, C::NT, C::SMEM, stream>>>(qf, kf, vf, df, lse, delta,
+                                           nullptr, (float*)dk, (float*)dv,
+                                           Lq, Lk, d, scale, dp, kb);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  dq_kernel<<<(unsigned)bh * ((Lq + C::DQ_BQ - 1) / C::DQ_BQ), C::NT,
+              C::DQ_SMEM, stream>>>(qf, kf, vf, df, lse, delta, (float*)dq,
+                                    Lq, Lk, d, scale, dp, kb);
+  return (int)cudaGetLastError();
+}
+
 // The wide forms' launches: delta, then the key-tile kernel over (head, key
 // tile of 64, 128 columns), fused (dq itself with one key tile, else shares
 // summed into dq) or followed by the dQ kernel.
@@ -1887,7 +2658,12 @@ int backward_wide(const void* q, const void* k, const void* v, const void* o,
   const DropoutParams dp{threshold, keep_scale, (uint32_t)seed,
                          (uint32_t)(seed >> 32), grid[0], grid[1], grid[2],
                          grid[3], grid[4]};
-  auto f = dropout ? &launch_wide<true, BIAS> : &launch_wide<false, BIAS>;
+  auto f = d <= kWideMid   ? (dropout ? &launch_wide256<kWideMid, true, BIAS>
+                                       : &launch_wide256<kWideMid, false, BIAS>)
+           : d <= kWideMax ? (dropout ? &launch_wide256<kWideMax, true, BIAS>
+                                       : &launch_wide256<kWideMax, false, BIAS>)
+                           : (dropout ? &launch_wide<true, BIAS>
+                                      : &launch_wide<false, BIAS>);
   return f(q, k, v, o, dout, (const float*)lse, (float*)delta,
            (float*)partial, dq, dk, dv, bh, Lq, Lk, d, scale, fused,
            bf16_form, dp, kb, (cudaStream_t)stream);

@@ -31,11 +31,16 @@ sliced off again. Up to `WIDE_HEAD_DIM` (128) every form holds a row's
 columns in one tile; past it the wrappers call the kernels' wide forms
 (entries `flash_attn_fwd_wide`, `flash_attn_bwd_wide` and their `_bias`
 twins; `csrc/flash_attn_wide*.cu`, `csrc/flash_attn_bwd_wide*.cu`), which
-split the output columns over blocks (256 in the float32 forward, 128 in the
-others) and sum the scores (and in the backward dP = dO V^T) over all of d
-in chunks of 128: every form there too
-(float32 and bf16, dropout, the key bias, the head grid, Lq != Lk, fused
-and two-kernel), counted in `WIDE_LAUNCHES` and `BWD_WIDE_LAUNCHES`.
+choose by head_dim as these wrappers choose by `WIDE_HEAD_DIM`: up to
+`WIDEST_ONE_BLOCK` (256, the TPU kernel's widest) one block owns every
+column of its tile and computes the scores, the dropout mask and in the
+backward dP and dS once a tile pair, splitting only the products that make
+the outputs over its warps; past it the chunked forms split the output
+columns over blocks (256 in the float32 forward, 128 in the others) and sum
+the scores (and in the backward dP = dO V^T) over all of d in chunks of
+128. Every form there too (float32 and bf16, dropout, the key bias, the
+head grid, Lq != Lk, fused and two-kernel), counted in `WIDE_LAUNCHES` and
+`BWD_WIDE_LAUNCHES`.
 
 Dropout on the probabilities (`dropout_p` > 0 with a 64-bit `seed`), as the
 JAX package's `dot_product_attention` applies it in training: o = (P o Z) V
@@ -98,8 +103,11 @@ import torch.nn.functional as F
 from . import _build, _library
 
 # the widest head_dim (padded) of the kernels' one-tile forms; wider heads
-# take the wide forms
+# take the wide forms, which own every column in one block up to
+# WIDEST_ONE_BLOCK (`kWideMax` in csrc/bf16_mma.cuh) and split them over
+# blocks past it
 WIDE_HEAD_DIM = 128
+WIDEST_ONE_BLOCK = 256
 # the head grid of a single-device call: (heads, total_heads, batch0, head0)
 ONE_DEVICE = (1, 1, 0, 0)
 

@@ -195,8 +195,9 @@ class ServingWorld:
 
     def stop(self) -> None:
         """(Rank 0, inside the service lock.) A stop to every rank, unless
-        the world failed; returns when every rank has read it (the store
-        may live in this process) or after CONTROL_TIMEOUT."""
+        the world failed; returns when the last rank to read it has made
+        its last store call, deleting the stop's key (the store may live in
+        this process), or after CONTROL_TIMEOUT."""
         self.stopping = True
         if self.failure is not None:
             return
@@ -226,8 +227,11 @@ class ServingWorld:
             self.check()
         request = json.loads(self.store.get(key))
         if self.store.add(key + "/read", 1) == self.size - 1:
-            self.store.delete_key(key)
+            # the key rank 0's `stop` waits on goes last: at a stop, rank 0
+            # (which may host the store) leaves once it is gone, so no store
+            # call of this rank may follow it
             self.store.delete_key(key + "/read")
+            self.store.delete_key(key)
         return request
 
     def _failed(self, message: str) -> None:

@@ -1458,18 +1458,20 @@ def test_flash_attention_bias_of_zeros_is_the_form_without_one(cuda):
 
 
 # ------------------- head_dim past 128 and more than 32 states (F11, F10)
-# K2 and K3's wide forms: head_dim 136 (a second column block of 8), 192 (the
-# CIFAR-10 DiT at two heads), 256 (the TPU kernel's widest) and 384 (one
-# head); L 256 and a ragged 200; float32 and bf16, p 0 and 0.1, the fused
-# and the two-kernel backward
-WIDE_HEAD_DIMS = [136, 192, 256, 384]
+# K2 and K3's wide forms: head_dim 136 (a second column block of 8), 144 (one
+# 16-column block past 128), 192 (the CIFAR-10 DiT at two heads; the
+# one-block forms' narrower width), 256 (the TPU kernel's widest, the
+# one-block forms' wider width), 264 and 384 (the chunked forms past 256);
+# L 256, a ragged 200 and 1000 (16 key tiles, fused); float32 and bf16, p 0
+# and 0.1, the fused and the two-kernel backward
+WIDE_HEAD_DIMS = [136, 144, 192, 256, 264, 384]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [None, False])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("seq_len", [256, 200])
+@pytest.mark.parametrize("seq_len", [256, 200, 1000])
 @pytest.mark.parametrize("head_dim", WIDE_HEAD_DIMS)
 def test_flash_attention_wide_forms_match_plain(cuda, head_dim, seq_len,
                                                 dtype, dropout, fused):
@@ -1499,34 +1501,42 @@ def test_flash_attention_wide_forms_match_plain(cuda, head_dim, seq_len,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["bias", "cross", "head_grid", "long",
-                                  "unpadded"])
-def test_flash_attention_wide_forms_in_every_variant(cuda, case, dtype):
+                                  "unpadded", "bias144", "bias256",
+                                  "cross144", "cross256", "heads70"])
+def test_flash_attention_wide_forms_in_every_variant(cuda, case, dtype,
+                                                     fused):
     """The wide forms with the key bias, Lq 128 against Lk 256 (E6, row0 =
-    128), at a tensor-parallel rank's head grid (E7), at L 1024 (16 key
-    tiles fused) and at a head_dim the wrapper pads (196 in float32 to 200,
-    184 in bf16 to 192), each with dropout, against the plain versions."""
+    128), both also at head_dim 144 and 256, at a tensor-parallel rank's
+    head grid (E7), at 70 heads (no multiple of a tile) at another rank's,
+    at L 1024 (16 key tiles) and at a head_dim the wrapper pads (196 in
+    float32 to 200, 184 in bf16 to 192), each with dropout and in both
+    backward forms, against the plain versions."""
     gen = torch.Generator(device=cuda).manual_seed(len(case))
     lq = lk = 1024 if case == "long" else 256
-    if case == "cross":
+    if case.startswith("cross"):
         lq = 128
-    d = {"unpadded": 196 if dtype == torch.float32 else 184}.get(case, 192)
-    bh = 4 if case == "long" else 6
+    d = {"unpadded": 196 if dtype == torch.float32 else 184}.get(
+        case, 144 if case.endswith("144") else 256 if case.endswith("256")
+        else 192)
+    bh = {"long": 4, "heads70": 70}.get(case, 6)
     q, do = (torch.randn(bh, lq, d, generator=gen, device=cuda).to(dtype)
              for _ in range(2))
     k, v = (torch.randn(bh, lk, d, generator=gen, device=cuda).to(dtype)
             for _ in range(2))
     bias = (torch.randn(2, lk, generator=gen, device=cuda)
-            if case == "bias" else None)
-    grid = (3, 6, 1, 3) if case == "head_grid" else flash_attention.ONE_DEVICE
+            if case.startswith("bias") else None)
+    grid = {"head_grid": (3, 6, 1, 3), "heads70": (5, 10, 3, 5)}.get(
+        case, flash_attention.ONE_DEVICE)
     row0 = lk - lq
     drop = (0.1, 1234)
     o, lse = flash_attention.flash_attention_fwd(q, k, v, *drop, bias=bias,
                                                  head_grid=grid, row0=row0)
     grads = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, *drop,
-                                                bias=bias, head_grid=grid,
-                                                row0=row0)
+                                                fused=fused, bias=bias,
+                                                head_grid=grid, row0=row0)
     o_ref, lse_ref = flash_attention.flash_attention_fwd_ref(
         q, k, v, *drop, bias, grid, row0)
     refs = flash_attention.flash_attention_bwd_ref(q, k, v, o, do, lse, *drop,
@@ -1540,6 +1550,35 @@ def test_flash_attention_wide_forms_in_every_variant(cuda, case, dtype):
         assert max_rel(o, o_ref) <= TOL
         for got, want in zip(grads, refs):
             assert max_rel(got, want) <= TOL_BWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_len,head_dim,place", [
+    (256, 256, None), (192, 192, None), (144, 200, "rank")])
+def test_flash_attention_wide_forward_draws_the_plain_mask(
+        cuda, seq_len, head_dim, place, dtype):
+    """With q = k = 0 every probability is 1 / L, and with v the identity
+    in its first L columns o[r, c] = Z[r, c] / L: the forward's keep bits
+    read back bit for bit as the plain version's `philox_keep_mask`, also at
+    a rank's head grid and first row."""
+    bh, p, seed = 6, 0.1, 2024
+    grid, row0 = ((3, 6, 1, 3), 64) if place else (flash_attention.ONE_DEVICE,
+                                                  0)
+    q = torch.zeros(bh, seq_len, head_dim, device=cuda, dtype=dtype)
+    v = torch.eye(seq_len, head_dim, device=cuda, dtype=dtype).expand(
+        bh, -1, -1).contiguous()
+    before = flash_attention.WIDE_LAUNCHES
+    o, _ = flash_attention.flash_attention_fwd(q, q, v, p, seed,
+                                               head_grid=grid, row0=row0)
+    torch.cuda.synchronize()
+    assert flash_attention.WIDE_LAUNCHES == before + 1
+    keep = flash_attention.philox_keep_mask(seed, bh, seq_len, seq_len, p,
+                                            row0=row0, head_grid=grid,
+                                            device=cuda)
+    got = o[..., :seq_len].float()
+    assert torch.equal(got > 0, keep)
+    assert (got[..., :][~keep] == 0).all()
 
 
 # more than 32 states: 33 (a chunk of 32 and one of 1), 48, 64 (the DiM at

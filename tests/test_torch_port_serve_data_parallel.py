@@ -17,15 +17,17 @@ answers HTTP on 127.0.0.1.
   to CONTROL_TIMEOUT seconds), and, with its worker held in a trajectory,
   answers a 503 at `--max_queue` while two queued requests keep their
   order.
-* Two worlds of 2 processes started as torchrun starts them (RANK,
+* Three worlds of 2 processes started as torchrun starts them (RANK,
   WORLD_SIZE, MASTER_ADDR and MASTER_PORT: the default group's TCPStore on
   rank 0), with every rank given the same `--port`: `python -m
   diffusion_models_collection_tpu_torch.serve` on both ranks, stopped by
-  SIGTERM to rank 0, each rank exiting 0; and one whose worker's second
-  trajectory raises while rank 0's is held, as a dead peer holds an NCCL
-  rank (`torch_serve_jobs.failing_worker`, `held_leader`): the client gets
-  a 500 or a refused connection and every rank ends non-zero within
-  FAILURE_SECONDS.
+  SIGTERM to rank 0, each rank exiting 0; the same with the worker held
+  before each store call after it reads the stop
+  (`torch_serve_jobs.stop_held_worker`), each rank exiting 0 too; and one
+  whose worker's second trajectory raises while rank 0's is held, as a dead
+  peer holds an NCCL rank (`torch_serve_jobs.failing_worker`,
+  `held_leader`): the client gets a 500 or a refused connection and every
+  rank ends non-zero within FAILURE_SECONDS.
 
 Every world starts in the background while the references run here.
 """
@@ -212,19 +214,18 @@ def argv_of(path, port, flags):
     return argv + (["--use_ema"] if flags.get("use_ema") else [])
 
 
-def torchrun_world(argv, log, master, failing=False):
+def torchrun_world(argv, log, master, jobs=(None, None)):
     """Two processes as torchrun starts them, on the CPU, both given
-    `argv`; with `failing`, `torch_serve_jobs.held_leader` and
-    `failing_worker`."""
+    `argv`: rank r runs `torch_serve_jobs.<jobs[r]>`, or `python -m
+    ...serve` where that is None."""
     procs = []
-    for rank in range(WORLD):
+    for rank, job in enumerate(jobs):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(WORLD),
                    LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(master), OMP_NUM_THREADS="1",
                    PYTHONPATH=os.pathsep.join([str(REPO),
                                                str(REPO / "tests")]))
-        if failing:
-            job = "held_leader" if rank == 0 else "failing_worker"
+        if job is not None:
             cmd = ["-c", "import sys, torch_serve_jobs as j; "
                    f"j.{job}(sys.argv[1:])"]
         else:
@@ -296,8 +297,8 @@ def served(tmp_path_factory):
     a dict by daemon."""
     root = tmp_path_factory.mktemp("serve_world")
     (jax_model, jax_params), paths = checkpoints(root)
-    *daemon_ports, clean_port, fail_port, clean_master, fail_master = (
-        free_ports(len(FLAGS) + 4))
+    (*daemon_ports, clean_port, fail_port, held_port, clean_master,
+     fail_master, held_master) = free_ports(len(FLAGS) + 6)
     ports = dict(zip(FLAGS, daemon_ports))
     daemons = [{"name": name, "argv": argv_of(paths[name], ports[name], f),
                 "control_timeout": (CONTROL_TIMEOUT if name == "unet"
@@ -313,7 +314,10 @@ def served(tmp_path_factory):
                            clean_master)
     failing = torchrun_world(argv_of(paths["unet"], fail_port,
                                      dict(batch_size=2)), root / "failing",
-                             fail_master, failing=True)
+                             fail_master, ("held_leader", "failing_worker"))
+    held = torchrun_world(argv_of(paths["unet"], held_port,
+                                  dict(batch_size=2)), root / "held",
+                          held_master, (None, "stop_held_worker"))
 
     result = {"paths": paths, "ports": ports}
 
@@ -357,6 +361,11 @@ def served(tmp_path_factory):
         result["clean"]["codes"] = ended(clean, WAIT)
         result["clean"]["logs"] = [(root / f"clean{r}.txt").read_text()
                                    for r in range(WORLD)]
+        healthz(held_port, lambda: held[0].poll() is None)
+        held[0].send_signal(signal.SIGTERM)
+        result["held"] = {"codes": ended(held, WAIT),
+                          "logs": [(root / f"held{r}.txt").read_text()
+                                   for r in range(WORLD)]}
         healthz(fail_port, lambda: failing[0].poll() is None)
         t0 = time.monotonic()
         try:
@@ -370,7 +379,7 @@ def served(tmp_path_factory):
                                       for r in range(WORLD)]}
 
     finally:  # no rank outlives the fixture
-        for proc in clean + failing:
+        for proc in clean + failing + held:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -498,6 +507,18 @@ def test_only_rank_0_binds_and_a_sigterm_stops_every_rank(served):
     # returning from `main`
     assert len(served["records"][0]) == len(served["records"][1]) == len(
         FLAGS)
+
+
+def test_a_worker_held_at_the_stop_still_exits_0(served):
+    """A worker held HOLD seconds before each store call it makes after
+    reading the stop (`torch_serve_jobs.stop_held_worker`): rank 0 waits
+    for the worker's last store call before it leaves with the store, so
+    after SIGTERM to rank 0 every rank exits 0. With the stop's key deleted
+    before the worker's last call, the worker found the store gone and
+    exited 1."""
+    held = served["held"]
+    assert held["codes"] == [0, 0], held["logs"]
+    assert "Serving on" in held["logs"][0]
 
 
 def test_a_failed_worker_ends_every_rank_non_zero(served):

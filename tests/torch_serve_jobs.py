@@ -12,6 +12,11 @@ worlds. It imports no JAX: the ranks must not.
   them (`python -c`, the environment's RANK and WORLD_SIZE): `serve.cli`,
   as `python -m`, with the second trajectory (the first after the warm-up)
   raising on the worker and never ending on rank 0.
+* `stop_held_worker` is a worker started the same way whose thread that
+  reads the stop waits HOLD seconds before each store call it makes after
+  it: the window in which rank 0, which hosts the store, may leave. A
+  worker whose last store call of the stop came after the one rank 0 waits
+  for then finds the store gone and ends with exit code 1.
 """
 
 import contextlib
@@ -26,6 +31,7 @@ from diffusion_models_collection_tpu_torch.parallel.mesh import (
 )
 
 WAIT = 120  # seconds a paused worker waits for the test
+HOLD = 2.0  # seconds a stop-held worker waits before each store call
 
 
 def wait_for(path: Path) -> None:
@@ -115,3 +121,32 @@ def held_leader(argv) -> None:
     fill the card's queue): it learns of the failure from the store
     alone."""
     second_trajectory(argv, lambda: threading.Event().wait())
+
+
+class StopHeldStore:
+    """The world's store, with every call of the thread that read the stop
+    (a request of `null`) made after it held HOLD seconds first."""
+
+    def __init__(self, store):
+        self._store = store
+        self._held = None  # the thread that read the stop
+
+    def __getattr__(self, name):
+        call = getattr(self._store, name)
+
+        def held(*args, **kwargs):
+            if self._held == threading.get_ident():
+                time.sleep(HOLD)
+            out = call(*args, **kwargs)
+            if name == "get" and out == b"null":
+                self._held = threading.get_ident()
+            return out
+        return held
+
+
+def stop_held_worker(argv) -> None:
+    """A rank other than 0 (`serve.cli(argv)`) held between reading the
+    stop and each of its store calls after it."""
+    world_store = serve.world_store
+    serve.world_store = lambda: StopHeldStore(world_store())
+    serve.cli(argv)

@@ -3,7 +3,7 @@ the scan forward and the GroupNorm+SiLU kernels of one or more trees of the
 PyTorch port, on one NVIDIA GPU.
 
     python tools/profile_torch_kernels.py
-        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn|bf16]
+        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn|bf16|wide]
         [ROOT ...]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. Each
@@ -40,6 +40,19 @@ memory-efficient kernel), and K2's and K3's bf16 forms with each tile height
 they offer forced (the data behind `fwd_tile` and `bwd_tile` in bf16); then
 the sums over one forward's or step's calls. A tree without the bf16 forms
 is skipped.
+`--only wide`: K2 and K3 past head_dim 128 (the wide forms) against their
+plain versions (float32: 2e-5 on o and 1e-4 on each gradient over the
+largest value; bf16: one bf16 step of the largest value) at the CIFAR-10
+DiT's shapes at two heads of 192 (its train step, BH 256 at p 0.1, and
+sampling, BH 64 at p 0), at d 256 (BH 256, p 0.1) and at L 1024 (BH 192,
+d 192, p 0.1), L 256 elsewhere, float32 and bf16; each timed (a single
+launch, 20 in a row, 20 replayed from a CUDA graph) beside
+`F.scaled_dot_product_attention` and its backward on the same inputs as (1,
+BH, L, d) with the same p (its own mask; TF32 off; its backward with
+dropout is not captured in a graph, whose capture fails) and the call's bound:
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over 67 TFLOP/s (float32) or the tensor
+cores' 989 (bf16).
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -537,6 +550,93 @@ def run_gn(root, randn):
     return ok
 
 
+# (BH, L, d, p) of the wide forms: the DiT at two heads (train step,
+# sampling), the widest head_dim and the 64x64 DiT's length
+WIDE_CASES = [(256, 256, 192, ATTN_DROPOUT), (64, 256, 192, 0.0),
+              (256, 256, 256, ATTN_DROPOUT), (192, 1024, 192, ATTN_DROPOUT)]
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def wide_bounds(bh, length, d, elem, rate):
+    """ms of the least time of K2 and of K3 at one shape: bytes over the
+    memory rate or operations over `rate`, whichever is larger (the
+    forward: q, k, v in, o out, float32 lse out, 4 d + 5 operations a
+    score; the backward: q, k, v, o, dO in and lse, dq, dk, dv out, 10 d +
+    8 a score)."""
+    side, scores = bh * length * d, bh * length * length
+    fwd = max(1e3 * (elem * 4 * side + 4 * bh * length) / PEAK_BYTES,
+              1e3 * scores * (4 * d + 5) / rate)
+    bwd = max(1e3 * (elem * 8 * side + 4 * bh * length) / PEAK_BYTES,
+              1e3 * scores * (10 * d + 8) / rate)
+    return fwd, bwd
+
+
+def library_graph_ms(fn):
+    """`graph_ms` of a library call, or None where its capture fails."""
+    import torch
+    try:
+        return graph_ms(fn)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"   (library call not captured in a CUDA graph: {e})")
+        return None
+
+
+def run_wide(root, attention, randn):
+    """K2 and K3 in their wide forms against their plain versions, timed
+    beside the library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+    if not hasattr(attention, "WIDE_LAUNCHES"):
+        print(f"{root}: no wide forms; skipped", flush=True)
+        return True
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        elem = 2 if dtype == torch.bfloat16 else 4
+        for bh, length, d, p in WIDE_CASES:
+            q, k, v, do = (randn(bh, length, d).to(dtype) for _ in range(4))
+            drop = (p, ATTN_DROPOUT_SEED) if p else (0.0, None)
+            o_ref, _ = attention.flash_attention_fwd_ref(q, k, v, *drop)
+            o, lse = attention.flash_attention_fwd(q, k, v, *drop)
+            args = (q, k, v, o, do, lse, *drop)
+            refs = attention.flash_attention_bwd_ref(*args)
+            shape = f"{name} BH={bh} L={length} d={d} p={p}"
+            bars = ((BAR_BF16, BAR_BF16) if dtype == torch.bfloat16
+                    else (BAR_FWD, BAR))
+            fwd = lambda: attention.flash_attention_fwd(  # noqa: E731
+                q, k, v, *drop)[:1]
+            bwd = lambda: attention.flash_attention_bwd(*args)  # noqa: E731
+            ok &= check(f"K2 wide {shape}", fwd, (o_ref.float(),), bars[0])
+            ok &= check(f"K3 wide {shape}", bwd,
+                        tuple(r.float() for r in refs), bars[1])
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q[None], k[None], v[None], dropout_p=p)
+            qkv = [t.detach()[None].requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*qkv, dropout_p=p)
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                out, qkv, do[None], retain_graph=True)
+            bounds = wide_bounds(bh, length, d, elem, PEAK_OPS[name])
+            for label, kernel, library, bound in (
+                    ("K2", fwd, sdpa, bounds[0]),
+                    ("K3", bwd, sdpa_bwd, bounds[1])):
+                # capturing autograd's backward of the library's dropout
+                # fails and leaves the context faulted: in a row only
+                lib = (library_graph_ms(library) if label == "K2" or not p
+                       else None)
+                print(f"   {label} wide {shape}, ms a call: kernel "
+                      f"{median_ms(kernel):.4f} single, "
+                      f"{burst_ms(kernel):.4f} in a row, "
+                      f"{graph_ms(kernel):.4f} from a CUDA graph; library "
+                      f"{median_ms(library):.4f} single, "
+                      f"{burst_ms(library):.4f} in a row, "
+                      + ("not captured" if lib is None
+                         else f"{lib:.4f} from a CUDA graph")
+                      + f"; bound {bound:.4f}", flush=True)
+    return ok
+
+
 def run_tree(root, only):
     import torch
     import torch.nn.functional as F
@@ -585,6 +685,8 @@ def run_tree(root, only):
         ok &= run_gn(root, randn)
     if only in (None, "bf16"):
         ok &= run_bf16(root, attention, randn)
+    if only in (None, "wide"):
+        ok &= run_wide(root, attention, randn)
 
     for batch, length, d_inner, n_state in (SCAN_CASES if only in (None, "scan")
                                             else []):
@@ -610,7 +712,8 @@ def main(argv=None):
     parser.add_argument("roots", nargs="*", default=[str(HERE.parent.parent)])
     parser.add_argument("--only",
                         choices=["attention", "attn_fwd", "attn_dropout",
-                                 "scan", "scan_fwd", "gn", "bf16"])
+                                 "scan", "scan_fwd", "gn", "bf16",
+                                 "wide"])
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.tree:
