@@ -2176,7 +2176,7 @@ def phase_scan_sweep_forms(gen, worst):
         t_block = scan.t_block_for(length)
         scratch = lib.selective_scan_bwd_nostate_needs_scratch(
             length, n_state, t_block)
-        form = (f"{'four' if n_state <= 16 else 'eight'} states a lane, time "
+        form = (f"{scan.sweep_form(n_state)}, time "
                 f"blocks of {t_block} steps"
                 f"{', a ragged last one' if length % t_block else ''}, "
                 f"{-(-d_inner // 64)} tiles of 64 channels for D={d_inner}")

@@ -11,8 +11,9 @@ card:
   backward; with a key bias and Lq 128 against Lk 256 at 192 and 384; 192
   also at L 1024; the dropout mask read back through v = I at 192, 256 and
   384, bit for bit against `philox_keep_mask`;
-* the scan kernels past 32 states (`ops/selective_scan.py`, the chunks of
-  `csrc/selective_scan_common.cuh`) against their plain versions at N 33,
+* the scan kernels past 32 states (`ops/selective_scan.py`, the forward's
+  chunks and the backward's wide sweep of `csrc/selective_scan_common.cuh`,
+  each backward line naming its form) against their plain versions at N 33,
   64 and 128, D 768, (batch, L) (32, 256), (8, 100) and (8, 1024): K5, K6
   with its bound, K8, K7, K9 and K10, and E4 from a state to its end state
   with dh_in;
@@ -221,6 +222,7 @@ def check_scan_case(batch, length, n_state, gen):
     y4_ref, bound4_ref, h_ref = scan.selective_scan_fwd_state_ref(*args, h_in)
     e4_ref = scan.selective_scan_bwd_state_ref(*args, g, bound4_ref, g_h)
     shape = f"B={batch} L={length} D={c.SCAN_D} N={n_state}"
+    form = scan.sweep_form(n_state)
     fwd = max(
         c.check_outputs(f"K5 {shape} (y)", (y5,), {"plain": (y_ref,)},
                         c.TOL_SCAN_FWD),
@@ -235,11 +237,11 @@ def check_scan_case(batch, length, n_state, gen):
                         (bound_end, h_end), {"plain": (bound4_ref, h_ref)},
                         c.TOL_SCAN_FWD))
     bwd = max(
-        *(c.check_outputs(f"{name} {shape} (dx, ddt, dA, dB, dC)", grads,
-                          {"plain": bwd_ref}, c.TOL_SCAN_BWD)
+        *(c.check_outputs(f"{name} {shape} [{form}] (dx, ddt, dA, dB, dC)",
+                          grads, {"plain": bwd_ref}, c.TOL_SCAN_BWD)
           for name, grads in (("K8", k8), ("K7", k7), ("K10", k10))),
-        c.check_outputs(f"E4 backward {shape} (dx, ddt, dA, dB, dC, dh_in)",
-                        e4, {"plain": e4_ref}, c.TOL_SCAN_BWD))
+        c.check_outputs(f"E4 backward {shape} [{form}] (dx, ddt, dA, dB, dC, "
+                        "dh_in)", e4, {"plain": e4_ref}, c.TOL_SCAN_BWD))
     return fwd, bwd
 
 

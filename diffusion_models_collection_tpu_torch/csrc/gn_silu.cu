@@ -33,10 +33,23 @@
 // * The block is sized to the group (`threads_for`): one warp up to 1024
 //   floats, where the two sums are shuffles and no block-wide barrier runs,
 //   to 1024 threads beyond 16384 floats.
-// * A group that does not fit shared memory, or whose rows are no whole
-//   vectors, takes the generic kernels: scalar accesses, the group read
-//   three times (the backward once more per channel). They are right, not
-//   fast.
+// * Backward, a group whose float32 copy does not fit one SM's shared
+//   memory (every GroupNorm of the 64 x 64 SR UNet: 64 x 64 x 16 floats and
+//   more): the cluster form. One (image, group)'s rows are split over a
+//   thread block cluster of k blocks on neighbouring SMs (`cluster_for`: the
+//   least k, 2 to 16, at which a block's share of the rows fits with dxh;
+//   at that k the share keeps xh too where both fit); each block walks its
+//   rows as the form above does, and the blocks exchange the two means'
+//   partial sums, then each channel's dbias and dscale column sums,
+//   through distributed shared memory, summed in cluster-rank order: x and
+//   g are read once and dx written once, deterministic, no atomics. A
+//   shape that should take it and whose cluster cannot be scheduled raises
+//   (no fallback).
+// * A group whose rows are no whole vectors, a view that is not 16-byte
+//   aligned, or (forward; backward past 16 blocks' shared memory) a group
+//   that does not fit, takes the generic kernels: scalar accesses, the
+//   group read three times (the backward once more per channel). They are
+//   right, not fast.
 // The SiLU's exponential is __expf and its division __fdividef: both within
 // 2 ulp here, against a bar of 2e-5.
 // bfloat16 (the models' mixed precision, as the JAX package's
@@ -53,8 +66,12 @@
 // forward 0.213 (bytes alone 0.150; three reads from device memory 0.722),
 // backward 0.308 (bytes 0.180; autograd through the plain forward 3.3);
 // 32 x 32 x 128 0.084 / 0.118. The groups of 4 x 4 and 8 x 8 images take
-// less time on the card than their launch takes on the host.
+// less time on the card than their launch takes on the host. The cluster
+// form at batch 256, 64 x 64 x 128 (--only gn_generic): 0.86-0.90 ms a
+// launch against a bound of 0.481 (bytes), where the scalar generic kernel
+// took 9.7.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -63,11 +80,16 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kGenericThreads = 256;
 constexpr int kMaxDevices = 64;
 // Dynamic shared memory a block may ask for, less the kernels' static few
 // hundred bytes.
 constexpr size_t kSharedMax = 232448 - 1024;
+// The largest cluster the backward's cluster form takes (8 is the portable
+// limit; 16 needs the non-portable opt-in).
+constexpr int kClusterMax = 16;
 
 // A 16-byte vector of the I/O type T: V elements, widened to float32 on load
 // and rounded (bf16: to nearest even) on store; `widen` and `round` do the
@@ -417,6 +439,174 @@ gn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   }
 }
 
+// The backward's cluster form: the (image, group) of cluster blockIdx.x / k,
+// its rows [rank * share, (rank + 1) * share) in the block of cluster rank
+// `rank`, which walks them as gn_silu_bwd_kernel walks a whole group (XS: xh
+// kept beside dxh). The two means' sums and then the channel sums of the k
+// blocks are read through distributed shared memory in rank order, so every
+// block holds the same means and the result is the same from run to run.
+template <typename T, int THREADS, bool XS>
+__global__ void __launch_bounds__(THREADS)
+gn_silu_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ gout,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ mean_in,
+                           const float* __restrict__ rstd_in,
+                           T* __restrict__ dx, float* __restrict__ dscale_rows,
+                           float* __restrict__ dbias_rows, int hw, int c,
+                           int groups, int k, int share) {
+  using Vec = typename Io<T>::Vec;
+  constexpr int V = Io<T>::V, LOG_V = Io<T>::LOG_V;
+  constexpr int Q = V / 4;
+  // (share, vr) vectors of dxh, then (XS) as many of xh; afterwards the
+  // threads' channel sums, 2 V floats each, summed down to the first row
+  extern __shared__ float4 group[];
+  __shared__ float red[66];
+  __shared__ float part[2];   // this block's sums of dxh and dxh xh
+  __shared__ float total[2];  // the cluster's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bg = blockIdx.x / k;  // b * groups + g
+  const int b = bg / groups;
+  const int g = bg - b * groups;
+  const int gs = c / groups;
+  const float n = (float)hw * (float)gs;
+  const Column col = column_of<THREADS, LOG_V>(gs);
+  const int rs = c >> LOG_V;
+  const int row0 = rank * share;
+  const int rows = min(hw, row0 + share) - row0;  // this block's
+  const size_t base =
+      (((size_t)b * hw + row0) * c + (size_t)g * gs) >> LOG_V;
+  const Vec* xg = reinterpret_cast<const Vec*>(x) + base + col.cv;
+  const Vec* gg = reinterpret_cast<const Vec*>(gout) + base + col.cv;
+  Vec* dxg = reinterpret_cast<Vec*>(dx) + base + col.cv;
+  float4* dxh_s = group + col.cv * Q;
+  float4* xh_s = group + ((size_t)share * col.vr + col.cv) * Q;
+  const float mean = mean_in[bg];
+  const float inv = rstd_in[bg];
+
+  float db[V], dg[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) db[j] = dg[j] = 0.f;
+  float s1 = 0.f, s2 = 0.f;
+  if (col.active) {
+    float sc[V], bi[V];
+    load_channels<V>(sc, scale + (size_t)g * gs, col.cv);
+    load_channels<V>(bi, bias + (size_t)g * gs, col.cv);
+#pragma unroll 2
+    for (int r = col.r0; r < rows; r += col.rows) {
+      float xh[V], dxh[V], gv[V];
+      Io<T>::unpack(xg[(size_t)r * rs], xh);
+      Io<T>::unpack(gg[(size_t)r * rs], gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        xh[j] = (xh[j] - mean) * inv;
+        const float dz = gv[j] * silu_grad(fmaf(xh[j], sc[j], bi[j]));
+        db[j] += dz;
+        dg[j] = fmaf(dz, xh[j], dg[j]);
+        dxh[j] = dz * sc[j];
+        s1 += dxh[j];
+        s2 = fmaf(dxh[j], xh[j], s2);
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        dxh_s[r * col.vr * Q + q] = make_float4(
+            dxh[4 * q], dxh[4 * q + 1], dxh[4 * q + 2], dxh[4 * q + 3]);
+        if (XS)
+          xh_s[r * col.vr * Q + q] = make_float4(
+              xh[4 * q], xh[4 * q + 1], xh[4 * q + 2], xh[4 * q + 3]);
+      }
+    }
+  }
+  block_sum2<THREADS>(s1, s2, red);
+  if (threadIdx.x == 0) {
+    part[0] = s1;
+    part[1] = s2;
+  }
+  cluster.sync();  // every block's part is written
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const float* p = cluster.map_shared_rank(part, r);
+      t1 += p[0];
+      t2 += p[1];
+    }
+    total[0] = t1;
+    total[1] = t2;
+  }
+  __syncthreads();
+  const float m1 = total[0] / n, m2 = total[1] / n;
+
+  if (col.active) {
+#pragma unroll 4
+    for (int r = col.r0; r < rows; r += col.rows) {
+      float dxh[V], xh[V];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 d4 = dxh_s[r * col.vr * Q + q];
+        dxh[4 * q] = d4.x;
+        dxh[4 * q + 1] = d4.y;
+        dxh[4 * q + 2] = d4.z;
+        dxh[4 * q + 3] = d4.w;
+        if (XS) {
+          const float4 x4 = xh_s[r * col.vr * Q + q];
+          xh[4 * q] = x4.x;
+          xh[4 * q + 1] = x4.y;
+          xh[4 * q + 2] = x4.z;
+          xh[4 * q + 3] = x4.w;
+        }
+      }
+      if (!XS) {
+        Io<T>::unpack(xg[(size_t)r * rs], xh);
+#pragma unroll
+        for (int j = 0; j < V; ++j) xh[j] = (xh[j] - mean) * inv;
+      }
+      float o[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) o[j] = (dxh[j] - m1 - xh[j] * m2) * inv;
+      dxg[(size_t)r * rs] = Io<T>::pack(o);
+    }
+  }
+
+  // dbias, dscale of the group's channels for this image: each block's
+  // column sums (a tree over the rows of its threads, row r + h into row r),
+  // then the k blocks' in rank order
+  __syncthreads();  // dxh and xh are read
+  if (col.active) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      group[2 * Q * threadIdx.x + q] =
+          make_float4(db[4 * q], db[4 * q + 1], db[4 * q + 2], db[4 * q + 3]);
+      group[2 * Q * threadIdx.x + Q + q] =
+          make_float4(dg[4 * q], dg[4 * q + 1], dg[4 * q + 2], dg[4 * q + 3]);
+    }
+  }
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(group);
+  const int row_floats = 2 * gs;  // a row of threads' sums: vr x 2 V floats
+  int h = 1;
+  while (2 * h < col.rows) h *= 2;
+  for (; h > 0; h >>= 1) {
+    if (h < col.rows) {
+      for (int i = threadIdx.x; i < h * row_floats; i += THREADS) {
+        if (i / row_floats + h < col.rows) sums[i] += sums[i + h * row_floats];
+      }
+    }
+    __syncthreads();
+  }
+  cluster.sync();  // every block's first row holds its channel sums
+  for (int t = threadIdx.x * k + rank; t < 2 * gs; t += THREADS * k) {
+    const int which = t / gs;  // 0: dbias, 1: dscale
+    const int ch = t - which * gs;
+    const int off = (ch >> LOG_V) * 2 * V + which * V + (ch & (V - 1));
+    float acc = 0.f;
+    for (int r = 0; r < k; ++r) acc += cluster.map_shared_rank(sums, r)[off];
+    (which ? dscale_rows : dbias_rows)[(size_t)b * c + (size_t)g * gs + ch] =
+        acc;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
 // The generic forward: any C / G, any size; the group read three times.
 template <typename T>
 __global__ void __launch_bounds__(kGenericThreads)
@@ -580,6 +770,32 @@ int form_for(int hw, int c, int groups, bool backward, bool bf16) {
   return one <= kSharedMax ? 1 : 0;
 }
 
+// The backward's cluster form for a group that form_for leaves to the
+// generic kernels although its rows are whole vectors: the least k of 2, 4,
+// 8, 16 at which a share of ceil(hw / k) rows fits kSharedMax with dxh; at
+// that k, form 4 where dxh and xh both fit, else form 3 (dxh alone); form 0
+// where even 16 do not. (At the
+// SR UNet's shapes on an H100, preferring dxh and xh in clusters twice as
+// large read 1.2-1.4 times slower, and shares of half the shared memory the
+// same.)
+struct Cluster {
+  int form, k, share;
+};
+
+Cluster cluster_for(int hw, int c, int groups, bool bf16) {
+  const int gs = c / groups;
+  const int v = vec_of(bf16);
+  if (gs % v != 0 || gs / v > 1024 || form_for(hw, c, groups, true, bf16))
+    return {0, 0, 0};
+  for (int k = 2; k <= kClusterMax; k *= 2) {
+    const int share = (hw + k - 1) / k;
+    const size_t one = (size_t)share * gs * sizeof(float);
+    if (2 * one <= kSharedMax) return {4, k, share};
+    if (one <= kSharedMax) return {3, k, share};
+  }
+  return {0, 0, 0};
+}
+
 // The opt-in to more than 48 KiB of dynamic shared memory holds per kernel
 // and device: set it at the first launch on each device.
 int opt_in(const void* kernel, std::atomic<bool>* done) {
@@ -625,6 +841,61 @@ int launch_bwd(const T* x, const T* g, const float* scale, const float* bias,
   return (int)cudaGetLastError();
 }
 
+// The cluster form's launch (cudaLaunchKernelEx, clusters of k blocks along
+// x). Once per device: the shared-memory opt-in and, past the portable 8
+// blocks, the non-portable cluster size; and once per device, cluster size
+// and largest `smem` so far, whether such a cluster can be scheduled at all
+// (cudaOccupancyMaxActiveClusters): where it cannot, the call fails with
+// cudaErrorInvalidConfiguration and launches nothing.
+template <typename T, int THREADS, bool XS>
+int launch_bwd_cluster(const T* x, const T* g, const float* scale,
+                       const float* bias, const float* mean,
+                       const float* rstd, T* dx, float* dscale_rows,
+                       float* dbias_rows, int batch, int hw, int c,
+                       int groups, int k, int share, size_t smem,
+                       cudaStream_t stream) {
+  auto kernel = gn_silu_bwd_cluster_kernel<T, THREADS, XS>;
+  static std::atomic<bool> done[kMaxDevices];
+  static std::atomic<size_t> fits[kMaxDevices][4];  // k = 2, 4, 8, 16
+  int err = opt_in((const void*)kernel, done);
+  if (err != 0) return err;
+  if ((size_t)k * batch * groups >= ((size_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k * batch * groups);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int slot = 0;
+  while ((2 << slot) < k) ++slot;
+  if (fits[dev][slot].load(std::memory_order_acquire) < smem) {
+    if (k > 8) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+    }
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    fits[dev][slot].store(smem, std::memory_order_release);
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, x, g, scale, bias, mean, rstd, dx,
+                         dscale_rows, dbias_rows, hw, c, groups, k, share);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int forward(const void* x, const void* scale, const void* bias, void* y,
             void* mean, void* rstd, int batch, int hw, int c, int groups,
@@ -661,10 +932,38 @@ int backward(const void* x, const void* g, const void* scale, const void* bias,
              cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
   const int gs = c / groups;
-  int form = form_for(hw, c, groups, true, kBf16);
-  if (!(aligned16(x) && aligned16(g) && aligned16(dx) && aligned16(scale) &&
-        aligned16(bias)))
-    form = 0;
+  const int v = Io<T>::V;
+  const bool aligned = aligned16(x) && aligned16(g) && aligned16(dx) &&
+                       aligned16(scale) && aligned16(bias);
+  int form = aligned ? form_for(hw, c, groups, true, kBf16) : 0;
+  const Cluster cl = cluster_for(hw, c, groups, kBf16);
+  if (aligned && cl.form != 0) {
+    const int threads = threads_for((size_t)cl.share * gs / v, gs / v);
+    const size_t smem =
+        shared_bytes(cl.share, gs, cl.form - 2, threads, true, kBf16);
+    using Launch = int (*)(const T*, const T*, const float*, const float*,
+                           const float*, const float*, T*, float*, float*,
+                           int, int, int, int, int, int, size_t,
+                           cudaStream_t);
+    Launch f;
+    if (cl.form == 4) {
+      f = threads == 32    ? &launch_bwd_cluster<T, 32, true>
+          : threads == 128 ? &launch_bwd_cluster<T, 128, true>
+          : threads == 256 ? &launch_bwd_cluster<T, 256, true>
+          : threads == 512 ? &launch_bwd_cluster<T, 512, true>
+                           : &launch_bwd_cluster<T, 1024, true>;
+    } else {
+      f = threads == 32    ? &launch_bwd_cluster<T, 32, false>
+          : threads == 128 ? &launch_bwd_cluster<T, 128, false>
+          : threads == 256 ? &launch_bwd_cluster<T, 256, false>
+          : threads == 512 ? &launch_bwd_cluster<T, 512, false>
+                           : &launch_bwd_cluster<T, 1024, false>;
+    }
+    return f((const T*)x, (const T*)g, (const float*)scale,
+             (const float*)bias, (const float*)mean, (const float*)rstd,
+             (T*)dx, (float*)dscale_rows, (float*)dbias_rows, batch, hw, c,
+             groups, cl.k, cl.share, smem, stream);
+  }
   if (form == 0) {
     gn_silu_bwd_generic_kernel<T><<<batch * groups, kGenericThreads, 0,
                                     stream>>>(
@@ -673,7 +972,6 @@ int backward(const void* x, const void* g, const void* scale, const void* bias,
         (float*)dbias_rows, hw, c, groups);
     return (int)cudaGetLastError();
   }
-  const int v = Io<T>::V;
   const int threads = threads_for((size_t)hw * gs / v, gs / v);
   const size_t smem = shared_bytes(hw, gs, form, threads, true, kBf16);
   if (smem > kSharedMax) return (int)cudaErrorInvalidValue;
@@ -702,15 +1000,23 @@ int backward(const void* x, const void* g, const void* scale, const void* bias,
 
 }  // namespace
 
-// The form the kernels take for this shape and I/O type (`form_for`) times
-// 10000, plus the block size of the vector kernels (the table's choice).
+// The form the kernels take for this shape and I/O type (`form_for`; the
+// backward's cluster forms 3 and 4, `cluster_for`) times 10000, plus the
+// block size (the table's choice for the vector kernels), plus the cluster
+// size times 100000.
 extern "C" int gn_silu_form(int hw, int c, int groups, int backward,
                             int bf16) {
   if (groups < 1 || c % groups != 0) return 0;
-  const int form = form_for(hw, c, groups, backward != 0, bf16 != 0);
-  if (form == 0) return kGenericThreads;
   const int gs = c / groups;
   const int v = vec_of(bf16 != 0);
+  if (backward) {
+    const Cluster cl = cluster_for(hw, c, groups, bf16 != 0);
+    if (cl.form != 0)
+      return cl.k * 100000 + cl.form * 10000 +
+             threads_for((size_t)cl.share * gs / v, gs / v);
+  }
+  const int form = form_for(hw, c, groups, backward != 0, bf16 != 0);
+  if (form == 0) return kGenericThreads;
   return form * 10000 + threads_for((size_t)hw * gs / v, gs / v);
 }
 

@@ -26,21 +26,25 @@
 //
 // More than 32 states (the JAX package runs any N; its TPU kernels stop at
 // 32 and hand larger states to XLA): the states of one channel are
-// independent recurrences, so each entry walks them in chunks of at most
-// kStateChunk, one launch of the same kernel a chunk, in turn on the stream
-// (`for_state_chunks`). A chunk reads A, B, C and the states at its own
-// columns (its pointers start at state n0, rows NS = N apart) and owns its
-// columns of bound, dA, dB, dC, h_out and dh_in; it adds its share of the
-// sums over n (y in the forward, dx and ddt in the backward) to what the
-// chunks before it wrote (`acc`). Each chunk rereads x, dt (and g), so the
-// bytes grow with the chunks while the exponentials, which bound the walk,
-// grow with N as they must. At N <= 32 there is one chunk, NS = N and no
-// `acc`: the kernels run as they did.
+// independent recurrences. The forward entries walk them in chunks of at
+// most kStateChunk, one launch of the same kernel a chunk, in turn on the
+// stream (`for_state_chunks`). A chunk reads A, B, C and the states at its
+// own columns (its pointers start at state n0, rows NS = N apart), owns its
+// columns of bound and h_out and adds its share of y to what the chunks
+// before it wrote (`acc`); each chunk rereads x and dt. The backward entries
+// take the wide sweep instead (`scan_bwd_range_wide`, "the backward past 32
+// states" below): one launch walks up to kWideMax states in chunks of 16
+// inside the block, so x, dt and g are staged once per time block and a
+// lane keeps the 16-step stretch of the NMAX-16 form; past kWideMax a launch
+// per kWideMax states (`for_wide_chunks`) owns its columns of dA, dB, dC
+// and dh_in and adds its share of dx and ddt (`acc`). At N <= 32 there is
+// one chunk, NS = N and no `acc`.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -58,6 +62,7 @@ constexpr int kFwdBlocks = 4;
 constexpr int kFwdUnroll = 1;
 // the most states one walk holds (four lanes of eight)
 constexpr int kStateChunk = 32;
+constexpr int kMaxDevices = 64;
 
 inline int tiles_for(int D) { return (D + kThreads - 1) / kThreads; }
 
@@ -540,8 +545,8 @@ __device__ __forceinline__ void channel_transpose_sum(float (&v)[V], int lane) {
 // return) and the dA sums da, which it adds to. The state entering time
 // block k is read at bound_col[k * stride_k + n * stride_n] (device or
 // shared memory). Writes dx, ddt and the block's dB/dC sums over its
-// channels into `partial` (batch, n_tiles, L, W); with `acc` (a later chunk
-// of the NS states) dx and ddt are added to, not written.
+// channels into `partial` (batch, n_tiles, L, W); with `acc` dx and ddt are
+// added to, not written (no caller sets it; K7 keeps the argument).
 // The states inside a stretch are recomputed forward from the saved state
 // of the time block, never as h_{t-1} = (h_t - b_t) / a_t, which is unstable
 // where a_t underflows.
@@ -668,6 +673,282 @@ __device__ __forceinline__ void scan_bwd_range(
         const size_t off = (row + tb0 + s) * D + d0 + c;
         dx[off] = acc ? dx[off] + sm.x[s][c] : sm.x[s][c];
         ddt[off] = acc ? ddt[off] + sm.dt[s][c] : sm.dt[s][c];
+      }
+    }
+  }
+}
+
+// ------------------------------------------- the backward past 32 states
+// `scan_bwd_range_wide`: K8's reverse sweep over N <= kWideMax states in
+// one launch, for K8, K7, K10's pass (c) and E4's backward. The layout is
+// the NMAX-16 form's (256 threads, 64 channels, four lanes a channel, four
+// states a lane), and the block walks the channel's states in chunks of 16
+// inside each time block:
+// * x, dt, g and the B, C rows of all N states are staged once per time
+//   block; each chunk adds its share of dx and ddt to `dx`, `ddt` in shared
+//   memory, which leave once, coalesced, when the time block is done. Where
+//   the N > 32 entries ran once per chunk of 32 (eight states a lane, so
+//   8-step stretches: 3.5 exponentials a state and step) and reread x, dt, g
+//   and read, added to and rewrote dx and ddt each chunk, this keeps the
+//   16-step stretch of four states a lane, 2.5 exponentials a state and
+//   step, and moves each byte once.
+// * The adjoint carry phi and the dA sums of every chunk wait in shared
+//   memory between time blocks, at the lane's own slots (no barrier): a
+//   chunk loads its four of each, walks the time block's stretches and
+//   stores them back.
+// * The sums over n of dx and ddt: two shuffles across the four lanes a
+//   chunk, then the chunks in order. The sums over D of dB and dC: the
+//   NMAX-16 form's transposing butterfly and once-per-stretch reduction over
+//   the warps, into a row of `partial` 2 kWideMax wide (dB of the launch's
+//   states, then dC).
+// The shared memory is 104 KB a block, two blocks (16 warps) an SM; the
+// registers are the NMAX-16 sweep's (at most 128).
+
+constexpr int kWideChunk = 16;  // states of a chunk: four lanes of four
+constexpr int kWideMax = 64;    // states of one launch
+constexpr int kWideChunks = kWideMax / kWideChunk;
+using WideShape = BwdShape<kWideChunk>;
+
+struct __align__(16) BwdWideShared {
+  float x[kMaxT][kBwdChannels];
+  float dt[kMaxT][kBwdChannels];
+  float g[kMaxT][kBwdChannels];
+  float dx[kMaxT][kBwdChannels];
+  float ddt[kMaxT][kBwdChannels];
+  float B[kMaxT][kWideMax];
+  float C[kMaxT][kWideMax];
+  float red[kBwdWarps][WideShape::S][WideShape::W];
+  // each lane's carry (K7's first phase: its state) and dA sums, by chunk
+  float phi[kWideChunks][WideShape::SPL][kBwdThreads];
+  float da[kWideChunks][WideShape::SPL][kBwdThreads];
+};
+
+// Calls f(n0, nc) for the launches of at most kWideMax of N states, in
+// order, and returns the first error.
+template <typename F>
+int for_wide_chunks(int N, F f) {
+  for (int n0 = 0; n0 < N; n0 += kWideMax) {
+    const int err = f(n0, N - n0 < kWideMax ? N - n0 : kWideMax);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// The opt-in to the wide sweep's dynamic shared memory holds per kernel and
+// device: set it at the first launch on each device.
+inline int opt_in_wide(const void* kernel, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!done[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(BwdWideShared));
+    if (err != cudaSuccess) return (int)err;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return 0;
+}
+
+// The lane's four entries of chunk j in one of `sm`'s carry arrays.
+__device__ __forceinline__ void load_carry(
+    float (&v)[WideShape::SPL],
+    float (&slot)[kWideChunks][WideShape::SPL][kBwdThreads], int j) {
+#pragma unroll
+  for (int i = 0; i < WideShape::SPL; ++i) v[i] = slot[j][i][threadIdx.x];
+}
+
+__device__ __forceinline__ void store_carry(
+    float (&slot)[kWideChunks][WideShape::SPL][kBwdThreads],
+    const float (&v)[WideShape::SPL], int j) {
+#pragma unroll
+  for (int i = 0; i < WideShape::SPL; ++i) slot[j][i][threadIdx.x] = v[i];
+}
+
+// `stage_time_block` for the wide sweep: the B (and, g != null, C) rows of
+// the launch's N <= kWideMax states, zero past N.
+__device__ __forceinline__ void stage_time_block_wide(
+    BwdWideShared& sm, const float* __restrict__ x,
+    const float* __restrict__ dt, const float* __restrict__ g,
+    const float* __restrict__ Bm, const float* __restrict__ Cm, size_t row,
+    int t0, int len, int d0, int D, int N, int NS) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < len * kBwdChannels; i += kBwdThreads) {
+    const int s = i / kBwdChannels;
+    const int c = i - s * kBwdChannels;
+    const bool ok = d0 + c < D;
+    const size_t off = (row + t0 + s) * D + d0 + c;
+    sm.x[s][c] = ok ? x[off] : 0.f;
+    sm.dt[s][c] = ok ? dt[off] : 0.f;
+    if (g != nullptr) sm.g[s][c] = ok ? g[off] : 0.f;
+  }
+  for (int i = tid; i < len * kWideMax; i += kBwdThreads) {
+    const int s = i / kWideMax;
+    const int n = i - s * kWideMax;
+    const size_t off = (row + t0 + s) * NS + n;
+    sm.B[s][n] = n < N ? Bm[off] : 0.f;
+    if (g != nullptr) sm.C[s][n] = n < N ? Cm[off] : 0.f;
+  }
+}
+
+// The lane's states of chunk j over the staged steps [s_begin, s_end).
+__device__ __forceinline__ void advance_wide(
+    const BwdWideShared& sm, const float (&a2)[WideShape::SPL],
+    float (&h)[WideShape::SPL], int q, int ch, int j, int s_begin,
+    int s_end) {
+  constexpr int SPL = WideShape::SPL;
+  for (int s = s_begin; s < s_end; ++s) {
+    const float dtv = sm.dt[s][ch];
+    const float u = dtv * sm.x[s][ch];
+    float bn[SPL];
+    load_lane_row<SPL>(bn, sm.B[s] + j * kWideChunk, q);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i)
+      h[i] = fast_exp2(dtv * a2[i]) * h[i] + u * bn[i];
+  }
+}
+
+// `scan_bwd_range` over the launch's N <= kWideMax states (A, B, C and the
+// state columns start at its first state, rows NS long), chunk by chunk.
+// The carry and the dA sums of chunk j enter and leave in sm.phi[j] and
+// sm.da[j] (the caller fills and reads them); `partial` rows are 2 kWideMax
+// wide. Every thread of the block must call it (it synchronises).
+template <bool HAS_G>
+__device__ __forceinline__ void scan_bwd_range_wide(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, const float* __restrict__ g,
+    const float* bound_col, size_t stride_k, size_t stride_n,
+    float* __restrict__ dx, float* __restrict__ ddt,
+    float* __restrict__ partial, BwdWideShared& sm, int b, int tile,
+    int n_tiles, int d0, bool active, int L, int D, int N, int NS, int T,
+    int t_begin, int t_end, bool acc) {
+  constexpr int SPL = WideShape::SPL;
+  constexpr int S = WideShape::S;
+  constexpr int W = WideShape::W;  // a chunk's dB then dC values of a step
+  constexpr int WP = 2 * kWideMax;  // a step's row of `partial`
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q = tid & (kBwdLanes - 1);
+  const int ch = tid >> 2;
+  const int d = d0 + ch;
+  const size_t row = (size_t)b * L;
+  const int chunks = (N + kWideChunk - 1) / kWideChunk;
+  // where the lane's one sum of a step goes in a chunk's row of `red` (see
+  // scan_bwd_range)
+  const int j0 = ((lane & 16) ? SPL : 0) + ((lane & 8) ? SPL / 2 : 0) +
+                 ((lane & 4) ? SPL / 4 : 0);
+  const int col0 =
+      j0 < SPL ? q * SPL + j0 : kWideChunk + q * SPL + j0 - SPL;
+
+  for (int k = (t_end - 1) / T; k >= t_begin / T; --k) {
+    const int tb0 = k * T;
+    const int tlen = min(T, t_end - tb0);
+    __syncthreads();  // the previous time block's dx, ddt have left
+    stage_time_block_wide(sm, x, dt, HAS_G ? g : nullptr, Bm, Cm, row, tb0,
+                          tlen, d0, D, N, NS);
+    __syncthreads();
+
+#pragma unroll 1
+    for (int j = 0; j < chunks; ++j) {
+      const int nj = N - j * kWideChunk;  // states from the chunk's first on
+      float a2[SPL], phi[SPL], da[SPL];
+      load_a_lane<SPL>(a2, A + j * kWideChunk, d, q, nj, NS, active);
+      load_carry(phi, sm.phi, j);
+      load_carry(da, sm.da, j);
+      const float* bound_j =
+          bound_col + (size_t)k * stride_k + (size_t)j * kWideChunk * stride_n;
+      for (int s0 = ((tlen - 1) / S) * S; s0 >= 0; s0 -= S) {
+        const int slen = min(S, tlen - s0);
+        // hist[s] is the state before step s0 + s, hist[s + 1] the one after
+        float hist[S + 1][SPL];
+        load_lane_states<SPL>(hist[0], bound_j, stride_n, q, nj, active);
+        // from the time block's start to s0
+        advance_wide(sm, a2, hist[0], q, ch, j, 0, s0);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if (s < slen) {  // the same for every thread of the block
+            const float dtv = sm.dt[s0 + s][ch];
+            const float u = dtv * sm.x[s0 + s][ch];
+            float bn[SPL];
+            load_lane_row<SPL>(bn, sm.B[s0 + s] + j * kWideChunk, q);
+#pragma unroll
+            for (int i = 0; i < SPL; ++i)
+              hist[s + 1][i] = fast_exp2(dtv * a2[i]) * hist[s][i] + u * bn[i];
+          }
+        }
+
+#pragma unroll
+        for (int s = S - 1; s >= 0; --s) {
+          if (s < slen) {
+            const float dtv = sm.dt[s0 + s][ch];
+            const float xv = sm.x[s0 + s][ch];
+            const float gv = HAS_G ? sm.g[s0 + s][ch] : 0.f;
+            const float u = dtv * xv;
+            float v[2 * SPL], bn[SPL], cn[SPL];
+            load_lane_row<SPL>(bn, sm.B[s0 + s] + j * kWideChunk, q);
+            if (HAS_G) {
+              load_lane_row<SPL>(cn, sm.C[s0 + s] + j * kWideChunk, q);
+            } else {
+#pragma unroll
+              for (int i = 0; i < SPL; ++i) cn[i] = 0.f;
+            }
+            float g_b = 0.f, ddt_acc = 0.f;
+#pragma unroll
+            for (int i = 0; i < SPL; ++i) {
+              const float a = fast_exp2(dtv * a2[i]);
+              const float gam = cn[i] * gv + phi[i];
+              const float dadec = gam * hist[s][i] * a;
+              ddt_acc = fmaf(dadec, a2[i], ddt_acc);
+              g_b = fmaf(gam, bn[i], g_b);
+              da[i] = fmaf(dadec, dtv, da[i]);
+              v[i] = gam * u;
+              v[SPL + i] = hist[s + 1][i] * gv;
+              phi[i] = a * gam;
+            }
+            // over the channel's four lanes, then onto the chunks before
+            g_b += __shfl_xor_sync(0xffffffffu, g_b, 1);
+            ddt_acc += __shfl_xor_sync(0xffffffffu, ddt_acc, 1);
+            g_b += __shfl_xor_sync(0xffffffffu, g_b, 2);
+            ddt_acc += __shfl_xor_sync(0xffffffffu, ddt_acc, 2);
+            if (q == 0) {
+              const float vx = g_b * dtv;
+              const float vdt = fmaf(g_b, xv, ddt_acc * kLn2);
+              sm.dx[s0 + s][ch] = j == 0 ? vx : sm.dx[s0 + s][ch] + vx;
+              sm.ddt[s0 + s][ch] = j == 0 ? vdt : sm.ddt[s0 + s][ch] + vdt;
+            }
+            channel_transpose_sum<2 * SPL>(v, lane);
+            sm.red[warp][s][col0] = v[0];
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < slen * W; i += kBwdThreads) {
+          const int s = i / W;
+          const int c = i - s * W;
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < kBwdWarps; ++w) sum += sm.red[w][s][c];
+          const int col = c < kWideChunk
+                              ? j * kWideChunk + c
+                              : kWideMax + j * kWideChunk + c - kWideChunk;
+          partial[(((size_t)b * n_tiles + tile) * L + tb0 + s0 + s) * WP +
+                  col] = sum;
+        }
+        __syncthreads();  // red is rewritten by the next stretch
+      }
+      store_carry(sm.phi, phi, j);
+      store_carry(sm.da, da, j);
+    }
+
+    for (int i = tid; i < tlen * kBwdChannels; i += kBwdThreads) {
+      const int s = i / kBwdChannels;
+      const int c = i - s * kBwdChannels;
+      if (d0 + c < D) {
+        const size_t off = (row + tb0 + s) * D + d0 + c;
+        dx[off] = acc ? dx[off] + sm.dx[s][c] : sm.dx[s][c];
+        ddt[off] = acc ? ddt[off] + sm.ddt[s][c] : sm.ddt[s][c];
       }
     }
   }

@@ -42,11 +42,13 @@
 // dB and dC are summed over D as in K8 (per-tile partials, no atomics); dA is
 // written per (row, chunk) and summed by the caller. Its pass (a) adds an
 // exponential a state and step to the sweep's 2.5.
-// Any N: past 32 states both entries run all their passes once per chunk of
+// Any N: past 32 states the forward runs all its passes once per chunk of
 // 32 states, in turn (`for_state_chunks`, selective_scan_common.cuh); each
-// chunk of states owns its columns of bound, ends, phi, dA, dB, dC and adds
-// its share to y (forward) or to dx and ddt (backward). Every chunk of
-// states writes the same sums of dt.
+// chunk of states owns its columns of bound and ends and adds its share to
+// y. The backward runs passes (a) and (b) per chunk of 32 (each writes its
+// columns of phi and the same sums of dt), then pass (c) once per 64 states
+// in the wide sweep (`split_bwd_wide_kernel`, `scan_bwd_range_wide`), which
+// adds its share to dx and ddt and owns its columns of dA, dB, dC.
 
 #include "selective_scan_common.cuh"
 
@@ -221,8 +223,8 @@ split_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ bound,
                  const float* __restrict__ phi_buf, float* __restrict__ dx,
                  float* __restrict__ ddt, float* __restrict__ da_rows,
-                 float* __restrict__ partial, int L, int D, int N, int NS,
-                 int T, int CB, bool acc) {
+                 float* __restrict__ partial, int L, int D, int N, int T,
+                 int CB) {
   constexpr int SPL = BwdShape<NMAX>::SPL;
   __shared__ BwdShared<NMAX> sm;
   const int b = blockIdx.y;
@@ -237,20 +239,75 @@ split_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int t_end = min(L, t_begin + CB * T);
 
   float a_coef[SPL], phi[SPL], da[SPL];
-  load_a_lane<SPL>(a_coef, A, d, q, N, NS, active);
+  load_a_lane<SPL>(a_coef, A, d, q, N, N, active);
   load_lane_states<SPL>(phi,
-                        phi_buf + ((size_t)b * gridDim.z + c) * NS * D + d,
+                        phi_buf + ((size_t)b * gridDim.z + c) * N * D + d,
                         (size_t)D, q, N, active);
 #pragma unroll
   for (int i = 0; i < SPL; ++i) da[i] = 0.f;
   scan_bwd_range<NMAX>(x, dt, Bm, Cm, g,
-                       bound + (size_t)b * n_blocks * NS * D + d,
-                       (size_t)NS * D, (size_t)D, dx, ddt, partial, a_coef,
+                       bound + (size_t)b * n_blocks * N * D + d,
+                       (size_t)N * D, (size_t)D, dx, ddt, partial, a_coef,
                        phi, da, sm, b, tile, gridDim.x, d0, active, L, D, N,
-                       NS, T, t_begin, t_end, acc);
+                       N, T, t_begin, t_end, false);
   if (active)
     store_lane_states<SPL>(
-        da_rows + (((size_t)b * gridDim.z + c) * D + d) * NS, 1, da, q, N);
+        da_rows + (((size_t)b * gridDim.z + c) * D + d) * N, 1, da, q, N);
+}
+
+// (c) of the backward past 32 states: `split_bwd_kernel` over up to
+// kWideMax states through the wide sweep.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+split_bwd_wide_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ g,
+                      const float* __restrict__ bound,
+                      const float* __restrict__ phi_buf,
+                      float* __restrict__ dx, float* __restrict__ ddt,
+                      float* __restrict__ da_rows,
+                      float* __restrict__ partial, int L, int D, int N,
+                      int NS, int T, int CB, bool acc) {
+  constexpr int SPL = WideShape::SPL;
+  extern __shared__ float4 wide_smem[];
+  BwdWideShared& sm = *reinterpret_cast<BwdWideShared*>(wide_smem);
+  const int b = blockIdx.y;
+  const int c = blockIdx.z;
+  const int tile = blockIdx.x;
+  const int d0 = tile * kBwdChannels;
+  const int d = d0 + (threadIdx.x >> 2);
+  const int q = threadIdx.x & (kBwdLanes - 1);
+  const bool active = d < D;
+  const int n_blocks = (L + T - 1) / T;
+  const int chunks = (N + kWideChunk - 1) / kWideChunk;
+  const int t_begin = c * CB * T;
+  const int t_end = min(L, t_begin + CB * T);
+  const float* phi_in = phi_buf + ((size_t)b * gridDim.z + c) * NS * D + d;
+
+  for (int j = 0; j < chunks; ++j) {
+    float phi[SPL], da[SPL];
+    load_lane_states<SPL>(phi, phi_in + (size_t)j * kWideChunk * D,
+                          (size_t)D, q, N - j * kWideChunk, active);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) da[i] = 0.f;
+    store_carry(sm.phi, phi, j);
+    store_carry(sm.da, da, j);
+  }
+  scan_bwd_range_wide<true>(x, dt, A, Bm, Cm, g,
+                            bound + (size_t)b * n_blocks * NS * D + d,
+                            (size_t)NS * D, (size_t)D, dx, ddt, partial, sm,
+                            b, tile, gridDim.x, d0, active, L, D, N, NS, T,
+                            t_begin, t_end, acc);
+  if (!active) return;
+  float* da_out = da_rows + (((size_t)b * gridDim.z + c) * D + d) * NS;
+  for (int j = 0; j < chunks; ++j) {
+    float da[SPL];
+    load_carry(da, sm.da, j);
+    store_lane_states<SPL>(da_out + j * kWideChunk, 1, da, q,
+                           N - j * kWideChunk);
+  }
 }
 
 // One chunk of states: n0 .. n0 + N - 1 of NS.
@@ -280,37 +337,72 @@ int launch_fwd(const float* x, const float* dt, const float* A, const float* B,
   return (int)cudaGetLastError();
 }
 
+// N <= NMAX states.
 template <int NMAX>
 int launch_bwd(const float* x, const float* dt, const float* A, const float* B,
                const float* C, const float* g, const float* bound, float* dx,
                float* ddt, float* da_rows, float* dB, float* dC, float* partial,
-               float* phi_buf, float* sdt, int batch, int L, int D, int n0,
-               int N, int NS, int T, int CB, cudaStream_t stream) {
+               float* phi_buf, float* sdt, int batch, int L, int D, int N,
+               int T, int CB, cudaStream_t stream) {
   const int n_blocks = (L + T - 1) / T;
   const int n_chunks = (n_blocks + CB - 1) / CB;
-  A += n0;
-  B += n0;
-  C += n0;
-  bound += (size_t)n0 * D;
-  phi_buf += (size_t)n0 * D;
-  da_rows += n0;
   const dim3 grid(tiles_for(D), batch, n_chunks);
   split_bwd_local_kernel<NMAX><<<grid, kThreads, 0, stream>>>(
-      dt, A, C, g, phi_buf, sdt, L, D, N, NS, T, CB);
+      dt, A, C, g, phi_buf, sdt, L, D, N, N, T, CB);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   split_carry_kernel<NMAX><<<dim3(tiles_for(D), batch), kThreads, 0, stream>>>(
-      phi_buf, sdt, A, n_chunks, D, N, NS);
+      phi_buf, sdt, A, n_chunks, D, N, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 sweep_grid(bwd_tiles_for(D), batch, n_chunks);
   split_bwd_kernel<NMAX><<<sweep_grid, kBwdThreads, 0, stream>>>(
       x, dt, A, B, C, g, bound, phi_buf, dx, ddt, da_rows, partial, L, D, N,
-      NS, T, CB, n0 > 0);
+      T, CB);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  return launch_bwd_sum(partial, dB, dC, batch, L, D, N, N, 2 * NMAX, stream);
+}
+
+// Past 32 states, for states n0 .. n0 + N - 1 of NS (N <= kWideMax): passes
+// (a) and (b) per chunk of at most 32 of them, then one launch of pass (c)
+// in the wide sweep and the sum over the tiles.
+int launch_bwd_wide(const float* x, const float* dt, const float* A,
+                    const float* B, const float* C, const float* g,
+                    const float* bound, float* dx, float* ddt, float* da_rows,
+                    float* dB, float* dC, float* partial, float* phi_buf,
+                    float* sdt, int batch, int L, int D, int n0, int N,
+                    int NS, int T, int CB, cudaStream_t stream) {
+  const int n_blocks = (L + T - 1) / T;
+  const int n_chunks = (n_blocks + CB - 1) / CB;
+  const dim3 grid(tiles_for(D), batch, n_chunks);
+  int err = for_state_chunks(N, [&](int m0, int nc) {
+    const int s0 = n0 + m0;
+    auto local = nc <= 16 ? &split_bwd_local_kernel<16>
+                          : &split_bwd_local_kernel<32>;
+    auto carry = nc <= 16 ? &split_carry_kernel<16> : &split_carry_kernel<32>;
+    local<<<grid, kThreads, 0, stream>>>(dt, A + s0, C + s0, g,
+                                         phi_buf + (size_t)s0 * D, sdt, L, D,
+                                         nc, NS, T, CB);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    carry<<<dim3(tiles_for(D), batch), kThreads, 0, stream>>>(
+        phi_buf + (size_t)s0 * D, sdt, A + s0, n_chunks, D, nc, NS);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  err = opt_in_wide((const void*)split_bwd_wide_kernel, opted_in);
+  if (err != 0) return err;
+  split_bwd_wide_kernel<<<dim3(bwd_tiles_for(D), batch, n_chunks),
+                          kBwdThreads, sizeof(BwdWideShared), stream>>>(
+      x, dt, A + n0, B + n0, C + n0, g, bound + (size_t)n0 * D,
+      phi_buf + (size_t)n0 * D, dx, ddt, da_rows + n0, partial, L, D, N, NS,
+      T, CB, n0 > 0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   return launch_bwd_sum(partial, dB + n0, dC + n0, batch, L, D, N, NS,
-                        2 * NMAX, stream);
+                        2 * kWideMax, stream);
 }
 
 bool valid(int L, int N, int T, int CB) {
@@ -352,13 +444,19 @@ extern "C" int selective_scan_bwd_split(
     void* dB, void* dC, void* partial, void* phi_buf, void* sdt, int batch,
     int L, int D, int N, int T, int CB, void* stream) {
   if (!valid(L, N, T, CB)) return (int)cudaErrorInvalidValue;
-  return for_state_chunks(N, [&](int n0, int nc) {
-    auto f = nc <= 16 ? &launch_bwd<16> : &launch_bwd<32>;
-    return f((const float*)x, (const float*)dt, (const float*)A,
-             (const float*)B, (const float*)C, (const float*)g,
-             (const float*)bound, (float*)dx, (float*)ddt, (float*)da_rows,
-             (float*)dB, (float*)dC, (float*)partial, (float*)phi_buf,
-             (float*)sdt, batch, L, D, n0, nc, N, T, CB,
-             (cudaStream_t)stream);
-  });
+  if (N > kStateChunk)
+    return for_wide_chunks(N, [&](int n0, int nc) {
+      return launch_bwd_wide(
+          (const float*)x, (const float*)dt, (const float*)A,
+          (const float*)B, (const float*)C, (const float*)g,
+          (const float*)bound, (float*)dx, (float*)ddt, (float*)da_rows,
+          (float*)dB, (float*)dC, (float*)partial, (float*)phi_buf,
+          (float*)sdt, batch, L, D, n0, nc, N, T, CB, (cudaStream_t)stream);
+    });
+  auto f = N <= 16 ? &launch_bwd<16> : &launch_bwd<32>;
+  return f((const float*)x, (const float*)dt, (const float*)A,
+           (const float*)B, (const float*)C, (const float*)g,
+           (const float*)bound, (float*)dx, (float*)ddt, (float*)da_rows,
+           (float*)dB, (float*)dC, (float*)partial, (float*)phi_buf,
+           (float*)sdt, batch, L, D, N, T, CB, (cudaStream_t)stream);
 }

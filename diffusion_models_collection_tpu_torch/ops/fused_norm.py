@@ -11,7 +11,9 @@ the output head.
   `group_norm_silu_fwd` returns the output alone.
 * `group_norm_silu_bwd` (`dmc::gn_silu_bwd`) is the backward from those
   statistics: one kernel
-  of `csrc/gn_silu.cu` on a CUDA tensor, `group_norm_silu_bwd_ref` (the same
+  of `csrc/gn_silu.cu` on a CUDA tensor (a group too large for one SM's
+  shared memory spread over a thread block cluster; `kernel_form` names the
+  form), `group_norm_silu_bwd_ref` (the same
   formulas on whole tensors) on a CPU tensor. The JAX package has no
   backward kernel: its `_core_bwd` recomputes the plain forward and takes
   that one's vjp, which on the card costs more than the forward kernel
@@ -247,11 +249,16 @@ def kernel_form(x_shape, num_groups: int, backward: bool = False,
     _, h, w, c = x_shape
     code = _build.library().gn_silu_form(h * w, c, num_groups, int(backward),
                                          int(dtype == torch.bfloat16))
+    blocks, code = divmod(code, 100000)
     form, threads = divmod(code, 10000)
     what = {0: "generic, the group read from device memory each pass",
             1: ("dxh in shared memory, x read twice" if backward
                 else "the group in shared memory"),
-            2: "dxh and xh in shared memory"}[form]
+            2: "dxh and xh in shared memory",
+            3: f"cluster of {blocks} blocks, dxh of a block's rows in shared "
+               "memory, x read twice",
+            4: f"cluster of {blocks} blocks, dxh and xh of a block's rows in "
+               "shared memory"}[form]
     return f"{what}, {threads} threads"
 
 

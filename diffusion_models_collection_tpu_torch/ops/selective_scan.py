@@ -75,11 +75,13 @@ over x, dt (batch, L, D); A (D, N); B, C (batch, L, N); h (D, N) per row.
 The JAX gate `supported()` (D % 128, N <= 32, L >= 8) is a TPU lane limit
 and is not ported: the kernels take any L >= 1, any D and any N. A walk
 holds at most `STATE_CHUNK` (32) states of a channel, four lanes of eight;
-past that every kernel entry walks the states in chunks of 32 in turn, one
-launch of the same kernel a chunk (the JAX package runs its XLA scan
-there), each chunk adding its share to the sums over the states (y; dx,
-ddt) and owning its columns of the rest (`csrc/selective_scan_common.cuh`).
-A wrapper counts one launch a call whatever the chunks. Under tensor
+past that (the JAX package runs its XLA scan there) every forward entry
+walks the states in chunks of 32 in turn, one launch of the same kernel a
+chunk, each chunk adding its share to y and owning its columns of the rest,
+and every backward entry runs the wide sweep, which walks up to `WIDE_MAX`
+(64) states of a channel in chunks of 16 inside one launch, x, dt and g
+staged once (`csrc/selective_scan_common.cuh`; `sweep_form` names the
+form). A wrapper counts one launch a call whatever the chunks. Under tensor
 parallelism the scan needs no form of its own: the DiM's `Mamba` mixer, cut
 to a tensor-parallel rank
 (`parallel/tensor_parallel.py`), calls these kernels unchanged on its rank's
@@ -97,8 +99,10 @@ import torch
 
 from . import _build, _library
 
-# the states one walk of a kernel holds; a larger N runs in chunks of it
+# the states one walk of a kernel holds; a larger N runs in chunks of it,
+# the backward's in launches of the wide sweep of up to WIDE_MAX states
 STATE_CHUNK = 32
+WIDE_MAX = 64
 
 # Kernel launches since the process started (or since a caller reset them):
 # the forward's (K5, K6), the forward's with saved states (K6, counted in
@@ -524,6 +528,16 @@ def selective_scan_fwd(
     if save_states:
         return _FWD_STATES(x, dt, A, B, C)
     return _FWD(x, dt, A, B, C), None
+
+
+def sweep_form(n_state: int) -> str:
+    """In words, the layout of the reverse sweep that K8, K7, K10 and E4's
+    backward run for `n_state` states (`csrc/selective_scan_common.cuh`)."""
+    if n_state <= STATE_CHUNK:
+        return f"{'four' if n_state <= 16 else 'eight'} states a lane"
+    launches = -(-n_state // WIDE_MAX)
+    return (f"the wide sweep, four states a lane in {-(-n_state // 16)} "
+            f"chunks of 16, {launches} launch{'es' if launches > 1 else ''}")
 
 
 def _check_bound(name: str, bound, batch, length, d_inner, n_state) -> None:

@@ -147,6 +147,7 @@ class ServingWorld:
         self._closed = threading.Event()
         self._failing = threading.Lock()
         self._on_failure = None
+        self._watching = None
 
     @property
     def leads(self) -> bool:
@@ -268,11 +269,18 @@ class ServingWorld:
                 self._failed(message)
                 return
 
-        threading.Thread(target=watching, name="serve-world-watch",
-                         daemon=True).start()
+        self._watching = threading.Thread(target=watching,
+                                          name="serve-world-watch",
+                                          daemon=True)
+        self._watching.start()
 
     def close(self) -> None:
+        """End the watch and wait for its thread: a daemon thread still in a
+        store call when the interpreter exits aborts the process (SIGABRT,
+        "terminate called without an active exception")."""
         self._closed.set()
+        if self._watching is not None:
+            self._watching.join(CONTROL_TIMEOUT)
 
 
 class SamplerService:

@@ -968,6 +968,98 @@ def test_gn_silu_kernels_take_rows_wider_than_the_block_for_their_size(
         assert max_rel(got, want) <= TOL
 
 
+# K1b's cluster form: a group whose float32 copy outgrows one SM's shared
+# memory, its rows split over a thread block cluster. The first group past
+# one float32 copy (61 x 60 x 16 floats) and the first past two (43 x 43 x
+# 16, dxh alone in one block), rows no multiple of the cluster (63 x 65),
+# the SR step's four shapes at batch 2 (64 x 64 x 128, 256, 384; 32 x 32 x
+# 512) and groups of 128 x 128 and 256 x 128 x 16 floats: every cluster
+# size the rule picks
+GN_CLUSTER_SHAPES = [(2, 61, 60, 128), (2, 43, 43, 128), (2, 63, 65, 128),
+                     (2, 64, 64, 128), (2, 64, 64, 256), (2, 64, 64, 384),
+                     (2, 32, 32, 512), (1, 128, 128, 128), (1, 256, 128, 128)]
+
+
+def cluster_size(shape, dtype):
+    """The blocks of the backward's cluster form at this shape, or None
+    where it takes another form."""
+    form = fused_norm.kernel_form(shape, 8, True, dtype)
+    return int(form.split()[2]) if form.startswith("cluster") else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_silu_bwd_cluster_form_takes_every_cluster_size(cuda, dtype):
+    assert cluster_size((2, 43, 43, 128), dtype) is None
+    assert cluster_size((2, 61, 60, 128), dtype) is not None
+    for shape in GN_CLUSTER_SHAPES[3:7]:
+        assert cluster_size(shape, dtype) is not None, shape
+    assert {cluster_size(s, dtype) for s in GN_CLUSTER_SHAPES} >= {2, 4, 8,
+                                                                   16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GN_CLUSTER_SHAPES)
+def test_gn_silu_bwd_cluster_form_matches_plain_and_autograd(cuda, shape,
+                                                             dtype):
+    """Against the plain backward and (float32) autograd through the plain
+    forward; two launches bit for bit (the cluster's sums in rank order)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 2)
+    x, scale, bias, g = gn_inputs(shape, gen, cuda)
+    x, g = x.to(dtype), g.to(dtype)
+    _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    before = fused_norm.BWD_LAUNCHES
+    grads = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    again = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    torch.cuda.synchronize()
+    assert fused_norm.BWD_LAUNCHES == before + 2
+    for name, got, twice in zip(("dx", "dscale", "dbias"), grads, again):
+        assert torch.equal(got, twice), name  # no atomics
+    plain = fused_norm.group_norm_silu_bwd_ref(
+        x, scale, bias, g, fused_norm.group_norm_silu_stats_ref(x, 8), 8)
+    if dtype == torch.bfloat16:
+        assert_bf16_close(grads[0], plain[0], 1, TOL)
+        for name, got, want in zip(("dscale", "dbias"), grads[1:], plain[1:]):
+            assert max_rel(got, want) <= TOL, name
+        return
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    auto = torch.autograd.grad(fused_norm.group_norm_silu_ref(*leaves, 8),
+                               leaves, g)
+    for name, got, want, want_auto in zip(("dx", "dscale", "dbias"), grads,
+                                          plain, auto):
+        assert max_rel(got, want) <= TOL, name
+        assert max_rel(got, want_auto) <= TOL, name
+
+
+@pytest.mark.cuda
+def test_gn_silu_bwd_takes_views_that_are_not_16_byte_aligned(cuda):
+    """x and g 4 bytes off a 16-byte boundary at a shape of the cluster form:
+    the scalar generic kernel, against the plain backward and the cluster
+    form on aligned copies."""
+    shape = (2, 64, 64, 128)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, scale, bias, g = gn_inputs(shape, gen, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xs, g_s = shifted(x), shifted(g)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 and g_s.data_ptr() % 16
+    _, stats = fused_norm.group_norm_silu_fwd_stats(x, scale, bias, 8)
+    got = fused_norm.group_norm_silu_bwd(xs, scale, bias, g_s, stats, 8)
+    aligned = fused_norm.group_norm_silu_bwd(x, scale, bias, g, stats, 8)
+    torch.cuda.synchronize()
+    plain = fused_norm.group_norm_silu_bwd_ref(x, scale, bias, g, stats, 8)
+    for name, ours, theirs, want in zip(("dx", "dscale", "dbias"), got,
+                                        aligned, plain):
+        assert max_rel(ours, want) <= TOL, name
+        assert max_rel(ours, theirs) <= TOL, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 16, 16, 128), (3, 5, 7, 24)])
 def test_group_norm_silu_function_grads_on_the_card(cuda, shape):
@@ -1109,10 +1201,11 @@ def test_scan_fwd_takes_views_that_are_not_16_byte_aligned(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["fwd", "fwd_split", "bwd", "bwd_nostate",
                                 "bwd_split"])
-def test_scan_refuses_more_than_32_states_on_the_card(cuda, op):
-    """There is no such limit any more: 33 states, once refused, run in
-    chunks of 32 and 1, one counted launch a call, and match the plain
-    versions, which the CPU runs on the same inputs."""
+def test_scan_takes_33_states_in_one_counted_launch_on_the_card(cuda, op):
+    """33 states, once refused on the card, run (the forwards in chunks of
+    32 and 1, the backwards in one launch of the wide sweep), one counted
+    launch a call, and match the plain versions, which the CPU runs on the
+    same inputs."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     x, dt, A, B, C, g = scan_inputs(2, 32, 64, 33, gen, cuda)
     _, bound = scan_mod.selective_scan_fwd_ref(x, dt, A, B, C, True)
@@ -1581,11 +1674,13 @@ def test_flash_attention_wide_forward_draws_the_plain_mask(
     assert (got[..., :][~keep] == 0).all()
 
 
-# more than 32 states: 33 (a chunk of 32 and one of 1), 48, 64 (the DiM at
-# state_size 64) and 128; L 256, a ragged 100 and 1024 (K7's scratch in
-# device memory); D 768 and 200
+# more than 32 states: 33, 48, 64 (the DiM at state_size 64), 65 and 96
+# (the backward in two launches of the wide sweep, the second of 1 and 32
+# states) and 128 (two of 64); L 256, a ragged 100, 37 and 300 and 1024; D
+# 768, 200 and 130
 WIDE_STATE_SHAPES = [(4, 256, 768, 64), (2, 100, 200, 33), (2, 1024, 768, 64),
-                     (3, 37, 130, 48), (2, 256, 768, 128)]
+                     (3, 37, 130, 48), (2, 256, 768, 128), (2, 100, 200, 65),
+                     (3, 300, 200, 96)]
 
 
 @pytest.mark.cuda

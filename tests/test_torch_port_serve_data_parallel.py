@@ -42,6 +42,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -534,3 +535,28 @@ def test_a_failed_worker_ends_every_rank_non_zero(served):
     assert all(code != 0 for code in failing["codes"]), failing["logs"]
     assert failing["seconds"] < FAILURE_SECONDS
     assert "a worker's trajectory failed" in failing["logs"][1]
+
+
+def test_close_waits_for_the_watch_thread_in_a_store_call():
+    """`ServingWorld.close` returns only when its watch thread has ended,
+    also when that thread is inside a slow store call: a daemon thread still
+    in a store call at the interpreter's exit aborted a stopped worker
+    (exit -6, "terminate called without an active exception") in about one
+    run of the worlds above in four. A store whose `check` takes 0.5 s holds
+    the thread there while `close` is called."""
+    class SlowStore:
+        def check(self, keys):
+            time.sleep(0.5)
+            return False
+
+    world = serve.ServingWorld.__new__(serve.ServingWorld)
+    world.prefix, world.store, world.failure = "dmc_serve/1/", SlowStore(), None
+    world._closed, world._failing = threading.Event(), threading.Lock()
+    world._on_failure = world._watching = None
+    world.watch()
+    time.sleep(0.3)  # past the first WATCH_SECONDS: inside `check`
+    watching = [t for t in threading.enumerate()
+                if t.name == "serve-world-watch"]
+    assert watching
+    world.close()
+    assert not any(t.is_alive() for t in watching)

@@ -3,7 +3,8 @@ the scan forward and the GroupNorm+SiLU kernels of one or more trees of the
 PyTorch port, on one NVIDIA GPU.
 
     python tools/profile_torch_kernels.py
-        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn|bf16|wide]
+        [--only attention|attn_fwd|attn_dropout|scan|scan_fwd|gn|bf16|wide|
+                gn_generic|scan_states]
         [ROOT ...]
 
 From the root of a checkout, on a machine with one CUDA card and nvcc. Each
@@ -53,6 +54,19 @@ dropout is not captured in a graph, whose capture fails) and the call's bound:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32) or the tensor
 cores' 989 (bf16).
+`--only gn_generic` (run only when named): K1b (`group_norm_silu_bwd`) at
+the 64x64 SR UNet's four GroupNorm+SiLU shapes whose float32 group
+outgrows one SM's shared memory (64 x 64 x 128, 256, 384 and 32 x 32 x
+512, 8 groups) at its train batch of 256 in float32, and at 64 x 64 x 128
+in bf16, each line naming the form (`kernel_form`), against the plain
+backward (2e-5; bf16 one bf16 step of the largest value), timed (a single
+launch, 20 in a row, 20 from a CUDA graph) beside the plain backward and
+the bound (`gn_bwd_bound`); then the sum over the step's 13 such calls.
+`--only scan_states` (run only when named): K8, K7, K10 and E4's backward
+(`selective_scan_bwd`, `_bwd_nostate`, `_bwd_split`, `_bwd_state`) at the
+DiM's train step shape (batch 128, L 256, D 768) at N 64, 33, 48 and 128,
+and K8 at N 16 beside them, against the plain backward (1e-4), timed the
+same three ways beside the plain K8 and the bound (`scan_bwd_bound`).
 For every shape below, K3 (`flash_attention_bwd`, in each form the tree's
 wrapper offers) and K8, K7, K10 (`selective_scan_bwd`, `_bwd_nostate`,
 `_bwd_split`) are held against their plain versions (bar 1e-4 on the
@@ -637,6 +651,139 @@ def run_wide(root, attention, randn):
     return ok
 
 
+# (H, W, C, calls a step) of the 64x64 SR UNet's GroupNorm+SiLU shapes whose
+# float32 group outgrows one SM's shared memory (the backward's cluster
+# form), with their calls in one train step; then the batch of its step
+SR_GENERIC = [(64, 64, 128, 8), (64, 64, 256, 2), (64, 64, 384, 1),
+              (32, 32, 512, 2)]
+SR_BATCH = 256
+
+
+def gn_bwd_bound(b, h, w, c, elem):
+    """ms of the least time of K1b: x and g in, dx out (`elem` bytes each),
+    float32 scale, bias and the per-image dscale, dbias rows, over 3.35
+    TB/s; 24 operations an element over 67 TFLOP/s (float32 arithmetic in
+    both forms); the larger."""
+    n = b * h * w * c
+    return max(1e3 * (elem * 3 * n + 4 * (2 * c + 2 * b * c)) / PEAK_BYTES,
+               1e3 * 24 * n / PEAK_OPS["float32"])
+
+
+def run_gn_generic(root, randn):
+    """K1b at the SR step's four generic shapes at batch 256 in float32 and
+    at its largest in bf16, beside the plain backward and the bound, and the
+    sum over the step's 13 calls."""
+    import torch
+    from diffusion_models_collection_tpu_torch.ops import fused_norm as gn
+    ok = True
+    totals = [0.0, 0.0, 0.0]
+    cases = [(h, w, c, n, torch.float32) for h, w, c, n in SR_GENERIC]
+    cases.append((64, 64, 128, 0, torch.bfloat16))
+    for h, w, c, calls, dtype in cases:
+        bf16 = dtype == torch.bfloat16
+        scale, bias = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        x = (randn(SR_BATCH, h, w, c) * 2 + 0.5).to(dtype)
+        g = randn(SR_BATCH, h, w, c).to(dtype)
+        _, stats = gn.group_norm_silu_fwd_stats(x, scale, bias, GN_GROUPS)
+        refs = gn.group_norm_silu_bwd_ref(x, scale, bias, g, stats, GN_GROUPS)
+        refs = tuple(r.float() for r in refs)
+        form = gn.kernel_form(x.shape, GN_GROUPS, True, dtype)
+        label = (f"K1b {'bf16' if bf16 else 'fp32'} B={SR_BATCH} {h}x{w}x{c}"
+                 f" [{form}]")
+        fn = lambda: tuple(t.float() for t in gn.group_norm_silu_bwd(  # noqa
+            x, scale, bias, g, stats, GN_GROUPS))
+        ok &= check(label, fn, refs, BAR_BF16 if bf16 else BAR_FWD)
+        kernel = lambda: gn.group_norm_silu_bwd(  # noqa: E731
+            x, scale, bias, g, stats, GN_GROUPS)
+        times = (median_ms(kernel), burst_ms(kernel), graph_ms(kernel))
+        plain = median_ms(lambda: gn.group_norm_silu_bwd_ref(
+            x, scale, bias, g, stats, GN_GROUPS), reps=3, warmup=1)
+        bound = gn_bwd_bound(SR_BATCH, h, w, c, 2 if bf16 else 4)
+        print(f"   ms a call: kernel {times[0]:.4f} single, {times[1]:.4f} "
+              f"in a row, {times[2]:.4f} from a CUDA graph; plain {plain:.4f}"
+              f"; bound {bound:.4f} (x{calls} a step)", flush=True)
+        totals = [a + calls * t for a, t in zip(totals, times)]
+        del x, g, refs, stats
+        torch.cuda.empty_cache()
+    print(f"{root}: K1b over the SR step's 13 generic calls at batch "
+          f"{SR_BATCH}, ms: {totals[0]:.4f} single launches, {totals[1]:.4f}"
+          f" in a row, {totals[2]:.4f} from a CUDA graph", flush=True)
+    return ok
+
+
+# (batch, L, D) of the DiM train step; its state sizes past 32 (64 the
+# `state_size` the path runs), and 16 beside them
+STATES_SHAPE = (128, 256, 768)
+STATES = (64, 33, 48, 128)
+
+
+def scan_bwd_bound(kind, batch, length, d_inner, n_state):
+    """ms of the least time of a scan backward (`chip_smoke.scan_work`):
+    x, dt, g in and dx, ddt out, B, C in and dB, dC out, A in and dA out
+    (plus `bound` in from saved states; E4 also the cotangent of h_out in
+    and dh_in out) over 3.35 TB/s; 21 operations a state and step (26 with
+    the rebuild of K7) over 67 TFLOP/s; the larger."""
+    import math
+    rows = batch * length
+    states = rows * d_inner * n_state
+    t_block = 32 if length % 32 == 0 else 16
+    n_bytes = 4 * (5 * rows * d_inner
+                   + 2 * (2 * rows * n_state + d_inner * n_state))
+    if kind != "K7":
+        n_bytes += 4 * batch * math.ceil(length / t_block) * n_state * d_inner
+    if kind == "E4":
+        n_bytes += 4 * 2 * batch * d_inner * n_state
+    ops = (26 if kind == "K7" else 21) * states
+    return max(1e3 * n_bytes / PEAK_BYTES, 1e3 * ops / PEAK_OPS["float32"])
+
+
+def run_scan_states(root, scan, randn):
+    """K8, K7, K10 and E4's backward past 32 states at the DiM's train step
+    shape against the plain backward, timed beside K8 at 16 states, the
+    plain version and the bound."""
+    import torch
+    import torch.nn.functional as F
+    ok = True
+    batch, length, d_inner = STATES_SHAPE
+    for n_state in (16, *STATES):
+        x = randn(batch, length, d_inner)
+        dt = F.softplus(randn(batch, length, d_inner) - 2)
+        A = -torch.exp(randn(d_inner, n_state) * 0.5) * torch.arange(
+            1, n_state + 1, device="cuda")
+        args = (x, dt, A, randn(batch, length, n_state),
+                randn(batch, length, n_state))
+        g = randn(batch, length, d_inner)
+        h_in = 0.5 * randn(batch, d_inner, n_state)
+        g_h = randn(batch, d_inner, n_state)
+        _, bound = scan.selective_scan_fwd(*args, True)
+        _, bound4, _ = scan.selective_scan_fwd_state(*args, h_in)
+        refs = scan.selective_scan_bwd_ref(*args, g, bound)
+        plain = median_ms(lambda: scan.selective_scan_bwd_ref(*args, g, bound),
+                          reps=3, warmup=1)
+        refs4 = scan.selective_scan_bwd_state_ref(*args, g, bound4, g_h)
+        entries = [("K8", lambda: scan.selective_scan_bwd(*args, g, bound),
+                    refs)]
+        if n_state > 16:
+            entries += [
+                ("K7", lambda: scan.selective_scan_bwd_nostate(*args, g),
+                 refs),
+                ("K10", lambda: scan.selective_scan_bwd_split(*args, g,
+                                                             bound), refs),
+                ("E4", lambda: scan.selective_scan_bwd_state(
+                    *args, g, bound4, g_h), refs4)]
+        shape = f"B={batch} L={length} D={d_inner} N={n_state}"
+        for name, fn, want in entries:
+            ok &= check(f"{name} {shape}", fn, want)
+            least = scan_bwd_bound(name, batch, length, d_inner, n_state)
+            print(f"   {name} {shape}, ms a call: kernel {median_ms(fn):.4f}"
+                  f" single, {burst_ms(fn):.4f} in a row, "
+                  f"{graph_ms(fn):.4f} from a CUDA graph; plain K8 "
+                  f"{plain:.4f}; bound {least:.4f}", flush=True)
+        del x, dt, A, args, g, bound, bound4, refs, refs4
+        torch.cuda.empty_cache()
+    return ok
+
+
 def run_tree(root, only):
     import torch
     import torch.nn.functional as F
@@ -687,6 +834,10 @@ def run_tree(root, only):
         ok &= run_bf16(root, attention, randn)
     if only in (None, "wide"):
         ok &= run_wide(root, attention, randn)
+    if only == "gn_generic":
+        ok &= run_gn_generic(root, randn)
+    if only == "scan_states":
+        ok &= run_scan_states(root, scan, randn)
 
     for batch, length, d_inner, n_state in (SCAN_CASES if only in (None, "scan")
                                             else []):
@@ -713,7 +864,7 @@ def main(argv=None):
     parser.add_argument("--only",
                         choices=["attention", "attn_fwd", "attn_dropout",
                                  "scan", "scan_fwd", "gn", "bf16",
-                                 "wide"])
+                                 "wide", "gn_generic", "scan_states"])
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.tree:
